@@ -1,0 +1,99 @@
+// The rollout core shared by every rollout kernel: one thread owns one
+// rollout and keeps its state, previous control and cost sum in registers
+// for all H steps.  It replaces the TPU kernels' shared body
+// (control_toolkit_tpu/ops/pallas_mppi.py:rollout_cost_core with
+// ops/soa_integrators.py:make_soa_stepper), which held the same values as
+// [8, C] vector tiles in VMEM.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "plants.cuh"
+
+namespace ctt {
+
+// Integrator constants.  The host computes them in double and rounds them
+// to float, as the Python floats of soa_integrators.py are rounded when
+// they meet a float32 tensor.
+struct StepConsts {
+  int rk4;        // 1: rk4, 0: euler
+  int substeps;   // intermediate_steps
+  float sub_dt;   // dt / substeps
+  float half_dt;  // 0.5 * sub_dt
+  float dt6;      // sub_dt / 6
+};
+
+// Advance x by one control period: `substeps` euler or rk4 sub-steps in
+// soa_integrators.py's operation order (rk4: (k1 + 2*k2) + (2*k3 + k4)).
+template <class Plant>
+__device__ __forceinline__ void integrate(float (&x)[Plant::S], const float (&u)[Plant::U],
+                                          const float* p, const StepConsts& c) {
+  constexpr int S = Plant::S;
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float k1[S];
+    Plant::derivs(x, u, p, k1);
+    if (!c.rk4) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
+      continue;
+    }
+    float t[S], k2[S], k3[S], k4[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k1[i];
+    Plant::derivs(t, u, p, k2);
+#pragma unroll
+    for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k2[i];
+    Plant::derivs(t, u, p, k3);
+#pragma unroll
+    for (int i = 0; i < S; ++i) t[i] = x[i] + c.sub_dt * k3[i];
+    Plant::derivs(t, u, p, k4);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const float incr = (k1[i] + 2.0f * k2[i]) + (2.0f * k3[i] + k4[i]);
+      x[i] = x[i] + c.dt6 * incr;
+    }
+  }
+}
+
+// One rollout's registers: state, previous control, stage-cost sum.
+template <class Plant>
+struct Rollout {
+  float x[Plant::S];
+  float prev[Plant::U];
+  float acc;
+
+  // Start from s0 with the applied previous control from the packed params.
+  __device__ __forceinline__ void start(const float* s0, const float* p) {
+#pragma unroll
+    for (int i = 0; i < Plant::S; ++i) x[i] = s0[i];
+#pragma unroll
+    for (int j = 0; j < Plant::U; ++j) prev[j] = p[Plant::kUPrev + j];
+    acc = 0.0f;
+  }
+
+  // Stage cost of (x, u) against the previous control, then step.
+  __device__ __forceinline__ void advance(const float (&u)[Plant::U], const float* p,
+                                          const StepConsts& c, float max_cost) {
+    acc = acc + Plant::stage_cost(x, u, prev, p, max_cost);
+    integrate<Plant>(x, u, p, c);
+#pragma unroll
+    for (int j = 0; j < Plant::U; ++j) prev[j] = u[j];
+  }
+
+  // Trajectory cost: the mean over H stage costs and the terminal cost.
+  __device__ __forceinline__ float finish(const float* p, int H) const {
+    return (acc + Plant::terminal_cost(x, p)) / static_cast<float>(H + 1);
+  }
+};
+
+// The packed parameters, copied into registers once per thread.
+template <class Plant>
+__device__ __forceinline__ void load_params(const float* __restrict__ pvec, float (&p)[Plant::kN]) {
+#pragma unroll
+  for (int i = 0; i < Plant::kN; ++i) p[i] = __ldg(pvec + i);
+}
+
+constexpr int kPlantCartpole = 0;  // ops/kernels.py PLANT_IDS
+constexpr int kThreads = 128;      // rollouts per block
+
+}  // namespace ctt

@@ -1,0 +1,200 @@
+"""Dynamics predictors (counterpart of control_toolkit_tpu/models/predictors.py).
+
+A predictor holds a rollout function ``rollout(s0 [B,S], Q [B,H,U],
+params) -> [B,H+1,S]``; the horizon is a Python loop (``scan_rollout``).
+Only the ``"ODE[:integrator[:substeps]]"`` predictor is ported so far;
+the learned and ``:fast`` predictors are still to be ported (ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from control_toolkit_tpu_torch.models.dynamics import DYNAMICS, DynamicsFn
+from control_toolkit_tpu_torch.utils import registry
+
+
+def euler_step(f: DynamicsFn, x, u, dt, p):
+    return x + dt * f(x, u, p)
+
+
+def rk4_step(f: DynamicsFn, x, u, dt, p):
+    k1 = f(x, u, p)
+    k2 = f(x + 0.5 * dt * k1, u, p)
+    k3 = f(x + 0.5 * dt * k2, u, p)
+    k4 = f(x + dt * k3, u, p)
+    return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+INTEGRATORS = {"euler": euler_step, "rk4": rk4_step}
+
+
+def make_ode_rollout(
+    dynamics: DynamicsFn, dt: float, integrator: str = "rk4", intermediate_steps: int = 1
+) -> Callable:
+    """Build ``rollout(s0 [B,S], Q [B,H,U], params) -> [B,H+1,S]`` with
+    ``rollout.single_step`` exposed for the fused cost rollouts."""
+    step_fn = INTEGRATORS[integrator]
+    sub_dt = dt / intermediate_steps
+
+    def single_step(x, u, params):
+        for _ in range(intermediate_steps):
+            x = step_fn(dynamics, x, u, sub_dt, params)
+        return x
+
+    def rollout(s0: torch.Tensor, Q: torch.Tensor, params: Dict) -> torch.Tensor:
+        return scan_rollout(single_step, s0, Q, params)
+
+    rollout.single_step = single_step
+    return rollout
+
+
+def scan_rollout(step, s0: torch.Tensor, Q: torch.Tensor, params) -> torch.Tensor:
+    """Horizon rollout of ``step(x [B,S], u [B,U], params) -> [B,S]``:
+    [B,S] x [B,H,U] -> [B,H+1,S] with s0 prepended."""
+    xs = [s0]
+    x = s0
+    for h in range(Q.shape[1]):
+        x = step(x, Q[:, h, :], params)
+        xs.append(x)
+    return torch.stack(xs, dim=1)
+
+
+class Predictor:
+    """Base predictor: a pure rollout."""
+
+    num_states: int
+    num_control_inputs: int
+
+    def rollout(self, s0, Q, params: Optional[Dict] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def predict_core(self, s0, Q, params=None):
+        return self.rollout(s0, Q, params)
+
+    def default_params(self) -> Dict:
+        return {}
+
+    @property
+    def single_step(self):
+        return None
+
+
+@registry.predictors.register("ODE")
+class ODEPredictor(Predictor):
+    """ODE-integrator predictor over a named built-in dynamics model.
+
+    ``environment_name`` is kept (None for custom dynamics): the rollout
+    kernels read it to pick the device plant (``kernel_families/ode.py``).
+    """
+
+    def __init__(
+        self,
+        environment_name: str = "cartpole",
+        dt: float = 0.02,
+        integrator: str = "rk4",
+        intermediate_steps: int = 1,
+        dynamics: Optional[DynamicsFn] = None,
+        num_states: Optional[int] = None,
+        num_control_inputs: Optional[int] = None,
+        params: Optional[Dict] = None,
+    ):
+        if dynamics is not None:
+            if num_states is None or num_control_inputs is None:
+                raise ValueError("custom dynamics needs num_states/num_control_inputs")
+            self.environment_name = None
+            self.dynamics = dynamics
+            self._defaults = dict(params or {})
+            self.num_states = num_states
+            self.num_control_inputs = num_control_inputs
+        else:
+            key = environment_name.lower()
+            if key not in DYNAMICS:
+                raise KeyError(
+                    f"No built-in dynamics for environment {environment_name!r}; "
+                    f"available: {sorted(DYNAMICS)}"
+                )
+            fn, defaults, n_s, n_u = DYNAMICS[key]
+            self.environment_name = key
+            self.dynamics = fn
+            self._defaults = dict(defaults)
+            if params:
+                self._defaults.update(params)
+            self.num_states = n_s
+            self.num_control_inputs = n_u
+        self.dt = float(dt)
+        self.integrator = integrator
+        self.intermediate_steps = int(intermediate_steps)
+        self.rollout_fn = make_ode_rollout(
+            self.dynamics, self.dt, integrator, self.intermediate_steps
+        )
+
+    def default_params(self) -> Dict:
+        return dict(self._defaults)
+
+    def rollout(self, s0, Q, params=None):
+        p = self._defaults if params is None else params
+        return self.rollout_fn(s0, Q, p)
+
+    @property
+    def single_step(self):
+        return self.rollout_fn.single_step
+
+
+class PredictorWrapper:
+    """Deferred-configuration predictor resolver.  Spec grammar so far:
+    ``"ODE"`` / ``"ODE_v0"`` (rk4), ``"ODE:euler"``, ``"ODE:rk4:2"``
+    (integrator / substeps)."""
+
+    def __init__(self):
+        self.predictor: Optional[Predictor] = None
+        self.num_states: Optional[int] = None
+        self.num_control_inputs: Optional[int] = None
+        self._spec: Optional[str] = None
+
+    def configure(
+        self,
+        batch_size: Optional[int] = None,
+        horizon: Optional[int] = None,
+        dt: float = 0.02,
+        predictor_specification: str = "ODE",
+        environment_name: str = "cartpole",
+        variable_parameters=None,
+        **kwargs,
+    ) -> None:
+        self._spec = predictor_specification or "ODE"
+        spec_parts = self._spec.split(":")
+        head = spec_parts[0]
+        if head in ("ODE", "ODE_v0"):
+            opts = list(spec_parts[1:])
+            if "fast" in opts:
+                raise NotImplementedError(
+                    "the ':fast' polynomial-trig predictor is not ported yet (ROADMAP)"
+                )
+            self.predictor = ODEPredictor(
+                environment_name=environment_name,
+                dt=dt,
+                integrator=opts[0] if len(opts) > 0 else "rk4",
+                intermediate_steps=int(opts[1]) if len(opts) > 1 else 1,
+                **kwargs,
+            )
+        else:
+            raise KeyError(
+                f"Unknown or not yet ported predictor specification {self._spec!r}"
+            )
+        self.num_states = self.predictor.num_states
+        self.num_control_inputs = self.predictor.num_control_inputs
+
+    def default_params(self) -> Dict:
+        return self.predictor.default_params() if self.predictor else {}
+
+    def rollout(self, s0, Q, params=None):
+        return self.predictor.rollout(s0, Q, params)
+
+    def predict_core(self, s0, Q, params=None):
+        return self.predictor.rollout(s0, Q, params)
+
+    @property
+    def single_step(self):
+        return self.predictor.single_step if self.predictor else None

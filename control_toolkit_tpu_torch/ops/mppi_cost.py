@@ -1,0 +1,113 @@
+"""K2: the semi-fused MPPI cost — the counterpart of the semi-fused half of
+control_toolkit_tpu/ops/pallas_mppi.py (``make_run.external``, body
+``kernel1_ext`` over ``rollout_cost_core``).
+
+``mppi_cost(model, s0 [S], u_nom [H,U], pvec [N], eps [P,U,K], W [P,H],
+low [U], high [U], cc_weight, R, NU) -> cost [K]``.  ``eps`` is the
+pre-scaled noise at the P inducing points in the layout the kernel reads:
+``[P, U, K]``, rollout index fastest, so a warp's loads coalesce.  (The
+JAX kernel's tile layout ``[T, U, P*8, C]`` is a TPU artifact; rollout
+``k = t*tile + r*C + c`` of it is ``eps[:, :, k]`` here.)  Per rollout and
+step, the noise is interpolated from the two inducing points bracketing h
+with the weights of ``W`` itself, added to ``u_nom``, clipped, rolled out
+and scored with the stage cost plus the MPPI correction cost:
+
+    cost = (sum_h stage + terminal) / (H+1) + sum_h,j cc*(c1*d^2 + R*u*d + c3*u^2)
+
+with c1 = 0.5*(1-1/NU)*R and c3 = 0.5*R; the correction sum is not
+averaged (pallas_mppi.py:250).
+
+The CUDA kernel is ``csrc/mppi_cost.cu`` (its source note says what bounds
+it on the card); ``mppi_cost_plain`` is the same function in PyTorch, a
+loop over h on ``[K]`` tensors.  The wrapper runs the plain version only
+when every operand lies on the CPU; for CUDA operands it launches the
+kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
+
+
+def _corr_consts(cc_weight: float, R: float, NU: float):
+    """(cc, c1, r, c3), computed in double as the JAX kernel's Python
+    floats are."""
+    return float(cc_weight), 0.5 * (1.0 - 1.0 / NU) * R, float(R), 0.5 * R
+
+
+def mppi_cost_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, high,
+                    cc_weight: float, R: float, NU: float) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch (pallas_mppi.py:214-274)."""
+    p = model.unpack(pvec)
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
+                                model.intermediate_steps)
+    cc, c1, r, c3 = _corr_consts(cc_weight, R, NU)
+    P, U, K = eps.shape
+    H = u_nom.shape[0]
+    Wl = W.tolist()
+    xs = tuple(s0[i].expand(K) for i in range(s0.shape[0]))
+    prev_us = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
+    acc = torch.zeros(K, dtype=eps.dtype, device=eps.device)
+    corr = torch.zeros(K, dtype=eps.dtype, device=eps.device)
+    p0 = 0
+    for h in range(H):
+        while p0 + 1 < P and Wl[p0][h] == 0.0:
+            p0 += 1
+        us, dus = [], []
+        for j in range(U):
+            d = W[p0, h] * eps[p0, j]
+            if p0 + 1 < P:
+                d = d + W[p0 + 1, h] * eps[p0 + 1, j]
+            us.append(torch.clamp(u_nom[h, j] + d, low[j], high[j]))
+            dus.append(d)
+        us = tuple(us)
+        acc = acc + model.stage(xs, us, prev_us, p)
+        for j in range(U):
+            corr = corr + cc * (
+                c1 * dus[j] * dus[j] + r * us[j] * dus[j] + c3 * us[j] * us[j]
+            )
+        xs = one_step(xs, us, p)
+        prev_us = us
+    return (acc + model.terminal(xs, p)) / (H + 1) + corr
+
+
+def mppi_cost(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch.Tensor,
+              pvec: torch.Tensor, eps: torch.Tensor, W: torch.Tensor,
+              low: torch.Tensor, high: torch.Tensor,
+              cc_weight: float, R: float, NU: float) -> torch.Tensor:
+    """Per-rollout MPPI cost ``[K]``; see the module docstring."""
+    if (s0.ndim != 1 or u_nom.ndim != 2 or eps.ndim != 3 or W.ndim != 2
+            or W.shape != (eps.shape[0], u_nom.shape[0])
+            or eps.shape[1] != u_nom.shape[1]
+            or low.shape != (u_nom.shape[1],) or high.shape != low.shape):
+        raise ValueError(
+            "mppi_cost: expected s0 [S], u_nom [H,U], eps [P,U,K], W [P,H], "
+            f"low/high [U]; got {tuple(s0.shape)}, {tuple(u_nom.shape)}, "
+            f"{tuple(eps.shape)}, {tuple(W.shape)}, {tuple(low.shape)}, {tuple(high.shape)}"
+        )
+    if kernels.on_cpu(s0, u_nom, pvec, eps, W, low, high):
+        return mppi_cost_plain(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)
+    device = kernels.check_cuda_operands(
+        "mppi_cost", s0=s0, u_nom=u_nom, pvec=pvec, eps=eps, W=W, low=low, high=high
+    )
+    P, U, K = eps.shape
+    H = u_nom.shape[0]
+    model.check_launch_shape("mppi_cost", s0.shape[0], U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    lib = kernels.load()
+    with torch.cuda.device(device):
+        rc = lib.ctt_mppi_cost(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), u_nom.data_ptr(),
+            pvec.data_ptr(), eps.data_ptr(), W.data_ptr(), low.data_ptr(),
+            high.data_ptr(), cost.data_ptr(), K, H, P, *model.step_args(),
+            model.max_cost, *_corr_consts(cc_weight, R, NU),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, "mppi_cost")
+    mppi_cost.launches += 1
+    return cost
+
+
+mppi_cost.launches = 0

@@ -1,0 +1,304 @@
+"""Optimizer base class (counterpart of control_toolkit_tpu/optimizers/base.py).
+
+Same constructor surface, ``configure(num_states, num_control_inputs)``,
+``step(s, time) -> u`` and ``logging_values`` contract as the JAX package.
+An optimizer builds a step function ``step_fn(state, s, params) -> (u,
+new_state, diagnostics)`` over an explicit state; everything that may
+change between steps (cost weights, attributes, dynamics constants)
+arrives in ``params`` as tensors on the optimizer's device.
+
+Ported so far is what MPPI needs.  The JAX features the slice does not
+use raise ``NotImplementedError`` (ROADMAP): ``remat``, ``risk_weight``,
+``robust_eval``, ``initial_guess_policy`` and mesh sharding.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from control_toolkit_tpu_torch.utils.rng import derive_seed, make_generator
+
+logger = logging.getLogger(__name__)
+
+
+def _not_ported(feature: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to control_toolkit_tpu_torch yet (ROADMAP)"
+    )
+
+
+class Optimizer:
+    registered_name: str = "template"
+
+    def __init__(
+        self,
+        predictor,
+        cost_function,
+        control_limits: Tuple[np.ndarray, np.ndarray],
+        optimizer_logging: bool = False,
+        seed: Optional[int] = None,
+        num_rollouts: int = 32,
+        mpc_horizon: int = 35,
+        computation_library: Any = None,  # accepted for config compatibility
+        calculate_optimal_trajectory: bool = False,
+        remat: bool = False,
+        force_scan: bool = False,
+        logging_lazy: bool = False,
+        initial_guess_policy=None,
+        risk_weight: float = 0.0,
+        robust_eval: Optional[str] = None,
+        **kwargs,
+    ):
+        for feature, on in (("remat", remat),
+                            ("initial_guess_policy", initial_guess_policy is not None),
+                            ("risk_weight", float(risk_weight) != 0.0),
+                            ("robust_eval", robust_eval is not None)):
+            if on:
+                raise _not_ported(feature)
+        self.predictor = predictor
+        self.cost_function = cost_function
+        self.num_rollouts = int(num_rollouts)
+        self.mpc_horizon = int(mpc_horizon)
+        self.optimizer_logging = bool(optimizer_logging)
+        self.calculate_optimal_trajectory = bool(calculate_optimal_trajectory)
+        self.force_scan = bool(force_scan)
+        # Keep diagnostics as device tensors until Controller.get_outputs.
+        self.logging_lazy = bool(logging_lazy)
+
+        unknown = set(kwargs) - {"mpc_timestep"}
+        if unknown:
+            logger.warning(
+                f"{self.__class__.__name__}: ignoring unknown config keys "
+                f"{sorted(unknown)} (check config_optimizers.yml for typos)"
+            )
+
+        self._action_limits = tuple(np.asarray(v, np.float32) for v in control_limits)
+        self._seed = derive_seed(seed, context=self.__class__.__name__)
+        # Set by the owning controller from its 'device' config key before
+        # configure(); every tensor of the optimizer lives there.
+        self.device = torch.get_default_device()
+
+        self.num_states: Optional[int] = None
+        self.num_control_inputs: Optional[int] = None
+        self.logging_values: Dict[str, Any] = {}
+        self.opt_state: Any = None
+        self.u: Any = 0.0
+        self.optimal_control_sequence = None
+        self._step_fn = None
+        self._build_epoch = 0
+
+    # ---- lifecycle --------------------------------------------------------
+    def configure(self, num_states: int, num_control_inputs: int,
+                  dt: Optional[float] = None, predictor_specification: Optional[str] = None,
+                  default_configure: bool = True, **kwargs) -> None:
+        self.num_states = int(num_states)
+        self.num_control_inputs = int(num_control_inputs)
+        self.dt = dt
+        low, high = self._action_limits
+        self.action_low = torch.as_tensor(low, device=self.device)
+        self.action_high = torch.as_tensor(high, device=self.device)
+        self._build()
+        if default_configure:
+            self.optimizer_reset()
+
+    def _build(self) -> None:
+        """Build the step function; ``_build_epoch`` counts builds."""
+        self._build_epoch += 1
+        self._step_fn = self._make_step_fn()
+
+    def _make_step_fn(self):
+        raise NotImplementedError
+
+    def _init_state(self, generator: torch.Generator):
+        raise NotImplementedError
+
+    def optimizer_reset(self) -> None:
+        """Fresh state; the noise stream restarts from the seed."""
+        generator = make_generator(self._seed, self.device, context=self.__class__.__name__)
+        self.opt_state = self._init_state(generator)
+        self.u = torch.zeros(self.num_control_inputs, dtype=torch.float32, device=self.device)
+
+    # ---- hot path ---------------------------------------------------------
+    def step(self, s: np.ndarray, time=None, params: Optional[Dict] = None) -> np.ndarray:
+        """One control step: host state in, host control out."""
+        if self.optimizer_logging:
+            self.logging_values = {"s_logged": np.asarray(s).copy()}
+        s_dev = torch.as_tensor(np.asarray(s, np.float32), device=self.device)
+        if s_dev.ndim == 1:
+            s_dev = s_dev[None]
+        params = params if params is not None else self.default_params()
+        u, self.opt_state, diag = self._step_fn(self.opt_state, s_dev, params)
+        self.u = u
+
+        if self.optimizer_logging:
+            conv = (lambda v: v) if self.logging_lazy else (
+                lambda v: None if v is None else v.detach().cpu().numpy())
+            for key_name, val in diag.items():
+                self.logging_values[key_name] = conv(val)
+            self.logging_values["u_logged"] = u.cpu().numpy()
+            self.optimal_control_sequence = self.logging_values.get("u_nom")
+        elif "u_nom" in diag:
+            self.optimal_control_sequence = diag["u_nom"]
+
+        u_host = u.cpu().numpy()
+        # NaN guard at the host boundary: a diverged solve commands zero and
+        # the optimizer state starts over.
+        if not np.all(np.isfinite(u_host)):
+            logger.warning(
+                f"{self.__class__.__name__} produced non-finite control "
+                f"{u_host}; substituting zeros and resetting optimizer state"
+            )
+            self.optimizer_reset()
+            u_host = np.zeros_like(u_host)
+            self.u = torch.zeros_like(u)
+        return u_host
+
+    def default_params(self) -> Dict:
+        dyn = {
+            k: torch.tensor(float(v), dtype=torch.float32, device=self.device)
+            for k, v in self.predictor.default_params().items()
+        }
+        cost = self.cost_function.current_params(device=self.device)
+        return {"dyn": dyn, "cost": cost["cost"], "attrs": cost["attrs"]}
+
+    # ---- shared pure helpers ---------------------------------------------
+    def _cost_params(self, params: Dict) -> Dict:
+        return {"cost": params["cost"], "attrs": params["attrs"]}
+
+    def _rollout_and_cost(self, s_tiled, Q, u_prev, params):
+        traj = self.predictor.rollout(s_tiled, Q, params["dyn"])
+        cost = self.cost_function.get_trajectory_cost(
+            traj, Q, u_prev, self._cost_params(params)
+        )
+        return cost, traj
+
+    def _can_fuse_rollout(self) -> bool:
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        return (
+            self.predictor is not None
+            and self.predictor.single_step is not None
+            and cf is not None
+            and cf.supports_fused_rollout
+        )
+
+    def _fused_cost(self, s_tiled, Q, u_prev, params):
+        """Trajectory cost without materializing [K,H+1,S] (ops/rollout.py)."""
+        from control_toolkit_tpu_torch.ops.rollout import scan_cost_rollout
+
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        cp = self._cost_params(params)
+        step = self.predictor.single_step
+        cost, _ = scan_cost_rollout(
+            lambda x, u, p: step(x, u, p["dyn"]),
+            lambda x, u, up, p: cf.stage_cost_step(x, u, up, cp),
+            lambda x, p: cf.get_terminal_cost(x, cp),
+            s_tiled, Q, u_prev, params,
+        )
+        return cost
+
+    def _make_cost_only(self):
+        """Best cost-only rollout evaluator, or None: the K1 kernel family
+        (plain version on CPU tensors) > the fused loop > None (callers
+        keep the trajectory path)."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        if ode.can_use_cost(self):
+            return ode.build_cost(self)
+        if self._can_fuse_rollout():
+            return self._fused_cost
+        return None
+
+    def _soa_bindings(self):
+        """Bind the predictor's SOA dynamics and the cost's SOA primitives,
+        plus the packed scalar parameter layout the kernels read: dynamics
+        constants (``d_*`` sorted), cost weights (``c_*`` sorted),
+        attributes (``a_*`` sorted), then ``__u_prev_j``.
+
+        Returns (param_keys, pack, derivs_soa, stage_soa, terminal_soa,
+        pred); ``stage_soa`` includes the control-change term and the
+        MAX_COST shift."""
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        U = self.num_control_inputs
+
+        dyn_keys = sorted(pred.default_params())
+        cost_keys = sorted(cf.dynamic_config_keys)
+        attr_keys = sorted(cf.attr_keys)
+        param_keys = (
+            [f"d_{k}" for k in dyn_keys]
+            + [f"c_{k}" for k in cost_keys]
+            + [f"a_{k}" for k in attr_keys]
+            + [f"__u_prev_{j}" for j in range(U)]
+        )
+
+        def split_p(p):
+            dyn = {k: p[f"d_{k}"] for k in dyn_keys}
+            cp = {
+                "cost": {k: p[f"c_{k}"] for k in cost_keys},
+                "attrs": {k: p[f"a_{k}"] for k in attr_keys},
+            }
+            return dyn, cp
+
+        max_cost = cf.MAX_COST
+
+        def stage_soa(xs, us, prev_us, p):
+            _, cp = split_p(p)
+            return (
+                cf._stage_cost_core_soa(xs, us, cp)
+                + cf.control_change_cost_soa(us, prev_us, cp)
+                - max_cost
+            )
+
+        def terminal_soa(xs, p):
+            _, cp = split_p(p)
+            return cf.kernel_terminal_soa(xs, cp)
+
+        def derivs(xs, us, p):
+            dyn, _ = split_p(p)
+            return pred.dynamics.soa(xs, us, dyn)
+
+        attr_defaults = cf.attr_defaults
+        device = self.device
+
+        def pack(params, u_prev):
+            vals = {}
+            for k in dyn_keys:
+                vals[f"d_{k}"] = params["dyn"][k]
+            for k in cost_keys:
+                vals[f"c_{k}"] = params["cost"][k]
+            for k in attr_keys:
+                # A missing attribute takes the cost's declared default, so
+                # the kernel path optimizes the same objective as the loop.
+                v = params["attrs"].get(k, attr_defaults.get(k, 0.0))
+                if np.ndim(v) != 0:
+                    raise ValueError(
+                        f"attribute {k!r} is array-valued; the kernel path "
+                        "carries attributes as packed scalars. Set "
+                        "force_scan=True or keep this attribute scalar."
+                    )
+                vals[f"a_{k}"] = v
+            up = torch.as_tensor(u_prev, dtype=torch.float32, device=device)
+            if up.ndim >= 2 and up.shape[0] > 1:
+                raise ValueError(
+                    "the kernel path packs u_prev as scalars and supports only "
+                    f"a single shared previous control; got shape {tuple(up.shape)}"
+                )
+            up = up.reshape(-1)
+            for j in range(U):
+                vals[f"__u_prev_{j}"] = up[j]
+            return torch.stack([
+                torch.as_tensor(vals[k], dtype=torch.float32, device=device)
+                for k in param_keys
+            ])
+
+        return param_keys, pack, derivs, stage_soa, terminal_soa, pred
+
+    def plan_sharding(self, mesh, axis=None) -> None:
+        raise _not_ported("mesh sharding")
+
+    @property
+    def optimizer_name(self) -> str:
+        return self.registered_name

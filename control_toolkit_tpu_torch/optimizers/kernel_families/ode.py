@@ -1,0 +1,71 @@
+"""Analytic ODE kernel family, cost half (counterpart of
+control_toolkit_tpu/optimizers/kernel_families/ode.py).
+
+The gate admits an ODE predictor whose plant has a device implementation
+(``ops/kernels.py`` PLANT_IDS, with the cost that plant evaluates), a cost
+with ``supports_fused_rollout`` and scalar attributes, and ``force_scan``
+off.  The JAX gate's TPU conjuncts (backend, ``K % tile``, VMEM budgets)
+have no counterpart: K is masked in the kernel, and on CPU tensors the
+kernel wrappers run their plain versions.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
+from control_toolkit_tpu_torch.models.predictors import ODEPredictor
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout
+
+name = "ode"
+
+# Environment -> the cost class whose terms its device plant evaluates.
+DEVICE_COSTS = {"cartpole": CartpoleQuadraticCost}
+
+
+def compatible_model(opt) -> bool:
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return (
+        isinstance(pred, ODEPredictor)
+        and pred.environment_name in DEVICE_COSTS
+        and type(cf) is DEVICE_COSTS[pred.environment_name]
+        and cf.supports_fused_rollout
+        and cf.post_terminal_cost is None
+        and all(np.ndim(v) == 0 for v in cf.attr_defaults.values())
+    )
+
+
+def can_use_cost(opt) -> bool:
+    return not opt.force_scan and compatible_model(opt)
+
+
+def rollout_model(opt):
+    """``(RolloutModel, pack)`` for the rollout kernels from the
+    optimizer's SOA bindings."""
+    param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    model = kernels.RolloutModel(
+        plant=pred.environment_name,
+        param_keys=tuple(param_keys),
+        derivs=derivs,
+        stage=stage_soa,
+        terminal=terminal_soa,
+        integrator=pred.integrator,
+        dt=pred.dt,
+        intermediate_steps=pred.intermediate_steps,
+        max_cost=float(cf.MAX_COST),
+    )
+    return model, pack
+
+
+def build_cost(opt):
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K1, with the
+    semantics of ``Optimizer._fused_cost``; the scalar parameters are
+    packed per call, so weight and attribute changes need no rebuild."""
+    model, pack = rollout_model(opt)
+
+    def cost_fn(s_tiled, Q, u_prev, params):
+        return cost_rollout(model, s_tiled, Q, pack(params, u_prev))
+
+    return cost_fn

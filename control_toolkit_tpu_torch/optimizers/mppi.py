@@ -1,0 +1,272 @@
+"""MPPI — Model Predictive Path Integral optimizer (counterpart of
+control_toolkit_tpu/optimizers/mppi.py).
+
+Perturbations are sampled at inducing points with stdev
+``SQRTRHOINV/sqrt(dt)`` and linearly interpolated to the horizon; the
+nominal plan shifts one step each tick; the MPPI correction cost
+``cc_weight*(0.5*(1-1/NU)*R*du^2 + R*u*du + 0.5*R*u^2)`` joins each
+rollout's cost; the update is the reward-weighted average of the
+perturbations.
+
+Each step is a noise draw (``sample_noise``) followed by a deterministic
+``update(state, s, params, eps)``, so tests can feed both packages the
+same noise.  Two update paths, chosen as the JAX package chooses them:
+
+* semi-fused (default): noise ``[P, U, K]`` at the inducing points goes
+  to K2 (``ops/mppi_cost.py``), which interpolates, clips, rolls out and
+  scores in one pass; the weighted average is taken at the inducing
+  points and interpolated once (linearity of interpolation).
+* modular (``semi_fused: false``, ``bounded_update``, or logging on):
+  noise ``[K, P, U]`` is interpolated and clipped in torch and scored by
+  K1 (``ops/cost_rollout.py``) through ``Optimizer._make_cost_only``, or
+  by the full trajectory rollout when logging needs it.
+
+Not ported yet (they raise ``NotImplementedError``, ROADMAP):
+``optim_steps > 0`` (mppi-optimize), ``fully_fused``,
+``calculate_optimal_trajectory``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from control_toolkit_tpu_torch.ops.interpolation import Interpolator
+from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.utils import registry
+
+
+class MPPIState(NamedTuple):
+    generator: torch.Generator  # noise source
+    u_nom: torch.Tensor         # [1, H, U] nominal plan
+    u_prev: torch.Tensor        # [U] last applied control
+
+
+def make_correction_cost(cc_weight: float, R: float, NU: float):
+    """MPPI control-cost term summed over horizon and inputs."""
+    def correction_cost(u, delta_u):
+        return torch.sum(
+            cc_weight
+            * (0.5 * (1.0 - 1.0 / NU) * R * delta_u**2
+               + R * u * delta_u + 0.5 * R * u**2),
+            dim=(1, 2),
+        )
+    return correction_cost
+
+
+def make_weight_fn(weighting: str, LBD: float):
+    """Rollout-averaging weights ``w(costs, axes)`` (unnormalized):
+    ``"softmax"`` = exp(-(S - min S)/LBD); ``"rank[:frac]"`` = truncated
+    log-rank weights of the best ceil(frac*K); ``"topk[:frac]"`` = the
+    softmax truncated to the best ceil(frac*K)."""
+    parts = weighting.split(":")
+    mode = parts[0]
+    if mode not in ("softmax", "rank", "topk"):
+        raise ValueError(
+            f"unknown MPPI weighting {weighting!r} (softmax | rank[:frac] | topk[:frac])"
+        )
+    if mode == "softmax" and len(parts) > 1:
+        raise ValueError(f"softmax weighting takes no fraction: {weighting!r}")
+    frac = float(parts[1]) if len(parts) > 1 else (0.5 if mode == "rank" else 0.1)
+    if not 0.0 < frac <= 1.0:
+        raise ValueError(f"weighting fraction must be in (0, 1]: {weighting!r}")
+
+    def weights(S, axes):
+        axes = tuple(a % S.ndim for a in axes)
+        if mode == "softmax":
+            rho = torch.amin(S, dim=axes, keepdim=True)
+            return torch.exp(-(S - rho) * (1.0 / LBD))
+        rest = [a for a in range(S.ndim) if a not in axes]
+        perm = rest + list(axes)
+        St = S.permute(perm)
+        shp = St.shape
+        flat = St.reshape(tuple(shp[: len(rest)]) + (-1,))
+        n = flat.shape[-1]
+        h = max(1, int(np.ceil(frac * n)))
+        order = torch.argsort(flat, dim=-1, stable=True)
+        ranks = torch.argsort(order, dim=-1, stable=True)
+        if mode == "rank":
+            w = torch.clamp_min(
+                float(np.log(h + 0.5)) - torch.log(ranks.to(flat.dtype) + 1.0), 0.0
+            )
+        else:
+            rho = torch.amin(flat, dim=-1, keepdim=True)
+            w = torch.where(ranks < h, torch.exp(-(flat - rho) * (1.0 / LBD)),
+                            torch.zeros_like(flat))
+        return w.reshape(shp).permute(tuple(np.argsort(perm)))
+
+    return weights
+
+
+def make_reward_weighted_average(LBD: float, weighting: str = "softmax"):
+    weight_fn = make_weight_fn(weighting, LBD)
+
+    def reward_weighted_average(S, delta_u):
+        w = weight_fn(S, (0,))
+        a = torch.sum(w, dim=0)
+        return torch.sum(w[:, None, None] * delta_u, dim=0) / a
+    return reward_weighted_average
+
+
+@registry.optimizers.register("mppi")
+@registry.optimizers.register("mppi-optimize-tf")
+class MPPIOptimizer(Optimizer):
+    """MPPI (the ``mppi-optimize`` Adam refinement is not ported yet)."""
+
+    def __init__(
+        self,
+        *,
+        cc_weight: float = 1.0,
+        R: float = 1.0,
+        LBD: float = 100.0,
+        NU: float = 1000.0,
+        SQRTRHOINV: float = 0.03,
+        period_interpolation_inducing_points: int = 10,
+        fully_fused: bool = False,
+        semi_fused: bool = True,
+        bounded_update: bool = False,
+        weighting: str = "softmax",
+        optim_steps: int = 0,
+        mppi_LR: float = 0.02,
+        adam_beta_1: float = 0.9,
+        adam_beta_2: float = 0.999,
+        adam_epsilon: float = 1e-7,
+        gradmax_clip: float = 1000.0,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        if int(optim_steps) > 0:
+            raise _not_ported("MPPI optim_steps > 0 (mppi-optimize)")
+        if bool(fully_fused):
+            raise _not_ported("fully_fused MPPI")
+        if self.calculate_optimal_trajectory:
+            raise _not_ported("calculate_optimal_trajectory")
+        self.cc_weight = float(cc_weight)
+        self.R = float(R)
+        self.LBD = float(LBD)
+        self.NU = float(NU)
+        self.weighting = str(weighting)
+        make_weight_fn(self.weighting, self.LBD)  # a typo fails at construction
+        self._SQRTRHOINV = float(SQRTRHOINV)
+        self.period_interpolation_inducing_points = int(period_interpolation_inducing_points)
+        self.semi_fused = bool(semi_fused)
+        # Nominal = weighted average of the EXECUTED (clipped) controls
+        # instead of nominal + weighted raw perturbations (opt-in, departs
+        # from the reference; takes the modular path).
+        self.bounded_update = bool(bounded_update)
+
+    def configure(self, num_states, num_control_inputs, dt=None, **kwargs):
+        if dt is None:
+            raise ValueError("MPPI requires dt (mpc_timestep)")
+        self.SQRTRHODTINV = self._SQRTRHOINV / float(np.sqrt(dt))
+        self.interp = Interpolator.build(
+            self.mpc_horizon, self.period_interpolation_inducing_points, self.device
+        )
+        if self.device.type == "cuda":
+            # The update's einsums are float32 matmuls: keep them in full
+            # float32, as the JAX reference computes them (no TF32).
+            torch.backends.cuda.matmul.allow_tf32 = False
+        super().configure(num_states, num_control_inputs, dt=dt, **kwargs)
+
+    def _init_state(self, generator):
+        u_mid = 0.5 * (self.action_low + self.action_high)
+        u_nom = u_mid.expand(1, self.mpc_horizon, self.num_control_inputs).clone()
+        return MPPIState(
+            generator=generator,
+            u_nom=u_nom,
+            u_prev=torch.zeros(self.num_control_inputs, dtype=torch.float32, device=self.device),
+        )
+
+    def _uses_semi_fused(self) -> bool:
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        return (self.semi_fused and not self.bounded_update
+                and not self.optimizer_logging and ode.can_use_cost(self))
+
+    def sample_noise(self, state: MPPIState) -> torch.Tensor:
+        """This step's perturbations, pre-scaled: ``[P, U, K]`` for the
+        semi-fused update, ``[K, P, U]`` for the modular one."""
+        eps = torch.randn(self._noise_shape, generator=state.generator,
+                          dtype=torch.float32, device=self.device)
+        return eps * self.SQRTRHODTINV
+
+    def _make_step_fn(self):
+        K, U = self.num_rollouts, self.num_control_inputs
+        P = self.interp.number_of_interpolation_inducing_points
+        if self._uses_semi_fused():
+            self._noise_shape = (P, U, K)
+            self.update = self._make_semi_fused_update()
+        else:
+            self._noise_shape = (K, P, U)
+            self.update = self._make_modular_update()
+
+        def step_fn(state, s, params):
+            return self.update(state, s, params, self.sample_noise(state))
+
+        return step_fn
+
+    def _make_semi_fused_update(self):
+        from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        model, pack = ode.rollout_model(self)
+        W = self.interp.matrix                                    # [P, H]
+        low, high = self.action_low, self.action_high
+        cc_weight, R, NU = self.cc_weight, self.R, self.NU
+        weight_fn = make_weight_fn(self.weighting, self.LBD)
+
+        def update(state: MPPIState, s, params, eps):
+            u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)
+            pvec = pack(params, state.u_prev)
+            costs = mppi_cost(model, s[0], u_nom[0], pvec, eps, W, low, high,
+                              cc_weight, R, NU)                   # [K]
+            w = weight_fn(costs, (0,))
+            # Weighted average at the inducing points, then one
+            # interpolation: sum_k w_k (W eps_k) == W (sum_k w_k eps_k).
+            ws = torch.einsum("k,puk->up", w, eps) / torch.sum(w)
+            b = torch.einsum("ph,up->hu", W, ws)
+            u_nom = torch.clamp(u_nom + b[None], low, high)
+            u = u_nom[0, 0, :]
+            diag = {"u_nom": u_nom, "J_logged": costs}
+            return u, MPPIState(state.generator, u_nom, u), diag
+
+        return update
+
+    def _make_modular_update(self):
+        K = self.num_rollouts
+        low, high = self.action_low, self.action_high
+        interp = self.interp
+        correction_cost = make_correction_cost(self.cc_weight, self.R, self.NU)
+        reward_weighted_average = make_reward_weighted_average(self.LBD, self.weighting)
+        cost_only = None if self.optimizer_logging else self._make_cost_only()
+        bounded = self.bounded_update
+
+        def update(state: MPPIState, s, params, delta_u):
+            s_tiled = s[:1].expand(K, -1).contiguous()
+            u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)
+            delta_u = interp.interpolate(delta_u)
+            u_run = torch.clamp(u_nom + delta_u, low, high)
+            if cost_only is not None:
+                base_cost = cost_only(s_tiled, u_run, state.u_prev, params)
+                traj = None
+            else:
+                base_cost, traj = self._rollout_and_cost(s_tiled, u_run, state.u_prev, params)
+            traj_cost = base_cost + correction_cost(u_run, delta_u)
+            if bounded:
+                u_nom = reward_weighted_average(traj_cost, u_run)[None]
+            else:
+                u_nom = torch.clamp(
+                    u_nom + reward_weighted_average(traj_cost, delta_u)[None], low, high
+                )
+            u = u_nom[0, 0, :]
+            diag = {"u_nom": u_nom}
+            if cost_only is None:
+                diag.update({
+                    "Q_logged": u_run,
+                    "J_logged": traj_cost,
+                    "rollout_trajectories_logged": traj,
+                })
+            return u, MPPIState(state.generator, u_nom, u), diag
+
+        return update

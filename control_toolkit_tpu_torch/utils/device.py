@@ -1,0 +1,43 @@
+"""Device selection (counterpart of control_toolkit_tpu/utils/device.py).
+
+The controller config's ``device`` key picks the ``torch.device`` every
+tensor of a controller lives on.  Unlike the JAX package, an unavailable
+device is an error, never a silent fall back to the CPU: a controller
+asked to run on the card must not quietly run somewhere else.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(spec) -> torch.device:
+    """Resolve a config ``device`` value to a ``torch.device``.
+
+    ``None``, ``""`` and ``"default"`` give the process default device
+    (``torch.get_default_device()``), as the JAX package's ``None`` gives
+    the process default.  ``"gpu"`` is accepted as a name for ``"cuda"``.
+    Raises ``ValueError`` on a malformed spec and ``RuntimeError`` when a
+    CUDA device is asked for that this process does not have.
+    """
+    if spec in (None, "", "default"):
+        return torch.get_default_device()
+    s = str(spec).strip().lower()
+    if s == "gpu" or s.startswith("gpu:"):
+        s = "cuda" + s[3:]
+    try:
+        dev = torch.device(s)
+    except RuntimeError as e:
+        raise ValueError(f"malformed device spec {spec!r}") from e
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {spec!r} requested but CUDA is not available")
+        index = 0 if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {spec!r} requested but only "
+                f"{torch.cuda.device_count()} CUDA device(s) exist"
+            )
+        return torch.device("cuda", index)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {spec!r} (cpu | cuda[:i])")
+    return dev

@@ -1,0 +1,86 @@
+"""Guards for the torch port that run on a machine without a card: it
+never imports jax, an explicit CUDA device never falls back to the CPU, and
+chip_smoke.py fails (and prints no result) where there is no card."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from control_toolkit_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+
+NO_JAX_DRIVE = r"""
+import sys
+sys.modules["jax"] = None  # any 'import jax' now raises ImportError
+import numpy as np, torch
+torch.set_num_threads(1)
+from control_toolkit_tpu_torch import import_controller_by_name
+from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+Ctrl = import_controller_by_name("mppi")
+for semi in (True, False):
+    ctrl = Ctrl("cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+                {"target_position": 0.0},
+                config={"optimizer": "mppi", "controller_logging": False, "device": "cpu"})
+    ctrl.configure(optimizer_name="mppi", optimizer_config={
+        "seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10, "num_rollouts": 32,
+        "period_interpolation_inducing_points": 5, "semi_fused": semi},
+        cost_function_config={"dd_weight": 120.0, "ep_weight": 10000.0, "ekp_weight": 10.0,
+                              "cc_weight": 1.0, "ccrc_weight": 1.0, "R": 1.0})
+    env = CartpoleEnv(batch_size=1, dt=0.02, seed=0)
+    s, _ = env.reset()
+    for _ in range(3):
+        u = ctrl.step(s[0])
+        s, *_ = env.step(u)
+    assert np.all(np.isfinite(u)) and u.shape == (1,)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
+assert loaded == ["jax"], loaded  # only the blocked placeholder
+print("NO_JAX_OK")
+"""
+
+
+def run_python(args, cwd):
+    return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_port_imports_and_steps_without_jax():
+    res = run_python(["-c", NO_JAX_DRIVE], REPO)
+    assert res.returncode == 0, res.stderr
+    assert "NO_JAX_OK" in res.stdout
+
+
+def test_port_sources_never_import_jax():
+    for path in (REPO / "control_toolkit_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), f"{path}: {line}"
+
+
+def test_explicit_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(ValueError):
+        resolve_device("tpu")
+    assert resolve_device(None) == torch.get_default_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """In the checkout, and alone in an empty directory, the script exits
+    non-zero and never prints a result."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    script = REPO / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        res = run_python(["chip_smoke.py"], tmp_path)
+    else:
+        res = run_python([str(script)], REPO)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

@@ -1,0 +1,175 @@
+"""The port's two rollout kernels (K1 ``ops/cost_rollout.py``, K2
+``ops/mppi_cost.py``): their plain versions against the JAX package's
+Pallas kernels in interpret mode, the wrappers' dispatch rule, and — on a
+machine with a CUDA card only — each CUDA kernel against its plain
+version."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
+from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
+from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+from control_toolkit_tpu_torch.utils.convert import params_from_numpy
+from test_torch_mppi import CPU, COST_TOL, jax_params_numpy, make_jax_ctrl, make_port_ctrl
+
+K, H, TILE = 256, 20, 128
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The JAX and port controllers with the JAX params tree in both forms."""
+    jctrl, pctrl = make_jax_ctrl(K, H), make_port_ctrl(K, H)
+    jparams = jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float32),
+                                     jctrl._assemble_params())
+    return jctrl, pctrl, jparams, params_from_numpy(jax_params_numpy(jctrl), CPU)
+
+
+def test_packed_params_match_jax_order_and_values(pair):
+    jctrl, pctrl, jparams, params = pair
+    jkeys, jpack, *_ = jctrl.optimizer._soa_bindings()
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    assert list(model.param_keys) == list(jkeys)
+    u_prev = np.array([0.25], np.float32)
+    np.testing.assert_array_equal(pack(params, torch.as_tensor(u_prev)).numpy(),
+                                  np.asarray(jpack(jparams, jnp.asarray(u_prev))))
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "euler"])
+def test_k1_plain_matches_pallas_interpret_and_fused_scan(pair, integrator):
+    jctrl, pctrl, jparams, params = pair
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    jpred = jopt.predictor.predictor
+    rng = np.random.default_rng(0)
+    s_tiled = np.tile((0.1 * rng.standard_normal((1, 4))).astype(np.float32), (K, 1))
+    Q = rng.uniform(-1.0, 1.0, (K, H, 1)).astype(np.float32)
+    u_prev = np.array([0.25], np.float32)
+
+    from control_toolkit_tpu.models.predictors import make_ode_rollout
+    saved = jpred.integrator, jpred.rollout_fn
+    jpred.integrator = integrator
+    jpred.rollout_fn = make_ode_rollout(jpred.dynamics, jpred.dt, integrator, 1)
+    try:
+        pallas = jopt._build_pallas_cost(interpret=True, tile_k=TILE)
+        ref_kernel = np.asarray(pallas(jnp.asarray(s_tiled), jnp.asarray(Q),
+                                       jnp.asarray(u_prev), jparams))
+        ref_scan = np.asarray(jopt._fused_cost(jnp.asarray(s_tiled), jnp.asarray(Q),
+                                               jnp.asarray(u_prev), jparams))
+    finally:
+        jpred.integrator, jpred.rollout_fn = saved
+
+    model, pack = ode.rollout_model(popt)
+    model = dataclasses.replace(model, integrator=integrator)
+    got = cost_rollout(model, torch.as_tensor(s_tiled), torch.as_tensor(Q),
+                       pack(params, torch.as_tensor(u_prev))).numpy()
+    np.testing.assert_allclose(got, ref_kernel, **COST_TOL)
+    np.testing.assert_allclose(got, ref_scan, **COST_TOL)
+
+
+def test_k1_cost_only_is_the_kernel_family_on_cpu(pair):
+    _, pctrl, _, params = pair
+    popt = pctrl.optimizer
+    assert ode.can_use_cost(popt)
+    rng = np.random.default_rng(3)
+    s_tiled = torch.as_tensor(np.tile((0.1 * rng.standard_normal((1, 4))).astype(np.float32), (K, 1)))
+    Q = torch.as_tensor(rng.uniform(-1.0, 1.0, (K, H, 1)).astype(np.float32))
+    u_prev = torch.tensor([-0.3])
+    before = cost_rollout.launches
+    got = popt._make_cost_only()(s_tiled, Q, u_prev, params)
+    assert cost_rollout.launches == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), popt._fused_cost(s_tiled, Q, u_prev, params).numpy(),
+                               **COST_TOL)
+
+
+def test_k2_plain_matches_pallas_semi_fused_interpret(pair):
+    from control_toolkit_tpu.ops.pallas_mppi import ROWS
+
+    jctrl, pctrl, jparams, params = pair
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    _, jpack, _ = jopt._build_fused_mppi(interpret=True, tile_k=TILE, build_step=False)
+    cost_run = jopt._last_fused_make_run.external(K)
+    P, U = jopt.interp.number_of_interpolation_inducing_points, 1
+    T, C = K // TILE, TILE // ROWS
+    rng = np.random.default_rng(5)
+    eps_tiles = (rng.standard_normal((T, U, P * ROWS, C)) * jopt.SQRTRHODTINV).astype(np.float32)
+    s0 = np.array([0.1, -0.05, 0.3, 0.2], np.float32)
+    u_nom = (0.1 * np.ones((H, U))).astype(np.float32)
+    u_prev = np.array([0.2], np.float32)
+    costs2d = np.asarray(cost_run(jnp.asarray(s0), jnp.asarray(u_nom),
+                                  jpack(jparams, jnp.asarray(u_prev)), jnp.asarray(eps_tiles)))
+    # Tile layout -> rollout order k = t*TILE + r*C + c, and eps -> [P, U, K].
+    ref = costs2d.reshape(ROWS, T, C).transpose(1, 0, 2).reshape(K)
+    eps = eps_tiles.reshape(T, U, P, ROWS, C).transpose(2, 1, 0, 3, 4).reshape(P, U, K)
+
+    model, pack = ode.rollout_model(popt)
+    got = mppi_cost(model, torch.as_tensor(s0), torch.as_tensor(u_nom),
+                    pack(params, torch.as_tensor(u_prev)), torch.as_tensor(eps),
+                    popt.interp.matrix, popt.action_low, popt.action_high,
+                    popt.cc_weight, popt.R, popt.NU).numpy()
+    np.testing.assert_allclose(got, ref, **COST_TOL)
+
+
+def test_wrappers_never_run_plain_versions_on_non_cpu_tensors(pair):
+    _, pctrl, _, _ = pair
+    model, _ = ode.rollout_model(pctrl.optimizer)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cost_rollout(model, torch.empty(8, 4, **meta), torch.empty(8, 5, 1, **meta),
+                     torch.empty(15, **meta))
+    with pytest.raises(ValueError, match="several devices"):
+        mppi_cost(model, torch.zeros(4), torch.zeros(5, 1), torch.zeros(15),
+                  torch.empty(2, 1, 8, **meta), torch.zeros(2, 5), torch.zeros(1),
+                  torch.zeros(1), 1.0, 1.0, 1000.0)
+
+
+def test_rollout_model_rejects_a_foreign_parameter_layout(pair):
+    _, pctrl, _, _ = pair
+    model, _ = ode.rollout_model(pctrl.optimizer)
+    with pytest.raises(ValueError, match="layout"):
+        dataclasses.replace(model, param_keys=model.param_keys[::-1])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2)])
+def test_cuda_kernels_match_plain_versions(pair, cuda_device, integrator, substeps):
+    """Each CUDA kernel against its plain version on the same card tensors.
+    Tolerance: nvcc contracts a*b+c into FMA and the plain version does not;
+    near upright the difference stays at float32 rounding level."""
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    model = dataclasses.replace(model, integrator=integrator, intermediate_steps=substeps)
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Kc, Hc, P = 1000, 50, 6  # K not a multiple of the block: the edge is masked
+    pvec = pack(params, torch.tensor([0.1])).to(dev)
+    s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=dev)
+    Q = torch.clamp(0.3 * torch.randn(Kc, Hc, 1, generator=gen, device=dev), -1.0, 1.0)
+    got = cost_rollout(model, s0, Q, pvec)
+    torch.testing.assert_close(got, cost_rollout_plain(model, s0, Q, pvec), rtol=1e-4, atol=1e-3)
+
+    W = torch.as_tensor(interpolation_matrix(Hc, 10), device=dev)
+    eps = 0.2 * torch.randn(P, 1, Kc, generator=gen, device=dev)
+    u_nom = torch.clamp(0.2 * torch.randn(Hc, 1, generator=gen, device=dev), -1.0, 1.0)
+    lim = torch.ones(1, device=dev)
+    args = (model, s0[0].contiguous(), u_nom, pvec, eps, W, -lim, lim, 1.0, 1.0, 1000.0)
+    torch.testing.assert_close(mppi_cost(*args), mppi_cost_plain(*args), rtol=1e-4, atol=1e-3)
