@@ -76,6 +76,80 @@ struct CartpolePlant {
     const float omc = 1.0f - cosf(angle);
     return 1.0e4f * (omc * omc) + 10.0f * (angle_d * angle_d);
   }
+
+  // The adjoints (ops/adjoints.py, transcribed term for term).
+
+  // dx = lam^T df/dx, du = lam^T df/du at (x, u): cartpole_derivs_vjp.
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    const float pos_d = x[1], theta = x[2], theta_d = x[3];
+    const float m_p = p[kMPole], L = p[kL], g = p[kG];
+    const float fc = p[kFrictionCart], fp = p[kFrictionPole];
+    const float force = u[0] * p[kUMax];
+    const float sin_t = sinf(theta), cos_t = cosf(theta);
+    const float total_m = p[kMCart] + m_p;
+    const float mpl = m_p * L;
+    const float temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) / total_m;
+    const float num = g * sin_t - cos_t * temp - fp * theta_d / mpl;
+    const float den = L * (4.0f / 3.0f - m_p * (cos_t * cos_t) / total_m);
+    const float theta_dd = num / den;
+    // pos_dd = temp - mpl * theta_dd * cos_t / total_m
+    float g_temp = lam[1];
+    const float g_thdd = lam[3] - lam[1] * mpl * cos_t / total_m;
+    float g_cos = -(lam[1] * mpl * theta_dd / total_m);
+    // theta_dd = num / den
+    const float g_num = g_thdd / den;
+    const float g_den = -(g_thdd * theta_dd / den);
+    // den = L * (4/3 - m_p * cos^2 / total_m)
+    g_cos = g_cos - g_den * L * m_p * 2.0f * cos_t / total_m;
+    // num = g * sin - cos * temp - fp * theta_d / mpl
+    float g_sin = g_num * g;
+    g_cos = g_cos - g_num * temp;
+    g_temp = g_temp - g_num * cos_t;
+    float g_thd = lam[2] - g_num * fp / mpl;
+    // temp = (force + mpl * theta_d^2 * sin - fc * pos_d) / total_m
+    const float g_a = g_temp / total_m;
+    g_thd = g_thd + g_a * mpl * 2.0f * theta_d * sin_t;
+    g_sin = g_sin + g_a * mpl * (theta_d * theta_d);
+    dx[0] = 0.0f;
+    dx[1] = lam[0] - g_a * fc;
+    dx[2] = g_sin * cos_t - g_cos * sin_t;
+    dx[3] = g_thd;
+    du[0] = g_a * p[kUMax];
+  }
+
+  // Gradient of ct * stage_cost: cartpole_stage_vjp.  gprev is u's part in
+  // the next stage's control-change term, -2 * ccrc * (u - prev) * ct.
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* p,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    const float pos = x[0], angle = x[2], angle_d = x[3];
+    const float two_pi = 6.283185307179586f;
+    gx[0] = ct * (2.0f * p[kDdWeight]) * (pos - p[kTargetPosition]);
+    gx[1] = 0.0f;
+    gx[2] = ct * (0.5f * p[kEpWeight]) * (1.0f - cosf(angle)) * sinf(angle);
+    gx[3] = ct * (2.0f * p[kEkpWeight]) * (angle_d / two_pi) / two_pi;
+    const float cc = 2.0f * p[kCcWeight] * p[kR];
+    const float ccrc = 2.0f * p[kCcrcWeight];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const float dchange = ct * ccrc * (u[j] - prev[j]);
+      gu[j] = ct * cc * u[j] + dchange;
+      gprev[j] = -dchange;
+    }
+  }
+
+  // Gradient of ct * terminal_cost: cartpole_terminal_grad.
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* p,
+                                                            float ct, float (&g)[S]) {
+    const float angle = x[2], angle_d = x[3];
+    g[0] = 0.0f;
+    g[1] = 0.0f;
+    g[2] = ct * 2.0e4f * (1.0f - cosf(angle)) * sinf(angle);
+    g[3] = ct * 20.0f * angle_d;
+  }
 };
 
 }  // namespace ctt

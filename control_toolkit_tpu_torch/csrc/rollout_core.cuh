@@ -23,35 +23,125 @@ struct StepConsts {
   float dt6;      // sub_dt / 6
 };
 
-// Advance x by one control period: `substeps` euler or rk4 sub-steps in
-// soa_integrators.py's operation order (rk4: (k1 + 2*k2) + (2*k3 + k4)).
+// One euler or rk4 sub-step of soa_integrators.py, in its operation order
+// (rk4: (k1 + 2*k2) + (2*k3 + k4)).
+template <class Plant>
+__device__ __forceinline__ void substep(float (&x)[Plant::S], const float (&u)[Plant::U],
+                                        const float* p, const StepConsts& c) {
+  constexpr int S = Plant::S;
+  float k1[S];
+  Plant::derivs(x, u, p, k1);
+  if (!c.rk4) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
+    return;
+  }
+  float t[S], k2[S], k3[S], k4[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k1[i];
+  Plant::derivs(t, u, p, k2);
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k2[i];
+  Plant::derivs(t, u, p, k3);
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.sub_dt * k3[i];
+  Plant::derivs(t, u, p, k4);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float incr = (k1[i] + 2.0f * k2[i]) + (2.0f * k3[i] + k4[i]);
+    x[i] = x[i] + c.dt6 * incr;
+  }
+}
+
+// Advance x by one control period: `substeps` sub-steps.
 template <class Plant>
 __device__ __forceinline__ void integrate(float (&x)[Plant::S], const float (&u)[Plant::U],
                                           const float* p, const StepConsts& c) {
-  constexpr int S = Plant::S;
-  for (int sub = 0; sub < c.substeps; ++sub) {
-    float k1[S];
-    Plant::derivs(x, u, p, k1);
-    if (!c.rk4) {
+  for (int sub = 0; sub < c.substeps; ++sub) substep<Plant>(x, u, p, c);
+}
+
+// The transposed sub-step at its start state x (ops/adjoints.py _euler_vjp
+// and _rk4_vjp): lam, the cotangent of the sub-step's end state, becomes
+// that of x; du receives the control's part.
+template <class Plant>
+__device__ __forceinline__ void substep_vjp(const float (&x)[Plant::S], const float (&u)[Plant::U],
+                                            const float* p, const StepConsts& c,
+                                            float (&lam)[Plant::S], float (&du)[Plant::U]) {
+  constexpr int S = Plant::S, U = Plant::U;
+  float g[S], a[S], b[U];
+  if (!c.rk4) {
 #pragma unroll
-      for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
-      continue;
-    }
-    float t[S], k2[S], k3[S], k4[S];
+    for (int i = 0; i < S; ++i) g[i] = c.sub_dt * lam[i];
+    Plant::derivs_vjp(x, u, p, g, a, du);
 #pragma unroll
-    for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k1[i];
-    Plant::derivs(t, u, p, k2);
+    for (int i = 0; i < S; ++i) lam[i] = lam[i] + a[i];
+    return;
+  }
+  // The rk4 stage states t2, t3, t4, recomputed.
+  float k[S], t2[S], t3[S], t4[S];
+  Plant::derivs(x, u, p, k);
 #pragma unroll
-    for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k2[i];
-    Plant::derivs(t, u, p, k3);
+  for (int i = 0; i < S; ++i) t2[i] = x[i] + c.half_dt * k[i];
+  Plant::derivs(t2, u, p, k);
 #pragma unroll
-    for (int i = 0; i < S; ++i) t[i] = x[i] + c.sub_dt * k3[i];
-    Plant::derivs(t, u, p, k4);
+  for (int i = 0; i < S; ++i) t3[i] = x[i] + c.half_dt * k[i];
+  Plant::derivs(t3, u, p, k);
 #pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const float incr = (k1[i] + 2.0f * k2[i]) + (2.0f * k3[i] + k4[i]);
-      x[i] = x[i] + c.dt6 * incr;
-    }
+  for (int i = 0; i < S; ++i) t4[i] = x[i] + c.sub_dt * k[i];
+  // x' = x + dt6 * ((k1 + 2*k2) + (2*k3 + k4)), transposed last to first;
+  // lam accumulates ((((lam + a4) + a3) + a2) + a1), du ((b4 + b3) + b2) + b1.
+  float gi[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) gi[i] = c.dt6 * lam[i];
+  Plant::derivs_vjp(t4, u, p, gi, a, du);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    lam[i] = lam[i] + a[i];
+    g[i] = 2.0f * gi[i] + c.sub_dt * a[i];
+  }
+  Plant::derivs_vjp(t3, u, p, g, a, b);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    lam[i] = lam[i] + a[i];
+    g[i] = 2.0f * gi[i] + c.half_dt * a[i];
+  }
+#pragma unroll
+  for (int j = 0; j < U; ++j) du[j] = du[j] + b[j];
+  Plant::derivs_vjp(t2, u, p, g, a, b);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    lam[i] = lam[i] + a[i];
+    g[i] = gi[i] + c.half_dt * a[i];
+  }
+#pragma unroll
+  for (int j = 0; j < U; ++j) du[j] = du[j] + b[j];
+  Plant::derivs_vjp(x, u, p, g, a, b);
+#pragma unroll
+  for (int i = 0; i < S; ++i) lam[i] = lam[i] + a[i];
+#pragma unroll
+  for (int j = 0; j < U; ++j) du[j] = du[j] + b[j];
+}
+
+// The transposed control period (ops/adjoints.py integrator_vjp): from the
+// period's start state x, each sub-step's start state is re-integrated,
+// last sub-step first (no per-sub-step storage, so `substeps` stays a
+// runtime value); lam becomes x's cotangent and du sums the control's parts.
+template <class Plant>
+__device__ __forceinline__ void integrate_vjp(const float (&x)[Plant::S],
+                                              const float (&u)[Plant::U], const float* p,
+                                              const StepConsts& c, float (&lam)[Plant::S],
+                                              float (&du)[Plant::U]) {
+  constexpr int S = Plant::S, U = Plant::U;
+#pragma unroll
+  for (int j = 0; j < U; ++j) du[j] = 0.0f;
+  for (int sub = c.substeps - 1; sub >= 0; --sub) {
+    float xs[S], b[U];
+#pragma unroll
+    for (int i = 0; i < S; ++i) xs[i] = x[i];
+    for (int r = 0; r < sub; ++r) substep<Plant>(xs, u, p, c);
+    substep_vjp<Plant>(xs, u, p, c, lam, b);
+#pragma unroll
+    for (int j = 0; j < U; ++j) du[j] = du[j] + b[j];
   }
 }
 

@@ -1,0 +1,142 @@
+"""Hand-written adjoints of the rollout: the transposed Jacobians that the
+JAX gradient kernel gets from ``jax.vjp`` at trace time
+(control_toolkit_tpu/ops/pallas_grad.py:203 and :225-230).
+
+All functions work in component form (tuples of ``[K]`` tensors) on the
+packed-parameter dict ``p`` that ``RolloutModel.unpack`` gives (keys
+``d_*``, ``c_*``, ``a_*``, ``__u_prev_j``), the form the CUDA plant reads.
+``csrc/plants.cuh`` and ``csrc/rollout_core.cuh`` transcribe them term
+for term, so these are the formulas the tests hold against
+``torch.autograd``.  Only gradients with respect to states and controls
+are formed; parameters get none.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd, tscale
+
+
+def cartpole_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple) -> Tuple[Tuple, Tuple]:
+    """``lam^T d f / d(x, u)`` for models/dynamics.py:_cartpole_derivs."""
+    _, pos_d, theta, theta_d = xs
+    l0, l1, l2, l3 = lam
+    m_p, L = p["d_m_pole"], p["d_L"]
+    fc, fp = p["d_friction_cart"], p["d_friction_pole"]
+    force = us[0] * p["d_u_max"]
+    sin_t, cos_t = theta.sin(), theta.cos()
+    total_m = p["d_m_cart"] + m_p
+    mpl = m_p * L
+    # The forward values the transposed terms need.
+    temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) / total_m
+    num = p["d_g"] * sin_t - cos_t * temp - fp * theta_d / mpl
+    den = L * (4.0 / 3.0 - m_p * (cos_t * cos_t) / total_m)
+    theta_dd = num / den
+    # pos_dd = temp - mpl * theta_dd * cos_t / total_m
+    g_temp = l1
+    g_thdd = l3 - l1 * mpl * cos_t / total_m
+    g_cos = -(l1 * mpl * theta_dd / total_m)
+    # theta_dd = num / den
+    g_num = g_thdd / den
+    g_den = -(g_thdd * theta_dd / den)
+    # den = L * (4/3 - m_p * cos^2 / total_m)
+    g_cos = g_cos - g_den * L * m_p * 2.0 * cos_t / total_m
+    # num = g * sin - cos * temp - fp * theta_d / mpl
+    g_sin = g_num * p["d_g"]
+    g_cos = g_cos - g_num * temp
+    g_temp = g_temp - g_num * cos_t
+    g_thd = l2 - g_num * fp / mpl
+    # temp = (force + mpl * theta_d^2 * sin - fc * pos_d) / total_m
+    g_a = g_temp / total_m
+    g_thd = g_thd + g_a * mpl * 2.0 * theta_d * sin_t
+    g_sin = g_sin + g_a * mpl * (theta_d * theta_d)
+    g_posd = l0 - g_a * fc
+    g_theta = g_sin * cos_t - g_cos * sin_t
+    return (torch.zeros_like(pos_d), g_posd, g_theta, g_thd), (g_a * p["d_u_max"],)
+
+
+def cartpole_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct) -> Tuple[Tuple, Tuple, Tuple]:
+    """Gradient of ``ct *`` Optimizer._soa_bindings' stage_soa for the
+    cartpole/default cost (costs/cartpole.py:_stage_cost_core_soa plus
+    ``ccrc_weight * (u - prev)^2``; ``-MAX_COST`` has none).  Returns
+    ``(gx, gu, gprev)`` with ``gprev = -2 * ccrc * (u - prev) * ct``."""
+    pos, pos_d, angle, angle_d = xs
+    two_pi = 2.0 * math.pi
+    g_pos = ct * (2.0 * p["c_dd_weight"]) * (pos - p["a_target_position"])
+    g_angle = ct * (0.5 * p["c_ep_weight"]) * (1.0 - angle.cos()) * angle.sin()
+    g_angle_d = ct * (2.0 * p["c_ekp_weight"]) * (angle_d / two_pi) / two_pi
+    cc = 2.0 * p["c_cc_weight"] * p["c_R"]
+    ccrc = 2.0 * p["c_ccrc_weight"]
+    gu, gprev = [], []
+    for u, pu in zip(us, prev_us):
+        dchange = ct * ccrc * (u - pu)
+        gu.append(ct * cc * u + dchange)
+        gprev.append(-dchange)
+    return (g_pos, torch.zeros_like(pos_d), g_angle, g_angle_d), tuple(gu), tuple(gprev)
+
+
+def cartpole_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` costs/cartpole.py:terminal_cost_soa
+    (``1e4 * (1 - cos)^2 + 10 * angle_d^2``)."""
+    pos, pos_d, angle, angle_d = xs
+    g_angle = ct * 2.0e4 * (1.0 - angle.cos()) * angle.sin()
+    g_angle_d = ct * 20.0 * angle_d
+    return (torch.zeros_like(pos), torch.zeros_like(pos_d), g_angle, g_angle_d)
+
+
+# Device plant -> (derivs_vjp, stage_vjp, terminal_grad): the plants whose
+# rollout K7 can differentiate.
+PLANT_ADJOINTS = {
+    "cartpole": (cartpole_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
+}
+
+
+def _euler_vjp(derivs_vjp, x, u, p, lam, sub_dt):
+    # x' = x + sub_dt * f(x, u)
+    dx, du = derivs_vjp(x, u, p, tscale(lam, sub_dt))
+    return tadd(lam, dx), du
+
+
+def _rk4_vjp(derivs, derivs_vjp, x, u, p, lam, sub_dt):
+    half, dt6 = 0.5 * sub_dt, sub_dt / 6.0
+    # The stage states of soa_integrators.py's rk4, recomputed.
+    k1 = derivs(x, u, p)
+    t2 = tadd(x, tscale(k1, half))
+    k2 = derivs(t2, u, p)
+    t3 = tadd(x, tscale(k2, half))
+    k3 = derivs(t3, u, p)
+    t4 = tadd(x, tscale(k3, sub_dt))
+    # x' = x + dt6 * ((k1 + 2*k2) + (2*k3 + k4)), transposed last to first.
+    gi = tscale(lam, dt6)
+    a4, b4 = derivs_vjp(t4, u, p, gi)
+    a3, b3 = derivs_vjp(t3, u, p, tadd(tscale(gi, 2.0), tscale(a4, sub_dt)))
+    a2, b2 = derivs_vjp(t2, u, p, tadd(tscale(gi, 2.0), tscale(a3, half)))
+    a1, b1 = derivs_vjp(x, u, p, tadd(gi, tscale(a2, half)))
+    dx = tadd(tadd(tadd(tadd(lam, a4), a3), a2), a1)
+    du = tadd(tadd(tadd(b4, b3), b2), b1)
+    return dx, du
+
+
+def integrator_vjp(derivs: Callable, derivs_vjp: Callable, x: Tuple, u: Tuple, p, lam: Tuple,
+                   rk4: bool, substeps: int, dt: float) -> Tuple[Tuple, Tuple]:
+    """``lam^T d x_{h+1} / d(x_h, u_h)`` for soa_integrators.make_soa_stepper
+    (``substeps`` euler or rk4 sub-steps of ``dt / substeps``).  Each
+    sub-step's start state is re-integrated from ``x``, last sub-step
+    first; the control's gradient is summed over the sub-steps."""
+    sub_dt = dt / substeps
+    one_sub_step = make_soa_stepper(derivs, "rk4" if rk4 else "euler", sub_dt)
+    du = None
+    for sub in reversed(range(substeps)):
+        xs = x
+        for _ in range(sub):
+            xs = one_sub_step(xs, u, p)
+        if rk4:
+            lam, du_s = _rk4_vjp(derivs, derivs_vjp, xs, u, p, lam, sub_dt)
+        else:
+            lam, du_s = _euler_vjp(derivs_vjp, xs, u, p, lam, sub_dt)
+        du = du_s if du is None else tadd(du, du_s)
+    return lam, du
+

@@ -1,0 +1,110 @@
+"""K7: rollout cost and its gradient — the counterpart of
+control_toolkit_tpu/ops/pallas_grad.py:build_grad_cost_rollout_kernel
+(body ``_make_fwd_bwd_kernel``, runner ``_make_grad_runner``).
+
+``grad_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N]) -> (cost [K],
+dQ [K,H,U])``: cost is K1's trajectory cost (ops/cost_rollout.py) and dQ
+its gradient with respect to Q.  Rollouts are independent, so dQ is also
+the gradient of ``sum_k cost_k``, which the population optimizers take.
+
+One forward sweep stores the states x_0..x_{H-1} and sums the stage
+costs; one backward sweep from h = H-1 to 0 re-linearizes step h at the
+stored x_h with the hand-written adjoints of ops/adjoints.py:
+
+    lam_H = d terminal / d x_H * 1/(H+1)
+    dQ_h  = (du_dyn + gu) + gprev_{h+1}     gprev_H = 0
+    lam_h = dx_dyn + gx
+
+where (dx_dyn, du_dyn) is the integrator's VJP of lam_{h+1}, and (gx, gu,
+gprev_h) the stage cost's gradient at cotangent 1/(H+1); ``gprev`` carries
+u_h's part in stage h+1's control-change term.  At h = 0 the previous
+control is the packed ``__u_prev_*``, which gets no gradient.
+
+The CUDA kernel is ``csrc/grad_cost_rollout.cu`` (its source note says what
+bounds it on the card); ``grad_cost_rollout_plain`` is the same function
+in PyTorch.  The wrapper runs the plain version only when every operand
+lies on the CPU; for CUDA operands it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, integrator_vjp
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd
+
+
+def grad_cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-244)."""
+    derivs_vjp, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
+    p = model.unpack(pvec)
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
+                                model.intermediate_steps)
+    rk4 = model.integrator == "rk4"
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    ct = 1.0 / (H + 1)
+
+    xs = tuple(s0[:, i] for i in range(S))
+    u_prev0 = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
+    prev_us, acc, history = u_prev0, torch.zeros(K, dtype=s0.dtype, device=s0.device), []
+    for h in range(H):
+        history.append(xs)
+        us = tuple(Q[:, h, j] for j in range(U))
+        acc = acc + model.stage(xs, us, prev_us, p)
+        xs = one_step(xs, us, p)
+        prev_us = us
+    cost = (acc + model.terminal(xs, p)) / (H + 1)
+
+    lam = terminal_grad(xs, p, ct)
+    gprev = tuple(torch.zeros_like(acc) for _ in range(U))
+    dq = [None] * H
+    for h in reversed(range(H)):
+        us = tuple(Q[:, h, j] for j in range(U))
+        prev_us = u_prev0 if h == 0 else tuple(Q[:, h - 1, j] for j in range(U))
+        dxs_dyn, dus_dyn = integrator_vjp(model.derivs, derivs_vjp, history[h], us, p, lam,
+                                          rk4, model.intermediate_steps, model.dt)
+        gx, gu, gp = stage_vjp(history[h], us, prev_us, p, ct)
+        dq[h] = torch.stack(tadd(tadd(dus_dyn, gu), gprev), dim=1)
+        lam = tadd(dxs_dyn, gx)
+        gprev = gp
+    return cost, torch.stack(dq, dim=1)
+
+
+def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                      pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-rollout cost ``[K]`` and its gradient ``[K,H,U]``; see the
+    module docstring."""
+    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
+        raise ValueError(
+            f"grad_cost_rollout: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
+        )
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"grad_cost_rollout: no adjoints for the {model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec):
+        return grad_cost_rollout_plain(model, s0, Q, pvec)
+    device = kernels.check_cuda_operands("grad_cost_rollout", s0=s0, Q=Q, pvec=pvec)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("grad_cost_rollout", S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
+    # The forward sweep's states, rollout index fastest (csrc note).
+    xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
+    lib = kernels.load()
+    with torch.cuda.device(device):
+        rc = lib.ctt_grad_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(),
+            model.max_cost, 1.0 / (H + 1), torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, "grad_cost_rollout")
+    grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+grad_cost_rollout.launches = 0

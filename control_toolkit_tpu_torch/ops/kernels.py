@@ -26,11 +26,12 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("cost_rollout.cu", "mppi_cost.cu")
+SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh")
+# Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Device plants (csrc/plants.cuh): the id each C entry point dispatches on,
@@ -125,24 +126,37 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/`` unless this source hash is built already; return
-    the library's path.  ``build.count`` counts compiles in this process,
-    ``build.seconds`` and ``build.log`` (ptxas' register report) describe
-    the last one."""
+    the library's path.  Each source compiles in its own ``nvcc``, all
+    started together, and the objects are linked into one library.
+    ``build.count`` counts builds in this process, ``build.seconds`` and
+    ``build.log`` (ptxas' register report) describe the last one."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    objs = [f"{tmp}.{Path(src).stem}.o" for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{result.stderr}")
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[1] for proc in procs]
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     os.replace(tmp, out)
     build.count += 1
     build.seconds = time.perf_counter() - t0
-    build.log = result.stderr
+    build.log = "".join(logs)
     return out
 
 
@@ -165,6 +179,10 @@ def load() -> ctypes.CDLL:
             i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_mppi_cost.restype = i32
+        lib.ctt_grad_cost_rollout.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32, ptr,
+        ]
+        lib.ctt_grad_cost_rollout.restype = i32
         load.lib = lib
     return load.lib
 

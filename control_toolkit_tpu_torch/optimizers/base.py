@@ -7,9 +7,10 @@ new_state, diagnostics)`` over an explicit state; everything that may
 change between steps (cost weights, attributes, dynamics constants)
 arrives in ``params`` as tensors on the optimizer's device.
 
-Ported so far is what MPPI needs.  The JAX features the slice does not
-use raise ``NotImplementedError`` (ROADMAP): ``remat``, ``risk_weight``,
-``robust_eval``, ``initial_guess_policy`` and mesh sharding.
+Ported so far is what MPPI, RPGD and gradient-tf need.  The JAX features
+these do not use raise ``NotImplementedError`` (ROADMAP): ``remat``,
+``risk_weight``, ``robust_eval``, ``initial_guess_policy`` and mesh
+sharding.
 """
 from __future__ import annotations
 
@@ -210,6 +211,39 @@ class Optimizer:
         if self._can_fuse_rollout():
             return self._fused_cost
         return None
+
+    def _make_grad_and_cost_only(self):
+        """The gradient path of the AD optimizers: ``grad_fn(Q, s_tiled,
+        u_prev, params) -> d(sum_k J_k)/dQ`` and the ``cost_only``
+        evaluator (None when logging is on: the callers then keep the
+        trajectory path for its diagnostics).
+
+        With logging off and an eligible model the gradient is K7
+        (``ops/grad_cost_rollout.py``) and the cost K1; otherwise
+        ``torch.autograd`` through the fused loop, or through the
+        trajectory rollout when logging is on."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        if not self.optimizer_logging and ode.can_use_grad(self):
+            kernel = ode.build_grad(self)
+
+            def kernel_grad(Q, s_tiled, u_prev, params):
+                return kernel(s_tiled, Q, u_prev, params)[1]
+
+            return kernel_grad, self._make_cost_only()
+
+        cost_only = None
+        if not self.optimizer_logging and self._can_fuse_rollout():
+            cost_only = self._fused_cost
+        eval_cost = cost_only or (lambda s, Q, up, p: self._rollout_and_cost(s, Q, up, p)[0])
+
+        def autograd_grad(Q, s_tiled, u_prev, params):
+            with torch.enable_grad():
+                Qv = Q.detach().requires_grad_(True)
+                (dQ,) = torch.autograd.grad(eval_cost(s_tiled, Qv, u_prev, params).sum(), Qv)
+            return dQ
+
+        return autograd_grad, cost_only
 
     def _soa_bindings(self):
         """Bind the predictor's SOA dynamics and the cost's SOA primitives,

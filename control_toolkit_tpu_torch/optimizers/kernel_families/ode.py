@@ -1,12 +1,17 @@
-"""Analytic ODE kernel family, cost half (counterpart of
-control_toolkit_tpu/optimizers/kernel_families/ode.py).
+"""Analytic ODE kernel family: the cost kernel K1 and its gradient twin K7
+(counterpart of control_toolkit_tpu/optimizers/kernel_families/ode.py).
 
-The gate admits an ODE predictor whose plant has a device implementation
-(``ops/kernels.py`` PLANT_IDS, with the cost that plant evaluates), a cost
-with ``supports_fused_rollout`` and scalar attributes, and ``force_scan``
-off.  The JAX gate's TPU conjuncts (backend, ``K % tile``, VMEM budgets)
-have no counterpart: K is masked in the kernel, and on CPU tensors the
-kernel wrappers run their plain versions.
+The cost gate admits an ODE predictor whose plant has a device
+implementation (``ops/kernels.py`` PLANT_IDS, with the cost that plant
+evaluates), a cost with ``supports_fused_rollout`` and scalar attributes,
+and ``force_scan`` off; the gradient gate adds a plant with hand-written
+adjoints (``ops/adjoints.py`` PLANT_ADJOINTS).  The JAX gates' TPU
+conjuncts (backend, ``K % tile``, ``grad_tile_for``, VMEM budgets) have no
+counterpart: K is masked in the kernels, and on CPU tensors the kernel
+wrappers run their plain versions.  Not ported: the gradient kernel's
+``value_spec`` (an in-kernel learned value terminal) and ``slot_keys``
+(the batched-session columns form); ``compatible_model`` refuses a
+``post_terminal_cost``, so neither is reachable.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ import numpy as np
 from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor
 from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import grad_cost_rollout
 
 name = "ode"
 
@@ -69,3 +76,20 @@ def build_cost(opt):
         return cost_rollout(model, s_tiled, Q, pack(params, u_prev))
 
     return cost_fn
+
+
+def can_use_grad(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
+
+
+def build_grad(opt):
+    """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
+    over K7, with d(sum_k cost_k)/dQ semantics; the same per-call
+    parameter packing as ``build_cost``."""
+    model, pack = rollout_model(opt)
+
+    def grad_fn(s_tiled, Q, u_prev, params):
+        return grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev))
+
+    return grad_fn

@@ -1,8 +1,10 @@
 """Carry the JAX package's values across to the port.
 
-Both functions take numpy arrays (or Python numbers), as a caller gets
+The functions take numpy arrays (or Python numbers), as a caller gets
 them from the JAX package with ``np.asarray``, and build the port's
-tensors on ``device``.
+tensors on ``device``.  An optimizer state's PRNG key is not carried (the
+two packages' generators differ): the port's state takes ``generator``
+instead, on the device the tensors go to.
 """
 from __future__ import annotations
 
@@ -27,11 +29,39 @@ def params_from_numpy(params: Dict, device: torch.device) -> Dict:
 
 def mppi_state_from_numpy(u_nom, u_prev, generator: torch.Generator):
     """An ``MPPIState`` from the JAX state's ``u_nom [1,H,U]`` and
-    ``u_prev [U]``.  The PRNG key is not carried (the two packages'
-    generators differ); the port's state takes ``generator`` instead, on
-    the device the tensors go to."""
+    ``u_prev [U]``."""
     from control_toolkit_tpu_torch.optimizers.mppi import MPPIState
 
     device = generator.device
     return MPPIState(generator=generator, u_nom=_tensor(u_nom, device),
                      u_prev=_tensor(u_prev, device))
+
+
+def _adam(m, v, adam_step, device):
+    from control_toolkit_tpu_torch.ops.common import AdamState
+
+    return AdamState(step=int(adam_step), m=_tensor(m, device), v=_tensor(v, device))
+
+
+def rpgd_state_from_numpy(Q, m, v, adam_step, ages, count, u_prev, generator: torch.Generator):
+    """An ``RPGDState`` from the JAX state's population ``Q [K,H,U]``, Adam
+    moments and step, ``trajectory_ages [K]``, tick ``count`` and
+    ``u_prev [U]``."""
+    from control_toolkit_tpu_torch.optimizers.rpgd import RPGDState
+
+    device = generator.device
+    return RPGDState(generator=generator, Q=_tensor(Q, device),
+                     adam=_adam(m, v, adam_step, device),
+                     trajectory_ages=_tensor(ages, device), count=int(count),
+                     u_prev=_tensor(u_prev, device))
+
+
+def gradient_state_from_numpy(Q, m, v, adam_step, count, u_prev, generator: torch.Generator):
+    """A ``GradientState`` from the JAX state's population, Adam moments
+    and step, tick ``count`` and ``u_prev``."""
+    from control_toolkit_tpu_torch.optimizers.gradient import GradientState
+
+    device = generator.device
+    return GradientState(generator=generator, Q=_tensor(Q, device),
+                         adam=_adam(m, v, adam_step, device), count=int(count),
+                         u_prev=_tensor(u_prev, device))

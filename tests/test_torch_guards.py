@@ -35,6 +35,19 @@ for semi in (True, False):
         u = ctrl.step(s[0])
         s, *_ = env.step(u)
     assert np.all(np.isfinite(u)) and u.shape == (1,)
+ctrl = import_controller_by_name("rpgd-tf")(
+    "cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+    {"target_position": 0.0},
+    config={"optimizer": "rpgd-tf", "controller_logging": False, "device": "cpu"})
+ctrl.configure(optimizer_name="rpgd-tf", optimizer_config={
+    "seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10, "num_rollouts": 32,
+    "period_interpolation_inducing_points": 5, "resamp_per": 2},
+    cost_function_config={"dd_weight": 120.0, "ep_weight": 10000.0, "ekp_weight": 10.0,
+                          "cc_weight": 1.0, "ccrc_weight": 1.0, "R": 1.0})
+s, _ = CartpoleEnv(batch_size=1, dt=0.02, seed=0).reset()
+for _ in range(3):
+    u = ctrl.step(s[0])
+assert np.all(np.isfinite(u)) and u.shape == (1,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
 assert loaded == ["jax"], loaded  # only the blocked placeholder
 print("NO_JAX_OK")

@@ -1,5 +1,6 @@
 """The port's two rollout kernels (K1 ``ops/cost_rollout.py``, K2
-``ops/mppi_cost.py``): their plain versions against the JAX package's
+``ops/mppi_cost.py``; K7 has tests/test_torch_grad.py): their plain
+versions against the JAX package's
 Pallas kernels in interpret mode, the wrappers' dispatch rule, and — on a
 machine with a CUDA card only — each CUDA kernel against its plain
 version."""
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import grad_cost_rollout
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
@@ -133,6 +135,14 @@ def test_wrappers_never_run_plain_versions_on_non_cpu_tensors(pair):
         mppi_cost(model, torch.zeros(4), torch.zeros(5, 1), torch.zeros(15),
                   torch.empty(2, 1, 8, **meta), torch.zeros(2, 5), torch.zeros(1),
                   torch.zeros(1), 1.0, 1.0, 1000.0)
+    before = grad_cost_rollout.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        grad_cost_rollout(model, torch.empty(8, 4, **meta), torch.empty(8, 5, 1, **meta),
+                          torch.empty(15, **meta))
+    with pytest.raises(ValueError, match="several devices"):
+        grad_cost_rollout(model, torch.zeros(8, 4), torch.empty(8, 5, 1, **meta),
+                          torch.zeros(15))
+    assert grad_cost_rollout.launches == before
 
 
 def test_rollout_model_rejects_a_foreign_parameter_layout(pair):
