@@ -8,10 +8,10 @@ tensor code is PyTorch; every Pallas kernel on the ported path is a CUDA
 kernel for Hopper (``csrc/``), built with nvcc at first use and bound
 with ctypes (``ops/kernels.py``).
 
-The package imports torch and never jax.  It reads the JAX package's
-YAML files (and reuses its jax-free cost-config watcher) only inside the
-functions that read a file, so a caller that passes every config
-explicitly imports nothing of the JAX package.
+The package imports torch and never jax, and nothing of the JAX package:
+its YAML config loader, packaged default configs and cost-config watcher
+are its own copies (``utils/config.py``, ``config_defaults/``,
+``costs/updater.py``).
 """
 __version__ = "0.1.0"
 

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from control_toolkit_tpu_torch.utils.config import load_controller_config
 from control_toolkit_tpu_torch.utils.device import resolve_device
 
 SAVE_VARS = [
@@ -41,8 +42,6 @@ class Controller(ABC):
         if config is not None:
             self.config_controller = dict(config)
         else:
-            from control_toolkit_tpu.utils.config import load_controller_config
-
             self.config_controller = load_controller_config(self.controller_name)
 
         self.environment_name = environment_name

@@ -18,6 +18,8 @@ from control_toolkit_tpu_torch.controllers.base import Controller
 from control_toolkit_tpu_torch.costs.wrapper import CostFunctionWrapper
 from control_toolkit_tpu_torch.models.predictors import PredictorWrapper
 from control_toolkit_tpu_torch.utils import registry
+from control_toolkit_tpu_torch.utils.config import load_optimizer_config
+from control_toolkit_tpu_torch.utils.device import place
 
 logger = logging.getLogger(__name__)
 
@@ -47,8 +49,6 @@ class MPCController(Controller):
         if not predictor_specification:
             predictor_specification = self.config_controller.get("predictor_specification", "ODE")
         if optimizer_config is None:
-            from control_toolkit_tpu.utils.config import load_optimizer_config
-
             optimizer_config = load_optimizer_config(optimizer_name)
         config_optimizer = dict(optimizer_config)
 
@@ -79,6 +79,7 @@ class MPCController(Controller):
             predictor_specification=predictor_specification,
             environment_name=self.environment_name,
             variable_parameters=self.variable_parameters,
+            device=self.device,
             **(predictor_config or {}),
         )
         self.cost_function.configure(
@@ -104,9 +105,21 @@ class MPCController(Controller):
     def _assemble_params(self) -> Dict:
         """The params tree for the optimizer step: tensors on the
         controller's device, cached until a dynamics value changes, the
-        cost config hot-reloads, or an attribute is updated."""
+        cost config hot-reloads, or an attribute is updated.
+
+        An ODE's constants are cached as scalars and compared by value.  A
+        learned net's tensors are placed once and again only when the
+        predictor's net object changes (a checkpoint swap); a recurrent
+        net's ``hidden`` is handed through live, the very tensors that
+        ``update`` advanced, with no copy."""
         fresh = self.predictor.default_params()
-        if self._dyn_params is None or fresh != self._dyn_raw:
+        if "net" in fresh:
+            if self._dyn_params is None or fresh["net"] is not self._dyn_raw:
+                self._dyn_params = {"net": place(fresh["net"], self.device)}
+                self._dyn_raw = fresh["net"]
+            if "hidden" in fresh:
+                self._dyn_params = {**self._dyn_params, "hidden": fresh["hidden"]}
+        elif self._dyn_params is None or fresh != self._dyn_raw:
             self._dyn_params = {
                 k: torch.tensor(float(v), dtype=torch.float32, device=self.device)
                 for k, v in fresh.items()

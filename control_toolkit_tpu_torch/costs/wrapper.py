@@ -4,9 +4,9 @@ control_toolkit_tpu/costs/wrapper.py).
 Resolves a cost by ``(environment_name, cost_function_specification)``
 through the port's registry, binds the hot-reload watcher and proxies the
 cost API.  Without an explicit ``cost_config`` the weights come from
-``config_cost_function.yml`` (ASF dir, else the JAX package's packaged
-defaults) and the file is watched for hot reload by the JAX package's
-jax-free ``CostFunctionUpdater``; both are imported only on that path.
+``config_cost_function.yml`` (ASF dir, else the packaged defaults,
+``utils/config.py``) and the file is watched for hot reload
+(``costs/updater.py``).
 """
 from __future__ import annotations
 
@@ -14,7 +14,11 @@ import logging
 from typing import Dict, Optional
 
 from control_toolkit_tpu_torch.costs.base import CostFunction
+from control_toolkit_tpu_torch.costs.updater import CostFunctionUpdater
 from control_toolkit_tpu_torch.utils import registry
+from control_toolkit_tpu_torch.utils.config import (
+    CONFIG_COST_FUNCTION, load_cost_config, resolve_config_path,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -40,8 +44,6 @@ class CostFunctionWrapper:
         """``cost_config`` gives the cost's weights directly: no file is
         read and none is watched."""
         if cost_config is None:
-            from control_toolkit_tpu.utils.config import load_cost_config
-
             try:
                 full_cfg = load_cost_config()
             except FileNotFoundError:
@@ -73,12 +75,6 @@ class CostFunctionWrapper:
         self.environment_name = environment_name
 
         if watch_config:
-            from control_toolkit_tpu.costs.updater import CostFunctionUpdater
-            from control_toolkit_tpu.utils.config import (
-                CONFIG_COST_FUNCTION,
-                resolve_config_path,
-            )
-
             try:
                 path = resolve_config_path(CONFIG_COST_FUNCTION)
             except FileNotFoundError:

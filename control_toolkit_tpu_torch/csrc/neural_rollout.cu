@@ -1,0 +1,158 @@
+// K11 and K13: rollout + trajectory cost over K control sequences under a
+// learned network: an MLP (K11) or stacked GRU/LSTM cells from the live
+// batch-1 hidden (K13).
+//
+// Replaces control_toolkit_tpu/ops/pallas_neural.py:
+// build_neural_cost_rollout_kernel (K11) and
+// build_recurrent_cost_rollout_kernel (K13), the kernels behind
+// kernel_families/neural.py:build_cost.  Python wrappers and plain
+// versions: ops/neural_rollout.py; the net's layers: neural_core.cuh.
+//
+// cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1),
+// Q[k,-1] = u_prev; the stage cost accrues before the step.  The packed
+// parameters are the cost's alone (plants.cuh CartpoleCost): the dynamics
+// are the net, staged from its tensors at every launch.
+//
+// What bounds them on an H100: the network's FP32 multiply-adds.  At the
+// main path's K=16384, H=50, mlp-64-64 is 9,344 FLOP per rollout-step
+// (7.7 GFLOP a call, 0.11 ms at the 67 TFLOP/s FP32 peak) and GRU-32-32
+// 19,648 (16 GFLOP, 0.24 ms); the bytes (Q in, cost out, the weights once
+// per block) are < 4 MB.  One thread per rollout gives 16384 threads, about
+// four warps per SM, and each FMA needs shared-memory operands, so the
+// kernels run far from that peak.  The design keeps everything else off
+// the chain: weights are staged once per block and read as float4
+// broadcasts, each thread's activations stay in its own shared-memory
+// columns (no barrier inside the horizon loop), and a layer's outputs are
+// summed kChunk (kGateChunk per gate) at a time in registers.  Tensor cores
+// over a tile of rollouts would change the numerics: later work.
+#include "neural_core.cuh"
+
+namespace ctt {
+
+template <class Cost>
+__global__ void __launch_bounds__(kThreads)
+neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                           const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                           int H, float max_cost, NetArgs net, NetLayout L) {
+  constexpr int S = Cost::S, U = Cost::U;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  stage_net(sm, net, L, S, U, false);
+  __syncthreads();
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;  // ragged K is masked
+  float c[Cost::kN];
+#pragma unroll
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  float x[S], prev[U], acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+#pragma unroll
+  for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
+  const float* q = Q + static_cast<size_t>(k) * H * U;
+  for (int h = 0; h < H; ++h) {
+    float u[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
+    acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
+    mlp_step<S, U>(sm, net, L, x, u);
+#pragma unroll
+    for (int j = 0; j < U; ++j) prev[j] = u[j];
+  }
+  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+}
+
+template <class Cost, int G>
+__global__ void __launch_bounds__(kThreads)
+recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                              const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                              int H, float max_cost, NetArgs net, NetLayout L) {
+  constexpr int S = Cost::S, U = Cost::U;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  stage_net(sm, net, L, S, U, false);
+  __syncthreads();
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;  // ragged K is masked
+  float c[Cost::kN];
+#pragma unroll
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  rnn_start<G>(sm, net, L);
+  float x[S], prev[U], acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+#pragma unroll
+  for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
+  const float* q = Q + static_cast<size_t>(k) * H * U;
+  for (int h = 0; h < H; ++h) {
+    float u[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
+    acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
+    rnn_step<G, S, U>(sm, net, L, x, u);
+#pragma unroll
+    for (int j = 0; j < U; ++j) prev[j] = u[j];
+  }
+  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+}
+
+// Plan, allow the shared memory and launch `kernel` on `stream`.
+template <class Kernel>
+int launch_net_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, int U,
+                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
+                      float max_cost, void* stream) {
+  NetLayout L;
+  const long bytes = plan_layout(net, S, U, false, L);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((K + kThreads - 1) / kThreads);
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(Q),
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost, net, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ctt
+
+extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U, int transposed) {
+  ctt::NetLayout L;
+  return ctt::plan_layout(*net, S, U, transposed != 0, L);
+}
+
+// Launches K11 (an MLP net) on `stream`; returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for an unknown plant or a net the
+// kernel refuses.
+extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
+                                       void* cost, int K, int H, float max_cost,
+                                       const ctt::NetArgs* net, void* stream) {
+  using Cost = ctt::CartpoleCost;
+  static long allowed = 0;
+  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return ctt::launch_net_kernel(ctt::neural_cost_rollout_kernel<Cost>, allowed, *net, Cost::S,
+                                Cost::U, s0, Q, pvec, cost, K, H, max_cost, stream);
+}
+
+// Launches K13 (a GRU or LSTM net) on `stream`; returns as above.
+extern "C" int ctt_recurrent_cost_rollout(int plant, const void* s0, const void* Q,
+                                          const void* pvec, void* cost, int K, int H,
+                                          float max_cost, const ctt::NetArgs* net,
+                                          void* stream) {
+  using Cost = ctt::CartpoleCost;
+  static long allowed_gru = 0, allowed_lstm = 0;
+  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  switch (net->kind) {
+    case ctt::kNetGRU:
+      return ctt::launch_net_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
+                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
+                                    stream);
+    case ctt::kNetLSTM:
+      return ctt::launch_net_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
+                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
+                                    stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,12 +1,15 @@
 // Device plants: a model's dynamics and its cost's per-step terms, for the
-// rollout core (rollout_core.cuh).
+// rollout cores (rollout_core.cuh, neural_core.cuh).
 //
 // A plant reads every scalar from the packed parameter vector `p`, laid out
 // in Optimizer._soa_bindings' order for its (dynamics, cost) pair: d_* keys
-// sorted, c_* keys sorted, a_* keys sorted, then __u_prev_j.  The Python
-// side (ops/kernels.py PLANT_PARAM_KEYS) checks that order before any
-// launch, so a changed weight, target or dynamics constant is a new value
-// in `p`, never a rebuild.
+// sorted, c_* keys sorted, a_* keys sorted, then __u_prev_j.  The cost part
+// is a struct of its own that reads from its own base pointer: the ODE
+// kernels pass it p + Dynamics::kN, the network-rollout kernels (whose
+// dynamics are weight tensors, not packed scalars) pass p itself.  The
+// Python side (ops/kernels.py DYN_PARAM_KEYS, COST_PARAM_KEYS) checks both
+// layouts before any launch, so a changed weight, target or dynamics
+// constant is a new value in `p`, never a rebuild.
 //
 // Each expression copies the operation order of its Python counterpart
 // (models/dynamics.py, costs/cartpole.py).  sinf/cosf are the accurate
@@ -15,18 +18,11 @@
 
 namespace ctt {
 
-// Cart-pole dynamics (models/dynamics.py:_cartpole_derivs) with the
-// cartpole/default cost (costs/cartpole.py:CartpoleQuadraticCost).
-struct CartpolePlant {
+// Cart-pole dynamics (models/dynamics.py:_cartpole_derivs).
+struct CartpoleDynamics {
   static constexpr int S = 4;  // position, positionD, angle, angleD
   static constexpr int U = 1;  // force command in [-1, 1]
-  enum : int {
-    kL = 0, kFrictionCart, kFrictionPole, kG, kMCart, kMPole, kUMax,
-    kR, kCcWeight, kCcrcWeight, kDdWeight, kEkpWeight, kEpWeight,
-    kTargetPosition,
-    kUPrev,  // __u_prev_0 .. __u_prev_{U-1}
-    kN = kUPrev + U
-  };
+  enum : int { kL = 0, kFrictionCart, kFrictionPole, kG, kMCart, kMPole, kUMax, kN };
 
   __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
                                                 const float* p, float (&d)[S]) {
@@ -47,38 +43,7 @@ struct CartpolePlant {
     d[3] = theta_dd;
   }
 
-  // Stage cost with the control-change term and the MAX_COST shift
-  // (Optimizer._soa_bindings stage_soa).
-  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
-                                                     const float (&prev)[U], const float* p,
-                                                     float max_cost) {
-    const float pos = x[0], angle = x[2], angle_d = x[3];
-    const float dpos = pos - p[kTargetPosition];
-    const float dd = p[kDdWeight] * (dpos * dpos);
-    const float omc = 1.0f - cosf(angle);
-    const float ep = p[kEpWeight] * 0.25f * (omc * omc);
-    const float ad = angle_d / 6.283185307179586f;  // 2*pi rounded to float
-    const float ekp = p[kEkpWeight] * (ad * ad);
-    float usq = 0.0f, dusq = 0.0f;
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      usq = usq + u[j] * u[j];
-      const float du = u[j] - prev[j];
-      dusq = dusq + du * du;
-    }
-    const float cc = p[kCcWeight] * p[kR] * usq;
-    const float core = dd + ep + ekp + cc;
-    return (core + p[kCcrcWeight] * dusq) - max_cost;
-  }
-
-  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* p) {
-    const float angle = x[2], angle_d = x[3];
-    const float omc = 1.0f - cosf(angle);
-    return 1.0e4f * (omc * omc) + 10.0f * (angle_d * angle_d);
-  }
-
-  // The adjoints (ops/adjoints.py, transcribed term for term).
-
+  // The adjoint (ops/adjoints.py, transcribed term for term):
   // dx = lam^T df/dx, du = lam^T df/du at (x, u): cartpole_derivs_vjp.
   __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
                                                     const float* p, const float (&lam)[S],
@@ -118,21 +83,66 @@ struct CartpolePlant {
     dx[3] = g_thd;
     du[0] = g_a * p[kUMax];
   }
+};
+
+// The cartpole/default cost (costs/cartpole.py:CartpoleQuadraticCost) over
+// its own packed vector `c`: the cost weights, the target, __u_prev.
+struct CartpoleCost {
+  static constexpr int S = 4;
+  static constexpr int U = 1;
+  enum : int {
+    kR = 0, kCcWeight, kCcrcWeight, kDdWeight, kEkpWeight, kEpWeight,
+    kTargetPosition,
+    kUPrev,  // __u_prev_0 .. __u_prev_{U-1}
+    kN = kUPrev + U
+  };
+
+  // Stage cost with the control-change term and the MAX_COST shift
+  // (Optimizer._soa_bindings stage_soa).
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* c,
+                                                     float max_cost) {
+    const float pos = x[0], angle = x[2], angle_d = x[3];
+    const float dpos = pos - c[kTargetPosition];
+    const float dd = c[kDdWeight] * (dpos * dpos);
+    const float omc = 1.0f - cosf(angle);
+    const float ep = c[kEpWeight] * 0.25f * (omc * omc);
+    const float ad = angle_d / 6.283185307179586f;  // 2*pi rounded to float
+    const float ekp = c[kEkpWeight] * (ad * ad);
+    float usq = 0.0f, dusq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      usq = usq + u[j] * u[j];
+      const float du = u[j] - prev[j];
+      dusq = dusq + du * du;
+    }
+    const float cc = c[kCcWeight] * c[kR] * usq;
+    const float core = dd + ep + ekp + cc;
+    return (core + c[kCcrcWeight] * dusq) - max_cost;
+  }
+
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* c) {
+    const float angle = x[2], angle_d = x[3];
+    const float omc = 1.0f - cosf(angle);
+    return 1.0e4f * (omc * omc) + 10.0f * (angle_d * angle_d);
+  }
+
+  // The adjoints (ops/adjoints.py, transcribed term for term).
 
   // Gradient of ct * stage_cost: cartpole_stage_vjp.  gprev is u's part in
   // the next stage's control-change term, -2 * ccrc * (u - prev) * ct.
   __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
-                                                        const float (&prev)[U], const float* p,
+                                                        const float (&prev)[U], const float* c,
                                                         float ct, float (&gx)[S], float (&gu)[U],
                                                         float (&gprev)[U]) {
     const float pos = x[0], angle = x[2], angle_d = x[3];
     const float two_pi = 6.283185307179586f;
-    gx[0] = ct * (2.0f * p[kDdWeight]) * (pos - p[kTargetPosition]);
+    gx[0] = ct * (2.0f * c[kDdWeight]) * (pos - c[kTargetPosition]);
     gx[1] = 0.0f;
-    gx[2] = ct * (0.5f * p[kEpWeight]) * (1.0f - cosf(angle)) * sinf(angle);
-    gx[3] = ct * (2.0f * p[kEkpWeight]) * (angle_d / two_pi) / two_pi;
-    const float cc = 2.0f * p[kCcWeight] * p[kR];
-    const float ccrc = 2.0f * p[kCcrcWeight];
+    gx[2] = ct * (0.5f * c[kEpWeight]) * (1.0f - cosf(angle)) * sinf(angle);
+    gx[3] = ct * (2.0f * c[kEkpWeight]) * (angle_d / two_pi) / two_pi;
+    const float cc = 2.0f * c[kCcWeight] * c[kR];
+    const float ccrc = 2.0f * c[kCcrcWeight];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       const float dchange = ct * ccrc * (u[j] - prev[j]);
@@ -142,13 +152,52 @@ struct CartpolePlant {
   }
 
   // Gradient of ct * terminal_cost: cartpole_terminal_grad.
-  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* p,
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* c,
                                                             float ct, float (&g)[S]) {
     const float angle = x[2], angle_d = x[3];
     g[0] = 0.0f;
     g[1] = 0.0f;
     g[2] = ct * 2.0e4f * (1.0f - cosf(angle)) * sinf(angle);
     g[3] = ct * 20.0f * angle_d;
+  }
+};
+
+// The ODE kernels' plant: the dynamics' constants, then the cost's vector.
+struct CartpolePlant {
+  using Dynamics = CartpoleDynamics;
+  using Cost = CartpoleCost;
+  static constexpr int S = Dynamics::S;
+  static constexpr int U = Dynamics::U;
+  static constexpr int kCost = Dynamics::kN;  // the cost part's base
+  static constexpr int kUPrev = kCost + Cost::kUPrev;
+  static constexpr int kN = kCost + Cost::kN;
+
+  __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
+                                                const float* p, float (&d)[S]) {
+    Dynamics::derivs(x, u, p, d);
+  }
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    Dynamics::derivs_vjp(x, u, p, lam, dx, du);
+  }
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* p,
+                                                     float max_cost) {
+    return Cost::stage_cost(x, u, prev, p + kCost, max_cost);
+  }
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* p) {
+    return Cost::terminal_cost(x, p + kCost);
+  }
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* p,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    Cost::stage_cost_vjp(x, u, prev, p + kCost, ct, gx, gu, gprev);
+  }
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* p,
+                                                            float ct, float (&g)[S]) {
+    Cost::terminal_cost_grad(x, p + kCost, ct, g);
   }
 };
 

@@ -2,8 +2,9 @@
 
 A predictor holds a rollout function ``rollout(s0 [B,S], Q [B,H,U],
 params) -> [B,H+1,S]``; the horizon is a Python loop (``scan_rollout``).
-Only the ``"ODE[:integrator[:substeps]]"`` predictor is ported so far;
-the learned and ``:fast`` predictors are still to be ported (ROADMAP).
+Ported: the ``"ODE[:integrator[:substeps]]"`` predictor and the learned
+MLP/GRU/LSTM predictors (``models/neural_predictor.py``); the ``:fast``,
+residual, ensemble and GP predictors are still to be ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -73,12 +74,23 @@ class Predictor:
     def predict_core(self, s0, Q, params=None):
         return self.rollout(s0, Q, params)
 
+    def update(self, s, Q0, params=None) -> None:
+        """Advance internal (RNN) state with the applied control; a no-op
+        for stateless predictors."""
+
+    def copy(self) -> "Predictor":
+        return self
+
     def default_params(self) -> Dict:
         return {}
 
     @property
     def single_step(self):
         return None
+
+    @property
+    def is_stateful(self) -> bool:
+        return False
 
 
 @registry.predictors.register("ODE")
@@ -145,7 +157,10 @@ class ODEPredictor(Predictor):
 class PredictorWrapper:
     """Deferred-configuration predictor resolver.  Spec grammar so far:
     ``"ODE"`` / ``"ODE_v0"`` (rk4), ``"ODE:euler"``, ``"ODE:rk4:2"``
-    (integrator / substeps)."""
+    (integrator / substeps); ``"neural:<net>[:<path>][:bf16]"`` and the
+    bare net name ``"<net>[:<path>][:bf16]"`` (``mlp-…``, ``GRU-…``,
+    ``LSTM-…``), the checkpoint being ``<path>/<net>.npz``.  ``device`` is
+    where a learned predictor keeps its weights and hidden state."""
 
     def __init__(self):
         self.predictor: Optional[Predictor] = None
@@ -161,12 +176,28 @@ class PredictorWrapper:
         predictor_specification: str = "ODE",
         environment_name: str = "cartpole",
         variable_parameters=None,
+        device=None,
         **kwargs,
     ) -> None:
         self._spec = predictor_specification or "ODE"
         spec_parts = self._spec.split(":")
         head = spec_parts[0]
-        if head in ("ODE", "ODE_v0"):
+        neural_opts = None
+        if head == "neural" and len(spec_parts) > 1:
+            net_name, neural_opts = spec_parts[1], list(spec_parts[2:])
+        elif head.lower().startswith(("gru", "lstm", "mlp")):
+            net_name, neural_opts = head, list(spec_parts[1:])
+        if neural_opts is not None:
+            from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
+
+            if neural_opts and neural_opts[-1] in ("bf16", "bfloat16", "f32", "float32"):
+                kwargs.setdefault("compute_dtype", neural_opts.pop())
+            self.predictor = NeuralPredictor(
+                environment_name=environment_name, dt=dt, net_name=net_name,
+                path_to_models=neural_opts[0] if neural_opts else None, device=device,
+                **kwargs,
+            )
+        elif head in ("ODE", "ODE_v0"):
             opts = list(spec_parts[1:])
             if "fast" in opts:
                 raise NotImplementedError(
@@ -195,6 +226,22 @@ class PredictorWrapper:
     def predict_core(self, s0, Q, params=None):
         return self.predictor.rollout(s0, Q, params)
 
+    def update(self, s, Q0, params=None):
+        return self.predictor.update(s, Q0, params)
+
     @property
     def single_step(self):
         return self.predictor.single_step if self.predictor else None
+
+    @property
+    def is_stateful(self) -> bool:
+        return bool(self.predictor) and self.predictor.is_stateful
+
+    def copy(self) -> "PredictorWrapper":
+        new = PredictorWrapper()
+        if self.predictor is not None:
+            new.predictor = self.predictor.copy()
+            new.num_states = self.num_states
+            new.num_control_inputs = self.num_control_inputs
+            new._spec = self._spec
+        return new

@@ -7,8 +7,10 @@ packed-parameter dict ``p`` that ``RolloutModel.unpack`` gives (keys
 ``d_*``, ``c_*``, ``a_*``, ``__u_prev_j``), the form the CUDA plant reads.
 ``csrc/plants.cuh`` and ``csrc/rollout_core.cuh`` transcribe them term
 for term, so these are the formulas the tests hold against
-``torch.autograd``.  Only gradients with respect to states and controls
-are formed; parameters get none.
+``torch.autograd``.  ``mlp_step_vjp`` is the learned MLP step's adjoint
+over the net's weight dict, transcribed into ``csrc/neural_core.cuh``.
+Only gradients with respect to states and controls are formed;
+parameters and weights get none.
 """
 from __future__ import annotations
 
@@ -92,6 +94,37 @@ def cartpole_terminal_grad(xs: Tuple, p, ct) -> Tuple:
 PLANT_ADJOINTS = {
     "cartpole": (cartpole_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
 }
+
+
+def mlp_step_vjp(xs: Tuple, us: Tuple, net, predict_delta: bool,
+                 lam: Tuple) -> Tuple[Tuple, Tuple]:
+    """``lam^T d x' / d(x, u)`` for the MLP step of ops/neural_rollout.py
+    (``x' = x + net([x, u])``, or ``net([x, u])`` unless ``predict_delta``):
+    the forward re-run at (x, u) for its activations, then, last to first,
+    ``norm_out`` (times std), each layer transposed (``g @ W^T``, after
+    tanh' = 1 - a^2 on the hidden layers), ``norm_in`` (over std); the
+    delta form adds ``lam`` to the state's part."""
+    a = torch.cat([torch.stack(xs, dim=1), torch.stack(us, dim=1)], dim=1)
+    if "norm_in_mean" in net:
+        a = (a - net["norm_in_mean"]) / net["norm_in_std"]
+    n = sum(1 for k in net if k.startswith("w"))
+    acts = []
+    for i in range(n - 1):
+        a = torch.tanh(a @ net[f"w{i}"] + net[f"b{i}"])
+        acts.append(a)
+    lam_t = torch.stack(lam, dim=1)
+    g = lam_t * net["norm_out_std"] if "norm_out_mean" in net else lam_t
+    for i in reversed(range(n)):
+        if i < n - 1:
+            g = g * (1.0 - acts[i] * acts[i])
+        g = g @ net[f"w{i}"].T
+    if "norm_in_mean" in net:
+        g = g / net["norm_in_std"]
+    S = len(xs)
+    dxs = tuple(g[:, i] for i in range(S))
+    if predict_delta:
+        dxs = tadd(lam, dxs)
+    return dxs, tuple(g[:, S + j] for j in range(len(us)))
 
 
 def _euler_vjp(derivs_vjp, x, u, p, lam, sub_dt):

@@ -26,8 +26,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu")
-HEADERS = ("rollout_core.cuh", "plants.cuh")
+SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
+           "neural_grad_rollout.cu")
+HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,19 +37,25 @@ NVCC_FLAGS = (
 
 # Device plants (csrc/plants.cuh): the id each C entry point dispatches on,
 # and the packed-parameter order the plant reads — Optimizer._soa_bindings'
-# order for its (dynamics, cost) pair.
+# order for its (dynamics, cost) pair: the dynamics' constants, then the
+# cost's part.  The network-rollout kernels, whose dynamics are weight
+# tensors, read the cost's part alone (_soa_bindings(include_dyn=False)).
 PLANT_IDS = {"cartpole": 0}
 PLANT_DIMS = {"cartpole": (4, 1)}  # (S, U)
-PLANT_PARAM_KEYS = {
-    "cartpole": (
-        "d_L", "d_friction_cart", "d_friction_pole", "d_g", "d_m_cart",
-        "d_m_pole", "d_u_max",
-        "c_R", "c_cc_weight", "c_ccrc_weight", "c_dd_weight", "c_ekp_weight",
-        "c_ep_weight",
-        "a_target_position",
-        "__u_prev_0",
-    ),
+DYN_PARAM_KEYS = {
+    "cartpole": ("d_L", "d_friction_cart", "d_friction_pole", "d_g", "d_m_cart",
+                 "d_m_pole", "d_u_max"),
 }
+COST_PARAM_KEYS = {
+    "cartpole": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_dd_weight", "c_ekp_weight",
+                 "c_ep_weight", "a_target_position", "__u_prev_0"),
+}
+PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for plant in PLANT_IDS}
+
+# Network forms of the network-rollout kernels (csrc/neural_core.cuh NetKind)
+# and the most layers (MLP) or cells (GRU/LSTM) a net may have there.
+NET_KINDS = {"mlp": 0, "gru": 1, "lstm": 2}
+MAX_LAYERS = 8
 
 
 @dataclass(frozen=True)
@@ -100,6 +107,126 @@ class RolloutModel:
             int(self.integrator == "rk4"), int(self.intermediate_steps),
             sub_dt, 0.5 * sub_dt, sub_dt / 6.0,
         )
+
+
+class NetArgs(ctypes.Structure):
+    """``csrc/neural_core.cuh`` NetArgs: a net's form and the device
+    pointers of its tensors as they are stored (no copy, no transpose)."""
+
+    _fields_ = [
+        ("kind", ctypes.c_int), ("n_layers", ctypes.c_int), ("predict_delta", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("w", ctypes.c_void_p * MAX_LAYERS), ("b", ctypes.c_void_p * MAX_LAYERS),
+        ("wh", ctypes.c_void_p * MAX_LAYERS), ("bh", ctypes.c_void_p * MAX_LAYERS),
+        ("hidden", ctypes.c_void_p * MAX_LAYERS),
+        ("wo", ctypes.c_void_p), ("bo", ctypes.c_void_p),
+        ("norm_in_mean", ctypes.c_void_p), ("norm_in_std", ctypes.c_void_p),
+        ("norm_out_mean", ctypes.c_void_p), ("norm_out_std", ctypes.c_void_p),
+    ]
+
+
+def _expect(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"net tensor {name}: shape {tuple(t.shape)}, expected {shape}")
+    return t
+
+
+@dataclass(frozen=True)
+class NetModel:
+    """What a network-rollout kernel steps and scores: the net's kind and
+    form, the device plant whose cost it evaluates, packed as
+    ``COST_PARAM_KEYS`` (no dynamics constants: the dynamics are the net's
+    weight tensors, passed per call), and the component-form cost callables
+    that the plain versions run."""
+
+    plant: str
+    param_keys: Tuple[str, ...]
+    stage: Callable       # (xs, us, prev_us, p) -> [K]; with ccrc and -MAX_COST
+    terminal: Callable    # (xs, p) -> [K]
+    kind: str             # mlp | gru | lstm
+    predict_delta: bool
+    max_cost: float
+
+    def __post_init__(self):
+        if self.plant not in PLANT_IDS:
+            raise ValueError(f"no device plant {self.plant!r}; known: {sorted(PLANT_IDS)}")
+        if self.param_keys != COST_PARAM_KEYS[self.plant]:
+            raise ValueError(
+                f"packed parameters {self.param_keys} do not match the {self.plant!r} "
+                f"device cost's layout {COST_PARAM_KEYS[self.plant]}"
+            )
+        if self.kind not in NET_KINDS:
+            raise ValueError(f"unknown net kind {self.kind!r} ({' | '.join(NET_KINDS)})")
+
+    def unpack(self, pvec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {k: pvec[i] for i, k in enumerate(self.param_keys)}
+
+    def check_launch_shape(self, name: str, S: int, U: int, K: int, H: int, N: int) -> None:
+        if (S, U) != PLANT_DIMS[self.plant] or N != len(self.param_keys) or K < 1 or H < 1:
+            raise ValueError(
+                f"{name}: S={S} U={U} N={N} K={K} H={H} do not fit the {self.plant!r} "
+                f"device cost (S, U) = {PLANT_DIMS[self.plant]}, N = {len(self.param_keys)}"
+            )
+
+    def net_args(self, net: Dict, hidden=None) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+        """``(NetArgs, tensors by name)`` for ``net`` and, for a recurrent
+        net, the live batch-1 ``hidden``; raises unless each tensor has the
+        shape its place in the net gives it."""
+        S, U = PLANT_DIMS[self.plant]
+        args, tensors = NetArgs(), {}
+        args.kind, args.predict_delta = NET_KINDS[self.kind], int(self.predict_delta)
+
+        def put(field, i, name, t, shape):
+            tensors[name] = _expect(name, t, shape)
+            if i is None:
+                setattr(args, field, t.data_ptr())
+            else:
+                getattr(args, field)[i] = t.data_ptr()
+
+        if self.kind == "mlp":
+            n = sum(1 for k in net if k.startswith("w"))
+            if not 1 <= n <= MAX_LAYERS:
+                raise ValueError(f"an MLP of {n} layers (1..{MAX_LAYERS} in the kernels)")
+            dims = [S + U] + [int(net[f"w{i}"].shape[-1]) for i in range(n)]
+            if dims[-1] != S:
+                raise ValueError(f"the MLP's output width {dims[-1]} is not the state's {S}")
+            for i in range(n):
+                put("w", i, f"w{i}", net[f"w{i}"], (dims[i], dims[i + 1]))
+                put("b", i, f"b{i}", net[f"b{i}"], (dims[i + 1],))
+            for side, width in (("in", S + U), ("out", S)):
+                if f"norm_{side}_mean" in net:
+                    for stat in ("mean", "std"):
+                        key = f"norm_{side}_{stat}"
+                        put(key, None, key, net[key], (width,))
+        else:
+            gates = 3 if self.kind == "gru" else 4
+            n = sum(1 for k in net if k.startswith("cell"))
+            if not 1 <= n <= MAX_LAYERS or hidden is None or len(hidden) != n:
+                raise ValueError(f"a {self.kind} of {n} cells needs 1..{MAX_LAYERS} cells "
+                                 "and one hidden per cell")
+            dims = [S + U] + [int(net[f"cell{i}"]["wh"].shape[0]) for i in range(n)]
+            for i in range(n):
+                cell, hd = net[f"cell{i}"], dims[i + 1]
+                put("w", i, f"cell{i}/wi", cell["wi"], (dims[i], gates * hd))
+                put("b", i, f"cell{i}/bi", cell["bi"], (gates * hd,))
+                put("wh", i, f"cell{i}/wh", cell["wh"], (hd, gates * hd))
+                put("bh", i, f"cell{i}/bh", cell["bh"], (gates * hd,))
+                state = hd if self.kind == "gru" else 2 * hd
+                put("hidden", i, f"hidden{i}", hidden[i], (1, state))
+            put("wo", None, "wo", net["wo"], (dims[-1], S))
+            put("bo", None, "bo", net["bo"], (S,))
+        args.n_layers = n
+        for i, d in enumerate(dims):
+            args.dims[i] = d
+        return args, tensors
+
+    def smem_bytes(self, args: NetArgs, transposed: bool) -> int:
+        """Dynamic shared memory a block of the kernel takes for this net
+        (staged weights and per-thread activation columns), or -1 where the
+        kernel refuses the net (its launch then returns
+        cudaErrorInvalidValue)."""
+        S, U = PLANT_DIMS[self.plant]
+        return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, int(transposed)))
 
 
 def _nvcc() -> str:
@@ -183,6 +310,16 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_rollout.restype = i32
+        net = ctypes.POINTER(NetArgs)
+        for fn in (lib.ctt_neural_cost_rollout, lib.ctt_recurrent_cost_rollout):
+            fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, net, ptr]
+            fn.restype = i32
+        lib.ctt_neural_grad_cost_rollout.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, net, ptr,
+        ]
+        lib.ctt_neural_grad_cost_rollout.restype = i32
+        lib.ctt_net_smem_bytes.argtypes = [net, i32, i32, i32]
+        lib.ctt_net_smem_bytes.restype = ctypes.c_long
         load.lib = lib
     return load.lib
 
@@ -192,7 +329,9 @@ load.lib = None
 
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc} (1, invalid value: an "
+                           "unknown plant, or a net whose widths or shared memory the kernel "
+                           "refuses)")
 
 
 def check_cuda_operands(name: str, **tensors: torch.Tensor) -> torch.device:

@@ -1,0 +1,107 @@
+"""K8: rollout cost under an MLP and its gradient — the counterpart of
+control_toolkit_tpu/ops/pallas_grad.py:build_neural_grad_cost_rollout_kernel
+(body ``_make_fwd_bwd_kernel``, runner ``_make_grad_runner``).
+
+``neural_grad_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N], net) ->
+(cost [K], dQ [K,H,U])``: cost is K11's (ops/neural_rollout.py) and dQ its
+gradient with respect to Q, so also the gradient of ``sum_k cost_k``.  It
+is K7's structure (ops/grad_cost_rollout.py) with the network step in
+place of the integrator: one forward sweep stores x_0..x_{H-1} and sums the
+stage costs; one backward sweep from h = H-1 to 0 re-linearizes step h at
+the stored x_h with ``adjoints.mlp_step_vjp`` and the cost's hand-written
+adjoints:
+
+    lam_H = d terminal / d x_H * 1/(H+1)
+    dQ_h  = (du_net + gu) + gprev_{h+1}     gprev_H = 0
+    lam_h = dx_net + gx
+
+The weights get no gradient (the population optimizers descend in Q only).
+The CUDA kernel is ``csrc/neural_grad_rollout.cu``;
+``neural_grad_cost_rollout_plain`` is the same function in PyTorch.  The
+wrapper runs the plain version only when every operand lies on the CPU;
+for CUDA operands it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, mlp_step_vjp
+from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, mlp_step
+from control_toolkit_tpu_torch.ops.soa_integrators import tadd
+
+
+def neural_grad_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                   pvec: torch.Tensor, net: Dict
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:148-246)."""
+    _, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
+    p = model.unpack(pvec)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    ct = 1.0 / (H + 1)
+
+    def cols(t):
+        return tuple(t[:, i] for i in range(t.shape[1]))
+
+    x = s0
+    u_prev0 = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
+    prev_us, acc, history = u_prev0, torch.zeros(K, dtype=s0.dtype, device=s0.device), []
+    for h in range(H):
+        history.append(cols(x))
+        us = cols(Q[:, h, :])
+        acc = acc + model.stage(history[h], us, prev_us, p)
+        x = mlp_step(net, x, Q[:, h, :], model.predict_delta)
+        prev_us = us
+    xs = cols(x)
+    cost = (acc + model.terminal(xs, p)) / (H + 1)
+
+    lam = terminal_grad(xs, p, ct)
+    gprev = tuple(torch.zeros_like(acc) for _ in range(U))
+    dq = [None] * H
+    for h in reversed(range(H)):
+        us = cols(Q[:, h, :])
+        prev_us = u_prev0 if h == 0 else cols(Q[:, h - 1, :])
+        dxs_net, dus_net = mlp_step_vjp(history[h], us, net, model.predict_delta, lam)
+        gx, gu, gp = stage_vjp(history[h], us, prev_us, p, ct)
+        dq[h] = torch.stack(tadd(tadd(dus_net, gu), gprev), dim=1)
+        lam = tadd(dxs_net, gx)
+        gprev = gp
+    return cost, torch.stack(dq, dim=1)
+
+
+def neural_grad_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                             pvec: torch.Tensor, net: Dict
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-rollout cost ``[K]`` and its gradient ``[K,H,U]`` under an MLP;
+    see the module docstring."""
+    check_shapes("neural_grad_cost_rollout", s0, Q, pvec)
+    if model.kind != "mlp" or model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"neural_grad_cost_rollout: an MLP over a cost with adjoints, not a "
+                         f"{model.kind} on {model.plant!r}")
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_grad_cost_rollout_plain(model, s0, Q, pvec, net)
+    args, tensors = model.net_args(net)
+    device = kernels.check_cuda_operands("neural_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
+                                         **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("neural_grad_cost_rollout", S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
+    # The forward sweep's states, rollout index fastest, as K7's.
+    xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_neural_grad_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, model.max_cost,
+            1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, "neural_grad_cost_rollout")
+    neural_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+neural_grad_cost_rollout.launches = 0

@@ -1,0 +1,159 @@
+"""K11 and K13: network rollout + trajectory cost — the counterparts of
+control_toolkit_tpu/ops/pallas_neural.py:build_neural_cost_rollout_kernel
+(MLP) and build_recurrent_cost_rollout_kernel (stacked GRU/LSTM).
+
+``neural_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N], net) -> [K]``
+and ``recurrent_cost_rollout(model, s0, Q, pvec, net, hidden) -> [K]``,
+with pallas_neural.py's semantics: the stage cost of (x_h, u_h, u_{h-1})
+accrues before the step, the terminal cost is taken at x_H, and the sum is
+divided by H+1; u_{-1} is the packed ``__u_prev_*``.  ``pvec`` holds the
+cost's part of the packed layout only (``kernels.COST_PARAM_KEYS``).
+
+The MLP step is NeuralPredictor.single_step: ``[x, u]`` through
+``norm_in`` (``(a - mean) / std``), the layers ``a @ W + b`` with tanh on
+all but the last, ``norm_out`` (``a * std + mean``), then ``x + a``
+(``predict_delta``) or ``a``.  The recurrent step runs ``[x, u]`` through
+the stacked cells (gates r, z, n for the GRU; i, f, g, o for the LSTM,
+whose state is ``[h, c]``) from the live batch-1 ``hidden`` broadcast to
+the K rollouts, and the head ``h @ wo + bo`` gives the delta or the next
+state.
+
+The kernels take the net's tensors as they are stored (``w{i}`` [in,
+out], ``cell{i}/wi`` [in, G*Hd]); a new weight tensor is a new pointer,
+never a rebuild.  The CUDA kernels are ``csrc/neural_rollout.cu`` (its
+source note says what bounds them on the card); the ``*_plain`` functions
+are the same functions in PyTorch.  A wrapper runs its plain version only
+when every operand lies on the CPU; for CUDA operands it launches its
+kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.models.networks import RECURRENT_FNS
+from control_toolkit_tpu_torch.ops import kernels
+
+
+def mlp_layer_count(net: Dict) -> int:
+    return sum(1 for k in net if k.startswith("w"))
+
+
+def mlp_step(net: Dict, x: torch.Tensor, u: torch.Tensor, predict_delta: bool) -> torch.Tensor:
+    """One MLP transition on ``x [K,S]``, ``u [K,U]`` (pallas_neural.py:234-241)."""
+    a = torch.cat([x, u], dim=1)
+    if "norm_in_mean" in net:
+        a = (a - net["norm_in_mean"]) / net["norm_in_std"]
+    n = mlp_layer_count(net)
+    for i in range(n):
+        a = a @ net[f"w{i}"] + net[f"b{i}"]
+        if i < n - 1:
+            a = torch.tanh(a)
+    if "norm_out_mean" in net:
+        a = a * net["norm_out_std"] + net["norm_out_mean"]
+    return x + a if predict_delta else a
+
+
+def _cols(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    return tuple(t[:, i] for i in range(t.shape[1]))
+
+
+def plain_cost_loop(model: kernels.NetModel, s0, Q, pvec, step) -> torch.Tensor:
+    """The plain versions' loop, over any ``step(x [K,S], u [K,U]) -> x'``."""
+    p = model.unpack(pvec)
+    K, H, U = s0.shape[0], Q.shape[1], Q.shape[2]
+    x = s0
+    prev_us = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
+    acc = torch.zeros(K, dtype=s0.dtype, device=s0.device)
+    for h in range(H):
+        u = Q[:, h, :]
+        us = _cols(u)
+        acc = acc + model.stage(_cols(x), us, prev_us, p)
+        x = step(x, u)
+        prev_us = us
+    return (acc + model.terminal(_cols(x), p)) / (H + 1)
+
+
+def neural_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                              pvec: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11's arithmetic in PyTorch (pallas_neural.py:205-255)."""
+    return plain_cost_loop(model, s0, Q, pvec,
+                           lambda x, u: mlp_step(net, x, u, model.predict_delta))
+
+
+def recurrent_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                 pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
+    """K13's arithmetic in PyTorch (pallas_neural.py:496-589)."""
+    apply = RECURRENT_FNS[model.kind][1]
+    K = s0.shape[0]
+    hs = [tuple(h.expand(K, h.shape[-1]) for h in hidden)]
+
+    def step(x, u):
+        out, hs[0] = apply(net, torch.cat([x, u], dim=1), hs[0])
+        return x + out if model.predict_delta else out
+
+    return plain_cost_loop(model, s0, Q, pvec, step)
+
+
+def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor) -> None:
+    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
+        raise ValueError(
+            f"{name}: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
+        )
+
+
+def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden):
+    args, tensors = model.net_args(net, hidden)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape(name, S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = getattr(kernels.load(), entry)(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), K, H, model.max_cost, args,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, name)
+    return cost
+
+
+def neural_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                        pvec: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11: per-rollout trajectory cost ``[K]`` under an MLP; see the module
+    docstring."""
+    check_shapes("neural_cost_rollout", s0, Q, pvec)
+    if model.kind != "mlp":
+        raise ValueError(f"neural_cost_rollout: an MLP, not a {model.kind}")
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_cost_rollout_plain(model, s0, Q, pvec, net)
+    cost = _launch("ctt_neural_cost_rollout", "neural_cost_rollout", model, s0, Q, pvec, net,
+                   None)
+    neural_cost_rollout.launches += 1
+    return cost
+
+
+neural_cost_rollout.launches = 0
+
+
+def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                           pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
+    """K13: per-rollout trajectory cost ``[K]`` under a stacked GRU/LSTM
+    from the live batch-1 ``hidden``; see the module docstring."""
+    check_shapes("recurrent_cost_rollout", s0, Q, pvec)
+    if model.kind not in RECURRENT_FNS:
+        raise ValueError(f"recurrent_cost_rollout: a GRU or LSTM, not a {model.kind}")
+    leaves = [v for cell in net.values() for v in (cell.values() if isinstance(cell, dict)
+                                                    else (cell,))]
+    if kernels.on_cpu(s0, Q, pvec, *leaves, *hidden):
+        return recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
+    cost = _launch("ctt_recurrent_cost_rollout", "recurrent_cost_rollout", model, s0, Q, pvec,
+                   net, hidden)
+    recurrent_cost_rollout.launches += 1
+    return cost
+
+
+recurrent_cost_rollout.launches = 0

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from control_toolkit_tpu_torch.utils.device import place
 from control_toolkit_tpu_torch.utils.rng import derive_seed, make_generator
 
 logger = logging.getLogger(__name__)
@@ -153,15 +154,25 @@ class Optimizer:
                 f"{u_host}; substituting zeros and resetting optimizer state"
             )
             self.optimizer_reset()
+            if self.predictor is not None and self.predictor.is_stateful:
+                self.predictor.predictor.reset_state()  # the hidden may carry the divergence
             u_host = np.zeros_like(u_host)
-            self.u = torch.zeros_like(u)
+            u = self.u = torch.zeros_like(u)
+        self._post_step(s_dev, u)
         return u_host
 
+    def _post_step(self, s_dev, u) -> None:
+        """After the step: advance a stateful predictor's hidden with the
+        applied control (the reference's predictor.update), on the device;
+        a no-op for the others."""
+        if self.predictor is not None:
+            self.predictor.update(s_dev[:1], u.reshape(1, 1, -1))
+
     def default_params(self) -> Dict:
-        dyn = {
-            k: torch.tensor(float(v), dtype=torch.float32, device=self.device)
-            for k, v in self.predictor.default_params().items()
-        }
+        # Scalars (an ODE's constants) and nested dyn (a learned net's
+        # tensors, a recurrent net's hidden) alike become float32 tensors on
+        # the device; tensors already there are passed through.
+        dyn = place(self.predictor.default_params(), self.device)
         cost = self.cost_function.current_params(device=self.device)
         return {"dyn": dyn, "cost": cost["cost"], "attrs": cost["attrs"]}
 
@@ -201,13 +212,15 @@ class Optimizer:
         return cost
 
     def _make_cost_only(self):
-        """Best cost-only rollout evaluator, or None: the K1 kernel family
-        (plain version on CPU tensors) > the fused loop > None (callers
-        keep the trajectory path)."""
-        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+        """Best cost-only rollout evaluator, or None: the first kernel
+        family of ``COST_ORDER`` whose gate admits the model (K1 for an
+        ODE, K11/K13 for a learned net; plain versions on CPU tensors) > the
+        fused loop > None (callers keep the trajectory path)."""
+        from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
-        if ode.can_use_cost(self):
-            return ode.build_cost(self)
+        for fam in kf.COST_ORDER:
+            if fam.can_use_cost(self):
+                return fam.build_cost(self)
         if self._can_fuse_rollout():
             return self._fused_cost
         return None
@@ -218,19 +231,21 @@ class Optimizer:
         evaluator (None when logging is on: the callers then keep the
         trajectory path for its diagnostics).
 
-        With logging off and an eligible model the gradient is K7
-        (``ops/grad_cost_rollout.py``) and the cost K1; otherwise
+        With logging off and an eligible model the gradient is the first
+        family of ``GRAD_ORDER`` whose gate admits it (K7 for an ODE, K8 for
+        an MLP) and the cost ``_make_cost_only``'s; otherwise
         ``torch.autograd`` through the fused loop, or through the
         trajectory rollout when logging is on."""
-        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+        from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
-        if not self.optimizer_logging and ode.can_use_grad(self):
-            kernel = ode.build_grad(self)
+        for fam in kf.GRAD_ORDER if not self.optimizer_logging else ():
+            if fam.can_use_grad(self):
+                kernel = fam.build_grad(self)
 
-            def kernel_grad(Q, s_tiled, u_prev, params):
-                return kernel(s_tiled, Q, u_prev, params)[1]
+                def kernel_grad(Q, s_tiled, u_prev, params):
+                    return kernel(s_tiled, Q, u_prev, params)[1]
 
-            return kernel_grad, self._make_cost_only()
+                return kernel_grad, self._make_cost_only()
 
         cost_only = None
         if not self.optimizer_logging and self._can_fuse_rollout():
@@ -245,7 +260,7 @@ class Optimizer:
 
         return autograd_grad, cost_only
 
-    def _soa_bindings(self):
+    def _soa_bindings(self, include_dyn: bool = True):
         """Bind the predictor's SOA dynamics and the cost's SOA primitives,
         plus the packed scalar parameter layout the kernels read: dynamics
         constants (``d_*`` sorted), cost weights (``c_*`` sorted),
@@ -253,12 +268,14 @@ class Optimizer:
 
         Returns (param_keys, pack, derivs_soa, stage_soa, terminal_soa,
         pred); ``stage_soa`` includes the control-change term and the
-        MAX_COST shift."""
+        MAX_COST shift.  ``include_dyn=False`` leaves the dynamics out of
+        the layout (and returns ``derivs_soa=None``): the network-rollout
+        kernels take a learned net's weights as tensors, not scalars."""
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
         pred = getattr(self.predictor, "predictor", self.predictor)
         U = self.num_control_inputs
 
-        dyn_keys = sorted(pred.default_params())
+        dyn_keys = sorted(pred.default_params()) if include_dyn else []
         cost_keys = sorted(cf.dynamic_config_keys)
         attr_keys = sorted(cf.attr_keys)
         param_keys = (
@@ -328,7 +345,7 @@ class Optimizer:
                 for k in param_keys
             ])
 
-        return param_keys, pack, derivs, stage_soa, terminal_soa, pred
+        return param_keys, pack, derivs if include_dyn else None, stage_soa, terminal_soa, pred
 
     def plan_sharding(self, mesh, axis=None) -> None:
         raise _not_ported("mesh sharding")

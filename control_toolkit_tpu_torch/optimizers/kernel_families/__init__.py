@@ -1,0 +1,9 @@
+"""Per-model-family kernel providers (counterpart of
+control_toolkit_tpu/optimizers/kernel_families/): each family has
+``can_use_cost``/``build_cost`` and ``can_use_grad``/``build_grad``, and
+the optimizer takes the first family in these orders whose gate admits
+its model."""
+from control_toolkit_tpu_torch.optimizers.kernel_families import neural, ode
+
+COST_ORDER = (ode, neural)
+GRAD_ORDER = (ode, neural)

@@ -1,0 +1,90 @@
+"""Learned-dynamics kernel family: the MLP cost kernel K11, the stacked
+GRU/LSTM cost kernel K13 and the MLP gradient kernel K8 (counterpart of
+control_toolkit_tpu/optimizers/kernel_families/neural.py).
+
+The gates admit a float32 NeuralPredictor over a cost with a device
+implementation (``DEVICE_COSTS``, the cost the plant evaluates),
+``supports_fused_rollout``, scalar attributes, no ``post_terminal_cost``,
+and ``force_scan`` off; the gradient gate also refuses a recurrent net
+(its backward would need the per-step hidden history).  The JAX gates'
+TPU conjuncts (backend, tile divisibility, VMEM budgets) have no
+counterpart: K is masked in the kernels and the wrappers raise on a net
+whose weights exceed a block's shared memory.  The net's tensors, and a
+recurrent net's live hidden, are read from ``params["dyn"]`` every call,
+so a checkpoint swap or an advanced hidden needs no rebuild.  Not ported:
+the ensemble (``n_members``), columns (``slot_keys``, ``batched_kernels``)
+and learned-terminal (``emit_terminal``, ``value_spec``) forms.
+"""
+from __future__ import annotations
+
+import torch
+
+from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    neural_cost_rollout, recurrent_cost_rollout,
+)
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+
+name = "neural"
+
+
+def compatible_model(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return (isinstance(pred, NeuralPredictor) and pred.compute_dtype == torch.float32
+            and device_cost(opt))
+
+
+def can_use_cost(opt) -> bool:
+    return not opt.force_scan and compatible_model(opt)
+
+
+def net_model(opt):
+    """``(NetModel, pack)`` for the network-rollout kernels from the
+    optimizer's SOA bindings without the dynamics constants."""
+    param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    model = kernels.NetModel(
+        plant=pred.environment_name,
+        param_keys=tuple(param_keys),
+        stage=stage_soa,
+        terminal=terminal_soa,
+        kind=pred.arch["kind"],
+        predict_delta=pred.predict_delta,
+        max_cost=float(cf.MAX_COST),
+    )
+    return model, pack
+
+
+def build_cost(opt):
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K11 (MLP) or K13
+    (GRU/LSTM, from ``params["dyn"]["hidden"]``)."""
+    model, pack = net_model(opt)
+    if model.kind == "mlp":
+        def cost_fn(s_tiled, Q, u_prev, params):
+            return neural_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                       params["dyn"]["net"])
+    else:
+        def cost_fn(s_tiled, Q, u_prev, params):
+            dyn = params["dyn"]
+            return recurrent_cost_rollout(model, s_tiled, Q, pack(params, u_prev), dyn["net"],
+                                          dyn["hidden"])
+    return cost_fn
+
+
+def can_use_grad(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return can_use_cost(opt) and not pred.recurrent
+
+
+def build_grad(opt):
+    """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
+    over K8."""
+    model, pack = net_model(opt)
+
+    def grad_fn(s_tiled, Q, u_prev, params):
+        return neural_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                        params["dyn"]["net"])
+
+    return grad_fn

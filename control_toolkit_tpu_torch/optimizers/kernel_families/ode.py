@@ -30,17 +30,24 @@ name = "ode"
 DEVICE_COSTS = {"cartpole": CartpoleQuadraticCost}
 
 
-def compatible_model(opt) -> bool:
+def device_cost(opt) -> bool:
+    """The optimizer's cost is the one its environment's device plant
+    evaluates, fusable, with no post-terminal hook and scalar attributes:
+    the cost half of every kernel family's gate."""
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     pred = getattr(opt.predictor, "predictor", opt.predictor)
     return (
-        isinstance(pred, ODEPredictor)
-        and pred.environment_name in DEVICE_COSTS
+        pred.environment_name in DEVICE_COSTS
         and type(cf) is DEVICE_COSTS[pred.environment_name]
         and cf.supports_fused_rollout
         and cf.post_terminal_cost is None
         and all(np.ndim(v) == 0 for v in cf.attr_defaults.values())
     )
+
+
+def compatible_model(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return isinstance(pred, ODEPredictor) and device_cost(opt)
 
 
 def can_use_cost(opt) -> bool:

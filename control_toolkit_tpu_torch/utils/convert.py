@@ -20,11 +20,30 @@ def _tensor(v, device: torch.device) -> torch.Tensor:
 
 def params_from_numpy(params: Dict, device: torch.device) -> Dict:
     """The ``{"dyn", "cost", "attrs"}`` params tree of
-    ``MPCController._assemble_params`` as float32 tensors."""
-    return {
+    ``MPCController._assemble_params`` as float32 tensors; a learned
+    predictor's nested ``dyn`` goes through ``neural_params_from_numpy``."""
+    out = {
         part: {k: _tensor(v, device) for k, v in params[part].items()}
-        for part in ("dyn", "cost", "attrs")
+        for part in ("cost", "attrs")
     }
+    dyn = params["dyn"]
+    out["dyn"] = (neural_params_from_numpy(dyn["net"], dyn.get("hidden"), device) if "net" in dyn
+                  else {k: _tensor(v, device) for k, v in dyn.items()})
+    return out
+
+
+def neural_params_from_numpy(net: Dict, hidden=None, device: torch.device = torch.device("cpu")):
+    """A learned predictor's ``dyn`` params: the JAX net dict (``w{i}``,
+    ``b{i}``, ``norm_*``, or nested ``cell{i}`` dicts with ``wo``/``bo``)
+    and, for a recurrent net, its hidden tuple, as float32 tensors.
+    Returns ``{"net": ...}`` or ``{"net": ..., "hidden": (...)}``."""
+    def tree(v):
+        return {k: tree(x) for k, x in v.items()} if isinstance(v, dict) else _tensor(v, device)
+
+    dyn = {"net": tree(net)}
+    if hidden is not None:
+        dyn["hidden"] = tuple(_tensor(h, device) for h in hidden)
+    return dyn
 
 
 def mppi_state_from_numpy(u_nom, u_prev, generator: torch.Generator):

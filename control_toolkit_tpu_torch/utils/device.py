@@ -41,3 +41,14 @@ def resolve_device(spec) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {spec!r} (cpu | cuda[:i])")
     return dev
+
+
+def place(tree, device: torch.device):
+    """``tree`` (dicts, tuples and lists of numbers, arrays or tensors) with
+    every leaf a float32 tensor on ``device``.  A leaf that already is one
+    is returned as it is, not copied."""
+    if isinstance(tree, dict):
+        return {k: place(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(place(v, device) for v in tree)
+    return torch.as_tensor(tree, dtype=torch.float32, device=device)

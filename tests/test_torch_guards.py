@@ -1,6 +1,7 @@
 """Guards for the torch port that run on a machine without a card: it
 never imports jax, an explicit CUDA device never falls back to the CPU, and
 chip_smoke.py fails (and prints no result) where there is no card."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -66,10 +67,52 @@ def test_port_imports_and_steps_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (REPO / "control_toolkit_tpu_torch").rglob("*.py"):
+    """Neither jax nor the JAX package, in the port or in chip_smoke.py."""
+    foreign = re.compile(r"^\s*(import jax|from jax|import control_toolkit_tpu\b(?!_)"
+                         r"|from control_toolkit_tpu\b(?!_))")
+    paths = [*(REPO / "control_toolkit_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    for path in paths:
         for line in path.read_text().splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), f"{path}: {line}"
+            assert not foreign.match(line), f"{path}: {line}"
+
+
+NO_JAX_NEURAL_DRIVE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["control_toolkit_tpu"] = None  # nor the JAX package
+import numpy as np, torch
+torch.set_num_threads(1)
+from control_toolkit_tpu_torch import import_controller_by_name
+from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+assets = "control_toolkit_tpu_torch/assets/cartpole"
+for opt, net in (("mppi", "mlp-64-64"), ("mppi", "GRU-5IN-32H1-32H2-4OUT"),
+                 ("rpgd-tf", "mlp-64-64")):
+    ctrl = import_controller_by_name(opt)(
+        "cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+        {"target_position": 0.0},
+        config={"optimizer": opt, "controller_logging": False, "device": "cpu"})
+    ctrl.configure(optimizer_name=opt, predictor_specification=f"neural:{net}:{assets}",
+                   optimizer_config={"seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10,
+                                     "num_rollouts": 32,
+                                     "period_interpolation_inducing_points": 5},
+                   cost_function_config={"dd_weight": 120.0, "ep_weight": 10000.0,
+                                         "ekp_weight": 10.0, "cc_weight": 1.0,
+                                         "ccrc_weight": 1.0, "R": 1.0})
+    assert ctrl.optimizer.predictor.predictor.net_params  # the committed net, loaded
+    s, _ = CartpoleEnv(batch_size=1, dt=0.02, seed=0).reset()
+    for _ in range(3):
+        u = ctrl.step(s[0])
+    assert np.all(np.isfinite(u)) and u.shape == (1,)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
+assert loaded == ["control_toolkit_tpu", "jax"], loaded  # only the blocked placeholders
+print("NO_JAX_OK")
+"""
+
+
+def test_learned_dynamics_path_runs_without_jax_or_the_jax_package():
+    res = run_python(["-c", NO_JAX_NEURAL_DRIVE], REPO)
+    assert res.returncode == 0, res.stderr
+    assert "NO_JAX_OK" in res.stdout
 
 
 def test_explicit_cuda_device_raises_without_a_card():

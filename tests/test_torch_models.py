@@ -147,8 +147,15 @@ def test_custom_dynamics_and_unported_specs():
     pw = PredictorWrapper()
     with pytest.raises(NotImplementedError):
         pw.configure(predictor_specification="ODE:rk4:1:fast")
-    with pytest.raises(KeyError):
-        pw.configure(predictor_specification="neural:mlp-32-32")
+    for unported in ("ODE+res", "SGP_30", "ensemble:mlp-32-32"):
+        with pytest.raises(KeyError):
+            pw.configure(predictor_specification=unported)
+    pw.configure(predictor_specification="neural:mlp-32-32")  # ported: a random init
+    assert pw.predictor.arch == {"kind": "mlp", "hiddens": [32, 32]}
+    copy = pw.copy()
+    assert copy.predictor is not pw.predictor and copy.num_states == 4
+    assert copy.predictor.net_params["w0"] is pw.predictor.net_params["w0"]  # shared, not copied
+    assert not copy.is_stateful
 
 
 def test_state_indices_and_unknown_environment():
