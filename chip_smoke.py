@@ -43,6 +43,38 @@ The learned-dynamics paths: the same controllers over the committed nets
     over the MLP, MPPI over the GRU (hidden included) and rpgd-tf over the
     MLP.
 
+The adaptive-MPC and sparse-GP paths (bench_scale.py:build_residual_ctrl
+and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
+"ODE+res" predictor (hiddens (32, 32)) and the committed SGP_128 GP
+(control_toolkit_tpu_torch/assets/cartpole/SGP_128.npz, M=128):
+18. K12 (residual_cost_rollout) against its plain version, with a nonzero
+    residual, and the cost bound against the plain arithmetic with the
+    residual dropped and with the residual added to x in place of the base
+    step;
+19. K9 (residual_grad_cost_rollout) against its plain version, and the dQ
+    bound against dQ with the MLP's VJP dropped;
+20. K14 (gp_cost_rollout) and 21. K10 (gp_grad_cost_rollout) against their
+    plain versions over a well-conditioned GP of the committed one's widths
+    (``well_conditioned_gp``), to K11's and K7's bounds, and those bounds
+    against out_std dropped and zn2 dropped (K14), and the 2·an term
+    dropped and phase 7's wrong stage-gradient terms (K10); then, over the
+    committed GP (ill-conditioned in float32), each kernel against a
+    float64 evaluation, held to the plain version's own float32 distance
+    from it;
+22. 200 closed-loop MPPI ticks over "ODE+res" on the mismatched plant of
+    examples/adaptive_mpc.py (m_pole 0.4, L 0.6), an OnlineSysId fit of 300
+    steps on the card installed every 50 ticks with nothing rebuilt, and
+    the adapted model's one-step error against the base's (one K12 a tick);
+23. 100 closed-loop rpgd-tf ticks over "ODE+res" with a nonzero residual
+    (two K9 and one K12 a tick);
+24. 200 closed-loop MPPI ticks over the GP (one K14 a tick), a re-fit on the
+    loop's transitions and fresh random ones swapped in with nothing
+    rebuilt, and a 50-tick episode over the re-fit GP (no pole check: MPPI
+    over this GP loses the pole in both packages, see PERF.md);
+25. 100 closed-loop rpgd-tf ticks over the GP (two K10 and one K14);
+26. one update on the card against the same update on the CPU for each of
+    the four loops (over the GP with the well-conditioned GP swapped in).
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -50,8 +82,9 @@ not TF32.
 
     python3 chip_smoke.py [--starts] [--profile]
 
-``--starts`` adds, after phase 17, 18 closed loops of each of MPPI and
-rpgd-tf over the MLP from other start states and seeds (``start_sweep``);
+``--starts`` adds, after phase 26, 18 closed loops of each of MPPI and
+rpgd-tf over the MLP and of MPPI over the GP from other start states and
+seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path, printing per tick the device busy time, the number of
 device operations and the costliest device kernels.
@@ -82,10 +115,19 @@ import torch
 
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+from control_toolkit_tpu_torch.models.gp_predictor import fit_gp_dynamics
 from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state
+from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
+from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
+    gp_grad_cost_rollout, gp_grad_cost_rollout_plain,
+)
+from control_toolkit_tpu_torch.ops.gp_rollout import (
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain,
+)
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_plain,
 )
@@ -94,12 +136,18 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    mlp_layer_count, neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop,
+    mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop,
     recurrent_cost_rollout, recurrent_cost_rollout_plain,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families import neural, ode
+from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
+    residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
+)
+from control_toolkit_tpu_torch.ops.residual_rollout import (
+    residual_cost_rollout, residual_cost_rollout_plain, residual_step_fn,
+)
+from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
 from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, rpgd_state_from_numpy
-from control_toolkit_tpu_torch.utils.device import resolve_device
+from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 K, H, PERIOD, SEED, DT = 16384, 50, 10, 0, 0.02
 TICKS, MODULAR_TICKS, RETARGET_AT, NEW_TARGET = 200, 50, 100, 0.1
@@ -138,11 +186,17 @@ DQ_RTOL, DQ_ATOL_FRAC = 2e-5, 5e-6
 # population and the Adam moments are held to rtol 1e-3 plus 1e-3 of the
 # largest entry.
 UPDATE_RTOL, UPDATE_ATOL_FRAC = 1e-3, 1e-3
+# The rows of that update that may differ, each where the function does not
+# determine its Adam step (update_vs_cpu_rpgd): at most this share of K.
+UNDETERMINED_MAX = 1e-3
 PROFILE_WARMUP, PROFILE_TICKS = 30, 20
 COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "grad_cost_rollout": grad_cost_rollout, "neural_cost_rollout": neural_cost_rollout,
            "recurrent_cost_rollout": recurrent_cost_rollout,
-           "neural_grad_cost_rollout": neural_grad_cost_rollout}
+           "neural_grad_cost_rollout": neural_grad_cost_rollout,
+           "residual_cost_rollout": residual_cost_rollout,
+           "residual_grad_cost_rollout": residual_grad_cost_rollout,
+           "gp_cost_rollout": gp_cost_rollout, "gp_grad_cost_rollout": gp_grad_cost_rollout}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -178,6 +232,31 @@ RNN_TOL = dict(rtol=1e-3, atol=1e-3)
 # each of phase 12's wrong backwards at least 480.
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
+# The adaptive-MPC and sparse-GP paths: bench_scale.py:build_residual_ctrl's
+# and build_gp_mppi's MPPI (seed 3, SQRTRHOINV 0.05) and build_rpgd's
+# rpgd-tf (seed 3), over "ODE+res" (hiddens (32, 32)) and the committed GP.
+RES_MPPI_CONFIG = {**OPTIMIZER_CONFIG, "seed": 3, "SQRTRHOINV": 0.05}
+RES_RPGD_CONFIG = {**RPGD_CONFIG, "seed": 3}
+RES_SPEC, GP_SPEC = "ODE+res", f"SGP_128:{ASSETS / 'SGP_128.npz'}"
+# examples/adaptive_mpc.py's mismatched plant and its OnlineSysId, with
+# tests/test_online_sysid.py's minibatch of 32 so that a fit runs at every
+# 50th tick from the first.
+TRUE_PARAMS = {"m_pole": 0.4, "L": 0.6}
+SYSID = {"capacity": 1024, "batch_size": 32, "learning_rate": 3e-3, "seed": 1}
+ADAPT_TICKS, FIT_EVERY, FIT_STEPS = 200, 50, 300
+RES_RPGD_TICKS, GP_TICKS, GP_MORE_TICKS, GP_RPGD_TICKS = 100, 200, 50, 100
+# The GP re-fit: the loop's transitions plus random-policy ones
+# (bench_scale.py:_gp_checkpoint's collection, seed 1).
+REFIT_ENVS, REFIT_STEPS = 16, 200
+# K14 and K10 are held to K11's and K7's bounds over a GP whose mean does
+# not cancel in float32 (``well_conditioned_gp``, seed WELL_GP_SEED).  The
+# committed GP's posterior weights are large and cancel, so in float32 the
+# plain version and the kernel both sit ~1e-3 of the cost's scale from a
+# float64 evaluation of the same arithmetic (the float64 plain version on
+# the same card tensors): over it each kernel output is held to
+# GP_F64_FACTOR times the plain version's own distance from float64, plus
+# 1e-6 of the float64 output's largest entry.
+WELL_GP_SEED, GP_F64_FACTOR = 7, 2.0
 # Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # FP32 operations per rollout-step of the cartpole plant, counted from
@@ -265,18 +344,20 @@ def counted_loop(name: str, ctrl: MPCController, ticks: int, expected: dict, **l
 
 
 def closed_loop(name: str, ctrl: MPCController, ticks: int, retarget_at=None,
-                pole_check: bool = True, trace=None, start=None) -> dict:
-    """``ticks`` closed-loop ticks against CartpoleEnv, from its seed's state
-    or ``start``; ``trace`` (a list) receives each tick's (state, applied
-    control)."""
-    env = CartpoleEnv(batch_size=1, dt=DT, seed=SEED)
+                pole_check: bool = True, trace=None, start=None, env_params=None,
+                on_tick=None) -> dict:
+    """``ticks`` closed-loop ticks against CartpoleEnv (with ``env_params``
+    in place of its defaults), from its seed's state or ``start``; ``trace``
+    (a list) receives each tick's (state, applied control), ``on_tick(t, s,
+    u, s_next)`` is called after each plant step, outside the timing."""
+    env = CartpoleEnv(batch_size=1, dt=DT, seed=SEED, params=env_params)
     s, _ = env.reset()
     if start is not None:
         env.state = torch.tensor(start[None])
         s = start[None].copy()
     builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    host_ms, device_ms, max_angle = [], [], 0.0
+    host_ms, device_ms, max_angle, fell_at = [], [], 0.0, None
     for t in range(ticks):
         attrs = {"target_position": NEW_TARGET} if t == retarget_at else None
         start.record()
@@ -290,8 +371,13 @@ def closed_loop(name: str, ctrl: MPCController, ticks: int, retarget_at=None,
               f"{name}: tick {t}: bad control {u}")
         if trace is not None:
             trace.append((s[0].copy(), u.copy()))
+        s_prev = s
         s, *_ = env.step(u)
+        if on_tick is not None:
+            on_tick(t, s_prev[0], u, s[0])
         max_angle = max(max_angle, abs(float(s[0, 2])))
+        if fell_at is None and max_angle >= 0.5:
+            fell_at = t
         check(not pole_check or max_angle < 0.5, f"{name}: tick {t}: the pole fell, state {s[0]}")
     check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
           f"{name}: something was rebuilt during the loop")
@@ -302,6 +388,7 @@ def closed_loop(name: str, ctrl: MPCController, ticks: int, retarget_at=None,
         "step_device_p50_ms": float(np.percentile(device_ms, 50)),
         "step_device_p99_ms": float(np.percentile(device_ms, 99)),
         "max_abs_angle": max_angle,
+        "fell_at_tick": fell_at,
         "final_state": [float(v) for v in s[0]],
     }
     emit(name, numbers)
@@ -324,32 +411,36 @@ def stage_term_mutants(dQ, Q, pvec, model) -> dict:
             "gprev_on_step_h": dQ - change + change_next - change}
 
 
-def compare_grad(model, s0, Q, pvec) -> dict:
-    """Phase 7: K7 against its plain version on the same card tensors, and
-    the dQ bound against K7's output with one stage-gradient term wrong."""
-    (cost, dQ), (ref_cost, ref_dQ) = (grad_cost_rollout(model, s0, Q, pvec),
-                                      grad_cost_rollout_plain(model, s0, Q, pvec))
+def compare_grad(name: str, model, Q, pvec, kernel_fn, plain_fn, reps: int = 50,
+                 mutants=None) -> dict:
+    """Phases 7 (K7) and 21 (K10): a gradient kernel's ``kernel_fn() ->
+    (cost, dQ)`` against its plain version's on the same card tensors, J to
+    KERNEL_TOL and dQ to DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|; and that dQ
+    bound against the kernel's dQ with one stage-gradient term wrong
+    (``stage_term_mutants``) and against ``mutants``, further wrong dQs by
+    name."""
+    (cost, dQ), (ref_cost, ref_dQ) = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     cost_abs, cost_rel = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
-    mutants = stage_term_mutants(dQ, Q, pvec, model)
+    wrong = {**stage_term_mutants(dQ, Q, pvec, model), **(mutants or {})}
     numbers = {
         "cost_max_abs_err": cost_abs, "cost_max_rel_err": cost_rel,
         "dQ_max_abs_err": dq_abs, "dQ_max_abs": float(ref_dQ.abs().max()),
         "dQ_atol": DQ_ATOL_FRAC * float(ref_dQ.abs().max()), "dQ_rtol": DQ_RTOL,
-        "mutant_max_abs_err": {name: max_errors(m, ref_dQ)[0] for name, m in mutants.items()},
+        "mutant_max_abs_err": {k: max_errors(m, ref_dQ)[0] for k, m in wrong.items()},
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
-        "ms": cuda_ms(lambda: grad_cost_rollout(model, s0, Q, pvec), 50),
-        "plain_ms": cuda_ms(lambda: grad_cost_rollout_plain(model, s0, Q, pvec), 3),
+        "ms": cuda_ms(kernel_fn, reps),
+        "plain_ms": cuda_ms(plain_fn, 3),
     }
-    emit("k7_grad_cost_rollout", numbers)
-    check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, "K7: bad output")
-    check(torch.allclose(cost, ref_cost, **KERNEL_TOL), f"K7: cost disagrees with plain {numbers}")
-    check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"K7: dQ disagrees with plain {numbers}")
-    for name, mutant in mutants.items():
+    emit(name, numbers)
+    check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, f"{name}: bad output")
+    check(torch.allclose(cost, ref_cost, **KERNEL_TOL), f"{name}: cost disagrees with plain {numbers}")
+    check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"{name}: dQ disagrees with plain {numbers}")
+    for k, mutant in wrong.items():
         check(not close(mutant, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC),
-              f"K7: the dQ bound does not reject a dQ with {name} {numbers}")
+              f"{name}: the dQ bound does not reject a dQ with {k} {numbers}")
     return numbers
 
 
@@ -362,8 +453,8 @@ def to_cpu(tree):
     return tree.cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE") -> None:
-    """Phases 6 and 17: one MPPI update on the card and on the CPU (the
+def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config=None) -> None:
+    """Phases 6, 17 and 26: one MPPI update on the card and on the CPU (the
     plain versions) from the card's state and params (a recurrent net's
     live hidden included), with one draw."""
     opt = ctrl.optimizer
@@ -372,7 +463,7 @@ def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE") -> Non
     noise = opt.sample_noise(state)
     params = ctrl._assemble_params()
     _, _, diag = opt.update(state, s_now, params, noise)
-    cpu = make_controller("cpu", spec=spec)
+    cpu = make_controller("cpu", spec=spec, config=config)
     cpu_state = mppi_state_from_numpy(state.u_nom.cpu().numpy(), state.u_prev.cpu().numpy(),
                                       torch.Generator())
     _, _, cpu_diag = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params), noise.cpu())
@@ -385,10 +476,18 @@ def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE") -> Non
 
 
 def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
-                       spec: str = "ODE") -> None:
-    """Phases 10 and 17: one rpgd-tf update on the card and on the CPU (the
-    plain versions) from the card's state and params, on a resample tick,
-    with one draw."""
+                       spec: str = "ODE", config=None) -> None:
+    """Phases 10, 17 and 26: one rpgd-tf update on the card and on the CPU
+    (the plain versions) from the card's state and params, on a resample
+    tick, with one draw.
+
+    Adam's step from zero moments is about lr * sign(g) whatever |g|: where
+    a gradient entry and its moments' history are both within the dQ
+    bound's absolute part of 0 (DQ_ATOL_FRAC of max|g|), the function does
+    not determine that step, and the two devices may move the row apart by
+    up to 2 lr.  A row of the population whose Q differs beyond the bound
+    must be such a row, and at most UNDETERMINED_MAX of K may differ; the
+    costs and moments of every other row are held to the bound."""
     opt = ctrl.optimizer
     state = opt.opt_state
     check(state.count % opt.resamp_per == 0, f"tick {state.count} is not a resample tick")
@@ -397,33 +496,52 @@ def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
     params = ctrl._assemble_params()
     u, new, diag = opt.update(state, s_now, params, draw)
 
-    cpu = make_controller("cpu", "rpgd-tf", RPGD_CONFIG, spec=spec)
+    cpu = make_controller("cpu", "rpgd-tf", config or RPGD_CONFIG, spec=spec)
     host = [t.cpu().numpy() for t in (state.Q, state.adam.m, state.adam.v,
                                       state.trajectory_ages, state.u_prev)]
     cpu_state = rpgd_state_from_numpy(host[0], host[1], host[2], state.adam.step, host[3],
                                       state.count, host[4], torch.Generator())
     uc, new_c, cdiag = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params), draw.cpu())
 
+    s_tiled = s_now.expand(K, -1).contiguous()
+    g = opt._make_grad_and_cost_only()[0](state.Q, s_tiled, state.u_prev, params).cpu()
+    g_c = cpu.optimizer._make_grad_and_cost_only()[0](cpu_state.Q, s_tiled.cpu(),
+                                                      cpu_state.u_prev, to_cpu(params))
+    noise = DQ_ATOL_FRAC * float(g_c.abs().max())
+    undetermined = ((g_c.abs() <= noise) & (cpu_state.adam.v.sqrt() <= noise)).flatten(1).any(1)
+    Q_card, Q_cpu = diag["Q_logged"].cpu(), cdiag["Q_logged"]
+    atol = UPDATE_ATOL_FRAC * float(Q_cpu.abs().max())
+    off = ((Q_card - Q_cpu).abs() > atol + UPDATE_RTOL * Q_cpu.abs()).flatten(1).any(1)
+    held = ~off
+
     # After the surgery the fresh rows' moments are zero on both sides and
-    # each elite's row sits where its side ranked it; costs within rounding
-    # of each other may rank near-ties apart, so elites are matched by index.
+    # each elite's row sits where its side ranked it (ties too, so each
+    # side's order is its own top-k's); elites are matched by index.
     cost, cost_c = diag["J_logged"].cpu(), cdiag["J_logged"]
     keep, fresh = opt.opt_keep_k, K - opt.opt_keep_k
-    rank, rank_c = (torch.full((K,), -1).index_put_((elite_indices(c, keep),), torch.arange(keep))
-                    for c in (cost, cost_c))
-    both = (rank >= 0) & (rank_c >= 0)
+    rank, rank_c = (torch.full((K,), -1).index_put_((elite_indices(c, keep).cpu(),),
+                                                    torch.arange(keep))
+                    for c in (diag["J_logged"], cost_c))
+    both = (rank >= 0) & (rank_c >= 0) & held
     rows = torch.cat([torch.arange(fresh), fresh + rank[both]])
     rows_c = torch.cat([torch.arange(fresh), fresh + rank_c[both]])
-    pairs = {"Q": (diag["Q_logged"].cpu(), cdiag["Q_logged"]),
-             "m": (new.adam.m.cpu()[rows], new_c.adam.m[rows_c]),
+    pairs = {"m": (new.adam.m.cpu()[rows], new_c.adam.m[rows_c]),
              "v": (new.adam.v.cpu()[rows], new_c.adam.v[rows_c]),
-             "cost": (cost, cost_c)}
+             "cost": (cost[held], cost_c[held])}
     same_best = int(torch.argmin(cost)) == int(torch.argmin(cost_c))
-    numbers = {f"{k}_max_abs_err": max_errors(*ab)[0] for k, ab in pairs.items()}
-    numbers.update({"cost_max_rel_err": max_errors(cost, cost_c)[1],
+    numbers = {"Q_max_abs_err": max_errors(Q_card, Q_cpu)[0],
+               "Q_rows_off": int(off.sum()), "Q_rows_off_undetermined": int((off & undetermined).sum()),
+               **{f"{k}_max_abs_err": max_errors(*ab)[0] for k, ab in pairs.items()}}
+    numbers.update({"cost_max_rel_err": max_errors(*pairs["cost"])[1],
+                    "grad_max_abs_err": max_errors(g, g_c)[0],
+                    "grad_max_abs": float(g_c.abs().max()),
+                    "undetermined_rows": int(undetermined.sum()),
                     "elites_in_both": int(both.sum()), "elites": keep, "same_best": same_best,
                     "u_abs_err": float((u.cpu() - uc).abs().max())})
     emit(name, numbers)
+    check(numbers["Q_rows_off"] == numbers["Q_rows_off_undetermined"]
+          and numbers["Q_rows_off"] <= UNDETERMINED_MAX * K,
+          f"{name}: Q on the card differs from the CPU {numbers}")
     for k, (a, b) in pairs.items():
         check(close(a, b, UPDATE_RTOL, UPDATE_ATOL_FRAC),
               f"{name}: {k} on the card differs from the CPU {numbers}")
@@ -642,21 +760,290 @@ def gru_hidden_vs_replay(ctrl: MPCController, trace: list) -> None:
     check(err <= HIDDEN_ATOL, f"the GRU hidden on the card differs from the CPU replay {numbers}")
 
 
+# ---- the adaptive-MPC and sparse-GP phases --------------------------------------
+def residual_controller(optimizer: str, config: dict) -> MPCController:
+    """A controller over "ODE+res" on the card with a nonzero residual made
+    as bench_scale.py:218-222 makes it: each weight 0.02 times a normal
+    draw (from a seeded torch.Generator), the zero biases kept."""
+    ctrl = make_controller("cuda", optimizer, config, spec=RES_SPEC)
+    pred = ctrl.optimizer.predictor.predictor
+    gen = torch.Generator(device=pred.device).manual_seed(11)
+    pred.set_residual({k: 0.02 * torch.randn(v.shape, generator=gen, device=pred.device)
+                       if k.startswith("w") else v for k, v in pred._res.items()})
+    return ctrl
+
+
+def residual_mutants(model, s0, Q, pvec, net) -> dict:
+    """Costs of a wrong K12, by the plain arithmetic: the residual dropped
+    (K1's rollout of the base alone), and the residual added to x in place
+    of the base's step."""
+    return {"residual_dropped": cost_rollout_plain(model, s0, Q, pvec),
+            "residual_on_x": plain_cost_loop(model, s0, Q, pvec,
+                                             lambda x, u: x + mlp_step(net, x, u, False))}
+
+
+def compare_residual(model, s0, Q, pvec, net) -> dict:
+    """Phase 18: K12 against its plain version, and the cost bound against
+    the plain arithmetic of a wrong step."""
+    ref = residual_cost_rollout_plain(model, s0, Q, pvec, net)
+    mutants = residual_mutants(model, s0, Q, pvec, net)
+    numbers = compare("k12_residual_cost_rollout",
+                      lambda: residual_cost_rollout(model, s0, Q, pvec, net),
+                      lambda: residual_cost_rollout_plain(model, s0, Q, pvec, net), tol=NET_TOL,
+                      extra=lambda _: {"mutant_max_rel_err": {
+                          name: max_errors(m, ref)[1] for name, m in mutants.items()},
+                          "smem_bytes": kernels.net_smem_bytes(model.plant,
+                                                               model.net_args(net)[0], False)})
+    for name, m in mutants.items():
+        check(not torch.allclose(m, ref, **NET_TOL),
+              f"K12: the cost bound does not reject a rollout with {name} {numbers}")
+    return numbers
+
+
+def residual_autograd_dq(model, s0, Q, pvec, net, drop_mlp_vjp: bool = False) -> torch.Tensor:
+    """dQ by torch.autograd through K12's plain arithmetic; ``drop_mlp_vjp``
+    detaches the residual MLP's input, so its VJP drops out of the adjoint
+    while the forward values stay K12's."""
+    step = residual_step_fn(model, pvec, net)
+    base = residual_step_fn(model, pvec, {k: torch.zeros_like(v) for k, v in net.items()})
+
+    def wrong(x, u):
+        return base(x, u) + mlp_step(net, x.detach(), u.detach(), False)
+
+    with torch.enable_grad():
+        Qv = Q.clone().requires_grad_(True)
+        (dq,) = torch.autograd.grad(
+            plain_cost_loop(model, s0, Qv, pvec, wrong if drop_mlp_vjp else step).sum(), Qv)
+    return dq
+
+
+def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
+    """Phase 19: K9 against its plain version on the same card tensors, and
+    the dQ bound (K7's) against dQ with the MLP's VJP dropped."""
+    (cost, dQ), (ref_cost, ref_dQ) = (residual_grad_cost_rollout(model, s0, Q, pvec, net),
+                                      residual_grad_cost_rollout_plain(model, s0, Q, pvec, net))
+    torch.cuda.synchronize()
+    cost_abs, cost_rel = max_errors(cost, ref_cost)
+    dq_abs, _ = max_errors(dQ, ref_dQ)
+    mutant = residual_autograd_dq(model, s0, Q, pvec, net, drop_mlp_vjp=True)
+    numbers = {
+        "cost_max_abs_err": cost_abs, "cost_max_rel_err": cost_rel,
+        "dQ_max_abs_err": dq_abs, "dQ_max_abs": float(ref_dQ.abs().max()),
+        "dQ_atol": DQ_ATOL_FRAC * float(ref_dQ.abs().max()), "dQ_rtol": DQ_RTOL,
+        "autograd_dQ_max_abs_err": max_errors(residual_autograd_dq(model, s0, Q, pvec, net),
+                                              ref_dQ)[0],
+        "mutant_max_abs_err": {"mlp_vjp_dropped": max_errors(mutant, ref_dQ)[0]},
+        "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(net)[0], True),
+        "max_abs_err": max(cost_abs, dq_abs),
+        "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
+        "ms": cuda_ms(lambda: residual_grad_cost_rollout(model, s0, Q, pvec, net), 20),
+        "plain_ms": cuda_ms(lambda: residual_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
+    }
+    emit("k9_residual_grad_cost_rollout", numbers)
+    check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, "K9: bad output")
+    check(torch.allclose(cost, ref_cost, **NET_TOL), f"K9: cost disagrees with plain {numbers}")
+    check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"K9: dQ disagrees with plain {numbers}")
+    check(not close(mutant, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC),
+          f"K9: the dQ bound does not reject a dQ with the MLP's VJP dropped {numbers}")
+    return numbers
+
+
+def gp_ops(ops) -> int:
+    """FP32 operations of one GP step (gp_core.cuh gp_step): the input's
+    affine transform and squared norm (4 per input), per inducing point the
+    dot product (2 per input), d2, the clip, the exponent and its scale (7)
+    and the S multiply-adds, then the output's scale, shift and add (3 per
+    state)."""
+    M, D = ops["Zs"].shape
+    S = ops["out_std"].numel()
+    return 4 * D + M * (2 * D + 7 + 2 * S) + 3 * S
+
+
+def gp_vjp_ops(ops) -> int:
+    """The transposed GP step beyond its forward (k_m taken as known), in
+    its factored form: the scaled cotangent (S); per inducing point kbar (2
+    per state), the clip's derivative and d2bar (4), sum_m d2bar_m (1) and
+    sum_m d2bar_m Zs_m (2 per input); then anbar = 2 an sum_m d2bar_m -
+    2 sum_m d2bar_m Zs_m (2 per input), abar and the state's identity path
+    (D + S).  The kernel (gp_core.cuh gp_step_vjp) spends 4 per input and
+    inducing point on anbar; the bound counts what the function needs."""
+    M, D = ops["Zs"].shape
+    S = ops["out_std"].numel()
+    return S + M * (2 * S + 5 + 2 * D) + 2 * D + D + S
+
+
+def well_conditioned_gp(gp_params: dict) -> dict:
+    """A GP of the same widths whose mean does not cancel in float32: the
+    inducing points, lengthscales, variance and normalization of
+    ``gp_params``, with the posterior weights alpha drawn N(0, 1) from a
+    generator seeded WELL_GP_SEED."""
+    alpha = gp_params["alpha"]
+    gen = torch.Generator(device=alpha.device).manual_seed(WELL_GP_SEED)
+    return {**gp_params, "alpha": torch.randn(alpha.shape, generator=gen, device=alpha.device)}
+
+
+def compare_gp(model, s0, Q, pvec, ops) -> dict:
+    """Phase 20: K14 against its plain version over the well-conditioned
+    GP's operands ``ops``, and the cost bound (K11's) against the plain
+    version's output with out_std or zn2 dropped."""
+    ref = gp_cost_rollout_plain(model, s0, Q, pvec, ops)
+    mutants = {name: gp_cost_rollout_plain(model, s0, Q, pvec, m) for name, m in (
+        ("no_out_std", {**ops, "out_std": torch.ones_like(ops["out_std"])}),
+        ("no_zn2", {**ops, "zn2": torch.zeros_like(ops["zn2"])}))}
+    numbers = compare("k14_gp_cost_rollout", lambda: gp_cost_rollout(model, s0, Q, pvec, ops),
+                      lambda: gp_cost_rollout_plain(model, s0, Q, pvec, ops), tol=NET_TOL,
+                      extra=lambda _: {"mutant_max_rel_err": {
+                          name: max_errors(m, ref)[1] for name, m in mutants.items()},
+                          "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(
+                              4, 1, ops["Zs"].shape[0]))})
+    for name, m in mutants.items():
+        check(not torch.allclose(m, ref, **NET_TOL),
+              f"K14: the cost bound does not reject a GP with {name} {numbers}")
+    return numbers
+
+
+def gp_autograd_dq(model, s0, Q, pvec, ops, drop_2an: bool = False) -> torch.Tensor:
+    """dQ by torch.autograd through K14's plain arithmetic; ``drop_2an``
+    detaches the input in |an|^2, which drops the 2·an term of d2's
+    gradient while the forward values stay K14's."""
+    def step(x, u):
+        an = (torch.cat([x, u], dim=1) - ops["in_mean"]) * ops["inv_in"]
+        sq = an.detach() if drop_2an else an
+        d2 = torch.sum(sq * sq, dim=1, keepdim=True) - 2.0 * (an @ ops["Zs"].T) + ops["zn2"]
+        k = ops["var"] * torch.exp(-0.5 * torch.maximum(d2, torch.zeros_like(d2)))
+        return x + ((k @ ops["alphaT"].T) * ops["out_std"] + ops["out_mean"])
+
+    with torch.enable_grad():
+        Qv = Q.clone().requires_grad_(True)
+        (dq,) = torch.autograd.grad(plain_cost_loop(model, s0, Qv, pvec, step).sum(), Qv)
+    return dq
+
+
+def gp_vs_float64(model, s0, Q, Qg, pvec, ops) -> None:
+    """Phases 20-21 over the committed GP's operands ``ops``: K14's cost
+    (at ``Q``) and K10's cost and dQ (at ``Qg``), each no further from the
+    float64 plain version than GP_F64_FACTOR times the float32 plain
+    version's distance from it, plus 1e-6 of its largest entry."""
+    ops64 = {k: v.double() for k, v in ops.items()}
+    s64, pvec64 = s0.double(), pvec.double()
+    outs = {"k14_cost": (gp_cost_rollout(model, s0, Q, pvec, ops),
+                         gp_cost_rollout_plain(model, s0, Q, pvec, ops),
+                         gp_cost_rollout_plain(model, s64, Q.double(), pvec64, ops64))}
+    for name, triple in zip(("k10_cost", "k10_dQ"), zip(
+            gp_grad_cost_rollout(model, s0, Qg, pvec, ops),
+            gp_grad_cost_rollout_plain(model, s0, Qg, pvec, ops),
+            gp_grad_cost_rollout_plain(model, s64, Qg.double(), pvec64, ops64))):
+        outs[name] = triple
+    numbers = {}
+    for name, (got, plain, ref64) in outs.items():
+        p_err = float((plain.double() - ref64).abs().max())
+        numbers[name] = {"f64_max_abs_err": float((got.double() - ref64).abs().max()),
+                         "plain_f64_max_abs_err": p_err, "max_abs": float(ref64.abs().max()),
+                         "bound": GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())}
+    emit("gp_committed_vs_float64", numbers)
+    for name, n in numbers.items():
+        check(n["f64_max_abs_err"] <= n["bound"],
+              f"{name}: further from float64 than the plain version allows {numbers}")
+
+
+def adaptive_mppi() -> tuple:
+    """Phase 22: MPPI over "ODE+res" on the mismatched plant, the residual
+    fitted on the card and installed every FIT_EVERY ticks."""
+    ctrl = make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=RES_SPEC)
+    check(residual.can_use_cost(ctrl.optimizer) and not ctrl.optimizer._uses_semi_fused(),
+          "the adaptive controller did not take K12")
+    sysid, fits, fit_ms = OnlineSysId(ctrl, **SYSID), [], []
+
+    def on_tick(t, s, u, s_next):
+        sysid.observe(s, u, s_next)
+        if (t + 1) % FIT_EVERY == 0:
+            t0 = time.perf_counter()
+            fits.append(sysid.fit_and_apply(steps=FIT_STEPS))
+            torch.cuda.synchronize()
+            fit_ms.append((time.perf_counter() - t0) * 1e3)
+
+    counts = counted_loop("slice_adaptive_mppi_residual", ctrl, ADAPT_TICKS,
+                          {"residual_cost_rollout": ADAPT_TICKS}, env_params=TRUE_PARAMS,
+                          on_tick=on_tick)
+    pred = ctrl.optimizer.predictor.predictor
+    live = ctrl._assemble_params()["dyn"]["res"]
+    base, adapted = sysid.one_step_mse(use_residual=False), sysid.one_step_mse(use_residual=True)
+    numbers = {"installs": sum(int(f["fitted"]) for f in fits), "fit_steps": FIT_STEPS,
+               "fit_ms": fit_ms, "loss_before_after": [[f.get("loss_before"), f.get("loss_after")]
+                                                      for f in fits],
+               "one_step_mse_base": base, "one_step_mse_adapted": adapted,
+               "adapted_over_base": adapted / base}
+    emit("adaptive_sysid", numbers)
+    check(numbers["installs"] == ADAPT_TICKS // FIT_EVERY, f"a sysid fit was refused {numbers}")
+    check(all(live[k] is v for k, v in pred._res.items()),
+          "the last install did not reach the controller's params")
+    check(adapted < 0.5 * base, f"the adapted model is not twice as good as the base {numbers}")
+    return ctrl, counts
+
+
+def gp_mppi_with_refit(runs: dict) -> MPCController:
+    """Phase 24: MPPI over the GP, a re-fit on the loop's transitions and
+    fresh random ones swapped in with nothing rebuilt, then a new episode
+    from the same start.  No pole check: at this configuration MPPI over
+    the committed GP loses the pole within ~40 ticks from every start
+    tried, and so does the JAX package's (PERF.md; ``--starts`` and
+    ``tests/test_torch_gp.py --starts`` repeat the sweep)."""
+    ctrl = make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=GP_SPEC)
+    check(gp.can_use_cost(ctrl.optimizer) and not ctrl.optimizer._uses_semi_fused(),
+          "the GP controller did not take K14")
+    builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
+    seen = []
+    runs["mppi_gp"] = counted_loop("slice_mppi_gp", ctrl, GP_TICKS, {"gp_cost_rollout": GP_TICKS},
+                                   pole_check=False,
+                                   on_tick=lambda t, s, u, s_next: seen.append((s, u, s_next)))
+    lx, lu, lxn = (np.stack(v).astype(np.float32) for v in zip(*seen))
+    x, u, xn = collect_transitions(CartpoleEnv(batch_size=REFIT_ENVS, dt=DT, seed=1), REFIT_STEPS,
+                                   seed=1)
+    t0 = time.perf_counter()
+    params, mse = fit_gp_dynamics(np.concatenate([lx, x]), np.concatenate([lu, u]),
+                                  np.concatenate([lxn, xn]), num_inducing=128, seed=0)
+    fit_s = time.perf_counter() - t0
+    pred = ctrl.optimizer.predictor.predictor
+    old = pred.gp_params
+    pred.gp_params = place(params, pred.device)
+    check(ctrl._assemble_params()["dyn"]["gp"]["alpha"] is pred.gp_params["alpha"],
+          "the re-fit GP did not reach the controller's params")
+
+    def loop_mse(gp_params):
+        xs, us = torch.tensor(lx, device=pred.device), torch.tensor(lu, device=pred.device)
+        pn = pred.single_step(xs, us, {"gp": gp_params})
+        return float(torch.mean((pn - torch.tensor(lxn, device=pred.device)) ** 2))
+
+    emit("gp_refit", {"transitions": len(lx) + len(x), "fit_seconds": fit_s,
+                      "normalized_mse": mse, "loop_one_step_mse_before": loop_mse(old),
+                      "loop_one_step_mse_after": loop_mse(pred.gp_params)})
+    ctrl.controller_reset()  # a new episode from the same start, over the re-fit GP
+    runs["mppi_gp_refit"] = counted_loop("slice_mppi_gp_refit", ctrl, GP_MORE_TICKS,
+                                         {"gp_cost_rollout": GP_MORE_TICKS}, pole_check=False)
+    check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
+          "the GP re-fit rebuilt something")
+    return ctrl
+
+
 def start_sweep() -> None:
-    """``--starts``: MPPI and rpgd-tf over the committed MLP, 200 ticks with
-    the target change, from LEARNED_START and from CartpoleEnv seeds 0-7's
-    states, with optimizer seeds 0 and 1: how often the pole stays up."""
+    """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
+    the target change) and MPPI over the committed GP (200 ticks), from
+    LEARNED_START and from CartpoleEnv seeds 0-7's states, with optimizer
+    seeds 0 and 1: how often the pole stays up."""
     starts = [LEARNED_START] + [CartpoleEnv(batch_size=1, dt=DT, seed=k).reset()[0][0]
                                 for k in range(8)]
-    for optimizer, config in (("mppi", OPTIMIZER_CONFIG), ("rpgd-tf", RPGD_CONFIG)):
+    for label, optimizer, config, spec, retarget in (
+            ("mppi", "mppi", OPTIMIZER_CONFIG, MLP_SPEC, RETARGET_AT),
+            ("rpgd-tf", "rpgd-tf", RPGD_CONFIG, MLP_SPEC, RETARGET_AT),
+            ("mppi_gp", "mppi", RES_MPPI_CONFIG, GP_SPEC, None)):
         held = []
         for seed in (0, 1):
             for i, start in enumerate(starts):
-                ctrl = make_controller("cuda", optimizer, {**config, "seed": seed}, spec=MLP_SPEC)
-                numbers = closed_loop(f"starts_{optimizer}_seed{seed}_start{i}", ctrl, MLP_TICKS,
-                                      retarget_at=RETARGET_AT, pole_check=False, start=start)
+                ctrl = make_controller("cuda", optimizer, {**config, "seed": seed}, spec=spec)
+                numbers = closed_loop(f"starts_{label}_seed{seed}_start{i}", ctrl, MLP_TICKS,
+                                      retarget_at=retarget, pole_check=False, start=start)
                 held.append(numbers["max_abs_angle"] < 0.5)
-        emit(f"starts_{optimizer}", {"runs": len(held), "pole_up_runs": sum(held)})
+        emit(f"starts_{label}", {"runs": len(held), "pole_up_runs": sum(held)})
 
 
 def profile_ticks(name: str, ctrl: MPCController) -> None:
@@ -753,7 +1140,9 @@ def main() -> None:
 
     # 7. K7 against its plain version at the gradient path's shapes.
     Qg = 2.0 * torch.rand(K, H, 1, generator=gen, device=device) - 1.0
-    k7 = compare_grad(model, s0, Qg, pvec)
+    k7 = compare_grad("k7_grad_cost_rollout", model, Qg, pvec,
+                      lambda: grad_cost_rollout(model, s0, Qg, pvec),
+                      lambda: grad_cost_rollout_plain(model, s0, Qg, pvec))
     k7.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + RK4_VJP_OPS + STAGE_VJP_OPS),
                     nbytes(s0, Qg, pvec, Qg) + 4 * K))
 
@@ -809,18 +1198,82 @@ def main() -> None:
                                     {"recurrent_cost_rollout": GRU_TICKS}, pole_check=False,
                                     trace=trace, start=LEARNED_START)
     gru_hidden_vs_replay(gru, trace)
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 17. One update on the card against the same update on the CPU, from
     # the state each loop left.
     update_vs_cpu_mppi("mlp_update_vs_cpu", mlp, MLP_SPEC)
     update_vs_cpu_mppi("gru_update_vs_cpu", gru, GRU_SPEC)
     update_vs_cpu_rpgd(mlp_rpgd, "rpgd_mlp_update_vs_cpu", MLP_SPEC)
+
+    # 18-19. K12 and K9 with a nonzero residual, at the main path's shapes.
+    res_rpgd = residual_controller("rpgd-tf", RES_RPGD_CONFIG)
+    rmodel, rpack = residual.residual_model(res_rpgd.optimizer)
+    rparams = res_rpgd._assemble_params()
+    rnet, rpvec = rparams["dyn"]["res"], rpack(rparams, torch.tensor([0.1], device=device))
+    k12 = compare_residual(rmodel, s0, Q, rpvec, rnet)
+    k12.update(bound(K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS),
+                     nbytes(s0, Q, rpvec, *leaves(rnet)) + 4 * K))
+    k9 = compare_residual_grad(rmodel, s0, Qg, rpvec, rnet)
+    # One forward and the transposed step (K7's rk4 adjoint and the MLP's
+    # transposed layers): K9 re-runs the forward in its backward.
+    k9.update(bound(K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS + RK4_VJP_OPS
+                             + mlp_vjp_ops(rnet) + STAGE_VJP_OPS),
+                    nbytes(s0, Qg, rpvec, *leaves(rnet), Qg) + 4 * K))
+
+    # 20-21. K14 and K10 over a well-conditioned GP of the committed one's
+    # widths, then over the committed GP against float64.
+    gp_rpgd = make_controller("cuda", "rpgd-tf", RES_RPGD_CONFIG, spec=GP_SPEC)
+    gmodel, gpack = gp.gp_model(gp_rpgd.optimizer)
+    gparams = gp_rpgd._assemble_params()
+    gops, gpvec = (flatten_gp_weights(gparams["dyn"]["gp"]),
+                   gpack(gparams, torch.tensor([0.1], device=device)))
+    wops = flatten_gp_weights(well_conditioned_gp(gparams["dyn"]["gp"]))
+    k14 = compare_gp(gmodel, s0, Q, gpvec, wops)
+    k14.update(bound(K * H * (gp_ops(gops) + STAGE_OPS),
+                     nbytes(s0, Q, gpvec, *gops.values()) + 4 * K))
+    k10 = compare_grad("k10_gp_grad_cost_rollout", gmodel, Qg, gpvec,
+                       lambda: gp_grad_cost_rollout(gmodel, s0, Qg, gpvec, wops),
+                       lambda: gp_grad_cost_rollout_plain(gmodel, s0, Qg, gpvec, wops), reps=20,
+                       mutants={"no_2an": gp_autograd_dq(gmodel, s0, Qg, gpvec, wops,
+                                                         drop_2an=True)})
+    k10.update(bound(K * H * (gp_ops(gops) + gp_vjp_ops(gops) + STAGE_OPS + STAGE_VJP_OPS),
+                     nbytes(s0, Qg, gpvec, *gops.values(), Qg) + 4 * K))
+    gp_vs_float64(gmodel, s0, Q, Qg, gpvec, gops)
+
+    # 22-25. The adaptive-MPC and sparse-GP paths, closed loop, each counted
+    # from 0.
+    check(residual.can_use_grad(res_rpgd.optimizer) and gp.can_use_grad(gp_rpgd.optimizer),
+          "the rpgd-tf controllers did not take K9 and K10")
+    adaptive, runs["adaptive_mppi_residual"] = adaptive_mppi()
+    runs["rpgd_residual"] = counted_loop("slice_rpgd_residual", res_rpgd, RES_RPGD_TICKS,
+                                         {"residual_cost_rollout": RES_RPGD_TICKS,
+                                          "residual_grad_cost_rollout": 2 * RES_RPGD_TICKS})
+    gp_mppi = gp_mppi_with_refit(runs)
+    runs["rpgd_gp"] = counted_loop("slice_rpgd_gp", gp_rpgd, GP_RPGD_TICKS,
+                                   {"gp_cost_rollout": GP_RPGD_TICKS,
+                                    "gp_grad_cost_rollout": 2 * GP_RPGD_TICKS})
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
+    # 26. One update on the card against the same update on the CPU for each,
+    # over the GP with the well-conditioned GP swapped in as a re-fit is (the
+    # loop's posterior back after it).
+    update_vs_cpu_mppi("residual_update_vs_cpu", adaptive, RES_SPEC, RES_MPPI_CONFIG)
+    update_vs_cpu_rpgd(res_rpgd, "rpgd_residual_update_vs_cpu", RES_SPEC, RES_RPGD_CONFIG)
+    preds = [c.optimizer.predictor.predictor for c in (gp_mppi, gp_rpgd)]
+    fitted = [p.gp_params for p in preds]
+    for p, f in zip(preds, fitted):
+        p.gp_params = well_conditioned_gp(f)
+    update_vs_cpu_mppi("gp_update_vs_cpu", gp_mppi, GP_SPEC, RES_MPPI_CONFIG)
+    update_vs_cpu_rpgd(gp_rpgd, "rpgd_gp_update_vs_cpu", GP_SPEC, RES_RPGD_CONFIG)
+    for p, f in zip(preds, fitted):
+        p.gp_params = f
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
         for name, c in (("mppi", ctrl), ("rpgd-tf", rpgd), ("gradient-tf", gradient),
-                        ("mppi-mlp", mlp), ("rpgd-tf-mlp", mlp_rpgd), ("mppi-gru", gru)):
+                        ("mppi-mlp", mlp), ("rpgd-tf-mlp", mlp_rpgd), ("mppi-gru", gru),
+                        ("mppi-residual", adaptive), ("rpgd-tf-residual", res_rpgd),
+                        ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd)):
             profile_ticks(name, c)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
@@ -833,6 +1286,10 @@ def main() -> None:
         ("neural_cost_rollout", "neural_rollout.cu", "ops/pallas_neural.py:157", k11),
         ("recurrent_cost_rollout", "neural_rollout.cu", "ops/pallas_neural.py:452", k13),
         ("neural_grad_cost_rollout", "neural_grad_rollout.cu", "ops/pallas_grad.py:387", k8),
+        ("residual_cost_rollout", "residual_rollout.cu", "ops/pallas_neural.py:351", k12),
+        ("residual_grad_cost_rollout", "residual_rollout.cu", "ops/pallas_grad.py:459", k9),
+        ("gp_cost_rollout", "gp_rollout.cu", "ops/pallas_neural.py:647", k14),
+        ("gp_grad_cost_rollout", "gp_rollout.cu", "ops/pallas_grad.py:515", k10),
     )
     # No single PyTorch call computes a rollout's cost: library_ms is null.
     print(json.dumps({"kernels": [

@@ -24,6 +24,12 @@ from control_toolkit_tpu_torch.utils.device import place
 logger = logging.getLogger(__name__)
 
 
+def _scalars(tree) -> bool:
+    """A dict of scalar constants (numbers, 0-d arrays), compared by value."""
+    return isinstance(tree, dict) and all(
+        not isinstance(v, (dict, tuple, list)) and np.ndim(v) == 0 for v in tree.values())
+
+
 @registry.controllers.register("mpc")
 class MPCController(Controller):
     _has_optimizer = True
@@ -107,24 +113,29 @@ class MPCController(Controller):
         controller's device, cached until a dynamics value changes, the
         cost config hot-reloads, or an attribute is updated.
 
-        An ODE's constants are cached as scalars and compared by value.  A
-        learned net's tensors are placed once and again only when the
-        predictor's net object changes (a checkpoint swap); a recurrent
-        net's ``hidden`` is handed through live, the very tensors that
-        ``update`` advanced, with no copy."""
+        ``dyn`` may nest.  Scalar constants (an ODE's, a residual
+        predictor's ``base``) are cached and compared by value.  A tensor
+        subtree (a learned net's ``net``, the residual's ``res``, the GP's
+        ``gp``) is placed once and again only when the predictor's subtree
+        object changes (a checkpoint swap, ``set_residual``, a GP re-fit).
+        A recurrent net's ``hidden`` is handed through live, the very
+        tensors that ``update`` advanced, with no copy."""
         fresh = self.predictor.default_params()
-        if "net" in fresh:
-            if self._dyn_params is None or fresh["net"] is not self._dyn_raw:
-                self._dyn_params = {"net": place(fresh["net"], self.device)}
-                self._dyn_raw = fresh["net"]
-            if "hidden" in fresh:
-                self._dyn_params = {**self._dyn_params, "hidden": fresh["hidden"]}
-        elif self._dyn_params is None or fresh != self._dyn_raw:
-            self._dyn_params = {
-                k: torch.tensor(float(v), dtype=torch.float32, device=self.device)
-                for k, v in fresh.items()
-            }
-            self._dyn_raw = fresh
+        if _scalars(fresh):
+            if self._dyn_params is None or fresh != self._dyn_raw:
+                self._dyn_params = self._place_scalars(fresh)
+        else:
+            raw, placed = self._dyn_raw or {}, self._dyn_params or {}
+            dyn = {}
+            for k, v in fresh.items():
+                if k == "hidden":
+                    dyn[k] = v
+                elif k in placed and (v == raw[k] if _scalars(v) else v is raw[k]):
+                    dyn[k] = placed[k]
+                else:
+                    dyn[k] = self._place_scalars(v) if _scalars(v) else place(v, self.device)
+            self._dyn_params = dyn
+        self._dyn_raw = fresh
         if self._cost_params is None:
             self._cost_params = self.cost_function.current_params(device=self.device)["cost"]
         return {
@@ -132,6 +143,10 @@ class MPCController(Controller):
             "cost": self._cost_params,
             "attrs": self.variable_parameters,
         }
+
+    def _place_scalars(self, values: Dict) -> Dict:
+        return {k: torch.tensor(float(v), dtype=torch.float32, device=self.device)
+                for k, v in values.items()}
 
     def step(self, s: np.ndarray, time=None, updated_attributes: Optional[Dict] = None):
         if self.cost_function.update_cost_parameters_from_config():

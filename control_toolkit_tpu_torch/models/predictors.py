@@ -2,9 +2,11 @@
 
 A predictor holds a rollout function ``rollout(s0 [B,S], Q [B,H,U],
 params) -> [B,H+1,S]``; the horizon is a Python loop (``scan_rollout``).
-Ported: the ``"ODE[:integrator[:substeps]]"`` predictor and the learned
-MLP/GRU/LSTM predictors (``models/neural_predictor.py``); the ``:fast``,
-residual, ensemble and GP predictors are still to be ported (ROADMAP).
+Ported: the ``"ODE[:integrator[:substeps]]"`` predictor, the learned
+MLP/GRU/LSTM predictors (``models/neural_predictor.py``), the residual
+``"ODE+res"`` (``models/residual_predictor.py``) and the sparse-GP
+``"SGP_<M>"`` (``models/gp_predictor.py``); the ``:fast`` and ensemble
+predictors are still to be ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -159,8 +161,10 @@ class PredictorWrapper:
     ``"ODE"`` / ``"ODE_v0"`` (rk4), ``"ODE:euler"``, ``"ODE:rk4:2"``
     (integrator / substeps); ``"neural:<net>[:<path>][:bf16]"`` and the
     bare net name ``"<net>[:<path>][:bf16]"`` (``mlp-…``, ``GRU-…``,
-    ``LSTM-…``), the checkpoint being ``<path>/<net>.npz``.  ``device`` is
-    where a learned predictor keeps its weights and hidden state."""
+    ``LSTM-…``), the checkpoint being ``<path>/<net>.npz``;
+    ``"ODE+res[:integrator[:substeps]]"``; ``"SGP_<M>[:<checkpoint.npz>]"``
+    and ``"gp"``.  ``device`` is where a learned predictor keeps its
+    weights and hidden state."""
 
     def __init__(self):
         self.predictor: Optional[Predictor] = None
@@ -197,18 +201,38 @@ class PredictorWrapper:
                 path_to_models=neural_opts[0] if neural_opts else None, device=device,
                 **kwargs,
             )
-        elif head in ("ODE", "ODE_v0"):
+        elif head in ("ODE", "ODE_v0", "ODE+res"):
+            # "ODE[+res][:integrator[:substeps]]"; "+res" adds the learned
+            # MLP residual (models/residual_predictor.py, hiddens via kwargs).
             opts = list(spec_parts[1:])
             if "fast" in opts:
                 raise NotImplementedError(
                     "the ':fast' polynomial-trig predictor is not ported yet (ROADMAP)"
                 )
-            self.predictor = ODEPredictor(
+            ode_kwargs = dict(
                 environment_name=environment_name,
                 dt=dt,
                 integrator=opts[0] if len(opts) > 0 else "rk4",
                 intermediate_steps=int(opts[1]) if len(opts) > 1 else 1,
                 **kwargs,
+            )
+            if head == "ODE+res":
+                from control_toolkit_tpu_torch.models.residual_predictor import (
+                    ResidualPredictor,
+                )
+
+                self.predictor = ResidualPredictor(device=device, **ode_kwargs)
+            else:
+                self.predictor = ODEPredictor(**ode_kwargs)
+        elif head.lower().startswith("sgp") or head.lower() == "gp":
+            # "SGP_<M>[:<checkpoint.npz>]" (reference style 'SGP_30') or "gp";
+            # the spec's path wins over a checkpoint kwarg.
+            from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
+
+            kw_ckpt = kwargs.pop("checkpoint", None)
+            self.predictor = GPPredictor(
+                environment_name=environment_name, dt=dt, device=device,
+                checkpoint=spec_parts[1] if len(spec_parts) > 1 else kw_ckpt, **kwargs,
             )
         else:
             raise KeyError(

@@ -8,7 +8,10 @@ packed-parameter dict ``p`` that ``RolloutModel.unpack`` gives (keys
 ``csrc/plants.cuh`` and ``csrc/rollout_core.cuh`` transcribe them term
 for term, so these are the formulas the tests hold against
 ``torch.autograd``.  ``mlp_step_vjp`` is the learned MLP step's adjoint
-over the net's weight dict, transcribed into ``csrc/neural_core.cuh``.
+over the net's weight dict, transcribed into ``csrc/neural_core.cuh``;
+``residual_step_vjp`` (the ``"ODE+res"`` step) combines it with the
+integrator's, and ``gp_step_vjp`` is the sparse-GP step's, transcribed
+into ``csrc/gp_core.cuh``.
 Only gradients with respect to states and controls are formed;
 parameters and weights get none.
 """
@@ -172,4 +175,42 @@ def integrator_vjp(derivs: Callable, derivs_vjp: Callable, x: Tuple, u: Tuple, p
             lam, du_s = _euler_vjp(derivs_vjp, xs, u, p, lam, sub_dt)
         du = du_s if du is None else tadd(du, du_s)
     return lam, du
+
+
+def residual_step_vjp(derivs: Callable, derivs_vjp: Callable, x: Tuple, u: Tuple, p, net,
+                      lam: Tuple, rk4: bool, substeps: int, dt: float) -> Tuple[Tuple, Tuple]:
+    """``lam^T d x' / d(x, u)`` for the residual step ``x' = ode_step(x, u)
+    + mlp([x, u])`` (models/residual_predictor.py): the integrator's VJP
+    plus the MLP's in absolute form (no delta identity, no norms), summed
+    base first on x and on u."""
+    dx_base, du_base = integrator_vjp(derivs, derivs_vjp, x, u, p, lam, rk4, substeps, dt)
+    dx_res, du_res = mlp_step_vjp(x, u, net, False, lam)
+    return tadd(dx_base, dx_res), tadd(du_base, du_res)
+
+
+def gp_step_vjp(xs: Tuple, us: Tuple, ops, lam: Tuple) -> Tuple[Tuple, Tuple]:
+    """``lam^T d x' / d(x, u)`` for the sparse-GP step of ops/gp_rollout.py
+    over the precomputed operands ``ops`` (``flatten_gp_weights``):
+
+        an = ([x, u] - in_mean) * inv_in,   g_m = Zs_m . an
+        d2_m = max(|an|^2 - 2 g_m + zn2_m, 0),   k_m = var * exp(-0.5 d2_m)
+        x' = x + (sum_m alphaT[:, m] k_m) * out_std + out_mean
+
+    transposed: lo = lam * out_std; kbar_m = sum_s lo_s alphaT[s, m];
+    d2bar_m = -0.5 kbar_m k_m times the max's derivative (1 above the clip,
+    0 below, 1/2 at a tie, as torch.maximum and jnp.maximum split it);
+    anbar = sum_m d2bar_m (2 an - 2 Zs_m); abar = anbar * inv_in; dx = lam
+    + abar[:S], du = abar[S:]."""
+    S = len(xs)
+    a = torch.cat([torch.stack(xs, dim=1), torch.stack(us, dim=1)], dim=1)
+    an = (a - ops["in_mean"]) * ops["inv_in"]
+    raw = torch.sum(an * an, dim=1, keepdim=True) - 2.0 * (an @ ops["Zs"].T) + ops["zn2"]
+    k = ops["var"] * torch.exp(-0.5 * torch.maximum(raw, torch.zeros_like(raw)))
+    lo = torch.stack(lam, dim=1) * ops["out_std"]
+    clip = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
+    d2bar = -0.5 * (lo @ ops["alphaT"]) * k * clip                        # [K, M]
+    anbar = 2.0 * an * torch.sum(d2bar, dim=1, keepdim=True) - 2.0 * (d2bar @ ops["Zs"])
+    abar = anbar * ops["inv_in"]
+    return tadd(lam, tuple(abar[:, i] for i in range(S))), tuple(
+        abar[:, S + j] for j in range(len(us)))
 

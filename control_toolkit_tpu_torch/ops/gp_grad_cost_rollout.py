@@ -1,0 +1,77 @@
+"""K10: rollout cost under sparse-GP dynamics and its gradient — the
+counterpart of
+control_toolkit_tpu/ops/pallas_grad.py:build_gp_grad_cost_rollout_kernel.
+
+``gp_grad_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N], ops) ->
+(cost [K], dQ [K,H,U])``: cost is K14's (ops/gp_rollout.py) and dQ its
+gradient with respect to Q, so also the gradient of ``sum_k cost_k``.  It
+is K7's structure (ops/grad_cost_rollout.py) with the GP step: one forward
+sweep stores x_0..x_{H-1} and sums the stage costs; one backward sweep
+from h = H-1 to 0 re-linearizes step h at the stored x_h with
+``adjoints.gp_step_vjp`` (the RBF block recomputed, then transposed) and
+the cost's hand-written adjoints:
+
+    lam_H = d terminal / d x_H * 1/(H+1)
+    dQ_h  = (du_gp + gu) + gprev_{h+1}     gprev_H = 0
+    lam_h = dx_gp + gx
+
+The GP's tensors get no gradient.  The CUDA kernel is
+``csrc/gp_rollout.cu``; ``gp_grad_cost_rollout_plain`` is the same
+function in PyTorch.  The wrapper runs the plain version only when every
+operand lies on the CPU; for CUDA operands it launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, gp_step_vjp
+from control_toolkit_tpu_torch.ops.gp_rollout import gp_step
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
+from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes
+
+
+def gp_grad_cost_rollout_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec: torch.Tensor, ops: Dict[str, torch.Tensor]
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-246 over the
+    GP step of :547-559)."""
+    return plain_grad_loop(model, s0, Q, pvec, lambda x, u: gp_step(ops, x, u),
+                           lambda xs, us, lam: gp_step_vjp(xs, us, ops, lam))
+
+
+def gp_grad_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                         pvec: torch.Tensor, ops: Dict[str, torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: per-rollout cost ``[K]`` and its gradient ``[K,H,U]`` under the
+    GP; see the module docstring."""
+    check_shapes("gp_grad_cost_rollout", s0, Q, pvec)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"gp_grad_cost_rollout: no cost adjoints for the {model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec, *ops.values()):
+        return gp_grad_cost_rollout_plain(model, s0, Q, pvec, ops)
+    args, tensors = model.gp_args(ops)
+    device = kernels.check_cuda_operands("gp_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
+                                         **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("gp_grad_cost_rollout", S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
+    # The forward sweep's states, rollout index fastest, as K7's.
+    xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_gp_grad_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, model.max_cost,
+            1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, f"gp_grad_cost_rollout (M={args.M} inducing points)")
+    gp_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+gp_grad_cost_rollout.launches = 0

@@ -1,0 +1,94 @@
+"""K14: rollout + trajectory cost under sparse-GP dynamics — the
+counterpart of control_toolkit_tpu/ops/pallas_neural.py:
+build_gp_cost_rollout_kernel (with ``flatten_gp_weights``).
+
+``gp_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N], ops) -> cost
+[K]`` with the semantics of K11 (ops/neural_rollout.py): the stage cost of
+(x_h, u_h, u_{h-1}) accrues before the step, the terminal cost is taken at
+x_H, the sum is divided by H+1; ``pvec`` holds the cost's part of the
+packed layout only.  The step is models/gp_predictor.py's
+``GPPredictor.single_step`` over the precomputed operands ``ops``
+(``flatten_gp_weights``), as the Pallas kernel computes it:
+
+    an = ([x, u] - in_mean) * inv_in                   (D = S + U)
+    d2_m = max(|an|^2 - 2 Zs_m . an + zn2_m, 0)        (m < M)
+    k_m = var * exp(-0.5 d2_m)
+    x' = x + (sum_m alphaT[:, m] k_m) * out_std + out_mean
+
+``flatten_gp_weights`` folds the input normalization and the lengthscales
+into one affine transform (``Zs = Z / ls``, ``inv_in = 1 / (in_std *
+ls)``); a re-fit is a new set of tensors, never a rebuild.
+
+The CUDA kernel is ``csrc/gp_rollout.cu`` (its source note says what
+bounds it on the card); ``gp_cost_rollout_plain`` is the same function in
+PyTorch.  The wrapper runs the plain version only when every operand lies
+on the CPU; for CUDA operands it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, plain_cost_loop
+
+
+def flatten_gp_weights(gp: Dict) -> Dict[str, torch.Tensor]:
+    """The kernels' operands (``kernels.GP_OPERANDS``) from a GPPredictor's
+    params: Zs [M,D] (inducing inputs over the lengthscales), zn2 [M] (their
+    squared norms), alphaT [S,M], in_mean [D], inv_in [D], out_mean [S],
+    out_std [S], var [] (pallas_neural.py:623-644)."""
+    ls = gp["lengthscales"].float()
+    Zs = gp["Z"].float() / ls
+    return {
+        "Zs": Zs.contiguous(),
+        "zn2": torch.sum(Zs * Zs, dim=1),
+        "alphaT": gp["alpha"].float().T.contiguous(),
+        "in_mean": gp["in_mean"].float().reshape(-1),
+        "inv_in": (1.0 / (gp["in_std"].float() * ls)).reshape(-1),
+        "out_mean": gp["out_mean"].float().reshape(-1),
+        "out_std": gp["out_std"].float().reshape(-1),
+        "var": gp["variance"].float().reshape(()),
+    }
+
+
+def gp_step(ops: Dict[str, torch.Tensor], x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One GP transition on ``x [K,S]``, ``u [K,U]`` (pallas_neural.py:697-709)."""
+    an = (torch.cat([x, u], dim=1) - ops["in_mean"]) * ops["inv_in"]
+    d2 = torch.sum(an * an, dim=1, keepdim=True) - 2.0 * (an @ ops["Zs"].T) + ops["zn2"]
+    k = ops["var"] * torch.exp(-0.5 * torch.maximum(d2, torch.zeros_like(d2)))
+    return x + ((k @ ops["alphaT"].T) * ops["out_std"] + ops["out_mean"])
+
+
+def gp_cost_rollout_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                          pvec: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """K14's arithmetic in PyTorch (pallas_neural.py:677-723)."""
+    return plain_cost_loop(model, s0, Q, pvec, lambda x, u: gp_step(ops, x, u))
+
+
+def gp_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                    pvec: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """K14: per-rollout trajectory cost ``[K]`` under the GP; see the module
+    docstring."""
+    check_shapes("gp_cost_rollout", s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *ops.values()):
+        return gp_cost_rollout_plain(model, s0, Q, pvec, ops)
+    args, tensors = model.gp_args(ops)
+    device = kernels.check_cuda_operands("gp_cost_rollout", s0=s0, Q=Q, pvec=pvec, **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("gp_cost_rollout", S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_gp_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), K, H, model.max_cost, args,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, f"gp_cost_rollout (M={args.M} inducing points)")
+    gp_cost_rollout.launches += 1
+    return cost
+
+
+gp_cost_rollout.launches = 0

@@ -27,7 +27,7 @@ lies on the CPU; for CUDA operands it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -36,42 +36,59 @@ from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, integrator_vj
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd
 
 
-def grad_cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
-                            pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-244)."""
-    derivs_vjp, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
+def plain_grad_loop(model, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor,
+                    step: Callable, step_vjp: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient kernels' forward-store / backward-sweep in PyTorch
+    (pallas_grad.py:169-244) over any ``step(x [K,S], u [K,U]) -> x'`` and
+    its adjoint ``step_vjp(xs, us, lam) -> (dxs, dus)`` in component form,
+    with the plant's cost adjoints; returns (cost [K], dQ [K,H,U])."""
+    _, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
     p = model.unpack(pvec)
-    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
-                                model.intermediate_steps)
-    rk4 = model.integrator == "rk4"
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
+    K, H, U = s0.shape[0], Q.shape[1], Q.shape[2]
     ct = 1.0 / (H + 1)
 
-    xs = tuple(s0[:, i] for i in range(S))
+    x = s0
     u_prev0 = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
     prev_us, acc, history = u_prev0, torch.zeros(K, dtype=s0.dtype, device=s0.device), []
     for h in range(H):
-        history.append(xs)
-        us = tuple(Q[:, h, j] for j in range(U))
-        acc = acc + model.stage(xs, us, prev_us, p)
-        xs = one_step(xs, us, p)
+        history.append(tuple(x.unbind(1)))
+        us = tuple(Q[:, h, :].unbind(1))
+        acc = acc + model.stage(history[h], us, prev_us, p)
+        x = step(x, Q[:, h, :])
         prev_us = us
+    xs = tuple(x.unbind(1))
     cost = (acc + model.terminal(xs, p)) / (H + 1)
 
     lam = terminal_grad(xs, p, ct)
     gprev = tuple(torch.zeros_like(acc) for _ in range(U))
     dq = [None] * H
     for h in reversed(range(H)):
-        us = tuple(Q[:, h, j] for j in range(U))
-        prev_us = u_prev0 if h == 0 else tuple(Q[:, h - 1, j] for j in range(U))
-        dxs_dyn, dus_dyn = integrator_vjp(model.derivs, derivs_vjp, history[h], us, p, lam,
-                                          rk4, model.intermediate_steps, model.dt)
+        us = tuple(Q[:, h, :].unbind(1))
+        prev_us = u_prev0 if h == 0 else tuple(Q[:, h - 1, :].unbind(1))
+        dxs, dus = step_vjp(history[h], us, lam)
         gx, gu, gp = stage_vjp(history[h], us, prev_us, p, ct)
-        dq[h] = torch.stack(tadd(tadd(dus_dyn, gu), gprev), dim=1)
-        lam = tadd(dxs_dyn, gx)
+        dq[h] = torch.stack(tadd(tadd(dus, gu), gprev), dim=1)
+        lam = tadd(dxs, gx)
         gprev = gp
     return cost, torch.stack(dq, dim=1)
+
+
+def grad_cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-244)."""
+    derivs_vjp = PLANT_ADJOINTS[model.plant][0]
+    p = model.unpack(pvec)
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
+                                model.intermediate_steps)
+
+    def step(x, u):
+        return torch.stack(one_step(tuple(x.unbind(1)), tuple(u.unbind(1)), p), dim=1)
+
+    def step_vjp(xs, us, lam):
+        return integrator_vjp(model.derivs, derivs_vjp, xs, us, p, lam,
+                              model.integrator == "rk4", model.intermediate_steps, model.dt)
+
+    return plain_grad_loop(model, s0, Q, pvec, step, step_vjp)
 
 
 def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,

@@ -27,8 +27,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
-           "neural_grad_rollout.cu")
-HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh")
+           "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu")
+HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "gp_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -131,20 +131,83 @@ def _expect(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return t
 
 
+def _net_putter(args: NetArgs, tensors: Dict[str, torch.Tensor]) -> Callable:
+    """``put(field, i, name, t, shape)``: check ``t``'s shape, keep it under
+    ``name`` and write its device pointer to ``args.field[i]`` (or
+    ``args.field`` for ``i`` None)."""
+    def put(field, i, name, t, shape):
+        tensors[name] = _expect(name, t, shape)
+        if i is None:
+            setattr(args, field, t.data_ptr())
+        else:
+            getattr(args, field)[i] = t.data_ptr()
+
+    return put
+
+
+def mlp_net_args(net: Dict, S: int, U: int,
+                 predict_delta: bool) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+    """``(NetArgs, tensors by name)`` of an MLP ``[S+U] -> ... -> [S]`` (the
+    layers ``w{i}`` [in, out], ``b{i}`` and optional ``norm_*``); raises
+    unless each tensor has the shape its place in the net gives it."""
+    args, tensors = NetArgs(), {}
+    args.kind, args.predict_delta = NET_KINDS["mlp"], int(predict_delta)
+    put = _net_putter(args, tensors)
+    n = sum(1 for k in net if k.startswith("w"))
+    if not 1 <= n <= MAX_LAYERS:
+        raise ValueError(f"an MLP of {n} layers (1..{MAX_LAYERS} in the kernels)")
+    dims = [S + U] + [int(net[f"w{i}"].shape[-1]) for i in range(n)]
+    if dims[-1] != S:
+        raise ValueError(f"the MLP's output width {dims[-1]} is not the state's {S}")
+    for i in range(n):
+        put("w", i, f"w{i}", net[f"w{i}"], (dims[i], dims[i + 1]))
+        put("b", i, f"b{i}", net[f"b{i}"], (dims[i + 1],))
+    for side, width in (("in", S + U), ("out", S)):
+        if f"norm_{side}_mean" in net:
+            for stat in ("mean", "std"):
+                key = f"norm_{side}_{stat}"
+                put(key, None, key, net[key], (width,))
+    args.n_layers = n
+    for i, d in enumerate(dims):
+        args.dims[i] = d
+    return args, tensors
+
+
+def net_smem_bytes(plant: str, args: NetArgs, transposed: bool) -> int:
+    """Dynamic shared memory a block of a network-rollout kernel takes for
+    the net of ``args`` (staged weights and per-thread activation columns;
+    ``transposed``: the gradient kernels' layout), or -1 where the kernel
+    refuses the net (its launch then returns cudaErrorInvalidValue)."""
+    S, U = PLANT_DIMS[plant]
+    return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, int(transposed)))
+
+
 @dataclass(frozen=True)
-class NetModel:
-    """What a network-rollout kernel steps and scores: the net's kind and
-    form, the device plant whose cost it evaluates, packed as
-    ``COST_PARAM_KEYS`` (no dynamics constants: the dynamics are the net's
-    weight tensors, passed per call), and the component-form cost callables
-    that the plain versions run."""
+class ResidualModel(RolloutModel):
+    """What the residual kernels K12 and K9 integrate and score: K1's
+    device plant, packed layout (the base's constants, then the cost's) and
+    step constants, plus the residual MLP, which is passed per call as a
+    ``NetArgs`` in absolute form without norms."""
+
+    def net_args(self, net: Dict) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+        if any(k.startswith("norm_") for k in net):
+            raise ValueError("the residual MLP has no norm layers")
+        S, U = PLANT_DIMS[self.plant]
+        return mlp_net_args(net, S, U, predict_delta=False)
+
+
+@dataclass(frozen=True)
+class CostModel:
+    """The cost half of a kernel whose dynamics are tensors passed per call
+    (a learned net's weights, a GP's posterior): the device plant whose
+    cost it evaluates, packed as ``COST_PARAM_KEYS`` (no dynamics
+    constants), and the component-form cost callables that the plain
+    versions run."""
 
     plant: str
     param_keys: Tuple[str, ...]
     stage: Callable       # (xs, us, prev_us, p) -> [K]; with ccrc and -MAX_COST
     terminal: Callable    # (xs, p) -> [K]
-    kind: str             # mlp | gru | lstm
-    predict_delta: bool
     max_cost: float
 
     def __post_init__(self):
@@ -155,8 +218,6 @@ class NetModel:
                 f"packed parameters {self.param_keys} do not match the {self.plant!r} "
                 f"device cost's layout {COST_PARAM_KEYS[self.plant]}"
             )
-        if self.kind not in NET_KINDS:
-            raise ValueError(f"unknown net kind {self.kind!r} ({' | '.join(NET_KINDS)})")
 
     def unpack(self, pvec: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: pvec[i] for i, k in enumerate(self.param_keys)}
@@ -168,65 +229,87 @@ class NetModel:
                 f"device cost (S, U) = {PLANT_DIMS[self.plant]}, N = {len(self.param_keys)}"
             )
 
+
+# The sparse-GP kernels' operands (ops/gp_rollout.py flatten_gp_weights), in
+# csrc/gp_core.cuh GPArgs order.
+GP_OPERANDS = ("Zs", "zn2", "alphaT", "in_mean", "inv_in", "out_mean", "out_std", "var")
+
+
+class GPArgs(ctypes.Structure):
+    """``csrc/gp_core.cuh`` GPArgs: the number of inducing points and the
+    device pointers of the eight precomputed GP tensors."""
+
+    _fields_ = [("M", ctypes.c_int)] + [(name, ctypes.c_void_p) for name in GP_OPERANDS]
+
+
+@dataclass(frozen=True)
+class GPModel(CostModel):
+    """What the sparse-GP kernels K14 and K10 step and score: the cost half
+    (``CostModel``), with the GP's precomputed tensors passed per call as a
+    ``GPArgs``."""
+
+    def gp_args(self, ops: Dict[str, torch.Tensor]) -> Tuple[GPArgs, Dict[str, torch.Tensor]]:
+        """``(GPArgs, tensors by name)``; raises unless each operand has
+        its shape: Zs [M, S+U], zn2 [M], alphaT [S, M], in_mean and inv_in
+        [S+U], out_mean and out_std [S], var [] (0-d)."""
+        S, U = PLANT_DIMS[self.plant]
+        M = int(ops["Zs"].shape[0])
+        shapes = {"Zs": (M, S + U), "zn2": (M,), "alphaT": (S, M), "in_mean": (S + U,),
+                  "inv_in": (S + U,), "out_mean": (S,), "out_std": (S,), "var": ()}
+        args = GPArgs()
+        args.M = M
+        for name in GP_OPERANDS:
+            setattr(args, name, _expect(name, ops[name], shapes[name]).data_ptr())
+        return args, {name: ops[name] for name in GP_OPERANDS}
+
+
+@dataclass(frozen=True)
+class NetModel(CostModel):
+    """What a network-rollout kernel steps and scores: the cost half
+    (``CostModel``), the net's kind and form; the dynamics are the net's
+    weight tensors, passed per call."""
+
+    kind: str             # mlp | gru | lstm
+    predict_delta: bool
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.kind not in NET_KINDS:
+            raise ValueError(f"unknown net kind {self.kind!r} ({' | '.join(NET_KINDS)})")
+
     def net_args(self, net: Dict, hidden=None) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
         """``(NetArgs, tensors by name)`` for ``net`` and, for a recurrent
         net, the live batch-1 ``hidden``; raises unless each tensor has the
         shape its place in the net gives it."""
         S, U = PLANT_DIMS[self.plant]
+        if self.kind == "mlp":
+            return mlp_net_args(net, S, U, self.predict_delta)
         args, tensors = NetArgs(), {}
         args.kind, args.predict_delta = NET_KINDS[self.kind], int(self.predict_delta)
-
-        def put(field, i, name, t, shape):
-            tensors[name] = _expect(name, t, shape)
-            if i is None:
-                setattr(args, field, t.data_ptr())
-            else:
-                getattr(args, field)[i] = t.data_ptr()
-
-        if self.kind == "mlp":
-            n = sum(1 for k in net if k.startswith("w"))
-            if not 1 <= n <= MAX_LAYERS:
-                raise ValueError(f"an MLP of {n} layers (1..{MAX_LAYERS} in the kernels)")
-            dims = [S + U] + [int(net[f"w{i}"].shape[-1]) for i in range(n)]
-            if dims[-1] != S:
-                raise ValueError(f"the MLP's output width {dims[-1]} is not the state's {S}")
-            for i in range(n):
-                put("w", i, f"w{i}", net[f"w{i}"], (dims[i], dims[i + 1]))
-                put("b", i, f"b{i}", net[f"b{i}"], (dims[i + 1],))
-            for side, width in (("in", S + U), ("out", S)):
-                if f"norm_{side}_mean" in net:
-                    for stat in ("mean", "std"):
-                        key = f"norm_{side}_{stat}"
-                        put(key, None, key, net[key], (width,))
-        else:
-            gates = 3 if self.kind == "gru" else 4
-            n = sum(1 for k in net if k.startswith("cell"))
-            if not 1 <= n <= MAX_LAYERS or hidden is None or len(hidden) != n:
-                raise ValueError(f"a {self.kind} of {n} cells needs 1..{MAX_LAYERS} cells "
-                                 "and one hidden per cell")
-            dims = [S + U] + [int(net[f"cell{i}"]["wh"].shape[0]) for i in range(n)]
-            for i in range(n):
-                cell, hd = net[f"cell{i}"], dims[i + 1]
-                put("w", i, f"cell{i}/wi", cell["wi"], (dims[i], gates * hd))
-                put("b", i, f"cell{i}/bi", cell["bi"], (gates * hd,))
-                put("wh", i, f"cell{i}/wh", cell["wh"], (hd, gates * hd))
-                put("bh", i, f"cell{i}/bh", cell["bh"], (gates * hd,))
-                state = hd if self.kind == "gru" else 2 * hd
-                put("hidden", i, f"hidden{i}", hidden[i], (1, state))
-            put("wo", None, "wo", net["wo"], (dims[-1], S))
-            put("bo", None, "bo", net["bo"], (S,))
+        put = _net_putter(args, tensors)
+        gates = 3 if self.kind == "gru" else 4
+        n = sum(1 for k in net if k.startswith("cell"))
+        if not 1 <= n <= MAX_LAYERS or hidden is None or len(hidden) != n:
+            raise ValueError(f"a {self.kind} of {n} cells needs 1..{MAX_LAYERS} cells "
+                             "and one hidden per cell")
+        dims = [S + U] + [int(net[f"cell{i}"]["wh"].shape[0]) for i in range(n)]
+        for i in range(n):
+            cell, hd = net[f"cell{i}"], dims[i + 1]
+            put("w", i, f"cell{i}/wi", cell["wi"], (dims[i], gates * hd))
+            put("b", i, f"cell{i}/bi", cell["bi"], (gates * hd,))
+            put("wh", i, f"cell{i}/wh", cell["wh"], (hd, gates * hd))
+            put("bh", i, f"cell{i}/bh", cell["bh"], (gates * hd,))
+            state = hd if self.kind == "gru" else 2 * hd
+            put("hidden", i, f"hidden{i}", hidden[i], (1, state))
+        put("wo", None, "wo", net["wo"], (dims[-1], S))
+        put("bo", None, "bo", net["bo"], (S,))
         args.n_layers = n
         for i, d in enumerate(dims):
             args.dims[i] = d
         return args, tensors
 
     def smem_bytes(self, args: NetArgs, transposed: bool) -> int:
-        """Dynamic shared memory a block of the kernel takes for this net
-        (staged weights and per-thread activation columns), or -1 where the
-        kernel refuses the net (its launch then returns
-        cudaErrorInvalidValue)."""
-        S, U = PLANT_DIMS[self.plant]
-        return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, int(transposed)))
+        return net_smem_bytes(self.plant, args, transposed)
 
 
 def _nvcc() -> str:
@@ -320,6 +403,24 @@ def load() -> ctypes.CDLL:
         lib.ctt_neural_grad_cost_rollout.restype = i32
         lib.ctt_net_smem_bytes.argtypes = [net, i32, i32, i32]
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
+        step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
+        lib.ctt_residual_cost_rollout.argtypes = [
+            i32, ptr, ptr, ptr, ptr, i32, i32, *step, f32, net, ptr,
+        ]
+        lib.ctt_residual_cost_rollout.restype = i32
+        lib.ctt_residual_grad_cost_rollout.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, *step, f32, f32, net, ptr,
+        ]
+        lib.ctt_residual_grad_cost_rollout.restype = i32
+        gp = ctypes.POINTER(GPArgs)
+        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, gp, ptr]
+        lib.ctt_gp_cost_rollout.restype = i32
+        lib.ctt_gp_grad_cost_rollout.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, gp, ptr,
+        ]
+        lib.ctt_gp_grad_cost_rollout.restype = i32
+        lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
+        lib.ctt_gp_smem_bytes.restype = ctypes.c_long
         load.lib = lib
     return load.lib
 
@@ -331,7 +432,8 @@ def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} (1, invalid value: an "
                            "unknown plant, or a net whose widths or shared memory the kernel "
-                           "refuses)")
+                           "refuses, or a GP whose inducing points exceed a block's shared "
+                           "memory)")
 
 
 def check_cuda_operands(name: str, **tensors: torch.Tensor) -> torch.device:

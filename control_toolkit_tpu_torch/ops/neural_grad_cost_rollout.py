@@ -29,47 +29,17 @@ import torch
 
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, mlp_step_vjp
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
 from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, mlp_step
-from control_toolkit_tpu_torch.ops.soa_integrators import tadd
 
 
 def neural_grad_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                                    pvec: torch.Tensor, net: Dict
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in PyTorch (pallas_grad.py:148-246)."""
-    _, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
-    p = model.unpack(pvec)
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
-    ct = 1.0 / (H + 1)
-
-    def cols(t):
-        return tuple(t[:, i] for i in range(t.shape[1]))
-
-    x = s0
-    u_prev0 = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
-    prev_us, acc, history = u_prev0, torch.zeros(K, dtype=s0.dtype, device=s0.device), []
-    for h in range(H):
-        history.append(cols(x))
-        us = cols(Q[:, h, :])
-        acc = acc + model.stage(history[h], us, prev_us, p)
-        x = mlp_step(net, x, Q[:, h, :], model.predict_delta)
-        prev_us = us
-    xs = cols(x)
-    cost = (acc + model.terminal(xs, p)) / (H + 1)
-
-    lam = terminal_grad(xs, p, ct)
-    gprev = tuple(torch.zeros_like(acc) for _ in range(U))
-    dq = [None] * H
-    for h in reversed(range(H)):
-        us = cols(Q[:, h, :])
-        prev_us = u_prev0 if h == 0 else cols(Q[:, h - 1, :])
-        dxs_net, dus_net = mlp_step_vjp(history[h], us, net, model.predict_delta, lam)
-        gx, gu, gp = stage_vjp(history[h], us, prev_us, p, ct)
-        dq[h] = torch.stack(tadd(tadd(dus_net, gu), gprev), dim=1)
-        lam = tadd(dxs_net, gx)
-        gprev = gp
-    return cost, torch.stack(dq, dim=1)
+    return plain_grad_loop(
+        model, s0, Q, pvec, lambda x, u: mlp_step(net, x, u, model.predict_delta),
+        lambda xs, us, lam: mlp_step_vjp(xs, us, net, model.predict_delta, lam))
 
 
 def neural_grad_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,

@@ -1,0 +1,83 @@
+"""K9: rollout cost under the residual ``"ODE+res"`` model and its
+gradient — the counterpart of
+control_toolkit_tpu/ops/pallas_grad.py:build_residual_grad_cost_rollout_kernel.
+
+``residual_grad_cost_rollout(model, s0 [K,S], Q [K,H,U], pvec [N], net)
+-> (cost [K], dQ [K,H,U])``: cost is K12's (ops/residual_rollout.py) and
+dQ its gradient with respect to Q, so also the gradient of
+``sum_k cost_k``.  It is K7's structure (ops/grad_cost_rollout.py) with
+the residual step: one forward sweep stores x_0..x_{H-1} and sums the
+stage costs; one backward sweep from h = H-1 to 0 re-linearizes step h at
+the stored x_h with ``adjoints.residual_step_vjp`` (the integrator's VJP
+plus the MLP's in absolute form) and the cost's hand-written adjoints:
+
+    lam_H = d terminal / d x_H * 1/(H+1)
+    dQ_h  = (du_step + gu) + gprev_{h+1}     gprev_H = 0
+    lam_h = dx_step + gx
+
+The base's constants and the weights get no gradient.  The CUDA kernel is
+``csrc/residual_rollout.cu``; ``residual_grad_cost_rollout_plain`` is the
+same function in PyTorch.  The wrapper runs the plain version only when
+every operand lies on the CPU; for CUDA operands it launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, residual_step_vjp
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
+from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes
+from control_toolkit_tpu_torch.ops.residual_rollout import residual_step_fn
+
+
+def residual_grad_cost_rollout_plain(model: kernels.ResidualModel, s0: torch.Tensor,
+                                     Q: torch.Tensor, pvec: torch.Tensor, net: Dict
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-246 over the
+    residual step of :495-499)."""
+    derivs_vjp = PLANT_ADJOINTS[model.plant][0]
+    p = model.unpack(pvec)
+
+    def step_vjp(xs, us, lam):
+        return residual_step_vjp(model.derivs, derivs_vjp, xs, us, p, net, lam,
+                                 model.integrator == "rk4", model.intermediate_steps, model.dt)
+
+    return plain_grad_loop(model, s0, Q, pvec, residual_step_fn(model, pvec, net), step_vjp)
+
+
+def residual_grad_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec: torch.Tensor, net: Dict
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9: per-rollout cost ``[K]`` and its gradient ``[K,H,U]`` under the
+    residual model; see the module docstring."""
+    check_shapes("residual_grad_cost_rollout", s0, Q, pvec)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"residual_grad_cost_rollout: no adjoints for the {model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return residual_grad_cost_rollout_plain(model, s0, Q, pvec, net)
+    args, tensors = model.net_args(net)
+    device = kernels.check_cuda_operands("residual_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
+                                         **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("residual_grad_cost_rollout", S, U, K, H, pvec.numel())
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
+    # The forward sweep's states, rollout index fastest, as K7's.
+    xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_residual_grad_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(),
+            model.max_cost, 1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, "residual_grad_cost_rollout")
+    residual_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+residual_grad_cost_rollout.launches = 0

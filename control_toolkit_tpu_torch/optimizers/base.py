@@ -214,7 +214,8 @@ class Optimizer:
     def _make_cost_only(self):
         """Best cost-only rollout evaluator, or None: the first kernel
         family of ``COST_ORDER`` whose gate admits the model (K1 for an
-        ODE, K11/K13 for a learned net; plain versions on CPU tensors) > the
+        ODE, K11/K13 for a learned net, K14 for a sparse GP, K12 for a
+        residual model; plain versions on CPU tensors) > the
         fused loop > None (callers keep the trajectory path)."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
@@ -233,7 +234,8 @@ class Optimizer:
 
         With logging off and an eligible model the gradient is the first
         family of ``GRAD_ORDER`` whose gate admits it (K7 for an ODE, K8 for
-        an MLP) and the cost ``_make_cost_only``'s; otherwise
+        an MLP, K10 for a GP, K9 for a residual model) and the cost
+        ``_make_cost_only``'s; otherwise
         ``torch.autograd`` through the fused loop, or through the
         trajectory rollout when logging is on."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf
@@ -270,12 +272,21 @@ class Optimizer:
         pred); ``stage_soa`` includes the control-change term and the
         MAX_COST shift.  ``include_dyn=False`` leaves the dynamics out of
         the layout (and returns ``derivs_soa=None``): the network-rollout
-        kernels take a learned net's weights as tensors, not scalars."""
+        kernels take a learned net's weights as tensors, not scalars.
+
+        A residual (``"ODE+res"``) predictor's dynamics constants are its
+        analytic base's: the ``d_*`` keys and ``derivs_soa`` come from
+        ``pred.base``, and ``pack`` reads them from ``params["dyn"]["base"]``
+        (the residual's weights go to its kernels as tensors)."""
+        from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
+
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
         pred = getattr(self.predictor, "predictor", self.predictor)
         U = self.num_control_inputs
 
-        dyn_keys = sorted(pred.default_params()) if include_dyn else []
+        dyn_src = pred.base if isinstance(pred, ResidualPredictor) else pred
+        dyn_nested = dyn_src is not pred
+        dyn_keys = sorted(dyn_src.default_params()) if include_dyn else []
         cost_keys = sorted(cf.dynamic_config_keys)
         attr_keys = sorted(cf.attr_keys)
         param_keys = (
@@ -309,15 +320,16 @@ class Optimizer:
 
         def derivs(xs, us, p):
             dyn, _ = split_p(p)
-            return pred.dynamics.soa(xs, us, dyn)
+            return dyn_src.dynamics.soa(xs, us, dyn)
 
         attr_defaults = cf.attr_defaults
         device = self.device
 
         def pack(params, u_prev):
             vals = {}
+            dyn_leaves = params["dyn"]["base"] if dyn_nested else params["dyn"]
             for k in dyn_keys:
-                vals[f"d_{k}"] = params["dyn"][k]
+                vals[f"d_{k}"] = dyn_leaves[k]
             for k in cost_keys:
                 vals[f"c_{k}"] = params["cost"][k]
             for k in attr_keys:

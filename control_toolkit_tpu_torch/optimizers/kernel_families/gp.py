@@ -1,0 +1,84 @@
+"""Sparse-GP kernel family: the cost kernel K14 and its gradient twin K10
+(counterpart of control_toolkit_tpu/optimizers/kernel_families/gp.py).
+
+The gates admit a GPPredictor over the cost its environment's device plant
+evaluates (``ode.device_cost``), with ``force_scan`` off.  The GP's
+tensors are read from ``params["dyn"]["gp"]`` on every call and
+precomputed (``flatten_gp_weights``) once per posterior: again only when
+that subtree is another object, as ``MPCController._assemble_params``
+places a re-fit's.  So a re-fit posterior never rebuilds.  The JAX gates' TPU conjuncts (VMEM tile budgets) have no
+counterpart: K is masked in the kernels, and the wrappers raise on a GP
+whose inducing points exceed a block's shared memory.  Not ported: the
+columns (``batched_kernels``) and learned-terminal (``emit_terminal``,
+``value_spec``) forms.
+"""
+from __future__ import annotations
+
+from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import gp_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.gp_rollout import flatten_gp_weights, gp_cost_rollout
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+
+name = "gp"
+
+
+def compatible_model(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return isinstance(pred, GPPredictor) and device_cost(opt)
+
+
+def can_use_cost(opt) -> bool:
+    return not opt.force_scan and compatible_model(opt)
+
+
+def gp_model(opt):
+    """``(GPModel, pack)`` from the optimizer's SOA bindings without the
+    dynamics constants."""
+    param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    model = kernels.GPModel(plant=pred.environment_name, param_keys=tuple(param_keys),
+                            stage=stage_soa, terminal=terminal_soa, max_cost=float(cf.MAX_COST))
+    return model, pack
+
+
+def cached_operands():
+    """``operands(gp) -> flatten_gp_weights(gp)``, recomputed only when
+    ``gp`` is not the object of the last call."""
+    last = [None, None]
+
+    def operands(gp_tree):
+        if last[0] is not gp_tree:
+            last[:] = [gp_tree, flatten_gp_weights(gp_tree)]
+        return last[1]
+
+    return operands
+
+
+def build_cost(opt):
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K14."""
+    model, pack = gp_model(opt)
+    operands = cached_operands()
+
+    def cost_fn(s_tiled, Q, u_prev, params):
+        return gp_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                               operands(params["dyn"]["gp"]))
+
+    return cost_fn
+
+
+def can_use_grad(opt) -> bool:
+    return can_use_cost(opt)
+
+
+def build_grad(opt):
+    """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
+    over K10."""
+    model, pack = gp_model(opt)
+    operands = cached_operands()
+
+    def grad_fn(s_tiled, Q, u_prev, params):
+        return gp_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                    operands(params["dyn"]["gp"]))
+
+    return grad_fn

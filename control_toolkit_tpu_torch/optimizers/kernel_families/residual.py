@@ -1,0 +1,82 @@
+"""Residual (``"ODE+res"``) kernel family: the cost kernel K12 and its
+gradient twin K9 (counterpart of
+control_toolkit_tpu/optimizers/kernel_families/residual.py).
+
+The gates admit a ResidualPredictor over the cost its base plant's device
+implementation evaluates (``ode.device_cost``), with ``force_scan`` off;
+the gradient gate adds the plant's hand-written adjoints.  The base's
+constants go in
+the packed vector (``Optimizer._soa_bindings`` reads them from
+``params["dyn"]["base"]``), the residual's tensors from
+``params["dyn"]["res"]`` on every call, so an online-sysid install never
+rebuilds.  The JAX gates' TPU conjuncts have no counterpart: K is masked
+in the kernels.  Not ported: the columns (``slot_keys``,
+``batched_kernels``) and learned-terminal (``emit_terminal``,
+``value_spec``) forms.
+"""
+from __future__ import annotations
+
+from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
+from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import residual_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+
+name = "residual"
+
+
+def compatible_model(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return isinstance(pred, ResidualPredictor) and device_cost(opt)
+
+
+def can_use_cost(opt) -> bool:
+    return not opt.force_scan and compatible_model(opt)
+
+
+def residual_model(opt):
+    """``(ResidualModel, pack)`` from the optimizer's SOA bindings (the
+    base's constants, then the cost's)."""
+    param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    model = kernels.ResidualModel(
+        plant=pred.environment_name,
+        param_keys=tuple(param_keys),
+        derivs=derivs,
+        stage=stage_soa,
+        terminal=terminal_soa,
+        integrator=pred.integrator,
+        dt=pred.dt,
+        intermediate_steps=pred.intermediate_steps,
+        max_cost=float(cf.MAX_COST),
+    )
+    return model, pack
+
+
+def build_cost(opt):
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K12."""
+    model, pack = residual_model(opt)
+
+    def cost_fn(s_tiled, Q, u_prev, params):
+        return residual_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                     params["dyn"]["res"])
+
+    return cost_fn
+
+
+def can_use_grad(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
+
+
+def build_grad(opt):
+    """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
+    over K9."""
+    model, pack = residual_model(opt)
+
+    def grad_fn(s_tiled, Q, u_prev, params):
+        return residual_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                          params["dyn"]["res"])
+
+    return grad_fn

@@ -18,18 +18,23 @@ def _tensor(v, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(v, np.float32), device=device)
 
 
+def _tree(v, device: torch.device):
+    """Dicts and tuples kept, every leaf a float32 tensor (a 0-d array or a
+    number a 0-d tensor)."""
+    if isinstance(v, dict):
+        return {k: _tree(x, device) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return tuple(_tree(x, device) for x in v)
+    return _tensor(v, device)
+
+
 def params_from_numpy(params: Dict, device: torch.device) -> Dict:
     """The ``{"dyn", "cost", "attrs"}`` params tree of
-    ``MPCController._assemble_params`` as float32 tensors; a learned
-    predictor's nested ``dyn`` goes through ``neural_params_from_numpy``."""
-    out = {
-        part: {k: _tensor(v, device) for k, v in params[part].items()}
-        for part in ("cost", "attrs")
-    }
-    dyn = params["dyn"]
-    out["dyn"] = (neural_params_from_numpy(dyn["net"], dyn.get("hidden"), device) if "net" in dyn
-                  else {k: _tensor(v, device) for k, v in dyn.items()})
-    return out
+    ``MPCController._assemble_params`` as float32 tensors, ``dyn`` of any
+    nesting: an ODE's flat constants, a learned net's ``{"net"[,
+    "hidden"]}``, a residual predictor's ``{"base", "res"}``, a GP's
+    ``{"gp"}`` (its ``variance`` a 0-d tensor)."""
+    return {part: _tree(params[part], device) for part in ("dyn", "cost", "attrs")}
 
 
 def neural_params_from_numpy(net: Dict, hidden=None, device: torch.device = torch.device("cpu")):
@@ -37,12 +42,9 @@ def neural_params_from_numpy(net: Dict, hidden=None, device: torch.device = torc
     ``b{i}``, ``norm_*``, or nested ``cell{i}`` dicts with ``wo``/``bo``)
     and, for a recurrent net, its hidden tuple, as float32 tensors.
     Returns ``{"net": ...}`` or ``{"net": ..., "hidden": (...)}``."""
-    def tree(v):
-        return {k: tree(x) for k, x in v.items()} if isinstance(v, dict) else _tensor(v, device)
-
-    dyn = {"net": tree(net)}
+    dyn = {"net": _tree(net, device)}
     if hidden is not None:
-        dyn["hidden"] = tuple(_tensor(h, device) for h in hidden)
+        dyn["hidden"] = _tree(tuple(hidden), device)
     return dyn
 
 

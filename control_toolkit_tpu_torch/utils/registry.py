@@ -57,6 +57,9 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.controllers.mpc",
     "control_toolkit_tpu_torch.costs.cartpole",
     "control_toolkit_tpu_torch.models.predictors",
+    "control_toolkit_tpu_torch.models.neural_predictor",
+    "control_toolkit_tpu_torch.models.residual_predictor",
+    "control_toolkit_tpu_torch.models.gp_predictor",
     "control_toolkit_tpu_torch.environments.cartpole",
 )
 

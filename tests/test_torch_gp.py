@@ -1,0 +1,519 @@
+"""The torch port's sparse-GP path against the JAX package: the fit, the
+GPPredictor and its spec, K14's and K10's plain versions
+(``ops/gp_rollout.py``, ``ops/gp_grad_cost_rollout.py``) against the JAX
+package's Pallas kernels in interpret mode, the GP step's hand-written
+adjoint against ``torch.autograd``, a re-fit through the same built step,
+one MPPI and one rpgd-tf controller tick, the committed GP, and — on a
+machine with a card only — each CUDA kernel against its plain version.
+
+Both packages get the same GP (a JAX fit, written with the JAX
+``GPPredictor.save``) and the same inputs and noise, made with numpy from
+a seed or drawn from the JAX key.
+
+    PYTHONPATH=. python tests/test_torch_gp.py
+
+from the repository's root regenerates the committed GP (``make_assets``);
+
+    PYTHONPATH=. python tests/test_torch_gp.py --starts
+
+runs the JAX package's MPPI over the committed GP from the start states
+of ``chip_smoke.py --starts`` (``jax_start_sweep``).
+"""
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from control_toolkit_tpu.controllers.mpc import MPCController as JaxMPC
+from control_toolkit_tpu.environments.cartpole import CartpoleEnv as JaxCartpoleEnv
+from control_toolkit_tpu.models import gp_predictor as jgp
+from control_toolkit_tpu.models.training import collect_transitions as jax_collect
+from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+from control_toolkit_tpu_torch.models import gp_predictor as pgp
+from control_toolkit_tpu_torch.models.predictors import PredictorWrapper
+from control_toolkit_tpu_torch.models.training import collect_transitions
+from control_toolkit_tpu_torch.ops.adjoints import gp_step_vjp
+from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
+    gp_grad_cost_rollout, gp_grad_cost_rollout_plain,
+)
+from control_toolkit_tpu_torch.ops.gp_rollout import (
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain, gp_step,
+)
+from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
+from control_toolkit_tpu_torch.utils.convert import params_from_numpy
+from test_torch_mppi import (
+    CPU, LIMITS, UNOM_TOL, jax_next_draw, jax_params_numpy, optimizer_config, port_noise,
+)
+from test_torch_rpgd import jax_rpgd_draw, rpgd_config, set_rpgd_state
+
+REPO = Path(__file__).resolve().parent.parent
+ASSETS = REPO / "control_toolkit_tpu_torch" / "assets" / "cartpole"
+GP_ASSET = "SGP_128.npz"
+K, H, M = 256, 10, 16
+F64_TOL = dict(rtol=1e-9, atol=1e-9)
+# The JAX GP kernel tests' own bounds (test_pallas_gp.py:66-67, 176-177):
+# the affine input transform and the matmul orders differ between the
+# plain version and the Pallas kernel, and exp(-0.5 d2) amplifies the
+# reassociation over the rollout (conditioning, not semantics).
+COST_TOL = dict(rtol=1e-3, atol=1e-5)
+GRAD_TOL = dict(rtol=2e-3, atol=5e-4)
+COST_WEIGHTS = {"dd_weight": 120.0, "ep_weight": 10000.0, "ekp_weight": 10.0,
+                "cc_weight": 1.0, "ccrc_weight": 1.0, "R": 1.0}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def make_assets(out_dir: Path = ASSETS) -> dict:
+    """Fit the committed GP with the JAX package as ``bench_scale.py:
+    _gp_checkpoint`` fits it: ``collect_transitions(CartpoleEnv(16,
+    seed=0), 200, seed=0)`` (3200 random-policy transitions),
+    ``fit_gp_dynamics(num_inducing=128, seed=0)``, written with the JAX
+    ``GPPredictor.save``.  Returns the fit's normalized MSE."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    x, u, xn = jax_collect(JaxCartpoleEnv(batch_size=16, dt=0.02, seed=0), 200, seed=0)
+    params, mse = jgp.fit_gp_dynamics(x, u, xn, num_inducing=128, seed=0)
+    jgp.GPPredictor("cartpole", dt=0.02, params=params).save(out_dir / GP_ASSET)
+    return {"gp_normalized_mse": mse}
+
+
+@pytest.fixture(scope="module")
+def gp_ckpt(tmp_path_factory):
+    """A small GP (M=16) fitted by the JAX package, saved with its ``save``."""
+    x, u, xn = jax_collect(JaxCartpoleEnv(batch_size=8, dt=0.02, seed=0), 40, seed=0)
+    params, _ = jgp.fit_gp_dynamics(x, u, xn, num_inducing=M, seed=0)
+    path = tmp_path_factory.mktemp("gp") / "sgp.npz"
+    jgp.GPPredictor("cartpole", dt=0.02, params=params).save(path)
+    return str(path)
+
+
+def make_pair(ckpt, optimizer="mppi", config=None, jax_logging=False):
+    """The JAX and the port controller over one GP checkpoint."""
+    spec = f"SGP_{M}:{ckpt}"
+    cfg = config or optimizer_config(K, H)
+    jctrl = JaxMPC("cartpole", LIMITS, {"target_position": 0.3},
+                   config={"optimizer": optimizer, "controller_logging": jax_logging})
+    jctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
+                    optimizer_config=dict(cfg))
+    pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
+                          config={"optimizer": optimizer, "controller_logging": False})
+    pctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
+                    optimizer_config=dict(cfg))
+    return jctrl, pctrl
+
+
+def inputs(seed, lo=-1.0, hi=1.0):
+    rng = np.random.default_rng(seed)
+    s_tiled = np.tile(np.array([[0.1, -0.2, 0.3, 0.05]], np.float32), (K, 1))
+    Q = rng.uniform(lo, hi, (K, H, 1)).astype(np.float32)
+    return s_tiled, Q, np.array([0.25], np.float32)
+
+
+# ---- the fit and the predictor --------------------------------------------------
+def test_fit_gp_dynamics_equals_jax_exactly():
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.5, 0.5, (300, 4)).astype(np.float32)
+    u = rng.uniform(-1.0, 1.0, (300, 1)).astype(np.float32)
+    xn = (x + 0.02 * rng.standard_normal((300, 4))).astype(np.float32)
+    for m, seed in ((32, 0), (64, 3)):
+        port, pmse = pgp.fit_gp_dynamics(x, u, xn, num_inducing=m, seed=seed)
+        ref, jmse = jgp.fit_gp_dynamics(x, u, xn, num_inducing=m, seed=seed)
+        assert pmse == jmse and set(port) == set(ref) == set(pgp.GP_KEYS)
+        for k in pgp.GP_KEYS:
+            assert port[k].dtype == np.asarray(ref[k]).dtype == np.float32
+            np.testing.assert_array_equal(port[k], np.asarray(ref[k]))
+
+
+def test_collect_transitions_shapes_and_restarts():
+    x, u, xn = collect_transitions(CartpoleEnv(batch_size=4, dt=0.02, seed=0), 30, seed=0,
+                                   episode_length=10)
+    assert x.shape == xn.shape == (120, 4) and u.shape == (120, 1)
+    assert np.all(np.abs(u) <= 1.0) and np.all(np.isfinite(xn))
+    np.testing.assert_array_equal(x[4:8], xn[0:4])           # within an episode
+    assert not np.array_equal(x[40:44], xn[36:40])           # a restart at step 10
+
+
+def test_spec_loads_a_jax_checkpoint_and_steps_as_jax(gp_ckpt):
+    w = PredictorWrapper()
+    w.configure(dt=0.02, predictor_specification=f"SGP_{M}:{gp_ckpt}",
+                checkpoint="/nonexistent.npz")  # the spec's path wins
+    pred = w.predictor
+    assert isinstance(pred, pgp.GPPredictor) and pred.environment_name == "cartpole"
+    assert set(pred.gp_params) == set(pgp.GP_KEYS) and pred.gp_params["variance"].ndim == 0
+    jpred = jgp.GPPredictor("cartpole", checkpoint=gp_ckpt)
+    with np.load(gp_ckpt) as data:
+        for k in data.files:
+            np.testing.assert_array_equal(pred.gp_params[k].numpy(), data[k])
+    w2 = PredictorWrapper()
+    w2.configure(dt=0.02, predictor_specification="gp", checkpoint=gp_ckpt)
+    assert isinstance(w2.predictor, pgp.GPPredictor)
+    rng = np.random.default_rng(1)
+    s0 = (0.1 * rng.standard_normal((6, 4))).astype(np.float32)
+    Q = rng.uniform(-1.0, 1.0, (6, H, 1)).astype(np.float32)
+    # Ten steps of float32 matmuls summed in other orders, through exp.
+    np.testing.assert_allclose(pred.rollout(torch.tensor(s0), torch.tensor(Q)).numpy(),
+                               np.asarray(jpred.rollout(jnp.asarray(s0), jnp.asarray(Q))),
+                               rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="params or a checkpoint"):
+        pgp.GPPredictor()
+
+
+def test_save_round_trips_to_jax(gp_ckpt, tmp_path):
+    pred = pgp.GPPredictor(checkpoint=gp_ckpt)
+    pred.save(tmp_path / "port.npz")
+    back = jgp.GPPredictor("cartpole", checkpoint=str(tmp_path / "port.npz"))
+    for k, v in pred.gp_params.items():
+        np.testing.assert_array_equal(np.asarray(back.gp_params[k]), v.numpy())
+
+
+# ---- the adjoint ----------------------------------------------------------------
+@pytest.mark.parametrize("tie", [False, True])
+def test_gp_step_vjp_matches_autograd_float64(gp_ckpt, tie):
+    """Against autograd through ``gp_step`` in float64.  ``tie`` puts one
+    input exactly on an inducing point (with values that every summation
+    order adds exactly), so d2 == 0 before the clip: the max's derivative
+    splits the tie, as torch.maximum and jnp.maximum do."""
+    ops = {k: v.double() for k, v in flatten_gp_weights(
+        pgp.GPPredictor(checkpoint=gp_ckpt).gp_params).items()}
+    rng = np.random.default_rng(2)
+    x = torch.tensor(0.3 * rng.standard_normal((16, 4)), requires_grad=True)
+    u = torch.tensor(rng.uniform(-1.0, 1.0, (16, 1)), requires_grad=True)
+    if tie:
+        row = torch.tensor([0.5, -0.25, 0.75, 1.0, -0.5], dtype=torch.float64)
+        ops.update(in_mean=torch.zeros(5, dtype=torch.float64),
+                   inv_in=torch.ones(5, dtype=torch.float64),
+                   Zs=torch.cat([row[None], ops["Zs"][1:]]))
+        ops["zn2"] = torch.sum(ops["Zs"] * ops["Zs"], dim=1)
+        with torch.no_grad():
+            x[0], u[0] = row[:4], row[4:]
+    lam = torch.tensor(rng.standard_normal((16, 4)))
+    if tie:
+        an = torch.cat([x, u], 1).detach()
+        raw = (an * an).sum(1, keepdim=True) - 2.0 * (an @ ops["Zs"].T) + ops["zn2"]
+        assert raw[0, 0] == 0.0
+    (gp_step(ops, x, u) * lam).sum().backward()
+    dxs, dus = gp_step_vjp(tuple(x.detach().T), tuple(u.detach().T), ops, tuple(lam.T))
+    torch.testing.assert_close(torch.stack(dxs, 1), x.grad, **F64_TOL)
+    torch.testing.assert_close(torch.stack(dus, 1), u.grad, **F64_TOL)
+
+
+# ---- K14 and K10 against the Pallas kernels ----------------------------------------
+def test_k14_plain_matches_pallas_interpret(gp_ckpt):
+    jctrl, pctrl = make_pair(gp_ckpt)
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    assert gp.can_use_cost(popt) and not ode.can_use_cost(popt) and not neural.can_use_cost(popt)
+    s_tiled, Q, u_prev = inputs(3)
+    pallas = jopt._build_pallas_gp_cost(interpret=True, tile_k=128)
+    ref = np.asarray(pallas(jnp.asarray(s_tiled), jnp.asarray(Q), jnp.asarray(u_prev),
+                            jctrl._assemble_params()))
+    params = params_from_numpy(jax_params_numpy(jctrl), CPU)
+    before = gp_cost_rollout.launches
+    got = popt._make_cost_only()(torch.tensor(s_tiled), torch.tensor(Q), torch.tensor(u_prev),
+                                 params)
+    assert gp_cost_rollout.launches == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(got.numpy(), ref, **COST_TOL)
+
+
+@pytest.mark.parametrize("ccrc", [None, 5.0])
+def test_k10_plain_matches_pallas_interpret_and_autograd(gp_ckpt, ccrc):
+    """Also turns the control-change term up so the gprev carry shows."""
+    jctrl, pctrl = make_pair(gp_ckpt, "rpgd-tf", rpgd_config(num_rollouts=K, mpc_horizon=H))
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    assert gp.can_use_grad(popt)
+    s_tiled, Q, u_prev = inputs(4, -0.8, 0.8)
+    jparams = jctrl._assemble_params()
+    params = params_from_numpy(jax_params_numpy(jctrl), CPU)
+    if ccrc is not None:
+        jparams = dict(jparams, cost=dict(jparams["cost"], ccrc_weight=jnp.float32(ccrc)))
+        params["cost"]["ccrc_weight"] = torch.tensor(ccrc)
+    pallas = jopt._build_pallas_gp_grad(interpret=True, tile_k=64)
+    ref_cost, ref_dq = pallas(jnp.asarray(s_tiled), jnp.asarray(Q), jnp.asarray(u_prev), jparams)
+    model, pack = gp.gp_model(popt)
+    ops = flatten_gp_weights(params["dyn"]["gp"])
+    args = (model, torch.tensor(s_tiled), torch.tensor(Q), pack(params, torch.tensor(u_prev)), ops)
+    before = gp_grad_cost_rollout.launches
+    cost, dQ = gp_grad_cost_rollout(*args)
+    assert gp_grad_cost_rollout.launches == before
+    np.testing.assert_allclose(cost.numpy(), np.asarray(ref_cost), **COST_TOL)
+    np.testing.assert_allclose(dQ.numpy(), np.asarray(ref_dq), **GRAD_TOL)
+    Qv = args[2].clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(gp_cost_rollout_plain(args[0], args[1], Qv, *args[3:]).sum(), Qv)
+    torch.testing.assert_close(dQ, auto, rtol=1e-4, atol=1e-5)
+
+
+def test_a_refit_reaches_the_next_call_without_rebuild(gp_ckpt):
+    _, pctrl = make_pair(gp_ckpt, "rpgd-tf", rpgd_config(num_rollouts=K, mpc_horizon=H))
+    popt, pred = pctrl.optimizer, pctrl.optimizer.predictor.predictor
+    cost_fn, epoch = popt._make_cost_only(), popt._build_epoch
+    grad_fn, _ = popt._make_grad_and_cost_only()
+    s = torch.tensor([[0.1, 0.0, 0.2, 0.0]]).expand(K, 4)
+    Q = torch.full((K, H, 1), 0.3)
+    u_prev = torch.tensor([0.0])
+    first = cost_fn(s, Q, u_prev, pctrl._assemble_params())
+    first_dq = grad_fn(Q, s, u_prev, pctrl._assemble_params())
+    pred.gp_params = {**pred.gp_params, "alpha": 1.5 * pred.gp_params["alpha"]}
+    params = pctrl._assemble_params()
+    assert params["dyn"]["gp"]["alpha"] is pred.gp_params["alpha"]
+    swapped = cost_fn(s, Q, u_prev, params)
+    assert not torch.allclose(first, swapped)
+    assert not torch.allclose(first_dq, grad_fn(Q, s, u_prev, params))
+    model, pack = gp.gp_model(popt)
+    torch.testing.assert_close(swapped, gp_cost_rollout_plain(
+        model, s, Q, pack(params, u_prev), flatten_gp_weights(pred.gp_params)))
+    assert popt._build_epoch == epoch
+
+
+def test_gp_operands_are_precomputed_once_per_posterior(gp_ckpt, monkeypatch):
+    """The cost and gradient calls precompute the GP's operands
+    (``flatten_gp_weights``) for a posterior once, not at every tick, and
+    again for a re-fit."""
+    _, pctrl = make_pair(gp_ckpt, "rpgd-tf", rpgd_config(num_rollouts=K, mpc_horizon=H))
+    calls = []
+    monkeypatch.setattr(gp, "flatten_gp_weights",
+                        lambda tree: calls.append(tree) or flatten_gp_weights(tree))
+    s = np.array([0.1, 0.0, 0.2, 0.0], np.float32)
+    for _ in range(3):
+        pctrl.step(s)
+    assert len(calls) == 2  # K14's cost and K10's gradient
+    pred = pctrl.optimizer.predictor.predictor
+    pred.gp_params = {**pred.gp_params, "alpha": 1.5 * pred.gp_params["alpha"]}
+    pctrl.step(s)
+    pctrl.step(s)
+    assert len(calls) == 4 and all(t["alpha"] is pred.gp_params["alpha"] for t in calls[2:])
+
+
+# ---- the controller ---------------------------------------------------------------
+def test_mppi_controller_ticks_match_jax(gp_ckpt):
+    """A few MPPI ticks through both controllers' step(), each fed the same
+    state and the same noise; the plans carry over."""
+    jctrl, pctrl = make_pair(gp_ckpt)
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    assert not popt._uses_semi_fused()  # the semi-fused K2 takes an ODE only
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        s = (0.05 * rng.standard_normal(4)).astype(np.float32)
+        eps = port_noise(popt, jax_next_draw(jopt))
+        popt.sample_noise = lambda state, eps=eps: eps
+        np.testing.assert_allclose(pctrl.step(s), jctrl.step(s), **UNOM_TOL)
+        np.testing.assert_allclose(popt.opt_state.u_nom.numpy(), np.asarray(jopt.opt_state.u_nom),
+                                   **UNOM_TOL)
+
+
+def test_rpgd_controller_ticks_match_jax(gp_ckpt):
+    """rpgd-tf ticks (a resample tick, then keep ticks) through both
+    controllers, each fed the same state and draw: the port's K10 and K14
+    plain versions against the JAX package's autograd through its scan."""
+    jctrl, pctrl = make_pair(gp_ckpt, "rpgd-tf", rpgd_config(num_rollouts=K, mpc_horizon=H),
+                             jax_logging=True)
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    set_rpgd_state(jopt, popt, count=0, seed=5)
+    captured, step_fn = [], popt._step_fn
+    popt._step_fn = lambda st, s, p: captured.append(step_fn(st, s, p)) or captured[-1]
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        s = (0.05 * rng.standard_normal(4)).astype(np.float32)
+        draw = jax_rpgd_draw(jopt) if int(jopt.opt_state.count) % 10 == 0 else None
+        popt.sample_resample = lambda state, d=draw: None if d is None else torch.as_tensor(d)
+        u_jax, u_port = jctrl.step(s), pctrl.step(s)
+        jcost, pcost = jopt.logging_values["J_logged"], captured[-1][2]["J_logged"].numpy()
+        np.testing.assert_allclose(pcost, jcost, **COST_TOL)
+        if int(np.argmin(jcost)) == int(np.argmin(pcost)):
+            np.testing.assert_allclose(u_port, u_jax, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(popt.opt_state.Q.numpy(), np.asarray(jopt.opt_state.Q),
+                               rtol=1e-3, atol=1e-4)
+
+
+def test_gates_and_wrappers(gp_ckpt):
+    _, pctrl = make_pair(gp_ckpt, config=optimizer_config(K, H, force_scan=True))
+    assert not gp.can_use_cost(pctrl.optimizer) and not residual.can_use_cost(pctrl.optimizer)
+    assert pctrl.optimizer._make_cost_only() == pctrl.optimizer._fused_cost
+    _, pctrl = make_pair(gp_ckpt)
+    model, _ = gp.gp_model(pctrl.optimizer)
+    ops = flatten_gp_weights(pctrl._assemble_params()["dyn"]["gp"])
+    args, tensors = model.gp_args(ops)
+    assert args.M == M and set(tensors) == set(ops)
+    with pytest.raises(ValueError, match="zn2"):
+        model.gp_args({**ops, "zn2": ops["zn2"][:-1]})
+    meta = dict(device="meta")
+    before = gp_cost_rollout.launches, gp_grad_cost_rollout.launches
+    for fn in (gp_cost_rollout, gp_grad_cost_rollout):
+        with pytest.raises(ValueError, match="several devices"):
+            fn(model, torch.empty(8, 4, **meta), torch.empty(8, 5, 1, **meta),
+               torch.empty(8, **meta), ops)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(model, torch.empty(8, 4, **meta), torch.empty(8, 5, 1, **meta),
+               torch.empty(8, **meta), {k: torch.empty(v.shape, **meta) for k, v in ops.items()})
+    assert (gp_cost_rollout.launches, gp_grad_cost_rollout.launches) == before
+
+
+# ---- the committed GP ---------------------------------------------------------------
+def test_committed_gp_is_what_the_generator_documents():
+    path = ASSETS / GP_ASSET
+    shapes = {"Z": (128, 5), "alpha": (128, 4), "lengthscales": (5,), "variance": (),
+              "in_mean": (5,), "in_std": (5,), "out_mean": (4,), "out_std": (4,)}
+    with np.load(path) as data:
+        assert {k: data[k].shape for k in data.files} == shapes
+        assert all(data[k].dtype == np.float32 for k in data.files)
+    pred = pgp.GPPredictor(checkpoint=str(path))
+    jpred = jgp.GPPredictor("cartpole", checkpoint=str(path))
+    x, u, xn = jax_collect(JaxCartpoleEnv(batch_size=16, dt=0.02, seed=7), 50, seed=7)
+    got = pred.single_step(torch.tensor(x), torch.tensor(u), pred.default_params()).numpy()
+    ref = np.asarray(jpred.single_step(jnp.asarray(x), jnp.asarray(u), jpred.default_params()))
+    # The fitted posterior's large weights cancel: either package's float32
+    # step is 2-3e-4 from a float64 evaluation of the same step.
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+    # The one-step error on fresh transitions, normalized by the deltas' spread.
+    err = float(np.mean(((got - xn) / np.asarray(jpred.gp_params["out_std"])) ** 2))
+    assert err < 0.1, err
+
+
+# ---- on the card ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+def test_cuda_kernels_match_plain_versions(grad):
+    """K14 and K10 against their plain versions on the same card tensors,
+    at K=1000 (ragged), H=50 (chip_smoke.py phases 20-21).  Over a
+    well-conditioned GP of the committed one's widths (its alpha drawn
+    N(0, 1), so the mean does not cancel in float32), to K11's and K7's
+    bounds: the cost to rtol 5e-5 (K14) or 1e-4 (K10) plus 1e-3, dQ to rtol
+    2e-5 plus 5e-6 * max|dQ|, which a dQ without the control-change term's
+    carry to the previous step (gprev) exceeds.  Over the committed GP,
+    whose large posterior weights cancel (in float32 the plain version and
+    the kernel both sit ~1e-3 of the cost's scale from a float64
+    evaluation), each output no further from the float64 plain version than
+    twice the plain version's own distance, plus 1e-6 of its largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc and run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    Kc, Hc = 1000, 50
+    optimizer = "rpgd-tf" if grad else "mppi"
+    cfg = (rpgd_config(num_rollouts=Kc, mpc_horizon=Hc) if grad
+           else optimizer_config(Kc, Hc))
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": optimizer, "controller_logging": False,
+                                 "device": "cuda"})
+    ctrl.configure(optimizer_name=optimizer,
+                   predictor_specification=f"SGP_128:{ASSETS / GP_ASSET}",
+                   optimizer_config=cfg, cost_function_config=COST_WEIGHTS)
+    model, pack = gp.gp_model(ctrl.optimizer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=dev)
+    Q = torch.clamp(0.3 * torch.randn(Kc, Hc, 1, generator=gen, device=dev), -1.0, 1.0)
+    params = ctrl._assemble_params()
+    pvec = pack(params, torch.tensor([0.1], device=dev))
+    fitted = params["dyn"]["gp"]
+    alpha = torch.randn(fitted["alpha"].shape, generator=gen, device=dev)
+    well = flatten_gp_weights({**fitted, "alpha": alpha})
+    if grad:
+        cost, dQ = gp_grad_cost_rollout(model, s0, Q, pvec, well)
+        ref_cost, ref_dQ = gp_grad_cost_rollout_plain(model, s0, Q, pvec, well)
+        torch.testing.assert_close(cost, ref_cost, rtol=1e-4, atol=1e-3)
+        dq_tol = dict(rtol=2e-5, atol=5e-6 * float(ref_dQ.abs().max()))
+        torch.testing.assert_close(dQ, ref_dQ, **dq_tol)
+        p = model.unpack(pvec)
+        prev = torch.cat([p["__u_prev_0"].expand(Kc, 1, 1), Q[:, :-1]], dim=1)
+        change = 2.0 * p["c_ccrc_weight"] * (Q - prev) / (Hc + 1)
+        no_gprev = dQ.clone()
+        no_gprev[:, :-1] += change[:, 1:]
+        assert not torch.allclose(no_gprev, ref_dQ, **dq_tol)
+    else:
+        torch.testing.assert_close(gp_cost_rollout(model, s0, Q, pvec, well),
+                                   gp_cost_rollout_plain(model, s0, Q, pvec, well),
+                                   rtol=5e-5, atol=1e-3)
+    ops = flatten_gp_weights(fitted)
+    ops64 = {k: v.double() for k, v in ops.items()}
+    args64 = (model, s0.double(), Q.double(), pvec.double(), ops64)
+    if grad:
+        outs = zip(gp_grad_cost_rollout(model, s0, Q, pvec, ops),
+                   gp_grad_cost_rollout_plain(model, s0, Q, pvec, ops),
+                   gp_grad_cost_rollout_plain(*args64))
+    else:
+        outs = [(gp_cost_rollout(model, s0, Q, pvec, ops),
+                 gp_cost_rollout_plain(model, s0, Q, pvec, ops), gp_cost_rollout_plain(*args64))]
+    for got, plain, ref64 in outs:
+        bound = (2.0 * float((plain.double() - ref64).abs().max())
+                 + 1e-6 * float(ref64.abs().max()))
+        assert float((got.double() - ref64).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_inducing_points_past_shared_memory():
+    """M=5000 inducing points take 5000 rows of 12 floats (240 KB), more
+    than the 227 KB a block may stage: both entry points refuse the launch
+    (cudaErrorInvalidValue) and the wrappers raise naming M; nothing is
+    counted as launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc and run only there")
+    dev = torch.device("cuda")
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": "mppi", "controller_logging": False,
+                                 "device": "cuda"})
+    ctrl.configure(optimizer_name="mppi", predictor_specification=f"SGP_128:{ASSETS / GP_ASSET}",
+                   optimizer_config=optimizer_config(256, 10), cost_function_config=COST_WEIGHTS)
+    model, pack = gp.gp_model(ctrl.optimizer)
+    params = ctrl._assemble_params()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Zs = torch.randn(5000, 5, generator=gen, device=dev)
+    ops = {**flatten_gp_weights(params["dyn"]["gp"]), "Zs": Zs, "zn2": (Zs * Zs).sum(1),
+           "alphaT": torch.randn(4, 5000, generator=gen, device=dev)}
+    s0, Q = torch.zeros(256, 4, device=dev), torch.zeros(256, 10, 1, device=dev)
+    pvec = pack(params, torch.tensor([0.0], device=dev))
+    before = gp_cost_rollout.launches, gp_grad_cost_rollout.launches
+    for fn in (gp_cost_rollout, gp_grad_cost_rollout):
+        with pytest.raises(RuntimeError, match="M=5000 inducing points"):
+            fn(model, s0, Q, pvec, ops)
+    assert (gp_cost_rollout.launches, gp_grad_cost_rollout.launches) == before
+
+
+def jax_start_sweep(ticks: int = 200) -> dict:
+    """The JAX package alone on the CPU: its MPPI over the committed GP at
+    ``chip_smoke.py``'s configuration (K=16384, H=50, inducing period 10,
+    SQRTRHOINV 0.05), closed loop against its own CartpoleEnv for ``ticks``
+    ticks or until |angle| >= 0.5, from the start states of ``chip_smoke.py
+    --starts`` (the JAX CartpoleEnv(seed=0) state, then the port's
+    CartpoleEnv seeds 0-7), with optimizer seeds 0 and 1.  Prints one JSON
+    line per run and returns the count of runs that kept the pole up."""
+    import json
+
+    starts = [np.asarray(JaxCartpoleEnv(batch_size=1, dt=0.02, seed=0).reset()[0][0])]
+    starts += [CartpoleEnv(batch_size=1, dt=0.02, seed=k).reset()[0][0] for k in range(8)]
+    held = []
+    for seed in (0, 1):
+        for i, start in enumerate(starts):
+            ctrl = JaxMPC("cartpole", LIMITS, {"target_position": 0.0},
+                          config={"optimizer": "mppi", "controller_logging": False})
+            ctrl.configure(optimizer_name="mppi",
+                           predictor_specification=f"SGP_128:{ASSETS / GP_ASSET}",
+                           optimizer_config=optimizer_config(
+                               16384, 50, seed=seed, period_interpolation_inducing_points=10))
+            env = JaxCartpoleEnv(batch_size=1, dt=0.02, seed=0)
+            env.reset()
+            env.state = jnp.asarray(np.asarray(start, np.float32)[None])
+            s, max_angle, fell_at = np.asarray(env.state), 0.0, None
+            for t in range(ticks):
+                s, *_ = env.step(ctrl.step(s[0]))
+                max_angle = max(max_angle, abs(float(s[0, 2])))
+                if max_angle >= 0.5:
+                    fell_at = t
+                    break
+            held.append(fell_at is None)
+            print(json.dumps({"seed": seed, "start": i, "start_state": [float(v) for v in start],
+                              "max_abs_angle": max_angle, "fell_at_tick": fell_at}), flush=True)
+    return {"runs": len(held), "pole_up_runs": sum(held)}
+
+
+if __name__ == "__main__":
+    import sys
+
+    jax.config.update("jax_platforms", "cpu")
+    print(jax_start_sweep() if "--starts" in sys.argv[1:] else make_assets())

@@ -147,9 +147,12 @@ def test_custom_dynamics_and_unported_specs():
     pw = PredictorWrapper()
     with pytest.raises(NotImplementedError):
         pw.configure(predictor_specification="ODE:rk4:1:fast")
-    for unported in ("ODE+res", "SGP_30", "ensemble:mlp-32-32"):
-        with pytest.raises(KeyError):
-            pw.configure(predictor_specification=unported)
+    with pytest.raises(KeyError):
+        pw.configure(predictor_specification="ensemble:mlp-32-32")
+    with pytest.raises(ValueError, match="checkpoint"):
+        pw.configure(predictor_specification="SGP_30")  # ported: needs a fitted GP
+    pw.configure(predictor_specification="ODE+res")  # ported: the base ODE and a residual
+    assert set(pw.default_params()) == {"base", "res"}
     pw.configure(predictor_specification="neural:mlp-32-32")  # ported: a random init
     assert pw.predictor.arch == {"kind": "mlp", "hiddens": [32, 32]}
     copy = pw.copy()
