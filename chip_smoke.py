@@ -75,6 +75,34 @@ and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
 26. one update on the card against the same update on the CPU for each of
     the four loops (over the GP with the well-conditioned GP swapped in).
 
+The sampling paths over the ODE: CEM at bench_scale.py:build_cem's
+configuration (cem_outer_it 2, cem_best_k 256, initial stdev 0.5,
+cem_stdev_min 0.01, seed 3), modular (K1) and fully fused (K5); the
+flagship MPPI with fully_fused (K3); iCEM at build_icem's (beta 2) and
+random-action (seed 3), both on K1:
+27. K5 (fused_cem_costs) against its plain version, K5's costs against K1's
+    over the controls regenerated from its counters, the elite rows'
+    regeneration an exact subset of the full one, the mean and variance of
+    its K*H normals within 5 sigma of 0 and 1, and the cost bound against
+    the plain version with the tile term dropped from the counters and with
+    the rollout order transposed (r and c swapped);
+28. K3's pass 1 (fused_mppi_costs) and 29. its pass 2 (fused_mppi_weights)
+    against their plain versions, pass 2 after the block sum as [P, U] and
+    its bound against the sums unnormalized and from the neighbouring
+    inducing point's noise; then the whole fused_mppi_step against
+    fused_mppi_step_plain on the same card tensors;
+30. 200 closed-loop CEM ticks, modular (two K1 launches a tick), with the
+    target change at tick 100 that must not rebuild anything;
+31. the same with fully_fused (two K5 launches a tick, no K1);
+32. 200 closed-loop fully-fused MPPI ticks (one K3 pass 1 and one pass 2 a
+    tick, no K2), with the target change;
+33. 50 iCEM ticks and 50 random-action ticks, each one K1 launch an outer
+    iteration;
+34. one update on the card against the same update on the CPU, fed the same
+    draws: modular and fused CEM outer iteration by outer iteration, the
+    elites taken by the card's own top-k (which must be a top-k of the
+    CPU's costs within the cost bound), and fully-fused MPPI.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -86,8 +114,9 @@ not TF32.
 rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
-ticks) of each path, printing per tick the device busy time, the number of
-device operations and the costliest device kernels.
+ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
+icem), printing per tick the device busy time, the number of device
+operations and the costliest device kernels.
 
 Every kernel's launch count is set to 0 just before each closed loop and
 read just after it; launches made to compare a kernel with its plain
@@ -122,6 +151,16 @@ from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.counter_prng import (
+    DEFAULT_TILE_K, ROWS, normals_from_counter, rollout_coords, seed_base,
+)
+from control_toolkit_tpu_torch.ops.fused_cem import (
+    cem_counters, fused_cem_costs, fused_cem_costs_plain, regen_controls,
+)
+from control_toolkit_tpu_torch.ops.fused_mppi import (
+    fused_mppi_costs, fused_mppi_costs_plain, fused_mppi_step, fused_mppi_step_plain,
+    fused_mppi_weights, fused_mppi_weights_plain, mppi_noise,
+)
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout, gp_grad_cost_rollout_plain,
 )
@@ -145,6 +184,7 @@ from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_plain, residual_step_fn,
 )
+from control_toolkit_tpu_torch.optimizers.cem import refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
 from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, rpgd_state_from_numpy
 from control_toolkit_tpu_torch.utils.device import place, resolve_device
@@ -196,7 +236,9 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "neural_grad_cost_rollout": neural_grad_cost_rollout,
            "residual_cost_rollout": residual_cost_rollout,
            "residual_grad_cost_rollout": residual_grad_cost_rollout,
-           "gp_cost_rollout": gp_cost_rollout, "gp_grad_cost_rollout": gp_grad_cost_rollout}
+           "gp_cost_rollout": gp_cost_rollout, "gp_grad_cost_rollout": gp_grad_cost_rollout,
+           "fused_cem": fused_cem_costs, "fused_mppi_cost": fused_mppi_costs,
+           "fused_mppi_weights": fused_mppi_weights}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -257,6 +299,25 @@ REFIT_ENVS, REFIT_STEPS = 16, 200
 # GP_F64_FACTOR times the plain version's own distance from float64, plus
 # 1e-6 of the float64 output's largest entry.
 WELL_GP_SEED, GP_F64_FACTOR = 7, 2.0
+# The sampling paths: bench_scale.py:build_cem's CEM and build_icem's iCEM
+# (seed 3), random-action at the same size, and the flagship MPPI with
+# fully_fused (bench.py:177-195).
+CEM_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+              "cem_outer_it": 2, "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01,
+              "cem_best_k": 256, "warmup": False, "warmup_iterations": 2}
+ICEM_CONFIG = {**CEM_CONFIG, "icem_colored_noise_beta": 2.0}
+RANDOM_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K}
+FUSED_MPPI_CONFIG = {**OPTIMIZER_CONFIG, "fully_fused": True}
+CEM_TICKS, FUSED_MPPI_TICKS, ZOO_TICKS = 200, 200, 50
+# K3's pass 2 against its plain version: sums over 16384 weighted normals
+# in another order, of magnitude <= ~1 (the weights sum to 1).
+WEIGHTS_TOL = dict(rtol=1e-4, atol=1e-5)
+# The card's and the CPU's regenerated elite controls: logf and cosf on
+# the card and on the CPU differ by an ulp of the normal.
+REGEN_ATOL = 1e-6
+# Device cycles of sleep per timed call in cuda_ms: ~0.1 ms at the H100's
+# 1.98 GHz boost clock, more than a wrapper's host time.
+SLEEP_CYCLES_PER_CALL = 200_000
 # Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # FP32 operations per rollout-step of the cartpole plant, counted from
@@ -266,6 +327,15 @@ HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 # the stage cost 24, K2's interpolation, clip and correction 16, K7's
 # transposed rk4 step 437 and stage-cost gradient 26 (+6 to combine).
 RK4_STEP_OPS, STAGE_OPS, MPPI_EXTRA_OPS, RK4_VJP_OPS, STAGE_VJP_OPS = 172, 24, 16, 437, 32
+# One counter normal (csrc/counter_prng.cuh), integer operations counted
+# at the FP32 rate: the counter's add, two splitmix32 hashes (three 32-bit
+# multiplies, three shifts and three xors each), the second counter's add,
+# two shifts by 8 and two conversions, the uniforms' add and two multiplies,
+# -2*log, sqrt, 2*pi*u2, cos and the product: 32.  K5 adds mue + std*z and
+# the clip (4) per control, K3 the noise scale (1) per normal in pass 1 and
+# the weight's product and sum (2) in pass 2, plus 4 per rollout for the
+# weight itself (the difference, scale, exp and division).
+NORMAL_OPS, CEM_CONTROL_OPS, WEIGHT_OPS = 32, 4, 4
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -278,11 +348,16 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after warm-up."""
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, after warm-up.
+    The card first sleeps SLEEP_CYCLES_PER_CALL per call, untimed, while the
+    host enqueues the calls, so that a kernel shorter than its wrapper's
+    host time (K3's pass 2) is timed back to back on the device and not at
+    the host's pace."""
     for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -291,8 +366,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, kernel_fn, plain_fn, tol=KERNEL_TOL, extra=None) -> dict:
+def compare(name: str, kernel_fn, plain_fn, tol=KERNEL_TOL, extra=None, reduce=None,
+            shape=None) -> dict:
+    """A kernel against its plain version on the same card tensors, both
+    outputs through ``reduce`` (if given) before the comparison; the times
+    are the functions' own."""
     got, ref = kernel_fn(), plain_fn()
+    if reduce is not None:
+        got, ref = reduce(got), reduce(ref)
     torch.cuda.synchronize()
     err = (got - ref).abs()
     numbers = {
@@ -304,7 +385,7 @@ def compare(name: str, kernel_fn, plain_fn, tol=KERNEL_TOL, extra=None) -> dict:
         **(extra(ref) if extra else {}),
     }
     emit(name, numbers)
-    check(numbers["finite"] and got.shape == (K,), f"{name}: bad output")
+    check(numbers["finite"] and got.shape == (shape or (K,)), f"{name}: bad output")
     check(torch.allclose(got, ref, **tol), f"{name}: kernel disagrees with plain {numbers}")
     return numbers
 
@@ -1025,6 +1106,174 @@ def gp_mppi_with_refit(runs: dict) -> MPCController:
     return ctrl
 
 
+# ---- the sampling phases --------------------------------------------------------
+def layout_mutant_counters(seed2, kind: str) -> torch.Tensor:
+    """K5's counters [K, H, 1] with a layout fault: ``tile_term_dropped``
+    (every tile reads tile 0's counters) or ``r_c_swapped`` (the rollout
+    order transposed: g = c*ROWS + r within the rows)."""
+    C, stride = DEFAULT_TILE_K // ROWS, H * DEFAULT_TILE_K
+    base, off = seed_base(seed2)
+    g = torch.arange(K, dtype=torch.int64, device=seed2.device)
+    if kind == "r_c_swapped":
+        r, rem = g % ROWS, g // ROWS
+        t, c = rem // C, rem % C
+    else:
+        r, t, c = rollout_coords(g, K, DEFAULT_TILE_K)
+        t = torch.zeros_like(t)
+    row = base + (off + t) * stride + r * C + c
+    h = torch.arange(H, dtype=torch.int64, device=seed2.device)
+    return (row[:, None] + h[None, :] * DEFAULT_TILE_K)[:, :, None]
+
+
+def compare_fused_cem(model, pvec, low, high, gen) -> dict:
+    """Phase 27: K5 against its plain version and against K1 over its own
+    regenerated controls, the elite regeneration, the normals' moments, and
+    the cost bound against two layout faults."""
+    device = pvec.device
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=device)
+    mue = torch.clamp(0.2 * torch.randn(H, 1, generator=gen, device=device), -1.0, 1.0)
+    std = torch.full((H, 1), 0.5, device=device)
+    seed2 = torch.tensor([1234567, 0], dtype=torch.int32, device=device)
+    args = (model, s0, mue, std, pvec, seed2, low, high, K, DEFAULT_TILE_K)
+    ref = fused_cem_costs_plain(*args)
+    s_tiled = s0.expand(K, -1).contiguous()
+    mutants = {kind: cost_rollout_plain(model, s_tiled, torch.clamp(
+        mue + std * normals_from_counter(layout_mutant_counters(seed2, kind)), low, high), pvec)
+        for kind in ("tile_term_dropped", "r_c_swapped")}
+    numbers = compare("k5_fused_cem", lambda: fused_cem_costs(*args),
+                      lambda: fused_cem_costs_plain(*args),
+                      extra=lambda _: {"mutant_max_rel_err": {
+                          kind: max_errors(m, ref)[1] for kind, m in mutants.items()}})
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **KERNEL_TOL),
+              f"K5: the cost bound does not reject the counters with {kind} {numbers}")
+    got = fused_cem_costs(*args)
+    Q = regen_controls(seed2, torch.arange(K, device=device), mue, std, low, high, K,
+                       DEFAULT_TILE_K)
+    via_k1 = cost_rollout(model, s_tiled, Q, pvec)
+    idx = elite_indices(got, CEM_CONFIG["cem_best_k"])
+    z = normals_from_counter(cem_counters(seed2, torch.arange(K, device=device), K, H, 1,
+                                          DEFAULT_TILE_K)).double()
+    n = z.numel()
+    extra = {"k1_over_regen_max_abs_err": max_errors(got, via_k1)[0],
+             "k1_over_regen_equal_share": float((got == via_k1).double().mean()),
+             "elite_regen_exact": bool(torch.equal(
+                 regen_controls(seed2, idx, mue, std, low, high, K, DEFAULT_TILE_K), Q[idx])),
+             "normals_mean_sigmas": float(z.mean()) * n**0.5,
+             "normals_var_sigmas": (float(z.var(correction=0)) - 1.0) / (2.0 / n) ** 0.5}
+    emit("k5_regeneration", extra)
+    check(torch.allclose(got, via_k1, **KERNEL_TOL), f"K5 differs from K1 over its controls {extra}")
+    check(extra["elite_regen_exact"], "the elite regeneration is not a subset of the full one")
+    check(abs(extra["normals_mean_sigmas"]) < 5.0 and abs(extra["normals_var_sigmas"]) < 5.0,
+          f"K5's normals are not standard {extra}")
+    numbers.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
+                         nbytes(s0, mue, std, pvec, seed2, low, high) + 4 * K))
+    return numbers
+
+
+def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
+    """Phases 28-29: K3's two passes against their plain versions (pass 2
+    after the block sum, and its bound against two faults), then the whole
+    step against the plain step on the same card tensors."""
+    device = pvec.device
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=device)
+    u_nom = torch.clamp(0.2 * torch.randn(H, 1, generator=gen, device=device), -1.0, 1.0)
+    seed2 = torch.tensor([7654321, 0], dtype=torch.int32, device=device)
+    W, low, high = opt.interp.matrix, opt.action_low, opt.action_high
+    P, stdev = W.shape[0], opt.SQRTRHODTINV
+    args = (model, s0, u_nom, pvec, seed2, W, low, high, opt.cc_weight, opt.R, opt.NU, stdev, K,
+            DEFAULT_TILE_K)
+    k3a = compare("k3_fused_mppi_cost", lambda: fused_mppi_costs(*args),
+                  lambda: fused_mppi_costs_plain(*args))
+    k3a.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS)
+                     + K * P * (NORMAL_OPS + 1), nbytes(s0, u_nom, pvec, seed2, W, low, high)
+                     + 4 * K))
+    cost = fused_mppi_costs(*args)
+    rho = torch.amin(cost)
+    red = torch.stack([rho, torch.sum(torch.exp(-(cost - rho) / opt.LBD))])
+    wargs = (seed2, cost, red, P, 1, opt.LBD, K, DEFAULT_TILE_K)
+    ref = fused_mppi_weights_plain(*wargs).sum(0)
+    w = torch.exp(-(cost - rho) * (1.0 / opt.LBD))
+    z = mppi_noise(seed2, K, P, 1, DEFAULT_TILE_K)
+    mutants = {"unnormalized": (z * w).sum(-1), "p_shifted": (torch.roll(z, 1, 0) * w).sum(-1)
+               / red[1]}
+    k3b = compare("k3_fused_mppi_weights", lambda: fused_mppi_weights(*wargs),
+                  lambda: fused_mppi_weights_plain(*wargs), tol=WEIGHTS_TOL,
+                  reduce=lambda t: t.sum(0), shape=(P, 1),
+                  extra=lambda _: {"mutant_max_abs_err": {
+                      kind: max_errors(m, ref)[0] for kind, m in mutants.items()}})
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **WEIGHTS_TOL),
+              f"K3 pass 2: the bound does not reject the sums {kind} {k3b}")
+    k3b.update(bound(K * (P * (NORMAL_OPS + 2) + WEIGHT_OPS),
+                     nbytes(seed2, cost, red) + 4 * P * (-(-K // 128))))
+    sargs = args[:11] + (opt.LBD,) + args[11:]
+    (un, c), (un_p, c_p) = fused_mppi_step(*sargs), fused_mppi_step_plain(*sargs)
+    numbers = {"u_nom_max_abs_err": max_errors(un, un_p)[0], "cost_max_abs_err": max_errors(c, c_p)[0],
+               "u_nom_moved": float((un - u_nom).abs().max())}
+    emit("k3_fused_mppi_step", numbers)
+    check(torch.allclose(c, c_p, **KERNEL_TOL) and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"the fused MPPI step on the card differs from its plain version {numbers}")
+    return k3a, k3b
+
+
+def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
+    """Phase 34, CEM: one update on the card and on the CPU (the plain
+    versions) from the card's state and params with the same draws, outer
+    iteration by outer iteration.  Both score the card's mue and std; the
+    elites are the card's own top-k, which must be a top-k of the CPU's
+    costs within the cost bound (exactly tied or near-tied costs may order
+    otherwise on the two devices), and both refit from them.  Then the
+    whole update on each device, held to the same where every iteration's
+    elite set agreed."""
+    opt = ctrl.optimizer
+    state = opt.opt_state
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    draws = opt.sample_draws(state)
+    params = ctrl._assemble_params()
+    cpu = make_controller("cpu", "cem-tf", config)
+    check(cpu.optimizer._fused == opt._fused, f"{name}: the CPU took another path")
+    best_k = opt.cem_best_k
+    score = opt.prepare(s_now, params, state.u_prev)
+    score_c = cpu.optimizer.prepare(s_now.cpu(), to_cpu(params), state.u_prev.cpu())
+    mue, std = state.dist_mue, state.stdev
+    errs = {"cost": 0.0, "elites": 0.0, "mue": 0.0, "std": 0.0, "topk_excess": 0.0}
+    same_sets = True
+    for draw in draws:
+        cost, pick, _ = score(mue, std, draw)
+        cost_c, pick_c, _ = score_c(mue.cpu(), std.cpu(), draw.cpu())
+        idx = elite_indices(cost, best_k)
+        kth = torch.sort(cost_c).values[best_k - 1]
+        slack = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * float(kth.abs())
+        errs["topk_excess"] = max(errs["topk_excess"], float(cost_c[idx.cpu()].max() - kth))
+        check(float(cost_c[idx.cpu()].max() - kth) <= slack,
+              f"{name}: the card's elites are not a top-k of the CPU's costs")
+        same_sets &= set(idx.tolist()) == set(elite_indices(cost_c, best_k).tolist())
+        elites, elites_c = pick(idx), pick_c(idx.cpu())
+        mue, std = refit(elites)
+        mue_c, std_c = refit(elites_c)
+        for k, (a, b) in {"cost": (cost, cost_c), "elites": (elites, elites_c),
+                          "mue": (mue, mue_c), "std": (std, std_c)}.items():
+            errs[k] = max(errs[k], max_errors(a.cpu(), b)[0])
+        check(torch.allclose(cost.cpu(), cost_c, **KERNEL_TOL), f"{name}: costs differ {errs}")
+    u, new, _ = opt.update(state, s_now, params, draws)
+    cpu_state = state._replace(generator=torch.Generator(), dist_mue=state.dist_mue.cpu(),
+                               stdev=state.stdev.cpu(), u_prev=state.u_prev.cpu())
+    uc, new_c, _ = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params),
+                                        [d.cpu() for d in draws])
+    numbers = {f"{k}_max_abs_err": v for k, v in errs.items() if k != "topk_excess"}
+    numbers.update({"topk_excess": errs["topk_excess"], "iterations": len(draws),
+                    "same_elite_sets": same_sets,
+                    "update_u_abs_err": float((u.cpu() - uc).abs().max()),
+                    "update_mue_max_abs_err": max_errors(new.dist_mue.cpu(), new_c.dist_mue)[0]})
+    emit(name, numbers)
+    check(errs["elites"] <= REGEN_ATOL and errs["mue"] <= UNOM_ATOL and errs["std"] <= UNOM_ATOL,
+          f"{name}: the card's refit differs from the CPU's {numbers}")
+    check(not same_sets or (numbers["update_u_abs_err"] <= UNOM_ATOL
+                            and numbers["update_mue_max_abs_err"] <= UNOM_ATOL),
+          f"{name}: the card's update differs from the CPU's {numbers}")
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -1252,7 +1501,6 @@ def main() -> None:
     runs["rpgd_gp"] = counted_loop("slice_rpgd_gp", gp_rpgd, GP_RPGD_TICKS,
                                    {"gp_cost_rollout": GP_RPGD_TICKS,
                                     "gp_grad_cost_rollout": 2 * GP_RPGD_TICKS})
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 26. One update on the card against the same update on the CPU for each,
     # over the GP with the well-conditioned GP swapped in as a re-fit is (the
@@ -1267,13 +1515,51 @@ def main() -> None:
     update_vs_cpu_rpgd(gp_rpgd, "rpgd_gp_update_vs_cpu", GP_SPEC, RES_RPGD_CONFIG)
     for p, f in zip(preds, fitted):
         p.gp_params = f
+
+    # 27-29. K5 and K3's two passes against their plain versions, at the
+    # sampling paths' shapes.
+    cem = make_controller("cuda", "cem-tf", CEM_CONFIG)
+    cem_fused = make_controller("cuda", "cem-tf", {**CEM_CONFIG, "fully_fused": True})
+    mppi_fused = make_controller("cuda", "mppi", FUSED_MPPI_CONFIG)
+    icem = make_controller("cuda", "icem-tf", ICEM_CONFIG)
+    random_action = make_controller("cuda", "random-action-tf", RANDOM_CONFIG)
+    check(cem_fused.optimizer._fused and not cem.optimizer._fused
+          and mppi_fused.optimizer._can_fully_fuse() and ode.can_use_cost(icem.optimizer)
+          and ode.can_use_cost(random_action.optimizer),
+          "the sampling controllers did not take the expected paths")
+    smodel, spack = ode.rollout_model(cem_fused.optimizer)
+    spvec = spack(cem_fused._assemble_params(), torch.tensor([0.1], device=device))
+    k5 = compare_fused_cem(smodel, spvec, cem.optimizer.action_low, cem.optimizer.action_high,
+                           gen)
+    k3a, k3b = compare_fused_mppi(smodel, spvec, mppi_fused.optimizer, gen)
+
+    # 30-33. The sampling paths, closed loop, each counted from 0.
+    its = CEM_CONFIG["cem_outer_it"]
+    runs["cem"] = counted_loop("slice_cem", cem, CEM_TICKS, {"cost_rollout": its * CEM_TICKS},
+                               retarget_at=RETARGET_AT)
+    runs["cem_fused"] = counted_loop("slice_cem_fused", cem_fused, CEM_TICKS,
+                                     {"fused_cem": its * CEM_TICKS}, retarget_at=RETARGET_AT)
+    runs["mppi_fused"] = counted_loop("slice_mppi_fused", mppi_fused, FUSED_MPPI_TICKS,
+                                      {"fused_mppi_cost": FUSED_MPPI_TICKS,
+                                       "fused_mppi_weights": FUSED_MPPI_TICKS},
+                                      retarget_at=RETARGET_AT)
+    runs["icem"] = counted_loop("slice_icem", icem, ZOO_TICKS, {"cost_rollout": its * ZOO_TICKS})
+    runs["random_action"] = counted_loop("slice_random_action", random_action, ZOO_TICKS,
+                                         {"cost_rollout": ZOO_TICKS})
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
+    # 34. One update on the card against the same update on the CPU.
+    update_vs_cpu_cem("cem_update_vs_cpu", cem, CEM_CONFIG)
+    update_vs_cpu_cem("cem_fused_update_vs_cpu", cem_fused, {**CEM_CONFIG, "fully_fused": True})
+    update_vs_cpu_mppi("mppi_fused_update_vs_cpu", mppi_fused, config=FUSED_MPPI_CONFIG)
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
         for name, c in (("mppi", ctrl), ("rpgd-tf", rpgd), ("gradient-tf", gradient),
                         ("mppi-mlp", mlp), ("rpgd-tf-mlp", mlp_rpgd), ("mppi-gru", gru),
                         ("mppi-residual", adaptive), ("rpgd-tf-residual", res_rpgd),
-                        ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd)):
+                        ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd), ("cem", cem),
+                        ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem)):
             profile_ticks(name, c)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
@@ -1290,8 +1576,12 @@ def main() -> None:
         ("residual_grad_cost_rollout", "residual_rollout.cu", "ops/pallas_grad.py:459", k9),
         ("gp_cost_rollout", "gp_rollout.cu", "ops/pallas_neural.py:647", k14),
         ("gp_grad_cost_rollout", "gp_rollout.cu", "ops/pallas_grad.py:515", k10),
+        ("fused_cem", "fused_cem.cu", "ops/pallas_cem.py:38", k5),
+        ("fused_mppi_cost", "fused_mppi.cu", "ops/pallas_mppi.py:376", k3a),
+        ("fused_mppi_weights", "fused_mppi.cu", "ops/pallas_mppi.py:376", k3b),
     )
-    # No single PyTorch call computes a rollout's cost: library_ms is null.
+    # No single PyTorch call computes a rollout's cost, or samples, rolls
+    # out and scores: library_ms is null.
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"control_toolkit_tpu_torch/csrc/{source}",
          "replaces": f"control_toolkit_tpu/{replaces}", "launches": launches[name],

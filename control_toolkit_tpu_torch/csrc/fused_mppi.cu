@@ -1,0 +1,204 @@
+// K3: fully-fused MPPI — two passes over the same counter-PRNG noise.
+//
+// Replaces control_toolkit_tpu/ops/pallas_mppi.py:build_fused_mppi_step's
+// make_run (:376, single-device form): kernel1 (:255, call :436) and
+// kernel2 (:356, call :455).  Python wrappers, plain versions and the glue
+// between the passes: ops/fused_mppi.py.
+//
+// Thread g owns rollout g of the JAX cost order (counter_prng.cuh
+// tile_coords: sublane r, tile t, lane c, C = tile_k / 8).  Its noise at
+// inducing point p and input j is
+//   e[p,j] = stdev * counter_normal(seed*FNV + (off+t)*P*tile_k*U + j*P*tile_k
+//                                   + p*tile_k + r*C + c)
+// ((p*8 + r)*C + c in the JAX layout, uint32 arithmetic).
+//
+// Pass 1 (fused_mppi_cost_kernel) is K2 (mppi_cost.cu) with that noise
+// drawn in the kernel instead of read: at step h, d_j = W[p0,h]*e[p0,j] +
+// W[p1,h]*e[p1,j] over the two inducing points bracketing h, then clip,
+// rollout, stage cost and MPPI correction cost.  The bracket's two normals
+// per input are kept in registers and one new normal is drawn each time the
+// bracket moves, so each thread draws P*U normals, not 2*H*U.  The noise
+// scale and the interpolation are rounded as torch rounds them (no FMA
+// contraction), so the plain version draws the same controls.
+//
+// Between the passes, torch computes rho = min S and a = sum exp(-(S-rho)/LBD)
+// on the card and passes them by pointer (red = [rho, a]): no host sync.
+//
+// Pass 2 (fused_mppi_weights_kernel): each thread draws its P*U normals
+// again and weights them by w = exp(-(S-rho)/LBD)/a; the block reduces
+// w*z for each (p, j), warp shuffles then the warps' sums in shared memory
+// in warp order (no float atomics: the result does not depend on
+// scheduling), into partials [n_blocks, P, U].  Torch sums the partials and
+// applies W and stdev once, b[h,j] = sum_p W[p,h]*stdev*sum_k w_k z_k[p,j]:
+// the linearity of interpolation that the JAX module's header states; its
+// eyemask/blocksum matmuls were Mosaic workarounds and are not carried over.
+//
+// What bounds it on an H100: pass 1 as K2, the serial rk4 chain plus P*U
+// normals per rollout; pass 2 the P*U normals (two splitmix32 hashes, a
+// logf, sqrtf and cosf each) and an expf per rollout, then 5 shuffles per
+// (p, j) and warp.  The bytes are the [K] costs, read once by pass 2.
+#include "counter_prng.cuh"
+#include "rollout_core.cuh"
+
+namespace ctt {
+
+struct MppiCorr {
+  float cc, c1, r, c3;
+};
+
+// The first counter of rollout g's noise, and the counter stride of one
+// input (P*tile_k): e[p,j] reads base + j*stride + p*tile_k.
+__device__ __forceinline__ uint32_t noise_base(const int* seed2, int g, int K, int tile_k,
+                                               uint32_t stride, int U) {
+  const int C = tile_k / kRows;
+  const TileCoords tc = tile_coords(g, K, C);
+  return static_cast<uint32_t>(__ldg(seed2)) * kFnv +
+         (static_cast<uint32_t>(__ldg(seed2 + 1)) + tc.t) * (stride * static_cast<uint32_t>(U)) +
+         tc.r * static_cast<uint32_t>(C) + tc.c;
+}
+
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+fused_mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
+                       const float* __restrict__ pvec, const int* __restrict__ seed2,
+                       const float* __restrict__ W, const float* __restrict__ low,
+                       const float* __restrict__ high, float* __restrict__ cost, int K, int H,
+                       int P, int tile_k, StepConsts c, float max_cost, MppiCorr cc,
+                       float stdev) {
+  constexpr int U = Plant::U;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= K) return;
+  float p[Plant::kN];
+  load_params<Plant>(pvec, p);
+  float lo[U], hi[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    lo[j] = __ldg(low + j);
+    hi[j] = __ldg(high + j);
+  }
+  const uint32_t stride = static_cast<uint32_t>(P) * static_cast<uint32_t>(tile_k);
+  const uint32_t base = noise_base(seed2, g, K, tile_k, stride, U);
+  // The scaled noise at the bracket's two inducing points p0 and p0+1.
+  float e0[U], e1[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const uint32_t bj = base + static_cast<uint32_t>(j) * stride;
+    e0[j] = __fmul_rn(counter_normal(bj), stdev);
+    e1[j] = P > 1 ? __fmul_rn(counter_normal(bj + static_cast<uint32_t>(tile_k)), stdev) : 0.0f;
+  }
+  Rollout<Plant> r;
+  r.start(s0, p);
+  float corr = 0.0f;
+  int p0 = 0;
+  for (int h = 0; h < H; ++h) {
+    // The left bracket moves right where its weight has dropped to zero.
+    while (p0 + 1 < P && __ldg(W + p0 * H + h) == 0.0f) {
+      ++p0;
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        e0[j] = e1[j];
+        const uint32_t ct = base + static_cast<uint32_t>(j) * stride +
+                            static_cast<uint32_t>((p0 + 1) * tile_k);
+        e1[j] = p0 + 1 < P ? __fmul_rn(counter_normal(ct), stdev) : 0.0f;
+      }
+    }
+    const bool two = p0 + 1 < P;
+    const float w0 = __ldg(W + p0 * H + h);
+    const float w1 = two ? __ldg(W + (p0 + 1) * H + h) : 0.0f;
+    float u[U], d[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      float dj = __fmul_rn(w0, e0[j]);
+      if (two) dj = __fadd_rn(dj, __fmul_rn(w1, e1[j]));
+      d[j] = dj;
+      u[j] = fminf(fmaxf(__ldg(u_nom + h * U + j) + dj, lo[j]), hi[j]);
+    }
+    r.advance(u, p, c, max_cost);
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      corr = corr + cc.cc * ((cc.c1 * d[j] * d[j] + cc.r * u[j] * d[j]) + cc.c3 * u[j] * u[j]);
+    }
+  }
+  cost[g] = r.finish(p, H) + corr;
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// Dynamic shared memory: kWarps * P * U floats.
+__global__ void __launch_bounds__(kThreads)
+fused_mppi_weights_kernel(const int* __restrict__ seed2, const float* __restrict__ cost,
+                          const float* __restrict__ red, float* __restrict__ partials, int K,
+                          int P, int U, int tile_k, float inv_lbd) {
+  extern __shared__ float warp_sums[];
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int PU = P * U;
+  const bool live = g < K;  // ragged K: the block's tail adds zeros
+  const uint32_t stride = static_cast<uint32_t>(P) * static_cast<uint32_t>(tile_k);
+  float w = 0.0f;
+  uint32_t base = 0;
+  if (live) {
+    w = expf(-(__ldg(cost + g) - __ldg(red)) * inv_lbd) / __ldg(red + 1);
+    base = noise_base(seed2, g, K, tile_k, stride, U);
+  }
+  for (int q = 0; q < PU; ++q) {
+    const int pp = q / U, j = q % U;
+    float v = 0.0f;
+    if (live) {
+      v = w * counter_normal(base + static_cast<uint32_t>(j) * stride +
+                             static_cast<uint32_t>(pp * tile_k));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp * PU + q] = v;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < PU; q += blockDim.x) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) s += warp_sums[k * PU + q];
+    partials[static_cast<size_t>(blockIdx.x) * PU + q] = s;
+  }
+}
+
+}  // namespace ctt
+
+// Launch K3's pass 1 on `stream`; returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown plant).
+extern "C" int ctt_fused_mppi_cost(int plant, const void* s0, const void* u_nom, const void* pvec,
+                                   const void* seed2, const void* W, const void* low,
+                                   const void* high, void* cost, int K, int H, int P, int tile_k,
+                                   int rk4, int substeps, float sub_dt, float half_dt, float dt6,
+                                   float max_cost, float cc_weight, float c1, float r, float c3,
+                                   float stdev, void* stream) {
+  const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
+  const ctt::MppiCorr cc{cc_weight, c1, r, c3};
+  const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (plant) {
+    case ctt::kPlantCartpole:
+      ctt::fused_mppi_cost_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+          static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+          static_cast<const float*>(pvec), static_cast<const int*>(seed2),
+          static_cast<const float*>(W), static_cast<const float*>(low),
+          static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, tile_k, c, max_cost,
+          cc, stdev);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K3's pass 2 on `stream` into partials [ceil(K / 128), P, U];
+// returns cudaGetLastError() after the launch.
+extern "C" int ctt_fused_mppi_weights(const void* seed2, const void* cost, const void* red,
+                                      void* partials, int K, int P, int U, int tile_k,
+                                      float inv_lbd, void* stream) {
+  const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
+  const size_t smem = sizeof(float) * ctt::kWarps * P * U;
+  ctt::fused_mppi_weights_kernel<<<grid, ctt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(seed2), static_cast<const float*>(cost),
+      static_cast<const float*>(red), static_cast<float*>(partials), K, P, U, tile_k, inv_lbd);
+  return static_cast<int>(cudaGetLastError());
+}

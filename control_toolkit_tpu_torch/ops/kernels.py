@@ -27,8 +27,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
-           "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu")
-HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "gp_core.cuh")
+           "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
+           "fused_mppi.cu")
+HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "gp_core.cuh", "counter_prng.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -421,6 +422,16 @@ def load() -> ctypes.CDLL:
         lib.ctt_gp_grad_cost_rollout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
         lib.ctt_gp_smem_bytes.restype = ctypes.c_long
+        lib.ctt_fused_cem.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                      *step, f32, ptr]
+        lib.ctt_fused_cem.restype = i32
+        lib.ctt_fused_mppi_cost.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, *step,
+            f32, f32, f32, f32, f32, f32, ptr,
+        ]
+        lib.ctt_fused_mppi_cost.restype = i32
+        lib.ctt_fused_mppi_weights.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+        lib.ctt_fused_mppi_weights.restype = i32
         load.lib = lib
     return load.lib
 

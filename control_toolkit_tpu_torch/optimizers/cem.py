@@ -1,0 +1,242 @@
+"""CEM — Cross-Entropy Method optimizer (counterpart of
+control_toolkit_tpu/optimizers/cem.py).
+
+Each outer iteration samples K sequences ``Q = clip(mue + z*std)`` from a
+per-(h, u) diagonal Gaussian, scores them, takes the ``cem_best_k`` elites
+and refits mue and std to them (the population std, ddof 0, as
+``jnp.std``).  The first control step runs ``warmup_iterations`` when
+``warmup`` is on.  After the iterations std is clipped to
+``[cem_stdev_min, 1e8]``, mue and std shift one step (the tails take the
+initial defaults), and the control is the best elite's first action.
+
+Two scoring paths, chosen as the JAX package chooses them:
+
+* modular: ``z`` is a ``torch.randn`` draw and K1 (``ops/cost_rollout.py``)
+  scores Q through ``Optimizer._make_cost_only`` (the trajectory rollout
+  when logging is on);
+* ``fully_fused`` (where ``_can_fully_fuse`` admits it): K5
+  (``ops/fused_cem.py``) draws the population from the counter PRNG,
+  rolls it out and scores it in one launch; only the elite rows are drawn
+  again, in torch, for the refit.
+
+Each step is a draw per outer iteration (``sample_draws``: the normals
+``[K,H,U]``, or the counter PRNG's ``seed2`` on the fused path) followed
+by a deterministic ``update(state, s, params, draws)``, so tests can feed
+both packages the same random numbers.  The tick counter is a host int,
+so the warmup trip count is a host decision.
+
+Not ported (``NotImplementedError``, ROADMAP): the policy warm start
+(``_apply_policy_guess``) and the batched-session steps
+(``_make_batched_cem_step``, ``_make_batched_fused_cem_step``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from control_toolkit_tpu_torch.ops.common import elite_indices
+from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
+from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.utils import registry
+
+
+def cem_trip_count(opt, count: int) -> int:
+    """Outer iterations of this control step, shared by the CEM family:
+    ``warmup_iterations`` on the first step when warmup is on."""
+    return opt.warmup_iterations if opt.warmup and count == 0 else opt.cem_outer_it
+
+
+def cem_base_carry(mue, std, K, H, U, S, want_Q, want_traj):
+    """The loop carry of the CEM-family updates (variants add their own
+    entries, e.g. iCEM's elite buffer)."""
+    zeros = torch.zeros
+    carry = {"mue": mue, "std": std,
+             "elite0": zeros((H, U), dtype=torch.float32, device=mue.device),
+             "cost": zeros((K,), dtype=torch.float32, device=mue.device)}
+    if want_Q:
+        carry["Q"] = zeros((K, H, U), dtype=torch.float32, device=mue.device)
+    if want_traj:
+        carry["traj"] = zeros((K, H + 1, S), dtype=torch.float32, device=mue.device)
+    return carry
+
+
+def cem_shift_distribution(mue, std, u_mid, stdev_min: float, init_stdev: float, U: int):
+    """Control-step boundary shift shared by CEM and iCEM: clip sigma, shift
+    mu and sigma one step, pad the tails with the initial defaults."""
+    std = torch.clamp(std, stdev_min, 1.0e8)
+    std = torch.cat([std[:, 1:, :], torch.full((1, 1, U), init_stdev, dtype=torch.float32,
+                                               device=std.device)], dim=1)
+    mue = torch.cat([mue[:, 1:, :], u_mid.reshape(1, 1, U).to(torch.float32)], dim=1)
+    return mue, std
+
+
+def cem_diag(carry, want_Q, want_traj):
+    """The logging-contract diagnostics shared by the CEM family."""
+    diag = {"J_logged": carry["cost"], "u_nom": carry["elite0"][None]}
+    if want_Q:
+        diag["Q_logged"] = carry["Q"]
+    if want_traj:
+        diag["rollout_trajectories_logged"] = carry["traj"]
+    return diag
+
+
+def refit(elite_Q: torch.Tensor):
+    """Mean and population std (ddof 0) of the elites, ``[1, H, U]`` each."""
+    return (torch.mean(elite_Q, dim=0, keepdim=True),
+            torch.std(elite_Q, dim=0, correction=0, keepdim=True))
+
+
+class CEMState(NamedTuple):
+    generator: torch.Generator
+    dist_mue: torch.Tensor  # [1, H, U]
+    stdev: torch.Tensor     # [1, H, U]
+    count: int              # host control-step counter
+    u_prev: torch.Tensor    # [U]
+
+
+@registry.optimizers.register("cem-tf")
+@registry.optimizers.register("cem")
+class CEMOptimizer(Optimizer):
+    # K5's tile: part of the fused path's function (which counter a rollout
+    # reads), and the divisor of K that the fused gate asks for.
+    fused_tile_k = DEFAULT_TILE_K
+
+    def __init__(
+        self,
+        *,
+        cem_outer_it: int = 3,
+        cem_initial_action_stdev: float = 0.5,
+        cem_stdev_min: float = 0.01,
+        cem_best_k: int = 40,
+        warmup: bool = False,
+        warmup_iterations: int = 250,
+        fully_fused: bool = False,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        self.cem_outer_it = int(cem_outer_it)
+        self.cem_initial_action_stdev = float(cem_initial_action_stdev)
+        self.cem_stdev_min = float(cem_stdev_min)
+        self.cem_best_k = int(cem_best_k)
+        if self.cem_best_k > self.num_rollouts:
+            raise ValueError(
+                f"cem_best_k={self.cem_best_k} exceeds num_rollouts={self.num_rollouts}"
+            )
+        self.warmup = bool(warmup)
+        self.warmup_iterations = int(warmup_iterations)
+        self.fully_fused = bool(fully_fused)
+
+    def _init_state(self, generator):
+        H, U = self.mpc_horizon, self.num_control_inputs
+        u_mid = 0.5 * (self.action_low + self.action_high)
+        return CEMState(
+            generator=generator,
+            dist_mue=u_mid.expand(1, H, U).to(torch.float32).clone(),
+            stdev=torch.full((1, H, U), self.cem_initial_action_stdev, dtype=torch.float32,
+                             device=self.device),
+            count=0,
+            u_prev=torch.zeros(U, dtype=torch.float32, device=self.device),
+        )
+
+    def _apply_policy_guess(self, state, plan):
+        raise _not_ported("initial_guess_policy")
+
+    def _make_batched_cem_step(self, num_slots: int, **kwargs):
+        raise _not_ported("the batched-session CEM step")
+
+    def _make_batched_fused_cem_step(self, num_slots: int, **kwargs):
+        raise _not_ported("the batched-session fully-fused CEM step (K6)")
+
+    def _can_fully_fuse(self) -> bool:
+        """K5 scores the population: the option is on, logging is off (the
+        kernel writes costs only), the model and cost are K1's (``ode``
+        family; no post-terminal hook) and K divides into K5's tiles."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        return (self.fully_fused and not self.optimizer_logging and ode.can_use_cost(self)
+                and self.num_rollouts % self.fused_tile_k == 0)
+
+    # ---- sampling -----------------------------------------------------------
+    def _draw(self, generator: torch.Generator):
+        """One outer iteration's draw: K5's ``seed2 = [seed, 0]`` (int32 on
+        the device) or the normals ``[K, H, U]``."""
+        if self._fused:
+            return draw_seed2(generator, self.device)
+        return torch.randn((self.num_rollouts, self.mpc_horizon, self.num_control_inputs),
+                           generator=generator, dtype=torch.float32, device=self.device)
+
+    def sample_draws(self, state: CEMState) -> list:
+        """This step's draws, one per outer iteration."""
+        return [self._draw(state.generator) for _ in range(cem_trip_count(self, state.count))]
+
+    # ---- the step -----------------------------------------------------------
+    def _make_step_fn(self):
+        K, H, U = self.num_rollouts, self.mpc_horizon, self.num_control_inputs
+        low, high = self.action_low, self.action_high
+        best_k = self.cem_best_k
+        u_mid = 0.5 * (low + high)
+        self._fused = self._can_fully_fuse()
+        cost_only = None if self.optimizer_logging else self._make_cost_only()
+        # Logging keeps the population and its trajectories; the fused gate
+        # requires logging off.
+        want_Q = want_traj = self.optimizer_logging
+        if self._fused:
+            from control_toolkit_tpu_torch.ops.fused_cem import fused_cem_costs, regen_controls
+            from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+            model, pack = ode.rollout_model(self)
+            tile = self.fused_tile_k
+
+        def prepare(s, params, u_prev):
+            """``score(mue, std, draw) -> (cost [K], pick, logged)`` at state
+            ``s``: ``pick(idx)`` gives the controls of rollouts ``idx``,
+            ``logged`` the population and trajectories logging keeps."""
+            if self._fused:
+                s0, pvec = s[0], pack(params, u_prev)
+
+                def score(mue, std, seed2):
+                    cost = fused_cem_costs(model, s0, mue[0], std[0], pvec, seed2, low, high, K,
+                                           tile)
+                    return cost, (lambda idx: regen_controls(seed2, idx, mue[0], std[0], low,
+                                                             high, K, tile)), {}
+                return score
+
+            s_tiled = s[:1].expand(K, -1).contiguous()
+
+            def score(mue, std, z):
+                Q = torch.clamp(mue + z * std, low, high)
+                logged = {"Q": Q} if want_Q else {}
+                if cost_only is not None:
+                    cost = cost_only(s_tiled, Q, u_prev, params)
+                else:
+                    cost, logged["traj"] = self._rollout_and_cost(s_tiled, Q, u_prev, params)
+                return cost, (lambda idx: Q[idx]), logged
+            return score
+
+        def update(state: CEMState, s, params, draws):
+            if len(draws) != cem_trip_count(self, state.count):
+                raise ValueError(f"step {state.count}: {len(draws)} draws for "
+                                 f"{cem_trip_count(self, state.count)} outer iterations")
+            score = prepare(s, params, state.u_prev)
+            carry = cem_base_carry(state.dist_mue, state.stdev, K, H, U, self.num_states,
+                                   want_Q, want_traj)
+            for draw in draws:
+                cost, pick, logged = score(carry["mue"], carry["std"], draw)
+                elite_Q = pick(elite_indices(cost, best_k))
+                mue, std = refit(elite_Q)
+                carry.update(mue=mue, std=std, elite0=elite_Q[0], cost=cost, **logged)
+            u = carry["elite0"][0, :]
+            mue, std = cem_shift_distribution(carry["mue"], carry["std"], u_mid,
+                                              self.cem_stdev_min, self.cem_initial_action_stdev, U)
+            new_state = CEMState(generator=state.generator, dist_mue=mue, stdev=std,
+                                 count=state.count + 1, u_prev=u)
+            return u, new_state, cem_diag(carry, want_Q, want_traj)
+
+        self.prepare = prepare
+        self.update = update
+
+        def step_fn(state, s, params):
+            return update(state, s, params, self.sample_draws(state))
+
+        return step_fn

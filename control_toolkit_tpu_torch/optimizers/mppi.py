@@ -8,10 +8,15 @@ nominal plan shifts one step each tick; the MPPI correction cost
 rollout's cost; the update is the reward-weighted average of the
 perturbations.
 
-Each step is a noise draw (``sample_noise``) followed by a deterministic
+Each step is a draw (``sample_noise``) followed by a deterministic
 ``update(state, s, params, eps)``, so tests can feed both packages the
-same noise.  Two update paths, chosen as the JAX package chooses them:
+same random numbers.  Three update paths, chosen as the JAX package
+chooses them:
 
+* fully fused (``fully_fused: true`` where ``_can_fully_fuse`` admits
+  it): the draw is the counter PRNG's ``seed2 = [seed, 0]`` and K3
+  (``ops/fused_mppi.py``) draws the noise in its two passes, scores the
+  rollouts and sums the weighted noise; torch applies the update.
 * semi-fused (default): noise ``[P, U, K]`` at the inducing points goes
   to K2 (``ops/mppi_cost.py``), which interpolates, clips, rolls out and
   scores in one pass; the weighted average is taken at the inducing
@@ -21,8 +26,10 @@ same noise.  Two update paths, chosen as the JAX package chooses them:
   K1 (``ops/cost_rollout.py``) through ``Optimizer._make_cost_only``, or
   by the full trajectory rollout when logging needs it.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP):
-``optim_steps > 0`` (mppi-optimize), ``fully_fused``,
+Where the fully-fused gate is false, ``fully_fused`` takes the semi-fused
+path, as the JAX gate does: an options rule, not a fall back from a
+failed kernel.  Not ported yet (they raise ``NotImplementedError``,
+ROADMAP): ``optim_steps > 0`` (mppi-optimize),
 ``calculate_optimal_trajectory``.
 """
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
 from control_toolkit_tpu_torch.ops.interpolation import Interpolator
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
 from control_toolkit_tpu_torch.utils import registry
@@ -114,6 +122,10 @@ def make_reward_weighted_average(LBD: float, weighting: str = "softmax"):
 class MPPIOptimizer(Optimizer):
     """MPPI (the ``mppi-optimize`` Adam refinement is not ported yet)."""
 
+    # K3's tile: part of the fused path's function (which counter a rollout
+    # reads), and the divisor of K that the fused gate asks for.
+    fused_tile_k = DEFAULT_TILE_K
+
     def __init__(
         self,
         *,
@@ -138,8 +150,6 @@ class MPPIOptimizer(Optimizer):
         super().__init__(**kwargs)
         if int(optim_steps) > 0:
             raise _not_ported("MPPI optim_steps > 0 (mppi-optimize)")
-        if bool(fully_fused):
-            raise _not_ported("fully_fused MPPI")
         if self.calculate_optimal_trajectory:
             raise _not_ported("calculate_optimal_trajectory")
         self.cc_weight = float(cc_weight)
@@ -151,6 +161,7 @@ class MPPIOptimizer(Optimizer):
         self._SQRTRHOINV = float(SQRTRHOINV)
         self.period_interpolation_inducing_points = int(period_interpolation_inducing_points)
         self.semi_fused = bool(semi_fused)
+        self.fully_fused = bool(fully_fused)
         # Nominal = weighted average of the EXECUTED (clipped) controls
         # instead of nominal + weighted raw perturbations (opt-in, departs
         # from the reference; takes the modular path).
@@ -178,15 +189,32 @@ class MPPIOptimizer(Optimizer):
             u_prev=torch.zeros(self.num_control_inputs, dtype=torch.float32, device=self.device),
         )
 
+    def _can_fully_fuse(self) -> bool:
+        """K3 runs the step (``mppi.py:_can_fully_fuse``): the option is on,
+        softmax weighting without ``bounded_update`` (the kernels average
+        the raw perturbations), logging off, the model and cost K1's
+        (``ode`` family; no post-terminal hook), and K divides into K3's
+        tiles.  ``optim_steps`` and ``calculate_optimal_trajectory`` are
+        refused at construction."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        return (self.fully_fused and self.weighting == "softmax" and not self.bounded_update
+                and not self.optimizer_logging and ode.can_use_cost(self)
+                and self.num_rollouts % self.fused_tile_k == 0)
+
     def _uses_semi_fused(self) -> bool:
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
-        return (self.semi_fused and not self.bounded_update
+        return (self.semi_fused and not self.bounded_update and not self._can_fully_fuse()
                 and not self.optimizer_logging and ode.can_use_cost(self))
 
     def sample_noise(self, state: MPPIState) -> torch.Tensor:
-        """This step's perturbations, pre-scaled: ``[P, U, K]`` for the
-        semi-fused update, ``[K, P, U]`` for the modular one."""
+        """This step's draw: the perturbations, pre-scaled, ``[P, U, K]``
+        for the semi-fused update and ``[K, P, U]`` for the modular one; on
+        the fully-fused path K3's ``seed2 = [seed, 0]`` (int32, on the
+        device: it never goes through the host)."""
+        if self._noise_shape is None:
+            return draw_seed2(state.generator, self.device)
         eps = torch.randn(self._noise_shape, generator=state.generator,
                           dtype=torch.float32, device=self.device)
         return eps * self.SQRTRHODTINV
@@ -194,7 +222,10 @@ class MPPIOptimizer(Optimizer):
     def _make_step_fn(self):
         K, U = self.num_rollouts, self.num_control_inputs
         P = self.interp.number_of_interpolation_inducing_points
-        if self._uses_semi_fused():
+        if self._can_fully_fuse():
+            self._noise_shape = None
+            self.update = self._make_fully_fused_update()
+        elif self._uses_semi_fused():
             self._noise_shape = (P, U, K)
             self.update = self._make_semi_fused_update()
         else:
@@ -205,6 +236,27 @@ class MPPIOptimizer(Optimizer):
             return self.update(state, s, params, self.sample_noise(state))
 
         return step_fn
+
+    def _make_fully_fused_update(self):
+        from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_step
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        model, pack = ode.rollout_model(self)
+        W = self.interp.matrix                                    # [P, H]
+        low, high = self.action_low, self.action_high
+        consts = (self.cc_weight, self.R, self.NU, self.LBD, self.SQRTRHODTINV,
+                  self.num_rollouts, self.fused_tile_k)
+
+        def update(state: MPPIState, s, params, seed2):
+            u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)[0]
+            pvec = pack(params, state.u_prev)
+            u_nom_new, costs = fused_mppi_step(model, s[0], u_nom, pvec, seed2, W, low, high,
+                                               *consts)
+            u = u_nom_new[0, :]
+            diag = {"u_nom": u_nom_new[None], "J_logged": costs}
+            return u, MPPIState(state.generator, u_nom_new[None], u), diag
+
+        return update
 
     def _make_semi_fused_update(self):
         from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost

@@ -54,6 +54,9 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.optimizers.mppi",
     "control_toolkit_tpu_torch.optimizers.rpgd",
     "control_toolkit_tpu_torch.optimizers.gradient",
+    "control_toolkit_tpu_torch.optimizers.cem",
+    "control_toolkit_tpu_torch.optimizers.icem",
+    "control_toolkit_tpu_torch.optimizers.random_action",
     "control_toolkit_tpu_torch.controllers.mpc",
     "control_toolkit_tpu_torch.costs.cartpole",
     "control_toolkit_tpu_torch.models.predictors",

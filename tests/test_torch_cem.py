@@ -1,0 +1,304 @@
+"""The port's CEM (``optimizers/cem.py``) and K5 (``ops/fused_cem.py``)
+against the JAX package.
+
+K5's plain version is held to the JAX kernel ``build_fused_cem`` in
+interpret mode (K=256, H=20, tile 128, as tests/test_pallas_cem.py) with
+the same seed2: costs to rtol 3e-5 (float32 sums over 20 rk4 steps; the
+normals differ by an ulp of log or cos), the regenerated controls to
+1e-6.  One CEM step of each path is fed JAX's draws (the modular path's
+normals, the fused path's seeds, re-split from the JAX key as its step
+splits it): mue, std, u and the best elite to UNOM_TOL.  On a machine with
+a card, K5 is held to its plain version.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from control_toolkit_tpu.controllers.mpc import MPCController as JaxMPC
+from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.fused_cem import (
+    fused_cem_costs, fused_cem_costs_plain, regen_controls,
+)
+from control_toolkit_tpu_torch.optimizers.cem import CEMState
+from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+from control_toolkit_tpu_torch.utils.convert import params_from_numpy
+from test_torch_kernels import cuda_device  # noqa: F401  (fixture)
+from test_torch_mppi import CPU, COST_TOL, LIMITS, UNOM_TOL
+
+K, H, TILE = 256, 20, 128
+# Costs of the same controls: float32 sums over 20 rk4 steps, each side's
+# own log/cos; the controls themselves agree to an ulp of the normals.
+K5_TOL = dict(rtol=3e-5, atol=1e-4)
+Q_ATOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def cem_config(K=K, H=H, **extra):
+    cfg = {"seed": 3, "mpc_timestep": 0.02, "mpc_horizon": H, "num_rollouts": K,
+           "cem_outer_it": 2, "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01,
+           "cem_best_k": 32, "warmup": False, "warmup_iterations": 2, "fully_fused": False}
+    cfg.update(extra)
+    return cfg
+
+
+def make_pair(optimizer="cem-tf", limits=LIMITS, **cfg):
+    """The JAX and port controllers of one configuration."""
+    jctrl = JaxMPC("cartpole", limits, {"target_position": 0.1},
+                   config={"optimizer": optimizer, "controller_logging": False})
+    jctrl.configure(optimizer_name=optimizer, optimizer_config=cfg)
+    pctrl = MPCController("cartpole", limits, {"target_position": 0.1},
+                          config={"optimizer": optimizer, "controller_logging": False})
+    pctrl.configure(optimizer_name=optimizer, optimizer_config=cfg)
+    return jctrl, pctrl
+
+
+def both_params(jctrl):
+    tree = jctrl._assemble_params()
+    return (jax.tree_util.tree_map(lambda v: jnp.asarray(v, jnp.float32), tree),
+            params_from_numpy(jax.tree_util.tree_map(np.asarray, tree), CPU))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jctrl, pctrl = make_pair(**cem_config())
+    return (jctrl, pctrl) + both_params(jctrl)
+
+
+def k5_inputs(seed2):
+    s0 = np.array([0.1, -0.05, 0.25, 0.1], np.float32)
+    mue = np.linspace(-0.3, 0.3, H, dtype=np.float32).reshape(H, 1)
+    std = np.full((H, 1), 0.4, np.float32)
+    return s0, mue, std, np.array([0.2], np.float32), np.asarray(seed2, np.int32)
+
+
+@pytest.mark.parametrize("seed2", [(77, 0), (2**31 - 2, 0), (123456, 7)])
+def test_k5_plain_matches_pallas_interpret(pair, seed2):
+    """Costs in the JAX kernel's ``costs2d.reshape(-1)`` order; a large
+    seed wraps seed*FNV, a tile offset shifts every tile's counters."""
+    jctrl, pctrl, jparams, params = pair
+    run, regen, jpack = jctrl.optimizer._build_fused_cem(interpret=True, tile_k=TILE)
+    s0, mue, std, u_prev, sd = k5_inputs(seed2)
+    ref = np.asarray(run(jnp.asarray(s0), jnp.asarray(mue), jnp.asarray(std),
+                         jpack(jparams, jnp.asarray(u_prev)), jnp.asarray(sd))).reshape(-1)
+    popt = pctrl.optimizer
+    model, pack = ode.rollout_model(popt)
+    got = fused_cem_costs(model, torch.tensor(s0), torch.tensor(mue), torch.tensor(std),
+                          pack(params, torch.tensor(u_prev)), torch.tensor(sd), popt.action_low,
+                          popt.action_high, K, TILE).numpy()
+    np.testing.assert_allclose(got, ref, **K5_TOL)
+
+
+def test_regen_controls_match_jax_regen(pair):
+    jctrl, pctrl, _, _ = pair
+    _, regen, _ = jctrl.optimizer._build_fused_cem(interpret=True, tile_k=TILE)
+    s0, mue, std, _, sd = k5_inputs((5, 0))
+    std = 2.0 * std  # heavy clipping: both bounds reached
+    idx = np.random.default_rng(0).permutation(K)[:40]
+    ref = np.asarray(regen(jnp.asarray(sd), jnp.asarray(idx), jnp.asarray(mue), jnp.asarray(std), K))
+    popt = pctrl.optimizer
+    got = regen_controls(torch.tensor(sd), torch.tensor(idx), torch.tensor(mue), torch.tensor(std),
+                         popt.action_low, popt.action_high, K, TILE).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=Q_ATOL)
+    assert got.min() == -1.0 and got.max() == 1.0
+    full = regen_controls(torch.tensor(sd), torch.arange(K), torch.tensor(mue), torch.tensor(std),
+                          popt.action_low, popt.action_high, K, TILE).numpy()
+    np.testing.assert_array_equal(full[idx], got)  # an elite subset is a bit-exact subset
+
+
+def test_regenerated_rows_through_k1_give_jax_kernel_costs(pair):
+    """JAX's regenerated population through the port's K1 plain version
+    gives the JAX K5's costs, and the port's K5 plain version is K1 over its
+    own regenerated rows."""
+    jctrl, pctrl, jparams, params = pair
+    run, regen, jpack = jctrl.optimizer._build_fused_cem(interpret=True, tile_k=TILE)
+    s0, mue, std, u_prev, sd = k5_inputs((99, 0))
+    ref = np.asarray(run(jnp.asarray(s0), jnp.asarray(mue), jnp.asarray(std),
+                         jpack(jparams, jnp.asarray(u_prev)), jnp.asarray(sd))).reshape(-1)
+    Q = np.asarray(regen(jnp.asarray(sd), jnp.arange(K), jnp.asarray(mue), jnp.asarray(std), K))
+    popt = pctrl.optimizer
+    model, pack = ode.rollout_model(popt)
+    pvec = pack(params, torch.tensor(u_prev))
+    s_tiled = torch.tensor(s0).expand(K, -1).contiguous()
+    np.testing.assert_allclose(cost_rollout(model, s_tiled, torch.tensor(Q), pvec).numpy(), ref,
+                               **K5_TOL)
+    mine = regen_controls(torch.tensor(sd), torch.arange(K), torch.tensor(mue), torch.tensor(std),
+                          popt.action_low, popt.action_high, K, TILE)
+    np.testing.assert_array_equal(
+        fused_cem_costs_plain(model, torch.tensor(s0), torch.tensor(mue), torch.tensor(std), pvec,
+                              torch.tensor(sd), popt.action_low, popt.action_high, K, TILE).numpy(),
+        cost_rollout_plain(model, s_tiled, mine, pvec).numpy())
+
+
+def use_fused(jctrl, pctrl, tile):
+    """Both optimizers on their fully-fused paths at a CPU-sized tile: the
+    JAX one's kernel in interpret mode (as tests/test_pallas_cem.py forces
+    it), the port's K5 plain version."""
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    jopt._can_fully_fuse = lambda: True
+    build = jopt._build_fused_cem
+    jopt._build_fused_cem = lambda: build(interpret=True, tile_k=tile)
+    jopt._build()
+    popt.fused_tile_k = tile
+    popt._build()
+    assert popt._fused
+
+
+def set_shared_state(jopt, popt, count=1):
+    rng = np.random.default_rng(count)
+    mue = rng.uniform(-0.4, 0.4, (1, H, 1)).astype(np.float32)
+    std = rng.uniform(0.2, 0.6, (1, H, 1)).astype(np.float32)
+    u_prev = np.array([0.2], np.float32)
+    jopt.opt_state = jopt.opt_state._replace(
+        dist_mue=jnp.asarray(mue), stdev=jnp.asarray(std), count=jnp.asarray(count, jnp.int32),
+        u_prev=jnp.asarray(u_prev))
+    popt.opt_state = CEMState(popt.opt_state.generator, torch.tensor(mue), torch.tensor(std),
+                              count, torch.tensor(u_prev))
+
+
+def jax_draws(jopt, iterations, fused):
+    """The draws the JAX step takes: per outer iteration ``key, sub =
+    split(key)``, then a randint seed (fused) or normals [K, H, U]."""
+    key, draws = jopt.opt_state.key, []
+    for _ in range(iterations):
+        key, sub = jax.random.split(key)
+        if fused:
+            seed = int(jax.random.randint(sub, (1,), 0, 2**31 - 1, jnp.int32)[0])
+            draws.append(torch.tensor([seed, 0], dtype=torch.int32))
+        else:
+            draws.append(torch.tensor(np.asarray(
+                jax.random.normal(sub, (jopt.num_rollouts, jopt.mpc_horizon, 1), jnp.float32))))
+    return draws
+
+
+@pytest.mark.parametrize("fused,warmup", [(False, False), (True, False), (False, True)])
+def test_one_cem_step_matches_jax(fused, warmup):
+    """One step fed JAX's draws: the refit distribution (shifted), the
+    applied control and the best elite.  With warmup the first step runs
+    ``warmup_iterations`` (3) outer iterations."""
+    jctrl, pctrl = make_pair(**cem_config(warmup=warmup, warmup_iterations=3,
+                                          fully_fused=fused))
+    jopt, popt = jctrl.optimizer, pctrl.optimizer
+    if fused:
+        use_fused(jctrl, pctrl, 64)
+    count = 0 if warmup else 1
+    set_shared_state(jopt, popt, count)
+    iterations = 3 if warmup else 2
+    draws = jax_draws(jopt, iterations, fused)
+    assert len(popt.sample_draws(popt.opt_state)) == iterations
+    jparams, params = both_params(jctrl)
+    s = np.array([0.1, -0.05, 0.3, 0.2], np.float32)
+    u_j, st_j, diag_j = jopt._step_jit(jopt.opt_state, jnp.asarray(s)[None], jparams)
+    u, st, diag = popt.update(popt.opt_state, torch.tensor(s)[None], params, draws)
+    np.testing.assert_allclose(diag["J_logged"].numpy(), np.asarray(diag_j["J_logged"]), **COST_TOL)
+    np.testing.assert_allclose(diag["u_nom"].numpy(), np.asarray(diag_j["u_nom"]), **UNOM_TOL)
+    np.testing.assert_allclose(u.numpy(), np.asarray(u_j), **UNOM_TOL)
+    np.testing.assert_allclose(st.dist_mue.numpy(), np.asarray(st_j.dist_mue), **UNOM_TOL)
+    np.testing.assert_allclose(st.stdev.numpy(), np.asarray(st_j.stdev), **UNOM_TOL)
+    assert st.count == count + 1
+    np.testing.assert_array_equal(st.u_prev.numpy(), u.numpy())
+
+
+def test_update_refuses_a_wrong_number_of_draws():
+    _, pctrl = make_pair(**cem_config(warmup=True, warmup_iterations=3))
+    popt = pctrl.optimizer
+    s = torch.zeros(1, 4)
+    with pytest.raises(ValueError, match="outer iterations"):
+        popt.update(popt.opt_state, s, pctrl._assemble_params(), [torch.zeros(K, H, 1)] * 2)
+
+
+def test_best_k_above_k_raises_at_construction():
+    with pytest.raises(ValueError, match="cem_best_k"):
+        make_pair(**cem_config(K=16, cem_best_k=32))
+
+
+def test_fused_gate():
+    """K5 only where the JAX gate would take it: the option on, logging off,
+    and K a multiple of the tile (K % 2048 here); else the modular path."""
+    _, pctrl = make_pair(**cem_config(K=4096, fully_fused=True))
+    assert pctrl.optimizer._fused
+    for cfg in (cem_config(K=K, fully_fused=True), cem_config(K=4096)):
+        _, pctrl = make_pair(**cfg)
+        assert not pctrl.optimizer._fused
+    logged = MPCController("cartpole", LIMITS, {"target_position": 0.1},
+                           config={"optimizer": "cem-tf", "controller_logging": True})
+    logged.configure(optimizer_name="cem-tf", optimizer_config=cem_config(K=4096, fully_fused=True))
+    assert not logged.optimizer._fused
+    s = np.array([0.0, 0.0, 0.1, 0.0], np.float32)
+    logged.step(s)
+    out = logged.get_outputs()
+    assert out["Q_logged"].shape == (1, 4096, H, 1)
+    assert out["rollout_trajectories_logged"].shape == (1, 4096, H + 1, 4)
+
+
+def test_unported_cem_features_raise():
+    _, pctrl = make_pair(**cem_config())
+    opt = pctrl.optimizer
+    with pytest.raises(NotImplementedError):
+        opt._make_batched_cem_step(2)
+    with pytest.raises(NotImplementedError):
+        opt._make_batched_fused_cem_step(2)
+    with pytest.raises(NotImplementedError):
+        opt._apply_policy_guess(opt.opt_state, None)
+
+
+def strong_cem(fused):
+    """tests/test_pallas_cem.py make_strong_cem: the reference's full CEM
+    budget (K=192, H=35, 3 outer iterations, 40 elites)."""
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": "cem-tf", "controller_logging": False,
+                                 "device": "cpu"})
+    ctrl.configure(optimizer_name="cem-tf", optimizer_config={
+        "seed": 3, "mpc_timestep": 0.02, "mpc_horizon": 35, "num_rollouts": 192,
+        "cem_outer_it": 3, "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01,
+        "cem_best_k": 40, "warmup": False, "warmup_iterations": 2, "fully_fused": fused})
+    if fused:
+        ctrl.optimizer.fused_tile_k = 64
+        ctrl.optimizer._build()
+    assert ctrl.optimizer._fused == fused
+    return ctrl
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_cem_closed_loop_holds_the_pole(fused):
+    """60 ticks from CartpoleEnv(seed=5), as test_pallas_cem.py:109 runs
+    the JAX package's (K5's plain version on the fused path)."""
+    ctrl = strong_cem(fused)
+    env = CartpoleEnv(batch_size=1, dt=0.02, seed=5)
+    s, _ = env.reset()
+    for _ in range(60):
+        s, *_ = env.step(ctrl.step(s[0]))
+    assert abs(float(s[0, 2])) < 0.45, f"CEM (fused={fused}) lost the pole: {s[0]}"
+
+
+@pytest.mark.cuda
+def test_cuda_k5_matches_plain_version(pair, cuda_device):
+    """K5 against its plain version on the same card tensors (K not a
+    multiple of the block: the edge is masked); the costs of the controls
+    it regenerates through K1 equal its own."""
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    dev = cuda_device
+    Kc, Hc, tile = 1000 * 8, 50, 400
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=dev)
+    mue = 0.2 * torch.randn(Hc, 1, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    std = torch.full((Hc, 1), 0.5, device=dev)
+    pvec = pack(params, torch.tensor([0.1])).to(dev)
+    seed2 = torch.tensor([2024, 3], dtype=torch.int32, device=dev)
+    lim = torch.ones(1, device=dev)
+    args = (model, s0, mue, std, pvec, seed2, -lim, lim, Kc, tile)
+    got = fused_cem_costs(*args)
+    torch.testing.assert_close(got, fused_cem_costs_plain(*args), rtol=1e-4, atol=1e-3)
+    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile)
+    torch.testing.assert_close(got, cost_rollout(model, s0.expand(Kc, -1).contiguous(), Q, pvec),
+                               rtol=1e-4, atol=1e-3)

@@ -115,6 +115,52 @@ def test_learned_dynamics_path_runs_without_jax_or_the_jax_package():
     assert "NO_JAX_OK" in res.stdout
 
 
+NO_JAX_SAMPLING_DRIVE = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["control_toolkit_tpu"] = None  # nor the JAX package
+import numpy as np, torch
+torch.set_num_threads(1)
+from control_toolkit_tpu_torch import import_controller_by_name
+from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+cem = {"cem_outer_it": 2, "cem_best_k": 16}
+for opt, extra, fused in (("cem-tf", {**cem, "fully_fused": True}, True),
+                          ("cem-tf", cem, False),
+                          ("mppi", {"fully_fused": True,
+                                    "period_interpolation_inducing_points": 5}, True),
+                          ("icem-tf", cem, False), ("random-action-tf", {}, False)):
+    ctrl = import_controller_by_name(opt)(
+        "cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+        {"target_position": 0.0},
+        config={"optimizer": opt, "controller_logging": False, "device": "cpu"})
+    ctrl.configure(optimizer_name=opt,
+                   optimizer_config={"seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10,
+                                     "num_rollouts": 2048, **extra},
+                   cost_function_config={"dd_weight": 120.0, "ep_weight": 10000.0,
+                                         "ekp_weight": 10.0, "cc_weight": 1.0,
+                                         "ccrc_weight": 1.0, "R": 1.0})
+    assert getattr(ctrl.optimizer, "_can_fully_fuse", lambda: False)() == fused, opt
+    env = CartpoleEnv(batch_size=1, dt=0.02, seed=0)
+    s, _ = env.reset()
+    for _ in range(3):
+        u = ctrl.step(s[0])
+        s, *_ = env.step(u)
+    assert np.all(np.isfinite(u)) and u.shape == (1,)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
+assert loaded == ["control_toolkit_tpu", "jax"], loaded  # only the blocked placeholders
+print("NO_JAX_OK")
+"""
+
+
+def test_sampling_paths_run_without_jax_or_the_jax_package():
+    """cem-tf (fully fused and modular), fully-fused mppi, icem-tf and
+    random-action-tf, stepped on the CPU with jax and the JAX package
+    blocked."""
+    res = run_python(["-c", NO_JAX_SAMPLING_DRIVE], REPO)
+    assert res.returncode == 0, res.stderr
+    assert "NO_JAX_OK" in res.stdout
+
+
 def test_explicit_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.fused_cem import fused_cem_costs
+from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_costs, fused_mppi_weights
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import grad_cost_rollout
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
@@ -143,6 +145,28 @@ def test_wrappers_never_run_plain_versions_on_non_cpu_tensors(pair):
         grad_cost_rollout(model, torch.zeros(8, 4), torch.empty(8, 5, 1, **meta),
                           torch.zeros(15))
     assert grad_cost_rollout.launches == before
+
+    lim, seed2 = torch.ones(1), torch.tensor([1, 0], dtype=torch.int32)
+    counts = (fused_cem_costs.launches, fused_mppi_costs.launches, fused_mppi_weights.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_cem_costs(model, torch.empty(4, **meta), torch.empty(5, 1, **meta),
+                        torch.empty(5, 1, **meta), torch.empty(15, **meta),
+                        torch.empty(2, dtype=torch.int32, **meta), torch.empty(1, **meta),
+                        torch.empty(1, **meta), 16, 8)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_cem_costs(model, torch.zeros(4), torch.empty(5, 1, **meta), torch.zeros(5, 1),
+                        torch.zeros(15), seed2, -lim, lim, 16, 8)
+    with pytest.raises(ValueError, match="several devices"):
+        fused_mppi_costs(model, torch.zeros(4), torch.zeros(5, 1), torch.zeros(15), seed2,
+                         torch.empty(2, 5, **meta), -lim, lim, 1.0, 1.0, 1000.0, 0.2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mppi_weights(torch.empty(2, dtype=torch.int32, **meta), torch.empty(16, **meta),
+                           torch.empty(2, **meta), 2, 1, 100.0, 16, 8)
+    with pytest.raises(ValueError, match="tile_k"):  # K5's function needs K % tile_k == 0
+        fused_cem_costs(model, torch.zeros(4), torch.zeros(5, 1), torch.zeros(5, 1),
+                        torch.zeros(15), seed2, -lim, lim, 20, 8)
+    assert counts == (fused_cem_costs.launches, fused_mppi_costs.launches,
+                      fused_mppi_weights.launches)
 
 
 def test_rollout_model_rejects_a_foreign_parameter_layout(pair):

@@ -236,6 +236,4 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         make_port_ctrl(32, 10, optim_steps=2)
     with pytest.raises(NotImplementedError):
-        make_port_ctrl(32, 10, fully_fused=True)
-    with pytest.raises(NotImplementedError):
         make_port_ctrl(32, 10, risk_weight=0.5)
