@@ -103,6 +103,32 @@ random-action (seed 3), both on K1:
     elites taken by the card's own top-k (which must be a top-k of the
     CPU's costs within the cost bound), and fully-fused MPPI.
 
+The fleet path: the "batched-mpc" controller with per-slot pole lengths
+(``per_slot_dyn=("L",)``), semi-fused MPPI at bench_scale.py:345's
+configuration (K=512 a session, H=35, inducing period 10, SQRTRHOINV 0.05,
+seed 1) over K4, and fully-fused CEM at :356's (cem_outer_it 2,
+cem_best_k 40, warmup off, seed 1) over K6:
+35. K4 (mppi_cost_cols) against its plain version at 128 sessions with
+    per-slot lengths over 0.35-0.65, targets and previous controls, and the
+    cost bound against a kernel that reads session b+1's rows and one that
+    takes every session's previous control from slot 0;
+36. K6 (fused_cem_cols) against its plain version at 128 sessions, its
+    costs against K1's over the controls regen_cols draws again (equal in
+    every entry), the elite rows' regeneration an exact subset of the full
+    one, and the cost bound against K5's tiled counter and the swap of r and
+    cw;
+37. 200 closed-loop ticks of a 32-session MPPI fleet, each slot against its
+    own CartpoleEnv with its own pole length, a rotating quarter of the
+    slots idle each tick, half the targets changed and slot 2's model
+    re-identified at tick 100 (examples/fleet_serving.py without ZeroMQ):
+    one K4 launch a tick, idle slots bit for bit unchanged, every pole up,
+    nothing rebuilt;
+38. the same 100 ticks for a 32-session fused CEM fleet (two K6 a tick);
+39. one fleet update on the card against the same update on the CPU, fed
+    the same draws and seeds, for each path;
+40. both paths timed at 32 and 128 sessions: host p50/p99, device span,
+    sessions a second, and the host time of the slots' own draws.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -115,8 +141,9 @@ rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
-icem), printing per tick the device busy time, the number of device
-operations and the costliest device kernels.
+icem; the fleet paths at both sizes in phase 40), printing per tick the
+device busy time, the number of device operations and the costliest
+device kernels.
 
 Every kernel's launch count is set to 0 just before each closed loop and
 read just after it; launches made to compare a kernel with its plain
@@ -142,6 +169,7 @@ import time
 import numpy as np
 import torch
 
+from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
 from control_toolkit_tpu_torch.models.gp_predictor import fit_gp_dynamics
@@ -157,6 +185,9 @@ from control_toolkit_tpu_torch.ops.counter_prng import (
 from control_toolkit_tpu_torch.ops.fused_cem import (
     cem_counters, fused_cem_costs, fused_cem_costs_plain, regen_controls,
 )
+from control_toolkit_tpu_torch.ops.fused_cem_cols import (
+    cols_counters, fused_cem_cols, fused_cem_cols_plain, regen_cols,
+)
 from control_toolkit_tpu_torch.ops.fused_mppi import (
     fused_mppi_costs, fused_mppi_costs_plain, fused_mppi_step, fused_mppi_step_plain,
     fused_mppi_weights, fused_mppi_weights_plain, mppi_noise,
@@ -171,6 +202,9 @@ from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
+from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
+    mppi_cost_cols, mppi_cost_cols_plain, per_rollout,
+)
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_plain,
 )
@@ -184,6 +218,7 @@ from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_plain, residual_step_fn,
 )
+from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
 from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, rpgd_state_from_numpy
@@ -238,7 +273,8 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "residual_grad_cost_rollout": residual_grad_cost_rollout,
            "gp_cost_rollout": gp_cost_rollout, "gp_grad_cost_rollout": gp_grad_cost_rollout,
            "fused_cem": fused_cem_costs, "fused_mppi_cost": fused_mppi_costs,
-           "fused_mppi_weights": fused_mppi_weights}
+           "fused_mppi_weights": fused_mppi_weights, "mppi_cost_cols": mppi_cost_cols,
+           "fused_cem_cols": fused_cem_cols}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -336,6 +372,22 @@ RK4_STEP_OPS, STAGE_OPS, MPPI_EXTRA_OPS, RK4_VJP_OPS, STAGE_VJP_OPS = 172, 24, 1
 # the weight's product and sum (2) in pass 2, plus 4 per rollout for the
 # weight itself (the difference, scale, exp and division).
 NORMAL_OPS, CEM_CONTROL_OPS, WEIGHT_OPS = 32, 4, 4
+# The fleet path: bench_scale.py:345's batched MPPI (K=512 a session, H=35,
+# inducing period 10, SQRTRHOINV 0.05, seed 1) and :356's batched fully-fused
+# CEM (cem_outer_it 2, cem_best_k 40, warmup off, seed 1), B=32 sessions in
+# the closed loops (examples/fleet_serving.py:48-99 without ZeroMQ; pole
+# half-lengths over FLEET_L) and B=128 in the kernel comparisons; both sizes
+# timed.  The K5-layout mutant of phase 36 uses tiles of FLEET_MUTANT_TILE.
+FLEET_K, FLEET_H, FLEET_B, FLEET_B_MAX, FLEET_L = 512, 35, 32, 128, (0.35, 0.65)
+FLEET_MPPI_CONFIG = {"seed": 1, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
+                     "num_rollouts": FLEET_K, "cc_weight": 1.0, "R": 1.0, "LBD": 100.0,
+                     "NU": 1000.0, "SQRTRHOINV": 0.05, "period_interpolation_inducing_points": 10}
+FLEET_CEM_CONFIG = {"seed": 1, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
+                    "num_rollouts": FLEET_K, "cem_outer_it": 2, "cem_best_k": 40,
+                    "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01, "warmup": False,
+                    "fully_fused": True}
+FLEET_MPPI_TICKS, FLEET_CEM_TICKS, FLEET_RETARGET_AT, FLEET_TIMING_TICKS = 200, 100, 100, 50
+FLEET_MUTANT_TILE = 128
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -1274,6 +1326,337 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
           f"{name}: the card's update differs from the CPU's {numbers}")
 
 
+# ---- the fleet phases -----------------------------------------------------------
+def fleet_controller(device: str, optimizer: str, config: dict, B: int) -> BatchedMPCController:
+    """A batched-mpc controller of B slots with per-slot pole lengths."""
+    ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
+                                config={"optimizer": optimizer, "controller_logging": False,
+                                        "device": device})
+    ctrl.configure(optimizer_name=optimizer, optimizer_config=config,
+                   cost_function_config=COST_WEIGHTS, num_slots=B, per_slot_dyn=("L",))
+    return ctrl
+
+
+def fleet_operands(opt, B: int, gen) -> tuple:
+    """K4's and K6's model and per-session operands at B sessions: states
+    near upright, per-slot pole lengths over FLEET_L and targets over
+    +-0.2, previous controls over [-1, 1]."""
+    device = opt.device
+    model, _ = ode.rollout_model(opt)
+    _, slot_keys = split_slot_keys(model.param_keys, ("L",))
+    params = place({"dyn": {k: float(v) for k, v in opt.predictor.default_params().items()},
+                    "cost": COST_WEIGHTS}, device)
+    pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, B, device)(
+        2.0 * torch.rand(B, 1, generator=gen, device=device) - 1.0,
+        dict(params["dyn"], L=torch.linspace(*FLEET_L, B, device=device)), params["cost"],
+        {"target_position": torch.linspace(-0.2, 0.2, B, device=device)})
+    s0 = 0.05 * torch.randn(B, 4, generator=gen, device=device)
+    return model, pvec_b, s0
+
+
+def compare_k4(opt, gen) -> dict:
+    """Phase 35: K4 against its plain version at B=FLEET_B_MAX sessions,
+    and the cost bound against a kernel that reads session b+1's rows and
+    one that takes every session's previous control from slot 0."""
+    B, K, Hf = FLEET_B_MAX, opt.num_rollouts, opt.mpc_horizon
+    model, pvec_b, s0 = fleet_operands(opt, B, gen)
+    P = opt.interp.number_of_interpolation_inducing_points
+    u_nom = torch.clamp(0.2 * torch.randn(B, Hf, 1, generator=gen, device=opt.device), -1.0, 1.0)
+    eps = opt.SQRTRHODTINV * torch.randn(B, P, 1, K, generator=gen, device=opt.device)
+    consts = (opt.interp.matrix, opt.action_low, opt.action_high, opt.cc_weight, opt.R, opt.NU)
+    args = (model, s0, u_nom, pvec_b, eps) + consts
+    ref = mppi_cost_cols_plain(*args)
+    u_prev_col = model.param_keys.index("__u_prev_0")
+    slot0 = pvec_b.clone()
+    slot0[:, u_prev_col] = pvec_b[0, u_prev_col]
+    mutants = {
+        "next_session_rows": mppi_cost_cols_plain(
+            model, *(t.roll(-1, 0) for t in (s0, u_nom, pvec_b, eps)), *consts),
+        "u_prev_of_slot_0": mppi_cost_cols_plain(model, s0, u_nom, slot0, eps, *consts),
+    }
+    numbers = compare("k4_mppi_cost_cols", lambda: mppi_cost_cols(*args),
+                      lambda: mppi_cost_cols_plain(*args), shape=(B, K),
+                      extra=lambda _: {"mutant_max_abs_err": {
+                          kind: max_errors(m, ref)[0] for kind, m in mutants.items()}})
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **KERNEL_TOL),
+              f"K4: the cost bound does not reject {kind} {numbers}")
+    numbers.update(bound(B * K * Hf * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS),
+                         nbytes(s0, u_nom, pvec_b, eps, *consts[:3]) + 4 * B * K))
+    return numbers
+
+
+def k6_mutant_counters(seed_b, K: int, Hf: int, kind: str) -> torch.Tensor:
+    """K6's counters [B, K, H, 1] with a layout fault: ``k5_tiled_counter``
+    (K5's counter of each session's seed, tiles of FLEET_MUTANT_TILE) or
+    ``r_cw_swapped`` (rollout k = r*cps + cw reads cw*8 + r's counters)."""
+    B = seed_b.shape[0]
+    if kind == "k5_tiled_counter":
+        return torch.stack([cem_counters(torch.stack([s, torch.zeros_like(s)]),
+                                         torch.arange(K, device=seed_b.device), K, Hf, 1,
+                                         FLEET_MUTANT_TILE) for s in seed_b])
+    k = torch.arange(K, device=seed_b.device)
+    cps = K // ROWS
+    swapped = (k % cps) * ROWS + k // cps
+    return cols_counters(seed_b, swapped.expand(B, K), K, Hf, 1)
+
+
+def compare_k6(opt, gen) -> dict:
+    """Phase 36: K6 against its plain version at B=FLEET_B_MAX sessions; its
+    costs against K1's over the controls regen_cols draws again, session
+    by session; the elite rows' regeneration an exact subset of the full
+    one; and the cost bound against K5's tiled counter and the swap of r
+    and cw."""
+    B, K, Hf = FLEET_B_MAX, opt.num_rollouts, opt.mpc_horizon
+    device = opt.device
+    model, pvec_b, s0 = fleet_operands(opt, B, gen)
+    mue = torch.clamp(0.2 * torch.randn(B, Hf, 1, generator=gen, device=device), -1.0, 1.0)
+    std = torch.full((B, Hf, 1), 0.5, device=device)
+    seed_b = torch.randint(0, 2**31 - 1, (B,), generator=gen, dtype=torch.int32, device=device)
+    low, high = opt.action_low, opt.action_high
+    args = (model, s0, mue, std, pvec_b, seed_b, low, high, K)
+    ref = fused_cem_cols_plain(*args)
+    rows = per_rollout(pvec_b, K)
+    s_rows = per_rollout(s0, K).T
+    mutants = {kind: cost_rollout_plain(model, s_rows, torch.clamp(
+        mue[:, None] + std[:, None] * normals_from_counter(k6_mutant_counters(seed_b, K, Hf, kind)),
+        low, high).reshape(B * K, Hf, 1), rows).reshape(B, K)
+        for kind in ("k5_tiled_counter", "r_cw_swapped")}
+    numbers = compare("k6_fused_cem_cols", lambda: fused_cem_cols(*args),
+                      lambda: fused_cem_cols_plain(*args), shape=(B, K),
+                      extra=lambda _: {"mutant_max_rel_err": {
+                          kind: max_errors(m, ref)[1] for kind, m in mutants.items()}})
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **KERNEL_TOL),
+              f"K6: the cost bound does not reject {kind} {numbers}")
+    got = fused_cem_cols(*args)
+    Q = regen_cols(seed_b, torch.arange(K, device=device).expand(B, K), mue, std, low, high, K)
+    via_k1 = torch.stack([cost_rollout(model, s0[b].expand(K, -1).contiguous(), Q[b].contiguous(),
+                                       pvec_b[b].contiguous()) for b in range(B)])
+    idx = elite_indices(got, FLEET_CEM_CONFIG["cem_best_k"])
+    extra = {"k1_over_regen_max_abs_err": max_errors(got, via_k1)[0],
+             "k1_over_regen_equal_share": float((got == via_k1).double().mean()),
+             "elite_regen_exact": bool(torch.equal(
+                 regen_cols(seed_b, idx, mue, std, low, high, K),
+                 torch.take_along_dim(Q, idx[:, :, None, None], dim=1)))}
+    emit("k6_regeneration", extra)
+    check(extra["k1_over_regen_equal_share"] == 1.0,
+          f"K6's costs differ from K1's over its regenerated controls {extra}")
+    check(extra["elite_regen_exact"], "K6: the elite regeneration is not a subset of the full one")
+    numbers.update(bound(B * K * Hf * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
+                         nbytes(s0, mue, std, pvec_b, seed_b, low, high) + 4 * B * K))
+    return numbers
+
+
+def slot_snapshot(ctrl: BatchedMPCController, slots) -> dict:
+    """The optimizer state of ``slots``: tensors, host values and the
+    generators' states."""
+    st = ctrl.slot_states
+    return {i: [st.generator[i].get_state()]
+            + [v[i].clone() if isinstance(v, torch.Tensor) else np.copy(v[i]) for v in st[1:]]
+            for i in slots}
+
+
+def same_snapshot(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) if isinstance(x, torch.Tensor) else np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict) -> dict:
+    """``ticks`` closed-loop ticks of a fleet: slot i against its own
+    CartpoleEnv (seed 10+i) with pole half-length L_i over FLEET_L, each
+    slot's model given L_i before the first tick
+    (``update_slot_dyn``).  A rotating quarter of the slots is idle each
+    tick (masked off; its plant waits); at FLEET_RETARGET_AT half the slots
+    change target and slot 2's model re-sysids to 1.02 L_2.  Checks: idle
+    slots emit 0 and keep their state and random stream bit for bit, every
+    slot's pole stays up, nothing is rebuilt, and the kernels launched are
+    ``expected`` (every count set to 0 just before the loop)."""
+    B = ctrl.num_slots
+    Ls = np.linspace(*FLEET_L, B)
+    envs = [CartpoleEnv(batch_size=1, dt=DT, seed=10 + i, params={"L": float(L)})
+            for i, L in enumerate(Ls)]
+    s = np.stack([env.reset()[0][0] for env in envs])
+    for i, L in enumerate(Ls):
+        ctrl.update_slot_dyn(i, {"L": float(L)})
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host_ms, device_ms, max_angle, frozen_checked = [], [], 0.0, 0
+    for t in range(ticks):
+        mask = (np.arange(B) + t) % 4 != 0
+        attrs = [{"target_position": NEW_TARGET} if t == FLEET_RETARGET_AT and i < B // 2
+                 else None for i in range(B)]
+        if t == FLEET_RETARGET_AT:
+            ctrl.update_slot_dyn(2, {"L": float(1.02 * Ls[2])})
+        idle = np.nonzero(~mask)[0]
+        before = slot_snapshot(ctrl, idle)
+        start.record()
+        t0 = time.perf_counter()
+        u = ctrl.step_batch(s, mask, attrs)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        after = slot_snapshot(ctrl, idle)
+        check(np.all(u[~mask] == 0.0) and all(same_snapshot(before[i], after[i]) for i in idle),
+              f"{name}: tick {t}: an idle slot moved")
+        frozen_checked += len(idle)
+        check(bool(np.all(np.isfinite(u))) and float(np.abs(u).max()) <= 1.0,
+              f"{name}: tick {t}: bad controls")
+        for i in np.nonzero(mask)[0]:
+            s[i] = envs[i].step(u[i])[0][0]
+        max_angle = max(max_angle, float(np.abs(s[:, 2]).max()))
+        check(max_angle < 0.5, f"{name}: tick {t}: a pole fell, states {s[np.abs(s[:, 2]) >= 0.5]}")
+    check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
+          f"{name}: something was rebuilt during the loop")
+    counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
+    check(counts == {kernel: expected.get(kernel, 0) for kernel in COUNTED},
+          f"{name}: kernel launches {counts}, expected {expected}")
+    emit(name, {"slots": B, "ticks": ticks, "idle_slot_ticks_checked": frozen_checked,
+                "step_host_p50_ms": float(np.percentile(host_ms, 50)),
+                "step_host_p99_ms": float(np.percentile(host_ms, 99)),
+                "step_device_p50_ms": float(np.percentile(device_ms, 50)),
+                "max_abs_angle": max_angle, "slot2_L_model": float(ctrl.slot_dyn["L"][2]),
+                "final_abs_pos_max": float(np.abs(s[:, 0]).max())})
+    return counts
+
+
+def fleet_inputs_now(ctrl: BatchedMPCController, gen) -> tuple:
+    """The fleet's current state and params on the card: per-session
+    states near upright, the slots' pole lengths and targets."""
+    B, device = ctrl.num_slots, ctrl.device
+    s = 0.05 * torch.randn(B, 1, 4, generator=gen, device=device)
+    params = ctrl._assemble_params()
+    dyn = dict(params["dyn"], L=torch.as_tensor(ctrl.slot_dyn["L"], device=device))
+    attrs = {k: torch.as_tensor(v, device=device) for k, v in ctrl.slot_attrs.items()}
+    return s, dyn, params["cost"], attrs
+
+
+def state_to_cpu(state):
+    """A batched optimizer state on the CPU, without its generators."""
+    return type(state)(*(None if isinstance(v, tuple) else to_cpu(v) for v in state))
+
+
+def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, gen) -> None:
+    """Phase 39: one fleet update on the card against the same update on the
+    CPU (the plain versions), from the state each loop left and with the
+    same draws.  MPPI: costs to the kernel bound, the new plans to
+    UNOM_ATOL.  CEM, outer iteration by outer iteration from the card's
+    distribution: costs to the kernel bound, the card's elites (its own
+    top-k) a top-k of the CPU's costs within that bound, the refit from
+    them to UNOM_ATOL; then the whole update, where the elite sets agreed."""
+    B = mppi.num_slots
+    opt = mppi.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(mppi, gen)
+    eps = opt.sample_slot_noise(mppi.slot_states.generator, np.ones(B, bool))
+    _, update = opt._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
+    cpu = fleet_controller("cpu", "mppi", FLEET_MPPI_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
+    st = mppi.slot_states
+    u_nom, costs = update(st, s, dyn, cost, attrs, eps)
+    u_nom_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn),
+                                to_cpu(cost), to_cpu(attrs), eps.cpu())
+    numbers = {"mppi_cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "mppi_u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
+    check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL)
+          and numbers["mppi_u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"the fleet MPPI update on the card differs from the CPU's {numbers}")
+
+    copt = cem.optimizer
+    B, K = cem.num_slots, copt.num_rollouts
+    s, dyn, cost, attrs = fleet_inputs_now(cem, gen)
+    seeds = copt.sample_slot_seeds(cem.slot_states.generator, np.ones(B, bool))
+    model, _ = ode.rollout_model(copt)
+    _, slot_keys = split_slot_keys(model.param_keys, ("L",))
+    st = cem.slot_states
+    pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, B, cem.device)(
+        st.u_prev, dyn, cost, attrs)
+    low, high, best_k = copt.action_low, copt.action_high, copt.cem_best_k
+    mue, std = st.dist_mue[:, 0], st.stdev[:, 0]
+    same_sets, errs = True, {"cost": 0.0, "mue": 0.0, "std": 0.0, "topk_excess": 0.0}
+    for seed_b in seeds:
+        c = fused_cem_cols(model, s[:, 0], mue, std, pvec_b, seed_b, low, high, K)
+        c_c = fused_cem_cols(model, s[:, 0].cpu(), mue.cpu(), std.cpu(), pvec_b.cpu(),
+                             seed_b.cpu(), low.cpu(), high.cpu(), K)
+        check(torch.allclose(c.cpu(), c_c, **KERNEL_TOL), f"fleet CEM: costs differ {errs}")
+        idx = elite_indices(c, best_k)
+        kth = torch.sort(c_c, dim=1).values[:, best_k - 1]
+        excess = torch.take_along_dim(c_c, idx.cpu(), dim=1).amax(dim=1) - kth
+        slack = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * kth.abs()
+        check(bool((excess <= slack).all()), "fleet CEM: the card's elites are not a top-k of "
+              "the CPU's costs")
+        same_sets &= bool(torch.equal(torch.sort(idx.cpu(), dim=1).values,
+                                      torch.sort(elite_indices(c_c, best_k), dim=1).values))
+        elite = regen_cols(seed_b, idx, mue, std, low, high, K)
+        elite_c = regen_cols(seed_b.cpu(), idx.cpu(), mue.cpu(), std.cpu(), low.cpu(),
+                             high.cpu(), K)
+        mue, std = elite.mean(1), elite.std(1, correction=0)
+        mue_c, std_c = elite_c.mean(1), elite_c.std(1, correction=0)
+        for key, (a, b) in {"cost": (c, c_c), "mue": (mue, mue_c), "std": (std, std_c)}.items():
+            errs[key] = max(errs[key], max_errors(a.cpu(), b)[0])
+        errs["topk_excess"] = max(errs["topk_excess"], float(excess.max()))
+    _, update = copt._make_batched_fused_cem_step(B, per_slot_dyn=("L",))
+    cpu = fleet_controller("cpu", "cem-tf", FLEET_CEM_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_fused_cem_step(B, per_slot_dyn=("L",))
+    u, new, _ = update(st, s, dyn, cost, attrs, seeds)
+    u_c, new_c, _ = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn),
+                             to_cpu(cost), to_cpu(attrs), seeds.cpu())
+    numbers.update({f"cem_{k}_max_abs_err" if k != "topk_excess" else "cem_topk_excess": v
+                    for k, v in errs.items()})
+    numbers.update({"cem_same_elite_sets": same_sets,
+                    "cem_update_u_abs_err": max_errors(u.cpu(), u_c)[0],
+                    "cem_update_mue_max_abs_err": max_errors(new.dist_mue.cpu(),
+                                                             new_c.dist_mue)[0]})
+    emit("fleet_update_vs_cpu", numbers)
+    check(errs["mue"] <= UNOM_ATOL and errs["std"] <= UNOM_ATOL,
+          f"the fleet CEM refit on the card differs from the CPU's {numbers}")
+    check(not same_sets or (numbers["cem_update_u_abs_err"] <= UNOM_ATOL
+                            and numbers["cem_update_mue_max_abs_err"] <= UNOM_ATOL),
+          f"the fleet CEM update on the card differs from the CPU's {numbers}")
+
+
+def fleet_timing(name: str, ctrl: BatchedMPCController, gen):
+    """Phase 40: FLEET_TIMING_TICKS ticks of every slot (after 5 warm-up)
+    from states near upright, the plants left out: host p50/p99, the device
+    span, sessions served a second at the host p50, and the host time of
+    the slots' draws alone.  Returns the timed tick, which ``--profile``
+    traces after every timing of the run: a host timed after a profiler
+    session reads slower."""
+    B, device = ctrl.num_slots, ctrl.device
+    s = (0.05 * torch.randn(B, 4, generator=gen, device=device)).cpu().numpy()
+    mask = np.ones(B, bool)
+    for _ in range(5):
+        ctrl.step_batch(s, mask)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host_ms, device_ms = [], []
+    for _ in range(FLEET_TIMING_TICKS):
+        start.record()
+        t0 = time.perf_counter()
+        ctrl.step_batch(s, mask)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    opt, gens = ctrl.optimizer, ctrl.slot_states.generator
+    draw = opt.sample_slot_noise if hasattr(opt, "sample_slot_noise") else opt.sample_slot_seeds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FLEET_TIMING_TICKS):
+        draw(gens, mask)
+    torch.cuda.synchronize()
+    numbers = {"slots": B, "ticks": FLEET_TIMING_TICKS,
+               "step_host_p50_ms": float(np.percentile(host_ms, 50)),
+               "step_host_p99_ms": float(np.percentile(host_ms, 99)),
+               "step_device_p50_ms": float(np.percentile(device_ms, 50)),
+               "sessions_per_s": B / (float(np.percentile(host_ms, 50)) / 1e3),
+               "slot_draws_host_ms": (time.perf_counter() - t0) * 1e3 / FLEET_TIMING_TICKS,
+               "slot_draw_launches": B}
+    emit(f"fleet_timing_{name}", numbers)
+    return lambda: ctrl.step_batch(s, mask)
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -1295,21 +1678,30 @@ def start_sweep() -> None:
         emit(f"starts_{label}", {"runs": len(held), "pole_up_runs": sum(held)})
 
 
-def profile_ticks(name: str, ctrl: MPCController) -> None:
-    """``torch.profiler`` over PROFILE_TICKS closed-loop ticks after
+def env_tick(ctrl: MPCController):
+    """One closed-loop tick of ``ctrl`` against CartpoleEnv(seed=SEED) a call."""
+    env = CartpoleEnv(batch_size=1, dt=DT, seed=SEED)
+    s = [env.reset()[0]]
+
+    def tick():
+        s[0], *_ = env.step(ctrl.step(s[0][0]))
+
+    return tick
+
+
+def profile_ticks(name: str, tick) -> None:
+    """``torch.profiler`` over PROFILE_TICKS calls of ``tick`` after
     PROFILE_WARMUP: device busy time and device operations per tick."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    env = CartpoleEnv(batch_size=1, dt=DT, seed=SEED)
-    s, _ = env.reset()
     for _ in range(PROFILE_WARMUP):
-        s, *_ = env.step(ctrl.step(s[0]))
+        tick()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_TICKS):
-            s, *_ = env.step(ctrl.step(s[0]))
+            tick()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TICKS
     per_kernel = {}
@@ -1546,12 +1938,37 @@ def main() -> None:
     runs["icem"] = counted_loop("slice_icem", icem, ZOO_TICKS, {"cost_rollout": its * ZOO_TICKS})
     runs["random_action"] = counted_loop("slice_random_action", random_action, ZOO_TICKS,
                                          {"cost_rollout": ZOO_TICKS})
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 34. One update on the card against the same update on the CPU.
     update_vs_cpu_cem("cem_update_vs_cpu", cem, CEM_CONFIG)
     update_vs_cpu_cem("cem_fused_update_vs_cpu", cem_fused, {**CEM_CONFIG, "fully_fused": True})
     update_vs_cpu_mppi("mppi_fused_update_vs_cpu", mppi_fused, config=FUSED_MPPI_CONFIG)
+
+    # 35-36. K4 and K6 against their plain versions at FLEET_B_MAX sessions.
+    fleet_mppi = fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B)
+    fleet_cem = fleet_controller("cuda", "cem-tf", FLEET_CEM_CONFIG, FLEET_B)
+    check(fleet_mppi._batched_kernel_eligible() and fleet_cem._batched_fused_cem_eligible(),
+          "the fleet controllers did not take K4 and K6")
+    k4 = compare_k4(fleet_mppi.optimizer, gen)
+    k6 = compare_k6(fleet_cem.optimizer, gen)
+
+    # 37-38. The fleet paths, closed loop, each counted from 0.
+    runs["fleet_mppi"] = fleet_loop("slice_fleet_mppi", fleet_mppi, FLEET_MPPI_TICKS,
+                                    {"mppi_cost_cols": FLEET_MPPI_TICKS})
+    runs["fleet_cem"] = fleet_loop("slice_fleet_cem", fleet_cem, FLEET_CEM_TICKS,
+                                   {"fused_cem_cols": FLEET_CEM_CONFIG["cem_outer_it"]
+                                    * FLEET_CEM_TICKS})
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
+    # 39. One fleet update on the card against the same update on the CPU.
+    fleet_update_vs_cpu(fleet_mppi, fleet_cem, gen)
+
+    # 40. Both fleet paths timed at FLEET_B and FLEET_B_MAX sessions.
+    fleet_ticks = {f"fleet_{label}_b{B}": fleet_timing(
+        f"{label}_b{B}", fleet_controller("cuda", optimizer, config, B), gen)
+        for B in (FLEET_B, FLEET_B_MAX)
+        for label, optimizer, config in (("mppi", "mppi", FLEET_MPPI_CONFIG),
+                                         ("cem", "cem-tf", FLEET_CEM_CONFIG))}
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
@@ -1560,7 +1977,9 @@ def main() -> None:
                         ("mppi-residual", adaptive), ("rpgd-tf-residual", res_rpgd),
                         ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd), ("cem", cem),
                         ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem)):
-            profile_ticks(name, c)
+            profile_ticks(name, env_tick(c))
+        for name, tick in fleet_ticks.items():
+            profile_ticks(name, tick)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
     check(not foreign, f"the port's main path imported {foreign}")
@@ -1579,6 +1998,8 @@ def main() -> None:
         ("fused_cem", "fused_cem.cu", "ops/pallas_cem.py:38", k5),
         ("fused_mppi_cost", "fused_mppi.cu", "ops/pallas_mppi.py:376", k3a),
         ("fused_mppi_weights", "fused_mppi.cu", "ops/pallas_mppi.py:376", k3b),
+        ("mppi_cost_cols", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", k4),
+        ("fused_cem_cols", "fused_cem_cols.cu", "ops/pallas_cem.py:168", k6),
     )
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

@@ -1,0 +1,298 @@
+"""Batched MPC: B independent control loops advanced by one step a tick
+(counterpart of control_toolkit_tpu/controllers/batched_mpc.py).
+
+One card serves B independent MPC sessions (robots, simulator instances,
+clients) with one kernel launch a tick for all of them.  Slots are fully
+independent: each has its own random stream (a generator seeded with
+``utils/rng.py:slot_seed(seed, i)``, the counterpart of ``fold_in(key,
+i)``), warm start, attributes and, with ``per_slot_dyn``, its own dynamics
+constants; a boolean mask freezes the slots that have no pending request,
+so an idle session keeps its warm start and its random stream exactly.
+
+Two session kinds are ported, each over its batched kernel:
+
+* semi-fused MPPI over an ODE model: one K4 launch a tick
+  (``MPPIOptimizer._make_batched_semi_fused_step``);
+* fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
+  outer iteration (``CEMOptimizer._make_batched_fused_cem_step``).
+
+Every other configuration raises ``NotImplementedError`` naming what is
+missing (ROADMAP A8): the neural, residual, GP, RPGD, gradient and
+recurrent batched steps, the vmapped per-slot step that the JAX package
+takes for everything else (a user's ``force_scan: true``, logging), the
+slot mesh, a learned value terminal and modular batched CEM.  Nothing
+falls back to a per-slot loop or to the CPU.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.optimizers.base import _not_ported, batched_kernel_core_ok
+from control_toolkit_tpu_torch.utils import registry
+from control_toolkit_tpu_torch.utils.rng import make_generator, slot_seed
+
+logger = logging.getLogger(__name__)
+
+
+def _stack_states(states: list):
+    """One state per slot -> the batched state: tensors stacked on a new
+    leading axis, the generators a tuple, host ints a numpy array."""
+    def stack(vals):
+        if isinstance(vals[0], torch.Tensor):
+            return torch.stack(vals)
+        if isinstance(vals[0], torch.Generator):
+            return tuple(vals)
+        return np.asarray(vals)
+
+    return type(states[0])(*(stack(list(vals)) for vals in zip(*states)))
+
+
+def _set_slot(full, one, i: int):
+    """``full`` with slot ``i`` replaced by ``one`` (a copy)."""
+    if isinstance(full, tuple):
+        return full[:i] + (one,) + full[i + 1:]
+    full = full.clone() if isinstance(full, torch.Tensor) else full.copy()
+    full[i] = one
+    return full
+
+
+@registry.controllers.register("batched-mpc")
+class BatchedMPCController(MPCController):
+    """B-slot MPC controller: ``configure(num_slots=B, ...)``, then
+    ``step_batch(s [B,S], mask [B], attrs_batch) -> u [B,U]``; the scalar
+    ``step`` drives slot 0."""
+
+    def configure(self, *args, num_slots: int = 1, mesh=None, slot_axis=None,
+                  per_slot_dyn=(), **kwargs) -> None:
+        """``per_slot_dyn`` names scalar dynamics constants (keys of the
+        predictor's params, e.g. cartpole ``L``) that vary per session: each
+        slot plans against its own model.  They start at the predictor's
+        defaults, change per slot through ``update_slot_dyn`` and reach the
+        kernel as the sessions' packed parameters, so a change rebuilds
+        nothing."""
+        if mesh is not None or slot_axis is not None:
+            raise _not_ported("the slot mesh (configure(mesh=..., slot_axis=...))")
+        super().configure(*args, **kwargs)
+        self.num_slots = B = int(num_slots)
+        if B < 1:
+            raise ValueError(f"num_slots must be at least 1, got {num_slots}")
+        opt = self.optimizer
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        self._per_slot_dyn = tuple(per_slot_dyn)
+        defaults = getattr(pred, "base", pred).default_params()
+        for k in self._per_slot_dyn:
+            if k not in defaults or np.ndim(defaults[k]) != 0:
+                raise ValueError(
+                    f"per_slot_dyn key {k!r} is not a scalar dynamics constant of this "
+                    f"predictor (have: {sorted(k for k in defaults if np.ndim(defaults[k]) == 0)})"
+                )
+        self._slot_dyn_defaults = {k: float(defaults[k]) for k in self._per_slot_dyn}
+        self.slot_dyn: Dict[str, np.ndarray] = {
+            k: np.full((B,), v, np.float32) for k, v in self._slot_dyn_defaults.items()
+        }
+
+        if self._batched_kernel_eligible():
+            self._kstep, _ = opt._make_batched_semi_fused_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "semi-fused MPPI (K4)"
+        elif self._batched_fused_cem_eligible():
+            self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "fully-fused CEM (K6)"
+        else:
+            raise self._refusal()
+        logger.info(f"batched-mpc: {kind}, B={B} x K={opt.num_rollouts} in one launch"
+                    + (f", per-slot dyn {list(self._per_slot_dyn)}" if self._per_slot_dyn else ""))
+        self.slot_states = self._init_slot_states()
+        self.slot_attrs: Dict[str, np.ndarray] = {
+            k: np.full((B,), float(torch.as_tensor(v).reshape(-1)[0]), np.float32)
+            for k, v in self.variable_parameters.items()
+        }
+
+    def _batched_kernel_eligible(self) -> bool:
+        """K4's gate (JAX ``batched_mpc.py:459`` without its TPU
+        conjuncts): plain semi-fused MPPI over an ODE model of a device
+        plant, and K a multiple of 8 (the sessions' rollout order)."""
+        from control_toolkit_tpu_torch.ops.counter_prng import ROWS
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+        from control_toolkit_tpu_torch.optimizers.mppi import MPPIOptimizer
+
+        opt = self.optimizer
+        return (
+            type(opt) is MPPIOptimizer
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
+                                       stateful=self.predictor.is_stateful)
+            and opt.semi_fused
+            and not opt.bounded_update
+            and ode.compatible_model(opt)
+            and opt.num_rollouts % ROWS == 0
+        )
+
+    def _batched_fused_cem_eligible(self) -> bool:
+        """K6's gate (JAX ``batched_mpc.py:589`` without its TPU
+        conjuncts): plain CEM with ``fully_fused``, warmup off, an ODE
+        model of a device plant, and K a multiple of 8 (K6's counter
+        layout)."""
+        from control_toolkit_tpu_torch.ops.counter_prng import ROWS
+        from control_toolkit_tpu_torch.optimizers.cem import CEMOptimizer
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        opt = self.optimizer
+        return (
+            type(opt) is CEMOptimizer
+            and opt.fully_fused
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
+                                       stateful=self.predictor.is_stateful)
+            and not opt.warmup
+            and ode.compatible_model(opt)
+            and opt.num_rollouts % ROWS == 0
+        )
+
+    def _refusal(self) -> NotImplementedError:
+        """The missing piece that this configuration's batched step needs."""
+        from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
+        from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
+        from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
+        from control_toolkit_tpu_torch.optimizers.cem import CEMOptimizer
+        from control_toolkit_tpu_torch.optimizers.gradient import GradientOptimizer
+        from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
+
+        opt = self.optimizer
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if self.predictor.is_stateful:
+            return _not_ported("the batched recurrent (GRU/LSTM) step (K13's hidden_per_lane form)")
+        if getattr(cf, "post_terminal_cost", None) is not None:
+            return _not_ported("a learned value terminal in batched mode (K4's emit_terminal form)")
+        if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
+            return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
+                               "or the optimal trajectory)")
+        for cls, what in ((NeuralPredictor, "the batched neural MLP step (K11's slot_keys form)"),
+                          (ResidualPredictor, "the batched residual step (K12's slot_keys form)"),
+                          (GPPredictor, "the batched GP step (K14's slot_keys form)")):
+            if isinstance(pred, cls):
+                return _not_ported(what)
+        for cls, what in ((RPGDOptimizer, "the batched RPGD step (K7's slot_keys form)"),
+                          (GradientOptimizer, "the batched gradient step (K7's slot_keys form)")):
+            if isinstance(opt, cls):
+                return _not_ported(what)
+        if type(opt) is CEMOptimizer and not opt.fully_fused:
+            return _not_ported("the modular batched CEM step")
+        return _not_ported(f"the vmapped per-slot batched step ({opt.registered_name}, "
+                           f"K={opt.num_rollouts})")
+
+    # ---- slot management ---------------------------------------------------
+    def _slot_generator(self, i: int) -> torch.Generator:
+        return make_generator(slot_seed(self.optimizer._seed, i), self.device)
+
+    def _init_slot_states(self):
+        opt = self.optimizer
+        return _stack_states([opt._init_state(self._slot_generator(i))
+                              for i in range(self.num_slots)])
+
+    def reset_slot(self, i: int) -> None:
+        """Slot ``i``'s initial warm start and random stream, as its first
+        tick had them; its dynamics constants are kept (``reset_slot_dyn``)."""
+        new = self.optimizer._init_state(self._slot_generator(i))
+        self.slot_states = type(new)(*(_set_slot(full, one, i)
+                                       for full, one in zip(self.slot_states, new)))
+
+    def update_slot_dyn(self, i: int, updated: Optional[Dict]) -> None:
+        """Update slot ``i``'s per-session dynamics constants (keys named in
+        ``configure(per_slot_dyn=...)``), e.g. commit a per-robot sysid
+        result; no rebuild.  The whole update is validated before any key
+        is committed: a rejected value (one NaN constant) must not leave the
+        slot planning with a half-applied model."""
+        staged = []
+        for k, v in (updated or {}).items():
+            if k not in self.slot_dyn:
+                logger.warning(f"slot {i}: dynamics constant {k!r} was not named in "
+                               "per_slot_dyn at configure time; ignored")
+                continue
+            flat = np.asarray(v, np.float32).reshape(-1)
+            if flat.shape[0] != 1:
+                logger.warning(f"slot {i}: dynamics constant {k!r} has {flat.shape[0]} "
+                               "elements; per-slot constants are scalars, using element 0")
+            val = float(flat[0])
+            if not np.isfinite(val):
+                raise ValueError(f"slot {i}: dynamics constant {k!r} must be finite, got {v!r}")
+            staged.append((k, val))
+        for k, val in staged:
+            self.slot_dyn[k][i] = val
+
+    def reset_slot_dyn(self, i: int) -> None:
+        """Slot ``i``'s dynamics constants back to the predictor's defaults
+        (a slot handed to a new client), unlike ``reset_slot``, which keeps
+        the model."""
+        for k, v in self._slot_dyn_defaults.items():
+            self.slot_dyn[k][i] = v
+
+    def update_slot_attributes(self, i: int, updated: Optional[Dict]) -> None:
+        for k, v in (updated or {}).items():
+            if k not in self.slot_attrs:
+                logger.warning(f"slot {i}: attribute {k!r} was not configured at construction; "
+                               "ignored (batched attrs are fixed-key)")
+                continue
+            flat = np.asarray(v, np.float32).reshape(-1)
+            if flat.shape[0] != 1:
+                logger.warning(f"slot {i}: attribute {k!r} has {flat.shape[0]} elements; "
+                               "batched slots hold scalars, using element 0")
+            self.slot_attrs[k][i] = float(flat[0])
+
+    # ---- hot path ------------------------------------------------------------
+    def _freeze(self, mask_np: np.ndarray, u, new, old):
+        """Frozen slots keep their state exactly (their generators drew
+        nothing) and emit u = 0."""
+        mask = torch.as_tensor(mask_np, device=self.device)
+
+        def keep(n, o):
+            if isinstance(n, torch.Tensor):
+                return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+            if isinstance(n, np.ndarray):
+                return np.where(mask_np.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+            return n
+
+        return torch.where(mask[:, None], u, 0.0), type(new)(*(keep(n, o) for n, o in zip(new, old)))
+
+    def step_batch(self, s_batch: np.ndarray, mask: Optional[np.ndarray] = None,
+                   updated_attributes: Optional[List[Optional[Dict]]] = None) -> np.ndarray:
+        B = self.num_slots
+        if updated_attributes:
+            if len(updated_attributes) > B:
+                logger.warning(f"step_batch got {len(updated_attributes)} attribute entries "
+                               f"for {B} slots; extras ignored")
+            for i, upd in enumerate(updated_attributes[:B]):
+                self.update_slot_attributes(i, upd)
+        if self.cost_function.update_cost_parameters_from_config():
+            self._cost_params = None
+        params = self._assemble_params()
+        dyn = dict(params["dyn"], **{k: torch.as_tensor(v, device=self.device)
+                                     for k, v in self.slot_dyn.items()})
+        mask_np = np.ones((B,), bool) if mask is None else np.asarray(mask, bool).reshape(B)
+        s = torch.as_tensor(np.asarray(s_batch, np.float32).reshape(B, 1, -1), device=self.device)
+        attrs = {k: torch.as_tensor(v, device=self.device) for k, v in self.slot_attrs.items()}
+        u, new, _ = self._kstep(self.slot_states, s, dyn, params["cost"], attrs, mask_np)
+        u, self.slot_states = self._freeze(mask_np, u, new, self.slot_states)
+        u_host = u.cpu().numpy()
+        # Per-slot NaN guard: a diverged slot commands zero and resets alone.
+        bad = ~np.all(np.isfinite(u_host), axis=-1)
+        for i in np.nonzero(bad)[0]:
+            logger.warning(f"slot {i} produced non-finite control; resetting")
+            self.reset_slot(int(i))
+        u_host[bad] = 0.0
+        return u_host
+
+    def step(self, s, time=None, updated_attributes: Optional[Dict] = None):
+        """The scalar controller's surface: drive slot 0."""
+        B = self.num_slots
+        s_batch = np.zeros((B, np.asarray(s).reshape(-1).shape[0]), np.float32)
+        s_batch[0] = np.asarray(s, np.float32).reshape(-1)
+        mask = np.zeros((B,), bool)
+        mask[0] = True
+        return self.step_batch(s_batch, mask, [updated_attributes] + [None] * (B - 1))[0]
+
+    def controller_reset(self) -> None:
+        self.slot_states = self._init_slot_states()

@@ -3,19 +3,15 @@
 //
 // Replaces control_toolkit_tpu/ops/pallas_cem.py:build_fused_cem (kernel
 // :89-121, call :133).  Python wrapper, plain version and the elite
-// regeneration: ops/fused_cem.py.
+// regeneration: ops/fused_cem.py.  The per-rollout arithmetic is
+// cem_core.cuh's, which K6 (fused_cem_cols.cu) shares.
 //
 // Thread g owns rollout g of the JAX cost order (counter_prng.cuh
-// tile_coords: sublane r, tile t, lane c, C = tile_k / 8).  Its control at
-// step h and input j is
-//   u = clamp(mue[h,j] + std[h,j] * z, low[j], high[j]),
-//   z = counter_normal(seed*FNV + (off+t)*H*tile_k*U + j*H*tile_k + h*tile_k + r*C + c)
-// in uint32 arithmetic (h*tile_k + r*C + c is (h*8 + r)*C + c), and the
-// rollout is K1's (rollout_core.cuh Rollout).  mue + std*z is rounded
-// twice, as torch and XLA compute it (no FMA contraction), so the elite
-// rows that ops/fused_cem.py regenerates are the controls this kernel
-// scored.  seed2 = [seed, tile offset] is read from device memory: a seed
-// drawn on the card is never copied to the host.
+// tile_coords: sublane r, tile t, lane c, C = tile_k / 8).  Its counters are
+//   seed*FNV + (off+t)*H*tile_k*U + j*H*tile_k + h*tile_k + r*C + c
+// in uint32 arithmetic (h*tile_k + r*C + c is (h*8 + r)*C + c).  seed2 =
+// [seed, tile offset] is read from device memory: a seed drawn on the card
+// is never copied to the host.
 //
 // What bounds it on an H100: the serial H-step rk4 chain, as K1, plus per
 // control two splitmix32 hashes (three 32-bit multiplies, three shifts and
@@ -23,8 +19,7 @@
 // The population never touches device memory, which is the point of the
 // TPU kernel, and the design keeps it so.  Grid fill is K1's: at K=16384,
 // 128 blocks of 128 threads on 132 SMs.
-#include "counter_prng.cuh"
-#include "rollout_core.cuh"
+#include "cem_core.cuh"
 
 namespace ctt {
 
@@ -52,21 +47,8 @@ fused_cem_kernel(const float* __restrict__ s0, const float* __restrict__ mue,
   const uint32_t base = static_cast<uint32_t>(__ldg(seed2)) * kFnv +
                         (static_cast<uint32_t>(__ldg(seed2 + 1)) + tc.t) * (stride * U) +
                         tc.r * static_cast<uint32_t>(C) + tc.c;
-  Rollout<Plant> r;
-  r.start(s0, p);
-  for (int h = 0; h < H; ++h) {
-    float u[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      const uint32_t counter =
-          base + static_cast<uint32_t>(j) * stride + static_cast<uint32_t>(h * tile_k);
-      const float z = counter_normal(counter);
-      const float v = __fadd_rn(__ldg(mue + h * U + j), __fmul_rn(__ldg(std_dev + h * U + j), z));
-      u[j] = fminf(fmaxf(v, lo[j]), hi[j]);
-    }
-    r.advance(u, p, c, max_cost);
-  }
-  cost[g] = r.finish(p, H);
+  cost[g] = cem_rollout_cost<Plant>(s0, mue, std_dev, p, lo, hi, base, stride,
+                                    static_cast<uint32_t>(tile_k), H, c, max_cost);
 }
 
 }  // namespace ctt

@@ -4,33 +4,17 @@
 // Replaces control_toolkit_tpu/ops/pallas_mppi.py:make_cost_run
 // (make_run.external, kernel body kernel1_ext over rollout_cost_core), the
 // default MPPI step's kernel.  Python wrapper and plain version:
-// ops/mppi_cost.py.
-//
-// For rollout k and step h, with p0 <= p1 = p0+1 the inducing points that
-// bracket h in the [P, H] interpolation matrix W:
-//   d_j   = W[p0,h] * eps[p0,j,k] + W[p1,h] * eps[p1,j,k]
-//   u_j   = clamp(u_nom[h,j] + d_j, low[j], high[j])
-//   corr += cc * ((c1*d_j)*d_j + (r*u_j)*d_j + (c3*u_j)*u_j)
-//           with c1 = 0.5*(1-1/NU)*R, r = R, c3 = 0.5*R
-// cost[k] = (sum_h stage + terminal) / (H+1) + corr   (corr is not averaged)
-//
-// eps is [P, U, K] with the rollout index fastest, so a warp's 32 loads of
-// one (p, j) are 128 contiguous bytes.  W is read from the matrix itself
-// (not recomputed from the period), so the kernel uses the same float32
-// weights as the reference.
+// ops/mppi_cost.py.  The per-rollout arithmetic is mppi_core.cuh's, which
+// K4 (mppi_cost_cols.cu) shares.
 //
 // What bounds it on an H100: as K1 (cost_rollout.cu), the serial H-step
 // rk4 chain per thread in FP32; the eps reads are 2*H*U coalesced loads
 // per rollout.  At K=16384 the grid is 128 blocks of 128 threads for 132
 // SMs, about four warps per SM, which cannot hide that chain's latency.
 // Nothing in the design addresses it yet.
-#include "rollout_core.cuh"
+#include "mppi_core.cuh"
 
 namespace ctt {
-
-struct CorrConsts {
-  float cc, c1, r, c3;
-};
 
 template <class Plant>
 __global__ void __launch_bounds__(kThreads)
@@ -50,31 +34,7 @@ mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
     lo[j] = __ldg(low + j);
     hi[j] = __ldg(high + j);
   }
-  Rollout<Plant> r;
-  r.start(s0, p);
-  float corr = 0.0f;
-  int p0 = 0;
-  for (int h = 0; h < H; ++h) {
-    // The left bracket moves right where its weight has dropped to zero.
-    while (p0 + 1 < P && __ldg(W + p0 * H + h) == 0.0f) ++p0;
-    const bool two = p0 + 1 < P;
-    const float w0 = __ldg(W + p0 * H + h);
-    const float w1 = two ? __ldg(W + (p0 + 1) * H + h) : 0.0f;
-    float u[U], d[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      float dj = w0 * __ldg(eps + (static_cast<size_t>(p0) * U + j) * K + k);
-      if (two) dj = dj + w1 * __ldg(eps + (static_cast<size_t>(p0 + 1) * U + j) * K + k);
-      d[j] = dj;
-      u[j] = fminf(fmaxf(__ldg(u_nom + h * U + j) + dj, lo[j]), hi[j]);
-    }
-    r.advance(u, p, c, max_cost);
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      corr = corr + cc.cc * ((cc.c1 * d[j] * d[j] + cc.r * u[j] * d[j]) + cc.c3 * u[j] * u[j]);
-    }
-  }
-  cost[k] = r.finish(p, H) + corr;
+  cost[k] = mppi_rollout_cost<Plant>(s0, u_nom, p, eps, k, K, W, H, P, lo, hi, c, max_cost, cc);
 }
 
 }  // namespace ctt

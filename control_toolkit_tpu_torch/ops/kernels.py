@@ -28,8 +28,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
-           "fused_mppi.cu")
-HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "gp_core.cuh", "counter_prng.cuh")
+           "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
+HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "gp_core.cuh", "counter_prng.cuh",
+           "mppi_core.cuh", "cem_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -390,6 +391,11 @@ def load() -> ctypes.CDLL:
             i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_mppi_cost.restype = i32
+        lib.ctt_mppi_cost_cols.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+            i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
+        ]
+        lib.ctt_mppi_cost_cols.restype = i32
         lib.ctt_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32, ptr,
         ]
@@ -425,6 +431,9 @@ def load() -> ctypes.CDLL:
         lib.ctt_fused_cem.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                       *step, f32, ptr]
         lib.ctt_fused_cem.restype = i32
+        lib.ctt_fused_cem_cols.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                           i32, *step, f32, ptr]
+        lib.ctt_fused_cem_cols.restype = i32
         lib.ctt_fused_mppi_cost.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, *step,
             f32, f32, f32, f32, f32, f32, ptr,

@@ -32,6 +32,79 @@ def _not_ported(feature: str) -> NotImplementedError:
     )
 
 
+def partition_packed_keys(param_keys, extra_slot_keys=()):
+    """``(shared_keys, slot_keys)`` of the packed scalar params over
+    already-prefixed extras (``d_<name>`` / ``c_<name>``): attributes
+    (``a_*``) and the previous control (``__u_prev_*``) are always per
+    session, the extras join them."""
+    slot_prefixes = ("a_", "__u_prev_")
+    extra = frozenset(extra_slot_keys)
+    unknown = extra - set(param_keys)
+    if unknown:
+        raise ValueError(f"per-slot keys {sorted(unknown)} not in "
+                         "the packed scalar params")
+    slot_keys = [k for k in param_keys if k.startswith(slot_prefixes) or k in extra]
+    shared_keys = [k for k in param_keys if k not in slot_keys]
+    return shared_keys, slot_keys
+
+
+def split_slot_keys(param_keys, per_slot_dyn=(), per_slot_cost=()):
+    """``partition_packed_keys`` from bare dynamics and cost names."""
+    return partition_packed_keys(
+        param_keys,
+        tuple(f"d_{k}" for k in per_slot_dyn) + tuple(f"c_{k}" for k in per_slot_cost),
+    )
+
+
+def make_slot_packer(param_keys, slot_keys, attr_defaults, B: int, device):
+    """The batched kernels' parameter packer: ``pack(u_prev_b [B,U], dyn,
+    cost, attrs) -> pvec_b [B, N]``, row b session b's packed vector in the
+    single-session ``pack``'s key order (``Optimizer._soa_bindings``).
+    Shared values (dynamics constants, cost weights) are broadcast over the
+    sessions; the ``slot_keys`` (attributes, ``__u_prev_*``, per-slot
+    ``d_*``/``c_*``) take a ``[B]`` tensor, or a scalar broadcast (a missing
+    attribute takes the cost's default).  The kernels read a session's row
+    by index: on the card per-session scalars are not lane rows."""
+    slot = frozenset(slot_keys)
+    attr_defaults = dict(attr_defaults)
+
+    def pack(u_prev_b, dyn, cost, attrs):
+        cols = []
+        for k in param_keys:
+            if k.startswith("__u_prev_"):
+                v = u_prev_b[:, int(k.rsplit("_", 1)[1])]
+            elif k.startswith("a_"):
+                v = attrs.get(k[2:])
+                if v is None:
+                    v = float(attr_defaults.get(k[2:], 0.0))
+            else:
+                v = dyn[k[2:]] if k.startswith("d_") else cost[k[2:]]
+            v = torch.as_tensor(v, dtype=torch.float32, device=device)
+            if k not in slot and v.ndim != 0:
+                raise ValueError(f"shared parameter {k!r} must be a scalar; name it per slot")
+            cols.append(torch.broadcast_to(v.reshape(-1), (B,)))
+        return torch.stack(cols, dim=1)
+
+    return pack
+
+
+def batched_kernel_core_ok(opt, *, force_scan: bool, stateful: bool = False) -> bool:
+    """The conjunction every batched-kernel gate shares: no user
+    ``force_scan`` opt-out, a stateless predictor, no logging or optimal
+    trajectory (per-session diagnostics) and no post-terminal hook (no
+    ported batched kernel carries one: K4's ``emit_terminal`` form is not
+    ported).  The JAX gate's K-sharding mesh conjunct has no counterpart:
+    the port refuses a mesh."""
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    return (
+        not force_scan
+        and not stateful
+        and not opt.optimizer_logging
+        and not opt.calculate_optimal_trajectory
+        and getattr(cf, "post_terminal_cost", None) is None
+    )
+
+
 class Optimizer:
     registered_name: str = "template"
 

@@ -25,9 +25,11 @@ by a deterministic ``update(state, s, params, draws)``, so tests can feed
 both packages the same random numbers.  The tick counter is a host int,
 so the warmup trip count is a host decision.
 
-Not ported (``NotImplementedError``, ROADMAP): the policy warm start
-(``_apply_policy_guess``) and the batched-session steps
-(``_make_batched_cem_step``, ``_make_batched_fused_cem_step``).
+The batched-mpc controller's B-session step is the fused one
+(``_make_batched_fused_cem_step``): one K6 launch an outer iteration
+(``ops/fused_cem_cols.py``).  Not ported (``NotImplementedError``,
+ROADMAP): the policy warm start (``_apply_policy_guess``) and the modular
+batched step (``_make_batched_cem_step``).
 """
 from __future__ import annotations
 
@@ -63,11 +65,14 @@ def cem_base_carry(mue, std, K, H, U, S, want_Q, want_traj):
 
 def cem_shift_distribution(mue, std, u_mid, stdev_min: float, init_stdev: float, U: int):
     """Control-step boundary shift shared by CEM and iCEM: clip sigma, shift
-    mu and sigma one step, pad the tails with the initial defaults."""
+    mu and sigma one step, pad the tails with the initial defaults.  ``mue``
+    and ``std`` are ``[n, H, U]``: one session (n = 1) or B."""
+    n = mue.shape[0]
     std = torch.clamp(std, stdev_min, 1.0e8)
-    std = torch.cat([std[:, 1:, :], torch.full((1, 1, U), init_stdev, dtype=torch.float32,
+    std = torch.cat([std[:, 1:, :], torch.full((n, 1, U), init_stdev, dtype=torch.float32,
                                                device=std.device)], dim=1)
-    mue = torch.cat([mue[:, 1:, :], u_mid.reshape(1, 1, U).to(torch.float32)], dim=1)
+    mue = torch.cat([mue[:, 1:, :], u_mid.reshape(1, 1, U).to(torch.float32).expand(n, 1, U)],
+                    dim=1)
     return mue, std
 
 
@@ -145,8 +150,87 @@ class CEMOptimizer(Optimizer):
     def _make_batched_cem_step(self, num_slots: int, **kwargs):
         raise _not_ported("the batched-session CEM step")
 
-    def _make_batched_fused_cem_step(self, num_slots: int, **kwargs):
-        raise _not_ported("the batched-session fully-fused CEM step (K6)")
+    def sample_slot_seeds(self, generators, mask) -> torch.Tensor:
+        """The batched fused step's draw, K6's seeds ``[cem_outer_it, B]``
+        (int32, on the device): one ``randint`` of ``cem_outer_it`` seeds
+        from each active slot's generator, zeros for a frozen slot (it
+        draws nothing)."""
+        its = self.cem_outer_it
+        zeros = torch.zeros(its, dtype=torch.int32, device=self.device)
+        return torch.stack([
+            torch.randint(0, 2**31 - 1, (its,), generator=g, dtype=torch.int32,
+                          device=self.device) if on else zeros
+            for g, on in zip(generators, mask)
+        ], dim=1)
+
+    def _make_batched_fused_cem_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session fully-fused CEM step for the batched-mpc controller
+        (JAX ``cem.py:332-480``): each outer iteration scores every
+        session's population in one K6 launch (``ops/fused_cem_cols.py``),
+        takes each session's ``cem_best_k`` elites with one ``torch.topk``
+        over ``[B, K]``, draws their rows again with ``regen_cols`` (one set
+        of launches whatever B is) and refits; then each session's
+        distribution shifts.  ``per_slot_dyn`` constants reach K6 through
+        the sessions' ``pvec_b`` rows.
+
+        Returns ``(step, update)``: ``step(states, s [B,1,S], dyn, cost,
+        attrs, mask [B]) -> (u [B,U], states', costs [B,K])`` over the
+        stacked state (``generator`` a tuple of the slots' generators,
+        ``dist_mue``/``stdev [B,1,H,U]``, ``count`` a numpy ``[B]``,
+        ``u_prev [B,U]``); ``update(states, s, dyn, cost, attrs, seeds
+        [its, B] int32)`` is the deterministic part, for tests that feed
+        the JAX seeds.  Each active slot draws its ``cem_outer_it`` seeds
+        on the device from its own generator; a frozen one (``mask``
+        false) draws nothing, so a session's draws depend neither on B nor
+        on the other slots' masks."""
+        from control_toolkit_tpu_torch.ops.counter_prng import ROWS
+        from control_toolkit_tpu_torch.ops.fused_cem_cols import fused_cem_cols, regen_cols
+        from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        if self.warmup:
+            raise NotImplementedError(
+                "batched fused CEM requires warmup=False (shared outer-loop trip count)")
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if cf.post_terminal_cost is not None:
+            raise NotImplementedError(
+                "batched fused CEM does not evaluate a learned value terminal")
+        if not ode.compatible_model(self):
+            raise ValueError("batched fused CEM covers the ODE models of the device plants")
+        B, K = int(num_slots), self.num_rollouts
+        U, its = self.num_control_inputs, self.cem_outer_it
+        if K % ROWS:
+            raise ValueError(f"batched fused CEM needs K % {ROWS} == 0; got K={K}")
+        model, _ = ode.rollout_model(self)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
+        low, high, best_k = self.action_low, self.action_high, self.cem_best_k
+        u_mid = 0.5 * (low + high)
+
+        def update(states, s, dyn, cost, attrs, seeds):
+            if len(seeds) != its:
+                raise ValueError(f"{len(seeds)} seed rows for {its} outer iterations")
+            pvec_b = pack(states.u_prev, dyn, cost, attrs)
+            s0 = s[:, 0, :].contiguous()
+            mue, std = states.dist_mue[:, 0], states.stdev[:, 0]           # [B, H, U]
+            for seed_b in seeds:
+                costs = fused_cem_cols(model, s0, mue, std, pvec_b, seed_b, low, high, K)
+                elite = regen_cols(seed_b, elite_indices(costs, best_k), mue, std, low, high, K)
+                mue = torch.mean(elite, dim=1)
+                std = torch.std(elite, dim=1, correction=0)
+                elite0 = elite[:, 0]
+            u = elite0[:, 0, :]
+            mue, std = cem_shift_distribution(mue, std, u_mid, self.cem_stdev_min,
+                                              self.cem_initial_action_stdev, U)
+            new = CEMState(generator=states.generator, dist_mue=mue[:, None], stdev=std[:, None],
+                           count=states.count + 1, u_prev=u)
+            return u, new, costs
+
+        def step(states, s, dyn, cost, attrs, mask):
+            return update(states, s, dyn, cost, attrs,
+                          self.sample_slot_seeds(states.generator, mask))
+
+        return step, update
 
     def _can_fully_fuse(self) -> bool:
         """K5 scores the population: the option is on, logging is off (the

@@ -28,7 +28,9 @@ chooses them:
 
 Where the fully-fused gate is false, ``fully_fused`` takes the semi-fused
 path, as the JAX gate does: an options rule, not a fall back from a
-failed kernel.  Not ported yet (they raise ``NotImplementedError``,
+failed kernel.  The batched-mpc controller's B-session step
+(``_make_batched_semi_fused_step``) scores every session in one K4 launch
+(``ops/mppi_cost_cols.py``).  Not ported yet (they raise ``NotImplementedError``,
 ROADMAP): ``optim_steps > 0`` (mppi-optimize),
 ``calculate_optimal_trajectory``.
 """
@@ -284,6 +286,77 @@ class MPPIOptimizer(Optimizer):
             return u, MPPIState(state.generator, u_nom, u), diag
 
         return update
+
+    def sample_slot_noise(self, generators, mask) -> torch.Tensor:
+        """The batched step's draw, pre-scaled, ``[B, P, U, K]``: one
+        ``randn`` from each active slot's generator, zeros for a frozen slot
+        (it draws nothing)."""
+        P = self.interp.number_of_interpolation_inducing_points
+        shape = (P, self.num_control_inputs, self.num_rollouts)
+        zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return torch.stack([
+            torch.randn(shape, generator=g, dtype=torch.float32, device=self.device)
+            if on else zeros
+            for g, on in zip(generators, mask)
+        ]) * self.SQRTRHODTINV
+
+    def _make_batched_semi_fused_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session semi-fused MPPI step for the batched-mpc controller
+        (JAX ``mppi.py:369-511``): all B sessions' rollouts in one K4
+        launch (``ops/mppi_cost_cols.py``), each session reading its own
+        initial state, shifted nominal plan, attributes, previous control
+        and ``per_slot_dyn`` constants (``pvec_b``); the softmax and the
+        weighted average at the inducing points run per session as torch
+        ops over ``[B, K]``.
+
+        Returns ``(step, update_from_eps)``: ``step(states, s [B,1,S], dyn,
+        cost, attrs, mask [B]) -> (u [B,U], states', costs [B,K])`` over the
+        stacked state (``generator`` a tuple of the slots' generators,
+        ``u_nom [B,1,H,U]``, ``u_prev [B,U]``); ``update_from_eps(states, s,
+        dyn, cost, attrs, eps [B,P,U,K]) -> (u_nom_new [B,H,U], costs)`` is
+        the deterministic part, for tests that feed the JAX draws.  Each
+        active slot draws its noise from its own generator and a frozen one
+        (``mask`` false) draws nothing, so a session's draws depend neither
+        on B nor on the other slots' masks."""
+        from control_toolkit_tpu_torch.ops.counter_prng import ROWS
+        from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols
+        from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if cf.post_terminal_cost is not None:
+            raise _not_ported("K4's emit_terminal form (a learned value terminal in batched MPPI)")
+        if not ode.compatible_model(self):
+            raise ValueError("semi-fused batched MPPI covers the ODE models of the device plants")
+        B, K = int(num_slots), self.num_rollouts
+        if K % ROWS:
+            raise ValueError(f"batched MPPI needs K % {ROWS} == 0; got K={K}")
+        model, _ = ode.rollout_model(self)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
+        W, low, high = self.interp.matrix, self.action_low, self.action_high
+        cc_weight, R, NU = self.cc_weight, self.R, self.NU
+        weight_fn = make_weight_fn(self.weighting, self.LBD)
+
+        def update_from_eps(states, s, dyn, cost, attrs, eps):
+            u_nom = torch.cat([states.u_nom[:, 0, 1:, :], states.u_nom[:, 0, -1:, :]], dim=1)
+            pvec_b = pack(states.u_prev, dyn, cost, attrs)
+            costs = mppi_cost_cols(model, s[:, 0, :].contiguous(), u_nom, pvec_b, eps, W, low,
+                                   high, cc_weight, R, NU)                # [B, K]
+            w = weight_fn(costs, (1,))
+            # Per session: the weighted average at the inducing points, then
+            # one interpolation (linearity, as the single-session update).
+            ws = torch.einsum("bk,bpuk->bup", w, eps) / torch.sum(w, dim=1)[:, None, None]
+            b_upd = torch.einsum("ph,bup->bhu", W, ws)
+            return torch.clamp(u_nom + b_upd, low, high), costs
+
+        def step(states, s, dyn, cost, attrs, mask):
+            u_nom, costs = update_from_eps(states, s, dyn, cost, attrs,
+                                           self.sample_slot_noise(states.generator, mask))
+            u = u_nom[:, 0, :]
+            return u, MPPIState(states.generator, u_nom[:, None], u), costs
+
+        return step, update_from_eps
 
     def _make_modular_update(self):
         K = self.num_rollouts

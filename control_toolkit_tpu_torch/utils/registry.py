@@ -58,6 +58,7 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.optimizers.icem",
     "control_toolkit_tpu_torch.optimizers.random_action",
     "control_toolkit_tpu_torch.controllers.mpc",
+    "control_toolkit_tpu_torch.controllers.batched_mpc",
     "control_toolkit_tpu_torch.costs.cartpole",
     "control_toolkit_tpu_torch.models.predictors",
     "control_toolkit_tpu_torch.models.neural_predictor",

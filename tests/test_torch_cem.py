@@ -242,12 +242,14 @@ def test_fused_gate():
 
 
 def test_unported_cem_features_raise():
+    """The modular batched step and the policy warm start raise; the fused
+    batched step (K6) builds."""
     _, pctrl = make_pair(**cem_config())
     opt = pctrl.optimizer
     with pytest.raises(NotImplementedError):
         opt._make_batched_cem_step(2)
-    with pytest.raises(NotImplementedError):
-        opt._make_batched_fused_cem_step(2)
+    step, update = opt._make_batched_fused_cem_step(2)
+    assert callable(step) and callable(update)
     with pytest.raises(NotImplementedError):
         opt._apply_policy_guess(opt.opt_state, None)
 
