@@ -29,9 +29,13 @@ The learned-dynamics paths: the same controllers over the committed nets
 11. K11 (neural_cost_rollout) against its plain version, and the cost bound
     against the plain version's output with norm_out dropped and with tanh
     on the last layer;
-12. K8 (neural_grad_cost_rollout) against its plain version, and the dQ
-    bound against dQ with one layer's tanh' dropped, the delta form's
-    identity dropped, and norm_in's scaling dropped in the backward;
+12. K8 (neural_grad_cost_rollout) against its plain version, also at
+    ragged K (1000 and 8) and over a seeded MLP wider than its register
+    path (5-72-72-4), and the dQ bound against dQ with one layer's tanh'
+    dropped, the delta form's identity dropped, and norm_in's scaling
+    dropped in the backward; then its resources (registers, spills, shared
+    memory, blocks per SM, HMMA instructions in its SASS) and its
+    tensor-core bound;
 13. K13 (recurrent_cost_rollout) against its plain version, for the GRU
     and for an LSTM of the same widths (seeded random weights);
 14. 200 closed-loop MPPI ticks over the MLP (one K11 launch per tick), with
@@ -51,8 +55,10 @@ and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
     residual, and the cost bound against the plain arithmetic with the
     residual dropped and with the residual added to x in place of the base
     step;
-19. K9 (residual_grad_cost_rollout) against its plain version, and the dQ
-    bound against dQ with the MLP's VJP dropped;
+19. K9 (residual_grad_cost_rollout) against its plain version, also at
+    ragged K and over a wide residual net, and the dQ bound against dQ with
+    the MLP's VJP dropped; then its resources and tensor-core bound, as
+    K8's;
 20. K14 (gp_cost_rollout) and 21. K10 (gp_grad_cost_rollout) against their
     plain versions over a well-conditioned GP of the committed one's widths
     (``well_conditioned_gp``), to K11's and K7's bounds, and those bounds
@@ -162,9 +168,11 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -307,7 +315,13 @@ NET_TOL = dict(rtol=5e-5, atol=1e-3)
 RNN_TOL = dict(rtol=1e-3, atol=1e-3)
 # K8's dQ is held to K7's bound (rtol 2e-5 plus 5e-6 of max|dQ|): on the
 # H100 its error was 1.6e-3 to 1.8e-3 against max|dQ| 1.6e3 (1.1e-6 of it),
-# each of phase 12's wrong backwards at least 480.
+# each of phase 12's wrong backwards at least 480.  K8 and K9 are also held
+# at ragged K (RAGGED_K: not a multiple of their 16-rollout warps, and below
+# one warp) and over seeded nets wider than their register path
+# (WIDE_HIDDENS, WIDE_SEED), to the same bounds.
+RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
+# K8's and K9's time is also taken at these K (per_warp_ms).
+K_SCALING = (2048, 8192)
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
 # The adaptive-MPC and sparse-GP paths: bench_scale.py:build_residual_ctrl's
@@ -354,8 +368,9 @@ REGEN_ATOL = 1e-6
 # Device cycles of sleep per timed call in cuda_ms: ~0.1 ms at the H100's
 # 1.98 GHz boost clock, more than a wrapper's host time.
 SLEEP_CYCLES_PER_CALL = 200_000
-# Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
-HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+# Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound;
+# the dense TF32 tensor-core rate for the gradient kernels' mma bound.
+HBM_BYTES_PER_S, FP32_OPS_PER_S, TF32_OPS_PER_S = 3.35e12, 67e12, 495e12
 # FP32 operations per rollout-step of the cartpole plant, counted from
 # csrc/plants.cuh and rollout_core.cuh (each add, multiply, divide, sine and
 # cosine is one; a lower bound, since a division or a sine costs the card
@@ -726,6 +741,34 @@ def mlp_vjp_ops(net) -> int:
     return ops + dims[0] * ("norm_in_mean" in net) + dims[-1] * ("norm_out_mean" in net)
 
 
+def mma_tiles(net) -> int:
+    """m16n8k8 tiles of one step of the gradient kernels' MLP over a warp's
+    16 rows (csrc/mlp_mma.cuh): the forward, the backward's re-run (its last
+    layer skipped) and the transposed layers, each layer's widths padded
+    to 8."""
+    tiles = [-(-d // 8) for d in mlp_dims(net)]
+    layers = [a * b for a, b in zip(tiles, tiles[1:])]
+    return 2 * sum(layers) + sum(layers[:-1])
+
+
+def mlp_scalar_ops(net) -> int:
+    """The gradient kernels' MLP work outside the products, per step: the
+    forward's and the re-run's biases, tanh, norms and delta add, and the
+    transposed step's tanh', norms and delta add (mlp_ops and mlp_vjp_ops
+    without their multiply-adds)."""
+    dims = mlp_dims(net)
+    macs = 2 * sum(a * b for a, b in zip(dims, dims[1:]))
+    return 2 * (mlp_ops(net) - macs) + (mlp_vjp_ops(net) - macs)
+
+
+def tc_bound_ms(net, scalar_ops: int) -> float:
+    """A gradient kernel's tensor-core bound: its split products (3 mma a
+    tile, 2 * 16 * 8 * 8 operations each over 16 rollouts) over the TF32
+    rate plus ``scalar_ops`` a rollout-step over the FP32 rate."""
+    mma_ops = K * H * mma_tiles(net) * 3 * 2 * 8 * 8
+    return (mma_ops / TF32_OPS_PER_S + K * H * scalar_ops / FP32_OPS_PER_S) * 1e3
+
+
 def rnn_ops(net, kind: str) -> int:
     """FP32 operations of one recurrent step: per cell two per multiply-add of
     x @ wi and h @ wh and the two bias adds per gate unit, then per hidden
@@ -802,8 +845,10 @@ def autograd_dq(model, s0, Q, pvec, net, defect=None) -> torch.Tensor:
 
 
 def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
-    """Phase 12: K8 against its plain version on the same card tensors, and
-    the dQ bound against dQ with one defect in the MLP's backward."""
+    """Phase 12: K8 against its plain version on the same card tensors (also
+    at ragged K and over a wide net), and the dQ bound against dQ with one
+    defect in the MLP's backward."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "the plain version's products would be TF32")
     (cost, dQ), (ref_cost, ref_dQ) = (neural_grad_cost_rollout(model, s0, Q, pvec, net),
                                       neural_grad_cost_rollout_plain(model, s0, Q, pvec, net))
     torch.cuda.synchronize()
@@ -821,7 +866,10 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: neural_grad_cost_rollout(model, s0, Q, pvec, net), 20),
+        "ms_at_k": per_warp_ms(neural_grad_cost_rollout, model, s0, Q, pvec, net),
         "plain_ms": cuda_ms(lambda: neural_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
+        "cases": grad_cases("K8", neural_grad_cost_rollout, neural_grad_cost_rollout_plain, model,
+                            s0, Q, pvec, net, wide_net(True, 1.0, s0.device)),
     }
     emit("k8_neural_grad_cost_rollout", numbers)
     check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, "K8: bad output")
@@ -830,6 +878,110 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
     for name, mutant in mutants.items():
         check(not close(mutant, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC),
               f"K8: the dQ bound does not reject a dQ with {name} dropped {numbers}")
+    return numbers
+
+
+def wide_net(norms: bool, scale: float, device) -> dict:
+    """A seeded MLP [S+U, *WIDE_HIDDENS, S], wider than the gradient
+    kernels' register path: weights ``scale`` N(0, 1) / sqrt(fan-in),
+    biases 0.1 N(0, 1), and (``norms``) norm layers."""
+    gen = torch.Generator(device=device).manual_seed(WIDE_SEED)
+    dims = [5, *WIDE_HIDDENS, 4]
+    net = {}
+    for i, (a, b) in enumerate(zip(dims, dims[1:])):
+        net[f"w{i}"] = scale * torch.randn(a, b, generator=gen, device=device) / a ** 0.5
+        net[f"b{i}"] = 0.1 * torch.randn(b, generator=gen, device=device)
+    if norms:
+        net["norm_in_mean"] = 0.1 * torch.randn(5, generator=gen, device=device)
+        net["norm_in_std"] = 0.5 + torch.rand(5, generator=gen, device=device)
+        net["norm_out_mean"] = 0.01 * torch.randn(4, generator=gen, device=device)
+        net["norm_out_std"] = 0.01 + 0.09 * torch.rand(4, generator=gen, device=device)
+    return net
+
+
+def grad_cases(label: str, kernel_fn, plain_fn, model, s0, Q, pvec, net, wide) -> dict:
+    """Phases 12 and 19's further cases, each to NET_TOL on J and the dQ
+    bound: ``net`` at each RAGGED_K, and ``wide`` at the full K."""
+    cases = {f"K{k}": (s0[:k].contiguous(), Q[:k].contiguous(), net) for k in RAGGED_K}
+    cases["wide_" + "-".join(map(str, mlp_dims(wide)))] = (s0, Q, wide)
+    numbers = {}
+    for case, (s, q, n) in cases.items():
+        (cost, dQ) = kernel_fn(model, s, q, pvec, n)
+        ref_cost, ref_dQ = plain_fn(model, s, q, pvec, n)
+        torch.cuda.synchronize()
+        numbers[case] = got = {
+            "cost_max_abs_err": max_errors(cost, ref_cost)[0],
+            "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0], "dQ_max_abs": float(ref_dQ.abs().max()),
+            "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(n)[0], True)}
+        check(bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all())
+              and dQ.shape == q.shape, f"{label} {case}: bad output {got}")
+        check(torch.allclose(cost, ref_cost, **NET_TOL), f"{label} {case}: cost disagrees {got}")
+        check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"{label} {case}: dQ disagrees {got}")
+    return numbers
+
+
+def per_warp_ms(kernel_fn, model, s0, Q, pvec, net) -> dict:
+    """A gradient kernel's time at the first K_SCALING rollouts each: where
+    it stays flat while the blocks still fit on the SMs at once, each
+    warp's own latency, not the card's throughput, sets it."""
+    times = {}
+    for k in K_SCALING:
+        s, q = s0[:k].contiguous(), Q[:k].contiguous()
+        times[str(k)] = cuda_ms(lambda: kernel_fn(model, s, q, pvec, net), 20)
+    return times
+
+
+def ptxas_resources(kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported (phase 1's build log) for
+    the entry function ``kernel``."""
+    entry, found = None, {}
+    for line in kernels.build.log.splitlines():
+        named = re.search(r"entry function '(\w+)'", line)
+        if named:
+            entry = named.group(1)
+        elif entry and re.search(rf"\d+{kernel}I", entry):
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills:
+                found["spill_stores"], found["spill_loads"] = int(spills[1]), int(spills[2])
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                found["registers"] = int(used[1])
+    return found
+
+
+def sass_hmma_counts():
+    """HMMA instructions in each entry function's SASS (``cuobjdump -sass``
+    of the built library), by mangled name; None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        named = re.search(r"Function : (\S+)", line)
+        if named:
+            fn = named.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def grad_resources(label: str, kernel: str, occupancy: str, model, net, scalar_ops: int) -> dict:
+    """A gradient kernel's resources for ``net``: ptxas' registers and
+    spills, its shared memory and blocks per SM, the HMMA instructions in
+    its SASS (which must be there), and its tensor-core bound."""
+    hmma = sass_hmma_counts()
+    args = model.net_args(net)[0]
+    numbers = {**ptxas_resources(kernel),
+               "smem_bytes": kernels.net_smem_bytes(model.plant, args, True),
+               "blocks_per_sm": kernels.grad_blocks_per_sm(occupancy, args),
+               "hmma": "not measured" if hmma is None else sum(
+                   n for fn, n in hmma.items() if re.search(rf"\d+{kernel}I", fn)),
+               "tc_bound_ms": tc_bound_ms(net, scalar_ops)}
+    emit(label, numbers)
+    check(hmma is None or numbers["hmma"] > 0, f"{label}: no HMMA in the kernel's SASS {numbers}")
     return numbers
 
 
@@ -951,8 +1103,10 @@ def residual_autograd_dq(model, s0, Q, pvec, net, drop_mlp_vjp: bool = False) ->
 
 
 def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
-    """Phase 19: K9 against its plain version on the same card tensors, and
-    the dQ bound (K7's) against dQ with the MLP's VJP dropped."""
+    """Phase 19: K9 against its plain version on the same card tensors (also
+    at ragged K and over a wide residual net), and the dQ bound (K7's)
+    against dQ with the MLP's VJP dropped."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "the plain version's products would be TF32")
     (cost, dQ), (ref_cost, ref_dQ) = (residual_grad_cost_rollout(model, s0, Q, pvec, net),
                                       residual_grad_cost_rollout_plain(model, s0, Q, pvec, net))
     torch.cuda.synchronize()
@@ -970,7 +1124,10 @@ def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: residual_grad_cost_rollout(model, s0, Q, pvec, net), 20),
+        "ms_at_k": per_warp_ms(residual_grad_cost_rollout, model, s0, Q, pvec, net),
         "plain_ms": cuda_ms(lambda: residual_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
+        "cases": grad_cases("K9", residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
+                            model, s0, Q, pvec, net, wide_net(False, 0.02, s0.device)),
     }
     emit("k9_residual_grad_cost_rollout", numbers)
     check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, "K9: bad output")
@@ -1816,6 +1973,8 @@ def main() -> None:
     # backward, but a kernel that kept the activations would not have to.
     k8.update(bound(K * H * (mlp_ops(net) + mlp_vjp_ops(net) + STAGE_OPS + STAGE_VJP_OPS),
                     nbytes(s0, Qg, npvec, *leaves(net), Qg) + 4 * K))
+    grad_resources("k8_resources", "neural_grad_cost_rollout_kernel", "neural_grad", nmodel, net,
+                   mlp_scalar_ops(net) + STAGE_OPS + STAGE_VJP_OPS)
 
     # 13. K13 over the committed GRU and over an LSTM of the same widths.
     k13 = compare_recurrent("k13_recurrent_cost_rollout_gru", GRU_SPEC, s0, Q, gen)
@@ -1860,6 +2019,9 @@ def main() -> None:
     k9.update(bound(K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS + RK4_VJP_OPS
                              + mlp_vjp_ops(rnet) + STAGE_VJP_OPS),
                     nbytes(s0, Qg, rpvec, *leaves(rnet), Qg) + 4 * K))
+    grad_resources("k9_resources", "residual_grad_cost_rollout_kernel", "residual_grad", rmodel,
+                   rnet, RK4_STEP_OPS + RK4_VJP_OPS + mlp_scalar_ops(rnet) + STAGE_OPS
+                   + STAGE_VJP_OPS)
 
     # 20-21. K14 and K10 over a well-conditioned GP of the committed one's
     # widths, then over the committed GP against float64.

@@ -1,17 +1,20 @@
 // The network core shared by the network-rollout kernels K11, K13 (MLP and
-// stacked GRU/LSTM rollout + cost, neural_rollout.cu) and K8 (MLP rollout
-// cost and its gradient, neural_grad_rollout.cu).  It replaces the Pallas
-// kernels' row-MLP (control_toolkit_tpu/ops/pallas_neural.py:mlp_rows and
-// the recurrent kernel's `cell`), which ran each layer as one MXU matmul
-// over a [features, tile] slab in VMEM.
+// stacked GRU/LSTM rollout + cost, neural_rollout.cu) and K12 (residual
+// rollout + cost, residual_rollout.cu).  It replaces the Pallas kernels'
+// row-MLP (control_toolkit_tpu/ops/pallas_neural.py:mlp_rows and the
+// recurrent kernel's `cell`), which ran each layer as one MXU matmul over a
+// [features, tile] slab in VMEM.  The gradient kernels K8 and K9 run their
+// MLP on tensor cores instead (mlp_mma.cuh).
 //
 // Design (one thread owns one rollout, as in rollout_core.cuh):
 // - A block first stages the net into dynamic shared memory: each weight
 //   matrix row-major with its row padded with zeros to a multiple of the
 //   output chunk (and, for the recurrent cells, each gate's block padded to
 //   a multiple of four), so that every thread reads a float4 of weights per
-//   input as a broadcast.  K8 stages a transposed copy of each MLP matrix as
-//   well, so the backward's `g @ W^T` is the same loop.  The net's tensors
+//   input as a broadcast.  The `transposed` layout adds a transposed copy of
+//   each MLP matrix and two gradient columns, for a backward's `g @ W^T` in
+//   the same loop (the one-thread-per-rollout K8 and K9 took it; no kernel
+//   does now).  The net's tensors
 //   arrive as they are stored (w [in, out], cell wi [in, G*Hd]): no copy or
 //   transpose is dispatched per call, and a new weight tensor is a new
 //   pointer, never a rebuild.
@@ -63,7 +66,7 @@ struct NetArgs {
 // thread's columns (in columns; column c starts at n_staged + c*kThreads).
 struct NetLayout {
   int w[kMaxLayers], b[kMaxLayers], ld[kMaxLayers];  // forward rows, padded
-  int wt[kMaxLayers], ldt[kMaxLayers];               // MLP transposed (K8)
+  int wt[kMaxLayers], ldt[kMaxLayers];               // MLP transposed
   int wh[kMaxLayers], bh[kMaxLayers];                // recurrent cells (row length ld)
   int wo, bo, ldo;                                   // recurrent head
   int norm[4];                                       // in mean, in std, out mean, out std; -1
@@ -77,7 +80,7 @@ __host__ __device__ inline int pad_to(int n, int m) { return (n + m - 1) / m * m
 __host__ __device__ inline int gates_of(int kind) { return kind == kNetGRU ? 3 : 4; }
 
 // Lay out `a` for a plant of S states and U controls; `transposed` adds
-// K8's transposed matrices and gradient columns.  Returns the dynamic
+// the transposed matrices and gradient columns.  Returns the dynamic
 // shared memory in bytes, or -1 for a net the kernels refuse.
 inline long plan_layout(const NetArgs& a, int S, int U, bool transposed, NetLayout& L) {
   int off = 0, cols = 0, widest = S + U;
@@ -242,8 +245,7 @@ __device__ __forceinline__ void dense(const float* x, int n_in, const float* W, 
 // The MLP transition (pallas_neural.py:234-241, NeuralPredictor.single_step)
 // in JAX's order: [x, u] through norm_in ((a - mean) / std), each layer
 // a @ W + b with tanh on all but the last, norm_out (a * std + mean), then
-// x + a (predict_delta) or a.  The hidden activations stay in their columns
-// for K8's backward.
+// x + a (predict_delta) or a.
 template <int S, int U>
 __device__ __forceinline__ void mlp_step(float* sm, const NetArgs& a, const NetLayout& L,
                                          float (&x)[S], const float (&u)[U]) {
@@ -271,52 +273,6 @@ __device__ __forceinline__ void mlp_step(float* sm, const NetArgs& a, const NetL
     float o = out[i * kThreads];
     if (L.norm[2] >= 0) o = o * sm[L.norm[3] + i] + sm[L.norm[2] + i];
     x[i] = a.predict_delta ? x[i] + o : o;
-  }
-}
-
-// lam^T d x' / d(x, u) for mlp_step at (x, u) (ops/adjoints.py
-// mlp_step_vjp): the step re-run for its activations, then last to first
-// norm_out (times std), each layer transposed (g @ W^T, after tanh' =
-// 1 - a^2 on the hidden ones), norm_in (over std); the delta form adds lam
-// to dx.
-template <int S, int U>
-__device__ __forceinline__ void mlp_step_vjp(float* sm, const NetArgs& a, const NetLayout& L,
-                                             const float (&x)[S], const float (&u)[U],
-                                             const float (&lam)[S], float (&dx)[S],
-                                             float (&du)[U]) {
-  float xn[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) xn[i] = x[i];
-  mlp_step<S, U>(sm, a, L, xn, u);
-  float* g = column(sm, L, L.ga_col);
-  float* gn = column(sm, L, L.gb_col);
-#pragma unroll
-  for (int i = 0; i < S; ++i) g[i * kThreads] = L.norm[2] >= 0 ? lam[i] * sm[L.norm[3] + i] : lam[i];
-  const int n = a.n_layers;
-  for (int l = n - 1; l >= 0; --l) {
-    if (l < n - 1) {
-      const float* act = column(sm, L, L.act_col[l]);
-      for (int j = 0; j < a.dims[l + 1]; ++j) {
-        const float aj = act[j * kThreads];
-        g[j * kThreads] = g[j * kThreads] * (1.0f - aj * aj);
-      }
-    }
-    dense<false>(g, a.dims[l + 1], sm + L.wt[l], nullptr, L.ldt[l], a.dims[l], gn);
-    float* t = g;
-    g = gn;
-    gn = t;
-  }
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    float gi = g[i * kThreads];
-    if (L.norm[0] >= 0) gi = gi / sm[L.norm[1] + i];
-    dx[i] = a.predict_delta ? lam[i] + gi : gi;
-  }
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    float gj = g[(S + j) * kThreads];
-    if (L.norm[0] >= 0) gj = gj / sm[L.norm[1] + S + j];
-    du[j] = gj;
   }
 }
 
@@ -436,6 +392,6 @@ inline cudaError_t allow_smem(Kernel kernel, long bytes, long& allowed) {
 }  // namespace ctt
 
 // Dynamic shared memory (bytes) a network-rollout kernel's block takes for
-// `net` on a plant of S states and U controls (transposed: K8), or -1 for a
-// net the kernels refuse.
+// `net` on a plant of S states and U controls (with the transposed layout),
+// or -1 for a net the kernels refuse.
 extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U, int transposed);

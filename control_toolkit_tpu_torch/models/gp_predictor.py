@@ -28,7 +28,7 @@ import torch
 from control_toolkit_tpu_torch.models.dynamics import DYNAMICS
 from control_toolkit_tpu_torch.models.predictors import Predictor, scan_rollout
 from control_toolkit_tpu_torch.utils import registry
-from control_toolkit_tpu_torch.utils.device import place
+from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -107,7 +107,7 @@ class GPPredictor(Predictor):
         self.num_states = int(num_states)
         self.num_control_inputs = int(num_control_inputs)
         self.dt = float(dt)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         if params is None and not checkpoint:
             raise ValueError("GPPredictor needs fitted params or a checkpoint "
                              "(fit with models.gp_predictor.fit_gp_dynamics)")

@@ -28,7 +28,7 @@ from control_toolkit_tpu_torch.models import networks as nets
 from control_toolkit_tpu_torch.models.dynamics import DYNAMICS
 from control_toolkit_tpu_torch.models.predictors import Predictor, scan_rollout
 from control_toolkit_tpu_torch.utils import registry
-from control_toolkit_tpu_torch.utils.device import place
+from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -63,7 +63,7 @@ class NeuralPredictor(Predictor):
         self.dt = float(dt)
         self.net_name = net_name
         self.predict_delta = bool(predict_delta)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         self.arch = nets.parse_net_name(net_name)
         self.recurrent = self.arch["kind"] in nets.RECURRENT_FNS
         if self.recurrent:

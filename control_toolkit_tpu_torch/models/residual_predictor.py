@@ -23,7 +23,7 @@ import torch
 from control_toolkit_tpu_torch.models.networks import load_net, mlp_apply, mlp_init, save_net
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor, Predictor, scan_rollout
 from control_toolkit_tpu_torch.utils import registry
-from control_toolkit_tpu_torch.utils.device import place
+from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 
 @registry.predictors.register("ODE+res")
@@ -52,7 +52,7 @@ class ResidualPredictor(Predictor):
         self.integrator = integrator
         self.intermediate_steps = int(intermediate_steps)
         self.hiddens = tuple(int(h) for h in hiddens)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
 
         res = mlp_init(torch.Generator().manual_seed(int(seed)), [S + U, *self.hiddens, S])
         last = f"w{len(self.hiddens)}"

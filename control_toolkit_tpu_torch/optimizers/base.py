@@ -20,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from control_toolkit_tpu_torch.utils.device import place
+from control_toolkit_tpu_torch.utils.device import place, resolve_device
 from control_toolkit_tpu_torch.utils.rng import derive_seed, make_generator
 
 logger = logging.getLogger(__name__)
@@ -153,8 +153,9 @@ class Optimizer:
         self._action_limits = tuple(np.asarray(v, np.float32) for v in control_limits)
         self._seed = derive_seed(seed, context=self.__class__.__name__)
         # Set by the owning controller from its 'device' config key before
-        # configure(); every tensor of the optimizer lives there.
-        self.device = torch.get_default_device()
+        # configure(); every tensor of the optimizer lives there.  An
+        # optimizer no controller placed takes the default (the card) there.
+        self.device: Optional[torch.device] = None
 
         self.num_states: Optional[int] = None
         self.num_control_inputs: Optional[int] = None
@@ -169,6 +170,8 @@ class Optimizer:
     def configure(self, num_states: int, num_control_inputs: int,
                   dt: Optional[float] = None, predictor_specification: Optional[str] = None,
                   default_configure: bool = True, **kwargs) -> None:
+        if self.device is None:
+            self.device = resolve_device(None)
         self.num_states = int(num_states)
         self.num_control_inputs = int(num_control_inputs)
         self.dt = dt

@@ -1,9 +1,12 @@
 """Device selection (counterpart of control_toolkit_tpu/utils/device.py).
 
 The controller config's ``device`` key picks the ``torch.device`` every
-tensor of a controller lives on.  Unlike the JAX package, an unavailable
-device is an error, never a silent fall back to the CPU: a controller
-asked to run on the card must not quietly run somewhere else.
+tensor of a controller lives on.  Without one a controller runs on the
+card, as the JAX package's runs on its process's default backend (the TPU
+on a TPU host); a caller that wants the CPU says ``"device": "cpu"``.
+Unlike the JAX package, an unavailable device is an error, never a silent
+fall back to the CPU: a controller asked to run on the card must not
+quietly run somewhere else.
 """
 from __future__ import annotations
 
@@ -13,15 +16,13 @@ import torch
 def resolve_device(spec) -> torch.device:
     """Resolve a config ``device`` value to a ``torch.device``.
 
-    ``None``, ``""`` and ``"default"`` give the process default device
-    (``torch.get_default_device()``), as the JAX package's ``None`` gives
-    the process default.  ``"gpu"`` is accepted as a name for ``"cuda"``.
-    Raises ``ValueError`` on a malformed spec and ``RuntimeError`` when a
-    CUDA device is asked for that this process does not have.
+    ``None``, ``""`` and ``"default"`` give the card, ``cuda:0``, as the
+    JAX package's ``None`` gives the process's default backend.  ``"gpu"``
+    is accepted as a name for ``"cuda"``.  Raises ``ValueError`` on a
+    malformed spec and ``RuntimeError`` when a CUDA device is asked for,
+    by name or by default, that this process does not have.
     """
-    if spec in (None, "", "default"):
-        return torch.get_default_device()
-    s = str(spec).strip().lower()
+    s = "cuda:0" if spec in (None, "", "default") else str(spec).strip().lower()
     if s == "gpu" or s.startswith("gpu:"):
         s = "cuda" + s[3:]
     try:

@@ -58,7 +58,8 @@ def make_pair(optimizer="cem-tf", limits=LIMITS, **cfg):
                    config={"optimizer": optimizer, "controller_logging": False})
     jctrl.configure(optimizer_name=optimizer, optimizer_config=cfg)
     pctrl = MPCController("cartpole", limits, {"target_position": 0.1},
-                          config={"optimizer": optimizer, "controller_logging": False})
+                          config={"device": "cpu",
+                                  "optimizer": optimizer, "controller_logging": False})
     pctrl.configure(optimizer_name=optimizer, optimizer_config=cfg)
     return jctrl, pctrl
 
@@ -231,7 +232,8 @@ def test_fused_gate():
         _, pctrl = make_pair(**cfg)
         assert not pctrl.optimizer._fused
     logged = MPCController("cartpole", LIMITS, {"target_position": 0.1},
-                           config={"optimizer": "cem-tf", "controller_logging": True})
+                           config={"device": "cpu",
+                                   "optimizer": "cem-tf", "controller_logging": True})
     logged.configure(optimizer_name="cem-tf", optimizer_config=cem_config(K=4096, fully_fused=True))
     assert not logged.optimizer._fused
     s = np.array([0.0, 0.0, 0.1, 0.0], np.float32)

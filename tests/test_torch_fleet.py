@@ -60,7 +60,8 @@ def pair():
                    config={"optimizer": "mppi", "controller_logging": False})
     jctrl.configure(optimizer_name="mppi", optimizer_config=cfg)
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.1},
-                          config={"optimizer": "mppi", "controller_logging": False})
+                          config={"device": "cpu",
+                                  "optimizer": "mppi", "controller_logging": False})
     pctrl.configure(optimizer_name="mppi", optimizer_config=cfg)
     return jctrl, pctrl
 

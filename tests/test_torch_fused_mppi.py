@@ -53,8 +53,9 @@ def controllers(limits):
         return make_jax_ctrl(K, H), make_port_ctrl(K, H)
     made = []
     for cls in (JaxMPC, MPCController):
+        port = {"device": "cpu"} if cls is MPCController else {}
         ctrl = cls("cartpole", limits, {"target_position": 0.3},
-                   config={"optimizer": "mppi", "controller_logging": False})
+                   config={"optimizer": "mppi", "controller_logging": False, **port})
         ctrl.configure(optimizer_name="mppi", optimizer_config=optimizer_config(K, H))
         made.append(ctrl)
     return made

@@ -105,7 +105,8 @@ def make_pair(ckpt, optimizer="mppi", config=None, jax_logging=False):
     jctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                          config={"optimizer": optimizer, "controller_logging": False})
+                          config={"device": "cpu",
+                                  "optimizer": optimizer, "controller_logging": False})
     pctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     return jctrl, pctrl
@@ -144,7 +145,7 @@ def test_collect_transitions_shapes_and_restarts():
 
 def test_spec_loads_a_jax_checkpoint_and_steps_as_jax(gp_ckpt):
     w = PredictorWrapper()
-    w.configure(dt=0.02, predictor_specification=f"SGP_{M}:{gp_ckpt}",
+    w.configure(device="cpu", dt=0.02, predictor_specification=f"SGP_{M}:{gp_ckpt}",
                 checkpoint="/nonexistent.npz")  # the spec's path wins
     pred = w.predictor
     assert isinstance(pred, pgp.GPPredictor) and pred.environment_name == "cartpole"
@@ -154,7 +155,7 @@ def test_spec_loads_a_jax_checkpoint_and_steps_as_jax(gp_ckpt):
         for k in data.files:
             np.testing.assert_array_equal(pred.gp_params[k].numpy(), data[k])
     w2 = PredictorWrapper()
-    w2.configure(dt=0.02, predictor_specification="gp", checkpoint=gp_ckpt)
+    w2.configure(device="cpu", dt=0.02, predictor_specification="gp", checkpoint=gp_ckpt)
     assert isinstance(w2.predictor, pgp.GPPredictor)
     rng = np.random.default_rng(1)
     s0 = (0.1 * rng.standard_normal((6, 4))).astype(np.float32)
@@ -164,11 +165,11 @@ def test_spec_loads_a_jax_checkpoint_and_steps_as_jax(gp_ckpt):
                                np.asarray(jpred.rollout(jnp.asarray(s0), jnp.asarray(Q))),
                                rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="params or a checkpoint"):
-        pgp.GPPredictor()
+        pgp.GPPredictor(device="cpu")
 
 
 def test_save_round_trips_to_jax(gp_ckpt, tmp_path):
-    pred = pgp.GPPredictor(checkpoint=gp_ckpt)
+    pred = pgp.GPPredictor(device="cpu", checkpoint=gp_ckpt)
     pred.save(tmp_path / "port.npz")
     back = jgp.GPPredictor("cartpole", checkpoint=str(tmp_path / "port.npz"))
     for k, v in pred.gp_params.items():
@@ -183,7 +184,7 @@ def test_gp_step_vjp_matches_autograd_float64(gp_ckpt, tie):
     order adds exactly), so d2 == 0 before the clip: the max's derivative
     splits the tie, as torch.maximum and jnp.maximum do."""
     ops = {k: v.double() for k, v in flatten_gp_weights(
-        pgp.GPPredictor(checkpoint=gp_ckpt).gp_params).items()}
+        pgp.GPPredictor(device="cpu", checkpoint=gp_ckpt).gp_params).items()}
     rng = np.random.default_rng(2)
     x = torch.tensor(0.3 * rng.standard_normal((16, 4)), requires_grad=True)
     u = torch.tensor(rng.uniform(-1.0, 1.0, (16, 1)), requires_grad=True)
@@ -363,7 +364,7 @@ def test_committed_gp_is_what_the_generator_documents():
     with np.load(path) as data:
         assert {k: data[k].shape for k in data.files} == shapes
         assert all(data[k].dtype == np.float32 for k in data.files)
-    pred = pgp.GPPredictor(checkpoint=str(path))
+    pred = pgp.GPPredictor(device="cpu", checkpoint=str(path))
     jpred = jgp.GPPredictor("cartpole", checkpoint=str(path))
     x, u, xn = jax_collect(JaxCartpoleEnv(batch_size=16, dt=0.02, seed=7), 50, seed=7)
     got = pred.single_step(torch.tensor(x), torch.tensor(u), pred.default_params()).numpy()

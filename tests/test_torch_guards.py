@@ -1,17 +1,21 @@
 """Guards for the torch port that run on a machine without a card: it
-never imports jax, an explicit CUDA device never falls back to the CPU, and
-chip_smoke.py fails (and prints no result) where there is no card."""
+never imports jax, a CUDA device, named or the default, never falls back
+to the CPU, and chip_smoke.py fails (and prints no result) where there is
+no card."""
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from control_toolkit_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
+COST_WEIGHTS = {"dd_weight": 120.0, "ep_weight": 10000.0, "ekp_weight": 10.0, "cc_weight": 1.0,
+                "ccrc_weight": 1.0, "R": 1.0}
 
 NO_JAX_DRIVE = r"""
 import sys
@@ -168,8 +172,50 @@ def test_explicit_cuda_device_raises_without_a_card():
         resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device("tpu")
-    assert resolve_device(None) == torch.get_default_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("spec", [None, "", "default"])
+def test_the_default_device_is_the_card_and_raises_without_one(spec):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(spec)
+
+
+def mpc_without_device():
+    """An "mpc" controller whose config names no device, configured."""
+    from control_toolkit_tpu_torch import import_controller_by_name
+
+    ctrl = import_controller_by_name("mpc")(
+        "cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+        {"target_position": 0.0}, config={"optimizer": "mppi", "controller_logging": False})
+    ctrl.configure(optimizer_name="mppi", optimizer_config={
+        "seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10, "num_rollouts": 32,
+        "period_interpolation_inducing_points": 5},
+        cost_function_config=COST_WEIGHTS)
+    return ctrl
+
+
+def test_a_controller_without_a_device_raises_without_a_card():
+    """No "device" key means the card: without one the controller raises
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mpc_without_device()
+
+
+@pytest.mark.cuda
+def test_a_controller_without_a_device_runs_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a controller's default device is the card")
+    ctrl = mpc_without_device()
+    opt = ctrl.optimizer
+    assert ctrl.device == opt.device == torch.device("cuda", 0)
+    assert opt.action_low.device == opt.u.device == torch.device("cuda", 0)
+    u = ctrl.step(np.array([0.0, 0.0, 0.05, 0.0], np.float32))
+    assert np.all(np.isfinite(u)) and u.shape == (1,)
 
 
 @pytest.mark.parametrize("alone", [False, True])

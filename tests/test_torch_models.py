@@ -54,7 +54,7 @@ def cost_params(target=0.3):
 def test_predictor_rollout_matches_jax(spec):
     s0, Q = inputs()
     pw = PredictorWrapper()
-    pw.configure(dt=0.02, predictor_specification=spec, environment_name="cartpole")
+    pw.configure(device="cpu", dt=0.02, predictor_specification=spec, environment_name="cartpole")
     parts = spec.split(":")
     jpred = JaxODE("cartpole", dt=0.02, integrator=parts[1] if len(parts) > 1 else "rk4",
                    intermediate_steps=int(parts[2]) if len(parts) > 2 else 1)
@@ -146,14 +146,15 @@ def test_custom_dynamics_and_unported_specs():
     np.testing.assert_allclose(traj[0, :, 1].numpy(), [0.0, 0.1, 0.2, 0.3, 0.4], atol=1e-6)
     pw = PredictorWrapper()
     with pytest.raises(NotImplementedError):
-        pw.configure(predictor_specification="ODE:rk4:1:fast")
+        pw.configure(device="cpu", predictor_specification="ODE:rk4:1:fast")
     with pytest.raises(KeyError):
-        pw.configure(predictor_specification="ensemble:mlp-32-32")
+        pw.configure(device="cpu", predictor_specification="ensemble:mlp-32-32")
     with pytest.raises(ValueError, match="checkpoint"):
-        pw.configure(predictor_specification="SGP_30")  # ported: needs a fitted GP
-    pw.configure(predictor_specification="ODE+res")  # ported: the base ODE and a residual
+        pw.configure(device="cpu", predictor_specification="SGP_30")  # ported: needs a fitted GP
+    # ported: the base ODE and a residual
+    pw.configure(device="cpu", predictor_specification="ODE+res")
     assert set(pw.default_params()) == {"base", "res"}
-    pw.configure(predictor_specification="neural:mlp-32-32")  # ported: a random init
+    pw.configure(device="cpu", predictor_specification="neural:mlp-32-32")  # ported: a random init
     assert pw.predictor.arch == {"kind": "mlp", "hiddens": [32, 32]}
     copy = pw.copy()
     assert copy.predictor is not pw.predictor and copy.num_states == 4

@@ -56,7 +56,8 @@ def make_jax_ctrl(K=256, H=20, logging=False, **extra):
 
 def make_port_ctrl(K=256, H=20, logging=False, **extra):
     ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                         config={"optimizer": "mppi", "controller_logging": logging})
+                         config={"device": "cpu",
+                                 "optimizer": "mppi", "controller_logging": logging})
     ctrl.configure(optimizer_name="mppi", optimizer_config=optimizer_config(K, H, **extra))
     return ctrl
 

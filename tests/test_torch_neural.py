@@ -149,7 +149,8 @@ def make_pair(tmp_path, name, net, optimizer="mppi", config=None, predict_delta=
     jctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                          config={"optimizer": optimizer, "controller_logging": False})
+                          config={"device": "cpu",
+                                  "optimizer": optimizer, "controller_logging": False})
     pctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     return jctrl, pctrl
@@ -236,8 +237,8 @@ def test_predictor_rollout_and_update_match_jax(name, norms, delta):
     net = jax_net(name, seed=4, norms=norms)
     jpred = JaxNeural(net_name=name, params=jax.tree_util.tree_map(jnp.asarray, net),
                       predict_delta=delta)
-    ppred = NeuralPredictor(net_name=name, params=neural_params_from_numpy(net)["net"],
-                            predict_delta=delta)
+    ppred = NeuralPredictor(device="cpu", net_name=name,
+                            params=neural_params_from_numpy(net)["net"], predict_delta=delta)
     assert ppred.is_stateful == jpred.is_stateful == ppred.recurrent
     rng = np.random.default_rng(5)
     s0 = (0.1 * rng.standard_normal((6, 4))).astype(np.float32)
@@ -261,14 +262,15 @@ def test_predictor_rollout_and_update_match_jax(name, norms, delta):
 
 def test_predictor_loads_the_checkpoint_and_its_meta(tmp_path):
     jnets.save_net(tmp_path / "mlp-8.npz", jax_net("mlp-8"), meta={"predict_delta": False})
-    pred = NeuralPredictor(net_name="mlp-8", path_to_models=str(tmp_path))
+    pred = NeuralPredictor(device="cpu", net_name="mlp-8", path_to_models=str(tmp_path))
     assert not pred.predict_delta and tuple(pred.net_params["w0"].shape) == (5, 8)
     assert pred.net_params["w0"].dtype == torch.float32
-    random_init = NeuralPredictor(net_name="mlp-8", path_to_models=str(tmp_path / "none"))
+    random_init = NeuralPredictor(device="cpu", net_name="mlp-8",
+                                  path_to_models=str(tmp_path / "none"))
     assert random_init.predict_delta and not torch.equal(random_init.net_params["w0"],
                                                          pred.net_params["w0"])
     with pytest.raises(ValueError):
-        NeuralPredictor(net_name="mlp-8", compute_dtype="float16")
+        NeuralPredictor(device="cpu", net_name="mlp-8", compute_dtype="float16")
 
 
 # ---- K11 and K13 against the Pallas kernels --------------------------------------
@@ -406,7 +408,8 @@ def test_gru_closed_loop_advances_and_resets_the_hidden(tmp_path, monkeypatch):
 def test_kernel_family_gates(tmp_path):
     _, ode_ctrl = make_pair(tmp_path, "mlp-8", jax_net("mlp-8"))
     ode_pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
-                              config={"optimizer": "mppi", "controller_logging": False})
+                              config={"device": "cpu",
+                                      "optimizer": "mppi", "controller_logging": False})
     ode_pctrl.configure(optimizer_name="mppi", optimizer_config=optimizer_config(32, 8))
     mlp_opt = ode_ctrl.optimizer
     assert ode.can_use_cost(ode_pctrl.optimizer) and not neural.can_use_cost(ode_pctrl.optimizer)
@@ -416,7 +419,8 @@ def test_kernel_family_gates(tmp_path):
     assert neural.can_use_cost(gru_ctrl.optimizer) and not neural.can_use_grad(gru_ctrl.optimizer)
     for spec_tail, extra in ((":bf16", {}), ("", {"force_scan": True})):
         pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
-                              config={"optimizer": "mppi", "controller_logging": False})
+                              config={"device": "cpu",
+                                      "optimizer": "mppi", "controller_logging": False})
         pctrl.configure(optimizer_name="mppi",
                         predictor_specification=f"neural:mlp-8:{tmp_path}{spec_tail}",
                         optimizer_config=optimizer_config(32, 8, **extra))

@@ -6,8 +6,8 @@ and K9's plain versions (``ops/residual_rollout.py``,
 kernels in interpret mode, the residual step's hand-written adjoint
 against ``torch.autograd``, a sysid install through the same built step,
 one MPPI and one rpgd-tf controller tick, the checkpoint across packages,
-and — on a machine with a card only — each CUDA kernel against its plain
-version.
+K9's tensor-core arithmetic (3xTF32) rehearsed on the CPU, and — on a
+machine with a card only — each CUDA kernel against its plain version.
 
 Both packages get the same residual weights (JAX's, made nonzero as
 ``bench_scale.py:build_residual_ctrl`` makes them) and the same inputs and
@@ -25,7 +25,10 @@ from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.models.dynamics import cartpole_derivs_soa
 from control_toolkit_tpu_torch.models.predictors import PredictorWrapper
 from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
-from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, residual_step_vjp
+from control_toolkit_tpu_torch.ops.adjoints import (
+    PLANT_ADJOINTS, integrator_vjp, residual_step_vjp,
+)
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
 from control_toolkit_tpu_torch.ops.neural_rollout import mlp_step
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
@@ -33,12 +36,13 @@ from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_plain,
 )
-from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd
 from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
 from control_toolkit_tpu_torch.utils.convert import params_from_numpy
 from test_torch_mppi import (
     CPU, LIMITS, UNOM_TOL, jax_next_draw, jax_params_numpy, optimizer_config, port_noise,
 )
+from test_torch_neural_grad import distances, mlp_step_with, mlp_vjp_with, mm_3xtf32, mm_tf32
 from test_torch_rpgd import jax_rpgd_draw, rpgd_config, set_rpgd_state
 
 K, H = 256, 10
@@ -78,7 +82,8 @@ def make_pair(optimizer="mppi", config=None, jax_logging=False, spec="ODE+res"):
     jctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                          config={"optimizer": optimizer, "controller_logging": False})
+                          config={"device": "cpu",
+                                  "optimizer": optimizer, "controller_logging": False})
     pctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                     optimizer_config=dict(cfg))
     jpred = jctrl.optimizer.predictor.predictor
@@ -98,7 +103,7 @@ def inputs(seed, lo=-0.8, hi=0.8):
 
 # ---- the predictor ---------------------------------------------------------------
 def test_fresh_predictor_equals_its_base_exactly():
-    pred = ResidualPredictor("cartpole", dt=0.02, seed=4)
+    pred = ResidualPredictor("cartpole", dt=0.02, device="cpu", seed=4)
     rng = np.random.default_rng(1)
     s0 = torch.tensor(rng.uniform(-0.4, 0.4, (8, 4)).astype(np.float32))
     Q = torch.tensor(rng.uniform(-1, 1, (8, 15, 1)).astype(np.float32))
@@ -111,7 +116,7 @@ def test_rollout_matches_jax_with_its_weights():
     jpred = JaxResidual("cartpole", dt=0.02, hiddens=(16, 8))
     res = bench_residual(jpred._res)
     jpred.set_residual(res)
-    pred = ResidualPredictor("cartpole", dt=0.02, hiddens=(16, 8))
+    pred = ResidualPredictor("cartpole", dt=0.02, device="cpu", hiddens=(16, 8))
     pred.set_residual(res)
     rng = np.random.default_rng(2)
     s0 = (0.1 * rng.standard_normal((6, 4))).astype(np.float32)
@@ -123,23 +128,23 @@ def test_rollout_matches_jax_with_its_weights():
 
 def test_spec_grammar():
     w = PredictorWrapper()
-    w.configure(dt=0.02, predictor_specification="ODE+res:euler:2", hiddens=(8,))
+    w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res:euler:2", hiddens=(8,))
     pred = w.predictor
     assert isinstance(pred, ResidualPredictor) and pred.environment_name == "cartpole"
     assert (pred.integrator, pred.intermediate_steps, pred.hiddens) == ("euler", 2, (8,))
     assert (w.num_states, w.num_control_inputs) == (4, 1)
     assert tuple(pred._res["w0"].shape) == (5, 8) and tuple(pred._res["w1"].shape) == (8, 4)
-    w.configure(dt=0.02, predictor_specification="ODE+res")
+    w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res")
     assert (w.predictor.integrator, w.predictor.hiddens) == ("rk4", (32, 32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.configure(dt=0.02, predictor_specification="ODE+res:rk4:1:fast")
+        w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res:rk4:1:fast")
 
 
 def test_checkpoint_round_trips_across_packages(tmp_path):
     jpred = JaxResidual("cartpole", dt=0.02, hiddens=(16, 8))
     jpred.set_residual(bench_residual(jpred._res, seed=3))
     jpred.save_residual(tmp_path / "from_jax.npz")
-    pred = ResidualPredictor("cartpole", dt=0.02)
+    pred = ResidualPredictor("cartpole", dt=0.02, device="cpu")
     pred.load_residual(tmp_path / "from_jax.npz")
     assert pred.hiddens == (16, 8)
     for k, v in jpred._res.items():
@@ -368,6 +373,52 @@ def test_gates_and_wrappers():
             fn(model, torch.empty(8, 4, **meta), torch.empty(8, 5, 1, **meta),
                torch.empty(15, **meta), {k: torch.empty(v.shape, **meta) for k, v in net.items()})
     assert (residual_cost_rollout.launches, residual_grad_cost_rollout.launches) == before
+
+
+def test_k9_3xtf32_arithmetic_stays_within_the_kernel_bounds(record_property):
+    """K9's residual MLP products in 3xTF32 (forward, re-run and transposed
+    step; the rk4 base in FP32), emulated over a nonzero 5-32-32-4 residual
+    (chip_smoke.py's: 0.02 N(0, 1) weights, torch seed 11) at K=256, H=50,
+    stay within chip_smoke.py's bounds of the FP32 plain version; one-pass
+    TF32's distance is recorded."""
+    K_, H_ = 256, 50
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"device": "cpu", "optimizer": "rpgd-tf",
+                                 "controller_logging": False})
+    ctrl.configure(optimizer_name="rpgd-tf", predictor_specification="ODE+res",
+                   optimizer_config=rpgd_config(num_rollouts=K_, mpc_horizon=H_),
+                   cost_function_config=COST_WEIGHTS)
+    pred = ctrl.optimizer.predictor.predictor
+    gen = torch.Generator().manual_seed(11)
+    pred.set_residual({k: 0.02 * torch.randn(v.shape, generator=gen) if k.startswith("w") else v
+                       for k, v in pred._res.items()})
+    model, pack = residual.residual_model(ctrl.optimizer)
+    params = ctrl._assemble_params()
+    pvec, net = pack(params, torch.tensor([0.1])), params["dyn"]["res"]
+    rng = np.random.default_rng(9)
+    s0 = torch.tensor(0.05 * rng.standard_normal((K_, 4)), dtype=torch.float32)
+    Q = torch.tensor(rng.uniform(-1.0, 1.0, (K_, H_, 1)), dtype=torch.float32)
+    p, derivs_vjp = model.unpack(pvec), PLANT_ADJOINTS[model.plant][0]
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt, model.intermediate_steps)
+
+    def run(mm):
+        def step(x, u):
+            base = torch.stack(one_step(tuple(x.unbind(1)), tuple(u.unbind(1)), p), dim=1)
+            return base + mlp_step_with(mm, net, x, u, False)
+
+        def step_vjp(xs, us, lam):
+            dx, du = integrator_vjp(model.derivs, derivs_vjp, xs, us, p, lam,
+                                    model.integrator == "rk4", model.intermediate_steps, model.dt)
+            dx_res, du_res = mlp_vjp_with(mm, xs, us, net, False, lam)
+            return tadd(dx, dx_res), tadd(du, du_res)
+
+        return plain_grad_loop(model, s0, Q, pvec, step, step_vjp)
+
+    ref = residual_grad_cost_rollout_plain(model, s0, Q, pvec, net)
+    found = {name: distances(*run(mm), *ref)
+             for name, mm in (("3xtf32", mm_3xtf32), ("one_pass_tf32", mm_tf32))}
+    record_property("k9_tf32_distances", found)
+    assert found["3xtf32"]["within_bounds"], found
 
 
 # ---- on the card ------------------------------------------------------------------------

@@ -75,7 +75,7 @@ def make_pair(name, cfg):
                    config={"optimizer": name, "controller_logging": True})
     jctrl.configure(optimizer_name=name, optimizer_config=dict(cfg))
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                          config={"optimizer": name, "controller_logging": False})
+                          config={"device": "cpu", "optimizer": name, "controller_logging": False})
     pctrl.configure(optimizer_name=name, optimizer_config=dict(cfg))
     return jctrl, pctrl
 
@@ -323,7 +323,7 @@ def test_logging_contract_shapes_match_jax(name, cfg):
     cfg = dict(cfg, num_rollouts=32, mpc_horizon=10)
     jctrl, _ = make_pair(name, cfg)
     pctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                          config={"optimizer": name, "controller_logging": True})
+                          config={"device": "cpu", "optimizer": name, "controller_logging": True})
     pctrl.configure(optimizer_name=name, optimizer_config=dict(cfg))
     s = np.array([0.0, 0.0, 0.1, 0.0], np.float32)
     for _ in range(3):
@@ -346,7 +346,8 @@ def test_gradient_path_gate_and_autograd_fallback():
     _, kernel_ctrl = make_pair("rpgd-tf", cfg)
     _, scan_ctrl = make_pair("rpgd-tf", dict(cfg, force_scan=True))
     log_ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.3},
-                             config={"optimizer": "rpgd-tf", "controller_logging": True})
+                             config={"device": "cpu",
+                                     "optimizer": "rpgd-tf", "controller_logging": True})
     log_ctrl.configure(optimizer_name="rpgd-tf", optimizer_config=dict(cfg))
     assert ode.can_use_grad(kernel_ctrl.optimizer)
     assert not ode.can_use_grad(scan_ctrl.optimizer)

@@ -58,7 +58,7 @@ def sysid_pair(n, capacity=512, batch=64, lr=3e-3, seed=1, hiddens=(16, 16)):
     """A JAX and a port OnlineSysId over residual predictors with the same
     (JAX-initialised) weights, both fed the same ``n`` transitions."""
     jpred = JaxResidual("cartpole", dt=0.02, seed=0, hiddens=hiddens)
-    pred = ResidualPredictor("cartpole", dt=0.02, hiddens=hiddens)
+    pred = ResidualPredictor("cartpole", dt=0.02, device="cpu", hiddens=hiddens)
     pred.set_residual({k: np.asarray(v) for k, v in jpred._res.items()})
     jsys = JaxSysId(predictor=jpred, capacity=capacity, batch_size=batch, learning_rate=lr,
                     seed=seed)
@@ -137,7 +137,7 @@ def test_a_discarded_fit_drops_the_moments():
 
 
 def test_underfilled_buffer_is_refused_and_a_non_residual_predictor_too():
-    pred = ResidualPredictor("cartpole", dt=0.02)
+    pred = ResidualPredictor("cartpole", dt=0.02, device="cpu")
     sysid = OnlineSysId(predictor=pred, capacity=128, batch_size=64)
     sysid.observe(np.zeros(4), np.zeros(1), np.zeros(4))
     before = pred._res
@@ -145,7 +145,7 @@ def test_underfilled_buffer_is_refused_and_a_non_residual_predictor_too():
     sysid.apply()
     assert pred._res is before and np.isnan(OnlineSysId(predictor=pred).one_step_mse())
     ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
-                         config={"optimizer": "mppi", "controller_logging": False})
+                         config={"device": "cpu", "optimizer": "mppi", "controller_logging": False})
     ctrl.configure(optimizer_name="mppi", optimizer_config=optimizer_config(32, 8))
     with pytest.raises(TypeError, match="ResidualPredictor"):
         OnlineSysId(ctrl)
@@ -164,7 +164,7 @@ def test_fit_reduces_the_one_step_error():
 
 def test_an_install_reaches_the_controllers_next_step_without_rebuild():
     ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
-                         config={"optimizer": "mppi", "controller_logging": False})
+                         config={"device": "cpu", "optimizer": "mppi", "controller_logging": False})
     ctrl.configure(optimizer_name="mppi", predictor_specification="ODE+res",
                    optimizer_config=optimizer_config(64, 10))
     sysid = OnlineSysId(ctrl, capacity=256, batch_size=32, learning_rate=3e-3, seed=2)

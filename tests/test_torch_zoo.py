@@ -140,7 +140,8 @@ def test_icem_population_rides_k1_and_rejects_bad_configs():
                        (icem_config(num_rollouts=6, cem_best_k=5, icem_keep_elites_frac=1.0),
                         "no room")):
         ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.1},
-                             config={"optimizer": "icem-tf", "controller_logging": False})
+                             config={"device": "cpu",
+                                     "optimizer": "icem-tf", "controller_logging": False})
         with pytest.raises(ValueError, match=match):
             ctrl.configure(optimizer_name="icem-tf", optimizer_config=bad)
 
