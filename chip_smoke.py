@@ -16,8 +16,12 @@ numbers:
    target change midway that must not rebuild anything;
 5. 50 MPPI ticks with semi_fused=False (the modular path, K1);
 6. one MPPI update on the card against the same update on the CPU;
-7. K7 (grad_cost_rollout) against its plain version on the card, and the
-   dQ bound against K7's output with one stage-gradient term wrong;
+7. K7 (grad_cost_rollout: a forward launch and a time-parallel adjoint
+   launch) against its plain version on the card, also at ragged K (1000
+   and 8), and the dQ bound against K7's output with one stage-gradient
+   term wrong; then its time at K=2048 and 8192, its two launches timed
+   apart, and their resources (registers, spills, shared memory, the
+   adjoint's blocks per SM);
 8. 200 closed-loop rpgd-tf ticks (two K7 launches and one K1 per tick),
    with the target change at tick 100;
 9. 50 closed-loop gradient-tf ticks (five K7 launches and one K1 per tick);
@@ -37,7 +41,11 @@ The learned-dynamics paths: the same controllers over the committed nets
     memory, blocks per SM, HMMA instructions in its SASS) and its
     tensor-core bound;
 13. K13 (recurrent_cost_rollout) against its plain version, for the GRU
-    and for an LSTM of the same widths (seeded random weights);
+    and for an LSTM of the same widths (seeded random weights), also at
+    ragged K, and the cost bound against a zero hidden, the first two
+    gates swapped and the last cell's second gate's input bias dropped;
+    then each one's time at K=2048 and 8192, its resources (as K8's) and
+    its tensor-core bound;
 14. 200 closed-loop MPPI ticks over the MLP (one K11 launch per tick), with
     the target change at tick 100;
 15. 200 closed-loop rpgd-tf ticks over the MLP (two K8 and one K11);
@@ -207,7 +215,7 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_plain,
+    grad_cost_rollout, grad_cost_rollout_plain, launch_part,
 )
 from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
@@ -315,13 +323,15 @@ NET_TOL = dict(rtol=5e-5, atol=1e-3)
 RNN_TOL = dict(rtol=1e-3, atol=1e-3)
 # K8's dQ is held to K7's bound (rtol 2e-5 plus 5e-6 of max|dQ|): on the
 # H100 its error was 1.6e-3 to 1.8e-3 against max|dQ| 1.6e3 (1.1e-6 of it),
-# each of phase 12's wrong backwards at least 480.  K8 and K9 are also held
-# at ragged K (RAGGED_K: not a multiple of their 16-rollout warps, and below
-# one warp) and over seeded nets wider than their register path
-# (WIDE_HIDDENS, WIDE_SEED), to the same bounds.
+# each of phase 12's wrong backwards at least 480.  K7, K8, K9 and K13 are
+# also held at ragged K (RAGGED_K: not a multiple of their blocks or
+# 16-rollout groups, and below one), K8 and K9 over seeded nets wider than
+# their register path (WIDE_HIDDENS, WIDE_SEED), to the same bounds.
 RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
-# K8's and K9's time is also taken at these K (per_warp_ms).
-K_SCALING = (2048, 8192)
+# K7's, K8's, K9's and K13's time is also taken at these K (ms_at_k); K7's
+# and K13's also at SMALL_K: one of K13's 16-rollout groups alone on an SM,
+# and one block of its four groups (K7: two and eight adjoint blocks).
+K_SCALING, SMALL_K = (2048, 8192), (16, 64)
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
 # The adaptive-MPC and sparse-GP paths: bench_scale.py:build_residual_ctrl's
@@ -592,6 +602,42 @@ def compare_grad(name: str, model, Q, pvec, kernel_fn, plain_fn, reps: int = 50,
     return numbers
 
 
+def k7_cases(model, s0, Q, pvec) -> dict:
+    """Phase 7's further K7 numbers: J and dQ at each RAGGED_K to the same
+    bounds, the time at K_SCALING, its forward and adjoint launches timed
+    apart, and both kernels' resources (ptxas' registers, spills and static
+    shared memory, the adjoint's blocks per SM)."""
+    cases = {}
+    for k in RAGGED_K:
+        s, q = first_k(k, s0, Q)
+        (cost, dQ), (ref_cost, ref_dQ) = (grad_cost_rollout(model, s, q, pvec),
+                                          grad_cost_rollout_plain(model, s, q, pvec))
+        torch.cuda.synchronize()
+        cases[f"K{k}"] = got = {"cost_max_abs_err": max_errors(cost, ref_cost)[0],
+                                "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0],
+                                "dQ_max_abs": float(ref_dQ.abs().max())}
+        check(bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()) and dQ.shape == q.shape,
+              f"K7 K{k}: bad output {got}")
+        check(torch.allclose(cost, ref_cost, **KERNEL_TOL), f"K7 K{k}: cost disagrees {got}")
+        check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"K7 K{k}: dQ disagrees {got}")
+    cost, dQ = torch.empty(K, device=s0.device), torch.empty_like(Q)
+    xhist = torch.empty(Q.shape[1] + 1, s0.shape[1], K, device=s0.device)
+    numbers = {
+        "cases": cases,
+        "ms_at_k": ms_at_k(lambda k: grad_cost_rollout(model, *first_k(k, s0, Q), pvec),
+                           SMALL_K + K_SCALING),
+        # The forward first: the adjoint is timed over the states it stored.
+        "part_ms": {part: cuda_ms(lambda: launch_part(part, model, s0, Q, pvec, cost, dQ, xhist),
+                                  50)
+                    for part in ("forward", "adjoint")},
+        "forward": ptxas_resources("grad_cost_forward_kernel"),
+        "adjoint": {**ptxas_resources("grad_cost_adjoint_kernel"),
+                    "blocks_per_sm": int(kernels.load().ctt_grad_cost_adjoint_blocks_per_sm())},
+    }
+    emit("k7_cases", numbers)
+    return numbers
+
+
 def to_cpu(tree):
     """A params tree (dicts and tuples of tensors) with every tensor on the CPU."""
     if isinstance(tree, dict):
@@ -761,28 +807,48 @@ def mlp_scalar_ops(net) -> int:
     return 2 * (mlp_ops(net) - macs) + (mlp_vjp_ops(net) - macs)
 
 
-def tc_bound_ms(net, scalar_ops: int) -> float:
-    """A gradient kernel's tensor-core bound: its split products (3 mma a
-    tile, 2 * 16 * 8 * 8 operations each over 16 rollouts) over the TF32
-    rate plus ``scalar_ops`` a rollout-step over the FP32 rate."""
-    mma_ops = K * H * mma_tiles(net) * 3 * 2 * 8 * 8
+def tc_bound_ms(tiles: int, scalar_ops: int) -> float:
+    """A tensor-core kernel's bound: its split products (``tiles`` m16n8k8
+    tiles a step of 16 rollouts, 3 mma a tile, 2 * 16 * 8 * 8 operations
+    each) over the TF32 rate plus ``scalar_ops`` a rollout-step over the
+    FP32 rate."""
+    mma_ops = K * H * tiles * 3 * 2 * 8 * 8
     return (mma_ops / TF32_OPS_PER_S + K * H * scalar_ops / FP32_OPS_PER_S) * 1e3
 
 
+def rnn_cells(net) -> list:
+    """(input width, hidden width) of each cell."""
+    return [(net[f"cell{i}"]["wi"].shape[0], net[f"cell{i}"]["wh"].shape[0])
+            for i in range(sum(1 for k in net if k.startswith("cell")))]
+
+
+def rnn_macs(net, kind: str) -> int:
+    """Multiply-adds of one recurrent step: x @ wi and h @ wh of each cell
+    and the head."""
+    gates = 3 if kind == "gru" else 4
+    return sum((d_in + hd) * gates * hd for d_in, hd in rnn_cells(net)) + net["wo"].numel()
+
+
 def rnn_ops(net, kind: str) -> int:
-    """FP32 operations of one recurrent step: per cell two per multiply-add of
-    x @ wi and h @ wh and the two bias adds per gate unit, then per hidden
+    """FP32 operations of one recurrent step: two per multiply-add
+    (rnn_macs); per cell the two bias adds per gate unit, then per hidden
     unit 17 (GRU: two sigmoids of four, a tanh, the r * gh product and the
     sums, the blend) or 22 (LSTM: three sigmoids, two tanh, the gate sums,
-    the c and h updates); the head's multiply-adds and bias; the delta add."""
+    the c and h updates); the head's bias; the delta add."""
     gates, per_unit = (3, 17) if kind == "gru" else (4, 22)
-    ops, i = 0, 0
-    while f"cell{i}" in net:
-        d_in, hd = net[f"cell{i}"]["wi"].shape[0], net[f"cell{i}"]["wh"].shape[0]
-        ops += 2 * (d_in + hd) * gates * hd + 2 * gates * hd + per_unit * hd
-        i += 1
-    d, S = net["wo"].shape
-    return ops + 2 * d * S + S + S
+    S = net["wo"].shape[1]
+    return (2 * rnn_macs(net, kind) + sum((2 * gates + per_unit) * hd for _, hd in rnn_cells(net))
+            + S + S)
+
+
+def rnn_mma_tiles(net, kind: str) -> int:
+    """m16n8k8 tiles of one step of K13 over a group's 16 rows
+    (csrc/rnn_mma.cuh): per cell, each gate's unit tiles times the k-blocks
+    of its input and of its hidden, widths padded to 8; the head's one
+    output tile times its k-blocks."""
+    gates = 3 if kind == "gru" else 4
+    tiles = sum(gates * -(-hd // 8) * (-(-d_in // 8) + -(-hd // 8)) for d_in, hd in rnn_cells(net))
+    return tiles + -(-net["wo"].shape[0] // 8)
 
 
 # ---- the learned-dynamics phases ------------------------------------------------
@@ -866,7 +932,8 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: neural_grad_cost_rollout(model, s0, Q, pvec, net), 20),
-        "ms_at_k": per_warp_ms(neural_grad_cost_rollout, model, s0, Q, pvec, net),
+        "ms_at_k": ms_at_k(lambda k: neural_grad_cost_rollout(model, *first_k(k, s0, Q), pvec,
+                                                                net)),
         "plain_ms": cuda_ms(lambda: neural_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
         "cases": grad_cases("K8", neural_grad_cost_rollout, neural_grad_cost_rollout_plain, model,
                             s0, Q, pvec, net, wide_net(True, 1.0, s0.device)),
@@ -920,32 +987,40 @@ def grad_cases(label: str, kernel_fn, plain_fn, model, s0, Q, pvec, net, wide) -
     return numbers
 
 
-def per_warp_ms(kernel_fn, model, s0, Q, pvec, net) -> dict:
-    """A gradient kernel's time at the first K_SCALING rollouts each: where
-    it stays flat while the blocks still fit on the SMs at once, each
-    warp's own latency, not the card's throughput, sets it."""
-    times = {}
-    for k in K_SCALING:
-        s, q = s0[:k].contiguous(), Q[:k].contiguous()
-        times[str(k)] = cuda_ms(lambda: kernel_fn(model, s, q, pvec, net), 20)
-    return times
+def ms_at_k(run, ks=K_SCALING) -> dict:
+    """``run(k)``'s time at each of ``ks``: where a kernel's time stays
+    flat while its blocks still fit on the SMs at once, each warp's own
+    latency, not the card's throughput, sets it."""
+    return {str(k): cuda_ms(lambda: run(k), 20) for k in ks}
 
 
-def ptxas_resources(kernel: str) -> dict:
-    """Registers and spill bytes ptxas reported (phase 1's build log) for
-    the entry function ``kernel``."""
+def first_k(k: int, *tensors) -> tuple:
+    return tuple(t[:k].contiguous() for t in tensors)
+
+
+def entry_pattern(kernel: str, instance: str = "") -> str:
+    """A regex of the mangled entry function of the template ``kernel``,
+    its template arguments matching ``instance`` (K13's G = 3: ``Li3E``)."""
+    return rf"\d+{kernel}I\w*{instance}"
+
+
+def ptxas_resources(kernel: str, instance: str = "") -> dict:
+    """Registers, spill bytes and static shared memory that ptxas reported
+    (phase 1's build log) for the entry function of ``kernel``."""
     entry, found = None, {}
     for line in kernels.build.log.splitlines():
         named = re.search(r"entry function '(\w+)'", line)
         if named:
             entry = named.group(1)
-        elif entry and re.search(rf"\d+{kernel}I", entry):
+        elif entry and re.search(entry_pattern(kernel, instance), entry):
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spills:
                 found["spill_stores"], found["spill_loads"] = int(spills[1]), int(spills[2])
             used = re.search(r"Used (\d+) registers", line)
             if used:
+                smem = re.search(r"(\d+) bytes smem", line)
                 found["registers"] = int(used[1])
+                found["static_smem_bytes"] = int(smem[1]) if smem else 0
     return found
 
 
@@ -968,18 +1043,19 @@ def sass_hmma_counts():
     return counts
 
 
-def grad_resources(label: str, kernel: str, occupancy: str, model, net, scalar_ops: int) -> dict:
-    """A gradient kernel's resources for ``net``: ptxas' registers and
-    spills, its shared memory and blocks per SM, the HMMA instructions in
-    its SASS (which must be there), and its tensor-core bound."""
+def mma_resources(label: str, kernel: str, args, grad: bool, occupancy: str, tc_ms: float,
+                  instance: str = "") -> dict:
+    """A tensor-core network kernel's resources for the net of ``args``:
+    ptxas' registers and spills, its shared memory and blocks per SM, the
+    HMMA instructions in its SASS (which must be there), and its
+    tensor-core bound ``tc_ms``."""
     hmma = sass_hmma_counts()
-    args = model.net_args(net)[0]
-    numbers = {**ptxas_resources(kernel),
-               "smem_bytes": kernels.net_smem_bytes(model.plant, args, True),
-               "blocks_per_sm": kernels.grad_blocks_per_sm(occupancy, args),
+    numbers = {**ptxas_resources(kernel, instance),
+               "smem_bytes": kernels.net_smem_bytes("cartpole", args, grad),
+               "blocks_per_sm": kernels.net_blocks_per_sm(occupancy, args),
                "hmma": "not measured" if hmma is None else sum(
-                   n for fn, n in hmma.items() if re.search(rf"\d+{kernel}I", fn)),
-               "tc_bound_ms": tc_bound_ms(net, scalar_ops)}
+                   n for fn, n in hmma.items() if re.search(entry_pattern(kernel, instance), fn)),
+               "tc_bound_ms": tc_ms}
     emit(label, numbers)
     check(hmma is None or numbers["hmma"] > 0, f"{label}: no HMMA in the kernel's SASS {numbers}")
     return numbers
@@ -987,22 +1063,46 @@ def grad_resources(label: str, kernel: str, occupancy: str, model, net, scalar_o
 
 def recurrent_mutants(net, hidden, kind: str) -> dict:
     """(net, hidden) of a wrong K13: the rollouts started from a zero hidden
-    in place of the live one, and each cell's first two gates swapped (the
+    in place of the live one; each cell's first two gates swapped (the
     GRU's r and z, the LSTM's i and f, which puts the forget gate on the
-    candidate and the input gate on the old c)."""
+    candidate and the input gate on the old c); and the last cell's second
+    gate's input bias dropped (the GRU's z, the subtlest dropped bias over
+    the committed GRU; the LSTM's forget gate, the only nonzero bias of a
+    seeded LSTM)."""
     def swap(t, hd):
         return torch.cat([t[..., hd:2 * hd], t[..., :hd], t[..., 2 * hd:]], dim=-1)
 
     swapped = {k: {name: swap(t, v["wh"].shape[0]) for name, t in v.items()}
                if k.startswith("cell") else v for k, v in net.items()}
+    last = f"cell{len(rnn_cells(net)) - 1}"
+    bi, hd = net[last]["bi"], net[last]["wh"].shape[0]
+    no_bias = {**net, last: {**net[last], "bi": torch.cat([bi[:hd], torch.zeros_like(bi[hd:2 * hd]),
+                                                           bi[2 * hd:]])}}
+    gate = "z" if kind == "gru" else "f"
     return {"zero_hidden": (net, tuple(torch.zeros_like(h) for h in hidden)),
-            ("r_z_swapped" if kind == "gru" else "i_f_swapped"): (swapped, hidden)}
+            ("r_z_swapped" if kind == "gru" else "i_f_swapped"): (swapped, hidden),
+            f"{last}_{gate}_input_bias_dropped": (no_bias, hidden)}
+
+
+def recurrent_cases(model, s0, Q, pvec, net, hidden) -> dict:
+    """K13 against its plain version at each RAGGED_K, to RNN_TOL."""
+    cases = {}
+    for k in RAGGED_K:
+        s, q = first_k(k, s0, Q)
+        got = recurrent_cost_rollout(model, s, q, pvec, net, hidden)
+        ref = recurrent_cost_rollout_plain(model, s, q, pvec, net, hidden)
+        torch.cuda.synchronize()
+        cases[f"K{k}"] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+        check(bool(torch.isfinite(got).all()) and got.shape == (k,), f"K13 K{k}: bad output {errs}")
+        check(torch.allclose(got, ref, **RNN_TOL), f"K13 K{k}: kernel disagrees with plain {errs}")
+    return cases
 
 
 def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
     """Phase 13: K13 against its plain version for the net of ``spec``, from
-    the hidden that ten of the predictor's own updates reach, and the cost
-    bound against the plain version's output for a wrong net or hidden."""
+    the hidden that ten of the predictor's own updates reach, also at
+    ragged K, and the cost bound against the plain version's output for a
+    wrong net or hidden; then its time at K_SCALING and its resources."""
     ctrl = make_controller("cuda", spec=spec)
     pred, device = ctrl.optimizer.predictor.predictor, s0.device
     for _ in range(10):
@@ -1020,12 +1120,23 @@ def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
                       tol=RNN_TOL,
                       extra=lambda _: {"mutant_max_rel_err": {
                           name: max_errors(m, ref)[1] for name, m in mutants.items()},
-                          "smem_bytes": model.smem_bytes(model.net_args(net, hidden)[0], False)})
+                          "cases": recurrent_cases(model, s0, Q, pvec, net, hidden),
+                          "ms_at_k": ms_at_k(lambda k: recurrent_cost_rollout(
+                              model, *first_k(k, s0, Q), pvec, net, hidden),
+                              SMALL_K + K_SCALING)})
     for name, m in mutants.items():
         check(not torch.allclose(m, ref, **RNN_TOL),
               f"K13: the cost bound does not reject a rollout with {name} {numbers}")
     numbers.update(bound(K * H * (rnn_ops(net, model.kind) + STAGE_OPS),
                          nbytes(s0, Q, pvec, *leaves(net), *hidden) + 4 * K))
+    emit(f"{label}_bound", {k: numbers[k] for k in ("bound_ms", "bound_by")})
+    # The tensor-core bound: the split products, and the scalar work (gates,
+    # head bias, delta, stage cost) at the FP32 rate.
+    scalar = rnn_ops(net, model.kind) - 2 * rnn_macs(net, model.kind) + STAGE_OPS
+    mma_resources(f"{label}_resources", "recurrent_cost_rollout_kernel",
+                  model.net_args(net, hidden)[0], False, "recurrent",
+                  tc_bound_ms(rnn_mma_tiles(net, model.kind), scalar),
+                  instance="Li3E" if model.kind == "gru" else "Li4E")
     return numbers
 
 
@@ -1124,7 +1235,8 @@ def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: residual_grad_cost_rollout(model, s0, Q, pvec, net), 20),
-        "ms_at_k": per_warp_ms(residual_grad_cost_rollout, model, s0, Q, pvec, net),
+        "ms_at_k": ms_at_k(lambda k: residual_grad_cost_rollout(model, *first_k(k, s0, Q), pvec,
+                                                                  net)),
         "plain_ms": cuda_ms(lambda: residual_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
         "cases": grad_cases("K9", residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
                             model, s0, Q, pvec, net, wide_net(False, 0.02, s0.device)),
@@ -1943,6 +2055,7 @@ def main() -> None:
                       lambda: grad_cost_rollout_plain(model, s0, Qg, pvec))
     k7.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + RK4_VJP_OPS + STAGE_VJP_OPS),
                     nbytes(s0, Qg, pvec, Qg) + 4 * K))
+    k7_cases(model, s0, Qg, pvec)
 
     # 8-9. The gradient optimizers, closed loop.
     rpgd = make_controller("cuda", "rpgd-tf", RPGD_CONFIG)
@@ -1973,8 +2086,9 @@ def main() -> None:
     # backward, but a kernel that kept the activations would not have to.
     k8.update(bound(K * H * (mlp_ops(net) + mlp_vjp_ops(net) + STAGE_OPS + STAGE_VJP_OPS),
                     nbytes(s0, Qg, npvec, *leaves(net), Qg) + 4 * K))
-    grad_resources("k8_resources", "neural_grad_cost_rollout_kernel", "neural_grad", nmodel, net,
-                   mlp_scalar_ops(net) + STAGE_OPS + STAGE_VJP_OPS)
+    mma_resources("k8_resources", "neural_grad_cost_rollout_kernel", nmodel.net_args(net)[0], True,
+                  "neural_grad",
+                  tc_bound_ms(mma_tiles(net), mlp_scalar_ops(net) + STAGE_OPS + STAGE_VJP_OPS))
 
     # 13. K13 over the committed GRU and over an LSTM of the same widths.
     k13 = compare_recurrent("k13_recurrent_cost_rollout_gru", GRU_SPEC, s0, Q, gen)
@@ -2019,9 +2133,10 @@ def main() -> None:
     k9.update(bound(K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS + RK4_VJP_OPS
                              + mlp_vjp_ops(rnet) + STAGE_VJP_OPS),
                     nbytes(s0, Qg, rpvec, *leaves(rnet), Qg) + 4 * K))
-    grad_resources("k9_resources", "residual_grad_cost_rollout_kernel", "residual_grad", rmodel,
-                   rnet, RK4_STEP_OPS + RK4_VJP_OPS + mlp_scalar_ops(rnet) + STAGE_OPS
-                   + STAGE_VJP_OPS)
+    mma_resources("k9_resources", "residual_grad_cost_rollout_kernel", rmodel.net_args(rnet)[0],
+                  True, "residual_grad",
+                  tc_bound_ms(mma_tiles(rnet), RK4_STEP_OPS + RK4_VJP_OPS + mlp_scalar_ops(rnet)
+                              + STAGE_OPS + STAGE_VJP_OPS))
 
     # 20-21. K14 and K10 over a well-conditioned GP of the committed one's
     # widths, then over the committed GP against float64.

@@ -1,65 +1,71 @@
-// K7: rollout cost J and its gradient dJ/dQ over K control sequences, in
-// one forward-store / backward-sweep pass per rollout.
+// K7: rollout cost J and its gradient dJ/dQ over K control sequences, as a
+// forward launch and a time-parallel adjoint launch.
 //
 // Replaces control_toolkit_tpu/ops/pallas_grad.py:build_grad_cost_rollout_kernel
 // (body _make_fwd_bwd_kernel, runner _make_grad_runner; the kernel behind
 // kernel_families/ode.py:build_grad).  Python wrapper and plain version:
 // ops/grad_cost_rollout.py.  The Pallas kernel got its backward from
-// jax.vjp at trace time; here the adjoints are written by hand
-// (plants.cuh derivs_vjp / stage_cost_vjp / terminal_cost_grad,
-// rollout_core.cuh integrate_vjp), transcribed from ops/adjoints.py.
+// jax.vjp at trace time; here the derivatives are written by hand
+// (plants.cuh derivs_tangent / stage_cost_vjp / terminal_cost_grad,
+// rollout_core.cuh integrate_jac), transcribed from ops/adjoints.py.
 //
-// Forward (bit for bit K1's arithmetic): store x_h, add the stage cost,
-// integrate; cost[k] = (sum_h stage + terminal) / (H+1).
-// Backward, h = H-1 .. 0, with ct = 1/(H+1):
-//   lam = ct * d terminal / d x_H
-//   (dx, du) = integrate_vjp at the stored x_h (the step is re-run)
-//   (gx, gu, gprev_h) = the stage cost's gradient at ct
-//   dQ[k,h] = (du + gu) + gprev_{h+1}       gprev_H = 0
-//   lam = dx + gx
+// The forward is a nonlinear recurrence; the backward is linear in the
+// cotangent once the forward's states are known.  With ct = 1/(H+1),
+// A_h = d x_{h+1} / d x_h [S,S] and B_h = d x_{h+1} / d u_h [S,U] (one
+// control period: every sub-step), and (gx_h, gu_h, gprev_h) the stage
+// cost's gradient at (x_h, u_h, u_{h-1}):
+//   lam_H = ct * d terminal / d x_H
+//   dQ_h  = (B_h^T lam_{h+1} + gu_h) + gprev_{h+1}      gprev_H = 0
+//   lam_h = A_h^T lam_{h+1} + gx_h
 // prev at h = 0 is the packed __u_prev, which gets no gradient.
 //
-// State history: one thread owns one rollout, and its H states go to the
-// wrapper-allocated scratch xhist [H, S, K], rollout index fastest, so a
-// warp's stores and loads of one (h, i) are 128 contiguous bytes.  At
-// K=16384, H=50, S=4 that is 13.1 MB, which the H100's 50 MB L2 holds
-// between the two sweeps.  A per-thread array of H*S = 200 floats would
-// spill to local memory instead.
+// Forward launch (grad_cost_forward_kernel): one thread owns one rollout,
+// K1's arithmetic bit for bit (Rollout::advance); it writes cost[k] and
+// the states x_0..x_H to the wrapper-allocated scratch xhist [H+1, S, K],
+// rollout index fastest (a warp's access to one (h, i) is 128 contiguous
+// bytes; 13.4 MB at K=16384, H=50, S=4, which the H100's 50 MB L2 keeps
+// for the adjoint launch).
 //
-// Q and dQ stay in their [K, H, U] layout, read and written strided (thread
-// k walks row k), as K1 reads Q: a warp's access at step h touches 32
-// sectors, but each 32-byte sector holds 8 consecutive steps of one
-// rollout, which the next iterations find in L1 (reads) or merge in L2
-// (writes); a transpose to [H, U, K] in the wrapper, as _make_grad_runner
-// does for the TPU's lane layout, would add two passes over Q and dQ.
+// Adjoint launch (grad_cost_adjoint_kernel): everything expensive in the
+// backward — the Jacobians, each a forward-mode pass through the period's
+// plant evaluations with sinf, cosf and divisions, and the stage terms —
+// depends on one (k, h) alone, K*H = 819,200 independent items at the main
+// shape where the old one-thread-per-rollout sweep had 16,384 chains.  A
+// block owns kAdjRollouts rollouts; its kAdjThreads threads compute one
+// item each, kAdjSteps steps of all its rollouts at a time (thread t: step
+// t / kAdjRollouts, rollout t % kAdjRollouts), into shared memory laid out
+// [step][field][rollout]; after a barrier, one thread per rollout runs the
+// short linear chain over those steps (S*S + S*U multiply-adds a step),
+// last chunk first, carrying lam and gprev in registers; a second barrier
+// frees the chunk.  H is a runtime value of any size: the chunk is fixed.
 //
-// What bounds it on an H100: the dependent FP32 chain per thread, about
-// twice K1's: the forward rk4 (four plant evaluations per step), then per
-// step in the backward the re-run of three of them and four transposed
-// plant evaluations, each with sinf, cosf and divisions.  At K=16384 the
-// grid is 128 blocks of 128 threads on 132 SMs, about four warps per SM,
-// too few to hide that chain's latency; the history traffic (2 x 13.1 MB,
-// mostly L2) is secondary.  The design does nothing about either yet: a
-// first, simple kernel.
+// What bounds it on an H100: the item computation's FP32 work (four
+// Jacobian-tangent products of the plant a rk4 sub-step), now
+// spread over kAdjThreads-thread blocks, K/kAdjRollouts of them; the
+// chain's share is ~S*(S+U) dependent-free multiply-adds a step on 1/32
+// of the threads.  The history traffic (2 x 13.4 MB, mostly L2) is
+// secondary.  Q and dQ stay in their [K, H, U] layout, read and written
+// strided, as K1 reads Q.
 #include "rollout_core.cuh"
 
 namespace ctt {
 
+constexpr int kAdjRollouts = 8;                          // rollouts per adjoint block
+constexpr int kAdjSteps = 32;                            // steps per chunk
+constexpr int kAdjThreads = kAdjRollouts * kAdjSteps;    // one item per thread
+
 template <class Plant>
 __global__ void __launch_bounds__(kThreads)
-grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                          const float* __restrict__ pvec, float* __restrict__ cost,
-                         float* __restrict__ dQ, float* __restrict__ xhist, int K, int H,
-                         StepConsts c, float max_cost, float ct) {
+                         float* __restrict__ xhist, int K, int H, StepConsts c,
+                         float max_cost) {
   constexpr int S = Plant::S, U = Plant::U;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked
   float p[Plant::kN];
   load_params<Plant>(pvec, p);
   const float* q = Q + static_cast<size_t>(k) * H * U;
-  float* dq = dQ + static_cast<size_t>(k) * H * U;
-
-  // Forward sweep.
   Rollout<Plant> r;
   r.start(s0 + static_cast<size_t>(k) * S, p);
   for (int h = 0; h < H; ++h) {
@@ -70,56 +76,155 @@ grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
     r.advance(u, p, c, max_cost);
   }
+#pragma unroll
+  for (int i = 0; i < S; ++i) xhist[(static_cast<size_t>(H) * S + i) * K + k] = r.x[i];
   cost[k] = r.finish(p, H);
+}
 
-  // Backward sweep.
+template <class Plant>
+__global__ void __launch_bounds__(kAdjThreads, 2)
+grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
+                         const float* __restrict__ xhist, float* __restrict__ dQ, int K, int H,
+                         StepConsts c, float ct) {
+  constexpr int S = Plant::S, U = Plant::U, N = S + U;
+  // An item's fields: [A | B] row-major (S*N), gx (S), gu (U), gprev (U);
+  // an odd field count keeps a warp's four steps on distinct banks.
+  constexpr int kGx = S * N, kGu = kGx + S, kGp = kGu + U, kFields = (kGp + U) | 1;
+  __shared__ float items[kAdjSteps * kFields * kAdjRollouts];
+  float p[Plant::kN];
+  load_params<Plant>(pvec, p);
+  const int r = threadIdx.x % kAdjRollouts, hh = threadIdx.x / kAdjRollouts;
+  const int k = blockIdx.x * kAdjRollouts + r;
+  const bool live = k < K;  // ragged K: a row past K computes and writes nothing
+  auto field = [&](int step, int f) -> float& {
+    return items[(step * kFields + f) * kAdjRollouts + r];
+  };
+
+  // The chain's state, on the threads of step 0 of each chunk.
   float lam[S], gnext[U];
-  Plant::terminal_cost_grad(r.x, p, ct, lam);
+  if (hh == 0 && live) {
+    float x[S];
 #pragma unroll
-  for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
-  for (int h = H - 1; h >= 0; --h) {
-    float x[S], u[U], prev[U];
+    for (int i = 0; i < S; ++i) x[i] = xhist[(static_cast<size_t>(H) * S + i) * K + k];
+    Plant::terminal_cost_grad(x, p, ct, lam);
 #pragma unroll
-    for (int i = 0; i < S; ++i) x[i] = xhist[(static_cast<size_t>(h) * S + i) * K + k];
+    for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
+  }
+  for (int h0 = (H - 1) / kAdjSteps * kAdjSteps; h0 >= 0; h0 -= kAdjSteps) {
+    const int h = h0 + hh;
+    if (h < H && live) {
+      float x[S], x0[S], u[U], prev[U], T[S][N];
 #pragma unroll
-    for (int j = 0; j < U; ++j) {
-      u[j] = __ldg(q + h * U + j);
-      prev[j] = h > 0 ? __ldg(q + (h - 1) * U + j) : p[Plant::kUPrev + j];
+      for (int i = 0; i < S; ++i) x0[i] = x[i] = xhist[(static_cast<size_t>(h) * S + i) * K + k];
+      const float* q = Q + static_cast<size_t>(k) * H * U;
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        u[j] = __ldg(q + h * U + j);
+        prev[j] = h > 0 ? __ldg(q + (h - 1) * U + j) : p[Plant::kUPrev + j];
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) T[i][n] = i == n ? 1.0f : 0.0f;
+      }
+      integrate_jac<Plant>(x, u, p, c, T);
+      float gx[S], gu[U], gp[U];
+      Plant::stage_cost_vjp(x0, u, prev, p, ct, gx, gu, gp);
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) field(hh, i * N + n) = T[i][n];
+        field(hh, kGx + i) = gx[i];
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        field(hh, kGu + j) = gu[j];
+        field(hh, kGp + j) = gp[j];
+      }
     }
-    float du[U], gx[S], gu[U], gp[U];
-    integrate_vjp<Plant>(x, u, p, c, lam, du);  // lam: now dx
-    Plant::stage_cost_vjp(x, u, prev, p, ct, gx, gu, gp);
+    __syncthreads();
+    if (hh == 0 && live) {
+      float* dq = dQ + static_cast<size_t>(k) * H * U;
+      const int steps = H - h0 < kAdjSteps ? H - h0 : kAdjSteps;
+      for (int s = steps - 1; s >= 0; --s) {
+        float nl[S], du[U];
 #pragma unroll
-    for (int j = 0; j < U; ++j) {
-      dq[h * U + j] = (du[j] + gu[j]) + gnext[j];
-      gnext[j] = gp[j];
+        for (int j = 0; j < S; ++j) nl[j] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < U; ++j) du[j] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+#pragma unroll
+          for (int j = 0; j < S; ++j) nl[j] = fmaf(field(s, i * N + j), lam[i], nl[j]);
+#pragma unroll
+          for (int j = 0; j < U; ++j) du[j] = fmaf(field(s, i * N + S + j), lam[i], du[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          dq[(h0 + s) * U + j] = (du[j] + field(s, kGu + j)) + gnext[j];
+          gnext[j] = field(s, kGp + j);
+        }
+#pragma unroll
+        for (int i = 0; i < S; ++i) lam[i] = nl[i] + field(s, kGx + i);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < S; ++i) lam[i] = lam[i] + gx[i];
+    __syncthreads();
   }
 }
 
 }  // namespace ctt
 
-// Launches K7 on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant).  xhist is scratch of
-// H*S*K floats that the caller allocates.
-extern "C" int ctt_grad_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                     void* cost, void* dQ, void* xhist, int K, int H, int rk4,
+// Launch K7's forward on `stream`; returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown plant).  xhist is scratch
+// of (H+1)*S*K floats that the caller allocates.
+extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, const void* pvec,
+                                     void* cost, void* xhist, int K, int H, int rk4,
                                      int substeps, float sub_dt, float half_dt, float dt6,
-                                     float max_cost, float ct, void* stream) {
+                                     float max_cost, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::grad_cost_rollout_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+      ctt::grad_cost_forward_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
           static_cast<const float*>(s0), static_cast<const float*>(Q),
-          static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(dQ),
-          static_cast<float*>(xhist), K, H, c, max_cost, ct);
+          static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(xhist),
+          K, H, c, max_cost);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K7's adjoint on `stream` over the forward's xhist; returns as above.
+extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
+                                     const void* xhist, void* dQ, int K, int H, int rk4,
+                                     int substeps, float sub_dt, float half_dt, float dt6,
+                                     float ct, void* stream) {
+  const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
+  const dim3 grid((K + ctt::kAdjRollouts - 1) / ctt::kAdjRollouts);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (plant) {
+    case ctt::kPlantCartpole:
+      ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant><<<grid, ctt::kAdjThreads, 0, st>>>(
+          static_cast<const float*>(Q), static_cast<const float*>(pvec),
+          static_cast<const float*>(xhist), static_cast<float*>(dQ), K, H, c, ct);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K7's adjoint kernel that one SM holds (0 where the runtime
+// cannot say).
+extern "C" int ctt_grad_cost_adjoint_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant>, ctt::kAdjThreads, 0) !=
+      cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }

@@ -1,24 +1,23 @@
-// The network core shared by the network-rollout kernels K11, K13 (MLP and
-// stacked GRU/LSTM rollout + cost, neural_rollout.cu) and K12 (residual
-// rollout + cost, residual_rollout.cu).  It replaces the Pallas kernels'
-// row-MLP (control_toolkit_tpu/ops/pallas_neural.py:mlp_rows and the
-// recurrent kernel's `cell`), which ran each layer as one MXU matmul over a
-// [features, tile] slab in VMEM.  The gradient kernels K8 and K9 run their
-// MLP on tensor cores instead (mlp_mma.cuh).
+// The network core of the network-rollout kernels K11 (MLP rollout + cost,
+// neural_rollout.cu) and K12 (residual rollout + cost, residual_rollout.cu),
+// and the net's description that every network kernel takes.  It replaces
+// the Pallas kernels' row-MLP (control_toolkit_tpu/ops/pallas_neural.py:
+// mlp_rows), which ran each layer as one MXU matmul over a [features, tile]
+// slab in VMEM.  The gradient kernels K8 and K9 run their MLP on tensor
+// cores instead (mlp_mma.cuh), and K13 its GRU/LSTM cells (rnn_mma.cuh).
 //
 // Design (one thread owns one rollout, as in rollout_core.cuh):
 // - A block first stages the net into dynamic shared memory: each weight
 //   matrix row-major with its row padded with zeros to a multiple of the
-//   output chunk (and, for the recurrent cells, each gate's block padded to
-//   a multiple of four), so that every thread reads a float4 of weights per
-//   input as a broadcast.  The `transposed` layout adds a transposed copy of
+//   output chunk, so that every thread reads a float4 of weights per input
+//   as a broadcast.  The `transposed` layout adds a transposed copy of
 //   each MLP matrix and two gradient columns, for a backward's `g @ W^T` in
 //   the same loop (the one-thread-per-rollout K8 and K9 took it; no kernel
 //   does now).  The net's tensors
-//   arrive as they are stored (w [in, out], cell wi [in, G*Hd]): no copy or
-//   transpose is dispatched per call, and a new weight tensor is a new
-//   pointer, never a rebuild.
-// - Each thread's activations, hidden state and gradients live in its own
+//   arrive as they are stored (w [in, out]): no copy or transpose is
+//   dispatched per call, and a new weight tensor is a new pointer, never a
+//   rebuild.
+// - Each thread's activations and gradients live in its own
 //   columns of shared memory after the weights (element i of a column
 //   array at i * kThreads + threadIdx.x: consecutive threads, consecutive
 //   banks), so layers of any width up to what fits are runtime loops, and
@@ -40,7 +39,6 @@ namespace ctt {
 
 constexpr int kMaxLayers = 8;        // ops/kernels.py MAX_LAYERS
 constexpr int kChunk = 8;            // MLP outputs per pass
-constexpr int kGateChunk = 4;        // recurrent hidden units per pass
 constexpr long kMaxSmem = 232448;    // shared memory one block may use on sm_90
 enum NetKind : int { kNetMLP = 0, kNetGRU = 1, kNetLSTM = 2 };  // ops/kernels.py NET_KINDS
 
@@ -67,12 +65,9 @@ struct NetArgs {
 struct NetLayout {
   int w[kMaxLayers], b[kMaxLayers], ld[kMaxLayers];  // forward rows, padded
   int wt[kMaxLayers], ldt[kMaxLayers];               // MLP transposed
-  int wh[kMaxLayers], bh[kMaxLayers];                // recurrent cells (row length ld)
-  int wo, bo, ldo;                                   // recurrent head
   int norm[4];                                       // in mean, in std, out mean, out std; -1
   int n_staged;
-  int in_col, out_col, act_col[kMaxLayers], ga_col, gb_col;  // MLP
-  int h_col[kMaxLayers], c_col[kMaxLayers], hn_col;         // recurrent
+  int in_col, out_col, act_col[kMaxLayers], ga_col, gb_col;
   int n_cols;
 };
 
@@ -87,62 +82,41 @@ inline long plan_layout(const NetArgs& a, int S, int U, bool transposed, NetLayo
   auto take = [&off](int n) { const int o = off; off += pad_to(n, 4); return o; };
   auto column = [&cols](int n) { const int c = cols; cols += n; return c; };
   const int n = a.n_layers;
-  if (n < 1 || n > kMaxLayers || a.dims[0] != S + U) return -1;
+  if (a.kind != kNetMLP || n < 1 || n > kMaxLayers || a.dims[0] != S + U || a.dims[n] != S) {
+    return -1;
+  }
   for (int i = 1; i <= n; ++i) {
     if (a.dims[i] < 1) return -1;
     widest = a.dims[i] > widest ? a.dims[i] : widest;
   }
   for (int i = 0; i < 4; ++i) L.norm[i] = -1;
   L.in_col = column(S + U);
-  if (a.kind == kNetMLP) {
-    if (a.dims[n] != S) return -1;
-    for (int i = 0; i < n; ++i) {
-      L.ld[i] = pad_to(a.dims[i + 1], kChunk);
-      L.w[i] = take(a.dims[i] * L.ld[i]);
-      L.b[i] = take(L.ld[i]);
-      if (transposed) {
-        L.ldt[i] = pad_to(a.dims[i], kChunk);
-        L.wt[i] = take(a.dims[i + 1] * L.ldt[i]);
-      }
-      if (i < n - 1) L.act_col[i] = column(a.dims[i + 1]);
-    }
-    if ((a.norm_in_mean == nullptr) != (a.norm_in_std == nullptr) ||
-        (a.norm_out_mean == nullptr) != (a.norm_out_std == nullptr)) {
-      return -1;
-    }
-    if (a.norm_in_mean) {
-      L.norm[0] = take(S + U);
-      L.norm[1] = take(S + U);
-    }
-    if (a.norm_out_mean) {
-      L.norm[2] = take(S);
-      L.norm[3] = take(S);
-    }
-    L.out_col = column(S);
+  for (int i = 0; i < n; ++i) {
+    L.ld[i] = pad_to(a.dims[i + 1], kChunk);
+    L.w[i] = take(a.dims[i] * L.ld[i]);
+    L.b[i] = take(L.ld[i]);
     if (transposed) {
-      L.ga_col = column(widest);
-      L.gb_col = column(widest);
+      L.ldt[i] = pad_to(a.dims[i], kChunk);
+      L.wt[i] = take(a.dims[i + 1] * L.ldt[i]);
     }
-  } else if (a.kind == kNetGRU || a.kind == kNetLSTM) {
-    if (transposed) return -1;
-    const int G = gates_of(a.kind);
-    for (int i = 0; i < n; ++i) {
-      const int hd = a.dims[i + 1];
-      L.ld[i] = G * pad_to(hd, kGateChunk);
-      L.w[i] = take(a.dims[i] * L.ld[i]);
-      L.b[i] = take(L.ld[i]);
-      L.wh[i] = take(hd * L.ld[i]);
-      L.bh[i] = take(L.ld[i]);
-      L.h_col[i] = column(hd);
-      if (a.kind == kNetLSTM) L.c_col[i] = column(hd);
-    }
-    L.ldo = pad_to(S, kChunk);
-    L.wo = take(a.dims[n] * L.ldo);
-    L.bo = take(L.ldo);
-    L.hn_col = column(widest);
-    L.out_col = column(S);
-  } else {
+    if (i < n - 1) L.act_col[i] = column(a.dims[i + 1]);
+  }
+  if ((a.norm_in_mean == nullptr) != (a.norm_in_std == nullptr) ||
+      (a.norm_out_mean == nullptr) != (a.norm_out_std == nullptr)) {
     return -1;
+  }
+  if (a.norm_in_mean) {
+    L.norm[0] = take(S + U);
+    L.norm[1] = take(S + U);
+  }
+  if (a.norm_out_mean) {
+    L.norm[2] = take(S);
+    L.norm[3] = take(S);
+  }
+  L.out_col = column(S);
+  if (transposed) {
+    L.ga_col = column(widest);
+    L.gb_col = column(widest);
   }
   L.n_staged = off;
   L.n_cols = cols;
@@ -178,27 +152,15 @@ __device__ __forceinline__ void stage_transposed(float* dst, const float* __rest
 __device__ __forceinline__ void stage_net(float* sm, const NetArgs& a, const NetLayout& L,
                                           int S, int U, bool transposed) {
   const int n = a.n_layers;
-  if (a.kind == kNetMLP) {
-    for (int i = 0; i < n; ++i) {
-      stage_rows(sm + L.w[i], a.w[i], a.dims[i], 1, a.dims[i + 1], L.ld[i]);
-      stage_rows(sm + L.b[i], a.b[i], 1, 1, a.dims[i + 1], L.ld[i]);
-      if (transposed) stage_transposed(sm + L.wt[i], a.w[i], a.dims[i], a.dims[i + 1], L.ldt[i]);
-    }
-    const float* norms[4] = {a.norm_in_mean, a.norm_in_std, a.norm_out_mean, a.norm_out_std};
-    for (int i = 0; i < 4; ++i) {
-      if (L.norm[i] >= 0) stage_rows(sm + L.norm[i], norms[i], 1, 1, i < 2 ? S + U : S, i < 2 ? S + U : S);
-    }
-  } else {
-    const int G = gates_of(a.kind);
-    for (int i = 0; i < n; ++i) {
-      const int hd = a.dims[i + 1], hdp = L.ld[i] / G;
-      stage_rows(sm + L.w[i], a.w[i], a.dims[i], G, hd, hdp);
-      stage_rows(sm + L.b[i], a.b[i], 1, G, hd, hdp);
-      stage_rows(sm + L.wh[i], a.wh[i], hd, G, hd, hdp);
-      stage_rows(sm + L.bh[i], a.bh[i], 1, G, hd, hdp);
-    }
-    stage_rows(sm + L.wo, a.wo, a.dims[n], 1, S, L.ldo);
-    stage_rows(sm + L.bo, a.bo, 1, 1, S, L.ldo);
+  for (int i = 0; i < n; ++i) {
+    stage_rows(sm + L.w[i], a.w[i], a.dims[i], 1, a.dims[i + 1], L.ld[i]);
+    stage_rows(sm + L.b[i], a.b[i], 1, 1, a.dims[i + 1], L.ld[i]);
+    if (transposed) stage_transposed(sm + L.wt[i], a.w[i], a.dims[i], a.dims[i + 1], L.ldt[i]);
+  }
+  const float* norms[4] = {a.norm_in_mean, a.norm_in_std, a.norm_out_mean, a.norm_out_std};
+  for (int i = 0; i < 4; ++i) {
+    const int width = i < 2 ? S + U : S;
+    if (L.norm[i] >= 0) stage_rows(sm + L.norm[i], norms[i], 1, 1, width, width);
   }
 }
 
@@ -274,108 +236,6 @@ __device__ __forceinline__ void mlp_step(float* sm, const NetArgs& a, const NetL
     if (L.norm[2] >= 0) o = o * sm[L.norm[3] + i] + sm[L.norm[2] + i];
     x[i] = a.predict_delta ? x[i] + o : o;
   }
-}
-
-// ---- recurrent cells -------------------------------------------------------
-
-// acc[g][q] = sum_i x[i] * W[i*ld + g*hdp + j0 + q]: gate g's sums for the
-// hidden units j0..j0+3.
-template <int G>
-__device__ __forceinline__ void gate_sums(const float* x, int n_in, const float* W, int ld,
-                                          int hdp, int j0, float (&acc)[G][kGateChunk]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int q = 0; q < kGateChunk; ++q) acc[g][q] = 0.0f;
-  }
-  for (int i = 0; i < n_in; ++i) {
-    const float xi = x[i * kThreads];
-    const float* row = W + i * ld + j0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float4 w4 = *reinterpret_cast<const float4*>(row + g * hdp);
-      acc[g][0] = fmaf(xi, w4.x, acc[g][0]);
-      acc[g][1] = fmaf(xi, w4.y, acc[g][1]);
-      acc[g][2] = fmaf(xi, w4.z, acc[g][2]);
-      acc[g][3] = fmaf(xi, w4.w, acc[g][3]);
-    }
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// Start every layer's state from the live batch-1 hidden.
-template <int G>
-__device__ __forceinline__ void rnn_start(float* sm, const NetArgs& a, const NetLayout& L) {
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int hd = a.dims[l + 1];
-    float* h = column(sm, L, L.h_col[l]);
-    for (int j = 0; j < hd; ++j) h[j * kThreads] = __ldg(a.hidden[l] + j);
-    if constexpr (G == 4) {
-      float* c = column(sm, L, L.c_col[l]);
-      for (int j = 0; j < hd; ++j) c[j * kThreads] = __ldg(a.hidden[l] + hd + j);
-    }
-  }
-}
-
-// One step of the stacked cells and the head (pallas_neural.py:526-586,
-// models/networks.py): G = 3 is the GRU (gates r, z, n:
-//   r = s(gi_r + gh_r), z = s(gi_z + gh_z), n = tanh(gi_n + r * gh_n),
-//   h' = (1 - z) * n + z * h, with gi = x @ wi + bi, gh = h @ wh + bh),
-// G = 4 the LSTM (gates i, f, g, o of g = ((x @ wi + bi) + h @ wh) + bh;
-//   c' = f * c + i * tanh(g_g), h' = o * tanh(c')).  The new h goes to a
-// scratch column while the old one is still read, then replaces it; c is
-// updated in place (c' of a unit reads only that unit's c).
-template <int G, int S, int U>
-__device__ __forceinline__ void rnn_step(float* sm, const NetArgs& a, const NetLayout& L,
-                                         float (&x)[S], const float (&u)[U]) {
-  float* in = column(sm, L, L.in_col);
-#pragma unroll
-  for (int i = 0; i < S; ++i) in[i * kThreads] = x[i];
-#pragma unroll
-  for (int j = 0; j < U; ++j) in[(S + j) * kThreads] = u[j];
-  float* hn = column(sm, L, L.hn_col);
-  const float* inp = in;
-  int n_in = S + U;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int hd = a.dims[l + 1], ld = L.ld[l], hdp = ld / G;
-    float* h = column(sm, L, L.h_col[l]);
-    const float* bi = sm + L.b[l];
-    const float* bh = sm + L.bh[l];
-    for (int j0 = 0; j0 < hd; j0 += kGateChunk) {
-      float sx[G][kGateChunk], sh[G][kGateChunk];
-      gate_sums<G>(inp, n_in, sm + L.w[l], ld, hdp, j0, sx);
-      gate_sums<G>(h, hd, sm + L.wh[l], ld, hdp, j0, sh);
-#pragma unroll
-      for (int q = 0; q < kGateChunk; ++q) {
-        const int j = j0 + q;
-        if (j >= hd) break;
-        if constexpr (G == 3) {
-          const float r = sigmoid((sx[0][q] + bi[j]) + (sh[0][q] + bh[j]));
-          const float z = sigmoid((sx[1][q] + bi[hdp + j]) + (sh[1][q] + bh[hdp + j]));
-          const float nn = tanhf((sx[2][q] + bi[2 * hdp + j]) + r * (sh[2][q] + bh[2 * hdp + j]));
-          hn[j * kThreads] = (1.0f - z) * nn + z * h[j * kThreads];
-        } else {
-          float gate[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            gate[g] = ((sx[g][q] + bi[g * hdp + j]) + sh[g][q]) + bh[g * hdp + j];
-          }
-          float* c = column(sm, L, L.c_col[l]);
-          const float cn = sigmoid(gate[1]) * c[j * kThreads] + sigmoid(gate[0]) * tanhf(gate[2]);
-          c[j * kThreads] = cn;
-          hn[j * kThreads] = sigmoid(gate[3]) * tanhf(cn);
-        }
-      }
-    }
-    for (int j = 0; j < hd; ++j) h[j * kThreads] = hn[j * kThreads];
-    inp = h;
-    n_in = hd;
-  }
-  float* out = column(sm, L, L.out_col);
-  dense<false>(inp, n_in, sm + L.wo, sm + L.bo, L.ldo, S, out);
-#pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = a.predict_delta ? x[i] + out[i * kThreads] : out[i * kThreads];
 }
 
 // Set the kernel's dynamic shared memory limit where it exceeds the 48 KB

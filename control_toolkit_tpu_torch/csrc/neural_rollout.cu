@@ -6,26 +6,32 @@
 // build_neural_cost_rollout_kernel (K11) and
 // build_recurrent_cost_rollout_kernel (K13), the kernels behind
 // kernel_families/neural.py:build_cost.  Python wrappers and plain
-// versions: ops/neural_rollout.py; the net's layers: neural_core.cuh.
+// versions: ops/neural_rollout.py; K11's layers: neural_core.cuh; K13's
+// cells: rnn_mma.cuh.
 //
 // cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1),
 // Q[k,-1] = u_prev; the stage cost accrues before the step.  The packed
 // parameters are the cost's alone (plants.cuh CartpoleCost): the dynamics
 // are the net, staged from its tensors at every launch.
 //
-// What bounds them on an H100: the network's FP32 multiply-adds.  At the
-// main path's K=16384, H=50, mlp-64-64 is 9,344 FLOP per rollout-step
-// (7.7 GFLOP a call, 0.11 ms at the 67 TFLOP/s FP32 peak) and GRU-32-32
-// 19,648 (16 GFLOP, 0.24 ms); the bytes (Q in, cost out, the weights once
-// per block) are < 4 MB.  One thread per rollout gives 16384 threads, about
-// four warps per SM, and each FMA needs shared-memory operands, so the
-// kernels run far from that peak.  The design keeps everything else off
-// the chain: weights are staged once per block and read as float4
-// broadcasts, each thread's activations stay in its own shared-memory
-// columns (no barrier inside the horizon loop), and a layer's outputs are
-// summed kChunk (kGateChunk per gate) at a time in registers.  Tensor cores
-// over a tile of rollouts would change the numerics: later work.
+// What bounds them on an H100: the network's multiply-adds.  At the main
+// path's K=16384, H=50, mlp-64-64 is 9,344 FLOP per rollout-step (7.7
+// GFLOP a call, 0.11 ms at the 67 TFLOP/s FP32 peak); the bytes (Q in,
+// cost out, the weights once per block) are < 4 MB.
+// - K11 runs one thread per rollout in FP32, about four warps per SM,
+//   each FMA with a shared-memory operand, far from that peak.  Its
+//   design keeps everything else off the chain: weights staged once per
+//   block and read as float4 broadcasts, each thread's activations in its
+//   own shared-memory columns (no barrier inside the horizon loop), a
+//   layer's outputs summed kChunk at a time in registers.
+// - K13 runs its gate products on the tensor cores, 3xTF32 mma.sync over
+//   16-rollout groups of up to four warps that split each layer by hidden
+//   unit (rnn_mma.cuh): GRU-32-32 is 160 m16n8k8 tiles a group-step, 480
+//   mma in 3xTF32, 50 GFLOP a call (0.10 ms at the 495 TFLOP/s TF32
+//   rate); K/16 groups of four warps give the card 4,096 warps at
+//   K=16384 where one thread a rollout gave 512.
 #include "neural_core.cuh"
+#include "rnn_mma.cuh"
 
 namespace ctt {
 
@@ -63,37 +69,64 @@ neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict
 }
 
 template <class Cost, int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRnnThreads)
 recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                               const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                              int H, float max_cost, NetArgs net, NetLayout L) {
+                              int H, float max_cost, NetArgs net, RnnLayout L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  stage_net(sm, net, L, S, U, false);
+  stage_rnn_net<G>(sm, net, L, S);
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = warp / L.warps, w = warp - group * L.warps;
+  const int first = (blockIdx.x * L.groups + group) * kMmaRows;
+  if (first >= K) return;  // the whole group: ragged K is masked
+  // Lanes l and l+16 own rollout first + l; rows past K repeat rollout K-1.
+  const int k = first + (lane & 15), kc = k < K ? k : K - 1;
+  float* gsm = sm + L.net_floats + group * L.group_floats;
+  float* io = gsm + L.io + w * kMmaRows * 8;
+  rnn_mma_start<G>(gsm, net, L, w);
+  group_sync(group, L.warps);
   float c[Cost::kN];
 #pragma unroll
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
-  rnn_start<G>(sm, net, L);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
 #pragma unroll
   for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
-  const float* q = Q + static_cast<size_t>(k) * H * U;
+  const float* q = Q + static_cast<size_t>(kc) * H * U;
   for (int h = 0; h < H; ++h) {
     float u[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
     acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
-    rnn_step<G, S, U>(sm, net, L, x, u);
+    rnn_mma_step<G, S, U>(sm, gsm, io, net, L, group, w, h & 1, x, u);
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  if (w == 0 && lane < 16 && k < K) {
+    cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  }
+}
+
+// Plan K13's layout for `net`, allow the shared memory and launch `kernel`.
+template <class Kernel>
+int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, int U,
+                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
+                      float max_cost, void* stream) {
+  RnnLayout L;
+  const long bytes = plan_rnn(net, S, U, L);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = L.groups * kMmaRows;
+  const dim3 grid((K + per_block - 1) / per_block);
+  kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(Q),
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost, net, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Plan, allow the shared memory and launch `kernel` on `stream`.
@@ -113,9 +146,27 @@ int launch_net_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of `kernel` (K13) that one SM holds for `net` (0 for a refused net).
+template <class Kernel>
+int rnn_blocks_per_sm(Kernel kernel, long& allowed, const NetArgs& net, int S, int U) {
+  RnnLayout L;
+  const long bytes = plan_rnn(net, S, U, L);
+  int blocks = 0;
+  if (bytes < 0 || allow_smem(kernel, bytes, allowed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * L.warps * L.groups,
+                                                    bytes) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
+}
+
 }  // namespace ctt
 
 extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U, int transposed) {
+  if (net->kind == ctt::kNetGRU || net->kind == ctt::kNetLSTM) {
+    ctt::RnnLayout R;
+    return ctt::plan_rnn(*net, S, U, R);
+  }
   ctt::NetLayout L;
   return ctt::plan_layout(*net, S, U, transposed != 0, L);
 }
@@ -135,24 +186,42 @@ extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q,
                                 Cost::U, s0, Q, pvec, cost, K, H, max_cost, stream);
 }
 
+namespace {
+long allowed_gru = 0, allowed_lstm = 0;  // K13's dynamic shared memory allowed so far
+}  // namespace
+
 // Launches K13 (a GRU or LSTM net) on `stream`; returns as above.
 extern "C" int ctt_recurrent_cost_rollout(int plant, const void* s0, const void* Q,
                                           const void* pvec, void* cost, int K, int H,
                                           float max_cost, const ctt::NetArgs* net,
                                           void* stream) {
   using Cost = ctt::CartpoleCost;
-  static long allowed_gru = 0, allowed_lstm = 0;
   if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
   switch (net->kind) {
     case ctt::kNetGRU:
-      return ctt::launch_net_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
+      return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
                                     *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
                                     stream);
     case ctt::kNetLSTM:
-      return ctt::launch_net_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
+      return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
                                     *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
                                     stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of K13 that one SM holds for `net` (0 for a refused net).
+extern "C" int ctt_recurrent_blocks_per_sm(const ctt::NetArgs* net) {
+  using Cost = ctt::CartpoleCost;
+  switch (net->kind) {
+    case ctt::kNetGRU:
+      return ctt::rnn_blocks_per_sm(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
+                                    *net, Cost::S, Cost::U);
+    case ctt::kNetLSTM:
+      return ctt::rnn_blocks_per_sm(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
+                                    *net, Cost::S, Cost::U);
+    default:
+      return 0;
   }
 }

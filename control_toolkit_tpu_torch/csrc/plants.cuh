@@ -83,6 +83,62 @@ struct CartpoleDynamics {
     dx[3] = g_thd;
     du[0] = g_a * p[kUMax];
   }
+
+  // The Jacobian's product with a tangent (ops/adjoints.py
+  // cartpole_derivs_jac, transcribed term for term): d = f(x, u), and
+  // dk = J (T; E) for the tangent T [S][N] of (x) and E [U][N] = [0 | I]
+  // of u (N = S + U), J = d f / d(x, u).  Rows 0 and 2 of J are the unit
+  // rows of pos_d and theta_d, and no row depends on pos, so only rows 1
+  // and 3 are multiplied out; the three reciprocals replace the
+  // divisions of derivs, and sincosf reduces theta once.
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    const float pos_d = x[1], theta = x[2], theta_d = x[3];
+    const float m_p = p[kMPole], L = p[kL], g = p[kG];
+    const float fc = p[kFrictionCart], fp = p[kFrictionPole];
+    const float force = u[0] * p[kUMax];
+    float sin_t, cos_t;
+    sincosf(theta, &sin_t, &cos_t);
+    const float mpl = m_p * L;
+    const float inv_m = 1.0f / (p[kMCart] + m_p), inv_mpl = 1.0f / mpl;
+    const float temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) * inv_m;
+    const float num = g * sin_t - cos_t * temp - fp * theta_d * inv_mpl;
+    const float inv_den = 1.0f / (L * (4.0f / 3.0f - m_p * (cos_t * cos_t) * inv_m));
+    const float theta_dd = num * inv_den;
+    d[0] = pos_d;
+    d[1] = temp - mpl * theta_dd * cos_t * inv_m;
+    d[2] = theta_d;
+    d[3] = theta_dd;
+    // temp's partials in pos_d, theta, theta_d and u
+    const float t1 = -fc * inv_m;
+    const float t2 = mpl * (theta_d * theta_d) * cos_t * inv_m;
+    const float t3 = mpl * 2.0f * theta_d * sin_t * inv_m;
+    const float tu = p[kUMax] * inv_m;
+    // num's, and den's in theta
+    const float n1 = -(cos_t * t1);
+    const float n2 = g * cos_t + sin_t * temp - cos_t * t2;
+    const float n3 = -(cos_t * t3) - fp * inv_mpl;
+    const float nu = -(cos_t * tu);
+    const float d2 = L * (m_p * 2.0f * cos_t * sin_t * inv_m);
+    // theta_dd = num / den
+    const float a1 = n1 * inv_den, a2 = (n2 - theta_dd * d2) * inv_den;
+    const float a3 = n3 * inv_den, au = nu * inv_den;
+    // pos_dd = temp - mpl * theta_dd * cos_t / total_m
+    const float c = mpl * inv_m;
+    const float b1 = t1 - c * (a1 * cos_t);
+    const float b2 = t2 - c * (a2 * cos_t - theta_dd * sin_t);
+    const float b3 = t3 - c * (a3 * cos_t);
+    const float bu = tu - c * (au * cos_t);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      dk[0][n] = T[1][n];
+      dk[2][n] = T[3][n];
+      dk[1][n] = fmaf(b3, T[3][n], fmaf(b2, T[2][n], fmaf(b1, T[1][n], n == S ? bu : 0.0f)));
+      dk[3][n] = fmaf(a3, T[3][n], fmaf(a2, T[2][n], fmaf(a1, T[1][n], n == S ? au : 0.0f)));
+    }
+  }
 };
 
 // The cartpole/default cost (costs/cartpole.py:CartpoleQuadraticCost) over
@@ -180,6 +236,12 @@ struct CartpolePlant {
                                                     const float* p, const float (&lam)[S],
                                                     float (&dx)[S], float (&du)[U]) {
     Dynamics::derivs_vjp(x, u, p, lam, dx, du);
+  }
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    Dynamics::derivs_tangent(x, u, p, T, d, dk);
   }
   __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
                                                      const float (&prev)[U], const float* p,

@@ -145,6 +145,85 @@ __device__ __forceinline__ void integrate_vjp(const float (&x)[Plant::S],
   }
 }
 
+// y = T + c dk over a tangent.
+template <class Plant>
+__device__ __forceinline__ void tangent_axpy(const float (&T)[Plant::S][Plant::S + Plant::U],
+                                             float c,
+                                             const float (&dk)[Plant::S][Plant::S + Plant::U],
+                                             float (&y)[Plant::S][Plant::S + Plant::U]) {
+#pragma unroll
+  for (int i = 0; i < Plant::S; ++i) {
+#pragma unroll
+    for (int n = 0; n < Plant::S + Plant::U; ++n) y[i][n] = T[i][n] + c * dk[i][n];
+  }
+}
+
+// The control period's Jacobians in forward mode (ops/adjoints.py
+// integrator_jac): x advances by one period as integrate does (from the
+// plant's derivs_tangent values) and T, which enters as [I | 0], leaves as
+// d x' / d(x, u) = [A | B].  Each stage carries the tangent of its state,
+// T + c dk of the stage before, through the plant's Jacobian (its
+// derivs_tangent: J (T; E), the control's rows E = [0 | I]); the period's
+// tangent sums the stages' in the state's order
+// ((dk1 + 2 dk2) + (2 dk3 + dk4)).
+template <class Plant>
+__device__ __forceinline__ void integrate_jac(float (&x)[Plant::S], const float (&u)[Plant::U],
+                                              const float* p, const StepConsts& c,
+                                              float (&T)[Plant::S][Plant::S + Plant::U]) {
+  constexpr int S = Plant::S, N = Plant::S + Plant::U;
+  for (int sub = 0; sub < c.substeps; ++sub) {
+    float k[S], dk[S][N];
+    Plant::derivs_tangent(x, u, p, T, k, dk);
+    if (!c.rk4) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k[i];
+      tangent_axpy<Plant>(T, c.sub_dt, dk, T);
+      continue;
+    }
+    // incr = (k1 + 2 k2) + (2 k3 + k4), and its tangent alike.
+    float incr[S], dincr[S][N], t[S], Tt[S][N];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      incr[i] = k[i];
+      t[i] = x[i] + c.half_dt * k[i];
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) dincr[i][n] = dk[i][n];
+    }
+    tangent_axpy<Plant>(T, c.half_dt, dk, Tt);
+    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k2
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      incr[i] = incr[i] + 2.0f * k[i];
+      t[i] = x[i] + c.half_dt * k[i];
+#pragma unroll
+      for (int n = 0; n < N; ++n) dincr[i][n] = dincr[i][n] + 2.0f * dk[i][n];
+    }
+    tangent_axpy<Plant>(T, c.half_dt, dk, Tt);
+    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k3
+    float k3[S], dk3[S][N];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      k3[i] = k[i];
+      t[i] = x[i] + c.sub_dt * k[i];
+#pragma unroll
+      for (int n = 0; n < N; ++n) dk3[i][n] = dk[i][n];
+    }
+    tangent_axpy<Plant>(T, c.sub_dt, dk, Tt);
+    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k4
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      x[i] = x[i] + c.dt6 * (incr[i] + (2.0f * k3[i] + k[i]));
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        T[i][n] = T[i][n] + c.dt6 * (dincr[i][n] + (2.0f * dk3[i][n] + dk[i][n]));
+      }
+    }
+  }
+}
+
 // One rollout's registers: state, previous control, stage-cost sum.
 template <class Plant>
 struct Rollout {

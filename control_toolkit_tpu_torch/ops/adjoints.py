@@ -7,8 +7,10 @@ packed-parameter dict ``p`` that ``RolloutModel.unpack`` gives (keys
 ``d_*``, ``c_*``, ``a_*``, ``__u_prev_j``), the form the CUDA plant reads.
 ``csrc/plants.cuh`` and ``csrc/rollout_core.cuh`` transcribe them term
 for term, so these are the formulas the tests hold against
-``torch.autograd``.  ``mlp_step_vjp`` is the learned MLP step's adjoint
-over the net's weight dict, transcribed into ``csrc/neural_core.cuh``;
+``torch.autograd``; ``cartpole_derivs_jac`` and ``integrator_jac`` give
+the per-step Jacobians, in forward mode, of K7's time-parallel adjoint.
+``mlp_step_vjp`` is the learned MLP step's adjoint over the net's weight
+dict, transcribed into ``csrc/mlp_mma.cuh``;
 ``residual_step_vjp`` (the ``"ODE+res"`` step) combines it with the
 integrator's, and ``gp_step_vjp`` is the sparse-GP step's, transcribed
 into ``csrc/gp_core.cuh``.
@@ -61,6 +63,50 @@ def cartpole_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple) -> Tuple[Tuple, Tup
     g_posd = l0 - g_a * fc
     g_theta = g_sin * cos_t - g_cos * sin_t
     return (torch.zeros_like(pos_d), g_posd, g_theta, g_thd), (g_a * p["d_u_max"],)
+
+
+def cartpole_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_cartpole_derivs at (x, u): f, and
+    ``J = d f / d(x, u)`` ``[K, S, S+U]``, the state's columns first, then
+    the control's.  Three reciprocals take the place of the derivs'
+    divisions, as in ``csrc/plants.cuh`` derivs_tangent, which multiplies
+    J's two nontrivial rows (1 and 3) into a tangent."""
+    _, pos_d, theta, theta_d = xs
+    m_p, L, g = p["d_m_pole"], p["d_L"], p["d_g"]
+    fc, fp = p["d_friction_cart"], p["d_friction_pole"]
+    force = us[0] * p["d_u_max"]
+    sin_t, cos_t = theta.sin(), theta.cos()
+    mpl = m_p * L
+    inv_m, inv_mpl = 1.0 / (p["d_m_cart"] + m_p), 1.0 / mpl
+    temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) * inv_m
+    num = g * sin_t - cos_t * temp - fp * theta_d * inv_mpl
+    inv_den = 1.0 / (L * (4.0 / 3.0 - m_p * (cos_t * cos_t) * inv_m))
+    theta_dd = num * inv_den
+    f = (pos_d, temp - mpl * theta_dd * cos_t * inv_m, theta_d, theta_dd)
+    # temp's partials in pos_d, theta, theta_d and u
+    zero = torch.zeros_like(pos_d)
+    t1 = zero + (-fc * inv_m)
+    t2 = mpl * (theta_d * theta_d) * cos_t * inv_m
+    t3 = mpl * 2.0 * theta_d * sin_t * inv_m
+    tu = zero + p["d_u_max"] * inv_m
+    # num's, and den's in theta
+    n1 = -(cos_t * t1)
+    n2 = g * cos_t + sin_t * temp - cos_t * t2
+    n3 = -(cos_t * t3) - fp * inv_mpl
+    nu = -(cos_t * tu)
+    d2 = L * (m_p * 2.0 * cos_t * sin_t * inv_m)
+    # theta_dd = num / den
+    a1, a2, a3, au = n1 * inv_den, (n2 - theta_dd * d2) * inv_den, n3 * inv_den, nu * inv_den
+    # pos_dd = temp - mpl * theta_dd * cos_t / total_m
+    c = mpl * inv_m
+    b1 = t1 - c * (a1 * cos_t)
+    b2 = t2 - c * (a2 * cos_t - theta_dd * sin_t)
+    b3 = t3 - c * (a3 * cos_t)
+    bu = tu - c * (au * cos_t)
+    one = torch.ones_like(pos_d)
+    rows = ((zero, one, zero, zero, zero), (zero, b1, b2, b3, bu),
+            (zero, zero, zero, one, zero), (zero, a1, a2, a3, au))
+    return f, torch.stack([torch.stack(row, dim=1) for row in rows], dim=1)
 
 
 def cartpole_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct) -> Tuple[Tuple, Tuple, Tuple]:
@@ -175,6 +221,44 @@ def integrator_vjp(derivs: Callable, derivs_vjp: Callable, x: Tuple, u: Tuple, p
             lam, du_s = _euler_vjp(derivs_vjp, xs, u, p, lam, sub_dt)
         du = du_s if du is None else tadd(du, du_s)
     return lam, du
+
+
+def integrator_jac(derivs_jac: Callable, x: Tuple, u: Tuple, p, rk4: bool, substeps: int,
+                   dt: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A, B)``: ``d x_{h+1} / d x_h`` ``[K, S, S]`` and ``d x_{h+1} / d u_h``
+    ``[K, S, U]`` for soa_integrators.make_soa_stepper, in forward mode.
+    The tangent ``T = d x / d(x_h, u_h)`` starts at ``[I | 0]``; each stage
+    takes the tangent of its state (``T + c dk`` of the stage before)
+    through the plant's Jacobian, the control's rows being ``[0 | I]``, and
+    each sub-step sums the stages' tangents as the state sums the stages
+    (``(dk1 + 2 dk2) + (2 dk3 + dk4)`` for rk4)."""
+    S, U = len(x), len(u)
+    eye = torch.eye(S + U, dtype=x[0].dtype, device=x[0].device)
+    K = x[0].shape[0]
+    T = eye[:S].expand(K, S, S + U)
+    E = eye[S:].expand(K, U, S + U)
+
+    def tangent(J, Tt):
+        return J @ torch.cat([Tt, E], dim=1)
+
+    sub_dt = dt / substeps
+    half, dt6 = 0.5 * sub_dt, sub_dt / 6.0
+    for _ in range(substeps):
+        k1, J = derivs_jac(x, u, p)
+        d1 = tangent(J, T)
+        if not rk4:
+            x, T = tadd(x, tscale(k1, sub_dt)), T + sub_dt * d1
+            continue
+        k2, J = derivs_jac(tadd(x, tscale(k1, half)), u, p)
+        d2 = tangent(J, T + half * d1)
+        k3, J = derivs_jac(tadd(x, tscale(k2, half)), u, p)
+        d3 = tangent(J, T + half * d2)
+        k4, J = derivs_jac(tadd(x, tscale(k3, sub_dt)), u, p)
+        d4 = tangent(J, T + sub_dt * d3)
+        incr = tadd(tadd(k1, tscale(k2, 2.0)), tadd(tscale(k3, 2.0), k4))
+        x = tadd(x, tscale(incr, dt6))
+        T = T + dt6 * ((d1 + 2.0 * d2) + (2.0 * d3 + d4))
+    return T[..., :S], T[..., S:]
 
 
 def residual_step_vjp(derivs: Callable, derivs_vjp: Callable, x: Tuple, u: Tuple, p, net,

@@ -20,10 +20,17 @@ gprev_h) the stage cost's gradient at cotangent 1/(H+1); ``gprev`` carries
 u_h's part in stage h+1's control-change term.  At h = 0 the previous
 control is the packed ``__u_prev_*``, which gets no gradient.
 
-The CUDA kernel is ``csrc/grad_cost_rollout.cu`` (its source note says what
-bounds it on the card); ``grad_cost_rollout_plain`` is the same function
-in PyTorch.  The wrapper runs the plain version only when every operand
-lies on the CPU; for CUDA operands it launches the kernel or raises.
+The CUDA kernel is ``csrc/grad_cost_rollout.cu``, in two launches (its
+source note says what bounds them on the card): the forward stores the
+states x_0..x_H; the time-parallel adjoint computes each step's Jacobians
+``A_h = d x_{h+1} / d x_h``, ``B_h = d x_{h+1} / d u_h`` (forward mode,
+ops/adjoints.py ``integrator_jac``) and stage terms for all (k, h) at
+once, then runs the linear chain ``lam_h = A_h^T lam_{h+1} + gx_h``,
+``dQ_h = (B_h^T lam_{h+1} + gu_h) + gprev_{h+1}``: the same map as the
+sweep above, summed in another order.  ``grad_cost_rollout_plain`` is
+the sweep in PyTorch.  The wrapper runs the plain version only when every
+operand lies on the CPU; for CUDA operands it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -110,18 +117,34 @@ def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Te
     model.check_launch_shape("grad_cost_rollout", S, U, K, H, pvec.numel())
     cost = torch.empty(K, dtype=torch.float32, device=device)
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
-    # The forward sweep's states, rollout index fastest (csrc note).
-    xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
-    lib = kernels.load()
-    with torch.cuda.device(device):
-        rc = lib.ctt_grad_cost_rollout(
-            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(),
-            model.max_cost, 1.0 / (H + 1), torch.cuda.current_stream(device).cuda_stream,
-        )
-    kernels.check_launch(rc, "grad_cost_rollout")
+    # The forward's states x_0..x_H, rollout index fastest (csrc note).
+    xhist = torch.empty(H + 1, S, K, dtype=torch.float32, device=device)
+    for part in ("forward", "adjoint"):
+        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist)
     grad_cost_rollout.launches += 1
     return cost, dQ
+
+
+def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                pvec: torch.Tensor, cost: torch.Tensor, dQ: torch.Tensor,
+                xhist: torch.Tensor) -> None:
+    """One of K7's two launches on checked CUDA operands: ``forward``
+    (writes cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist,
+    writes dQ)."""
+    K, H = Q.shape[0], Q.shape[1]
+    lib, device = kernels.load(), s0.device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if part == "forward":
+            rc = lib.ctt_grad_cost_forward(
+                kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+                cost.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(), model.max_cost,
+                stream)
+        else:
+            rc = lib.ctt_grad_cost_adjoint(
+                kernels.PLANT_IDS[model.plant], Q.data_ptr(), pvec.data_ptr(), xhist.data_ptr(),
+                dQ.data_ptr(), K, H, *model.step_args(), 1.0 / (H + 1), stream)
+    kernels.check_launch(rc, f"grad_cost_rollout ({part})")
 
 
 grad_cost_rollout.launches = 0

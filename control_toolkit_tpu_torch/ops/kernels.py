@@ -29,8 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
-HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "gp_core.cuh",
-           "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh")
+HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
+           "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -178,20 +178,22 @@ def mlp_net_args(net: Dict, S: int, U: int,
 def net_smem_bytes(plant: str, args: NetArgs, grad: bool) -> int:
     """Dynamic shared memory a block of a network-rollout kernel takes for
     the net of ``args``, or -1 where the kernel refuses the net (its launch
-    then returns cudaErrorInvalidValue): the forward kernels' staged weights
-    and per-thread activation columns (csrc/neural_core.cuh), or (``grad``)
-    the gradient kernels' staged hi/lo fragments and per-warp regions
-    (csrc/mlp_mma.cuh)."""
+    then returns cudaErrorInvalidValue): K11's and K12's staged weights and
+    per-thread activation columns (csrc/neural_core.cuh) or K13's staged
+    hi/lo gate fragments and per-group slabs (csrc/rnn_mma.cuh), or
+    (``grad``) the gradient kernels' staged hi/lo fragments and per-warp
+    regions (csrc/mlp_mma.cuh)."""
     S, U = PLANT_DIMS[plant]
     if grad:
         return int(load().ctt_mma_net_smem_bytes(ctypes.byref(args), S, U))
     return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, 0))
 
 
-def grad_blocks_per_sm(kernel: str, args: NetArgs) -> int:
-    """Blocks of the gradient kernel ``kernel`` (``neural_grad`` for K8,
-    ``residual_grad`` for K9) that one SM holds for the net of ``args``, as
-    the CUDA runtime's occupancy calculator gives it (0 for a refused net)."""
+def net_blocks_per_sm(kernel: str, args: NetArgs) -> int:
+    """Blocks of the tensor-core network kernel ``kernel`` (``neural_grad``
+    for K8, ``residual_grad`` for K9, ``recurrent`` for K13) that one SM
+    holds for the net of ``args``, as the CUDA runtime's occupancy
+    calculator gives it (0 for a refused net)."""
     return int(getattr(load(), f"ctt_{kernel}_blocks_per_sm")(ctypes.byref(args)))
 
 
@@ -407,10 +409,14 @@ def load() -> ctypes.CDLL:
             i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_mppi_cost_cols.restype = i32
-        lib.ctt_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32, ptr,
+        lib.ctt_grad_cost_forward.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
-        lib.ctt_grad_cost_rollout.restype = i32
+        lib.ctt_grad_cost_forward.restype = i32
+        lib.ctt_grad_cost_adjoint.argtypes = [
+            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+        ]
+        lib.ctt_grad_cost_adjoint.restype = i32
         net = ctypes.POINTER(NetArgs)
         for fn in (lib.ctt_neural_cost_rollout, lib.ctt_recurrent_cost_rollout):
             fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, net, ptr]
@@ -423,9 +429,12 @@ def load() -> ctypes.CDLL:
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
-        for fn in (lib.ctt_neural_grad_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm):
+        for fn in (lib.ctt_neural_grad_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm,
+                   lib.ctt_recurrent_blocks_per_sm):
             fn.argtypes = [net]
             fn.restype = i32
+        lib.ctt_grad_cost_adjoint_blocks_per_sm.argtypes = []
+        lib.ctt_grad_cost_adjoint_blocks_per_sm.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
         lib.ctt_residual_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, i32, i32, *step, f32, net, ptr,

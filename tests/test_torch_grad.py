@@ -5,8 +5,10 @@ The adjoints are held against ``torch.autograd`` in float64, where only
 rounding separates the two; the plain version against the JAX package's
 Pallas gradient kernel in interpret mode, against autograd through K1's
 plain version, against finite differences and against the recorded TF
-fixture; and — on a machine with a card only — the CUDA kernel against
-its plain version.
+fixture; the CUDA kernel's time-parallel adjoint (forward-mode per-step
+Jacobians, then the linear chain) rehearsed in PyTorch against the plain
+version and the Pallas kernel; and — on a machine with a card only — the
+CUDA kernel against its plain version.
 """
 import dataclasses
 from pathlib import Path
@@ -17,8 +19,10 @@ import pytest
 import torch
 
 from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
+from chip_smoke import stage_term_mutants
 from control_toolkit_tpu_torch.ops.adjoints import (
-    cartpole_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad, integrator_vjp,
+    PLANT_ADJOINTS, cartpole_derivs_jac, cartpole_derivs_vjp, cartpole_stage_vjp,
+    cartpole_terminal_grad, integrator_jac, integrator_vjp,
 )
 from control_toolkit_tpu_torch.ops.common import adam_init, adam_update, clip_by_norm
 from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout_plain
@@ -38,6 +42,10 @@ F64_TOL = dict(rtol=1e-9, atol=1e-9)
 # through 15 rk4 steps forward and back.
 COST_TOL = dict(rtol=3e-5, atol=1e-4)
 GRAD_TOL = dict(rtol=1e-4, atol=2e-4)
+# chip_smoke.py's bound on K7's dQ against its plain version: rtol 2e-5
+# plus 5e-6 of max|dQ|.
+DQ_RTOL, DQ_ATOL_FRAC = 2e-5, 5e-6
+INTEGRATOR_CASES = [("rk4", 1), ("euler", 1), ("rk4", 2), ("euler", 2)]
 
 
 @pytest.fixture(autouse=True)
@@ -73,6 +81,15 @@ def autograd_vjp(outputs, cotangents, inputs):
     loss = sum((o * c).sum() for o, c in zip(outputs, cotangents))
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+
+
+def jacobian_rows(outputs, inputs):
+    """Row i: d outputs[i] / d inputs, each [K] tensor's entries independent."""
+    rows = []
+    for o in outputs:
+        grads = torch.autograd.grad(o.sum(), inputs, retain_graph=True, allow_unused=True)
+        rows.append([torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)])
+    return rows
 
 
 def assert_close_tuple(got, ref, **tol):
@@ -117,8 +134,7 @@ def test_cartpole_stage_vjp_and_terminal_grad_match_autograd(frictional):
     assert_close_tuple(cartpole_terminal_grad(xs, p, ct), ref, **F64_TOL)
 
 
-@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2),
-                                                 ("euler", 2)])
+@pytest.mark.parametrize("integrator,substeps", INTEGRATOR_CASES)
 def test_integrator_vjp_matches_autograd(frictional, integrator, substeps):
     model, p = frictional
     rng = np.random.default_rng(2)
@@ -132,8 +148,120 @@ def test_integrator_vjp_matches_autograd(frictional, integrator, substeps):
     assert_close_tuple(dxs + dus, ref, **F64_TOL)
 
 
-@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2),
-                                                 ("euler", 2)])
+def test_cartpole_derivs_jac_matches_autograd(frictional):
+    """The Jacobian K7's adjoint launch builds its per-step Jacobians from,
+    row by row against autograd, and its f against the plant's derivs."""
+    model, p = frictional
+    rng = np.random.default_rng(5)
+    xs = components(rng, 4, (1.0, 2.0, 2.0, 3.0))
+    us = components(rng, 1, (0.7,))
+    f, J = cartpole_derivs_jac(xs, us, p)
+    ref = model.derivs(xs, us, p)
+    assert_close_tuple(f, ref, **F64_TOL)
+    for i, row in enumerate(jacobian_rows(ref, xs + us)):
+        assert_close_tuple(tuple(J[:, i].unbind(1)), row, **F64_TOL)
+
+
+@pytest.mark.parametrize("integrator,substeps", INTEGRATOR_CASES)
+def test_integrator_jac_matches_autograd(frictional, integrator, substeps):
+    """A = d x' / d x and B = d x' / d u of one control period, in forward
+    mode, against autograd through the stepper."""
+    model, p = frictional
+    rng = np.random.default_rng(6)
+    xs = components(rng, 4, (1.0, 2.0, 2.0, 3.0))
+    us = components(rng, 1, (0.7,))
+    step = make_soa_stepper(model.derivs, integrator, 0.02, substeps)
+    out = step(xs, us, p)
+    A, B = integrator_jac(cartpole_derivs_jac, xs, us, p, integrator == "rk4", substeps, 0.02)
+    assert A.shape == (K, 4, 4) and B.shape == (K, 4, 1)
+    for i, row in enumerate(jacobian_rows(out, xs + us)):
+        assert_close_tuple(tuple(torch.cat([A[:, i], B[:, i]], dim=1).unbind(1)), row, **F64_TOL)
+
+
+def time_parallel_grad(model, s0, Q, pvec):
+    """csrc/grad_cost_rollout.cu's two launches in PyTorch: the forward
+    stores x_0..x_H (K1's stepper, K1's cost); then, for every (h, k) at
+    once, the period's Jacobians A_h, B_h (``integrator_jac``) and the
+    stage terms at (x_h, u_h, u_{h-1}); then the linear chain, last step
+    first: dQ_h = (B_h^T lam + gu_h) + gprev_{h+1}, lam = A_h^T lam + gx_h."""
+    _, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
+    p = model.unpack(pvec)
+    (Kt, S), (H, U) = s0.shape, Q.shape[1:]
+    ct = 1.0 / (H + 1)
+    step = make_soa_stepper(model.derivs, model.integrator, model.dt, model.intermediate_steps)
+    xs = [tuple(s0.unbind(1))]
+    for h in range(H):
+        xs.append(step(xs[-1], tuple(Q[:, h].unbind(1)), p))
+    # The items, h-major: [H*K] components.
+    X = tuple(torch.cat([x[i] for x in xs[:H]]) for i in range(S))
+    prev = torch.cat([p["__u_prev_0"].expand(Kt, 1, U).to(Q.dtype), Q[:, :-1]], dim=1)
+    Us = tuple(Q[:, :, j].T.reshape(-1) for j in range(U))
+    Prev = tuple(prev[:, :, j].T.reshape(-1) for j in range(U))
+    A, B = integrator_jac(cartpole_derivs_jac, X, Us, p, model.integrator == "rk4",
+                          model.intermediate_steps, model.dt)
+    gx, gu, gp = (torch.stack(g, dim=1).reshape(H, Kt, -1) for g in stage_vjp(X, Us, Prev, p, ct))
+    A, B = A.reshape(H, Kt, S, S), B.reshape(H, Kt, S, U)
+    lam = torch.stack(terminal_grad(xs[H], p, ct), dim=1)
+    gnext = torch.zeros(Kt, U, dtype=Q.dtype)
+    dQ = torch.empty_like(Q)
+    for h in reversed(range(H)):
+        dQ[:, h] = (torch.einsum("ksu,ks->ku", B[h], lam) + gu[h]) + gnext
+        lam = torch.einsum("ksj,ks->kj", A[h], lam) + gx[h]
+        gnext = gp[h]
+    return cost_rollout_plain(model, s0, Q, pvec), dQ
+
+
+def within_dq_bound(dQ, ref):
+    return torch.allclose(dQ, ref, rtol=DQ_RTOL, atol=DQ_ATOL_FRAC * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("integrator,substeps", INTEGRATOR_CASES)
+def test_k7_time_parallel_adjoint_matches_plain_and_pallas(port, integrator, substeps,
+                                                           record_property):
+    """The time-parallel adjoint's arithmetic in float32 (the same linear
+    map as the plain version's sweep, summed in another order) against
+    the plain version to chip_smoke.py's dQ bound, which still rejects
+    each of phase 7's four wrong stage-gradient terms, and against the
+    JAX package's Pallas gradient kernel in interpret mode to its own
+    test's bounds."""
+    from control_toolkit_tpu.models.predictors import make_ode_rollout
+
+    _, model, pack = port
+    jctrl = make_jax_ctrl(K, H)
+    jpred = jctrl.optimizer.predictor.predictor
+    rng = np.random.default_rng(7)
+    s0 = (0.2 * rng.standard_normal((K, 4))).astype(np.float32)
+    Q = rng.uniform(-1.0, 1.0, (K, H, 1)).astype(np.float32)
+    u_prev = np.array([0.1], np.float32)
+    saved = jpred.integrator, jpred.intermediate_steps, jpred.rollout_fn
+    jpred.integrator, jpred.intermediate_steps = integrator, substeps
+    jpred.rollout_fn = make_ode_rollout(jpred.dynamics, jpred.dt, integrator, substeps)
+    try:
+        kernel = jctrl.optimizer._build_pallas_grad(interpret=True, tile_k=TILE)
+        jax_cost, jax_dQ = map(np.asarray, kernel(jnp.asarray(s0), jnp.asarray(Q),
+                                                  jnp.asarray(u_prev), jctrl._assemble_params()))
+    finally:
+        jpred.integrator, jpred.intermediate_steps, jpred.rollout_fn = saved
+
+    model = dataclasses.replace(model, integrator=integrator, intermediate_steps=substeps)
+    pvec = pack(params_from_numpy(jax_params_numpy(jctrl), CPU), torch.as_tensor(u_prev))
+    s0_t, Q_t = torch.as_tensor(s0), torch.as_tensor(Q)
+    cost, dQ = time_parallel_grad(model, s0_t, Q_t, pvec)
+    ref_cost, ref_dQ = grad_cost_rollout_plain(model, s0_t, Q_t, pvec)
+    mutants = stage_term_mutants(dQ, Q_t, pvec, model)
+    record_property("k7_time_parallel_distances", {
+        "dQ_max_abs_err": float((dQ - ref_dQ).abs().max()),
+        "dQ_max_abs": float(ref_dQ.abs().max()),
+        "mutant_max_abs_err": {k: float((m - ref_dQ).abs().max()) for k, m in mutants.items()}})
+    torch.testing.assert_close(cost, ref_cost, **COST_TOL)
+    assert within_dq_bound(dQ, ref_dQ)
+    for name, mutant in mutants.items():
+        assert not within_dq_bound(mutant, ref_dQ), name
+    np.testing.assert_allclose(cost.numpy(), jax_cost, **COST_TOL)
+    np.testing.assert_allclose(dQ.numpy(), jax_dQ, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("integrator,substeps", INTEGRATOR_CASES)
 def test_plain_gradient_matches_autograd_through_k1_plain(frictional, integrator, substeps):
     """The whole backward sweep, control-change coupling included, against
     autograd through K1's plain version — in float64."""
@@ -240,8 +368,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2),
-                                                 ("euler", 2)])
+@pytest.mark.parametrize("integrator,substeps", INTEGRATOR_CASES)
 def test_cuda_k7_matches_plain_version(port, cuda_device, integrator, substeps):
     """K7 against its plain version on the same card tensors, at a ragged
     K.  Tolerance: nvcc contracts a*b+c into FMA and the plain version does
@@ -260,6 +387,26 @@ def test_cuda_k7_matches_plain_version(port, cuda_device, integrator, substeps):
     before = grad_cost_rollout.launches
     cost, dQ = grad_cost_rollout(model, s0, Q, pvec)
     assert grad_cost_rollout.launches == before + 1
+    ref_cost, ref_dQ = grad_cost_rollout_plain(model, s0, Q, pvec)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dQ).all())
+    torch.testing.assert_close(cost, ref_cost, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dQ, ref_dQ, rtol=2e-5, atol=5e-6 * float(ref_dQ.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kc,Hc", [(8, 50), (33, 70)])
+def test_cuda_k7_below_one_block_and_past_one_chunk(port, cuda_device, Kc, Hc):
+    """K7 where K is below one adjoint block of rollouts or not a multiple
+    of it, and H is more than one chunk of the adjoint's steps, to the
+    same bounds as above."""
+    pctrl, model, pack = port
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pvec = pack(pctrl._assemble_params(), torch.tensor([0.1])).to(dev)
+    s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=dev)
+    Q = 2.0 * torch.rand(Kc, Hc, 1, generator=gen, device=dev) - 1.0
+    cost, dQ = grad_cost_rollout(model, s0, Q, pvec)
     ref_cost, ref_dQ = grad_cost_rollout_plain(model, s0, Q, pvec)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dQ).all())

@@ -34,7 +34,7 @@ from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.models import networks as nets
 from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    neural_cost_rollout, neural_cost_rollout_plain, recurrent_cost_rollout,
+    neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop, recurrent_cost_rollout,
     recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families import neural, ode
@@ -512,6 +512,126 @@ def test_committed_assets_are_what_the_generator_documents():
     assert err < 3e-4, err
 
 
+# ---- K13's bound and its tensor-core arithmetic, on the CPU --------------------------
+def recurrent_problem(spec: str, K_: int = 256, H_: int = 50):
+    """chip_smoke.py phase 13's operands at K_ rollouts on the CPU: the net
+    of ``spec`` from the hidden that ten of its predictor's updates reach,
+    s0 0.05 N(0, 1) and Q 0.3 N(0, 1) clipped to [-1, 1] (numpy, seed 13)."""
+    from chip_smoke import OPTIMIZER_CONFIG, make_controller
+
+    ctrl = make_controller("cpu", spec=spec,
+                           config={**OPTIMIZER_CONFIG, "num_rollouts": K_, "mpc_horizon": H_})
+    pred = ctrl.optimizer.predictor.predictor
+    rng = np.random.default_rng(13)
+    for _ in range(10):
+        pred.update(torch.tensor(0.05 * rng.standard_normal((1, 4)), dtype=torch.float32),
+                    torch.tensor(np.clip(0.3 * rng.standard_normal((1, 1, 1)), -1, 1),
+                                 dtype=torch.float32))
+    model, pack = neural.net_model(ctrl.optimizer)
+    params = ctrl._assemble_params()
+    s0 = torch.tensor(0.05 * rng.standard_normal((K_, 4)), dtype=torch.float32)
+    Q = torch.tensor(np.clip(0.3 * rng.standard_normal((K_, H_, 1)), -1, 1), dtype=torch.float32)
+    return (model, s0, Q, pack(params, torch.tensor([0.1])), params["dyn"]["net"],
+            params["dyn"]["hidden"])
+
+
+RECURRENT_SPECS = [f"neural:{GRU_ASSET}:{ASSETS}", "neural:LSTM-5IN-32H1-32H2-4OUT"]
+
+
+@pytest.mark.parametrize("spec", RECURRENT_SPECS)
+def test_recurrent_mutants_are_rejected_by_k13_bound(spec, record_property):
+    """chip_smoke.py phase 13's wrong K13s — a zero hidden, the first two
+    gates swapped, the last cell's second gate's input bias dropped (the
+    subtlest dropped bias over the committed GRU; the forget gate's, the
+    only nonzero bias of a seeded LSTM) — each moves the plain version's
+    costs beyond RNN_TOL."""
+    from chip_smoke import RNN_TOL, recurrent_mutants
+
+    model, s0, Q, pvec, net, hidden = recurrent_problem(spec)
+    ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
+    rel = {}
+    for name, (n, h) in recurrent_mutants(net, hidden, model.kind).items():
+        got = recurrent_cost_rollout_plain(model, s0, Q, pvec, n, h)
+        rel[name] = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+        assert not torch.allclose(got, ref, **RNN_TOL), (name, rel[name])
+    record_property("k13_mutant_max_rel_err", rel)
+    assert any(name.endswith("_input_bias_dropped") for name in rel)
+
+
+def mm_3xtf32_partials(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` as csrc/rnn_mma.cuh computes a gate's (or the head's)
+    product: per 8-block of the inner dimension, a_lo w_hi, then a_hi w_lo,
+    then a_hi w_hi into a partial sum from zero (a_lo w_lo dropped), each
+    partial added to the FP32 sum in k order."""
+    from test_torch_neural_grad import split_tf32
+
+    (ahi, alo), (whi, wlo) = split_tf32(a), split_tf32(w)
+    acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 8):
+        blk = slice(k0, k0 + 8)
+        part = alo[:, blk] @ whi[blk]
+        part = part + ahi[:, blk] @ wlo[blk]
+        acc = acc + (part + ahi[:, blk] @ whi[blk])
+    return acc
+
+
+def recurrent_cost_with(mm, model, s0, Q, pvec, net, hidden):
+    """K13's costs with ``mm`` for every product, in csrc/rnn_mma.cuh's
+    order: each gate's input and recurrent products apart, the biases added
+    as the plain cells add them, then the head."""
+    n = sum(1 for k in net if k.startswith("cell"))
+    hs = [h.expand(s0.shape[0], h.shape[-1]) for h in hidden]
+
+    def step(x, u):
+        inp = torch.cat([x, u], dim=1)
+        for i in range(n):
+            cell, hd = net[f"cell{i}"], net[f"cell{i}"]["wh"].shape[0]
+            h = hs[i][:, :hd]
+            g = [mm(inp, cell["wi"]) + cell["bi"], mm(h, cell["wh"])]
+            if model.kind == "gru":
+                gh = g[1] + cell["bh"]
+                r = torch.sigmoid(g[0][:, :hd] + gh[:, :hd])
+                z = torch.sigmoid(g[0][:, hd:2 * hd] + gh[:, hd:2 * hd])
+                nn = torch.tanh(g[0][:, 2 * hd:] + r * gh[:, 2 * hd:])
+                inp = hs[i] = (1.0 - z) * nn + z * h
+            else:
+                gates = (g[0] + g[1]) + cell["bh"]
+                c = (torch.sigmoid(gates[:, hd:2 * hd]) * hs[i][:, hd:]
+                     + torch.sigmoid(gates[:, :hd]) * torch.tanh(gates[:, 2 * hd:3 * hd]))
+                inp = torch.sigmoid(gates[:, 3 * hd:]) * torch.tanh(c)
+                hs[i] = torch.cat([inp, c], dim=1)
+        out = mm(inp, net["wo"]) + net["bo"]
+        return x + out if model.predict_delta else out
+
+    return plain_cost_loop(model, s0, Q, pvec, step)
+
+
+@pytest.mark.parametrize("spec", RECURRENT_SPECS)
+def test_k13_3xtf32_arithmetic_stays_within_the_kernel_bound(spec, record_property):
+    """K13's products in 3xTF32 with a partial sum a k-block (every gate's
+    input and recurrent product and the head), emulated over chip_smoke.py
+    phase 13's nets at K=256, H=50, stay within RNN_TOL of the FP32 plain
+    version; one-pass TF32's distance is recorded beside it."""
+    from chip_smoke import RNN_TOL
+    from test_torch_neural_grad import mm_tf32
+
+    model, s0, Q, pvec, net, hidden = recurrent_problem(spec)
+    ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
+    found = {}
+    for name, mm in (("3xtf32", mm_3xtf32_partials), ("one_pass_tf32", mm_tf32)):
+        got = recurrent_cost_with(mm, model, s0, Q, pvec, net, hidden)
+        err = (got - ref).abs()
+        found[name] = {"max_abs_err": float(err.max()),
+                       "max_rel_err": float((err / ref.abs().clamp_min(1e-6)).max()),
+                       "within_bound": torch.allclose(got, ref, **RNN_TOL)}
+    # The emulation with FP32 products is the plain version's arithmetic.
+    same = recurrent_cost_with(torch.matmul, model, s0, Q, pvec, net, hidden)
+    found["fp32_max_abs_err"] = float((same - ref).abs().max())
+    record_property("k13_tf32_distances", found)
+    assert found["3xtf32"]["within_bound"], found
+    torch.testing.assert_close(same, ref, rtol=1e-5, atol=1e-3)
+
+
 # ---- on the card ---------------------------------------------------------------------
 @pytest.fixture
 def cuda_device():
@@ -560,6 +680,34 @@ def test_cuda_kernels_match_plain_versions(tmp_path, cuda_device, name, norms, d
         got = recurrent_cost_rollout(model, s0, Q, pvec, net, hidden)
         ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [GRU_ASSET, "GRU-5IN-13H1-6H2-4OUT", "LSTM-5IN-40H1-4OUT"])
+def test_cuda_k13_below_one_group(cuda_device, name):
+    """K13 at K=8, below one 16-rollout group (its rows past K repeat
+    rollout K-1 and write nothing), for the committed GRU, a GRU narrower
+    than a group's warps and an LSTM wider than them, to RNN_TOL."""
+    from chip_smoke import RNN_TOL
+
+    path = ASSETS if name == GRU_ASSET else None
+    spec = f"neural:{name}:{path}" if path else f"neural:{name}"
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": "mppi", "controller_logging": False,
+                                 "device": "cuda"})
+    ctrl.configure(optimizer_name="mppi", predictor_specification=spec,
+                   optimizer_config=optimizer_config(8, 50), cost_function_config=COST_WEIGHTS)
+    model, pack = neural.net_model(ctrl.optimizer)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    s0 = 0.05 * torch.randn(8, 4, generator=gen, device=cuda_device)
+    Q = torch.clamp(0.3 * torch.randn(8, 50, 1, generator=gen, device=cuda_device), -1.0, 1.0)
+    params = ctrl._assemble_params()
+    pvec = pack(params, torch.tensor([0.1], device=cuda_device))
+    hidden = tuple(0.3 * torch.randn(h.shape, generator=gen, device=cuda_device)
+                   for h in params["dyn"]["hidden"])
+    got = recurrent_cost_rollout(model, s0, Q, pvec, params["dyn"]["net"], hidden)
+    ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, params["dyn"]["net"], hidden)
+    torch.testing.assert_close(got, ref, **RNN_TOL)
 
 
 def jax_start_sweep(ticks: int = 200, retarget_at: int = 100, new_target: float = 0.1) -> dict:
