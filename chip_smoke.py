@@ -31,8 +31,12 @@ The learned-dynamics paths: the same controllers over the committed nets
 (control_toolkit_tpu_torch/assets/cartpole, predictor specification
 "neural:<net>:<assets>"), mlp-64-64 and GRU-5IN-32H1-32H2-4OUT:
 11. K11 (neural_cost_rollout) against its plain version, and the cost bound
-    against the plain version's output with norm_out dropped and with tanh
-    on the last layer;
+    against the plain version's output with norm_out dropped, with tanh on
+    the last layer and with one unit tile (8 units) of the last hidden layer
+    lost; K11 also at ragged K and over seeded 5-72-72-4 and 5-13-13-4
+    nets; then its time at K=16, 64, 2048 and 8192 and at 1, 2 and 4 warps
+    a 16-rollout group, its resources (as K8's, with the warps a group and
+    an SM) and its tensor-core bound;
 12. K8 (neural_grad_cost_rollout) against its plain version, also at
     ragged K (1000 and 8) and over a seeded MLP wider than its register
     path (5-72-72-4), and the dQ bound against dQ with one layer's tanh'
@@ -71,10 +75,13 @@ and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
     plain versions over a well-conditioned GP of the committed one's widths
     (``well_conditioned_gp``), to K11's and K7's bounds, and those bounds
     against out_std dropped and zn2 dropped (K14), and the 2·an term
-    dropped and phase 7's wrong stage-gradient terms (K10); then, over the
-    committed GP (ill-conditioned in float32), each kernel against a
-    float64 evaluation, held to the plain version's own float32 distance
-    from it;
+    dropped and phase 7's wrong stage-gradient terms (K10); K10 also at
+    ragged K, over a well-conditioned GP of 100 inducing points and at 4,
+    8, 16 and 32 lanes a rollout, each timed, then its time at K=16, 64,
+    2048 and 8192 and its resources (registers, spills, shared memory,
+    blocks and warps an SM, lanes a rollout); then, over the committed GP
+    (ill-conditioned in float32), each kernel against a float64
+    evaluation, held to the plain version's own float32 distance from it;
 22. 200 closed-loop MPPI ticks over "ODE+res" on the mismatched plant of
     examples/adaptive_mpc.py (m_pole 0.4, L 0.6), an OnlineSysId fit of 300
     steps on the card installed every 50 ticks with nothing rebuilt, and
@@ -209,7 +216,7 @@ from control_toolkit_tpu_torch.ops.fused_mppi import (
     fused_mppi_weights, fused_mppi_weights_plain, mppi_noise,
 )
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
-    gp_grad_cost_rollout, gp_grad_cost_rollout_plain,
+    gp_grad_cost_rollout, gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain,
@@ -225,8 +232,9 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop,
-    recurrent_cost_rollout, recurrent_cost_rollout_plain,
+    mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_plain,
+    neural_cost_rollout_warps, plain_cost_loop, recurrent_cost_rollout,
+    recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
@@ -308,14 +316,15 @@ MLP_TICKS, MLP_RPGD_TICKS, GRU_TICKS = 200, 200, 50
 # and lost it from this package's seed-0 start with both seeds
 # (``tests/test_torch_neural.py --starts``).
 LEARNED_START = np.array([-0.12212279, -0.10178403, 0.01027721, -0.01767751], np.float32)
-# K11 and K13 against their plain versions: the kernels sum each layer with
-# FMAs in input order, the plain versions through cuBLAS in full float32.
-# On an H100 80GB HBM3 (700 W) the max rel errors at these shapes were
-# 6.9e-6 (K11, mlp-64-64), 1.3e-4 (K13, the GRU from an updated hidden;
-# 1.8e-4 from a random one) and 3.1e-6 to 3.8e-5 (the LSTM), on costs up to
+# K11 and K13 against their plain versions: the kernels sum each product
+# in 3xTF32 a k-block at a time, the plain versions through cuBLAS in full
+# float32.  On an H100 80GB HBM3 (700 W) the max rel errors at these shapes
+# were 1.4e-5 (K11, mlp-64-64; 6.9e-6 when it summed in FP32), 2.7e-4 (K13,
+# the GRU from an updated hidden) and 5.6e-5 (the LSTM), on costs up to
 # ~6e3; the recurrent nets carry the difference through their hidden.  A
-# wrong net (norm_out dropped, tanh on the last layer) moves K11's costs by
-# a rel 9 and more, and phase 11 checks that the bound rejects both; a
+# wrong net (norm_out dropped, tanh on the last layer, one unit tile of the
+# last hidden layer lost) moves K11's costs by a rel 9 and more, and phase
+# 11 checks that the bound rejects each; a
 # zero hidden in place of the live one, or the first two gates swapped,
 # moves K13's by a rel 30 and more (LSTM; the GRU 1e3), and phase 13
 # checks that its bound rejects each.
@@ -328,9 +337,16 @@ RNN_TOL = dict(rtol=1e-3, atol=1e-3)
 # 16-rollout groups, and below one), K8 and K9 over seeded nets wider than
 # their register path (WIDE_HIDDENS, WIDE_SEED), to the same bounds.
 RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
-# K7's, K8's, K9's and K13's time is also taken at these K (ms_at_k); K7's
-# and K13's also at SMALL_K: one of K13's 16-rollout groups alone on an SM,
-# and one block of its four groups (K7: two and eight adjoint blocks).
+# K11 is also held over a seeded net of widths that are not multiples of 8
+# (NARROW_HIDDENS) and over the wide one, and timed at each of
+# GROUP_WARPS warps a 16-rollout group; K10 over a well-conditioned GP of
+# GP_FEW_POINTS inducing points (not a multiple of any lane count) and at
+# each of GP_LANES lanes a rollout.
+NARROW_HIDDENS, GROUP_WARPS, GP_FEW_POINTS, GP_LANES = (13, 13), (1, 2, 4), 100, (4, 8, 16, 32)
+# K7's, K8's, K9's, K10's, K11's and K13's time is also taken at these K
+# (ms_at_k); K7's, K10's, K11's and K13's also at SMALL_K: one 16-rollout
+# group alone on an SM, and one block of four groups (K7: two and eight
+# adjoint blocks).
 K_SCALING, SMALL_K = (2048, 8192), (16, 64)
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
@@ -787,6 +803,14 @@ def mlp_vjp_ops(net) -> int:
     return ops + dims[0] * ("norm_in_mean" in net) + dims[-1] * ("norm_out_mean" in net)
 
 
+def mlp_forward_tiles(net) -> int:
+    """m16n8k8 tiles of one MLP step over 16 rows, each layer's k-blocks
+    times its output tiles, widths padded to 8: K11's products
+    (csrc/mlp_units.cuh)."""
+    tiles = [-(-d // 8) for d in mlp_dims(net)]
+    return sum(a * b for a, b in zip(tiles, tiles[1:]))
+
+
 def mma_tiles(net) -> int:
     """m16n8k8 tiles of one step of the gradient kernels' MLP over a warp's
     16 rows (csrc/mlp_mma.cuh): the forward, the backward's re-run (its last
@@ -853,13 +877,20 @@ def rnn_mma_tiles(net, kind: str) -> int:
 
 # ---- the learned-dynamics phases ------------------------------------------------
 def net_mutants(net) -> dict:
-    """The MLP with norm_out dropped, and with tanh on its last layer (an
-    identity layer appended, so the old last layer gets the tanh)."""
+    """The MLP with norm_out dropped; with tanh on its last layer (an
+    identity layer appended, so the old last layer gets the tanh); and with
+    the last unit tile of its last hidden layer lost (the tile's 8 columns
+    of w{n-2} and b{n-2} zeroed, what K11 computes if the warp that owns the
+    tile skips it)."""
     n, S = mlp_layer_count(net), net[f"w{mlp_layer_count(net) - 1}"].shape[1]
     dev = net["w0"].device
+    w, b = net[f"w{n - 2}"].clone(), net[f"b{n - 2}"].clone()
+    tile = slice(8 * ((b.numel() - 1) // 8), None)
+    w[:, tile], b[tile] = 0.0, 0.0
     return {"no_norm_out": {k: v for k, v in net.items() if not k.startswith("norm_out")},
             "tanh_on_last_layer": {**net, f"w{n}": torch.eye(S, device=dev),
-                                   f"b{n}": torch.zeros(S, device=dev)}}
+                                   f"b{n}": torch.zeros(S, device=dev)},
+            "last_hidden_unit_tile_lost": {**net, f"w{n - 2}": w, f"b{n - 2}": b}}
 
 
 def compare_neural(model, s0, Q, pvec, net) -> dict:
@@ -877,6 +908,52 @@ def compare_neural(model, s0, Q, pvec, net) -> dict:
         check(not torch.allclose(m, ref, **NET_TOL),
               f"K11: the cost bound does not reject a net with {name} {numbers}")
     return numbers
+
+
+def k11_cases(model, s0, Q, pvec, net) -> dict:
+    """Phase 11's further K11 numbers: the costs at each RAGGED_K and, at the
+    full K, over seeded nets of WIDE_HIDDENS and NARROW_HIDDENS, each to
+    NET_TOL; the time at SMALL_K + K_SCALING; the costs (to NET_TOL) and
+    time at each of GROUP_WARPS warps a group; then the resources."""
+    cases = {f"K{k}": (*first_k(k, s0, Q), net) for k in RAGGED_K}
+    for hiddens in (WIDE_HIDDENS, NARROW_HIDDENS):
+        seeded = wide_net(True, 1.0, s0.device, hiddens)
+        cases["net_" + "-".join(map(str, mlp_dims(seeded)))] = (s0, Q, seeded)
+    numbers = {}
+    for case, (s, q, n) in cases.items():
+        got, ref = (neural_cost_rollout(model, s, q, pvec, n),
+                    neural_cost_rollout_plain(model, s, q, pvec, n))
+        torch.cuda.synchronize()
+        numbers[case] = errs = {**dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref))),
+                                "smem_bytes": model.smem_bytes(model.net_args(n)[0], False)}
+        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
+              f"K11 {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **NET_TOL), f"K11 {case}: kernel disagrees {errs}")
+    args = model.net_args(net)[0]
+    ref = neural_cost_rollout_plain(model, s0, Q, pvec, net)
+    warps = {}
+    for w in GROUP_WARPS:
+        got = neural_cost_rollout_warps(model, s0, Q, pvec, net, w)
+        torch.cuda.synchronize()
+        smem, _, groups = kernels.neural_plan(model.plant, args, w)
+        warps[str(w)] = errs = {
+            "ms": cuda_ms(lambda: neural_cost_rollout_warps(model, s0, Q, pvec, net, w), 50),
+            "max_abs_err": max_errors(got, ref)[0], "smem_bytes": smem, "groups_per_block": groups}
+        check(torch.allclose(got, ref, **NET_TOL), f"K11 at {w} warps a group: disagrees {errs}")
+    out = {"cases": numbers, "ms_at_warps": warps,
+           "ms_at_k": ms_at_k(lambda k: neural_cost_rollout(model, *first_k(k, s0, Q), pvec, net),
+                              SMALL_K + K_SCALING)}
+    emit("k11_cases", out)
+    # The tensor-core bound: the split products, and the scalar work (biases,
+    # tanh, norms, the delta add, the stage cost) at the FP32 rate.
+    _, group_warps, groups = kernels.neural_plan(model.plant, args)
+    macs = sum(a * b for a, b in zip(mlp_dims(net), mlp_dims(net)[1:]))
+    mma_resources("k11_resources", "neural_cost_rollout_kernel", args, "neural",
+                  tc_bound_ms(mlp_forward_tiles(net), mlp_ops(net) - 2 * macs + STAGE_OPS),
+                  extra={"group_warps": group_warps, "groups_per_block": groups,
+                         "warps_per_sm": group_warps * groups
+                         * kernels.net_blocks_per_sm("neural", args)})
+    return out
 
 
 def autograd_dq(model, s0, Q, pvec, net, defect=None) -> torch.Tensor:
@@ -948,12 +1025,12 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
     return numbers
 
 
-def wide_net(norms: bool, scale: float, device) -> dict:
-    """A seeded MLP [S+U, *WIDE_HIDDENS, S], wider than the gradient
-    kernels' register path: weights ``scale`` N(0, 1) / sqrt(fan-in),
-    biases 0.1 N(0, 1), and (``norms``) norm layers."""
+def wide_net(norms: bool, scale: float, device, hiddens=WIDE_HIDDENS) -> dict:
+    """A seeded MLP [S+U, *hiddens, S] (by default WIDE_HIDDENS, wider than
+    the gradient kernels' register path): weights ``scale`` N(0, 1) /
+    sqrt(fan-in), biases 0.1 N(0, 1), and (``norms``) norm layers."""
     gen = torch.Generator(device=device).manual_seed(WIDE_SEED)
-    dims = [5, *WIDE_HIDDENS, 4]
+    dims = [5, *hiddens, 4]
     net = {}
     for i, (a, b) in enumerate(zip(dims, dims[1:])):
         net[f"w{i}"] = scale * torch.randn(a, b, generator=gen, device=device) / a ** 0.5
@@ -971,6 +1048,7 @@ def grad_cases(label: str, kernel_fn, plain_fn, model, s0, Q, pvec, net, wide) -
     bound: ``net`` at each RAGGED_K, and ``wide`` at the full K."""
     cases = {f"K{k}": (s0[:k].contiguous(), Q[:k].contiguous(), net) for k in RAGGED_K}
     cases["wide_" + "-".join(map(str, mlp_dims(wide)))] = (s0, Q, wide)
+    kernel = {"K8": "neural_grad", "K9": "residual_grad"}[label]
     numbers = {}
     for case, (s, q, n) in cases.items():
         (cost, dQ) = kernel_fn(model, s, q, pvec, n)
@@ -979,7 +1057,7 @@ def grad_cases(label: str, kernel_fn, plain_fn, model, s0, Q, pvec, net, wide) -
         numbers[case] = got = {
             "cost_max_abs_err": max_errors(cost, ref_cost)[0],
             "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0], "dQ_max_abs": float(ref_dQ.abs().max()),
-            "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(n)[0], True)}
+            "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(n)[0], kernel)}
         check(bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all())
               and dQ.shape == q.shape, f"{label} {case}: bad output {got}")
         check(torch.allclose(cost, ref_cost, **NET_TOL), f"{label} {case}: cost disagrees {got}")
@@ -1043,19 +1121,20 @@ def sass_hmma_counts():
     return counts
 
 
-def mma_resources(label: str, kernel: str, args, grad: bool, occupancy: str, tc_ms: float,
-                  instance: str = "") -> dict:
+def mma_resources(label: str, kernel: str, args, occupancy: str, tc_ms: float,
+                  instance: str = "", extra=None) -> dict:
     """A tensor-core network kernel's resources for the net of ``args``:
-    ptxas' registers and spills, its shared memory and blocks per SM, the
-    HMMA instructions in its SASS (which must be there), and its
-    tensor-core bound ``tc_ms``."""
+    ptxas' registers and spills, the shared memory and blocks per SM of
+    ``occupancy`` (kernels.net_smem_bytes' and net_blocks_per_sm's name),
+    the HMMA instructions in its SASS (which must be there), its
+    tensor-core bound ``tc_ms``, and ``extra``."""
     hmma = sass_hmma_counts()
     numbers = {**ptxas_resources(kernel, instance),
-               "smem_bytes": kernels.net_smem_bytes("cartpole", args, grad),
+               "smem_bytes": kernels.net_smem_bytes("cartpole", args, occupancy),
                "blocks_per_sm": kernels.net_blocks_per_sm(occupancy, args),
                "hmma": "not measured" if hmma is None else sum(
                    n for fn, n in hmma.items() if re.search(entry_pattern(kernel, instance), fn)),
-               "tc_bound_ms": tc_ms}
+               "tc_bound_ms": tc_ms, **(extra or {})}
     emit(label, numbers)
     check(hmma is None or numbers["hmma"] > 0, f"{label}: no HMMA in the kernel's SASS {numbers}")
     return numbers
@@ -1134,7 +1213,7 @@ def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
     # head bias, delta, stage cost) at the FP32 rate.
     scalar = rnn_ops(net, model.kind) - 2 * rnn_macs(net, model.kind) + STAGE_OPS
     mma_resources(f"{label}_resources", "recurrent_cost_rollout_kernel",
-                  model.net_args(net, hidden)[0], False, "recurrent",
+                  model.net_args(net, hidden)[0], "recurrent",
                   tc_bound_ms(rnn_mma_tiles(net, model.kind), scalar),
                   instance="Li3E" if model.kind == "gru" else "Li4E")
     return numbers
@@ -1189,7 +1268,8 @@ def compare_residual(model, s0, Q, pvec, net) -> dict:
                       extra=lambda _: {"mutant_max_rel_err": {
                           name: max_errors(m, ref)[1] for name, m in mutants.items()},
                           "smem_bytes": kernels.net_smem_bytes(model.plant,
-                                                               model.net_args(net)[0], False)})
+                                                               model.net_args(net)[0],
+                                                               "residual")})
     for name, m in mutants.items():
         check(not torch.allclose(m, ref, **NET_TOL),
               f"K12: the cost bound does not reject a rollout with {name} {numbers}")
@@ -1231,7 +1311,8 @@ def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
         "autograd_dQ_max_abs_err": max_errors(residual_autograd_dq(model, s0, Q, pvec, net),
                                               ref_dQ)[0],
         "mutant_max_abs_err": {"mlp_vjp_dropped": max_errors(mutant, ref_dQ)[0]},
-        "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(net)[0], True),
+        "smem_bytes": kernels.net_smem_bytes(model.plant, model.net_args(net)[0],
+                                             "residual_grad"),
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: residual_grad_cost_rollout(model, s0, Q, pvec, net), 20),
@@ -1319,6 +1400,49 @@ def gp_autograd_dq(model, s0, Q, pvec, ops, drop_2an: bool = False) -> torch.Ten
         Qv = Q.clone().requires_grad_(True)
         (dq,) = torch.autograd.grad(plain_cost_loop(model, s0, Qv, pvec, step).sum(), Qv)
     return dq
+
+
+def k10_cases(model, s0, Q, pvec, wops, gp_params) -> dict:
+    """Phase 21's further K10 numbers, each case's J to KERNEL_TOL and dQ to
+    DQ_RTOL plus DQ_ATOL_FRAC of max|dQ| against the plain version: over
+    the well-conditioned GP ``wops`` at each RAGGED_K and at each of
+    GP_LANES lanes a rollout (each timed), and over a well-conditioned GP
+    of the first GP_FEW_POINTS inducing points of ``gp_params``; then the
+    time at SMALL_K + K_SCALING and the resources (ptxas' registers,
+    spills and static shared memory, the dynamic shared memory, blocks and
+    warps an SM, lanes a rollout)."""
+    few = flatten_gp_weights(well_conditioned_gp(
+        {**gp_params, "Z": gp_params["Z"][:GP_FEW_POINTS],
+         "alpha": gp_params["alpha"][:GP_FEW_POINTS]}))
+    cases = {f"K{k}": (*first_k(k, s0, Q), wops, 0) for k in RAGGED_K}
+    cases[f"M{GP_FEW_POINTS}"] = (s0, Q, few, 0)
+    cases.update({f"L{lanes}": (s0, Q, wops, lanes) for lanes in GP_LANES})
+    numbers = {}
+    for case, (s, q, ops, lanes) in cases.items():
+        (cost, dQ), (ref_cost, ref_dQ) = (gp_grad_cost_rollout_lanes(model, s, q, pvec, ops, lanes),
+                                          gp_grad_cost_rollout_plain(model, s, q, pvec, ops))
+        torch.cuda.synchronize()
+        numbers[case] = got = {"cost_max_abs_err": max_errors(cost, ref_cost)[0],
+                               "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0],
+                               "dQ_max_abs": float(ref_dQ.abs().max())}
+        if lanes:
+            got["ms"] = cuda_ms(lambda: gp_grad_cost_rollout_lanes(model, s, q, pvec, ops, lanes),
+                                20)
+        check(bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()) and dQ.shape == q.shape,
+              f"K10 {case}: bad output {got}")
+        check(torch.allclose(cost, ref_cost, **KERNEL_TOL), f"K10 {case}: cost disagrees {got}")
+        check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"K10 {case}: dQ disagrees {got}")
+    numbers = {"cases": numbers, "ms_at_k": ms_at_k(
+        lambda k: gp_grad_cost_rollout(model, *first_k(k, s0, Q), pvec, wops), SMALL_K + K_SCALING)}
+    emit("k10_cases", numbers)
+    M = wops["Zs"].shape[0]
+    lanes, threads, blocks = kernels.gp_grad_layout(M)
+    numbers["resources"] = {**ptxas_resources("gp_grad_cost_rollout_kernel", f"Li{lanes}E"),
+                            "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(4, 1, M)),
+                            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+                            "lanes": lanes}
+    emit("k10_resources", numbers["resources"])
+    return numbers
 
 
 def gp_vs_float64(model, s0, Q, Qg, pvec, ops) -> None:
@@ -2081,12 +2205,13 @@ def main() -> None:
     check("norm_in_mean" in net and "norm_out_mean" in net, "the committed MLP did not load")
     k11 = compare_neural(nmodel, s0, Q, npvec, net)
     k11.update(bound(K * H * (mlp_ops(net) + STAGE_OPS), nbytes(s0, Q, npvec, *leaves(net)) + 4 * K))
+    k11_cases(nmodel, s0, Q, npvec, net)
     k8 = compare_neural_grad(nmodel, s0, Qg, npvec, net)
     # One forward and the transposed layers: K8 re-runs the forward in its
     # backward, but a kernel that kept the activations would not have to.
     k8.update(bound(K * H * (mlp_ops(net) + mlp_vjp_ops(net) + STAGE_OPS + STAGE_VJP_OPS),
                     nbytes(s0, Qg, npvec, *leaves(net), Qg) + 4 * K))
-    mma_resources("k8_resources", "neural_grad_cost_rollout_kernel", nmodel.net_args(net)[0], True,
+    mma_resources("k8_resources", "neural_grad_cost_rollout_kernel", nmodel.net_args(net)[0],
                   "neural_grad",
                   tc_bound_ms(mma_tiles(net), mlp_scalar_ops(net) + STAGE_OPS + STAGE_VJP_OPS))
 
@@ -2134,7 +2259,7 @@ def main() -> None:
                              + mlp_vjp_ops(rnet) + STAGE_VJP_OPS),
                     nbytes(s0, Qg, rpvec, *leaves(rnet), Qg) + 4 * K))
     mma_resources("k9_resources", "residual_grad_cost_rollout_kernel", rmodel.net_args(rnet)[0],
-                  True, "residual_grad",
+                  "residual_grad",
                   tc_bound_ms(mma_tiles(rnet), RK4_STEP_OPS + RK4_VJP_OPS + mlp_scalar_ops(rnet)
                               + STAGE_OPS + STAGE_VJP_OPS))
 
@@ -2156,6 +2281,7 @@ def main() -> None:
                                                          drop_2an=True)})
     k10.update(bound(K * H * (gp_ops(gops) + gp_vjp_ops(gops) + STAGE_OPS + STAGE_VJP_OPS),
                      nbytes(s0, Qg, gpvec, *gops.values(), Qg) + 4 * K))
+    k10_cases(gmodel, s0, Qg, gpvec, wops, gparams["dyn"]["gp"])
     gp_vs_float64(gmodel, s0, Q, Qg, gpvec, gops)
 
     # 22-25. The adaptive-MPC and sparse-GP paths, closed loop, each counted

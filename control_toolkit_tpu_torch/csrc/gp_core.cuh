@@ -13,14 +13,19 @@
 // (the JAX formula for d2, not the expanded sum of (an - Zs_m)^2, so the
 // kernel and the plain version round alike).
 //
-// Design (one thread owns one rollout, as in rollout_core.cuh): a block
-// stages the inducing points into dynamic shared memory as M rows of kRow
-// floats, [Zs_m (D), zn2_m, zeros to a multiple of 4, alphaT[:, m] (S),
-// zeros], so a thread reads a row as float4s; every thread of a warp reads
-// the same row at the same m, which shared memory serves as a broadcast.
-// The affine input transform and the output scaling sit in registers.  The
-// host side (gp_smem_bytes) refuses an M whose rows exceed a block's shared
-// memory; the entry points then return cudaErrorInvalidValue.
+// Design: a block stages the inducing points into dynamic shared memory as
+// M rows of kRow floats, [Zs_m (D), zn2_m, zeros to a multiple of 4,
+// alphaT[:, m] (S), zeros], so a thread reads a row as float4s.  The
+// affine input transform and the output scaling sit in registers.  A
+// rollout's step runs on L lanes of one warp (L a template parameter; K14
+// takes L = 1, one thread a rollout, K10 L = 4..32): lane r of the L
+// takes m = r, r + L, .. (an M that is not a multiple of L leaves the last
+// lanes one point fewer) and keeps its own partial sums, which lane_sum
+// adds over the L lanes with an __shfl_xor_sync butterfly.  A butterfly
+// leaves the same bits on every lane (each round adds two values that
+// commute), so the L lanes go on with one identical x, lam and cotangent.
+// The host side (gp_smem_bytes) refuses an M whose rows exceed a block's
+// shared memory; the entry points then return cudaErrorInvalidValue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,37 +139,52 @@ __device__ __forceinline__ float gp_d2(const float (&r)[GPRow<S, U>::kRow],
   return (an2 - 2.0f * gdot) + r[S + U];
 }
 
-// One GP transition of x (GPPredictor.single_step).
-template <int S, int U>
-__device__ __forceinline__ void gp_step(const float* sm, int M, const GPConsts<S, U>& g,
+// v[i] summed over the L lanes of this lane's aligned group of L, the sum
+// on every lane: log2 L rounds, each adding the value of the lane that
+// differs in one bit.  All 32 lanes of the warp take part.
+template <int L, int N>
+__device__ __forceinline__ void lane_sum(float (&v)[N]) {
+#pragma unroll
+  for (int mask = 1; mask < L; mask <<= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i], mask);
+  }
+}
+
+// One GP transition of x (GPPredictor.single_step) on lane r of the
+// rollout's L lanes.
+template <int S, int U, int L>
+__device__ __forceinline__ void gp_step(const float* sm, int M, int r, const GPConsts<S, U>& g,
                                         float (&x)[S], const float (&u)[U]) {
   using R = GPRow<S, U>;
   float an[R::D], acc[S];
   const float an2 = gp_input<S, U>(g, x, u, an);
 #pragma unroll
   for (int s = 0; s < S; ++s) acc[s] = 0.0f;
-  for (int m = 0; m < M; ++m) {
-    float r[R::kRow];
-    gp_row<S, U>(sm, m, r);
-    const float d2 = fmaxf(gp_d2<S, U>(r, an, an2), 0.0f);
+  for (int m = r; m < M; m += L) {
+    float row[R::kRow];
+    gp_row<S, U>(sm, m, row);
+    const float d2 = fmaxf(gp_d2<S, U>(row, an, an2), 0.0f);
     const float km = g.var * expf(-0.5f * d2);
 #pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] = fmaf(r[R::kZ + s], km, acc[s]);
+    for (int s = 0; s < S; ++s) acc[s] = fmaf(row[R::kZ + s], km, acc[s]);
   }
+  lane_sum<L, S>(acc);
 #pragma unroll
   for (int s = 0; s < S; ++s) x[s] = x[s] + (acc[s] * g.out_std[s] + g.out_mean[s]);
 }
 
-// lam^T d x' / d(x, u) for gp_step at (x, u) (ops/adjoints.py gp_step_vjp):
-// lo = lam * out_std; per m, k_m recomputed, kbar_m = lo . alphaT[:, m],
-// d2bar_m = -0.5 kbar_m k_m times the clip's derivative (1 above, 0 below,
-// 1/2 at a tie), anbar += d2bar_m (2 an - 2 Zs_m); then abar = anbar *
-// inv_in, dx = lam + abar[:S], du = abar[S:].
-template <int S, int U>
-__device__ __forceinline__ void gp_step_vjp(const float* sm, int M, const GPConsts<S, U>& g,
-                                            const float (&x)[S], const float (&u)[U],
-                                            const float (&lam)[S], float (&dx)[S],
-                                            float (&du)[U]) {
+// lam^T d x' / d(x, u) for gp_step at (x, u) (ops/adjoints.py gp_step_vjp)
+// on lane r of the rollout's L lanes: lo = lam * out_std; per m, k_m
+// recomputed, kbar_m = lo . alphaT[:, m], d2bar_m = -0.5 kbar_m k_m times
+// the clip's derivative (1 above, 0 below, 1/2 at a tie), anbar +=
+// d2bar_m (2 an - 2 Zs_m), the lane's partial sums added by lane_sum; then
+// abar = anbar * inv_in, dx = lam + abar[:S], du = abar[S:].
+template <int S, int U, int L>
+__device__ __forceinline__ void gp_step_vjp(const float* sm, int M, int r,
+                                            const GPConsts<S, U>& g, const float (&x)[S],
+                                            const float (&u)[U], const float (&lam)[S],
+                                            float (&dx)[S], float (&du)[U]) {
   using R = GPRow<S, U>;
   float an[R::D], anbar[R::D], lo[S];
   const float an2 = gp_input<S, U>(g, x, u, an);
@@ -172,19 +192,20 @@ __device__ __forceinline__ void gp_step_vjp(const float* sm, int M, const GPCons
   for (int s = 0; s < S; ++s) lo[s] = lam[s] * g.out_std[s];
 #pragma unroll
   for (int d = 0; d < R::D; ++d) anbar[d] = 0.0f;
-  for (int m = 0; m < M; ++m) {
-    float r[R::kRow];
-    gp_row<S, U>(sm, m, r);
-    const float raw = gp_d2<S, U>(r, an, an2);
+  for (int m = r; m < M; m += L) {
+    float row[R::kRow];
+    gp_row<S, U>(sm, m, row);
+    const float raw = gp_d2<S, U>(row, an, an2);
     const float km = g.var * expf(-0.5f * fmaxf(raw, 0.0f));
     float kbar = 0.0f;
 #pragma unroll
-    for (int s = 0; s < S; ++s) kbar = fmaf(lo[s], r[R::kZ + s], kbar);
+    for (int s = 0; s < S; ++s) kbar = fmaf(lo[s], row[R::kZ + s], kbar);
     const float clip = raw > 0.0f ? 1.0f : (raw == 0.0f ? 0.5f : 0.0f);
     const float d2bar = -0.5f * kbar * km * clip;
 #pragma unroll
-    for (int d = 0; d < R::D; ++d) anbar[d] = fmaf(d2bar, 2.0f * an[d] - 2.0f * r[d], anbar[d]);
+    for (int d = 0; d < R::D; ++d) anbar[d] = fmaf(d2bar, 2.0f * an[d] - 2.0f * row[d], anbar[d]);
   }
+  lane_sum<L, R::D>(anbar);
 #pragma unroll
   for (int s = 0; s < S; ++s) dx[s] = lam[s] + anbar[s] * g.inv_in[s];
 #pragma unroll

@@ -8,9 +8,10 @@
 // kernel_families/gp.py.  Python wrappers and plain versions:
 // ops/gp_rollout.py and ops/gp_grad_cost_rollout.py.
 //
-// K14 is K11 (neural_rollout.cu) with the GP step: the packed parameters
-// are the cost's alone (plants.cuh CartpoleCost), the stage cost is taken
-// before the step, cost[k] = (sum_h stage + terminal) / (H+1).  K10 is K7
+// K14 is a one-thread-a-rollout cost kernel (as K1, cost_rollout.cu) with
+// the GP step: the packed parameters are the cost's alone (plants.cuh
+// CartpoleCost), the stage cost is taken before the step, cost[k] =
+// (sum_h stage + terminal) / (H+1).  K10 is K7
 // (grad_cost_rollout.cu) with the GP step and its adjoint (gp_core.cuh
 // gp_step_vjp, transcribed from ops/adjoints.py gp_step_vjp): the forward
 // sweep stores x_h in the wrapper-allocated xhist [H, S, K], then
@@ -26,13 +27,32 @@
 // FP32 operations; K10's backward about 55 more); at the main path's
 // K=16384, H=50, M=128 that is 2.6 GFLOP a call for K14 (0.04 ms at the
 // 67 TFLOP/s FP32 peak) and about 8.5 GFLOP for K10.  The inducing points
-// (M * 12 floats, 6 KB at M=128) are read from shared memory as warp-wide
-// broadcasts, so the loop is a dependent FP32 chain per thread with one
-// rollout per thread, about four warps per SM: latency-bound, far from the
-// peak.  A first, simple kernel.
+// (M * 12 floats, 6 KB at M=128) are staged once a block and read from
+// shared memory.
+// - K14 runs one thread a rollout (L = 1), about four warps an SM at
+//   K=16384: each thread's loop is a dependent FP32 chain that nothing
+//   hides.  A first, simple kernel.
+// - K10 splits each rollout's loop over the M points across L lanes of a
+//   warp, forward and backward, in one launch (L a template parameter in
+//   {4, 8, 16, 32}, kGpLanes by default): L times the warps, each lane a
+//   chain M/L points long, then log2 L shuffle rounds a sum.  Every lane
+//   of a rollout carries the same x, lam and cotangent (the butterfly
+//   leaves the same bits on each); lane 0 alone stores xhist, the cost and
+//   dQ.  On an H100 80GB HBM3 at 700 W (PERF.md) its instructions bound
+//   it: at K=16384, H=50, M=128 its time is about 0.34 ms for the points'
+//   loops plus 0.01 ms for each lane's copy of the per-step work (the L
+//   sweep: about 0.38 ms at L = 4, 0.42 at 8, 0.51 at 16, 0.70 at 32; one
+//   thread a rollout took 0.68), and three 16-byte row loads a point or
+//   two and an 8-byte one time the same.
 #include "gp_core.cuh"
 
 namespace ctt {
+
+constexpr int kGpThreads = 256;  // K10's threads a block: kGpThreads / L rollouts
+// K10's lanes a rollout where the caller leaves it to the kernel: the
+// fastest of 4, 8, 16 and 32 at K=16384, H=50 over SGP_128 (H100 80GB
+// HBM3, 700 W; PERF.md).
+constexpr int kGpLanes = 4;
 
 template <class Cost>
 __global__ void __launch_bounds__(kThreads)
@@ -62,15 +82,17 @@ gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
     acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
-    gp_step<S, U>(sm, gp.M, g, x, u);
+    gp_step<S, U, 1>(sm, gp.M, 0, g, x, u);
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
   cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
 }
 
-template <class Cost>
-__global__ void __launch_bounds__(kThreads)
+// K10 with L lanes a rollout: lanes r = 0..L-1 of each aligned group of L
+// in a warp share rollout k.
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
 gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                             const float* __restrict__ pvec, float* __restrict__ cost,
                             float* __restrict__ dQ, float* __restrict__ xhist, int K, int H,
@@ -80,34 +102,41 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
   float* sm = reinterpret_cast<float*>(smem4);
   stage_gp<S, U>(sm, gp);
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
+  const int t = blockIdx.x * blockDim.x + threadIdx.x, r = threadIdx.x & (L - 1);
+  if ((t & ~31) / L >= K) return;  // a warp with no rollout below K
+  // Lanes past K (ragged K) repeat rollout K-1 for the shuffles and write
+  // nothing.
+  const int k = t / L, kc = k < K ? k : K - 1;
+  const bool writes = r == 0 && k < K;
   GPConsts<S, U> g;
   g.load(gp);
   float c[Cost::kN];
 #pragma unroll
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
-  const float* q = Q + static_cast<size_t>(k) * H * U;
-  float* dq = dQ + static_cast<size_t>(k) * H * U;
+  const float* q = Q + static_cast<size_t>(kc) * H * U;
+  float* dq = dQ + static_cast<size_t>(kc) * H * U;
 
   // Forward sweep.
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
 #pragma unroll
   for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
   for (int h = 0; h < H; ++h) {
+    if (writes) {
 #pragma unroll
-    for (int i = 0; i < S; ++i) xhist[(static_cast<size_t>(h) * S + i) * K + k] = x[i];
+      for (int i = 0; i < S; ++i) xhist[(static_cast<size_t>(h) * S + i) * K + k] = x[i];
+    }
     float u[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
     acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
-    gp_step<S, U>(sm, gp.M, g, x, u);
+    gp_step<S, U, L>(sm, gp.M, r, g, x, u);
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  if (writes) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  __syncwarp();  // lane 0's xhist stores, before the other lanes read them
 
   // Backward sweep.
   float lam[S], gnext[U];
@@ -117,18 +146,18 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
   for (int h = H - 1; h >= 0; --h) {
     float xh[S], u[U];
 #pragma unroll
-    for (int i = 0; i < S; ++i) xh[i] = xhist[(static_cast<size_t>(h) * S + i) * K + k];
+    for (int i = 0; i < S; ++i) xh[i] = xhist[(static_cast<size_t>(h) * S + i) * K + kc];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
       u[j] = __ldg(q + h * U + j);
       prev[j] = h > 0 ? __ldg(q + (h - 1) * U + j) : c[Cost::kUPrev + j];
     }
     float dx[S], du[U], gx[S], gu[U], gp_[U];
-    gp_step_vjp<S, U>(sm, gp.M, g, xh, u, lam, dx, du);
+    gp_step_vjp<S, U, L>(sm, gp.M, r, g, xh, u, lam, dx, du);
     Cost::stage_cost_vjp(xh, u, prev, c, ct, gx, gu, gp_);
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      dq[h * U + j] = (du[j] + gu[j]) + gnext[j];
+      if (writes) dq[h * U + j] = (du[j] + gu[j]) + gnext[j];
       gnext[j] = gp_[j];
     }
 #pragma unroll
@@ -136,18 +165,47 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
   }
 }
 
-// Size the shared memory, allow it and launch `kernel`.
+// Size the shared memory, allow it and launch `kernel` over K rollouts,
+// `lanes` threads a rollout and `threads` a block.
 template <class Kernel, class... Args>
-int launch_gp(Kernel kernel, long& allowed, const GPArgs& gp, int K, void* stream,
-              Args... args) {
+int launch_gp(Kernel kernel, long& allowed, const GPArgs& gp, int K, int lanes, int threads,
+              void* stream, Args... args) {
   using Cost = CartpoleCost;
   const long bytes = gp_smem_bytes<Cost::S, Cost::U>(gp.M);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(args..., gp);
+  const dim3 grid((static_cast<long>(K) * lanes + threads - 1) / threads);
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(args..., gp);
   return static_cast<int>(cudaGetLastError());
+}
+
+long k10_allowed[4] = {0, 0, 0, 0};  // K10's dynamic shared memory allowed so far, by L
+
+// Launch K10 with L lanes a rollout.
+template <int L>
+int launch_k10(const void* s0, const void* Q, const void* pvec, void* cost, void* dQ,
+               void* xhist, int K, int H, float max_cost, float ct, const GPArgs& gp,
+               long& allowed, void* stream) {
+  return launch_gp(gp_grad_cost_rollout_kernel<CartpoleCost, L>, allowed, gp, K, L, kGpThreads,
+                   stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
+                   static_cast<const float*>(pvec), static_cast<float*>(cost),
+                   static_cast<float*>(dQ), static_cast<float*>(xhist), K, H, max_cost, ct);
+}
+
+// Blocks of K10 with L lanes a rollout that one SM holds for M inducing
+// points (0 where M is refused).
+template <int L>
+int k10_blocks_per_sm(int M, long& allowed) {
+  auto kernel = gp_grad_cost_rollout_kernel<CartpoleCost, L>;
+  const long bytes = gp_smem_bytes<CartpoleCost::S, CartpoleCost::U>(M);
+  int blocks = 0;
+  if (bytes < 0 || allow_smem(kernel, bytes, allowed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGpThreads, bytes) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }
 
 }  // namespace ctt
@@ -167,23 +225,55 @@ extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, con
                                    const ctt::GPArgs* gp, void* stream) {
   static long allowed = 0;
   if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
-  return ctt::launch_gp(ctt::gp_cost_rollout_kernel<ctt::CartpoleCost>, allowed, *gp, K, stream,
-                        static_cast<const float*>(s0), static_cast<const float*>(Q),
-                        static_cast<const float*>(pvec), static_cast<float*>(cost), K, H,
-                        max_cost);
+  return ctt::launch_gp(ctt::gp_cost_rollout_kernel<ctt::CartpoleCost>, allowed, *gp, K, 1,
+                        ctt::kThreads, stream, static_cast<const float*>(s0),
+                        static_cast<const float*>(Q), static_cast<const float*>(pvec),
+                        static_cast<float*>(cost), K, H, max_cost);
 }
 
-// Launches K10 on `stream`; returns as above.  xhist is scratch of H*S*K
-// floats that the caller allocates.
+// Launches K10 on `stream` with `lanes` lanes a rollout (4, 8, 16 or 32;
+// 0 for kGpLanes); returns as above, or cudaErrorInvalidValue for another
+// `lanes`.  xhist is scratch of H*S*K floats that the caller allocates.
 extern "C" int ctt_gp_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                         const void* pvec, void* cost, void* dQ, void* xhist,
-                                        int K, int H, float max_cost, float ct,
+                                        int K, int H, float max_cost, float ct, int lanes,
                                         const ctt::GPArgs* gp, void* stream) {
-  static long allowed = 0;
+  using ctt::k10_allowed;
   if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
-  return ctt::launch_gp(ctt::gp_grad_cost_rollout_kernel<ctt::CartpoleCost>, allowed, *gp, K,
-                        stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
-                        static_cast<const float*>(pvec), static_cast<float*>(cost),
-                        static_cast<float*>(dQ), static_cast<float*>(xhist), K, H, max_cost,
-                        ct);
+  switch (lanes == 0 ? ctt::kGpLanes : lanes) {
+    case 4:
+      return ctt::launch_k10<4>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
+                                k10_allowed[0], stream);
+    case 8:
+      return ctt::launch_k10<8>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
+                                k10_allowed[1], stream);
+    case 16:
+      return ctt::launch_k10<16>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
+                                 k10_allowed[2], stream);
+    case 32:
+      return ctt::launch_k10<32>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
+                                 k10_allowed[3], stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K10's layout for M inducing points with `lanes` lanes a rollout (0 for
+// kGpLanes): returns the lanes it takes, and in *block_threads and
+// *blocks_per_sm its threads a block and the blocks one SM holds; 0 (and
+// zeros) for a refused M or `lanes`.
+extern "C" int ctt_gp_grad_layout(int M, int lanes, int* block_threads, int* blocks_per_sm) {
+  using ctt::k10_allowed;
+  const int L = lanes == 0 ? ctt::kGpLanes : lanes;
+  int blocks = 0;
+  switch (L) {
+    case 4: blocks = ctt::k10_blocks_per_sm<4>(M, k10_allowed[0]); break;
+    case 8: blocks = ctt::k10_blocks_per_sm<8>(M, k10_allowed[1]); break;
+    case 16: blocks = ctt::k10_blocks_per_sm<16>(M, k10_allowed[2]); break;
+    case 32: blocks = ctt::k10_blocks_per_sm<32>(M, k10_allowed[3]); break;
+    default: break;
+  }
+  *block_threads = blocks > 0 ? ctt::kGpThreads : 0;
+  *blocks_per_sm = blocks;
+  return blocks > 0 ? L : 0;
 }

@@ -75,7 +75,7 @@ constexpr int kTileFloats = 128;             // one fragment tile: 32 lanes x 4 
 // Offsets (floats) of the staged net and of each warp's region.
 struct MmaLayout {
   int kt[kMaxLayers], nt[kMaxLayers];  // layer l: 8-blocks of its input, tiles of its output
-  int fw[kMaxLayers], tw[kMaxLayers];  // forward and transposed B fragments, hi/lo split
+  int fw[kMaxLayers], tw[kMaxLayers];  // forward and transposed (or -1) B fragments, hi/lo split
   int bias[kMaxLayers];                // padded with zeros to 8 * nt
   int norm[4];                         // in mean, in std, out mean, out std; -1
   int net_floats;
@@ -86,12 +86,12 @@ struct MmaLayout {
   int warps;  // per block: kMmaWarps, or fewer where the regions would not fit
 };
 
-// Lay out `a` for a plant of S states and U controls; returns the block's
-// dynamic shared memory in bytes, or -1 for a net the kernels refuse.  A
-// block takes kMmaWarps warps, or the most of 4, 2 and 1 whose regions fit
-// beside the net (a net wider than 64 or deeper than a few layers).
-inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
-  int off = 0, warp = 0, widest = 0;
+// Lay out the staged net of `a` for a plant of S states and U controls:
+// each layer's forward B fragments and (`transposed`) its transposed ones,
+// else tw = -1, its bias and the norms.  Returns its floats, or -1 for a
+// net the tensor-core kernels refuse.
+inline int plan_mma_net(const NetArgs& a, int S, int U, bool transposed, MmaLayout& L) {
+  int off = 0;
   auto take = [&off](int n) { const int o = off; off += pad_to(n, 4); return o; };
   const int n = a.n_layers;
   if (a.kind != kNetMLP || n < 1 || n > kMaxLayers || S + U > 8 || a.dims[0] != S + U ||
@@ -107,13 +107,8 @@ inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
     L.kt[l] = pad_to(a.dims[l], 8) / 8;
     L.nt[l] = pad_to(a.dims[l + 1], 8) / 8;
     L.fw[l] = take(L.kt[l] * L.nt[l] * kTileFloats);
-    L.tw[l] = take(L.kt[l] * L.nt[l] * kTileFloats);
+    L.tw[l] = transposed ? take(L.kt[l] * L.nt[l] * kTileFloats) : -1;
     L.bias[l] = take(8 * L.nt[l]);
-    if (l < n - 1) {
-      L.stash[l] = warp;
-      warp += L.nt[l] * kTileFloats;
-    }
-    widest = L.nt[l] > widest ? L.nt[l] : widest;
   }
   for (int i = 0; i < 4; ++i) L.norm[i] = -1;
   if (a.norm_in_mean) {
@@ -125,6 +120,24 @@ inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
     L.norm[3] = take(S);
   }
   L.net_floats = off;
+  return off;
+}
+
+// Lay out `a` for a plant of S states and U controls; returns the block's
+// dynamic shared memory in bytes, or -1 for a net the kernels refuse.  A
+// block takes kMmaWarps warps, or the most of 4, 2 and 1 whose regions fit
+// beside the net (a net wider than 64 or deeper than a few layers).
+inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
+  if (plan_mma_net(a, S, U, true, L) < 0) return -1;
+  int warp = 0, widest = 0;
+  const int n = a.n_layers;
+  for (int l = 0; l < n; ++l) {
+    if (l < n - 1) {
+      L.stash[l] = warp;
+      warp += L.nt[l] * kTileFloats;
+    }
+    widest = L.nt[l] > widest ? L.nt[l] : widest;
+  }
   L.arena_tiles = widest > kRegTiles ? widest : 0;
   L.arena = warp;
   warp += 2 * L.arena_tiles * kTileFloats;
@@ -132,7 +145,7 @@ inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
   warp += 2 * kMmaRows * 8;
   L.warp_floats = warp;
   for (L.warps = kMmaWarps; L.warps >= 1; L.warps /= 2) {
-    const long bytes = 4L * (off + static_cast<long>(L.warps) * warp);
+    const long bytes = 4L * (L.net_floats + static_cast<long>(L.warps) * warp);
     if (bytes <= kMaxSmem) return bytes;
   }
   return -1;
@@ -188,7 +201,8 @@ __device__ __forceinline__ float4 split_pair(float w0, float w1) {
 // (kb, j) of a layer of NT output tiles is at [(kb * NT + j) * 32 + lane]
 // (float4s): lane (g, t) holds B rows 8kb + 2t and 8kb + 2t + 1 (the
 // permuted k order) of column 8j + g.  Forward: B = W [d_in, d_out];
-// transposed: B = W^T [d_out, d_in], kt and nt swapped.
+// transposed (where the layout has them, tw >= 0): B = W^T [d_out, d_in],
+// kt and nt swapped.
 __device__ __forceinline__ void stage_mma_net(float* sm, const NetArgs& a, const MmaLayout& L,
                                               int S, int U) {
   for (int l = 0; l < a.n_layers; ++l) {
@@ -196,13 +210,14 @@ __device__ __forceinline__ void stage_mma_net(float* sm, const NetArgs& a, const
     const int din = a.dims[l], dout = a.dims[l + 1], KT = L.kt[l], NT = L.nt[l];
     const int len = KT * NT * 32;
     float4* fw = reinterpret_cast<float4*>(sm + L.fw[l]);
-    float4* tw = reinterpret_cast<float4*>(sm + L.tw[l]);
+    float4* tw = L.tw[l] >= 0 ? reinterpret_cast<float4*>(sm + L.tw[l]) : nullptr;
     for (int idx = threadIdx.x; idx < len; idx += blockDim.x) {
       const int lane = idx & 31, f = idx >> 5, g = lane >> 2, t = lane & 3;
       int kb = f / NT, j = f - kb * NT;  // forward: k over din, n over dout
       int k = 8 * kb + 2 * t, c = 8 * j + g;
       fw[idx] = split_pair(k < din && c < dout ? __ldg(W + k * dout + c) : 0.0f,
                            k + 1 < din && c < dout ? __ldg(W + (k + 1) * dout + c) : 0.0f);
+      if (!tw) continue;
       kb = f / KT;  // transposed: k over dout, n over din
       j = f - kb * KT;
       k = 8 * kb + 2 * t;

@@ -1,10 +1,10 @@
-// The network core of the network-rollout kernels K11 (MLP rollout + cost,
-// neural_rollout.cu) and K12 (residual rollout + cost, residual_rollout.cu),
-// and the net's description that every network kernel takes.  It replaces
-// the Pallas kernels' row-MLP (control_toolkit_tpu/ops/pallas_neural.py:
-// mlp_rows), which ran each layer as one MXU matmul over a [features, tile]
-// slab in VMEM.  The gradient kernels K8 and K9 run their MLP on tensor
-// cores instead (mlp_mma.cuh), and K13 its GRU/LSTM cells (rnn_mma.cuh).
+// The network core of the network-rollout kernel K12 (residual rollout +
+// cost, residual_rollout.cu), and the net's description that every network
+// kernel takes.  It replaces the Pallas kernels' row-MLP
+// (control_toolkit_tpu/ops/pallas_neural.py:mlp_rows), which ran each layer
+// as one MXU matmul over a [features, tile] slab in VMEM.  The other
+// network kernels run their products on tensor cores instead: K8 and K9
+// (mlp_mma.cuh), K11 (mlp_units.cuh) and K13 (rnn_mma.cuh).
 //
 // Design (one thread owns one rollout, as in rollout_core.cuh):
 // - A block first stages the net into dynamic shared memory: each weight

@@ -6,7 +6,7 @@
 // build_neural_cost_rollout_kernel (K11) and
 // build_recurrent_cost_rollout_kernel (K13), the kernels behind
 // kernel_families/neural.py:build_cost.  Python wrappers and plain
-// versions: ops/neural_rollout.py; K11's layers: neural_core.cuh; K13's
+// versions: ops/neural_rollout.py; K11's layers: mlp_units.cuh; K13's
 // cells: rnn_mma.cuh.
 //
 // cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1),
@@ -17,55 +17,64 @@
 // What bounds them on an H100: the network's multiply-adds.  At the main
 // path's K=16384, H=50, mlp-64-64 is 9,344 FLOP per rollout-step (7.7
 // GFLOP a call, 0.11 ms at the 67 TFLOP/s FP32 peak); the bytes (Q in,
-// cost out, the weights once per block) are < 4 MB.
-// - K11 runs one thread per rollout in FP32, about four warps per SM,
-//   each FMA with a shared-memory operand, far from that peak.  Its
-//   design keeps everything else off the chain: weights staged once per
-//   block and read as float4 broadcasts, each thread's activations in its
-//   own shared-memory columns (no barrier inside the horizon loop), a
-//   layer's outputs summed kChunk at a time in registers.
-// - K13 runs its gate products on the tensor cores, 3xTF32 mma.sync over
-//   16-rollout groups of up to four warps that split each layer by hidden
-//   unit (rnn_mma.cuh): GRU-32-32 is 160 m16n8k8 tiles a group-step, 480
-//   mma in 3xTF32, 50 GFLOP a call (0.10 ms at the 495 TFLOP/s TF32
-//   rate); K/16 groups of four warps give the card 4,096 warps at
-//   K=16384 where one thread a rollout gave 512.
+// cost out, the weights once per block) are < 4 MB.  Both run their
+// products on the tensor cores, 3xTF32 mma.sync over 16-rollout groups of
+// up to four warps that split each layer by unit (one thread a rollout
+// gave the card 512 warps at K=16384, each FMA's operand from shared
+// memory):
+// - K11 (mlp_units.cuh): mlp-64-64 is 80 m16n8k8 tiles a group-step, 240
+//   mma in 3xTF32, 31 GFLOP a call (0.06 ms at the 495 TFLOP/s TF32
+//   rate), one named barrier a hidden layer; groups of two warps, 2,048
+//   warps at K=16384 in one wave of one 16-warp block an SM.  On an H100
+//   80GB HBM3 at 700 W (PERF.md) it takes about 0.35 ms there, as at
+//   K=2048: each group's serial chain a step sets it.
+// - K13 (rnn_mma.cuh): GRU-32-32 is 160 tiles a group-step, 480 mma, 50
+//   GFLOP a call (0.10 ms), groups of four warps.
+#include "mlp_units.cuh"
 #include "neural_core.cuh"
 #include "rnn_mma.cuh"
 
 namespace ctt {
 
 template <class Cost>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRnnThreads)
 neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                            const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                           int H, float max_cost, NetArgs net, NetLayout L) {
+                           int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  stage_net(sm, net, L, S, U, false);
+  stage_mma_net(sm, net, L.net, S, U);
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = warp / L.warps, w = warp - group * L.warps;
+  const int first = (blockIdx.x * L.groups + group) * kMmaRows;
+  if (first >= K) return;  // the whole group: ragged K is masked
+  // Lanes l and l+16 own rollout first + l; rows past K repeat rollout K-1.
+  const int k = first + (lane & 15), kc = k < K ? k : K - 1;
+  float* gsm = sm + L.net.net_floats + group * L.group_floats;
+  float* io = gsm + L.io + w * kMmaRows * 8;
   float c[Cost::kN];
 #pragma unroll
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
 #pragma unroll
   for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
-  const float* q = Q + static_cast<size_t>(k) * H * U;
+  const float* q = Q + static_cast<size_t>(kc) * H * U;
   for (int h = 0; h < H; ++h) {
     float u[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
-    acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
-    mlp_step<S, U>(sm, net, L, x, u);
+    if (w == 0) acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);  // warp 0's cost
+    mlp_units_step<S, U>(sm, gsm, io, net, L, group, w, h & 1, x, u);
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  if (w == 0 && lane < 16 && k < K) {
+    cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  }
 }
 
 template <class Cost, int G>
@@ -129,18 +138,20 @@ int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plan, allow the shared memory and launch `kernel` on `stream`.
+// Plan K11's layout for `net` with `warps` warps a group (0: the plan's),
+// allow the shared memory and launch `kernel` on `stream`.
 template <class Kernel>
-int launch_net_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, int U,
-                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
-                      float max_cost, void* stream) {
-  NetLayout L;
-  const long bytes = plan_layout(net, S, U, false, L);
+int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int warps,
+                     const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
+                     float max_cost, void* stream) {
+  MlpUnitsLayout L;
+  const long bytes = plan_mlp_units(net, S, U, warps, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  const int per_block = L.groups * kMmaRows;
+  const dim3 grid((K + per_block - 1) / per_block);
+  kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
       static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost, net, L);
   return static_cast<int>(cudaGetLastError());
@@ -171,19 +182,52 @@ extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U, int tr
   return ctt::plan_layout(*net, S, U, transposed != 0, L);
 }
 
-// Launches K11 (an MLP net) on `stream`; returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for an unknown plant or a net the
-// kernel refuses.
+namespace {
+long allowed_mlp = 0;  // K11's dynamic shared memory allowed so far
+}  // namespace
+
+// K11's layout for `net` with `warps` warps a group (0: the plan's own):
+// the block's dynamic shared memory in bytes (-1 for a refused net), and
+// in *group_warps and *groups the warps a group and the groups a block.
+extern "C" long ctt_neural_plan(const ctt::NetArgs* net, int S, int U, int warps,
+                                int* group_warps, int* groups) {
+  ctt::MlpUnitsLayout L;
+  const long bytes = ctt::plan_mlp_units(*net, S, U, warps, L);
+  *group_warps = bytes < 0 ? 0 : L.warps;
+  *groups = bytes < 0 ? 0 : L.groups;
+  return bytes;
+}
+
+// Launches K11 (an MLP net) on `stream` with `warps` warps a 16-rollout
+// group (1, 2 or 4; 0 for the plan's own); returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for an unknown plant, another
+// `warps` or a net the kernel refuses.
 extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                       void* cost, int K, int H, float max_cost,
+                                       void* cost, int K, int H, float max_cost, int warps,
                                        const ctt::NetArgs* net, void* stream) {
   using Cost = ctt::CartpoleCost;
-  static long allowed = 0;
-  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP) {
+  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP ||
+      (warps != 0 && warps != 1 && warps != 2 && warps != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return ctt::launch_net_kernel(ctt::neural_cost_rollout_kernel<Cost>, allowed, *net, Cost::S,
-                                Cost::U, s0, Q, pvec, cost, K, H, max_cost, stream);
+  return ctt::launch_mlp_units(ctt::neural_cost_rollout_kernel<Cost>, allowed_mlp, *net, Cost::S,
+                               Cost::U, warps, s0, Q, pvec, cost, K, H, max_cost, stream);
+}
+
+// Blocks of K11 that one SM holds for `net` with the plan's warps a group
+// (0 for a refused net).
+extern "C" int ctt_neural_blocks_per_sm(const ctt::NetArgs* net) {
+  using Cost = ctt::CartpoleCost;
+  ctt::MlpUnitsLayout L;
+  const long bytes = ctt::plan_mlp_units(*net, Cost::S, Cost::U, 0, L);
+  auto kernel = ctt::neural_cost_rollout_kernel<Cost>;
+  int blocks = 0;
+  if (bytes < 0 || ctt::allow_smem(kernel, bytes, allowed_mlp) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * L.warps * L.groups,
+                                                    bytes) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }
 
 namespace {

@@ -14,7 +14,7 @@
 // base's euler/rk4 step (rollout_core.cuh integrate) over the packed
 // constants p + 0, the cost over p + CartpolePlant::kCost, and the MLP
 // (neural_core.cuh mlp_step, absolute form, no norms) on the step's start
-// state, staged into shared memory as K11 stages its net.  The stage cost
+// state, staged into shared memory by neural_core.cuh stage_net.  The stage cost
 // is taken before the step; cost[k] = (sum_h stage + terminal) / (H+1).
 //
 // K9 is K7 (grad_cost_rollout.cu) with the same step, its MLP on tensor

@@ -183,19 +183,22 @@ __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)
 
 // acc[g] += sum over p < P of A(p) B(p, g) for the G gates of P
 // consecutive k-blocks in 3xTF32, B(p, g) = {b0_hi, b1_hi, b0_lo, b1_lo}
-// at b[p * G * 32 + g * 32]: a_lo b_hi, then a_hi b_lo, then a_hi b_hi
-// into a partial sum a k-block from zero, each product over all P * G
+// at b[p * kb_stride + g * 32] (K13: G gates of a unit tile, kb_stride =
+// G * 32; K11, mlp_units.cuh: G consecutive unit tiles of a layer of NT,
+// kb_stride = NT * 32): a_lo b_hi, then a_hi b_lo, then a_hi b_hi into a
+// partial sum a k-block from zero, each product over all P * G
 // tiles before the next (P * G independent chains of three mma); the
 // partial sums are then added to acc in k order.
 template <int G, int P>
 __device__ __forceinline__ void mma3_blocks(float (&acc)[G][4], const uint32_t (&hi)[P][4],
-                                            const uint32_t (&lo)[P][4], const float4* b) {
+                                            const uint32_t (&lo)[P][4], const float4* b,
+                                            int kb_stride) {
   float4 f[P][G];
   float part[P][G][4];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) f[p][g] = b[(p * G + g) * 32];
+    for (int g = 0; g < G; ++g) f[p][g] = b[p * kb_stride + g * 32];
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -249,10 +252,11 @@ __device__ __forceinline__ void load_split(const float4* slab, int kb0, uint32_t
 
 // acc[g] = sum over kb < kt of A(kb) B(kb, g): A(kb) the split slab's
 // tile kb (all kt of them), B the layer's fragments of unit tile j plus
-// the lane; two k-blocks at a time, so that their mma chains overlap.
+// the lane, k-block kb's at B + kb * kb_stride; two k-blocks at a time, so
+// that their mma chains overlap.
 template <int G>
 __device__ __forceinline__ void gate_products(const float4* slab, int kt, const float4* B,
-                                              float (&acc)[G][4]) {
+                                              int kb_stride, float (&acc)[G][4]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -262,12 +266,12 @@ __device__ __forceinline__ void gate_products(const float4* slab, int kt, const 
   for (; kb + 2 <= kt; kb += 2) {
     uint32_t hi[2][4], lo[2][4];
     load_split<2>(slab, kb, hi, lo);
-    mma3_blocks<G, 2>(acc, hi, lo, B + kb * G * 32);
+    mma3_blocks<G, 2>(acc, hi, lo, B + kb * kb_stride, kb_stride);
   }
   if (kb < kt) {
     uint32_t hi[1][4], lo[1][4];
     load_split<1>(slab, kb, hi, lo);
-    mma3_blocks<G, 1>(acc, hi, lo, B + kb * G * 32);
+    mma3_blocks<G, 1>(acc, hi, lo, B + kb * kb_stride, kb_stride);
   }
 }
 
@@ -352,11 +356,11 @@ __device__ __forceinline__ void rnn_mma_step(const float* sm, float* gsm, float*
 #pragma unroll
           for (int q = 0; q < 4; ++q) ai[g][q] = 0.0f;
         }
-        mma3_blocks<G, 1>(ai, in_hi, in_lo, Bi);
+        mma3_blocks<G, 1>(ai, in_hi, in_lo, Bi, G * 32);
       } else {
-        gate_products<G>(inp, L.kti[l], Bi, ai);
+        gate_products<G>(inp, L.kti[l], Bi, G * 32, ai);
       }
-      gate_products<G>(hs, nt, Bh, ah);
+      gate_products<G>(hs, nt, Bh, G * 32, ah);
       // Lane (q, t) holds rows q and q+8 of units 8j + 2t (values 0, 2)
       // and 8j + 2t + 1 (values 1, 3).
       float2 bi[G], bh[G];
@@ -396,7 +400,7 @@ __device__ __forceinline__ void rnn_mma_step(const float* sm, float* gsm, float*
       if (l == a.n_layers - 1) {  // k-block j of the head's product
         float part[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
         const float4* Bo = reinterpret_cast<const float4*>(sm + L.wo) + j * 32 + lane;
-        mma3_blocks<1, 1>(part, hi, lo, Bo);
+        mma3_blocks<1, 1>(part, hi, lo, Bo, 32);
         head[j * 32] = make_float4(part[0][0], part[0][1], part[0][2], part[0][3]);
       }
     }

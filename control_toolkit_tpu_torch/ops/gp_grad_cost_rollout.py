@@ -16,10 +16,11 @@ the cost's hand-written adjoints:
     lam_h = dx_gp + gx
 
 The GP's tensors get no gradient.  The CUDA kernel is
-``csrc/gp_rollout.cu``; ``gp_grad_cost_rollout_plain`` is the same
-function in PyTorch.  The wrapper runs the plain version only when every
-operand lies on the CPU; for CUDA operands it launches the kernel or
-raises.
+``csrc/gp_rollout.cu``, each rollout's step split over the lanes of a
+warp (``gp_grad_cost_rollout_lanes`` picks their number);
+``gp_grad_cost_rollout_plain`` is the same function in PyTorch.  The
+wrapper runs the plain version only when every operand lies on the CPU;
+for CUDA operands it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -48,9 +49,21 @@ def gp_grad_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tens
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: per-rollout cost ``[K]`` and its gradient ``[K,H,U]`` under the
     GP; see the module docstring."""
+    return gp_grad_cost_rollout_lanes(model, s0, Q, pvec, ops, 0)
+
+
+def gp_grad_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec: torch.Tensor, ops: Dict[str, torch.Tensor], lanes: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 with ``lanes`` lanes a rollout (4, 8, 16 or 32; 0 for the
+    kernel's own, which ``gp_grad_cost_rollout`` takes): the split's
+    measurement (chip_smoke.py phase 21).  Counted as K10's launches."""
     check_shapes("gp_grad_cost_rollout", s0, Q, pvec)
     if model.plant not in PLANT_ADJOINTS:
         raise ValueError(f"gp_grad_cost_rollout: no cost adjoints for the {model.plant!r} plant")
+    if lanes not in (0, 4, 8, 16, 32):
+        raise ValueError(f"gp_grad_cost_rollout: {lanes} lanes a rollout (4, 8, 16 or 32; 0: "
+                         "the kernel's)")
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_grad_cost_rollout_plain(model, s0, Q, pvec, ops)
     args, tensors = model.gp_args(ops)
@@ -67,7 +80,7 @@ def gp_grad_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tens
         rc = kernels.load().ctt_gp_grad_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
             cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, model.max_cost,
-            1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
+            1.0 / (H + 1), lanes, args, torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, f"gp_grad_cost_rollout (M={args.M} inducing points)")
     gp_grad_cost_rollout.launches += 1

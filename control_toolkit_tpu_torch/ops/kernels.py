@@ -30,7 +30,7 @@ SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_ro
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
-           "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh")
+           "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -175,25 +175,43 @@ def mlp_net_args(net: Dict, S: int, U: int,
     return args, tensors
 
 
-def net_smem_bytes(plant: str, args: NetArgs, grad: bool) -> int:
-    """Dynamic shared memory a block of a network-rollout kernel takes for
-    the net of ``args``, or -1 where the kernel refuses the net (its launch
-    then returns cudaErrorInvalidValue): K11's and K12's staged weights and
-    per-thread activation columns (csrc/neural_core.cuh) or K13's staged
-    hi/lo gate fragments and per-group slabs (csrc/rnn_mma.cuh), or
-    (``grad``) the gradient kernels' staged hi/lo fragments and per-warp
-    regions (csrc/mlp_mma.cuh)."""
+def neural_plan(plant: str, args: NetArgs, warps: int = 0) -> Tuple[int, int, int]:
+    """K11's layout (csrc/mlp_units.cuh) for the MLP of ``args`` with
+    ``warps`` warps a 16-rollout group (0: the plan's own): ``(dynamic shared
+    memory of a block in bytes, warps a group, groups a block)``, the bytes
+    -1 where the kernel refuses the net."""
     S, U = PLANT_DIMS[plant]
-    if grad:
+    group_warps, groups = ctypes.c_int(), ctypes.c_int()
+    nbytes = load().ctt_neural_plan(ctypes.byref(args), S, U, warps, ctypes.byref(group_warps),
+                                    ctypes.byref(groups))
+    return int(nbytes), group_warps.value, groups.value
+
+
+def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
+    """Dynamic shared memory a block of the network kernel ``kernel`` takes
+    for the net of ``args``, or -1 where the kernel refuses the net (its
+    launch then returns cudaErrorInvalidValue): K11's (``neural``) staged
+    hi/lo fragments and per-group slabs (csrc/mlp_units.cuh), K12's
+    (``residual``) staged weights and per-thread activation columns
+    (csrc/neural_core.cuh), K13's (``recurrent``) staged hi/lo gate
+    fragments and per-group slabs (csrc/rnn_mma.cuh), or the gradient
+    kernels' (``neural_grad``, ``residual_grad``) staged hi/lo fragments and
+    per-warp regions (csrc/mlp_mma.cuh)."""
+    S, U = PLANT_DIMS[plant]
+    if kernel == "neural":
+        return neural_plan(plant, args)[0]
+    if kernel in ("neural_grad", "residual_grad"):
         return int(load().ctt_mma_net_smem_bytes(ctypes.byref(args), S, U))
-    return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, 0))
+    if kernel in ("residual", "recurrent"):
+        return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, 0))
+    raise ValueError(f"no network kernel {kernel!r}")
 
 
 def net_blocks_per_sm(kernel: str, args: NetArgs) -> int:
-    """Blocks of the tensor-core network kernel ``kernel`` (``neural_grad``
-    for K8, ``residual_grad`` for K9, ``recurrent`` for K13) that one SM
-    holds for the net of ``args``, as the CUDA runtime's occupancy
-    calculator gives it (0 for a refused net)."""
+    """Blocks of the tensor-core network kernel ``kernel`` (``neural`` for
+    K11, ``neural_grad`` for K8, ``residual_grad`` for K9, ``recurrent`` for
+    K13) that one SM holds for the net of ``args``, as the CUDA runtime's
+    occupancy calculator gives it (0 for a refused net)."""
     return int(getattr(load(), f"ctt_{kernel}_blocks_per_sm")(ctypes.byref(args)))
 
 
@@ -255,6 +273,16 @@ class GPArgs(ctypes.Structure):
     device pointers of the eight precomputed GP tensors."""
 
     _fields_ = [("M", ctypes.c_int)] + [(name, ctypes.c_void_p) for name in GP_OPERANDS]
+
+
+def gp_grad_layout(M: int, lanes: int = 0) -> Tuple[int, int, int]:
+    """K10's layout (csrc/gp_rollout.cu) for M inducing points with
+    ``lanes`` lanes a rollout (0: the kernel's own): ``(lanes, threads a
+    block, blocks an SM holds)``, zeros where the kernel refuses M or
+    ``lanes``."""
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+    taken = load().ctt_gp_grad_layout(M, lanes, ctypes.byref(threads), ctypes.byref(blocks))
+    return int(taken), threads.value, blocks.value
 
 
 @dataclass(frozen=True)
@@ -324,7 +352,10 @@ class NetModel(CostModel):
         return args, tensors
 
     def smem_bytes(self, args: NetArgs, grad: bool) -> int:
-        return net_smem_bytes(self.plant, args, grad)
+        """A block's dynamic shared memory for the net of ``args``: K8's
+        (``grad``), K11's or K13's."""
+        kernel = "neural_grad" if grad else ("neural" if self.kind == "mlp" else "recurrent")
+        return net_smem_bytes(self.plant, args, kernel)
 
 
 def _nvcc() -> str:
@@ -418,9 +449,14 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_grad_cost_adjoint.restype = i32
         net = ctypes.POINTER(NetArgs)
-        for fn in (lib.ctt_neural_cost_rollout, lib.ctt_recurrent_cost_rollout):
-            fn.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, net, ptr]
-            fn.restype = i32
+        lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, i32, net,
+                                                ptr]
+        lib.ctt_neural_cost_rollout.restype = i32
+        lib.ctt_recurrent_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, net, ptr]
+        lib.ctt_recurrent_cost_rollout.restype = i32
+        lib.ctt_neural_plan.argtypes = [net, i32, i32, i32, ctypes.POINTER(i32),
+                                        ctypes.POINTER(i32)]
+        lib.ctt_neural_plan.restype = ctypes.c_long
         lib.ctt_neural_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, net, ptr,
         ]
@@ -429,8 +465,8 @@ def load() -> ctypes.CDLL:
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
-        for fn in (lib.ctt_neural_grad_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm,
-                   lib.ctt_recurrent_blocks_per_sm):
+        for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_grad_blocks_per_sm,
+                   lib.ctt_residual_grad_blocks_per_sm, lib.ctt_recurrent_blocks_per_sm):
             fn.argtypes = [net]
             fn.restype = i32
         lib.ctt_grad_cost_adjoint_blocks_per_sm.argtypes = []
@@ -448,9 +484,11 @@ def load() -> ctypes.CDLL:
         lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, gp, ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, gp, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, gp, ptr,
         ]
         lib.ctt_gp_grad_cost_rollout.restype = i32
+        lib.ctt_gp_grad_layout.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.ctt_gp_grad_layout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
         lib.ctt_gp_smem_bytes.restype = ctypes.c_long
         lib.ctt_fused_cem.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

@@ -104,7 +104,10 @@ def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tenso
         )
 
 
-def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden):
+def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden,
+            extra=()):
+    """Check the operands and launch the C entry point ``entry``, with
+    ``extra`` arguments before the net's; returns the costs."""
     args, tensors = model.net_args(net, hidden)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
@@ -114,7 +117,7 @@ def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hi
     with torch.cuda.device(device):
         rc = getattr(kernels.load(), entry)(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, H, model.max_cost, args,
+            cost.data_ptr(), K, H, model.max_cost, *extra, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, name)
@@ -125,13 +128,23 @@ def neural_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tens
                         pvec: torch.Tensor, net: Dict) -> torch.Tensor:
     """K11: per-rollout trajectory cost ``[K]`` under an MLP; see the module
     docstring."""
+    return neural_cost_rollout_warps(model, s0, Q, pvec, net, 0)
+
+
+def neural_cost_rollout_warps(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                              pvec: torch.Tensor, net: Dict, warps: int) -> torch.Tensor:
+    """K11 with ``warps`` warps a 16-rollout group (1, 2 or 4; 0 for the
+    layout's own, which ``neural_cost_rollout`` takes): the split's
+    measurement (chip_smoke.py phase 11).  Counted as K11's launches."""
     check_shapes("neural_cost_rollout", s0, Q, pvec)
     if model.kind != "mlp":
         raise ValueError(f"neural_cost_rollout: an MLP, not a {model.kind}")
+    if warps not in (0, 1, 2, 4):
+        raise ValueError(f"neural_cost_rollout: {warps} warps a group (1, 2 or 4; 0: the plan's)")
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
         return neural_cost_rollout_plain(model, s0, Q, pvec, net)
     cost = _launch("ctt_neural_cost_rollout", "neural_cost_rollout", model, s0, Q, pvec, net,
-                   None)
+                   None, (warps,))
     neural_cost_rollout.launches += 1
     return cost
 

@@ -2,8 +2,10 @@
 networks, the NeuralPredictor, K11's and K13's plain versions
 (``ops/neural_rollout.py``) against the JAX package's Pallas kernels in
 interpret mode, one MPPI update over an MLP and over a GRU, the stateful
-closed loop, the kernel-family gates, the committed nets, and — on a
-machine with a card only — each CUDA kernel against its plain version.
+closed loop, the kernel-family gates, the committed nets, K11's and K13's
+tensor-core arithmetic emulated on the CPU against the bounds the card's
+kernels are held to, and — on a machine with a card only — each CUDA
+kernel against its plain version.
 
 Both packages get the same weights (JAX's, written with the JAX
 ``save_net`` and loaded by each package's predictor) and the same inputs
@@ -34,8 +36,8 @@ from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.models import networks as nets
 from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop, recurrent_cost_rollout,
-    recurrent_cost_rollout_plain,
+    mlp_layer_count, neural_cost_rollout, neural_cost_rollout_plain, plain_cost_loop,
+    recurrent_cost_rollout, recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families import neural, ode
 from control_toolkit_tpu_torch.utils.convert import (
@@ -632,6 +634,96 @@ def test_k13_3xtf32_arithmetic_stays_within_the_kernel_bound(spec, record_proper
     torch.testing.assert_close(same, ref, rtol=1e-5, atol=1e-3)
 
 
+# ---- K11's bound and its tensor-core arithmetic, on the CPU -------------------------
+MLP_CASES = ["committed", "seeded_5-72-72-4"]
+
+
+def mlp_problem(case: str, K_: int = 256, H_: int = 50):
+    """chip_smoke.py phase 11's operands at K_ rollouts on the CPU: the MPPI
+    controller over the committed mlp-64-64 (its cost, pvec and delta form)
+    and the committed net, or chip_smoke.py's seeded 5-72-72-4 net with
+    norms (``wide_net``); s0 0.05 N(0, 1) and Q 0.3 N(0, 1) clipped to
+    [-1, 1] (numpy, seed 11)."""
+    from chip_smoke import MLP_SPEC, OPTIMIZER_CONFIG, make_controller, wide_net
+
+    ctrl = make_controller("cpu", spec=MLP_SPEC,
+                           config={**OPTIMIZER_CONFIG, "num_rollouts": K_, "mpc_horizon": H_})
+    model, pack = neural.net_model(ctrl.optimizer)
+    params = ctrl._assemble_params()
+    net = params["dyn"]["net"] if case == "committed" else wide_net(True, 1.0, "cpu")
+    rng = np.random.default_rng(11)
+    s0 = torch.tensor(0.05 * rng.standard_normal((K_, 4)), dtype=torch.float32)
+    Q = torch.tensor(np.clip(0.3 * rng.standard_normal((K_, H_, 1)), -1, 1), dtype=torch.float32)
+    return model, s0, Q, pack(params, torch.tensor([0.1])), net
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_mlp_mutants_are_rejected_by_k11_bound(case, record_property):
+    """chip_smoke.py phase 11's wrong K11s — norm_out dropped, tanh on the
+    last layer, and one unit tile of the last hidden layer lost (what a
+    warp that skipped its tile would compute) — each moves the plain
+    version's costs beyond NET_TOL."""
+    from chip_smoke import NET_TOL, net_mutants
+
+    model, s0, Q, pvec, net = mlp_problem(case)
+    ref = neural_cost_rollout_plain(model, s0, Q, pvec, net)
+    rel = {}
+    for name, wrong in net_mutants(net).items():
+        got = neural_cost_rollout_plain(model, s0, Q, pvec, wrong)
+        rel[name] = float(((got - ref).abs() / ref.abs().clamp_min(1e-6)).max())
+        assert not torch.allclose(got, ref, **NET_TOL), (name, rel[name])
+    record_property("k11_mutant_max_rel_err", rel)
+    assert "last_hidden_unit_tile_lost" in rel
+
+
+def mlp_cost_with(mm, model, s0, Q, pvec, net):
+    """K11's costs with ``mm`` for every layer's product, in
+    csrc/mlp_units.cuh's order: norm_in, each layer's product plus its bias
+    (tanh on all but the last), norm_out, the delta add."""
+    n = mlp_layer_count(net)
+
+    def step(x, u):
+        a = torch.cat([x, u], dim=1)
+        if "norm_in_mean" in net:
+            a = (a - net["norm_in_mean"]) / net["norm_in_std"]
+        for i in range(n):
+            a = mm(a, net[f"w{i}"]) + net[f"b{i}"]
+            if i < n - 1:
+                a = torch.tanh(a)
+        if "norm_out_mean" in net:
+            a = a * net["norm_out_std"] + net["norm_out_mean"]
+        return x + a if model.predict_delta else a
+
+    return plain_cost_loop(model, s0, Q, pvec, step)
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_k11_3xtf32_arithmetic_stays_within_the_kernel_bound(case, record_property):
+    """K11's products in 3xTF32 with a partial sum a k-block, added in k
+    order (every hidden layer's unit tiles and the output's k-block slots),
+    emulated over the committed mlp-64-64 and the seeded 5-72-72-4 net at
+    K=256, H=50, stay within NET_TOL of the FP32 plain version; one-pass
+    TF32's distance is recorded beside it."""
+    from chip_smoke import NET_TOL
+    from test_torch_neural_grad import mm_tf32
+
+    model, s0, Q, pvec, net = mlp_problem(case)
+    ref = neural_cost_rollout_plain(model, s0, Q, pvec, net)
+    found = {}
+    for name, mm in (("3xtf32", mm_3xtf32_partials), ("one_pass_tf32", mm_tf32)):
+        got = mlp_cost_with(mm, model, s0, Q, pvec, net)
+        err = (got - ref).abs()
+        found[name] = {"max_abs_err": float(err.max()),
+                       "max_rel_err": float((err / ref.abs().clamp_min(1e-6)).max()),
+                       "within_bound": torch.allclose(got, ref, **NET_TOL)}
+    # The emulation with FP32 products is the plain version's arithmetic.
+    same = mlp_cost_with(torch.matmul, model, s0, Q, pvec, net)
+    found["fp32_max_abs_err"] = float((same - ref).abs().max())
+    record_property("k11_tf32_distances", found)
+    assert found["3xtf32"]["within_bound"], found
+    torch.testing.assert_close(same, ref, rtol=1e-5, atol=1e-3)
+
+
 # ---- on the card ---------------------------------------------------------------------
 @pytest.fixture
 def cuda_device():
@@ -641,16 +733,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [1000, 8])
 @pytest.mark.parametrize("name,norms,delta", [
-    (MLP_ASSET, None, True), ("mlp-13-6", True, False), (GRU_ASSET, None, True),
-    ("GRU-5IN-13H1-6H2-4OUT", False, True), ("LSTM-5IN-32H1-32H2-4OUT", False, True),
+    (MLP_ASSET, None, True), ("mlp-13-6", True, False), ("mlp-13-13", True, True),
+    ("mlp-72-72", True, True), ("mlp-40", True, True), (GRU_ASSET, None, True),
+    ("GRU-5IN-13H1-6H2-4OUT", False, True),
+    ("LSTM-5IN-32H1-32H2-4OUT", False, True),
 ])
-def test_cuda_kernels_match_plain_versions(tmp_path, cuda_device, name, norms, delta):
+def test_cuda_kernels_match_plain_versions(tmp_path, cuda_device, name, norms, delta, Kc):
     """K11 and K13 against their plain versions on the same card tensors,
-    at K=1000 (not a multiple of the block: the edge is masked), H=50.
-    Tolerance: the kernels sum each layer with FMAs in input order, the plain
-    version through cuBLAS in full float32; over 50 steps of a trained net
-    near upright the costs stay within float32 rounding of each other."""
+    at K=1000 (not a multiple of a block's 16-rollout groups: the edge is
+    masked) and K=8 (below one group), H=50, over MLPs of widths that are
+    and are not multiples of 8 (K11's unit tiles) and wider than one
+    group's four warps take one tile each.  Tolerance: the kernels sum each
+    product in 3xTF32 a k-block at a time, the plain version through cuBLAS
+    in full float32; over 50 steps of a trained net near upright the costs
+    stay within float32 rounding of each other."""
     torch.backends.cuda.matmul.allow_tf32 = False
     path = ASSETS if norms is None else tmp_path
     if norms is not None:
@@ -660,10 +758,10 @@ def test_cuda_kernels_match_plain_versions(tmp_path, cuda_device, name, norms, d
                          config={"optimizer": "mppi", "controller_logging": False,
                                  "device": "cuda"})
     ctrl.configure(optimizer_name="mppi", predictor_specification=f"neural:{name}:{path}",
-                   optimizer_config=optimizer_config(1000, 50), cost_function_config=COST_WEIGHTS)
+                   optimizer_config=optimizer_config(Kc, 50), cost_function_config=COST_WEIGHTS)
     model, pack = neural.net_model(ctrl.optimizer)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    Kc, Hc = 1000, 50
+    Hc = 50
     s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=cuda_device)
     Q = torch.clamp(0.3 * torch.randn(Kc, Hc, 1, generator=gen, device=cuda_device), -1.0, 1.0)
     params = ctrl._assemble_params()
@@ -680,6 +778,35 @@ def test_cuda_kernels_match_plain_versions(tmp_path, cuda_device, name, norms, d
         got = recurrent_cost_rollout(model, s0, Q, pvec, net, hidden)
         ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [1000, 8])
+@pytest.mark.parametrize("delta", [True, False])
+def test_cuda_k11_single_layer_net(cuda_device, delta, Kc):
+    """K11 over an MLP of one layer, [x, u] @ w0 + b0 (no hidden layer: one
+    warp computes the output tile alone, with no barrier), in delta form
+    with norms and in absolute form without, against its plain version to
+    NET_TOL."""
+    import dataclasses
+    from chip_smoke import MLP_SPEC, NET_TOL, OPTIMIZER_CONFIG, make_controller
+
+    ctrl = make_controller("cuda", spec=MLP_SPEC,
+                           config={**OPTIMIZER_CONFIG, "num_rollouts": Kc, "mpc_horizon": 50})
+    model, pack = neural.net_model(ctrl.optimizer)
+    model = dataclasses.replace(model, predict_delta=delta)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    net = {"w0": 0.1 * torch.randn(5, 4, generator=gen, device=cuda_device),
+           "b0": 0.01 * torch.randn(4, generator=gen, device=cuda_device)}
+    if delta:
+        committed = ctrl._assemble_params()["dyn"]["net"]
+        net.update({k: v for k, v in committed.items() if k.startswith("norm_")})
+    s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=cuda_device)
+    Q = torch.clamp(0.3 * torch.randn(Kc, 50, 1, generator=gen, device=cuda_device), -1.0, 1.0)
+    pvec = pack(ctrl._assemble_params(), torch.tensor([0.1], device=cuda_device))
+    got = neural_cost_rollout(model, s0, Q, pvec, net)
+    ref = neural_cost_rollout_plain(model, s0, Q, pvec, net)
+    torch.testing.assert_close(got, ref, **NET_TOL)
 
 
 @pytest.mark.cuda
