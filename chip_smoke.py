@@ -66,7 +66,10 @@ and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
 18. K12 (residual_cost_rollout) against its plain version, with a nonzero
     residual, and the cost bound against the plain arithmetic with the
     residual dropped and with the residual added to x in place of the base
-    step;
+    step; K12 also at ragged K and over a seeded 5-72-72-4 residual (whose
+    bound must reject the residual with its last hidden unit tile lost),
+    then its time at K=16, 64, 2048 and 8192, its resources (as K8's, with
+    the warps a group and an SM) and its tensor-core bound;
 19. K9 (residual_grad_cost_rollout) against its plain version, also at
     ragged K and over a wide residual net, and the dQ bound against dQ with
     the MLP's VJP dropped; then its resources and tensor-core bound, as
@@ -106,7 +109,10 @@ random-action (seed 3), both on K1:
     regeneration an exact subset of the full one, the mean and variance of
     its K*H normals within 5 sigma of 0 and 1, and the cost bound against
     the plain version with the tile term dropped from the counters and with
-    the rollout order transposed (r and c swapped);
+    the rollout order transposed (r and c swapped); K5 also at H=130 (two
+    full chunks of drawn controls and a partial one) against its plain
+    version and K1, its registers, its time at K=16, 2048, 8192 and 16384,
+    and the loops of its SASS (``k5_cases``);
 28. K3's pass 1 (fused_mppi_costs) and 29. its pass 2 (fused_mppi_weights)
     against their plain versions, pass 2 after the block sum as [P, U] and
     its bound against the sums unnormalized and from the neighbouring
@@ -348,6 +354,16 @@ NARROW_HIDDENS, GROUP_WARPS, GP_FEW_POINTS, GP_LANES = (13, 13), (1, 2, 4), 100,
 # group alone on an SM, and one block of four groups (K7: two and eight
 # adjoint blocks).
 K_SCALING, SMALL_K = (2048, 8192), (16, 64)
+# K12 is also held at ragged K and over a seeded residual net of
+# WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K5 at a
+# horizon of CEM_LONG_H (past two of its 64-control chunks, not a multiple
+# of them) and timed at each of CEM_K (with tiles of min(K, DEFAULT_TILE_K)).
+# Over 130 steps the pole's float32 rounding grows until two correct
+# float32 rollouts differ by more than KERNEL_TOL, so there K5 and K1 are
+# held to the float64 plain version as the committed GP is: within
+# GP_F64_FACTOR times the float32 plain version's distance from it, plus
+# 1e-6 of its largest cost.
+RES_WIDE_SCALE, CEM_LONG_H, CEM_K = 0.02, 130, (16, 2048, 8192, 16384)
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
 # The adaptive-MPC and sparse-GP paths: bench_scale.py:build_residual_ctrl's
@@ -1105,11 +1121,9 @@ def ptxas_resources(kernel: str, instance: str = "") -> dict:
 def sass_hmma_counts():
     """HMMA instructions in each entry function's SASS (``cuobjdump -sass``
     of the built library), by mangled name; None without cuobjdump."""
-    tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
-    if not Path(tool).is_file():
+    sass = sass_text()
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True,
-                          text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         named = re.search(r"Function : (\S+)", line)
@@ -1119,6 +1133,56 @@ def sass_hmma_counts():
         elif fn and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def sass_text(library=None) -> str | None:
+    """``cuobjdump -sass`` of the built library (or ``library``); None
+    without cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
+    if not Path(tool).is_file():
+        return None
+    return subprocess.run([tool, "-sass", str(library or kernels.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_loops(kernel: str, instance: str = "", library=None):
+    """The loops of ``kernel``'s entry function in its SASS: for each
+    backward branch, its body's first and last address, its instructions
+    and the MUFU (special-function unit) instructions in it by kind; also
+    the function's instruction count.  None without cuobjdump."""
+    sass = sass_text(library)
+    if sass is None:
+        return None
+    found, fn = {}, None
+    for line in sass.splitlines():
+        named = re.search(r"Function : (\S+)", line)
+        if named:
+            fn = named.group(1)
+            if re.search(entry_pattern(kernel, instance), fn):
+                found[fn] = []
+            else:
+                fn = None
+        elif fn:
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+            if ins:
+                found[fn].append((int(ins[1], 16), ins[2]))
+    out = {}
+    for fn, code in found.items():
+        loops = []
+        for addr, text in code:
+            target = re.search(r"\bBRA\b.*\b(0x[0-9a-f]+)$", text)
+            if target and int(target[1], 16) < addr:
+                body = [t for a, t in code if int(target[1], 16) <= a <= addr]
+                mufu = {}
+                for t in body:
+                    op = re.search(r"MUFU\.(\w+)", t)
+                    if op:
+                        mufu[op[1]] = mufu.get(op[1], 0) + 1
+                loops.append({"first": hex(int(target[1], 16)), "last": hex(addr),
+                              "instructions": len(body), "mufu": mufu,
+                              "calls": sum("CALL" in t for t in body)})
+        out[fn] = {"instructions": len(code), "loops": loops}
+    return out
 
 
 def mma_resources(label: str, kernel: str, args, occupancy: str, tc_ms: float,
@@ -1274,6 +1338,54 @@ def compare_residual(model, s0, Q, pvec, net) -> dict:
         check(not torch.allclose(m, ref, **NET_TOL),
               f"K12: the cost bound does not reject a rollout with {name} {numbers}")
     return numbers
+
+
+def k12_cases(model, s0, Q, pvec, net) -> dict:
+    """Phase 18's further K12 numbers: the costs at each RAGGED_K and over a
+    seeded residual net of WIDE_HIDDENS, each to NET_TOL, and over the wide
+    net the bound's distance to the plain arithmetic with the last hidden
+    layer's last unit tile lost (the wide net's 4+4+1 tile split sends that
+    tile through the one-tile tail, which the 32-wide net never takes); the
+    time at SMALL_K + K_SCALING; then the resources."""
+    wide = wide_net(False, RES_WIDE_SCALE, s0.device)
+    wide_name = "wide_" + "-".join(map(str, mlp_dims(wide)))
+    cases = {f"K{k}": (*first_k(k, s0, Q), net) for k in RAGGED_K}
+    cases[wide_name] = (s0, Q, wide)
+    numbers = {}
+    for case, (s, q, n) in cases.items():
+        got, ref = (residual_cost_rollout(model, s, q, pvec, n),
+                    residual_cost_rollout_plain(model, s, q, pvec, n))
+        torch.cuda.synchronize()
+        numbers[case] = errs = {
+            **dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref))),
+            "smem_bytes": kernels.residual_plan(model.plant, model.net_args(n)[0])[0]}
+        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
+              f"K12 {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **NET_TOL), f"K12 {case}: kernel disagrees {errs}")
+    ref = residual_cost_rollout_plain(model, s0, Q, pvec, wide)
+    lost = residual_cost_rollout_plain(model, s0, Q, pvec,
+                                       net_mutants(wide)["last_hidden_unit_tile_lost"])
+    numbers[wide_name]["unit_tile_lost"] = mutant = {
+        "max_rel_err": max_errors(lost, ref)[1],
+        "err_over_net_tol": float(((lost - ref).abs()
+                                   / (NET_TOL["atol"] + NET_TOL["rtol"] * ref.abs())).max())}
+    check(not torch.allclose(lost, ref, **NET_TOL),
+          f"K12: the cost bound does not reject the wide net with its last unit tile lost {mutant}")
+    out = {"cases": numbers,
+           "ms_at_k": ms_at_k(lambda k: residual_cost_rollout(model, *first_k(k, s0, Q), pvec, net),
+                              SMALL_K + K_SCALING)}
+    emit("k12_cases", out)
+    # The tensor-core bound: the split products, and the scalar work (the
+    # rk4 step, biases, tanh, the stage cost) at the FP32 rate.
+    args = model.net_args(net)[0]
+    _, groups = kernels.residual_plan(model.plant, args)
+    macs = sum(a * b for a, b in zip(mlp_dims(net), mlp_dims(net)[1:]))
+    mma_resources("k12_resources", "residual_cost_rollout_kernel", args, "residual",
+                  tc_bound_ms(mlp_forward_tiles(net),
+                              RK4_STEP_OPS + mlp_ops(net) - 2 * macs + STAGE_OPS),
+                  extra={"group_warps": 2, "groups_per_block": groups,
+                         "warps_per_sm": 2 * groups * kernels.net_blocks_per_sm("residual", args)})
+    return out
 
 
 def residual_autograd_dq(model, s0, Q, pvec, net, drop_mlp_vjp: bool = False) -> torch.Tensor:
@@ -1611,9 +1723,69 @@ def compare_fused_cem(model, pvec, low, high, gen) -> dict:
     check(extra["elite_regen_exact"], "the elite regeneration is not a subset of the full one")
     check(abs(extra["normals_mean_sigmas"]) < 5.0 and abs(extra["normals_var_sigmas"]) < 5.0,
           f"K5's normals are not standard {extra}")
+    k5_cases(args)
     numbers.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
                          nbytes(s0, mue, std, pvec, seed2, low, high) + 4 * K))
     return numbers
+
+
+def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict) -> dict:
+    """The costs ``outs`` of the controls Q [K, CEM_LONG_H, U] from s0 [K,
+    S] against the float64 plain version, each within GP_F64_FACTOR times
+    the float32 plain version's distance from it plus 1e-6 of its largest
+    cost; the bound must reject two faults of K5's 64-control chunks: the
+    second chunk scored with the first's controls, and the last (partial)
+    chunk with the second's."""
+    ref64 = cost_rollout_plain(model, s0.double(), Q.double(), pvec.double())
+    p_err = float((cost_rollout_plain(model, s0, Q, pvec).double() - ref64).abs().max())
+    bound = GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())
+    stale, last = Q.clone(), Q.clone()
+    stale[:, 64:128], last[:, 128:] = Q[:, :64], Q[:, 64:64 + Q.shape[1] - 128]
+    numbers = {"plain_f64_max_abs_err": p_err, "bound": bound,
+               **{f"{name}_f64_max_abs_err": float((out.double() - ref64).abs().max())
+                  for name, out in outs.items()},
+               "mutant_f64_max_abs_err": {
+                   name: float((cost_rollout_plain(model, s0.double(), q.double(), pvec.double())
+                                - ref64).abs().max())
+                   for name, q in (("second_chunk_stale", stale), ("last_chunk_stale", last))}}
+    for name in outs:
+        check(numbers[f"{name}_f64_max_abs_err"] <= bound,
+              f"{name} at H={Q.shape[1]}: further from float64 than the plain version allows "
+              f"{numbers}")
+    for name, err in numbers["mutant_f64_max_abs_err"].items():
+        check(err > bound, f"K5 at H={Q.shape[1]}: the bound does not reject {name} {numbers}")
+    return numbers
+
+
+def k5_cases(args: tuple) -> dict:
+    """Phase 27's further K5 numbers, over compare_fused_cem's operands
+    ``args``: the costs at a horizon of CEM_LONG_H, with K1's over the
+    regenerated controls, against float64 (long_horizon_vs_float64); its
+    registers; the time at each of CEM_K; and the loops of its SASS (the
+    step's instructions)."""
+    model, s0, mue, std, pvec, seed2, low, high, k_full, tile_k = args
+    gen = torch.Generator(device=s0.device).manual_seed(SEED)
+    mue_long = torch.clamp(0.2 * torch.randn(CEM_LONG_H, 1, generator=gen, device=s0.device),
+                           -1.0, 1.0)
+    long_args = (model, s0, mue_long, std[:1].expand(CEM_LONG_H, -1).contiguous(), *args[4:])
+    got = fused_cem_costs(*long_args)
+    Q = regen_controls(seed2, torch.arange(k_full, device=s0.device), *long_args[2:4], low, high,
+                       k_full, tile_k)
+    s_tiled = s0.expand(k_full, -1).contiguous()
+    via_k1 = cost_rollout(model, s_tiled, Q, pvec)
+    check(bool(torch.isfinite(got).all()) and got.shape == (k_full,),
+          f"K5 at H={CEM_LONG_H}: bad output")
+    long_h = {"plain_max_abs_err": max_errors(got, fused_cem_costs_plain(*long_args))[0],
+              **long_horizon_vs_float64(model, s_tiled, Q, pvec, {"k5": got, "k1": via_k1})}
+    times = {str(k): cuda_ms(lambda: fused_cem_costs(model, s0, mue, std, pvec, seed2, low, high, k,
+                                                     min(k, DEFAULT_TILE_K)), 50) for k in CEM_K}
+    ncu = shutil.which("ncu") or Path(kernels._nvcc()).parent / "ncu"
+    out = {f"H{CEM_LONG_H}": long_h, **ptxas_resources("fused_cem_kernel"), "ms_at_k": times,
+           "sass": sass_loops("fused_cem_kernel") or "not measured",
+           "stall_reasons": (f"not measured: {ncu} is on the machine, this script does not run it"
+                             if Path(ncu).is_file() else "not measured: no ncu on the machine")}
+    emit("k5_cases", out)
+    return out
 
 
 def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
@@ -2252,6 +2424,7 @@ def main() -> None:
     k12 = compare_residual(rmodel, s0, Q, rpvec, rnet)
     k12.update(bound(K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS),
                      nbytes(s0, Q, rpvec, *leaves(rnet)) + 4 * K))
+    k12_cases(rmodel, s0, Q, rpvec, rnet)
     k9 = compare_residual_grad(rmodel, s0, Qg, rpvec, rnet)
     # One forward and the transposed step (K7's rk4 adjoint and the MLP's
     # transposed layers): K9 re-runs the forward in its backward.

@@ -1,5 +1,6 @@
 // The unit-split tensor-core MLP step of K11 (MLP rollout + cost,
-// neural_rollout.cu).  It replaces the Pallas kernel's row-MLP
+// neural_rollout.cu) and K12 (the residual rollout + cost, one warp a
+// group, residual_rollout.cu).  It replaces the Pallas kernels' row-MLP
 // (control_toolkit_tpu/ops/pallas_neural.py:mlp_rows, the step at
 // :234-241), which ran each layer as one MXU matmul over a [features, tile]
 // slab in VMEM.
@@ -142,11 +143,11 @@ __device__ __forceinline__ void unit_tiles(const float* sm, const MmaLayout& N, 
 
 // One MLP transition (pallas_neural.py:234-241, NeuralPredictor.single_step
 // in JAX's order) over the group's 16 rows, this warp's share of each
-// layer (its unit tiles, two at a time): [x, u] through norm_in, each layer
-// a @ W + b with tanh on all but the last, norm_out, then x + a
-// (predict_delta) or a.  Partial-sum slots `cur` (the step's parity)
-// receive the output product's k-blocks.
-template <int S, int U>
+// layer (its unit tiles, kG at a time, then two, then one): [x, u] through
+// norm_in, each layer a @ W + b with tanh on all but the last, norm_out,
+// then x + a (predict_delta) or a.  Partial-sum slots `cur` (the step's
+// parity) receive the output product's k-blocks.
+template <int S, int U, int kG = 2>
 __device__ __forceinline__ void mlp_units_step(const float* sm, float* gsm, float* io,
                                                const NetArgs& a, const MlpUnitsLayout& L,
                                                int group, int w, int cur, float (&x)[S],
@@ -170,7 +171,10 @@ __device__ __forceinline__ void mlp_units_step(const float* sm, float* gsm, floa
       const int per = (N.nt[l] + L.warps - 1) / L.warps;
       const int first = w * per, last = first + per < N.nt[l] ? first + per : N.nt[l];
       int j = first;
-      for (; j + 2 <= last; j += 2) unit_tiles<2>(sm, N, l, j, in_hi, in_lo, inp, out, head, Bo);
+      for (; j + kG <= last; j += kG) unit_tiles<kG>(sm, N, l, j, in_hi, in_lo, inp, out, head, Bo);
+      if constexpr (kG > 2) {
+        for (; j + 2 <= last; j += 2) unit_tiles<2>(sm, N, l, j, in_hi, in_lo, inp, out, head, Bo);
+      }
       if (j < last) unit_tiles<1>(sm, N, l, j, in_hi, in_lo, inp, out, head, Bo);
       group_sync(group, L.warps);
       inp = out;

@@ -173,13 +173,13 @@ int rnn_blocks_per_sm(Kernel kernel, long& allowed, const NetArgs& net, int S, i
 
 }  // namespace ctt
 
-extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U, int transposed) {
+extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U) {
   if (net->kind == ctt::kNetGRU || net->kind == ctt::kNetLSTM) {
     ctt::RnnLayout R;
     return ctt::plan_rnn(*net, S, U, R);
   }
-  ctt::NetLayout L;
-  return ctt::plan_layout(*net, S, U, transposed != 0, L);
+  ctt::MlpUnitsLayout L;
+  return ctt::plan_mlp_units(*net, S, U, 0, L);
 }
 
 namespace {

@@ -1,5 +1,5 @@
 // Device plants: a model's dynamics and its cost's per-step terms, for the
-// rollout cores (rollout_core.cuh, neural_core.cuh).
+// rollout kernels (rollout_core.cuh and the kernels over it).
 //
 // A plant reads every scalar from the packed parameter vector `p`, laid out
 // in Optimizer._soa_bindings' order for its (dynamics, cost) pair: d_* keys
@@ -39,6 +39,35 @@ struct CartpoleDynamics {
     const float pos_dd = temp - m_p * L * theta_dd * cos_t / total_m;
     d[0] = pos_d;
     d[1] = pos_dd;
+    d[2] = theta_d;
+    d[3] = theta_dd;
+  }
+
+  // K5's form of derivs (fused_cem.cu): d = f(x, u) from sin and cos of
+  // theta, taken once by the caller (sincosf), and the reciprocals of
+  // Recips, taken once a rollout, in place of four of derivs' five
+  // divisions; one division, num / den, stays.  The operation order is
+  // derivs_tangent's.
+  struct Recips {
+    float inv_m, inv_mpl;  // 1 / (m_cart + m_pole), 1 / (m_pole L)
+  };
+  __device__ __forceinline__ static Recips recips(const float* p) {
+    return {1.0f / (p[kMCart] + p[kMPole]), 1.0f / (p[kMPole] * p[kL])};
+  }
+  __device__ __forceinline__ static void derivs_short(const float (&x)[S], const float (&u)[U],
+                                                      float sin_t, float cos_t, const float* p,
+                                                      const Recips& r, float (&d)[S]) {
+    const float pos_d = x[1], theta_d = x[3];
+    const float force = u[0] * p[kUMax];
+    const float m_p = p[kMPole], L = p[kL];
+    const float mpl = m_p * L;
+    const float temp =
+        (force + mpl * (theta_d * theta_d) * sin_t - p[kFrictionCart] * pos_d) * r.inv_m;
+    const float num = p[kG] * sin_t - cos_t * temp - p[kFrictionPole] * theta_d * r.inv_mpl;
+    const float den = L * (4.0f / 3.0f - m_p * (cos_t * cos_t) * r.inv_m);
+    const float theta_dd = num / den;
+    d[0] = pos_d;
+    d[1] = temp - mpl * theta_dd * cos_t * r.inv_m;
     d[2] = theta_d;
     d[3] = theta_dd;
   }
@@ -158,10 +187,19 @@ struct CartpoleCost {
   __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
                                                      const float (&prev)[U], const float* c,
                                                      float max_cost) {
-    const float pos = x[0], angle = x[2], angle_d = x[3];
+    return stage_cost_cos(x, cosf(x[2]), u, prev, c, max_cost);
+  }
+
+  // The same from cos_angle = cos(x[2]), which the caller may share (K5's
+  // step takes it from the sincosf of its first plant evaluation).
+  __device__ __forceinline__ static float stage_cost_cos(const float (&x)[S], float cos_angle,
+                                                         const float (&u)[U],
+                                                         const float (&prev)[U], const float* c,
+                                                         float max_cost) {
+    const float pos = x[0], angle_d = x[3];
     const float dpos = pos - c[kTargetPosition];
     const float dd = c[kDdWeight] * (dpos * dpos);
-    const float omc = 1.0f - cosf(angle);
+    const float omc = 1.0f - cos_angle;
     const float ep = c[kEpWeight] * 0.25f * (omc * omc);
     const float ad = angle_d / 6.283185307179586f;  // 2*pi rounded to float
     const float ekp = c[kEkpWeight] * (ad * ad);
@@ -250,6 +288,19 @@ struct CartpolePlant {
   }
   __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* p) {
     return Cost::terminal_cost(x, p + kCost);
+  }
+  using Recips = Dynamics::Recips;
+  __device__ __forceinline__ static Recips recips(const float* p) { return Dynamics::recips(p); }
+  __device__ __forceinline__ static void derivs_short(const float (&x)[S], const float (&u)[U],
+                                                      float sin_t, float cos_t, const float* p,
+                                                      const Recips& r, float (&d)[S]) {
+    Dynamics::derivs_short(x, u, sin_t, cos_t, p, r, d);
+  }
+  __device__ __forceinline__ static float stage_cost_cos(const float (&x)[S], float cos_angle,
+                                                         const float (&u)[U],
+                                                         const float (&prev)[U], const float* p,
+                                                         float max_cost) {
+    return Cost::stage_cost_cos(x, cos_angle, u, prev, p + kCost, max_cost);
   }
   __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
                                                         const float (&prev)[U], const float* p,

@@ -11,11 +11,25 @@
 // ops/residual_grad_cost_rollout.py.
 //
 // K12 is K1 (cost_rollout.cu) with the residual added to each step: the
-// base's euler/rk4 step (rollout_core.cuh integrate) over the packed
+// base's euler/rk4 step over the packed
 // constants p + 0, the cost over p + CartpolePlant::kCost, and the MLP
-// (neural_core.cuh mlp_step, absolute form, no norms) on the step's start
-// state, staged into shared memory by neural_core.cuh stage_net.  The stage cost
-// is taken before the step; cost[k] = (sum_h stage + terminal) / (H+1).
+// (absolute form, no norms) on the step's start state.  The stage cost is
+// taken before the step; cost[k] = (sum_h stage + terminal) / (H+1).  Its
+// MLP is K11's (mlp_units.cuh mlp_units_step: 3xTF32 mma.sync over a
+// 16-rollout group, split by unit tile), its stage cost and base step K5's
+// (short_step.cuh: derivs_short, one division a plant evaluation).  The
+// base step reads only (x_h, u_h), as the MLP does, so the two need not
+// wait on each other: a group of two warps (lanes l and l+16 of each own
+// rollout l) runs them side by side, warp 0 the MLP and warp 1 the stage
+// cost and the base step.  Each warp puts its half of the sum (a, or the
+// base's x) into the group's exchange slots, one named barrier a step
+// joins them, and both add x' = base + a.  The slots are double-buffered
+// by step parity: a warp writes step h+1's slots only after it passed
+// step h's barrier, and passes step h+1's only once the other read step
+// h's.  Blocks are kResBlockWarps warps (2 groups, fewer where the net's
+// shared memory does not allow them), so that the 1,024 groups of K=16384
+// spread over all 132 SMs.  (One warp a group, the MLP and then the base
+// step, was 3% slower at K=16384 and 15% at K=2048: PERF.md.)
 //
 // K9 is K7 (grad_cost_rollout.cu) with the same step, its MLP on tensor
 // cores (mlp_mma.cuh, as K8's): the forward sweep stores x_h in the
@@ -29,67 +43,123 @@
 // transcribed from ops/adjoints.py residual_step_vjp; the rk4 step and its
 // adjoint are rollout_core.cuh's, as K7's.
 //
-// What bounds K9 on an H100 at the main path's K=16384, H=50.  In FP32,
-// K7's rk4 and its transposed step with the stage cost and its gradient
-// (665 operations a step) plus the residual MLP's (5-32-32-4) forward and
-// transposed layers (5,580): 5.1 GFLOP a call, 0.0764 ms at 67 TFLOP/s
-// (chip_smoke.py's bound).  On tensor cores the MLP's three passes
-// (forward, re-run without its last layer, transposed), padded to 8 and
-// at 3x for the split, are 21 GFLOP of mma, 0.043 ms at 495 TFLOP/s, and
-// with the scalar work (the rk4 chain, costs, biases, tanh) at the FP32
-// rate 0.057 ms (tc_bound_ms).  The MLP's design is mlp_mma.cuh's (K12
-// keeps neural_core.cuh's dense path); the rk4 step and its adjoint run
-// on every lane, lanes l and l+16 both for rollout l.  As K8, K9 is bound
-// in practice by each warp's own chain of dependent work, here K7's rk4
-// chain (K7: 0.303 ms at the same shapes) and the MLP's mma and tanhf in
-// turn, with two warps a scheduler: its time is flat from K=2048 to 16384.
-#include "mlp_mma.cuh"
-#include "neural_core.cuh"
+// What bounds them on an H100 at the main path's K=16384, H=50.  K12 in
+// FP32: the rk4 step (172 operations), the stage cost (24) and the
+// residual MLP's (5-32-32-4) forward (2,760): 2.4 GFLOP a call, 0.036 ms
+// at 67 TFLOP/s; on tensor cores its 24 m16n8k8 tiles a group-step at 3x
+// for the split are 7.5 GFLOP of mma (0.015 ms at 495 TFLOP/s), with the
+// scalar work at the FP32 rate 0.019 ms (chip_smoke.py's tc_bound_ms).
+// In practice each group's serial chain a step bounds it, as K11's: the
+// MLP warp's instructions (mma, tanhf, splits and their moves), with the
+// base step's chain beside it on the second warp (PERF.md).  K9 in FP32: K7's rk4 and its
+// transposed step with the stage cost and its gradient (665 operations a
+// step) plus the MLP's forward and transposed layers (5,580): 5.1 GFLOP a
+// call, 0.0764 ms; on tensor cores the MLP's three passes (forward,
+// re-run without its last layer, transposed), padded to 8 and at 3x for
+// the split, are 21 GFLOP of mma, 0.043 ms, and with the scalar work
+// 0.057 ms.  The rk4 step and its adjoint run on every lane, lanes l and
+// l+16 both for rollout l.  As K8, K9 is bound in practice by each warp's
+// own chain of dependent work, here K7's rk4 chain and the MLP's mma and
+// tanhf in turn, with two warps a scheduler: its time is flat from K=2048
+// to 16384.
+#include "mlp_units.cuh"
+#include "short_step.cuh"
 
 namespace ctt {
 
-// One residual step on x: the MLP on (x, u), the base's step, their sum.
-template <class Plant>
-__device__ __forceinline__ void residual_step(float* sm, const NetArgs& net, const NetLayout& L,
-                                              float (&x)[Plant::S], const float (&u)[Plant::U],
-                                              const float* p, const StepConsts& c) {
-  constexpr int S = Plant::S, U = Plant::U;
-  float a[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) a[i] = x[i];
-  mlp_step<S, U>(sm, net, L, a, u);  // absolute form: a = mlp([x, u])
-  integrate<Plant>(x, u, p, c);
-#pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = x[i] + a[i];
+constexpr int kResBlockWarps = 4;  // warps a K12 block, at most
+constexpr int kResGroupWarps = 2;  // warps a K12 group: the MLP's, the base step's
+
+// The residual nets the kernels take: an MLP in absolute form without norms.
+inline bool residual_net(const NetArgs& net) {
+  return net.kind == kNetMLP && net.predict_delta == 0 && !net.norm_in_mean && !net.norm_out_mean;
 }
 
+// K12's layout: K11's at one MLP warp a group (mlp_units.cuh), with the
+// exchange slots (two steps of two [16, 8] tiles: a, and the base's x) at
+// the end of the group's region.
+struct ResidualLayout {
+  MlpUnitsLayout mlp;
+  int xchg;  // the exchange slots' offset in a group's region
+};
+
+// Lay out `a` for a plant of S states and U controls; returns the block's
+// dynamic shared memory in bytes, or -1 for a net the kernel refuses.  A
+// block takes kResBlockWarps / kResGroupWarps groups, or fewer where they
+// would not fit.
+inline long plan_residual(const NetArgs& a, int S, int U, ResidualLayout& R) {
+  MlpUnitsLayout& L = R.mlp;
+  if (!residual_net(a) || plan_mlp_units(a, S, U, 1, L) < 0) return -1;
+  R.xchg = L.group_floats;
+  L.group_floats += 2 * 2 * kMmaRows * 8;
+  for (L.groups = kResBlockWarps / kResGroupWarps; L.groups >= 1; --L.groups) {
+    const long bytes = 4L * (L.net.net_floats + static_cast<long>(L.groups) * L.group_floats);
+    if (bytes <= kMaxSmem) return bytes;
+  }
+  return -1;
+}
+
+// K12 over 16-rollout groups of two warps (see the note at the top): warp
+// 0 runs the MLP, warp 1 the stage cost and the base step.  The registers
+// are held to 128, so that four blocks (16 warps) fit an SM.
 template <class Plant>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kResBlockWarps, 4)
 residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                              const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                             int H, StepConsts c, float max_cost, NetArgs net, NetLayout L) {
-  constexpr int S = Plant::S, U = Plant::U;
+                             int H, StepConsts c, float max_cost, NetArgs net,
+                             ResidualLayout R) {
+  constexpr int S = Plant::S, U = Plant::U, W = kResGroupWarps;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  stage_net(sm, net, L, S, U, false);
+  const MlpUnitsLayout& L = R.mlp;
+  stage_mma_net(sm, net, L.net, S, U);
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = warp / W, w = warp - group * W;
+  const int first = (blockIdx.x * L.groups + group) * kMmaRows;
+  if (first >= K) return;  // the whole group: ragged K is masked
+  // Lanes l and l+16 own rollout first + l; rows past K repeat rollout K-1.
+  const int k = first + (lane & 15), kc = k < K ? k : K - 1;
+  float* gsm = sm + L.net.net_floats + group * L.group_floats;
+  const bool mlp_warp = w == 0;
   float p[Plant::kN];
   load_params<Plant>(pvec, p);
+  const typename Plant::Recips rc = Plant::recips(p);
   Rollout<Plant> r;
-  r.start(s0 + static_cast<size_t>(k) * S, p);
-  const float* q = Q + static_cast<size_t>(k) * H * U;
+  r.start(s0 + static_cast<size_t>(kc) * S, p);
+  const float* q = Q + static_cast<size_t>(kc) * H * U;
   for (int h = 0; h < H; ++h) {
-    float u[U];
+    float u[U], a[S], xb[S];
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
-    r.acc = r.acc + Plant::stage_cost(r.x, u, r.prev, p, max_cost);
-    residual_step<Plant>(sm, net, L, r.x, u, p, c);
 #pragma unroll
-    for (int j = 0; j < U; ++j) r.prev[j] = u[j];
+    for (int i = 0; i < S; ++i) a[i] = xb[i] = r.x[i];
+    if (mlp_warp) {  // absolute form: a = mlp([x, u]), four unit tiles at a time
+      mlp_units_step<S, U, 4>(sm, gsm, gsm + L.io, net, L, group, 0, h & 1, a, u);
+    } else {
+      short_step<Plant>(xb, u, r.prev, r.acc, p, rc, c, max_cost);
+    }
+    // Exchange a and the base's x through step h's slots.
+    float* slots = gsm + R.xchg + (h & 1) * 2 * kMmaRows * 8 + (lane & 15) * 8;
+    float* mine = slots + w * kMmaRows * 8;
+    const float* theirs = slots + (1 - w) * kMmaRows * 8;
+    if (lane < 16) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) mine[i] = mlp_warp ? a[i] : xb[i];
+    }
+    group_sync(group, W);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (mlp_warp) {
+        xb[i] = theirs[i];
+      } else {
+        a[i] = theirs[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) r.x[i] = xb[i] + a[i];
   }
-  cost[k] = r.finish(p, H);
+  if (!mlp_warp && lane < 16 && k < K) cost[k] = r.finish(p, H);
 }
 
 template <class Plant>
@@ -164,46 +234,62 @@ residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __r
   }
 }
 
-// The residual nets the kernels take: an MLP in absolute form without norms.
-inline bool residual_net(const NetArgs& net) {
-  return net.kind == kNetMLP && net.predict_delta == 0 && !net.norm_in_mean && !net.norm_out_mean;
-}
-
 // The dynamic shared memory K9's attribute allows so far (allow_smem).
 static long k9_allowed = 0;
-
-// Plan the net's layout, allow the shared memory and launch K12.
-template <class Kernel, class... Args>
-int launch_residual(Kernel kernel, long& allowed, const NetArgs& net, int K, void* stream,
-                    Args... args) {
-  using Plant = CartpolePlant;
-  NetLayout L;
-  if (!residual_net(net)) return static_cast<int>(cudaErrorInvalidValue);
-  const long bytes = plan_layout(net, Plant::S, Plant::U, false, L);
-  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(kernel, bytes, allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((K + kThreads - 1) / kThreads);
-  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(args..., net, L);
-  return static_cast<int>(cudaGetLastError());
-}
+// K12's.
+static long k12_allowed = 0;
 
 }  // namespace ctt
 
-// Launches K12 on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown plant or a net the kernel refuses (not
-// an MLP in absolute form without norms, or too large for shared memory).
+// K12's layout for `net`: the block's dynamic shared memory in bytes (-1
+// for a refused net), and in *groups the groups a block.
+extern "C" long ctt_residual_plan(const ctt::NetArgs* net, int* groups) {
+  using Plant = ctt::CartpolePlant;
+  ctt::ResidualLayout R;
+  const long bytes = ctt::plan_residual(*net, Plant::S, Plant::U, R);
+  *groups = bytes < 0 ? 0 : R.mlp.groups;
+  return bytes;
+}
+
+// Launches K12 on `stream`; returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for an unknown plant or a net the kernel
+// refuses (not an MLP in absolute form without norms, or too large for
+// shared memory).
 extern "C" int ctt_residual_cost_rollout(int plant, const void* s0, const void* Q,
                                          const void* pvec, void* cost, int K, int H, int rk4,
                                          int substeps, float sub_dt, float half_dt, float dt6,
-                                         float max_cost, const ctt::NetArgs* net, void* stream) {
-  static long allowed = 0;
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+                                         float max_cost, const ctt::NetArgs* net,
+                                         void* stream) {
+  using Plant = ctt::CartpolePlant;
+  ctt::ResidualLayout R;
+  const long bytes =
+      plant == ctt::kPlantCartpole ? ctt::plan_residual(*net, Plant::S, Plant::U, R) : -1;
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = ctt::residual_cost_rollout_kernel<Plant>;
+  const cudaError_t err = ctt::allow_smem(kernel, bytes, ctt::k12_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  return ctt::launch_residual(ctt::residual_cost_rollout_kernel<ctt::CartpolePlant>, allowed,
-                             *net, K, stream, static_cast<const float*>(s0),
-                             static_cast<const float*>(Q), static_cast<const float*>(pvec),
-                             static_cast<float*>(cost), K, H, c, max_cost);
+  const int per_block = R.mlp.groups * ctt::kMmaRows;
+  kernel<<<(K + per_block - 1) / per_block, 32 * ctt::kResGroupWarps * R.mlp.groups, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(Q),
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, c, max_cost, *net, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K12 that one SM holds for `net` (0 for a refused net).
+extern "C" int ctt_residual_blocks_per_sm(const ctt::NetArgs* net) {
+  using Plant = ctt::CartpolePlant;
+  ctt::ResidualLayout R;
+  const long bytes = ctt::plan_residual(*net, Plant::S, Plant::U, R);
+  auto kernel = ctt::residual_cost_rollout_kernel<Plant>;
+  int blocks = 0;
+  if (bytes < 0 || ctt::allow_smem(kernel, bytes, ctt::k12_allowed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, 32 * ctt::kResGroupWarps * R.mlp.groups, bytes) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }
 
 // Launches K9 on `stream`; returns as above.  xhist is scratch of H*S*K

@@ -1,0 +1,75 @@
+// The short rollout step of K5 (fused_cem.cu) and of K12's base step
+// (residual_rollout.cu): the stage cost, then one control period of
+// rollout_core.cuh's integrators in their operation order, with the plant's
+// derivs_short (plants.cuh) in place of derivs: sincosf reduces theta once
+// an evaluation, the stage cost shares the first evaluation's cos(theta),
+// and the reciprocals of plants.cuh's Recips, taken once a rollout, leave
+// one division an evaluation.  On an H100 this shortens the rk4 chain a
+// step from K1's ~1.7 µs to ~0.7 µs (PERF.md, K5).  K1-K4, K6 and K7 keep
+// rollout_core.cuh's step.
+#pragma once
+
+#include "rollout_core.cuh"
+
+namespace ctt {
+
+// One rk4 sub-step (rollout_core.cuh substep's operation order) under
+// derivs_short, from sin and cos of x's theta.
+template <class Plant>
+__device__ __forceinline__ void rk4_short(float (&x)[Plant::S], const float (&u)[Plant::U],
+                                          float sin_t, float cos_t, const float* p,
+                                          const typename Plant::Recips& rc,
+                                          const StepConsts& c) {
+  constexpr int S = Plant::S;
+  float k1[S], k2[S], k3[S], k4[S], t[S], st, ct;
+  Plant::derivs_short(x, u, sin_t, cos_t, p, rc, k1);
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k1[i];
+  sincosf(t[2], &st, &ct);
+  Plant::derivs_short(t, u, st, ct, p, rc, k2);
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k2[i];
+  sincosf(t[2], &st, &ct);
+  Plant::derivs_short(t, u, st, ct, p, rc, k3);
+#pragma unroll
+  for (int i = 0; i < S; ++i) t[i] = x[i] + c.sub_dt * k3[i];
+  sincosf(t[2], &st, &ct);
+  Plant::derivs_short(t, u, st, ct, p, rc, k4);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float incr = (k1[i] + 2.0f * k2[i]) + (2.0f * k3[i] + k4[i]);
+    x[i] = x[i] + c.dt6 * incr;
+  }
+}
+
+// The stage cost of (x, u) against prev, then one control period
+// (rollout_core.cuh Rollout::advance's function).
+template <class Plant>
+__device__ __forceinline__ void short_step(float (&x)[Plant::S], const float (&u)[Plant::U],
+                                           float (&prev)[Plant::U], float& acc, const float* p,
+                                           const typename Plant::Recips& rc, const StepConsts& c,
+                                           float max_cost) {
+  constexpr int S = Plant::S;
+  float sin_t, cos_t;
+  sincosf(x[2], &sin_t, &cos_t);
+  acc = acc + Plant::stage_cost_cos(x, cos_t, u, prev, p, max_cost);
+  if (c.rk4 && c.substeps == 1) {  // the main path: one straight run
+    rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
+  } else {
+    for (int sub = 0; sub < c.substeps; ++sub) {
+      if (sub > 0) sincosf(x[2], &sin_t, &cos_t);
+      if (c.rk4) {
+        rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
+      } else {
+        float k1[S];
+        Plant::derivs_short(x, u, sin_t, cos_t, p, rc, k1);
+#pragma unroll
+        for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < Plant::U; ++j) prev[j] = u[j];
+}
+
+}  // namespace ctt

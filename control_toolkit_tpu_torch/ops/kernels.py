@@ -30,7 +30,8 @@ SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_ro
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
-           "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh")
+           "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh",
+           "short_step.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -187,31 +188,44 @@ def neural_plan(plant: str, args: NetArgs, warps: int = 0) -> Tuple[int, int, in
     return int(nbytes), group_warps.value, groups.value
 
 
+def residual_plan(plant: str, args: NetArgs) -> Tuple[int, int]:
+    """K12's layout (csrc/residual_rollout.cu) for the residual MLP of
+    ``args``, at two warps a 16-rollout group (the MLP's and the base
+    step's): ``(dynamic shared memory of a block in bytes, groups a
+    block)``, the bytes -1 where the kernel refuses the net."""
+    if plant not in PLANT_IDS:
+        raise ValueError(f"no device plant {plant!r}; known: {sorted(PLANT_IDS)}")
+    groups = ctypes.c_int()
+    nbytes = load().ctt_residual_plan(ctypes.byref(args), ctypes.byref(groups))
+    return int(nbytes), groups.value
+
+
 def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
     """Dynamic shared memory a block of the network kernel ``kernel`` takes
     for the net of ``args``, or -1 where the kernel refuses the net (its
     launch then returns cudaErrorInvalidValue): K11's (``neural``) staged
     hi/lo fragments and per-group slabs (csrc/mlp_units.cuh), K12's
-    (``residual``) staged weights and per-thread activation columns
-    (csrc/neural_core.cuh), K13's (``recurrent``) staged hi/lo gate
+    (``residual``) the same at one MLP warp a group with its exchange slots
+    (csrc/residual_rollout.cu), K13's (``recurrent``) staged hi/lo gate
     fragments and per-group slabs (csrc/rnn_mma.cuh), or the gradient
     kernels' (``neural_grad``, ``residual_grad``) staged hi/lo fragments and
     per-warp regions (csrc/mlp_mma.cuh)."""
     S, U = PLANT_DIMS[plant]
-    if kernel == "neural":
-        return neural_plan(plant, args)[0]
+    if kernel in ("neural", "recurrent"):
+        return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U))
+    if kernel == "residual":
+        return residual_plan(plant, args)[0]
     if kernel in ("neural_grad", "residual_grad"):
         return int(load().ctt_mma_net_smem_bytes(ctypes.byref(args), S, U))
-    if kernel in ("residual", "recurrent"):
-        return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U, 0))
     raise ValueError(f"no network kernel {kernel!r}")
 
 
 def net_blocks_per_sm(kernel: str, args: NetArgs) -> int:
     """Blocks of the tensor-core network kernel ``kernel`` (``neural`` for
-    K11, ``neural_grad`` for K8, ``residual_grad`` for K9, ``recurrent`` for
-    K13) that one SM holds for the net of ``args``, as the CUDA runtime's
-    occupancy calculator gives it (0 for a refused net)."""
+    K11, ``residual`` for K12, ``neural_grad`` for K8, ``residual_grad`` for
+    K9, ``recurrent`` for K13) that one SM holds for the net of ``args``, as
+    the CUDA runtime's occupancy calculator gives it (0 for a refused
+    net)."""
     return int(getattr(load(), f"ctt_{kernel}_blocks_per_sm")(ctypes.byref(args)))
 
 
@@ -461,12 +475,13 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, net, ptr,
         ]
         lib.ctt_neural_grad_cost_rollout.restype = i32
-        lib.ctt_net_smem_bytes.argtypes = [net, i32, i32, i32]
+        lib.ctt_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
         for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_grad_blocks_per_sm,
-                   lib.ctt_residual_grad_blocks_per_sm, lib.ctt_recurrent_blocks_per_sm):
+                   lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm,
+                   lib.ctt_recurrent_blocks_per_sm):
             fn.argtypes = [net]
             fn.restype = i32
         lib.ctt_grad_cost_adjoint_blocks_per_sm.argtypes = []
@@ -476,6 +491,8 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, i32, i32, *step, f32, net, ptr,
         ]
         lib.ctt_residual_cost_rollout.restype = i32
+        lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
+        lib.ctt_residual_plan.restype = ctypes.c_long
         lib.ctt_residual_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, *step, f32, f32, net, ptr,
         ]

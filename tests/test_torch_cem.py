@@ -7,8 +7,10 @@ the same seed2: costs to rtol 3e-5 (float32 sums over 20 rk4 steps; the
 normals differ by an ulp of log or cos), the regenerated controls to
 1e-6.  One CEM step of each path is fed JAX's draws (the modular path's
 normals, the fused path's seeds, re-split from the JAX key as its step
-splits it): mue, std, u and the best elite to UNOM_TOL.  On a machine with
-a card, K5 is held to its plain version.
+splits it): mue, std, u and the best elite to UNOM_TOL.  K5's own step
+(csrc/short_step.cuh: derivs_short's reciprocals) is transcribed in
+float32 and held to the plain version's bound.  On a machine with a card,
+K5 is held to its plain version at each of its lane counts.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,8 @@ from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollou
 from control_toolkit_tpu_torch.ops.fused_cem import (
     fused_cem_costs, fused_cem_costs_plain, regen_controls,
 )
+from control_toolkit_tpu_torch.ops.neural_rollout import plain_cost_loop
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 from control_toolkit_tpu_torch.utils.convert import params_from_numpy
@@ -285,15 +289,104 @@ def test_cem_closed_loop_holds_the_pole(fused):
     assert abs(float(s[0, 2])) < 0.45, f"CEM (fused={fused}) lost the pole: {s[0]}"
 
 
+def derivs_short_soa(xs, us, p):
+    """csrc/plants.cuh derivs_short in float32, term for term: sin and cos
+    of theta (the card's sincosf), the force, the reciprocals
+    1 / (m_cart + m_pole) and 1 / (m_pole L) in place of four divisions,
+    and the one division num / den."""
+    pos_d, theta, theta_d = xs[1], xs[2], xs[3]
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    m_p, L = p["d_m_pole"], p["d_L"]
+    inv_m, inv_mpl = 1.0 / (p["d_m_cart"] + m_p), 1.0 / (m_p * L)
+    force = us[0] * p["d_u_max"]
+    mpl = m_p * L
+    temp = (force + mpl * (theta_d * theta_d) * sin_t - p["d_friction_cart"] * pos_d) * inv_m
+    num = p["d_g"] * sin_t - cos_t * temp - p["d_friction_pole"] * theta_d * inv_mpl
+    den = L * (4.0 / 3.0 - m_p * (cos_t * cos_t) * inv_m)
+    theta_dd = num / den
+    return (pos_d, temp - mpl * theta_dd * cos_t * inv_m, theta_d, theta_dd)
+
+
+def short_step_fn(model, pvec):
+    """``step(x [K,S], u [K,U]) -> x'``: csrc/short_step.cuh's control
+    period (K5's step and K12's base step), the integrators' operation
+    order over derivs_short."""
+    p = model.unpack(pvec)
+    one = make_soa_stepper(derivs_short_soa, model.integrator, model.dt, model.intermediate_steps)
+    return lambda x, u: torch.stack(one(tuple(x.unbind(1)), tuple(u.unbind(1)), p), dim=1)
+
+
+@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2)])
+def test_k5_short_step_stays_within_the_kernel_bound(pair, integrator, substeps,
+                                                     record_property):
+    """K5's new step in float32 (csrc/short_step.cuh: derivs_short, the
+    stage cost before the step) over the controls K5 scores (regen_controls)
+    at chip_smoke.py phase 27's inputs (s0, mue 0.2 N(0, 1) clipped, std
+    0.5, seed2 [1234567, 0]) at K=512, H=50, tile 128, stays within
+    KERNEL_TOL of fused_cem_costs_plain (rollout_core.cuh's derivs, five
+    divisions); the distance is recorded."""
+    import dataclasses
+    from chip_smoke import KERNEL_TOL
+
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    model = dataclasses.replace(model, integrator=integrator, intermediate_steps=substeps)
+    Kc, Hc, tile = 512, 50, 128
+    rng = np.random.default_rng(27)
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1])
+    mue = torch.tensor(np.clip(0.2 * rng.standard_normal((Hc, 1)), -1.0, 1.0), dtype=torch.float32)
+    std = torch.full((Hc, 1), 0.5)
+    seed2 = torch.tensor([1234567, 0], dtype=torch.int32)
+    pvec = pack(params, torch.tensor([0.1]))
+    low, high = pctrl.optimizer.action_low, pctrl.optimizer.action_high
+    ref = fused_cem_costs_plain(model, s0, mue, std, pvec, seed2, low, high, Kc, tile)
+    Q = regen_controls(seed2, torch.arange(Kc), mue, std, low, high, Kc, tile)
+    got = plain_cost_loop(model, s0.expand(Kc, -1), Q, pvec, short_step_fn(model, pvec))
+    err = (got - ref).abs()
+    record_property("k5_short_step_distance", {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / ref.abs().clamp_min(1e-6)).max()),
+        "equal_share": float((got == ref).double().mean())})
+    torch.testing.assert_close(got, ref, **KERNEL_TOL)
+
+
+def test_k5_short_step_at_a_long_horizon_stays_within_the_float64_bound(pair, record_property):
+    """K5's step in float32 (short_step_fn) over the controls K5 scores at
+    H=130, where K5 draws two full 64-control chunks and a partial one, at
+    phase 27's inputs (K=512, tile 128), stays within chip_smoke.py's
+    float64 bound (long_horizon_vs_float64: twice the float32 plain
+    version's distance from float64), which rejects both chunk faults."""
+    from chip_smoke import long_horizon_vs_float64
+
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    Kc, Hc, tile = 512, 130, 128
+    rng = np.random.default_rng(27)
+    mue = torch.tensor(np.clip(0.2 * rng.standard_normal((Hc, 1)), -1.0, 1.0), dtype=torch.float32)
+    seed2 = torch.tensor([1234567, 0], dtype=torch.int32)
+    pvec = pack(params, torch.tensor([0.1]))
+    low, high = pctrl.optimizer.action_low, pctrl.optimizer.action_high
+    Q = regen_controls(seed2, torch.arange(Kc), mue, torch.full((Hc, 1), 0.5), low, high, Kc,
+                       tile)
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1]).expand(Kc, -1).contiguous()
+    got = plain_cost_loop(model, s0, Q, pvec, short_step_fn(model, pvec))
+    record_property("k5_long_horizon_vs_float64",
+                    long_horizon_vs_float64(model, s0, Q, pvec, {"short_step": got}))
+
+
 @pytest.mark.cuda
-def test_cuda_k5_matches_plain_version(pair, cuda_device):
+@pytest.mark.parametrize("Hc", [50, 130])
+def test_cuda_k5_matches_plain_version(pair, cuda_device, Hc):
     """K5 against its plain version on the same card tensors (K not a
-    multiple of the block: the edge is masked); the costs of the controls
-    it regenerates through K1 equal its own."""
+    multiple of the block: the edge is masked), and the costs of the
+    controls it regenerates through K1 against its own, at H=50 (one chunk
+    of drawn controls) to KERNEL_TOL; at H=130 (two full chunks of 64 and
+    a partial one), where float32 rounding outgrows KERNEL_TOL, both
+    against float64 as chip_smoke.py phase 27 holds them."""
     _, pctrl, _, params = pair
     model, pack = ode.rollout_model(pctrl.optimizer)
     dev = cuda_device
-    Kc, Hc, tile = 1000 * 8, 50, 400
+    Kc, tile = 1000 * 8, 400
     s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=dev)
     mue = 0.2 * torch.randn(Hc, 1, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     std = torch.full((Hc, 1), 0.5, device=dev)
@@ -302,7 +395,13 @@ def test_cuda_k5_matches_plain_version(pair, cuda_device):
     lim = torch.ones(1, device=dev)
     args = (model, s0, mue, std, pvec, seed2, -lim, lim, Kc, tile)
     got = fused_cem_costs(*args)
-    torch.testing.assert_close(got, fused_cem_costs_plain(*args), rtol=1e-4, atol=1e-3)
     Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile)
-    torch.testing.assert_close(got, cost_rollout(model, s0.expand(Kc, -1).contiguous(), Q, pvec),
-                               rtol=1e-4, atol=1e-3)
+    s_tiled = s0.expand(Kc, -1).contiguous()
+    via_k1 = cost_rollout(model, s_tiled, Q, pvec)
+    if Hc > 64:
+        from chip_smoke import long_horizon_vs_float64
+
+        long_horizon_vs_float64(model, s_tiled, Q, pvec, {"k5": got, "k1": via_k1})
+        return
+    torch.testing.assert_close(got, fused_cem_costs_plain(*args), rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got, via_k1, rtol=1e-4, atol=1e-3)

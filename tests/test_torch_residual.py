@@ -6,8 +6,9 @@ and K9's plain versions (``ops/residual_rollout.py``,
 kernels in interpret mode, the residual step's hand-written adjoint
 against ``torch.autograd``, a sysid install through the same built step,
 one MPPI and one rpgd-tf controller tick, the checkpoint across packages,
-K9's tensor-core arithmetic (3xTF32) rehearsed on the CPU, and — on a
-machine with a card only — each CUDA kernel against its plain version.
+K9's and K12's tensor-core arithmetic (3xTF32; K12 with K5's base step)
+rehearsed on the CPU, and — on a machine with a card only — each CUDA
+kernel against its plain version.
 
 Both packages get the same residual weights (JAX's, made nonzero as
 ``bench_scale.py:build_residual_ctrl`` makes them) and the same inputs and
@@ -29,7 +30,7 @@ from control_toolkit_tpu_torch.ops.adjoints import (
     PLANT_ADJOINTS, integrator_vjp, residual_step_vjp,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
-from control_toolkit_tpu_torch.ops.neural_rollout import mlp_step
+from control_toolkit_tpu_torch.ops.neural_rollout import mlp_step, plain_cost_loop
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
 )
@@ -421,13 +422,81 @@ def test_k9_3xtf32_arithmetic_stays_within_the_kernel_bounds(record_property):
     assert found["3xtf32"]["within_bounds"], found
 
 
+def residual_problem(Kc: int, H_: int = 50):
+    """chip_smoke.py phase 18's operands at Kc rollouts on the CPU: the MPPI
+    controller over "ODE+res" (its cost, pvec, rk4 base), the seeded
+    5-32-32-4 residual (0.02 N(0, 1) weights, torch seed 11, zero biases),
+    s0 0.05 N(0, 1) and Q 0.3 N(0, 1) clipped to [-1, 1] (numpy, seed 12)."""
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"device": "cpu", "optimizer": "mppi",
+                                 "controller_logging": False})
+    ctrl.configure(optimizer_name="mppi", predictor_specification="ODE+res",
+                   optimizer_config=optimizer_config(Kc, H_), cost_function_config=COST_WEIGHTS)
+    pred = ctrl.optimizer.predictor.predictor
+    gen = torch.Generator().manual_seed(11)
+    pred.set_residual({k: 0.02 * torch.randn(v.shape, generator=gen) if k.startswith("w") else v
+                       for k, v in pred._res.items()})
+    model, pack = residual.residual_model(ctrl.optimizer)
+    params = ctrl._assemble_params()
+    rng = np.random.default_rng(12)
+    s0 = torch.tensor(0.05 * rng.standard_normal((Kc, 4)), dtype=torch.float32)
+    Q = torch.tensor(np.clip(0.3 * rng.standard_normal((Kc, H_, 1)), -1, 1), dtype=torch.float32)
+    return model, s0, Q, pack(params, torch.tensor([0.1])), params["dyn"]["res"]
+
+
+@pytest.mark.parametrize("Kc", [1000, 8])
+@pytest.mark.parametrize("net_case", ["seeded", "wide"])
+def test_k12_3xtf32_arithmetic_stays_within_net_tol(net_case, Kc, record_property):
+    """K12's arithmetic emulated in float32 — the residual MLP's products in
+    3xTF32 with a partial sum a k-block, added in k order (csrc/mlp_units.cuh's
+    order), the base step K5's (csrc/short_step.cuh: derivs_short), then
+    x' = base + a — over the seeded 5-32-32-4 residual and phase 18's wide
+    5-72-72-4 one (chip_smoke.py wide_net, no norms, scale 0.02), at K=1000
+    and 8, H=50, stays within NET_TOL of the float64 plain version."""
+    from chip_smoke import NET_TOL, RES_WIDE_SCALE, wide_net
+    from test_torch_cem import short_step_fn
+    from test_torch_neural import mm_3xtf32_partials
+
+    model, s0, Q, pvec, net = residual_problem(Kc)
+    if net_case == "wide":
+        net = wide_net(False, RES_WIDE_SCALE, "cpu")
+    base = short_step_fn(model, pvec)
+    got = plain_cost_loop(model, s0, Q, pvec, lambda x, u: base(x, u) + mlp_step_with(
+        mm_3xtf32_partials, net, x, u, False))
+    ref = residual_cost_rollout_plain(model, s0.double(), Q.double(), pvec.double(),
+                                      {k: v.double() for k, v in net.items()})
+    err = (got.double() - ref).abs()
+    found = {"max_abs_err": float(err.max()), "max_rel_err": float((err / ref.abs()).max()),
+             "fp32_plain_max_abs_err": float(
+                 (residual_cost_rollout_plain(model, s0, Q, pvec, net).double() - ref).abs().max())}
+    record_property("k12_emulation_distance", found)
+    assert torch.allclose(got.double(), ref, **NET_TOL), found
+
+
+def test_k12_wide_net_bound_rejects_a_lost_unit_tile(record_property):
+    """Over phase 18's wide 5-72-72-4 residual (chip_smoke.py wide_net, scale
+    RES_WIDE_SCALE), whose last hidden layer K12 splits into unit tiles 4+4+1,
+    NET_TOL rejects the plain arithmetic with that layer's last unit tile
+    (the one-tile tail's 8 columns) lost, at K=1000, H=50."""
+    from chip_smoke import NET_TOL, RES_WIDE_SCALE, net_mutants, wide_net
+
+    model, s0, Q, pvec, _ = residual_problem(1000)
+    wide = wide_net(False, RES_WIDE_SCALE, "cpu")
+    ref = residual_cost_rollout_plain(model, s0, Q, pvec, wide)
+    lost = residual_cost_rollout_plain(model, s0, Q, pvec,
+                                       net_mutants(wide)["last_hidden_unit_tile_lost"])
+    ratio = float(((lost - ref).abs() / (NET_TOL["atol"] + NET_TOL["rtol"] * ref.abs())).max())
+    record_property("k12_wide_unit_tile_lost_err_over_net_tol", ratio)
+    assert not torch.allclose(lost, ref, **NET_TOL), ratio
+
+
 # ---- on the card ------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("grad", [False, True])
 def test_cuda_kernels_match_plain_versions(grad):
-    """K12 and K9 with a nonzero residual against their plain versions on the
-    same card tensors at K=1000 (ragged), H=50: the costs to the forward
-    network kernels' bound, dQ to K7's (rtol 2e-5 plus 5e-6 of its largest
+    """K12 and K9 with a nonzero residual against their plain versions on the same
+    card tensors at K=1000 (ragged), H=50: the costs to the forward network
+    kernels' bound, dQ to K7's (rtol 2e-5 plus 5e-6 of its largest
     entry)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build with nvcc and run only there")
