@@ -12,6 +12,10 @@ numbers:
 1. build the CUDA kernels from control_toolkit_tpu_torch/csrc with nvcc;
 2. K1 (cost_rollout) and 3. K2 (mppi_cost) against their plain PyTorch
    versions on the card, at the main path's shapes, with CUDA-event times;
+   K1 also at ragged K (1000 and 8), with the euler integrator and two rk4
+   sub-steps, at H=130 against float64, its bound against the controls
+   read one step early and from the next rollout's row, its time at K=16
+   to 8192, its registers and the loops of its SASS (``k1_cases``);
 4. 200 closed-loop MPPI ticks on the default (semi-fused, K2) path, with a
    target change midway that must not rebuild anything;
 5. 50 MPPI ticks with semi_fused=False (the modular path, K1);
@@ -104,14 +108,15 @@ configuration (cem_outer_it 2, cem_best_k 256, initial stdev 0.5,
 cem_stdev_min 0.01, seed 3), modular (K1) and fully fused (K5); the
 flagship MPPI with fully_fused (K3); iCEM at build_icem's (beta 2) and
 random-action (seed 3), both on K1:
-27. K5 (fused_cem_costs) against its plain version, K5's costs against K1's
-    over the controls regenerated from its counters, the elite rows'
+27. K5 (fused_cem_costs) against its plain version, K5's costs equal to
+    K1's over the controls regenerated from its counters (the two share
+    their step, so this holds the draws, not the step), the elite rows'
     regeneration an exact subset of the full one, the mean and variance of
     its K*H normals within 5 sigma of 0 and 1, and the cost bound against
     the plain version with the tile term dropped from the counters and with
     the rollout order transposed (r and c swapped); K5 also at H=130 (two
     full chunks of drawn controls and a partial one) against its plain
-    version and K1, its registers, its time at K=16, 2048, 8192 and 16384,
+    version, K1 and float64, its registers, its time at K=16 to 16384,
     and the loops of its SASS (``k5_cases``);
 28. K3's pass 1 (fused_mppi_costs) and 29. its pass 2 (fused_mppi_weights)
     against their plain versions, pass 2 after the block sum as [P, U] and
@@ -142,8 +147,10 @@ cem_best_k 40, warmup off, seed 1) over K6:
 36. K6 (fused_cem_cols) against its plain version at 128 sessions, its
     costs against K1's over the controls regen_cols draws again (equal in
     every entry), the elite rows' regeneration an exact subset of the full
-    one, and the cost bound against K5's tiled counter and the swap of r and
-    cw;
+    one, and the cost bound against K5's tiled counter, the swap of r and
+    cw and the next session's seed; K6 also at a ragged B*K (3 sessions of
+    K=1000), at H=130 against float64 and K1, its time at 32 and 128
+    sessions, its registers and shared memory (``k6_cases``);
 37. 200 closed-loop ticks of a 32-session MPPI fleet, each slot against its
     own CartpoleEnv with its own pole length, a rotating quarter of the
     slots idle each tick, half the targets changed and slot 2's model
@@ -187,6 +194,7 @@ config explicitly, so no config file is read).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -338,8 +346,8 @@ NET_TOL = dict(rtol=5e-5, atol=1e-3)
 RNN_TOL = dict(rtol=1e-3, atol=1e-3)
 # K8's dQ is held to K7's bound (rtol 2e-5 plus 5e-6 of max|dQ|): on the
 # H100 its error was 1.6e-3 to 1.8e-3 against max|dQ| 1.6e3 (1.1e-6 of it),
-# each of phase 12's wrong backwards at least 480.  K7, K8, K9 and K13 are
-# also held at ragged K (RAGGED_K: not a multiple of their blocks or
+# each of phase 12's wrong backwards at least 480.  K1, K7, K8, K9 and K13
+# are also held at ragged K (RAGGED_K: not a multiple of their blocks or
 # 16-rollout groups, and below one), K8 and K9 over seeded nets wider than
 # their register path (WIDE_HIDDENS, WIDE_SEED), to the same bounds.
 RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
@@ -349,20 +357,20 @@ RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
 # GP_FEW_POINTS inducing points (not a multiple of any lane count) and at
 # each of GP_LANES lanes a rollout.
 NARROW_HIDDENS, GROUP_WARPS, GP_FEW_POINTS, GP_LANES = (13, 13), (1, 2, 4), 100, (4, 8, 16, 32)
-# K7's, K8's, K9's, K10's, K11's and K13's time is also taken at these K
-# (ms_at_k); K7's, K10's, K11's and K13's also at SMALL_K: one 16-rollout
+# K1's, K7's, K8's, K9's, K10's, K11's and K13's time is also taken at these K
+# (ms_at_k); K1's, K7's, K10's, K11's and K13's also at SMALL_K: one 16-rollout
 # group alone on an SM, and one block of four groups (K7: two and eight
 # adjoint blocks).
 K_SCALING, SMALL_K = (2048, 8192), (16, 64)
 # K12 is also held at ragged K and over a seeded residual net of
-# WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K5 at a
-# horizon of CEM_LONG_H (past two of its 64-control chunks, not a multiple
-# of them) and timed at each of CEM_K (with tiles of min(K, DEFAULT_TILE_K)).
-# Over 130 steps the pole's float32 rounding grows until two correct
-# float32 rollouts differ by more than KERNEL_TOL, so there K5 and K1 are
-# held to the float64 plain version as the committed GP is: within
-# GP_F64_FACTOR times the float32 plain version's distance from it, plus
-# 1e-6 of its largest cost.
+# WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K1, K5 and
+# K6 at a horizon of CEM_LONG_H (past two of K5's and K6's 64-control
+# chunks, not a multiple of them), K5 timed at each of CEM_K (with tiles of
+# min(K, DEFAULT_TILE_K)).  Over 130 steps the pole's float32 rounding
+# grows until two correct float32 rollouts differ by more than KERNEL_TOL,
+# so there K1, K5 and K6 are held to the float64 plain version as the
+# committed GP is: within GP_F64_FACTOR times the float32 plain version's
+# distance from it, plus 1e-6 of its largest cost.
 RES_WIDE_SCALE, CEM_LONG_H, CEM_K = 0.02, 130, (16, 2048, 8192, 16384)
 # The hidden the card carried over the GRU loop against the CPU replay.
 HIDDEN_ATOL = 1e-4
@@ -583,6 +591,53 @@ def closed_loop(name: str, ctrl: MPCController, ticks: int, retarget_at=None,
     }
     emit(name, numbers)
     return numbers
+
+
+def k1_read_mutants(Q: torch.Tensor) -> dict:
+    """Q [K, H, U] read wrongly by K1: ``controls_one_step_early`` (step h
+    scores and steps with Q[:, h+1], the last step its own: a prefetch off
+    by one) and ``next_rollout_row`` (rollout k reads rollout k+1's row)."""
+    return {"controls_one_step_early": torch.cat([Q[:, 1:], Q[:, -1:]], dim=1),
+            "next_rollout_row": Q.roll(-1, 0)}
+
+
+def k1_cases(model, s0, Q, pvec) -> dict:
+    """Phase 2's further K1 numbers: the costs at each RAGGED_K, with the
+    euler integrator and with two rk4 sub-steps, each to KERNEL_TOL; at a
+    horizon of CEM_LONG_H against float64 (long_horizon_vs_float64); the
+    bound's distance to the plain version over k1_read_mutants' controls;
+    the time at SMALL_K + K_SCALING; its resources and the loops of its
+    SASS (the step's instructions)."""
+    cases = {f"K{k}": (model, *first_k(k, s0, Q)) for k in RAGGED_K}
+    cases["euler"] = (dataclasses.replace(model, integrator="euler"), s0, Q)
+    cases["rk4x2"] = (dataclasses.replace(model, intermediate_steps=2), s0, Q)
+    numbers = {}
+    for case, (m, s, q) in cases.items():
+        got, ref = cost_rollout(m, s, q, pvec), cost_rollout_plain(m, s, q, pvec)
+        torch.cuda.synchronize()
+        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
+              f"K1 {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **KERNEL_TOL), f"K1 {case}: kernel disagrees {errs}")
+    ref = cost_rollout_plain(model, s0, Q, pvec)
+    numbers["mutant_max_rel_err"] = {}
+    for kind, q in k1_read_mutants(Q).items():
+        wrong = cost_rollout_plain(model, s0, q, pvec)
+        numbers["mutant_max_rel_err"][kind] = max_errors(wrong, ref)[1]
+        check(not torch.allclose(wrong, ref, **KERNEL_TOL),
+              f"K1: the cost bound does not reject {kind} {numbers}")
+    gen = torch.Generator(device=s0.device).manual_seed(SEED + 1)
+    q_long = torch.clamp(0.3 * torch.randn(s0.shape[0], CEM_LONG_H, 1, generator=gen,
+                                           device=s0.device), -1.0, 1.0)
+    numbers[f"H{CEM_LONG_H}"] = long_horizon_vs_float64(
+        model, s0, q_long, pvec, {"k1": cost_rollout(model, s0, q_long, pvec)})
+    out = {"cases": numbers,
+           "ms_at_k": ms_at_k(lambda k: cost_rollout(model, *first_k(k, s0, Q), pvec),
+                              SMALL_K + K_SCALING),
+           **ptxas_resources("cost_rollout_kernel"),
+           "sass": sass_loops("cost_rollout_kernel") or "not measured"}
+    emit("k1_cases", out)
+    return out
 
 
 def stage_term_mutants(dQ, Q, pvec, model) -> dict:
@@ -1719,7 +1774,11 @@ def compare_fused_cem(model, pvec, low, high, gen) -> dict:
              "normals_mean_sigmas": float(z.mean()) * n**0.5,
              "normals_var_sigmas": (float(z.var(correction=0)) - 1.0) / (2.0 / n) ** 0.5}
     emit("k5_regeneration", extra)
-    check(torch.allclose(got, via_k1, **KERNEL_TOL), f"K5 differs from K1 over its controls {extra}")
+    # K1, K5 and K6 take one step (short_step.cuh), so this holds K5's draws
+    # to the regenerated controls, not its step: the step is held by the
+    # comparisons with the plain version and with float64.
+    check(extra["k1_over_regen_equal_share"] == 1.0,
+          f"K5's costs differ from K1's over its regenerated controls {extra}")
     check(extra["elite_regen_exact"], "the elite regeneration is not a subset of the full one")
     check(abs(extra["normals_mean_sigmas"]) < 5.0 and abs(extra["normals_var_sigmas"]) < 5.0,
           f"K5's normals are not standard {extra}")
@@ -1733,9 +1792,9 @@ def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict) -> dict:
     """The costs ``outs`` of the controls Q [K, CEM_LONG_H, U] from s0 [K,
     S] against the float64 plain version, each within GP_F64_FACTOR times
     the float32 plain version's distance from it plus 1e-6 of its largest
-    cost; the bound must reject two faults of K5's 64-control chunks: the
-    second chunk scored with the first's controls, and the last (partial)
-    chunk with the second's."""
+    cost; the bound must reject two faults of the 64-control chunks that
+    K5 and K6 draw ahead: the second chunk scored with the first's
+    controls, and the last (partial) chunk with the second's."""
     ref64 = cost_rollout_plain(model, s0.double(), Q.double(), pvec.double())
     p_err = float((cost_rollout_plain(model, s0, Q, pvec).double() - ref64).abs().max())
     bound = GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())
@@ -1753,14 +1812,15 @@ def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict) -> dict:
               f"{name} at H={Q.shape[1]}: further from float64 than the plain version allows "
               f"{numbers}")
     for name, err in numbers["mutant_f64_max_abs_err"].items():
-        check(err > bound, f"K5 at H={Q.shape[1]}: the bound does not reject {name} {numbers}")
+        check(err > bound, f"at H={Q.shape[1]}: the bound does not reject {name} {numbers}")
     return numbers
 
 
 def k5_cases(args: tuple) -> dict:
     """Phase 27's further K5 numbers, over compare_fused_cem's operands
     ``args``: the costs at a horizon of CEM_LONG_H, with K1's over the
-    regenerated controls, against float64 (long_horizon_vs_float64); its
+    regenerated controls (equal to them), against float64
+    (long_horizon_vs_float64); its
     registers; the time at each of CEM_K; and the loops of its SASS (the
     step's instructions)."""
     model, s0, mue, std, pvec, seed2, low, high, k_full, tile_k = args
@@ -1776,7 +1836,10 @@ def k5_cases(args: tuple) -> dict:
     check(bool(torch.isfinite(got).all()) and got.shape == (k_full,),
           f"K5 at H={CEM_LONG_H}: bad output")
     long_h = {"plain_max_abs_err": max_errors(got, fused_cem_costs_plain(*long_args))[0],
+              "k1_equal_share": float((got == via_k1).double().mean()),
               **long_horizon_vs_float64(model, s_tiled, Q, pvec, {"k5": got, "k1": via_k1})}
+    check(long_h["k1_equal_share"] == 1.0,
+          f"K5 at H={CEM_LONG_H}: its costs differ from K1's over its regenerated controls {long_h}")
     times = {str(k): cuda_ms(lambda: fused_cem_costs(model, s0, mue, std, pvec, seed2, low, high, k,
                                                      min(k, DEFAULT_TILE_K)), 50) for k in CEM_K}
     ncu = shutil.which("ncu") or Path(kernels._nvcc()).parent / "ncu"
@@ -1953,14 +2016,17 @@ def compare_k4(opt, gen) -> dict:
 
 def k6_mutant_counters(seed_b, K: int, Hf: int, kind: str) -> torch.Tensor:
     """K6's counters [B, K, H, 1] with a layout fault: ``k5_tiled_counter``
-    (K5's counter of each session's seed, tiles of FLEET_MUTANT_TILE) or
-    ``r_cw_swapped`` (rollout k = r*cps + cw reads cw*8 + r's counters)."""
+    (K5's counter of each session's seed, tiles of FLEET_MUTANT_TILE),
+    ``r_cw_swapped`` (rollout k = r*cps + cw reads cw*8 + r's counters) or
+    ``next_session_seed`` (session b draws with session b+1's seed)."""
     B = seed_b.shape[0]
     if kind == "k5_tiled_counter":
         return torch.stack([cem_counters(torch.stack([s, torch.zeros_like(s)]),
                                          torch.arange(K, device=seed_b.device), K, Hf, 1,
                                          FLEET_MUTANT_TILE) for s in seed_b])
     k = torch.arange(K, device=seed_b.device)
+    if kind == "next_session_seed":
+        return cols_counters(seed_b.roll(-1), k.expand(B, K), K, Hf, 1)
     cps = K // ROWS
     swapped = (k % cps) * ROWS + k // cps
     return cols_counters(seed_b, swapped.expand(B, K), K, Hf, 1)
@@ -1969,9 +2035,9 @@ def k6_mutant_counters(seed_b, K: int, Hf: int, kind: str) -> torch.Tensor:
 def compare_k6(opt, gen) -> dict:
     """Phase 36: K6 against its plain version at B=FLEET_B_MAX sessions; its
     costs against K1's over the controls regen_cols draws again, session
-    by session; the elite rows' regeneration an exact subset of the full
-    one; and the cost bound against K5's tiled counter and the swap of r
-    and cw."""
+    by session, equal in every entry; the elite rows' regeneration an exact
+    subset of the full one; the cost bound against K5's tiled counter and
+    the swap of r and cw and the next session's seed; then k6_cases."""
     B, K, Hf = FLEET_B_MAX, opt.num_rollouts, opt.mpc_horizon
     device = opt.device
     model, pvec_b, s0 = fleet_operands(opt, B, gen)
@@ -1986,7 +2052,7 @@ def compare_k6(opt, gen) -> dict:
     mutants = {kind: cost_rollout_plain(model, s_rows, torch.clamp(
         mue[:, None] + std[:, None] * normals_from_counter(k6_mutant_counters(seed_b, K, Hf, kind)),
         low, high).reshape(B * K, Hf, 1), rows).reshape(B, K)
-        for kind in ("k5_tiled_counter", "r_cw_swapped")}
+        for kind in ("k5_tiled_counter", "r_cw_swapped", "next_session_seed")}
     numbers = compare("k6_fused_cem_cols", lambda: fused_cem_cols(*args),
                       lambda: fused_cem_cols_plain(*args), shape=(B, K),
                       extra=lambda _: {"mutant_max_rel_err": {
@@ -1996,8 +2062,7 @@ def compare_k6(opt, gen) -> dict:
               f"K6: the cost bound does not reject {kind} {numbers}")
     got = fused_cem_cols(*args)
     Q = regen_cols(seed_b, torch.arange(K, device=device).expand(B, K), mue, std, low, high, K)
-    via_k1 = torch.stack([cost_rollout(model, s0[b].expand(K, -1).contiguous(), Q[b].contiguous(),
-                                       pvec_b[b].contiguous()) for b in range(B)])
+    via_k1 = k1_per_session(model, s0, Q, pvec_b)
     idx = elite_indices(got, FLEET_CEM_CONFIG["cem_best_k"])
     extra = {"k1_over_regen_max_abs_err": max_errors(got, via_k1)[0],
              "k1_over_regen_equal_share": float((got == via_k1).double().mean()),
@@ -2008,9 +2073,64 @@ def compare_k6(opt, gen) -> dict:
     check(extra["k1_over_regen_equal_share"] == 1.0,
           f"K6's costs differ from K1's over its regenerated controls {extra}")
     check(extra["elite_regen_exact"], "K6: the elite regeneration is not a subset of the full one")
+    k6_cases(args, gen)
     numbers.update(bound(B * K * Hf * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
                          nbytes(s0, mue, std, pvec_b, seed_b, low, high) + 4 * B * K))
     return numbers
+
+
+def k1_per_session(model, s0, Q, pvec_b) -> torch.Tensor:
+    """K1's costs [B, K] of each session's controls Q [B, K, H, U] from its
+    state s0 [B, S] under its parameters pvec_b [B, N]."""
+    return torch.stack([cost_rollout(model, s0[b].expand(Q.shape[1], -1).contiguous(),
+                                     Q[b].contiguous(), pvec_b[b].contiguous())
+                        for b in range(Q.shape[0])])
+
+
+def k6_cases(args: tuple, gen) -> dict:
+    """Phase 36's further K6 numbers, over compare_k6's operands ``args``
+    at FLEET_B_MAX sessions: the costs at a ragged B*K (3 sessions of
+    K=1000: blocks straddle sessions) to KERNEL_TOL; at a horizon of
+    CEM_LONG_H (4 sessions of K=512; two full chunks of drawn controls and
+    a partial one) against float64, with K1's over regen_cols' controls,
+    and equal to them; the time at FLEET_B and FLEET_B_MAX sessions; its
+    registers and shared memory."""
+    model, s0, mue, std, pvec_b, seed_b, low, high, K = args
+    device = s0.device
+    numbers = {}
+
+    def first(b: int, k: int = K) -> tuple:  # the first b sessions, K=k
+        return (model, s0[:b], mue[:b], std[:b], pvec_b[:b], seed_b[:b], low, high, k)
+
+    rag = first(3, 1000)
+    got, plain = fused_cem_cols(*rag), fused_cem_cols_plain(*rag)
+    torch.cuda.synchronize()
+    numbers["B3_K1000"] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, plain)))
+    check(bool(torch.isfinite(got).all()) and got.shape == (3, 1000), "K6 B3_K1000: bad output")
+    check(torch.allclose(got, plain, **KERNEL_TOL), f"K6 B3_K1000: kernel disagrees {errs}")
+    Bl, Kl = 4, FLEET_K
+    mue_long = torch.clamp(0.2 * torch.randn(Bl, CEM_LONG_H, 1, generator=gen, device=device),
+                           -1.0, 1.0)
+    std_long = torch.full((Bl, CEM_LONG_H, 1), 0.5, device=device)
+    long_args = (model, s0[:Bl], mue_long, std_long, pvec_b[:Bl], seed_b[:Bl], low, high, Kl)
+    got = fused_cem_cols(*long_args).reshape(-1)
+    Q = regen_cols(seed_b[:Bl], torch.arange(Kl, device=device).expand(Bl, Kl), mue_long,
+                   std_long, low, high, Kl)
+    via_k1 = k1_per_session(model, s0[:Bl], Q, pvec_b[:Bl]).reshape(-1)
+    check(bool(torch.isfinite(got).all()), f"K6 at H={CEM_LONG_H}: bad output")
+    numbers[f"H{CEM_LONG_H}"] = long_h = {
+        "k1_equal_share": float((got == via_k1).double().mean()),
+        **long_horizon_vs_float64(model, per_rollout(s0[:Bl], Kl).T,
+                                  Q.reshape(Bl * Kl, CEM_LONG_H, 1), per_rollout(pvec_b[:Bl], Kl),
+                                  {"k6": got, "k1": via_k1})}
+    check(long_h["k1_equal_share"] == 1.0,
+          f"K6 at H={CEM_LONG_H}: its costs differ from K1's over regen_cols' controls {long_h}")
+    out = {"cases": numbers,
+           "ms_at_b": {str(b): cuda_ms(lambda: fused_cem_cols(*first(b)), 50)
+                       for b in (FLEET_B, FLEET_B_MAX)},
+           **ptxas_resources("fused_cem_cols_kernel")}
+    emit("k6_cases", out)
+    return out
 
 
 def slot_snapshot(ctrl: BatchedMPCController, slots) -> dict:
@@ -2321,6 +2441,7 @@ def main() -> None:
     k1 = compare("k1_cost_rollout", lambda: cost_rollout(model, s0, Q, pvec),
                  lambda: cost_rollout_plain(model, s0, Q, pvec))
     k1.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS), nbytes(s0, Q, pvec) + 4 * K))
+    k1_cases(model, s0, Q, pvec)
     P = opt.interp.number_of_interpolation_inducing_points
     eps = opt.SQRTRHODTINV * torch.randn(P, 1, K, generator=gen, device=device)
     u_nom = torch.clamp(0.2 * torch.randn(H, 1, generator=gen, device=device), -1.0, 1.0)

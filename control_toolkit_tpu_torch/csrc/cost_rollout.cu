@@ -8,18 +8,25 @@
 // with Q[k,-1] = u_prev from the packed parameters.
 //
 // What bounds it on an H100: the serial H-step rk4 chain each thread runs
-// in FP32 (four plant evaluations a step, each with sinf, cosf and three
-// divisions); the bytes are small (Q is K*H*U floats, read once).  At the
+// in FP32; the bytes are small (Q is K*H*U floats, read once).  At the
 // main path's K=16384 the grid is 128 blocks of 128 threads on 132 SMs,
-// about four warps per SM, too few to hide the latency of that chain.
-// The design does nothing about either yet: a first, simple kernel.
+// one warp a scheduler, so nothing hides the chain's latency.  The design
+// shortens the chain, as K5's (cem_core.cuh) does:
+// - The step is short_step.cuh's: the plant evaluation is derivs_short
+//   (plants.cuh), one sincosf and one division, with the reciprocals of
+//   the masses taken once a rollout; the stage cost shares the first
+//   evaluation's cos(theta).  K5 and K6 take the same step, so their costs
+//   equal this kernel's over the controls that their regenerations draw
+//   again.
+// - The next step's control is loaded while the current step runs, so no
+//   step waits at its head for a load.
 //
 // Q is read strided in its [K, H, U] layout (thread k walks row k) instead
 // of being transposed to [H, U, K] in the wrapper: a warp's loads at step h
 // touch 32 sectors, but each 32-byte sector also holds the next steps'
 // controls, which the following iterations then find in L1, so the extra
 // transpose pass over Q would buy little.
-#include "rollout_core.cuh"
+#include "short_step.cuh"
 
 namespace ctt {
 
@@ -28,20 +35,32 @@ __global__ void __launch_bounds__(kThreads)
 cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                     const float* __restrict__ pvec, float* __restrict__ cost,
                     int K, int H, StepConsts c, float max_cost) {
+  constexpr int S = Plant::S, U = Plant::U;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked
   float p[Plant::kN];
   load_params<Plant>(pvec, p);
-  Rollout<Plant> r;
-  r.start(s0 + static_cast<size_t>(k) * Plant::S, p);
-  const float* q = Q + static_cast<size_t>(k) * H * Plant::U;
-  for (int h = 0; h < H; ++h) {
-    float u[Plant::U];
+  const typename Plant::Recips rc = Plant::recips(p);
+  float x[S], prev[U], acc = 0.0f;
 #pragma unroll
-    for (int j = 0; j < Plant::U; ++j) u[j] = __ldg(q + h * Plant::U + j);
-    r.advance(u, p, c, max_cost);
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+#pragma unroll
+  for (int j = 0; j < U; ++j) prev[j] = p[Plant::kUPrev + j];
+  const float* q = Q + static_cast<size_t>(k) * H * U;
+  float u_next[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) u_next[j] = __ldg(q + j);  // H >= 1 (the wrapper checks)
+  for (int h = 0; h < H; ++h) {
+    float u[U];
+    const int ahead = h + 1 < H ? h + 1 : h;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      u[j] = u_next[j];
+      u_next[j] = __ldg(q + ahead * U + j);
+    }
+    short_step<Plant>(x, u, prev, acc, p, rc, c, max_cost);
   }
-  cost[k] = r.finish(p, H);
+  cost[k] = (acc + Plant::terminal_cost(x, p)) / static_cast<float>(H + 1);
 }
 
 }  // namespace ctt

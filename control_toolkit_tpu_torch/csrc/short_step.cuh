@@ -1,12 +1,12 @@
-// The short rollout step of K5 (fused_cem.cu) and of K12's base step
-// (residual_rollout.cu): the stage cost, then one control period of
-// rollout_core.cuh's integrators in their operation order, with the plant's
-// derivs_short (plants.cuh) in place of derivs: sincosf reduces theta once
-// an evaluation, the stage cost shares the first evaluation's cos(theta),
-// and the reciprocals of plants.cuh's Recips, taken once a rollout, leave
-// one division an evaluation.  On an H100 this shortens the rk4 chain a
-// step from K1's ~1.7 µs to ~0.7 µs (PERF.md, K5).  K1-K4, K6 and K7 keep
-// rollout_core.cuh's step.
+// The short rollout step of K1 (cost_rollout.cu), K5 and K6 (cem_core.cuh)
+// and of K12's base step (residual_rollout.cu): the stage cost, then one
+// control period of rollout_core.cuh's integrators in their operation
+// order, with the plant's derivs_short (plants.cuh) in place of derivs:
+// sincosf reduces theta once an evaluation, the stage cost shares the
+// first evaluation's cos(theta), and the reciprocals of plants.cuh's
+// Recips, taken once a rollout, leave one division an evaluation.  On an
+// H100 this shortened K5's rk4 chain a step from ~1.7 µs to ~0.7 µs
+// (PERF.md, K5).  K2-K4 and K7 keep rollout_core.cuh's step.
 #pragma once
 
 #include "rollout_core.cuh"

@@ -5,9 +5,10 @@ control_toolkit_tpu/ops/pallas_rollout.py:build_cost_rollout_kernel.
 cost = (sum_h stage(x_h, u_h, u_{h-1}) + terminal(x_H)) / (H+1) and
 u_{-1} = the packed ``__u_prev_*``.  Q is taken pre-clipped.
 
-The CUDA kernel is ``csrc/cost_rollout.cu``: one thread per rollout over
-the shared register-resident core (``csrc/rollout_core.cuh``); its source
-note says what bounds it on the card.  ``cost_rollout_plain`` is the same
+The CUDA kernel is ``csrc/cost_rollout.cu``: one thread per rollout, its
+state in registers, stepping with ``csrc/short_step.cuh`` (K5's and K6's
+step) and loading each step's next control ahead; its source note says
+what bounds it on the card.  ``cost_rollout_plain`` is the same
 function in PyTorch, a loop over h on ``[K]`` tensors.  The wrapper runs
 the plain version only when every operand lies on the CPU; for CUDA
 operands it launches the kernel or raises.

@@ -25,8 +25,9 @@ XLA glue in JAX (pallas_cem.py:145-163), not a kernel's plain version.
 ``fused_cem_costs_plain`` is the kernel's function in PyTorch: all K rows
 regenerated and scored by K1's plain version.
 
-The CUDA kernel is ``csrc/fused_cem.cu`` (its source note says what
-bounds it on the card).  The wrapper runs the plain version only when
+The CUDA kernel is ``csrc/fused_cem.cu``, over the rollout body it shares
+with K6 (``csrc/cem_core.cuh``, whose note says what bounds it on the
+card).  The wrapper runs the plain version only when
 every operand lies on the CPU; for CUDA operands it launches the kernel or
 raises.
 """

@@ -25,7 +25,8 @@ launches whatever B is: torch glue, as ``regen_cols`` is XLA glue in JAX.
 ``fused_cem_cols_plain`` is the kernel's function in PyTorch: every row
 regenerated and scored by K1's plain version.
 
-The CUDA kernel is ``csrc/fused_cem_cols.cu``.  The wrapper runs the plain
+The CUDA kernel is ``csrc/fused_cem_cols.cu``, over the rollout body it
+shares with K5 (``csrc/cem_core.cuh``).  The wrapper runs the plain
 version only when every operand lies on the CPU; for CUDA operands it
 launches the kernel or raises.
 """

@@ -7,10 +7,12 @@ the same seed2: costs to rtol 3e-5 (float32 sums over 20 rk4 steps; the
 normals differ by an ulp of log or cos), the regenerated controls to
 1e-6.  One CEM step of each path is fed JAX's draws (the modular path's
 normals, the fused path's seeds, re-split from the JAX key as its step
-splits it): mue, std, u and the best elite to UNOM_TOL.  K5's own step
-(csrc/short_step.cuh: derivs_short's reciprocals) is transcribed in
-float32 and held to the plain version's bound.  On a machine with a card,
-K5 is held to its plain version at each of its lane counts.
+splits it): mue, std, u and the best elite to UNOM_TOL.  The step of K1,
+K5 and K6 (csrc/short_step.cuh: derivs_short's reciprocals) is transcribed
+in float32 and held to the plain version's bound, which rejects K1's
+controls read one step early or from the next rollout's row.  On a
+machine with a card, K5 is held to its plain version and equals K1 over
+its regenerated controls.
 """
 import jax
 import jax.numpy as jnp
@@ -374,6 +376,54 @@ def test_k5_short_step_at_a_long_horizon_stays_within_the_float64_bound(pair, re
                     long_horizon_vs_float64(model, s0, Q, pvec, {"short_step": got}))
 
 
+def k1_operands(pair, Kc=512, Hc=50):
+    """chip_smoke.py phase 2's K1 operands at K=Kc, made with numpy: states
+    0.05 N(0, 1), controls 0.3 N(0, 1) clipped to [-1, 1], u_prev 0.1."""
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    rng = np.random.default_rng(2)
+    s0 = torch.tensor(0.05 * rng.standard_normal((Kc, 4)), dtype=torch.float32)
+    Q = torch.tensor(np.clip(0.3 * rng.standard_normal((Kc, Hc, 1)), -1.0, 1.0),
+                     dtype=torch.float32)
+    return model, s0, Q, pack(params, torch.tensor([0.1]))
+
+
+@pytest.mark.parametrize("integrator,substeps", [("rk4", 1), ("euler", 1), ("rk4", 2)])
+def test_k1_short_step_stays_within_the_kernel_bound(pair, integrator, substeps,
+                                                     record_property):
+    """K1's step in float32 (short_step_fn: csrc/short_step.cuh, K5's) over
+    phase 2's controls at K=512, H=50 stays within KERNEL_TOL of K1's plain
+    version (rollout_core.cuh's derivs, five divisions)."""
+    import dataclasses
+    from chip_smoke import KERNEL_TOL
+
+    model, s0, Q, pvec = k1_operands(pair)
+    model = dataclasses.replace(model, integrator=integrator, intermediate_steps=substeps)
+    ref = cost_rollout_plain(model, s0, Q, pvec)
+    got = plain_cost_loop(model, s0, Q, pvec, short_step_fn(model, pvec))
+    err = (got - ref).abs()
+    record_property("k1_short_step_distance", {
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / ref.abs().clamp_min(1e-6)).max())})
+    torch.testing.assert_close(got, ref, **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("kind", ["controls_one_step_early", "next_rollout_row"])
+def test_k1_bound_rejects_a_wrong_control_read(pair, kind, record_property):
+    """K1's step in float32 over phase 2's controls read wrongly
+    (chip_smoke.py k1_read_mutants: a prefetch off by one, rollout k+1's
+    row) falls outside KERNEL_TOL of K1's plain version over the right
+    ones, as phase 2 checks on the card."""
+    from chip_smoke import KERNEL_TOL, k1_read_mutants
+
+    model, s0, Q, pvec = k1_operands(pair)
+    ref = cost_rollout_plain(model, s0, Q, pvec)
+    wrong = plain_cost_loop(model, s0, k1_read_mutants(Q)[kind], pvec, short_step_fn(model, pvec))
+    err = (wrong - ref).abs()
+    record_property("k1_mutant_max_rel_err", float((err / ref.abs().clamp_min(1e-6)).max()))
+    assert not torch.allclose(wrong, ref, **KERNEL_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Hc", [50, 130])
 def test_cuda_k5_matches_plain_version(pair, cuda_device, Hc):
@@ -405,3 +455,25 @@ def test_cuda_k5_matches_plain_version(pair, cuda_device, Hc):
         return
     torch.testing.assert_close(got, fused_cem_costs_plain(*args), rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(got, via_k1, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hc", [50, 130])
+def test_cuda_k5_equals_k1_over_its_regenerated_controls(pair, cuda_device, Hc):
+    """K5 and K1 take one step (csrc/short_step.cuh), so K5's costs equal
+    K1's over the controls that regen_controls draws again, bit for bit, at
+    H=50 (one chunk of drawn controls) and H=130 (two full chunks and a
+    partial one), as chip_smoke.py phase 27 requires."""
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    dev = cuda_device
+    Kc, tile = 1000 * 8, 400
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=dev)
+    mue = 0.2 * torch.randn(Hc, 1, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    std = torch.full((Hc, 1), 0.5, device=dev)
+    pvec = pack(params, torch.tensor([0.1])).to(dev)
+    seed2 = torch.tensor([2024, 3], dtype=torch.int32, device=dev)
+    lim = torch.ones(1, device=dev)
+    got = fused_cem_costs(model, s0, mue, std, pvec, seed2, -lim, lim, Kc, tile)
+    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile)
+    assert torch.equal(got, cost_rollout(model, s0.expand(Kc, -1).contiguous(), Q, pvec))

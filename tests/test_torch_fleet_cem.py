@@ -10,8 +10,12 @@ atol 1e-4 (test_pallas_cem.py:208).  The counters of ``regen_cols`` equal
 the JAX formula's exactly (uint32 arithmetic, pallas_cem.py:321-332), the
 controls JAX's ``regen_cols`` to NORMAL_ATOL (an ulp of log or cos).  One
 whole batched step fed the JAX seeds is held to the JAX step: u, mue and
-std to 2e-4.  On a machine with a card, K6 is held to its plain version
-and to K1 over its regenerated controls.
+std to 2e-4.  K6's step (csrc/short_step.cuh, K1's and K5's) in float32
+over regen_cols' controls is held to the plain version's bound at H=35
+and to the float64 bound at H=130, and the bound rejects draws made with
+the next session's seed.  On a machine with a card, K6 is held to its
+plain version, to float64 at H=130, and to K1 over its regenerated
+controls, bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +30,8 @@ from control_toolkit_tpu_torch.ops.counter_prng import FNV, MASK
 from control_toolkit_tpu_torch.ops.fused_cem_cols import (
     cols_counters, fused_cem_cols, fused_cem_cols_plain, regen_cols,
 )
+from control_toolkit_tpu_torch.ops.mppi_cost_cols import per_rollout
+from control_toolkit_tpu_torch.ops.neural_rollout import plain_cost_loop
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
@@ -258,6 +264,80 @@ def test_batched_fused_cem_needs_k_a_multiple_of_8(pair):
                        popt.action_low, popt.action_high, 100)
 
 
+def k6_step_operands(pair, Hc, B=4, Kc=512):
+    """chip_smoke.py phase 36's kind of operands at B sessions of K=Kc over
+    a horizon of Hc, made with numpy: states 0.05 N(0, 1), mue 0.2 N(0, 1)
+    clipped, std 0.5, per-session pole lengths, targets, previous controls
+    and seeds: fused_cem_cols' arguments."""
+    _, pctrl, _, params = pair
+    popt = pctrl.optimizer
+    rng = np.random.default_rng(36)
+    x = {"s": (0.05 * rng.standard_normal((B, 4))).astype(np.float32),
+         "u_prev": rng.uniform(-1.0, 1.0, (B, 1)).astype(np.float32),
+         "target": np.linspace(-0.2, 0.2, B).astype(np.float32),
+         "L": np.linspace(0.35, 0.65, B).astype(np.float32)}
+    model, pvec_b = port_pvec_b(popt, params, x)
+    s0 = torch.tensor(x["s"])
+    mue = torch.tensor(np.clip(0.2 * rng.standard_normal((B, Hc, 1)), -1.0, 1.0),
+                       dtype=torch.float32)
+    std = torch.full((B, Hc, 1), 0.5)
+    seed_b = torch.tensor(rng.integers(0, 2**31 - 1, B), dtype=torch.int32)
+    return model, s0, mue, std, pvec_b, seed_b, popt.action_low, popt.action_high, Kc
+
+
+def k6_short_step(args, seed_b=None):
+    """K6's step in float32 (test_torch_cem.py short_step_fn: K5's and
+    K1's, csrc/short_step.cuh) over the controls regen_cols draws with
+    ``seed_b`` (default: the sessions' own), each session's parameters a
+    rollout; and the float32 rollout operands."""
+    from test_torch_cem import short_step_fn
+
+    model, s0, mue, std, pvec_b, own, low, high, Kc = args
+    B, Hc = mue.shape[0], mue.shape[1]
+    idx = torch.arange(Kc).expand(B, Kc)
+    Q = regen_cols(own if seed_b is None else seed_b, idx, mue, std, low, high, Kc)
+    s_rows, rows, Q = per_rollout(s0, Kc).T, per_rollout(pvec_b, Kc), Q.reshape(B * Kc, Hc, 1)
+    cost = plain_cost_loop(model, s_rows, Q, rows, short_step_fn(model, rows))
+    return cost.reshape(B, Kc), (model, s_rows, Q, rows)
+
+
+def test_k6_short_step_stays_within_the_kernel_bound(pair, record_property):
+    """K6's step over regen_cols' controls at the fleet's H=35 (B=4,
+    K=512) stays within KERNEL_TOL of fused_cem_cols_plain."""
+    from chip_smoke import KERNEL_TOL
+
+    args = k6_step_operands(pair, 35)
+    got, _ = k6_short_step(args)
+    ref = fused_cem_cols_plain(*args)
+    record_property("k6_short_step_max_abs_err", float((got - ref).abs().max()))
+    torch.testing.assert_close(got, ref, **KERNEL_TOL)
+
+
+def test_k6_short_step_at_a_long_horizon_stays_within_the_float64_bound(pair, record_property):
+    """K6's step over regen_cols' controls at H=130 (B=4, K=512: two full
+    64-control chunks and a partial one in every session) stays within
+    chip_smoke.py's float64 bound (long_horizon_vs_float64), which rejects
+    both chunk faults."""
+    from chip_smoke import long_horizon_vs_float64
+
+    got, (model, s_rows, Q, rows) = k6_short_step(k6_step_operands(pair, 130))
+    record_property("k6_long_horizon_vs_float64", long_horizon_vs_float64(
+        model, s_rows, Q, rows, {"short_step": got.reshape(-1)}))
+
+
+def test_k6_bound_rejects_the_next_sessions_seed(pair, record_property):
+    """Each session's draws made with session b+1's seed, scored by K6's
+    step, fall outside KERNEL_TOL of fused_cem_cols_plain, as phase 36
+    checks on the card."""
+    from chip_smoke import KERNEL_TOL
+
+    args = k6_step_operands(pair, 35)
+    wrong, _ = k6_short_step(args, seed_b=args[5].roll(-1))
+    ref = fused_cem_cols_plain(*args)
+    record_property("k6_next_seed_max_abs_err", float((wrong - ref).abs().max()))
+    assert not torch.allclose(wrong, ref, **KERNEL_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_k6_matches_plain_version_and_k1(pair, cuda_device):
     """K6 against its plain version on the same card tensors (B*K not a
@@ -289,3 +369,25 @@ def test_cuda_k6_matches_plain_version_and_k1(pair, cuda_device):
         via_k1 = cost_rollout(model, s0[b].expand(Kc, -1).contiguous(), Q[b].contiguous(),
                               pvec_b[b].contiguous())
         assert torch.equal(got[b], via_k1)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_at_a_long_horizon_stays_within_the_float64_bound(pair, cuda_device):
+    """K6 at H=130 (B=4, K=512: two full 64-control chunks and a partial
+    one in every session) within chip_smoke.py's float64 bound
+    (long_horizon_vs_float64), with K1's costs over regen_cols' controls,
+    which equal K6's bit for bit."""
+    from chip_smoke import long_horizon_vs_float64
+
+    dev = cuda_device
+    args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in k6_step_operands(pair, 130))
+    model, s0, mue, std, pvec_b, seed_b, low, high, Kc = args
+    B = s0.shape[0]
+    got = fused_cem_cols(*args)
+    Q = regen_cols(seed_b, torch.arange(Kc, device=dev).expand(B, Kc), mue, std, low, high, Kc)
+    via_k1 = torch.stack([cost_rollout(model, s0[b].expand(Kc, -1).contiguous(),
+                                       Q[b].contiguous(), pvec_b[b].contiguous())
+                          for b in range(B)])
+    assert torch.equal(got, via_k1)
+    long_horizon_vs_float64(model, per_rollout(s0, Kc).T, Q.reshape(B * Kc, 130, 1),
+                            per_rollout(pvec_b, Kc), {"k6": got.reshape(-1)})

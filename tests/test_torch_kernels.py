@@ -207,3 +207,28 @@ def test_cuda_kernels_match_plain_versions(pair, cuda_device, integrator, subste
     lim = torch.ones(1, device=dev)
     args = (model, s0[0].contiguous(), u_nom, pvec, eps, W, -lim, lim, 1.0, 1.0, 1000.0)
     torch.testing.assert_close(mppi_cost(*args), mppi_cost_plain(*args), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [8, 1000])
+def test_cuda_k1_at_ragged_k_and_a_long_horizon(pair, cuda_device, Kc):
+    """K1 (short_step.cuh's step, its next control loaded ahead) at K below
+    one block and not a multiple of it: within KERNEL_TOL of its plain
+    version at H=50, and within chip_smoke.py's float64 bound
+    (long_horizon_vs_float64) at H=130, where float32 rounding outgrows
+    KERNEL_TOL."""
+    from chip_smoke import KERNEL_TOL, long_horizon_vs_float64
+
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pvec = pack(params, torch.tensor([0.1])).to(dev)
+    s0 = 0.05 * torch.randn(Kc, 4, generator=gen, device=dev)
+    for Hc in (50, 130):
+        Q = torch.clamp(0.3 * torch.randn(Kc, Hc, 1, generator=gen, device=dev), -1.0, 1.0)
+        got = cost_rollout(model, s0, Q, pvec)
+        if Hc == 50:
+            torch.testing.assert_close(got, cost_rollout_plain(model, s0, Q, pvec), **KERNEL_TOL)
+        else:
+            long_horizon_vs_float64(model, s0, Q, pvec, {"k1": got})
