@@ -81,8 +81,12 @@ and build_gp_mppi/build_rpgd's configurations, seed 3): the residual
 20. K14 (gp_cost_rollout) and 21. K10 (gp_grad_cost_rollout) against their
     plain versions over a well-conditioned GP of the committed one's widths
     (``well_conditioned_gp``), to K11's and K7's bounds, and those bounds
-    against out_std dropped and zn2 dropped (K14), and the 2·an term
-    dropped and phase 7's wrong stage-gradient terms (K10); K10 also at
+    against out_std dropped, zn2 dropped and one lane's points dropped
+    (K14), and the 2·an term dropped and phase 7's wrong stage-gradient
+    terms (K10); K14 also at ragged K, at 1, 2, 4, 8 and 16 lanes a
+    rollout, each timed and each also over 100 inducing points, equal to
+    K10's J at the lanes both take, its time at K=16 to 8192 and its
+    resources (``k14_cases``, ``k14_resources``); K10 also at
     ragged K, over a well-conditioned GP of 100 inducing points and at 4,
     8, 16 and 32 lanes a rollout, each timed, then its time at K=16, 64,
     2048 and 8192 and its resources (registers, spills, shared memory,
@@ -119,7 +123,14 @@ random-action (seed 3), both on K1:
     version, K1 and float64, its registers, its time at K=16 to 16384,
     and the loops of its SASS (``k5_cases``);
 28. K3's pass 1 (fused_mppi_costs) and 29. its pass 2 (fused_mppi_weights)
-    against their plain versions, pass 2 after the block sum as [P, U] and
+    against their plain versions; pass 1 also at ragged K and P=1, its bound
+    against the controls read one step early, the bracket's second point
+    dropped and the next rollout's counters, its costs at cc_weight 0 equal
+    to K1's over mppi_controls_plain's controls, at H=130 (P=14, three
+    chunks) equal to K1's there, against float64 and its bound against the
+    bracket restarted at a chunk's head, its time at K=16 to 8192, its
+    registers and the loops of its SASS (``k3_cases``, ``k3_resources``);
+    pass 2 after the block sum as [P, U] and
     its bound against the sums unnormalized and from the neighbouring
     inducing point's noise; then the whole fused_mppi_step against
     fused_mppi_step_plain on the same card tensors;
@@ -233,12 +244,15 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout, gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_plain, launch_part,
 )
-from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
+from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
+from control_toolkit_tpu_torch.ops.mppi_cost import (
+    mppi_controls_cost_plain, mppi_controls_plain, mppi_cost, mppi_cost_plain,
+)
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
     mppi_cost_cols, mppi_cost_cols_plain, per_rollout,
 )
@@ -355,12 +369,14 @@ RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
 # (NARROW_HIDDENS) and over the wide one, and timed at each of
 # GROUP_WARPS warps a 16-rollout group; K10 over a well-conditioned GP of
 # GP_FEW_POINTS inducing points (not a multiple of any lane count) and at
-# each of GP_LANES lanes a rollout.
+# each of GP_LANES lanes a rollout; K14 at each of GP_COST_LANES, also over
+# GP_FEW_POINTS (not a multiple of 8 or 16).
 NARROW_HIDDENS, GROUP_WARPS, GP_FEW_POINTS, GP_LANES = (13, 13), (1, 2, 4), 100, (4, 8, 16, 32)
-# K1's, K7's, K8's, K9's, K10's, K11's and K13's time is also taken at these K
-# (ms_at_k); K1's, K7's, K10's, K11's and K13's also at SMALL_K: one 16-rollout
-# group alone on an SM, and one block of four groups (K7: two and eight
-# adjoint blocks).
+GP_COST_LANES = (1, 2, 4, 8, 16)
+# K1's, K3's, K7's, K8's, K9's, K10's, K11's, K13's and K14's time is also taken
+# at these K (ms_at_k); K1's, K3's, K7's, K10's, K11's, K13's and K14's also at
+# SMALL_K: one 16-rollout group alone on an SM, and one block of four
+# groups (K7: two and eight adjoint blocks).
 K_SCALING, SMALL_K = (2048, 8192), (16, 64)
 # K12 is also held at ragged K and over a seeded residual net of
 # WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K1, K5 and
@@ -1532,14 +1548,24 @@ def well_conditioned_gp(gp_params: dict) -> dict:
     return {**gp_params, "alpha": torch.randn(alpha.shape, generator=gen, device=alpha.device)}
 
 
+def lane_points_dropped(ops) -> dict:
+    """The GP operands without the inducing points m = 3 mod 4: those that
+    one lane of four owns in K14's and K10's lane split."""
+    keep = torch.arange(ops["Zs"].shape[0], device=ops["Zs"].device) % 4 != 3
+    return {**ops, "Zs": ops["Zs"][keep].contiguous(), "zn2": ops["zn2"][keep].contiguous(),
+            "alphaT": ops["alphaT"][:, keep].contiguous()}
+
+
 def compare_gp(model, s0, Q, pvec, ops) -> dict:
     """Phase 20: K14 against its plain version over the well-conditioned
     GP's operands ``ops``, and the cost bound (K11's) against the plain
-    version's output with out_std or zn2 dropped."""
+    version's output with out_std or zn2 dropped, and with one lane's
+    points dropped (``lane_points_dropped``)."""
     ref = gp_cost_rollout_plain(model, s0, Q, pvec, ops)
     mutants = {name: gp_cost_rollout_plain(model, s0, Q, pvec, m) for name, m in (
         ("no_out_std", {**ops, "out_std": torch.ones_like(ops["out_std"])}),
-        ("no_zn2", {**ops, "zn2": torch.zeros_like(ops["zn2"])}))}
+        ("no_zn2", {**ops, "zn2": torch.zeros_like(ops["zn2"])}),
+        ("lane_points_dropped", lane_points_dropped(ops)))}
     numbers = compare("k14_gp_cost_rollout", lambda: gp_cost_rollout(model, s0, Q, pvec, ops),
                       lambda: gp_cost_rollout_plain(model, s0, Q, pvec, ops), tol=NET_TOL,
                       extra=lambda _: {"mutant_max_rel_err": {
@@ -1549,6 +1575,55 @@ def compare_gp(model, s0, Q, pvec, ops) -> dict:
     for name, m in mutants.items():
         check(not torch.allclose(m, ref, **NET_TOL),
               f"K14: the cost bound does not reject a GP with {name} {numbers}")
+    return numbers
+
+
+def k14_cases(model, s0, Q, pvec, wops, gops, gp_params) -> dict:
+    """Phase 20's further K14 numbers, each case's cost to NET_TOL against
+    the plain version over the well-conditioned GP ``wops``: at each
+    RAGGED_K, at each of GP_COST_LANES lanes a rollout (each timed), and
+    over a well-conditioned GP of the first GP_FEW_POINTS inducing points of
+    ``gp_params`` at each of them; the share of K14's costs equal to K10's
+    J at each lane count the two take, over ``wops`` and over the committed
+    GP ``gops`` (they take the same stage cost and GP step, so it must be
+    1.0); the time at SMALL_K + K_SCALING; and the resources (ptxas'
+    registers, spills and static shared memory, the dynamic shared memory,
+    blocks and warps an SM, lanes a rollout)."""
+    few = flatten_gp_weights(well_conditioned_gp(
+        {**gp_params, "Z": gp_params["Z"][:GP_FEW_POINTS],
+         "alpha": gp_params["alpha"][:GP_FEW_POINTS]}))
+    cases = {f"K{k}": (*first_k(k, s0, Q), wops, 0) for k in RAGGED_K}
+    for lanes in GP_COST_LANES:
+        cases[f"L{lanes}"] = (s0, Q, wops, lanes)
+        cases[f"M{GP_FEW_POINTS}_L{lanes}"] = (s0, Q, few, lanes)
+    numbers = {}
+    for case, (s, q, ops, lanes) in cases.items():
+        got, ref = (gp_cost_rollout_lanes(model, s, q, pvec, ops, lanes),
+                    gp_cost_rollout_plain(model, s, q, pvec, ops))
+        torch.cuda.synchronize()
+        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+        if case.startswith("L"):
+            errs["ms"] = cuda_ms(lambda: gp_cost_rollout_lanes(model, s, q, pvec, ops, lanes), 20)
+        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
+              f"K14 {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **NET_TOL), f"K14 {case}: cost disagrees {errs}")
+    equal = {f"{name}_L{lanes}": float((gp_cost_rollout_lanes(model, s0, Q, pvec, ops, lanes)
+                                        == gp_grad_cost_rollout_lanes(model, s0, Q, pvec, ops,
+                                                                      lanes)[0]).double().mean())
+             for name, ops in (("well_conditioned", wops), ("committed", gops))
+             for lanes in sorted(set(GP_COST_LANES) & set(GP_LANES))}
+    numbers = {"cases": numbers, "k10_equal_share": equal, "ms_at_k": ms_at_k(
+        lambda k: gp_cost_rollout(model, *first_k(k, s0, Q), pvec, wops), SMALL_K + K_SCALING)}
+    emit("k14_cases", numbers)
+    check(all(share == 1.0 for share in equal.values()),
+          f"K14's costs differ from K10's J at the same lanes {equal}")
+    M = wops["Zs"].shape[0]
+    lanes, threads, blocks = kernels.gp_layout(M, grad=False)
+    numbers["resources"] = {**ptxas_resources("gp_cost_rollout_kernel", f"Li{lanes}E"),
+                            "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(4, 1, M)),
+                            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+                            "lanes": lanes}
+    emit("k14_resources", numbers["resources"])
     return numbers
 
 
@@ -1603,7 +1678,7 @@ def k10_cases(model, s0, Q, pvec, wops, gp_params) -> dict:
         lambda k: gp_grad_cost_rollout(model, *first_k(k, s0, Q), pvec, wops), SMALL_K + K_SCALING)}
     emit("k10_cases", numbers)
     M = wops["Zs"].shape[0]
-    lanes, threads, blocks = kernels.gp_grad_layout(M)
+    lanes, threads, blocks = kernels.gp_layout(M)
     numbers["resources"] = {**ptxas_resources("gp_grad_cost_rollout_kernel", f"Li{lanes}E"),
                             "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(4, 1, M)),
                             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
@@ -1788,13 +1863,14 @@ def compare_fused_cem(model, pvec, low, high, gen) -> dict:
     return numbers
 
 
-def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict) -> dict:
+def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict, mutants=None) -> dict:
     """The costs ``outs`` of the controls Q [K, CEM_LONG_H, U] from s0 [K,
     S] against the float64 plain version, each within GP_F64_FACTOR times
     the float32 plain version's distance from it plus 1e-6 of its largest
     cost; the bound must reject two faults of the 64-control chunks that
-    K5 and K6 draw ahead: the second chunk scored with the first's
-    controls, and the last (partial) chunk with the second's."""
+    K5, K6 and K3's pass 1 compute ahead: the second chunk scored with the
+    first's controls, and the last (partial) chunk with the second's; and
+    the controls ``mutants`` (name -> controls) too."""
     ref64 = cost_rollout_plain(model, s0.double(), Q.double(), pvec.double())
     p_err = float((cost_rollout_plain(model, s0, Q, pvec).double() - ref64).abs().max())
     bound = GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())
@@ -1806,7 +1882,8 @@ def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict) -> dict:
                "mutant_f64_max_abs_err": {
                    name: float((cost_rollout_plain(model, s0.double(), q.double(), pvec.double())
                                 - ref64).abs().max())
-                   for name, q in (("second_chunk_stale", stale), ("last_chunk_stale", last))}}
+                   for name, q in (("second_chunk_stale", stale), ("last_chunk_stale", last),
+                                   *(mutants or {}).items())}}
     for name in outs:
         check(numbers[f"{name}_f64_max_abs_err"] <= bound,
               f"{name} at H={Q.shape[1]}: further from float64 than the plain version allows "
@@ -1851,6 +1928,135 @@ def k5_cases(args: tuple) -> dict:
     return out
 
 
+def k3_mutant_controls(eps, W, u_nom, low, high, kind: str) -> tuple:
+    """``(u, d)`` [K, H, U] of mppi_controls_plain's bracket walk with one
+    fault of K3 pass 1's prologue, which carries the bracket's two noise
+    values from step to step: ``second_point_dropped`` (d = W[p0,h] e[p0])
+    or ``bracket_restarted_each_chunk`` (at the head of each 64-step chunk
+    after the first, the two values taken again from points 0 and 1 while
+    p0 carries on)."""
+    P, U, K = eps.shape
+    Wl, zero = W.tolist(), torch.zeros_like(eps[0])
+    p0, e0, e1 = 0, eps[0], eps[1] if P > 1 else zero
+    us, ds = [], []
+    for h in range(u_nom.shape[0]):
+        if kind == "bracket_restarted_each_chunk" and h and h % 64 == 0:
+            e0, e1 = eps[0], eps[1] if P > 1 else zero
+        while p0 + 1 < P and Wl[p0][h] == 0.0:
+            p0 += 1
+            e0, e1 = e1, eps[p0 + 1] if p0 + 1 < P else zero
+        d = W[p0, h] * e0
+        if p0 + 1 < P and kind != "second_point_dropped":
+            d = d + W[p0 + 1, h] * e1
+        ds.append(d)
+        us.append(torch.clamp(u_nom[h][:, None] + d, low[:, None], high[:, None]))
+    return tuple(torch.stack(t).permute(2, 0, 1).contiguous() for t in (us, ds))
+
+
+def k3_mutants(args: tuple, kinds) -> dict:
+    """K3 pass 1's costs over fused_mppi_costs_plain's operands ``args``
+    with each fault of ``kinds``: ``controls_one_step_early`` (step h takes
+    the control and perturbation of h+1, the last step its own),
+    ``next_rollout_counters`` (rollout g draws rollout g+1's noise), and
+    k3_mutant_controls' two."""
+    model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k, tile_k = args
+    eps = mppi_noise(seed2, k, W.shape[0], u_nom.shape[1], tile_k) * stdev
+    out = {}
+    for kind in kinds:
+        if kind == "next_rollout_counters":
+            u, d = mppi_controls_plain(eps.roll(-1, 2), W, u_nom, low, high)
+        elif kind == "controls_one_step_early":
+            u, d = (torch.cat([t[:, 1:], t[:, -1:]], dim=1)
+                    for t in mppi_controls_plain(eps, W, u_nom, low, high))
+        else:
+            u, d = k3_mutant_controls(eps, W, u_nom, low, high, kind)
+        out[kind] = mppi_controls_cost_plain(model, s0, u, d, pvec, cc_weight, R, NU)
+    return out
+
+
+def k3_long_horizon(args: tuple) -> dict:
+    """K3's pass 1 at a horizon of CEM_LONG_H (inducing period PERIOD: P=14,
+    two full 64-control chunks and a partial one) over compare_fused_mppi's
+    operands ``args``: at cc_weight 0, its costs equal K1's over
+    mppi_controls_plain's controls (share 1.0) and both against float64
+    (long_horizon_vs_float64, whose bound must also reject
+    bracket_restarted_each_chunk); at the path's cc_weight, against the
+    float64 plain version within GP_F64_FACTOR times the float32 plain
+    version's distance from it plus 1e-6 of its largest cost."""
+    model, s0, _, pvec, seed2, _, low, high, cc_weight, R, NU, stdev, k, tile_k = args
+    gen = torch.Generator(device=s0.device).manual_seed(SEED + 2)
+    u_nom = torch.clamp(0.2 * torch.randn(CEM_LONG_H, 1, generator=gen, device=s0.device),
+                        -1.0, 1.0)
+    W = torch.as_tensor(interpolation_matrix(CEM_LONG_H, PERIOD), device=s0.device)
+    cc0 = (model, s0, u_nom, pvec, seed2, W, low, high, 0.0, R, NU, stdev, k, tile_k)
+    eps = mppi_noise(seed2, k, W.shape[0], 1, tile_k) * stdev
+    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    s_tiled = s0.expand(k, -1).contiguous()
+    got0, via_k1 = fused_mppi_costs(*cc0), cost_rollout(model, s_tiled, u, pvec)
+    restarted, _ = k3_mutant_controls(eps, W, u_nom, low, high, "bracket_restarted_each_chunk")
+    numbers = {"k1_equal_share": float((got0 == via_k1).double().mean()),
+               **long_horizon_vs_float64(model, s_tiled, u, pvec, {"k3": got0, "k1": via_k1},
+                                         {"bracket_restarted_each_chunk": restarted})}
+    check(numbers["k1_equal_share"] == 1.0,
+          f"K3 pass 1 at H={CEM_LONG_H}: its costs differ from K1's over its controls {numbers}")
+    full = cc0[:8] + (cc_weight,) + cc0[9:]
+    f64 = tuple(t.double() if torch.is_tensor(t) and t.is_floating_point() else t for t in full)
+    ref64 = fused_mppi_costs_plain(*f64)
+    p_err = float((fused_mppi_costs_plain(*full).double() - ref64).abs().max())
+    got = fused_mppi_costs(*full)
+    numbers["corr"] = {"f64_max_abs_err": float((got.double() - ref64).abs().max()),
+                       "plain_f64_max_abs_err": p_err,
+                       "bound": GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())}
+    check(bool(torch.isfinite(got).all()) and got.shape == (k,)
+          and numbers["corr"]["f64_max_abs_err"] <= numbers["corr"]["bound"],
+          f"K3 pass 1 at H={CEM_LONG_H}: further from float64 than the plain version allows "
+          f"{numbers}")
+    return numbers
+
+
+def k3_cases(args: tuple) -> dict:
+    """Phase 28's further numbers of K3's pass 1 over compare_fused_mppi's
+    operands ``args``: the costs at each RAGGED_K (tiles of K) and with one
+    inducing point (P=1), each to KERNEL_TOL; the bound against k3_mutants'
+    three faults at H; the share of its costs at cc_weight 0 equal to K1's
+    over mppi_controls_plain's controls (1.0); k3_long_horizon; the time at
+    SMALL_K + K_SCALING; and its resources (registers, spills, static
+    shared memory) and the loops of its SASS (the step's instructions)."""
+    model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k_full, tile_k = args
+    cases = {f"K{k}": args[:12] + (k, k) for k in RAGGED_K}
+    cases["P1"] = args[:5] + (W[:1].contiguous(),) + args[6:]
+    numbers = {}
+    for case, a in cases.items():
+        got, ref = fused_mppi_costs(*a), fused_mppi_costs_plain(*a)
+        torch.cuda.synchronize()
+        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+        check(bool(torch.isfinite(got).all()) and got.shape == (a[12],),
+              f"K3 pass 1 {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **KERNEL_TOL), f"K3 pass 1 {case}: disagrees {errs}")
+    ref = fused_mppi_costs_plain(*args)
+    mutants = k3_mutants(args, ("controls_one_step_early", "second_point_dropped",
+                                "next_rollout_counters"))
+    numbers["mutant_max_rel_err"] = {kind: max_errors(m, ref)[1] for kind, m in mutants.items()}
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **KERNEL_TOL),
+              f"K3 pass 1: the cost bound does not reject {kind} {numbers}")
+    eps = mppi_noise(seed2, k_full, W.shape[0], 1, tile_k) * stdev
+    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    got0 = fused_mppi_costs(*args[:8], 0.0, *args[9:])
+    numbers["k1_equal_share"] = float(
+        (got0 == cost_rollout(model, s0.expand(k_full, -1).contiguous(), u, pvec)).double().mean())
+    numbers[f"H{CEM_LONG_H}"] = k3_long_horizon(args)
+    check(numbers["k1_equal_share"] == 1.0,
+          f"K3 pass 1: its costs at cc_weight 0 differ from K1's over its controls {numbers}")
+    out = {"cases": numbers, "ms_at_k": ms_at_k(
+        lambda k: fused_mppi_costs(*args[:12], k, min(k, DEFAULT_TILE_K)), SMALL_K + K_SCALING)}
+    emit("k3_cases", out)
+    out["resources"] = {**ptxas_resources("fused_mppi_cost_kernel"),
+                        "sass": sass_loops("fused_mppi_cost_kernel") or "not measured"}
+    emit("k3_resources", out["resources"])
+    return out
+
+
 def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
     """Phases 28-29: K3's two passes against their plain versions (pass 2
     after the block sum, and its bound against two faults), then the whole
@@ -1868,6 +2074,7 @@ def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
     k3a.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS)
                      + K * P * (NORMAL_OPS + 1), nbytes(s0, u_nom, pvec, seed2, W, low, high)
                      + 4 * K))
+    k3_cases(args)
     cost = fused_mppi_costs(*args)
     rho = torch.amin(cost)
     red = torch.stack([rho, torch.sum(torch.exp(-(cost - rho) / opt.LBD))])
@@ -2568,6 +2775,7 @@ def main() -> None:
     k14 = compare_gp(gmodel, s0, Q, gpvec, wops)
     k14.update(bound(K * H * (gp_ops(gops) + STAGE_OPS),
                      nbytes(s0, Q, gpvec, *gops.values()) + 4 * K))
+    k14_cases(gmodel, s0, Q, gpvec, wops, gops, gparams["dyn"]["gp"])
     k10 = compare_grad("k10_gp_grad_cost_rollout", gmodel, Qg, gpvec,
                        lambda: gp_grad_cost_rollout(gmodel, s0, Qg, gpvec, wops),
                        lambda: gp_grad_cost_rollout_plain(gmodel, s0, Qg, gpvec, wops), reps=20,

@@ -47,6 +47,33 @@ __device__ __forceinline__ float cem_control(uint32_t counter, float mue, float 
   return fminf(fmaxf(v, lo), hi);
 }
 
+// n short steps of a rollout (x, prev, acc) over the controls of the
+// thread's `column` of a [kDrawControls][kCemThreads] shared array (control
+// i, input j at column[(i * U + j) * kCemThreads]), each step's successor
+// loaded while it runs: the chain of K5, K6 and K3's pass 1
+// (mppi_ahead.cuh).
+template <class Plant>
+__device__ __forceinline__ void column_steps(float (&x)[Plant::S], float (&prev)[Plant::U],
+                                             float& acc, const float* p,
+                                             const typename Plant::Recips& rc,
+                                             const StepConsts& c, float max_cost,
+                                             const float* column, int n) {
+  constexpr int U = Plant::U;
+  float u_next[U];
+#pragma unroll
+  for (int j = 0; j < U; ++j) u_next[j] = column[j * kCemThreads];
+  for (int i = 0; i < n; ++i) {
+    float u[U];
+    const int ahead = i + 1 < n ? i + 1 : i;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      u[j] = u_next[j];
+      u_next[j] = column[(ahead * U + j) * kCemThreads];
+    }
+    short_step<Plant>(x, u, prev, acc, p, rc, c, max_cost);
+  }
+}
+
 // The cost (sum_h stage + terminal) / (H+1) of the rollout from s0 [S]
 // under the controls of counters (base, jstride, hstride) over the
 // distribution mue, std [H, U], the packed parameters pvec [N] and the
@@ -89,19 +116,7 @@ __device__ __forceinline__ float cem_rollout_cost(
             cem_control(counter, __ldg(mue + h * U + j), __ldg(std_dev + h * U + j), lo[j], hi[j]);
       }
     }
-    float u_next[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j) u_next[j] = column[j * kCemThreads];
-    for (int i = 0; i < n; ++i) {
-      float u[U];
-      const int ahead = i + 1 < n ? i + 1 : i;
-#pragma unroll
-      for (int j = 0; j < U; ++j) {
-        u[j] = u_next[j];
-        u_next[j] = column[(ahead * U + j) * kCemThreads];
-      }
-      short_step<Plant>(x, u, prev, acc, p, rc, c, max_cost);
-    }
+    column_steps<Plant>(x, prev, acc, p, rc, c, max_cost, column, n);
   }
   return (acc + Plant::terminal_cost(x, p)) / static_cast<float>(H + 1);
 }

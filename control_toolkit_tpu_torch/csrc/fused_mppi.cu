@@ -12,14 +12,16 @@
 //                                   + p*tile_k + r*C + c)
 // ((p*8 + r)*C + c in the JAX layout, uint32 arithmetic).
 //
-// Pass 1 (fused_mppi_cost_kernel) is K2 (mppi_cost.cu) with that noise
-// drawn in the kernel instead of read: at step h, d_j = W[p0,h]*e[p0,j] +
-// W[p1,h]*e[p1,j] over the two inducing points bracketing h, then clip,
-// rollout, stage cost and MPPI correction cost.  The bracket's two normals
-// per input are kept in registers and one new normal is drawn each time the
-// bracket moves, so each thread draws P*U normals, not 2*H*U.  The noise
-// scale and the interpolation are rounded as torch rounds them (no FMA
-// contraction), so the plain version draws the same controls.
+// Pass 1 (fused_mppi_cost_kernel) is mppi_ahead.cuh's rollout cost (K2's
+// function, mppi_cost.cu) over that noise, drawn in the kernel instead of
+// read: at step h, d_j = W[p0,h]*e[p0,j] + W[p1,h]*e[p1,j] over the two
+// inducing points bracketing h, then clip, rollout, stage cost and MPPI
+// correction cost.  The bracket's two normals per input are kept in
+// registers and one new normal is drawn each time the bracket moves, so
+// each thread draws P*U normals, not 2*H*U.  The noise scale and the
+// interpolation are rounded as torch rounds them (no FMA contraction), so
+// the plain version draws the same controls, and K1 over them
+// (mppi_controls_plain) scores them as this pass does at cc_weight = 0.
 //
 // Between the passes, torch computes rho = min S and a = sum exp(-(S-rho)/LBD)
 // on the card and passes them by pointer (red = [rho, a]): no host sync.
@@ -33,18 +35,16 @@
 // the linearity of interpolation that the JAX module's header states; its
 // eyemask/blocksum matmuls were Mosaic workarounds and are not carried over.
 //
-// What bounds it on an H100: pass 1 as K2, the serial rk4 chain plus P*U
-// normals per rollout; pass 2 the P*U normals (two splitmix32 hashes, a
+// What bounds it on an H100: pass 1 the serial rk4 chain, as K1's (one
+// warp a scheduler at K=16384; mppi_ahead.cuh takes the draws, the
+// interpolation and the correction off it, and the step is short_step.cuh's;
+// it took 0.0935 ms with the draws inside the chain and rollout_core.cuh's
+// step); pass 2 the P*U normals (two splitmix32 hashes, a
 // logf, sqrtf and cosf each) and an expf per rollout, then 5 shuffles per
 // (p, j) and warp.  The bytes are the [K] costs, read once by pass 2.
-#include "counter_prng.cuh"
-#include "rollout_core.cuh"
+#include "mppi_ahead.cuh"
 
 namespace ctt {
-
-struct MppiCorr {
-  float cc, c1, r, c3;
-};
 
 // The first counter of rollout g's noise, and the counter stride of one
 // input (P*tile_k): e[p,j] reads base + j*stride + p*tile_k.
@@ -57,69 +57,38 @@ __device__ __forceinline__ uint32_t noise_base(const int* seed2, int g, int K, i
          tc.r * static_cast<uint32_t>(C) + tc.c;
 }
 
+// Pass 1's noise policy (mppi_ahead.cuh): e[p,j] = stdev * the counter
+// normal, the product rounded.
+struct CounterNoise {
+  uint32_t base, stride, tile_k;
+  float stdev;
+
+  __device__ __forceinline__ float operator()(int p, int j) const {
+    return __fmul_rn(counter_normal(base + static_cast<uint32_t>(j) * stride +
+                                    static_cast<uint32_t>(p) * tile_k),
+                     stdev);
+  }
+};
+
+// Thread g of the grid owns rollout g of the cost order; its column of the
+// block's shared array is threadIdx.x's.  Threads past K (ragged K) repeat
+// rollout K-1 and write nothing.
 template <class Plant>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCemThreads)
 fused_mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
                        const float* __restrict__ pvec, const int* __restrict__ seed2,
                        const float* __restrict__ W, const float* __restrict__ low,
                        const float* __restrict__ high, float* __restrict__ cost, int K, int H,
                        int P, int tile_k, StepConsts c, float max_cost, MppiCorr cc,
                        float stdev) {
-  constexpr int U = Plant::U;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= K) return;
-  float p[Plant::kN];
-  load_params<Plant>(pvec, p);
-  float lo[U], hi[U];
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    lo[j] = __ldg(low + j);
-    hi[j] = __ldg(high + j);
-  }
+  __shared__ float controls[kDrawControls][kCemThreads];
+  const int g = blockIdx.x * kCemThreads + threadIdx.x, gc = g < K ? g : K - 1;
   const uint32_t stride = static_cast<uint32_t>(P) * static_cast<uint32_t>(tile_k);
-  const uint32_t base = noise_base(seed2, g, K, tile_k, stride, U);
-  // The scaled noise at the bracket's two inducing points p0 and p0+1.
-  float e0[U], e1[U];
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    const uint32_t bj = base + static_cast<uint32_t>(j) * stride;
-    e0[j] = __fmul_rn(counter_normal(bj), stdev);
-    e1[j] = P > 1 ? __fmul_rn(counter_normal(bj + static_cast<uint32_t>(tile_k)), stdev) : 0.0f;
-  }
-  Rollout<Plant> r;
-  r.start(s0, p);
-  float corr = 0.0f;
-  int p0 = 0;
-  for (int h = 0; h < H; ++h) {
-    // The left bracket moves right where its weight has dropped to zero.
-    while (p0 + 1 < P && __ldg(W + p0 * H + h) == 0.0f) {
-      ++p0;
-#pragma unroll
-      for (int j = 0; j < U; ++j) {
-        e0[j] = e1[j];
-        const uint32_t ct = base + static_cast<uint32_t>(j) * stride +
-                            static_cast<uint32_t>((p0 + 1) * tile_k);
-        e1[j] = p0 + 1 < P ? __fmul_rn(counter_normal(ct), stdev) : 0.0f;
-      }
-    }
-    const bool two = p0 + 1 < P;
-    const float w0 = __ldg(W + p0 * H + h);
-    const float w1 = two ? __ldg(W + (p0 + 1) * H + h) : 0.0f;
-    float u[U], d[U];
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      float dj = __fmul_rn(w0, e0[j]);
-      if (two) dj = __fadd_rn(dj, __fmul_rn(w1, e1[j]));
-      d[j] = dj;
-      u[j] = fminf(fmaxf(__ldg(u_nom + h * U + j) + dj, lo[j]), hi[j]);
-    }
-    r.advance(u, p, c, max_cost);
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      corr = corr + cc.cc * ((cc.c1 * d[j] * d[j] + cc.r * u[j] * d[j]) + cc.c3 * u[j] * u[j]);
-    }
-  }
-  cost[g] = r.finish(p, H) + corr;
+  const CounterNoise noise{noise_base(seed2, gc, K, tile_k, stride, Plant::U), stride,
+                           static_cast<uint32_t>(tile_k), stdev};
+  const float out = mppi_ahead_cost<Plant>(s0, u_nom, pvec, W, low, high, noise, H, P, c,
+                                           max_cost, cc, &controls[0][threadIdx.x]);
+  if (g < K) cost[g] = out;
 }
 
 constexpr int kWarps = kThreads / 32;
@@ -173,11 +142,12 @@ extern "C" int ctt_fused_mppi_cost(int plant, const void* s0, const void* u_nom,
                                    float stdev, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const ctt::MppiCorr cc{cc_weight, c1, r, c3};
-  const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
+  constexpr int per_block = ctt::kCemThreads;
+  const dim3 grid((K + per_block - 1) / per_block);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::fused_mppi_cost_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+      ctt::fused_mppi_cost_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
           static_cast<const float*>(s0), static_cast<const float*>(u_nom),
           static_cast<const float*>(pvec), static_cast<const int*>(seed2),
           static_cast<const float*>(W), static_cast<const float*>(low),

@@ -139,21 +139,24 @@ __device__ __forceinline__ float gp_d2(const float (&r)[GPRow<S, U>::kRow],
   return (an2 - 2.0f * gdot) + r[S + U];
 }
 
-// v[i] summed over the L lanes of this lane's aligned group of L, the sum
-// on every lane: log2 L rounds, each adding the value of the lane that
-// differs in one bit.  All 32 lanes of the warp take part.
-template <int L, int N>
+// v[i] summed over the L lanes of this lane's rollout, the sum on every
+// lane: log2 L rounds, each adding the value of the lane whose r differs in
+// one bit.  A rollout's lanes lie Stride apart in the warp (lane r at
+// r * Stride from its first).  All 32 lanes of the warp take part.
+template <int L, int N, int Stride = 1>
 __device__ __forceinline__ void lane_sum(float (&v)[N]) {
 #pragma unroll
   for (int mask = 1; mask < L; mask <<= 1) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i], mask);
+    for (int i = 0; i < N; ++i) {
+      v[i] = v[i] + __shfl_xor_sync(0xffffffffu, v[i], mask * Stride);
+    }
   }
 }
 
 // One GP transition of x (GPPredictor.single_step) on lane r of the
-// rollout's L lanes.
-template <int S, int U, int L>
+// rollout's L lanes, Stride apart in the warp.
+template <int S, int U, int L, int Stride = 1>
 __device__ __forceinline__ void gp_step(const float* sm, int M, int r, const GPConsts<S, U>& g,
                                         float (&x)[S], const float (&u)[U]) {
   using R = GPRow<S, U>;
@@ -169,7 +172,7 @@ __device__ __forceinline__ void gp_step(const float* sm, int M, int r, const GPC
 #pragma unroll
     for (int s = 0; s < S; ++s) acc[s] = fmaf(row[R::kZ + s], km, acc[s]);
   }
-  lane_sum<L, S>(acc);
+  lane_sum<L, S, Stride>(acc);
 #pragma unroll
   for (int s = 0; s < S; ++s) x[s] = x[s] + (acc[s] * g.out_std[s] + g.out_mean[s]);
 }

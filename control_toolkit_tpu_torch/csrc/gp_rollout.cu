@@ -28,34 +28,50 @@
 // K=16384, H=50, M=128 that is 2.6 GFLOP a call for K14 (0.04 ms at the
 // 67 TFLOP/s FP32 peak) and about 8.5 GFLOP for K10.  The inducing points
 // (M * 12 floats, 6 KB at M=128) are staged once a block and read from
-// shared memory.
-// - K14 runs one thread a rollout (L = 1), about four warps an SM at
-//   K=16384: each thread's loop is a dependent FP32 chain that nothing
-//   hides.  A first, simple kernel.
-// - K10 splits each rollout's loop over the M points across L lanes of a
-//   warp, forward and backward, in one launch (L a template parameter in
-//   {4, 8, 16, 32}, kGpLanes by default): L times the warps, each lane a
-//   chain M/L points long, then log2 L shuffle rounds a sum.  Every lane
-//   of a rollout carries the same x, lam and cotangent (the butterfly
-//   leaves the same bits on each); lane 0 alone stores xhist, the cost and
-//   dQ.  On an H100 80GB HBM3 at 700 W (PERF.md) its instructions bound
-//   it: at K=16384, H=50, M=128 its time is about 0.34 ms for the points'
-//   loops plus 0.01 ms for each lane's copy of the per-step work (the L
-//   sweep: about 0.38 ms at L = 4, 0.42 at 8, 0.51 at 16, 0.70 at 32; one
-//   thread a rollout took 0.68), and three 16-byte row loads a point or
-//   two and an 8-byte one time the same.
+// shared memory.  One thread a rollout left each thread a dependent FP32
+// chain of M points a step, about four warps an SM at K=16384, and nothing
+// hid it (K14 took 0.1975 ms so, K10 0.683).  So both kernels split each
+// rollout's loop over the M points across L lanes of a warp (L a template
+// parameter, a power of two; kGpThreads threads a block, so kGpThreads / L
+// rollouts): L times the warps, each lane a chain M/L points long, then
+// log2 L shuffle rounds a sum.  Every lane of a rollout carries the same x
+// (and K10's lam and cotangent: the butterfly leaves the same bits on
+// each); lane 0 alone stores the cost (and K10's xhist and dQ).  K14's
+// cost and K10's J take the same stage cost and gp_step<S, U, L> (the
+// butterfly pairs the lanes by r in the same order whatever their
+// stride), so at one L they are equal bit for bit.  On an H100 80GB HBM3
+// at 700 W (PERF.md):
+// - K10 (a rollout's lanes adjacent) is bound by its instructions: at
+//   K=16384, H=50, M=128 about 0.34 ms for the points' loops plus 0.01 ms
+//   for each lane's copy of the per-step work (about 0.38 ms at L = 4,
+//   0.42 at 8, 0.51 at 16, 0.70 at 32; one thread a rollout took 0.68),
+//   and three 16-byte row loads a point or two and an 8-byte one time the
+//   same.
+// - K14, forward only, has fewer operations a row load.  With a rollout's
+//   lanes adjacent each quarter of the warp reads L rows a load, and it
+//   took 0.157, 0.151, 0.162 and 0.206 ms at L = 2, 4, 8 and 16.  Its
+//   lanes are spread instead (lane r of the warp's rollout j at r * 32 / L
+//   + j), so a quarter of the warp reads one row a load: 0.255, 0.163,
+//   0.135, 0.151 and 0.186 ms at L = 1, 2, 4, 8 and 16 (at L = 1 a block
+//   holds 256 rollouts, and K=16384 fills 64 of the 132 SMs).
 #include "gp_core.cuh"
 
 namespace ctt {
 
-constexpr int kGpThreads = 256;  // K10's threads a block: kGpThreads / L rollouts
+constexpr int kGpThreads = 256;  // threads a K14 or K10 block: kGpThreads / L rollouts
 // K10's lanes a rollout where the caller leaves it to the kernel: the
 // fastest of 4, 8, 16 and 32 at K=16384, H=50 over SGP_128 (H100 80GB
 // HBM3, 700 W; PERF.md).
 constexpr int kGpLanes = 4;
+// K14's: the fastest of 1, 2, 4, 8 and 16 at K=16384, H=50 over SGP_128
+// (H100 80GB HBM3, 700 W; PERF.md).
+constexpr int kGpCostLanes = 4;
 
-template <class Cost>
-__global__ void __launch_bounds__(kThreads)
+// K14 with L lanes a rollout, spread over the warp: its R = 32 / L
+// rollouts j take lanes j, j + R, .. (lane r of rollout j at r * R + j), so
+// each quarter of the warp reads one inducing point's row a load.
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
 gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                        const float* __restrict__ pvec, float* __restrict__ cost, int K, int H,
                        float max_cost, GPArgs gp) {
@@ -64,8 +80,12 @@ gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q
   float* sm = reinterpret_cast<float*>(smem4);
   stage_gp<S, U>(sm, gp);
   __syncthreads();
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
+  constexpr int R = 32 / L;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x, r = (t & 31) / R;
+  if ((t & ~31) / L >= K) return;  // a warp with no rollout below K
+  // Lanes past K (ragged K) repeat rollout K-1 for the shuffles and write
+  // nothing.
+  const int k = (t >> 5) * R + (t & (R - 1)), kc = k < K ? k : K - 1;
   GPConsts<S, U> g;
   g.load(gp);
   float c[Cost::kN];
@@ -73,20 +93,20 @@ gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(k) * S + i);
+  for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
 #pragma unroll
   for (int j = 0; j < U; ++j) prev[j] = c[Cost::kUPrev + j];
-  const float* q = Q + static_cast<size_t>(k) * H * U;
+  const float* q = Q + static_cast<size_t>(kc) * H * U;
   for (int h = 0; h < H; ++h) {
     float u[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) u[j] = __ldg(q + h * U + j);
     acc = acc + Cost::stage_cost(x, u, prev, c, max_cost);
-    gp_step<S, U, 1>(sm, gp.M, 0, g, x, u);
+    gp_step<S, U, L, R>(sm, gp.M, r, g, x, u);
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  if (r == 0 && k < K) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
 }
 
 // K10 with L lanes a rollout: lanes r = 0..L-1 of each aligned group of L
@@ -180,27 +200,50 @@ int launch_gp(Kernel kernel, long& allowed, const GPArgs& gp, int K, int lanes, 
   return static_cast<int>(cudaGetLastError());
 }
 
-long k10_allowed[4] = {0, 0, 0, 0};  // K10's dynamic shared memory allowed so far, by L
+constexpr int ilog2(int n) { return n > 1 ? 1 + ilog2(n / 2) : 0; }
+
+// The dynamic shared memory allowed so far to K14 ([0]) and K10 ([1]) with
+// L lanes a rollout, at [log2 L].
+long gp_allowed[2][6] = {};
+
+// K14 (grad false) or K10 (grad true) with L lanes a rollout.
+template <bool Grad, int L>
+auto gp_kernel() {
+  if constexpr (Grad) {
+    return gp_grad_cost_rollout_kernel<CartpoleCost, L>;
+  } else {
+    return gp_cost_rollout_kernel<CartpoleCost, L>;
+  }
+}
+
+// Launch K14 with L lanes a rollout.
+template <int L>
+int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
+               float max_cost, const GPArgs& gp, void* stream) {
+  return launch_gp(gp_kernel<false, L>(), gp_allowed[0][ilog2(L)], gp, K, L, kGpThreads, stream,
+                   static_cast<const float*>(s0), static_cast<const float*>(Q),
+                   static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost);
+}
 
 // Launch K10 with L lanes a rollout.
 template <int L>
 int launch_k10(const void* s0, const void* Q, const void* pvec, void* cost, void* dQ,
                void* xhist, int K, int H, float max_cost, float ct, const GPArgs& gp,
-               long& allowed, void* stream) {
-  return launch_gp(gp_grad_cost_rollout_kernel<CartpoleCost, L>, allowed, gp, K, L, kGpThreads,
-                   stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
+               void* stream) {
+  return launch_gp(gp_kernel<true, L>(), gp_allowed[1][ilog2(L)], gp, K, L, kGpThreads, stream,
+                   static_cast<const float*>(s0), static_cast<const float*>(Q),
                    static_cast<const float*>(pvec), static_cast<float*>(cost),
                    static_cast<float*>(dQ), static_cast<float*>(xhist), K, H, max_cost, ct);
 }
 
-// Blocks of K10 with L lanes a rollout that one SM holds for M inducing
-// points (0 where M is refused).
-template <int L>
-int k10_blocks_per_sm(int M, long& allowed) {
-  auto kernel = gp_grad_cost_rollout_kernel<CartpoleCost, L>;
+// Blocks of K14 or K10 with L lanes a rollout that one SM holds for M
+// inducing points (0 where M is refused).
+template <bool Grad, int L>
+int gp_blocks_per_sm(int M) {
+  auto kernel = gp_kernel<Grad, L>();
   const long bytes = gp_smem_bytes<CartpoleCost::S, CartpoleCost::U>(M);
   int blocks = 0;
-  if (bytes < 0 || allow_smem(kernel, bytes, allowed) != cudaSuccess ||
+  if (bytes < 0 || allow_smem(kernel, bytes, gp_allowed[Grad][ilog2(L)]) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kGpThreads, bytes) !=
           cudaSuccess) {
     return 0;
@@ -217,61 +260,71 @@ extern "C" long ctt_gp_smem_bytes(int S, int U, int M) {
   return ctt::gp_smem_bytes<ctt::CartpoleCost::S, ctt::CartpoleCost::U>(M);
 }
 
-// Launches K14 on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown plant or an M whose inducing points
-// exceed a block's shared memory.
+// Launches K14 on `stream` with `lanes` lanes a rollout (1, 2, 4, 8 or 16;
+// 0 for kGpCostLanes); returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unknown plant, another `lanes`, or an M
+// whose inducing points exceed a block's shared memory.
 extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                   void* cost, int K, int H, float max_cost,
+                                   void* cost, int K, int H, float max_cost, int lanes,
                                    const ctt::GPArgs* gp, void* stream) {
-  static long allowed = 0;
+  using ctt::launch_k14;
   if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
-  return ctt::launch_gp(ctt::gp_cost_rollout_kernel<ctt::CartpoleCost>, allowed, *gp, K, 1,
-                        ctt::kThreads, stream, static_cast<const float*>(s0),
-                        static_cast<const float*>(Q), static_cast<const float*>(pvec),
-                        static_cast<float*>(cost), K, H, max_cost);
+  switch (lanes == 0 ? ctt::kGpCostLanes : lanes) {
+    case 1: return launch_k14<1>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    case 2: return launch_k14<2>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    case 4: return launch_k14<4>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    case 8: return launch_k14<8>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    case 16: return launch_k14<16>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Launches K10 on `stream` with `lanes` lanes a rollout (4, 8, 16 or 32;
-// 0 for kGpLanes); returns as above, or cudaErrorInvalidValue for another
-// `lanes`.  xhist is scratch of H*S*K floats that the caller allocates.
+// 0 for kGpLanes); returns as above.  xhist is scratch of H*S*K floats that
+// the caller allocates.
 extern "C" int ctt_gp_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                         const void* pvec, void* cost, void* dQ, void* xhist,
                                         int K, int H, float max_cost, float ct, int lanes,
                                         const ctt::GPArgs* gp, void* stream) {
-  using ctt::k10_allowed;
+  using ctt::launch_k10;
   if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
   switch (lanes == 0 ? ctt::kGpLanes : lanes) {
-    case 4:
-      return ctt::launch_k10<4>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
-                                k10_allowed[0], stream);
-    case 8:
-      return ctt::launch_k10<8>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
-                                k10_allowed[1], stream);
+    case 4: return launch_k10<4>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
+    case 8: return launch_k10<8>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
     case 16:
-      return ctt::launch_k10<16>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
-                                 k10_allowed[2], stream);
+      return launch_k10<16>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
     case 32:
-      return ctt::launch_k10<32>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp,
-                                 k10_allowed[3], stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_k10<32>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K10's layout for M inducing points with `lanes` lanes a rollout (0 for
-// kGpLanes): returns the lanes it takes, and in *block_threads and
-// *blocks_per_sm its threads a block and the blocks one SM holds; 0 (and
-// zeros) for a refused M or `lanes`.
-extern "C" int ctt_gp_grad_layout(int M, int lanes, int* block_threads, int* blocks_per_sm) {
-  using ctt::k10_allowed;
-  const int L = lanes == 0 ? ctt::kGpLanes : lanes;
+// The layout of K14 (grad 0) or K10 (grad 1) for M inducing points with
+// `lanes` lanes a rollout (0 for the kernel's own): returns the lanes it
+// takes, and in *block_threads and *blocks_per_sm its threads a block and
+// the blocks one SM holds; 0 (and zeros) for a refused M or `lanes`.
+extern "C" int ctt_gp_layout(int grad, int M, int lanes, int* block_threads,
+                             int* blocks_per_sm) {
+  using ctt::gp_blocks_per_sm;
+  const int L = lanes != 0 ? lanes : grad ? ctt::kGpLanes : ctt::kGpCostLanes;
   int blocks = 0;
-  switch (L) {
-    case 4: blocks = ctt::k10_blocks_per_sm<4>(M, k10_allowed[0]); break;
-    case 8: blocks = ctt::k10_blocks_per_sm<8>(M, k10_allowed[1]); break;
-    case 16: blocks = ctt::k10_blocks_per_sm<16>(M, k10_allowed[2]); break;
-    case 32: blocks = ctt::k10_blocks_per_sm<32>(M, k10_allowed[3]); break;
-    default: break;
+  if (grad) {
+    switch (L) {
+      case 4: blocks = gp_blocks_per_sm<true, 4>(M); break;
+      case 8: blocks = gp_blocks_per_sm<true, 8>(M); break;
+      case 16: blocks = gp_blocks_per_sm<true, 16>(M); break;
+      case 32: blocks = gp_blocks_per_sm<true, 32>(M); break;
+      default: break;
+    }
+  } else {
+    switch (L) {
+      case 1: blocks = gp_blocks_per_sm<false, 1>(M); break;
+      case 2: blocks = gp_blocks_per_sm<false, 2>(M); break;
+      case 4: blocks = gp_blocks_per_sm<false, 4>(M); break;
+      case 8: blocks = gp_blocks_per_sm<false, 8>(M); break;
+      case 16: blocks = gp_blocks_per_sm<false, 16>(M); break;
+      default: break;
+    }
   }
   *block_threads = blocks > 0 ? ctt::kGpThreads : 0;
   *blocks_per_sm = blocks;

@@ -12,7 +12,10 @@ glue between them:
 
 * pass 1, ``fused_mppi_costs(model, s0 [S], u_nom [H,U], pvec, seed2, W
   [P,H], low, high, cc_weight, R, NU, stdev, K, tile_k) -> cost [K]``: K2's
-  function (``ops/mppi_cost.py``) over that noise, drawn in the kernel;
+  function (``ops/mppi_cost.py``) over that noise, drawn in the kernel
+  with the controls ahead of the steps (``csrc/mppi_ahead.cuh``); at
+  ``cc_weight = 0`` its costs are K1's over ``mppi_controls_plain``'s
+  controls of that noise;
 * ``rho = min S`` and ``a = sum exp(-(S - rho)/LBD)`` in torch on the
   device, as XLA computes them in JAX, passed on as ``red = [rho, a]``;
 * pass 2, ``fused_mppi_weights(seed2, cost, red, P, U, LBD, K, tile_k) ->

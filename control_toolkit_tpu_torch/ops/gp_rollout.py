@@ -19,10 +19,12 @@ packed layout only.  The step is models/gp_predictor.py's
 into one affine transform (``Zs = Z / ls``, ``inv_in = 1 / (in_std *
 ls)``); a re-fit is a new set of tensors, never a rebuild.
 
-The CUDA kernel is ``csrc/gp_rollout.cu`` (its source note says what
-bounds it on the card); ``gp_cost_rollout_plain`` is the same function in
-PyTorch.  The wrapper runs the plain version only when every operand lies
-on the CPU; for CUDA operands it launches the kernel or raises.
+The CUDA kernel is ``csrc/gp_rollout.cu``, each rollout's step split
+over the lanes of a warp as K10's is (``gp_cost_rollout_lanes`` picks
+their number; its source note says what bounds it on the card);
+``gp_cost_rollout_plain`` is the same function in PyTorch.  The wrapper
+runs the plain version only when every operand lies on the CPU; for CUDA
+operands it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -71,7 +73,19 @@ def gp_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
                     pvec: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
     """K14: per-rollout trajectory cost ``[K]`` under the GP; see the module
     docstring."""
+    return gp_cost_rollout_lanes(model, s0, Q, pvec, ops, 0)
+
+
+def gp_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                          pvec: torch.Tensor, ops: Dict[str, torch.Tensor], lanes: int
+                          ) -> torch.Tensor:
+    """K14 with ``lanes`` lanes a rollout (1, 2, 4, 8 or 16; 0 for the
+    kernel's own, which ``gp_cost_rollout`` takes): the split's measurement
+    (chip_smoke.py phase 20).  Counted as K14's launches."""
     check_shapes("gp_cost_rollout", s0, Q, pvec)
+    if lanes not in (0, 1, 2, 4, 8, 16):
+        raise ValueError(f"gp_cost_rollout: {lanes} lanes a rollout (1, 2, 4, 8 or 16; 0: the "
+                         "kernel's)")
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_cost_rollout_plain(model, s0, Q, pvec, ops)
     args, tensors = model.gp_args(ops)
@@ -83,7 +97,7 @@ def gp_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
     with torch.cuda.device(device):
         rc = kernels.load().ctt_gp_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, H, model.max_cost, args,
+            cost.data_ptr(), K, H, model.max_cost, lanes, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, f"gp_cost_rollout (M={args.M} inducing points)")

@@ -31,7 +31,7 @@ SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_ro
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
            "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh",
-           "short_step.cuh")
+           "short_step.cuh", "mppi_ahead.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -289,13 +289,14 @@ class GPArgs(ctypes.Structure):
     _fields_ = [("M", ctypes.c_int)] + [(name, ctypes.c_void_p) for name in GP_OPERANDS]
 
 
-def gp_grad_layout(M: int, lanes: int = 0) -> Tuple[int, int, int]:
-    """K10's layout (csrc/gp_rollout.cu) for M inducing points with
-    ``lanes`` lanes a rollout (0: the kernel's own): ``(lanes, threads a
-    block, blocks an SM holds)``, zeros where the kernel refuses M or
-    ``lanes``."""
+def gp_layout(M: int, lanes: int = 0, grad: bool = True) -> Tuple[int, int, int]:
+    """K10's (``grad``) or K14's layout (csrc/gp_rollout.cu) for M inducing
+    points with ``lanes`` lanes a rollout (0: the kernel's own): ``(lanes,
+    threads a block, blocks an SM holds)``, zeros where the kernel refuses
+    M or ``lanes``."""
     threads, blocks = ctypes.c_int(), ctypes.c_int()
-    taken = load().ctt_gp_grad_layout(M, lanes, ctypes.byref(threads), ctypes.byref(blocks))
+    taken = load().ctt_gp_layout(int(grad), M, lanes, ctypes.byref(threads),
+                                 ctypes.byref(blocks))
     return int(taken), threads.value, blocks.value
 
 
@@ -498,14 +499,15 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_residual_grad_cost_rollout.restype = i32
         gp = ctypes.POINTER(GPArgs)
-        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, gp, ptr]
+        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, i32, gp,
+                                            ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, gp, ptr,
         ]
         lib.ctt_gp_grad_cost_rollout.restype = i32
-        lib.ctt_gp_grad_layout.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
-        lib.ctt_gp_grad_layout.restype = i32
+        lib.ctt_gp_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.ctt_gp_layout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
         lib.ctt_gp_smem_bytes.restype = ctypes.c_long
         lib.ctt_fused_cem.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

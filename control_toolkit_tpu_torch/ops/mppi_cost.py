@@ -37,32 +37,46 @@ def _corr_consts(cc_weight: float, R: float, NU: float):
     return float(cc_weight), 0.5 * (1.0 - 1.0 / NU) * R, float(R), 0.5 * R
 
 
-def mppi_cost_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, high,
-                    cc_weight: float, R: float, NU: float) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch (pallas_mppi.py:214-274)."""
-    p = model.unpack(pvec)
-    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
-                                model.intermediate_steps)
-    cc, c1, r, c3 = _corr_consts(cc_weight, R, NU)
+def mppi_controls_plain(eps, W, u_nom, low, high):
+    """The perturbations ``d`` and the clipped controls ``u``, each ``[K,
+    H, U]``, of the kernels' interpolation (pallas_mppi.py:226-240): step
+    h takes the two inducing points bracketing it, the left one moved
+    right where its weight in ``W`` has dropped to zero; ``d = W[p0,h] *
+    eps[p0] + W[p0+1,h] * eps[p0+1]``, each product and the sum rounded,
+    and ``u = clamp(u_nom[h] + d, low, high)``."""
     P, U, K = eps.shape
     H = u_nom.shape[0]
     Wl = W.tolist()
-    xs = tuple(s0[i].expand(K) for i in range(s0.shape[0]))
-    prev_us = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
-    acc = torch.zeros(K, dtype=eps.dtype, device=eps.device)
-    corr = torch.zeros(K, dtype=eps.dtype, device=eps.device)
+    us, ds = [], []
     p0 = 0
     for h in range(H):
         while p0 + 1 < P and Wl[p0][h] == 0.0:
             p0 += 1
-        us, dus = [], []
         for j in range(U):
             d = W[p0, h] * eps[p0, j]
             if p0 + 1 < P:
                 d = d + W[p0 + 1, h] * eps[p0 + 1, j]
             us.append(torch.clamp(u_nom[h, j] + d, low[j], high[j]))
-            dus.append(d)
-        us = tuple(us)
+            ds.append(d)
+    return (torch.stack(us, dim=1).reshape(K, H, U), torch.stack(ds, dim=1).reshape(K, H, U))
+
+
+def mppi_controls_cost_plain(model: kernels.RolloutModel, s0, u, d, pvec, cc_weight: float,
+                             R: float, NU: float) -> torch.Tensor:
+    """The MPPI cost ``[K]`` of the controls ``u`` and perturbations ``d``
+    ``[K, H, U]`` from s0 (pallas_mppi.py:241-274): the rollout's stage and
+    terminal costs over H+1 plus the correction summed in h order."""
+    p = model.unpack(pvec)
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
+                                model.intermediate_steps)
+    cc, c1, r, c3 = _corr_consts(cc_weight, R, NU)
+    K, H, U = u.shape
+    xs = tuple(s0[i].expand(K) for i in range(s0.shape[0]))
+    prev_us = tuple(p[f"__u_prev_{j}"].expand(K) for j in range(U))
+    acc = torch.zeros(K, dtype=u.dtype, device=u.device)
+    corr = torch.zeros(K, dtype=u.dtype, device=u.device)
+    for h in range(H):
+        us, dus = tuple(u[:, h, j] for j in range(U)), tuple(d[:, h, j] for j in range(U))
         acc = acc + model.stage(xs, us, prev_us, p)
         for j in range(U):
             corr = corr + cc * (
@@ -71,6 +85,13 @@ def mppi_cost_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, h
         xs = one_step(xs, us, p)
         prev_us = us
     return (acc + model.terminal(xs, p)) / (H + 1) + corr
+
+
+def mppi_cost_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, high,
+                    cc_weight: float, R: float, NU: float) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch (pallas_mppi.py:214-274)."""
+    u, d = mppi_controls_plain(eps, W, u_nom, low, high)
+    return mppi_controls_cost_plain(model, s0, u, d, pvec, cc_weight, R, NU)
 
 
 def mppi_cost(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch.Tensor,

@@ -1,6 +1,8 @@
 """The port's fully-fused MPPI (K3, ``ops/fused_mppi.py``; the
 ``fully_fused`` path of ``optimizers/mppi.py``) against the JAX package's
-two-pass ``kernel_step`` in interpret mode (tile 64), fed the same seed.
+two-pass ``kernel_step`` in interpret mode (tile 64), fed the same seed;
+and pass 1's controls (``mppi_controls_plain``), its equality with K1's
+costs over them at cc_weight 0 and its bound against four wrong variants.
 
 Costs to rtol 1e-5 (the same controls: the interpolation rounds as the
 JAX matmul does up to an FMA, over 20 rk4 steps); the new plan elementwise
@@ -16,11 +18,13 @@ import torch
 
 from control_toolkit_tpu.controllers.mpc import MPCController as JaxMPC
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
 from control_toolkit_tpu_torch.ops.fused_mppi import (
     WEIGHT_BLOCK, fused_mppi_costs, fused_mppi_costs_plain, fused_mppi_step, fused_mppi_step_plain,
     fused_mppi_weights, fused_mppi_weights_plain, mppi_noise,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
+from control_toolkit_tpu_torch.ops.mppi_cost import mppi_controls_plain
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, params_from_numpy
 from test_torch_kernels import cuda_device  # noqa: F401  (fixture)
@@ -179,10 +183,86 @@ def test_fused_controller_ticks_hold_the_pole():
     assert abs(float(s[0, 2])) < 0.2, f"fused MPPI lost the pole: {s[0]}"
 
 
+def pass1_args(H_: int, cc_weight: float = 1.0, K_: int = K, tile: int = TILE, device=CPU):
+    """Pass 1's operands at horizon H_ (inducing period 10, as
+    chip_smoke.py's: P=6 at H=50, P=14 at H=130, three 64-control chunks):
+    the port's controller's model and pvec, u_nom and s0 from a seed."""
+    pctrl = make_port_ctrl(64, 10)
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    rng = np.random.default_rng(H_)
+    u_nom = torch.tensor(rng.uniform(-0.5, 0.5, (H_, 1)), dtype=torch.float32, device=device)
+    W = torch.as_tensor(interpolation_matrix(H_, 10), device=device)
+    lim = torch.ones(1, device=device)
+    return (model, torch.tensor([0.02, -0.1, 0.05, 0.1], device=device), u_nom,
+            pack(pctrl._assemble_params(), torch.tensor([0.1])).to(device),
+            torch.tensor([77, 2], dtype=torch.int32, device=device), W, -lim, lim, cc_weight, 1.0,
+            1000.0, 0.2, K_, tile)
+
+
+@pytest.mark.parametrize("H_", [20, 50, 130])
+def test_mppi_controls_plain_reproduces_the_controls_of_the_cost(H_):
+    """mppi_controls_plain's (u, d) equal, bit for bit, those of the bracket
+    walk that mppi_cost_plain (and so pass 1's plain version) ran inline
+    before it was factored out: the left bracket moved right where its
+    weight has dropped to zero, d = W[p0,h] eps[p0] + W[p0+1,h] eps[p0+1],
+    u = clamp(u_nom + d)."""
+    _, _, u_nom, _, seed2, W, low, high, *_ = pass1_args(H_)
+    P = W.shape[0]
+    eps = mppi_noise(seed2, K, P, 1, TILE) * 0.2
+    u, d = mppi_controls_plain(eps, W, u_nom, low, high)
+    Wl, p0 = W.tolist(), 0
+    for h in range(H_):
+        while p0 + 1 < P and Wl[p0][h] == 0.0:
+            p0 += 1
+        ref_d = W[p0, h] * eps[p0, 0]
+        if p0 + 1 < P:
+            ref_d = ref_d + W[p0 + 1, h] * eps[p0 + 1, 0]
+        assert torch.equal(d[:, h, 0], ref_d)
+        assert torch.equal(u[:, h, 0], torch.clamp(u_nom[h, 0] + ref_d, low[0], high[0]))
+    assert u.shape == d.shape == (K, H_, 1)
+
+
+@pytest.mark.parametrize("H_", [50, 130])
+def test_pass1_plain_at_cc_zero_is_k1_plain_over_its_controls(H_):
+    """At cc_weight 0, pass 1's plain version equals K1's plain version over
+    mppi_controls_plain's controls of the same noise, bit for bit: the
+    contract that lets chip_smoke.py require the card's pass 1 to equal K1
+    there (share 1.0), so that check holds the draws and the
+    interpolation."""
+    args = pass1_args(H_, cc_weight=0.0)
+    model, s0, u_nom, pvec, seed2, W, low, high = args[:8]
+    u, _ = mppi_controls_plain(mppi_noise(seed2, K, W.shape[0], 1, TILE) * 0.2, W, u_nom, low,
+                               high)
+    assert torch.equal(fused_mppi_costs_plain(*args),
+                       cost_rollout_plain(model, s0.expand(K, -1), u, pvec))
+
+
+@pytest.mark.parametrize("kind,H_", [("controls_one_step_early", 50),
+                                     ("second_point_dropped", 50),
+                                     ("next_rollout_counters", 50),
+                                     ("bracket_restarted_each_chunk", 130)])
+def test_pass1_mutants_are_rejected_by_the_kernel_bound(kind, H_):
+    """chip_smoke.py's wrong variants of pass 1 (``k3_mutants``), built
+    from the plain version, each outside KERNEL_TOL of it: the bound that
+    phase 28 holds the card's pass 1 to at H=50 rejects them (the chunk
+    restart, which only a horizon past 64 steps shows, at H=130)."""
+    from chip_smoke import KERNEL_TOL, k3_mutants
+
+    args = pass1_args(H_)
+    ref = fused_mppi_costs_plain(*args)
+    wrong = k3_mutants(args, (kind,))[kind]
+    assert wrong.shape == ref.shape and bool(torch.isfinite(wrong).all())
+    assert not torch.allclose(wrong, ref, **KERNEL_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_k3_passes_match_plain_versions(cuda_device):
     """Each pass against its plain version on the same card tensors (K not a
-    multiple of the block), pass 2 after the block sum, and the whole step."""
+    multiple of the block), pass 2 after the block sum, and the whole step;
+    pass 1 at cc_weight 0 equal to K1 over mppi_controls_plain's controls,
+    at H=50 and at H=130 (three 64-control chunks), and at H=130 within
+    twice the float32 plain version's distance from float64 (correct
+    float32 drifts past KERNEL_TOL over 130 steps)."""
     pctrl = make_port_ctrl(64, 10)
     model, pack = ode.rollout_model(pctrl.optimizer)
     dev = cuda_device
@@ -209,3 +289,18 @@ def test_cuda_k3_passes_match_plain_versions(cuda_device):
     un_p, c_p = fused_mppi_step_plain(*step)
     torch.testing.assert_close(c, c_p, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(un, un_p, rtol=1e-4, atol=1e-5)
+    for H_ in (50, 130):
+        for cc_weight in (0.0, 1.0):
+            a = pass1_args(H_, cc_weight, Kc, tile, dev)
+            got = fused_mppi_costs(*a)
+            if cc_weight == 0.0:
+                u, _ = mppi_controls_plain(mppi_noise(a[4], Kc, a[5].shape[0], 1, tile) * 0.2,
+                                           a[5], a[2], a[6], a[7])
+                assert torch.equal(got, cost_rollout(a[0], a[1].expand(Kc, -1).contiguous(), u,
+                                                     a[3]))
+            f64 = tuple(t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+                        for t in a)
+            ref64 = fused_mppi_costs_plain(*f64)
+            plain_dist = float((fused_mppi_costs_plain(*a).double() - ref64).abs().max())
+            bound = 2.0 * plain_dist + 1e-6 * float(ref64.abs().max())
+            assert float((got.double() - ref64).abs().max()) <= bound

@@ -4,9 +4,9 @@ GPPredictor and its spec, K14's and K10's plain versions
 package's Pallas kernels in interpret mode, the GP step's hand-written
 adjoint against ``torch.autograd``, a re-fit through the same built step,
 one MPPI and one rpgd-tf controller tick, the committed GP, K10's
-lane-split sum order emulated on the CPU against the bounds the card's
-K10 is held to, and — on a machine with a card only — each CUDA kernel
-against its plain version.
+and K14's lane-split sum order emulated on the CPU against the bounds the
+card's kernels are held to, and — on a machine with a card only — each
+CUDA kernel against its plain version.
 
 Both packages get the same GP (a JAX fit, written with the JAX
 ``GPPredictor.save``) and the same inputs and noise, made with numpy from
@@ -44,8 +44,9 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_plain, gp_step,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_lanes, gp_cost_rollout_plain, gp_step,
 )
+from control_toolkit_tpu_torch.ops.neural_rollout import plain_cost_loop
 from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
 from control_toolkit_tpu_torch.utils.convert import params_from_numpy
 from test_torch_mppi import (
@@ -512,15 +513,48 @@ def test_k10_lane_split_sum_order_stays_within_the_kernel_bounds(case, lanes, re
     record_property("k10_lane_split_distances", found)
 
 
+@pytest.mark.parametrize("lanes", [2, 4, 8, 16])
+@pytest.mark.parametrize("case", GP_CASES)
+def test_k14_lane_split_sum_order_stays_within_the_kernel_bounds(case, lanes, record_property):
+    """K14's sums over the inducing points taken in its lane split's order
+    (its forward step is K10's: per-lane fmaf partial sums over m = lane
+    mod L, then the xor butterfly, whatever the lanes' stride in the
+    warp), emulated in float32 over chip_smoke.py phase 20's GPs at H=50,
+    stay within the bounds phase 20 holds the card's K14 to: over a
+    well-conditioned GP (M=128, and M=100, not a multiple of 8 or 16) the
+    cost to NET_TOL; over the committed GP, no further from the float64
+    plain version than GP_F64_FACTOR times the float32 plain version's
+    distance, plus 1e-6 of its largest cost, over 512 rollouts: over 64 the
+    plain version's largest distance is too noisy a yardstick (0.38 there,
+    where the emulation at 2 lanes is 0.93; over 512, 0.84 and 0.77)."""
+    from chip_smoke import GP_F64_FACTOR, NET_TOL
+
+    model, s0, Q, pvec, ops = gp_grad_problem(case, K_=512 if case == "committed" else 64)
+    got = plain_cost_loop(model, s0, Q, pvec, k10_lane_split(ops, lanes)[0])
+    plain = gp_cost_rollout_plain(model, s0, Q, pvec, ops)
+    found = {"cost": float((got - plain).abs().max())}
+    if case == "committed":
+        ref64 = gp_cost_rollout_plain(model, s0.double(), Q.double(), pvec.double(),
+                                      {k: v.double() for k, v in ops.items()})
+        dist, plain_dist = (float((t.double() - ref64).abs().max()) for t in (got, plain))
+        found["cost_f64"], found["cost_plain_f64"] = dist, plain_dist
+        assert dist <= GP_F64_FACTOR * plain_dist + 1e-6 * float(ref64.abs().max()), found
+    else:
+        assert torch.allclose(got, plain, **NET_TOL), found
+    record_property("k14_lane_split_distances", found)
+
+
 # ---- on the card ----------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("Kc,M", [(1000, 128), (8, 128), (1000, 100)])
-@pytest.mark.parametrize("grad", [False, True])
-def test_cuda_kernels_match_plain_versions(grad, Kc, M):
-    """K14 and K10 against their plain versions on the same card tensors,
-    at K=1000 (ragged) and K=8 (below one warp of K10's lanes), H=50
-    (chip_smoke.py phases 20-21), over the committed GP's M=128 inducing
-    points or its first 100 (not a multiple of K10's lanes).  Over a
+@pytest.mark.parametrize("grad,lanes", [(False, 0), (False, 1), (False, 2), (False, 4),
+                                        (False, 8), (False, 16), (True, 0)])
+def test_cuda_kernels_match_plain_versions(grad, lanes, Kc, M):
+    """K14 (at its own lanes a rollout and at each of 1-16) and K10 against
+    their plain versions on the same card tensors, at K=1000 (ragged) and
+    K=8 (below one warp of the kernels' lanes), H=50 (chip_smoke.py phases
+    20-21), over the committed GP's M=128 inducing points or its first 100
+    (not a multiple of 8 or 16 lanes).  Over a
     well-conditioned GP of the committed one's widths (its alpha drawn
     N(0, 1), so the mean does not cancel in float32), to K11's and K7's
     bounds: the cost to rtol 5e-5 (K14) or 1e-4 (K10) plus 1e-3, dQ to rtol
@@ -572,7 +606,7 @@ def test_cuda_kernels_match_plain_versions(grad, Kc, M):
         no_gprev[:, :-1] += change[:, 1:]
         assert not torch.allclose(no_gprev, ref_dQ, **dq_tol)
     else:
-        torch.testing.assert_close(gp_cost_rollout(model, s0, Q, pvec, well),
+        torch.testing.assert_close(gp_cost_rollout_lanes(model, s0, Q, pvec, well, lanes),
                                    gp_cost_rollout_plain(model, s0, Q, pvec, well),
                                    rtol=5e-5, atol=1e-3)
     ops = flatten_gp_weights(fitted)
@@ -583,7 +617,7 @@ def test_cuda_kernels_match_plain_versions(grad, Kc, M):
                    gp_grad_cost_rollout_plain(model, s0_ref, Q_ref, pvec, ops),
                    gp_grad_cost_rollout_plain(*args64))
     else:
-        outs = [(gp_cost_rollout(model, s0, Q, pvec, ops),
+        outs = [(gp_cost_rollout_lanes(model, s0, Q, pvec, ops, lanes),
                  gp_cost_rollout_plain(model, s0_ref, Q_ref, pvec, ops),
                  gp_cost_rollout_plain(*args64))]
     for got, plain, ref64 in outs:
