@@ -15,7 +15,14 @@ numbers:
    K1 also at ragged K (1000 and 8), with the euler integrator and two rk4
    sub-steps, at H=130 against float64, its bound against the controls
    read one step early and from the next rollout's row, its time at K=16
-   to 8192, its registers and the loops of its SASS (``k1_cases``);
+   to 8192, its registers and the loops of its SASS (``k1_cases``); K2
+   also at ragged K and P=1, its bound against the controls read one step
+   early, the bracket's second point dropped and the next rollout's noise,
+   its costs at cc_weight 0 equal to K1's over mppi_controls_plain's
+   controls, at H=130 (P=14, three chunks) equal to K1's there, against
+   float64 and its bound against the bracket restarted at a chunk's head,
+   its time at K=16 to 8192, its registers and the loops of its SASS
+   (``k2_cases``, ``k2_resources``);
 4. 200 closed-loop MPPI ticks on the default (semi-fused, K2) path, with a
    target change midway that must not rebuild anything;
 5. 50 MPPI ticks with semi_fused=False (the modular path, K1);
@@ -154,7 +161,11 @@ cem_best_k 40, warmup off, seed 1) over K6:
 35. K4 (mppi_cost_cols) against its plain version at 128 sessions with
     per-slot lengths over 0.35-0.65, targets and previous controls, and the
     cost bound against a kernel that reads session b+1's rows and one that
-    takes every session's previous control from slot 0;
+    takes every session's previous control from slot 0; K4 also at a ragged
+    B*K (3 sessions of K=1000), equal to K1 per session at cc_weight 0, at
+    H=130 against float64 and K1 with the chunk-restart mutant rejected,
+    its time at 32 and 128 sessions, its registers and the loops of its
+    SASS (``k4_cases``, ``k4_resources``);
 36. K6 (fused_cem_cols) against its plain version at 128 sessions, its
     costs against K1's over the controls regen_cols draws again (equal in
     every entry), the elite rows' regeneration an exact subset of the full
@@ -373,18 +384,18 @@ RAGGED_K, WIDE_HIDDENS, WIDE_SEED = (1000, 8), (72, 72), 5
 # GP_FEW_POINTS (not a multiple of 8 or 16).
 NARROW_HIDDENS, GROUP_WARPS, GP_FEW_POINTS, GP_LANES = (13, 13), (1, 2, 4), 100, (4, 8, 16, 32)
 GP_COST_LANES = (1, 2, 4, 8, 16)
-# K1's, K3's, K7's, K8's, K9's, K10's, K11's, K13's and K14's time is also taken
-# at these K (ms_at_k); K1's, K3's, K7's, K10's, K11's, K13's and K14's also at
-# SMALL_K: one 16-rollout group alone on an SM, and one block of four
-# groups (K7: two and eight adjoint blocks).
+# K1's, K2's, K3's, K7's, K8's, K9's, K10's, K11's, K13's and K14's time is also
+# taken at these K (ms_at_k); K1's, K2's, K3's, K7's, K10's, K11's, K13's and
+# K14's also at SMALL_K: one 16-rollout group alone on an SM, and one block of
+# four groups (K7: two and eight adjoint blocks).
 K_SCALING, SMALL_K = (2048, 8192), (16, 64)
 # K12 is also held at ragged K and over a seeded residual net of
-# WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K1, K5 and
-# K6 at a horizon of CEM_LONG_H (past two of K5's and K6's 64-control
+# WIDE_HIDDENS (scale RES_WIDE_SCALE, no norms, as phase 19's); K1-K6 at a
+# horizon of CEM_LONG_H (past two of the controls-ahead kernels' 64-control
 # chunks, not a multiple of them), K5 timed at each of CEM_K (with tiles of
 # min(K, DEFAULT_TILE_K)).  Over 130 steps the pole's float32 rounding
 # grows until two correct float32 rollouts differ by more than KERNEL_TOL,
-# so there K1, K5 and K6 are held to the float64 plain version as the
+# so there K1-K6 are held to the float64 plain version as the
 # committed GP is: within GP_F64_FACTOR times the float32 plain version's
 # distance from it, plus 1e-6 of its largest cost.
 RES_WIDE_SCALE, CEM_LONG_H, CEM_K = 0.02, 130, (16, 2048, 8192, 16384)
@@ -627,21 +638,11 @@ def k1_cases(model, s0, Q, pvec) -> dict:
     cases = {f"K{k}": (model, *first_k(k, s0, Q)) for k in RAGGED_K}
     cases["euler"] = (dataclasses.replace(model, integrator="euler"), s0, Q)
     cases["rk4x2"] = (dataclasses.replace(model, intermediate_steps=2), s0, Q)
-    numbers = {}
-    for case, (m, s, q) in cases.items():
-        got, ref = cost_rollout(m, s, q, pvec), cost_rollout_plain(m, s, q, pvec)
-        torch.cuda.synchronize()
-        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
-        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
-              f"K1 {case}: bad output {errs}")
-        check(torch.allclose(got, ref, **KERNEL_TOL), f"K1 {case}: kernel disagrees {errs}")
-    ref = cost_rollout_plain(model, s0, Q, pvec)
-    numbers["mutant_max_rel_err"] = {}
-    for kind, q in k1_read_mutants(Q).items():
-        wrong = cost_rollout_plain(model, s0, q, pvec)
-        numbers["mutant_max_rel_err"][kind] = max_errors(wrong, ref)[1]
-        check(not torch.allclose(wrong, ref, **KERNEL_TOL),
-              f"K1: the cost bound does not reject {kind} {numbers}")
+    numbers = held_to_plain("K1", cost_rollout, cost_rollout_plain,
+                            {case: (*a, pvec) for case, a in cases.items()})
+    numbers["mutant_max_rel_err"] = rejected(
+        "K1", {kind: cost_rollout_plain(model, s0, q, pvec)
+               for kind, q in k1_read_mutants(Q).items()}, cost_rollout_plain(model, s0, Q, pvec))
     gen = torch.Generator(device=s0.device).manual_seed(SEED + 1)
     q_long = torch.clamp(0.3 * torch.randn(s0.shape[0], CEM_LONG_H, 1, generator=gen,
                                            device=s0.device), -1.0, 1.0)
@@ -1868,7 +1869,7 @@ def long_horizon_vs_float64(model, s0, Q, pvec, outs: dict, mutants=None) -> dic
     S] against the float64 plain version, each within GP_F64_FACTOR times
     the float32 plain version's distance from it plus 1e-6 of its largest
     cost; the bound must reject two faults of the 64-control chunks that
-    K5, K6 and K3's pass 1 compute ahead: the second chunk scored with the
+    K2-K6 compute ahead: the second chunk scored with the
     first's controls, and the last (partial) chunk with the second's; and
     the controls ``mutants`` (name -> controls) too."""
     ref64 = cost_rollout_plain(model, s0.double(), Q.double(), pvec.double())
@@ -1953,17 +1954,15 @@ def k3_mutant_controls(eps, W, u_nom, low, high, kind: str) -> tuple:
     return tuple(torch.stack(t).permute(2, 0, 1).contiguous() for t in (us, ds))
 
 
-def k3_mutants(args: tuple, kinds) -> dict:
-    """K3 pass 1's costs over fused_mppi_costs_plain's operands ``args``
-    with each fault of ``kinds``: ``controls_one_step_early`` (step h takes
-    the control and perturbation of h+1, the last step its own),
-    ``next_rollout_counters`` (rollout g draws rollout g+1's noise), and
-    k3_mutant_controls' two."""
-    model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k, tile_k = args
-    eps = mppi_noise(seed2, k, W.shape[0], u_nom.shape[1], tile_k) * stdev
+def mppi_mutants(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU, kinds) -> dict:
+    """The MPPI costs (mppi_controls_cost_plain) of the noise eps [P, U, K]
+    with each fault of ``kinds`` in the controls computed ahead of the
+    steps: ``controls_one_step_early`` (step h takes the control and
+    perturbation of h+1, the last step its own), ``next_rollout_eps``
+    (rollout k takes rollout k+1's noise), and k3_mutant_controls' two."""
     out = {}
     for kind in kinds:
-        if kind == "next_rollout_counters":
+        if kind == "next_rollout_eps":
             u, d = mppi_controls_plain(eps.roll(-1, 2), W, u_nom, low, high)
         elif kind == "controls_one_step_early":
             u, d = (torch.cat([t[:, 1:], t[:, -1:]], dim=1)
@@ -1974,44 +1973,84 @@ def k3_mutants(args: tuple, kinds) -> dict:
     return out
 
 
-def k3_long_horizon(args: tuple) -> dict:
-    """K3's pass 1 at a horizon of CEM_LONG_H (inducing period PERIOD: P=14,
-    two full 64-control chunks and a partial one) over compare_fused_mppi's
-    operands ``args``: at cc_weight 0, its costs equal K1's over
+def k3_mutants(args: tuple, kinds) -> dict:
+    """K3 pass 1's costs over fused_mppi_costs_plain's operands ``args``
+    with each fault of ``kinds``: mppi_mutants' over its counters' noise,
+    ``next_rollout_counters`` (rollout g draws rollout g+1's noise) being
+    its ``next_rollout_eps``."""
+    model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k, tile_k = args
+    eps = mppi_noise(seed2, k, W.shape[0], u_nom.shape[1], tile_k) * stdev
+    named = {"next_rollout_counters": "next_rollout_eps"}
+    out = mppi_mutants(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU,
+                       [named.get(kind, kind) for kind in kinds])
+    return {kind: out[named.get(kind, kind)] for kind in kinds}
+
+
+def mppi_long_horizon(label: str, kernel, plain, model, s0, pvec, eps, W, u_nom, low, high,
+                      cc_weight: float) -> dict:
+    """An MPPI cost kernel at a horizon of CEM_LONG_H (inducing period
+    PERIOD: P=14, two full 64-control chunks and a partial one) over the
+    noise eps [P, U, k] of its rollouts from s0 [S]: ``kernel(cc)`` its
+    costs at cc_weight cc, ``plain(cc, dtype)`` its plain version's on
+    operands of that type.  At cc_weight 0, its costs equal K1's over
     mppi_controls_plain's controls (share 1.0) and both against float64
     (long_horizon_vs_float64, whose bound must also reject
-    bracket_restarted_each_chunk); at the path's cc_weight, against the
-    float64 plain version within GP_F64_FACTOR times the float32 plain
+    bracket_restarted_each_chunk); at the path's ``cc_weight``, against
+    the float64 plain version within GP_F64_FACTOR times the float32 plain
     version's distance from it plus 1e-6 of its largest cost."""
+    k = eps.shape[2]
+    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    s_tiled = s0.expand(k, -1).contiguous()
+    got0, via_k1 = kernel(0.0), cost_rollout(model, s_tiled, u, pvec)
+    restarted, _ = k3_mutant_controls(eps, W, u_nom, low, high, "bracket_restarted_each_chunk")
+    numbers = {"k1_equal_share": float((got0 == via_k1).double().mean()),
+               **long_horizon_vs_float64(model, s_tiled, u, pvec, {label: got0, "k1": via_k1},
+                                         {"bracket_restarted_each_chunk": restarted})}
+    check(numbers["k1_equal_share"] == 1.0,
+          f"{label} at H={CEM_LONG_H}: its costs differ from K1's over its controls {numbers}")
+    numbers["corr"] = corr_vs_float64(label, kernel(cc_weight), plain(cc_weight, torch.float32),
+                                      plain(cc_weight, torch.float64))
+    return numbers
+
+
+def corr_vs_float64(label: str, got, plain32, ref64) -> dict:
+    """An MPPI kernel's costs ``got`` at the path's cc_weight and a long
+    horizon against its float64 plain version ``ref64``: within
+    GP_F64_FACTOR times the float32 plain version's (``plain32``) distance
+    from it plus 1e-6 of its largest cost."""
+    p_err = float((plain32.double() - ref64).abs().max())
+    numbers = {"f64_max_abs_err": float((got.double() - ref64).abs().max()),
+               "plain_f64_max_abs_err": p_err,
+               "bound": GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())}
+    check(bool(torch.isfinite(got).all()) and got.shape == ref64.shape
+          and numbers["f64_max_abs_err"] <= numbers["bound"],
+          f"{label} at H={CEM_LONG_H}: further from float64 than the plain version allows "
+          f"{numbers}")
+    return numbers
+
+
+def as_type(operands: tuple, dtype) -> tuple:
+    """``operands`` with each floating-point tensor cast to ``dtype``."""
+    return tuple(t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+                 for t in operands)
+
+
+def k3_long_horizon(args: tuple) -> dict:
+    """K3's pass 1 at a horizon of CEM_LONG_H over compare_fused_mppi's
+    operands ``args`` (mppi_long_horizon)."""
     model, s0, _, pvec, seed2, _, low, high, cc_weight, R, NU, stdev, k, tile_k = args
     gen = torch.Generator(device=s0.device).manual_seed(SEED + 2)
     u_nom = torch.clamp(0.2 * torch.randn(CEM_LONG_H, 1, generator=gen, device=s0.device),
                         -1.0, 1.0)
     W = torch.as_tensor(interpolation_matrix(CEM_LONG_H, PERIOD), device=s0.device)
-    cc0 = (model, s0, u_nom, pvec, seed2, W, low, high, 0.0, R, NU, stdev, k, tile_k)
-    eps = mppi_noise(seed2, k, W.shape[0], 1, tile_k) * stdev
-    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
-    s_tiled = s0.expand(k, -1).contiguous()
-    got0, via_k1 = fused_mppi_costs(*cc0), cost_rollout(model, s_tiled, u, pvec)
-    restarted, _ = k3_mutant_controls(eps, W, u_nom, low, high, "bracket_restarted_each_chunk")
-    numbers = {"k1_equal_share": float((got0 == via_k1).double().mean()),
-               **long_horizon_vs_float64(model, s_tiled, u, pvec, {"k3": got0, "k1": via_k1},
-                                         {"bracket_restarted_each_chunk": restarted})}
-    check(numbers["k1_equal_share"] == 1.0,
-          f"K3 pass 1 at H={CEM_LONG_H}: its costs differ from K1's over its controls {numbers}")
-    full = cc0[:8] + (cc_weight,) + cc0[9:]
-    f64 = tuple(t.double() if torch.is_tensor(t) and t.is_floating_point() else t for t in full)
-    ref64 = fused_mppi_costs_plain(*f64)
-    p_err = float((fused_mppi_costs_plain(*full).double() - ref64).abs().max())
-    got = fused_mppi_costs(*full)
-    numbers["corr"] = {"f64_max_abs_err": float((got.double() - ref64).abs().max()),
-                       "plain_f64_max_abs_err": p_err,
-                       "bound": GP_F64_FACTOR * p_err + 1e-6 * float(ref64.abs().max())}
-    check(bool(torch.isfinite(got).all()) and got.shape == (k,)
-          and numbers["corr"]["f64_max_abs_err"] <= numbers["corr"]["bound"],
-          f"K3 pass 1 at H={CEM_LONG_H}: further from float64 than the plain version allows "
-          f"{numbers}")
-    return numbers
+
+    def operands(cc):
+        return (model, s0, u_nom, pvec, seed2, W, low, high, cc, R, NU, stdev, k, tile_k)
+
+    return mppi_long_horizon(
+        "k3", lambda cc: fused_mppi_costs(*operands(cc)),
+        lambda cc, dtype: fused_mppi_costs_plain(*as_type(operands(cc), dtype)), model, s0, pvec,
+        mppi_noise(seed2, k, W.shape[0], 1, tile_k) * stdev, W, u_nom, low, high, cc_weight)
 
 
 def k3_cases(args: tuple) -> dict:
@@ -2025,21 +2064,10 @@ def k3_cases(args: tuple) -> dict:
     model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k_full, tile_k = args
     cases = {f"K{k}": args[:12] + (k, k) for k in RAGGED_K}
     cases["P1"] = args[:5] + (W[:1].contiguous(),) + args[6:]
-    numbers = {}
-    for case, a in cases.items():
-        got, ref = fused_mppi_costs(*a), fused_mppi_costs_plain(*a)
-        torch.cuda.synchronize()
-        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
-        check(bool(torch.isfinite(got).all()) and got.shape == (a[12],),
-              f"K3 pass 1 {case}: bad output {errs}")
-        check(torch.allclose(got, ref, **KERNEL_TOL), f"K3 pass 1 {case}: disagrees {errs}")
-    ref = fused_mppi_costs_plain(*args)
-    mutants = k3_mutants(args, ("controls_one_step_early", "second_point_dropped",
-                                "next_rollout_counters"))
-    numbers["mutant_max_rel_err"] = {kind: max_errors(m, ref)[1] for kind, m in mutants.items()}
-    for kind, m in mutants.items():
-        check(not torch.allclose(m, ref, **KERNEL_TOL),
-              f"K3 pass 1: the cost bound does not reject {kind} {numbers}")
+    numbers = held_to_plain("K3 pass 1", fused_mppi_costs, fused_mppi_costs_plain, cases)
+    numbers["mutant_max_rel_err"] = rejected("K3 pass 1", k3_mutants(
+        args, ("controls_one_step_early", "second_point_dropped", "next_rollout_counters")),
+        fused_mppi_costs_plain(*args))
     eps = mppi_noise(seed2, k_full, W.shape[0], 1, tile_k) * stdev
     u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
     got0 = fused_mppi_costs(*args[:8], 0.0, *args[9:])
@@ -2054,6 +2082,78 @@ def k3_cases(args: tuple) -> dict:
     out["resources"] = {**ptxas_resources("fused_mppi_cost_kernel"),
                         "sass": sass_loops("fused_mppi_cost_kernel") or "not measured"}
     emit("k3_resources", out["resources"])
+    return out
+
+
+def held_to_plain(label: str, kernel, plain, cases: dict) -> dict:
+    """``kernel(*a)`` against ``plain(*a)`` to KERNEL_TOL for the operands
+    ``a`` of each case; the errors by case."""
+    numbers = {}
+    for case, a in cases.items():
+        got, ref = kernel(*a), plain(*a)
+        torch.cuda.synchronize()
+        numbers[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+        check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+              f"{label} {case}: bad output {errs}")
+        check(torch.allclose(got, ref, **KERNEL_TOL), f"{label} {case}: kernel disagrees {errs}")
+    return numbers
+
+
+def rejected(label: str, mutants: dict, ref) -> dict:
+    """Each mutant's costs outside KERNEL_TOL of the plain version's ``ref``;
+    their max rel errors."""
+    errs = {kind: max_errors(m, ref)[1] for kind, m in mutants.items()}
+    for kind, m in mutants.items():
+        check(not torch.allclose(m, ref, **KERNEL_TOL),
+              f"{label}: the cost bound does not reject {kind} {errs}")
+    return errs
+
+
+def k2_cases(args: tuple, stdev: float) -> dict:
+    """Phase 3's further K2 numbers over its operands ``args`` at the main
+    path's shapes (noise of scale ``stdev``): the costs at each RAGGED_K and
+    with one inducing point (P=1), each to KERNEL_TOL; the bound against
+    mppi_mutants' three faults at H; the share of its costs at cc_weight 0
+    equal to K1's over mppi_controls_plain's controls (1.0); at a horizon of
+    CEM_LONG_H (mppi_long_horizon, over noise from seed SEED + 3); the time
+    at SMALL_K + K_SCALING; and its resources (registers, spills, static
+    shared memory) and the loops of its SASS (the step's instructions)."""
+    model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU = args
+    device, k_full = s0.device, eps.shape[2]
+    cases = {f"K{k}": args[:4] + (eps[:, :, :k].contiguous(),) + args[5:] for k in RAGGED_K}
+    cases["P1"] = args[:4] + (eps[:1].contiguous(), W[:1].contiguous()) + args[6:]
+    numbers = held_to_plain("K2", mppi_cost, mppi_cost_plain, cases)
+    numbers["mutant_max_rel_err"] = rejected("K2", mppi_mutants(
+        *args[:5], W, low, high, cc_weight, R, NU,
+        ("controls_one_step_early", "second_point_dropped", "next_rollout_eps")),
+        mppi_cost_plain(*args))
+    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    got0 = mppi_cost(*args[:8], 0.0, *args[9:])
+    numbers["k1_equal_share"] = float(
+        (got0 == cost_rollout(model, s0.expand(k_full, -1).contiguous(), u, pvec)).double().mean())
+    check(numbers["k1_equal_share"] == 1.0,
+          f"K2: its costs at cc_weight 0 differ from K1's over its controls {numbers}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    u_long = torch.clamp(0.2 * torch.randn(CEM_LONG_H, 1, generator=gen, device=device),
+                         -1.0, 1.0)
+    W_long = torch.as_tensor(interpolation_matrix(CEM_LONG_H, PERIOD), device=device)
+    eps_long = stdev * torch.randn(W_long.shape[0], 1, k_full, generator=gen, device=device)
+
+    def operands(cc):
+        return (model, s0, u_long, pvec, eps_long, W_long, low, high, cc, R, NU)
+
+    numbers[f"H{CEM_LONG_H}"] = mppi_long_horizon(
+        "k2", lambda cc: mppi_cost(*operands(cc)),
+        lambda cc, dtype: mppi_cost_plain(*as_type(operands(cc), dtype)), model, s0, pvec,
+        eps_long, W_long, u_long, low, high, cc_weight)
+    ks = SMALL_K + K_SCALING
+    first = {k: eps[:, :, :k].contiguous() for k in ks}
+    out = {"cases": numbers,
+           "ms_at_k": ms_at_k(lambda k: mppi_cost(*args[:4], first[k], *args[5:]), ks)}
+    emit("k2_cases", out)
+    out["resources"] = {**ptxas_resources("mppi_cost_kernel"),
+                        "sass": sass_loops("mppi_cost_kernel") or "not measured"}
+    emit("k2_resources", out["resources"])
     return out
 
 
@@ -2189,10 +2289,30 @@ def fleet_operands(opt, B: int, gen) -> tuple:
     return model, pvec_b, s0
 
 
+def k4_mutants(args: tuple, kinds) -> dict:
+    """K4's costs over mppi_cost_cols_plain's operands ``args`` with each
+    fault of ``kinds``: ``next_session_rows`` (session b reads session
+    b+1's state, plan, parameters and noise) or ``u_prev_of_slot_0`` (every
+    session takes slot 0's previous control)."""
+    model, s0, u_nom, pvec_b, eps, *consts = args
+    out = {}
+    for kind in kinds:
+        if kind == "next_session_rows":
+            rows = tuple(t.roll(-1, 0) for t in (s0, u_nom, pvec_b, eps))
+        else:
+            col = model.param_keys.index("__u_prev_0")
+            slot0 = pvec_b.clone()
+            slot0[:, col] = pvec_b[0, col]
+            rows = (s0, u_nom, slot0, eps)
+        out[kind] = mppi_cost_cols_plain(model, *rows, *consts)
+    return out
+
+
 def compare_k4(opt, gen) -> dict:
     """Phase 35: K4 against its plain version at B=FLEET_B_MAX sessions,
     and the cost bound against a kernel that reads session b+1's rows and
-    one that takes every session's previous control from slot 0."""
+    one that takes every session's previous control from slot 0; then
+    k4_cases."""
     B, K, Hf = FLEET_B_MAX, opt.num_rollouts, opt.mpc_horizon
     model, pvec_b, s0 = fleet_operands(opt, B, gen)
     P = opt.interp.number_of_interpolation_inducing_points
@@ -2201,14 +2321,7 @@ def compare_k4(opt, gen) -> dict:
     consts = (opt.interp.matrix, opt.action_low, opt.action_high, opt.cc_weight, opt.R, opt.NU)
     args = (model, s0, u_nom, pvec_b, eps) + consts
     ref = mppi_cost_cols_plain(*args)
-    u_prev_col = model.param_keys.index("__u_prev_0")
-    slot0 = pvec_b.clone()
-    slot0[:, u_prev_col] = pvec_b[0, u_prev_col]
-    mutants = {
-        "next_session_rows": mppi_cost_cols_plain(
-            model, *(t.roll(-1, 0) for t in (s0, u_nom, pvec_b, eps)), *consts),
-        "u_prev_of_slot_0": mppi_cost_cols_plain(model, s0, u_nom, slot0, eps, *consts),
-    }
+    mutants = k4_mutants(args, ("next_session_rows", "u_prev_of_slot_0"))
     numbers = compare("k4_mppi_cost_cols", lambda: mppi_cost_cols(*args),
                       lambda: mppi_cost_cols_plain(*args), shape=(B, K),
                       extra=lambda _: {"mutant_max_abs_err": {
@@ -2216,9 +2329,78 @@ def compare_k4(opt, gen) -> dict:
     for kind, m in mutants.items():
         check(not torch.allclose(m, ref, **KERNEL_TOL),
               f"K4: the cost bound does not reject {kind} {numbers}")
+    k4_cases(args, opt.SQRTRHODTINV)
     numbers.update(bound(B * K * Hf * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS),
                          nbytes(s0, u_nom, pvec_b, eps, *consts[:3]) + 4 * B * K))
     return numbers
+
+
+def k4_cases(args: tuple, stdev: float) -> dict:
+    """Phase 35's further K4 numbers over compare_k4's operands ``args`` at
+    FLEET_B_MAX sessions (noise of scale ``stdev``; further noise from seed
+    SEED + 4): the costs at a ragged B*K (3 sessions of K=1000: blocks
+    straddle sessions) to KERNEL_TOL; at cc_weight 0 equal to K1's over each
+    session's mppi_controls_plain controls (share 1.0); at a horizon of
+    CEM_LONG_H (4 sessions; two full 64-control chunks and a partial one),
+    equal to K1's there at cc_weight 0, both against float64
+    (long_horizon_vs_float64, whose bound must reject
+    bracket_restarted_each_chunk), and at the path's cc_weight against the
+    float64 plain version (corr_vs_float64); the time at FLEET_B and
+    FLEET_B_MAX sessions; its resources and the loops of its SASS."""
+    model, s0, u_nom, pvec_b, eps, W, low, high, cc_weight, R, NU = args
+    B, P, U, K = eps.shape
+    device = s0.device
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    rag = (model, s0[:3], u_nom[:3], pvec_b[:3],
+           stdev * torch.randn(3, P, U, 1000, generator=gen, device=device)) + args[5:]
+    numbers = held_to_plain("K4", mppi_cost_cols, mppi_cost_cols_plain, {"B3_K1000": rag})
+
+    def controls(e, w, un, kind=None):  # per session: [b, K, H, U]
+        return torch.stack([(k3_mutant_controls(e[b], w, un[b], low, high, kind) if kind else
+                             mppi_controls_plain(e[b], w, un[b], low, high))[0]
+                            for b in range(e.shape[0])])
+
+    got0 = mppi_cost_cols(*args[:8], 0.0, *args[9:])
+    numbers["k1_equal_share"] = float(
+        (got0 == k1_per_session(model, s0, controls(eps, W, u_nom), pvec_b)).double().mean())
+    check(numbers["k1_equal_share"] == 1.0,
+          f"K4: its costs at cc_weight 0 differ from K1's over its controls {numbers}")
+    Bl = 4
+    W_long = torch.as_tensor(interpolation_matrix(CEM_LONG_H, PERIOD), device=device)
+    u_long = torch.clamp(0.2 * torch.randn(Bl, CEM_LONG_H, U, generator=gen, device=device),
+                         -1.0, 1.0)
+    eps_long = stdev * torch.randn(Bl, W_long.shape[0], U, K, generator=gen, device=device)
+
+    def operands(cc):
+        return (model, s0[:Bl], u_long, pvec_b[:Bl], eps_long, W_long, low, high, cc, R, NU)
+
+    got = mppi_cost_cols(*operands(0.0)).reshape(-1)
+    Q = controls(eps_long, W_long, u_long)
+    via_k1 = k1_per_session(model, s0[:Bl], Q, pvec_b[:Bl]).reshape(-1)
+    check(bool(torch.isfinite(got).all()), f"K4 at H={CEM_LONG_H}: bad output")
+    rows = (CEM_LONG_H, U)
+    numbers[f"H{CEM_LONG_H}"] = long_h = {
+        "k1_equal_share": float((got == via_k1).double().mean()),
+        **long_horizon_vs_float64(
+            model, per_rollout(s0[:Bl], K).T, Q.reshape(Bl * K, *rows),
+            per_rollout(pvec_b[:Bl], K), {"k4": got, "k1": via_k1},
+            {"bracket_restarted_each_chunk": controls(
+                eps_long, W_long, u_long, "bracket_restarted_each_chunk").reshape(Bl * K, *rows)}),
+        "corr": corr_vs_float64("K4", mppi_cost_cols(*operands(cc_weight)),
+                                mppi_cost_cols_plain(*operands(cc_weight)),
+                                mppi_cost_cols_plain(*as_type(operands(cc_weight),
+                                                              torch.float64)))}
+    check(long_h["k1_equal_share"] == 1.0,
+          f"K4 at H={CEM_LONG_H}: its costs differ from K1's over its controls {long_h}")
+    out = {"cases": numbers,
+           "ms_at_b": {str(b): cuda_ms(lambda: mppi_cost_cols(
+               model, s0[:b], u_nom[:b], pvec_b[:b], eps[:b], *args[5:]), 50)
+               for b in (FLEET_B, FLEET_B_MAX)}}
+    emit("k4_cases", out)
+    out["resources"] = {**ptxas_resources("mppi_cost_cols_kernel"),
+                        "sass": sass_loops("mppi_cost_cols_kernel") or "not measured"}
+    emit("k4_resources", out["resources"])
+    return out
 
 
 def k6_mutant_counters(seed_b, K: int, Hf: int, kind: str) -> torch.Tensor:
@@ -2304,17 +2486,12 @@ def k6_cases(args: tuple, gen) -> dict:
     registers and shared memory."""
     model, s0, mue, std, pvec_b, seed_b, low, high, K = args
     device = s0.device
-    numbers = {}
 
     def first(b: int, k: int = K) -> tuple:  # the first b sessions, K=k
         return (model, s0[:b], mue[:b], std[:b], pvec_b[:b], seed_b[:b], low, high, k)
 
-    rag = first(3, 1000)
-    got, plain = fused_cem_cols(*rag), fused_cem_cols_plain(*rag)
-    torch.cuda.synchronize()
-    numbers["B3_K1000"] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, plain)))
-    check(bool(torch.isfinite(got).all()) and got.shape == (3, 1000), "K6 B3_K1000: bad output")
-    check(torch.allclose(got, plain, **KERNEL_TOL), f"K6 B3_K1000: kernel disagrees {errs}")
+    numbers = held_to_plain("K6", fused_cem_cols, fused_cem_cols_plain,
+                            {"B3_K1000": first(3, 1000)})
     Bl, Kl = 4, FLEET_K
     mue_long = torch.clamp(0.2 * torch.randn(Bl, CEM_LONG_H, 1, generator=gen, device=device),
                            -1.0, 1.0)
@@ -2657,6 +2834,7 @@ def main() -> None:
     k2 = compare("k2_mppi_cost", lambda: mppi_cost(*k2_args), lambda: mppi_cost_plain(*k2_args))
     k2.update(bound(K * H * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS),
                     nbytes(*k2_args[1:8]) + 4 * K))
+    k2_cases(k2_args, opt.SQRTRHODTINV)
 
     # 4-5. The MPPI paths, closed loop, each counted from 0.
     modular = make_controller("cuda", semi_fused=False)

@@ -1,9 +1,9 @@
 // The MPPI cost of one rollout with its controls computed ahead of its
-// steps: K3's pass 1 (fused_mppi.cu), the noise drawn from the counter
-// PRNG.  It is the body of control_toolkit_tpu/ops/pallas_mppi.py's
-// rollout_cost_core (kernel1 :255, kernel1_ext :266, kernel1_cols :295),
-// written over a noise policy so that the kernels which read their noise
-// from eps [P, U, K] (K2, K4) can take it too.
+// steps, the body of control_toolkit_tpu/ops/pallas_mppi.py's
+// rollout_cost_core (kernel1 :255, kernel1_ext :266, kernel1_cols :295)
+// over a noise policy: K3's pass 1 (fused_mppi.cu) draws its noise from the
+// counter PRNG (CounterNoise), K2 (mppi_cost.cu) and K4 (mppi_cost_cols.cu)
+// read it from eps [P, U, K] (EpsNoise, below).
 //
 // For step h, with p0 <= p1 = p0+1 the inducing points that bracket h in the
 // [P, H] interpolation matrix W, and e[p, j] the rollout's noise at point p
@@ -19,14 +19,17 @@
 // costs with cc = 0, bit for bit.  W is read from the matrix itself, so the
 // kernels use the same float32 weights as the reference.
 //
-// What bounds it on an H100: each rollout's serial H-step rk4 chain, one
-// warp a scheduler at the main path's K=16384; the bytes are the costs.
+// What bounds its kernels on an H100: each rollout's serial H-step rk4
+// chain, one warp a scheduler at the main path's K=16384 (K4 at B=128
+// sessions of K=512 fills the SMs four times over, so there their
+// throughput starts to bind); the bytes are the costs and, for K2 and K4,
+// the noise.
 // The design is K5's and K6's (cem_core.cuh) with the interpolated noise in
 // place of CEM's draws:
 // - The controls leave the chain.  Per chunk of kDrawControls / U steps, a
-//   prologue walks the bracket (p0 and the two normals carried from chunk
-//   to chunk, one normal drawn each time the bracket moves, P*U a
-//   rollout), reads W and u_nom, writes each clipped control into the
+//   prologue walks the bracket (p0 and the two noise values carried from
+//   chunk to chunk, one value drawn or read each time the bracket moves,
+//   P*U a rollout), reads W and u_nom, writes each clipped control into the
 //   thread's column of a [kDrawControls][kCemThreads] shared array and adds
 //   the correction, which depends on the controls alone, in h order.
 // - The chain is column_steps (cem_core.cuh): short_step.cuh's step, each
@@ -44,6 +47,18 @@ namespace ctt {
 
 struct MppiCorr {
   float cc, c1, r, c3;
+};
+
+// The noise policy of K2 and K4: e[p, j] of rollout k read from one
+// session's eps [P, U, K] (already scaled), the rollout index fastest, so
+// a warp's 32 loads of one (p, j) are 128 contiguous bytes.
+struct EpsNoise {
+  const float* __restrict__ eps;
+  int k, K, U;
+
+  __device__ __forceinline__ float operator()(int p, int j) const {
+    return __ldg(eps + static_cast<size_t>(p * U + j) * K + k);
+  }
 };
 
 // The rollout from s0 [S] under u_nom [H, U], W [P, H], the packed

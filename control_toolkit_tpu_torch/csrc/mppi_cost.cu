@@ -4,37 +4,42 @@
 // Replaces control_toolkit_tpu/ops/pallas_mppi.py:make_cost_run
 // (make_run.external, kernel body kernel1_ext over rollout_cost_core), the
 // default MPPI step's kernel.  Python wrapper and plain version:
-// ops/mppi_cost.py.  The per-rollout arithmetic is mppi_core.cuh's, which
-// K4 (mppi_cost_cols.cu) shares.
+// ops/mppi_cost.py.
 //
-// What bounds it on an H100: as K1 (cost_rollout.cu), the serial H-step
-// rk4 chain per thread in FP32; the eps reads are 2*H*U coalesced loads
-// per rollout.  At K=16384 the grid is 128 blocks of 128 threads for 132
-// SMs, about four warps per SM, which cannot hide that chain's latency.
-// Nothing in the design addresses it yet.
-#include "mppi_core.cuh"
+// The body is mppi_ahead.cuh's, K3's pass 1, with the noise read instead of
+// drawn: EpsNoise reads e[p, j] = eps[(p*U + j)*K + k] from eps [P, U, K],
+// already scaled, P*U loads a rollout, one each time the bracket moves.
+// K4 (mppi_cost_cols.cu) runs the same body per session.
+//
+// What bounds it on an H100: each rollout's serial H-step rk4 chain, as
+// K1's (cost_rollout.cu): at K=16384 the grid is 128 blocks of 128 threads
+// on 132 SMs, one warp a scheduler, so nothing hides a step's latency; the
+// bytes are eps and the costs.  The design takes all but the step off that
+// chain: per chunk of 64 steps a prologue walks the bracket, reads W, u_nom
+// and the noise, writes the clipped controls into the thread's column of
+// shared memory and sums the correction; then cem_core.cuh:column_steps
+// runs short_step.cuh's step over them.  At cc_weight 0 its costs equal
+// K1's over mppi_controls_plain's controls bit for bit.
+#include "mppi_ahead.cuh"
 
 namespace ctt {
 
+// Thread g owns rollout g; its column of the block's shared array is
+// threadIdx.x's.  Threads past K (ragged K) repeat rollout K-1 and write
+// nothing.
 template <class Plant>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCemThreads)
 mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
                  const float* __restrict__ pvec, const float* __restrict__ eps,
                  const float* __restrict__ W, const float* __restrict__ low,
-                 const float* __restrict__ high, float* __restrict__ cost,
-                 int K, int H, int P, StepConsts c, float max_cost, CorrConsts cc) {
-  constexpr int U = Plant::U;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
-  float p[Plant::kN];
-  load_params<Plant>(pvec, p);
-  float lo[U], hi[U];
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    lo[j] = __ldg(low + j);
-    hi[j] = __ldg(high + j);
-  }
-  cost[k] = mppi_rollout_cost<Plant>(s0, u_nom, p, eps, k, K, W, H, P, lo, hi, c, max_cost, cc);
+                 const float* __restrict__ high, float* __restrict__ cost, int K, int H, int P,
+                 StepConsts c, float max_cost, MppiCorr cc) {
+  __shared__ float controls[kDrawControls][kCemThreads];
+  const int g = blockIdx.x * kCemThreads + threadIdx.x, gc = g < K ? g : K - 1;
+  const EpsNoise noise{eps, gc, K, Plant::U};
+  const float out = mppi_ahead_cost<Plant>(s0, u_nom, pvec, W, low, high, noise, H, P, c,
+                                           max_cost, cc, &controls[0][threadIdx.x]);
+  if (g < K) cost[g] = out;
 }
 
 }  // namespace ctt
@@ -47,12 +52,13 @@ extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const
                              float half_dt, float dt6, float max_cost, float cc_weight, float c1,
                              float r, float c3, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  const ctt::CorrConsts cc{cc_weight, c1, r, c3};
-  const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
+  const ctt::MppiCorr cc{cc_weight, c1, r, c3};
+  constexpr int per_block = ctt::kCemThreads;
+  const dim3 grid((K + per_block - 1) / per_block);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::mppi_cost_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+      ctt::mppi_cost_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
           static_cast<const float*>(s0), static_cast<const float*>(u_nom),
           static_cast<const float*>(pvec), static_cast<const float*>(eps),
           static_cast<const float*>(W), static_cast<const float*>(low),

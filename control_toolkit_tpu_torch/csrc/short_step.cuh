@@ -1,12 +1,15 @@
-// The short rollout step of K1 (cost_rollout.cu), K5 and K6 (cem_core.cuh)
-// and of K12's base step (residual_rollout.cu): the stage cost, then one
-// control period of rollout_core.cuh's integrators in their operation
-// order, with the plant's derivs_short (plants.cuh) in place of derivs:
-// sincosf reduces theta once an evaluation, the stage cost shares the
-// first evaluation's cos(theta), and the reciprocals of plants.cuh's
-// Recips, taken once a rollout, leave one division an evaluation.  On an
-// H100 this shortened K5's rk4 chain a step from ~1.7 µs to ~0.7 µs
-// (PERF.md, K5).  K2-K4 and K7 keep rollout_core.cuh's step.
+// The short rollout step of the ODE rollout kernels but the gradient ones: K1
+// (cost_rollout.cu), K5 and K6 (cem_core.cuh), K2, K3's pass 1 and K4
+// (mppi_ahead.cuh, through cem_core.cuh:column_steps) and K12's base step
+// (residual_rollout.cu): the stage cost, then one control period of
+// rollout_core.cuh's integrators in their operation order, with the
+// plant's derivs_short (plants.cuh) in place of derivs: sincosf reduces
+// theta once an evaluation, the stage cost shares the first evaluation's
+// cos(theta), and the reciprocals of plants.cuh's Recips, taken once a
+// rollout, leave one division an evaluation.  On an H100 this shortened
+// K5's rk4 chain a step from ~1.7 µs to ~0.7 µs (PERF.md, K5); the chain
+// of these dependent steps is what bounds each of those kernels.  K7 and
+// K9 keep rollout_core.cuh's step for their forward sweeps.
 #pragma once
 
 #include "rollout_core.cuh"

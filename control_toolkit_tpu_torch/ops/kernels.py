@@ -30,7 +30,7 @@ SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_ro
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
-           "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "mppi_core.cuh", "cem_core.cuh",
+           "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "cem_core.cuh",
            "short_step.cuh", "mppi_ahead.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (

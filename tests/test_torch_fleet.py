@@ -11,8 +11,10 @@ The port's ``update_from_eps`` is held to JAX's: costs to the same bound,
 the new nominal plans to 1e-5 (test_pallas_batched.py:130).  The
 controller's own behaviour (independence from B, the mask freeze,
 ``reset_slot``, ``update_slot_dyn``, the NaN guard and the refusals) is
-checked on the port alone.  On a machine with a card, K4 is held to its
-plain version.
+checked on the port alone.  K4's plain version at cc_weight 0 equals K1's
+plain version over each session's controls (``mppi_controls_plain``).  On
+a machine with a card, K4 is held to its plain version, and at ragged B*K
+and H=130 to K1 and float64 as chip_smoke.py's ``k4_cases`` holds it.
 """
 import logging
 
@@ -27,9 +29,11 @@ from control_toolkit_tpu.optimizers.base import make_slot_packer as jax_slot_pac
 from control_toolkit_tpu.optimizers.mppi import MPPIState as JaxMPPIState
 from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout_plain
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
+from control_toolkit_tpu_torch.ops.mppi_cost import mppi_controls_plain
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
-    eps_from_tiles, mppi_cost_cols, mppi_cost_cols_plain,
+    eps_from_tiles, mppi_cost_cols, mppi_cost_cols_plain, per_rollout,
 )
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
@@ -162,6 +166,52 @@ def test_eps_from_tiles_follows_the_session_columns():
     cols = tiles.permute(1, 2, 0, 3).reshape(U, P * ROWS, T * C)
     for b, p, r, cw in ((0, 0, 0, 0), (1, 2, 7, 3), (3, 1, 5, cps - 1), (2, 0, 1, 6)):
         assert eps[b, p, 0, r * cps + cw] == cols[0, p * ROWS + r, b * cps + cw]
+
+
+def k4_operands(pctrl, Bc: int, Kc: int, Hc: int, cc_weight: float = 1.0, device=CPU):
+    """K4's operands for Bc sessions of Kc rollouts at horizon Hc (inducing
+    period 10: P=6 at H=50, P=14 at H=130, three 64-control chunks): pole
+    lengths over 0.35-0.65, targets, previous controls, states, plans and
+    noise from a seed."""
+    popt = pctrl.optimizer
+    model, _ = ode.rollout_model(popt)
+    gen = torch.Generator(device=device).manual_seed(Hc + Kc)
+    W = torch.as_tensor(interpolation_matrix(Hc, 10), device=device)
+    _, slot_keys = split_slot_keys(model.param_keys, ("L",))
+    params = pctrl._assemble_params()
+    pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, Bc, device)(
+        0.3 * torch.randn(Bc, 1, generator=gen, device=device),
+        dict({k: v.to(device) for k, v in params["dyn"].items()},
+             L=torch.linspace(0.35, 0.65, Bc, device=device)),
+        {k: v.to(device) for k, v in params["cost"].items()},
+        {"target_position": torch.linspace(-0.1, 0.2, Bc, device=device)})
+    s0 = 0.05 * torch.randn(Bc, 4, generator=gen, device=device)
+    u_nom = torch.clamp(0.2 * torch.randn(Bc, Hc, 1, generator=gen, device=device), -1.0, 1.0)
+    eps = 0.3 * torch.randn(Bc, W.shape[0], 1, Kc, generator=gen, device=device)
+    lim = torch.ones(1, device=device)
+    return (model, s0, u_nom, pvec_b, eps, W, -lim, lim, cc_weight, popt.R, popt.NU)
+
+
+def session_controls(args) -> torch.Tensor:
+    """Each session's controls [B, K, H, U] (mppi_controls_plain)."""
+    _, _, u_nom, _, eps, W, low, high = args[:8]
+    return torch.stack([mppi_controls_plain(eps[b], W, u_nom[b], low, high)[0]
+                        for b in range(eps.shape[0])])
+
+
+@pytest.mark.parametrize("Hc", [50, 130])
+def test_k4_plain_at_cc_zero_is_k1_plain_per_session(pair, Hc):
+    """K2's cc-zero contract for K4, session by session: at cc_weight 0,
+    K4's plain version equals K1's plain version over each session's
+    mppi_controls_plain controls from its own state under its own
+    parameters, bit for bit, so that chip_smoke.py can require the card's
+    K4 to equal K1 per session (share 1.0)."""
+    args = k4_operands(pair[1], 3, K, Hc, cc_weight=0.0)
+    model, s0, _, pvec_b = args[:4]
+    Q = session_controls(args)
+    via_k1 = torch.stack([cost_rollout_plain(model, s0[b].expand(K, -1), Q[b], pvec_b[b])
+                          for b in range(3)])
+    assert torch.equal(mppi_cost_cols_plain(*args), via_k1)
 
 
 OTHER_CONFIGS = {"rpgd-tf": {"outer_its": 2, "period_interpolation_inducing_points": 5},
@@ -378,3 +428,40 @@ def test_cuda_k4_matches_plain_version(pair, cuda_device):
     got = mppi_cost_cols(*args)
     assert got.shape == (Bc, Kc)
     torch.testing.assert_close(got, mppi_cost_cols_plain(*args), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_at_ragged_sessions_and_a_long_horizon(pair, cuda_device):
+    """K4 (mppi_ahead.cuh's body, rows by session) at 3 sessions of K=1000
+    (blocks straddle sessions) within KERNEL_TOL of its plain version at
+    H=50; at cc_weight 0 equal to K1 per session at H=50 and H=130 (three
+    64-control chunks); at H=130 within chip_smoke.py's float64 bounds
+    (long_horizon_vs_float64, which must reject the bracket restarted at a
+    chunk's head, and corr_vs_float64 at the path's cc_weight)."""
+    from chip_smoke import (
+        KERNEL_TOL, as_type, corr_vs_float64, k1_per_session, k3_mutant_controls,
+        long_horizon_vs_float64,
+    )
+
+    dev = cuda_device
+    Bc, Kc = 3, 1000
+    args = k4_operands(pair[1], Bc, Kc, 50, device=dev)
+    torch.testing.assert_close(mppi_cost_cols(*args), mppi_cost_cols_plain(*args), **KERNEL_TOL)
+    for Hc in (50, 130):
+        args = k4_operands(pair[1], Bc, Kc, Hc, 0.0, device=dev)
+        model, s0, u_nom, pvec_b, eps, W, low, high = args[:8]
+        got = mppi_cost_cols(*args).reshape(-1)
+        Q = session_controls(args)
+        via_k1 = k1_per_session(model, s0, Q, pvec_b).reshape(-1)
+        assert torch.equal(got, via_k1)
+        if Hc == 130:
+            restarted = torch.stack([k3_mutant_controls(
+                eps[b], W, u_nom[b], low, high, "bracket_restarted_each_chunk")[0]
+                for b in range(Bc)])
+            long_horizon_vs_float64(
+                model, per_rollout(s0, Kc).T, Q.reshape(Bc * Kc, Hc, 1), per_rollout(pvec_b, Kc),
+                {"k4": got, "k1": via_k1},
+                {"bracket_restarted_each_chunk": restarted.reshape(Bc * Kc, Hc, 1)})
+            full = k4_operands(pair[1], Bc, Kc, Hc, pair[1].optimizer.cc_weight, device=dev)
+            corr_vs_float64("K4", mppi_cost_cols(*full), mppi_cost_cols_plain(*full),
+                            mppi_cost_cols_plain(*as_type(full, torch.float64)))

@@ -1,9 +1,10 @@
 """The port's two rollout kernels (K1 ``ops/cost_rollout.py``, K2
 ``ops/mppi_cost.py``; K7 has tests/test_torch_grad.py): their plain
 versions against the JAX package's
-Pallas kernels in interpret mode, the wrappers' dispatch rule, and — on a
-machine with a CUDA card only — each CUDA kernel against its plain
-version."""
+Pallas kernels in interpret mode, the wrappers' dispatch rule, K2's
+equality with K1 over its controls at cc_weight 0 and the bound that
+rejects chip_smoke.py's wrong variants of K2 and K4, and — on a machine
+with a CUDA card only — each CUDA kernel against its plain version."""
 import dataclasses
 
 import jax
@@ -17,7 +18,10 @@ from control_toolkit_tpu_torch.ops.fused_cem import fused_cem_costs
 from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_costs, fused_mppi_weights
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import grad_cost_rollout
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
-from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_plain
+from control_toolkit_tpu_torch.ops.mppi_cost import (
+    mppi_controls_plain, mppi_cost, mppi_cost_plain,
+)
+from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols_plain
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 from control_toolkit_tpu_torch.utils.convert import params_from_numpy
 from test_torch_mppi import CPU, COST_TOL, jax_params_numpy, make_jax_ctrl, make_port_ctrl
@@ -126,6 +130,70 @@ def test_k2_plain_matches_pallas_semi_fused_interpret(pair):
     np.testing.assert_allclose(got, ref, **COST_TOL)
 
 
+def k2_operands(pair, H_: int, cc_weight: float = 1.0, K_: int = K, P1: bool = False,
+                device=CPU) -> tuple:
+    """K2's operands at horizon H_ (inducing period 10, as chip_smoke.py's:
+    P=6 at H=50, P=14 at H=130, three 64-control chunks; ``P1``: the first
+    inducing point alone), the noise and u_nom from a seed, the port
+    controller's model and pvec."""
+    _, pctrl, _, params = pair
+    model, pack = ode.rollout_model(pctrl.optimizer)
+    W = torch.as_tensor(interpolation_matrix(H_, 10))
+    if P1:
+        W = W[:1].contiguous()
+    rng = np.random.default_rng(H_ + K_)
+    eps = torch.tensor(0.3 * rng.standard_normal((W.shape[0], 1, K_)), dtype=torch.float32)
+    u_nom = torch.tensor(rng.uniform(-0.5, 0.5, (H_, 1)), dtype=torch.float32)
+    lim = torch.ones(1)
+    operands = (model, torch.tensor([0.02, -0.1, 0.05, 0.1]), u_nom,
+                pack(params, torch.tensor([0.1])), eps, W, -lim, lim, cc_weight, 1.0, 1000.0)
+    return tuple(t.to(device) if torch.is_tensor(t) else t for t in operands)
+
+
+@pytest.mark.parametrize("H_", [50, 130])
+def test_k2_plain_at_cc_zero_is_k1_plain_over_its_controls(pair, H_):
+    """At cc_weight 0, K2's plain version equals K1's plain version over
+    mppi_controls_plain's controls of the same noise, bit for bit: the
+    contract that lets chip_smoke.py require the card's K2 to equal K1
+    there (share 1.0), at H=50 and over three 64-control chunks."""
+    model, s0, u_nom, pvec, eps, W, low, high = k2_operands(pair, H_, cc_weight=0.0)[:8]
+    u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    assert torch.equal(mppi_cost_plain(model, s0, u_nom, pvec, eps, W, low, high, 0.0, 1.0,
+                                       1000.0),
+                       cost_rollout_plain(model, s0.expand(K, -1), u, pvec))
+
+
+@pytest.mark.parametrize("kind,H_", [("controls_one_step_early", 50),
+                                     ("second_point_dropped", 50),
+                                     ("next_rollout_eps", 50),
+                                     ("bracket_restarted_each_chunk", 130),
+                                     ("next_session_rows", 50)])
+def test_k2_k4_mutants_are_rejected_by_the_kernel_bound(pair, kind, H_):
+    """chip_smoke.py's wrong variants of K2 (``mppi_mutants``) and K4's
+    session offset (``k4_mutants``), built from the plain versions, each
+    outside KERNEL_TOL of them: the bound that phases 3 and 35 hold the
+    card's kernels to rejects them (the chunk restart, which only a horizon
+    past 64 steps shows, at H=130, where chip_smoke.py holds it to float64
+    and this bound is the looser)."""
+    from chip_smoke import KERNEL_TOL, k4_mutants, mppi_mutants
+
+    args = k2_operands(pair, H_)
+    if kind == "next_session_rows":
+        model, s0, u_nom, pvec, eps, *consts = args
+        B, rng = 4, np.random.default_rng(9)
+        pvec_b = torch.stack([pvec] * B)  # the sessions differ in u_prev, s0 and noise
+        pvec_b[:, model.param_keys.index("__u_prev_0")] = torch.linspace(-0.5, 0.5, B)
+        cols = (model, torch.tensor(0.05 * rng.standard_normal((B, 4)), dtype=torch.float32),
+                u_nom.expand(B, -1, -1).contiguous(), pvec_b,
+                torch.tensor(0.3 * rng.standard_normal((B, *eps.shape)), dtype=torch.float32),
+                *consts)
+        ref, wrong = mppi_cost_cols_plain(*cols), k4_mutants(cols, (kind,))[kind]
+    else:
+        ref, wrong = mppi_cost_plain(*args), mppi_mutants(*args, (kind,))[kind]
+    assert wrong.shape == ref.shape and bool(torch.isfinite(wrong).all())
+    assert not torch.allclose(wrong, ref, **KERNEL_TOL)
+
+
 def test_wrappers_never_run_plain_versions_on_non_cpu_tensors(pair):
     _, pctrl, _, _ = pair
     model, _ = ode.rollout_model(pctrl.optimizer)
@@ -232,3 +300,40 @@ def test_cuda_k1_at_ragged_k_and_a_long_horizon(pair, cuda_device, Kc):
             torch.testing.assert_close(got, cost_rollout_plain(model, s0, Q, pvec), **KERNEL_TOL)
         else:
             long_horizon_vs_float64(model, s0, Q, pvec, {"k1": got})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kc", [8, 1000])
+def test_cuda_k2_at_ragged_k_p1_and_a_long_horizon(pair, cuda_device, Kc):
+    """K2 (mppi_ahead.cuh's body over eps) at K below one block and not a
+    multiple of it: within KERNEL_TOL of its plain version at H=50, also
+    with one inducing point (P=1); at cc_weight 0 equal to K1 over
+    mppi_controls_plain's controls at H=50 and H=130 (three 64-control
+    chunks); at H=130 within chip_smoke.py's float64 bounds
+    (long_horizon_vs_float64, which must reject the bracket restarted at a
+    chunk's head, and corr_vs_float64 at cc_weight 1), where float32
+    rounding outgrows KERNEL_TOL."""
+    from chip_smoke import (
+        KERNEL_TOL, as_type, corr_vs_float64, k3_mutant_controls, long_horizon_vs_float64,
+    )
+
+    dev = cuda_device
+    for P1 in (False, True):
+        args = k2_operands(pair, 50, K_=Kc, P1=P1, device=dev)
+        torch.testing.assert_close(mppi_cost(*args), mppi_cost_plain(*args), **KERNEL_TOL)
+    for H_ in (50, 130):
+        model, s0, u_nom, pvec, eps, W, low, high, *rest = k2_operands(pair, H_, 0.0, Kc,
+                                                                       device=dev)
+        got = mppi_cost(model, s0, u_nom, pvec, eps, W, low, high, *rest)
+        u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+        s_tiled = s0.expand(Kc, -1).contiguous()
+        via_k1 = cost_rollout(model, s_tiled, u, pvec)
+        assert torch.equal(got, via_k1)
+        if H_ == 130:
+            restarted, _ = k3_mutant_controls(eps, W, u_nom, low, high,
+                                              "bracket_restarted_each_chunk")
+            long_horizon_vs_float64(model, s_tiled, u, pvec, {"k2": got, "k1": via_k1},
+                                    {"bracket_restarted_each_chunk": restarted})
+            full = k2_operands(pair, H_, 1.0, Kc, device=dev)
+            corr_vs_float64("K2", mppi_cost(*full), mppi_cost_plain(*full),
+                            mppi_cost_plain(*as_type(full, torch.float64)))
