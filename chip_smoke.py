@@ -185,6 +185,34 @@ cem_best_k 40, warmup off, seed 1) over K6:
 40. both paths timed at 32 and 128 sessions: host p50/p99, device span,
     sessions a second, and the host time of the slots' own draws.
 
+The learned fleets: plain MPPI at the fleet's configuration over each
+learned model of phases 11-26 (the committed mlp-64-64, GRU and SGP_128,
+an LSTM of the GRU's widths with seeded weights, and "ODE+res" with a
+seeded nonzero residual and per-slot pole lengths), all sessions' rollouts
+in one launch of the model's kernel in its session-row form (rollout b*K+k
+reads session b's packed row and, for the recurrent nets, starts from
+session b's hidden):
+41. each form (K11's, K13's for the GRU and the LSTM, K12's, K14's over a
+    well-conditioned GP) against its plain version at 128 sessions of
+    K=512, H=35, to its single-session kernel's bound; its costs equal,
+    session by session, to the single-session kernel's over the session's
+    rows (share 1.0); within the bound at 120 rollouts a session (groups
+    straddle sessions); the bound against every session reading the next
+    session's row, against every session starting from slot 0's hidden
+    (K13) and against the slots' pole lengths rolled by one (K12); its
+    time at 32 and 128 sessions, its bounds, registers, spills and blocks
+    an SM (``*_cols_cases``);
+42. 100 closed-loop ticks of each 32-session learned fleet as phase 37's
+    (a rotating quarter idle and checked bit for bit, hidden included; at
+    tick 50 half the targets changed, new weight tensors, a GP hot-swap,
+    a re-sysid of slot 2's pole length for "ODE+res"): one launch a tick,
+    nothing rebuilt; the slots that kept the pole up are counted, not
+    required (MPPI over the committed GP loses it in both packages, see
+    PERF.md);
+43. one update of each learned fleet on the card against the same update
+    on the CPU, fed the same draws;
+44. each learned fleet timed at 32 and 128 sessions, as phase 40.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -197,7 +225,7 @@ rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
-icem; the fleet paths at both sizes in phase 40), printing per tick the
+icem; the fleet paths at both sizes of phases 40 and 44), printing per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
 
@@ -255,7 +283,8 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout, gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_lanes, gp_cost_rollout_plain,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_plain,
+    gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_plain, launch_part,
@@ -271,15 +300,17 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_plain,
-    neural_cost_rollout_warps, plain_cost_loop, recurrent_cost_rollout,
-    recurrent_cost_rollout_plain,
+    mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_cols,
+    neural_cost_rollout_cols_plain, neural_cost_rollout_plain, neural_cost_rollout_warps,
+    plain_cost_loop, recurrent_cost_rollout, recurrent_cost_rollout_cols,
+    recurrent_cost_rollout_cols_plain, recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
-    residual_cost_rollout, residual_cost_rollout_plain, residual_step_fn,
+    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_plain,
+    residual_cost_rollout_plain, residual_step_fn,
 )
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import refit
@@ -337,7 +368,10 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "gp_cost_rollout": gp_cost_rollout, "gp_grad_cost_rollout": gp_grad_cost_rollout,
            "fused_cem": fused_cem_costs, "fused_mppi_cost": fused_mppi_costs,
            "fused_mppi_weights": fused_mppi_weights, "mppi_cost_cols": mppi_cost_cols,
-           "fused_cem_cols": fused_cem_cols}
+           "fused_cem_cols": fused_cem_cols, "neural_cost_rollout_cols": neural_cost_rollout_cols,
+           "recurrent_cost_rollout_cols": recurrent_cost_rollout_cols,
+           "residual_cost_rollout_cols": residual_cost_rollout_cols,
+           "gp_cost_rollout_cols": gp_cost_rollout_cols}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -480,6 +514,18 @@ FLEET_CEM_CONFIG = {"seed": 1, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
                     "fully_fused": True}
 FLEET_MPPI_TICKS, FLEET_CEM_TICKS, FLEET_RETARGET_AT, FLEET_TIMING_TICKS = 200, 100, 100, 50
 FLEET_MUTANT_TILE = 128
+# The learned fleets: plain MPPI at the fleet's configuration over each
+# learned model of the single-session phases (the committed MLP, GRU and
+# GP, the seeded LSTM, "ODE+res" with a seeded nonzero residual and the
+# slots' pole lengths per slot), one launch of the model's session-row
+# kernel a tick.  Their kernels are compared at FLEET_B_MAX sessions, also
+# at LEARNED_RAGGED_K rollouts a session (16-rollout groups straddle
+# sessions); their loops run LEARNED_FLEET_TICKS at FLEET_B, a weight swap
+# (the GP's a hot-swap, the residual a re-sysid of slot 2 and a new
+# install) at LEARNED_SWAP_AT.
+LEARNED_FLEETS = {"mlp": (MLP_SPEC, ()), "gru": (GRU_SPEC, ()), "lstm": (LSTM_SPEC, ()),
+                  "residual": (RES_SPEC, ("L",)), "gp": (GP_SPEC, ())}
+LEARNED_RAGGED_K, LEARNED_FLEET_TICKS, LEARNED_SWAP_AT = 120, 100, 50
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -919,13 +965,13 @@ def mlp_scalar_ops(net) -> int:
     return 2 * (mlp_ops(net) - macs) + (mlp_vjp_ops(net) - macs)
 
 
-def tc_bound_ms(tiles: int, scalar_ops: int) -> float:
-    """A tensor-core kernel's bound: its split products (``tiles`` m16n8k8
-    tiles a step of 16 rollouts, 3 mma a tile, 2 * 16 * 8 * 8 operations
-    each) over the TF32 rate plus ``scalar_ops`` a rollout-step over the
-    FP32 rate."""
-    mma_ops = K * H * tiles * 3 * 2 * 8 * 8
-    return (mma_ops / TF32_OPS_PER_S + K * H * scalar_ops / FP32_OPS_PER_S) * 1e3
+def tc_bound_ms(tiles: int, scalar_ops: int, rollout_steps: int = K * H) -> float:
+    """A tensor-core kernel's bound over ``rollout_steps`` rollout-steps (the
+    main path's K*H): its split products (``tiles`` m16n8k8 tiles a step of
+    16 rollouts, 3 mma a tile, 2 * 16 * 8 * 8 operations each) over the
+    TF32 rate plus ``scalar_ops`` a rollout-step over the FP32 rate."""
+    mma_ops = rollout_steps * tiles * 3 * 2 * 8 * 8
+    return (mma_ops / TF32_OPS_PER_S + rollout_steps * scalar_ops / FP32_OPS_PER_S) * 1e3
 
 
 def rnn_cells(net) -> list:
@@ -1377,11 +1423,15 @@ def residual_controller(optimizer: str, config: dict) -> MPCController:
     as bench_scale.py:218-222 makes it: each weight 0.02 times a normal
     draw (from a seeded torch.Generator), the zero biases kept."""
     ctrl = make_controller("cuda", optimizer, config, spec=RES_SPEC)
-    pred = ctrl.optimizer.predictor.predictor
+    seed_residual(ctrl.optimizer.predictor.predictor)
+    return ctrl
+
+
+def seed_residual(pred) -> None:
+    """Install residual_controller's nonzero residual in ``pred``."""
     gen = torch.Generator(device=pred.device).manual_seed(11)
     pred.set_residual({k: 0.02 * torch.randn(v.shape, generator=gen, device=pred.device)
                        if k.startswith("w") else v for k, v in pred._res.items()})
-    return ctrl
 
 
 def residual_mutants(model, s0, Q, pvec, net) -> dict:
@@ -2262,14 +2312,26 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
 
 
 # ---- the fleet phases -----------------------------------------------------------
-def fleet_controller(device: str, optimizer: str, config: dict, B: int) -> BatchedMPCController:
-    """A batched-mpc controller of B slots with per-slot pole lengths."""
+def fleet_controller(device: str, optimizer: str, config: dict, B: int, spec: str = "ODE",
+                     per_slot_dyn=("L",)) -> BatchedMPCController:
+    """A batched-mpc controller of B slots over ``spec`` (per-slot pole
+    lengths by default); over "ODE+res" with residual_controller's seeded
+    nonzero residual."""
     ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
                                 config={"optimizer": optimizer, "controller_logging": False,
                                         "device": device})
-    ctrl.configure(optimizer_name=optimizer, optimizer_config=config,
-                   cost_function_config=COST_WEIGHTS, num_slots=B, per_slot_dyn=("L",))
+    ctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
+                   optimizer_config=config, cost_function_config=COST_WEIGHTS, num_slots=B,
+                   per_slot_dyn=per_slot_dyn)
+    if spec == RES_SPEC:
+        seed_residual(ctrl.optimizer.predictor.predictor)
     return ctrl
+
+
+def learned_fleet(device: str, kind: str, B: int) -> BatchedMPCController:
+    """An MPPI fleet of B slots over LEARNED_FLEETS' model ``kind``."""
+    spec, per_slot_dyn = LEARNED_FLEETS[kind]
+    return fleet_controller(device, "mppi", FLEET_MPPI_CONFIG, B, spec, per_slot_dyn)
 
 
 def fleet_operands(opt, B: int, gen) -> tuple:
@@ -2519,10 +2581,12 @@ def k6_cases(args: tuple, gen) -> dict:
 
 def slot_snapshot(ctrl: BatchedMPCController, slots) -> dict:
     """The optimizer state of ``slots``: tensors, host values and the
-    generators' states."""
+    generators' states, and a recurrent model's hidden."""
     st = ctrl.slot_states
+    hidden = ctrl.slot_hidden if ctrl._stateful else ()
     return {i: [st.generator[i].get_state()]
             + [v[i].clone() if isinstance(v, torch.Tensor) else np.copy(v[i]) for v in st[1:]]
+            + [h[i].clone() for h in hidden]
             for i in slots}
 
 
@@ -2531,34 +2595,44 @@ def same_snapshot(a: list, b: list) -> bool:
                for x, y in zip(a, b))
 
 
-def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict) -> dict:
+def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict,
+               retarget_at: int = FLEET_RETARGET_AT, swap=None, pole_check: bool = True) -> dict:
     """``ticks`` closed-loop ticks of a fleet: slot i against its own
     CartpoleEnv (seed 10+i) with pole half-length L_i over FLEET_L, each
-    slot's model given L_i before the first tick
-    (``update_slot_dyn``).  A rotating quarter of the slots is idle each
-    tick (masked off; its plant waits); at FLEET_RETARGET_AT half the slots
-    change target and slot 2's model re-sysids to 1.02 L_2.  Checks: idle
-    slots emit 0 and keep their state and random stream bit for bit, every
-    slot's pole stays up, nothing is rebuilt, and the kernels launched are
-    ``expected`` (every count set to 0 just before the loop)."""
+    slot's model given L_i before the first tick (``update_slot_dyn``, where
+    the fleet plans per-slot pole lengths).  A rotating quarter of the
+    slots is idle each tick (masked off; its plant waits); at
+    ``retarget_at`` half the slots change target and slot 2's model
+    re-sysids to 1.02 L_2 (where it has one), and ``swap()`` runs (a new
+    weight tensor, a GP hot-swap).  Checks: idle slots emit 0 and keep their
+    state, random stream and hidden bit for bit, every slot's pole stays up
+    (``pole_check``; the slots that kept it up are counted either way),
+    nothing is rebuilt, and the kernels launched are ``expected`` (every
+    count set to 0 just before the loop)."""
     B = ctrl.num_slots
     Ls = np.linspace(*FLEET_L, B)
     envs = [CartpoleEnv(batch_size=1, dt=DT, seed=10 + i, params={"L": float(L)})
             for i, L in enumerate(Ls)]
     s = np.stack([env.reset()[0][0] for env in envs])
+    per_slot_L = "L" in ctrl.slot_dyn
     for i, L in enumerate(Ls):
-        ctrl.update_slot_dyn(i, {"L": float(L)})
+        if per_slot_L:
+            ctrl.update_slot_dyn(i, {"L": float(L)})
     for wrapper in COUNTED.values():
         wrapper.launches = 0
     builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    host_ms, device_ms, max_angle, frozen_checked = [], [], 0.0, 0
+    host_ms, device_ms, frozen_checked = [], [], 0
+    slot_max_angle = np.zeros(B)
     for t in range(ticks):
         mask = (np.arange(B) + t) % 4 != 0
-        attrs = [{"target_position": NEW_TARGET} if t == FLEET_RETARGET_AT and i < B // 2
+        attrs = [{"target_position": NEW_TARGET} if t == retarget_at and i < B // 2
                  else None for i in range(B)]
-        if t == FLEET_RETARGET_AT:
-            ctrl.update_slot_dyn(2, {"L": float(1.02 * Ls[2])})
+        if t == retarget_at:
+            if per_slot_L:
+                ctrl.update_slot_dyn(2, {"L": float(1.02 * Ls[2])})
+            if swap is not None:
+                swap()
         idle = np.nonzero(~mask)[0]
         before = slot_snapshot(ctrl, idle)
         start.record()
@@ -2576,8 +2650,9 @@ def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict
               f"{name}: tick {t}: bad controls")
         for i in np.nonzero(mask)[0]:
             s[i] = envs[i].step(u[i])[0][0]
-        max_angle = max(max_angle, float(np.abs(s[:, 2]).max()))
-        check(max_angle < 0.5, f"{name}: tick {t}: a pole fell, states {s[np.abs(s[:, 2]) >= 0.5]}")
+        slot_max_angle = np.maximum(slot_max_angle, np.abs(s[:, 2]))
+        check(not pole_check or slot_max_angle.max() < 0.5,
+              f"{name}: tick {t}: a pole fell, states {s[np.abs(s[:, 2]) >= 0.5]}")
     check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
           f"{name}: something was rebuilt during the loop")
     counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
@@ -2587,7 +2662,9 @@ def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict
                 "step_host_p50_ms": float(np.percentile(host_ms, 50)),
                 "step_host_p99_ms": float(np.percentile(host_ms, 99)),
                 "step_device_p50_ms": float(np.percentile(device_ms, 50)),
-                "max_abs_angle": max_angle, "slot2_L_model": float(ctrl.slot_dyn["L"][2]),
+                "max_abs_angle": float(slot_max_angle.max()),
+                "pole_up_slots": int((slot_max_angle < 0.5).sum()),
+                "slot2_L_model": float(ctrl.slot_dyn["L"][2]) if per_slot_L else None,
                 "final_abs_pos_max": float(np.abs(s[:, 0]).max())})
     return counts
 
@@ -2598,7 +2675,7 @@ def fleet_inputs_now(ctrl: BatchedMPCController, gen) -> tuple:
     B, device = ctrl.num_slots, ctrl.device
     s = 0.05 * torch.randn(B, 1, 4, generator=gen, device=device)
     params = ctrl._assemble_params()
-    dyn = dict(params["dyn"], L=torch.as_tensor(ctrl.slot_dyn["L"], device=device))
+    dyn = ctrl._dyn_with_slots(params["dyn"])
     attrs = {k: torch.as_tensor(v, device=device) for k, v in ctrl.slot_attrs.items()}
     return s, dyn, params["cost"], attrs
 
@@ -2724,6 +2801,238 @@ def fleet_timing(name: str, ctrl: BatchedMPCController, gen):
                "slot_draw_launches": B}
     emit(f"fleet_timing_{name}", numbers)
     return lambda: ctrl.step_batch(s, mask)
+
+
+# ---- the learned fleets' phases --------------------------------------------------
+COLS_KERNELS = {"mlp": (neural_cost_rollout_cols, neural_cost_rollout_cols_plain,
+                        neural_cost_rollout),
+                "gru": (recurrent_cost_rollout_cols, recurrent_cost_rollout_cols_plain,
+                        recurrent_cost_rollout),
+                "lstm": (recurrent_cost_rollout_cols, recurrent_cost_rollout_cols_plain,
+                         recurrent_cost_rollout),
+                "residual": (residual_cost_rollout_cols, residual_cost_rollout_cols_plain,
+                             residual_cost_rollout),
+                "gp": (gp_cost_rollout_cols, gp_cost_rollout_cols_plain, gp_cost_rollout)}
+
+
+def cols_operands(kind: str, ctrl: BatchedMPCController, B: int, gen) -> tuple:
+    """A session-row kernel's operands over ``ctrl``'s model at B sessions of
+    the fleet's K and H: ``(model, s0 [B*K,S], Q [B*K,H,U], pvec_b [B,N],
+    weights[, hidden_b])``.  The sessions' rows differ from their
+    neighbours': targets and previous controls drawn per session, pole
+    lengths over FLEET_L drawn per session ("ODE+res"), and each session's
+    hidden (the recurrent nets) drawn N(0, 0.3^2); the GP is
+    well_conditioned_gp's."""
+    opt, device = ctrl.optimizer, ctrl.device
+    K, Hf = opt.num_rollouts, opt.mpc_horizon
+    params = ctrl._assemble_params()
+    dyn, per_slot = params["dyn"], ()
+    if kind == "residual":
+        model, _ = residual.residual_model(opt)
+        lo, hi = FLEET_L
+        dyn, per_slot = dict(dyn["base"], L=lo + (hi - lo) * torch.rand(B, generator=gen,
+                                                                        device=device)), ("L",)
+        weights = params["dyn"]["res"]
+    elif kind == "gp":
+        model, _ = gp.gp_model(opt)
+        weights = flatten_gp_weights(well_conditioned_gp(dyn["gp"]))
+    else:
+        model, _ = neural.net_model(opt)
+        weights = dyn["net"]
+    _, slot_keys = split_slot_keys(model.param_keys, per_slot)
+    pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, B, device)(
+        2.0 * torch.rand(B, 1, generator=gen, device=device) - 1.0, dyn, params["cost"],
+        {"target_position": 0.5 * torch.rand(B, generator=gen, device=device) - 0.25})
+    s0 = (0.05 * torch.randn(B, 4, generator=gen, device=device)).repeat_interleave(K, dim=0)
+    Q = torch.clamp(0.3 * torch.randn(B * K, Hf, 1, generator=gen, device=device), -1.0, 1.0)
+    args = (model, s0, Q, pvec_b, weights)
+    if kind in ("gru", "lstm"):
+        pred = opt.predictor.predictor
+        args += (tuple(0.3 * torch.randn(B, h.shape[-1], generator=gen, device=device)
+                       for h in pred.hidden),)
+    return args
+
+
+def first_sessions_k(args: tuple, k: int) -> tuple:
+    """``args`` (cols_operands') with each session's first k rollouts."""
+    model, s0, Q, pvec_b, *rest = args
+    B = pvec_b.shape[0]
+    return (model, s0.reshape(B, -1, s0.shape[1])[:, :k].reshape(B * k, -1),
+            Q.reshape(B, -1, *Q.shape[1:])[:, :k].reshape(B * k, *Q.shape[1:]), pvec_b, *rest)
+
+
+def session_args(args: tuple, b: int) -> tuple:
+    """Session b's operands for the single-session kernel."""
+    model, s0, Q, pvec_b, weights, *hidden = args
+    K = s0.shape[0] // pvec_b.shape[0]
+    rows = slice(b * K, (b + 1) * K)
+    extra = (tuple(h[b:b + 1] for h in hidden[0]),) if hidden else ()
+    return (model, s0[rows], Q[rows], pvec_b[b].contiguous(), weights, *extra)
+
+
+def cols_mutants(kind: str, args: tuple) -> dict:
+    """Each session-row form's wrong arithmetic, by its plain version: every
+    session reading the next session's row of pvec_b; for the recurrent
+    nets every session starting from slot 0's hidden; for "ODE+res" the
+    slots' pole lengths rolled by one."""
+    model, s0, Q, pvec_b, weights, *hidden = args
+    plain = COLS_KERNELS[kind][1]
+    out = {"next_session_row": plain(model, s0, Q, pvec_b.roll(-1, 0), weights, *hidden)}
+    if hidden:
+        out["hidden_of_slot_0"] = plain(model, s0, Q, pvec_b, weights,
+                                        tuple(h[:1].expand_as(h).contiguous()
+                                              for h in hidden[0]))
+    if kind == "residual":
+        col = model.param_keys.index("d_L")
+        rolled = pvec_b.clone()
+        rolled[:, col] = pvec_b[:, col].roll(1)
+        out["L_rolled"] = plain(model, s0, Q, rolled, weights)
+    return out
+
+
+def cols_bounds(kind: str, args: tuple) -> dict:
+    """The form's bound over its B*K rollouts at the fleet's H (the
+    single-session kernel's operation count a rollout-step) and, for the
+    tensor-core kernels, the tensor-core bound."""
+    model, s0, Q, pvec_b, weights, *hidden = args
+    steps = Q.shape[0] * Q.shape[1]
+    n_bytes = nbytes(s0, Q, pvec_b, *leaves(weights), *leaves(tuple(hidden))) + 4 * Q.shape[0]
+    if kind == "gp":
+        return bound(steps * (gp_ops(weights) + STAGE_OPS), n_bytes)
+    if kind in ("gru", "lstm"):
+        ops = rnn_ops(weights, model.kind)
+        scalar = ops - 2 * rnn_macs(weights, model.kind) + STAGE_OPS
+        tc = tc_bound_ms(rnn_mma_tiles(weights, model.kind), scalar, steps)
+        return {**bound(steps * (ops + STAGE_OPS), n_bytes), "tc_bound_ms": tc}
+    base = RK4_STEP_OPS if kind == "residual" else 0
+    macs = sum(a * b for a, b in zip(mlp_dims(weights), mlp_dims(weights)[1:]))
+    tc = tc_bound_ms(mlp_forward_tiles(weights),
+                     base + mlp_ops(weights) - 2 * macs + STAGE_OPS, steps)
+    return {**bound(steps * (base + mlp_ops(weights) + STAGE_OPS), n_bytes), "tc_bound_ms": tc}
+
+
+def cols_resources(kind: str, args: tuple) -> dict:
+    """The form's kernel (the single-session kernel's binary): ptxas'
+    registers, spills and static shared memory, and the blocks an SM holds."""
+    model, *_, weights = args[:5]
+    if kind == "gp":
+        lanes, threads, blocks = kernels.gp_layout(weights["Zs"].shape[0], grad=False)
+        return {**ptxas_resources("gp_cost_rollout_kernel", f"Li{lanes}E"),
+                "lanes": lanes, "threads_per_block": threads, "blocks_per_sm": blocks}
+    hidden = args[5] if len(args) > 5 else None
+    net_args = model.net_args(weights, hidden, args[3].shape[0])[0] if hidden else (
+        model.net_args(weights)[0])
+    kernel, occupancy, instance = {
+        "mlp": ("neural_cost_rollout_kernel", "neural", ""),
+        "gru": ("recurrent_cost_rollout_kernel", "recurrent", "Li3E"),
+        "lstm": ("recurrent_cost_rollout_kernel", "recurrent", "Li4E"),
+        "residual": ("residual_cost_rollout_kernel", "residual", "")}[kind]
+    return {**ptxas_resources(kernel, instance),
+            "smem_bytes": kernels.net_smem_bytes("cartpole", net_args, occupancy),
+            "blocks_per_sm": kernels.net_blocks_per_sm(occupancy, net_args)}
+
+
+def compare_cols(kind: str, ctrl: BatchedMPCController, gen) -> dict:
+    """Phase 41: the session-row form of ``kind``'s kernel against its plain
+    version at FLEET_B_MAX sessions of the fleet's K and H, to its
+    single-session kernel's bound (NET_TOL; the recurrent nets RNN_TOL); its
+    costs equal, session by session, to the single-session kernel's over
+    that session's rows (share 1.0); within the bound at
+    LEARNED_RAGGED_K rollouts a session; the bound against cols_mutants';
+    its time at FLEET_B and FLEET_B_MAX sessions; its bounds and resources."""
+    cols, plain, single = COLS_KERNELS[kind]
+    tol = RNN_TOL if kind in ("gru", "lstm") else NET_TOL
+    args = cols_operands(kind, ctrl, FLEET_B_MAX, gen)
+    B, K = args[3].shape[0], ctrl.optimizer.num_rollouts
+    ref = plain(*args)
+    mutants = cols_mutants(kind, args)
+    name = {"mlp": "k11", "gru": "k13_gru", "lstm": "k13_lstm", "residual": "k12",
+            "gp": "k14"}[kind] + "_cols"
+    numbers = compare(name, lambda: cols(*args), lambda: plain(*args), tol=tol, shape=(B, K),
+                      extra=lambda _: {"mutant_max_rel_err": {
+                          m: max_errors(v, ref)[1] for m, v in mutants.items()}})
+    for m, v in mutants.items():
+        check(not torch.allclose(v, ref, **tol),
+              f"{name}: the bound does not reject {m} {numbers}")
+    got = cols(*args)
+    per_session = torch.stack([single(*session_args(args, b)) for b in range(B)])
+    ragged = first_sessions_k(args, LEARNED_RAGGED_K)
+    rag_got, rag_ref = cols(*ragged), plain(*ragged)
+    torch.cuda.synchronize()
+    cases = {"single_session_equal_share": float((got == per_session).double().mean()),
+             f"K{LEARNED_RAGGED_K}": dict(zip(("max_abs_err", "max_rel_err"),
+                                             max_errors(rag_got, rag_ref))),
+             "ms_at_b": {str(b): cuda_ms(lambda: cols(*session_slice(args, b)), 50)
+                         for b in (FLEET_B, FLEET_B_MAX)},
+             **cols_bounds(kind, args), "resources": cols_resources(kind, args)}
+    emit(f"{name}_cases", cases)
+    check(cases["single_session_equal_share"] == 1.0,
+          f"{name}: its costs differ from the single-session kernel's {cases}")
+    check(bool(torch.isfinite(rag_got).all()) and torch.allclose(rag_got, rag_ref, **tol),
+          f"{name} at K={LEARNED_RAGGED_K}: kernel disagrees {cases}")
+    numbers.update({k: cases[k] for k in ("bound_ms", "bound_by")})
+    return numbers
+
+
+def session_slice(args: tuple, b: int) -> tuple:
+    """``args`` (cols_operands') for the first b sessions."""
+    model, s0, Q, pvec_b, weights, *hidden = args
+    n = s0.shape[0] // pvec_b.shape[0] * b
+    extra = (tuple(h[:b] for h in hidden[0]),) if hidden else ()
+    return (model, s0[:n], Q[:n], pvec_b[:b], weights, *extra)
+
+
+def fleet_swap(kind: str, ctrl: BatchedMPCController):
+    """The mid-loop model change of ``kind``'s fleet, none of which may
+    rebuild: new weight tensors (the nets; "ODE+res" a new install beside
+    the loop's re-sysid of slot 2), a GP hot-swap of the same posterior."""
+    pred = ctrl.optimizer.predictor.predictor
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+    def swap():
+        if kind == "residual":
+            pred.set_residual(clone(pred._res))
+        elif kind == "gp":
+            pred.gp_params = clone(pred.gp_params)
+        else:
+            pred.net_params = clone(pred.net_params)
+
+    return swap
+
+
+def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen) -> None:
+    """Phase 43: one update of ``kind``'s fleet on the card against the same
+    update on the CPU (the plain versions), from the state its loop left,
+    with the same draws and weights (the GP's well-conditioned): costs to
+    the kernel's bound, the new plans to UNOM_ATOL."""
+    B, opt = ctrl.num_slots, ctrl.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    if kind == "gp":
+        dyn = {"gp": well_conditioned_gp(dyn["gp"])}
+    delta = opt.sample_slot_noise(ctrl.slot_states.generator, np.ones(B, bool))
+    hidden = (ctrl.slot_hidden,) if ctrl._stateful else ()
+    cpu = learned_fleet("cpu", kind, B)
+    builders = {"mlp": "_make_batched_neural_step", "gru": "_make_batched_recurrent_step",
+                "lstm": "_make_batched_recurrent_step", "residual": "_make_batched_residual_step",
+                "gp": "_make_batched_gp_step"}
+
+    def update_of(o):
+        kw = {"per_slot_dyn": ("L",)} if kind == "residual" else {}
+        return getattr(o, builders[kind])(B, **kw)[1]
+
+    u_nom, costs = update_of(opt)(ctrl.slot_states, s, dyn, cost, attrs, *hidden, delta)
+    u_nom_c, costs_c = update_of(cpu.optimizer)(
+        state_to_cpu(ctrl.slot_states), s.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs),
+        *to_cpu(hidden), delta.cpu())
+    tol = RNN_TOL if kind in ("gru", "lstm") else NET_TOL
+    numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
+    emit(f"fleet_{kind}_update_vs_cpu", numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **tol)
+          and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"the {kind} fleet's update on the card differs from the CPU's {numbers}")
 
 
 def start_sweep() -> None:
@@ -3041,7 +3350,6 @@ def main() -> None:
     runs["fleet_cem"] = fleet_loop("slice_fleet_cem", fleet_cem, FLEET_CEM_TICKS,
                                    {"fused_cem_cols": FLEET_CEM_CONFIG["cem_outer_it"]
                                     * FLEET_CEM_TICKS})
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 39. One fleet update on the card against the same update on the CPU.
     fleet_update_vs_cpu(fleet_mppi, fleet_cem, gen)
@@ -3052,6 +3360,32 @@ def main() -> None:
         for B in (FLEET_B, FLEET_B_MAX)
         for label, optimizer, config in (("mppi", "mppi", FLEET_MPPI_CONFIG),
                                          ("cem", "cem-tf", FLEET_CEM_CONFIG))}
+
+    # 41. The learned models' session-row kernels at FLEET_B_MAX sessions.
+    learned = {kind: learned_fleet("cuda", kind, FLEET_B) for kind in LEARNED_FLEETS}
+    check(all(c._batched_neural_eligible() == (kind == "mlp")
+              and c._batched_recurrent_eligible() == (kind in ("gru", "lstm"))
+              and c._batched_residual_eligible() == (kind == "residual")
+              and c._batched_gp_eligible() == (kind == "gp") for kind, c in learned.items()),
+          "the learned fleets did not take their session-row kernels")
+    cols_rows = {kind: compare_cols(kind, c, gen) for kind, c in learned.items()}
+
+    # 42. The learned fleets, closed loop, each counted from 0.
+    for kind, c in learned.items():
+        runs[f"fleet_{kind}"] = fleet_loop(f"slice_fleet_{kind}", c, LEARNED_FLEET_TICKS,
+                                           {COLS_KERNELS[kind][0].__name__: LEARNED_FLEET_TICKS},
+                                           retarget_at=LEARNED_SWAP_AT, swap=fleet_swap(kind, c),
+                                           pole_check=False)
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
+    # 43. One update of each learned fleet on the card against the CPU's.
+    for kind, c in learned.items():
+        learned_fleet_update_vs_cpu(kind, c, gen)
+
+    # 44. The learned fleets timed at FLEET_B and FLEET_B_MAX sessions.
+    fleet_ticks.update({f"fleet_{kind}_b{B}": fleet_timing(
+        f"{kind}_b{B}", learned_fleet("cuda", kind, B), gen)
+        for B in (FLEET_B, FLEET_B_MAX) for kind in LEARNED_FLEETS})
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
@@ -3083,6 +3417,13 @@ def main() -> None:
         ("fused_mppi_weights", "fused_mppi.cu", "ops/pallas_mppi.py:376", k3b),
         ("mppi_cost_cols", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", k4),
         ("fused_cem_cols", "fused_cem_cols.cu", "ops/pallas_cem.py:168", k6),
+        ("neural_cost_rollout_cols", "neural_rollout.cu", "ops/pallas_neural.py:157",
+         cols_rows["mlp"]),
+        ("recurrent_cost_rollout_cols", "neural_rollout.cu", "ops/pallas_neural.py:452",
+         cols_rows["gru"]),
+        ("residual_cost_rollout_cols", "residual_rollout.cu", "ops/pallas_neural.py:351",
+         cols_rows["residual"]),
+        ("gp_cost_rollout_cols", "gp_rollout.cu", "ops/pallas_neural.py:647", cols_rows["gp"]),
     )
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

@@ -9,19 +9,29 @@ i)``), warm start, attributes and, with ``per_slot_dyn``, its own dynamics
 constants; a boolean mask freezes the slots that have no pending request,
 so an idle session keeps its warm start and its random stream exactly.
 
-Two session kinds are ported, each over its batched kernel:
+The session kinds ported, each over its batched kernel:
 
 * semi-fused MPPI over an ODE model: one K4 launch a tick
   (``MPPIOptimizer._make_batched_semi_fused_step``);
 * fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
-  outer iteration (``CEMOptimizer._make_batched_fused_cem_step``).
+  outer iteration (``CEMOptimizer._make_batched_fused_cem_step``);
+* plain MPPI over a learned model, one launch a tick of its kernel's
+  session-row form: an MLP (K11), a GRU or LSTM (K13, each session's
+  rollouts from its own hidden), ``"ODE+res"`` (K12, ``per_slot_dyn``
+  over the base's constants) or a sparse GP (K14)
+  (``MPPIOptimizer._batched_columns_step_from_kernel``).
+
+A recurrent model's per-slot hidden (``slot_hidden``, ``[B, 1, Hi]`` a
+cell) advances each tick with the applied control, in one batched cell
+step over the B slots; a frozen slot keeps its hidden bit for bit, and
+``reset_slot`` zeroes the slot's alone.
 
 Every other configuration raises ``NotImplementedError`` naming what is
-missing (ROADMAP A8): the neural, residual, GP, RPGD, gradient and
-recurrent batched steps, the vmapped per-slot step that the JAX package
-takes for everything else (a user's ``force_scan: true``, logging), the
-slot mesh, a learned value terminal and modular batched CEM.  Nothing
-falls back to a per-slot loop or to the CPU.
+missing (ROADMAP A9): the RPGD, gradient and modular-CEM batched steps
+(the ``slot_keys`` forms of K1 and K7-K10), the vmapped per-slot step that
+the JAX package takes for everything else (a user's ``force_scan: true``,
+logging), the slot mesh and a learned value terminal (the ``emit_terminal``
+forms).  Nothing falls back to a per-slot loop or to the CPU.
 """
 from __future__ import annotations
 
@@ -84,29 +94,49 @@ class BatchedMPCController(MPCController):
         opt = self.optimizer
         pred = getattr(self.predictor, "predictor", self.predictor)
         self._per_slot_dyn = tuple(per_slot_dyn)
-        defaults = getattr(pred, "base", pred).default_params()
+        # A residual predictor's constants are its base's, under dyn["base"].
+        base = getattr(pred, "base", pred)
+        self._dyn_subtree = "base" if base is not pred else None
+        defaults = base.default_params()
+        # A net's or a GP's params are tensor subtrees (and a recurrent net's
+        # hidden a tuple): no scalar constants.
+        scalars = sorted(k for k, v in defaults.items()
+                         if not isinstance(v, (dict, tuple)) and np.ndim(v) == 0)
         for k in self._per_slot_dyn:
-            if k not in defaults or np.ndim(defaults[k]) != 0:
-                raise ValueError(
-                    f"per_slot_dyn key {k!r} is not a scalar dynamics constant of this "
-                    f"predictor (have: {sorted(k for k in defaults if np.ndim(defaults[k]) == 0)})"
-                )
+            if k not in scalars:
+                raise ValueError(f"per_slot_dyn key {k!r} is not a scalar dynamics constant of "
+                                 f"this predictor (have: {scalars})")
         self._slot_dyn_defaults = {k: float(defaults[k]) for k in self._per_slot_dyn}
         self.slot_dyn: Dict[str, np.ndarray] = {
             k: np.full((B,), v, np.float32) for k, v in self._slot_dyn_defaults.items()
         }
 
+        self._stateful = self.predictor.is_stateful
         if self._batched_kernel_eligible():
             self._kstep, _ = opt._make_batched_semi_fused_step(B, per_slot_dyn=self._per_slot_dyn)
             kind = "semi-fused MPPI (K4)"
         elif self._batched_fused_cem_eligible():
             self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
             kind = "fully-fused CEM (K6)"
+        elif self._batched_neural_eligible():
+            self._kstep, _ = opt._make_batched_neural_step(B)
+            kind = "MPPI over an MLP (K11's session rows)"
+        elif self._batched_recurrent_eligible():
+            self._kstep, _ = opt._make_batched_recurrent_step(B)
+            kind = f"MPPI over a {pred.arch['kind'].upper()} (K13's session rows)"
+        elif self._batched_residual_eligible():
+            self._kstep, _ = opt._make_batched_residual_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "MPPI over ODE+res (K12's session rows)"
+        elif self._batched_gp_eligible():
+            self._kstep, _ = opt._make_batched_gp_step(B)
+            kind = "MPPI over a sparse GP (K14's session rows)"
         else:
             raise self._refusal()
         logger.info(f"batched-mpc: {kind}, B={B} x K={opt.num_rollouts} in one launch"
                     + (f", per-slot dyn {list(self._per_slot_dyn)}" if self._per_slot_dyn else ""))
         self.slot_states = self._init_slot_states()
+        if self._stateful:
+            self.slot_hidden = self._zero_hidden()
         self.slot_attrs: Dict[str, np.ndarray] = {
             k: np.full((B,), float(torch.as_tensor(v).reshape(-1)[0]), np.float32)
             for k, v in self.variable_parameters.items()
@@ -118,18 +148,70 @@ class BatchedMPCController(MPCController):
         plant, and K a multiple of 8 (the sessions' rollout order)."""
         from control_toolkit_tpu_torch.ops.counter_prng import ROWS
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
-        from control_toolkit_tpu_torch.optimizers.mppi import MPPIOptimizer
 
         opt = self.optimizer
         return (
-            type(opt) is MPPIOptimizer
+            self._plain_mppi()
             and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
-                                       stateful=self.predictor.is_stateful)
+                                       stateful=self._stateful)
             and opt.semi_fused
-            and not opt.bounded_update
             and ode.compatible_model(opt)
             and opt.num_rollouts % ROWS == 0
         )
+
+    def _plain_mppi(self) -> bool:
+        """Plain MPPI (not a variant) without ``bounded_update``: the update
+        every MPPI batched step computes."""
+        from control_toolkit_tpu_torch.optimizers.mppi import MPPIOptimizer
+
+        opt = self.optimizer
+        return type(opt) is MPPIOptimizer and not opt.bounded_update
+
+    def _batched_neural_like_eligible(self, recurrent: bool) -> bool:
+        """The learned nets' gate (JAX ``batched_mpc.py:484`` without its
+        TPU conjuncts): plain MPPI over a float32 net whose cost the device
+        plant evaluates (``neural.compatible_model``), no ``per_slot_dyn``
+        (the net's weights are shared: it has no scalar constants), and
+        ``recurrent`` the net's form: an MLP (K11) or a GRU/LSTM (K13)."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import neural
+
+        opt = self.optimizer
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        return (
+            self._plain_mppi()
+            and not self._per_slot_dyn
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+            and neural.compatible_model(opt)
+            and pred.recurrent == recurrent
+        )
+
+    def _batched_neural_eligible(self) -> bool:
+        return self._batched_neural_like_eligible(recurrent=False)
+
+    def _batched_recurrent_eligible(self) -> bool:
+        return self._batched_neural_like_eligible(recurrent=True)
+
+    def _batched_residual_eligible(self) -> bool:
+        """K12's gate (JAX ``batched_mpc.py:513``): plain MPPI over an
+        ``"ODE+res"`` predictor of a device plant; ``per_slot_dyn`` names
+        base constants, carried in the sessions' rows."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import residual
+
+        opt = self.optimizer
+        return (self._plain_mppi()
+                and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+                and residual.compatible_model(opt))
+
+    def _batched_gp_eligible(self) -> bool:
+        """K14's gate (JAX ``batched_mpc.py:536``): plain MPPI over a sparse
+        GP of a device plant, no ``per_slot_dyn``."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import gp
+
+        opt = self.optimizer
+        return (self._plain_mppi()
+                and not self._per_slot_dyn
+                and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+                and gp.compatible_model(opt))
 
     def _batched_fused_cem_eligible(self) -> bool:
         """K6's gate (JAX ``batched_mpc.py:589`` without its TPU
@@ -145,7 +227,7 @@ class BatchedMPCController(MPCController):
             type(opt) is CEMOptimizer
             and opt.fully_fused
             and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
-                                       stateful=self.predictor.is_stateful)
+                                       stateful=self._stateful)
             and not opt.warmup
             and ode.compatible_model(opt)
             and opt.num_rollouts % ROWS == 0
@@ -153,34 +235,26 @@ class BatchedMPCController(MPCController):
 
     def _refusal(self) -> NotImplementedError:
         """The missing piece that this configuration's batched step needs."""
-        from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
-        from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
-        from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
         from control_toolkit_tpu_torch.optimizers.cem import CEMOptimizer
         from control_toolkit_tpu_torch.optimizers.gradient import GradientOptimizer
         from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
         opt = self.optimizer
-        pred = getattr(self.predictor, "predictor", self.predictor)
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
-        if self.predictor.is_stateful:
-            return _not_ported("the batched recurrent (GRU/LSTM) step (K13's hidden_per_lane form)")
         if getattr(cf, "post_terminal_cost", None) is not None:
-            return _not_ported("a learned value terminal in batched mode (K4's emit_terminal form)")
+            return _not_ported("a learned value terminal in batched mode (the emit_terminal "
+                               "forms of K4 and K11-K14)")
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
-        for cls, what in ((NeuralPredictor, "the batched neural MLP step (K11's slot_keys form)"),
-                          (ResidualPredictor, "the batched residual step (K12's slot_keys form)"),
-                          (GPPredictor, "the batched GP step (K14's slot_keys form)")):
-            if isinstance(pred, cls):
-                return _not_ported(what)
-        for cls, what in ((RPGDOptimizer, "the batched RPGD step (K7's slot_keys form)"),
-                          (GradientOptimizer, "the batched gradient step (K7's slot_keys form)")):
+        for cls, what in ((RPGDOptimizer, "the batched RPGD step (the slot_keys forms of K7-K10 "
+                                          "and K1)"),
+                          (GradientOptimizer, "the batched gradient step (the slot_keys forms "
+                                              "of K7-K10 and K1)")):
             if isinstance(opt, cls):
                 return _not_ported(what)
         if type(opt) is CEMOptimizer and not opt.fully_fused:
-            return _not_ported("the modular batched CEM step")
+            return _not_ported("the modular batched CEM step (K1's slot_keys form)")
         return _not_ported(f"the vmapped per-slot batched step ({opt.registered_name}, "
                            f"K={opt.num_rollouts})")
 
@@ -193,12 +267,25 @@ class BatchedMPCController(MPCController):
         return _stack_states([opt._init_state(self._slot_generator(i))
                               for i in range(self.num_slots)])
 
+    def _zero_hidden(self):
+        """A recurrent model's per-slot hidden, every slot zero: per cell
+        ``[B, 1, Hi]`` (``_rnn_state0`` at batch B)."""
+        pred = self.predictor.predictor
+        return tuple(h[:, None, :] for h in pred._rnn_state0(pred.arch["hiddens"],
+                                                               self.num_slots,
+                                                               device=self.device))
+
     def reset_slot(self, i: int) -> None:
         """Slot ``i``'s initial warm start and random stream, as its first
-        tick had them; its dynamics constants are kept (``reset_slot_dyn``)."""
+        tick had them, and a recurrent model's hidden zeroed for that slot
+        alone (it may carry the divergence or a stale session); its
+        dynamics constants are kept (``reset_slot_dyn``)."""
         new = self.optimizer._init_state(self._slot_generator(i))
         self.slot_states = type(new)(*(_set_slot(full, one, i)
                                        for full, one in zip(self.slot_states, new)))
+        if self._stateful:
+            self.slot_hidden = tuple(_set_slot(h, torch.zeros_like(h[i]), i)
+                                     for h in self.slot_hidden)
 
     def update_slot_dyn(self, i: int, updated: Optional[Dict]) -> None:
         """Update slot ``i``'s per-session dynamics constants (keys named in
@@ -257,6 +344,14 @@ class BatchedMPCController(MPCController):
 
         return torch.where(mask[:, None], u, 0.0), type(new)(*(keep(n, o) for n, o in zip(new, old)))
 
+    def _dyn_with_slots(self, dyn: Dict) -> Dict:
+        """``dyn`` with the per-slot constants ``[B]`` laid over it: at the
+        top, or in a residual predictor's ``base``."""
+        slot = {k: torch.as_tensor(v, device=self.device) for k, v in self.slot_dyn.items()}
+        if self._dyn_subtree is None:
+            return dict(dyn, **slot)
+        return dict(dyn, **{self._dyn_subtree: dict(dyn[self._dyn_subtree], **slot)})
+
     def step_batch(self, s_batch: np.ndarray, mask: Optional[np.ndarray] = None,
                    updated_attributes: Optional[List[Optional[Dict]]] = None) -> np.ndarray:
         B = self.num_slots
@@ -269,12 +364,14 @@ class BatchedMPCController(MPCController):
         if self.cost_function.update_cost_parameters_from_config():
             self._cost_params = None
         params = self._assemble_params()
-        dyn = dict(params["dyn"], **{k: torch.as_tensor(v, device=self.device)
-                                     for k, v in self.slot_dyn.items()})
+        dyn = self._dyn_with_slots(params["dyn"])
         mask_np = np.ones((B,), bool) if mask is None else np.asarray(mask, bool).reshape(B)
         s = torch.as_tensor(np.asarray(s_batch, np.float32).reshape(B, 1, -1), device=self.device)
         attrs = {k: torch.as_tensor(v, device=self.device) for k, v in self.slot_attrs.items()}
-        u, new, _ = self._kstep(self.slot_states, s, dyn, params["cost"], attrs, mask_np)
+        hidden = (self.slot_hidden,) if self._stateful else ()
+        u, new, _ = self._kstep(self.slot_states, s, dyn, params["cost"], attrs, mask_np, *hidden)
+        if self._stateful:
+            self.slot_hidden = self._advance_hidden(dyn["net"], s, u, mask_np)
         u, self.slot_states = self._freeze(mask_np, u, new, self.slot_states)
         u_host = u.cpu().numpy()
         # Per-slot NaN guard: a diverged slot commands zero and resets alone.
@@ -284,6 +381,18 @@ class BatchedMPCController(MPCController):
             self.reset_slot(int(i))
         u_host[bad] = 0.0
         return u_host
+
+    def _advance_hidden(self, net, s, u, mask_np):
+        """Every slot's hidden advanced with its applied (pre-freeze) control
+        in one batched cell step (JAX ``batched_mpc.py:290-306``; the
+        reference's predictor.update); a frozen slot keeps its hidden bit for
+        bit."""
+        pred = self.predictor.predictor
+        _, h_new = pred._rnn_apply(net, torch.cat([s[:, 0, :], u], dim=-1),
+                                   tuple(h[:, 0, :] for h in self.slot_hidden))
+        mask = torch.as_tensor(mask_np, device=self.device)[:, None, None]
+        return tuple(torch.where(mask, hn[:, None, :], h)
+                     for hn, h in zip(h_new, self.slot_hidden))
 
     def step(self, s, time=None, updated_attributes: Optional[Dict] = None):
         """The scalar controller's surface: drive slot 0."""
@@ -296,3 +405,5 @@ class BatchedMPCController(MPCController):
 
     def controller_reset(self) -> None:
         self.slot_states = self._init_slot_states()
+        if self._stateful:
+            self.slot_hidden = self._zero_hidden()

@@ -8,6 +8,10 @@
 // kernel_families/gp.py.  Python wrappers and plain versions:
 // ops/gp_rollout.py and ops/gp_grad_cost_rollout.py.
 //
+// K14 serves one session (ks = K) or, in its session-row form, B sessions
+// of ks rollouts in one launch, every lane of rollout k reading row k / ks
+// of pvec.
+//
 // K14 is a one-thread-a-rollout cost kernel (as K1, cost_rollout.cu) with
 // the GP step: the packed parameters are the cost's alone (plants.cuh
 // CartpoleCost), the stage cost is taken before the step, cost[k] =
@@ -73,8 +77,8 @@ constexpr int kGpCostLanes = 4;
 template <class Cost, int L>
 __global__ void __launch_bounds__(kGpThreads)
 gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                       const float* __restrict__ pvec, float* __restrict__ cost, int K, int H,
-                       float max_cost, GPArgs gp) {
+                       const float* __restrict__ pvec, float* __restrict__ cost, int K, int ks,
+                       int H, float max_cost, GPArgs gp) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -88,9 +92,11 @@ gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q
   const int k = (t >> 5) * R + (t & (R - 1)), kc = k < K ? k : K - 1;
   GPConsts<S, U> g;
   g.load(gp);
+  // Every lane of a rollout its session's row (ks rollouts a session).
+  const float* row = pvec + static_cast<size_t>(kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
-  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
@@ -218,11 +224,12 @@ auto gp_kernel() {
 
 // Launch K14 with L lanes a rollout.
 template <int L>
-int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
-               float max_cost, const GPArgs& gp, void* stream) {
+int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
+               int H, float max_cost, const GPArgs& gp, void* stream) {
   return launch_gp(gp_kernel<false, L>(), gp_allowed[0][ilog2(L)], gp, K, L, kGpThreads, stream,
                    static_cast<const float*>(s0), static_cast<const float*>(Q),
-                   static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost);
+                   static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H,
+                   max_cost);
 }
 
 // Launch K10 with L lanes a rollout.
@@ -260,21 +267,26 @@ extern "C" long ctt_gp_smem_bytes(int S, int U, int M) {
   return ctt::gp_smem_bytes<ctt::CartpoleCost::S, ctt::CartpoleCost::U>(M);
 }
 
-// Launches K14 on `stream` with `lanes` lanes a rollout (1, 2, 4, 8 or 16;
-// 0 for kGpCostLanes); returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown plant, another `lanes`, or an M
-// whose inducing points exceed a block's shared memory.
+// Launches K14 on `stream` over K rollouts, sessions of ks (pvec holds
+// K / ks rows, rollout k reading row k / ks: ks = K for one session, the
+// session-row form for a fleet), with `lanes` lanes a rollout (1, 2, 4, 8
+// or 16; 0 for kGpCostLanes); returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for an unknown plant, another `lanes`, a ks
+// that does not divide K, or an M whose inducing points exceed a block's
+// shared memory.
 extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                   void* cost, int K, int H, float max_cost, int lanes,
+                                   void* cost, int K, int ks, int H, float max_cost, int lanes,
                                    const ctt::GPArgs* gp, void* stream) {
   using ctt::launch_k14;
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (lanes == 0 ? ctt::kGpCostLanes : lanes) {
-    case 1: return launch_k14<1>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
-    case 2: return launch_k14<2>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
-    case 4: return launch_k14<4>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
-    case 8: return launch_k14<8>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
-    case 16: return launch_k14<16>(s0, Q, pvec, cost, K, H, max_cost, *gp, stream);
+    case 1: return launch_k14<1>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
+    case 2: return launch_k14<2>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
+    case 4: return launch_k14<4>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
+    case 8: return launch_k14<8>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
+    case 16: return launch_k14<16>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

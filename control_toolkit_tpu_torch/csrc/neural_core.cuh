@@ -26,7 +26,7 @@ struct NetArgs {
   const float* b[kMaxLayers];       // MLP b_i; cell bi [G*Hd]
   const float* wh[kMaxLayers];      // cell wh [Hd, G*Hd]
   const float* bh[kMaxLayers];      // cell bh [G*Hd]
-  const float* hidden[kMaxLayers];  // the live batch-1 hidden: [Hd] (GRU), [h, c] (LSTM)
+  const float* hidden[kMaxLayers];  // hidden rows, one a session: [Hd] (GRU), [h, c] (LSTM)
   const float* wo;                  // head [Hd_L, S]
   const float* bo;
   const float* norm_in_mean;        // MLP norms [S+U] and [S], null when absent

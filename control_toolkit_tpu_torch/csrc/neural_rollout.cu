@@ -1,6 +1,10 @@
 // K11 and K13: rollout + trajectory cost over K control sequences under a
 // learned network: an MLP (K11) or stacked GRU/LSTM cells from the live
-// batch-1 hidden (K13).
+// hidden (K13).  Each serves one session (ks = K) or, in its session-row
+// form, B sessions of ks rollouts in one launch: rollout k reads row k / ks
+// of pvec (and, K13, of each cell's hidden), so a 16-rollout group may
+// straddle two sessions, each lane loading its own rollout's row
+// (ops/neural_rollout.py *_cols, the batched-mpc fleet's).
 //
 // Replaces control_toolkit_tpu/ops/pallas_neural.py:
 // build_neural_cost_rollout_kernel (K11) and
@@ -40,7 +44,7 @@ template <class Cost>
 __global__ void __launch_bounds__(kRnnThreads)
 neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                            const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                           int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
+                           int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -54,9 +58,11 @@ neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict
   const int k = first + (lane & 15), kc = k < K ? k : K - 1;
   float* gsm = sm + L.net.net_floats + group * L.group_floats;
   float* io = gsm + L.io + w * kMmaRows * 8;
+  // Each lane its rollout's session row (ks rollouts a session).
+  const float* row = pvec + static_cast<size_t>(kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
-  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
@@ -81,7 +87,7 @@ template <class Cost, int G>
 __global__ void __launch_bounds__(kRnnThreads)
 recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                               const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                              int H, float max_cost, NetArgs net, RnnLayout L) {
+                              int ks, int H, float max_cost, NetArgs net, RnnLayout L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -95,11 +101,13 @@ recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restr
   const int k = first + (lane & 15), kc = k < K ? k : K - 1;
   float* gsm = sm + L.net_floats + group * L.group_floats;
   float* io = gsm + L.io + w * kMmaRows * 8;
-  rnn_mma_start<G>(gsm, net, L, w);
+  rnn_mma_start<G>(gsm, net, L, w, first, K, ks);
   group_sync(group, L.warps);
+  // Each lane its rollout's session row (ks rollouts a session).
+  const float* row = pvec + static_cast<size_t>(kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
-  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
   for (int i = 0; i < S; ++i) x[i] = __ldg(s0 + static_cast<size_t>(kc) * S + i);
@@ -123,8 +131,8 @@ recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restr
 // Plan K13's layout for `net`, allow the shared memory and launch `kernel`.
 template <class Kernel>
 int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, int U,
-                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
-                      float max_cost, void* stream) {
+                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
+                      int H, float max_cost, void* stream) {
   RnnLayout L;
   const long bytes = plan_rnn(net, S, U, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -134,7 +142,7 @@ int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
   const dim3 grid((K + per_block - 1) / per_block);
   kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost, net, L);
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,8 +150,8 @@ int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
 // allow the shared memory and launch `kernel` on `stream`.
 template <class Kernel>
 int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int warps,
-                     const void* s0, const void* Q, const void* pvec, void* cost, int K, int H,
-                     float max_cost, void* stream) {
+                     const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
+                     int H, float max_cost, void* stream) {
   MlpUnitsLayout L;
   const long bytes = plan_mlp_units(net, S, U, warps, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -153,7 +161,7 @@ int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, in
   const dim3 grid((K + per_block - 1) / per_block);
   kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, max_cost, net, L);
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,20 +206,23 @@ extern "C" long ctt_neural_plan(const ctt::NetArgs* net, int S, int U, int warps
   return bytes;
 }
 
-// Launches K11 (an MLP net) on `stream` with `warps` warps a 16-rollout
-// group (1, 2 or 4; 0 for the plan's own); returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for an unknown plant, another
-// `warps` or a net the kernel refuses.
+// Launches K11 (an MLP net) on `stream` over K rollouts, sessions of ks
+// (pvec holds K / ks rows, rollout k reading row k / ks: ks = K for one
+// session, the session-row form for a fleet), with `warps` warps a
+// 16-rollout group (1, 2 or 4; 0 for the plan's own); returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
+// unknown plant, another `warps`, a ks that does not divide K or a net the
+// kernel refuses.
 extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                       void* cost, int K, int H, float max_cost, int warps,
-                                       const ctt::NetArgs* net, void* stream) {
+                                       void* cost, int K, int ks, int H, float max_cost,
+                                       int warps, const ctt::NetArgs* net, void* stream) {
   using Cost = ctt::CartpoleCost;
-  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP ||
+  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP || ks < 1 || K % ks != 0 ||
       (warps != 0 && warps != 1 && warps != 2 && warps != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return ctt::launch_mlp_units(ctt::neural_cost_rollout_kernel<Cost>, allowed_mlp, *net, Cost::S,
-                               Cost::U, warps, s0, Q, pvec, cost, K, H, max_cost, stream);
+                               Cost::U, warps, s0, Q, pvec, cost, K, ks, H, max_cost, stream);
 }
 
 // Blocks of K11 that one SM holds for `net` with the plan's warps a group
@@ -234,22 +245,27 @@ namespace {
 long allowed_gru = 0, allowed_lstm = 0;  // K13's dynamic shared memory allowed so far
 }  // namespace
 
-// Launches K13 (a GRU or LSTM net) on `stream`; returns as above.
+// Launches K13 (a GRU or LSTM net) on `stream` over K rollouts, sessions
+// of ks as K11's: rollout k reads pvec's row k / ks and starts from row
+// k / ks of each cell's hidden (net->hidden[l], [K / ks, Hd] for the GRU,
+// [K / ks, 2 Hd] for the LSTM's [h, c]); returns as above.
 extern "C" int ctt_recurrent_cost_rollout(int plant, const void* s0, const void* Q,
-                                          const void* pvec, void* cost, int K, int H,
+                                          const void* pvec, void* cost, int K, int ks, int H,
                                           float max_cost, const ctt::NetArgs* net,
                                           void* stream) {
   using Cost = ctt::CartpoleCost;
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (net->kind) {
     case ctt::kNetGRU:
       return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
-                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
-                                    stream);
+                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H,
+                                    max_cost, stream);
     case ctt::kNetLSTM:
       return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
-                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, H, max_cost,
-                                    stream);
+                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H,
+                                    max_cost, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,6 +10,10 @@
 // Python wrappers and plain versions: ops/residual_rollout.py and
 // ops/residual_grad_cost_rollout.py.
 //
+// K12 serves one session (ks = K) or, in its session-row form, B sessions
+// of ks rollouts in one launch, rollout k reading row k / ks of pvec (the
+// session's base constants and cost; both warps of a group read it).
+//
 // K12 is K1 (cost_rollout.cu) with the residual added to each step: the
 // base's euler/rk4 step over the packed
 // constants p + 0, the cost over p + CartpolePlant::kCost, and the MLP
@@ -106,7 +110,7 @@ template <class Plant>
 __global__ void __launch_bounds__(32 * kResBlockWarps, 4)
 residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                              const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                             int H, StepConsts c, float max_cost, NetArgs net,
+                             int ks, int H, StepConsts c, float max_cost, NetArgs net,
                              ResidualLayout R) {
   constexpr int S = Plant::S, U = Plant::U, W = kResGroupWarps;
   extern __shared__ float4 smem4[];
@@ -122,8 +126,10 @@ residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restri
   const int k = first + (lane & 15), kc = k < K ? k : K - 1;
   float* gsm = sm + L.net.net_floats + group * L.group_floats;
   const bool mlp_warp = w == 0;
+  // Both warps of the group: each lane its rollout's session row (ks
+  // rollouts a session), the base's constants with the cost's.
   float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  load_params<Plant>(pvec + static_cast<size_t>(kc / ks) * Plant::kN, p);
   const typename Plant::Recips rc = Plant::recips(p);
   Rollout<Plant> r;
   r.start(s0 + static_cast<size_t>(kc) * S, p);
@@ -251,19 +257,23 @@ extern "C" long ctt_residual_plan(const ctt::NetArgs* net, int* groups) {
   return bytes;
 }
 
-// Launches K12 on `stream`; returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for an unknown plant or a net the kernel
-// refuses (not an MLP in absolute form without norms, or too large for
-// shared memory).
+// Launches K12 on `stream` over K rollouts, sessions of ks (pvec holds
+// K / ks rows, rollout k reading row k / ks: ks = K for one session, the
+// session-row form for a fleet whose rows also carry each session's base
+// constants); returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unknown plant, a ks that does not divide K
+// or a net the kernel refuses (not an MLP in absolute form without norms,
+// or too large for shared memory).
 extern "C" int ctt_residual_cost_rollout(int plant, const void* s0, const void* Q,
-                                         const void* pvec, void* cost, int K, int H, int rk4,
-                                         int substeps, float sub_dt, float half_dt, float dt6,
-                                         float max_cost, const ctt::NetArgs* net,
+                                         const void* pvec, void* cost, int K, int ks, int H,
+                                         int rk4, int substeps, float sub_dt, float half_dt,
+                                         float dt6, float max_cost, const ctt::NetArgs* net,
                                          void* stream) {
   using Plant = ctt::CartpolePlant;
   ctt::ResidualLayout R;
-  const long bytes =
-      plant == ctt::kPlantCartpole ? ctt::plan_residual(*net, Plant::S, Plant::U, R) : -1;
+  const long bytes = plant == ctt::kPlantCartpole && ks >= 1 && K % ks == 0
+                         ? ctt::plan_residual(*net, Plant::S, Plant::U, R)
+                         : -1;
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = ctt::residual_cost_rollout_kernel<Plant>;
   const cudaError_t err = ctt::allow_smem(kernel, bytes, ctt::k12_allowed);
@@ -273,7 +283,8 @@ extern "C" int ctt_residual_cost_rollout(int plant, const void* s0, const void* 
   kernel<<<(K + per_block - 1) / per_block, 32 * ctt::kResGroupWarps * R.mlp.groups, bytes,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, c, max_cost, *net, R);
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost, *net,
+      R);
   return static_cast<int>(cudaGetLastError());
 }
 

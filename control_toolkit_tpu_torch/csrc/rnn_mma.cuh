@@ -286,29 +286,36 @@ __device__ __forceinline__ void put_split(float4* slab, int j, const uint32_t (&
 }
 
 // Fill this warp's tiles (j = w, w + W, ..) of each layer's first split h
-// slab and of its own state (the GRU's h, the LSTM's c) from the live
-// batch-1 hidden, [h] (GRU) or [h, c] (LSTM): every row the same, units
-// past the width 0.
+// slab and of its own state (the GRU's h, the LSTM's c) from the hidden,
+// [h] (GRU) or [h, c] (LSTM) a row: fragment row r (rollout first + r, or
+// K-1 past K) takes row (first + r) / ks, its session's, so that a group
+// straddling two sessions starts each rollout from its own; units past the
+// width 0.
 template <int G>
 __device__ __forceinline__ void rnn_mma_start(float* gsm, const NetArgs& a, const RnnLayout& L,
-                                              int w) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
+                                              int w, int first, int K, int ks) {
+  const int lane = threadIdx.x & 31, t = lane & 3, q = lane >> 2;
+  const int b0 = min(first + q, K - 1) / ks, b1 = min(first + q + 8, K - 1) / ks;
   for (int l = 0; l < a.n_layers; ++l) {
-    const int hd = a.dims[l + 1];
-    const float* hid = a.hidden[l];
+    const int hd = a.dims[l + 1], width = G == 4 ? 2 * hd : hd;
+    const float* hid0 = a.hidden[l] + static_cast<size_t>(b0) * width;
+    const float* hid1 = a.hidden[l] + static_cast<size_t>(b1) * width;
     for (int j = w; j < L.nt[l]; j += L.warps) {
       const int u0 = 8 * j + 2 * t;
-      const float h0 = u0 < hd ? __ldg(hid + u0) : 0.0f;
-      const float h1 = u0 + 1 < hd ? __ldg(hid + u0 + 1) : 0.0f;
+      // Values 0, 1: row q's units u0, u0 + 1; values 2, 3: row q + 8's:
+      // h, then (the LSTM) c in the same registers.
+      auto load = [&](const float* h, int u) { return u < hd ? __ldg(h + u) : 0.0f; };
+      float v[4] = {load(hid0, u0), load(hid0, u0 + 1), load(hid1, u0), load(hid1, u0 + 1)};
       uint32_t hi[4], lo[4];
-      a_fragment({h0, h1, h0, h1}, hi, lo);
+      a_fragment(v, hi, lo);
       put_split(reinterpret_cast<float4*>(gsm + L.h[l]) + lane, j, hi, lo);
-      float s0 = h0, s1 = h1;
       if constexpr (G == 4) {
-        s0 = u0 < hd ? __ldg(hid + hd + u0) : 0.0f;
-        s1 = u0 + 1 < hd ? __ldg(hid + hd + u0 + 1) : 0.0f;
+        v[0] = load(hid0 + hd, u0);
+        v[1] = load(hid0 + hd, u0 + 1);
+        v[2] = load(hid1 + hd, u0);
+        v[3] = load(hid1 + hd, u0 + 1);
       }
-      reinterpret_cast<float4*>(gsm + L.own[l])[j * 32 + lane] = make_float4(s0, s1, s0, s1);
+      reinterpret_cast<float4*>(gsm + L.own[l])[j * 32 + lane] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }

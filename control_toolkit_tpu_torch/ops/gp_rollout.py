@@ -19,6 +19,11 @@ packed layout only.  The step is models/gp_predictor.py's
 into one affine transform (``Zs = Z / ls``, ``inv_in = 1 / (in_std *
 ls)``); a re-fit is a new set of tensors, never a rebuild.
 
+Its session-row (``slot_keys``) form ``gp_cost_rollout_cols`` (the
+batched-mpc fleet's) scores B sessions' rollouts in one launch of the same
+kernel, every lane of rollout b*K + k reading row b of ``pvec_b [B,N]``;
+the GP's operands are shared.
+
 The CUDA kernel is ``csrc/gp_rollout.cu``, each rollout's step split
 over the lanes of a warp as K10's is (``gp_cost_rollout_lanes`` picks
 their number; its source note says what bounds it on the card);
@@ -33,7 +38,9 @@ from typing import Dict
 import torch
 
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, plain_cost_loop
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    check_cols_shapes, check_shapes, plain_cost_loop, session_rows,
+)
 
 
 def flatten_gp_weights(gp: Dict) -> Dict[str, torch.Tensor]:
@@ -88,21 +95,56 @@ def gp_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Ten
                          "kernel's)")
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_cost_rollout_plain(model, s0, Q, pvec, ops)
-    args, tensors = model.gp_args(ops)
-    device = kernels.check_cuda_operands("gp_cost_rollout", s0=s0, Q=Q, pvec=pvec, **tensors)
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("gp_cost_rollout", S, U, K, H, pvec.numel())
-    cost = torch.empty(K, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        rc = kernels.load().ctt_gp_cost_rollout(
-            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, H, model.max_cost, lanes, args,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    kernels.check_launch(rc, f"gp_cost_rollout (M={args.M} inducing points)")
+    cost = _launch("gp_cost_rollout", model, s0, Q, pvec, ops, s0.shape[0], lanes)
     gp_cost_rollout.launches += 1
     return cost
 
 
 gp_cost_rollout.launches = 0
+
+
+def gp_cost_rollout_cols_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]
+                               ) -> torch.Tensor:
+    """K14's session-row form in PyTorch: K14's plain version over the B*K
+    rollouts, each scored under its session's row of ``pvec_b``;
+    ``[B, K]``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    return gp_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T, ops).reshape(B, K)
+
+
+def gp_cost_rollout_cols(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                         pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """K14's session-row (``slot_keys``) form: the costs ``[B, K]`` of B
+    sessions' rollouts in one launch, ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
+    session by session, every lane of rollout b*K + k reading session b's
+    row of ``pvec_b [B,N]``; the GP's operands are shared."""
+    K = check_cols_shapes("gp_cost_rollout_cols", s0, Q, pvec_b)
+    if kernels.on_cpu(s0, Q, pvec_b, *ops.values()):
+        return gp_cost_rollout_cols_plain(model, s0, Q, pvec_b, ops)
+    cost = _launch("gp_cost_rollout_cols", model, s0, Q, pvec_b, ops, K, 0)
+    gp_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K)
+
+
+gp_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.GPModel, s0, Q, pvec, ops, ks: int, lanes: int):
+    """Check the operands and launch K14 with ``lanes`` lanes a rollout over
+    sessions of ``ks`` rollouts, ``pvec``'s rows; returns the costs."""
+    args, tensors = model.gp_args(ops)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_gp_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), K, ks, H, model.max_cost, lanes, args,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, f"{name} (M={args.M} inducing points)")
+    return cost

@@ -335,10 +335,12 @@ class NetModel(CostModel):
         if self.kind not in NET_KINDS:
             raise ValueError(f"unknown net kind {self.kind!r} ({' | '.join(NET_KINDS)})")
 
-    def net_args(self, net: Dict, hidden=None) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+    def net_args(self, net: Dict, hidden=None,
+                 rows: int = 1) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
         """``(NetArgs, tensors by name)`` for ``net`` and, for a recurrent
-        net, the live batch-1 ``hidden``; raises unless each tensor has the
-        shape its place in the net gives it."""
+        net, its ``hidden``: ``rows`` rows a cell (1, the live batch-1
+        hidden; B, one a session for the session-row form); raises unless
+        each tensor has the shape its place in the net gives it."""
         S, U = PLANT_DIMS[self.plant]
         if self.kind == "mlp":
             return mlp_net_args(net, S, U, self.predict_delta)
@@ -358,7 +360,7 @@ class NetModel(CostModel):
             put("wh", i, f"cell{i}/wh", cell["wh"], (hd, gates * hd))
             put("bh", i, f"cell{i}/bh", cell["bh"], (gates * hd,))
             state = hd if self.kind == "gru" else 2 * hd
-            put("hidden", i, f"hidden{i}", hidden[i], (1, state))
+            put("hidden", i, f"hidden{i}", hidden[i], (rows, state))
         put("wo", None, "wo", net["wo"], (dims[-1], S))
         put("bo", None, "bo", net["bo"], (S,))
         args.n_layers = n
@@ -464,10 +466,12 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_grad_cost_adjoint.restype = i32
         net = ctypes.POINTER(NetArgs)
-        lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, i32, net,
-                                                ptr]
+        # K, ks (rollouts a session: K for one session), H.
+        lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
+                                                net, ptr]
         lib.ctt_neural_cost_rollout.restype = i32
-        lib.ctt_recurrent_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, net, ptr]
+        lib.ctt_recurrent_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
+                                                   net, ptr]
         lib.ctt_recurrent_cost_rollout.restype = i32
         lib.ctt_neural_plan.argtypes = [net, i32, i32, i32, ctypes.POINTER(i32),
                                         ctypes.POINTER(i32)]
@@ -489,7 +493,7 @@ def load() -> ctypes.CDLL:
         lib.ctt_grad_cost_adjoint_blocks_per_sm.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
         lib.ctt_residual_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, *step, f32, net, ptr,
+            i32, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
         ]
         lib.ctt_residual_cost_rollout.restype = i32
         lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
@@ -499,8 +503,8 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_residual_grad_cost_rollout.restype = i32
         gp = ctypes.POINTER(GPArgs)
-        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, f32, i32, gp,
-                                            ptr]
+        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
+                                            gp, ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, gp, ptr,

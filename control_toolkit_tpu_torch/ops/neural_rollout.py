@@ -20,7 +20,18 @@ state.
 
 The kernels take the net's tensors as they are stored (``w{i}`` [in,
 out], ``cell{i}/wi`` [in, G*Hd]); a new weight tensor is a new pointer,
-never a rebuild.  The CUDA kernels are ``csrc/neural_rollout.cu`` (its
+never a rebuild.
+
+Their session-row (``slot_keys``) forms, ``neural_cost_rollout_cols`` and
+``recurrent_cost_rollout_cols`` (the batched-mpc fleet's), score B
+sessions' rollouts in one launch of the same kernel: ``s0 [B*K,S]`` and
+``Q [B*K,H,U]`` session by session, rollout b*K + k reading row b of
+``pvec_b [B,N]`` (``optimizers/base.py:make_slot_packer``) and, for K13,
+starting from row b of each cell's hidden (``hidden_per_lane``); the
+costs come back ``[B, K]``.  The JAX kernels lay a session's rows out as
+lane columns ``[n_slot, B*K]`` (pallas_neural.py:191-197), a TPU layout;
+here each rollout reads its session's row by index, and a 16-rollout group
+may straddle two sessions.  The CUDA kernels are ``csrc/neural_rollout.cu`` (its
 source note says what bounds them on the card); the ``*_plain`` functions
 are the same functions in PyTorch.  A wrapper runs its plain version only
 when every operand lies on the CPU; for CUDA operands it launches its
@@ -104,20 +115,40 @@ def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tenso
         )
 
 
+def check_cols_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor,
+                      pvec_b: torch.Tensor) -> int:
+    """Raise unless ``s0 [B*K,S]``, ``Q [B*K,H,U]`` and ``pvec_b [B,N]``
+    fit together; returns K, the rollouts a session."""
+    if (s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec_b.ndim != 2
+            or pvec_b.shape[0] < 1 or s0.shape[0] % pvec_b.shape[0] or s0.shape[0] == 0):
+        raise ValueError(
+            f"{name}: expected s0 [B*K,S], Q [B*K,H,U], pvec_b [B,N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec_b.shape)}"
+        )
+    return s0.shape[0] // pvec_b.shape[0]
+
+
+def session_rows(rows: torch.Tensor, K: int) -> torch.Tensor:
+    """Per-session rows ``[B, n]`` as per-rollout rows ``[B*K, n]``."""
+    return rows.repeat_interleave(K, dim=0)
+
+
 def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden,
-            extra=()):
-    """Check the operands and launch the C entry point ``entry``, with
-    ``extra`` arguments before the net's; returns the costs."""
-    args, tensors = model.net_args(net, hidden)
+            extra=(), ks: int = 0, rows: int = 1):
+    """Check the operands and launch the C entry point ``entry`` over
+    sessions of ``ks`` rollouts (0: one session) whose rows ``pvec`` and
+    ``hidden`` hold, with ``extra`` arguments before the net's; returns the
+    costs."""
+    args, tensors = model.net_args(net, hidden, rows)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape(name, S, U, K, H, pvec.numel())
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
     cost = torch.empty(K, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         rc = getattr(kernels.load(), entry)(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, H, model.max_cost, *extra, args,
+            cost.data_ptr(), K, ks or K, H, model.max_cost, *extra, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, name)
@@ -152,6 +183,41 @@ def neural_cost_rollout_warps(model: kernels.NetModel, s0: torch.Tensor, Q: torc
 neural_cost_rollout.launches = 0
 
 
+def neural_cost_rollout_cols_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                   pvec_b: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11's session-row form in PyTorch: K11's plain version over the B*K
+    rollouts, each with its session's row of ``pvec_b``; ``[B, K]``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    return neural_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T, net).reshape(B, K)
+
+
+def neural_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                             pvec_b: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11's session-row (``slot_keys``) form: the costs ``[B, K]`` of B
+    sessions' rollouts in one launch, ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
+    session by session, rollout b*K + k reading session b's row of
+    ``pvec_b [B,N]`` (``optimizers/base.py:make_slot_packer``); the net's
+    weights are shared."""
+    K = check_cols_shapes("neural_cost_rollout_cols", s0, Q, pvec_b)
+    if model.kind != "mlp":
+        raise ValueError(f"neural_cost_rollout_cols: an MLP, not a {model.kind}")
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return neural_cost_rollout_cols_plain(model, s0, Q, pvec_b, net)
+    cost = _launch("ctt_neural_cost_rollout", "neural_cost_rollout_cols", model, s0, Q, pvec_b,
+                   net, None, (0,), ks=K)
+    neural_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K)
+
+
+neural_cost_rollout_cols.launches = 0
+
+
+def _net_leaves(net: Dict) -> list:
+    return [v for cell in net.values() for v in (cell.values() if isinstance(cell, dict)
+                                                 else (cell,))]
+
+
 def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                            pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
     """K13: per-rollout trajectory cost ``[K]`` under a stacked GRU/LSTM
@@ -159,9 +225,7 @@ def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.T
     check_shapes("recurrent_cost_rollout", s0, Q, pvec)
     if model.kind not in RECURRENT_FNS:
         raise ValueError(f"recurrent_cost_rollout: a GRU or LSTM, not a {model.kind}")
-    leaves = [v for cell in net.values() for v in (cell.values() if isinstance(cell, dict)
-                                                    else (cell,))]
-    if kernels.on_cpu(s0, Q, pvec, *leaves, *hidden):
+    if kernels.on_cpu(s0, Q, pvec, *_net_leaves(net), *hidden):
         return recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
     cost = _launch("ctt_recurrent_cost_rollout", "recurrent_cost_rollout", model, s0, Q, pvec,
                    net, hidden)
@@ -170,3 +234,38 @@ def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.T
 
 
 recurrent_cost_rollout.launches = 0
+
+
+def recurrent_cost_rollout_cols_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                      Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict,
+                                      hidden_b) -> torch.Tensor:
+    """K13's session-row form in PyTorch: K13's plain version over the B*K
+    rollouts, each with its session's row of ``pvec_b`` and starting from
+    its session's row of each cell's hidden (``hidden_b``: ``[B, Hd]`` a
+    cell, ``[B, 2 Hd]`` for the LSTM's [h, c]); ``[B, K]``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    return recurrent_cost_rollout_plain(
+        model, s0, Q, session_rows(pvec_b, K).T, net,
+        tuple(session_rows(h, K) for h in hidden_b)).reshape(B, K)
+
+
+def recurrent_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                pvec_b: torch.Tensor, net: Dict, hidden_b) -> torch.Tensor:
+    """K13's session-row (``slot_keys`` + ``hidden_per_lane``) form: the
+    costs ``[B, K]`` of B sessions' rollouts in one launch, as
+    ``neural_cost_rollout_cols``, each rollout starting from its session's
+    row of each cell's hidden ``hidden_b`` (``[B, Hd]``, the LSTM's
+    ``[B, 2 Hd]``); the cells' and head's weights are shared."""
+    K = check_cols_shapes("recurrent_cost_rollout_cols", s0, Q, pvec_b)
+    if model.kind not in RECURRENT_FNS:
+        raise ValueError(f"recurrent_cost_rollout_cols: a GRU or LSTM, not a {model.kind}")
+    if kernels.on_cpu(s0, Q, pvec_b, *_net_leaves(net), *hidden_b):
+        return recurrent_cost_rollout_cols_plain(model, s0, Q, pvec_b, net, hidden_b)
+    cost = _launch("ctt_recurrent_cost_rollout", "recurrent_cost_rollout_cols", model, s0, Q,
+                   pvec_b, net, hidden_b, ks=K, rows=pvec_b.shape[0])
+    recurrent_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K)
+
+
+recurrent_cost_rollout_cols.launches = 0

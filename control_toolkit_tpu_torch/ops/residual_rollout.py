@@ -16,6 +16,12 @@ out], ``b{i}``, tanh on all but the last layer, no norms, absolute form)
 on the step's start state.  The net's tensors go to the kernel as they are
 stored: a sysid install is a new pointer, never a rebuild.
 
+Its session-row (``slot_keys``) form ``residual_cost_rollout_cols`` (the
+batched-mpc fleet's) scores B sessions' rollouts in one launch of the same
+kernel, rollout b*K + k reading row b of ``pvec_b [B,N]``: each session's
+base constants (``per_slot_dyn``) and cost; the residual's weights are
+shared.
+
 The CUDA kernel is ``csrc/residual_rollout.cu`` (its source note says
 what bounds it on the card); ``residual_cost_rollout_plain`` is the same
 function in PyTorch.  The wrapper runs the plain version only when every
@@ -29,7 +35,9 @@ from typing import Callable, Dict
 import torch
 
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, mlp_step, plain_cost_loop
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    check_cols_shapes, check_shapes, mlp_step, plain_cost_loop, session_rows,
+)
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 
 
@@ -59,22 +67,58 @@ def residual_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q: tor
     check_shapes("residual_cost_rollout", s0, Q, pvec)
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
         return residual_cost_rollout_plain(model, s0, Q, pvec, net)
-    args, tensors = model.net_args(net)
-    device = kernels.check_cuda_operands("residual_cost_rollout", s0=s0, Q=Q, pvec=pvec,
-                                         **tensors)
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("residual_cost_rollout", S, U, K, H, pvec.numel())
-    cost = torch.empty(K, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        rc = kernels.load().ctt_residual_cost_rollout(
-            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, H, *model.step_args(), model.max_cost, args,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    kernels.check_launch(rc, "residual_cost_rollout")
+    cost = _launch("residual_cost_rollout", model, s0, Q, pvec, net, s0.shape[0])
     residual_cost_rollout.launches += 1
     return cost
 
 
 residual_cost_rollout.launches = 0
+
+
+def residual_cost_rollout_cols_plain(model: kernels.ResidualModel, s0: torch.Tensor,
+                                     Q: torch.Tensor, pvec_b: torch.Tensor,
+                                     net: Dict) -> torch.Tensor:
+    """K12's session-row form in PyTorch: K12's plain version over the B*K
+    rollouts, each stepping and scored under its session's row of
+    ``pvec_b`` (its base constants and its cost's); ``[B, K]``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    return residual_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T,
+                                       net).reshape(B, K)
+
+
+def residual_cost_rollout_cols(model: kernels.ResidualModel, s0: torch.Tensor,
+                               Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K12's session-row (``slot_keys``) form: the costs ``[B, K]`` of B
+    sessions' rollouts in one launch, ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
+    session by session, rollout b*K + k reading session b's row of
+    ``pvec_b [B,N]``: each session plans against its own base constants
+    (``per_slot_dyn``); the residual's weights are shared."""
+    K = check_cols_shapes("residual_cost_rollout_cols", s0, Q, pvec_b)
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return residual_cost_rollout_cols_plain(model, s0, Q, pvec_b, net)
+    cost = _launch("residual_cost_rollout_cols", model, s0, Q, pvec_b, net, K)
+    residual_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K)
+
+
+residual_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.ResidualModel, s0, Q, pvec, net, ks: int):
+    """Check the operands and launch K12 over sessions of ``ks`` rollouts,
+    ``pvec``'s rows; returns the costs."""
+    args, tensors = model.net_args(net)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_residual_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+            cost.data_ptr(), K, ks, H, *model.step_args(), model.max_cost, args,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, name)
+    return cost

@@ -8,9 +8,10 @@ precomputed (``flatten_gp_weights``) once per posterior: again only when
 that subtree is another object, as ``MPCController._assemble_params``
 places a re-fit's.  So a re-fit posterior never rebuilds.  The JAX gates' TPU conjuncts (VMEM tile budgets) have no
 counterpart: K is masked in the kernels, and the wrappers raise on a GP
-whose inducing points exceed a block's shared memory.  Not ported: the
-columns (``batched_kernels``) and learned-terminal (``emit_terminal``,
-``value_spec``) forms.
+whose inducing points exceed a block's shared memory.  K14's session-row
+form serves the batched-mpc fleet (``MPPIOptimizer._make_batched_gp_step``,
+over ``cached_operands``).  Not ported: K10's ``slot_keys`` and the
+learned-terminal (``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 

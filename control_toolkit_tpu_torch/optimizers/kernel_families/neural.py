@@ -11,9 +11,12 @@ TPU conjuncts (backend, tile divisibility, VMEM budgets) have no
 counterpart: K is masked in the kernels and the wrappers raise on a net
 whose weights exceed a block's shared memory.  The net's tensors, and a
 recurrent net's live hidden, are read from ``params["dyn"]`` every call,
-so a checkpoint swap or an advanced hidden needs no rebuild.  Not ported:
-the ensemble (``n_members``), columns (``slot_keys``, ``batched_kernels``)
-and learned-terminal (``emit_terminal``, ``value_spec``) forms.
+so a checkpoint swap or an advanced hidden needs no rebuild.  The
+session-row forms of K11 and K13 serve the batched-mpc fleet
+(``MPPIOptimizer._make_batched_neural_step`` and
+``_make_batched_recurrent_step``).  Not ported: the ensemble
+(``n_members``), K8's ``slot_keys`` and the learned-terminal
+(``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 

@@ -10,9 +10,10 @@ the packed vector (``Optimizer._soa_bindings`` reads them from
 ``params["dyn"]["base"]``), the residual's tensors from
 ``params["dyn"]["res"]`` on every call, so an online-sysid install never
 rebuilds.  The JAX gates' TPU conjuncts have no counterpart: K is masked
-in the kernels.  Not ported: the columns (``slot_keys``,
-``batched_kernels``) and learned-terminal (``emit_terminal``,
-``value_spec``) forms.
+in the kernels.  K12's session-row form serves the batched-mpc fleet
+(``MPPIOptimizer._make_batched_residual_step``, ``per_slot_dyn`` over the
+base's constants).  Not ported: K9's ``slot_keys`` and the
+learned-terminal (``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 

@@ -28,9 +28,11 @@ chooses them:
 
 Where the fully-fused gate is false, ``fully_fused`` takes the semi-fused
 path, as the JAX gate does: an options rule, not a fall back from a
-failed kernel.  The batched-mpc controller's B-session step
-(``_make_batched_semi_fused_step``) scores every session in one K4 launch
-(``ops/mppi_cost_cols.py``).  Not ported yet (they raise ``NotImplementedError``,
+failed kernel.  The batched-mpc controller's B-session steps score every
+session in one launch: over an ODE model K4 (``ops/mppi_cost_cols.py``,
+``_make_batched_semi_fused_step``), over a learned model the session-row
+form of its kernel (``_batched_columns_step_from_kernel``: K11, K13, K12,
+K14).  Not ported yet (they raise ``NotImplementedError``,
 ROADMAP): ``optim_steps > 0`` (mppi-optimize),
 ``calculate_optimal_trajectory``.
 """
@@ -288,11 +290,12 @@ class MPPIOptimizer(Optimizer):
         return update
 
     def sample_slot_noise(self, generators, mask) -> torch.Tensor:
-        """The batched step's draw, pre-scaled, ``[B, P, U, K]``: one
-        ``randn`` from each active slot's generator, zeros for a frozen slot
-        (it draws nothing)."""
-        P = self.interp.number_of_interpolation_inducing_points
-        shape = (P, self.num_control_inputs, self.num_rollouts)
+        """The batched step's draw, pre-scaled: one ``randn`` from each
+        active slot's generator, zeros for a frozen slot (it draws nothing),
+        in the layout of the batched step built last: ``[B, P, U, K]`` for
+        K4's (``_make_batched_semi_fused_step``), ``[B, K, P, U]`` for the
+        learned models' (``_batched_columns_step_from_kernel``)."""
+        shape = self._slot_noise_shape
         zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
         return torch.stack([
             torch.randn(shape, generator=g, dtype=torch.float32, device=self.device)
@@ -335,6 +338,7 @@ class MPPIOptimizer(Optimizer):
         _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         W, low, high = self.interp.matrix, self.action_low, self.action_high
+        self._slot_noise_shape = (W.shape[0], self.num_control_inputs, K)
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
 
@@ -353,6 +357,145 @@ class MPPIOptimizer(Optimizer):
         def step(states, s, dyn, cost, attrs, mask):
             u_nom, costs = update_from_eps(states, s, dyn, cost, attrs,
                                            self.sample_slot_noise(states.generator, mask))
+            u = u_nom[:, 0, :]
+            return u, MPPIState(states.generator, u_nom[:, None], u), costs
+
+        return step, update_from_eps
+
+    def _make_batched_neural_step(self, num_slots: int):
+        """B-session MPPI step over a learned MLP (JAX ``mppi.py:513``): all
+        B sessions' rollouts in one launch of K11's session-row form
+        (``ops/neural_rollout.py:neural_cost_rollout_cols``), the net's
+        weights shared.  Returns ``(step, update_from_eps)`` as
+        ``_batched_columns_step_from_kernel`` builds them."""
+        from control_toolkit_tpu_torch.ops.neural_rollout import neural_cost_rollout_cols
+        from control_toolkit_tpu_torch.optimizers.kernel_families import neural
+
+        model, _ = neural.net_model(self)
+        if model.kind != "mlp":
+            raise ValueError("the batched neural step covers MLP models; a GRU or LSTM takes "
+                             "_make_batched_recurrent_step")
+        return self._batched_columns_step_from_kernel(
+            num_slots, model.param_keys,
+            lambda s0, Q, pvec_b, dyn: neural_cost_rollout_cols(model, s0, Q, pvec_b,
+                                                                dyn["net"]))
+
+    def _make_batched_residual_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session MPPI step over ``"ODE+res"`` (JAX ``mppi.py:574``): one
+        launch of K12's session-row form
+        (``ops/residual_rollout.py:residual_cost_rollout_cols``), the
+        residual's weights shared; ``per_slot_dyn`` moves the named base
+        constants into the sessions' rows, so each session plans against
+        its own plant.  The base constants are read from
+        ``dyn["base"]``."""
+        from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout_cols
+        from control_toolkit_tpu_torch.optimizers.kernel_families import residual
+
+        model, _ = residual.residual_model(self)
+        return self._batched_columns_step_from_kernel(
+            num_slots, model.param_keys,
+            lambda s0, Q, pvec_b, dyn: residual_cost_rollout_cols(model, s0, Q, pvec_b,
+                                                                  dyn["res"]),
+            per_slot_dyn=per_slot_dyn, dyn_leaves_fn=lambda dyn: dyn["base"])
+
+    def _make_batched_gp_step(self, num_slots: int):
+        """B-session MPPI step over a sparse GP (JAX ``mppi.py:625``): one
+        launch of K14's session-row form
+        (``ops/gp_rollout.py:gp_cost_rollout_cols``), the GP's operands
+        shared and flattened once a posterior (a re-fit swaps in without a
+        rebuild)."""
+        from control_toolkit_tpu_torch.ops.gp_rollout import gp_cost_rollout_cols
+        from control_toolkit_tpu_torch.optimizers.kernel_families import gp
+
+        model, _ = gp.gp_model(self)
+        operands = gp.cached_operands()
+        return self._batched_columns_step_from_kernel(
+            num_slots, model.param_keys,
+            lambda s0, Q, pvec_b, dyn: gp_cost_rollout_cols(model, s0, Q, pvec_b,
+                                                            operands(dyn["gp"])))
+
+    def _make_batched_recurrent_step(self, num_slots: int):
+        """B-session MPPI step over a stacked GRU/LSTM (JAX ``mppi.py:749``):
+        one launch of K13's session-row form
+        (``ops/neural_rollout.py:recurrent_cost_rollout_cols``), each
+        session's rollouts starting from its own hidden; the cells' weights
+        shared.  Returns ``(step, update_from_eps)`` with ``step(states, s,
+        dyn, cost, attrs, mask, hidden)`` and ``update_from_eps(states, s,
+        dyn, cost, attrs, hidden, delta_b)``, ``hidden`` the per-slot tuple
+        of ``[B, 1, Hi]`` leaves (JAX's layout).  The hidden's advance with
+        the applied control is the caller's (the batched-mpc controller)."""
+        from control_toolkit_tpu_torch.ops.neural_rollout import recurrent_cost_rollout_cols
+        from control_toolkit_tpu_torch.optimizers.kernel_families import neural
+
+        model, _ = neural.net_model(self)
+        if model.kind == "mlp":
+            raise ValueError("the batched recurrent step covers GRU and LSTM models; an MLP "
+                             "takes _make_batched_neural_step")
+        step, update = self._batched_columns_step_from_kernel(
+            num_slots, model.param_keys,
+            lambda s0, Q, pvec_b, dyn, hidden: recurrent_cost_rollout_cols(
+                model, s0, Q, pvec_b, dyn["net"], tuple(h[:, 0, :] for h in hidden)))
+        return step, (lambda states, s, dyn, cost, attrs, hidden, delta_b:
+                      update(states, s, dyn, cost, attrs, delta_b, hidden))
+
+    def _batched_columns_step_from_kernel(self, num_slots: int, param_keys, costs_fn,
+                                          per_slot_dyn=(), dyn_leaves_fn=None):
+        """The shared tail of the learned models' batched MPPI steps (JAX
+        ``mppi.py:670``): each session's noise at the inducing points is
+        interpolated and clipped into its controls, all B sessions'
+        rollouts are scored by ``costs_fn(s0 [B*K,S], Q [B*K,H,U], pvec_b
+        [B,N], dyn[, hidden]) -> [B, K]`` (one launch of a session-row
+        kernel), and the correction cost, the softmax and the weighted
+        average run per session as torch ops.  ``pvec_b`` packs each
+        session's attributes, previous control and ``per_slot_dyn``
+        constants (``make_slot_packer`` over ``param_keys``, the dynamics
+        constants read from ``dyn_leaves_fn(dyn)``).  The controls ``Q`` go
+        to one buffer allocated here, once a build.
+
+        Returns ``(step, update_from_eps)``: ``step(states, s [B,1,S], dyn,
+        cost, attrs, mask [B][, hidden]) -> (u [B,U], states', costs
+        [B,K])``, each active slot drawing its noise ``[K, P, U]`` from its
+        own generator and a frozen one drawing nothing
+        (``sample_slot_noise``), so a session's draws depend neither on B
+        nor on the other slots' masks; ``update_from_eps(states, s, dyn,
+        cost, attrs, delta_b [B,K,P,U][, hidden]) -> (u_nom_new [B,H,U],
+        costs [B,K])`` is the deterministic part, fed the JAX draws in the
+        tests (the JAX steps' modular layout, ``mppi.py:732-737``)."""
+        from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
+
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if cf.post_terminal_cost is not None:
+            raise _not_ported("the emit_terminal forms of K11-K14 (a learned value terminal in "
+                              "batched MPPI)")
+        B, K = int(num_slots), self.num_rollouts
+        H, U = self.mpc_horizon, self.num_control_inputs
+        P = self.interp.number_of_interpolation_inducing_points
+        self._slot_noise_shape = (K, P, U)
+        _, slot_keys = split_slot_keys(param_keys, per_slot_dyn)
+        pack = make_slot_packer(param_keys, slot_keys, cf.attr_defaults, B, self.device)
+        dyn_leaves_fn = dyn_leaves_fn or (lambda dyn: dyn)
+        interp, low, high = self.interp, self.action_low, self.action_high
+        weight_fn = make_weight_fn(self.weighting, self.LBD)
+        correction_cost = make_correction_cost(self.cc_weight, self.R, self.NU)
+        Q = torch.empty(B, K, H, U, dtype=torch.float32, device=self.device)
+
+        def update_from_eps(states, s, dyn, cost, attrs, delta_b, *hidden):
+            unom_b = torch.cat([states.u_nom[:, 0, 1:, :], states.u_nom[:, 0, -1:, :]], dim=1)
+            delta = interp.interpolate(delta_b.reshape(B * K, P, U)).reshape(B, K, H, U)
+            u_run = torch.clamp(unom_b[:, None] + delta, low, high, out=Q)
+            pvec_b = pack(states.u_prev, dyn_leaves_fn(dyn), cost, attrs)
+            s0 = s[:, 0, :].repeat_interleave(K, dim=0)                     # [B*K, S]
+            costs = costs_fn(s0, u_run.reshape(B * K, H, U), pvec_b, dyn, *hidden)
+            costs = costs + correction_cost(u_run.reshape(B * K, H, U),
+                                            delta.reshape(B * K, H, U)).reshape(B, K)
+            w = weight_fn(costs, (1,))
+            upd = torch.einsum("bk,bkhu->bhu", w, delta) / torch.sum(w, dim=1)[:, None, None]
+            return torch.clamp(unom_b + upd, low, high), costs
+
+        def step(states, s, dyn, cost, attrs, mask, *hidden):
+            u_nom, costs = update_from_eps(states, s, dyn, cost, attrs,
+                                           self.sample_slot_noise(states.generator, mask),
+                                           *hidden)
             u = u_nom[:, 0, :]
             return u, MPPIState(states.generator, u_nom[:, None], u), costs
 

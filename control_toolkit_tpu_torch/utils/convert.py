@@ -58,6 +58,25 @@ def mppi_state_from_numpy(u_nom, u_prev, generator: torch.Generator):
                      u_prev=_tensor(u_prev, device))
 
 
+def mppi_slot_states_from_numpy(u_nom, u_prev, generators):
+    """A batched-mpc fleet's stacked ``MPPIState`` from the JAX fleet's
+    ``u_nom [B,1,H,U]`` and ``u_prev [B,U]``; ``generators`` holds the B
+    slots' generators (or ``None`` each, where only ``update_from_eps``
+    runs), the tensors go to ``device`` of the first one or the CPU."""
+    from control_toolkit_tpu_torch.optimizers.mppi import MPPIState
+
+    device = next((g.device for g in generators if g is not None), torch.device("cpu"))
+    return MPPIState(generator=tuple(generators), u_nom=_tensor(u_nom, device),
+                     u_prev=_tensor(u_prev, device))
+
+
+def slot_hidden_from_numpy(hidden, device: torch.device):
+    """A recurrent fleet's per-slot hidden (``slot_hidden``: one ``[B, 1,
+    Hi]`` leaf a cell, the LSTM's ``Hi`` its [h, c]) from the JAX fleet's
+    ``slot_hidden``."""
+    return tuple(_tensor(h, device) for h in hidden)
+
+
 def _adam(m, v, adam_step, device):
     from control_toolkit_tpu_torch.ops.common import AdamState
 

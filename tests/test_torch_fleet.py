@@ -359,16 +359,13 @@ def test_scalar_step_drives_slot_0():
 
 
 @pytest.mark.parametrize("kind", [
-    "force_scan", "logging", "mesh", "rpgd-tf", "gradient-tf", "cem-modular", "mlp", "gru",
-    "residual", "gp", "value_terminal", "cem_warmup",
+    "force_scan", "logging", "mesh", "rpgd-tf", "gradient-tf", "cem-modular", "value_terminal",
+    "cem_warmup",
 ])
 def test_unported_batched_configurations_raise(kind):
     """Each configuration whose batched step is not ported raises
     NotImplementedError (or, for the kernels' own refusals, the JAX
     package's error); nothing falls back to a per-slot loop."""
-    from control_toolkit_tpu_torch.ops import kernels
-
-    assets = kernels.PACKAGE_DIR / "assets" / "cartpole"
     builds = {
         "force_scan": lambda: fleet(force_scan=True),
         "logging": lambda: fleet(controller_logging=True),
@@ -376,10 +373,6 @@ def test_unported_batched_configurations_raise(kind):
         "rpgd-tf": lambda: fleet(optimizer="rpgd-tf", per_slot_dyn=()),
         "gradient-tf": lambda: fleet(optimizer="gradient-tf", per_slot_dyn=()),
         "cem-modular": lambda: fleet(optimizer="cem-tf", per_slot_dyn=()),
-        "mlp": lambda: fleet(per_slot_dyn=(), spec=f"neural:mlp-64-64:{assets}"),
-        "gru": lambda: fleet(per_slot_dyn=(), spec=f"neural:GRU-5IN-32H1-32H2-4OUT:{assets}"),
-        "residual": lambda: fleet(per_slot_dyn=(), spec="ODE+res"),
-        "gp": lambda: fleet(per_slot_dyn=(), spec=f"SGP_128:{assets / 'SGP_128.npz'}"),
     }
     if kind in builds:
         with pytest.raises(NotImplementedError):
@@ -399,6 +392,40 @@ def test_unported_batched_configurations_raise(kind):
     cem.optimizer.warmup = True
     with pytest.raises(NotImplementedError):
         cem.optimizer._make_batched_fused_cem_step(2)
+
+
+LEARNED_FLEETS = {
+    "mlp": ("neural:mlp-64-64:{assets}", (), "neural_rollout", "neural_cost_rollout_cols"),
+    "gru": ("neural:GRU-5IN-32H1-32H2-4OUT:{assets}", (), "neural_rollout",
+            "recurrent_cost_rollout_cols"),
+    "residual": ("ODE+res", ("L",), "residual_rollout", "residual_cost_rollout_cols"),
+    "gp": ("SGP_128:{assets}/SGP_128.npz", (), "gp_rollout", "gp_cost_rollout_cols"),
+}
+
+
+@pytest.mark.parametrize("kind", list(LEARNED_FLEETS))
+def test_learned_fleets_build_on_their_cols_kernels(kind, monkeypatch):
+    """MPPI fleets over the committed MLP, GRU and GP and over "ODE+res"
+    (per-slot pole lengths) build, and a tick scores every session in one
+    call of the model's session-row kernel (on CPU tensors its plain
+    version)."""
+    import importlib
+
+    from control_toolkit_tpu_torch.ops import kernels
+
+    spec, per_slot_dyn, module, wrapper = LEARNED_FLEETS[kind]
+    mod = importlib.import_module(f"control_toolkit_tpu_torch.ops.{module}")
+    calls, kernel = [], getattr(mod, wrapper)
+
+    def spy(*args):
+        calls.append(args[3].shape[0])  # the sessions' rows pvec_b [B, N]
+        return kernel(*args)
+
+    monkeypatch.setattr(mod, wrapper, spy)
+    ctrl = fleet(per_slot_dyn=per_slot_dyn,
+                 spec=spec.format(assets=kernels.PACKAGE_DIR / "assets" / "cartpole"))
+    u = ctrl.step_batch(fleet_states(B))
+    assert calls == [B] and u.shape == (B, 1) and np.all(np.isfinite(u))
 
 
 @pytest.mark.cuda
