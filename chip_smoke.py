@@ -213,6 +213,34 @@ session b's hidden):
     on the CPU, fed the same draws;
 44. each learned fleet timed at 32 and 128 sessions, as phase 40.
 
+The gradient fleets (bench_scale.py:367-390's configurations): rpgd-tf
+(seed 7, outer_its 2) and gradient-tf (seed 9, 5 steps) over the ODE at
+128 sessions of K=32, H=50 with per-slot pole lengths, and rpgd-tf over
+the committed MLP, "ODE+res" (per-slot pole lengths) and the committed GP
+at 32 sessions of K=512, each Adam iteration one launch of the session-row
+form of K7, K8, K9 or K10 and the final scoring one of K1's, K11's, K12's
+or K14's:
+45. the session-row forms of K1, K7, K8, K9 and K10 (a GP of the
+    committed one's widths, well_conditioned_gp's) against their plain
+    versions at 32 sessions of 100 rollouts, H=50 (blocks, K7's adjoint
+    blocks and 16-rollout groups straddle sessions), to their
+    single-session kernels' bounds; equal, session by session, to the
+    single-session kernel over the session's rows (share 1.0); the bounds
+    against every session reading the next session's row; each timed at
+    128 sessions of 32 rollouts and at 32 of 512, with its bounds (K8's
+    and K9's tensor-core bound too), registers, spills and blocks an SM
+    (``k*_cols``);
+46. 50 closed-loop ticks of each gradient fleet as phase 37's (a rotating
+    quarter idle and checked bit for bit, Adam moments, counters, ages and
+    generators included; at tick 25 half the targets changed, slot 2's
+    pole length re-identified, new MLP weight tensors, a new residual
+    install, a GP hot-swap): outer_its (gradient_steps) launches of the
+    gradient form and one of the cost form a tick, nothing rebuilt, every
+    ODE fleet's pole up (the learned fleets' counted);
+47. one update of each gradient fleet on the card against the same update
+    on the CPU, with the same draws;
+48. each gradient fleet timed at 32 and 128 sessions, as phase 40.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -225,7 +253,7 @@ rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
-icem; the fleet paths at both sizes of phases 40 and 44), printing per tick the
+icem; the fleet paths at both sizes of phases 40, 44 and 48), printing per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
 
@@ -265,7 +293,9 @@ from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
 from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
-from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.cost_rollout import (
+    cost_rollout, cost_rollout_cols, cost_rollout_cols_plain, cost_rollout_plain,
+)
 from control_toolkit_tpu_torch.ops.counter_prng import (
     DEFAULT_TILE_K, ROWS, normals_from_counter, rollout_coords, seed_base,
 )
@@ -280,14 +310,16 @@ from control_toolkit_tpu_torch.ops.fused_mppi import (
     fused_mppi_weights, fused_mppi_weights_plain, mppi_noise,
 )
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
-    gp_grad_cost_rollout, gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
+    gp_grad_cost_rollout, gp_grad_cost_rollout_cols, gp_grad_cost_rollout_cols_plain,
+    gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_plain,
     gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_plain, launch_part,
+    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
+    grad_cost_rollout_plain, launch_part,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import (
@@ -297,7 +329,8 @@ from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
     mppi_cost_cols, mppi_cost_cols_plain, per_rollout,
 )
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
-    neural_grad_cost_rollout, neural_grad_cost_rollout_plain,
+    neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
+    neural_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_cols,
@@ -306,7 +339,8 @@ from control_toolkit_tpu_torch.ops.neural_rollout import (
     recurrent_cost_rollout_cols_plain, recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
-    residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
+    residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
+    residual_grad_cost_rollout_cols_plain, residual_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_plain,
@@ -371,7 +405,11 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "fused_cem_cols": fused_cem_cols, "neural_cost_rollout_cols": neural_cost_rollout_cols,
            "recurrent_cost_rollout_cols": recurrent_cost_rollout_cols,
            "residual_cost_rollout_cols": residual_cost_rollout_cols,
-           "gp_cost_rollout_cols": gp_cost_rollout_cols}
+           "gp_cost_rollout_cols": gp_cost_rollout_cols, "cost_rollout_cols": cost_rollout_cols,
+           "grad_cost_rollout_cols": grad_cost_rollout_cols,
+           "neural_grad_cost_rollout_cols": neural_grad_cost_rollout_cols,
+           "residual_grad_cost_rollout_cols": residual_grad_cost_rollout_cols,
+           "gp_grad_cost_rollout_cols": gp_grad_cost_rollout_cols}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -526,6 +564,49 @@ FLEET_MUTANT_TILE = 128
 LEARNED_FLEETS = {"mlp": (MLP_SPEC, ()), "gru": (GRU_SPEC, ()), "lstm": (LSTM_SPEC, ()),
                   "residual": (RES_SPEC, ("L",)), "gp": (GP_SPEC, ())}
 LEARNED_RAGGED_K, LEARNED_FLEET_TICKS, LEARNED_SWAP_AT = 120, 100, 50
+# The gradient fleets, bench_scale.py:367-390's configurations: rpgd-tf
+# (seed 7, outer_its 2, lr 0.05, keep 0.25, resamp_per 10, inducing period
+# 10, warmup off) and gradient-tf (seed 9, 5 steps, gradmax_clip 5) over the
+# ODE at 128 sessions of K=32, H=50 with per-slot pole lengths; rpgd-tf
+# over the committed MLP, "ODE+res" (per-slot pole lengths) and the
+# committed GP at 32 sessions of K=512 (:1170-1185's learned form).  Each
+# Adam iteration is one launch of a gradient kernel's session-row form,
+# the final scoring one of its cost kernel's.  The five forms are held to
+# their plain versions at GRAD_COLS_B sessions of GRAD_COLS_KS rollouts (a
+# multiple of neither 8 nor 16: blocks, K7's 8-rollout adjoint blocks and
+# the 16-rollout groups straddle sessions) and timed at GRAD_COLS_SHAPES
+# (sessions, rollouts a session); the loops run GRAD_FLEET_TICKS with the
+# model changed (a weight swap, a GP hot-swap, a re-sysid) at
+# GRAD_FLEET_SWAP_AT.
+GRAD_FLEET_H = 50
+GRAD_RPGD_CONFIG = {"seed": 7, "mpc_timestep": DT, "mpc_horizon": GRAD_FLEET_H,
+                    "num_rollouts": 32, "outer_its": 2, "learning_rate": 0.05,
+                    "opt_keep_k_ratio": 0.25, "resamp_per": 10,
+                    "period_interpolation_inducing_points": 10, "warmup": False}
+GRAD_GRADIENT_CONFIG = {"seed": 9, "mpc_timestep": DT, "mpc_horizon": GRAD_FLEET_H,
+                        "num_rollouts": 32, "gradient_steps": 5, "learning_rate": 0.05,
+                        "gradmax_clip": 5.0, "warmup": False}
+GRAD_LEARNED_CONFIG = {**GRAD_RPGD_CONFIG, "num_rollouts": 512}
+# label: (optimizer, config, spec, per_slot_dyn, sessions, the model's kind
+# for fleet_swap (None: no swap), the gradient form's and the cost form's
+# launch counters).
+GRAD_FLEETS = {
+    "rpgd_ode": ("rpgd-tf", GRAD_RPGD_CONFIG, "ODE", ("L",), 128, None,
+                 "grad_cost_rollout_cols", "cost_rollout_cols"),
+    "gradient_ode": ("gradient-tf", GRAD_GRADIENT_CONFIG, "ODE", ("L",), 128, None,
+                     "grad_cost_rollout_cols", "cost_rollout_cols"),
+    "rpgd_mlp": ("rpgd-tf", GRAD_LEARNED_CONFIG, MLP_SPEC, (), 32, "mlp",
+                 "neural_grad_cost_rollout_cols", "neural_cost_rollout_cols"),
+    "rpgd_residual": ("rpgd-tf", GRAD_LEARNED_CONFIG, RES_SPEC, ("L",), 32, "residual",
+                      "residual_grad_cost_rollout_cols", "residual_cost_rollout_cols"),
+    "rpgd_gp": ("rpgd-tf", GRAD_LEARNED_CONFIG, GP_SPEC, (), 32, "gp",
+                "gp_grad_cost_rollout_cols", "gp_cost_rollout_cols"),
+}
+GRAD_COLS_B, GRAD_COLS_KS, GRAD_COLS_SHAPES = 32, 100, ((128, 32), (32, 512))
+# K1's and K7's template instances: the single-session kernel (Rows false)
+# and the session-row form (Rows true), as their mangled names end.
+SINGLE, ROWS_FORM = "Lb0E", "Lb1E"
+GRAD_FLEET_TICKS, GRAD_FLEET_SWAP_AT = 50, 25
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -697,8 +778,8 @@ def k1_cases(model, s0, Q, pvec) -> dict:
     out = {"cases": numbers,
            "ms_at_k": ms_at_k(lambda k: cost_rollout(model, *first_k(k, s0, Q), pvec),
                               SMALL_K + K_SCALING),
-           **ptxas_resources("cost_rollout_kernel"),
-           "sass": sass_loops("cost_rollout_kernel") or "not measured"}
+           **ptxas_resources("cost_rollout_kernel", SINGLE),
+           "sass": sass_loops("cost_rollout_kernel", SINGLE) or "not measured"}
     emit("k1_cases", out)
     return out
 
@@ -780,9 +861,9 @@ def k7_cases(model, s0, Q, pvec) -> dict:
         "part_ms": {part: cuda_ms(lambda: launch_part(part, model, s0, Q, pvec, cost, dQ, xhist),
                                   50)
                     for part in ("forward", "adjoint")},
-        "forward": ptxas_resources("grad_cost_forward_kernel"),
-        "adjoint": {**ptxas_resources("grad_cost_adjoint_kernel"),
-                    "blocks_per_sm": int(kernels.load().ctt_grad_cost_adjoint_blocks_per_sm())},
+        "forward": ptxas_resources("grad_cost_forward_kernel", SINGLE),
+        "adjoint": {**ptxas_resources("grad_cost_adjoint_kernel", SINGLE),
+                    "blocks_per_sm": int(kernels.load().ctt_grad_cost_adjoint_blocks_per_sm(0))},
     }
     emit("k7_cases", numbers)
     return numbers
@@ -2584,8 +2665,9 @@ def slot_snapshot(ctrl: BatchedMPCController, slots) -> dict:
     generators' states, and a recurrent model's hidden."""
     st = ctrl.slot_states
     hidden = ctrl.slot_hidden if ctrl._stateful else ()
+    fields = [x for v in st[1:] for x in (v if hasattr(v, "_fields") else (v,))]  # Adam's too
     return {i: [st.generator[i].get_state()]
-            + [v[i].clone() if isinstance(v, torch.Tensor) else np.copy(v[i]) for v in st[1:]]
+            + [v[i].clone() if isinstance(v, torch.Tensor) else np.copy(v[i]) for v in fields]
             + [h[i].clone() for h in hidden]
             for i in slots}
 
@@ -2681,8 +2763,10 @@ def fleet_inputs_now(ctrl: BatchedMPCController, gen) -> tuple:
 
 
 def state_to_cpu(state):
-    """A batched optimizer state on the CPU, without its generators."""
-    return type(state)(*(None if isinstance(v, tuple) else to_cpu(v) for v in state))
+    """A batched optimizer state on the CPU, without its generators (nested
+    records such as the Adam state field by field)."""
+    return type(state)(*(state_to_cpu(v) if hasattr(v, "_fields")
+                         else None if isinstance(v, tuple) else to_cpu(v) for v in state))
 
 
 def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, gen) -> None:
@@ -2763,13 +2847,14 @@ def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, g
           f"the fleet CEM update on the card differs from the CPU's {numbers}")
 
 
-def fleet_timing(name: str, ctrl: BatchedMPCController, gen):
+def fleet_timing(name: str, ctrl: BatchedMPCController, gen, draw=None):
     """Phase 40: FLEET_TIMING_TICKS ticks of every slot (after 5 warm-up)
     from states near upright, the plants left out: host p50/p99, the device
     span, sessions served a second at the host p50, and the host time of
-    the slots' draws alone.  Returns the timed tick, which ``--profile``
-    traces after every timing of the run: a host timed after a profiler
-    session reads slower."""
+    the slots' draws alone (``draw(generators, mask)``; by default the MPPI
+    noise or the fused CEM seeds).  Returns the timed tick, which
+    ``--profile`` traces after every timing of the run: a host timed after
+    a profiler session reads slower."""
     B, device = ctrl.num_slots, ctrl.device
     s = (0.05 * torch.randn(B, 4, generator=gen, device=device)).cpu().numpy()
     mask = np.ones(B, bool)
@@ -2786,7 +2871,9 @@ def fleet_timing(name: str, ctrl: BatchedMPCController, gen):
         end.synchronize()
         device_ms.append(start.elapsed_time(end))
     opt, gens = ctrl.optimizer, ctrl.slot_states.generator
-    draw = opt.sample_slot_noise if hasattr(opt, "sample_slot_noise") else opt.sample_slot_seeds
+    if draw is None:
+        draw = (opt.sample_slot_noise if hasattr(opt, "sample_slot_noise")
+                else opt.sample_slot_seeds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(FLEET_TIMING_TICKS):
@@ -3033,6 +3120,264 @@ def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen) -> N
     check(torch.allclose(costs.cpu(), costs_c, **tol)
           and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
           f"the {kind} fleet's update on the card differs from the CPU's {numbers}")
+
+
+# ---- the gradient fleets' phases -------------------------------------------------
+# Each session-row form: (kernel, plain version, single-session kernel, cost bound).
+GRAD_COLS = {"k1": (cost_rollout_cols, cost_rollout_cols_plain, cost_rollout, KERNEL_TOL),
+             "k7": (grad_cost_rollout_cols, grad_cost_rollout_cols_plain, grad_cost_rollout,
+                    KERNEL_TOL),
+             "k8": (neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
+                    neural_grad_cost_rollout, NET_TOL),
+             "k9": (residual_grad_cost_rollout_cols, residual_grad_cost_rollout_cols_plain,
+                    residual_grad_cost_rollout, NET_TOL),
+             "k10": (gp_grad_cost_rollout_cols, gp_grad_cost_rollout_cols_plain,
+                     gp_grad_cost_rollout, KERNEL_TOL)}
+# The fleet each form is taken from and timed at for the kernels line (its
+# closed loop's shape).
+GRAD_COLS_FLEET = {"k1": "rpgd_ode", "k7": "rpgd_ode", "k8": "rpgd_mlp", "k9": "rpgd_residual",
+                   "k10": "rpgd_gp"}
+
+
+def grad_fleet(device: str, label: str, B: int = 0) -> BatchedMPCController:
+    """GRAD_FLEETS' fleet ``label`` of B slots (0: its own number)."""
+    optimizer, config, spec, per_slot_dyn, sessions = GRAD_FLEETS[label][:5]
+    return fleet_controller(device, optimizer, config, B or sessions, spec, per_slot_dyn)
+
+
+def grad_cols_operands(form: str, ctrl: BatchedMPCController, B: int, ks: int, gen) -> tuple:
+    """A session-row form's operands over ``ctrl``'s model at B sessions of
+    ks rollouts and the fleet's H: ``(model, s0 [B*ks,S], Q [B*ks,H,U],
+    pvec_b [B,N], *weights)``, the sessions' rows differing from their
+    neighbours' (targets and previous controls drawn per session, pole
+    lengths over FLEET_L for the ODE and "ODE+res"); the controls as
+    phase 2's (K1) or phase 7's (the gradient forms); the GP
+    well_conditioned_gp's."""
+    opt, device = ctrl.optimizer, ctrl.device
+    params = ctrl._assemble_params()
+    dyn, per_slot = params["dyn"], ()
+    lo, hi = FLEET_L
+    L = lo + (hi - lo) * torch.rand(B, generator=gen, device=device)
+    if form in ("k1", "k7"):
+        model, _ = ode.rollout_model(opt)
+        dyn, per_slot, weights = dict(dyn, L=L), ("L",), ()
+    elif form == "k8":
+        model, _ = neural.net_model(opt)
+        weights = (dyn["net"],)
+    elif form == "k9":
+        model, _ = residual.residual_model(opt)
+        dyn, per_slot, weights = dict(dyn["base"], L=L), ("L",), (dyn["res"],)
+    else:
+        model, _ = gp.gp_model(opt)
+        weights = (flatten_gp_weights(well_conditioned_gp(dyn["gp"])),)
+    _, slot_keys = split_slot_keys(model.param_keys, per_slot)
+    pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, B, device)(
+        2.0 * torch.rand(B, 1, generator=gen, device=device) - 1.0, dyn, params["cost"],
+        {"target_position": 0.5 * torch.rand(B, generator=gen, device=device) - 0.25})
+    s0 = (0.05 * torch.randn(B, 4, generator=gen, device=device)).repeat_interleave(ks, dim=0)
+    Hf = opt.mpc_horizon
+    if form == "k1":
+        Q = torch.clamp(0.3 * torch.randn(B * ks, Hf, 1, generator=gen, device=device), -1.0, 1.0)
+    else:
+        Q = 2.0 * torch.rand(B * ks, Hf, 1, generator=gen, device=device) - 1.0
+    return (model, s0, Q, pvec_b, *weights)
+
+
+def grad_cols_held(form: str, got, ref) -> bool:
+    """Within the form's single-session kernel's bounds: the costs to its
+    cost bound, dQ to DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|."""
+    tol = GRAD_COLS[form][3]
+    if form == "k1":
+        return torch.allclose(got, ref, **tol)
+    return torch.allclose(got[0], ref[0], **tol) and close(got[1], ref[1], DQ_RTOL, DQ_ATOL_FRAC)
+
+
+def grad_cols_errors(form: str, got, ref) -> dict:
+    if form == "k1":
+        return dict(zip(("cost_max_abs_err", "cost_max_rel_err"), max_errors(got, ref)))
+    return {**dict(zip(("cost_max_abs_err", "cost_max_rel_err"), max_errors(got[0], ref[0]))),
+            "dQ_max_abs_err": max_errors(got[1], ref[1])[0],
+            "dQ_max_abs": float(ref[1].abs().max())}
+
+
+def grad_cols_single(form: str, args: tuple, b: int):
+    """Session b's outputs from its single-session kernel over its rows."""
+    model, s0, Q, pvec_b, *weights = args
+    ks = s0.shape[0] // pvec_b.shape[0]
+    rows = slice(b * ks, (b + 1) * ks)
+    return GRAD_COLS[form][2](model, s0[rows], Q[rows], pvec_b[b].contiguous(), *weights)
+
+
+def grad_cols_bounds(form: str, args: tuple) -> dict:
+    """The form's bound over its B*ks rollouts (the single-session kernel's
+    operation count a rollout-step; the bytes each input read once and each
+    output written once) and, for K8 and K9, its tensor-core bound."""
+    model, s0, Q, pvec_b, *weights = args
+    steps = Q.shape[0] * Q.shape[1]
+    n_bytes = nbytes(s0, Q, pvec_b, *leaves(tuple(weights))) + 4 * Q.shape[0]
+    if form == "k1":
+        return bound(steps * (RK4_STEP_OPS + STAGE_OPS), n_bytes)
+    n_bytes += nbytes(Q)  # dQ
+    stage = STAGE_OPS + STAGE_VJP_OPS
+    if form == "k7":
+        return bound(steps * (RK4_STEP_OPS + RK4_VJP_OPS + stage), n_bytes)
+    if form == "k10":
+        return bound(steps * (gp_ops(weights[0]) + gp_vjp_ops(weights[0]) + stage), n_bytes)
+    net = weights[0]
+    base = RK4_STEP_OPS + RK4_VJP_OPS if form == "k9" else 0
+    return {**bound(steps * (base + mlp_ops(net) + mlp_vjp_ops(net) + stage), n_bytes),
+            "tc_bound_ms": tc_bound_ms(mma_tiles(net), base + mlp_scalar_ops(net) + stage,
+                                       steps)}
+
+
+def grad_cols_resources(form: str, args: tuple) -> dict:
+    """The form's kernel (the single-session kernel's binary): ptxas'
+    registers, spills and static shared memory, and the blocks an SM
+    holds."""
+    model, weights = args[0], args[4] if len(args) > 4 else None
+    lib = kernels.load()
+    if form == "k1":
+        return {**ptxas_resources("cost_rollout_kernel", ROWS_FORM),
+                "blocks_per_sm": int(lib.ctt_cost_rollout_blocks_per_sm(1))}
+    if form == "k7":
+        return {"forward": {**ptxas_resources("grad_cost_forward_kernel", ROWS_FORM),
+                            "blocks_per_sm": int(lib.ctt_grad_cost_forward_blocks_per_sm(1))},
+                "adjoint": {**ptxas_resources("grad_cost_adjoint_kernel", ROWS_FORM),
+                            "blocks_per_sm": int(lib.ctt_grad_cost_adjoint_blocks_per_sm(1))}}
+    if form == "k10":
+        lanes, threads, blocks = kernels.gp_layout(weights["Zs"].shape[0], grad=True)
+        return {**ptxas_resources("gp_grad_cost_rollout_kernel", f"Li{lanes}E"),
+                "lanes": lanes, "threads_per_block": threads, "blocks_per_sm": blocks}
+    kernel, occupancy = {"k8": ("neural_grad_cost_rollout_kernel", "neural_grad"),
+                         "k9": ("residual_grad_cost_rollout_kernel", "residual_grad")}[form]
+    net_args = model.net_args(weights)[0]
+    return {**ptxas_resources(kernel),
+            "smem_bytes": kernels.net_smem_bytes("cartpole", net_args, occupancy),
+            "blocks_per_sm": kernels.net_blocks_per_sm(occupancy, net_args)}
+
+
+def compare_grad_cols(form: str, ctrl: BatchedMPCController, gen) -> dict:
+    """Phase 45: the session-row form ``form`` (K1's, K7's, K8's, K9's or
+    K10's) against its plain version at GRAD_COLS_B sessions of
+    GRAD_COLS_KS rollouts, to its single-session kernel's bounds; its
+    outputs equal, session by session, to the single-session kernel's over
+    that session's rows (share 1.0); the bounds against every session
+    reading the next session's row (the plain version's); its time at each
+    of GRAD_COLS_SHAPES and its bounds there; its resources.  The kernels
+    line takes its time and its plain version's at the shape of the
+    fleet's closed loop."""
+    cols, plain = GRAD_COLS[form][:2]
+    args = grad_cols_operands(form, ctrl, GRAD_COLS_B, GRAD_COLS_KS, gen)
+    got, ref = cols(*args), plain(*args)
+    mutant = plain(*args[:3], args[3].roll(-1, 0), *args[4:])
+    per_session = [grad_cols_single(form, args, b) for b in range(GRAD_COLS_B)]
+    torch.cuda.synchronize()
+    if form == "k1":
+        same = got == torch.stack(per_session)
+        finite = bool(torch.isfinite(got).all())
+    else:
+        same = torch.cat([(got[0] == torch.stack([c for c, _ in per_session])).flatten(),
+                          (got[1] == torch.cat([d for _, d in per_session])).flatten()])
+        finite = bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    name = f"{form}_cols"
+    label = GRAD_COLS_FLEET[form]
+    fleet_b = GRAD_FLEETS[label][4]
+    fleet_k = GRAD_FLEETS[label][1]["num_rollouts"]
+    timed = {}
+    for B, ks in GRAD_COLS_SHAPES:
+        targs = grad_cols_operands(form, ctrl, B, ks, gen)
+        timed[f"B{B}_K{ks}"] = {"ms": cuda_ms(lambda: cols(*targs), 20),
+                                **grad_cols_bounds(form, targs)}
+        if (B, ks) == (fleet_b, fleet_k):
+            row = {"ms": timed[f"B{B}_K{ks}"]["ms"], "plain_ms": cuda_ms(lambda: plain(*targs), 3),
+                   **grad_cols_bounds(form, targs)}
+    errors = grad_cols_errors(form, got, ref)
+    numbers = {**errors, "finite": finite,
+               "max_abs_err": max(v for k, v in errors.items() if k.endswith("max_abs_err")),
+               "single_session_equal_share": float(same.double().mean()),
+               "mutant_next_session_row": grad_cols_errors(form, mutant, ref),
+               "sessions": GRAD_COLS_B, "rollouts_a_session": GRAD_COLS_KS, "timed": timed,
+               "resources": grad_cols_resources(form, args), **row}
+    emit(name, numbers)
+    check(finite, f"{name}: bad output {numbers}")
+    check(grad_cols_held(form, got, ref), f"{name}: kernel disagrees with plain {numbers}")
+    check(numbers["single_session_equal_share"] == 1.0,
+          f"{name}: its outputs differ from the single-session kernel's {numbers}")
+    check(not grad_cols_held(form, mutant, ref),
+          f"{name}: the bound does not reject the next session's row {numbers}")
+    return numbers
+
+
+def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen) -> None:
+    """Phase 47: one update of the gradient fleet ``label`` on the card and
+    on the CPU (the plain versions), from the state its loop left, with
+    the same params (the GP's well-conditioned) and draws: RPGD on the keep
+    branch for every slot (no draw; the resample surgery is the same torch
+    ops on both devices, held to the JAX package's by the tests), gradient-tf
+    with the slots' tails.  As phase 10: a row of the B*K whose population
+    differs beyond rtol UPDATE_RTOL plus UPDATE_ATOL_FRAC of the largest
+    entry must be one whose Adam step the function does not determine (its
+    gradient and sqrt(v) within the dQ bound's absolute part of 0), at most
+    UNDETERMINED_MAX of them; the costs, moments and controls of every
+    other row are held to that bound."""
+    B, opt = ctrl.num_slots, ctrl.optimizer
+    K, Hf = opt.num_rollouts, opt.mpc_horizon
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    if GRAD_FLEETS[label][5] == "gp":
+        dyn = {"gp": well_conditioned_gp(dyn["gp"])}
+    rpgd = label.startswith("rpgd")
+    build = "_make_batched_rpgd_step" if rpgd else "_make_batched_gradient_step"
+    psd = GRAD_FLEETS[label][3]
+    st = ctrl.slot_states
+    draws = [None] * B if rpgd else opt.sample_slot_tails(st.generator, np.ones(B, bool))
+    cpu = grad_fleet("cpu", label, B)
+    u, new, costs = getattr(opt, build)(B, per_slot_dyn=psd)[1](st, s, dyn, cost, attrs, draws)
+    u_c, new_c, costs_c = getattr(cpu.optimizer, build)(B, per_slot_dyn=psd)[1](
+        state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs),
+        draws if rpgd else draws.cpu())
+    gcall, _, pack = cpu.optimizer._bind_batched_grad_kernels(B, per_slot_dyn=psd)
+    g_c = gcall(s.cpu()[:, 0].repeat_interleave(K, dim=0), st.Q.cpu().reshape(B * K, Hf, 1),
+                pack(st.u_prev.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs)),
+                to_cpu(dyn))[1].reshape(B * K, -1)
+    noise = DQ_ATOL_FRAC * float(g_c.abs().max())
+    v0 = st.adam.v.cpu().reshape(B * K, -1)
+    undetermined = ((g_c.abs() <= noise) & (v0.sqrt() <= noise)).any(1)
+    Q_card, Q_cpu = new.Q.cpu().reshape(B * K, -1), new_c.Q.reshape(B * K, -1)
+    atol = UPDATE_ATOL_FRAC * float(Q_cpu.abs().max())
+    off = ((Q_card - Q_cpu).abs() > atol + UPDATE_RTOL * Q_cpu.abs()).any(1)
+    held = ~off
+    pairs = {"m": (new.adam.m.cpu().reshape(B * K, -1)[held],
+                   new_c.adam.m.reshape(B * K, -1)[held]),
+             "v": (new.adam.v.cpu().reshape(B * K, -1)[held],
+                   new_c.adam.v.reshape(B * K, -1)[held]),
+             "cost": (costs.cpu().reshape(-1)[held], costs_c.reshape(-1)[held])}
+    same_best = torch.equal(torch.argmin(costs.cpu(), 1), torch.argmin(costs_c, 1))
+    numbers = {"sessions": B, "Q_max_abs_err": max_errors(Q_card, Q_cpu)[0],
+               "Q_rows_off": int(off.sum()),
+               "Q_rows_off_undetermined": int((off & undetermined).sum()),
+               "undetermined_rows": int(undetermined.sum()),
+               **{f"{k}_max_abs_err": max_errors(*ab)[0] for k, ab in pairs.items()},
+               "same_best": same_best, "u_max_abs_err": max_errors(u.cpu(), u_c)[0]}
+    emit(f"fleet_{label}_update_vs_cpu", numbers)
+    check(numbers["Q_rows_off"] == numbers["Q_rows_off_undetermined"]
+          and numbers["Q_rows_off"] <= UNDETERMINED_MAX * B * K,
+          f"{label}: the population on the card differs from the CPU's {numbers}")
+    for k, (a, b) in pairs.items():
+        check(close(a, b, UPDATE_RTOL, UPDATE_ATOL_FRAC),
+              f"{label}: {k} on the card differs from the CPU's {numbers}")
+    check(not same_best or close(u.cpu(), u_c, UPDATE_RTOL, UPDATE_ATOL_FRAC),
+          f"{label}: u on the card differs from the CPU's {numbers}")
+
+
+def grad_fleet_draw(ctrl: BatchedMPCController):
+    """The slots' draws of a tick, for fleet_timing: RPGD's on a resample
+    tick (every slot's), gradient-tf's tails."""
+    opt = ctrl.optimizer
+    if hasattr(opt, "sample_slot_tails"):
+        return opt.sample_slot_tails
+    st = ctrl.slot_states
+    return lambda gens, mask: opt.sample_slot_resample(
+        st._replace(generator=gens, count=np.zeros_like(st.count)), mask)
 
 
 def start_sweep() -> None:
@@ -3376,7 +3721,6 @@ def main() -> None:
                                            {COLS_KERNELS[kind][0].__name__: LEARNED_FLEET_TICKS},
                                            retarget_at=LEARNED_SWAP_AT, swap=fleet_swap(kind, c),
                                            pole_check=False)
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 43. One update of each learned fleet on the card against the CPU's.
     for kind, c in learned.items():
@@ -3386,6 +3730,38 @@ def main() -> None:
     fleet_ticks.update({f"fleet_{kind}_b{B}": fleet_timing(
         f"{kind}_b{B}", learned_fleet("cuda", kind, B), gen)
         for B in (FLEET_B, FLEET_B_MAX) for kind in LEARNED_FLEETS})
+
+    # 45. The gradient fleets' session-row forms against their plain versions.
+    grad = {label: grad_fleet("cuda", label) for label in GRAD_FLEETS}
+    check(all(c._batched_rpgd_eligible() == label.startswith("rpgd")
+              and c._batched_gradient_eligible() == label.startswith("gradient")
+              for label, c in grad.items()), "the gradient fleets did not take their steps")
+    grad_rows = {form: compare_grad_cols(form, grad[GRAD_COLS_FLEET[form]], gen)
+                 for form in GRAD_COLS}
+
+    # 46. The gradient fleets, closed loop, each counted from 0: a tick is
+    # outer_its (gradient_steps) launches of the gradient form and one of
+    # the cost form for all the sessions; the ODE fleets' poles must stay up.
+    for label, c in grad.items():
+        _, config, _, _, _, kind, gform, cform = GRAD_FLEETS[label]
+        its = config.get("outer_its", config.get("gradient_steps"))
+        runs[f"fleet_{label}"] = fleet_loop(
+            f"slice_fleet_{label}", c, GRAD_FLEET_TICKS,
+            {gform: its * GRAD_FLEET_TICKS, cform: GRAD_FLEET_TICKS},
+            retarget_at=GRAD_FLEET_SWAP_AT, swap=kind and fleet_swap(kind, c),
+            pole_check=kind is None)
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
+    # 47. One update of each gradient fleet on the card against the CPU's.
+    for label, c in grad.items():
+        grad_fleet_update_vs_cpu(label, c, gen)
+
+    # 48. The gradient fleets timed at FLEET_B and FLEET_B_MAX sessions.
+    for B in (FLEET_B, FLEET_B_MAX):
+        for label in GRAD_FLEETS:
+            c = grad_fleet("cuda", label, B)
+            fleet_ticks[f"fleet_{label}_b{B}"] = fleet_timing(f"{label}_b{B}", c, gen,
+                                                               grad_fleet_draw(c))
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
@@ -3424,6 +3800,15 @@ def main() -> None:
         ("residual_cost_rollout_cols", "residual_rollout.cu", "ops/pallas_neural.py:351",
          cols_rows["residual"]),
         ("gp_cost_rollout_cols", "gp_rollout.cu", "ops/pallas_neural.py:647", cols_rows["gp"]),
+        ("cost_rollout_cols", "cost_rollout.cu", "ops/pallas_rollout.py:34", grad_rows["k1"]),
+        ("grad_cost_rollout_cols", "grad_cost_rollout.cu", "ops/pallas_grad.py:335",
+         grad_rows["k7"]),
+        ("neural_grad_cost_rollout_cols", "neural_grad_rollout.cu", "ops/pallas_grad.py:387",
+         grad_rows["k8"]),
+        ("residual_grad_cost_rollout_cols", "residual_rollout.cu", "ops/pallas_grad.py:459",
+         grad_rows["k9"]),
+        ("gp_grad_cost_rollout_cols", "gp_rollout.cu", "ops/pallas_grad.py:515",
+         grad_rows["k10"]),
     )
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

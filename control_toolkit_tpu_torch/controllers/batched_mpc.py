@@ -19,7 +19,13 @@ The session kinds ported, each over its batched kernel:
   session-row form: an MLP (K11), a GRU or LSTM (K13, each session's
   rollouts from its own hidden), ``"ODE+res"`` (K12, ``per_slot_dyn``
   over the base's constants) or a sparse GP (K14)
-  (``MPPIOptimizer._batched_columns_step_from_kernel``).
+  (``MPPIOptimizer._batched_columns_step_from_kernel``);
+* any RPGD variant or ``gradient-tf`` (warmup off) over an ODE, a float32
+  MLP, ``"ODE+res"`` or a sparse GP: an Adam iteration is one launch of
+  the session-row form of K7, K8, K9 or K10 and the final scoring one of
+  K1's, K11's, K12's or K14's (``RPGDOptimizer._make_batched_rpgd_step``,
+  ``GradientOptimizer._make_batched_gradient_step``); ``per_slot_dyn``
+  over an ODE's or the residual base's constants.
 
 A recurrent model's per-slot hidden (``slot_hidden``, ``[B, 1, Hi]`` a
 cell) advances each tick with the applied control, in one batched cell
@@ -27,11 +33,12 @@ step over the B slots; a frozen slot keeps its hidden bit for bit, and
 ``reset_slot`` zeroes the slot's alone.
 
 Every other configuration raises ``NotImplementedError`` naming what is
-missing (ROADMAP A9): the RPGD, gradient and modular-CEM batched steps
-(the ``slot_keys`` forms of K1 and K7-K10), the vmapped per-slot step that
-the JAX package takes for everything else (a user's ``force_scan: true``,
-logging), the slot mesh and a learned value terminal (the ``emit_terminal``
-forms).  Nothing falls back to a per-slot loop or to the CPU.
+missing (ROADMAP A9): the vmapped per-slot step that the JAX package
+takes for everything else (modular CEM, an RPGD or gradient fleet with
+warmup or over a recurrent net, a user's ``force_scan: true``, logging),
+the batched ``mppi-var`` step, the slot mesh and a learned value terminal
+(the ``emit_terminal`` and ``value_spec`` forms).  Nothing falls back to
+a per-slot loop or to the CPU.
 """
 from __future__ import annotations
 
@@ -49,14 +56,23 @@ from control_toolkit_tpu_torch.utils.rng import make_generator, slot_seed
 logger = logging.getLogger(__name__)
 
 
+def _is_state(v) -> bool:
+    """A state record (a NamedTuple such as RPGDState's AdamState), not the
+    slots' tuple of generators."""
+    return isinstance(v, tuple) and hasattr(v, "_fields")
+
+
 def _stack_states(states: list):
     """One state per slot -> the batched state: tensors stacked on a new
-    leading axis, the generators a tuple, host ints a numpy array."""
+    leading axis, the generators a tuple, host ints a numpy array, nested
+    records field by field."""
     def stack(vals):
         if isinstance(vals[0], torch.Tensor):
             return torch.stack(vals)
         if isinstance(vals[0], torch.Generator):
             return tuple(vals)
+        if _is_state(vals[0]):
+            return _stack_states(vals)
         return np.asarray(vals)
 
     return type(states[0])(*(stack(list(vals)) for vals in zip(*states)))
@@ -64,6 +80,8 @@ def _stack_states(states: list):
 
 def _set_slot(full, one, i: int):
     """``full`` with slot ``i`` replaced by ``one`` (a copy)."""
+    if _is_state(full):
+        return type(full)(*(_set_slot(f, o, i) for f, o in zip(full, one)))
     if isinstance(full, tuple):
         return full[:i] + (one,) + full[i + 1:]
     full = full.clone() if isinstance(full, torch.Tensor) else full.copy()
@@ -115,9 +133,6 @@ class BatchedMPCController(MPCController):
         if self._batched_kernel_eligible():
             self._kstep, _ = opt._make_batched_semi_fused_step(B, per_slot_dyn=self._per_slot_dyn)
             kind = "semi-fused MPPI (K4)"
-        elif self._batched_fused_cem_eligible():
-            self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "fully-fused CEM (K6)"
         elif self._batched_neural_eligible():
             self._kstep, _ = opt._make_batched_neural_step(B)
             kind = "MPPI over an MLP (K11's session rows)"
@@ -130,6 +145,15 @@ class BatchedMPCController(MPCController):
         elif self._batched_gp_eligible():
             self._kstep, _ = opt._make_batched_gp_step(B)
             kind = "MPPI over a sparse GP (K14's session rows)"
+        elif self._batched_rpgd_eligible():
+            self._kstep, _ = opt._make_batched_rpgd_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = f"{opt.registered_name} (gradient and cost kernels' session rows)"
+        elif self._batched_gradient_eligible():
+            self._kstep, _ = opt._make_batched_gradient_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "gradient-tf (gradient and cost kernels' session rows)"
+        elif self._batched_fused_cem_eligible():
+            self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "fully-fused CEM (K6)"
         else:
             raise self._refusal()
         logger.info(f"batched-mpc: {kind}, B={B} x K={opt.num_rollouts} in one launch"
@@ -213,6 +237,34 @@ class BatchedMPCController(MPCController):
                 and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
                 and gp.compatible_model(opt))
 
+    def _batched_grad_eligible(self, is_kind) -> bool:
+        """The gradient fleets' gate (JAX ``batched_mpc.py:564`` and ``:641``
+        without the TPU tile half): ``is_kind(optimizer)``, warmup is off
+        (one Adam trip count for all sessions), and the model is one the
+        gradient kernels' session-row forms take
+        (``Optimizer._grad_kernel_model_ok``)."""
+        opt = self.optimizer
+        return (
+            is_kind(opt)
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
+                                       stateful=self._stateful)
+            and not opt.warmup
+            and opt._grad_kernel_model_ok(bool(self._per_slot_dyn))
+        )
+
+    def _batched_rpgd_eligible(self) -> bool:
+        """Any RPGD variant (their ``_resample`` and entropy bonus apply in
+        the batched step too)."""
+        from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
+
+        return self._batched_grad_eligible(lambda opt: isinstance(opt, RPGDOptimizer))
+
+    def _batched_gradient_eligible(self) -> bool:
+        """Plain gradient-tf."""
+        from control_toolkit_tpu_torch.optimizers.gradient import GradientOptimizer
+
+        return self._batched_grad_eligible(lambda opt: type(opt) is GradientOptimizer)
+
     def _batched_fused_cem_eligible(self) -> bool:
         """K6's gate (JAX ``batched_mpc.py:589`` without its TPU
         conjuncts): plain CEM with ``fully_fused``, warmup off, an ODE
@@ -243,18 +295,16 @@ class BatchedMPCController(MPCController):
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
         if getattr(cf, "post_terminal_cost", None) is not None:
             return _not_ported("a learned value terminal in batched mode (the emit_terminal "
-                               "forms of K4 and K11-K14)")
+                               "forms of K4 and K11-K14, the value_spec forms of K7-K10)")
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
-        for cls, what in ((RPGDOptimizer, "the batched RPGD step (the slot_keys forms of K7-K10 "
-                                          "and K1)"),
-                          (GradientOptimizer, "the batched gradient step (the slot_keys forms "
-                                              "of K7-K10 and K1)")):
-            if isinstance(opt, cls):
-                return _not_ported(what)
+        if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):
+            why = "warmup on" if opt.warmup else "a model the gradient kernels do not take"
+            return _not_ported(f"the vmapped per-slot batched step (taken for "
+                               f"{opt.registered_name} with {why})")
         if type(opt) is CEMOptimizer and not opt.fully_fused:
-            return _not_ported("the modular batched CEM step (K1's slot_keys form)")
+            return _not_ported("the vmapped per-slot batched step (taken for modular CEM)")
         return _not_ported(f"the vmapped per-slot batched step ({opt.registered_name}, "
                            f"K={opt.num_rollouts})")
 
@@ -340,6 +390,8 @@ class BatchedMPCController(MPCController):
                 return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
             if isinstance(n, np.ndarray):
                 return np.where(mask_np.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+            if _is_state(n):  # e.g. the Adam state: its moments and counters
+                return type(n)(*(keep(a, b) for a, b in zip(n, o)))
             return n
 
         return torch.where(mask[:, None], u, 0.0), type(new)(*(keep(n, o) for n, o in zip(new, old)))

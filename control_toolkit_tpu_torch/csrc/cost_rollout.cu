@@ -7,6 +7,17 @@
 // cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1)
 // with Q[k,-1] = u_prev from the packed parameters.
 //
+// K1 serves one session (ks = K) or, in its session-row form (the
+// slot_keys form, pallas_rollout.py:47), B sessions of ks rollouts in one
+// launch, rollout k reading row k / ks of pvec: the session's dynamics
+// constants, cost weights, attributes and previous control.  A block may
+// straddle two sessions; each thread reads its own rollout's row.  The
+// two are instantiations of one template (Rows): one session reads row 0
+// at an address uniform over the grid, so its parameters need no
+// per-thread registers (a per-thread row costs 6 more, 48 -> 54), and the
+// single-session kernel stays as it was.  The arithmetic is the same, so
+// the form equals the single-session kernel per session.
+//
 // What bounds it on an H100: the serial H-step rk4 chain each thread runs
 // in FP32; the bytes are small (Q is K*H*U floats, read once).  At the
 // main path's K=16384 the grid is 128 blocks of 128 threads on 132 SMs,
@@ -30,16 +41,16 @@
 
 namespace ctt {
 
-template <class Plant>
+template <class Plant, bool Rows>
 __global__ void __launch_bounds__(kThreads)
 cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                     const float* __restrict__ pvec, float* __restrict__ cost,
-                    int K, int H, StepConsts c, float max_cost) {
+                    int K, int ks, int H, StepConsts c, float max_cost) {
   constexpr int S = Plant::S, U = Plant::U;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked
   float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  load_params<Plant>(Rows ? pvec + static_cast<size_t>(k / ks) * Plant::kN : pvec, p);
   const typename Plant::Recips rc = Plant::recips(p);
   float x[S], prev[U], acc = 0.0f;
 #pragma unroll
@@ -65,22 +76,42 @@ cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
 
 }  // namespace ctt
 
-// Launches K1 on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant).
+// Launches K1 on `stream` over K rollouts, sessions of ks (pvec holds
+// K / ks rows, rollout k reading row k / ks: ks = K for one session, the
+// session-row form for a fleet); returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
+// divide K).
 extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                void* cost, int K, int H, int rk4, int substeps, float sub_dt,
-                                float half_dt, float dt6, float max_cost, void* stream) {
+                                void* cost, int K, int ks, int H, int rk4, int substeps,
+                                float sub_dt, float half_dt, float dt6, float max_cost,
+                                void* stream) {
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::cost_rollout_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+      (ks == K ? ctt::cost_rollout_kernel<ctt::CartpolePlant, false>
+               : ctt::cost_rollout_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads, 0, st>>>(
           static_cast<const float*>(s0), static_cast<const float*>(Q),
-          static_cast<const float*>(pvec), static_cast<float*>(cost), K, H, c, max_cost);
+          static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K1 (rows 0) or of its session-row form (rows 1) that one SM
+// holds (0 where the runtime cannot say).
+extern "C" int ctt_cost_rollout_blocks_per_sm(int rows) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks,
+          rows ? ctt::cost_rollout_kernel<ctt::CartpolePlant, true>
+               : ctt::cost_rollout_kernel<ctt::CartpolePlant, false>,
+          ctt::kThreads, 0) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }

@@ -8,9 +8,10 @@
 // kernel_families/gp.py.  Python wrappers and plain versions:
 // ops/gp_rollout.py and ops/gp_grad_cost_rollout.py.
 //
-// K14 serves one session (ks = K) or, in its session-row form, B sessions
-// of ks rollouts in one launch, every lane of rollout k reading row k / ks
-// of pvec.
+// K14 and K10 serve one session (ks = K) or, in their session-row forms
+// (the slot_keys forms, pallas_neural.py and pallas_grad.py:524), B
+// sessions of ks rollouts in one launch, every lane of rollout k reading
+// row k / ks of pvec; a warp's rollouts may straddle two sessions.
 //
 // K14 is a one-thread-a-rollout cost kernel (as K1, cost_rollout.cu) with
 // the GP step: the packed parameters are the cost's alone (plants.cuh
@@ -121,8 +122,8 @@ template <class Cost, int L>
 __global__ void __launch_bounds__(kGpThreads)
 gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                             const float* __restrict__ pvec, float* __restrict__ cost,
-                            float* __restrict__ dQ, float* __restrict__ xhist, int K, int H,
-                            float max_cost, float ct, GPArgs gp) {
+                            float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+                            int H, float max_cost, float ct, GPArgs gp) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -136,9 +137,11 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
   const bool writes = r == 0 && k < K;
   GPConsts<S, U> g;
   g.load(gp);
+  // Every lane of a rollout its session's row (ks rollouts a session).
+  const float* row = pvec + static_cast<size_t>(kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
-  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
   const float* q = Q + static_cast<size_t>(kc) * H * U;
   float* dq = dQ + static_cast<size_t>(kc) * H * U;
 
@@ -235,12 +238,12 @@ int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, int 
 // Launch K10 with L lanes a rollout.
 template <int L>
 int launch_k10(const void* s0, const void* Q, const void* pvec, void* cost, void* dQ,
-               void* xhist, int K, int H, float max_cost, float ct, const GPArgs& gp,
+               void* xhist, int K, int ks, int H, float max_cost, float ct, const GPArgs& gp,
                void* stream) {
   return launch_gp(gp_kernel<true, L>(), gp_allowed[1][ilog2(L)], gp, K, L, kGpThreads, stream,
                    static_cast<const float*>(s0), static_cast<const float*>(Q),
                    static_cast<const float*>(pvec), static_cast<float*>(cost),
-                   static_cast<float*>(dQ), static_cast<float*>(xhist), K, H, max_cost, ct);
+                   static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, max_cost, ct);
 }
 
 // Blocks of K14 or K10 with L lanes a rollout that one SM holds for M
@@ -291,22 +294,26 @@ extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, con
   }
 }
 
-// Launches K10 on `stream` with `lanes` lanes a rollout (4, 8, 16 or 32;
-// 0 for kGpLanes); returns as above.  xhist is scratch of H*S*K floats that
-// the caller allocates.
+// Launches K10 on `stream` over K rollouts, sessions of ks as K14's, with
+// `lanes` lanes a rollout (4, 8, 16 or 32; 0 for kGpLanes); returns as
+// above.  xhist is scratch of H*S*K floats that the caller allocates.
 extern "C" int ctt_gp_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                         const void* pvec, void* cost, void* dQ, void* xhist,
-                                        int K, int H, float max_cost, float ct, int lanes,
-                                        const ctt::GPArgs* gp, void* stream) {
+                                        int K, int ks, int H, float max_cost, float ct,
+                                        int lanes, const ctt::GPArgs* gp, void* stream) {
   using ctt::launch_k10;
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (lanes == 0 ? ctt::kGpLanes : lanes) {
-    case 4: return launch_k10<4>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
-    case 8: return launch_k10<8>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
+    case 4:
+      return launch_k10<4>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct, *gp, stream);
+    case 8:
+      return launch_k10<8>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct, *gp, stream);
     case 16:
-      return launch_k10<16>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
+      return launch_k10<16>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct, *gp, stream);
     case 32:
-      return launch_k10<32>(s0, Q, pvec, cost, dQ, xhist, K, H, max_cost, ct, *gp, stream);
+      return launch_k10<32>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct, *gp, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

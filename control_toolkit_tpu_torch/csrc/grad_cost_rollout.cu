@@ -19,6 +19,18 @@
 //   lam_h = A_h^T lam_{h+1} + gx_h
 // prev at h = 0 is the packed __u_prev, which gets no gradient.
 //
+// Both launches serve one session (ks = K) or, in their session-row form
+// (the slot_keys form, pallas_grad.py:348), B sessions of ks rollouts,
+// rollout k reading row k / ks of pvec (its session's constants, cost,
+// attributes and previous control).  A forward block of kThreads and an
+// adjoint block of kAdjRollouts may straddle two sessions: each thread
+// reads its own rollout's row.  xhist keeps its [H+1, S, B*ks] layout.
+// As K1's, each form is an instantiation (Rows) of its single-session
+// kernel, which reads row 0 at a grid-uniform address and is unchanged.
+// The adjoint's registers are capped at 128 (two blocks an SM): per-thread
+// parameters in registers would spill there, so its session-row form
+// stages its kAdjRollouts rows in shared memory and reads them from there.
+//
 // Forward launch (grad_cost_forward_kernel): one thread owns one rollout,
 // K1's arithmetic bit for bit (Rollout::advance); it writes cost[k] and
 // the states x_0..x_H to the wrapper-allocated scratch xhist [H+1, S, K],
@@ -54,17 +66,17 @@ constexpr int kAdjRollouts = 8;                          // rollouts per adjoint
 constexpr int kAdjSteps = 32;                            // steps per chunk
 constexpr int kAdjThreads = kAdjRollouts * kAdjSteps;    // one item per thread
 
-template <class Plant>
+template <class Plant, bool Rows>
 __global__ void __launch_bounds__(kThreads)
 grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                          const float* __restrict__ pvec, float* __restrict__ cost,
-                         float* __restrict__ xhist, int K, int H, StepConsts c,
+                         float* __restrict__ xhist, int K, int ks, int H, StepConsts c,
                          float max_cost) {
   constexpr int S = Plant::S, U = Plant::U;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked
   float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  load_params<Plant>(Rows ? pvec + static_cast<size_t>(k / ks) * Plant::kN : pvec, p);
   const float* q = Q + static_cast<size_t>(k) * H * U;
   Rollout<Plant> r;
   r.start(s0 + static_cast<size_t>(k) * S, p);
@@ -81,21 +93,36 @@ grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__
   cost[k] = r.finish(p, H);
 }
 
-template <class Plant>
+template <class Plant, bool Rows>
 __global__ void __launch_bounds__(kAdjThreads, 2)
 grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
-                         const float* __restrict__ xhist, float* __restrict__ dQ, int K, int H,
-                         StepConsts c, float ct) {
+                         const float* __restrict__ xhist, float* __restrict__ dQ, int K, int ks,
+                         int H, StepConsts c, float ct) {
   constexpr int S = Plant::S, U = Plant::U, N = S + U;
   // An item's fields: [A | B] row-major (S*N), gx (S), gu (U), gprev (U);
   // an odd field count keeps a warp's four steps on distinct banks.
   constexpr int kGx = S * N, kGu = kGx + S, kGp = kGu + U, kFields = (kGp + U) | 1;
   __shared__ float items[kAdjSteps * kFields * kAdjRollouts];
-  float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  // The session-row form's parameter rows, one a rollout of the block (a
+  // rollout past K reads the last one's).
+  __shared__ float rows[Rows ? kAdjRollouts * Plant::kN : 1];
   const int r = threadIdx.x % kAdjRollouts, hh = threadIdx.x / kAdjRollouts;
   const int k = blockIdx.x * kAdjRollouts + r;
   const bool live = k < K;  // ragged K: a row past K computes and writes nothing
+  float preg[Plant::kN];
+  const float* p = preg;
+  if constexpr (Rows) {
+    if (threadIdx.x < kAdjRollouts * Plant::kN) {
+      const int kk = min(static_cast<int>(blockIdx.x * kAdjRollouts + threadIdx.x / Plant::kN),
+                         K - 1);
+      rows[threadIdx.x] =
+          __ldg(pvec + static_cast<size_t>(kk / ks) * Plant::kN + threadIdx.x % Plant::kN);
+    }
+    __syncthreads();
+    p = rows + r * Plant::kN;
+  } else {
+    load_params<Plant>(pvec, preg);
+  }
   auto field = [&](int step, int f) -> float& {
     return items[(step * kFields + f) * kAdjRollouts + r];
   };
@@ -174,22 +201,28 @@ grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ 
 
 }  // namespace ctt
 
-// Launch K7's forward on `stream`; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant).  xhist is scratch
-// of (H+1)*S*K floats that the caller allocates.
+// Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
+// holds K / ks rows, rollout k reading row k / ks: ks = K for one session,
+// the session-row form for a fleet); returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
+// divide K).  xhist is scratch of (H+1)*S*K floats that the caller
+// allocates.
 extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, const void* pvec,
-                                     void* cost, void* xhist, int K, int H, int rk4,
+                                     void* cost, void* xhist, int K, int ks, int H, int rk4,
                                      int substeps, float sub_dt, float half_dt, float dt6,
                                      float max_cost, void* stream) {
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::grad_cost_forward_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+      (ks == K ? ctt::grad_cost_forward_kernel<ctt::CartpolePlant, false>
+               : ctt::grad_cost_forward_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads,
+                                                                            0, st>>>(
           static_cast<const float*>(s0), static_cast<const float*>(Q),
           static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(xhist),
-          K, H, c, max_cost);
+          K, ks, H, c, max_cost);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -197,19 +230,23 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K7's adjoint on `stream` over the forward's xhist; returns as above.
+// Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
+// as the forward's; returns as above.
 extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
-                                     const void* xhist, void* dQ, int K, int H, int rk4,
+                                     const void* xhist, void* dQ, int K, int ks, int H, int rk4,
                                      int substeps, float sub_dt, float half_dt, float dt6,
                                      float ct, void* stream) {
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kAdjRollouts - 1) / ctt::kAdjRollouts);
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant><<<grid, ctt::kAdjThreads, 0, st>>>(
+      (ks == K ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>
+               : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kAdjThreads,
+                                                                            0, st>>>(
           static_cast<const float*>(Q), static_cast<const float*>(pvec),
-          static_cast<const float*>(xhist), static_cast<float*>(dQ), K, H, c, ct);
+          static_cast<const float*>(xhist), static_cast<float*>(dQ), K, ks, H, c, ct);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -217,13 +254,29 @@ extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of K7's adjoint kernel that one SM holds (0 where the runtime
-// cannot say).
-extern "C" int ctt_grad_cost_adjoint_blocks_per_sm() {
+// Blocks of K7's forward kernel (rows 0) or of its session-row form (rows
+// 1) that one SM holds (0 where the runtime cannot say).
+extern "C" int ctt_grad_cost_forward_blocks_per_sm(int rows) {
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant>, ctt::kAdjThreads, 0) !=
-      cudaSuccess) {
+          &blocks,
+          rows ? ctt::grad_cost_forward_kernel<ctt::CartpolePlant, true>
+               : ctt::grad_cost_forward_kernel<ctt::CartpolePlant, false>,
+          ctt::kThreads, 0) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
+}
+
+// Blocks of K7's adjoint kernel (rows 0) or of its session-row form (rows
+// 1) that one SM holds (0 where the runtime cannot say).
+extern "C" int ctt_grad_cost_adjoint_blocks_per_sm(int rows) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks,
+          rows ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>
+               : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>,
+          ctt::kAdjThreads, 0) != cudaSuccess) {
     return 0;
   }
   return blocks;

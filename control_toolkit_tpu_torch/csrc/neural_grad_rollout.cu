@@ -11,6 +11,12 @@
 // integrator; the cost's adjoints are plants.cuh CartpoleCost's.  The
 // Pallas kernel transposed the step with jax.vjp at trace time.
 //
+// K8 serves one session (ks = K) or, in its session-row form (the
+// slot_keys form, pallas_grad.py:401), B sessions of ks rollouts in one
+// launch, each lane reading the cost's row k / ks of pvec for its rollout
+// k (lanes l and l+16 share a rollout): a 16-rollout warp straddles two
+// sessions whenever ks is not a multiple of 16.  The weights are shared.
+//
 // Forward: store x_h, add the stage cost, step; cost[k] = (sum_h stage +
 // terminal) / (H+1).  Backward, h = H-1 .. 0, with ct = 1/(H+1):
 //   lam = ct * d terminal / d x_H
@@ -45,8 +51,8 @@ template <class Cost>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 neural_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                                 const float* __restrict__ pvec, float* __restrict__ cost,
-                                float* __restrict__ dQ, float* __restrict__ xhist, int K, int H,
-                                float max_cost, float ct, NetArgs net, MmaLayout L) {
+                                float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+                                int H, float max_cost, float ct, NetArgs net, MmaLayout L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -55,9 +61,11 @@ neural_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __res
   const WarpRows rows(K);
   if (rows.first >= K) return;  // the whole warp past K
   const int k = rows.k;
+  // The lane's rollout's session row (ks rollouts a session).
+  const float* row = pvec + static_cast<size_t>(rows.kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
-  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(pvec + i);
+  for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
   const float* q = Q + static_cast<size_t>(rows.kc) * H * U;
   float* dq = dQ + static_cast<size_t>(k) * H * U;
 
@@ -119,20 +127,25 @@ static long k8_allowed = 0;
 
 }  // namespace ctt
 
-// Launches K8 on `stream`; returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown plant or a net the kernel refuses.
-// xhist is scratch of H*S*K floats that the caller allocates.
+// Launches K8 on `stream` over K rollouts, sessions of ks (pvec holds
+// K / ks rows, rollout k reading row k / ks: ks = K for one session, the
+// session-row form for a fleet); returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for an unknown plant, a ks that does not
+// divide K or a net the kernel refuses.  xhist is scratch of H*S*K floats
+// that the caller allocates.
 extern "C" int ctt_neural_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                             const void* pvec, void* cost, void* dQ, void* xhist,
-                                            int K, int H, float max_cost, float ct,
+                                            int K, int ks, int H, float max_cost, float ct,
                                             const ctt::NetArgs* net, void* stream) {
   using Cost = ctt::CartpoleCost;
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return ctt::launch_mma(ctt::neural_grad_cost_rollout_kernel<Cost>, ctt::k8_allowed, *net,
                          Cost::S, Cost::U, K, stream, static_cast<const float*>(s0),
                          static_cast<const float*>(Q), static_cast<const float*>(pvec),
                          static_cast<float*>(cost), static_cast<float*>(dQ),
-                         static_cast<float*>(xhist), K, H, max_cost, ct);
+                         static_cast<float*>(xhist), K, ks, H, max_cost, ct);
 }
 
 // Dynamic shared memory (bytes) a block of the gradient kernels K8 and K9

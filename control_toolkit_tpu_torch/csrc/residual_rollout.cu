@@ -12,7 +12,9 @@
 //
 // K12 serves one session (ks = K) or, in its session-row form, B sessions
 // of ks rollouts in one launch, rollout k reading row k / ks of pvec (the
-// session's base constants and cost; both warps of a group read it).
+// session's base constants and cost; both warps of a group read it).  So
+// does K9 (pallas_grad.py:474), each lane its rollout's row: a 16-rollout
+// warp straddles two sessions whenever ks is not a multiple of 16.
 //
 // K12 is K1 (cost_rollout.cu) with the residual added to each step: the
 // base's euler/rk4 step over the packed
@@ -172,9 +174,9 @@ template <class Plant>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                                   const float* __restrict__ pvec, float* __restrict__ cost,
-                                  float* __restrict__ dQ, float* __restrict__ xhist, int K, int H,
-                                  StepConsts c, float max_cost, float ct, NetArgs net,
-                                  MmaLayout L) {
+                                  float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                  int ks, int H, StepConsts c, float max_cost, float ct,
+                                  NetArgs net, MmaLayout L) {
   constexpr int S = Plant::S, U = Plant::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -183,8 +185,9 @@ residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __r
   const WarpRows rows(K);
   if (rows.first >= K) return;  // the whole warp past K
   const int k = rows.k;
+  // The lane's rollout's session row: the base's constants with the cost's.
   float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  load_params<Plant>(pvec + static_cast<size_t>(rows.kc / ks) * Plant::kN, p);
   const float* q = Q + static_cast<size_t>(rows.kc) * H * U;
   float* dq = dQ + static_cast<size_t>(k) * H * U;
 
@@ -303,16 +306,16 @@ extern "C" int ctt_residual_blocks_per_sm(const ctt::NetArgs* net) {
   return blocks;
 }
 
-// Launches K9 on `stream`; returns as above.  xhist is scratch of H*S*K
-// floats that the caller allocates.
+// Launches K9 on `stream` over K rollouts, sessions of ks as K12's; returns
+// as above.  xhist is scratch of H*S*K floats that the caller allocates.
 extern "C" int ctt_residual_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                               const void* pvec, void* cost, void* dQ,
-                                              void* xhist, int K, int H, int rk4, int substeps,
-                                              float sub_dt, float half_dt, float dt6,
-                                              float max_cost, float ct, const ctt::NetArgs* net,
-                                              void* stream) {
+                                              void* xhist, int K, int ks, int H, int rk4,
+                                              int substeps, float sub_dt, float half_dt,
+                                              float dt6, float max_cost, float ct,
+                                              const ctt::NetArgs* net, void* stream) {
   using Plant = ctt::CartpolePlant;
-  if (plant != ctt::kPlantCartpole || !ctt::residual_net(*net)) {
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0 || !ctt::residual_net(*net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
@@ -320,7 +323,7 @@ extern "C" int ctt_residual_grad_cost_rollout(int plant, const void* s0, const v
                          Plant::S, Plant::U, K, stream, static_cast<const float*>(s0),
                          static_cast<const float*>(Q), static_cast<const float*>(pvec),
                          static_cast<float*>(cost), static_cast<float*>(dQ),
-                         static_cast<float*>(xhist), K, H, c, max_cost, ct);
+                         static_cast<float*>(xhist), K, ks, H, c, max_cost, ct);
 }
 
 // Blocks of K9 an SM holds for `net` (0 for a net it refuses).

@@ -12,6 +12,14 @@ what bounds it on the card.  ``cost_rollout_plain`` is the same
 function in PyTorch, a loop over h on ``[K]`` tensors.  The wrapper runs
 the plain version only when every operand lies on the CPU; for CUDA
 operands it launches the kernel or raises.
+
+Its session-row (``slot_keys``, pallas_rollout.py:47) form
+``cost_rollout_cols`` (the batched-mpc gradient fleets' and the modular
+batched CEM step's) scores B sessions' rollouts in one launch of the same
+kernel: ``s0 [B*K,S]`` and ``Q [B*K,H,U]`` session by session, rollout
+b*K + k reading row b of ``pvec_b [B,N]`` (``optimizers/base.py:
+make_slot_packer``: the session's attributes, previous control and
+``per_slot_dyn`` constants); the costs come back ``[B, K]``.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 def cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor,
                        Q: torch.Tensor, pvec: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch (pallas_rollout.py:75-99)."""
-    p = model.unpack(pvec)
+    p = model.unpack(pvec)  # [N], or [N, K]: a row per rollout
     one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
                                 model.intermediate_steps)
     K, S = s0.shape
@@ -50,21 +58,52 @@ def cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
         )
     if kernels.on_cpu(s0, Q, pvec):
         return cost_rollout_plain(model, s0, Q, pvec)
-    device = kernels.check_cuda_operands("cost_rollout", s0=s0, Q=Q, pvec=pvec)
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("cost_rollout", S, U, K, H, pvec.numel())
-    cost = torch.empty(K, dtype=torch.float32, device=device)
-    lib = kernels.load()
-    with torch.cuda.device(device):
-        rc = lib.ctt_cost_rollout(
-            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(),
-            pvec.data_ptr(), cost.data_ptr(), K, H, *model.step_args(),
-            model.max_cost, torch.cuda.current_stream(device).cuda_stream,
-        )
-    kernels.check_launch(rc, "cost_rollout")
+    cost = _launch("cost_rollout", model, s0, Q, pvec, s0.shape[0])
     cost_rollout.launches += 1
     return cost
 
 
 cost_rollout.launches = 0
+
+
+def cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec_b: torch.Tensor) -> torch.Tensor:
+    """K1's session-row form in PyTorch: K1's plain version over the B*K
+    rollouts, each stepping and scored under its session's row of
+    ``pvec_b``; ``[B, K]``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    return cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T).reshape(B, K)
+
+
+def cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                      pvec_b: torch.Tensor) -> torch.Tensor:
+    """K1's session-row form: the costs ``[B, K]`` of B sessions' rollouts
+    in one launch; see the module docstring."""
+    K = kernels.check_cols_shapes("cost_rollout_cols", s0, Q, pvec_b)
+    if kernels.on_cpu(s0, Q, pvec_b):
+        return cost_rollout_cols_plain(model, s0, Q, pvec_b)
+    cost = _launch("cost_rollout_cols", model, s0, Q, pvec_b, K)
+    cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K)
+
+
+cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int) -> torch.Tensor:
+    """Check the operands and launch K1 over sessions of ``ks`` rollouts,
+    ``pvec``'s rows; returns the costs ``[B*K]``."""
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = kernels.load().ctt_cost_rollout(
+            kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(),
+            pvec.data_ptr(), cost.data_ptr(), K, ks, H, *model.step_args(),
+            model.max_cost, torch.cuda.current_stream(device).cuda_stream,
+        )
+    kernels.check_launch(rc, name)
+    return cost

@@ -21,6 +21,13 @@ warp (``gp_grad_cost_rollout_lanes`` picks their number);
 ``gp_grad_cost_rollout_plain`` is the same function in PyTorch.  The
 wrapper runs the plain version only when every operand lies on the CPU;
 for CUDA operands it launches the kernel or raises.
+
+Its session-row (``slot_keys``, pallas_grad.py:524) form
+``gp_grad_cost_rollout_cols`` (the batched-mpc gradient fleets') takes B
+sessions' rollouts in one launch: ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
+session by session, every lane of rollout b*K + k reading row b of the
+cost's ``pvec_b [B,N]``; the GP's operands are shared.  It returns
+``(cost [B,K], dQ [B*K,H,U])``.
 """
 from __future__ import annotations
 
@@ -66,12 +73,55 @@ def gp_grad_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torc
                          "the kernel's)")
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_grad_cost_rollout_plain(model, s0, Q, pvec, ops)
+    cost, dQ = _launch("gp_grad_cost_rollout", model, s0, Q, pvec, ops, s0.shape[0], lanes)
+    gp_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+gp_grad_cost_rollout.launches = 0
+
+
+def gp_grad_cost_rollout_cols_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                                    pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's session-row form in PyTorch: K10's plain version over the B*K
+    rollouts, each scored under its session's row of ``pvec_b``; ``(cost
+    [B,K], dQ [B*K,H,U])``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    cost, dQ = gp_grad_cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T, ops)
+    return cost.reshape(B, K), dQ
+
+
+def gp_grad_cost_rollout_cols(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                              pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's session-row form: ``(cost [B,K], dQ [B*K,H,U])`` of B
+    sessions' rollouts in one launch; see the module docstring."""
+    K = kernels.check_cols_shapes("gp_grad_cost_rollout_cols", s0, Q, pvec_b)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"gp_grad_cost_rollout_cols: no cost adjoints for the "
+                         f"{model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec_b, *ops.values()):
+        return gp_grad_cost_rollout_cols_plain(model, s0, Q, pvec_b, ops)
+    cost, dQ = _launch("gp_grad_cost_rollout_cols", model, s0, Q, pvec_b, ops, K, 0)
+    gp_grad_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K), dQ
+
+
+gp_grad_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.GPModel, s0, Q, pvec, ops: Dict[str, torch.Tensor],
+            ks: int, lanes: int):
+    """Check the operands and launch K10 with ``lanes`` lanes a rollout over
+    sessions of ``ks`` rollouts, ``pvec``'s rows; returns ``(cost [B*K],
+    dQ)``."""
     args, tensors = model.gp_args(ops)
-    device = kernels.check_cuda_operands("gp_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
-                                         **tensors)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("gp_grad_cost_rollout", S, U, K, H, pvec.numel())
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
     cost = torch.empty(K, dtype=torch.float32, device=device)
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
     # The forward sweep's states, rollout index fastest, as K7's.
@@ -79,12 +129,8 @@ def gp_grad_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torc
     with torch.cuda.device(device):
         rc = kernels.load().ctt_gp_grad_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, model.max_cost,
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, ks, H, model.max_cost,
             1.0 / (H + 1), lanes, args, torch.cuda.current_stream(device).cuda_stream,
         )
-    kernels.check_launch(rc, f"gp_grad_cost_rollout (M={args.M} inducing points)")
-    gp_grad_cost_rollout.launches += 1
+    kernels.check_launch(rc, f"{name} (M={args.M} inducing points)")
     return cost, dQ
-
-
-gp_grad_cost_rollout.launches = 0

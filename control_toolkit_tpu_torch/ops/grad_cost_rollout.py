@@ -31,6 +31,12 @@ sweep above, summed in another order.  ``grad_cost_rollout_plain`` is
 the sweep in PyTorch.  The wrapper runs the plain version only when every
 operand lies on the CPU; for CUDA operands it launches the kernel or
 raises.
+
+Its session-row (``slot_keys``, pallas_grad.py:348) form
+``grad_cost_rollout_cols`` (the batched-mpc gradient fleets') takes B
+sessions' rollouts in one pair of launches: ``s0 [B*K,S]`` and ``Q
+[B*K,H,U]`` session by session, rollout b*K + k reading row b of ``pvec_b
+[B,N]`` in both launches; it returns ``(cost [B,K], dQ [B*K,H,U])``.
 """
 from __future__ import annotations
 
@@ -111,26 +117,66 @@ def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Te
         raise ValueError(f"grad_cost_rollout: no adjoints for the {model.plant!r} plant")
     if kernels.on_cpu(s0, Q, pvec):
         return grad_cost_rollout_plain(model, s0, Q, pvec)
-    device = kernels.check_cuda_operands("grad_cost_rollout", s0=s0, Q=Q, pvec=pvec)
+    cost, dQ = _launch("grad_cost_rollout", model, s0, Q, pvec, s0.shape[0])
+    grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+grad_cost_rollout.launches = 0
+
+
+def grad_cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor,
+                                 Q: torch.Tensor, pvec_b: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's session-row form in PyTorch: K7's plain version over the B*K
+    rollouts, each under its session's row of ``pvec_b``; ``(cost [B,K],
+    dQ [B*K,H,U])``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    cost, dQ = grad_cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T)
+    return cost.reshape(B, K), dQ
+
+
+def grad_cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                           pvec_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's session-row form: ``(cost [B,K], dQ [B*K,H,U])`` of B sessions'
+    rollouts in one forward and one adjoint launch; see the module
+    docstring."""
+    K = kernels.check_cols_shapes("grad_cost_rollout_cols", s0, Q, pvec_b)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"grad_cost_rollout_cols: no adjoints for the {model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec_b):
+        return grad_cost_rollout_cols_plain(model, s0, Q, pvec_b)
+    cost, dQ = _launch("grad_cost_rollout_cols", model, s0, Q, pvec_b, K)
+    grad_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K), dQ
+
+
+grad_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int):
+    """Check the operands and launch K7's forward and adjoint over sessions
+    of ``ks`` rollouts, ``pvec``'s rows; returns ``(cost [B*K], dQ)``."""
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("grad_cost_rollout", S, U, K, H, pvec.numel())
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
     cost = torch.empty(K, dtype=torch.float32, device=device)
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
     # The forward's states x_0..x_H, rollout index fastest (csrc note).
     xhist = torch.empty(H + 1, S, K, dtype=torch.float32, device=device)
     for part in ("forward", "adjoint"):
-        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist)
-    grad_cost_rollout.launches += 1
+        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist, ks)
     return cost, dQ
 
 
 def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
                 pvec: torch.Tensor, cost: torch.Tensor, dQ: torch.Tensor,
-                xhist: torch.Tensor) -> None:
-    """One of K7's two launches on checked CUDA operands: ``forward``
-    (writes cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist,
-    writes dQ)."""
+                xhist: torch.Tensor, ks: int = 0) -> None:
+    """One of K7's two launches on checked CUDA operands over sessions of
+    ``ks`` rollouts (0: one session), ``pvec``'s rows: ``forward`` (writes
+    cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist, writes dQ)."""
     K, H = Q.shape[0], Q.shape[1]
     lib, device = kernels.load(), s0.device
     with torch.cuda.device(device):
@@ -138,13 +184,10 @@ def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: tor
         if part == "forward":
             rc = lib.ctt_grad_cost_forward(
                 kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-                cost.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(), model.max_cost,
-                stream)
+                cost.data_ptr(), xhist.data_ptr(), K, ks or K, H, *model.step_args(),
+                model.max_cost, stream)
         else:
             rc = lib.ctt_grad_cost_adjoint(
                 kernels.PLANT_IDS[model.plant], Q.data_ptr(), pvec.data_ptr(), xhist.data_ptr(),
-                dQ.data_ptr(), K, H, *model.step_args(), 1.0 / (H + 1), stream)
+                dQ.data_ptr(), K, ks or K, H, *model.step_args(), 1.0 / (H + 1), stream)
     kernels.check_launch(rc, f"grad_cost_rollout ({part})")
-
-
-grad_cost_rollout.launches = 0

@@ -443,8 +443,10 @@ def load() -> ctypes.CDLL:
     if load.lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # Each rollout kernel takes K, then ks (the rollouts a session: K for
+        # one session, a fleet's K for its session-row form), then H.
         lib.ctt_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_cost_rollout.restype = i32
         lib.ctt_mppi_cost.argtypes = [
@@ -458,15 +460,14 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_mppi_cost_cols.restype = i32
         lib.ctt_grad_cost_forward.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_forward.restype = i32
         lib.ctt_grad_cost_adjoint.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_adjoint.restype = i32
         net = ctypes.POINTER(NetArgs)
-        # K, ks (rollouts a session: K for one session), H.
         lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
                                                 net, ptr]
         lib.ctt_neural_cost_rollout.restype = i32
@@ -477,7 +478,7 @@ def load() -> ctypes.CDLL:
                                         ctypes.POINTER(i32)]
         lib.ctt_neural_plan.restype = ctypes.c_long
         lib.ctt_neural_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, net, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, ptr,
         ]
         lib.ctt_neural_grad_cost_rollout.restype = i32
         lib.ctt_net_smem_bytes.argtypes = [net, i32, i32]
@@ -489,8 +490,11 @@ def load() -> ctypes.CDLL:
                    lib.ctt_recurrent_blocks_per_sm):
             fn.argtypes = [net]
             fn.restype = i32
-        lib.ctt_grad_cost_adjoint_blocks_per_sm.argtypes = []
-        lib.ctt_grad_cost_adjoint_blocks_per_sm.restype = i32
+        # rows: 0 for the single-session kernel, 1 for its session-row form.
+        for fn in (lib.ctt_cost_rollout_blocks_per_sm, lib.ctt_grad_cost_forward_blocks_per_sm,
+                   lib.ctt_grad_cost_adjoint_blocks_per_sm):
+            fn.argtypes = [i32]
+            fn.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
         lib.ctt_residual_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
@@ -499,7 +503,7 @@ def load() -> ctypes.CDLL:
         lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
         lib.ctt_residual_plan.restype = ctypes.c_long
         lib.ctt_residual_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, *step, f32, f32, net, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, f32, net, ptr,
         ]
         lib.ctt_residual_grad_cost_rollout.restype = i32
         gp = ctypes.POINTER(GPArgs)
@@ -507,7 +511,7 @@ def load() -> ctypes.CDLL:
                                             gp, ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f32, f32, i32, gp, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, gp, ptr,
         ]
         lib.ctt_gp_grad_cost_rollout.restype = i32
         lib.ctt_gp_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
@@ -564,3 +568,22 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every operand lies on the CPU: the only case in which a
     wrapper runs its plain version."""
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def check_cols_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor,
+                      pvec_b: torch.Tensor) -> int:
+    """The session-row forms' launch shapes: raise unless ``s0 [B*K,S]``,
+    ``Q [B*K,H,U]`` and ``pvec_b [B,N]`` fit together; returns K, the
+    rollouts a session (the C entries' ``ks``)."""
+    if (s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec_b.ndim != 2
+            or pvec_b.shape[0] < 1 or s0.shape[0] % pvec_b.shape[0] or s0.shape[0] == 0):
+        raise ValueError(
+            f"{name}: expected s0 [B*K,S], Q [B*K,H,U], pvec_b [B,N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec_b.shape)}"
+        )
+    return s0.shape[0] // pvec_b.shape[0]
+
+
+def session_rows(rows: torch.Tensor, K: int) -> torch.Tensor:
+    """Per-session rows ``[B, n]`` as per-rollout rows ``[B*K, n]``."""
+    return rows.repeat_interleave(K, dim=0)

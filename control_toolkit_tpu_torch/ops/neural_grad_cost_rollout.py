@@ -20,6 +20,13 @@ The CUDA kernel is ``csrc/neural_grad_rollout.cu``;
 ``neural_grad_cost_rollout_plain`` is the same function in PyTorch.  The
 wrapper runs the plain version only when every operand lies on the CPU;
 for CUDA operands it launches the kernel or raises.
+
+Its session-row (``slot_keys``, pallas_grad.py:401) form
+``neural_grad_cost_rollout_cols`` (the batched-mpc gradient fleets') takes
+B sessions' rollouts in one launch: ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
+session by session, each lane reading its rollout's session row of the
+cost's ``pvec_b [B,N]``; the weights are shared.  It returns ``(cost
+[B,K], dQ [B*K,H,U])``.
 """
 from __future__ import annotations
 
@@ -53,12 +60,54 @@ def neural_grad_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch
                          f"{model.kind} on {model.plant!r}")
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
         return neural_grad_cost_rollout_plain(model, s0, Q, pvec, net)
+    cost, dQ = _launch("neural_grad_cost_rollout", model, s0, Q, pvec, net, s0.shape[0])
+    neural_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+neural_grad_cost_rollout.launches = 0
+
+
+def neural_grad_cost_rollout_cols_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                        Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's session-row form in PyTorch: K8's plain version over the B*K
+    rollouts, each scored under its session's row of ``pvec_b``; ``(cost
+    [B,K], dQ [B*K,H,U])``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    cost, dQ = neural_grad_cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T,
+                                              net)
+    return cost.reshape(B, K), dQ
+
+
+def neural_grad_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                  pvec_b: torch.Tensor, net: Dict
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's session-row form: ``(cost [B,K], dQ [B*K,H,U])`` of B sessions'
+    rollouts in one launch; see the module docstring."""
+    K = kernels.check_cols_shapes("neural_grad_cost_rollout_cols", s0, Q, pvec_b)
+    if model.kind != "mlp" or model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"neural_grad_cost_rollout_cols: an MLP over a cost with adjoints, not "
+                         f"a {model.kind} on {model.plant!r}")
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return neural_grad_cost_rollout_cols_plain(model, s0, Q, pvec_b, net)
+    cost, dQ = _launch("neural_grad_cost_rollout_cols", model, s0, Q, pvec_b, net, K)
+    neural_grad_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K), dQ
+
+
+neural_grad_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.NetModel, s0, Q, pvec, net: Dict, ks: int):
+    """Check the operands and launch K8 over sessions of ``ks`` rollouts,
+    ``pvec``'s rows; returns ``(cost [B*K], dQ)``."""
     args, tensors = model.net_args(net)
-    device = kernels.check_cuda_operands("neural_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
-                                         **tensors)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("neural_grad_cost_rollout", S, U, K, H, pvec.numel())
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
     cost = torch.empty(K, dtype=torch.float32, device=device)
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
     # The forward sweep's states, rollout index fastest, as K7's.
@@ -66,12 +115,8 @@ def neural_grad_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch
     with torch.cuda.device(device):
         rc = kernels.load().ctt_neural_grad_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, model.max_cost,
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, ks, H, model.max_cost,
             1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
         )
-    kernels.check_launch(rc, "neural_grad_cost_rollout")
-    neural_grad_cost_rollout.launches += 1
+    kernels.check_launch(rc, name)
     return cost, dQ
-
-
-neural_grad_cost_rollout.launches = 0

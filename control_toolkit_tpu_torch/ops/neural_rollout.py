@@ -45,6 +45,7 @@ import torch
 
 from control_toolkit_tpu_torch.models.networks import RECURRENT_FNS
 from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.kernels import check_cols_shapes, session_rows
 
 
 def mlp_layer_count(net: Dict) -> int:
@@ -113,24 +114,6 @@ def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tenso
             f"{name}: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
             f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
         )
-
-
-def check_cols_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor,
-                      pvec_b: torch.Tensor) -> int:
-    """Raise unless ``s0 [B*K,S]``, ``Q [B*K,H,U]`` and ``pvec_b [B,N]``
-    fit together; returns K, the rollouts a session."""
-    if (s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec_b.ndim != 2
-            or pvec_b.shape[0] < 1 or s0.shape[0] % pvec_b.shape[0] or s0.shape[0] == 0):
-        raise ValueError(
-            f"{name}: expected s0 [B*K,S], Q [B*K,H,U], pvec_b [B,N]; got "
-            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec_b.shape)}"
-        )
-    return s0.shape[0] // pvec_b.shape[0]
-
-
-def session_rows(rows: torch.Tensor, K: int) -> torch.Tensor:
-    """Per-session rows ``[B, n]`` as per-rollout rows ``[B*K, n]``."""
-    return rows.repeat_interleave(K, dim=0)
 
 
 def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden,

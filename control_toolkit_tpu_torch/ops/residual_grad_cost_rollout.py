@@ -20,6 +20,14 @@ The base's constants and the weights get no gradient.  The CUDA kernel is
 same function in PyTorch.  The wrapper runs the plain version only when
 every operand lies on the CPU; for CUDA operands it launches the kernel or
 raises.
+
+Its session-row (``slot_keys``, pallas_grad.py:474) form
+``residual_grad_cost_rollout_cols`` (the batched-mpc gradient fleets')
+takes B sessions' rollouts in one launch: ``s0 [B*K,S]`` and ``Q
+[B*K,H,U]`` session by session, each lane reading its rollout's session
+row of ``pvec_b [B,N]`` (the session's base constants, ``per_slot_dyn``,
+and cost); the residual's weights are shared.  It returns ``(cost [B,K],
+dQ [B*K,H,U])``.
 """
 from __future__ import annotations
 
@@ -59,12 +67,54 @@ def residual_grad_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q
         raise ValueError(f"residual_grad_cost_rollout: no adjoints for the {model.plant!r} plant")
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
         return residual_grad_cost_rollout_plain(model, s0, Q, pvec, net)
+    cost, dQ = _launch("residual_grad_cost_rollout", model, s0, Q, pvec, net, s0.shape[0])
+    residual_grad_cost_rollout.launches += 1
+    return cost, dQ
+
+
+residual_grad_cost_rollout.launches = 0
+
+
+def residual_grad_cost_rollout_cols_plain(model: kernels.ResidualModel, s0: torch.Tensor,
+                                          Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict
+                                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's session-row form in PyTorch: K9's plain version over the B*K
+    rollouts, each stepping and scored under its session's row of
+    ``pvec_b``; ``(cost [B,K], dQ [B*K,H,U])``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    cost, dQ = residual_grad_cost_rollout_plain(model, s0, Q,
+                                                kernels.session_rows(pvec_b, K).T, net)
+    return cost.reshape(B, K), dQ
+
+
+def residual_grad_cost_rollout_cols(model: kernels.ResidualModel, s0: torch.Tensor,
+                                    Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's session-row form: ``(cost [B,K], dQ [B*K,H,U])`` of B sessions'
+    rollouts in one launch; see the module docstring."""
+    K = kernels.check_cols_shapes("residual_grad_cost_rollout_cols", s0, Q, pvec_b)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"residual_grad_cost_rollout_cols: no adjoints for the "
+                         f"{model.plant!r} plant")
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return residual_grad_cost_rollout_cols_plain(model, s0, Q, pvec_b, net)
+    cost, dQ = _launch("residual_grad_cost_rollout_cols", model, s0, Q, pvec_b, net, K)
+    residual_grad_cost_rollout_cols.launches += 1
+    return cost.reshape(pvec_b.shape[0], K), dQ
+
+
+residual_grad_cost_rollout_cols.launches = 0
+
+
+def _launch(name: str, model: kernels.ResidualModel, s0, Q, pvec, net: Dict, ks: int):
+    """Check the operands and launch K9 over sessions of ``ks`` rollouts,
+    ``pvec``'s rows; returns ``(cost [B*K], dQ)``."""
     args, tensors = model.net_args(net)
-    device = kernels.check_cuda_operands("residual_grad_cost_rollout", s0=s0, Q=Q, pvec=pvec,
-                                         **tensors)
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("residual_grad_cost_rollout", S, U, K, H, pvec.numel())
+    model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
     cost = torch.empty(K, dtype=torch.float32, device=device)
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
     # The forward sweep's states, rollout index fastest, as K7's.
@@ -72,12 +122,8 @@ def residual_grad_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q
     with torch.cuda.device(device):
         rc = kernels.load().ctt_residual_grad_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, H, *model.step_args(),
+            cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, ks, H, *model.step_args(),
             model.max_cost, 1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,
         )
-    kernels.check_launch(rc, "residual_grad_cost_rollout")
-    residual_grad_cost_rollout.launches += 1
+    kernels.check_launch(rc, name)
     return cost, dQ
-
-
-residual_grad_cost_rollout.launches = 0

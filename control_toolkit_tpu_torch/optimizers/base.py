@@ -338,6 +338,28 @@ class Optimizer:
 
         return autograd_grad, cost_only
 
+    def _grad_kernel_model_ok(self, has_per_slot_dyn: bool = False) -> bool:
+        """The model half of the batched gradient fleets' gates (JAX
+        ``base.py:997``): an ODE model or ``"ODE+res"`` (per-slot dynamics
+        are their constants), or, without per-slot dynamics, a sparse GP or
+        a float32 MLP (their parameters are shared by the sessions), each
+        over a cost with adjoints.  The JAX gate's ``num_rollouts >= 128``
+        for the MLP chose between two TPU paths that compute the same
+        function; the port has the kernel path alone, so it has no
+        counterpart, nor has the TPU tile half (``_grad_kernel_tile_ok``)."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
+
+        if ode.can_use_grad(self) or residual.can_use_grad(self):
+            return True
+        return not has_per_slot_dyn and (gp.can_use_grad(self) or neural.can_use_grad(self))
+
+    def _bind_batched_grad_kernels(self, num_slots: int, per_slot_dyn=()):
+        """The session-row gradient and cost forms and the sessions' packer
+        of a B-session fleet: see kernel_families/batched.py."""
+        from control_toolkit_tpu_torch.optimizers.kernel_families import batched
+
+        return batched.bind_batched_grad_kernels(self, num_slots, per_slot_dyn=per_slot_dyn)
+
     def _soa_bindings(self, include_dyn: bool = True):
         """Bind the predictor's SOA dynamics and the cost's SOA primitives,
         plus the packed scalar parameter layout the kernels read: dynamics

@@ -27,9 +27,13 @@ so the warmup trip count is a host decision.
 
 The batched-mpc controller's B-session step is the fused one
 (``_make_batched_fused_cem_step``): one K6 launch an outer iteration
-(``ops/fused_cem_cols.py``).  Not ported (``NotImplementedError``,
-ROADMAP): the policy warm start (``_apply_policy_guess``) and the modular
-batched step (``_make_batched_cem_step``).
+(``ops/fused_cem_cols.py``).  The modular B-session step
+(``_make_batched_cem_step``, one launch of K1's session-row form an outer
+iteration) is built for compositions that call it; the controller does not
+route to it, as the JAX package's does not (a modular CEM fleet takes the
+JAX package's vmapped per-slot step, which the port refuses).  Not ported
+(``NotImplementedError``, ROADMAP): the policy warm start
+(``_apply_policy_guess``).
 """
 from __future__ import annotations
 
@@ -147,8 +151,90 @@ class CEMOptimizer(Optimizer):
     def _apply_policy_guess(self, state, plan):
         raise _not_ported("initial_guess_policy")
 
-    def _make_batched_cem_step(self, num_slots: int, **kwargs):
-        raise _not_ported("the batched-session CEM step")
+    def sample_slot_normals(self, generators, mask) -> torch.Tensor:
+        """The modular batched step's draws ``[cem_outer_it, B, K, H, U]``:
+        each active slot's normals, iteration by iteration from its own
+        generator (the single-session ``sample_draws``' order), zeros for a
+        frozen slot (it draws nothing)."""
+        shape = (self.num_rollouts, self.mpc_horizon, self.num_control_inputs)
+        zeros = torch.zeros((self.cem_outer_it,) + shape, dtype=torch.float32,
+                            device=self.device)
+        return torch.stack([
+            torch.stack([torch.randn(shape, generator=g, dtype=torch.float32, device=self.device)
+                         for _ in range(self.cem_outer_it)]) if on else zeros
+            for g, on in zip(generators, mask)
+        ], dim=1)
+
+    def _make_batched_cem_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session modular CEM step (JAX ``cem.py:188-330``): each outer
+        iteration scores every session's population ``clip(mue + z*std)``
+        in one launch of K1's session-row form
+        (``ops/cost_rollout.py:cost_rollout_cols``), then takes each
+        session's ``cem_best_k`` elites and refits its distribution; after
+        the iterations each distribution shifts.  ``per_slot_dyn``
+        constants reach K1 through the sessions' rows.
+
+        Returns ``(step, refit_from_Q)``: ``step(states, s [B,1,S], dyn,
+        cost, attrs, mask [B], draws=None) -> (u [B,U], states', costs
+        [B,K])`` over the stacked state, its normals ``draws [its, B, K, H,
+        U]`` drawn by ``sample_slot_normals`` unless given (the tests feed
+        the JAX draws); ``refit_from_Q(states, s, dyn, cost, attrs, Q_b
+        [B,K,H,U]) -> (mue [B,1,H,U], std, elite0 [B,H,U], costs [B,K])``
+        the deterministic evaluate-and-refit of a given population.
+        Requires ``warmup=False`` and no learned value terminal, as in JAX."""
+        from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout_cols
+        from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+
+        if self.warmup:
+            raise NotImplementedError(
+                "batched CEM kernel path requires warmup=False (shared outer-loop trip count); "
+                "warmup sessions take the vmapped scan path")
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if cf.post_terminal_cost is not None:
+            raise NotImplementedError(
+                "batched CEM steps do not evaluate a learned value terminal; use the vmapped "
+                "path for valued CEM sessions")
+        if not ode.compatible_model(self):
+            raise ValueError("batched CEM covers the ODE models of the device plants")
+        B, K = int(num_slots), self.num_rollouts
+        H, U = self.mpc_horizon, self.num_control_inputs
+        model, _ = ode.rollout_model(self)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
+        low, high, best_k = self.action_low, self.action_high, self.cem_best_k
+        u_mid = 0.5 * (low + high)
+
+        def evaluate_and_refit(s0, Q_b, pvec_b):
+            costs = cost_rollout_cols(model, s0, Q_b.reshape(B * K, H, U), pvec_b)
+            idx = elite_indices(costs, best_k)
+            elite = torch.take_along_dim(Q_b, idx[:, :, None, None], dim=1)  # [B, best_k, H, U]
+            return (torch.mean(elite, dim=1, keepdim=True),
+                    torch.std(elite, dim=1, correction=0, keepdim=True), elite[:, 0], costs)
+
+        def refit_from_Q(states, s, dyn, cost, attrs, Q_b):
+            return evaluate_and_refit(s[:, 0, :].repeat_interleave(K, dim=0), Q_b,
+                                      pack(states.u_prev, dyn, cost, attrs))
+
+        def step(states, s, dyn, cost, attrs, mask, draws=None):
+            if draws is None:
+                draws = self.sample_slot_normals(states.generator, mask)
+            if len(draws) != self.cem_outer_it:
+                raise ValueError(f"{len(draws)} draws for {self.cem_outer_it} outer iterations")
+            pvec_b = pack(states.u_prev, dyn, cost, attrs)
+            s0 = s[:, 0, :].repeat_interleave(K, dim=0)
+            mue, std = states.dist_mue, states.stdev                          # [B, 1, H, U]
+            for z in draws:
+                Q_b = torch.clamp(mue + z * std, low, high)
+                mue, std, elite0, costs = evaluate_and_refit(s0, Q_b, pvec_b)
+            u = elite0[:, 0, :]
+            mue, std = cem_shift_distribution(mue[:, 0], std[:, 0], u_mid, self.cem_stdev_min,
+                                              self.cem_initial_action_stdev, U)
+            new = CEMState(generator=states.generator, dist_mue=mue[:, None], stdev=std[:, None],
+                           count=states.count + 1, u_prev=u)
+            return u, new, costs
+
+        return step, refit_from_Q
 
     def sample_slot_seeds(self, generators, mask) -> torch.Tensor:
         """The batched fused step's draw, K6's seeds ``[cem_outer_it, B]``

@@ -12,9 +12,12 @@ shift left zero-padded.  Gradients come from K7 and the final costs from
 K1 through ``Optimizer._make_grad_and_cost_only``.
 
 Each tick is a draw (``sample_tail``: the fresh tail column) followed by a
-deterministic ``update(state, s, params, tail)``.  Not ported
-(``NotImplementedError``, ROADMAP): the batched-session step and the
-policy warm start.
+deterministic ``update(state, s, params, tail)``.  The batched-mpc
+controller's B-session step (``_make_batched_gradient_step``) takes every
+session's gradients in one launch of a gradient kernel's session-row form
+an Adam iteration and scores them in one of its cost kernel's
+(``kernel_families/batched.py``).  Not ported (``NotImplementedError``,
+ROADMAP): the policy warm start.
 """
 from __future__ import annotations
 
@@ -97,8 +100,62 @@ class GradientOptimizer(Optimizer):
     def _apply_policy_guess(self, state, plan):
         raise _not_ported("initial_guess_policy")
 
-    def _make_batched_gradient_step(self, num_slots: int, **kwargs):
-        raise _not_ported("the batched-session gradient step")
+    def sample_slot_tails(self, generators, mask) -> torch.Tensor:
+        """The batched step's draw, the fresh tail columns ``[B, K, 1, U]``:
+        one from each active slot's generator, zeros for a frozen slot (it
+        draws nothing)."""
+        shape = (self.num_rollouts, 1, self.num_control_inputs)
+        zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        return torch.stack([self._uniform(g, shape) if on else zeros
+                            for g, on in zip(generators, mask)])
+
+    def _make_batched_gradient_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session gradient-tf step for the batched-mpc controller (JAX
+        ``gradient.py:111-194``): RPGD's batched step without the
+        resampling (``RPGDOptimizer._make_batched_rpgd_step``): one launch
+        of the gradient kernel's session-row form an Adam iteration, one of
+        its cost kernel's for the final costs, then per session the
+        argmin's first control, the shift with the slot's fresh tail and
+        the moments' shift.
+
+        Returns ``(step, update)``: ``step(states, s [B,1,S], dyn, cost,
+        attrs, mask [B]) -> (u [B,U], states', costs [B,K])`` over the
+        stacked state, each active slot drawing its tail from its own
+        generator (``sample_slot_tails``); ``update(states, s, dyn, cost,
+        attrs, tails [B,K,1,U])`` is the deterministic part, for tests that
+        feed the JAX draws.  Requires ``warmup=False``."""
+        if self.warmup:
+            raise NotImplementedError(
+                "batched gradient kernel path requires warmup=False (shared Adam-loop trip "
+                "count)")
+        B, K = int(num_slots), self.num_rollouts
+        H, U = self.mpc_horizon, self.num_control_inputs
+        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn)
+        low, high = self.action_low, self.action_high
+        lr, b1, b2, eps = self.learning_rate, self.adam_beta_1, self.adam_beta_2, self.adam_epsilon
+        gclip = self.gradmax_clip
+
+        def update(states: GradientState, s, dyn, cost, attrs, tails):
+            pvec_b = pack(states.u_prev, dyn, cost, attrs)
+            s0 = s[:, 0, :].repeat_interleave(K, dim=0)                      # [B*K, S]
+            Q, adam = adam_descent(
+                states.Q, states.adam,
+                lambda Q: gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)[1].reshape(B, K, H, U),
+                self.gradient_steps, lr, b1, b2, eps, gclip, low, high)
+            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)             # [B, K]
+            best = torch.argmin(costs, dim=1)
+            u = torch.take_along_dim(Q[:, :, 0, :], best[:, None, None], dim=1)[:, 0]
+            new_state = GradientState(
+                generator=states.generator, Q=torch.cat([Q[:, :, 1:, :], tails], dim=2),
+                adam=shift_adam_moments(adam), count=states.count + 1, u_prev=u,
+            )
+            return u, new_state, costs
+
+        def step(states, s, dyn, cost, attrs, mask):
+            return update(states, s, dyn, cost, attrs,
+                          self.sample_slot_tails(states.generator, mask))
+
+        return step, update
 
     def _make_step_fn(self):
         K = self.num_rollouts

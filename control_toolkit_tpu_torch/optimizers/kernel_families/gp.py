@@ -9,16 +9,21 @@ that subtree is another object, as ``MPCController._assemble_params``
 places a re-fit's.  So a re-fit posterior never rebuilds.  The JAX gates' TPU conjuncts (VMEM tile budgets) have no
 counterpart: K is masked in the kernels, and the wrappers raise on a GP
 whose inducing points exceed a block's shared memory.  K14's session-row
-form serves the batched-mpc fleet (``MPPIOptimizer._make_batched_gp_step``,
-over ``cached_operands``).  Not ported: K10's ``slot_keys`` and the
+form serves the batched-mpc MPPI fleet
+(``MPPIOptimizer._make_batched_gp_step``, over ``cached_operands``), K10's
+and K14's its gradient fleets (``batched_kernels``).  Not ported: the
 learned-terminal (``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 
 from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import gp_grad_cost_rollout
-from control_toolkit_tpu_torch.ops.gp_rollout import flatten_gp_weights, gp_cost_rollout
+from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
+    gp_grad_cost_rollout, gp_grad_cost_rollout_cols,
+)
+from control_toolkit_tpu_torch.ops.gp_rollout import (
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols,
+)
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
 
 name = "gp"
@@ -83,3 +88,15 @@ def build_grad(opt):
                                     operands(params["dyn"]["gp"]))
 
     return grad_fn
+
+
+def batched_kernels(opt):
+    """The session-row forms for a B-session fleet over the GP (JAX
+    ``gp.py:174``): ``(grad, cost, extra, param_keys)`` over K10's and
+    K14's forms, the GP's operands flattened from ``dyn["gp"]`` once a
+    posterior (``cached_operands``: a hot-swap rebuilds nothing)."""
+    model, _ = gp_model(opt)
+    operands = cached_operands()
+    return (lambda *a: gp_grad_cost_rollout_cols(model, *a),
+            lambda *a: gp_cost_rollout_cols(model, *a), lambda dyn: (operands(dyn["gp"]),),
+            model.param_keys)

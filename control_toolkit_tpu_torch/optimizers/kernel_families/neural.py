@@ -12,11 +12,11 @@ counterpart: K is masked in the kernels and the wrappers raise on a net
 whose weights exceed a block's shared memory.  The net's tensors, and a
 recurrent net's live hidden, are read from ``params["dyn"]`` every call,
 so a checkpoint swap or an advanced hidden needs no rebuild.  The
-session-row forms of K11 and K13 serve the batched-mpc fleet
+session-row forms of K11 and K13 serve the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_neural_step`` and
-``_make_batched_recurrent_step``).  Not ported: the ensemble
-(``n_members``), K8's ``slot_keys`` and the learned-terminal
-(``emit_terminal``, ``value_spec``) forms.
+``_make_batched_recurrent_step``), K8's and K11's its gradient fleets
+(``batched_kernels``).  Not ported: the ensemble (``n_members``) and the
+learned-terminal (``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 
@@ -24,9 +24,11 @@ import torch
 
 from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
+    neural_grad_cost_rollout, neural_grad_cost_rollout_cols,
+)
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    neural_cost_rollout, recurrent_cost_rollout,
+    neural_cost_rollout, neural_cost_rollout_cols, recurrent_cost_rollout,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
 
@@ -91,3 +93,14 @@ def build_grad(opt):
                                         params["dyn"]["net"])
 
     return grad_fn
+
+
+def batched_kernels(opt):
+    """The session-row forms for a B-session fleet over an MLP (JAX
+    ``neural.py:218``): ``(grad, cost, extra, param_keys)`` over K8's and
+    K11's forms, the net's weights read from ``dyn["net"]`` at every call
+    (shared by the sessions: a checkpoint swap rebuilds nothing)."""
+    model, _ = net_model(opt)
+    return (lambda *a: neural_grad_cost_rollout_cols(model, *a),
+            lambda *a: neural_cost_rollout_cols(model, *a), lambda dyn: (dyn["net"],),
+            model.param_keys)

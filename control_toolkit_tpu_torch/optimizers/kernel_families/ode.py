@@ -8,10 +8,12 @@ and ``force_scan`` off; the gradient gate adds a plant with hand-written
 adjoints (``ops/adjoints.py`` PLANT_ADJOINTS).  The JAX gates' TPU
 conjuncts (backend, ``K % tile``, ``grad_tile_for``, VMEM budgets) have no
 counterpart: K is masked in the kernels, and on CPU tensors the kernel
-wrappers run their plain versions.  Not ported: the gradient kernel's
-``value_spec`` (an in-kernel learned value terminal) and ``slot_keys``
-(the batched-session columns form); ``compatible_model`` refuses a
-``post_terminal_cost``, so neither is reachable.
+wrappers run their plain versions.  The session-row (``slot_keys``) forms
+of K7 and K1 serve the batched-mpc gradient fleets (``batched_kernels``,
+bound by ``kernel_families/batched.py``) and K1's the modular batched CEM
+step.  Not ported: the gradient kernel's ``value_spec`` (an in-kernel
+learned value terminal); ``compatible_model`` refuses a
+``post_terminal_cost``, so it is not reachable.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
-from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout
-from control_toolkit_tpu_torch.ops.grad_cost_rollout import grad_cost_rollout
+from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_cols
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
+    grad_cost_rollout, grad_cost_rollout_cols,
+)
 
 name = "ode"
 
@@ -100,3 +104,14 @@ def build_grad(opt):
         return grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev))
 
     return grad_fn
+
+
+def batched_kernels(opt):
+    """The session-row forms for a B-session fleet (JAX ``ode.py:167``):
+    ``(grad, cost, extra, param_keys)`` with ``grad(s0 [B*K,S], Q
+    [B*K,H,U], pvec_b [B,N], *extra(dyn)) -> (cost [B,K], dQ)`` over K7's
+    form, ``cost(...) -> [B,K]`` over K1's, no extra operands (the
+    dynamics constants ride in ``pvec_b``) and the packed layout."""
+    model, _ = rollout_model(opt)
+    return (lambda *a: grad_cost_rollout_cols(model, *a),
+            lambda *a: cost_rollout_cols(model, *a), lambda dyn: (), model.param_keys)

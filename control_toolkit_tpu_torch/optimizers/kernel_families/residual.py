@@ -12,16 +12,21 @@ the packed vector (``Optimizer._soa_bindings`` reads them from
 rebuilds.  The JAX gates' TPU conjuncts have no counterpart: K is masked
 in the kernels.  K12's session-row form serves the batched-mpc fleet
 (``MPPIOptimizer._make_batched_residual_step``, ``per_slot_dyn`` over the
-base's constants).  Not ported: K9's ``slot_keys`` and the
-learned-terminal (``emit_terminal``, ``value_spec``) forms.
+base's constants), K9's and K12's its gradient fleets
+(``batched_kernels``).  Not ported: the learned-terminal
+(``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 
 from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
-from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import residual_grad_cost_rollout
-from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout
+from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
+    residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
+)
+from control_toolkit_tpu_torch.ops.residual_rollout import (
+    residual_cost_rollout, residual_cost_rollout_cols,
+)
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
 
 name = "residual"
@@ -81,3 +86,15 @@ def build_grad(opt):
                                           params["dyn"]["res"])
 
     return grad_fn
+
+
+def batched_kernels(opt):
+    """The session-row forms for a B-session fleet over ``"ODE+res"`` (JAX
+    ``residual.py:176``): ``(grad, cost, extra, param_keys)`` over K9's and
+    K12's forms, the base's constants in ``pvec_b`` (``per_slot_dyn`` among
+    them) and the residual's weights read from ``dyn["res"]`` at every
+    call (an online-sysid install rebuilds nothing)."""
+    model, _ = residual_model(opt)
+    return (lambda *a: residual_grad_cost_rollout_cols(model, *a),
+            lambda *a: residual_cost_rollout_cols(model, *a), lambda dyn: (dyn["res"],),
+            model.param_keys)

@@ -18,8 +18,12 @@ can feed both packages the same random numbers.  The tick counter and
 Adam's step are host ints, so the resample tick and the warmup trip
 count are host decisions and a step reads nothing back from the device.
 
-Not ported (``NotImplementedError``, ROADMAP): the batched-session step
-(``_make_batched_rpgd_step``), the policy warm start
+The batched-mpc controller's B-session step (``_make_batched_rpgd_step``)
+takes every session's gradients in one launch of a gradient kernel's
+session-row form an Adam iteration and scores them in one of its cost
+kernel's (``kernel_families/batched.py``).
+
+Not ported (``NotImplementedError``, ROADMAP): the policy warm start
 (``_apply_policy_guess``) and ``calculate_optimal_trajectory``.
 """
 from __future__ import annotations
@@ -51,21 +55,46 @@ class RPGDState(NamedTuple):
 def rpgd_resample_surgery(Qn, m, v, ages, best_idx, Qres):
     """Resample tick: fresh sequences replace the non-elites ([Qres,
     Q_keep] order), the elites' moments are gathered and shifted left with
-    zero tails, fresh rows get zero moments and age zero."""
-    K, H, U = Qn.shape
-    n_res = Qres.shape[0]
-    Q_new = torch.cat([Qres, Qn[best_idx]], dim=0)
-    ages_new = torch.cat([torch.zeros(n_res, dtype=ages.dtype, device=ages.device),
-                          ages[best_idx]], dim=0)
-    zeros_rows = torch.zeros((n_res, H, U), dtype=m.dtype, device=m.device)
-    m_new = torch.cat([zeros_rows, shift_rows(m[best_idx])], dim=0)
-    v_new = torch.cat([zeros_rows, shift_rows(v[best_idx])], dim=0)
+    zero tails, fresh rows get zero moments and age zero.  Over one
+    session's ``[K, H, U]`` or, with a leading session axis on every
+    operand, a fleet's."""
+    keep = best_idx[..., None, None]
+
+    def gather(M):
+        return torch.take_along_dim(M, keep, dim=-3)
+
+    zeros_rows = torch.zeros(Qres.shape, dtype=m.dtype, device=m.device)
+    Q_new = torch.cat([Qres, gather(Qn)], dim=-3)
+    ages_new = torch.cat([torch.zeros(Qres.shape[:-2], dtype=ages.dtype, device=ages.device),
+                          torch.take_along_dim(ages, best_idx, dim=-1)], dim=-1)
+    m_new = torch.cat([zeros_rows, shift_rows(gather(m))], dim=-3)
+    v_new = torch.cat([zeros_rows, shift_rows(gather(v))], dim=-3)
     return Q_new, m_new, v_new, ages_new
 
 
 def rpgd_keep_surgery(m, v):
     """Non-resample tick: shift every moment row left."""
     return shift_rows(m), shift_rows(v)
+
+
+def spread_penalty_grad(Q: torch.Tensor, alpha: float) -> torch.Tensor:
+    """The gradient of the max-entropy penalty ``-alpha/2 * sum_{h,u}
+    log(var_k Q[k,h,u] + 1e-8)`` of one population ``[K,H,U]``, or of each
+    session's in a fleet's ``[B,K,H,U]`` (the population variance, as
+    ``jnp.var``)."""
+    with torch.enable_grad():
+        Qv = Q.detach().requires_grad_(True)
+        pen = -0.5 * alpha * torch.sum(torch.log(torch.var(Qv, dim=-3, correction=0) + 1e-8))
+        (g,) = torch.autograd.grad(pen, Qv)
+    return g
+
+
+def stack_draws(draws: list):
+    """Slots' resample draws stacked on a new leading axis (a particle
+    draw's parts each)."""
+    if isinstance(draws[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*draws))
+    return torch.stack(draws)
 
 
 @registry.optimizers.register("rpgd-tf")
@@ -163,7 +192,9 @@ class RPGDOptimizer(Optimizer):
         return self._draw_actions(generator, n)
 
     def _resample(self, draw, Q, cost, n: int) -> torch.Tensor:
-        """The ``n`` fresh sequences of a resample tick, from its draw."""
+        """The ``n`` fresh sequences of a resample tick, from its draw (of
+        one session, or stacked over sessions with ``Q [B,K,H,U]`` and
+        ``cost [B,K]``)."""
         del Q, cost, n
         return self._actions_from_draw(draw)
 
@@ -187,8 +218,90 @@ class RPGDOptimizer(Optimizer):
     def _apply_policy_guess(self, state, plan):
         raise _not_ported("initial_guess_policy")
 
-    def _make_batched_rpgd_step(self, num_slots: int, **kwargs):
-        raise _not_ported("the batched-session RPGD step")
+    def sample_slot_resample(self, states: RPGDState, mask) -> list:
+        """The batched step's draws, one a slot: slot b's resample draw
+        where it is active (``mask``) on its resample tick, else None (a
+        frozen slot draws nothing)."""
+        n = self.num_rollouts - self.opt_keep_k
+        return [self._draw_resample(g, n) if on and count % self.resamp_per == 0 else None
+                for g, count, on in zip(states.generator, states.count, mask)]
+
+    def _make_batched_rpgd_step(self, num_slots: int, per_slot_dyn=()):
+        """B-session RPGD step for the batched-mpc controller (JAX
+        ``rpgd.py:214-336``): each Adam iteration takes every session's
+        gradients in one launch of the gradient kernel's session-row form,
+        and the final scoring is one launch of its cost kernel's
+        (``_bind_batched_grad_kernels``: K7/K1 over an ODE, K8/K11 over an
+        MLP, K9/K12 over ``"ODE+res"``, K10/K14 over a GP).  The Adam update
+        (per-session counters), the per-rollout clip, the entropy bonus's
+        gradient, each session's elites, the shift, each resampling slot's
+        ``_resample`` (``rpgd-particle``'s pick included) and the moment
+        surgery run as torch ops on the stacked ``[B, K, H, U]`` state, the
+        surgery a per-session choice on each slot's own resample tick.
+
+        Returns ``(step, update)``: ``step(states, s [B,1,S], dyn, cost,
+        attrs, mask [B]) -> (u [B,U], states', costs [B,K])`` over the
+        stacked state (``generator`` a tuple of the slots' generators,
+        ``count`` and ``adam.step`` numpy ``[B]``), each active slot on its
+        resample tick drawing from its own generator
+        (``sample_slot_resample``); ``update(states, s, dyn, cost, attrs,
+        draws)`` is the deterministic part, ``draws`` one entry a slot (its
+        draw, or None), for tests that feed the JAX draws.  A slot on its
+        resample tick without a draw is a frozen one: it keeps its
+        population's rows, and the caller discards its result.  Requires
+        ``warmup=False`` (one Adam trip count for all sessions)."""
+        if self.warmup:
+            raise NotImplementedError(
+                "batched RPGD kernel path requires warmup=False (shared Adam-loop trip "
+                "count); warmup sessions take the vmapped scan path")
+        B, K = int(num_slots), self.num_rollouts
+        H, U = self.mpc_horizon, self.num_control_inputs
+        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn)
+        low, high = self.action_low, self.action_high
+        keep_k, shift = self.opt_keep_k, self.shift_previous
+        lr, b1, b2, eps = self.learning_rate, self.adam_beta_1, self.adam_beta_2, self.adam_epsilon
+        gclip, alpha = self.gradmax_clip, self.maximum_entropy_alpha
+
+        def update(states: RPGDState, s, dyn, cost, attrs, draws):
+            pvec_b = pack(states.u_prev, dyn, cost, attrs)
+            s0 = s[:, 0, :].repeat_interleave(K, dim=0)                      # [B*K, S]
+
+            def grad(Q):
+                dQ = gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)[1].reshape(B, K, H, U)
+                return dQ + spread_penalty_grad(Q, alpha) if alpha > 0.0 else dQ
+
+            Q, adam = adam_descent(states.Q, states.adam, grad, self.outer_its, lr, b1, b2, eps,
+                                   gclip, low, high)
+            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)             # [B, K]
+            best_idx = elite_indices(costs, keep_k)                            # [B, keep_k]
+            u = torch.take_along_dim(Q, best_idx[:, :1, None, None], dim=1)[:, 0, 0, :]
+            Qn = torch.cat([Q[:, :, shift:, :], Q[:, :, -1:, :].expand(B, K, shift, U)], dim=2)
+            m, v = rpgd_keep_surgery(adam.m, adam.v)
+            ages = states.trajectory_ages
+            slots = [b for b, d in enumerate(draws) if d is not None]
+            wrong = [b for b in slots if states.count[b] % self.resamp_per != 0]
+            if wrong:
+                raise ValueError(f"slots {wrong}: a draw off their resample tick (every "
+                                 f"{self.resamp_per})")
+            if slots:
+                sel = torch.as_tensor(slots, device=Q.device)
+                Qres = self._resample(stack_draws([draws[b] for b in slots]), Qn[sel],
+                                      costs[sel], K - keep_k)
+                Q_r, m_r, v_r, ages_r = rpgd_resample_surgery(
+                    Qn[sel], adam.m[sel], adam.v[sel], ages[sel], best_idx[sel], Qres)
+                Qn, m, v = Qn.index_copy(0, sel, Q_r), m.index_copy(0, sel, m_r), \
+                    v.index_copy(0, sel, v_r)
+                ages = ages.index_copy(0, sel, ages_r)
+            new_state = RPGDState(
+                generator=states.generator, Q=Qn, adam=AdamState(adam.step, m, v),
+                trajectory_ages=ages + 1.0, count=states.count + 1, u_prev=u,
+            )
+            return u, new_state, costs
+
+        def step(states, s, dyn, cost, attrs, mask):
+            return update(states, s, dyn, cost, attrs, self.sample_slot_resample(states, mask))
+
+        return step, update
 
     # ---- the step -----------------------------------------------------------
     def _make_step_fn(self):
@@ -200,17 +313,9 @@ class RPGDOptimizer(Optimizer):
         alpha = self.maximum_entropy_alpha
         base_grad, cost_only = self._make_grad_and_cost_only()
 
-        def spread_penalty_grad(Q):
-            # Population (not sample) variance, as jnp.var.
-            with torch.enable_grad():
-                Qv = Q.detach().requires_grad_(True)
-                pen = -0.5 * alpha * torch.sum(torch.log(torch.var(Qv, dim=0, correction=0) + 1e-8))
-                (g,) = torch.autograd.grad(pen, Qv)
-            return g
-
         def grad_fn(Q, s_tiled, u_prev, params):
             dQ = base_grad(Q, s_tiled, u_prev, params)
-            return dQ + spread_penalty_grad(Q) if alpha > 0.0 else dQ
+            return dQ + spread_penalty_grad(Q, alpha) if alpha > 0.0 else dQ
 
         def update(state: RPGDState, s, params, draw=None):
             resample = state.count % self.resamp_per == 0
@@ -297,13 +402,16 @@ class RPGDParticleOptimizer(RPGDOptimizer):
 
     def pick(self, cost: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
         """The population index of each uniform in [0, 1): the first whose
-        cumulative weight exceeds it."""
-        weights = torch.softmax(-(cost - torch.min(cost)) / self.particle_temperature, dim=0)
-        cdf = torch.cumsum(weights, dim=0)
-        idx = torch.searchsorted(cdf, uniforms * cdf[-1], right=True)
-        return torch.clamp(idx, max=cost.shape[0] - 1)
+        cumulative weight exceeds it (over the last axis: one session's
+        ``cost [K]`` and ``uniforms [n]``, or each session's)."""
+        low = torch.amin(cost, dim=-1, keepdim=True)
+        weights = torch.softmax(-(cost - low) / self.particle_temperature, dim=-1)
+        cdf = torch.cumsum(weights, dim=-1)
+        idx = torch.searchsorted(cdf, uniforms * cdf[..., -1:], right=True)
+        return torch.clamp(idx, max=cost.shape[-1] - 1)
 
     def _resample(self, draw, Q, cost, n: int) -> torch.Tensor:
         uniforms, jitter = draw
-        resampled = Q[self.pick(cost, uniforms)] + self.interp.interpolate(jitter)
+        picked = torch.take_along_dim(Q, self.pick(cost, uniforms)[..., None, None], dim=-3)
+        resampled = picked + self.interp.interpolate(jitter)
         return torch.clamp(resampled, self.action_low, self.action_high)

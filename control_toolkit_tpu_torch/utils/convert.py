@@ -105,3 +105,46 @@ def gradient_state_from_numpy(Q, m, v, adam_step, count, u_prev, generator: torc
     return GradientState(generator=generator, Q=_tensor(Q, device),
                          adam=_adam(m, v, adam_step, device), count=int(count),
                          u_prev=_tensor(u_prev, device))
+
+
+def _slot_adam(m, v, adam_step, device):
+    from control_toolkit_tpu_torch.ops.common import AdamState
+
+    return AdamState(step=np.asarray(adam_step, np.int64).reshape(-1), m=_tensor(m, device),
+                     v=_tensor(v, device))
+
+
+def _slot_device(generators) -> torch.device:
+    return next((g.device for g in generators if g is not None), torch.device("cpu"))
+
+
+def rpgd_slot_states_from_numpy(Q, m, v, adam_step, ages, count, u_prev, generators):
+    """A batched-mpc RPGD fleet's stacked ``RPGDState`` from the JAX fleet's
+    ``Q [B,K,H,U]``, Adam moments and per-session steps ``[B]``,
+    ``trajectory_ages [B,K]``, tick counts ``[B]`` and ``u_prev [B,U]``;
+    ``generators`` holds the B slots' generators (or ``None`` each, where
+    only ``update`` runs), the tensors go to the first one's device or the
+    CPU."""
+    from control_toolkit_tpu_torch.optimizers.rpgd import RPGDState
+
+    device = _slot_device(generators)
+    return RPGDState(generator=tuple(generators), Q=_tensor(Q, device),
+                     adam=_slot_adam(m, v, adam_step, device),
+                     trajectory_ages=_tensor(ages, device),
+                     count=np.asarray(count, np.int64).reshape(-1),
+                     u_prev=_tensor(u_prev, device))
+
+
+def gradient_slot_states_from_numpy(Q, m, v, adam_step, count, u_prev, generators):
+    """A batched-mpc gradient-tf fleet's stacked ``GradientState`` from the
+    JAX fleet's population ``[B,K,H,U]``, Adam moments and per-session
+    steps, tick counts ``[B]`` and ``u_prev [B,U]``; ``generators`` as
+    ``rpgd_slot_states_from_numpy``'s."""
+    from control_toolkit_tpu_torch.optimizers.gradient import GradientState
+
+    device = _slot_device(generators)
+    return GradientState(generator=tuple(generators), Q=_tensor(Q, device),
+                         adam=_slot_adam(m, v, adam_step, device),
+                         count=np.asarray(count, np.int64).reshape(-1),
+                         u_prev=_tensor(u_prev, device))
+

@@ -250,14 +250,18 @@ def test_fused_gate():
 
 
 def test_unported_cem_features_raise():
-    """The modular batched step and the policy warm start raise; the fused
-    batched step (K6) builds."""
+    """The policy warm start raises; the modular (K1's session rows) and the
+    fused (K6) batched steps build, and with warmup on raise."""
     _, pctrl = make_pair(**cem_config())
     opt = pctrl.optimizer
-    with pytest.raises(NotImplementedError):
-        opt._make_batched_cem_step(2)
-    step, update = opt._make_batched_fused_cem_step(2)
-    assert callable(step) and callable(update)
+    for build in (opt._make_batched_cem_step, opt._make_batched_fused_cem_step):
+        step, other = build(2)
+        assert callable(step) and callable(other)
+    opt.warmup = True
+    for build in (opt._make_batched_cem_step, opt._make_batched_fused_cem_step):
+        with pytest.raises(NotImplementedError, match="warmup=False"):
+            build(2)
+    opt.warmup = False
     with pytest.raises(NotImplementedError):
         opt._apply_policy_guess(opt.opt_state, None)
 

@@ -370,8 +370,10 @@ def test_unported_batched_configurations_raise(kind):
         "force_scan": lambda: fleet(force_scan=True),
         "logging": lambda: fleet(controller_logging=True),
         "mesh": lambda: fleet(mesh=object()),
-        "rpgd-tf": lambda: fleet(optimizer="rpgd-tf", per_slot_dyn=()),
-        "gradient-tf": lambda: fleet(optimizer="gradient-tf", per_slot_dyn=()),
+        # The gradient fleets are served (tests/test_torch_fleet_grad.py);
+        # with warmup on they take the JAX package's vmapped per-slot step.
+        "rpgd-tf": lambda: fleet(optimizer="rpgd-tf", per_slot_dyn=(), warmup=True),
+        "gradient-tf": lambda: fleet(optimizer="gradient-tf", per_slot_dyn=(), warmup=True),
         "cem-modular": lambda: fleet(optimizer="cem-tf", per_slot_dyn=()),
     }
     if kind in builds:

@@ -393,11 +393,13 @@ def test_gates_choose_each_models_step(specs, case):
                                   "bounded_update", "per_slot_dyn_mlp", "per_slot_dyn_gru",
                                   "per_slot_dyn_gp"])
 def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
-    """A learned value terminal (the emit_terminal forms), the batched RPGD
-    and gradient steps (the slot_keys forms of K7-K10), the vmapped per-slot
-    step (force_scan, a variant's update) raise NotImplementedError naming
-    the piece; ``per_slot_dyn`` over a net or a GP, which have no scalar
-    dynamics constants, is a ValueError as in the JAX package."""
+    """A learned value terminal (the emit_terminal forms) and the vmapped
+    per-slot step (force_scan, a variant's update, an RPGD fleet over a
+    recurrent net, a gradient fleet with warmup; the gradient fleets are
+    otherwise served, tests/test_torch_fleet_grad.py) raise
+    NotImplementedError naming the piece; ``per_slot_dyn`` over a net or a
+    GP, which have no scalar dynamics constants, is a ValueError as in the
+    JAX package."""
     if kind.startswith("per_slot_dyn"):
         with pytest.raises(ValueError, match="not a scalar dynamics constant"):
             fleet(specs[kind.rsplit("_", 1)[1]], 2, ("L",))
@@ -412,8 +414,9 @@ def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
             ctrl.optimizer._make_batched_neural_step(2)
         return
     build, match = {
-        "rpgd-tf": (lambda: fleet(specs["mlp"], 2, optimizer="rpgd-tf"), "RPGD"),
-        "gradient-tf": (lambda: fleet(specs["gp"], 2, optimizer="gradient-tf"), "gradient"),
+        "rpgd-tf": (lambda: fleet(specs["gru"], 2, optimizer="rpgd-tf"), "rpgd-tf"),
+        "gradient-tf": (lambda: fleet(specs["gp"], 2, optimizer="gradient-tf", warmup=True),
+                        "gradient-tf with warmup"),
         "force_scan": (lambda: fleet(specs["gru"], 2, force_scan=True), "vmapped"),
         "bounded_update": (lambda: fleet(specs["residual"], 2, bounded_update=True), "vmapped"),
     }[kind]

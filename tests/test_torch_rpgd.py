@@ -366,6 +366,9 @@ def test_gradient_path_gate_and_autograd_fallback():
 
 
 def test_registered_names_resolve_and_batched_steps_raise():
+    """The names resolve; the batched steps build (tests/test_torch_fleet_grad.py
+    holds them to the JAX package's) and, with warmup on, raise; the policy
+    warm start raises."""
     names = ("rpgd-tf", "rpgd", "dist-adam-resamp2-tf", "rpgd-me-tf", "rpgd-me-param-tf",
              "rpgd-ml-tf", "rpgd-particle-tf", "gradient-tf", "gradient")
     for name in names:
@@ -375,10 +378,16 @@ def test_registered_names_resolve_and_batched_steps_raise():
         assert import_controller_by_name(name) is MPCController
     _, rctrl = make_pair("rpgd-tf", rpgd_config(num_rollouts=32, mpc_horizon=8))
     _, gctrl = make_pair("gradient-tf", gradient_config(num_rollouts=32, mpc_horizon=8))
-    with pytest.raises(NotImplementedError):
-        rctrl.optimizer._make_batched_rpgd_step(2)
-    with pytest.raises(NotImplementedError):
-        gctrl.optimizer._make_batched_gradient_step(2)
+    for build in (rctrl.optimizer._make_batched_rpgd_step,
+                  gctrl.optimizer._make_batched_gradient_step):
+        step, update = build(2)
+        assert callable(step) and callable(update)
+    for opt, build in ((rctrl.optimizer, rctrl.optimizer._make_batched_rpgd_step),
+                       (gctrl.optimizer, gctrl.optimizer._make_batched_gradient_step)):
+        opt.warmup = True
+        with pytest.raises(NotImplementedError, match="warmup=False"):
+            build(2)
+        opt.warmup = False
     with pytest.raises(NotImplementedError):
         rctrl.optimizer._apply_policy_guess(rctrl.optimizer.opt_state, None)
     with pytest.raises(NotImplementedError):
