@@ -241,6 +241,33 @@ or K14's:
     on the CPU, with the same draws;
 48. each gradient fleet timed at 32 and 128 sessions, as phase 40.
 
+The PETS ensemble (bench_scale.py:499 build_ensemble_mppi and :1419's
+rpgd-tf, seed 3): MPPI and rpgd-tf over the committed bootstrap ensemble
+of four mlp-32-32 members (control_toolkit_tpu_torch/assets/cartpole/
+ensemble-mlp-32-32-x4.npz, predictor specification
+"ensemble:mlp-32-32:4:<assets>"), PETS TS-inf blockwise, on the
+member-block (n_members) forms of K11 and K8:
+49. K11's member-block form (neural_cost_rollout_ens) against its plain
+    version at K=16384, H=50, E=4, each member's block of 4,096 rollouts
+    equal, bit for bit, to K11 over that block under the member's net, E=1
+    equal to K11, the cost bound against every block reading member 0's
+    weights and each block reading the next member's; also at a ragged K/E
+    (1,200 rollouts, 300 a member), over a seeded ensemble of 8 members with
+    norms, a seeded one without norms and in absolute form over two
+    members; its registers, spills, shared memory, blocks an SM, HMMA
+    count and bounds beside K11's registers (``k11_ens_*``);
+50. K8's member-block form (neural_grad_cost_rollout_ens) likewise, against
+    autograd through the plain member-block loop, J to NET_TOL and dQ to
+    K7's bound (``k8_ens_*``);
+51. 200 closed-loop MPPI ticks (one K11 form a tick) and 200 rpgd-tf ticks
+    (two K8 forms and one K11 form) over the ensemble from
+    CartpoleEnv(seed=0)'s start, the pole counted, not required;
+52. one update of each on the card against the same update on the CPU;
+53. 20 MPPI ticks with robust_eval "worst" (every plan under every member,
+    plain torch on the card: no kernel) and 20 with risk_weight 0.1 (the
+    K11 form plus the members' disagreement), each with one update against
+    the CPU's.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -253,7 +280,8 @@ rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
-icem; the fleet paths at both sizes of phases 40, 44 and 48), printing per tick the
+icem; MPPI and rpgd-tf over the ensemble; the fleet paths at both sizes
+of phases 40, 44 and 48), printing per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
 
@@ -330,13 +358,15 @@ from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
 )
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
+    neural_grad_cost_rollout_ens, neural_grad_cost_rollout_ens_plain,
     neural_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_cols,
-    neural_cost_rollout_cols_plain, neural_cost_rollout_plain, neural_cost_rollout_warps,
-    plain_cost_loop, recurrent_cost_rollout, recurrent_cost_rollout_cols,
-    recurrent_cost_rollout_cols_plain, recurrent_cost_rollout_plain,
+    neural_cost_rollout_cols_plain, neural_cost_rollout_ens, neural_cost_rollout_ens_plain,
+    neural_cost_rollout_plain, neural_cost_rollout_warps, plain_cost_loop,
+    recurrent_cost_rollout, recurrent_cost_rollout_cols, recurrent_cost_rollout_cols_plain,
+    recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
@@ -348,7 +378,9 @@ from control_toolkit_tpu_torch.ops.residual_rollout import (
 )
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import refit
-from control_toolkit_tpu_torch.optimizers.kernel_families import gp, neural, ode, residual
+from control_toolkit_tpu_torch.optimizers.kernel_families import (
+    ensemble, gp, neural, ode, residual,
+)
 from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, rpgd_state_from_numpy
 from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
@@ -409,7 +441,9 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "grad_cost_rollout_cols": grad_cost_rollout_cols,
            "neural_grad_cost_rollout_cols": neural_grad_cost_rollout_cols,
            "residual_grad_cost_rollout_cols": residual_grad_cost_rollout_cols,
-           "gp_grad_cost_rollout_cols": gp_grad_cost_rollout_cols}
+           "gp_grad_cost_rollout_cols": gp_grad_cost_rollout_cols,
+           "neural_cost_rollout_ens": neural_cost_rollout_ens,
+           "neural_grad_cost_rollout_ens": neural_grad_cost_rollout_ens}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -607,6 +641,20 @@ GRAD_COLS_B, GRAD_COLS_KS, GRAD_COLS_SHAPES = 32, 100, ((128, 32), (32, 512))
 # and the session-row form (Rows true), as their mangled names end.
 SINGLE, ROWS_FORM = "Lb0E", "Lb1E"
 GRAD_FLEET_TICKS, GRAD_FLEET_SWAP_AT = 50, 25
+# The PETS ensemble (bench_scale.py:499 build_ensemble_mppi, used at :1307,
+# and :1419's rpgd-tf, both seed 3): MPPI (SQRTRHOINV 0.05) and rpgd-tf
+# over the committed bootstrap ensemble of four mlp-32-32 members
+# (ensemble-mlp-32-32-x4.npz, fitted by the JAX package), K=16384, H=50,
+# from CartpoleEnv(seed=0)'s start: one launch of K11's member-block form
+# a tick (rpgd-tf: two of K8's and one of K11's).  The forms are also held
+# at ENS_RAGGED_K rollouts over the four members (300 a member: not a
+# multiple of 16 or of a block), at E=1, over a seeded ensemble of
+# ENS_MANY members with norms, without norms and in absolute form; MPPI
+# also runs ENS_OPTION_TICKS with robust_eval "worst" and with
+# risk_weight ENS_RISK.
+ENS_SPEC = f"ensemble:mlp-32-32:4:{ASSETS}"
+ENS_TICKS, ENS_RPGD_TICKS, ENS_OPTION_TICKS = 200, 200, 20
+ENS_RAGGED_K, ENS_MANY, ENS_RISK = 1200, 8, 0.1
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -1240,11 +1288,11 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
     return numbers
 
 
-def wide_net(norms: bool, scale: float, device, hiddens=WIDE_HIDDENS) -> dict:
+def wide_net(norms: bool, scale: float, device, hiddens=WIDE_HIDDENS, seed=WIDE_SEED) -> dict:
     """A seeded MLP [S+U, *hiddens, S] (by default WIDE_HIDDENS, wider than
     the gradient kernels' register path): weights ``scale`` N(0, 1) /
     sqrt(fan-in), biases 0.1 N(0, 1), and (``norms``) norm layers."""
-    gen = torch.Generator(device=device).manual_seed(WIDE_SEED)
+    gen = torch.Generator(device=device).manual_seed(seed)
     dims = [5, *hiddens, 4]
     net = {}
     for i, (a, b) in enumerate(zip(dims, dims[1:])):
@@ -3380,6 +3428,192 @@ def grad_fleet_draw(ctrl: BatchedMPCController):
         st._replace(generator=gens, count=np.zeros_like(st.count)), mask)
 
 
+# ---- the PETS ensemble ------------------------------------------------------------
+def member_net(net: dict, e: int) -> dict:
+    """Member ``e`` of a stacked ensemble, as a single net."""
+    return {k: v[e].contiguous() for k, v in net.items()}
+
+
+def stacked(nets) -> dict:
+    """Single nets of one architecture stacked on a leading member axis."""
+    return {k: torch.stack([n[k] for n in nets]).contiguous() for k in nets[0]}
+
+
+def ens_mutants(net: dict) -> dict:
+    """A wrong member-block form's weights: every block reading member 0's
+    (``all_member_0``), and each block reading the next member's
+    (``next_member``)."""
+    E = net["w0"].shape[0]
+    return {"all_member_0": stacked([member_net(net, 0)] * E),
+            "next_member": {k: v.roll(-1, 0).contiguous() for k, v in net.items()}}
+
+
+def ens_cases(model, s0, Q, net) -> dict:
+    """The member-block forms' further cases, ``(model, s0, Q, net)`` each:
+    a ragged K/E (ENS_RAGGED_K rollouts over the net's members), E=1 (member
+    0), a seeded ensemble of ENS_MANY mlp-32-32 members with norms, a seeded
+    one of the net's E members without norms (weights at scale
+    RES_WIDE_SCALE: the committed members' deltas need their norms), and the
+    absolute form (predict_delta off) over two members
+    (tests/test_pallas_neural.py:215-250's cases)."""
+    E = net["w0"].shape[0]
+    seeded = stacked([wide_net(True, 1.0, s0.device, (32, 32), WIDE_SEED + e)
+                      for e in range(ENS_MANY)])
+    bare = stacked([wide_net(False, RES_WIDE_SCALE, s0.device, (32, 32), WIDE_SEED + e)
+                    for e in range(E)])
+    return {f"K{ENS_RAGGED_K}_E{E}": (model, *first_k(ENS_RAGGED_K, s0, Q), net),
+            "E1": (model, s0, Q, stacked([member_net(net, 0)])),
+            f"E{ENS_MANY}_seeded_norms": (model, s0, Q, seeded),
+            f"E{E}_seeded_no_norms": (model, s0, Q, bare),
+            "absolute_E2": (dataclasses.replace(model, predict_delta=False), s0, Q,
+                            {k: v[:2].contiguous() for k, v in net.items()})}
+
+
+def member_blocks_equal(form, single, model, s0, Q, pvec, net) -> list:
+    """For each member e: the form's outputs over block e of the K rollouts
+    equal, bit for bit, the single-net kernel's over that block under
+    member e's net (``form`` and ``single`` return a tensor or a tuple)."""
+    E = net["w0"].shape[0]
+    per = s0.shape[0] // E
+    outs = form(model, s0, Q, pvec, net)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    equal = []
+    for e in range(E):
+        rows = slice(e * per, (e + 1) * per)
+        ref = single(model, s0[rows].contiguous(), Q[rows].contiguous(), pvec, member_net(net, e))
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        equal.append(all(torch.equal(a[rows], b) for a, b in zip(outs, ref)))
+    return equal
+
+
+def ens_bound(model, s0, Q, pvec, net, grad: bool) -> dict:
+    """A member-block form's bound: one member's MLP operations a
+    rollout-step (an E-member rollout costs one net's), the bytes of its
+    operands, and its tensor-core bound (tc_bound_ms) as K11's or K8's."""
+    one = member_net(net, 0)
+    ops = mlp_ops(one) + STAGE_OPS + (mlp_vjp_ops(one) + STAGE_VJP_OPS if grad else 0)
+    macs = sum(a * b for a, b in zip(mlp_dims(one), mlp_dims(one)[1:]))
+    tc = (tc_bound_ms(mma_tiles(one), mlp_scalar_ops(one) + STAGE_OPS + STAGE_VJP_OPS) if grad
+          else tc_bound_ms(mlp_forward_tiles(one), mlp_ops(one) - 2 * macs + STAGE_OPS))
+    return {**bound(K * H * ops, nbytes(s0, Q, pvec, *leaves(net), *((Q,) if grad else ()))
+                    + 4 * K), "tc_bound_ms": tc}
+
+
+def compare_ens(model, s0, Q, pvec, net) -> dict:
+    """Phase 49: K11's member-block form against its plain version at the
+    main path's shapes; each member's block equal, bit for bit, to K11 over
+    that block under the member's net, and E=1 to K11; ens_cases' cases to
+    NET_TOL; the cost bound against ens_mutants; its resources beside
+    K11's."""
+    ref = neural_cost_rollout_ens_plain(model, s0, Q, pvec, net)
+    mutants = {name: neural_cost_rollout_ens_plain(model, s0, Q, pvec, m)
+               for name, m in ens_mutants(net).items()}
+    numbers = compare("k11_ens_neural_cost_rollout",
+                      lambda: neural_cost_rollout_ens(model, s0, Q, pvec, net),
+                      lambda: neural_cost_rollout_ens_plain(model, s0, Q, pvec, net), tol=NET_TOL,
+                      extra=lambda _: {**ens_bound(model, s0, Q, pvec, net, grad=False),
+                                       "mutant_max_rel_err": {name: max_errors(m, ref)[1]
+                                                              for name, m in mutants.items()}})
+    for name, m in mutants.items():
+        check(not torch.allclose(m, ref, **NET_TOL),
+              f"K11's member-block form: the cost bound does not reject {name} {numbers}")
+    equal = member_blocks_equal(neural_cost_rollout_ens, neural_cost_rollout, model, s0, Q, pvec,
+                                net)
+    m0 = member_net(net, 0)
+    e1 = torch.equal(neural_cost_rollout_ens(model, s0, Q, pvec, stacked([m0])),
+                     neural_cost_rollout(model, s0, Q, pvec, m0))
+    cases = {}
+    for case, (mdl, s, q, n) in ens_cases(model, s0, Q, net).items():
+        got, want = (neural_cost_rollout_ens(mdl, s, q, pvec, n),
+                     neural_cost_rollout_ens_plain(mdl, s, q, pvec, n))
+        torch.cuda.synchronize()
+        cases[case] = errs = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, want)))
+        check(bool(torch.isfinite(got).all()) and got.shape == (s.shape[0],),
+              f"K11's member-block form {case}: bad output {errs}")
+        check(torch.allclose(got, want, **NET_TOL),
+              f"K11's member-block form {case}: disagrees with plain {errs}")
+    args = model.net_args(m0)[0]
+    _, group_warps, groups = kernels.neural_plan(model.plant, args)
+    out = {"members_equal_to_k11": equal, "E1_equal_to_k11": e1, "cases": cases}
+    emit("k11_ens_cases", out)
+    check(all(equal) and e1, f"K11's member-block form is not K11 member by member {out}")
+    numbers["resources"] = mma_resources(
+        "k11_ens_resources", "neural_cost_rollout_ens_kernel", args, "neural_ens",
+        numbers["tc_bound_ms"],
+        extra={"group_warps": group_warps, "groups_per_block": groups,
+               "blocks_per_member": -(-(K // net["w0"].shape[0]) // (16 * groups)),
+               "k11_single_net": ptxas_resources("neural_cost_rollout_kernel")})
+    return numbers
+
+
+def grad_rejected(cost, dQ, ref_cost, ref_dQ) -> bool:
+    """A K8 output outside the bounds: J beyond NET_TOL or dQ beyond the
+    dQ bound."""
+    return not (torch.allclose(cost, ref_cost, **NET_TOL)
+                and close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC))
+
+
+def compare_ens_grad(model, s0, Q, pvec, net) -> dict:
+    """Phase 50: K8's member-block form against its plain version (autograd
+    through K11's member-block plain version), J to NET_TOL and dQ to the
+    dQ bound; each member's block equal, bit for bit, to K8 over that block
+    under the member's net, and E=1 to K8; ens_cases' cases; the bounds
+    against ens_mutants; its resources beside K8's."""
+    (cost, dQ), (ref_cost, ref_dQ) = (neural_grad_cost_rollout_ens(model, s0, Q, pvec, net),
+                                      neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net))
+    torch.cuda.synchronize()
+    cost_abs, cost_rel = max_errors(cost, ref_cost)
+    dq_abs, _ = max_errors(dQ, ref_dQ)
+    mutants = {name: neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, m)
+               for name, m in ens_mutants(net).items()}
+    numbers = {
+        "cost_max_abs_err": cost_abs, "cost_max_rel_err": cost_rel,
+        "dQ_max_abs_err": dq_abs, "dQ_max_abs": float(ref_dQ.abs().max()),
+        "dQ_atol": DQ_ATOL_FRAC * float(ref_dQ.abs().max()), "dQ_rtol": DQ_RTOL,
+        "mutant_max_rel_err": {name: max_errors(c, ref_cost)[1] for name, (c, _) in mutants.items()},
+        "mutant_dQ_max_abs_err": {name: max_errors(d, ref_dQ)[0]
+                                  for name, (_, d) in mutants.items()},
+        "max_abs_err": max(cost_abs, dq_abs),
+        "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
+        "ms": cuda_ms(lambda: neural_grad_cost_rollout_ens(model, s0, Q, pvec, net), 20),
+        "plain_ms": cuda_ms(lambda: neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net), 3),
+        **ens_bound(model, s0, Q, pvec, net, grad=True),
+    }
+    emit("k8_ens_neural_grad_cost_rollout", numbers)
+    check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape,
+          "K8's member-block form: bad output")
+    check(not grad_rejected(cost, dQ, ref_cost, ref_dQ),
+          f"K8's member-block form disagrees with plain {numbers}")
+    for name, (c, d) in mutants.items():
+        check(grad_rejected(c, d, ref_cost, ref_dQ),
+              f"K8's member-block form: the bounds do not reject {name} {numbers}")
+    equal = member_blocks_equal(neural_grad_cost_rollout_ens, neural_grad_cost_rollout, model,
+                                s0, Q, pvec, net)
+    m0 = member_net(net, 0)
+    e1 = all(torch.equal(a, b) for a, b in zip(
+        neural_grad_cost_rollout_ens(model, s0, Q, pvec, stacked([m0])),
+        neural_grad_cost_rollout(model, s0, Q, pvec, m0)))
+    cases = {}
+    for case, (mdl, s, q, n) in ens_cases(model, s0, Q, net).items():
+        (c, d), (rc, rd) = (neural_grad_cost_rollout_ens(mdl, s, q, pvec, n),
+                            neural_grad_cost_rollout_ens_plain(mdl, s, q, pvec, n))
+        torch.cuda.synchronize()
+        cases[case] = got = {"cost_max_abs_err": max_errors(c, rc)[0],
+                             "dQ_max_abs_err": max_errors(d, rd)[0],
+                             "dQ_max_abs": float(rd.abs().max())}
+        check(bool(torch.isfinite(c).all() and torch.isfinite(d).all()) and d.shape == q.shape,
+              f"K8's member-block form {case}: bad output {got}")
+        check(not grad_rejected(c, d, rc, rd), f"K8's member-block form {case}: disagrees {got}")
+    out = {"members_equal_to_k8": equal, "E1_equal_to_k8": e1, "cases": cases}
+    emit("k8_ens_cases", out)
+    check(all(equal) and e1, f"K8's member-block form is not K8 member by member {out}")
+    numbers["resources"] = mma_resources(
+        "k8_ens_resources", "neural_grad_cost_rollout_ens_kernel", model.net_args(m0)[0],
+        "neural_grad_ens", numbers["tc_bound_ms"],
+        extra={"k8_single_net": ptxas_resources("neural_grad_cost_rollout_kernel")})
+    return numbers
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -3750,7 +3984,6 @@ def main() -> None:
             {gform: its * GRAD_FLEET_TICKS, cform: GRAD_FLEET_TICKS},
             retarget_at=GRAD_FLEET_SWAP_AT, swap=kind and fleet_swap(kind, c),
             pole_check=kind is None)
-    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     # 47. One update of each gradient fleet on the card against the CPU's.
     for label, c in grad.items():
@@ -3762,6 +3995,48 @@ def main() -> None:
             c = grad_fleet("cuda", label, B)
             fleet_ticks[f"fleet_{label}_b{B}"] = fleet_timing(f"{label}_b{B}", c, gen,
                                                                grad_fleet_draw(c))
+
+    # 49-50. The member-block forms of K11 and K8 over the committed ensemble.
+    ens_mppi = make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=ENS_SPEC)
+    ens_rpgd = make_controller("cuda", "rpgd-tf", RES_RPGD_CONFIG, spec=ENS_SPEC)
+    check(ensemble.can_use_cost(ens_mppi.optimizer) and ensemble.can_use_grad(ens_rpgd.optimizer)
+          and not ens_mppi.optimizer._uses_semi_fused(),
+          "the ensemble controllers did not take the member-block forms")
+    emodel, epack = ensemble.net_model(ens_rpgd.optimizer)
+    eparams = ens_rpgd._assemble_params()
+    enet, epvec = eparams["dyn"]["net"], epack(eparams, torch.tensor([0.1], device=device))
+    check(enet["w0"].shape == (4, 5, 32) and "norm_in_mean" in enet,
+          "the committed ensemble did not load")
+    k11e = compare_ens(emodel, s0, Q, epvec, enet)
+    k8e = compare_ens_grad(emodel, s0, Qg, epvec, enet)
+
+    # 51. MPPI and rpgd-tf over the ensemble, closed loop, each counted from 0.
+    runs["mppi_ensemble"] = counted_loop("slice_mppi_ensemble", ens_mppi, ENS_TICKS,
+                                         {"neural_cost_rollout_ens": ENS_TICKS}, pole_check=False)
+    runs["rpgd_ensemble"] = counted_loop("slice_rpgd_ensemble", ens_rpgd, ENS_RPGD_TICKS,
+                                         {"neural_cost_rollout_ens": ENS_RPGD_TICKS,
+                                          "neural_grad_cost_rollout_ens": 2 * ENS_RPGD_TICKS},
+                                         pole_check=False)
+
+    # 52. One update of each on the card against the same update on the CPU.
+    update_vs_cpu_mppi("ensemble_update_vs_cpu", ens_mppi, ENS_SPEC, RES_MPPI_CONFIG)
+    update_vs_cpu_rpgd(ens_rpgd, "rpgd_ensemble_update_vs_cpu", ENS_SPEC, RES_RPGD_CONFIG)
+
+    # 53. MPPI with robust_eval "worst" (every plan under the four members:
+    # plain torch, no kernel) and with risk_weight (K11's member-block form
+    # plus the members' disagreement), a few ticks each and one update
+    # against the CPU's.
+    for label, option, expected in (
+            ("robust_worst", {"robust_eval": "worst"}, {}),
+            ("risk", {"risk_weight": ENS_RISK}, {"neural_cost_rollout_ens": ENS_OPTION_TICKS})):
+        config = {**RES_MPPI_CONFIG, **option}
+        c = make_controller("cuda", "mppi", config, spec=ENS_SPEC)
+        runs[f"mppi_ensemble_{label}"] = counted_loop(f"slice_mppi_ensemble_{label}", c,
+                                                      ENS_OPTION_TICKS, expected,
+                                                      pole_check=False)
+        update_vs_cpu_mppi(f"ensemble_{label}_update_vs_cpu", c, ENS_SPEC, config)
+    launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+
     if "--starts" in sys.argv[1:]:
         start_sweep()
     if "--profile" in sys.argv[1:]:
@@ -3769,7 +4044,8 @@ def main() -> None:
                         ("mppi-mlp", mlp), ("rpgd-tf-mlp", mlp_rpgd), ("mppi-gru", gru),
                         ("mppi-residual", adaptive), ("rpgd-tf-residual", res_rpgd),
                         ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd), ("cem", cem),
-                        ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem)):
+                        ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem),
+                        ("mppi-ensemble", ens_mppi), ("rpgd-tf-ensemble", ens_rpgd)):
             profile_ticks(name, env_tick(c))
         for name, tick in fleet_ticks.items():
             profile_ticks(name, tick)
@@ -3809,6 +4085,9 @@ def main() -> None:
          grad_rows["k9"]),
         ("gp_grad_cost_rollout_cols", "gp_rollout.cu", "ops/pallas_grad.py:515",
          grad_rows["k10"]),
+        ("neural_cost_rollout_ens", "neural_rollout.cu", "ops/pallas_neural.py:157", k11e),
+        ("neural_grad_cost_rollout_ens", "neural_grad_rollout.cu", "ops/pallas_grad.py:387",
+         k8e),
     )
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

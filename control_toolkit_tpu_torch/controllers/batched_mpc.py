@@ -291,8 +291,14 @@ class BatchedMPCController(MPCController):
         from control_toolkit_tpu_torch.optimizers.gradient import GradientOptimizer
         from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
+        from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
+
         opt = self.optimizer
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if isinstance(getattr(self.predictor, "predictor", self.predictor), EnsemblePredictor):
+            # The ensemble kernels have no session-row form in either package.
+            return _not_ported("the vmapped per-slot batched step (taken for a fleet over an "
+                               "ensemble predictor)")
         if getattr(cf, "post_terminal_cost", None) is not None:
             return _not_ported("a learned value terminal in batched mode (the emit_terminal "
                                "forms of K4 and K11-K14, the value_spec forms of K7-K10)")

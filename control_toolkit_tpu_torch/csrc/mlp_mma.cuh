@@ -202,12 +202,14 @@ __device__ __forceinline__ float4 split_pair(float w0, float w1) {
 // (float4s): lane (g, t) holds B rows 8kb + 2t and 8kb + 2t + 1 (the
 // permuted k order) of column 8j + g.  Forward: B = W [d_in, d_out];
 // transposed (where the layout has them, tw >= 0): B = W^T [d_out, d_in],
-// kt and nt swapped.
+// kt and nt swapped.  `member` picks one net of a stacked ensemble (the
+// member-block forms of K11 and K8): every tensor has a leading member
+// axis, so member m's leaf lies m times the leaf's size past a's pointer.
 __device__ __forceinline__ void stage_mma_net(float* sm, const NetArgs& a, const MmaLayout& L,
-                                              int S, int U) {
+                                              int S, int U, int member = 0) {
   for (int l = 0; l < a.n_layers; ++l) {
-    const float* __restrict__ W = a.w[l];
     const int din = a.dims[l], dout = a.dims[l + 1], KT = L.kt[l], NT = L.nt[l];
+    const float* __restrict__ W = a.w[l] + static_cast<size_t>(member) * din * dout;
     const int len = KT * NT * 32;
     float4* fw = reinterpret_cast<float4*>(sm + L.fw[l]);
     float4* tw = L.tw[l] >= 0 ? reinterpret_cast<float4*>(sm + L.tw[l]) : nullptr;
@@ -225,12 +227,14 @@ __device__ __forceinline__ void stage_mma_net(float* sm, const NetArgs& a, const
       tw[idx] = split_pair(k < dout && c < din ? __ldg(W + c * dout + k) : 0.0f,
                            k + 1 < dout && c < din ? __ldg(W + c * dout + k + 1) : 0.0f);
     }
-    stage_rows(sm + L.bias[l], a.b[l], 1, 1, dout, 8 * NT);
+    stage_rows(sm + L.bias[l], a.b[l] + static_cast<size_t>(member) * dout, 1, 1, dout, 8 * NT);
   }
   const float* norms[4] = {a.norm_in_mean, a.norm_in_std, a.norm_out_mean, a.norm_out_std};
   for (int i = 0; i < 4; ++i) {
     const int n = i < 2 ? S + U : S;
-    if (L.norm[i] >= 0) stage_rows(sm + L.norm[i], norms[i], 1, 1, n, n);
+    if (L.norm[i] >= 0) {
+      stage_rows(sm + L.norm[i], norms[i] + static_cast<size_t>(member) * n, 1, 1, n, n);
+    }
   }
 }
 
@@ -517,7 +521,9 @@ __device__ __forceinline__ void mlp_mma_vjp(float* sm, const NetArgs& a, const M
 
 // The warp's rows: its first rollout, this lane's rollout k (lanes l and
 // l+16 own row l), the rollout it reads (k, or K-1 past K) and whether it
-// writes (lane < 16, k < K).
+// writes (lane < 16, k < K).  The member-block forms take the rows
+// [begin, end) of the block's member, blockIdx.x counting blocks within it:
+// the same, with K-1 read as end-1.
 struct WarpRows {
   int first, k, kc;
   bool writes;
@@ -528,22 +534,38 @@ struct WarpRows {
     kc = k < K ? k : K - 1;
     writes = lane < 16 && k < K;
   }
+  __device__ __forceinline__ WarpRows(int begin, int end) {
+    const int lane = threadIdx.x & 31;
+    first = begin + (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * kMmaRows;
+    k = first + (lane & 15);
+    kc = k < end ? k : end - 1;
+    writes = lane < 16 && k < end;
+  }
 };
 
 // Plan the net's layout, allow the shared memory and launch `kernel` over
-// K rollouts, kMmaRows a warp and L.warps warps a block.
+// `members` blocks of `rows` rollouts (blockIdx.y the block's member; one
+// member of K rollouts for the single-net kernels), kMmaRows a warp and
+// L.warps warps a block.
 template <class Kernel, class... Args>
-int launch_mma(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int K,
-               void* stream, Args... args) {
+int launch_mma_members(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int rows,
+                       int members, void* stream, Args... args) {
   MmaLayout L;
   const long bytes = plan_mma(net, S, U, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_block = L.warps * kMmaRows;
-  const dim3 grid((K + per_block - 1) / per_block);
+  const dim3 grid((rows + per_block - 1) / per_block, members);
   kernel<<<grid, 32 * L.warps, bytes, static_cast<cudaStream_t>(stream)>>>(args..., net, L);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_mma_members over one member of K rollouts.
+template <class Kernel, class... Args>
+int launch_mma(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int K,
+               void* stream, Args... args) {
+  return launch_mma_members(kernel, allowed, net, S, U, K, 1, stream, args...);
 }
 
 // Blocks of `kernel` an SM holds for `net` (0 where the net is refused).

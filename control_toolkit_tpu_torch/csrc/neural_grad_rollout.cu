@@ -17,6 +17,18 @@
 // k (lanes l and l+16 share a rollout): a 16-rollout warp straddles two
 // sessions whenever ks is not a multiple of 16.  The weights are shared.
 //
+// Its member-block (n_members, pallas_grad.py:402) form serves the PETS
+// ensemble (ops/neural_grad_cost_rollout.py neural_grad_cost_rollout_ens):
+// a stacked net of E members, rollout k under member k / (K/E).  The Pallas
+// runner fetched member tile // tiles_per_member's weights per grid tile
+// (_make_grad_runner, pallas_grad.py:278-290); here the grid is (blocks a
+// member, E), each block stages its member's weights (stage_mma_net's
+// member, the leaf's size its stride) and its warps take rows of that
+// member alone, so a warp's B fragments are one member's.  A ragged K/E is
+// masked as a ragged K is, at the member's last rollout.  It is its own
+// entry (neural_grad_cost_rollout_ens_kernel) over K8's body, so the
+// single-net kernel's code is unchanged.
+//
 // Forward: store x_h, add the stage cost, step; cost[k] = (sum_h stage +
 // terminal) / (H+1).  Backward, h = H-1 .. 0, with ct = 1/(H+1):
 //   lam = ct * d terminal / d x_H
@@ -47,22 +59,29 @@
 
 namespace ctt {
 
-template <class Cost>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-neural_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                                const float* __restrict__ pvec, float* __restrict__ cost,
-                                float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
-                                int H, float max_cost, float ct, NetArgs net, MmaLayout L) {
+// K8's body.  The member-block form (kMembers) serves member blockIdx.y of
+// a stacked ensemble: the block stages that member's weights and its warps
+// take the member's ks rollouts [m ks, (m+1) ks), blockIdx.x counting
+// blocks within the member, rows past the member's last repeating it; pvec
+// is one row.  Otherwise ks rollouts a session, as above.
+template <class Cost, bool kMembers>
+__device__ __forceinline__ void neural_grad_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+    int H, float max_cost, float ct, const NetArgs& net, const MmaLayout& L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  stage_mma_net(sm, net, L, S, U);
+  const int member = kMembers ? static_cast<int>(blockIdx.y) : 0;
+  stage_mma_net(sm, net, L, S, U, member);
   __syncthreads();
-  const WarpRows rows(K);
-  if (rows.first >= K) return;  // the whole warp past K
+  const int end = kMembers ? (member + 1) * ks : K;
+  const WarpRows rows = kMembers ? WarpRows(member * ks, end) : WarpRows(K);
+  if (rows.first >= end) return;  // the whole warp past K (past its member's rows)
   const int k = rows.k;
-  // The lane's rollout's session row (ks rollouts a session).
-  const float* row = pvec + static_cast<size_t>(rows.kc / ks) * Cost::kN;
+  // The lane's rollout's session row (ks rollouts a session); one row for
+  // the member-block form.
+  const float* row = kMembers ? pvec : pvec + static_cast<size_t>(rows.kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
@@ -122,8 +141,31 @@ neural_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __res
   }
 }
 
-// The dynamic shared memory K8's attribute allows so far (allow_smem).
-static long k8_allowed = 0;
+template <class Cost>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+neural_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                const float* __restrict__ pvec, float* __restrict__ cost,
+                                float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+                                int H, float max_cost, float ct, NetArgs net, MmaLayout L) {
+  neural_grad_cost_rollout_body<Cost, false>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost,
+                                             ct, net, L);
+}
+
+// The member-block (n_members) form: ks = K / E rollouts a member.
+template <class Cost>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+neural_grad_cost_rollout_ens_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                    const float* __restrict__ pvec, float* __restrict__ cost,
+                                    float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                    int ks, int H, float max_cost, float ct, NetArgs net,
+                                    MmaLayout L) {
+  neural_grad_cost_rollout_body<Cost, true>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost,
+                                            ct, net, L);
+}
+
+// The dynamic shared memory K8's and its member-block form's attributes
+// allow so far (allow_smem).
+static long k8_allowed = 0, k8_ens_allowed = 0;
 
 }  // namespace ctt
 
@@ -148,6 +190,27 @@ extern "C" int ctt_neural_grad_cost_rollout(int plant, const void* s0, const voi
                          static_cast<float*>(xhist), K, ks, H, max_cost, ct);
 }
 
+// Launches K8's member-block (n_members) form on `stream` over K rollouts
+// under the stacked ensemble `net` (member 0's pointers; every tensor with a
+// leading member axis), ks = K / E rollouts a member: rollout k under member
+// k / ks; pvec holds one row.  Returns as ctt_neural_grad_cost_rollout, or
+// cudaErrorInvalidValue for a ks that does not divide K.
+extern "C" int ctt_neural_grad_cost_rollout_ens(int plant, const void* s0, const void* Q,
+                                                const void* pvec, void* cost, void* dQ,
+                                                void* xhist, int K, int ks, int H,
+                                                float max_cost, float ct,
+                                                const ctt::NetArgs* net, void* stream) {
+  using Cost = ctt::CartpoleCost;
+  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return ctt::launch_mma_members(
+      ctt::neural_grad_cost_rollout_ens_kernel<Cost>, ctt::k8_ens_allowed, *net, Cost::S,
+      Cost::U, ks, K / ks, stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
+      static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(dQ),
+      static_cast<float*>(xhist), K, ks, H, max_cost, ct);
+}
+
 // Dynamic shared memory (bytes) a block of the gradient kernels K8 and K9
 // takes for `net` on a plant of S states and U controls, or -1 for a net
 // they refuse.
@@ -161,4 +224,12 @@ extern "C" int ctt_neural_grad_blocks_per_sm(const ctt::NetArgs* net) {
   using Cost = ctt::CartpoleCost;
   return ctt::mma_blocks_per_sm(ctt::neural_grad_cost_rollout_kernel<Cost>, ctt::k8_allowed,
                                 *net, Cost::S, Cost::U);
+}
+
+// Blocks of K8's member-block form an SM holds for one member's net of
+// `net` (0 for a net it refuses).
+extern "C" int ctt_neural_grad_ens_blocks_per_sm(const ctt::NetArgs* net) {
+  using Cost = ctt::CartpoleCost;
+  return ctt::mma_blocks_per_sm(ctt::neural_grad_cost_rollout_ens_kernel<Cost>,
+                                ctt::k8_ens_allowed, *net, Cost::S, Cost::U);
 }

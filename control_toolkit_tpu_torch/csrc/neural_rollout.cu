@@ -6,6 +6,20 @@
 // straddle two sessions, each lane loading its own rollout's row
 // (ops/neural_rollout.py *_cols, the batched-mpc fleet's).
 //
+// K11's member-block (n_members, pallas_neural.py:173) form serves the PETS
+// ensemble (ops/neural_rollout.py neural_cost_rollout_ens): a stacked MLP
+// of E members, rollout k under member k / (K/E) for the whole horizon.
+// The Pallas runner fetched member tile // tiles_per_member's weights per
+// grid tile (_make_runner, pallas_neural.py:290-307); here the grid is
+// (blocks a member, E), each block stages its member's weights
+// (stage_mma_net's member: each leaf's stride is its size, from the net's
+// dims) and its groups take rows of that member alone, so a 16-rollout
+// mma tile never straddles two members.  A ragged K/E is masked as a
+// ragged K is, at the member's last rollout.  Its own entry
+// (neural_cost_rollout_ens_kernel) over K11's body keeps the single-net
+// kernel's code as it was; mlp-32-32, the ensemble's members, takes one
+// warp a group (mlp_units.cuh's plan: a warp a four unit tiles).
+//
 // Replaces control_toolkit_tpu/ops/pallas_neural.py:
 // build_neural_cost_rollout_kernel (K11) and
 // build_recurrent_cost_rollout_kernel (K13), the kernels behind
@@ -40,26 +54,35 @@
 
 namespace ctt {
 
-template <class Cost>
-__global__ void __launch_bounds__(kRnnThreads)
-neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                           const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                           int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
+// K11's body.  The member-block form (kMembers) serves member blockIdx.y of
+// a stacked ensemble: the block stages that member's weights and its groups
+// take the member's ks rollouts [m ks, (m+1) ks), blockIdx.x counting blocks
+// within the member, rows past the member's last repeating it; pvec is one
+// row.  Otherwise ks rollouts a session, as above.
+template <class Cost, bool kMembers>
+__device__ __forceinline__ void neural_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, int K, int ks, int H, float max_cost, const NetArgs& net,
+    const MlpUnitsLayout& L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  stage_mma_net(sm, net, L.net, S, U);
+  const int member = kMembers ? static_cast<int>(blockIdx.y) : 0;
+  stage_mma_net(sm, net, L.net, S, U, member);
   __syncthreads();
+  const int begin = kMembers ? member * ks : 0, end = kMembers ? begin + ks : K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int group = warp / L.warps, w = warp - group * L.warps;
-  const int first = (blockIdx.x * L.groups + group) * kMmaRows;
-  if (first >= K) return;  // the whole group: ragged K is masked
-  // Lanes l and l+16 own rollout first + l; rows past K repeat rollout K-1.
-  const int k = first + (lane & 15), kc = k < K ? k : K - 1;
+  const int first = begin + (blockIdx.x * L.groups + group) * kMmaRows;
+  if (first >= end) return;  // the whole group: ragged K (K/E) is masked
+  // Lanes l and l+16 own rollout first + l; rows past the end repeat the
+  // last rollout (K-1, or the member's last).
+  const int k = first + (lane & 15), kc = k < end ? k : end - 1;
   float* gsm = sm + L.net.net_floats + group * L.group_floats;
   float* io = gsm + L.io + w * kMmaRows * 8;
-  // Each lane its rollout's session row (ks rollouts a session).
-  const float* row = pvec + static_cast<size_t>(kc / ks) * Cost::kN;
+  // Each lane its rollout's session row (ks rollouts a session); one row
+  // for the member-block form.
+  const float* row = kMembers ? pvec : pvec + static_cast<size_t>(kc / ks) * Cost::kN;
   float c[Cost::kN];
 #pragma unroll
   for (int i = 0; i < Cost::kN; ++i) c[i] = __ldg(row + i);
@@ -78,9 +101,26 @@ neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  if (w == 0 && lane < 16 && k < K) {
+  if (w == 0 && lane < 16 && k < end) {
     cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
   }
+}
+
+template <class Cost>
+__global__ void __launch_bounds__(kRnnThreads)
+neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                           const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                           int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
+  neural_cost_rollout_body<Cost, false>(s0, Q, pvec, cost, K, ks, H, max_cost, net, L);
+}
+
+// The member-block (n_members) form: ks = K / E rollouts a member.
+template <class Cost>
+__global__ void __launch_bounds__(kRnnThreads)
+neural_cost_rollout_ens_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                               const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                               int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
+  neural_cost_rollout_body<Cost, true>(s0, Q, pvec, cost, K, ks, H, max_cost, net, L);
 }
 
 template <class Cost, int G>
@@ -147,18 +187,20 @@ int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
 }
 
 // Plan K11's layout for `net` with `warps` warps a group (0: the plan's),
-// allow the shared memory and launch `kernel` on `stream`.
+// allow the shared memory and launch `kernel` on `stream` over `members`
+// blocks of K / members rollouts (blockIdx.y the block's member; one for
+// the single-net kernel).
 template <class Kernel>
 int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int warps,
                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
-                     int H, float max_cost, void* stream) {
+                     int H, float max_cost, int members, void* stream) {
   MlpUnitsLayout L;
   const long bytes = plan_mlp_units(net, S, U, warps, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(kernel, bytes, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_block = L.groups * kMmaRows;
-  const dim3 grid((K + per_block - 1) / per_block);
+  const dim3 grid((K / members + per_block - 1) / per_block, members);
   kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
       static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L);
@@ -191,7 +233,8 @@ extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U) {
 }
 
 namespace {
-long allowed_mlp = 0;  // K11's dynamic shared memory allowed so far
+// K11's and its member-block form's dynamic shared memory allowed so far.
+long allowed_mlp = 0, allowed_mlp_ens = 0;
 }  // namespace
 
 // K11's layout for `net` with `warps` warps a group (0: the plan's own):
@@ -222,23 +265,57 @@ extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return ctt::launch_mlp_units(ctt::neural_cost_rollout_kernel<Cost>, allowed_mlp, *net, Cost::S,
-                               Cost::U, warps, s0, Q, pvec, cost, K, ks, H, max_cost, stream);
+                               Cost::U, warps, s0, Q, pvec, cost, K, ks, H, max_cost, 1, stream);
 }
 
-// Blocks of K11 that one SM holds for `net` with the plan's warps a group
-// (0 for a refused net).
-extern "C" int ctt_neural_blocks_per_sm(const ctt::NetArgs* net) {
+// Launches K11's member-block (n_members) form on `stream` over K rollouts
+// under the stacked ensemble `net` (member 0's pointers; every tensor with
+// a leading member axis), ks = K / E rollouts a member: rollout k under
+// member k / ks, pvec one row, the plan's warps a group; returns as above,
+// or cudaErrorInvalidValue for a ks that does not divide K.
+extern "C" int ctt_neural_cost_rollout_ens(int plant, const void* s0, const void* Q,
+                                           const void* pvec, void* cost, int K, int ks, int H,
+                                           float max_cost, const ctt::NetArgs* net,
+                                           void* stream) {
+  using Cost = ctt::CartpoleCost;
+  if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP || ks < 1 || K % ks != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return ctt::launch_mlp_units(ctt::neural_cost_rollout_ens_kernel<Cost>, allowed_mlp_ens, *net,
+                               Cost::S, Cost::U, 0, s0, Q, pvec, cost, K, ks, H, max_cost,
+                               K / ks, stream);
+}
+
+namespace {
+// Blocks of the K11 `kernel` that one SM holds for `net` with the plan's
+// warps a group (0 for a refused net).
+template <class Kernel>
+int mlp_units_blocks_per_sm(Kernel kernel, long& allowed, const ctt::NetArgs& net) {
   using Cost = ctt::CartpoleCost;
   ctt::MlpUnitsLayout L;
-  const long bytes = ctt::plan_mlp_units(*net, Cost::S, Cost::U, 0, L);
-  auto kernel = ctt::neural_cost_rollout_kernel<Cost>;
+  const long bytes = ctt::plan_mlp_units(net, Cost::S, Cost::U, 0, L);
   int blocks = 0;
-  if (bytes < 0 || ctt::allow_smem(kernel, bytes, allowed_mlp) != cudaSuccess ||
+  if (bytes < 0 || ctt::allow_smem(kernel, bytes, allowed) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * L.warps * L.groups,
                                                     bytes) != cudaSuccess) {
     return 0;
   }
   return blocks;
+}
+}  // namespace
+
+// Blocks of K11 that one SM holds for `net` with the plan's warps a group
+// (0 for a refused net).
+extern "C" int ctt_neural_blocks_per_sm(const ctt::NetArgs* net) {
+  return mlp_units_blocks_per_sm(ctt::neural_cost_rollout_kernel<ctt::CartpoleCost>, allowed_mlp,
+                                 *net);
+}
+
+// Blocks of K11's member-block form that one SM holds for one member's net
+// of `net` (0 for a refused net).
+extern "C" int ctt_neural_ens_blocks_per_sm(const ctt::NetArgs* net) {
+  return mlp_units_blocks_per_sm(ctt::neural_cost_rollout_ens_kernel<ctt::CartpoleCost>,
+                                 allowed_mlp_ens, *net);
 }
 
 namespace {

@@ -5,8 +5,9 @@ params) -> [B,H+1,S]``; the horizon is a Python loop (``scan_rollout``).
 Ported: the ``"ODE[:integrator[:substeps]]"`` predictor, the learned
 MLP/GRU/LSTM predictors (``models/neural_predictor.py``), the residual
 ``"ODE+res"`` (``models/residual_predictor.py``) and the sparse-GP
-``"SGP_<M>"`` (``models/gp_predictor.py``); the ``:fast`` and ensemble
-predictors are still to be ported (ROADMAP).
+``"SGP_<M>"`` (``models/gp_predictor.py``) and the PETS ensemble
+``"ensemble:<net>:<E>"`` (``models/ensemble_predictor.py``); the ``:fast``
+predictor is still to be ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -163,8 +164,9 @@ class PredictorWrapper:
     bare net name ``"<net>[:<path>][:bf16]"`` (``mlp-…``, ``GRU-…``,
     ``LSTM-…``), the checkpoint being ``<path>/<net>.npz``;
     ``"ODE+res[:integrator[:substeps]]"``; ``"SGP_<M>[:<checkpoint.npz>]"``
-    and ``"gp"``.  ``device`` is where a learned predictor keeps its
-    weights and hidden state."""
+    and ``"gp"``; ``"ensemble:<net>:<E>[:<path>][:ts1][:prob]"``, the
+    checkpoint being ``<path>/ensemble-<net>-x<E>.npz``.  ``device`` is where
+    a learned predictor keeps its weights and hidden state."""
 
     def __init__(self):
         self.predictor: Optional[Predictor] = None
@@ -200,6 +202,27 @@ class PredictorWrapper:
                 environment_name=environment_name, dt=dt, net_name=net_name,
                 path_to_models=neural_opts[0] if neural_opts else None, device=device,
                 **kwargs,
+            )
+        elif head == "ensemble" and len(spec_parts) > 1:
+            # "ensemble:<net>:<E>[:<path>][:ts1][:prob]" (E defaults to 5):
+            # PETS trajectory sampling over a bootstrap ensemble.
+            from control_toolkit_tpu_torch.models.ensemble_predictor import (
+                EnsemblePredictor,
+            )
+
+            opts = []
+            for o in spec_parts[2:]:
+                if o.lower() in ("ts1", "ts-1"):
+                    kwargs.setdefault("ts", "1")
+                elif o.lower() in ("prob", "pe"):
+                    kwargs.setdefault("probabilistic", True)
+                else:
+                    opts.append(o)
+            n_members = int(opts.pop(0)) if opts and opts[0].isdigit() else 5
+            self.predictor = EnsemblePredictor(
+                environment_name=environment_name, dt=dt, net_name=spec_parts[1],
+                n_members=n_members, path_to_models=opts[0] if opts else None,
+                device=device, **kwargs,
             )
         elif head in ("ODE", "ODE_v0", "ODE+res"):
             # "ODE[+res][:integrator[:substeps]]"; "+res" adds the learned

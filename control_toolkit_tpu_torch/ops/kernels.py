@@ -148,14 +148,22 @@ def _net_putter(args: NetArgs, tensors: Dict[str, torch.Tensor]) -> Callable:
     return put
 
 
-def mlp_net_args(net: Dict, S: int, U: int,
-                 predict_delta: bool) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+def mlp_net_args(net: Dict, S: int, U: int, predict_delta: bool,
+                 members: int = 0) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
     """``(NetArgs, tensors by name)`` of an MLP ``[S+U] -> ... -> [S]`` (the
-    layers ``w{i}`` [in, out], ``b{i}`` and optional ``norm_*``); raises
-    unless each tensor has the shape its place in the net gives it."""
+    layers ``w{i}`` [in, out], ``b{i}`` and optional ``norm_*``), or of a
+    stacked ensemble of ``members`` such MLPs (every tensor with a leading
+    member axis; the pointers are member 0's, member m's leaf lies m times
+    the leaf's size further, which the kernels compute from ``dims``);
+    raises unless each tensor has the shape its place in the net gives it."""
     args, tensors = NetArgs(), {}
     args.kind, args.predict_delta = NET_KINDS["mlp"], int(predict_delta)
-    put = _net_putter(args, tensors)
+    put_one = _net_putter(args, tensors)
+    lead = (members,) if members else ()
+
+    def put(field, i, name, t, shape):
+        put_one(field, i, name, t, lead + shape)
+
     n = sum(1 for k in net if k.startswith("w"))
     if not 1 <= n <= MAX_LAYERS:
         raise ValueError(f"an MLP of {n} layers (1..{MAX_LAYERS} in the kernels)")
@@ -209,13 +217,14 @@ def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
     (csrc/residual_rollout.cu), K13's (``recurrent``) staged hi/lo gate
     fragments and per-group slabs (csrc/rnn_mma.cuh), or the gradient
     kernels' (``neural_grad``, ``residual_grad``) staged hi/lo fragments and
-    per-warp regions (csrc/mlp_mma.cuh)."""
+    per-warp regions (csrc/mlp_mma.cuh).  The member-block forms of K11 and
+    K8 stage one member a block: their blocks take K11's and K8's bytes."""
     S, U = PLANT_DIMS[plant]
-    if kernel in ("neural", "recurrent"):
+    if kernel in ("neural", "recurrent", "neural_ens"):
         return int(load().ctt_net_smem_bytes(ctypes.byref(args), S, U))
     if kernel == "residual":
         return residual_plan(plant, args)[0]
-    if kernel in ("neural_grad", "residual_grad"):
+    if kernel in ("neural_grad", "residual_grad", "neural_grad_ens"):
         return int(load().ctt_mma_net_smem_bytes(ctypes.byref(args), S, U))
     raise ValueError(f"no network kernel {kernel!r}")
 
@@ -223,7 +232,9 @@ def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
 def net_blocks_per_sm(kernel: str, args: NetArgs) -> int:
     """Blocks of the tensor-core network kernel ``kernel`` (``neural`` for
     K11, ``residual`` for K12, ``neural_grad`` for K8, ``residual_grad`` for
-    K9, ``recurrent`` for K13) that one SM holds for the net of ``args``, as
+    K9, ``recurrent`` for K13, ``neural_ens`` and ``neural_grad_ens`` for
+    K11's and K8's member-block forms) that one SM holds for the net of
+    ``args`` (one member's, for the forms), as
     the CUDA runtime's occupancy calculator gives it (0 for a refused
     net)."""
     return int(getattr(load(), f"ctt_{kernel}_blocks_per_sm")(ctypes.byref(args)))
@@ -335,15 +346,19 @@ class NetModel(CostModel):
         if self.kind not in NET_KINDS:
             raise ValueError(f"unknown net kind {self.kind!r} ({' | '.join(NET_KINDS)})")
 
-    def net_args(self, net: Dict, hidden=None,
-                 rows: int = 1) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
+    def net_args(self, net: Dict, hidden=None, rows: int = 1,
+                 members: int = 0) -> Tuple[NetArgs, Dict[str, torch.Tensor]]:
         """``(NetArgs, tensors by name)`` for ``net`` and, for a recurrent
         net, its ``hidden``: ``rows`` rows a cell (1, the live batch-1
-        hidden; B, one a session for the session-row form); raises unless
-        each tensor has the shape its place in the net gives it."""
+        hidden; B, one a session for the session-row form); for an MLP
+        ensemble (``members``) every tensor stacked on a leading member
+        axis; raises unless each tensor has the shape its place in the net
+        gives it."""
         S, U = PLANT_DIMS[self.plant]
         if self.kind == "mlp":
-            return mlp_net_args(net, S, U, self.predict_delta)
+            return mlp_net_args(net, S, U, self.predict_delta, members)
+        if members:
+            raise ValueError(f"an ensemble of {self.kind} nets (MLP members only)")
         args, tensors = NetArgs(), {}
         args.kind, args.predict_delta = NET_KINDS[self.kind], int(self.predict_delta)
         put = _net_putter(args, tensors)
@@ -477,15 +492,19 @@ def load() -> ctypes.CDLL:
         lib.ctt_neural_plan.argtypes = [net, i32, i32, i32, ctypes.POINTER(i32),
                                         ctypes.POINTER(i32)]
         lib.ctt_neural_plan.restype = ctypes.c_long
-        lib.ctt_neural_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, ptr,
-        ]
-        lib.ctt_neural_grad_cost_rollout.restype = i32
+        # The member-block forms take ks = K / E, the rollouts a member.
+        lib.ctt_neural_cost_rollout_ens.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
+                                                    net, ptr]
+        lib.ctt_neural_cost_rollout_ens.restype = i32
+        for fn in (lib.ctt_neural_grad_cost_rollout, lib.ctt_neural_grad_cost_rollout_ens):
+            fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, ptr]
+            fn.restype = i32
         lib.ctt_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
         for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_grad_blocks_per_sm,
+                   lib.ctt_neural_ens_blocks_per_sm, lib.ctt_neural_grad_ens_blocks_per_sm,
                    lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm,
                    lib.ctt_recurrent_blocks_per_sm):
             fn.argtypes = [net]

@@ -27,6 +27,12 @@ B sessions' rollouts in one launch: ``s0 [B*K,S]`` and ``Q [B*K,H,U]``
 session by session, each lane reading its rollout's session row of the
 cost's ``pvec_b [B,N]``; the weights are shared.  It returns ``(cost
 [B,K], dQ [B*K,H,U])``.
+
+Its member-block (``n_members``, pallas_grad.py:402) form
+``neural_grad_cost_rollout_ens`` (the PETS ensemble's gradient) takes a
+stacked MLP of E members, rollout k under member k // (K/E), each block of
+the launch staging its member's weights; its plain version is
+``torch.autograd`` through K11's member-block plain version.
 """
 from __future__ import annotations
 
@@ -37,7 +43,9 @@ import torch
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, mlp_step_vjp
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
-from control_toolkit_tpu_torch.ops.neural_rollout import check_shapes, mlp_step
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    check_shapes, ensemble_members, mlp_step, neural_cost_rollout_ens_plain,
+)
 
 
 def neural_grad_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -100,10 +108,46 @@ def neural_grad_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: 
 neural_grad_cost_rollout_cols.launches = 0
 
 
-def _launch(name: str, model: kernels.NetModel, s0, Q, pvec, net: Dict, ks: int):
+def neural_grad_cost_rollout_ens_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                       Q: torch.Tensor, pvec: torch.Tensor, net: Dict
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's member-block form in PyTorch: K11's member-block plain version
+    and ``torch.autograd`` through it for dQ."""
+    with torch.enable_grad():
+        Qv = Q.detach().requires_grad_(True)
+        cost = neural_cost_rollout_ens_plain(model, s0, Qv, pvec, net)
+        (dQ,) = torch.autograd.grad(cost.sum(), Qv)
+    return cost.detach(), dQ
+
+
+def neural_grad_cost_rollout_ens(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                 pvec: torch.Tensor, net: Dict
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's member-block (``n_members``) form: ``(cost [K], dQ [K,H,U])``
+    under a stacked MLP of E members, rollout k under member k // (K/E),
+    in one launch; see the module docstring."""
+    check_shapes("neural_grad_cost_rollout_ens", s0, Q, pvec)
+    if model.kind != "mlp" or model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"neural_grad_cost_rollout_ens: an MLP ensemble over a cost with "
+                         f"adjoints, not a {model.kind} on {model.plant!r}")
+    E = ensemble_members("neural_grad_cost_rollout_ens", net, s0.shape[0])
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net)
+    cost, dQ = _launch("neural_grad_cost_rollout_ens", model, s0, Q, pvec, net,
+                       s0.shape[0] // E, members=E)
+    neural_grad_cost_rollout_ens.launches += 1
+    return cost, dQ
+
+
+neural_grad_cost_rollout_ens.launches = 0
+
+
+def _launch(name: str, model: kernels.NetModel, s0, Q, pvec, net: Dict, ks: int,
+            members: int = 0):
     """Check the operands and launch K8 over sessions of ``ks`` rollouts,
-    ``pvec``'s rows; returns ``(cost [B*K], dQ)``."""
-    args, tensors = model.net_args(net)
+    ``pvec``'s rows, or (``members``) its member-block form over blocks of
+    ``ks`` rollouts a member; returns ``(cost [B*K], dQ)``."""
+    args, tensors = model.net_args(net, members=members)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
@@ -113,7 +157,8 @@ def _launch(name: str, model: kernels.NetModel, s0, Q, pvec, net: Dict, ks: int)
     # The forward sweep's states, rollout index fastest, as K7's.
     xhist = torch.empty(H, S, K, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        rc = kernels.load().ctt_neural_grad_cost_rollout(
+        entry = "ctt_neural_grad_cost_rollout_ens" if members else "ctt_neural_grad_cost_rollout"
+        rc = getattr(kernels.load(), entry)(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
             cost.data_ptr(), dQ.data_ptr(), xhist.data_ptr(), K, ks, H, model.max_cost,
             1.0 / (H + 1), args, torch.cuda.current_stream(device).cuda_stream,

@@ -31,7 +31,14 @@ starting from row b of each cell's hidden (``hidden_per_lane``); the
 costs come back ``[B, K]``.  The JAX kernels lay a session's rows out as
 lane columns ``[n_slot, B*K]`` (pallas_neural.py:191-197), a TPU layout;
 here each rollout reads its session's row by index, and a 16-rollout group
-may straddle two sessions.  The CUDA kernels are ``csrc/neural_rollout.cu`` (its
+may straddle two sessions.  K11's member-block (``n_members``, pallas_neural.py:173) form,
+``neural_cost_rollout_ens`` (the PETS ensemble's,
+``kernel_families/ensemble.py``), runs a stacked net of E members (every
+leaf with a leading member axis) over K rollouts in one launch, rollout k
+under member k // (K/E): PETS TS-inf blockwise.  The JAX kernel fetched
+member ``tile // tiles_per_member``'s weights per grid tile; here each
+block stages its member's weights, so a 16-rollout group never straddles
+two members.  The CUDA kernels are ``csrc/neural_rollout.cu`` (its
 source note says what bounds them on the card); the ``*_plain`` functions
 are the same functions in PyTorch.  A wrapper runs its plain version only
 when every operand lies on the CPU; for CUDA operands it launches its
@@ -53,8 +60,10 @@ def mlp_layer_count(net: Dict) -> int:
 
 
 def mlp_step(net: Dict, x: torch.Tensor, u: torch.Tensor, predict_delta: bool) -> torch.Tensor:
-    """One MLP transition on ``x [K,S]``, ``u [K,U]`` (pallas_neural.py:234-241)."""
-    a = torch.cat([x, u], dim=1)
+    """One MLP transition on ``x [K,S]``, ``u [K,U]`` (pallas_neural.py:234-241);
+    also on ``[E, K/E, S]`` blocks under a stacked net whose vectors
+    broadcast over the block (``member_block_step``)."""
+    a = torch.cat([x, u], dim=-1)
     if "norm_in_mean" in net:
         a = (a - net["norm_in_mean"]) / net["norm_in_std"]
     n = mlp_layer_count(net)
@@ -94,6 +103,63 @@ def neural_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torc
                            lambda x, u: mlp_step(net, x, u, model.predict_delta))
 
 
+def ensemble_members(name: str, net: Dict, K: int) -> int:
+    """E, the leading member axis of a stacked MLP (``w{i}`` [E, in, out]);
+    raises unless it divides the K rollouts into member blocks."""
+    E = int(net["w0"].shape[0]) if net["w0"].ndim == 3 else 0
+    if E < 1 or K % E:
+        raise ValueError(f"{name}: a stacked net of E members with K % E == 0, got w0 "
+                         f"{tuple(net['w0'].shape)} over K={K}")
+    return E
+
+
+def member_blocks(net: Dict) -> Dict:
+    """A stacked net whose vectors (biases, norms: ``[E, n]``) broadcast over
+    a batch axis, so that its layers run ``[E, B, in]`` under each member's
+    weights as one batched matmul."""
+    return {k: v[:, None, :] if v.ndim == 2 else v for k, v in net.items()}
+
+
+def member_block_step(net: Dict, x: torch.Tensor, u: torch.Tensor,
+                      predict_delta: bool) -> torch.Tensor:
+    """PETS TS-inf blockwise: block e of the K/E rollouts of ``x [K,S]``
+    steps under member e of the stacked ``net`` (``mlp_step`` over
+    ``[E, K/E, S]``)."""
+    E, K = int(net["w0"].shape[0]), x.shape[0]
+    return mlp_step(member_blocks(net), x.reshape(E, K // E, -1), u.reshape(E, K // E, -1),
+                    predict_delta).reshape(K, -1)
+
+
+def neural_cost_rollout_ens_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                  pvec: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11's member-block form in PyTorch (pallas_neural.py:157,
+    ``n_members``): block e of K/E rollouts under member e's weights."""
+    return plain_cost_loop(model, s0, Q, pvec,
+                           lambda x, u: member_block_step(net, x, u, model.predict_delta))
+
+
+def neural_cost_rollout_ens(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec: torch.Tensor, net: Dict) -> torch.Tensor:
+    """K11's member-block (``n_members``) form: the costs ``[K]`` of K
+    rollouts under a stacked MLP of E members (``w{i}`` [E, in, out],
+    ``b{i}`` [E, out], ``norm_*`` [E, n]), rollout k under member k //
+    (K/E), PETS TS-inf blockwise; one launch, each block staging its
+    member's weights."""
+    check_shapes("neural_cost_rollout_ens", s0, Q, pvec)
+    if model.kind != "mlp":
+        raise ValueError(f"neural_cost_rollout_ens: an MLP ensemble, not a {model.kind}")
+    E = ensemble_members("neural_cost_rollout_ens", net, s0.shape[0])
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_cost_rollout_ens_plain(model, s0, Q, pvec, net)
+    cost = _launch("ctt_neural_cost_rollout_ens", "neural_cost_rollout_ens", model, s0, Q, pvec,
+                   net, None, ks=s0.shape[0] // E, members=E)
+    neural_cost_rollout_ens.launches += 1
+    return cost
+
+
+neural_cost_rollout_ens.launches = 0
+
+
 def recurrent_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                                  pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
     """K13's arithmetic in PyTorch (pallas_neural.py:496-589)."""
@@ -117,12 +183,13 @@ def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tenso
 
 
 def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden,
-            extra=(), ks: int = 0, rows: int = 1):
+            extra=(), ks: int = 0, rows: int = 1, members: int = 0):
     """Check the operands and launch the C entry point ``entry`` over
     sessions of ``ks`` rollouts (0: one session) whose rows ``pvec`` and
-    ``hidden`` hold, with ``extra`` arguments before the net's; returns the
-    costs."""
-    args, tensors = model.net_args(net, hidden, rows)
+    ``hidden`` hold, or over blocks of ``ks`` rollouts a member of a
+    stacked net of ``members`` members, with ``extra`` arguments before the
+    net's; returns the costs."""
+    args, tensors = model.net_args(net, hidden, rows, members)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]

@@ -7,10 +7,11 @@ new_state, diagnostics)`` over an explicit state; everything that may
 change between steps (cost weights, attributes, dynamics constants)
 arrives in ``params`` as tensors on the optimizer's device.
 
-Ported so far is what MPPI, RPGD and gradient-tf need.  The JAX features
-these do not use raise ``NotImplementedError`` (ROADMAP): ``remat``,
-``risk_weight``, ``robust_eval``, ``initial_guess_policy`` and mesh
-sharding.
+Ported so far is what MPPI, RPGD, gradient-tf and the sampling zoo need,
+with the ensemble's ``risk_weight`` (a disagreement penalty on every
+trajectory cost) and ``robust_eval`` (every plan scored under every
+member).  The JAX features not ported raise ``NotImplementedError``
+(ROADMAP): ``remat``, ``initial_guess_policy`` and mesh sharding.
 """
 from __future__ import annotations
 
@@ -128,11 +129,30 @@ class Optimizer:
         **kwargs,
     ):
         for feature, on in (("remat", remat),
-                            ("initial_guess_policy", initial_guess_policy is not None),
-                            ("risk_weight", float(risk_weight) != 0.0),
-                            ("robust_eval", robust_eval is not None)):
+                            ("initial_guess_policy", initial_guess_policy is not None)):
             if on:
                 raise _not_ported(feature)
+        # Risk-averse planning: risk_weight * disagreement(s, Q), the
+        # predictor's per-rollout epistemic uncertainty (an ensemble's
+        # cross-member trajectory std), added to every trajectory cost;
+        # the gradient optimizers descend it too.  Needs a predictor with
+        # ``disagreement`` (checked at configure).
+        self.risk_weight = float(risk_weight)
+        # Robust evaluation over the ensemble's members: every plan scored
+        # under all E members (``rollout_all_members``) and the member costs
+        # aggregated: 'mean', 'worst' or 'cvar:<frac>' (the mean of the
+        # worst ceil(frac * E)).  E times the rollouts; composes with
+        # risk_weight.
+        if robust_eval is not None:
+            r = str(robust_eval)
+            if not (r in ("mean", "worst") or r.startswith("cvar:")):
+                raise ValueError(f"robust_eval must be 'mean', 'worst' or 'cvar:<frac>', "
+                                 f"got {robust_eval!r}")
+            if r.startswith("cvar:"):
+                frac = float(r.split(":", 1)[1])
+                if not 0.0 < frac <= 1.0:
+                    raise ValueError(f"cvar fraction must be in (0, 1], got {frac}")
+        self.robust_eval = robust_eval
         self.predictor = predictor
         self.cost_function = cost_function
         self.num_rollouts = int(num_rollouts)
@@ -175,6 +195,27 @@ class Optimizer:
         self.num_states = int(num_states)
         self.num_control_inputs = int(num_control_inputs)
         self.dt = dt
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        if self.risk_weight and self._disagreement_fn() is None:
+            raise ValueError(
+                "risk_weight requires a predictor exposing disagreement() (e.g. an "
+                f"'ensemble:<net>:<E>' EnsemblePredictor); got {type(pred).__name__}"
+            )
+        if self.robust_eval and not hasattr(pred, "rollout_all_members"):
+            raise ValueError(
+                "robust_eval requires a predictor exposing rollout_all_members() (an "
+                f"'ensemble:<net>:<E>' EnsemblePredictor); got {type(pred).__name__}"
+            )
+        E = getattr(pred, "n_members", None)
+        if E and E > 1 and self.num_rollouts > 1 and self.num_rollouts % E and not self.robust_eval:
+            # The ensemble-mean dynamics for the whole population would
+            # silently replace the trajectory sampling asked for.
+            raise ValueError(
+                f"num_rollouts={self.num_rollouts} does not divide over the {E} ensemble "
+                "members: trajectory sampling needs num_rollouts % n_members == 0 (pick E in "
+                "{2,4,8} for power-of-two populations, or set robust_eval to score every "
+                "plan under every member instead)"
+            )
         low, high = self._action_limits
         self.action_low = torch.as_tensor(low, device=self.device)
         self.action_high = torch.as_tensor(high, device=self.device)
@@ -256,11 +297,60 @@ class Optimizer:
     def _cost_params(self, params: Dict) -> Dict:
         return {"cost": params["cost"], "attrs": params["attrs"]}
 
+    def _disagreement_fn(self):
+        return getattr(getattr(self.predictor, "predictor", self.predictor), "disagreement",
+                       None)
+
+    def _wrap_risk(self, cost_fn):
+        """``cost_fn`` (``(s_tiled, Q, u_prev, params) -> [K]``) plus the
+        epistemic-uncertainty penalty when risk_weight is on."""
+        if not self.risk_weight or cost_fn is None:
+            return cost_fn
+        w, dis = self.risk_weight, self._disagreement_fn()
+
+        def wrapped(s_tiled, Q, u_prev, params):
+            return cost_fn(s_tiled, Q, u_prev, params) + w * dis(s_tiled, Q, params["dyn"])
+
+        return wrapped
+
+    def _robust_aggregate(self, member_costs: torch.Tensor) -> torch.Tensor:
+        """``[E, K]`` member costs -> ``[K]`` per the robust_eval mode."""
+        r = str(self.robust_eval)
+        if r == "mean":
+            return member_costs.mean(dim=0)
+        if r == "worst":
+            return member_costs.max(dim=0).values
+        n = max(1, int(np.ceil(float(r.split(":", 1)[1]) * member_costs.shape[0])))
+        return torch.topk(member_costs.T, n, dim=1).values.mean(dim=1)
+
+    def _robust_cost_and_members(self, s_tiled, Q, u_prev, params):
+        """Every plan under all E members (their mean dynamics), the member
+        costs aggregated per robust_eval: ``(cost [K], trajs [E, K, H+1,
+        S])``; differentiable (a subgradient through the max)."""
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        trajs = pred.rollout_all_members(s_tiled, Q, params["dyn"])
+        cp = self._cost_params(params)
+        costs = torch.stack([self.cost_function.get_trajectory_cost(tr, Q, u_prev, cp)
+                             for tr in trajs])
+        return self._robust_aggregate(costs), trajs
+
+    def _robust_member_cost(self):
+        def cost_fn(s_tiled, Q, u_prev, params):
+            return self._robust_cost_and_members(s_tiled, Q, u_prev, params)[0]
+
+        return cost_fn
+
     def _rollout_and_cost(self, s_tiled, Q, u_prev, params):
-        traj = self.predictor.rollout(s_tiled, Q, params["dyn"])
-        cost = self.cost_function.get_trajectory_cost(
-            traj, Q, u_prev, self._cost_params(params)
-        )
+        if self.robust_eval:
+            cost, trajs = self._robust_cost_and_members(s_tiled, Q, u_prev, params)
+            traj = trajs.mean(dim=0)  # the diagnostics' trajectory: the mean model's
+        else:
+            traj = self.predictor.rollout(s_tiled, Q, params["dyn"])
+            cost = self.cost_function.get_trajectory_cost(
+                traj, Q, u_prev, self._cost_params(params)
+            )
+        if self.risk_weight:
+            cost = cost + self.risk_weight * self._disagreement_fn()(s_tiled, Q, params["dyn"])
         return cost, traj
 
     def _can_fuse_rollout(self) -> bool:
@@ -287,19 +377,25 @@ class Optimizer:
         )
         return cost
 
-    def _make_cost_only(self):
-        """Best cost-only rollout evaluator, or None: the first kernel
-        family of ``COST_ORDER`` whose gate admits the model (K1 for an
-        ODE, K11/K13 for a learned net, K14 for a sparse GP, K12 for a
-        residual model; plain versions on CPU tensors) > the
-        fused loop > None (callers keep the trajectory path)."""
+    def _make_cost_only(self, differentiable: bool = False):
+        """Best cost-only rollout evaluator, or None: under robust_eval the
+        member-robust cost; else the first kernel family of ``COST_ORDER``
+        whose gate admits the model (K1 for an ODE, K11/K13 for a learned
+        net, K11's member-block form for an ensemble, K14 for a sparse GP,
+        K12 for a residual model; plain versions on CPU tensors) > the fused
+        loop > None (callers keep the trajectory path); each with the
+        risk_weight penalty.  ``differentiable`` leaves the kernels out
+        (they have no autograd rule): the gradient optimizers'
+        ``torch.autograd`` path."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
-        for fam in kf.COST_ORDER:
+        if self.robust_eval:
+            return self._wrap_risk(self._robust_member_cost())
+        for fam in kf.COST_ORDER if not differentiable else ():
             if fam.can_use_cost(self):
-                return fam.build_cost(self)
+                return self._wrap_risk(fam.build_cost(self))
         if self._can_fuse_rollout():
-            return self._fused_cost
+            return self._wrap_risk(self._fused_cost)
         return None
 
     def _make_grad_and_cost_only(self):
@@ -310,9 +406,10 @@ class Optimizer:
 
         With logging off and an eligible model the gradient is the first
         family of ``GRAD_ORDER`` whose gate admits it (K7 for an ODE, K8 for
-        an MLP, K10 for a GP, K9 for a residual model) and the cost
-        ``_make_cost_only``'s; otherwise
-        ``torch.autograd`` through the fused loop, or through the
+        an MLP, K8's member-block form for an ensemble, K10 for a GP, K9 for
+        a residual model) and the cost ``_make_cost_only``'s; otherwise
+        ``torch.autograd`` through ``_make_cost_only(differentiable=True)``
+        (the fused loop, with the risk and robust terms), or through the
         trajectory rollout when logging is on."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
@@ -325,9 +422,7 @@ class Optimizer:
 
                 return kernel_grad, self._make_cost_only()
 
-        cost_only = None
-        if not self.optimizer_logging and self._can_fuse_rollout():
-            cost_only = self._fused_cost
+        cost_only = None if self.optimizer_logging else self._make_cost_only(differentiable=True)
         eval_cost = cost_only or (lambda s, Q, up, p: self._rollout_and_cost(s, Q, up, p)[0])
 
         def autograd_grad(Q, s_tiled, u_prev, params):

@@ -1,0 +1,86 @@
+"""PETS ensemble kernel family: the member-block (``n_members``) forms of
+K11 and K8 (counterpart of
+control_toolkit_tpu/optimizers/kernel_families/ensemble.py).
+
+A TS-inf ensemble of E MLPs over K rollouts, block e of K/E rollouts under
+member e, in one launch: each block of the launch stages its member's
+weights, so an E-member rollout costs one net's operations.  The gates
+admit a TS-inf, non-probabilistic ``EnsemblePredictor`` over a cost with a
+device implementation (``ode.device_cost``: ``supports_fused_rollout``,
+scalar attributes, no ``post_terminal_cost``) and ``force_scan`` off; the
+gradient gate also refuses ``risk_weight`` and ``robust_eval`` (the
+kernel's dQ has no disagreement penalty and scores each plan under one
+member; those objectives keep ``torch.autograd`` through the loop).  The
+JAX gates' TPU conjuncts (backend, ``ensemble_tile_for``, ``grad_tile``)
+have no counterpart: a ragged K/E is masked in the kernels, and the
+wrappers raise on a member net whose weights exceed a block's shared
+memory or on K % E != 0 (``configure`` refuses that first).  The stacked
+weights are read from ``params["dyn"]["net"]`` at every call, so a re-fit
+or a checkpoint swap rebuilds nothing.  No batched (session-row) form:
+the JAX package keeps a fleet of ensembles on the vmapped per-slot step,
+which the port refuses (``controllers/batched_mpc.py:_refusal``).
+"""
+from __future__ import annotations
+
+from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
+from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout_ens
+from control_toolkit_tpu_torch.ops.neural_rollout import neural_cost_rollout_ens
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+
+name = "ensemble"
+
+
+def compatible_model(opt) -> bool:
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return (isinstance(pred, EnsemblePredictor) and pred.ts == "inf"
+            and not pred.probabilistic and device_cost(opt))
+
+
+def can_use_cost(opt) -> bool:
+    return not opt.force_scan and compatible_model(opt)
+
+
+def net_model(opt):
+    """``(NetModel, pack)`` for the member-block forms from the optimizer's
+    SOA bindings without dynamics constants."""
+    param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
+    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    model = kernels.NetModel(
+        plant=pred.environment_name,
+        param_keys=tuple(param_keys),
+        stage=stage_soa,
+        terminal=terminal_soa,
+        kind="mlp",
+        predict_delta=pred.predict_delta,
+        max_cost=float(cf.MAX_COST),
+    )
+    return model, pack
+
+
+def build_cost(opt):
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K11's member-block
+    form."""
+    model, pack = net_model(opt)
+
+    def cost_fn(s_tiled, Q, u_prev, params):
+        return neural_cost_rollout_ens(model, s_tiled, Q, pack(params, u_prev),
+                                       params["dyn"]["net"])
+
+    return cost_fn
+
+
+def can_use_grad(opt) -> bool:
+    return can_use_cost(opt) and not opt.risk_weight and not opt.robust_eval
+
+
+def build_grad(opt):
+    """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
+    over K8's member-block form."""
+    model, pack = net_model(opt)
+
+    def grad_fn(s_tiled, Q, u_prev, params):
+        return neural_grad_cost_rollout_ens(model, s_tiled, Q, pack(params, u_prev),
+                                            params["dyn"]["net"])
+
+    return grad_fn

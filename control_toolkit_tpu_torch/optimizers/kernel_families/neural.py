@@ -15,8 +15,9 @@ so a checkpoint swap or an advanced hidden needs no rebuild.  The
 session-row forms of K11 and K13 serve the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_neural_step`` and
 ``_make_batched_recurrent_step``), K8's and K11's its gradient fleets
-(``batched_kernels``).  Not ported: the ensemble (``n_members``) and the
-learned-terminal (``emit_terminal``, ``value_spec``) forms.
+(``batched_kernels``).  The ensemble's member-block (``n_members``) forms
+are ``kernel_families/ensemble.py``'s.  Not ported: the learned-terminal
+(``emit_terminal``, ``value_spec``) forms.
 """
 from __future__ import annotations
 

@@ -48,6 +48,18 @@ def neural_params_from_numpy(net: Dict, hidden=None, device: torch.device = torc
     return dyn
 
 
+def ensemble_params_from_numpy(net: Dict, device: torch.device = torch.device("cpu")) -> Dict:
+    """An ensemble predictor's ``dyn`` params, ``{"net": ...}``, from the
+    JAX package's stacked net (``w{i}`` [E, in, out], ``b{i}`` [E, out],
+    optional ``norm_*`` [E, n]) as float32 tensors; raises unless every
+    leaf has the same leading member axis."""
+    members = {np.shape(v)[0] if np.ndim(v) else None for v in net.values()}
+    if len(members) != 1 or None in members:
+        raise ValueError(f"stacked ensemble leaves need one leading member axis, got "
+                         f"{ {k: np.shape(v) for k, v in net.items()} }")
+    return {"net": _tree(net, device)}
+
+
 def mppi_state_from_numpy(u_nom, u_prev, generator: torch.Generator):
     """An ``MPPIState`` from the JAX state's ``u_nom [1,H,U]`` and
     ``u_prev [U]``."""

@@ -64,6 +64,7 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.models.neural_predictor",
     "control_toolkit_tpu_torch.models.residual_predictor",
     "control_toolkit_tpu_torch.models.gp_predictor",
+    "control_toolkit_tpu_torch.models.ensemble_predictor",
     "control_toolkit_tpu_torch.environments.cartpole",
 )
 

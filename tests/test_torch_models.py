@@ -148,7 +148,10 @@ def test_custom_dynamics_and_unported_specs():
     with pytest.raises(NotImplementedError):
         pw.configure(device="cpu", predictor_specification="ODE:rk4:1:fast")
     with pytest.raises(KeyError):
-        pw.configure(device="cpu", predictor_specification="ensemble:mlp-32-32")
+        pw.configure(device="cpu", predictor_specification="transformer:8")
+    # ported: the PETS ensemble, five members by default (a random init)
+    pw.configure(device="cpu", predictor_specification="ensemble:mlp-32-32")
+    assert pw.predictor.n_members == 5 and tuple(pw.predictor.net_params["w0"].shape) == (5, 5, 32)
     with pytest.raises(ValueError, match="checkpoint"):
         pw.configure(device="cpu", predictor_specification="SGP_30")  # ported: needs a fitted GP
     # ported: the base ODE and a residual

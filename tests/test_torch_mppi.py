@@ -237,4 +237,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         make_port_ctrl(32, 10, optim_steps=2)
     with pytest.raises(NotImplementedError):
+        make_port_ctrl(32, 10, remat=True)
+    # risk_weight is ported (PETS ensembles): over the ODE, as in the JAX
+    # package, it needs a predictor with a disagreement.
+    with pytest.raises(ValueError, match="disagreement"):
         make_port_ctrl(32, 10, risk_weight=0.5)
