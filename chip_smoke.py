@@ -268,6 +268,34 @@ member-block (n_members) forms of K11 and K8:
     K11 form plus the members' disagreement), each with one update against
     the CPU's.
 
+The learned value terminal on the ODE path (costs/value_terminal.py:
+``attach_value_terminal``, V a tanh MLP from the state to a cost-to-go),
+over the committed value net (control_toolkit_tpu_torch/assets/cartpole/
+value-mlp-32-32.npz, 4-32-32-1, fitted by the JAX package on its MPPI's
+realized costs-to-go) on the emit_terminal forms of K1, K2 and K4 and K7's
+value_spec form:
+54. K1's, K2's and K4's emit_terminal forms (cost_rollout_emit,
+    mppi_cost_emit, mppi_cost_cols_emit) against their plain versions at
+    phase 2's, 3's and (B=32 of K=512, H=35) 35's operands and at a ragged
+    K (1,000; K4: 3 sessions of 1,000): their costs equal, bit for bit, to
+    the kernels' own, the terminal states to X_TOL, a bound that must
+    reject x_{H-1} in place of x_H and rollout k+1's x_H; each timed beside
+    its kernel; the six kernels' registers (``emit_resources``);
+55. K7's value_spec form (grad_cost_rollout_value) against its plain
+    version over a seeded 4-32-32-1 V at scale 100, J to KERNEL_TOL and dQ
+    to K7's bound, which must reject dV/dx_H dropped from the seed, the
+    scale left out and V added without the 1/(H+1); also at ragged K and
+    over a second V with nothing built; its two launches timed apart, their
+    registers and shared memory;
+56. from LEARNED_START, 200 semi-fused MPPI ticks (one K2 form a tick), 100
+    rpgd-tf ticks (two K7 forms, one K1 form) and 100 MPPI ticks at H=10
+    (the short horizon the value is for), the pole recorded, not required;
+57. one update of each on the card against the same update on the CPU, and
+    a V swap (new weights, new scale) that builds nothing;
+58. 50 ticks of a 32-session MPPI fleet with V (phase 40's configuration;
+    one K4 form a tick), the poles counted, and one fleet update against
+    the CPU's.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -280,8 +308,9 @@ rpgd-tf over the MLP and of MPPI over the GP from other start states and
 seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
-icem; MPPI and rpgd-tf over the ensemble; the fleet paths at both sizes
-of phases 40, 44 and 48), printing per tick the
+icem; MPPI and rpgd-tf over the ensemble; the valued MPPI (H=50, H=10) and
+rpgd-tf; the fleet paths at both sizes of phases 40, 44 and 48), printing
+per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
 
@@ -300,6 +329,7 @@ config explicitly, so no config file is read).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -314,15 +344,19 @@ import torch
 
 from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.costs.value_terminal import (
+    attach_value_terminal, update_value_params,
+)
 from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
 from control_toolkit_tpu_torch.models.gp_predictor import fit_gp_dynamics
-from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state
+from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state, load_net
 from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
 from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
 from control_toolkit_tpu_torch.ops.cost_rollout import (
-    cost_rollout, cost_rollout_cols, cost_rollout_cols_plain, cost_rollout_plain,
+    cost_rollout, cost_rollout_cols, cost_rollout_cols_plain, cost_rollout_emit,
+    cost_rollout_emit_plain, cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.counter_prng import (
     DEFAULT_TILE_K, ROWS, normals_from_counter, rollout_coords, seed_base,
@@ -347,14 +381,16 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
-    grad_cost_rollout_plain, launch_part,
+    grad_cost_rollout_plain, grad_cost_rollout_value, launch_part,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import (
-    mppi_controls_cost_plain, mppi_controls_plain, mppi_cost, mppi_cost_plain,
+    mppi_controls_cost_plain, mppi_controls_plain, mppi_cost, mppi_cost_emit,
+    mppi_cost_emit_plain, mppi_cost_plain,
 )
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
-    mppi_cost_cols, mppi_cost_cols_plain, per_rollout,
+    mppi_cost_cols, mppi_cost_cols_emit, mppi_cost_cols_emit_plain, mppi_cost_cols_plain,
+    per_rollout,
 )
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
@@ -443,7 +479,10 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "residual_grad_cost_rollout_cols": residual_grad_cost_rollout_cols,
            "gp_grad_cost_rollout_cols": gp_grad_cost_rollout_cols,
            "neural_cost_rollout_ens": neural_cost_rollout_ens,
-           "neural_grad_cost_rollout_ens": neural_grad_cost_rollout_ens}
+           "neural_grad_cost_rollout_ens": neural_grad_cost_rollout_ens,
+           "cost_rollout_emit": cost_rollout_emit, "mppi_cost_emit": mppi_cost_emit,
+           "mppi_cost_cols_emit": mppi_cost_cols_emit,
+           "grad_cost_rollout_value": grad_cost_rollout_value}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -655,6 +694,29 @@ GRAD_FLEET_TICKS, GRAD_FLEET_SWAP_AT = 50, 25
 ENS_SPEC = f"ensemble:mlp-32-32:4:{ASSETS}"
 ENS_TICKS, ENS_RPGD_TICKS, ENS_OPTION_TICKS = 200, 200, 20
 ENS_RAGGED_K, ENS_MANY, ENS_RISK = 1200, 8, 0.1
+# The learned value terminal on the ODE path (costs/value_terminal.py; the
+# MBVE / TD-MPC recipe, bench_scale.py:858): the emit_terminal forms of
+# K1, K2 and K4 and K7's value_spec form are held to their plain versions
+# at the main path's shapes (K4: the fleet's) and at VALUE_RAGGED_K, over
+# a seeded random V of VALUE_DIMS (seed VALUE_SEED) at VALUE_SCALE, large
+# enough that V moves dQ well past K7's bound; the loops run over the
+# committed value net (value-mlp-32-32.npz, fitted by the JAX package,
+# tests/test_torch_value.py:make_assets) from LEARNED_START: semi-fused
+# MPPI VALUE_TICKS, rpgd-tf VALUE_RPGD_TICKS, MPPI at the short horizon
+# VALUE_SHORT_H VALUE_SHORT_TICKS, the MPPI fleet (phase 40's) at FLEET_B
+# VALUE_FLEET_TICKS.  A V swap (VALUE_SWAP_SEED, VALUE_SWAP_SCALE) rebuilds
+# nothing.  The terminal states are held to X_TOL (|x_H| < ~20 over 50
+# rk4 steps: FMA contraction against separate rounding), whose bound must
+# reject x_{H-1} in place of x_H and rollout k+1's x_H by VALUE_MARGIN
+# times its absolute part; so must K7's dQ bound each of its three wrong
+# variants.
+VALUE_FILE = ASSETS / "value-mlp-32-32.npz"
+VALUE_DIMS, VALUE_SEED, VALUE_SCALE, VALUE_SWAP_SEED, VALUE_SWAP_SCALE = (4, 32, 32, 1), 5, \
+    100.0, 6, 50.0
+VALUE_RAGGED_K, VALUE_MARGIN = 1000, 10.0
+VALUE_TICKS, VALUE_RPGD_TICKS, VALUE_SHORT_H, VALUE_SHORT_TICKS, VALUE_FLEET_TICKS = \
+    200, 100, 10, 100, 50
+X_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -926,10 +988,12 @@ def to_cpu(tree):
     return tree.cpu() if isinstance(tree, torch.Tensor) else tree
 
 
-def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config=None) -> None:
+def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config=None,
+                       value=None) -> None:
     """Phases 6, 17 and 26: one MPPI update on the card and on the CPU (the
     plain versions) from the card's state and params (a recurrent net's
-    live hidden included), with one draw."""
+    live hidden included), with one draw; ``value``: the learned terminal
+    value the CPU's controller gets too (phase 58)."""
     opt = ctrl.optimizer
     state = opt.opt_state
     s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
@@ -937,6 +1001,8 @@ def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config
     params = ctrl._assemble_params()
     _, _, diag = opt.update(state, s_now, params, noise)
     cpu = make_controller("cpu", spec=spec, config=config)
+    if value is not None:
+        attach_value_terminal(cpu, to_cpu(value))
     cpu_state = mppi_state_from_numpy(state.u_nom.cpu().numpy(), state.u_prev.cpu().numpy(),
                                       torch.Generator())
     _, _, cpu_diag = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params), noise.cpu())
@@ -949,10 +1015,10 @@ def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config
 
 
 def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
-                       spec: str = "ODE", config=None) -> None:
+                       spec: str = "ODE", config=None, value=None) -> None:
     """Phases 10, 17 and 26: one rpgd-tf update on the card and on the CPU
     (the plain versions) from the card's state and params, on a resample
-    tick, with one draw.
+    tick, with one draw; ``value`` as update_vs_cpu_mppi's.
 
     Adam's step from zero moments is about lr * sign(g) whatever |g|: where
     a gradient entry and its moments' history are both within the dQ
@@ -970,6 +1036,8 @@ def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
     u, new, diag = opt.update(state, s_now, params, draw)
 
     cpu = make_controller("cpu", "rpgd-tf", config or RPGD_CONFIG, spec=spec)
+    if value is not None:
+        attach_value_terminal(cpu, to_cpu(value))
     host = [t.cpu().numpy() for t in (state.Q, state.adam.m, state.adam.v,
                                       state.trajectory_ages, state.u_prev)]
     cpu_state = rpgd_state_from_numpy(host[0], host[1], host[2], state.adam.step, host[3],
@@ -3614,6 +3682,204 @@ def compare_ens_grad(model, s0, Q, pvec, net) -> dict:
     return numbers
 
 
+# ---- the learned value terminal's phases -----------------------------------------
+def seeded_value(device, seed: int = VALUE_SEED, scale: float = VALUE_SCALE) -> list:
+    """A seeded random tanh MLP V of VALUE_DIMS as K7's value_spec operands
+    ``[w0, b0, ...]`` with ``scale`` folded into its last layer (weights
+    N(0, 1/fan_in), biases N(0, 0.01))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ops = []
+    for i, (fi, fo) in enumerate(zip(VALUE_DIMS[:-1], VALUE_DIMS[1:])):
+        last = i == len(VALUE_DIMS) - 2
+        ops += [torch.randn(fi, fo, generator=gen, device=device) * (fi ** -0.5)
+                * (scale if last else 1.0),
+                0.1 * torch.randn(fo, generator=gen, device=device) * (scale if last else 1.0)]
+    return ops
+
+
+def value_net_ops(dims=VALUE_DIMS) -> float:
+    """FP32 operations of V and its VJP at one state: each layer's product
+    twice (forward and transposed, a multiply-add two), its bias, and per
+    hidden unit its tanh (1) and tanh' (3: the square, the difference and
+    the product)."""
+    pairs = list(zip(dims[:-1], dims[1:]))
+    return sum(4 * fi * fo + fo for fi, fo in pairs) + 4 * sum(dims[1:-1])
+
+
+def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_args: tuple,
+                 ragged: tuple, n_bytes: float, ops: float) -> dict:
+    """Phase 54: an emit_terminal form ``emit_fn(*args) -> (cost, x_H)``
+    against its plain version ``plain_fn`` on the same card tensors: its
+    costs equal, bit for bit, to the kernel's ``unvalued_fn(*args)`` (the
+    same body); x_H to X_TOL, a bound that must reject x_{H-1} emitted in
+    its place (``plain_fn(*prev_args)``'s terminal states: the horizon one
+    step shorter) and rollout k+1's x_H, each by VALUE_MARGIN times its
+    absolute part; both again at the ``ragged`` operands; its time, the
+    kernel's and the plain version's."""
+    (cost, x), cost_k = emit_fn(*args), unvalued_fn(*args)
+    ref_cost, ref_x = plain_fn(*args)
+    x_prev = plain_fn(*prev_args)[1]
+    torch.cuda.synchronize()
+    rows = ref_x.reshape(-1, ref_x.shape[-1])
+    mutants = {"x_H_minus_1": x_prev, "next_rollout_x_H": rows.roll(-1, 0).reshape(ref_x.shape)}
+    (rc, rx), (gc, gx) = plain_fn(*ragged), emit_fn(*ragged)
+    torch.cuda.synchronize()
+    numbers = {
+        "costs_equal_to_kernel": bool(torch.equal(cost, cost_k)),
+        "cost_max_abs_err": max_errors(cost, ref_cost)[0],
+        "x_max_abs_err": max_errors(x, ref_x)[0], "x_max_abs": float(ref_x.abs().max()),
+        "x_atol": X_TOL["atol"],
+        "mutant_x_max_abs_err": {k: max_errors(m, ref_x)[0] for k, m in mutants.items()},
+        "ragged": {"costs": max_errors(gc, rc)[0], "x": max_errors(gx, rx)[0],
+                   "equal_to_kernel": bool(torch.equal(gc, unvalued_fn(*ragged)))},
+        "finite": bool(torch.isfinite(cost).all() and torch.isfinite(x).all()),
+        "ms": cuda_ms(lambda: emit_fn(*args), 50),
+        "kernel_ms": cuda_ms(lambda: unvalued_fn(*args), 50),
+        "plain_ms": cuda_ms(lambda: plain_fn(*args), 3),
+        **bound(ops, n_bytes)}
+    numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
+    emit(label, numbers)
+    check(numbers["finite"] and x.shape == ref_x.shape, f"{label}: bad output")
+    check(numbers["costs_equal_to_kernel"] and numbers["ragged"]["equal_to_kernel"],
+          f"{label}: its costs are not the kernel's {numbers}")
+    for got, ref, xs, xr in ((cost, ref_cost, x, ref_x), (gc, rc, gx, rx)):
+        check(torch.allclose(got, ref, **KERNEL_TOL) and torch.allclose(xs, xr, **X_TOL),
+              f"{label}: disagrees with its plain version {numbers}")
+    for k, m in mutants.items():
+        check(numbers["mutant_x_max_abs_err"][k] >= VALUE_MARGIN * X_TOL["atol"]
+              and not torch.allclose(m, ref_x, **X_TOL),
+              f"{label}: the x_H bound does not reject {k} by {VALUE_MARGIN}x {numbers}")
+    return numbers
+
+
+def compare_value_grad(model, s0, Qg, pvec) -> dict:
+    """Phase 55: K7's value_spec form against its plain version over
+    seeded_value's V: J to KERNEL_TOL, dQ to K7's bound; that bound must
+    reject, each by VALUE_MARGIN times its absolute part, dV/dx_H dropped
+    from the seed (K7's own dQ), the value scale left out and V added
+    without the 1/(H+1) (its last layer times H+1); the same at
+    VALUE_RAGGED_K; a second V (VALUE_SWAP_SEED at VALUE_SWAP_SCALE) held
+    again with nothing built; the two launches timed apart, the host's
+    time to enqueue a call of the form and of K7; resources."""
+    Hh = Qg.shape[1]
+    ops = seeded_value(s0.device)
+    unscaled = seeded_value(s0.device, scale=1.0)
+    no_inv = ops[:-2] + [ops[-2] * (Hh + 1), ops[-1] * (Hh + 1)]
+    got, ref = grad_cost_rollout_value(model, s0, Qg, pvec, ops), \
+        grad_cost_rollout_plain(model, s0, Qg, pvec, ops)
+    wrong = {"no_dV_in_seed": grad_cost_rollout_plain(model, s0, Qg, pvec)[1],
+             "no_value_scale": grad_cost_rollout_plain(model, s0, Qg, pvec, unscaled)[1],
+             "no_inv_h1": grad_cost_rollout_plain(model, s0, Qg, pvec, no_inv)[1]}
+    torch.cuda.synchronize()
+    atol = DQ_ATOL_FRAC * float(ref[1].abs().max())
+    numbers = {"cost_max_abs_err": max_errors(got[0], ref[0])[0],
+               "dQ_max_abs_err": max_errors(got[1], ref[1])[0],
+               "dQ_max_abs": float(ref[1].abs().max()), "dQ_atol": atol,
+               "mutant_dQ_max_abs_err": {k: max_errors(m, ref[1])[0] for k, m in wrong.items()},
+               "finite": bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())}
+    numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["dQ_max_abs_err"])
+    check(numbers["finite"] and torch.allclose(got[0], ref[0], **KERNEL_TOL)
+          and close(got[1], ref[1], DQ_RTOL, DQ_ATOL_FRAC),
+          f"K7's value_spec form disagrees with its plain version {numbers}")
+    for k, m in wrong.items():
+        check(numbers["mutant_dQ_max_abs_err"][k] >= VALUE_MARGIN * atol
+              and not close(m, ref[1], DQ_RTOL, DQ_ATOL_FRAC),
+              f"K7 value_spec: the dQ bound does not reject {k} by {VALUE_MARGIN}x {numbers}")
+    cases = {}
+    builds = kernels.build.count
+    swap = seeded_value(s0.device, VALUE_SWAP_SEED, VALUE_SWAP_SCALE)
+    for case, (s, q, v) in {f"K{VALUE_RAGGED_K}": (*first_k(VALUE_RAGGED_K, s0, Qg), ops),
+                            "swapped_V": (s0, Qg, swap)}.items():
+        (c, d), (rc, rd) = (grad_cost_rollout_value(model, s, q, pvec, v),
+                            grad_cost_rollout_plain(model, s, q, pvec, v))
+        torch.cuda.synchronize()
+        cases[case] = errs = {"cost_max_abs_err": max_errors(c, rc)[0],
+                              "dQ_max_abs_err": max_errors(d, rd)[0],
+                              "dQ_max_abs": float(rd.abs().max())}
+        check(torch.allclose(c, rc, **KERNEL_TOL) and close(d, rd, DQ_RTOL, DQ_ATOL_FRAC),
+              f"K7 value_spec {case}: disagrees {errs}")
+    cases["swapped_V"]["moved_dQ"] = max_errors(
+        grad_cost_rollout_value(model, s0, Qg, pvec, swap)[1], got[1])[0]
+    check(kernels.build.count == builds and cases["swapped_V"]["moved_dQ"] > atol,
+          f"K7 value_spec: a V swap rebuilt something or did not reach dQ {cases}")
+    K_, S = s0.shape
+    cost, dQ = torch.empty(K_, device=s0.device), torch.empty_like(Qg)
+    xhist = torch.empty(Hh + 1, S, K_, device=s0.device)
+    value = (kernels.value_args(ops, S), torch.empty(S, K_, device=s0.device))
+    parts = {part: cuda_ms(lambda: launch_part(part, model, s0, Qg, pvec, cost, dQ, xhist,
+                                               value=value), 50)
+             for part in ("forward", "adjoint")}
+    host = {}
+    for label, fn in (("k7", lambda: grad_cost_rollout(model, s0, Qg, pvec)),
+                      ("value", lambda: grad_cost_rollout_value(model, s0, Qg, pvec, ops))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        host[label] = (time.perf_counter() - t0) * 1e3 / 50
+        torch.cuda.synchronize()
+    numbers.update({
+        "cases": cases, "part_ms": parts, "host_enqueue_ms": host,
+        "ms": cuda_ms(lambda: grad_cost_rollout_value(model, s0, Qg, pvec, ops), 50),
+        "k7_ms": cuda_ms(lambda: grad_cost_rollout(model, s0, Qg, pvec), 50),
+        "plain_ms": cuda_ms(lambda: grad_cost_rollout_plain(model, s0, Qg, pvec, ops), 3),
+        "forward": {**ptxas_resources("grad_cost_forward_value_kernel"),
+                    "dynamic_smem_bytes": int(kernels.load().ctt_value_smem_bytes(
+                        ctypes.byref(value[0]), S))},
+        "adjoint": ptxas_resources("grad_cost_adjoint_value_kernel"),
+        **bound(K_ * Hh * (RK4_STEP_OPS + STAGE_OPS + RK4_VJP_OPS + STAGE_VJP_OPS)
+                + K_ * value_net_ops(), nbytes(s0, Qg, pvec, Qg, *ops) + 4 * K_)})
+    emit("k7_value_grad_cost_rollout", numbers)
+    return numbers
+
+
+def value_swap_rebuilds_nothing(ctrl: MPCController, net: dict) -> None:
+    """Phase 57: a V swap on a valued semi-fused MPPI controller
+    (update_value_params with new weights, then attach_value_terminal again
+    with a new scale, which updates the wrapper in place) starts no nvcc
+    and rebuilds no step; the same draw's costs move, and a step runs."""
+    opt = ctrl.optimizer
+    builds, epoch = kernels.build.count, opt._build_epoch
+    s_now = torch.tensor(LEARNED_START[None], device=opt.device)
+    state, noise = opt.opt_state, opt.sample_noise(opt.opt_state)
+    j0 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]["J_logged"]
+    update_value_params(ctrl, {k: 0.5 * v for k, v in net.items()})
+    vt = attach_value_terminal(ctrl, ctrl._value_holder["params"], VALUE_SWAP_SCALE)
+    j1 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]["J_logged"]
+    u = ctrl.step(LEARNED_START.copy())
+    numbers = {"builds": kernels.build.count - builds, "step_builds": opt._build_epoch - epoch,
+               "scale": vt.value_scale, "J_moved": max_errors(j1, j0)[0],
+               "u": [float(v) for v in u]}
+    emit("value_swap", numbers)
+    check(numbers["builds"] == 0 and numbers["step_builds"] == 0 and numbers["J_moved"] > 0.0,
+          f"a V swap rebuilt something or did not reach the costs {numbers}")
+
+
+def value_fleet_update_vs_cpu(ctrl: BatchedMPCController, net: dict, gen) -> None:
+    """Phase 58: one valued fleet update on the card (K4's emit_terminal
+    form, each session's V(x_H)/(H+1) before its softmax) against the same
+    update on the CPU, with the same draws: costs to the kernel bound, the
+    new plans to UNOM_ATOL."""
+    B = ctrl.num_slots
+    opt = ctrl.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    eps = opt.sample_slot_noise(ctrl.slot_states.generator, np.ones(B, bool))
+    _, update = opt._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
+    cpu = fleet_controller("cpu", "mppi", FLEET_MPPI_CONFIG, B)
+    attach_value_terminal(cpu, to_cpu(net))
+    _, update_c = cpu.optimizer._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
+    st = ctrl.slot_states
+    u_nom, costs = update(st, s, dyn, cost, attrs, eps)
+    u_nom_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost),
+                                to_cpu(attrs), eps.cpu())
+    numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
+    emit("fleet_value_update_vs_cpu", numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL)
+          and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"the valued fleet update on the card differs from the CPU's {numbers}")
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -4035,6 +4301,96 @@ def main() -> None:
                                                       ENS_OPTION_TICKS, expected,
                                                       pole_check=False)
         update_vs_cpu_mppi(f"ensemble_{label}_update_vs_cpu", c, ENS_SPEC, config)
+
+    # 54. The emit_terminal forms of K1, K2 and K4 against their plain
+    # versions (phase 2's, 3's and 35's operands; K4 at the fleet's B=32).
+    P, S = opt.interp.number_of_interpolation_inducing_points, s0.shape[1]
+    k1e = compare_emit("k1_emit_cost_rollout", cost_rollout_emit, cost_rollout,
+                       cost_rollout_emit_plain, (model, s0, Q, pvec),
+                       (model, s0, Q[:, :-1].contiguous(), pvec),
+                       (model, *first_k(VALUE_RAGGED_K, s0, Q), pvec),
+                       nbytes(s0, Q, pvec) + 4 * K * (1 + S), K * H * (RK4_STEP_OPS + STAGE_OPS))
+    W = opt.interp.matrix
+    k2_prev = (model, k2_args[1], k2_args[2][:-1].contiguous(), pvec, eps,
+               W[:, :-1].contiguous()) + k2_args[6:]
+    k2_rag = k2_args[:4] + (eps[:, :, :VALUE_RAGGED_K].contiguous(),) + k2_args[5:]
+    k2e = compare_emit("k2_emit_mppi_cost", mppi_cost_emit, mppi_cost, mppi_cost_emit_plain,
+                       k2_args, k2_prev, k2_rag, nbytes(*k2_args[1:8]) + 4 * K * (1 + S),
+                       K * H * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS))
+    fopt = fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B).optimizer
+    fmodel, pvec_b, fs0 = fleet_operands(fopt, FLEET_B, gen)
+    Pf, Kf, Hf = (fopt.interp.number_of_interpolation_inducing_points, fopt.num_rollouts,
+                  fopt.mpc_horizon)
+    fu = torch.clamp(0.2 * torch.randn(FLEET_B, Hf, 1, generator=gen, device=device), -1.0, 1.0)
+    feps = fopt.SQRTRHODTINV * torch.randn(FLEET_B, Pf, 1, Kf, generator=gen, device=device)
+    fconsts = (fopt.interp.matrix, fopt.action_low, fopt.action_high, fopt.cc_weight, fopt.R,
+               fopt.NU)
+    k4_args = (fmodel, fs0, fu, pvec_b, feps) + fconsts
+    k4_prev = (fmodel, fs0, fu[:, :-1].contiguous(), pvec_b, feps,
+               fconsts[0][:, :-1].contiguous()) + fconsts[1:]
+    k4_rag = (fmodel, fs0[:3], fu[:3], pvec_b[:3],
+              fopt.SQRTRHODTINV * torch.randn(3, Pf, 1, VALUE_RAGGED_K, generator=gen,
+                                              device=device)) + fconsts
+    k4e = compare_emit("k4_emit_mppi_cost_cols", mppi_cost_cols_emit, mppi_cost_cols,
+                       mppi_cost_cols_emit_plain, k4_args, k4_prev, k4_rag,
+                       nbytes(fs0, fu, pvec_b, feps, *fconsts[:3]) + 4 * FLEET_B * Kf * (1 + S),
+                       FLEET_B * Kf * Hf * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS))
+    emit("emit_resources", {name: ptxas_resources(kernel, instance) for name, (kernel, instance)
+                            in {"k1": ("cost_rollout_kernel", SINGLE),
+                                "k1_emit": ("cost_rollout_emit_kernel", ""),
+                                "k2": ("mppi_cost_kernel", ""),
+                                "k2_emit": ("mppi_cost_emit_kernel", ""),
+                                "k4": ("mppi_cost_cols_kernel", ""),
+                                "k4_emit": ("mppi_cost_cols_emit_kernel", ""),
+                                "k7_forward": ("grad_cost_forward_kernel", SINGLE),
+                                "k7_adjoint": ("grad_cost_adjoint_kernel", SINGLE)}.items()})
+
+    # 55. K7's value_spec form against its plain version (phase 7's operands).
+    k7v = compare_value_grad(model, s0, Qg, pvec)
+
+    # 56. The valued loops over the committed value net, each counted from
+    # 0: semi-fused MPPI (one K2 form a tick), rpgd-tf (two K7 forms and one
+    # K1 form) and the short-horizon MPPI.
+    vnet = load_net(VALUE_FILE, device)[0]
+
+    def valued(optimizer: str, config: dict) -> MPCController:
+        c = make_controller("cuda", optimizer, config)
+        attach_value_terminal(c, vnet)
+        return c
+
+    vmppi, vrpgd = valued("mppi", OPTIMIZER_CONFIG), valued("rpgd-tf", RPGD_CONFIG)
+    short_config = {**OPTIMIZER_CONFIG, "mpc_horizon": VALUE_SHORT_H}
+    vshort = valued("mppi", short_config)
+    check(vmppi.optimizer._uses_semi_fused() and vshort.optimizer._uses_semi_fused()
+          and ode.can_use_grad(vrpgd.optimizer) and vrpgd.optimizer._value_grad_spec(),
+          "the valued controllers did not take the value forms")
+    runs["mppi_value"] = counted_loop("slice_mppi_value", vmppi, VALUE_TICKS,
+                                      {"mppi_cost_emit": VALUE_TICKS}, start=LEARNED_START,
+                                      pole_check=False)
+    runs["rpgd_value"] = counted_loop("slice_rpgd_value", vrpgd, VALUE_RPGD_TICKS,
+                                      {"cost_rollout_emit": VALUE_RPGD_TICKS,
+                                       "grad_cost_rollout_value": 2 * VALUE_RPGD_TICKS},
+                                      start=LEARNED_START, pole_check=False)
+    runs["mppi_value_short"] = counted_loop("slice_mppi_value_h10", vshort, VALUE_SHORT_TICKS,
+                                            {"mppi_cost_emit": VALUE_SHORT_TICKS},
+                                            start=LEARNED_START, pole_check=False)
+
+    # 57. One update of each on the card against the same update on the
+    # CPU; a V swap.
+    update_vs_cpu_mppi("mppi_value_update_vs_cpu", vmppi, value=vnet)
+    update_vs_cpu_rpgd(vrpgd, "rpgd_value_update_vs_cpu", value=vnet)
+    update_vs_cpu_mppi("mppi_value_h10_update_vs_cpu", vshort, config=short_config, value=vnet)
+    value_swap_rebuilds_nothing(vshort, vnet)
+
+    # 58. The valued MPPI fleet (phase 40's configuration): one K4 form a
+    # tick, counted from 0; one update against the CPU's.
+    vfleet = fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B)
+    attach_value_terminal(vfleet, vnet)
+    check(vfleet._batched_kernel_eligible(), "the valued fleet did not take K4's form")
+    runs["fleet_mppi_value"] = fleet_loop("slice_fleet_mppi_value", vfleet, VALUE_FLEET_TICKS,
+                                          {"mppi_cost_cols_emit": VALUE_FLEET_TICKS},
+                                          pole_check=False)
+    value_fleet_update_vs_cpu(vfleet, vnet, gen)
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     if "--starts" in sys.argv[1:]:
@@ -4045,7 +4401,9 @@ def main() -> None:
                         ("mppi-residual", adaptive), ("rpgd-tf-residual", res_rpgd),
                         ("mppi-gp", gp_mppi), ("rpgd-tf-gp", gp_rpgd), ("cem", cem),
                         ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem),
-                        ("mppi-ensemble", ens_mppi), ("rpgd-tf-ensemble", ens_rpgd)):
+                        ("mppi-ensemble", ens_mppi), ("rpgd-tf-ensemble", ens_rpgd),
+                        ("mppi-value", vmppi), ("rpgd-tf-value", vrpgd),
+                        ("mppi-value-h10", vshort)):
             profile_ticks(name, env_tick(c))
         for name, tick in fleet_ticks.items():
             profile_ticks(name, tick)
@@ -4088,6 +4446,10 @@ def main() -> None:
         ("neural_cost_rollout_ens", "neural_rollout.cu", "ops/pallas_neural.py:157", k11e),
         ("neural_grad_cost_rollout_ens", "neural_grad_rollout.cu", "ops/pallas_grad.py:387",
          k8e),
+        ("cost_rollout_emit", "cost_rollout.cu", "ops/pallas_rollout.py:34", k1e),
+        ("mppi_cost_emit", "mppi_cost.cu", "ops/pallas_mppi.py:501", k2e),
+        ("mppi_cost_cols_emit", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", k4e),
+        ("grad_cost_rollout_value", "grad_cost_rollout.cu", "ops/pallas_grad.py:335", k7v),
     )
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

@@ -12,7 +12,8 @@ so an idle session keeps its warm start and its random stream exactly.
 The session kinds ported, each over its batched kernel:
 
 * semi-fused MPPI over an ODE model: one K4 launch a tick
-  (``MPPIOptimizer._make_batched_semi_fused_step``);
+  (``MPPIOptimizer._make_batched_semi_fused_step``), with a learned value
+  terminal (``attach_value_terminal``) one of K4's emit_terminal form;
 * fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
   outer iteration (``CEMOptimizer._make_batched_fused_cem_step``);
 * plain MPPI over a learned model, one launch a tick of its kernel's
@@ -37,8 +38,9 @@ missing (ROADMAP A9): the vmapped per-slot step that the JAX package
 takes for everything else (modular CEM, an RPGD or gradient fleet with
 warmup or over a recurrent net, a user's ``force_scan: true``, logging),
 the batched ``mppi-var`` step, the slot mesh and a learned value terminal
-(the ``emit_terminal`` and ``value_spec`` forms).  Nothing falls back to
-a per-slot loop or to the CPU.
+on any other fleet (CEM's vmapped per-slot step, the ``emit_terminal``
+forms of K11-K14 and the ``value_spec`` forms of K7-K10).  Nothing falls
+back to a per-slot loop or to the CPU.
 """
 from __future__ import annotations
 
@@ -105,6 +107,12 @@ class BatchedMPCController(MPCController):
         nothing."""
         if mesh is not None or slot_axis is not None:
             raise _not_ported("the slot mesh (configure(mesh=..., slot_axis=...))")
+        # The call, kept so that attach_value_terminal can configure again
+        # and build the batched step against the wrapped cost.
+        self._configure_stash = (args, dict(
+            kwargs, optimizer_config=(dict(kwargs["optimizer_config"])
+                                      if kwargs.get("optimizer_config") is not None else None),
+            num_slots=num_slots, per_slot_dyn=per_slot_dyn))
         super().configure(*args, **kwargs)
         self.num_slots = B = int(num_slots)
         if B < 1:
@@ -169,7 +177,9 @@ class BatchedMPCController(MPCController):
     def _batched_kernel_eligible(self) -> bool:
         """K4's gate (JAX ``batched_mpc.py:459`` without its TPU
         conjuncts): plain semi-fused MPPI over an ODE model of a device
-        plant, and K a multiple of 8 (the sessions' rollout order)."""
+        plant, and K a multiple of 8 (the sessions' rollout order); a
+        post-terminal hook (a learned value terminal) is admitted, K4's
+        emit_terminal form carrying it."""
         from control_toolkit_tpu_torch.ops.counter_prng import ROWS
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
@@ -177,7 +187,7 @@ class BatchedMPCController(MPCController):
         return (
             self._plain_mppi()
             and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
-                                       stateful=self._stateful)
+                                       stateful=self._stateful, post_ok=True)
             and opt.semi_fused
             and ode.compatible_model(opt)
             and opt.num_rollouts % ROWS == 0
@@ -292,6 +302,7 @@ class BatchedMPCController(MPCController):
         from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
         from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         opt = self.optimizer
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
@@ -299,12 +310,22 @@ class BatchedMPCController(MPCController):
             # The ensemble kernels have no session-row form in either package.
             return _not_ported("the vmapped per-slot batched step (taken for a fleet over an "
                                "ensemble predictor)")
-        if getattr(cf, "post_terminal_cost", None) is not None:
-            return _not_ported("a learned value terminal in batched mode (the emit_terminal "
-                               "forms of K4 and K11-K14, the value_spec forms of K7-K10)")
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
+        if getattr(cf, "post_terminal_cost", None) is not None:
+            if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):
+                return _not_ported("a learned value terminal in a batched gradient fleet (the "
+                                   "value_spec forms of K7-K10 in their session-row forms)")
+            if isinstance(opt, CEMOptimizer):
+                return _not_ported("a learned value terminal in a batched CEM fleet (the vmapped "
+                                   "per-slot batched step: K6 and the modular batched step "
+                                   "carry no value terminal)")
+            if self._plain_mppi() and not ode.compatible_model(opt):
+                return _not_ported("a learned value terminal in a batched MPPI fleet over a "
+                                   "learned model (the emit_terminal forms of K11-K14)")
+            return _not_ported("a learned value terminal in this batched configuration (the "
+                               "vmapped per-slot batched step)")
         if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):
             why = "warmup on" if opt.warmup else "a model the gradient kernels do not take"
             return _not_ported(f"the vmapped per-slot batched step (taken for "

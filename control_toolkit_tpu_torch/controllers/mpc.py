@@ -98,6 +98,11 @@ class MPCController(Controller):
             variable_parameters=self.variable_parameters,
             cost_config=cost_function_config,
         )
+        # A persistent cost transform (attach_value_terminal's) wraps the
+        # cost this configure built, so a re-configure keeps it.
+        if getattr(self, "_cost_wrap_hook", None) is not None:
+            self.cost_function.cost_function = self._cost_wrap_hook(
+                self.cost_function.cost_function)
         self.optimizer.configure(
             dt=dt,
             predictor_specification=predictor_specification,

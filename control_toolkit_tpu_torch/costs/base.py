@@ -31,8 +31,9 @@ class CostFunction:
     # the dict path and the packed-parameter (kernel) path.
     attr_keys: tuple = ()
     attr_defaults: dict = {}
-    # Extra terminal cost evaluated outside the rollout kernels; no ported
-    # cost has one, and the kernel paths require it to be None.
+    # Extra terminal cost evaluated outside the rollout kernels on the
+    # terminal states their emit_terminal forms write (a learned value
+    # terminal, costs/value_terminal.py); None for a plain cost.
     post_terminal_cost = None
 
     def __init__(self, config: Optional[Dict] = None):

@@ -41,11 +41,15 @@
 
 namespace ctt {
 
-template <class Plant, bool Rows>
-__global__ void __launch_bounds__(kThreads)
-cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                    const float* __restrict__ pvec, float* __restrict__ cost,
-                    int K, int ks, int H, StepConsts c, float max_cost) {
+// The body of both kernels: the cost of rollout k and, where Emit, its
+// terminal state written to x_term [K, S].
+template <class Plant, bool Rows, bool Emit>
+__device__ __forceinline__ void cost_rollout_body(const float* __restrict__ s0,
+                                                  const float* __restrict__ Q,
+                                                  const float* __restrict__ pvec,
+                                                  float* __restrict__ cost,
+                                                  float* __restrict__ x_term, int K, int ks,
+                                                  int H, const StepConsts& c, float max_cost) {
   constexpr int S = Plant::S, U = Plant::U;
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked
@@ -72,29 +76,65 @@ cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
     short_step<Plant>(x, u, prev, acc, p, rc, c, max_cost);
   }
   cost[k] = (acc + Plant::terminal_cost(x, p)) / static_cast<float>(H + 1);
+  if constexpr (Emit) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(k) * S + i] = x[i];
+  }
+}
+
+template <class Plant, bool Rows>
+__global__ void __launch_bounds__(kThreads)
+cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                    const float* __restrict__ pvec, float* __restrict__ cost,
+                    int K, int ks, int H, StepConsts c, float max_cost) {
+  cost_rollout_body<Plant, Rows, false>(s0, Q, pvec, cost, nullptr, K, ks, H, c, max_cost);
+}
+
+// The emit_terminal form (pallas_rollout.py:48, :137-148): one session's
+// costs and terminal states x_term [K, S], rollout k's state in row k.
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                         const float* __restrict__ pvec, float* __restrict__ cost,
+                         float* __restrict__ x_term, int K, int H, StepConsts c,
+                         float max_cost) {
+  cost_rollout_body<Plant, false, true>(s0, Q, pvec, cost, x_term, K, K, H, c, max_cost);
 }
 
 }  // namespace ctt
 
 // Launches K1 on `stream` over K rollouts, sessions of ks (pvec holds
 // K / ks rows, rollout k reading row k / ks: ks = K for one session, the
-// session-row form for a fleet); returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
-// divide K).
+// session-row form for a fleet), or, with x_term not null, its
+// emit_terminal form (one session: ks = K), which also writes the terminal
+// states [K, S] there; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unknown plant or a ks that does not divide
+// K or, with x_term, is not K).
 extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                void* cost, int K, int ks, int H, int rk4, int substeps,
-                                float sub_dt, float half_dt, float dt6, float max_cost,
-                                void* stream) {
-  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                void* cost, void* x_term, int K, int ks, int H, int rk4,
+                                int substeps, float sub_dt, float half_dt, float dt6,
+                                float max_cost, void* stream) {
+  if (ks < 1 || K % ks != 0 || (x_term != nullptr && ks != K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
+  const auto* s0f = static_cast<const float*>(s0);
+  const auto* qf = static_cast<const float*>(Q);
+  const auto* pf = static_cast<const float*>(pvec);
+  auto* costf = static_cast<float*>(cost);
   switch (plant) {
     case ctt::kPlantCartpole:
-      (ks == K ? ctt::cost_rollout_kernel<ctt::CartpolePlant, false>
-               : ctt::cost_rollout_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(Q),
-          static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost);
+      if (x_term != nullptr) {
+        ctt::cost_rollout_emit_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+            s0f, qf, pf, costf, static_cast<float*>(x_term), K, H, c, max_cost);
+      } else {
+        (ks == K ? ctt::cost_rollout_kernel<ctt::CartpolePlant, false>
+                 : ctt::cost_rollout_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads, 0,
+                                                                          st>>>(
+            s0f, qf, pf, costf, K, ks, H, c, max_cost);
+      }
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

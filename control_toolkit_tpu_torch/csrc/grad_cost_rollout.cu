@@ -58,6 +58,26 @@
 // of the threads.  The history traffic (2 x 13.4 MB, mostly L2) is
 // secondary.  Q and dQ stay in their [K, H, U] layout, read and written
 // strided, as K1 reads Q.
+//
+// The value_spec form (pallas_grad.py:119-141, :186-200): a learned
+// terminal value V, a tanh MLP from the state to one number (its scale
+// folded into its last layer by the caller), with
+//   cost  = (acc + terminal(x_H) + V(x_H)) / (H+1)
+//   lam_H = ct * (d terminal / d x_H + dV / d x_H).
+// The forward launch's value instance (grad_cost_forward_value_kernel)
+// evaluates V and its VJP in its tail, one thread a rollout: each block
+// stages the net's 2L operands in shared memory once (4.9 KB for
+// 4-32-32-1), a thread's hidden activations go to its own column of a
+// [units][kThreads] shared array (32 KB at 64 units), which the VJP
+// overwrites with the layers' cotangents, last layer first; it writes
+// ct * dV/dx_H to vgrad [S, K].  The adjoint launch's value instance adds
+// vgrad to lam after Plant::terminal_cost_grad on its step-0 threads.  The
+// adjoint runs at its 128-register cap, two blocks an SM: the MLP there
+// would spill, the forward has the room.  The activations sit in shared
+// memory, not registers, because the net's widths are run-time values.
+// The net's tensors come in by pointer (ValueArgs) on every call, so a
+// re-fit or a changed scale rebuilds nothing.  The instances without the
+// value compile as before.
 #include "rollout_core.cuh"
 
 namespace ctt {
@@ -65,20 +85,48 @@ namespace ctt {
 constexpr int kAdjRollouts = 8;                          // rollouts per adjoint block
 constexpr int kAdjSteps = 32;                            // steps per chunk
 constexpr int kAdjThreads = kAdjRollouts * kAdjSteps;    // one item per thread
+constexpr int kMaxValueLayers = 8;                       // ops/kernels.py VALUE_MAX_LAYERS
+constexpr size_t kMaxSmemBytes = 232448;                 // a block's shared memory on sm_90
 
-template <class Plant, bool Rows>
-__global__ void __launch_bounds__(kThreads)
-grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                         const float* __restrict__ pvec, float* __restrict__ cost,
-                         float* __restrict__ xhist, int K, int ks, int H, StepConsts c,
-                         float max_cost) {
+// The learned terminal value of the value_spec form: a tanh MLP of
+// n_layers layers, dims[0] = S inputs, dims[n_layers] = 1 output, layer l
+// w[l] [dims[l], dims[l+1]] row-major and b[l] [dims[l+1]], as
+// models/networks.py:mlp_apply reads them (device pointers, as stored).
+struct ValueArgs {
+  int n_layers;
+  int dims[kMaxValueLayers + 1];
+  const float* w[kMaxValueLayers];
+  const float* b[kMaxValueLayers];
+};
+
+__host__ __device__ inline int value_param_floats(const ValueArgs& v) {
+  int n = 0;
+  for (int l = 0; l < v.n_layers; ++l) n += v.dims[l] * v.dims[l + 1] + v.dims[l + 1];
+  return n;
+}
+
+__host__ __device__ inline int value_hidden_units(const ValueArgs& v) {
+  int n = 0;
+  for (int l = 1; l < v.n_layers; ++l) n += v.dims[l];
+  return n;
+}
+
+// The forward value instance's dynamic shared memory: the staged operands
+// and each thread's column of hidden activations.
+inline size_t value_smem_bytes(const ValueArgs& v) {
+  return sizeof(float) * (static_cast<size_t>(value_param_floats(v)) +
+                          static_cast<size_t>(value_hidden_units(v)) * kThreads);
+}
+
+// Rollout k from s0 [K, S] under Q [K, H, U], its states x_0..x_H stored
+// to xhist [H+1, S, K]: K1's arithmetic bit for bit (Rollout::advance).
+template <class Plant>
+__device__ __forceinline__ void forward_store(Rollout<Plant>& r, const float* __restrict__ s0,
+                                              const float* __restrict__ Q, const float* p,
+                                              float* __restrict__ xhist, int K, int H,
+                                              const StepConsts& c, float max_cost, int k) {
   constexpr int S = Plant::S, U = Plant::U;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;  // ragged K is masked
-  float p[Plant::kN];
-  load_params<Plant>(Rows ? pvec + static_cast<size_t>(k / ks) * Plant::kN : pvec, p);
   const float* q = Q + static_cast<size_t>(k) * H * U;
-  Rollout<Plant> r;
   r.start(s0 + static_cast<size_t>(k) * S, p);
   for (int h = 0; h < H; ++h) {
 #pragma unroll
@@ -90,14 +138,126 @@ grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__
   }
 #pragma unroll
   for (int i = 0; i < S; ++i) xhist[(static_cast<size_t>(H) * S + i) * K + k] = r.x[i];
-  cost[k] = r.finish(p, H);
 }
 
 template <class Plant, bool Rows>
-__global__ void __launch_bounds__(kAdjThreads, 2)
-grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
-                         const float* __restrict__ xhist, float* __restrict__ dQ, int K, int ks,
-                         int H, StepConsts c, float ct) {
+__global__ void __launch_bounds__(kThreads)
+grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                         const float* __restrict__ pvec, float* __restrict__ cost,
+                         float* __restrict__ xhist, int K, int ks, int H, StepConsts c,
+                         float max_cost) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;  // ragged K is masked
+  float p[Plant::kN];
+  load_params<Plant>(Rows ? pvec + static_cast<size_t>(k / ks) * Plant::kN : pvec, p);
+  Rollout<Plant> r;
+  forward_store<Plant>(r, s0, Q, p, xhist, K, H, c, max_cost, k);
+  cost[k] = r.finish(p, H);
+}
+
+// V(x) of the staged net wsm (each layer's w then b) and ct * dV/dx into
+// gx; act is the thread's column of the [units][kThreads] activation
+// array: the forward leaves each hidden layer's tanh there, the VJP
+// replaces it, last layer first, with that layer's cotangent before tanh.
+template <int S>
+__device__ __forceinline__ float value_forward_vjp(const float (&x)[S],
+                                                   const float* __restrict__ wsm,
+                                                   const ValueArgs& v, float* act, float ct,
+                                                   float (&gx)[S]) {
+  const int L = v.n_layers;
+  int woff = 0, ain = 0;  // layer l's operands in wsm; its input's column offset (l >= 1)
+  float out = 0.0f;
+  for (int l = 0; l < L; ++l) {
+    const int din = v.dims[l], dout = v.dims[l + 1];
+    const float* w = wsm + woff;
+    const float* bias = w + din * dout;
+    const int aout = l == 0 ? 0 : ain + din;
+    for (int o = 0; o < dout; ++o) {
+      float z = bias[o];
+      if (l == 0) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) z = fmaf(x[i], w[i * dout + o], z);
+      } else {
+        for (int i = 0; i < din; ++i) z = fmaf(act[(ain + i) * kThreads], w[i * dout + o], z);
+      }
+      if (l + 1 < L) {
+        act[(aout + o) * kThreads] = tanhf(z);
+      } else {
+        out = z;  // dout == 1 (the host checks)
+      }
+    }
+    woff += din * dout + dout;
+    ain = aout;
+  }
+  // The VJP: gout is the column offset of layer l's output cotangent.
+  int gout = ain;
+  for (int l = L - 1; l >= 0; --l) {
+    const int din = v.dims[l], dout = v.dims[l + 1];
+    woff -= din * dout + dout;
+    const float* w = wsm + woff;
+    const int gin = l == 0 ? 0 : gout - din;
+    auto cotangent = [&](int i) {
+      if (l + 1 == L) return w[i] * ct;
+      float g = 0.0f;
+      for (int o = 0; o < dout; ++o) g = fmaf(w[i * dout + o], act[(gout + o) * kThreads], g);
+      return g;
+    };
+    if (l == 0) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) gx[i] = cotangent(i);
+    } else {
+      for (int i = 0; i < din; ++i) {
+        const float a = act[(gin + i) * kThreads];
+        act[(gin + i) * kThreads] = cotangent(i) * (1.0f - a * a);
+      }
+    }
+    gout = gin;
+  }
+  return out;
+}
+
+// The forward launch's value_spec instance (one session): K7's forward,
+// then V and its VJP at x_H; writes cost, xhist and vgrad [S, K] =
+// ct * dV/dx_H.  Dynamic shared memory: value_smem_bytes(v).
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+grad_cost_forward_value_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                               const float* __restrict__ pvec, float* __restrict__ cost,
+                               float* __restrict__ xhist, float* __restrict__ vgrad, int K,
+                               int H, StepConsts c, float max_cost, float ct, ValueArgs v) {
+  constexpr int S = Plant::S;
+  extern __shared__ float value_smem[];
+  int off = 0;
+  for (int l = 0; l < v.n_layers; ++l) {
+    const int nw = v.dims[l] * v.dims[l + 1], nb = v.dims[l + 1];
+    for (int i = threadIdx.x; i < nw; i += kThreads) value_smem[off + i] = __ldg(v.w[l] + i);
+    for (int i = threadIdx.x; i < nb; i += kThreads) value_smem[off + nw + i] = __ldg(v.b[l] + i);
+    off += nw + nb;
+  }
+  __syncthreads();
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;  // ragged K is masked (no barrier follows)
+  float p[Plant::kN];
+  load_params<Plant>(pvec, p);
+  Rollout<Plant> r;
+  forward_store<Plant>(r, s0, Q, p, xhist, K, H, c, max_cost, k);
+  float gx[S];
+  const float value =
+      value_forward_vjp<S>(r.x, value_smem, v, value_smem + off + threadIdx.x, ct, gx);
+  cost[k] = (r.acc + (Plant::terminal_cost(r.x, p) + value)) / static_cast<float>(H + 1);
+#pragma unroll
+  for (int i = 0; i < S; ++i) vgrad[static_cast<size_t>(i) * K + k] = gx[i];
+}
+
+// The adjoint's body: the session-row form (Rows) and the value_spec form
+// (Value: lam_H gains vgrad [S, K]) are its instances.
+template <class Plant, bool Rows, bool Value>
+__device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
+                                                  const float* __restrict__ pvec,
+                                                  const float* __restrict__ xhist,
+                                                  const float* __restrict__ vgrad,
+                                                  float* __restrict__ dQ, int K, int ks, int H,
+                                                  const StepConsts& c, float ct) {
   constexpr int S = Plant::S, U = Plant::U, N = S + U;
   // An item's fields: [A | B] row-major (S*N), gx (S), gu (U), gprev (U);
   // an odd field count keeps a warp's four steps on distinct banks.
@@ -134,6 +294,10 @@ grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ 
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = xhist[(static_cast<size_t>(H) * S + i) * K + k];
     Plant::terminal_cost_grad(x, p, ct, lam);
+    if constexpr (Value) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) lam[i] += __ldg(vgrad + static_cast<size_t>(i) * K + k);
+    }
 #pragma unroll
     for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
   }
@@ -199,6 +363,23 @@ grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ 
   }
 }
 
+template <class Plant, bool Rows>
+__global__ void __launch_bounds__(kAdjThreads, 2)
+grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
+                         const float* __restrict__ xhist, float* __restrict__ dQ, int K, int ks,
+                         int H, StepConsts c, float ct) {
+  grad_adjoint_body<Plant, Rows, false>(Q, pvec, xhist, nullptr, dQ, K, ks, H, c, ct);
+}
+
+// The adjoint launch's value_spec instance (one session).
+template <class Plant>
+__global__ void __launch_bounds__(kAdjThreads, 2)
+grad_cost_adjoint_value_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
+                               const float* __restrict__ xhist, const float* __restrict__ vgrad,
+                               float* __restrict__ dQ, int K, int H, StepConsts c, float ct) {
+  grad_adjoint_body<Plant, false, true>(Q, pvec, xhist, vgrad, dQ, K, K, H, c, ct);
+}
+
 }  // namespace ctt
 
 // Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
@@ -230,23 +411,85 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// The forward value instance's dynamic shared memory for the net of v, or
+// -1 where the kernel refuses the net (a layer count outside
+// 1..kMaxValueLayers, an input width other than S, an output width other
+// than 1, or more than a block's shared memory).
+extern "C" long ctt_value_smem_bytes(const ctt::ValueArgs* v, int S) {
+  if (v->n_layers < 1 || v->n_layers > ctt::kMaxValueLayers || v->dims[0] != S ||
+      v->dims[v->n_layers] != 1) {
+    return -1;
+  }
+  for (int l = 1; l < v->n_layers; ++l) {
+    if (v->dims[l] < 1) return -1;
+  }
+  const size_t bytes = ctt::value_smem_bytes(*v);
+  return bytes > ctt::kMaxSmemBytes ? -1 : static_cast<long>(bytes);
+}
+
+// Launch K7's forward value_spec instance on `stream` (one session): the
+// forward's outputs and vgrad [S, K] = ct * dV/dx_H of the net of v;
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// an unknown plant or a net that ctt_value_smem_bytes refuses).
+extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void* Q,
+                                           const void* pvec, void* cost, void* xhist,
+                                           void* vgrad, int K, int H, int rk4, int substeps,
+                                           float sub_dt, float half_dt, float dt6,
+                                           float max_cost, float ct, const ctt::ValueArgs* v,
+                                           void* stream) {
+  const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
+  const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (plant) {
+    case ctt::kPlantCartpole: {
+      const long bytes = ctt_value_smem_bytes(v, ctt::CartpolePlant::S);
+      if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+      auto kernel = ctt::grad_cost_forward_value_kernel<ctt::CartpolePlant>;
+      if (bytes > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
+      kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
+          static_cast<const float*>(s0), static_cast<const float*>(Q),
+          static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(xhist),
+          static_cast<float*>(vgrad), K, H, c, max_cost, ct, *v);
+      break;
+    }
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
-// as the forward's; returns as above.
+// as the forward's, or, with vgrad not null, its value_spec instance (one
+// session: ks = K), which adds vgrad [S, K] to lam_H; returns as above.
 extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
-                                     const void* xhist, void* dQ, int K, int ks, int H, int rk4,
-                                     int substeps, float sub_dt, float half_dt, float dt6,
-                                     float ct, void* stream) {
-  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                     const void* xhist, const void* vgrad, void* dQ, int K,
+                                     int ks, int H, int rk4, int substeps, float sub_dt,
+                                     float half_dt, float dt6, float ct, void* stream) {
+  if (ks < 1 || K % ks != 0 || (vgrad != nullptr && ks != K)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kAdjRollouts - 1) / ctt::kAdjRollouts);
   auto st = static_cast<cudaStream_t>(stream);
+  const auto* qf = static_cast<const float*>(Q);
+  const auto* pf = static_cast<const float*>(pvec);
+  const auto* xf = static_cast<const float*>(xhist);
+  auto* dqf = static_cast<float*>(dQ);
   switch (plant) {
     case ctt::kPlantCartpole:
-      (ks == K ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>
-               : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kAdjThreads,
-                                                                            0, st>>>(
-          static_cast<const float*>(Q), static_cast<const float*>(pvec),
-          static_cast<const float*>(xhist), static_cast<float*>(dQ), K, ks, H, c, ct);
+      if (vgrad != nullptr) {
+        ctt::grad_cost_adjoint_value_kernel<ctt::CartpolePlant>
+            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, static_cast<const float*>(vgrad),
+                                                 dqf, K, H, c, ct);
+      } else {
+        (ks == K ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>
+                 : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>)
+            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, dqf, K, ks, H, c, ct);
+      }
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -39,6 +39,11 @@
 //
 // A Noise policy is a callable (p, j) -> e[p, j], the scaled noise of the
 // thread's rollout.
+//
+// The emit_terminal forms of K2 and K4 (pallas_mppi.py kernel1_ext_emit
+// :277, kernel1_cols_emit :350) take the instance with Emit, which also
+// hands the final state x_H out through x_end (S floats of the caller's
+// registers); without Emit the body compiles as before.
 #pragma once
 
 #include "cem_core.cuh"
@@ -63,13 +68,13 @@ struct EpsNoise {
 
 // The rollout from s0 [S] under u_nom [H, U], W [P, H], the packed
 // parameters pvec [N] and the bounds low, high [U]; `column` as
-// cem_rollout_cost's.
-template <class Plant, class Noise>
+// cem_rollout_cost's; where Emit, the terminal state to x_end [S].
+template <class Plant, class Noise, bool Emit = false>
 __device__ __forceinline__ float mppi_ahead_cost(
     const float* __restrict__ s0, const float* __restrict__ u_nom,
     const float* __restrict__ pvec, const float* __restrict__ W, const float* __restrict__ low,
     const float* __restrict__ high, const Noise& noise, int H, int P, const StepConsts& c,
-    float max_cost, const MppiCorr& cc, float* column) {
+    float max_cost, const MppiCorr& cc, float* column, float* x_end = nullptr) {
   constexpr int S = Plant::S, U = Plant::U;
   constexpr int kSteps = kDrawControls / U;
   static_assert(kSteps >= 1, "a chunk holds a step");
@@ -121,6 +126,10 @@ __device__ __forceinline__ float mppi_ahead_cost(
       }
     }
     column_steps<Plant>(x, prev, acc, p, rc, c, max_cost, column, n);
+  }
+  if constexpr (Emit) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) x_end[i] = x[i];
   }
   return (acc + Plant::terminal_cost(x, p)) / static_cast<float>(H + 1) + corr;
 }

@@ -20,6 +20,14 @@
 // shared memory and sums the correction; then cem_core.cuh:column_steps
 // runs short_step.cuh's step over them.  At cc_weight 0 its costs equal
 // K1's over mppi_controls_plain's controls bit for bit.
+//
+// Its emit_terminal form (kernel1_ext_emit, pallas_mppi.py:277; make_cost_run's
+// emit_terminal, :501, :538-560), the main path's kernel under a learned
+// value terminal, is the body's Emit instance: it also writes rollout k's
+// terminal state x_H to row k of x_term [K, S], the rollout whose cost is
+// cost[k] (the JAX kernel's [S, ROWS, C] tiles hold rollout t*tile + r*C +
+// c at [:, r, t*C + c]); the optimizer adds V(x_H)/(H+1) to the costs
+// before the softmax.  Its costs are K2's bit for bit.
 #include "mppi_ahead.cuh"
 
 namespace ctt {
@@ -42,15 +50,42 @@ mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
   if (g < K) cost[g] = out;
 }
 
+// K2's emit_terminal form: K2's costs and the terminal states x_term [K, S].
+template <class Plant>
+__global__ void __launch_bounds__(kCemThreads)
+mppi_cost_emit_kernel(const float* __restrict__ s0, const float* __restrict__ u_nom,
+                      const float* __restrict__ pvec, const float* __restrict__ eps,
+                      const float* __restrict__ W, const float* __restrict__ low,
+                      const float* __restrict__ high, float* __restrict__ cost,
+                      float* __restrict__ x_term, int K, int H, int P, StepConsts c,
+                      float max_cost, MppiCorr cc) {
+  constexpr int S = Plant::S;
+  __shared__ float controls[kDrawControls][kCemThreads];
+  const int g = blockIdx.x * kCemThreads + threadIdx.x, gc = g < K ? g : K - 1;
+  const EpsNoise noise{eps, gc, K, Plant::U};
+  float xh[S];
+  const float out = mppi_ahead_cost<Plant, EpsNoise, true>(
+      s0, u_nom, pvec, W, low, high, noise, H, P, c, max_cost, cc, &controls[0][threadIdx.x],
+      xh);
+  if (g < K) {
+    cost[g] = out;
+#pragma unroll
+    for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(g) * S + i] = xh[i];
+  }
+}
+
 }  // namespace ctt
 
-// Launches K2 on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant).
+// Launches K2 on `stream`, or, with x_term not null, its emit_terminal form,
+// which also writes the terminal states [K, S] there; returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
+// plant).
 extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const void* pvec,
                              const void* eps, const void* W, const void* low, const void* high,
-                             void* cost, int K, int H, int P, int rk4, int substeps, float sub_dt,
-                             float half_dt, float dt6, float max_cost, float cc_weight, float c1,
-                             float r, float c3, void* stream) {
+                             void* cost, void* x_term, int K, int H, int P, int rk4,
+                             int substeps, float sub_dt, float half_dt, float dt6,
+                             float max_cost, float cc_weight, float c1, float r, float c3,
+                             void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const ctt::MppiCorr cc{cc_weight, c1, r, c3};
   constexpr int per_block = ctt::kCemThreads;
@@ -58,11 +93,21 @@ extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::mppi_cost_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-          static_cast<const float*>(pvec), static_cast<const float*>(eps),
-          static_cast<const float*>(W), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, c, max_cost, cc);
+      if (x_term != nullptr) {
+        ctt::mppi_cost_emit_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
+            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+            static_cast<const float*>(pvec), static_cast<const float*>(eps),
+            static_cast<const float*>(W), static_cast<const float*>(low),
+            static_cast<const float*>(high), static_cast<float*>(cost),
+            static_cast<float*>(x_term), K, H, P, c, max_cost, cc);
+      } else {
+        ctt::mppi_cost_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
+            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+            static_cast<const float*>(pvec), static_cast<const float*>(eps),
+            static_cast<const float*>(W), static_cast<const float*>(low),
+            static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, c, max_cost,
+            cc);
+      }
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -176,6 +176,28 @@ def mlp_step_vjp(xs: Tuple, us: Tuple, net, predict_delta: bool,
     return dxs, tuple(g[:, S + j] for j in range(len(us)))
 
 
+def value_mlp_vjp(ops, x: torch.Tensor, ct: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(V(x) [K], ct * dV/dx [K, S])`` of a learned terminal value's tanh
+    MLP ``ops = [w0, b0, ..., w_{L-1}, b_{L-1}]`` (``w_i [in, out]``, one
+    output) at the states ``x [K, S]``: the forward for its activations,
+    then, last layer to first, each layer transposed (``g @ W^T``) and,
+    below a hidden layer, tanh' = 1 - a^2; K7's value_spec form's
+    arithmetic (csrc/grad_cost_rollout.cu value_forward_vjp)."""
+    n = len(ops) // 2
+    a, acts = x, []
+    for i in range(n):
+        a = a @ ops[2 * i] + ops[2 * i + 1]
+        if i < n - 1:
+            a = torch.tanh(a)
+            acts.append(a)
+    g = torch.full_like(a, ct)
+    for i in reversed(range(n)):
+        g = g @ ops[2 * i].T
+        if i > 0:
+            g = g * (1.0 - acts[i - 1] * acts[i - 1])
+    return a[:, 0], g
+
+
 def _euler_vjp(derivs_vjp, x, u, p, lam, sub_dt):
     # x' = x + sub_dt * f(x, u)
     dx, du = derivs_vjp(x, u, p, tscale(lam, sub_dt))

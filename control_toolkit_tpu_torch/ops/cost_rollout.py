@@ -20,6 +20,12 @@ kernel: ``s0 [B*K,S]`` and ``Q [B*K,H,U]`` session by session, rollout
 b*K + k reading row b of ``pvec_b [B,N]`` (``optimizers/base.py:
 make_slot_packer``: the session's attributes, previous control and
 ``per_slot_dyn`` constants); the costs come back ``[B, K]``.
+
+Its ``emit_terminal`` form (pallas_rollout.py:48, :100, :137-148)
+``cost_rollout_emit`` also returns the terminal states ``x_H [K, S]`` in
+the costs' rollout order, on which a learned value terminal is evaluated
+outside the kernel (``costs/value_terminal.py``); its costs are K1's, the
+same body.
 """
 from __future__ import annotations
 
@@ -32,6 +38,12 @@ from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 def cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor,
                        Q: torch.Tensor, pvec: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch (pallas_rollout.py:75-99)."""
+    return cost_rollout_emit_plain(model, s0, Q, pvec)[0]
+
+
+def cost_rollout_emit_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec: torch.Tensor):
+    """K1's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
     p = model.unpack(pvec)  # [N], or [N, K]: a row per rollout
     one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
                                 model.intermediate_steps)
@@ -45,17 +57,21 @@ def cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor,
         acc = acc + model.stage(xs, us, prev_us, p)
         xs = one_step(xs, us, p)
         prev_us = us
-    return (acc + model.terminal(xs, p)) / (H + 1)
+    return (acc + model.terminal(xs, p)) / (H + 1), torch.stack(xs, dim=1)
+
+
+def _check_single(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor) -> None:
+    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
+        raise ValueError(
+            f"{name}: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
+        )
 
 
 def cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
                  pvec: torch.Tensor) -> torch.Tensor:
     """Per-rollout trajectory cost ``[K]``; see the module docstring."""
-    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
-        raise ValueError(
-            f"cost_rollout: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
-            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
-        )
+    _check_single("cost_rollout", s0, Q, pvec)
     if kernels.on_cpu(s0, Q, pvec):
         return cost_rollout_plain(model, s0, Q, pvec)
     cost = _launch("cost_rollout", model, s0, Q, pvec, s0.shape[0])
@@ -64,6 +80,22 @@ def cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
 
 
 cost_rollout.launches = 0
+
+
+def cost_rollout_emit(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                      pvec: torch.Tensor):
+    """K1's emit_terminal form: ``(cost [K], x_H [K, S])``; see the module
+    docstring."""
+    _check_single("cost_rollout_emit", s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec):
+        return cost_rollout_emit_plain(model, s0, Q, pvec)
+    x_term = torch.empty_like(s0)
+    cost = _launch("cost_rollout_emit", model, s0, Q, pvec, s0.shape[0], x_term)
+    cost_rollout_emit.launches += 1
+    return cost, x_term
+
+
+cost_rollout_emit.launches = 0
 
 
 def cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -91,9 +123,12 @@ def cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Te
 cost_rollout_cols.launches = 0
 
 
-def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int) -> torch.Tensor:
+def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int,
+            x_term=None) -> torch.Tensor:
     """Check the operands and launch K1 over sessions of ``ks`` rollouts,
-    ``pvec``'s rows; returns the costs ``[B*K]``."""
+    ``pvec``'s rows, or, with ``x_term [K, S]``, its emit_terminal form
+    (one session), which writes the terminal states there; returns the
+    costs ``[B*K]``."""
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
@@ -102,7 +137,8 @@ def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int) -> tor
     with torch.cuda.device(device):
         rc = kernels.load().ctt_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(),
-            pvec.data_ptr(), cost.data_ptr(), K, ks, H, *model.step_args(),
+            pvec.data_ptr(), cost.data_ptr(), None if x_term is None else x_term.data_ptr(),
+            K, ks, H, *model.step_args(),
             model.max_cost, torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, name)

@@ -37,24 +37,42 @@ Its session-row (``slot_keys``, pallas_grad.py:348) form
 sessions' rollouts in one pair of launches: ``s0 [B*K,S]`` and ``Q
 [B*K,H,U]`` session by session, rollout b*K + k reading row b of ``pvec_b
 [B,N]`` in both launches; it returns ``(cost [B,K], dQ [B*K,H,U])``.
+
+Its ``value_spec`` form (pallas_grad.py:119-141, :186-200)
+``grad_cost_rollout_value(model, s0, Q, pvec, value_ops)`` adds a learned
+terminal value V, a tanh MLP ``value_ops = [w0, b0, ...]`` (``w_i [in,
+out]``, the value scale folded into the last layer:
+``Optimizer._flatten_value_ops``):
+
+    cost  = (acc + terminal(x_H) + V(x_H)) / (H+1)
+    lam_H = ct * (d terminal / d x_H + dV / d x_H)
+
+Its forward launch evaluates V and its VJP (ops/adjoints.py
+``value_mlp_vjp`` in the plain version, ``grad_cost_rollout_plain``'s
+``value_ops``) at x_H and writes ``ct * dV/dx_H`` to a ``[S, K]``
+buffer, which its adjoint launch adds to lam_H; the net's tensors go in by
+pointer on every call, so a re-fit rebuilds nothing.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Tuple
 
 import torch
 
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, integrator_vjp
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, integrator_vjp, value_mlp_vjp
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd
 
 
 def plain_grad_loop(model, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor,
-                    step: Callable, step_vjp: Callable) -> Tuple[torch.Tensor, torch.Tensor]:
+                    step: Callable, step_vjp: Callable,
+                    value_ops=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradient kernels' forward-store / backward-sweep in PyTorch
     (pallas_grad.py:169-244) over any ``step(x [K,S], u [K,U]) -> x'`` and
     its adjoint ``step_vjp(xs, us, lam) -> (dxs, dus)`` in component form,
-    with the plant's cost adjoints; returns (cost [K], dQ [K,H,U])."""
+    with the plant's cost adjoints and, with ``value_ops``, a learned
+    terminal value (the value_spec form); returns (cost [K], dQ [K,H,U])."""
     _, stage_vjp, terminal_grad = PLANT_ADJOINTS[model.plant]
     p = model.unpack(pvec)
     K, H, U = s0.shape[0], Q.shape[1], Q.shape[2]
@@ -70,9 +88,13 @@ def plain_grad_loop(model, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor
         x = step(x, Q[:, h, :])
         prev_us = us
     xs = tuple(x.unbind(1))
-    cost = (acc + model.terminal(xs, p)) / (H + 1)
-
-    lam = terminal_grad(xs, p, ct)
+    if value_ops is None:
+        cost = (acc + model.terminal(xs, p)) / (H + 1)
+        lam = terminal_grad(xs, p, ct)
+    else:
+        v, dv = value_mlp_vjp(value_ops, x, ct)
+        cost = (acc + (model.terminal(xs, p) + v)) / (H + 1)
+        lam = tadd(terminal_grad(xs, p, ct), tuple(dv.unbind(1)))
     gprev = tuple(torch.zeros_like(acc) for _ in range(U))
     dq = [None] * H
     for h in reversed(range(H)):
@@ -87,8 +109,10 @@ def plain_grad_loop(model, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor
 
 
 def grad_cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
-                            pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-244)."""
+                            pvec: torch.Tensor, value_ops=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in PyTorch (pallas_grad.py:169-244); with
+    ``value_ops``, its value_spec form's."""
     derivs_vjp = PLANT_ADJOINTS[model.plant][0]
     p = model.unpack(pvec)
     one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
@@ -101,20 +125,25 @@ def grad_cost_rollout_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: to
         return integrator_vjp(model.derivs, derivs_vjp, xs, us, p, lam,
                               model.integrator == "rk4", model.intermediate_steps, model.dt)
 
-    return plain_grad_loop(model, s0, Q, pvec, step, step_vjp)
+    return plain_grad_loop(model, s0, Q, pvec, step, step_vjp, value_ops)
+
+
+def _check_single(name: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                  pvec: torch.Tensor) -> None:
+    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
+        raise ValueError(
+            f"{name}: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
+            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
+        )
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"{name}: no adjoints for the {model.plant!r} plant")
 
 
 def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
                       pvec: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-rollout cost ``[K]`` and its gradient ``[K,H,U]``; see the
     module docstring."""
-    if s0.ndim != 2 or Q.ndim != 3 or Q.shape[0] != s0.shape[0] or pvec.ndim != 1:
-        raise ValueError(
-            f"grad_cost_rollout: expected s0 [K,S], Q [K,H,U], pvec [N]; got "
-            f"{tuple(s0.shape)}, {tuple(Q.shape)}, {tuple(pvec.shape)}"
-        )
-    if model.plant not in PLANT_ADJOINTS:
-        raise ValueError(f"grad_cost_rollout: no adjoints for the {model.plant!r} plant")
+    _check_single("grad_cost_rollout", model, s0, Q, pvec)
     if kernels.on_cpu(s0, Q, pvec):
         return grad_cost_rollout_plain(model, s0, Q, pvec)
     cost, dQ = _launch("grad_cost_rollout", model, s0, Q, pvec, s0.shape[0])
@@ -123,6 +152,34 @@ def grad_cost_rollout(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Te
 
 
 grad_cost_rollout.launches = 0
+
+
+def grad_cost_rollout_value(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                            pvec: torch.Tensor, value_ops) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's value_spec form: per-rollout cost ``[K]`` with the learned
+    terminal value and its gradient ``[K,H,U]``; see the module docstring.
+    Its plain version is ``grad_cost_rollout_plain(..., value_ops)``."""
+    _check_single("grad_cost_rollout_value", model, s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *value_ops):
+        return grad_cost_rollout_plain(model, s0, Q, pvec, value_ops)
+    device = kernels.check_cuda_operands(
+        "grad_cost_rollout_value", s0=s0, Q=Q, pvec=pvec,
+        **{f"value_op{i}": t for i, t in enumerate(value_ops)})
+    K, S = s0.shape
+    H, U = Q.shape[1], Q.shape[2]
+    model.check_launch_shape("grad_cost_rollout_value", S, U, K, H, pvec.shape[-1])
+    vargs = kernels.value_args(value_ops, S)
+    cost = torch.empty(K, dtype=torch.float32, device=device)
+    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
+    xhist = torch.empty(H + 1, S, K, dtype=torch.float32, device=device)
+    vgrad = torch.empty(S, K, dtype=torch.float32, device=device)
+    for part in ("forward", "adjoint"):
+        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist, value=(vargs, vgrad))
+    grad_cost_rollout_value.launches += 1
+    return cost, dQ
+
+
+grad_cost_rollout_value.launches = 0
 
 
 def grad_cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor,
@@ -173,21 +230,30 @@ def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int):
 
 def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
                 pvec: torch.Tensor, cost: torch.Tensor, dQ: torch.Tensor,
-                xhist: torch.Tensor, ks: int = 0) -> None:
+                xhist: torch.Tensor, ks: int = 0, value=None) -> None:
     """One of K7's two launches on checked CUDA operands over sessions of
     ``ks`` rollouts (0: one session), ``pvec``'s rows: ``forward`` (writes
-    cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist, writes dQ)."""
+    cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist, writes dQ);
+    with ``value = (ValueArgs, vgrad [S, K])``, of the value_spec form (one
+    session): its forward also writes vgrad, its adjoint reads it."""
     K, H = Q.shape[0], Q.shape[1]
-    lib, device = kernels.load(), s0.device
+    lib, device, ct = kernels.load(), s0.device, 1.0 / (H + 1)
+    plant = kernels.PLANT_IDS[model.plant]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if part == "forward":
+        if part == "forward" and value is not None:
+            rc = lib.ctt_grad_cost_forward_value(
+                plant, s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(), cost.data_ptr(),
+                xhist.data_ptr(), value[1].data_ptr(), K, H, *model.step_args(),
+                model.max_cost, ct, ctypes.byref(value[0]), stream)
+        elif part == "forward":
             rc = lib.ctt_grad_cost_forward(
-                kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
+                plant, s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
                 cost.data_ptr(), xhist.data_ptr(), K, ks or K, H, *model.step_args(),
                 model.max_cost, stream)
         else:
             rc = lib.ctt_grad_cost_adjoint(
-                kernels.PLANT_IDS[model.plant], Q.data_ptr(), pvec.data_ptr(), xhist.data_ptr(),
-                dQ.data_ptr(), K, ks or K, H, *model.step_args(), 1.0 / (H + 1), stream)
+                plant, Q.data_ptr(), pvec.data_ptr(), xhist.data_ptr(),
+                None if value is None else value[1].data_ptr(), dQ.data_ptr(), K, ks or K, H,
+                *model.step_args(), ct, stream)
     kernels.check_launch(rc, f"grad_cost_rollout ({part})")

@@ -59,6 +59,9 @@ PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for pl
 # and the most layers (MLP) or cells (GRU/LSTM) a net may have there.
 NET_KINDS = {"mlp": 0, "gru": 1, "lstm": 2}
 MAX_LAYERS = 8
+# The most layers of a learned terminal value net in K7's value_spec form
+# (csrc/grad_cost_rollout.cu kMaxValueLayers).
+VALUE_MAX_LAYERS = 8
 
 
 @dataclass(frozen=True)
@@ -126,6 +129,40 @@ class NetArgs(ctypes.Structure):
         ("norm_in_mean", ctypes.c_void_p), ("norm_in_std", ctypes.c_void_p),
         ("norm_out_mean", ctypes.c_void_p), ("norm_out_std", ctypes.c_void_p),
     ]
+
+
+class ValueArgs(ctypes.Structure):
+    """``csrc/grad_cost_rollout.cu`` ValueArgs: a learned terminal value's
+    tanh MLP, its widths and the device pointers of its layers as stored
+    (``w_i [in, out]``, ``b_i [out]``)."""
+
+    _fields_ = [
+        ("n_layers", ctypes.c_int), ("dims", ctypes.c_int * (VALUE_MAX_LAYERS + 1)),
+        ("w", ctypes.c_void_p * VALUE_MAX_LAYERS), ("b", ctypes.c_void_p * VALUE_MAX_LAYERS),
+    ]
+
+
+def value_args(ops, S: int) -> ValueArgs:
+    """``ValueArgs`` of the value net ``ops = [w0, b0, ..., w_{L-1},
+    b_{L-1}]`` (``Optimizer._flatten_value_ops``); raises unless it maps S
+    states to one number through 1..VALUE_MAX_LAYERS layers of matching
+    widths."""
+    n = len(ops) // 2
+    if len(ops) % 2 or not 1 <= n <= VALUE_MAX_LAYERS:
+        raise ValueError(f"a value net of {len(ops)} operands (1..{VALUE_MAX_LAYERS} layers "
+                         "of w, b)")
+    dims = [S] + [int(ops[2 * i].shape[-1]) for i in range(n)]
+    if dims[-1] != 1:
+        raise ValueError(f"the value net's output width is {dims[-1]}, not 1")
+    args = ValueArgs()
+    args.n_layers = n
+    for i in range(n):
+        w = _expect(f"value w{i}", ops[2 * i], (dims[i], dims[i + 1]))
+        b = _expect(f"value b{i}", ops[2 * i + 1], (dims[i + 1],))
+        args.w[i], args.b[i] = w.data_ptr(), b.data_ptr()
+    for i, d in enumerate(dims):
+        args.dims[i] = d
+    return args
 
 
 def _expect(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -460,17 +497,19 @@ def load() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # Each rollout kernel takes K, then ks (the rollouts a session: K for
         # one session, a fleet's K for its session-row form), then H.
+        # K1, K2 and K4 take the terminal states' pointer after the costs'
+        # (None: the kernel, else its emit_terminal form).
         lib.ctt_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_cost_rollout.restype = i32
         lib.ctt_mppi_cost.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
             i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_mppi_cost.restype = i32
         lib.ctt_mppi_cost_cols.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
             i32, i32, f32, f32, f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_mppi_cost_cols.restype = i32
@@ -478,10 +517,20 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_forward.restype = i32
+        # The adjoint takes the value gradient's pointer after xhist (None:
+        # the adjoint, else its value_spec form).
         lib.ctt_grad_cost_adjoint.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_adjoint.restype = i32
+        value = ctypes.POINTER(ValueArgs)
+        lib.ctt_grad_cost_forward_value.argtypes = [
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32,
+            value, ptr,
+        ]
+        lib.ctt_grad_cost_forward_value.restype = i32
+        lib.ctt_value_smem_bytes.argtypes = [value, i32]
+        lib.ctt_value_smem_bytes.restype = ctypes.c_long
         net = ctypes.POINTER(NetArgs)
         lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
                                                 net, ptr]
@@ -560,9 +609,9 @@ load.lib = None
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} (1, invalid value: an "
-                           "unknown plant, or a net whose widths or shared memory the kernel "
-                           "refuses, or a GP whose inducing points exceed a block's shared "
-                           "memory)")
+                           "unknown plant, or a net (a dynamics or value net) whose widths or "
+                           "shared memory the kernel refuses, or a GP whose inducing points "
+                           "exceed a block's shared memory)")
 
 
 def check_cuda_operands(name: str, **tensors: torch.Tensor) -> torch.device:

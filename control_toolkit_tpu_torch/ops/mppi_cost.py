@@ -22,6 +22,13 @@ it on the card); ``mppi_cost_plain`` is the same function in PyTorch, a
 loop over h on ``[K]`` tensors.  The wrapper runs the plain version only
 when every operand lies on the CPU; for CUDA operands it launches the
 kernel or raises.
+
+Its ``emit_terminal`` form (``kernel1_ext_emit``, pallas_mppi.py:277;
+``make_cost_run(..., emit_terminal)``, :501) ``mppi_cost_emit`` also
+returns the terminal states ``x_H [K, S]``, row k rollout k's, whose cost
+is ``cost[k]`` (the JAX kernel's ``[S, ROWS, T*C]`` tiles hold rollout
+``t*tile + r*C + c`` at ``[:, r, t*C + c]``); the semi-fused update adds a
+learned value terminal's ``V(x_H)/(H+1)`` to the costs before the softmax.
 """
 from __future__ import annotations
 
@@ -66,6 +73,11 @@ def mppi_controls_cost_plain(model: kernels.RolloutModel, s0, u, d, pvec, cc_wei
     """The MPPI cost ``[K]`` of the controls ``u`` and perturbations ``d``
     ``[K, H, U]`` from s0 (pallas_mppi.py:241-274): the rollout's stage and
     terminal costs over H+1 plus the correction summed in h order."""
+    return _controls_cost_emit_plain(model, s0, u, d, pvec, cc_weight, R, NU)[0]
+
+
+def _controls_cost_emit_plain(model, s0, u, d, pvec, cc_weight, R, NU):
+    """``mppi_controls_cost_plain``'s cost and the terminal states ``[K, S]``."""
     p = model.unpack(pvec)
     one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
                                 model.intermediate_steps)
@@ -84,14 +96,20 @@ def mppi_controls_cost_plain(model: kernels.RolloutModel, s0, u, d, pvec, cc_wei
             )
         xs = one_step(xs, us, p)
         prev_us = us
-    return (acc + model.terminal(xs, p)) / (H + 1) + corr
+    return (acc + model.terminal(xs, p)) / (H + 1) + corr, torch.stack(xs, dim=1)
 
 
 def mppi_cost_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, high,
                     cc_weight: float, R: float, NU: float) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch (pallas_mppi.py:214-274)."""
+    return mppi_cost_emit_plain(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)[0]
+
+
+def mppi_cost_emit_plain(model: kernels.RolloutModel, s0, u_nom, pvec, eps, W, low, high,
+                         cc_weight: float, R: float, NU: float):
+    """K2's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
     u, d = mppi_controls_plain(eps, W, u_nom, low, high)
-    return mppi_controls_cost_plain(model, s0, u, d, pvec, cc_weight, R, NU)
+    return _controls_cost_emit_plain(model, s0, u, d, pvec, cc_weight, R, NU)
 
 
 def mppi_cost(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch.Tensor,
@@ -99,36 +117,70 @@ def mppi_cost(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch.Tensor
               low: torch.Tensor, high: torch.Tensor,
               cc_weight: float, R: float, NU: float) -> torch.Tensor:
     """Per-rollout MPPI cost ``[K]``; see the module docstring."""
+    operands = (model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)
+    if kernels.on_cpu(s0, u_nom, pvec, eps, W, low, high):
+        _check_shapes("mppi_cost", *operands[1:8])
+        return mppi_cost_plain(*operands)
+    cost = _launch("mppi_cost", *operands)
+    mppi_cost.launches += 1
+    return cost
+
+
+mppi_cost.launches = 0
+
+
+def mppi_cost_emit(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch.Tensor,
+                   pvec: torch.Tensor, eps: torch.Tensor, W: torch.Tensor,
+                   low: torch.Tensor, high: torch.Tensor,
+                   cc_weight: float, R: float, NU: float):
+    """K2's emit_terminal form: ``(cost [K], x_H [K, S])``; see the module
+    docstring."""
+    operands = (model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)
+    if kernels.on_cpu(s0, u_nom, pvec, eps, W, low, high):
+        _check_shapes("mppi_cost_emit", *operands[1:8])
+        return mppi_cost_emit_plain(*operands)
+    x_term = torch.empty(eps.shape[2], s0.shape[0], dtype=torch.float32, device=s0.device)
+    cost = _launch("mppi_cost_emit", *operands, x_term=x_term)
+    mppi_cost_emit.launches += 1
+    return cost, x_term
+
+
+mppi_cost_emit.launches = 0
+
+
+def _check_shapes(name, s0, u_nom, pvec, eps, W, low, high) -> None:
     if (s0.ndim != 1 or u_nom.ndim != 2 or eps.ndim != 3 or W.ndim != 2
             or W.shape != (eps.shape[0], u_nom.shape[0])
             or eps.shape[1] != u_nom.shape[1]
             or low.shape != (u_nom.shape[1],) or high.shape != low.shape):
         raise ValueError(
-            "mppi_cost: expected s0 [S], u_nom [H,U], eps [P,U,K], W [P,H], "
+            f"{name}: expected s0 [S], u_nom [H,U], eps [P,U,K], W [P,H], "
             f"low/high [U]; got {tuple(s0.shape)}, {tuple(u_nom.shape)}, "
             f"{tuple(eps.shape)}, {tuple(W.shape)}, {tuple(low.shape)}, {tuple(high.shape)}"
         )
-    if kernels.on_cpu(s0, u_nom, pvec, eps, W, low, high):
-        return mppi_cost_plain(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)
+
+
+def _launch(name, model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU,
+            x_term=None) -> torch.Tensor:
+    """Check the operands and launch K2, or, with ``x_term [K, S]``, its
+    emit_terminal form, which writes the terminal states there; returns the
+    costs ``[K]``."""
+    _check_shapes(name, s0, u_nom, pvec, eps, W, low, high)
     device = kernels.check_cuda_operands(
-        "mppi_cost", s0=s0, u_nom=u_nom, pvec=pvec, eps=eps, W=W, low=low, high=high
+        name, s0=s0, u_nom=u_nom, pvec=pvec, eps=eps, W=W, low=low, high=high
     )
     P, U, K = eps.shape
     H = u_nom.shape[0]
-    model.check_launch_shape("mppi_cost", s0.shape[0], U, K, H, pvec.numel())
+    model.check_launch_shape(name, s0.shape[0], U, K, H, pvec.numel())
     cost = torch.empty(K, dtype=torch.float32, device=device)
     lib = kernels.load()
     with torch.cuda.device(device):
         rc = lib.ctt_mppi_cost(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), u_nom.data_ptr(),
             pvec.data_ptr(), eps.data_ptr(), W.data_ptr(), low.data_ptr(),
-            high.data_ptr(), cost.data_ptr(), K, H, P, *model.step_args(),
-            model.max_cost, *_corr_consts(cc_weight, R, NU),
+            high.data_ptr(), cost.data_ptr(), None if x_term is None else x_term.data_ptr(),
+            K, H, P, *model.step_args(), model.max_cost, *_corr_consts(cc_weight, R, NU),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    kernels.check_launch(rc, "mppi_cost")
-    mppi_cost.launches += 1
+    kernels.check_launch(rc, name)
     return cost
-
-
-mppi_cost.launches = 0

@@ -10,7 +10,9 @@ arrives in ``params`` as tensors on the optimizer's device.
 Ported so far is what MPPI, RPGD, gradient-tf and the sampling zoo need,
 with the ensemble's ``risk_weight`` (a disagreement penalty on every
 trajectory cost) and ``robust_eval`` (every plan scored under every
-member).  The JAX features not ported raise ``NotImplementedError``
+member), and a learned value terminal's hooks (``_post_terminal_fn``,
+``_value_grad_spec``, ``_flatten_value_ops``, ``_finalize_cost_kernel``).
+The JAX features not ported raise ``NotImplementedError``
 (ROADMAP): ``remat``, ``initial_guess_policy`` and mesh sharding.
 """
 from __future__ import annotations
@@ -89,20 +91,20 @@ def make_slot_packer(param_keys, slot_keys, attr_defaults, B: int, device):
     return pack
 
 
-def batched_kernel_core_ok(opt, *, force_scan: bool, stateful: bool = False) -> bool:
+def batched_kernel_core_ok(opt, *, force_scan: bool, stateful: bool = False,
+                           post_ok: bool = False) -> bool:
     """The conjunction every batched-kernel gate shares: no user
     ``force_scan`` opt-out, a stateless predictor, no logging or optimal
-    trajectory (per-session diagnostics) and no post-terminal hook (no
-    ported batched kernel carries one: K4's ``emit_terminal`` form is not
-    ported).  The JAX gate's K-sharding mesh conjunct has no counterpart:
-    the port refuses a mesh."""
-    cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    trajectory (per-session diagnostics) and no post-terminal hook unless
+    ``post_ok`` (the gate's kernel carries a learned value terminal: K4's
+    ``emit_terminal`` form).  The JAX gate's K-sharding mesh conjunct has
+    no counterpart: the port refuses a mesh."""
     return (
         not force_scan
         and not stateful
         and not opt.optimizer_logging
         and not opt.calculate_optimal_trajectory
-        and getattr(cf, "post_terminal_cost", None) is None
+        and (post_ok or opt._post_terminal_fn() is None)
     )
 
 
@@ -301,6 +303,59 @@ class Optimizer:
         return getattr(getattr(self.predictor, "predictor", self.predictor), "disagreement",
                        None)
 
+    def _post_terminal_fn(self):
+        """The cost's post-terminal hook (a learned value terminal,
+        ``costs/value_terminal.py``), evaluated outside the cost kernels on
+        the terminal states their emit_terminal forms write; None for a
+        plain cost."""
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        return getattr(cf, "post_terminal_cost", None)
+
+    def _value_grad_spec(self):
+        """``{"n_layers": L}`` when the cost is a ValueTerminalCost whose V
+        is a plain ``w*/b*`` tanh MLP and whose base has no post hook of
+        its own: K7's value_spec form then evaluates V and seeds its
+        adjoint with dV/dx_H.  None otherwise (a net with norms, any other
+        hook): the gradient takes ``torch.autograd`` through the fused
+        loop, in which the hook takes part."""
+        from control_toolkit_tpu_torch.costs.value_terminal import ValueTerminalCost
+
+        cf = getattr(self.cost_function, "cost_function", self.cost_function)
+        if not isinstance(cf, ValueTerminalCost):
+            return None
+        if getattr(cf.base, "post_terminal_cost", None) is not None:
+            return None
+        net = cf.value_params
+        n = sum(1 for k in net if str(k).startswith("w"))
+        if n == 0 or set(net) != {f"{c}{i}" for i in range(n) for c in "wb"}:
+            return None
+        return {"n_layers": n}
+
+    def _flatten_value_ops(self, params) -> list:
+        """The live value net's ``[w0, b0, ..., w_{L-1}, b_{L-1}]`` (``w_i``
+        ``[in, out]``, as ``mlp_apply`` reads them) with the value scale
+        folded into the last layer on every call, so a re-fit or a changed
+        scale reaches K7's value_spec form with nothing rebuilt."""
+        net, scale = params["cost"]["_value_net"], params["cost"]["_value_scale"]
+        n = sum(1 for k in net if str(k).startswith("w"))
+        ops = [t for i in range(n) for t in (net[f"w{i}"], net[f"b{i}"])]
+        return ops[:-2] + [ops[-2] * scale, ops[-1] * scale]
+
+    def _finalize_cost_kernel(self, raw_call, post):
+        """``raw_call(s_tiled, Q, u_prev, params)`` returns ``cost [K]``
+        (``post`` None) or ``(cost [K], x_H [K, S])`` (an emit_terminal
+        form): the cost with ``post(x_H) / (H+1)`` added, V as torch
+        matmuls on the emitted terminal states, under the mean over H+1."""
+        if post is None:
+            return raw_call
+        inv = 1.0 / (self.mpc_horizon + 1)
+
+        def cost_fn(s_tiled, Q, u_prev, params):
+            cost, x_term = raw_call(s_tiled, Q, u_prev, params)
+            return cost + post(x_term, self._cost_params(params)) * inv
+
+        return cost_fn
+
     def _wrap_risk(self, cost_fn):
         """``cost_fn`` (``(s_tiled, Q, u_prev, params) -> [K]``) plus the
         epistemic-uncertainty penalty when risk_weight is on."""
@@ -384,9 +439,11 @@ class Optimizer:
         net, K11's member-block form for an ensemble, K14 for a sparse GP,
         K12 for a residual model; plain versions on CPU tensors) > the fused
         loop > None (callers keep the trajectory path); each with the
-        risk_weight penalty.  ``differentiable`` leaves the kernels out
-        (they have no autograd rule): the gradient optimizers'
-        ``torch.autograd`` path."""
+        risk_weight penalty; under a post-terminal hook the ODE family's is
+        K1's emit_terminal form plus the hook, and the learned families
+        raise (their value forms are not ported).  ``differentiable``
+        leaves the kernels out (they have no autograd rule): the gradient
+        optimizers' ``torch.autograd`` path."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf
 
         if self.robust_eval:
@@ -407,7 +464,8 @@ class Optimizer:
         With logging off and an eligible model the gradient is the first
         family of ``GRAD_ORDER`` whose gate admits it (K7 for an ODE, K8 for
         an MLP, K8's member-block form for an ensemble, K10 for a GP, K9 for
-        a residual model) and the cost ``_make_cost_only``'s; otherwise
+        a residual model; under a plain tanh-MLP value terminal, K7's
+        value_spec form) and the cost ``_make_cost_only``'s; otherwise
         ``torch.autograd`` through ``_make_cost_only(differentiable=True)``
         (the fused loop, with the risk and robust terms), or through the
         trajectory rollout when logging is on."""

@@ -12,8 +12,9 @@ initial defaults), and the control is the best elite's first action.
 Two scoring paths, chosen as the JAX package chooses them:
 
 * modular: ``z`` is a ``torch.randn`` draw and K1 (``ops/cost_rollout.py``)
-  scores Q through ``Optimizer._make_cost_only`` (the trajectory rollout
-  when logging is on);
+  scores Q through ``Optimizer._make_cost_only`` (K1, or its emit_terminal
+  form under a learned value terminal; the trajectory rollout when
+  logging is on);
 * ``fully_fused`` (where ``_can_fully_fuse`` admits it): K5
   (``ops/fused_cem.py``) draws the population from the counter PRNG,
   rolls it out and scores it in one launch; only the elite rows are drawn
@@ -321,10 +322,14 @@ class CEMOptimizer(Optimizer):
     def _can_fully_fuse(self) -> bool:
         """K5 scores the population: the option is on, logging is off (the
         kernel writes costs only), the model and cost are K1's (``ode``
-        family; no post-terminal hook) and K divides into K5's tiles."""
+        family), no post-terminal hook (K5 writes no terminal states: a
+        learned value terminal takes the modular path over K1's
+        emit_terminal form, JAX ``cem.py:162``) and K divides into K5's
+        tiles."""
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         return (self.fully_fused and not self.optimizer_logging and ode.can_use_cost(self)
+                and self._post_terminal_fn() is None
                 and self.num_rollouts % self.fused_tile_k == 0)
 
     # ---- sampling -----------------------------------------------------------

@@ -7,10 +7,12 @@ member e, in one launch: each block of the launch stages its member's
 weights, so an E-member rollout costs one net's operations.  The gates
 admit a TS-inf, non-probabilistic ``EnsemblePredictor`` over a cost with a
 device implementation (``ode.device_cost``: ``supports_fused_rollout``,
-scalar attributes, no ``post_terminal_cost``) and ``force_scan`` off; the
-gradient gate also refuses ``risk_weight`` and ``robust_eval`` (the
-kernel's dQ has no disagreement penalty and scores each plan under one
-member; those objectives keep ``torch.autograd`` through the loop).  The
+scalar attributes) and ``force_scan`` off, and raise NotImplementedError
+for a cost with a post-terminal hook (the forms' value forms are not
+ported); the gradient gate also refuses ``risk_weight`` and
+``robust_eval`` (the kernel's dQ has no disagreement penalty and scores
+each plan under one member; those objectives keep ``torch.autograd``
+through the loop).  The
 JAX gates' TPU conjuncts (backend, ``ensemble_tile_for``, ``grad_tile``)
 have no counterpart: a ragged K/E is masked in the kernels, and the
 wrappers raise on a member net whose weights exceed a block's shared
@@ -26,7 +28,7 @@ from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredicto
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout_ens
 from control_toolkit_tpu_torch.ops.neural_rollout import neural_cost_rollout_ens
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
 name = "ensemble"
 
@@ -38,7 +40,12 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    return not opt.force_scan and compatible_model(opt)
+    """The gate of K11's member-block form; raises for a cost with a
+    post-terminal hook (its emit_terminal form is not ported)."""
+    ok = not opt.force_scan and compatible_model(opt)
+    if ok:
+        refuse_value(opt, "the emit_terminal form of K11's member-block form")
+    return ok
 
 
 def net_model(opt):
@@ -71,7 +78,13 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    return can_use_cost(opt) and not opt.risk_weight and not opt.robust_eval
+    """The gate of K8's member-block form; raises for a cost with a
+    post-terminal hook (its value_spec form is not ported)."""
+    ok = (not opt.force_scan and compatible_model(opt) and not opt.risk_weight
+          and not opt.robust_eval)
+    if ok:
+        refuse_value(opt, "the value_spec form of K8's member-block form")
+    return ok
 
 
 def build_grad(opt):

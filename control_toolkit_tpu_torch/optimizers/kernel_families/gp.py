@@ -12,7 +12,9 @@ whose inducing points exceed a block's shared memory.  K14's session-row
 form serves the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_gp_step``, over ``cached_operands``), K10's
 and K14's its gradient fleets (``batched_kernels``).  Not ported: the
-learned-terminal (``emit_terminal``, ``value_spec``) forms.
+learned-terminal (``emit_terminal``, ``value_spec``) forms: over a cost
+with a post-terminal hook the gates raise NotImplementedError naming the
+form.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
 name = "gp"
 
@@ -35,7 +37,12 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    return not opt.force_scan and compatible_model(opt)
+    """K14's gate; raises for a cost with a post-terminal hook (its
+    emit_terminal form is not ported)."""
+    ok = not opt.force_scan and compatible_model(opt)
+    if ok:
+        refuse_value(opt, "K14's emit_terminal form")
+    return ok
 
 
 def gp_model(opt):
@@ -74,7 +81,12 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    return can_use_cost(opt)
+    """K10's gate; raises for a cost with a post-terminal hook (its
+    value_spec form is not ported)."""
+    ok = not opt.force_scan and compatible_model(opt)
+    if ok:
+        refuse_value(opt, "K10's value_spec form")
+    return ok
 
 
 def build_grad(opt):

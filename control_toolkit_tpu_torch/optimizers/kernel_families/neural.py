@@ -4,9 +4,9 @@ control_toolkit_tpu/optimizers/kernel_families/neural.py).
 
 The gates admit a float32 NeuralPredictor over a cost with a device
 implementation (``DEVICE_COSTS``, the cost the plant evaluates),
-``supports_fused_rollout``, scalar attributes, no ``post_terminal_cost``,
-and ``force_scan`` off; the gradient gate also refuses a recurrent net
-(its backward would need the per-step hidden history).  The JAX gates'
+``supports_fused_rollout``, scalar attributes, and ``force_scan`` off;
+the gradient gate also refuses a recurrent net (its backward would need
+the per-step hidden history).  The JAX gates'
 TPU conjuncts (backend, tile divisibility, VMEM budgets) have no
 counterpart: K is masked in the kernels and the wrappers raise on a net
 whose weights exceed a block's shared memory.  The net's tensors, and a
@@ -17,7 +17,8 @@ session-row forms of K11 and K13 serve the batched-mpc MPPI fleet
 ``_make_batched_recurrent_step``), K8's and K11's its gradient fleets
 (``batched_kernels``).  The ensemble's member-block (``n_members``) forms
 are ``kernel_families/ensemble.py``'s.  Not ported: the learned-terminal
-(``emit_terminal``, ``value_spec``) forms.
+(``emit_terminal``, ``value_spec``) forms: over a cost with a post-terminal
+hook the gates raise NotImplementedError naming the form.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout, neural_cost_rollout_cols, recurrent_cost_rollout,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
 name = "neural"
 
@@ -43,7 +44,13 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    return not opt.force_scan and compatible_model(opt)
+    """K11's (an MLP) or K13's (a GRU or LSTM) gate; raises for a cost
+    with a post-terminal hook (their emit_terminal forms are not ported)."""
+    ok = not opt.force_scan and compatible_model(opt)
+    if ok:
+        recurrent = getattr(opt.predictor, "predictor", opt.predictor).recurrent
+        refuse_value(opt, f"K{13 if recurrent else 11}'s emit_terminal form")
+    return ok
 
 
 def net_model(opt):
@@ -80,8 +87,13 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
+    """K8's gate (an MLP); raises for a cost with a post-terminal hook
+    (its value_spec form is not ported)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return can_use_cost(opt) and not pred.recurrent
+    ok = not opt.force_scan and compatible_model(opt) and not pred.recurrent
+    if ok:
+        refuse_value(opt, "K8's value_spec form")
+    return ok
 
 
 def build_grad(opt):

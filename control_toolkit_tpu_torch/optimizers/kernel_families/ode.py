@@ -11,9 +11,17 @@ counterpart: K is masked in the kernels, and on CPU tensors the kernel
 wrappers run their plain versions.  The session-row (``slot_keys``) forms
 of K7 and K1 serve the batched-mpc gradient fleets (``batched_kernels``,
 bound by ``kernel_families/batched.py``) and K1's the modular batched CEM
-step.  Not ported: the gradient kernel's ``value_spec`` (an in-kernel
-learned value terminal); ``compatible_model`` refuses a
-``post_terminal_cost``, so it is not reachable.
+step.
+
+A learned value terminal (``costs/value_terminal.py``; the type check
+reads a ValueTerminalCost's base) rides the cost kernel's
+``emit_terminal`` form, ``post(x_H)/(H+1)`` added outside it
+(``Optimizer._finalize_cost_kernel``), and, for a plain tanh MLP V,
+K7's ``value_spec`` form; any other post hook takes ``torch.autograd``
+through the fused loop for its gradient, as the JAX package takes XLA-AD.
+The other families' gates call ``device_cost`` too: where their model is
+admitted but the cost has a post hook they raise (``refuse_value``)
+naming their unported value form, so no kernel drops V.
 """
 from __future__ import annotations
 
@@ -23,10 +31,14 @@ from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
-from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_cols
-from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_cols,
+from control_toolkit_tpu_torch.costs.value_terminal import ValueTerminalCost
+from control_toolkit_tpu_torch.ops.cost_rollout import (
+    cost_rollout, cost_rollout_cols, cost_rollout_emit,
 )
+from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
+    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_value,
+)
+from control_toolkit_tpu_torch.optimizers.base import _not_ported
 
 name = "ode"
 
@@ -35,18 +47,28 @@ DEVICE_COSTS = {"cartpole": CartpoleQuadraticCost}
 
 
 def device_cost(opt) -> bool:
-    """The optimizer's cost is the one its environment's device plant
-    evaluates, fusable, with no post-terminal hook and scalar attributes:
-    the cost half of every kernel family's gate."""
+    """The optimizer's cost (a ValueTerminalCost's base) is the one its
+    environment's device plant evaluates, fusable, with scalar attributes:
+    the cost half of every kernel family's gate.  A post-terminal hook is
+    admitted: the ODE family carries it, the others ``refuse_value``."""
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    base = cf.base if isinstance(cf, ValueTerminalCost) else cf
     pred = getattr(opt.predictor, "predictor", opt.predictor)
     return (
         pred.environment_name in DEVICE_COSTS
-        and type(cf) is DEVICE_COSTS[pred.environment_name]
+        and type(base) is DEVICE_COSTS[pred.environment_name]
         and cf.supports_fused_rollout
-        and cf.post_terminal_cost is None
         and all(np.ndim(v) == 0 for v in cf.attr_defaults.values())
     )
+
+
+def refuse_value(opt, form: str) -> None:
+    """Raise NotImplementedError naming ``form`` where a learned family's
+    gate admits the model but the cost has a post-terminal hook: that
+    family's value form is not ported, and neither its plain kernel
+    (which would drop V) nor the torch loop may take its place."""
+    if opt._post_terminal_fn() is not None:
+        raise _not_ported(f"{form} (a learned value terminal over this model)")
 
 
 def compatible_model(opt) -> bool:
@@ -80,28 +102,47 @@ def rollout_model(opt):
 def build_cost(opt):
     """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K1, with the
     semantics of ``Optimizer._fused_cost``; the scalar parameters are
-    packed per call, so weight and attribute changes need no rebuild."""
+    packed per call, so weight and attribute changes need no rebuild.
+    With a post-terminal hook, over K1's emit_terminal form, the hook's
+    ``post(x_H)/(H+1)`` added (JAX ``ode.py:81-92``)."""
     model, pack = rollout_model(opt)
+    post = opt._post_terminal_fn()
+    if post is None:
+        def cost_fn(s_tiled, Q, u_prev, params):
+            return cost_rollout(model, s_tiled, Q, pack(params, u_prev))
 
-    def cost_fn(s_tiled, Q, u_prev, params):
-        return cost_rollout(model, s_tiled, Q, pack(params, u_prev))
+        return cost_fn
 
-    return cost_fn
+    def raw_call(s_tiled, Q, u_prev, params):
+        return cost_rollout_emit(model, s_tiled, Q, pack(params, u_prev))
+
+    return opt._finalize_cost_kernel(raw_call, post)
 
 
 def can_use_grad(opt) -> bool:
+    """K7's gate: K1's, a plant with adjoints, and no post-terminal hook
+    unless it is a plain tanh-MLP V (``_value_grad_spec``), which K7's
+    value_spec form differentiates; any other hook keeps torch.autograd,
+    where the kernel would drop its dQ (JAX ``ode.py:106-117``)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
+    return (can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
+            and (opt._post_terminal_fn() is None or opt._value_grad_spec() is not None))
 
 
 def build_grad(opt):
     """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
     over K7, with d(sum_k cost_k)/dQ semantics; the same per-call
-    parameter packing as ``build_cost``."""
+    parameter packing as ``build_cost``.  With a learned value terminal,
+    over K7's value_spec form, the net's tensors (the scale folded into
+    its last layer, ``_flatten_value_ops``) passed on every call."""
     model, pack = rollout_model(opt)
-
-    def grad_fn(s_tiled, Q, u_prev, params):
-        return grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev))
+    if opt._value_grad_spec():
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
+                                           opt._flatten_value_ops(params))
+    else:
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev))
 
     return grad_fn
 

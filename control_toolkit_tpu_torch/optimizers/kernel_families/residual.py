@@ -14,7 +14,8 @@ in the kernels.  K12's session-row form serves the batched-mpc fleet
 (``MPPIOptimizer._make_batched_residual_step``, ``per_slot_dyn`` over the
 base's constants), K9's and K12's its gradient fleets
 (``batched_kernels``).  Not ported: the learned-terminal
-(``emit_terminal``, ``value_spec``) forms.
+(``emit_terminal``, ``value_spec``) forms: over a cost with a
+post-terminal hook the gates raise NotImplementedError naming the form.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_cols,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
 name = "residual"
 
@@ -38,7 +39,12 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    return not opt.force_scan and compatible_model(opt)
+    """K12's gate; raises for a cost with a post-terminal hook (its
+    emit_terminal form is not ported)."""
+    ok = not opt.force_scan and compatible_model(opt)
+    if ok:
+        refuse_value(opt, "K12's emit_terminal form")
+    return ok
 
 
 def residual_model(opt):
@@ -72,8 +78,14 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
+    """K9's gate; raises for a cost with a post-terminal hook (its
+    value_spec form is not ported)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
+    ok = (not opt.force_scan and compatible_model(opt)
+          and pred.environment_name in PLANT_ADJOINTS)
+    if ok:
+        refuse_value(opt, "K9's value_spec form")
+    return ok
 
 
 def build_grad(opt):

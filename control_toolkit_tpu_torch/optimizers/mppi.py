@@ -20,17 +20,22 @@ chooses them:
 * semi-fused (default): noise ``[P, U, K]`` at the inducing points goes
   to K2 (``ops/mppi_cost.py``), which interpolates, clips, rolls out and
   scores in one pass; the weighted average is taken at the inducing
-  points and interpolated once (linearity of interpolation).
+  points and interpolated once (linearity of interpolation).  With a
+  learned value terminal (``costs/value_terminal.py``) K2's emit_terminal
+  form also writes x_H, and ``V(x_H)/(H+1)`` joins the costs before the
+  weights; the fully-fused gate then refuses (K3 writes no x_H).
 * modular (``semi_fused: false``, ``bounded_update``, or logging on):
   noise ``[K, P, U]`` is interpolated and clipped in torch and scored by
-  K1 (``ops/cost_rollout.py``) through ``Optimizer._make_cost_only``, or
-  by the full trajectory rollout when logging needs it.
+  K1 (``ops/cost_rollout.py``; its emit_terminal form under a value
+  terminal) through ``Optimizer._make_cost_only``, or by the full
+  trajectory rollout when logging needs it.
 
 Where the fully-fused gate is false, ``fully_fused`` takes the semi-fused
 path, as the JAX gate does: an options rule, not a fall back from a
 failed kernel.  The batched-mpc controller's B-session steps score every
 session in one launch: over an ODE model K4 (``ops/mppi_cost_cols.py``,
-``_make_batched_semi_fused_step``), over a learned model the session-row
+``_make_batched_semi_fused_step``; its emit_terminal form under a value
+terminal), over a learned model the session-row
 form of its kernel (``_batched_columns_step_from_kernel``: K11, K13, K12,
 K14).  Not ported yet (they raise ``NotImplementedError``,
 ROADMAP): ``optim_steps > 0`` (mppi-optimize),
@@ -197,13 +202,16 @@ class MPPIOptimizer(Optimizer):
         """K3 runs the step (``mppi.py:_can_fully_fuse``): the option is on,
         softmax weighting without ``bounded_update`` (the kernels average
         the raw perturbations), logging off, the model and cost K1's
-        (``ode`` family; no post-terminal hook), and K divides into K3's
-        tiles.  ``optim_steps`` and ``calculate_optimal_trajectory`` are
-        refused at construction."""
+        (``ode`` family), no post-terminal hook (K3 writes no terminal
+        states: a learned value terminal takes the semi-fused path, whose
+        K2 form emits them), and K divides into K3's tiles.
+        ``optim_steps`` and ``calculate_optimal_trajectory`` are refused at
+        construction."""
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         return (self.fully_fused and self.weighting == "softmax" and not self.bounded_update
                 and not self.optimizer_logging and ode.can_use_cost(self)
+                and self._post_terminal_fn() is None
                 and self.num_rollouts % self.fused_tile_k == 0)
 
     def _uses_semi_fused(self) -> bool:
@@ -263,7 +271,11 @@ class MPPIOptimizer(Optimizer):
         return update
 
     def _make_semi_fused_update(self):
-        from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost
+        """The semi-fused update over K2; with a post-terminal hook (a
+        learned value terminal) over K2's emit_terminal form, the hook's
+        ``post(x_H)/(H+1)`` joining the costs before the weights (JAX
+        ``mppi.py:131-156``)."""
+        from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_emit
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         model, pack = ode.rollout_model(self)
@@ -271,12 +283,18 @@ class MPPIOptimizer(Optimizer):
         low, high = self.action_low, self.action_high
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
+        post, H = self._post_terminal_fn(), self.mpc_horizon
 
         def update(state: MPPIState, s, params, eps):
             u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)
             pvec = pack(params, state.u_prev)
-            costs = mppi_cost(model, s[0], u_nom[0], pvec, eps, W, low, high,
-                              cc_weight, R, NU)                   # [K]
+            if post is None:
+                costs = mppi_cost(model, s[0], u_nom[0], pvec, eps, W, low, high,
+                                  cc_weight, R, NU)               # [K]
+            else:
+                costs, x_term = mppi_cost_emit(model, s[0], u_nom[0], pvec, eps, W, low, high,
+                                               cc_weight, R, NU)
+                costs = costs + post(x_term, self._cost_params(params)) / (H + 1)
             w = weight_fn(costs, (0,))
             # Weighted average at the inducing points, then one
             # interpolation: sum_k w_k (W eps_k) == W (sum_k w_k eps_k).
@@ -310,7 +328,10 @@ class MPPIOptimizer(Optimizer):
         initial state, shifted nominal plan, attributes, previous control
         and ``per_slot_dyn`` constants (``pvec_b``); the softmax and the
         weighted average at the inducing points run per session as torch
-        ops over ``[B, K]``.
+        ops over ``[B, K]``.  With a post-terminal hook (a learned value
+        terminal) the launch is K4's emit_terminal form and each session's
+        ``post(x_H)/(H+1)`` joins its costs before its softmax (JAX
+        ``mppi.py:420-470``).
 
         Returns ``(step, update_from_eps)``: ``step(states, s [B,1,S], dyn,
         cost, attrs, mask [B]) -> (u [B,U], states', costs [B,K])`` over the
@@ -322,13 +343,13 @@ class MPPIOptimizer(Optimizer):
         (``mask`` false) draws nothing, so a session's draws depend neither
         on B nor on the other slots' masks."""
         from control_toolkit_tpu_torch.ops.counter_prng import ROWS
-        from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols
+        from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
+            mppi_cost_cols, mppi_cost_cols_emit,
+        )
         from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
-        if cf.post_terminal_cost is not None:
-            raise _not_ported("K4's emit_terminal form (a learned value terminal in batched MPPI)")
         if not ode.compatible_model(self):
             raise ValueError("semi-fused batched MPPI covers the ODE models of the device plants")
         B, K = int(num_slots), self.num_rollouts
@@ -341,12 +362,19 @@ class MPPIOptimizer(Optimizer):
         self._slot_noise_shape = (W.shape[0], self.num_control_inputs, K)
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
+        post, inv_h1 = self._post_terminal_fn(), 1.0 / (self.mpc_horizon + 1)
 
         def update_from_eps(states, s, dyn, cost, attrs, eps):
             u_nom = torch.cat([states.u_nom[:, 0, 1:, :], states.u_nom[:, 0, -1:, :]], dim=1)
             pvec_b = pack(states.u_prev, dyn, cost, attrs)
-            costs = mppi_cost_cols(model, s[:, 0, :].contiguous(), u_nom, pvec_b, eps, W, low,
-                                   high, cc_weight, R, NU)                # [B, K]
+            operands = (model, s[:, 0, :].contiguous(), u_nom, pvec_b, eps, W, low, high,
+                        cc_weight, R, NU)
+            if post is None:
+                costs = mppi_cost_cols(*operands)                         # [B, K]
+            else:
+                costs, x_term = mppi_cost_cols_emit(*operands)            # x_H [B, K, S]
+                v = post(x_term.reshape(B * K, -1), {"cost": cost, "attrs": attrs}) * inv_h1
+                costs = costs + v.reshape(B, K)
             w = weight_fn(costs, (1,))
             # Per session: the weighted average at the inducing points, then
             # one interpolation (linearity, as the single-session update).

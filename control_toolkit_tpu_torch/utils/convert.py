@@ -60,6 +60,14 @@ def ensemble_params_from_numpy(net: Dict, device: torch.device = torch.device("c
     return {"net": _tree(net, device)}
 
 
+def value_params_from_numpy(net: Dict, device: torch.device = torch.device("cpu")) -> Dict:
+    """A learned terminal value's net (``costs/value_terminal.py``): the
+    JAX package's ``{w0, b0, ...}`` MLP dict (``mlp_init`` or
+    ``fit_value_mlp``'s, ``w_i [in, out]``) as float32 tensors on
+    ``device``."""
+    return _tree(net, device)
+
+
 def mppi_state_from_numpy(u_nom, u_prev, generator: torch.Generator):
     """An ``MPPIState`` from the JAX state's ``u_nom [1,H,U]`` and
     ``u_prev [U]``."""

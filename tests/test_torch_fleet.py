@@ -380,17 +380,19 @@ def test_unported_batched_configurations_raise(kind):
         with pytest.raises(NotImplementedError):
             builds[kind]()
         return
-    ctrl = fleet()
-    cf = ctrl.optimizer.cost_function.cost_function
+    cem = fleet(optimizer="cem-tf", per_slot_dyn=(), fully_fused=True)
     if kind == "value_terminal":
+        # The MPPI fleet over the ODE carries a post hook (K4's emit_terminal
+        # form, tests/test_torch_value.py); a valued fully-fused CEM fleet is
+        # the JAX package's vmapped per-slot step: refused.
+        cf = cem.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
         with pytest.raises(NotImplementedError):
-            ctrl.optimizer._make_batched_semi_fused_step(2)
-        err = ctrl._refusal()
-        assert not ctrl._batched_kernel_eligible()
+            cem.optimizer._make_batched_fused_cem_step(2)
+        err = cem._refusal()
+        assert not cem._batched_fused_cem_eligible()
         assert isinstance(err, NotImplementedError) and "value terminal" in str(err)
         return
-    cem = fleet(optimizer="cem-tf", per_slot_dyn=(), fully_fused=True)
     cem.optimizer.warmup = True
     with pytest.raises(NotImplementedError):
         cem.optimizer._make_batched_fused_cem_step(2)
