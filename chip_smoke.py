@@ -296,6 +296,33 @@ value_spec form:
     one K4 form a tick), the poles counted, and one fleet update against
     the CPU's.
 
+The learned value terminal over the learned dynamics, on the
+emit_terminal forms of K11 (and its member-block form), K12, K13 and K14:
+59. each form (neural_cost_rollout_emit, neural_cost_rollout_ens_emit,
+    residual_cost_rollout_emit, recurrent_cost_rollout_emit over the GRU
+    and the LSTM, gp_cost_rollout_emit) against its plain version at its
+    kernel's phase operands (phases 11, 49, 18, 13 and 20: K=16384, H=50,
+    the committed nets, the well-conditioned GP) and at a ragged K (1,000;
+    the ensemble 300 a member): its costs equal, bit for bit, to the
+    kernel's own, x_H to X_TOL, whose bound must reject x_{H-1} and the
+    next rollout's x_H (``compare_emit``); each timed beside its kernel;
+    both entries' registers and spills (``learned_emit_resources``);
+60. the session-row emit forms of K11, K12 and K14 at phase 41's operands
+    (128 sessions of K=512, H=35) against their plain versions, each
+    session equal, bit for bit, to the single-session emit form over its
+    rows, the next session's row and the next rollout's x_H rejected,
+    timed at 32 and 128 sessions beside the session-row kernels;
+61. from LEARNED_START, over the committed value net, 100 ticks each of
+    MPPI over mlp-64-64, the GRU, "ODE+res" (a seeded residual), SGP_128
+    and the ensemble, and of CEM over mlp-64-64: one emit launch a tick
+    (CEM: one an outer iteration), the pole recorded, not required (V was
+    fitted on states of the ODE's closed loop);
+62. one valued update of each on the card against the same update on the
+    CPU (the GP's with the well-conditioned GP swapped in) and a V swap
+    that builds nothing; then 50 ticks of each valued 32-session MPPI fleet
+    (MLP, "ODE+res", GP; one session-row emit launch a tick) and one update
+    of each against the CPU's, the valued MLP fleet timed.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -309,7 +336,8 @@ seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
 icem; MPPI and rpgd-tf over the ensemble; the valued MPPI (H=50, H=10) and
-rpgd-tf; the fleet paths at both sizes of phases 40, 44 and 48), printing
+rpgd-tf; the valued MPPI over the MLP; the fleet paths at both sizes of
+phases 40, 44 and 48 and the valued MLP fleet), printing
 per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
@@ -376,8 +404,9 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_plain,
-    gp_cost_rollout_lanes, gp_cost_rollout_plain,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_emit,
+    gp_cost_rollout_cols_emit_plain, gp_cost_rollout_cols_plain, gp_cost_rollout_emit,
+    gp_cost_rollout_emit_plain, gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
@@ -399,18 +428,23 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_cols,
-    neural_cost_rollout_cols_plain, neural_cost_rollout_ens, neural_cost_rollout_ens_plain,
-    neural_cost_rollout_plain, neural_cost_rollout_warps, plain_cost_loop,
-    recurrent_cost_rollout, recurrent_cost_rollout_cols, recurrent_cost_rollout_cols_plain,
-    recurrent_cost_rollout_plain,
+    neural_cost_rollout_cols_emit, neural_cost_rollout_cols_emit_plain,
+    neural_cost_rollout_cols_plain, neural_cost_rollout_emit, neural_cost_rollout_emit_plain,
+    neural_cost_rollout_ens, neural_cost_rollout_ens_emit, neural_cost_rollout_ens_emit_plain,
+    neural_cost_rollout_ens_plain, neural_cost_rollout_plain, neural_cost_rollout_warps,
+    plain_cost_loop, recurrent_cost_rollout, recurrent_cost_rollout_cols,
+    recurrent_cost_rollout_cols_plain, recurrent_cost_rollout_emit,
+    recurrent_cost_rollout_emit_plain, recurrent_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
     residual_grad_cost_rollout_cols_plain, residual_grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
-    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_plain,
-    residual_cost_rollout_plain, residual_step_fn,
+    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_emit,
+    residual_cost_rollout_cols_emit_plain, residual_cost_rollout_cols_plain,
+    residual_cost_rollout_emit, residual_cost_rollout_emit_plain, residual_cost_rollout_plain,
+    residual_step_fn,
 )
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import refit
@@ -482,7 +516,15 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "neural_grad_cost_rollout_ens": neural_grad_cost_rollout_ens,
            "cost_rollout_emit": cost_rollout_emit, "mppi_cost_emit": mppi_cost_emit,
            "mppi_cost_cols_emit": mppi_cost_cols_emit,
-           "grad_cost_rollout_value": grad_cost_rollout_value}
+           "grad_cost_rollout_value": grad_cost_rollout_value,
+           "neural_cost_rollout_emit": neural_cost_rollout_emit,
+           "neural_cost_rollout_ens_emit": neural_cost_rollout_ens_emit,
+           "recurrent_cost_rollout_emit": recurrent_cost_rollout_emit,
+           "residual_cost_rollout_emit": residual_cost_rollout_emit,
+           "gp_cost_rollout_emit": gp_cost_rollout_emit,
+           "neural_cost_rollout_cols_emit": neural_cost_rollout_cols_emit,
+           "residual_cost_rollout_cols_emit": residual_cost_rollout_cols_emit,
+           "gp_cost_rollout_cols_emit": gp_cost_rollout_cols_emit}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -717,6 +759,12 @@ VALUE_RAGGED_K, VALUE_MARGIN = 1000, 10.0
 VALUE_TICKS, VALUE_RPGD_TICKS, VALUE_SHORT_H, VALUE_SHORT_TICKS, VALUE_FLEET_TICKS = \
     200, 100, 10, 100, 50
 X_TOL = dict(rtol=1e-4, atol=1e-4)
+# The learned value terminal over the learned dynamics: the loops (MPPI
+# over each learned model of the single-session phases at their configs,
+# CEM over the MLP) run VALUE_LEARNED_TICKS from LEARNED_START over the
+# committed value net, the valued fleets (MLP, "ODE+res", GP at FLEET_B)
+# VALUE_LEARNED_FLEET_TICKS.
+VALUE_LEARNED_TICKS, VALUE_LEARNED_FLEET_TICKS = 100, 50
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -1556,20 +1604,26 @@ def recurrent_cases(model, s0, Q, pvec, net, hidden) -> dict:
     return cases
 
 
-def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
-    """Phase 13: K13 against its plain version for the net of ``spec``, from
-    the hidden that ten of the predictor's own updates reach, also at
-    ragged K, and the cost bound against the plain version's output for a
-    wrong net or hidden; then its time at K_SCALING and its resources."""
+def recurrent_operands(spec: str, gen, device) -> tuple:
+    """``(model, pvec, net, hidden)`` of the recurrent net of ``spec`` on the
+    card, from the hidden that ten of the predictor's own updates reach."""
     ctrl = make_controller("cuda", spec=spec)
-    pred, device = ctrl.optimizer.predictor.predictor, s0.device
+    pred = ctrl.optimizer.predictor.predictor
     for _ in range(10):
         pred.update(0.05 * torch.randn(1, 4, generator=gen, device=device),
                     torch.clamp(0.3 * torch.randn(1, 1, 1, generator=gen, device=device), -1, 1))
     model, pack = neural.net_model(ctrl.optimizer)
     params = ctrl._assemble_params()
-    pvec = pack(params, torch.tensor([0.1], device=device))
-    net, hidden = params["dyn"]["net"], params["dyn"]["hidden"]
+    return (model, pack(params, torch.tensor([0.1], device=device)), params["dyn"]["net"],
+            params["dyn"]["hidden"])
+
+
+def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
+    """Phase 13: K13 against its plain version for the net of ``spec``, from
+    the hidden that ten of the predictor's own updates reach, also at
+    ragged K, and the cost bound against the plain version's output for a
+    wrong net or hidden; then its time at K_SCALING and its resources."""
+    model, pvec, net, hidden = recurrent_operands(spec, gen, s0.device)
     ref = recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
     mutants = {name: recurrent_cost_rollout_plain(model, s0, Q, pvec, n, h)
                for name, (n, h) in recurrent_mutants(net, hidden, model.kind).items()}
@@ -2451,7 +2505,19 @@ def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
     return k3a, k3b
 
 
-def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
+def value_slack(post, x: torch.Tensor, cost_params: dict, horizon: int) -> torch.Tensor:
+    """Per rollout, how far X_TOL's bound on the terminal states ``x``
+    [N, S] moves the value term post(x)/(H+1) to first order: |dV/dx| .
+    (atol + rtol |x|) / (H+1)."""
+    x = x.detach()
+    with torch.enable_grad():
+        xg = x.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(post(xg, cost_params).sum(), xg)
+    return (g.abs() * (X_TOL["atol"] + X_TOL["rtol"] * x.abs())).sum(1) / (horizon + 1)
+
+
+def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = "ODE",
+                      value=None) -> None:
     """Phase 34, CEM: one update on the card and on the CPU (the plain
     versions) from the card's state and params with the same draws, outer
     iteration by outer iteration.  Both score the card's mue and std; the
@@ -2459,23 +2525,31 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
     costs within the cost bound (exactly tied or near-tied costs may order
     otherwise on the two devices), and both refit from them.  Then the
     whole update on each device, held to the same where every iteration's
-    elite set agreed."""
+    elite set agreed.  ``spec`` and ``value`` (a learned terminal value
+    the CPU's controller gets too) as update_vs_cpu_mppi's (phase 62).  A
+    valued cost's V(x_H)/(H+1) moves with the kernel's x_H, which is held
+    to X_TOL: its costs get, beside the kernel's bound, ``value_slack``'s
+    first-order reach of that bound through V (the committed V's slope
+    reaches ~8e4 a unit of state)."""
     opt = ctrl.optimizer
     state = opt.opt_state
     s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
     draws = opt.sample_draws(state)
     params = ctrl._assemble_params()
-    cpu = make_controller("cpu", "cem-tf", config)
+    cpu = make_controller("cpu", "cem-tf", config, spec=spec)
+    if value is not None:
+        attach_value_terminal(cpu, to_cpu(value))
     check(cpu.optimizer._fused == opt._fused, f"{name}: the CPU took another path")
     best_k = opt.cem_best_k
     score = opt.prepare(s_now, params, state.u_prev)
     score_c = cpu.optimizer.prepare(s_now.cpu(), to_cpu(params), state.u_prev.cpu())
     mue, std = state.dist_mue, state.stdev
     errs = {"cost": 0.0, "elites": 0.0, "mue": 0.0, "std": 0.0, "topk_excess": 0.0}
-    same_sets = True
+    same_sets, slack_max = True, 0.0
     for draw in draws:
+        mue_in, std_in = mue.cpu(), std.cpu()
         cost, pick, _ = score(mue, std, draw)
-        cost_c, pick_c, _ = score_c(mue.cpu(), std.cpu(), draw.cpu())
+        cost_c, pick_c, _ = score_c(mue_in, std_in, draw.cpu())
         idx = elite_indices(cost, best_k)
         kth = torch.sort(cost_c).values[best_k - 1]
         slack = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * float(kth.abs())
@@ -2489,7 +2563,18 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
         for k, (a, b) in {"cost": (cost, cost_c), "elites": (elites, elites_c),
                           "mue": (mue, mue_c), "std": (std, std_c)}.items():
             errs[k] = max(errs[k], max_errors(a.cpu(), b)[0])
-        check(torch.allclose(cost.cpu(), cost_c, **KERNEL_TOL), f"{name}: costs differ {errs}")
+        slack = 0.0
+        if value is not None:
+            copt = cpu.optimizer
+            traj = copt._rollout_and_cost(s_now.cpu().expand(cost_c.shape[0], -1),
+                                          pick_c(torch.arange(cost_c.shape[0])),
+                                          state.u_prev.cpu(), to_cpu(params))[1]
+            slack = value_slack(copt._post_terminal_fn(), traj[:, -1],
+                                copt._cost_params(to_cpu(params)), copt.mpc_horizon)
+            slack_max = max(slack_max, float(slack.max()))
+        check(bool(((cost.cpu() - cost_c).abs()
+                    <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * cost_c.abs() + slack).all()),
+              f"{name}: costs differ {errs}, value slack {slack_max}")
     u, new, _ = opt.update(state, s_now, params, draws)
     cpu_state = state._replace(generator=torch.Generator(), dist_mue=state.dist_mue.cpu(),
                                stdev=state.stdev.cpu(), u_prev=state.u_prev.cpu())
@@ -2497,6 +2582,7 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict) -> None:
                                         [d.cpu() for d in draws])
     numbers = {f"{k}_max_abs_err": v for k, v in errs.items() if k != "topk_excess"}
     numbers.update({"topk_excess": errs["topk_excess"], "iterations": len(draws),
+                    "value_slack_max": slack_max,
                     "same_elite_sets": same_sets,
                     "update_u_abs_err": float((u.cpu() - uc).abs().max()),
                     "update_mue_max_abs_err": max_errors(new.dist_mue.cpu(), new_c.dist_mue)[0]})
@@ -3093,13 +3179,15 @@ def cols_mutants(kind: str, args: tuple) -> dict:
     return out
 
 
-def cols_bounds(kind: str, args: tuple) -> dict:
+def cols_bounds(kind: str, args: tuple, extra_bytes: int = 0) -> dict:
     """The form's bound over its B*K rollouts at the fleet's H (the
     single-session kernel's operation count a rollout-step) and, for the
-    tensor-core kernels, the tensor-core bound."""
+    tensor-core kernels, the tensor-core bound; ``extra_bytes``: an emit
+    form's terminal states."""
     model, s0, Q, pvec_b, weights, *hidden = args
     steps = Q.shape[0] * Q.shape[1]
-    n_bytes = nbytes(s0, Q, pvec_b, *leaves(weights), *leaves(tuple(hidden))) + 4 * Q.shape[0]
+    n_bytes = (nbytes(s0, Q, pvec_b, *leaves(weights), *leaves(tuple(hidden))) + 4 * Q.shape[0]
+               + extra_bytes)
     if kind == "gp":
         return bound(steps * (gp_ops(weights) + STAGE_OPS), n_bytes)
     if kind in ("gru", "lstm"):
@@ -3205,11 +3293,13 @@ def fleet_swap(kind: str, ctrl: BatchedMPCController):
     return swap
 
 
-def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen) -> None:
-    """Phase 43: one update of ``kind``'s fleet on the card against the same
-    update on the CPU (the plain versions), from the state its loop left,
-    with the same draws and weights (the GP's well-conditioned): costs to
-    the kernel's bound, the new plans to UNOM_ATOL."""
+def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen, value=None
+                                ) -> None:
+    """Phases 43 and 62: one update of ``kind``'s fleet on the card against
+    the same update on the CPU (the plain versions), from the state its
+    loop left, with the same draws and weights (the GP's well-conditioned;
+    ``value``: the learned terminal value the CPU's fleet gets too): costs
+    to the kernel's bound, the new plans to UNOM_ATOL."""
     B, opt = ctrl.num_slots, ctrl.optimizer
     s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
     if kind == "gp":
@@ -3217,6 +3307,17 @@ def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen) -> N
     delta = opt.sample_slot_noise(ctrl.slot_states.generator, np.ones(B, bool))
     hidden = (ctrl.slot_hidden,) if ctrl._stateful else ()
     cpu = learned_fleet("cpu", kind, B)
+    seen = []  # the CPU's terminal states, where the fleet is valued
+    if value is not None:
+        attach_value_terminal(cpu, to_cpu(value))
+        vt = cpu.cost_function.cost_function
+        post = vt.post_terminal_cost
+
+        def recorded(x, cost_params):
+            seen.append(x)
+            return post(x, cost_params)
+
+        vt.post_terminal_cost = recorded
     builders = {"mlp": "_make_batched_neural_step", "gru": "_make_batched_recurrent_step",
                 "lstm": "_make_batched_recurrent_step", "residual": "_make_batched_residual_step",
                 "gp": "_make_batched_gp_step"}
@@ -3230,10 +3331,16 @@ def learned_fleet_update_vs_cpu(kind: str, ctrl: BatchedMPCController, gen) -> N
         state_to_cpu(ctrl.slot_states), s.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs),
         *to_cpu(hidden), delta.cpu())
     tol = RNN_TOL if kind in ("gru", "lstm") else NET_TOL
+    # A valued fleet's costs also get the x_H bound's reach through V (as
+    # update_vs_cpu_cem's), at the CPU's terminal states.
+    slack = (value_slack(post, seen[-1], {"cost": to_cpu(cost), "attrs": to_cpu(attrs)},
+                         opt.mpc_horizon).reshape(costs_c.shape) if seen else 0.0)
     numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
-               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
-    emit(f"fleet_{kind}_update_vs_cpu", numbers)
-    check(torch.allclose(costs.cpu(), costs_c, **tol)
+               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0],
+               "value_slack_max": float(torch.as_tensor(slack).max())}
+    emit(f"fleet_{kind}{'_value' if value is not None else ''}_update_vs_cpu", numbers)
+    check(bool(((costs.cpu() - costs_c).abs()
+                <= tol["atol"] + tol["rtol"] * costs_c.abs() + slack).all())
           and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
           f"the {kind} fleet's update on the card differs from the CPU's {numbers}")
 
@@ -3707,11 +3814,12 @@ def value_net_ops(dims=VALUE_DIMS) -> float:
 
 
 def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_args: tuple,
-                 ragged: tuple, n_bytes: float, ops: float) -> dict:
-    """Phase 54: an emit_terminal form ``emit_fn(*args) -> (cost, x_H)``
-    against its plain version ``plain_fn`` on the same card tensors: its
-    costs equal, bit for bit, to the kernel's ``unvalued_fn(*args)`` (the
-    same body); x_H to X_TOL, a bound that must reject x_{H-1} emitted in
+                 ragged: tuple, n_bytes: float, ops: float, tol=KERNEL_TOL) -> dict:
+    """Phases 54 and 59: an emit_terminal form ``emit_fn(*args) -> (cost,
+    x_H)`` against its plain version ``plain_fn`` on the same card tensors:
+    its costs equal, bit for bit, to the kernel's ``unvalued_fn(*args)``
+    (the same body), to the kernel's bound ``tol`` of its plain version;
+    x_H to X_TOL, a bound that must reject x_{H-1} emitted in
     its place (``plain_fn(*prev_args)``'s terminal states: the horizon one
     step shorter) and rollout k+1's x_H, each by VALUE_MARGIN times its
     absolute part; both again at the ``ragged`` operands; its time, the
@@ -3743,7 +3851,7 @@ def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_a
     check(numbers["costs_equal_to_kernel"] and numbers["ragged"]["equal_to_kernel"],
           f"{label}: its costs are not the kernel's {numbers}")
     for got, ref, xs, xr in ((cost, ref_cost, x, ref_x), (gc, rc, gx, rx)):
-        check(torch.allclose(got, ref, **KERNEL_TOL) and torch.allclose(xs, xr, **X_TOL),
+        check(torch.allclose(got, ref, **tol) and torch.allclose(xs, xr, **X_TOL),
               f"{label}: disagrees with its plain version {numbers}")
     for k, m in mutants.items():
         check(numbers["mutant_x_max_abs_err"][k] >= VALUE_MARGIN * X_TOL["atol"]
@@ -3833,26 +3941,31 @@ def compare_value_grad(model, s0, Qg, pvec) -> dict:
     return numbers
 
 
-def value_swap_rebuilds_nothing(ctrl: MPCController, net: dict) -> None:
-    """Phase 57: a V swap on a valued semi-fused MPPI controller
+def value_swap_rebuilds_nothing(ctrl: MPCController, net: dict, label: str = "value_swap"
+                                ) -> None:
+    """Phases 57 and 62: a V swap on a valued MPPI controller
     (update_value_params with new weights, then attach_value_terminal again
     with a new scale, which updates the wrapper in place) starts no nvcc
-    and rebuilds no step; the same draw's costs move, and a step runs."""
+    and rebuilds no step; the same draw's costs (or, where the path logs
+    none, its plan) move, and a step runs."""
     opt = ctrl.optimizer
     builds, epoch = kernels.build.count, opt._build_epoch
     s_now = torch.tensor(LEARNED_START[None], device=opt.device)
     state, noise = opt.opt_state, opt.sample_noise(opt.opt_state)
-    j0 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]["J_logged"]
+    d0 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]
+    # The costs where the path logs them (semi-fused MPPI), else the plan.
+    key = "J_logged" if "J_logged" in d0 else "u_nom"
     update_value_params(ctrl, {k: 0.5 * v for k, v in net.items()})
     vt = attach_value_terminal(ctrl, ctrl._value_holder["params"], VALUE_SWAP_SCALE)
-    j1 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]["J_logged"]
+    d1 = opt.update(state, s_now, ctrl._assemble_params(), noise)[2]
     u = ctrl.step(LEARNED_START.copy())
+    moved = "J_moved" if key == "J_logged" else "u_nom_moved"
     numbers = {"builds": kernels.build.count - builds, "step_builds": opt._build_epoch - epoch,
-               "scale": vt.value_scale, "J_moved": max_errors(j1, j0)[0],
+               "scale": vt.value_scale, moved: max_errors(d1[key], d0[key])[0],
                "u": [float(v) for v in u]}
-    emit("value_swap", numbers)
-    check(numbers["builds"] == 0 and numbers["step_builds"] == 0 and numbers["J_moved"] > 0.0,
-          f"a V swap rebuilt something or did not reach the costs {numbers}")
+    emit(label, numbers)
+    check(numbers["builds"] == 0 and numbers["step_builds"] == 0 and numbers[moved] > 0.0,
+          f"{label}: a V swap rebuilt something or did not reach the costs {numbers}")
 
 
 def value_fleet_update_vs_cpu(ctrl: BatchedMPCController, net: dict, gen) -> None:
@@ -3878,6 +3991,105 @@ def value_fleet_update_vs_cpu(ctrl: BatchedMPCController, net: dict, gen) -> Non
     check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL)
           and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
           f"the valued fleet update on the card differs from the CPU's {numbers}")
+
+
+# ---- the learned value terminal over the learned dynamics --------------------------
+# Each learned emit form's entry and its kernel's, by the label of phase
+# 59, with the template instance they share (K13's gates, K14's lanes).
+LEARNED_EMIT_ENTRIES = {
+    "k11": ("neural_cost_rollout", ""), "k11_ens": ("neural_cost_rollout_ens", ""),
+    "k12": ("residual_cost_rollout", ""), "k13_gru": ("recurrent_cost_rollout", "Li3E"),
+    "k13_lstm": ("recurrent_cost_rollout", "Li4E"), "k14": ("gp_cost_rollout", "Li4E")}
+# The session-row emit forms: the form, its plain version and the
+# single-session emit form each session is held to.
+COLS_EMIT = {"mlp": (neural_cost_rollout_cols_emit, neural_cost_rollout_cols_emit_plain,
+                     neural_cost_rollout_emit),
+             "residual": (residual_cost_rollout_cols_emit, residual_cost_rollout_cols_emit_plain,
+                          residual_cost_rollout_emit),
+             "gp": (gp_cost_rollout_cols_emit, gp_cost_rollout_cols_emit_plain,
+                    gp_cost_rollout_emit)}
+
+
+def compare_learned_emit(label: str, emit_fn, kernel_fn, plain_fn, args: tuple, ragged_k: int,
+                         tol: dict, ops: float) -> dict:
+    """Phase 59: a learned model's emit_terminal form against its plain
+    version at ``args`` ``(model, s0, Q, pvec, weights[, hidden])``, by
+    compare_emit (x_{H-1}: the plain version over Q without its last step;
+    ragged: the first ``ragged_k`` rollouts), its costs to its kernel's
+    bound ``tol``; the bound counts the terminal states' bytes."""
+    model, s0, Q, *rest = args
+    prev = (model, s0, Q[:, :-1].contiguous(), *rest)
+    ragged = (model, *first_k(ragged_k, s0, Q), *rest)
+    n_bytes = nbytes(s0, Q, *leaves(tuple(rest))) + 4 * s0.shape[0] * (1 + s0.shape[1])
+    return compare_emit(label, emit_fn, kernel_fn, plain_fn, args, prev, ragged, n_bytes, ops,
+                        tol)
+
+
+def learned_emit_resources() -> dict:
+    """Phase 59: ptxas' registers and spills of each learned emit entry and
+    of its kernel (the unvalued entry over the same body); the emit entry
+    may take at most 4 registers more and spill no more."""
+    numbers = {label: {"kernel": ptxas_resources(f"{name}_kernel", instance),
+                       "emit": ptxas_resources(f"{name}_emit_kernel", instance)}
+               for label, (name, instance) in LEARNED_EMIT_ENTRIES.items()}
+    emit("learned_emit_resources", numbers)
+    for label, n in numbers.items():
+        check(n["emit"]["registers"] <= n["kernel"]["registers"] + 4
+              and n["emit"]["spill_stores"] <= n["kernel"]["spill_stores"],
+              f"{label}: the emit entry takes more registers or spills {n}")
+    return numbers
+
+
+def compare_cols_emit(kind: str, ctrl: BatchedMPCController, gen) -> dict:
+    """Phase 60: the session-row emit form of ``kind``'s kernel against its
+    plain version at phase 41's operands (FLEET_B_MAX sessions of the
+    fleet's K and H): its costs equal, bit for bit, to the session-row
+    kernel's, to NET_TOL of the plain version, x_H to X_TOL; each session's
+    costs and x_H equal, bit for bit, to the single-session emit form's over
+    its rows; the cost bound rejects every session reading the next
+    session's row, the x_H bound the next rollout's x_H; timed at FLEET_B
+    and FLEET_B_MAX sessions beside the kernel."""
+    cols, plain, single = COLS_EMIT[kind]
+    kernel = COLS_KERNELS[kind][0]
+    args = cols_operands(kind, ctrl, FLEET_B_MAX, gen)
+    model, s0, Q, pvec_b, weights = args
+    B, S = pvec_b.shape[0], s0.shape[1]
+    (cost, x), cost_k = cols(*args), kernel(*args)
+    ref_cost, ref_x = plain(*args)
+    per = [single(*session_args(args, b)) for b in range(B)]
+    wrong_cost = plain(model, s0, Q, pvec_b.roll(-1, 0), weights)[0]
+    wrong_x = ref_x.reshape(-1, S).roll(-1, 0).reshape(ref_x.shape)
+    torch.cuda.synchronize()
+    label = {"mlp": "k11", "residual": "k12", "gp": "k14"}[kind] + "_cols_emit"
+    numbers = {
+        "costs_equal_to_kernel": bool(torch.equal(cost, cost_k)),
+        "single_session_equal_share": float(torch.stack([
+            (cost[b] == c).all() & (x[b] == v).all() for b, (c, v) in enumerate(per)]).double()
+            .mean()),
+        "cost_max_abs_err": max_errors(cost, ref_cost)[0],
+        "x_max_abs_err": max_errors(x, ref_x)[0], "x_max_abs": float(ref_x.abs().max()),
+        "mutant_cost_max_rel_err": {"next_session_row": max_errors(wrong_cost, ref_cost)[1]},
+        "mutant_x_max_abs_err": {"next_rollout_x_H": max_errors(wrong_x, ref_x)[0]},
+        "finite": bool(torch.isfinite(cost).all() and torch.isfinite(x).all()),
+        "ms_at_b": {str(b): cuda_ms(lambda: cols(*session_slice(args, b)), 50)
+                    for b in (FLEET_B, FLEET_B_MAX)},
+        "kernel_ms_at_b": {str(b): cuda_ms(lambda: kernel(*session_slice(args, b)), 50)
+                           for b in (FLEET_B, FLEET_B_MAX)},
+        "plain_ms": cuda_ms(lambda: plain(*args), 3),
+        **cols_bounds(kind, args, extra_bytes=4 * s0.shape[0] * S)}
+    numbers["ms"] = numbers["ms_at_b"][str(FLEET_B_MAX)]
+    numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
+    emit(label, numbers)
+    check(numbers["finite"] and numbers["costs_equal_to_kernel"]
+          and numbers["single_session_equal_share"] == 1.0,
+          f"{label}: not the session-row kernel's costs or the single-session form's {numbers}")
+    check(torch.allclose(cost, ref_cost, **NET_TOL) and torch.allclose(x, ref_x, **X_TOL),
+          f"{label}: disagrees with its plain version {numbers}")
+    check(not torch.allclose(wrong_cost, ref_cost, **NET_TOL)
+          and numbers["mutant_x_max_abs_err"]["next_rollout_x_H"] >= VALUE_MARGIN * X_TOL["atol"]
+          and not torch.allclose(wrong_x, ref_x, **X_TOL),
+          f"{label}: a bound does not reject a mutant {numbers}")
+    return numbers
 
 
 def start_sweep() -> None:
@@ -4391,6 +4603,94 @@ def main() -> None:
                                           {"mppi_cost_cols_emit": VALUE_FLEET_TICKS},
                                           pole_check=False)
     value_fleet_update_vs_cpu(vfleet, vnet, gen)
+
+    # 59. The learned models' emit_terminal forms against their plain
+    # versions, at their kernels' phase operands (phases 11, 49, 18, 13, 20).
+    rnn = {kind: recurrent_operands(spec, gen, device)
+           for kind, spec in (("gru", GRU_SPEC), ("lstm", LSTM_SPEC))}
+    forms = {
+        "k11": (neural_cost_rollout_emit, neural_cost_rollout, neural_cost_rollout_emit_plain,
+                (nmodel, s0, Q, npvec, net), VALUE_RAGGED_K, NET_TOL, mlp_ops(net)),
+        "k11_ens": (neural_cost_rollout_ens_emit, neural_cost_rollout_ens,
+                    neural_cost_rollout_ens_emit_plain, (emodel, s0, Q, epvec, enet),
+                    ENS_RAGGED_K, NET_TOL, mlp_ops(member_net(enet, 0))),
+        "k12": (residual_cost_rollout_emit, residual_cost_rollout,
+                residual_cost_rollout_emit_plain, (rmodel, s0, Q, rpvec, rnet), VALUE_RAGGED_K,
+                NET_TOL, RK4_STEP_OPS + mlp_ops(rnet)),
+        **{f"k13_{kind}": (recurrent_cost_rollout_emit, recurrent_cost_rollout,
+                           recurrent_cost_rollout_emit_plain, (m, s0, Q, pv, n, hd),
+                           VALUE_RAGGED_K, RNN_TOL, rnn_ops(n, m.kind))
+           for kind, (m, pv, n, hd) in rnn.items()},
+        "k14": (gp_cost_rollout_emit, gp_cost_rollout, gp_cost_rollout_emit_plain,
+                (gmodel, s0, Q, gpvec, wops), VALUE_RAGGED_K, NET_TOL, gp_ops(gops)),
+    }
+    learned_emit = {label: compare_learned_emit(f"{label}_emit", *form[:6],
+                                                K * H * (form[6] + STAGE_OPS))
+                    for label, form in forms.items()}
+    learned_emit_resources()
+
+    # 60. The session-row emit forms of K11, K12 and K14 at phase 41's
+    # operands, each session equal to the single-session emit form.
+    cols_emit = {kind: compare_cols_emit(kind, learned[kind], gen) for kind in COLS_EMIT}
+
+    # 61. The valued loops over the learned models from LEARNED_START, each
+    # counted from 0: one emit launch a tick (CEM: one an outer iteration).
+    vlearned = {"mlp": make_controller("cuda", spec=MLP_SPEC),
+                "gru": make_controller("cuda", spec=GRU_SPEC),
+                "residual": residual_controller("mppi", RES_MPPI_CONFIG),
+                "gp": make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=GP_SPEC),
+                "ensemble": make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=ENS_SPEC),
+                "cem_mlp": make_controller("cuda", "cem-tf", CEM_CONFIG, spec=MLP_SPEC)}
+    for c in vlearned.values():
+        attach_value_terminal(c, vnet)
+    check(neural.can_use_cost(vlearned["mlp"].optimizer)
+          and neural.can_use_cost(vlearned["gru"].optimizer)
+          and residual.can_use_cost(vlearned["residual"].optimizer)
+          and gp.can_use_cost(vlearned["gp"].optimizer)
+          and ensemble.can_use_cost(vlearned["ensemble"].optimizer)
+          and not vlearned["cem_mlp"].optimizer._fused,
+          "the valued learned controllers did not take the emit forms")
+    vkernel = {"mlp": "neural_cost_rollout_emit", "gru": "recurrent_cost_rollout_emit",
+               "residual": "residual_cost_rollout_emit", "gp": "gp_cost_rollout_emit",
+               "ensemble": "neural_cost_rollout_ens_emit"}
+    for kind, c in vlearned.items():
+        expected = ({"neural_cost_rollout_emit": its * VALUE_LEARNED_TICKS} if kind == "cem_mlp"
+                    else {vkernel[kind]: VALUE_LEARNED_TICKS})
+        label = "cem_mlp_value" if kind == "cem_mlp" else f"mppi_{kind}_value"
+        runs[label] = counted_loop(f"slice_{label}", c, VALUE_LEARNED_TICKS, expected,
+                                   start=LEARNED_START, pole_check=False)
+
+    # 62. One valued update of each on the card against the CPU's (the GP's
+    # with the well-conditioned GP swapped in as a re-fit is), a V swap;
+    # then the valued MLP, "ODE+res" and GP fleets, 50 ticks each counted
+    # from 0, one update of each against the CPU's.
+    for kind, spec, config in (("mlp", MLP_SPEC, None), ("gru", GRU_SPEC, None),
+                               ("residual", RES_SPEC, RES_MPPI_CONFIG),
+                               ("gp", GP_SPEC, RES_MPPI_CONFIG),
+                               ("ensemble", ENS_SPEC, RES_MPPI_CONFIG)):
+        pred = vlearned[kind].optimizer.predictor.predictor
+        fitted = pred.gp_params if kind == "gp" else None
+        if kind == "gp":
+            pred.gp_params = well_conditioned_gp(fitted)
+        update_vs_cpu_mppi(f"mppi_{kind}_value_update_vs_cpu", vlearned[kind], spec, config,
+                           value=vnet)
+        if kind == "gp":
+            pred.gp_params = fitted
+    update_vs_cpu_cem("cem_mlp_value_update_vs_cpu", vlearned["cem_mlp"], CEM_CONFIG,
+                      spec=MLP_SPEC, value=vnet)
+    value_swap_rebuilds_nothing(vlearned["mlp"], vnet, "value_swap_mlp")
+    vfleets = {kind: learned_fleet("cuda", kind, FLEET_B) for kind in COLS_EMIT}
+    for kind, c in vfleets.items():
+        attach_value_terminal(c, vnet)
+        check(getattr(c, {"mlp": "_batched_neural_eligible",
+                          "residual": "_batched_residual_eligible",
+                          "gp": "_batched_gp_eligible"}[kind])(),
+              f"the valued {kind} fleet did not take its session-row emit form")
+        runs[f"fleet_{kind}_value"] = fleet_loop(
+            f"slice_fleet_{kind}_value", c, VALUE_LEARNED_FLEET_TICKS,
+            {COLS_EMIT[kind][0].__name__: VALUE_LEARNED_FLEET_TICKS}, pole_check=False)
+        learned_fleet_update_vs_cpu(kind, c, gen, value=vnet)
+    fleet_ticks["fleet_mlp_value_b32"] = fleet_timing("mlp_value_b32", vfleets["mlp"], gen)
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     if "--starts" in sys.argv[1:]:
@@ -4403,7 +4703,7 @@ def main() -> None:
                         ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem),
                         ("mppi-ensemble", ens_mppi), ("rpgd-tf-ensemble", ens_rpgd),
                         ("mppi-value", vmppi), ("rpgd-tf-value", vrpgd),
-                        ("mppi-value-h10", vshort)):
+                        ("mppi-value-h10", vshort), ("mppi-mlp-value", vlearned["mlp"])):
             profile_ticks(name, env_tick(c))
         for name, tick in fleet_ticks.items():
             profile_ticks(name, tick)
@@ -4450,7 +4750,24 @@ def main() -> None:
         ("mppi_cost_emit", "mppi_cost.cu", "ops/pallas_mppi.py:501", k2e),
         ("mppi_cost_cols_emit", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", k4e),
         ("grad_cost_rollout_value", "grad_cost_rollout.cu", "ops/pallas_grad.py:335", k7v),
+        ("neural_cost_rollout_emit", "neural_rollout.cu", "ops/pallas_neural.py:157",
+         learned_emit["k11"]),
+        ("neural_cost_rollout_ens_emit", "neural_rollout.cu", "ops/pallas_neural.py:157",
+         learned_emit["k11_ens"]),
+        ("recurrent_cost_rollout_emit", "neural_rollout.cu", "ops/pallas_neural.py:452",
+         learned_emit["k13_gru"]),
+        ("residual_cost_rollout_emit", "residual_rollout.cu", "ops/pallas_neural.py:351",
+         learned_emit["k12"]),
+        ("gp_cost_rollout_emit", "gp_rollout.cu", "ops/pallas_neural.py:647", learned_emit["k14"]),
+        ("neural_cost_rollout_cols_emit", "neural_rollout.cu", "ops/pallas_neural.py:157",
+         cols_emit["mlp"]),
+        ("residual_cost_rollout_cols_emit", "residual_rollout.cu", "ops/pallas_neural.py:351",
+         cols_emit["residual"]),
+        ("gp_cost_rollout_cols_emit", "gp_rollout.cu", "ops/pallas_neural.py:647",
+         cols_emit["gp"]),
     )
+    check(all(launches[name] > 0 for name, *_ in rows),
+          f"a kernel of the path was launched no time in its loops {launches}")
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.
     print(json.dumps({"kernels": [

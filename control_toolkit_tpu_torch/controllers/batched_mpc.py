@@ -20,7 +20,9 @@ The session kinds ported, each over its batched kernel:
   session-row form: an MLP (K11), a GRU or LSTM (K13, each session's
   rollouts from its own hidden), ``"ODE+res"`` (K12, ``per_slot_dyn``
   over the base's constants) or a sparse GP (K14)
-  (``MPPIOptimizer._batched_columns_step_from_kernel``);
+  (``MPPIOptimizer._batched_columns_step_from_kernel``); with a learned
+  value terminal, over the MLP, ``"ODE+res"`` or the GP, one launch of
+  that form's emit_terminal form;
 * any RPGD variant or ``gradient-tf`` (warmup off) over an ODE, a float32
   MLP, ``"ODE+res"`` or a sparse GP: an Adam iteration is one launch of
   the session-row form of K7, K8, K9 or K10 and the final scoring one of
@@ -38,9 +40,9 @@ missing (ROADMAP A9): the vmapped per-slot step that the JAX package
 takes for everything else (modular CEM, an RPGD or gradient fleet with
 warmup or over a recurrent net, a user's ``force_scan: true``, logging),
 the batched ``mppi-var`` step, the slot mesh and a learned value terminal
-on any other fleet (CEM's vmapped per-slot step, the ``emit_terminal``
-forms of K11-K14 and the ``value_spec`` forms of K7-K10).  Nothing falls
-back to a per-slot loop or to the CPU.
+on any other fleet (CEM's and a recurrent MPPI fleet's vmapped per-slot
+step, the ``value_spec`` forms of K7-K10).  Nothing falls back to a
+per-slot loop or to the CPU.
 """
 from __future__ import annotations
 
@@ -214,7 +216,10 @@ class BatchedMPCController(MPCController):
         return (
             self._plain_mppi()
             and not self._per_slot_dyn
-            and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+            # post_ok for the MLP alone (K11's emit_terminal form), as JAX
+            # batched_mpc.py:500-504: a valued recurrent fleet is the vmapped
+            # per-slot step's.
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan, post_ok=not recurrent)
             and neural.compatible_model(opt)
             and pred.recurrent == recurrent
         )
@@ -233,7 +238,8 @@ class BatchedMPCController(MPCController):
 
         opt = self.optimizer
         return (self._plain_mppi()
-                and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+                # post_ok: K12's emit_terminal form (JAX batched_mpc.py:528-530)
+                and batched_kernel_core_ok(opt, force_scan=opt.force_scan, post_ok=True)
                 and residual.compatible_model(opt))
 
     def _batched_gp_eligible(self) -> bool:
@@ -244,7 +250,8 @@ class BatchedMPCController(MPCController):
         opt = self.optimizer
         return (self._plain_mppi()
                 and not self._per_slot_dyn
-                and batched_kernel_core_ok(opt, force_scan=opt.force_scan)
+                # post_ok: K14's emit_terminal form (JAX batched_mpc.py:551-553)
+                and batched_kernel_core_ok(opt, force_scan=opt.force_scan, post_ok=True)
                 and gp.compatible_model(opt))
 
     def _batched_grad_eligible(self, is_kind) -> bool:
@@ -302,7 +309,7 @@ class BatchedMPCController(MPCController):
         from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
         from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
-        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+        from control_toolkit_tpu_torch.optimizers.mppi import RECURRENT_VALUE_FLEET
 
         opt = self.optimizer
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
@@ -321,9 +328,9 @@ class BatchedMPCController(MPCController):
                 return _not_ported("a learned value terminal in a batched CEM fleet (the vmapped "
                                    "per-slot batched step: K6 and the modular batched step "
                                    "carry no value terminal)")
-            if self._plain_mppi() and not ode.compatible_model(opt):
-                return _not_ported("a learned value terminal in a batched MPPI fleet over a "
-                                   "learned model (the emit_terminal forms of K11-K14)")
+            pred = getattr(self.predictor, "predictor", self.predictor)
+            if self._plain_mppi() and getattr(pred, "recurrent", False):
+                return _not_ported(RECURRENT_VALUE_FLEET)
             return _not_ported("a learned value terminal in this batched configuration (the "
                                "vmapped per-slot batched step)")
         if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):

@@ -13,6 +13,13 @@
 // sessions of ks rollouts in one launch, every lane of rollout k reading
 // row k / ks of pvec; a warp's rollouts may straddle two sessions.
 //
+// K14's emit_terminal form (pallas_neural.py:657, :682, :721-726) serves a
+// learned value terminal: the same costs and each rollout's state after
+// step H written to x_term [K, S] by lane r = 0 of the rollout (the lane
+// that writes cost[k]), rows past K writing nothing.  It is its own entry
+// over K14's body (gp_cost_rollout_emit_kernel, the body's Emit instance),
+// so the unvalued kernel's code stays as it was.
+//
 // K14 is a one-thread-a-rollout cost kernel (as K1, cost_rollout.cu) with
 // the GP step: the packed parameters are the cost's alone (plants.cuh
 // CartpoleCost), the stage cost is taken before the step, cost[k] =
@@ -72,14 +79,18 @@ constexpr int kGpLanes = 4;
 // (H100 80GB HBM3, 700 W; PERF.md).
 constexpr int kGpCostLanes = 4;
 
-// K14 with L lanes a rollout, spread over the warp: its R = 32 / L
+// K14's body with L lanes a rollout, spread over the warp: its R = 32 / L
 // rollouts j take lanes j, j + R, .. (lane r of rollout j at r * R + j), so
-// each quarter of the warp reads one inducing point's row a load.
-template <class Cost, int L>
-__global__ void __launch_bounds__(kGpThreads)
-gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                       const float* __restrict__ pvec, float* __restrict__ cost, int K, int ks,
-                       int H, float max_cost, GPArgs gp) {
+// each quarter of the warp reads one inducing point's row a load.  Where
+// Emit, lane r = 0 of rollout k also writes its terminal state to x_term
+// [K, S] beside its cost.
+template <class Cost, int L, bool Emit>
+__device__ __forceinline__ void gp_cost_rollout_body(const float* __restrict__ s0,
+                                                     const float* __restrict__ Q,
+                                                     const float* __restrict__ pvec,
+                                                     float* __restrict__ cost,
+                                                     float* __restrict__ x_term, int K, int ks,
+                                                     int H, float max_cost, const GPArgs& gp) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -113,7 +124,32 @@ gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  if (r == 0 && k < K) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  if (r == 0 && k < K) {
+    cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+    if constexpr (Emit) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(k) * S + i] = x[i];
+    }
+  }
+}
+
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
+gp_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                       const float* __restrict__ pvec, float* __restrict__ cost, int K, int ks,
+                       int H, float max_cost, GPArgs gp) {
+  gp_cost_rollout_body<Cost, L, false>(s0, Q, pvec, cost, nullptr, K, ks, H, max_cost, gp);
+}
+
+// K14's emit_terminal form (pallas_neural.py:657): its costs and the
+// terminal states x_term [K, S]; one session or the session-row form.
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
+gp_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                            const float* __restrict__ pvec, float* __restrict__ cost,
+                            float* __restrict__ x_term, int K, int ks, int H, float max_cost,
+                            GPArgs gp) {
+  gp_cost_rollout_body<Cost, L, true>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, gp);
 }
 
 // K10 with L lanes a rollout: lanes r = 0..L-1 of each aligned group of L
@@ -212,8 +248,8 @@ int launch_gp(Kernel kernel, long& allowed, const GPArgs& gp, int K, int lanes, 
 constexpr int ilog2(int n) { return n > 1 ? 1 + ilog2(n / 2) : 0; }
 
 // The dynamic shared memory allowed so far to K14 ([0]) and K10 ([1]) with
-// L lanes a rollout, at [log2 L].
-long gp_allowed[2][6] = {};
+// L lanes a rollout, at [log2 L]; K14's emit_terminal form's.
+long gp_allowed[2][6] = {}, gp_emit_allowed[6] = {};
 
 // K14 (grad false) or K10 (grad true) with L lanes a rollout.
 template <bool Grad, int L>
@@ -225,10 +261,17 @@ auto gp_kernel() {
   }
 }
 
-// Launch K14 with L lanes a rollout.
+// Launch K14 with L lanes a rollout, or its emit_terminal form where
+// x_term is not null.
 template <int L>
-int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
-               int H, float max_cost, const GPArgs& gp, void* stream) {
+int launch_k14(const void* s0, const void* Q, const void* pvec, void* cost, void* x_term, int K,
+               int ks, int H, float max_cost, const GPArgs& gp, void* stream) {
+  if (x_term != nullptr) {
+    return launch_gp(gp_cost_rollout_emit_kernel<CartpoleCost, L>, gp_emit_allowed[ilog2(L)], gp,
+                     K, L, kGpThreads, stream, static_cast<const float*>(s0),
+                     static_cast<const float*>(Q), static_cast<const float*>(pvec),
+                     static_cast<float*>(cost), static_cast<float*>(x_term), K, ks, H, max_cost);
+  }
   return launch_gp(gp_kernel<false, L>(), gp_allowed[0][ilog2(L)], gp, K, L, kGpThreads, stream,
                    static_cast<const float*>(s0), static_cast<const float*>(Q),
                    static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H,
@@ -273,23 +316,25 @@ extern "C" long ctt_gp_smem_bytes(int S, int U, int M) {
 // Launches K14 on `stream` over K rollouts, sessions of ks (pvec holds
 // K / ks rows, rollout k reading row k / ks: ks = K for one session, the
 // session-row form for a fleet), with `lanes` lanes a rollout (1, 2, 4, 8
-// or 16; 0 for kGpCostLanes); returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for an unknown plant, another `lanes`, a ks
-// that does not divide K, or an M whose inducing points exceed a block's
-// shared memory.
+// or 16; 0 for kGpCostLanes), or, with x_term not null, its emit_terminal
+// form, which also writes the terminal states [K, S] there; returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
+// unknown plant, another `lanes`, a ks that does not divide K, or an M
+// whose inducing points exceed a block's shared memory.
 extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                   void* cost, int K, int ks, int H, float max_cost, int lanes,
-                                   const ctt::GPArgs* gp, void* stream) {
+                                   void* cost, void* x_term, int K, int ks, int H,
+                                   float max_cost, int lanes, const ctt::GPArgs* gp,
+                                   void* stream) {
   using ctt::launch_k14;
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (lanes == 0 ? ctt::kGpCostLanes : lanes) {
-    case 1: return launch_k14<1>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
-    case 2: return launch_k14<2>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
-    case 4: return launch_k14<4>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
-    case 8: return launch_k14<8>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
-    case 16: return launch_k14<16>(s0, Q, pvec, cost, K, ks, H, max_cost, *gp, stream);
+    case 1: return launch_k14<1>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, *gp, stream);
+    case 2: return launch_k14<2>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, *gp, stream);
+    case 4: return launch_k14<4>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, *gp, stream);
+    case 8: return launch_k14<8>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, *gp, stream);
+    case 16: return launch_k14<16>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, *gp, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,18 @@
 // kernel's code as it was; mlp-32-32, the ensemble's members, takes one
 // warp a group (mlp_units.cuh's plan: a warp a four unit tiles).
 //
+// Their emit_terminal forms (pallas_neural.py:174, :210, :253-255; :466,
+// :587-594) serve a learned value terminal (costs/value_terminal.py): the
+// same costs and each rollout's state after step H written to x_term
+// [K, S], row k, by the lanes that write cost[k] (warp 0's lanes l < 16),
+// rows past K (K/E a member) writing nothing.  Each is its own entry over
+// the kernel's body (neural_cost_rollout_emit_kernel,
+// neural_cost_rollout_ens_emit_kernel, recurrent_cost_rollout_emit_kernel:
+// the body's Emit instance), so the unvalued kernels' code stays as it
+// was; the session-row form's entry is the same with ks < K, as the JAX
+// runner composes emit_terminal with n_slot and n_members (_make_runner,
+// pallas_neural.py:261).
+//
 // Replaces control_toolkit_tpu/ops/pallas_neural.py:
 // build_neural_cost_rollout_kernel (K11) and
 // build_recurrent_cost_rollout_kernel (K13), the kernels behind
@@ -58,12 +70,13 @@ namespace ctt {
 // a stacked ensemble: the block stages that member's weights and its groups
 // take the member's ks rollouts [m ks, (m+1) ks), blockIdx.x counting blocks
 // within the member, rows past the member's last repeating it; pvec is one
-// row.  Otherwise ks rollouts a session, as above.
-template <class Cost, bool kMembers>
+// row.  Otherwise ks rollouts a session, as above.  Where Emit, rollout k's
+// terminal state is written to x_term [K, S] beside its cost.
+template <class Cost, bool kMembers, bool Emit>
 __device__ __forceinline__ void neural_cost_rollout_body(
     const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
-    float* __restrict__ cost, int K, int ks, int H, float max_cost, const NetArgs& net,
-    const MlpUnitsLayout& L) {
+    float* __restrict__ cost, float* __restrict__ x_term, int K, int ks, int H, float max_cost,
+    const NetArgs& net, const MlpUnitsLayout& L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -103,6 +116,10 @@ __device__ __forceinline__ void neural_cost_rollout_body(
   }
   if (w == 0 && lane < 16 && k < end) {
     cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+    if constexpr (Emit) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(k) * S + i] = x[i];
+    }
   }
 }
 
@@ -111,7 +128,8 @@ __global__ void __launch_bounds__(kRnnThreads)
 neural_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                            const float* __restrict__ pvec, float* __restrict__ cost, int K,
                            int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
-  neural_cost_rollout_body<Cost, false>(s0, Q, pvec, cost, K, ks, H, max_cost, net, L);
+  neural_cost_rollout_body<Cost, false, false>(s0, Q, pvec, cost, nullptr, K, ks, H, max_cost,
+                                               net, L);
 }
 
 // The member-block (n_members) form: ks = K / E rollouts a member.
@@ -120,14 +138,40 @@ __global__ void __launch_bounds__(kRnnThreads)
 neural_cost_rollout_ens_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
                                const float* __restrict__ pvec, float* __restrict__ cost, int K,
                                int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L) {
-  neural_cost_rollout_body<Cost, true>(s0, Q, pvec, cost, K, ks, H, max_cost, net, L);
+  neural_cost_rollout_body<Cost, true, false>(s0, Q, pvec, cost, nullptr, K, ks, H, max_cost,
+                                              net, L);
 }
 
-template <class Cost, int G>
+// K11's emit_terminal form (pallas_neural.py:174): its costs and the
+// terminal states x_term [K, S]; one session or the session-row form.
+template <class Cost>
 __global__ void __launch_bounds__(kRnnThreads)
-recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                              const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                              int ks, int H, float max_cost, NetArgs net, RnnLayout L) {
+neural_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                                int ks, int H, float max_cost, NetArgs net, MlpUnitsLayout L,
+                                float* __restrict__ x_term) {
+  neural_cost_rollout_body<Cost, false, true>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost,
+                                              net, L);
+}
+
+// The member-block form's emit_terminal form.
+template <class Cost>
+__global__ void __launch_bounds__(kRnnThreads)
+neural_cost_rollout_ens_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                    const float* __restrict__ pvec, float* __restrict__ cost,
+                                    int K, int ks, int H, float max_cost, NetArgs net,
+                                    MlpUnitsLayout L, float* __restrict__ x_term) {
+  neural_cost_rollout_body<Cost, true, true>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, net,
+                                             L);
+}
+
+// K13's body; where Emit, rollout k's terminal state is written to x_term
+// [K, S] beside its cost.
+template <class Cost, int G, bool Emit>
+__device__ __forceinline__ void recurrent_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ x_term, int K, int ks, int H, float max_cost,
+    const NetArgs& net, const RnnLayout& L) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -165,14 +209,40 @@ recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restr
   }
   if (w == 0 && lane < 16 && k < K) {
     cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+    if constexpr (Emit) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(k) * S + i] = x[i];
+    }
   }
 }
 
-// Plan K13's layout for `net`, allow the shared memory and launch `kernel`.
-template <class Kernel>
+template <class Cost, int G>
+__global__ void __launch_bounds__(kRnnThreads)
+recurrent_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                              const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                              int ks, int H, float max_cost, NetArgs net, RnnLayout L) {
+  recurrent_cost_rollout_body<Cost, G, false>(s0, Q, pvec, cost, nullptr, K, ks, H, max_cost,
+                                              net, L);
+}
+
+// K13's emit_terminal form (pallas_neural.py:466): its costs and the
+// terminal states x_term [K, S].
+template <class Cost, int G>
+__global__ void __launch_bounds__(kRnnThreads)
+recurrent_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                   const float* __restrict__ pvec, float* __restrict__ cost,
+                                   int K, int ks, int H, float max_cost, NetArgs net, RnnLayout L,
+                                   float* __restrict__ x_term) {
+  recurrent_cost_rollout_body<Cost, G, true>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, net,
+                                             L);
+}
+
+// Plan K13's layout for `net`, allow the shared memory and launch `kernel`
+// (with `extra` arguments after the layout: an emit form's x_term).
+template <class Kernel, class... Extra>
 int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, int U,
                       const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
-                      int H, float max_cost, void* stream) {
+                      int H, float max_cost, void* stream, Extra... extra) {
   RnnLayout L;
   const long bytes = plan_rnn(net, S, U, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -182,18 +252,19 @@ int launch_rnn_kernel(Kernel kernel, long& allowed, const NetArgs& net, int S, i
   const dim3 grid((K + per_block - 1) / per_block);
   kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L);
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L,
+      extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Plan K11's layout for `net` with `warps` warps a group (0: the plan's),
 // allow the shared memory and launch `kernel` on `stream` over `members`
 // blocks of K / members rollouts (blockIdx.y the block's member; one for
-// the single-net kernel).
-template <class Kernel>
+// the single-net kernel), with `extra` arguments after the layout.
+template <class Kernel, class... Extra>
 int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int warps,
                      const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks,
-                     int H, float max_cost, int members, void* stream) {
+                     int H, float max_cost, int members, void* stream, Extra... extra) {
   MlpUnitsLayout L;
   const long bytes = plan_mlp_units(net, S, U, warps, L);
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -203,7 +274,8 @@ int launch_mlp_units(Kernel kernel, long& allowed, const NetArgs& net, int S, in
   const dim3 grid((K / members + per_block - 1) / per_block, members);
   kernel<<<grid, 32 * L.warps * L.groups, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L);
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, max_cost, net, L,
+      extra...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,8 +305,9 @@ extern "C" long ctt_net_smem_bytes(const ctt::NetArgs* net, int S, int U) {
 }
 
 namespace {
-// K11's and its member-block form's dynamic shared memory allowed so far.
-long allowed_mlp = 0, allowed_mlp_ens = 0;
+// K11's and its member-block form's dynamic shared memory allowed so far,
+// and their emit_terminal forms'.
+long allowed_mlp = 0, allowed_mlp_ens = 0, allowed_mlp_emit = 0, allowed_mlp_ens_emit = 0;
 }  // namespace
 
 // K11's layout for `net` with `warps` warps a group (0: the plan's own):
@@ -252,17 +325,25 @@ extern "C" long ctt_neural_plan(const ctt::NetArgs* net, int S, int U, int warps
 // Launches K11 (an MLP net) on `stream` over K rollouts, sessions of ks
 // (pvec holds K / ks rows, rollout k reading row k / ks: ks = K for one
 // session, the session-row form for a fleet), with `warps` warps a
-// 16-rollout group (1, 2 or 4; 0 for the plan's own); returns
+// 16-rollout group (1, 2 or 4; 0 for the plan's own), or, with x_term not
+// null, its emit_terminal form, which also writes the terminal states
+// [K, S] there (one session or sessions of ks alike); returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
 // unknown plant, another `warps`, a ks that does not divide K or a net the
 // kernel refuses.
 extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
-                                       void* cost, int K, int ks, int H, float max_cost,
-                                       int warps, const ctt::NetArgs* net, void* stream) {
+                                       void* cost, void* x_term, int K, int ks, int H,
+                                       float max_cost, int warps, const ctt::NetArgs* net,
+                                       void* stream) {
   using Cost = ctt::CartpoleCost;
   if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP || ks < 1 || K % ks != 0 ||
       (warps != 0 && warps != 1 && warps != 2 && warps != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (x_term != nullptr) {
+    return ctt::launch_mlp_units(ctt::neural_cost_rollout_emit_kernel<Cost>, allowed_mlp_emit,
+                                 *net, Cost::S, Cost::U, warps, s0, Q, pvec, cost, K, ks, H,
+                                 max_cost, 1, stream, static_cast<float*>(x_term));
   }
   return ctt::launch_mlp_units(ctt::neural_cost_rollout_kernel<Cost>, allowed_mlp, *net, Cost::S,
                                Cost::U, warps, s0, Q, pvec, cost, K, ks, H, max_cost, 1, stream);
@@ -271,15 +352,22 @@ extern "C" int ctt_neural_cost_rollout(int plant, const void* s0, const void* Q,
 // Launches K11's member-block (n_members) form on `stream` over K rollouts
 // under the stacked ensemble `net` (member 0's pointers; every tensor with
 // a leading member axis), ks = K / E rollouts a member: rollout k under
-// member k / ks, pvec one row, the plan's warps a group; returns as above,
-// or cudaErrorInvalidValue for a ks that does not divide K.
+// member k / ks, pvec one row, the plan's warps a group; with x_term not
+// null, its emit_terminal form (the terminal states [K, S] there); returns
+// as above, or cudaErrorInvalidValue for a ks that does not divide K.
 extern "C" int ctt_neural_cost_rollout_ens(int plant, const void* s0, const void* Q,
-                                           const void* pvec, void* cost, int K, int ks, int H,
-                                           float max_cost, const ctt::NetArgs* net,
-                                           void* stream) {
+                                           const void* pvec, void* cost, void* x_term, int K,
+                                           int ks, int H, float max_cost,
+                                           const ctt::NetArgs* net, void* stream) {
   using Cost = ctt::CartpoleCost;
   if (plant != ctt::kPlantCartpole || net->kind != ctt::kNetMLP || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (x_term != nullptr) {
+    return ctt::launch_mlp_units(ctt::neural_cost_rollout_ens_emit_kernel<Cost>,
+                                 allowed_mlp_ens_emit, *net, Cost::S, Cost::U, 0, s0, Q, pvec,
+                                 cost, K, ks, H, max_cost, K / ks, stream,
+                                 static_cast<float*>(x_term));
   }
   return ctt::launch_mlp_units(ctt::neural_cost_rollout_ens_kernel<Cost>, allowed_mlp_ens, *net,
                                Cost::S, Cost::U, 0, s0, Q, pvec, cost, K, ks, H, max_cost,
@@ -319,30 +407,45 @@ extern "C" int ctt_neural_ens_blocks_per_sm(const ctt::NetArgs* net) {
 }
 
 namespace {
-long allowed_gru = 0, allowed_lstm = 0;  // K13's dynamic shared memory allowed so far
+// K13's dynamic shared memory allowed so far, and its emit_terminal form's.
+long allowed_gru = 0, allowed_lstm = 0, allowed_gru_emit = 0, allowed_lstm_emit = 0;
+
+// Launch K13 with G gates a unit, or its emit_terminal form where x_term
+// is not null.
+template <int G>
+int launch_k13(long& allowed, long& allowed_emit, const ctt::NetArgs& net, const void* s0,
+               const void* Q, const void* pvec, void* cost, void* x_term, int K, int ks, int H,
+               float max_cost, void* stream) {
+  using Cost = ctt::CartpoleCost;
+  if (x_term != nullptr) {
+    return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_emit_kernel<Cost, G>, allowed_emit,
+                                  net, Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H, max_cost,
+                                  stream, static_cast<float*>(x_term));
+  }
+  return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, G>, allowed, net,
+                                Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H, max_cost, stream);
+}
 }  // namespace
 
 // Launches K13 (a GRU or LSTM net) on `stream` over K rollouts, sessions
 // of ks as K11's: rollout k reads pvec's row k / ks and starts from row
 // k / ks of each cell's hidden (net->hidden[l], [K / ks, Hd] for the GRU,
-// [K / ks, 2 Hd] for the LSTM's [h, c]); returns as above.
+// [K / ks, 2 Hd] for the LSTM's [h, c]); with x_term not null, its
+// emit_terminal form (the terminal states [K, S] there); returns as above.
 extern "C" int ctt_recurrent_cost_rollout(int plant, const void* s0, const void* Q,
-                                          const void* pvec, void* cost, int K, int ks, int H,
-                                          float max_cost, const ctt::NetArgs* net,
-                                          void* stream) {
-  using Cost = ctt::CartpoleCost;
+                                          const void* pvec, void* cost, void* x_term, int K,
+                                          int ks, int H, float max_cost,
+                                          const ctt::NetArgs* net, void* stream) {
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (net->kind) {
     case ctt::kNetGRU:
-      return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 3>, allowed_gru,
-                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H,
-                                    max_cost, stream);
+      return launch_k13<3>(allowed_gru, allowed_gru_emit, *net, s0, Q, pvec, cost, x_term, K, ks,
+                           H, max_cost, stream);
     case ctt::kNetLSTM:
-      return ctt::launch_rnn_kernel(ctt::recurrent_cost_rollout_kernel<Cost, 4>, allowed_lstm,
-                                    *net, Cost::S, Cost::U, s0, Q, pvec, cost, K, ks, H,
-                                    max_cost, stream);
+      return launch_k13<4>(allowed_lstm, allowed_lstm_emit, *net, s0, Q, pvec, cost, x_term, K,
+                           ks, H, max_cost, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -10,6 +10,13 @@
 // Python wrappers and plain versions: ops/residual_rollout.py and
 // ops/residual_grad_cost_rollout.py.
 //
+// K12's emit_terminal form (pallas_neural.py:367, :393, :422-427) serves a
+// learned value terminal: the same costs and each rollout's state after
+// step H written to x_term [K, S] by the base-step warp's lanes that write
+// cost[k], rows past K writing nothing.  It is its own entry over K12's
+// body (residual_cost_rollout_emit_kernel, the body's Emit instance) at
+// K12's launch bounds, so the unvalued kernel's code stays as it was.
+//
 // K12 serves one session (ks = K) or, in its session-row form, B sessions
 // of ks rollouts in one launch, rollout k reading row k / ks of pvec (the
 // session's base constants and cost; both warps of a group read it).  So
@@ -105,15 +112,15 @@ inline long plan_residual(const NetArgs& a, int S, int U, ResidualLayout& R) {
   return -1;
 }
 
-// K12 over 16-rollout groups of two warps (see the note at the top): warp
-// 0 runs the MLP, warp 1 the stage cost and the base step.  The registers
-// are held to 128, so that four blocks (16 warps) fit an SM.
-template <class Plant>
-__global__ void __launch_bounds__(32 * kResBlockWarps, 4)
-residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                             const float* __restrict__ pvec, float* __restrict__ cost, int K,
-                             int ks, int H, StepConsts c, float max_cost, NetArgs net,
-                             ResidualLayout R) {
+// K12's body over 16-rollout groups of two warps (see the note at the
+// top): warp 0 runs the MLP, warp 1 the stage cost and the base step.
+// Where Emit, the base-step warp also writes rollout k's terminal state to
+// x_term [K, S] beside its cost.
+template <class Plant, bool Emit>
+__device__ __forceinline__ void residual_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ x_term, int K, int ks, int H,
+    const StepConsts& c, float max_cost, const NetArgs& net, const ResidualLayout& R) {
   constexpr int S = Plant::S, U = Plant::U, W = kResGroupWarps;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -167,7 +174,38 @@ residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restri
 #pragma unroll
     for (int i = 0; i < S; ++i) r.x[i] = xb[i] + a[i];
   }
-  if (!mlp_warp && lane < 16 && k < K) cost[k] = r.finish(p, H);
+  if (!mlp_warp && lane < 16 && k < K) {
+    cost[k] = r.finish(p, H);
+    if constexpr (Emit) {
+#pragma unroll
+      for (int i = 0; i < S; ++i) x_term[static_cast<size_t>(k) * S + i] = r.x[i];
+    }
+  }
+}
+
+// K12.  The registers are held to 128, so that four blocks (16 warps) fit
+// an SM.
+template <class Plant>
+__global__ void __launch_bounds__(32 * kResBlockWarps, 4)
+residual_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                             const float* __restrict__ pvec, float* __restrict__ cost, int K,
+                             int ks, int H, StepConsts c, float max_cost, NetArgs net,
+                             ResidualLayout R) {
+  residual_cost_rollout_body<Plant, false>(s0, Q, pvec, cost, nullptr, K, ks, H, c, max_cost,
+                                           net, R);
+}
+
+// K12's emit_terminal form (pallas_neural.py:367): its costs and the
+// terminal states x_term [K, S]; one session or the session-row form.
+// Held to K12's 128 registers.
+template <class Plant>
+__global__ void __launch_bounds__(32 * kResBlockWarps, 4)
+residual_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                  const float* __restrict__ pvec, float* __restrict__ cost,
+                                  int K, int ks, int H, StepConsts c, float max_cost,
+                                  NetArgs net, ResidualLayout R, float* __restrict__ x_term) {
+  residual_cost_rollout_body<Plant, true>(s0, Q, pvec, cost, x_term, K, ks, H, c, max_cost, net,
+                                          R);
 }
 
 template <class Plant>
@@ -245,8 +283,26 @@ residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __r
 
 // The dynamic shared memory K9's attribute allows so far (allow_smem).
 static long k9_allowed = 0;
-// K12's.
-static long k12_allowed = 0;
+// K12's, and its emit_terminal form's.
+static long k12_allowed = 0, k12_emit_allowed = 0;
+
+// Allow K12's (or its emit form's) shared memory and launch `kernel` with
+// `extra` arguments after the layout.
+template <class Kernel, class... Extra>
+int launch_k12(Kernel kernel, long& allowed, long bytes, const ResidualLayout& R,
+               const void* s0, const void* Q, const void* pvec, void* cost, int K, int ks, int H,
+               const StepConsts& c, float max_cost, const NetArgs& net, void* stream,
+               Extra... extra) {
+  const cudaError_t err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = R.mlp.groups * kMmaRows;
+  kernel<<<(K + per_block - 1) / per_block, 32 * kResGroupWarps * R.mlp.groups, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(Q),
+      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost, net, R,
+      extra...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace ctt
 
@@ -263,32 +319,30 @@ extern "C" long ctt_residual_plan(const ctt::NetArgs* net, int* groups) {
 // Launches K12 on `stream` over K rollouts, sessions of ks (pvec holds
 // K / ks rows, rollout k reading row k / ks: ks = K for one session, the
 // session-row form for a fleet whose rows also carry each session's base
-// constants); returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown plant, a ks that does not divide K
-// or a net the kernel refuses (not an MLP in absolute form without norms,
-// or too large for shared memory).
+// constants), or, with x_term not null, its emit_terminal form, which also
+// writes the terminal states [K, S] there; returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for an unknown plant, a ks
+// that does not divide K or a net the kernel refuses (not an MLP in
+// absolute form without norms, or too large for shared memory).
 extern "C" int ctt_residual_cost_rollout(int plant, const void* s0, const void* Q,
-                                         const void* pvec, void* cost, int K, int ks, int H,
-                                         int rk4, int substeps, float sub_dt, float half_dt,
-                                         float dt6, float max_cost, const ctt::NetArgs* net,
-                                         void* stream) {
+                                         const void* pvec, void* cost, void* x_term, int K,
+                                         int ks, int H, int rk4, int substeps, float sub_dt,
+                                         float half_dt, float dt6, float max_cost,
+                                         const ctt::NetArgs* net, void* stream) {
   using Plant = ctt::CartpolePlant;
   ctt::ResidualLayout R;
   const long bytes = plant == ctt::kPlantCartpole && ks >= 1 && K % ks == 0
                          ? ctt::plan_residual(*net, Plant::S, Plant::U, R)
                          : -1;
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = ctt::residual_cost_rollout_kernel<Plant>;
-  const cudaError_t err = ctt::allow_smem(kernel, bytes, ctt::k12_allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  const int per_block = R.mlp.groups * ctt::kMmaRows;
-  kernel<<<(K + per_block - 1) / per_block, 32 * ctt::kResGroupWarps * R.mlp.groups, bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s0), static_cast<const float*>(Q),
-      static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost, *net,
-      R);
-  return static_cast<int>(cudaGetLastError());
+  if (x_term != nullptr) {
+    return ctt::launch_k12(ctt::residual_cost_rollout_emit_kernel<Plant>, ctt::k12_emit_allowed,
+                           bytes, R, s0, Q, pvec, cost, K, ks, H, c, max_cost, *net, stream,
+                           static_cast<float*>(x_term));
+  }
+  return ctt::launch_k12(ctt::residual_cost_rollout_kernel<Plant>, ctt::k12_allowed, bytes, R,
+                         s0, Q, pvec, cost, K, ks, H, c, max_cost, *net, stream);
 }
 
 // Blocks of K12 that one SM holds for `net` (0 for a refused net).

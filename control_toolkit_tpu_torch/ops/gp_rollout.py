@@ -24,12 +24,19 @@ batched-mpc fleet's) scores B sessions' rollouts in one launch of the same
 kernel, every lane of rollout b*K + k reading row b of ``pvec_b [B,N]``;
 the GP's operands are shared.
 
+Its ``emit_terminal`` form (pallas_neural.py:657), ``gp_cost_rollout_emit``
+and its session-row form ``gp_cost_rollout_cols_emit``, also returns the
+terminal states ``x_H`` in the costs' rollout order (``[K, S]``; ``[B, K,
+S]``), on which a learned value terminal is evaluated outside the kernel;
+its costs are K14's, the same body.
+
 The CUDA kernel is ``csrc/gp_rollout.cu``, each rollout's step split
 over the lanes of a warp as K10's is (``gp_cost_rollout_lanes`` picks
 their number; its source note says what bounds it on the card);
-``gp_cost_rollout_plain`` is the same function in PyTorch.  The wrapper
-runs the plain version only when every operand lies on the CPU; for CUDA
-operands it launches the kernel or raises.
+``gp_cost_rollout_plain`` is the same function in PyTorch, the first
+output of the emit form's plain version.  A wrapper runs its plain version
+only when every operand lies on the CPU; for CUDA operands it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ import torch
 
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    check_cols_shapes, check_shapes, plain_cost_loop, session_rows,
+    check_cols_shapes, check_shapes, plain_cost_emit_loop, session_rows,
 )
 
 
@@ -73,7 +80,13 @@ def gp_step(ops: Dict[str, torch.Tensor], x: torch.Tensor, u: torch.Tensor) -> t
 def gp_cost_rollout_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
                           pvec: torch.Tensor, ops: Dict[str, torch.Tensor]) -> torch.Tensor:
     """K14's arithmetic in PyTorch (pallas_neural.py:677-723)."""
-    return plain_cost_loop(model, s0, Q, pvec, lambda x, u: gp_step(ops, x, u))
+    return gp_cost_rollout_emit_plain(model, s0, Q, pvec, ops)[0]
+
+
+def gp_cost_rollout_emit_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec: torch.Tensor, ops: Dict[str, torch.Tensor]):
+    """K14's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
+    return plain_cost_emit_loop(model, s0, Q, pvec, lambda x, u: gp_step(ops, x, u))
 
 
 def gp_cost_rollout(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -103,15 +116,39 @@ def gp_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Ten
 gp_cost_rollout.launches = 0
 
 
+def gp_cost_rollout_emit(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                         pvec: torch.Tensor, ops: Dict[str, torch.Tensor]):
+    """K14's emit_terminal form: ``(cost [K], x_H [K, S])``; see the
+    module docstring."""
+    check_shapes("gp_cost_rollout_emit", s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *ops.values()):
+        return gp_cost_rollout_emit_plain(model, s0, Q, pvec, ops)
+    x_term = torch.empty_like(s0)
+    cost = _launch("gp_cost_rollout_emit", model, s0, Q, pvec, ops, s0.shape[0], 0, x_term)
+    gp_cost_rollout_emit.launches += 1
+    return cost, x_term
+
+
+gp_cost_rollout_emit.launches = 0
+
+
 def gp_cost_rollout_cols_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
                                pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]
                                ) -> torch.Tensor:
     """K14's session-row form in PyTorch: K14's plain version over the B*K
     rollouts, each scored under its session's row of ``pvec_b``;
     ``[B, K]``."""
+    return gp_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, ops)[0]
+
+
+def gp_cost_rollout_cols_emit_plain(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                                    pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]):
+    """K14's session-row emit_terminal form in PyTorch: ``(cost [B, K],
+    x_H [B, K, S])``."""
     B = pvec_b.shape[0]
     K = s0.shape[0] // B
-    return gp_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T, ops).reshape(B, K)
+    cost, x = gp_cost_rollout_emit_plain(model, s0, Q, session_rows(pvec_b, K).T, ops)
+    return cost.reshape(B, K), x.reshape(B, K, -1)
 
 
 def gp_cost_rollout_cols(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -131,11 +168,33 @@ def gp_cost_rollout_cols(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tens
 gp_cost_rollout_cols.launches = 0
 
 
-def _launch(name: str, model: kernels.GPModel, s0, Q, pvec, ops, ks: int, lanes: int):
+def gp_cost_rollout_cols_emit(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Tensor,
+                              pvec_b: torch.Tensor, ops: Dict[str, torch.Tensor]):
+    """K14's session-row form's emit_terminal form: ``(cost [B, K], x_H
+    [B, K, S])`` of B sessions' rollouts in one launch, laid out as
+    ``gp_cost_rollout_cols``'."""
+    K = check_cols_shapes("gp_cost_rollout_cols_emit", s0, Q, pvec_b)
+    if kernels.on_cpu(s0, Q, pvec_b, *ops.values()):
+        return gp_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, ops)
+    x_term = torch.empty_like(s0)
+    cost = _launch("gp_cost_rollout_cols_emit", model, s0, Q, pvec_b, ops, K, 0, x_term)
+    gp_cost_rollout_cols_emit.launches += 1
+    B = pvec_b.shape[0]
+    return cost.reshape(B, K), x_term.reshape(B, K, -1)
+
+
+gp_cost_rollout_cols_emit.launches = 0
+
+
+def _launch(name: str, model: kernels.GPModel, s0, Q, pvec, ops, ks: int, lanes: int,
+            x_term=None):
     """Check the operands and launch K14 with ``lanes`` lanes a rollout over
-    sessions of ``ks`` rollouts, ``pvec``'s rows; returns the costs."""
+    sessions of ``ks`` rollouts, ``pvec``'s rows, or, with ``x_term [K,
+    S]``, its emit_terminal form, which writes the terminal states there;
+    returns the costs."""
     args, tensors = model.gp_args(ops)
-    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    terminal = {} if x_term is None else {"x_term": x_term}
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **terminal, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
     model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
@@ -143,7 +202,8 @@ def _launch(name: str, model: kernels.GPModel, s0, Q, pvec, ops, ks: int, lanes:
     with torch.cuda.device(device):
         rc = kernels.load().ctt_gp_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, ks, H, model.max_cost, lanes, args,
+            cost.data_ptr(), None if x_term is None else x_term.data_ptr(), K, ks, H,
+            model.max_cost, lanes, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, f"{name} (M={args.M} inducing points)")

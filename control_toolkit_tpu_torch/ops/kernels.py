@@ -532,18 +532,20 @@ def load() -> ctypes.CDLL:
         lib.ctt_value_smem_bytes.argtypes = [value, i32]
         lib.ctt_value_smem_bytes.restype = ctypes.c_long
         net = ctypes.POINTER(NetArgs)
-        lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
-                                                net, ptr]
+        # K11, K13, K12 and K14 (and K11's member-block form) take the
+        # terminal states' pointer after the costs' too.
+        lib.ctt_neural_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
+                                                i32, net, ptr]
         lib.ctt_neural_cost_rollout.restype = i32
-        lib.ctt_recurrent_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
-                                                   net, ptr]
+        lib.ctt_recurrent_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                                   f32, net, ptr]
         lib.ctt_recurrent_cost_rollout.restype = i32
         lib.ctt_neural_plan.argtypes = [net, i32, i32, i32, ctypes.POINTER(i32),
                                         ctypes.POINTER(i32)]
         lib.ctt_neural_plan.restype = ctypes.c_long
         # The member-block forms take ks = K / E, the rollouts a member.
-        lib.ctt_neural_cost_rollout_ens.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
-                                                    net, ptr]
+        lib.ctt_neural_cost_rollout_ens.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                                    f32, net, ptr]
         lib.ctt_neural_cost_rollout_ens.restype = i32
         for fn in (lib.ctt_neural_grad_cost_rollout, lib.ctt_neural_grad_cost_rollout_ens):
             fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, ptr]
@@ -565,7 +567,7 @@ def load() -> ctypes.CDLL:
             fn.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
         lib.ctt_residual_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
         ]
         lib.ctt_residual_cost_rollout.restype = i32
         lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
@@ -575,8 +577,8 @@ def load() -> ctypes.CDLL:
         ]
         lib.ctt_residual_grad_cost_rollout.restype = i32
         gp = ctypes.POINTER(GPArgs)
-        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
-                                            gp, ptr]
+        lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
+                                            i32, gp, ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, gp, ptr,

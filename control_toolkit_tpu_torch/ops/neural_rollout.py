@@ -43,6 +43,15 @@ source note says what bounds them on the card); the ``*_plain`` functions
 are the same functions in PyTorch.  A wrapper runs its plain version only
 when every operand lies on the CPU; for CUDA operands it launches its
 kernel or raises.
+
+Their ``emit_terminal`` forms (pallas_neural.py:174, :466), the ``*_emit``
+wrappers (``neural_cost_rollout_emit``, ``neural_cost_rollout_cols_emit``,
+``neural_cost_rollout_ens_emit``, ``recurrent_cost_rollout_emit``), also
+return the terminal states ``x_H`` in the costs' rollout order (``[K, S]``;
+the session-row form ``[B, K, S]``), on which a learned value terminal is
+evaluated outside the kernel (``costs/value_terminal.py``); their costs are
+the kernels', the same body.  Each plain version is written once, as its
+emit form (``plain_cost_emit_loop``), the unvalued one its first output.
 """
 from __future__ import annotations
 
@@ -82,6 +91,11 @@ def _cols(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 def plain_cost_loop(model: kernels.NetModel, s0, Q, pvec, step) -> torch.Tensor:
     """The plain versions' loop, over any ``step(x [K,S], u [K,U]) -> x'``."""
+    return plain_cost_emit_loop(model, s0, Q, pvec, step)[0]
+
+
+def plain_cost_emit_loop(model: kernels.NetModel, s0, Q, pvec, step):
+    """``plain_cost_loop``'s emit_terminal form: ``(cost [K], x_H [K, S])``."""
     p = model.unpack(pvec)
     K, H, U = s0.shape[0], Q.shape[1], Q.shape[2]
     x = s0
@@ -93,14 +107,20 @@ def plain_cost_loop(model: kernels.NetModel, s0, Q, pvec, step) -> torch.Tensor:
         acc = acc + model.stage(_cols(x), us, prev_us, p)
         x = step(x, u)
         prev_us = us
-    return (acc + model.terminal(_cols(x), p)) / (H + 1)
+    return (acc + model.terminal(_cols(x), p)) / (H + 1), x
 
 
 def neural_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                               pvec: torch.Tensor, net: Dict) -> torch.Tensor:
     """K11's arithmetic in PyTorch (pallas_neural.py:205-255)."""
-    return plain_cost_loop(model, s0, Q, pvec,
-                           lambda x, u: mlp_step(net, x, u, model.predict_delta))
+    return neural_cost_rollout_emit_plain(model, s0, Q, pvec, net)[0]
+
+
+def neural_cost_rollout_emit_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                   pvec: torch.Tensor, net: Dict):
+    """K11's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
+    return plain_cost_emit_loop(model, s0, Q, pvec,
+                                lambda x, u: mlp_step(net, x, u, model.predict_delta))
 
 
 def ensemble_members(name: str, net: Dict, K: int) -> int:
@@ -134,8 +154,22 @@ def neural_cost_rollout_ens_plain(model: kernels.NetModel, s0: torch.Tensor, Q: 
                                   pvec: torch.Tensor, net: Dict) -> torch.Tensor:
     """K11's member-block form in PyTorch (pallas_neural.py:157,
     ``n_members``): block e of K/E rollouts under member e's weights."""
-    return plain_cost_loop(model, s0, Q, pvec,
-                           lambda x, u: member_block_step(net, x, u, model.predict_delta))
+    return neural_cost_rollout_ens_emit_plain(model, s0, Q, pvec, net)[0]
+
+
+def neural_cost_rollout_ens_emit_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                       Q: torch.Tensor, pvec: torch.Tensor, net: Dict):
+    """The member-block form's emit_terminal form in PyTorch: ``(cost [K],
+    x_H [K, S])``."""
+    return plain_cost_emit_loop(model, s0, Q, pvec,
+                                lambda x, u: member_block_step(net, x, u, model.predict_delta))
+
+
+def _ens_members(name: str, model: kernels.NetModel, s0, Q, pvec, net: Dict) -> int:
+    check_shapes(name, s0, Q, pvec)
+    if model.kind != "mlp":
+        raise ValueError(f"{name}: an MLP ensemble, not a {model.kind}")
+    return ensemble_members(name, net, s0.shape[0])
 
 
 def neural_cost_rollout_ens(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -145,10 +179,7 @@ def neural_cost_rollout_ens(model: kernels.NetModel, s0: torch.Tensor, Q: torch.
     ``b{i}`` [E, out], ``norm_*`` [E, n]), rollout k under member k //
     (K/E), PETS TS-inf blockwise; one launch, each block staging its
     member's weights."""
-    check_shapes("neural_cost_rollout_ens", s0, Q, pvec)
-    if model.kind != "mlp":
-        raise ValueError(f"neural_cost_rollout_ens: an MLP ensemble, not a {model.kind}")
-    E = ensemble_members("neural_cost_rollout_ens", net, s0.shape[0])
+    E = _ens_members("neural_cost_rollout_ens", model, s0, Q, pvec, net)
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
         return neural_cost_rollout_ens_plain(model, s0, Q, pvec, net)
     cost = _launch("ctt_neural_cost_rollout_ens", "neural_cost_rollout_ens", model, s0, Q, pvec,
@@ -160,9 +191,32 @@ def neural_cost_rollout_ens(model: kernels.NetModel, s0: torch.Tensor, Q: torch.
 neural_cost_rollout_ens.launches = 0
 
 
+def neural_cost_rollout_ens_emit(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                 pvec: torch.Tensor, net: Dict):
+    """The member-block form's emit_terminal form (pallas_neural.py:173-174,
+    ``n_members`` with ``emit_terminal``): ``(cost [K], x_H [K, S])``."""
+    E = _ens_members("neural_cost_rollout_ens_emit", model, s0, Q, pvec, net)
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_cost_rollout_ens_emit_plain(model, s0, Q, pvec, net)
+    x_term = torch.empty_like(s0)
+    cost = _launch("ctt_neural_cost_rollout_ens", "neural_cost_rollout_ens_emit", model, s0, Q,
+                   pvec, net, None, ks=s0.shape[0] // E, members=E, x_term=x_term)
+    neural_cost_rollout_ens_emit.launches += 1
+    return cost, x_term
+
+
+neural_cost_rollout_ens_emit.launches = 0
+
+
 def recurrent_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                                  pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
     """K13's arithmetic in PyTorch (pallas_neural.py:496-589)."""
+    return recurrent_cost_rollout_emit_plain(model, s0, Q, pvec, net, hidden)[0]
+
+
+def recurrent_cost_rollout_emit_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                      Q: torch.Tensor, pvec: torch.Tensor, net: Dict, hidden):
+    """K13's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
     apply = RECURRENT_FNS[model.kind][1]
     K = s0.shape[0]
     hs = [tuple(h.expand(K, h.shape[-1]) for h in hidden)]
@@ -171,7 +225,7 @@ def recurrent_cost_rollout_plain(model: kernels.NetModel, s0: torch.Tensor, Q: t
         out, hs[0] = apply(net, torch.cat([x, u], dim=1), hs[0])
         return x + out if model.predict_delta else out
 
-    return plain_cost_loop(model, s0, Q, pvec, step)
+    return plain_cost_emit_loop(model, s0, Q, pvec, step)
 
 
 def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tensor) -> None:
@@ -183,14 +237,16 @@ def check_shapes(name: str, s0: torch.Tensor, Q: torch.Tensor, pvec: torch.Tenso
 
 
 def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hidden,
-            extra=(), ks: int = 0, rows: int = 1, members: int = 0):
+            extra=(), ks: int = 0, rows: int = 1, members: int = 0, x_term=None):
     """Check the operands and launch the C entry point ``entry`` over
     sessions of ``ks`` rollouts (0: one session) whose rows ``pvec`` and
     ``hidden`` hold, or over blocks of ``ks`` rollouts a member of a
     stacked net of ``members`` members, with ``extra`` arguments before the
-    net's; returns the costs."""
+    net's, or, with ``x_term [K, S]``, the entry's emit_terminal form, which
+    writes the terminal states there; returns the costs."""
     args, tensors = model.net_args(net, hidden, rows, members)
-    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    terminal = {} if x_term is None else {"x_term": x_term}
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **terminal, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
     model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
@@ -198,7 +254,8 @@ def _launch(entry: str, name: str, model: kernels.NetModel, s0, Q, pvec, net, hi
     with torch.cuda.device(device):
         rc = getattr(kernels.load(), entry)(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, ks or K, H, model.max_cost, *extra, args,
+            cost.data_ptr(), None if x_term is None else x_term.data_ptr(), K, ks or K, H,
+            model.max_cost, *extra, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, name)
@@ -217,9 +274,7 @@ def neural_cost_rollout_warps(model: kernels.NetModel, s0: torch.Tensor, Q: torc
     """K11 with ``warps`` warps a 16-rollout group (1, 2 or 4; 0 for the
     layout's own, which ``neural_cost_rollout`` takes): the split's
     measurement (chip_smoke.py phase 11).  Counted as K11's launches."""
-    check_shapes("neural_cost_rollout", s0, Q, pvec)
-    if model.kind != "mlp":
-        raise ValueError(f"neural_cost_rollout: an MLP, not a {model.kind}")
+    _check_mlp("neural_cost_rollout", model, s0, Q, pvec)
     if warps not in (0, 1, 2, 4):
         raise ValueError(f"neural_cost_rollout: {warps} warps a group (1, 2 or 4; 0: the plan's)")
     if kernels.on_cpu(s0, Q, pvec, *net.values()):
@@ -233,13 +288,44 @@ def neural_cost_rollout_warps(model: kernels.NetModel, s0: torch.Tensor, Q: torc
 neural_cost_rollout.launches = 0
 
 
+def _check_mlp(name: str, model: kernels.NetModel, s0, Q, pvec) -> None:
+    check_shapes(name, s0, Q, pvec)
+    if model.kind != "mlp":
+        raise ValueError(f"{name}: an MLP, not a {model.kind}")
+
+
+def neural_cost_rollout_emit(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                             pvec: torch.Tensor, net: Dict):
+    """K11's emit_terminal form (pallas_neural.py:174): ``(cost [K], x_H
+    [K, S])``; see the module docstring."""
+    _check_mlp("neural_cost_rollout_emit", model, s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return neural_cost_rollout_emit_plain(model, s0, Q, pvec, net)
+    x_term = torch.empty_like(s0)
+    cost = _launch("ctt_neural_cost_rollout", "neural_cost_rollout_emit", model, s0, Q, pvec,
+                   net, None, (0,), x_term=x_term)
+    neural_cost_rollout_emit.launches += 1
+    return cost, x_term
+
+
+neural_cost_rollout_emit.launches = 0
+
+
 def neural_cost_rollout_cols_plain(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
                                    pvec_b: torch.Tensor, net: Dict) -> torch.Tensor:
     """K11's session-row form in PyTorch: K11's plain version over the B*K
     rollouts, each with its session's row of ``pvec_b``; ``[B, K]``."""
+    return neural_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, net)[0]
+
+
+def neural_cost_rollout_cols_emit_plain(model: kernels.NetModel, s0: torch.Tensor,
+                                        Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict):
+    """K11's session-row emit_terminal form in PyTorch: ``(cost [B, K],
+    x_H [B, K, S])``."""
     B = pvec_b.shape[0]
     K = s0.shape[0] // B
-    return neural_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T, net).reshape(B, K)
+    cost, x = neural_cost_rollout_emit_plain(model, s0, Q, session_rows(pvec_b, K).T, net)
+    return cost.reshape(B, K), x.reshape(B, K, -1)
 
 
 def neural_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -263,6 +349,27 @@ def neural_cost_rollout_cols(model: kernels.NetModel, s0: torch.Tensor, Q: torch
 neural_cost_rollout_cols.launches = 0
 
 
+def neural_cost_rollout_cols_emit(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                  pvec_b: torch.Tensor, net: Dict):
+    """K11's session-row form's emit_terminal form (``slot_keys`` with
+    ``emit_terminal``): ``(cost [B, K], x_H [B, K, S])`` of B sessions'
+    rollouts in one launch, laid out as ``neural_cost_rollout_cols``'."""
+    K = check_cols_shapes("neural_cost_rollout_cols_emit", s0, Q, pvec_b)
+    if model.kind != "mlp":
+        raise ValueError(f"neural_cost_rollout_cols_emit: an MLP, not a {model.kind}")
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return neural_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, net)
+    x_term = torch.empty_like(s0)
+    cost = _launch("ctt_neural_cost_rollout", "neural_cost_rollout_cols_emit", model, s0, Q,
+                   pvec_b, net, None, (0,), ks=K, x_term=x_term)
+    neural_cost_rollout_cols_emit.launches += 1
+    B = pvec_b.shape[0]
+    return cost.reshape(B, K), x_term.reshape(B, K, -1)
+
+
+neural_cost_rollout_cols_emit.launches = 0
+
+
 def _net_leaves(net: Dict) -> list:
     return [v for cell in net.values() for v in (cell.values() if isinstance(cell, dict)
                                                  else (cell,))]
@@ -272,9 +379,7 @@ def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.T
                            pvec: torch.Tensor, net: Dict, hidden) -> torch.Tensor:
     """K13: per-rollout trajectory cost ``[K]`` under a stacked GRU/LSTM
     from the live batch-1 ``hidden``; see the module docstring."""
-    check_shapes("recurrent_cost_rollout", s0, Q, pvec)
-    if model.kind not in RECURRENT_FNS:
-        raise ValueError(f"recurrent_cost_rollout: a GRU or LSTM, not a {model.kind}")
+    _check_recurrent("recurrent_cost_rollout", model, s0, Q, pvec)
     if kernels.on_cpu(s0, Q, pvec, *_net_leaves(net), *hidden):
         return recurrent_cost_rollout_plain(model, s0, Q, pvec, net, hidden)
     cost = _launch("ctt_recurrent_cost_rollout", "recurrent_cost_rollout", model, s0, Q, pvec,
@@ -284,6 +389,29 @@ def recurrent_cost_rollout(model: kernels.NetModel, s0: torch.Tensor, Q: torch.T
 
 
 recurrent_cost_rollout.launches = 0
+
+
+def _check_recurrent(name: str, model: kernels.NetModel, s0, Q, pvec) -> None:
+    check_shapes(name, s0, Q, pvec)
+    if model.kind not in RECURRENT_FNS:
+        raise ValueError(f"{name}: a GRU or LSTM, not a {model.kind}")
+
+
+def recurrent_cost_rollout_emit(model: kernels.NetModel, s0: torch.Tensor, Q: torch.Tensor,
+                                pvec: torch.Tensor, net: Dict, hidden):
+    """K13's emit_terminal form (pallas_neural.py:466): ``(cost [K], x_H
+    [K, S])`` from the live batch-1 ``hidden``; see the module docstring."""
+    _check_recurrent("recurrent_cost_rollout_emit", model, s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *_net_leaves(net), *hidden):
+        return recurrent_cost_rollout_emit_plain(model, s0, Q, pvec, net, hidden)
+    x_term = torch.empty_like(s0)
+    cost = _launch("ctt_recurrent_cost_rollout", "recurrent_cost_rollout_emit", model, s0, Q,
+                   pvec, net, hidden, x_term=x_term)
+    recurrent_cost_rollout_emit.launches += 1
+    return cost, x_term
+
+
+recurrent_cost_rollout_emit.launches = 0
 
 
 def recurrent_cost_rollout_cols_plain(model: kernels.NetModel, s0: torch.Tensor,

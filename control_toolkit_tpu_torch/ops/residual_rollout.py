@@ -22,11 +22,17 @@ kernel, rollout b*K + k reading row b of ``pvec_b [B,N]``: each session's
 base constants (``per_slot_dyn``) and cost; the residual's weights are
 shared.
 
+Its ``emit_terminal`` form (pallas_neural.py:367), ``residual_cost_rollout_emit``
+and its session-row form ``residual_cost_rollout_cols_emit``, also returns
+the terminal states ``x_H`` in the costs' rollout order (``[K, S]``; ``[B,
+K, S]``), on which a learned value terminal is evaluated outside the
+kernel; its costs are K12's, the same body.
+
 The CUDA kernel is ``csrc/residual_rollout.cu`` (its source note says
 what bounds it on the card); ``residual_cost_rollout_plain`` is the same
-function in PyTorch.  The wrapper runs the plain version only when every
-operand lies on the CPU; for CUDA operands it launches the kernel or
-raises.
+function in PyTorch, the first output of the emit form's plain version.
+A wrapper runs its plain version only when every operand lies on the CPU;
+for CUDA operands it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import torch
 
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    check_cols_shapes, check_shapes, mlp_step, plain_cost_loop, session_rows,
+    check_cols_shapes, check_shapes, mlp_step, plain_cost_emit_loop, session_rows,
 )
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 
@@ -58,7 +64,13 @@ def residual_step_fn(model: kernels.ResidualModel, pvec: torch.Tensor,
 def residual_cost_rollout_plain(model: kernels.ResidualModel, s0: torch.Tensor,
                                 Q: torch.Tensor, pvec: torch.Tensor, net: Dict) -> torch.Tensor:
     """K12's arithmetic in PyTorch (pallas_neural.py:388-421)."""
-    return plain_cost_loop(model, s0, Q, pvec, residual_step_fn(model, pvec, net))
+    return residual_cost_rollout_emit_plain(model, s0, Q, pvec, net)[0]
+
+
+def residual_cost_rollout_emit_plain(model: kernels.ResidualModel, s0: torch.Tensor,
+                                     Q: torch.Tensor, pvec: torch.Tensor, net: Dict):
+    """K12's emit_terminal form in PyTorch: ``(cost [K], x_H [K, S])``."""
+    return plain_cost_emit_loop(model, s0, Q, pvec, residual_step_fn(model, pvec, net))
 
 
 def residual_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q: torch.Tensor,
@@ -75,16 +87,39 @@ def residual_cost_rollout(model: kernels.ResidualModel, s0: torch.Tensor, Q: tor
 residual_cost_rollout.launches = 0
 
 
+def residual_cost_rollout_emit(model: kernels.ResidualModel, s0: torch.Tensor, Q: torch.Tensor,
+                               pvec: torch.Tensor, net: Dict):
+    """K12's emit_terminal form: ``(cost [K], x_H [K, S])``; see the
+    module docstring."""
+    check_shapes("residual_cost_rollout_emit", s0, Q, pvec)
+    if kernels.on_cpu(s0, Q, pvec, *net.values()):
+        return residual_cost_rollout_emit_plain(model, s0, Q, pvec, net)
+    x_term = torch.empty_like(s0)
+    cost = _launch("residual_cost_rollout_emit", model, s0, Q, pvec, net, s0.shape[0], x_term)
+    residual_cost_rollout_emit.launches += 1
+    return cost, x_term
+
+
+residual_cost_rollout_emit.launches = 0
+
+
 def residual_cost_rollout_cols_plain(model: kernels.ResidualModel, s0: torch.Tensor,
                                      Q: torch.Tensor, pvec_b: torch.Tensor,
                                      net: Dict) -> torch.Tensor:
     """K12's session-row form in PyTorch: K12's plain version over the B*K
     rollouts, each stepping and scored under its session's row of
     ``pvec_b`` (its base constants and its cost's); ``[B, K]``."""
+    return residual_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, net)[0]
+
+
+def residual_cost_rollout_cols_emit_plain(model: kernels.ResidualModel, s0: torch.Tensor,
+                                          Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict):
+    """K12's session-row emit_terminal form in PyTorch: ``(cost [B, K],
+    x_H [B, K, S])``."""
     B = pvec_b.shape[0]
     K = s0.shape[0] // B
-    return residual_cost_rollout_plain(model, s0, Q, session_rows(pvec_b, K).T,
-                                       net).reshape(B, K)
+    cost, x = residual_cost_rollout_emit_plain(model, s0, Q, session_rows(pvec_b, K).T, net)
+    return cost.reshape(B, K), x.reshape(B, K, -1)
 
 
 def residual_cost_rollout_cols(model: kernels.ResidualModel, s0: torch.Tensor,
@@ -105,11 +140,31 @@ def residual_cost_rollout_cols(model: kernels.ResidualModel, s0: torch.Tensor,
 residual_cost_rollout_cols.launches = 0
 
 
-def _launch(name: str, model: kernels.ResidualModel, s0, Q, pvec, net, ks: int):
+def residual_cost_rollout_cols_emit(model: kernels.ResidualModel, s0: torch.Tensor,
+                                    Q: torch.Tensor, pvec_b: torch.Tensor, net: Dict):
+    """K12's session-row form's emit_terminal form: ``(cost [B, K], x_H
+    [B, K, S])`` of B sessions' rollouts in one launch, laid out as
+    ``residual_cost_rollout_cols``'."""
+    K = check_cols_shapes("residual_cost_rollout_cols_emit", s0, Q, pvec_b)
+    if kernels.on_cpu(s0, Q, pvec_b, *net.values()):
+        return residual_cost_rollout_cols_emit_plain(model, s0, Q, pvec_b, net)
+    x_term = torch.empty_like(s0)
+    cost = _launch("residual_cost_rollout_cols_emit", model, s0, Q, pvec_b, net, K, x_term)
+    residual_cost_rollout_cols_emit.launches += 1
+    B = pvec_b.shape[0]
+    return cost.reshape(B, K), x_term.reshape(B, K, -1)
+
+
+residual_cost_rollout_cols_emit.launches = 0
+
+
+def _launch(name: str, model: kernels.ResidualModel, s0, Q, pvec, net, ks: int, x_term=None):
     """Check the operands and launch K12 over sessions of ``ks`` rollouts,
-    ``pvec``'s rows; returns the costs."""
+    ``pvec``'s rows, or, with ``x_term [K, S]``, its emit_terminal form,
+    which writes the terminal states there; returns the costs."""
     args, tensors = model.net_args(net)
-    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **tensors)
+    terminal = {} if x_term is None else {"x_term": x_term}
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec, **terminal, **tensors)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
     model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
@@ -117,7 +172,8 @@ def _launch(name: str, model: kernels.ResidualModel, s0, Q, pvec, net, ks: int):
     with torch.cuda.device(device):
         rc = kernels.load().ctt_residual_cost_rollout(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(),
-            cost.data_ptr(), K, ks, H, *model.step_args(), model.max_cost, args,
+            cost.data_ptr(), None if x_term is None else x_term.data_ptr(), K, ks, H,
+            *model.step_args(), model.max_cost, args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, name)

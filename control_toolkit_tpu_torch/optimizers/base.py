@@ -439,9 +439,8 @@ class Optimizer:
         net, K11's member-block form for an ensemble, K14 for a sparse GP,
         K12 for a residual model; plain versions on CPU tensors) > the fused
         loop > None (callers keep the trajectory path); each with the
-        risk_weight penalty; under a post-terminal hook the ODE family's is
-        K1's emit_terminal form plus the hook, and the learned families
-        raise (their value forms are not ported).  ``differentiable``
+        risk_weight penalty; under a post-terminal hook each family's is
+        its cost kernel's emit_terminal form plus the hook.  ``differentiable``
         leaves the kernels out (they have no autograd rule): the gradient
         optimizers' ``torch.autograd`` path."""
         from control_toolkit_tpu_torch.optimizers import kernel_families as kf

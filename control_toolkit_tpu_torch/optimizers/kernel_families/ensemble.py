@@ -7,9 +7,12 @@ member e, in one launch: each block of the launch stages its member's
 weights, so an E-member rollout costs one net's operations.  The gates
 admit a TS-inf, non-probabilistic ``EnsemblePredictor`` over a cost with a
 device implementation (``ode.device_cost``: ``supports_fused_rollout``,
-scalar attributes) and ``force_scan`` off, and raise NotImplementedError
-for a cost with a post-terminal hook (the forms' value forms are not
-ported); the gradient gate also refuses ``risk_weight`` and
+scalar attributes) and ``force_scan`` off.  A learned value terminal
+rides the cost form's ``emit_terminal`` form, ``post(x_H)/(H+1)`` added
+outside it (JAX ``ensemble.py:102``), under ``risk_weight`` too; the
+gradient gate raises NotImplementedError for it (the value_spec form of
+K8's member-block form is not ported).  The gradient gate also refuses
+``risk_weight`` and
 ``robust_eval`` (the kernel's dQ has no disagreement penalty and scores
 each plan under one member; those objectives keep ``torch.autograd``
 through the loop).  The
@@ -27,7 +30,9 @@ from __future__ import annotations
 from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout_ens
-from control_toolkit_tpu_torch.ops.neural_rollout import neural_cost_rollout_ens
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    neural_cost_rollout_ens, neural_cost_rollout_ens_emit,
+)
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
 name = "ensemble"
@@ -40,12 +45,9 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    """The gate of K11's member-block form; raises for a cost with a
-    post-terminal hook (its emit_terminal form is not ported)."""
-    ok = not opt.force_scan and compatible_model(opt)
-    if ok:
-        refuse_value(opt, "the emit_terminal form of K11's member-block form")
-    return ok
+    """The gate of K11's member-block form; a post-terminal hook is
+    admitted (its emit_terminal form carries it)."""
+    return not opt.force_scan and compatible_model(opt)
 
 
 def net_model(opt):
@@ -67,14 +69,16 @@ def net_model(opt):
 
 def build_cost(opt):
     """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K11's member-block
-    form."""
+    form; with a post-terminal hook, over its emit_terminal form,
+    ``post(x_H)/(H+1)`` added."""
     model, pack = net_model(opt)
+    post = opt._post_terminal_fn()
+    rollout = neural_cost_rollout_ens if post is None else neural_cost_rollout_ens_emit
 
-    def cost_fn(s_tiled, Q, u_prev, params):
-        return neural_cost_rollout_ens(model, s_tiled, Q, pack(params, u_prev),
-                                       params["dyn"]["net"])
+    def raw_call(s_tiled, Q, u_prev, params):
+        return rollout(model, s_tiled, Q, pack(params, u_prev), params["dyn"]["net"])
 
-    return cost_fn
+    return opt._finalize_cost_kernel(raw_call, post)
 
 
 def can_use_grad(opt) -> bool:

@@ -11,10 +11,11 @@ counterpart: K is masked in the kernels, and the wrappers raise on a GP
 whose inducing points exceed a block's shared memory.  K14's session-row
 form serves the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_gp_step``, over ``cached_operands``), K10's
-and K14's its gradient fleets (``batched_kernels``).  Not ported: the
-learned-terminal (``emit_terminal``, ``value_spec``) forms: over a cost
-with a post-terminal hook the gates raise NotImplementedError naming the
-form.
+and K14's its gradient fleets (``batched_kernels``).  A learned value
+terminal rides K14's ``emit_terminal`` form, ``post(x_H)/(H+1)`` added
+outside it (JAX ``gp.py:87``).  Not ported: K10's ``value_spec`` form:
+over a cost with a post-terminal hook the gradient gate raises
+NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout, gp_grad_cost_rollout_cols,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_emit,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
@@ -37,12 +38,9 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    """K14's gate; raises for a cost with a post-terminal hook (its
-    emit_terminal form is not ported)."""
-    ok = not opt.force_scan and compatible_model(opt)
-    if ok:
-        refuse_value(opt, "K14's emit_terminal form")
-    return ok
+    """K14's gate; a post-terminal hook is admitted (its emit_terminal
+    form carries it)."""
+    return not opt.force_scan and compatible_model(opt)
 
 
 def gp_model(opt):
@@ -69,15 +67,18 @@ def cached_operands():
 
 
 def build_cost(opt):
-    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K14."""
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K14; with a
+    post-terminal hook, over its emit_terminal form, ``post(x_H)/(H+1)``
+    added."""
     model, pack = gp_model(opt)
     operands = cached_operands()
+    post = opt._post_terminal_fn()
+    rollout = gp_cost_rollout if post is None else gp_cost_rollout_emit
 
-    def cost_fn(s_tiled, Q, u_prev, params):
-        return gp_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                               operands(params["dyn"]["gp"]))
+    def raw_call(s_tiled, Q, u_prev, params):
+        return rollout(model, s_tiled, Q, pack(params, u_prev), operands(params["dyn"]["gp"]))
 
-    return cost_fn
+    return opt._finalize_cost_kernel(raw_call, post)
 
 
 def can_use_grad(opt) -> bool:

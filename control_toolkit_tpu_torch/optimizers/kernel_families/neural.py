@@ -16,9 +16,13 @@ session-row forms of K11 and K13 serve the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_neural_step`` and
 ``_make_batched_recurrent_step``), K8's and K11's its gradient fleets
 (``batched_kernels``).  The ensemble's member-block (``n_members``) forms
-are ``kernel_families/ensemble.py``'s.  Not ported: the learned-terminal
-(``emit_terminal``, ``value_spec``) forms: over a cost with a post-terminal
-hook the gates raise NotImplementedError naming the form.
+are ``kernel_families/ensemble.py``'s.  A learned value terminal
+(``costs/value_terminal.py``) rides K11's and K13's ``emit_terminal``
+forms, ``post(x_H)/(H+1)`` added outside them
+(``Optimizer._finalize_cost_kernel``), as JAX ``neural.py:121`` does.
+Not ported: K8's ``value_spec`` form: over a cost with a post-terminal
+hook the gradient gate raises NotImplementedError naming it (a recurrent
+net's gradient keeps ``torch.autograd``, the JAX package's XLA-AD).
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_cols,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    neural_cost_rollout, neural_cost_rollout_cols, recurrent_cost_rollout,
+    neural_cost_rollout, neural_cost_rollout_cols, neural_cost_rollout_emit,
+    recurrent_cost_rollout, recurrent_cost_rollout_emit,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
@@ -44,13 +49,9 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    """K11's (an MLP) or K13's (a GRU or LSTM) gate; raises for a cost
-    with a post-terminal hook (their emit_terminal forms are not ported)."""
-    ok = not opt.force_scan and compatible_model(opt)
-    if ok:
-        recurrent = getattr(opt.predictor, "predictor", opt.predictor).recurrent
-        refuse_value(opt, f"K{13 if recurrent else 11}'s emit_terminal form")
-    return ok
+    """K11's (an MLP) or K13's (a GRU or LSTM) gate; a post-terminal hook
+    is admitted (their emit_terminal forms carry it)."""
+    return not opt.force_scan and compatible_model(opt)
 
 
 def net_model(opt):
@@ -72,18 +73,23 @@ def net_model(opt):
 
 def build_cost(opt):
     """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K11 (MLP) or K13
-    (GRU/LSTM, from ``params["dyn"]["hidden"]``)."""
+    (GRU/LSTM, from ``params["dyn"]["hidden"]``); with a post-terminal hook,
+    over their emit_terminal forms, the hook's ``post(x_H)/(H+1)`` added
+    (JAX ``neural.py:101``, ``:121``)."""
     model, pack = net_model(opt)
+    post = opt._post_terminal_fn()
     if model.kind == "mlp":
-        def cost_fn(s_tiled, Q, u_prev, params):
-            return neural_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                                       params["dyn"]["net"])
+        rollout = neural_cost_rollout if post is None else neural_cost_rollout_emit
+
+        def raw_call(s_tiled, Q, u_prev, params):
+            return rollout(model, s_tiled, Q, pack(params, u_prev), params["dyn"]["net"])
     else:
-        def cost_fn(s_tiled, Q, u_prev, params):
+        rollout = recurrent_cost_rollout if post is None else recurrent_cost_rollout_emit
+
+        def raw_call(s_tiled, Q, u_prev, params):
             dyn = params["dyn"]
-            return recurrent_cost_rollout(model, s_tiled, Q, pack(params, u_prev), dyn["net"],
-                                          dyn["hidden"])
-    return cost_fn
+            return rollout(model, s_tiled, Q, pack(params, u_prev), dyn["net"], dyn["hidden"])
+    return opt._finalize_cost_kernel(raw_call, post)
 
 
 def can_use_grad(opt) -> bool:

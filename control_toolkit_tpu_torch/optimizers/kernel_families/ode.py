@@ -19,9 +19,10 @@ reads a ValueTerminalCost's base) rides the cost kernel's
 (``Optimizer._finalize_cost_kernel``), and, for a plain tanh MLP V,
 K7's ``value_spec`` form; any other post hook takes ``torch.autograd``
 through the fused loop for its gradient, as the JAX package takes XLA-AD.
-The other families' gates call ``device_cost`` too: where their model is
-admitted but the cost has a post hook they raise (``refuse_value``)
-naming their unported value form, so no kernel drops V.
+The other families' gates call ``device_cost`` too: their cost kernels'
+emit_terminal forms carry the hook; their gradient gates, where the model
+is admitted but the cost has a post hook, raise (``refuse_value``) naming
+their unported value_spec form, so no kernel drops V.
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ def device_cost(opt) -> bool:
     """The optimizer's cost (a ValueTerminalCost's base) is the one its
     environment's device plant evaluates, fusable, with scalar attributes:
     the cost half of every kernel family's gate.  A post-terminal hook is
-    admitted: the ODE family carries it, the others ``refuse_value``."""
+    admitted: the cost kernels' emit_terminal forms carry it; the learned
+    families' gradient gates ``refuse_value``."""
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     base = cf.base if isinstance(cf, ValueTerminalCost) else cf
     pred = getattr(opt.predictor, "predictor", opt.predictor)

@@ -13,9 +13,11 @@ rebuilds.  The JAX gates' TPU conjuncts have no counterpart: K is masked
 in the kernels.  K12's session-row form serves the batched-mpc fleet
 (``MPPIOptimizer._make_batched_residual_step``, ``per_slot_dyn`` over the
 base's constants), K9's and K12's its gradient fleets
-(``batched_kernels``).  Not ported: the learned-terminal
-(``emit_terminal``, ``value_spec``) forms: over a cost with a
-post-terminal hook the gates raise NotImplementedError naming the form.
+(``batched_kernels``).  A learned value terminal rides K12's
+``emit_terminal`` form, ``post(x_H)/(H+1)`` added outside it (JAX
+``residual.py:100``).  Not ported: K9's ``value_spec`` form: over a cost
+with a post-terminal hook the gradient gate raises NotImplementedError
+naming it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
-    residual_cost_rollout, residual_cost_rollout_cols,
+    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_emit,
 )
 from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
 
@@ -39,12 +41,9 @@ def compatible_model(opt) -> bool:
 
 
 def can_use_cost(opt) -> bool:
-    """K12's gate; raises for a cost with a post-terminal hook (its
-    emit_terminal form is not ported)."""
-    ok = not opt.force_scan and compatible_model(opt)
-    if ok:
-        refuse_value(opt, "K12's emit_terminal form")
-    return ok
+    """K12's gate; a post-terminal hook is admitted (its emit_terminal
+    form carries it)."""
+    return not opt.force_scan and compatible_model(opt)
 
 
 def residual_model(opt):
@@ -67,14 +66,17 @@ def residual_model(opt):
 
 
 def build_cost(opt):
-    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K12."""
+    """``cost_fn(s_tiled, Q, u_prev, params) -> [K]`` over K12; with a
+    post-terminal hook, over its emit_terminal form, ``post(x_H)/(H+1)``
+    added."""
     model, pack = residual_model(opt)
+    post = opt._post_terminal_fn()
+    rollout = residual_cost_rollout if post is None else residual_cost_rollout_emit
 
-    def cost_fn(s_tiled, Q, u_prev, params):
-        return residual_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                                     params["dyn"]["res"])
+    def raw_call(s_tiled, Q, u_prev, params):
+        return rollout(model, s_tiled, Q, pack(params, u_prev), params["dyn"]["res"])
 
-    return cost_fn
+    return opt._finalize_cost_kernel(raw_call, post)
 
 
 def can_use_grad(opt) -> bool:

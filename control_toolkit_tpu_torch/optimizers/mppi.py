@@ -53,6 +53,11 @@ from control_toolkit_tpu_torch.ops.interpolation import Interpolator
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
 from control_toolkit_tpu_torch.utils import registry
 
+# What a valued MPPI fleet over a GRU or LSTM needs: the JAX package sends
+# it to the vmapped per-slot step (batched_mpc.py:500-504), not ported.
+RECURRENT_VALUE_FLEET = ("the vmapped per-slot batched step (taken for a learned value terminal "
+                         "in an MPPI fleet over a recurrent net)")
+
 
 class MPPIState(NamedTuple):
     generator: torch.Generator  # noise source
@@ -393,54 +398,65 @@ class MPPIOptimizer(Optimizer):
     def _make_batched_neural_step(self, num_slots: int):
         """B-session MPPI step over a learned MLP (JAX ``mppi.py:513``): all
         B sessions' rollouts in one launch of K11's session-row form
-        (``ops/neural_rollout.py:neural_cost_rollout_cols``), the net's
-        weights shared.  Returns ``(step, update_from_eps)`` as
+        (``ops/neural_rollout.py:neural_cost_rollout_cols``; with a learned
+        value terminal its emit_terminal form, ``neural_cost_rollout_cols_emit``),
+        the net's weights shared.  Returns ``(step, update_from_eps)`` as
         ``_batched_columns_step_from_kernel`` builds them."""
-        from control_toolkit_tpu_torch.ops.neural_rollout import neural_cost_rollout_cols
+        from control_toolkit_tpu_torch.ops.neural_rollout import (
+            neural_cost_rollout_cols, neural_cost_rollout_cols_emit,
+        )
         from control_toolkit_tpu_torch.optimizers.kernel_families import neural
 
         model, _ = neural.net_model(self)
         if model.kind != "mlp":
             raise ValueError("the batched neural step covers MLP models; a GRU or LSTM takes "
                              "_make_batched_recurrent_step")
+        post = self._post_terminal_fn()
+        cols = neural_cost_rollout_cols if post is None else neural_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
-            lambda s0, Q, pvec_b, dyn: neural_cost_rollout_cols(model, s0, Q, pvec_b,
-                                                                dyn["net"]))
+            lambda s0, Q, pvec_b, dyn: cols(model, s0, Q, pvec_b, dyn["net"]), post=post)
 
     def _make_batched_residual_step(self, num_slots: int, per_slot_dyn=()):
         """B-session MPPI step over ``"ODE+res"`` (JAX ``mppi.py:574``): one
         launch of K12's session-row form
-        (``ops/residual_rollout.py:residual_cost_rollout_cols``), the
-        residual's weights shared; ``per_slot_dyn`` moves the named base
-        constants into the sessions' rows, so each session plans against
-        its own plant.  The base constants are read from
-        ``dyn["base"]``."""
-        from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout_cols
+        (``ops/residual_rollout.py:residual_cost_rollout_cols``; with a
+        learned value terminal its emit_terminal form), the residual's
+        weights shared; ``per_slot_dyn`` moves the named base constants into
+        the sessions' rows, so each session plans against its own plant.
+        The base constants are read from ``dyn["base"]``."""
+        from control_toolkit_tpu_torch.ops.residual_rollout import (
+            residual_cost_rollout_cols, residual_cost_rollout_cols_emit,
+        )
         from control_toolkit_tpu_torch.optimizers.kernel_families import residual
 
         model, _ = residual.residual_model(self)
+        post = self._post_terminal_fn()
+        cols = residual_cost_rollout_cols if post is None else residual_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
-            lambda s0, Q, pvec_b, dyn: residual_cost_rollout_cols(model, s0, Q, pvec_b,
-                                                                  dyn["res"]),
-            per_slot_dyn=per_slot_dyn, dyn_leaves_fn=lambda dyn: dyn["base"])
+            lambda s0, Q, pvec_b, dyn: cols(model, s0, Q, pvec_b, dyn["res"]),
+            per_slot_dyn=per_slot_dyn, dyn_leaves_fn=lambda dyn: dyn["base"], post=post)
 
     def _make_batched_gp_step(self, num_slots: int):
         """B-session MPPI step over a sparse GP (JAX ``mppi.py:625``): one
         launch of K14's session-row form
-        (``ops/gp_rollout.py:gp_cost_rollout_cols``), the GP's operands
-        shared and flattened once a posterior (a re-fit swaps in without a
-        rebuild)."""
-        from control_toolkit_tpu_torch.ops.gp_rollout import gp_cost_rollout_cols
+        (``ops/gp_rollout.py:gp_cost_rollout_cols``; with a learned value
+        terminal its emit_terminal form), the GP's operands shared and
+        flattened once a posterior (a re-fit swaps in without a rebuild)."""
+        from control_toolkit_tpu_torch.ops.gp_rollout import (
+            gp_cost_rollout_cols, gp_cost_rollout_cols_emit,
+        )
         from control_toolkit_tpu_torch.optimizers.kernel_families import gp
 
         model, _ = gp.gp_model(self)
         operands = gp.cached_operands()
+        post = self._post_terminal_fn()
+        cols = gp_cost_rollout_cols if post is None else gp_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
-            lambda s0, Q, pvec_b, dyn: gp_cost_rollout_cols(model, s0, Q, pvec_b,
-                                                            operands(dyn["gp"])))
+            lambda s0, Q, pvec_b, dyn: cols(model, s0, Q, pvec_b, operands(dyn["gp"])),
+            post=post)
 
     def _make_batched_recurrent_step(self, num_slots: int):
         """B-session MPPI step over a stacked GRU/LSTM (JAX ``mppi.py:749``):
@@ -451,7 +467,11 @@ class MPPIOptimizer(Optimizer):
         dyn, cost, attrs, mask, hidden)`` and ``update_from_eps(states, s,
         dyn, cost, attrs, hidden, delta_b)``, ``hidden`` the per-slot tuple
         of ``[B, 1, Hi]`` leaves (JAX's layout).  The hidden's advance with
-        the applied control is the caller's (the batched-mpc controller)."""
+        the applied control is the caller's (the batched-mpc controller).
+        A learned value terminal is refused: the JAX package sends a valued
+        recurrent fleet to the vmapped per-slot step (its recurrent
+        session-row kernel emits no terminal states), which the port does
+        not have."""
         from control_toolkit_tpu_torch.ops.neural_rollout import recurrent_cost_rollout_cols
         from control_toolkit_tpu_torch.optimizers.kernel_families import neural
 
@@ -459,6 +479,8 @@ class MPPIOptimizer(Optimizer):
         if model.kind == "mlp":
             raise ValueError("the batched recurrent step covers GRU and LSTM models; an MLP "
                              "takes _make_batched_neural_step")
+        if self._post_terminal_fn() is not None:
+            raise _not_ported(RECURRENT_VALUE_FLEET)
         step, update = self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
             lambda s0, Q, pvec_b, dyn, hidden: recurrent_cost_rollout_cols(
@@ -467,7 +489,7 @@ class MPPIOptimizer(Optimizer):
                       update(states, s, dyn, cost, attrs, delta_b, hidden))
 
     def _batched_columns_step_from_kernel(self, num_slots: int, param_keys, costs_fn,
-                                          per_slot_dyn=(), dyn_leaves_fn=None):
+                                          per_slot_dyn=(), dyn_leaves_fn=None, post=None):
         """The shared tail of the learned models' batched MPPI steps (JAX
         ``mppi.py:670``): each session's noise at the inducing points is
         interpolated and clipped into its controls, all B sessions'
@@ -478,7 +500,11 @@ class MPPIOptimizer(Optimizer):
         session's attributes, previous control and ``per_slot_dyn``
         constants (``make_slot_packer`` over ``param_keys``, the dynamics
         constants read from ``dyn_leaves_fn(dyn)``).  The controls ``Q`` go
-        to one buffer allocated here, once a build.
+        to one buffer allocated here, once a build.  ``post``: a learned
+        value terminal; ``costs_fn`` is then a session-row emit_terminal
+        form returning ``(costs [B, K], x_H [B, K, S])``, and each session's
+        V(x_H)/(H+1) joins its costs before the correction cost and the
+        softmax (JAX ``mppi.py:670-720``), the order of K4's emit path.
 
         Returns ``(step, update_from_eps)``: ``step(states, s [B,1,S], dyn,
         cost, attrs, mask [B][, hidden]) -> (u [B,U], states', costs
@@ -492,9 +518,9 @@ class MPPIOptimizer(Optimizer):
         from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
-        if cf.post_terminal_cost is not None:
-            raise _not_ported("the emit_terminal forms of K11-K14 (a learned value terminal in "
-                              "batched MPPI)")
+        if (post is None) != (cf.post_terminal_cost is None):
+            raise ValueError("a learned value terminal needs its kernel's emit_terminal form "
+                             "(post), and only with one")
         B, K = int(num_slots), self.num_rollouts
         H, U = self.mpc_horizon, self.num_control_inputs
         P = self.interp.number_of_interpolation_inducing_points
@@ -505,6 +531,7 @@ class MPPIOptimizer(Optimizer):
         interp, low, high = self.interp, self.action_low, self.action_high
         weight_fn = make_weight_fn(self.weighting, self.LBD)
         correction_cost = make_correction_cost(self.cc_weight, self.R, self.NU)
+        inv_h1 = 1.0 / (H + 1)
         Q = torch.empty(B, K, H, U, dtype=torch.float32, device=self.device)
 
         def update_from_eps(states, s, dyn, cost, attrs, delta_b, *hidden):
@@ -514,6 +541,10 @@ class MPPIOptimizer(Optimizer):
             pvec_b = pack(states.u_prev, dyn_leaves_fn(dyn), cost, attrs)
             s0 = s[:, 0, :].repeat_interleave(K, dim=0)                     # [B*K, S]
             costs = costs_fn(s0, u_run.reshape(B * K, H, U), pvec_b, dyn, *hidden)
+            if post is not None:
+                costs, x_term = costs
+                v = post(x_term.reshape(B * K, -1), {"cost": cost, "attrs": attrs}) * inv_h1
+                costs = costs + v.reshape(B, K)
             costs = costs + correction_cost(u_run.reshape(B * K, H, U),
                                             delta.reshape(B * K, H, U)).reshape(B, K)
             w = weight_fn(costs, (1,))

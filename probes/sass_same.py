@@ -1,0 +1,63 @@
+"""Whether two checkouts' kernel libraries hold the same machine code for
+the entry functions whose mangled names match the given patterns:
+
+    python probes/sass_same.py <checkout A> <checkout B> <pattern> [pattern ...]
+
+Each checkout's library is the one its kernels last built
+(``control_toolkit_tpu_torch/_build/*.so``, e.g. by
+``probes/value_times.py``); run it where ``cuobjdump`` is (the CUDA
+toolkit).  An entry's SASS is compared instruction by instruction, the
+addresses and encodings left out.  Prints one line, ``sass_same: {...}``:
+for each matching entry, whether both libraries hold it, whether its
+instructions are the same, and their count in each.
+"""
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+
+def library(root: Path) -> Path:
+    libs = sorted((root / "control_toolkit_tpu_torch" / "_build").glob("*.so"),
+                  key=lambda p: p.stat().st_mtime)
+    if not libs:
+        raise SystemExit(f"no built kernel library under {root}")
+    return libs[-1]
+
+
+def functions(lib: Path) -> dict:
+    """Entry name -> its SASS instructions (text only)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            out[name] = []
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and op:
+            out[name].append(op.group(1))
+    return out
+
+
+def main() -> None:
+    a, b = (functions(library(Path(p).resolve())) for p in sys.argv[1:3])
+    patterns = sys.argv[3:]
+    found = {}
+    for name in sorted(set(a) | set(b)):
+        if any(re.search(p, name) for p in patterns):
+            found[name] = {"in_both": name in a and name in b,
+                           "same": a.get(name) == b.get(name),
+                           "instructions": [len(a.get(name, [])), len(b.get(name, []))]}
+    print("sass_same:", json.dumps(found), flush=True)
+
+
+if __name__ == "__main__":
+    main()

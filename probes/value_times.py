@@ -1,18 +1,21 @@
-"""K1, K2, K4 and K7 timed through their public wrappers, and, where the
-checkout has them, their value forms (K1's, K2's and K4's emit_terminal
-forms, K7's value_spec form over chip_smoke.py's seeded V), in the
-checkout given as the argument:
+"""K1, K2, K4 and K7, and K11, K11's member-block form, K12, K13 (GRU and
+LSTM) and K14 with the session-row forms of K11, K12 and K14, timed
+through their public wrappers, and, where the checkout has them, their
+value forms (the emit_terminal forms, K7's value_spec form over
+chip_smoke.py's seeded V), in the checkout given as the argument:
 
     python probes/value_times.py <checkout root>
 
 One process a checkout, so that two commits can be timed in one call on
 one card, in turns (parent, change, change, parent).  It builds that
 checkout's kernels from its sources (so that ptxas reports each kernel's
-registers), takes its chip_smoke.py's operands (K1, K2, K7: the main
-path's, K=16384, H=50; K4: the fleet's, B=32 and 128 sessions of K=512,
-H=35) and prints one line, ``value_times: {...}``, of CUDA-event
-milliseconds (chip_smoke.py's ``cuda_ms``), registers, the card and the
-built library.
+registers), takes its chip_smoke.py's operands (K1, K2, K7 and the
+learned kernels: the main path's, K=16384, H=50, over the committed nets,
+the seeded residual, the well-conditioned GP and the GRU's and LSTM's
+zero hidden; K4 and the session-row forms: the fleet's, B=32 and 128
+sessions of K=512, H=35) and prints one line, ``value_times: {...}``, of
+CUDA-event milliseconds (chip_smoke.py's ``cuda_ms``), registers, the card
+and the built library.
 """
 from __future__ import annotations
 
@@ -28,11 +31,16 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from control_toolkit_tpu_torch.ops import cost_rollout as k1  # noqa: E402
+from control_toolkit_tpu_torch.ops import gp_rollout as k14  # noqa: E402
 from control_toolkit_tpu_torch.ops import grad_cost_rollout as k7  # noqa: E402
 from control_toolkit_tpu_torch.ops import kernels  # noqa: E402
 from control_toolkit_tpu_torch.ops import mppi_cost as k2  # noqa: E402
 from control_toolkit_tpu_torch.ops import mppi_cost_cols as k4  # noqa: E402
-from control_toolkit_tpu_torch.optimizers.kernel_families import ode  # noqa: E402
+from control_toolkit_tpu_torch.ops import neural_rollout as k11  # noqa: E402
+from control_toolkit_tpu_torch.ops import residual_rollout as k12  # noqa: E402
+from control_toolkit_tpu_torch.optimizers.kernel_families import (  # noqa: E402
+    ensemble, gp, neural, ode, residual,
+)
 
 REGISTERS = {"k1": ("cost_rollout_kernel", "Lb0E"), "k2": ("mppi_cost_kernel", ""),
              "k4": ("mppi_cost_cols_kernel", ""),
@@ -42,7 +50,59 @@ REGISTERS = {"k1": ("cost_rollout_kernel", "Lb0E"), "k2": ("mppi_cost_kernel", "
              "k2_emit": ("mppi_cost_emit_kernel", ""),
              "k4_emit": ("mppi_cost_cols_emit_kernel", ""),
              "k7_value_forward": ("grad_cost_forward_value_kernel", ""),
-             "k7_value_adjoint": ("grad_cost_adjoint_value_kernel", "")}
+             "k7_value_adjoint": ("grad_cost_adjoint_value_kernel", ""),
+             **{f"{label}{tail}": (f"{name}{tail}_kernel", instance)
+                for label, (name, instance) in {
+                    "k11": ("neural_cost_rollout", ""), "k11_ens": ("neural_cost_rollout_ens", ""),
+                    "k12": ("residual_cost_rollout", ""),
+                    "k13_gru": ("recurrent_cost_rollout", "Li3E"),
+                    "k13_lstm": ("recurrent_cost_rollout", "Li4E"),
+                    "k14": ("gp_cost_rollout", "Li4E")}.items()
+                for tail in ("", "_emit")}}
+
+
+def learned_runs(dev, gen, s0, Q) -> dict:
+    """The learned cost kernels and, where the checkout has them, their
+    emit_terminal forms, each a thunk over chip_smoke.py's operands."""
+    runs = {}
+
+    def add(label, module, name, args):
+        runs[label] = lambda: getattr(module, name)(*args)
+        if hasattr(module, f"{name}_emit"):
+            runs[f"{label}_emit"] = lambda: getattr(module, f"{name}_emit")(*args)
+
+    pvec_of = (lambda ctrl, pack:
+               pack(ctrl._assemble_params(), torch.tensor([0.1], device=dev)))
+    mlp = cs.make_controller("cuda", spec=cs.MLP_SPEC)
+    model, pack = neural.net_model(mlp.optimizer)
+    add("k11", k11, "neural_cost_rollout",
+        (model, s0, Q, pvec_of(mlp, pack), mlp._assemble_params()["dyn"]["net"]))
+    ens = cs.make_controller("cuda", "mppi", cs.RES_MPPI_CONFIG, spec=cs.ENS_SPEC)
+    model, pack = ensemble.net_model(ens.optimizer)
+    add("k11_ens", k11, "neural_cost_rollout_ens",
+        (model, s0, Q, pvec_of(ens, pack), ens._assemble_params()["dyn"]["net"]))
+    res = cs.residual_controller("rpgd-tf", cs.RES_RPGD_CONFIG)
+    model, pack = residual.residual_model(res.optimizer)
+    add("k12", k12, "residual_cost_rollout",
+        (model, s0, Q, pvec_of(res, pack), res._assemble_params()["dyn"]["res"]))
+    for label, spec in (("k13_gru", cs.GRU_SPEC), ("k13_lstm", cs.LSTM_SPEC)):
+        rnn = cs.make_controller("cuda", spec=spec)
+        model, pack = neural.net_model(rnn.optimizer)
+        dyn = rnn._assemble_params()["dyn"]
+        add(label, k11, "recurrent_cost_rollout",
+            (model, s0, Q, pvec_of(rnn, pack), dyn["net"], dyn["hidden"]))
+    gpc = cs.make_controller("cuda", "rpgd-tf", cs.RES_RPGD_CONFIG, spec=cs.GP_SPEC)
+    model, pack = gp.gp_model(gpc.optimizer)
+    ops = k14.flatten_gp_weights(cs.well_conditioned_gp(gpc._assemble_params()["dyn"]["gp"]))
+    add("k14", k14, "gp_cost_rollout", (model, s0, Q, pvec_of(gpc, pack), ops))
+    cols = {"mlp": (k11, "neural_cost_rollout_cols"),
+            "residual": (k12, "residual_cost_rollout_cols"), "gp": (k14, "gp_cost_rollout_cols")}
+    for kind, (module, name) in cols.items():
+        args = cs.cols_operands(kind, cs.learned_fleet("cuda", kind, cs.FLEET_B), cs.FLEET_B_MAX,
+                                gen)
+        for b in (cs.FLEET_B, cs.FLEET_B_MAX):
+            add(f"{kind}_cols_b{b}", module, name, cs.session_slice(args, b))
+    return runs
 
 
 def main() -> None:
@@ -92,6 +152,7 @@ def main() -> None:
         runs[f"k4_b{b}"] = lambda a4=a4: k4.mppi_cost_cols(*a4)
         if hasattr(k4, "mppi_cost_cols_emit"):
             runs[f"k4_emit_b{b}"] = lambda a4=a4: k4.mppi_cost_cols_emit(*a4)
+    runs.update(learned_runs(dev, gen, s0, Q))
     out["ms"] = {name: cs.cuda_ms(fn, 50) for name, fn in runs.items()}
     print("value_times:", json.dumps(out), flush=True)
 

@@ -393,10 +393,11 @@ def test_gates_choose_each_models_step(specs, case):
                                   "bounded_update", "per_slot_dyn_mlp", "per_slot_dyn_gru",
                                   "per_slot_dyn_gp"])
 def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
-    """A learned value terminal (the emit_terminal forms) and the vmapped
+    """A learned value terminal over a recurrent net and the vmapped
     per-slot step (force_scan, a variant's update, an RPGD fleet over a
     recurrent net, a gradient fleet with warmup; the gradient fleets are
-    otherwise served, tests/test_torch_fleet_grad.py) raise
+    otherwise served, tests/test_torch_fleet_grad.py, and so are the valued
+    MLP, "ODE+res" and GP fleets, tests/test_torch_value_learned.py) raise
     NotImplementedError naming the piece; ``per_slot_dyn`` over a net or a
     GP, which have no scalar dynamics constants, is a ValueError as in the
     JAX package."""
@@ -405,13 +406,13 @@ def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
             fleet(specs[kind.rsplit("_", 1)[1]], 2, ("L",))
         return
     if kind == "value_terminal":
-        ctrl = fleet_of(specs, "mlp", 2)
+        ctrl = fleet_of(specs, "gru", 2)
         cf = ctrl.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
         assert not any(getattr(ctrl, gate)() for gate in set(GATES.values()))
         assert "value terminal" in str(ctrl._refusal())
-        with pytest.raises(NotImplementedError, match="emit_terminal"):
-            ctrl.optimizer._make_batched_neural_step(2)
+        with pytest.raises(NotImplementedError, match="vmapped per-slot"):
+            ctrl.optimizer._make_batched_recurrent_step(2)
         return
     build, match = {
         "rpgd-tf": (lambda: fleet(specs["gru"], 2, optimizer="rpgd-tf"), "rpgd-tf"),

@@ -778,24 +778,29 @@ def test_xterm_from_tiles_follows_the_session_columns():
 
 # ---- the gates and the refusals ------------------------------------------------------
 LEARNED = {
-    "mlp": ("neural:mlp-16", "K11's emit_terminal form", "K8's value_spec form"),
-    "gru": ("neural:GRU-5IN-8H1-4OUT", "K13's emit_terminal form", None),
-    "gp": (f"SGP_128:{ASSETS}/SGP_128.npz", "K14's emit_terminal form", "K10's value_spec form"),
-    "residual": ("ODE+res", "K12's emit_terminal form", "K9's value_spec form"),
-    "ensemble": (f"ensemble:mlp-32-32:4:{ASSETS}", "emit_terminal form of K11's member-block",
+    "mlp": ("neural:mlp-16", "neural", "K8's value_spec form"),
+    "gru": ("neural:GRU-5IN-8H1-4OUT", "neural", None),
+    "gp": (f"SGP_128:{ASSETS}/SGP_128.npz", "gp", "K10's value_spec form"),
+    "residual": ("ODE+res", "residual", "K9's value_spec form"),
+    "ensemble": (f"ensemble:mlp-32-32:4:{ASSETS}", "ensemble",
                  "value_spec form of K8's member-block"),
 }
 
 
 @pytest.mark.parametrize("kind", list(LEARNED))
 def test_a_valued_learned_model_raises_naming_the_form(kind):
-    """A learned family's gate admits the model but the cost has a post
-    hook: attaching V raises NotImplementedError naming that family's value
-    form (for MPPI its cost kernel's, for rpgd-tf its gradient kernel's),
-    never the torch loop in the kernel's place."""
-    spec, cost_form, grad_form = LEARNED[kind]
+    """A learned model under a cost with a post hook: MPPI builds its
+    family's emit_terminal form (tests/test_torch_value_learned.py holds it
+    to the JAX kernel), whose valued cost equals the trajectory path's with
+    V in its terminal cost; rpgd-tf's gradient gate raises
+    NotImplementedError naming the family's value_spec form (not ported),
+    never the torch loop in the kernel's place, except over a recurrent
+    net, whose gradient takes autograd as the JAX package's takes XLA-AD."""
+    from control_toolkit_tpu_torch.optimizers import kernel_families
+
+    spec, family, grad_form = LEARNED[kind]
     net = port_net(jax_value_net(3))
-    for optimizer, form in (("mppi", cost_form), ("rpgd-tf", grad_form)):
+    for optimizer, form in (("mppi", None), ("rpgd-tf", grad_form)):
         ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
                              config={"device": "cpu", "optimizer": optimizer,
                                      "controller_logging": False})
@@ -803,11 +808,26 @@ def test_a_valued_learned_model_raises_naming_the_form(kind):
                "period_interpolation_inducing_points": 4}
         ctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                        optimizer_config=cfg)
-        if form is None:  # a recurrent net's gradient takes autograd, V in it
-            attach_value_terminal(ctrl, net)
+        if form is not None:
+            with pytest.raises(NotImplementedError, match=form):
+                attach_value_terminal(ctrl, net)
             continue
-        with pytest.raises(NotImplementedError, match=form):
-            attach_value_terminal(ctrl, net)
+        attach_value_terminal(ctrl, net)
+        if optimizer == "rpgd-tf":  # a recurrent net's gradient takes autograd, V in it
+            continue
+        popt = ctrl.optimizer
+        assert getattr(kernel_families, family).can_use_cost(popt)
+        params = ctrl._assemble_params()
+        rng = np.random.default_rng(6)
+        s_tiled = torch.tensor(rng.uniform(-0.2, 0.2, (1, 4)), dtype=torch.float32).expand(32, 4)
+        Q = torch.tensor(rng.uniform(-1, 1, (32, 8, 1)), dtype=torch.float32)
+        u_prev = torch.tensor([0.1])
+        got = popt._make_cost_only()(s_tiled, Q, u_prev, params)
+        ref = popt._rollout_and_cost(s_tiled, Q, u_prev, params)[0]
+        # The committed GP's mean cancels in float32: the GP kernel tests'
+        # own bound (tests/test_torch_gp.py COST_TOL).
+        tol = dict(rtol=1e-3, atol=1e-5) if kind == "gp" else COST_TOL
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **tol)
 
 
 FLEET_CONFIGS = {
@@ -836,15 +856,18 @@ def fleet(optimizer="mppi", spec="ODE"):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("cem_fused", "CEM fleet"), ("mlp", "emit_terminal"),
+    ("cem_fused", "CEM fleet"), ("gru", "vmapped per-slot"),
     ("rpgd", "value_spec"), ("gradient", "value_spec")])
 def test_valued_fleets_without_their_form_are_refused(kind, match):
-    """A valued fully-fused CEM fleet (the JAX package's vmapped per-slot
-    step), a valued MPPI fleet over a learned model (its emit_terminal
-    form) and a valued gradient fleet (its value_spec form) raise
-    NotImplementedError naming the piece; the MPPI fleet over the ODE is
-    served (test_attach_value_terminal_batched_controller)."""
-    builds = {"cem_fused": lambda: fleet("cem-tf"), "mlp": lambda: fleet(spec="neural:mlp-16"),
+    """A valued fully-fused CEM fleet and a valued MPPI fleet over a
+    recurrent net (the JAX package's vmapped per-slot step, as
+    batched_mpc.py:500-504 sends it) and a valued gradient fleet (its
+    value_spec form) raise NotImplementedError naming the piece; the MPPI
+    fleets over the ODE (test_attach_value_terminal_batched_controller),
+    the MLP, "ODE+res" and the GP (tests/test_torch_value_learned.py) are
+    served."""
+    builds = {"cem_fused": lambda: fleet("cem-tf"),
+              "gru": lambda: fleet(spec="neural:GRU-5IN-8H1-4OUT"),
               "rpgd": lambda: fleet("rpgd-tf"), "gradient": lambda: fleet("gradient-tf")}
     ctrl = builds[kind]()
     with pytest.raises(NotImplementedError, match=match):
