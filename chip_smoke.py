@@ -323,6 +323,36 @@ emit_terminal forms of K11 (and its member-block form), K12, K13 and K14:
     (MLP, "ODE+res", GP; one session-row emit launch a tick) and one update
     of each against the CPU's, the valued MLP fleet timed.
 
+The learned value terminal in the gradient kernels over the learned
+dynamics and in the gradient fleets, on the value_spec forms of K8 (and
+its member-block form), K9 and K10, their session-row forms, K7's
+session-row value_spec form and K1's session-row emit_terminal form:
+63. each single-session value form (neural_grad_cost_rollout_value,
+    neural_grad_cost_rollout_ens_value, residual_grad_cost_rollout_value,
+    gp_grad_cost_rollout_value) against its plain version at its kernel's
+    phase operands (12, 50, 19, 21: K=16384, H=50) over a seeded 4-32-32-1
+    V at scale 100: J to its kernel's bound, dQ to K7's, which must reject
+    dV/dx_H dropped, the scale left out and no 1/(H+1); also at ragged K
+    and (K8, K9) over phase 12's and 19's wide nets; a V whose last layer
+    is zero gives the kernel's outputs bit for bit; over the committed V,
+    held to the float64 plain version (``f64_held``); timed beside the
+    kernel, with registers, spills, shared memory and blocks per SM;
+64. the session-row value forms of K7, K8, K9 and K10 over the committed V
+    and K1's session-row emit form at phase 45's operands (32 sessions of
+    100): each session equal, bit for bit, to the single-session value
+    (emit) form over its rows, the next session's row rejected (K1: also
+    x_{H-1} and the next rollout's x_H), timed at 128×32 and 32×512
+    beside phase 45's forms;
+65. from LEARNED_START over the committed value net, 100 rpgd-tf ticks
+    each over mlp-64-64, "ODE+res", SGP_128 and the ensemble (two value
+    launches and one emit launch a tick) and 50 gradient-tf ticks over the
+    MLP (five and one), the pole recorded, not required; 50 ticks of each
+    valued 32-session gradient fleet (rpgd-tf over the ODE, the MLP,
+    "ODE+res" and the GP, gradient-tf over the ODE: the session-row value
+    form an Adam iteration, the session-row emit form a tick);
+66. one valued update of each on the card against the same update on the
+    CPU (the GP's with the well-conditioned GP swapped in).
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -336,7 +366,8 @@ seeds (``start_sweep``);
 ``--profile`` a ``torch.profiler`` trace of 20 ticks (after 30 warm-up
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
 icem; MPPI and rpgd-tf over the ensemble; the valued MPPI (H=50, H=10) and
-rpgd-tf; the valued MPPI over the MLP; the fleet paths at both sizes of
+rpgd-tf; the valued MPPI over the MLP; the valued rpgd-tf over each
+learned model and gradient-tf over the MLP; the fleet paths at both sizes of
 phases 40, 44 and 48 and the valued MLP fleet), printing
 per tick the
 device busy time, the number of device operations and the costliest
@@ -381,10 +412,12 @@ from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state,
 from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
 from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.common import elite_indices
+from control_toolkit_tpu_torch.ops.common import (
+    AdamState, adam_update, clip_by_norm, elite_indices,
+)
 from control_toolkit_tpu_torch.ops.cost_rollout import (
-    cost_rollout, cost_rollout_cols, cost_rollout_cols_plain, cost_rollout_emit,
-    cost_rollout_emit_plain, cost_rollout_plain,
+    cost_rollout, cost_rollout_cols, cost_rollout_cols_emit, cost_rollout_cols_emit_plain,
+    cost_rollout_cols_plain, cost_rollout_emit, cost_rollout_emit_plain, cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.counter_prng import (
     DEFAULT_TILE_K, ROWS, normals_from_counter, rollout_coords, seed_base,
@@ -401,7 +434,8 @@ from control_toolkit_tpu_torch.ops.fused_mppi import (
 )
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
     gp_grad_cost_rollout, gp_grad_cost_rollout_cols, gp_grad_cost_rollout_cols_plain,
-    gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
+    gp_grad_cost_rollout_cols_value, gp_grad_cost_rollout_lanes, gp_grad_cost_rollout_plain,
+    gp_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_emit,
@@ -410,7 +444,7 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
-    grad_cost_rollout_plain, grad_cost_rollout_value, launch_part,
+    grad_cost_rollout_cols_value, grad_cost_rollout_plain, grad_cost_rollout_value, launch_part,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import (
@@ -423,8 +457,10 @@ from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
 )
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
     neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
-    neural_grad_cost_rollout_ens, neural_grad_cost_rollout_ens_plain,
-    neural_grad_cost_rollout_plain,
+    neural_grad_cost_rollout_cols_value, neural_grad_cost_rollout_ens,
+    neural_grad_cost_rollout_ens_plain, neural_grad_cost_rollout_ens_value,
+    neural_grad_cost_rollout_ens_value_plain, neural_grad_cost_rollout_plain,
+    neural_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     mlp_layer_count, mlp_step, neural_cost_rollout, neural_cost_rollout_cols,
@@ -438,7 +474,8 @@ from control_toolkit_tpu_torch.ops.neural_rollout import (
 )
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
-    residual_grad_cost_rollout_cols_plain, residual_grad_cost_rollout_plain,
+    residual_grad_cost_rollout_cols_plain, residual_grad_cost_rollout_cols_value,
+    residual_grad_cost_rollout_plain, residual_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_emit,
@@ -451,7 +488,9 @@ from control_toolkit_tpu_torch.optimizers.cem import refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import (
     ensemble, gp, neural, ode, residual,
 )
-from control_toolkit_tpu_torch.utils.convert import mppi_state_from_numpy, rpgd_state_from_numpy
+from control_toolkit_tpu_torch.utils.convert import (
+    gradient_state_from_numpy, mppi_state_from_numpy, rpgd_state_from_numpy,
+)
 from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 K, H, PERIOD, SEED, DT = 16384, 50, 10, 0, 0.02
@@ -524,7 +563,16 @@ COUNTED = {"cost_rollout": cost_rollout, "mppi_cost": mppi_cost,
            "gp_cost_rollout_emit": gp_cost_rollout_emit,
            "neural_cost_rollout_cols_emit": neural_cost_rollout_cols_emit,
            "residual_cost_rollout_cols_emit": residual_cost_rollout_cols_emit,
-           "gp_cost_rollout_cols_emit": gp_cost_rollout_cols_emit}
+           "gp_cost_rollout_cols_emit": gp_cost_rollout_cols_emit,
+           "neural_grad_cost_rollout_value": neural_grad_cost_rollout_value,
+           "neural_grad_cost_rollout_ens_value": neural_grad_cost_rollout_ens_value,
+           "residual_grad_cost_rollout_value": residual_grad_cost_rollout_value,
+           "gp_grad_cost_rollout_value": gp_grad_cost_rollout_value,
+           "grad_cost_rollout_cols_value": grad_cost_rollout_cols_value,
+           "neural_grad_cost_rollout_cols_value": neural_grad_cost_rollout_cols_value,
+           "residual_grad_cost_rollout_cols_value": residual_grad_cost_rollout_cols_value,
+           "gp_grad_cost_rollout_cols_value": gp_grad_cost_rollout_cols_value,
+           "cost_rollout_cols_emit": cost_rollout_cols_emit}
 # The learned-dynamics paths over the committed nets.
 ASSETS = kernels.PACKAGE_DIR / "assets" / "cartpole"
 MLP_SPEC = f"neural:mlp-64-64:{ASSETS}"
@@ -765,6 +813,16 @@ X_TOL = dict(rtol=1e-4, atol=1e-4)
 # committed value net, the valued fleets (MLP, "ODE+res", GP at FLEET_B)
 # VALUE_LEARNED_FLEET_TICKS.
 VALUE_LEARNED_TICKS, VALUE_LEARNED_FLEET_TICKS = 100, 50
+# The learned value terminal in the gradient kernels: the value_spec forms
+# of K8 (and its member-block form), K9 and K10 at their phase operands
+# (12, 50, 19, 21) and their session-row forms, with K7's and K1's emit
+# form, at phase 45's; rpgd-tf over each learned model VALUE_GRAD_TICKS
+# from LEARNED_START (gradient-tf over the MLP VALUE_GRADIENT_TICKS), the
+# valued gradient fleets at FLEET_B sessions VALUE_GRAD_FLEET_TICKS.  Over
+# the committed V (slope up to ~1e5 a unit of state) a form is held, as
+# the committed GP is (gp_vs_float64), to its float64 plain version:
+# no further from it than GP_F64_FACTOR times the float32 plain version.
+VALUE_GRAD_TICKS, VALUE_GRADIENT_TICKS, VALUE_GRAD_FLEET_TICKS = 100, 50, 50
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -3425,10 +3483,16 @@ def grad_cols_errors(form: str, got, ref) -> dict:
 
 def grad_cols_single(form: str, args: tuple, b: int):
     """Session b's outputs from its single-session kernel over its rows."""
+    return GRAD_COLS[form][2](*session_slice_grad(args, b))
+
+
+def session_slice_grad(args: tuple, b: int) -> tuple:
+    """Session b's single-session operands of a session-row form's ``args``
+    ``(model, s0, Q, pvec_b, *weights)``."""
     model, s0, Q, pvec_b, *weights = args
     ks = s0.shape[0] // pvec_b.shape[0]
     rows = slice(b * ks, (b + 1) * ks)
-    return GRAD_COLS[form][2](model, s0[rows], Q[rows], pvec_b[b].contiguous(), *weights)
+    return (model, s0[rows], Q[rows], pvec_b[b].contiguous(), *weights)
 
 
 def grad_cols_bounds(form: str, args: tuple) -> dict:
@@ -3561,7 +3625,7 @@ def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen) -> Non
     gcall, _, pack = cpu.optimizer._bind_batched_grad_kernels(B, per_slot_dyn=psd)
     g_c = gcall(s.cpu()[:, 0].repeat_interleave(K, dim=0), st.Q.cpu().reshape(B * K, Hf, 1),
                 pack(st.u_prev.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs)),
-                to_cpu(dyn))[1].reshape(B * K, -1)
+                to_cpu(dyn), to_cpu(cost))[1].reshape(B * K, -1)
     noise = DQ_ATOL_FRAC * float(g_c.abs().max())
     v0 = st.adam.v.cpu().reshape(B * K, -1)
     undetermined = ((g_c.abs() <= noise) & (v0.sqrt() <= noise)).any(1)
@@ -4090,6 +4154,425 @@ def compare_cols_emit(kind: str, ctrl: BatchedMPCController, gen) -> dict:
           and not torch.allclose(wrong_x, ref_x, **X_TOL),
           f"{label}: a bound does not reject a mutant {numbers}")
     return numbers
+
+
+# ---- the value terminal in the gradient kernels over the learned dynamics ------------
+# Phase 63's single-session value forms by label: (form, plain version,
+# the kernel, its entry (the form's is <entry>_value_kernel), cost bound).
+VALUE_GRAD = {
+    "k8": (neural_grad_cost_rollout_value, neural_grad_cost_rollout_plain,
+           neural_grad_cost_rollout, "neural_grad_cost_rollout", NET_TOL),
+    "k8_ens": (neural_grad_cost_rollout_ens_value, neural_grad_cost_rollout_ens_value_plain,
+               neural_grad_cost_rollout_ens, "neural_grad_cost_rollout_ens", NET_TOL),
+    "k9": (residual_grad_cost_rollout_value, residual_grad_cost_rollout_plain,
+           residual_grad_cost_rollout, "residual_grad_cost_rollout", NET_TOL),
+    "k10": (gp_grad_cost_rollout_value, gp_grad_cost_rollout_plain, gp_grad_cost_rollout,
+            "gp_grad_cost_rollout", KERNEL_TOL)}
+# Phase 64's session-row forms: (form, plain version, the single-session
+# value (emit) form each session is held to, phase 45's unvalued form).
+VALUE_COLS = {
+    "k7": (grad_cost_rollout_cols_value, grad_cost_rollout_cols_plain, grad_cost_rollout_value),
+    "k8": (neural_grad_cost_rollout_cols_value, neural_grad_cost_rollout_cols_plain,
+           neural_grad_cost_rollout_value),
+    "k9": (residual_grad_cost_rollout_cols_value, residual_grad_cost_rollout_cols_plain,
+           residual_grad_cost_rollout_value),
+    "k10": (gp_grad_cost_rollout_cols_value, gp_grad_cost_rollout_cols_plain,
+            gp_grad_cost_rollout_value),
+    "k1": (cost_rollout_cols_emit, cost_rollout_cols_emit_plain, cost_rollout_emit)}
+# The valued gradient fleets (phase 65) by GRAD_FLEETS label: the gradient
+# form's and the cost form's launch counters.
+VALUE_FLEETS = {
+    "rpgd_ode": ("grad_cost_rollout_cols_value", "cost_rollout_cols_emit"),
+    "gradient_ode": ("grad_cost_rollout_cols_value", "cost_rollout_cols_emit"),
+    "rpgd_mlp": ("neural_grad_cost_rollout_cols_value", "neural_cost_rollout_cols_emit"),
+    "rpgd_residual": ("residual_grad_cost_rollout_cols_value", "residual_cost_rollout_cols_emit"),
+    "rpgd_gp": ("gp_grad_cost_rollout_cols_value", "gp_cost_rollout_cols_emit")}
+
+
+def value_ops_of(net: dict) -> list:
+    """A value net's ``[w0, b0, ...]`` at scale 1 (the committed V's)."""
+    n = sum(1 for k in net if k.startswith("w"))
+    return [net[f"{c}{i}"].float().contiguous() for i in range(n) for c in "wb"]
+
+
+def as64(args: tuple) -> tuple:
+    """Operands in float64 (tensors, dicts and lists of them)."""
+    def f(a):
+        if isinstance(a, torch.Tensor):
+            return a.double()
+        if isinstance(a, dict):
+            return {k: f(v) for k, v in a.items()}
+        if isinstance(a, list):
+            return [f(v) for v in a]
+        return a
+    return tuple(f(a) for a in args)
+
+
+def f64_err(got, ref64) -> float:
+    return float((got.double() - ref64).abs().max())
+
+
+def f64_held(got, plain, ref64, unvalued=None) -> dict:
+    """gp_vs_float64's criterion: ``got`` no further from ``ref64`` than
+    GP_F64_FACTOR times ``plain``'s distance from it, plus 1e-6 of its
+    largest entry.  ``unvalued``: the same kernel's, plain version's and
+    float64 plain version's outputs without V; where the kernel's own
+    arithmetic is further from float64 than the plain version's (K8's
+    3xTF32 products against cuBLAS's float32), that ratio scales the
+    plain version's distance, which V amplifies alike in both."""
+    n = {"f64_max_abs_err": f64_err(got, ref64), "plain_f64_max_abs_err": f64_err(plain, ref64),
+         "max_abs": float(ref64.abs().max()), "kernel_ratio": 1.0}
+    if unvalued is not None:
+        k0, p0 = (f64_err(t, unvalued[2]) for t in unvalued[:2])
+        n.update(unvalued_f64_max_abs_err={"kernel": k0, "plain": p0},
+                 kernel_ratio=max(1.0, k0 / max(p0, 1e-30)))
+    n["bound"] = GP_F64_FACTOR * n["plain_f64_max_abs_err"] * n["kernel_ratio"] \
+        + 1e-6 * n["max_abs"]
+    n["held"] = n["f64_max_abs_err"] <= n["bound"]
+    return n
+
+
+def value_grad_layout(label: str, args: tuple, ops: list) -> dict:
+    """The value form's dynamic shared memory and blocks an SM for the net
+    of ``args`` and the value net ``ops``."""
+    lib, nbytes_ = kernels.load(), ctypes.c_long(0)
+    vargs = kernels.value_args(ops, args[1].shape[1])
+    if label == "k10":
+        blocks = lib.ctt_gp_grad_value_layout(int(args[4]["Zs"].shape[0]), ctypes.byref(vargs),
+                                              ctypes.byref(nbytes_))
+    elif label == "k9":
+        blocks = lib.ctt_residual_grad_value_layout(ctypes.byref(args[0].net_args(args[4])[0]),
+                                                    ctypes.byref(vargs), ctypes.byref(nbytes_))
+    else:
+        ens = label == "k8_ens"
+        net_args = args[0].net_args(args[4], members=args[4]["w0"].shape[0] if ens else 0)[0]
+        blocks = lib.ctt_neural_grad_value_layout(ctypes.byref(net_args), ctypes.byref(vargs),
+                                                  int(ens), ctypes.byref(nbytes_))
+    return {"dynamic_smem_bytes": int(nbytes_.value), "blocks_per_sm": int(blocks)}
+
+
+def compare_value_learned(label: str, args: tuple, ragged: tuple, committed: list,
+                          ops: float, n_bytes: float, extra_nets=()) -> dict:
+    """Phase 63: ``label``'s value_spec form against its plain version at
+    ``args`` ``(model, s0, Qg, pvec, weights)``: over seededs_value's V
+    (scale VALUE_SCALE) J to the kernel's bound and dQ to K7's, a bound that
+    must reject, each by VALUE_MARGIN times its absolute part, dV/dx_H
+    dropped from the seed, the scale left out and V added without the
+    1/(H+1); the same at ``ragged`` and over each of ``extra_nets``' weights;
+    over a V whose last layer is zero, the kernel's outputs bit for bit;
+    over the committed V (``committed``), J and dQ held to the float64
+    plain version (f64_held); times beside the kernel's, the enqueue cost,
+    resources."""
+    form, plain, kernel, entry, tol = VALUE_GRAD[label]
+    dev, Hh = args[1].device, args[2].shape[1]
+    ops_v = seeded_value(dev)
+    zero = ops_v[:-2] + [torch.zeros_like(ops_v[-2]), torch.zeros_like(ops_v[-1])]
+    no_inv = ops_v[:-2] + [ops_v[-2] * (Hh + 1), ops_v[-1] * (Hh + 1)]
+    got, ref = form(*args, ops_v), plain(*args, ops_v)
+    plain0 = plain(*args, zero)  # the plain version without V
+    wrong = {"no_dV_in_seed": plain0[1],
+             "no_value_scale": plain(*args, seeded_value(dev, scale=1.0))[1],
+             "no_inv_h1": plain(*args, no_inv)[1]}
+    zero_got, base = form(*args, zero), kernel(*args)
+    got_c, plain_c = form(*args, committed), plain(*args, committed)
+    args64 = as64(args)
+    ref64, ref64_0 = plain(*args64, as64((committed,))[0]), plain(*args64, as64((zero,))[0])
+    cases = {f"K{ragged[1].shape[0]}": ragged}
+    cases.update({f"net{i}": (*args[:4], net) for i, net in enumerate(extra_nets)})
+    outs = {case: (form(*a, ops_v), plain(*a, ops_v)) for case, a in cases.items()}
+    torch.cuda.synchronize()
+    atol = DQ_ATOL_FRAC * float(ref[1].abs().max())
+    numbers = {"cost_max_abs_err": max_errors(got[0], ref[0])[0],
+               "cost_max_rel_err": max_errors(got[0], ref[0])[1],
+               "dQ_max_abs_err": max_errors(got[1], ref[1])[0],
+               "dQ_max_abs": float(ref[1].abs().max()), "dQ_atol": atol,
+               "mutant_dQ_max_abs_err": {k: max_errors(m, ref[1])[0] for k, m in wrong.items()},
+               "zero_V_equal_to_kernel": bool(torch.equal(zero_got[0], base[0])
+                                              and torch.equal(zero_got[1], base[1])),
+               "committed_V": {"cost": f64_held(got_c[0], plain_c[0], ref64[0],
+                                                (base[0], plain0[0], ref64_0[0])),
+                               "dQ": f64_held(got_c[1], plain_c[1], ref64[1],
+                                              (base[1], plain0[1], ref64_0[1])),
+                               "kernel_vs_plain_dQ_max_abs_err":
+                                   max_errors(got_c[1], plain_c[1])[0]},
+               "cases": {case: {"cost_max_abs_err": max_errors(g[0], r[0])[0],
+                                "dQ_max_abs_err": max_errors(g[1], r[1])[0],
+                                "dQ_max_abs": float(r[1].abs().max())}
+                         for case, (g, r) in outs.items()},
+               "finite": bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+                              and torch.isfinite(got_c[1]).all())}
+    numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["dQ_max_abs_err"])
+    host = {}
+    for name, fn in (("kernel", lambda: kernel(*args)), ("value", lambda: form(*args, committed))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host[name] = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+    instance = f"Li{kernels.gp_layout(int(args[4]['Zs'].shape[0]), grad=True)[0]}E" \
+        if label == "k10" else ""
+    numbers.update({
+        "ms": cuda_ms(lambda: form(*args, committed), 20),
+        "kernel_ms": cuda_ms(lambda: kernel(*args), 20),
+        "plain_ms": cuda_ms(lambda: plain(*args, committed), 3),
+        "host_enqueue_ms": host,
+        "resources": {"value": {**ptxas_resources(f"{entry}_value_kernel", instance),
+                                **value_grad_layout(label, args, committed)},
+                      "kernel": ptxas_resources(f"{entry}_kernel", instance)},
+        **bound(ops, n_bytes)})
+    emit(f"{label}_value_grad_cost_rollout", numbers)
+    check(numbers["finite"], f"{label} value: bad output {numbers}")
+    check(torch.allclose(got[0], ref[0], **tol) and close(got[1], ref[1], DQ_RTOL, DQ_ATOL_FRAC),
+          f"{label} value: disagrees with its plain version {numbers}")
+    for case, (g, r) in outs.items():
+        check(torch.allclose(g[0], r[0], **tol) and close(g[1], r[1], DQ_RTOL, DQ_ATOL_FRAC),
+              f"{label} value {case}: disagrees with its plain version {numbers}")
+    for k, m in wrong.items():
+        check(numbers["mutant_dQ_max_abs_err"][k] >= VALUE_MARGIN * atol
+              and not close(m, ref[1], DQ_RTOL, DQ_ATOL_FRAC),
+              f"{label} value: the dQ bound does not reject {k} by {VALUE_MARGIN}x {numbers}")
+    check(numbers["zero_V_equal_to_kernel"],
+          f"{label} value: a zero V does not give the kernel's outputs {numbers}")
+    check(numbers["committed_V"]["cost"]["held"] and numbers["committed_V"]["dQ"]["held"],
+          f"{label} value: further from float64 than its plain version allows {numbers}")
+    res = numbers["resources"]
+    check(res["value"].get("spill_stores", 0) <= res["kernel"].get("spill_stores", 0),
+          f"{label} value: the value entry spills {res}")
+    return numbers
+
+
+def compare_value_cols(form: str, ctrl: BatchedMPCController, committed: list, gen) -> dict:
+    """Phase 64: the session-row value form ``form`` (K7's, K8's, K9's or
+    K10's, over the committed V) or K1's session-row emit form against its
+    plain version at GRAD_COLS_B sessions of GRAD_COLS_KS rollouts (phase
+    45's operands): J and dQ to the single-session kernel's bounds, or,
+    where V's slope lifts the difference past them, to the float64 plain
+    version (f64_held; K1: its costs to KERNEL_TOL, x_H to X_TOL); each
+    session equal, bit for bit, to the single-session value (emit) form
+    over its rows; the cost bound rejects every session reading the next
+    session's row, K1's x_H bound x_{H-1} and the next rollout's x_H; timed
+    at each of GRAD_COLS_SHAPES beside phase 45's form."""
+    cols, plain, single = VALUE_COLS[form]
+    args = grad_cols_operands(form, ctrl, GRAD_COLS_B, GRAD_COLS_KS, gen)
+    vops = () if form == "k1" else (committed,)
+    got, ref = cols(*args, *vops), plain(*args, *vops)
+    mutant = plain(*args[:3], args[3].roll(-1, 0), *args[4:], *vops)
+    per = [single(*session_slice_grad(args, b), *vops) for b in range(GRAD_COLS_B)]
+    numbers = {}
+    if form == "k1":
+        prev_x = plain(args[0], args[1], args[2][:, :-1].contiguous(), args[3])[1]
+        torch.cuda.synchronize()
+        (c, x), (rc, rx) = got, ref
+        same = torch.cat([(c == torch.stack([p[0] for p in per])).flatten(),
+                          (x == torch.stack([p[1] for p in per])).flatten()])
+        wrong_x = {"x_H_minus_1": prev_x,
+                   "next_rollout_x_H": rx.reshape(-1, 4).roll(-1, 0).reshape(rx.shape)}
+        numbers.update({
+            "costs_equal_to_kernel": bool(torch.equal(c, cost_rollout_cols(*args))),
+            "cost_max_abs_err": max_errors(c, rc)[0], "x_max_abs_err": max_errors(x, rx)[0],
+            "mutant_cost_max_rel_err": {"next_session_row": max_errors(mutant[0], rc)[1]},
+            "mutant_x_max_abs_err": {k: max_errors(m, rx)[0] for k, m in wrong_x.items()},
+            "finite": bool(torch.isfinite(c).all() and torch.isfinite(x).all())})
+        numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
+        held = torch.allclose(c, rc, **KERNEL_TOL) and torch.allclose(x, rx, **X_TOL)
+        rejected = (not torch.allclose(mutant[0], rc, **KERNEL_TOL)
+                    and all(numbers["mutant_x_max_abs_err"][k] >= VALUE_MARGIN * X_TOL["atol"]
+                            and not torch.allclose(m, rx, **X_TOL) for k, m in wrong_x.items()))
+        check(numbers["costs_equal_to_kernel"], f"k1_cols_emit: not K1-cols' costs {numbers}")
+    else:
+        args64 = as64(args)
+        ref64 = plain(*args64, as64((committed,))[0])
+        base, plain0, ref64_0 = GRAD_COLS[form][0](*args), plain(*args), plain(*args64)
+        torch.cuda.synchronize()
+        same = torch.cat([(got[0] == torch.stack([p[0] for p in per])).flatten(),
+                          (got[1] == torch.cat([p[1] for p in per])).flatten()])
+        numbers.update({**grad_cols_errors(form, got, ref),
+                        "mutant_next_session_row": grad_cols_errors(form, mutant, ref),
+                        "f64": {"cost": f64_held(got[0], ref[0], ref64[0],
+                                                 (base[0], plain0[0], ref64_0[0])),
+                                "dQ": f64_held(got[1], ref[1], ref64[1],
+                                               (base[1], plain0[1], ref64_0[1]))},
+                        "finite": bool(torch.isfinite(got[0]).all()
+                                       and torch.isfinite(got[1]).all())})
+        numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["dQ_max_abs_err"])
+        numbers["within_kernel_bounds"] = grad_cols_held(form, got, ref)
+        held = numbers["within_kernel_bounds"] or (numbers["f64"]["cost"]["held"]
+                                                   and numbers["f64"]["dQ"]["held"])
+        rejected = not grad_cols_held(form, mutant, ref)
+    label = GRAD_COLS_FLEET[form]
+    fleet_b, fleet_k = GRAD_FLEETS[label][4], GRAD_FLEETS[label][1]["num_rollouts"]
+    unvalued = GRAD_COLS[form][0]
+    timed = {}
+    for B, ks_ in GRAD_COLS_SHAPES:
+        targs = grad_cols_operands(form, ctrl, B, ks_, gen)
+        timed[f"B{B}_K{ks_}"] = {"ms": cuda_ms(lambda: cols(*targs, *vops), 20),
+                                 "kernel_ms": cuda_ms(lambda: unvalued(*targs), 20),
+                                 **grad_cols_bounds(form, targs)}
+        if (B, ks_) == (fleet_b, fleet_k):
+            row = {"ms": timed[f"B{B}_K{ks_}"]["ms"],
+                   "plain_ms": cuda_ms(lambda: plain(*targs, *vops), 3),
+                   **grad_cols_bounds(form, targs)}
+    numbers.update({"single_session_equal_share": float(same.double().mean()),
+                    "sessions": GRAD_COLS_B, "rollouts_a_session": GRAD_COLS_KS,
+                    "timed": timed, **row})
+    name = "k1_cols_emit" if form == "k1" else f"{form}_cols_value"
+    emit(name, numbers)
+    check(numbers["finite"] and held, f"{name}: disagrees with its plain version {numbers}")
+    check(numbers["single_session_equal_share"] == 1.0,
+          f"{name}: a session differs from its single-session form {numbers}")
+    check(rejected, f"{name}: a bound does not reject a mutant {numbers}")
+    return numbers
+
+
+def adam_steps_vs_cpu(name: str, grad_card, grad_cpu, score_card, score_cpu, Q: torch.Tensor,
+                      adam, opt, iterations: int) -> dict:
+    """Phase 66: a valued gradient update's Adam steps on the card against
+    the CPU's, step by step from the card's iterate, as phase 34 holds CEM
+    outer iteration by outer iteration.  At each step both devices'
+    gradients at that Q (``grad_card``, ``grad_cpu``: the value forms and
+    their plain versions, whose distance is printed; phase 63 holds it),
+    then (a) the card's step (per-rollout clip, Adam, clamp) against the
+    CPU's from the same state and the card's gradient: Q and the moments to
+    rtol UPDATE_RTOL plus UPDATE_ATOL_FRAC of their largest entry; (b)
+    against the CPU's step from its own gradient: a row whose Q differs
+    beyond that bound must be one whose step the gradients do not
+    determine, an entry and its sqrt(v) within the noise of 0 (the larger
+    of DQ_ATOL_FRAC of max|g| and the two gradients' distance: the
+    committed V's slope carries the kernels' rounding into dQ), at most
+    UNDETERMINED_MAX of the rows a step.  Then the scoring at the card's
+    last iterate: ``score_card(Q)`` against ``score_cpu(Q)`` (costs with V,
+    and the CPU's x_H, post hook, its params and H for ``value_slack``), the
+    costs to KERNEL_TOL plus the slack.  Returns the numbers, emitted under
+    ``name``."""
+    lr, b1, b2, eps = opt.learning_rate, opt.adam_beta_1, opt.adam_beta_2, opt.adam_epsilon
+    low, high = opt.action_low, opt.action_high
+
+    def step_from(state, grad, device_low, device_high, Q_now):
+        new, delta = adam_update(state, clip_by_norm(grad, opt.gradmax_clip, axes=(-2, -1)), lr,
+                                 b1, b2, eps)
+        return new, torch.clamp(Q_now - delta, device_low, device_high)
+
+    steps = []
+    for i in range(iterations):
+        g, g_c = grad_card(Q), grad_cpu(Q.cpu())
+        diff = float((g.cpu() - g_c).abs().max())
+        noise = max(DQ_ATOL_FRAC * float(g_c.abs().max()), diff)
+        adam_c = AdamState(adam.step, adam.m.cpu(), adam.v.cpu())
+        a_d, Q_next = step_from(adam, g, low, high, Q)
+        a_g, Q_g = step_from(adam_c, g.cpu(), low.cpu(), high.cpu(), Q.cpu())
+        _, Q_c = step_from(adam_c, g_c, low.cpu(), high.cpu(), Q.cpu())
+        width = Q_c.shape[-2] * Q_c.shape[-1]
+        got = Q_next.cpu().reshape(-1, width)
+        glue = {"Q": (got, Q_g.reshape(-1, width)),
+                **{k: (getattr(a_d, k).cpu().reshape(-1, width),
+                       getattr(a_g, k).reshape(-1, width)) for k in ("m", "v")}}
+        rows = Q_c.reshape(-1, width)
+        atol = UPDATE_ATOL_FRAC * float(rows.abs().max())
+        off = ((got - rows).abs() > atol + UPDATE_RTOL * rows.abs()).any(1)
+        undetermined = ((g_c.abs() <= noise) & (adam_c.v.sqrt() <= noise)).reshape(
+            -1, width).any(1)
+        step = {"grad_max_abs_err": diff, "grad_max_abs": float(g_c.abs().max()),
+                "noise": noise,
+                **{f"same_grad_{k}_max_abs_err": max_errors(*ab)[0] for k, ab in glue.items()},
+                "rows_off": int(off.sum()),
+                "rows_off_undetermined": int((off & undetermined).sum()),
+                "undetermined_rows": int(undetermined.sum()),
+                "Q_max_abs_err": max_errors(got, rows)[0]}
+        steps.append(step)
+        for k, (a, b) in glue.items():
+            check(close(a, b, UPDATE_RTOL, UPDATE_ATOL_FRAC),
+                  f"{name}: step {i}: {k} from the same gradient differs on the card {step}")
+        check(step["rows_off"] == step["rows_off_undetermined"]
+              and step["rows_off"] <= UNDETERMINED_MAX * rows.shape[0],
+              f"{name}: step {i}: Q on the card differs from the CPU's {step}")
+        Q, adam = Q_next, a_d
+    cost, (cost_c, x_c, post, post_params, horizon) = score_card(Q).cpu().reshape(-1), \
+        score_cpu(Q.cpu())
+    cost_c = cost_c.reshape(-1)
+    slack = value_slack(post, x_c.reshape(-1, x_c.shape[-1]), post_params, horizon)
+    numbers = {"steps": steps, "cost_max_abs_err": max_errors(cost, cost_c)[0],
+               "cost_max_rel_err": max_errors(cost, cost_c)[1],
+               "value_slack_max": float(slack.max())}
+    emit(name, numbers)
+    check(bool(((cost - cost_c).abs() <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * cost_c.abs()
+                + slack).all()), f"{name}: costs on the card differ from the CPU's {numbers}")
+    return numbers
+
+
+def gradient_value_update_vs_cpu(ctrl: MPCController, name: str, spec: str, config: dict,
+                                 value: dict) -> dict:
+    """Phase 66: one valued gradient-tf update's Adam steps and scoring on
+    the card against the CPU's (adam_steps_vs_cpu), from the card's state
+    and params."""
+    opt = ctrl.optimizer
+    state = opt.opt_state
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    params = ctrl._assemble_params()
+    cpu = make_controller("cpu", "gradient-tf", config, spec=spec)
+    attach_value_terminal(cpu, to_cpu(value))
+    copt, params_c = cpu.optimizer, to_cpu(params)
+    s_tiled = s_now.expand(opt.num_rollouts, -1).contiguous()
+    s_tiled_c, u_prev_c = s_tiled.cpu(), state.u_prev.cpu()
+    grad_d, cost_d = opt._make_grad_and_cost_only()
+    grad_c, cost_c = copt._make_grad_and_cost_only()
+
+    def score_cpu(Q):
+        x = copt._rollout_and_cost(s_tiled_c, Q, u_prev_c, params_c)[1][:, -1]
+        return (cost_c(s_tiled_c, Q, u_prev_c, params_c), x, copt._post_terminal_fn(),
+                copt._cost_params(params_c), copt.mpc_horizon)
+
+    return adam_steps_vs_cpu(
+        name, lambda Q: grad_d(Q, s_tiled, state.u_prev, params),
+        lambda Q: grad_c(Q, s_tiled_c, u_prev_c, params_c),
+        lambda Q: cost_d(s_tiled, Q, state.u_prev, params), score_cpu, state.Q, state.adam, opt,
+        opt.gradient_steps)
+
+
+def grad_fleet_value_update_vs_cpu(label: str, ctrl: BatchedMPCController, value: dict,
+                                   gen) -> dict:
+    """Phase 66: one valued gradient fleet update's Adam steps (one launch
+    of the session-row value form each) and its scoring (the session-row
+    emit form, V outside) on the card against the CPU's
+    (adam_steps_vs_cpu), from the state its loop left, with the same
+    params (the GP's well-conditioned)."""
+    B, opt = ctrl.num_slots, ctrl.optimizer
+    K, Hf = opt.num_rollouts, opt.mpc_horizon
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    if GRAD_FLEETS[label][5] == "gp":
+        dyn = {"gp": well_conditioned_gp(dyn["gp"])}
+    psd = GRAD_FLEETS[label][3]
+    cpu = grad_fleet("cpu", label, B)
+    attach_value_terminal(cpu, to_cpu(value))
+    vt = cpu.optimizer.cost_function.cost_function
+    post, seen = vt.post_terminal_cost, []
+
+    def recorded(x, cost_params):
+        seen.append(x)
+        return post(x, cost_params)
+
+    vt.post_terminal_cost = recorded
+    copt = cpu.optimizer
+    gcall, ccall, pack = opt._bind_batched_grad_kernels(B, per_slot_dyn=psd)
+    gcall_c, ccall_c, pack_c = copt._bind_batched_grad_kernels(B, per_slot_dyn=psd)
+    st = ctrl.slot_states
+    s0 = s[:, 0].repeat_interleave(K, dim=0)
+    s0_c, dyn_c, cost_c, attrs_c = s0.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs)
+    pvec_b, pvec_c = pack(st.u_prev, dyn, cost, attrs), pack_c(st.u_prev.cpu(), dyn_c, cost_c,
+                                                                attrs_c)
+
+    def score_cpu(Q):
+        costs = ccall_c(s0_c, Q.reshape(B * K, Hf, 1), pvec_c, dyn_c, cost_c)
+        return costs, seen[-1], post, {"cost": cost_c, "attrs": attrs_c}, Hf
+
+    its = getattr(opt, "outer_its", None) or opt.gradient_steps
+    return adam_steps_vs_cpu(
+        f"fleet_{label}_value_update_vs_cpu",
+        lambda Q: gcall(s0, Q.reshape(B * K, Hf, 1), pvec_b, dyn, cost)[1].reshape(Q.shape),
+        lambda Q: gcall_c(s0_c, Q.reshape(B * K, Hf, 1), pvec_c, dyn_c, cost_c)[1].reshape(
+            Q.shape),
+        lambda Q: ccall(s0, Q.reshape(B * K, Hf, 1), pvec_b, dyn, cost), score_cpu, st.Q,
+        st.adam, opt, its)
 
 
 def start_sweep() -> None:
@@ -4691,6 +5174,107 @@ def main() -> None:
             {COLS_EMIT[kind][0].__name__: VALUE_LEARNED_FLEET_TICKS}, pole_check=False)
         learned_fleet_update_vs_cpu(kind, c, gen, value=vnet)
     fleet_ticks["fleet_mlp_value_b32"] = fleet_timing("mlp_value_b32", vfleets["mlp"], gen)
+
+    # 63. The value_spec forms of K8, K8's member-block form, K9 and K10
+    # against their plain versions at phases 12's, 50's, 19's and 21's
+    # operands, over a seeded V and the committed one.
+    committed = value_ops_of(vnet)
+    vbytes = nbytes(*committed)
+
+    def vgrad_bound(step_ops: float, weights) -> tuple:
+        return (K * H * step_ops + K * value_net_ops(),
+                nbytes(s0, Qg, *leaves((weights,)), Qg) + vbytes + 4 * K)
+
+    vg = {
+        "k8": compare_value_learned(
+            "k8", (nmodel, s0, Qg, npvec, net), (nmodel, *first_k(VALUE_RAGGED_K, s0, Qg), npvec,
+                                                 net), committed,
+            *vgrad_bound(mlp_ops(net) + mlp_vjp_ops(net) + STAGE_OPS + STAGE_VJP_OPS, net),
+            extra_nets=(wide_net(True, 1.0, device),)),
+        "k8_ens": compare_value_learned(
+            "k8_ens", (emodel, s0, Qg, epvec, enet),
+            (emodel, *first_k(ENS_RAGGED_K, s0, Qg), epvec, enet), committed,
+            *vgrad_bound(mlp_ops(member_net(enet, 0)) + mlp_vjp_ops(member_net(enet, 0))
+                         + STAGE_OPS + STAGE_VJP_OPS, enet)),
+        "k9": compare_value_learned(
+            "k9", (rmodel, s0, Qg, rpvec, rnet),
+            (rmodel, *first_k(VALUE_RAGGED_K, s0, Qg), rpvec, rnet), committed,
+            *vgrad_bound(RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS + RK4_VJP_OPS
+                         + mlp_vjp_ops(rnet) + STAGE_VJP_OPS, rnet),
+            extra_nets=(wide_net(False, 0.02, device),)),
+        "k10": compare_value_learned(
+            "k10", (gmodel, s0, Qg, gpvec, wops),
+            (gmodel, *first_k(VALUE_RAGGED_K, s0, Qg), gpvec, wops), committed,
+            *vgrad_bound(gp_ops(gops) + gp_vjp_ops(gops) + STAGE_OPS + STAGE_VJP_OPS, wops))}
+
+    # 64. The session-row value forms of K7-K10 and K1's session-row emit
+    # form at phase 45's operands, each session equal to its single-session
+    # form.
+    vcols = {form: compare_value_cols(form, grad[GRAD_COLS_FLEET[form]], committed, gen)
+             for form in VALUE_COLS}
+
+    # 65. Valued rpgd-tf over each learned model and gradient-tf over the
+    # MLP from LEARNED_START, and the valued gradient fleets, each counted
+    # from 0: the emit form once a tick, the value form once an Adam
+    # iteration.
+    vgrad = {"mlp": make_controller("cuda", "rpgd-tf", RPGD_CONFIG, spec=MLP_SPEC),
+             "residual": residual_controller("rpgd-tf", RES_RPGD_CONFIG),
+             "gp": make_controller("cuda", "rpgd-tf", RES_RPGD_CONFIG, spec=GP_SPEC),
+             "ensemble": make_controller("cuda", "rpgd-tf", RES_RPGD_CONFIG, spec=ENS_SPEC),
+             "gradient_mlp": make_controller("cuda", "gradient-tf", GRADIENT_CONFIG,
+                                             spec=MLP_SPEC)}
+    for c in vgrad.values():
+        attach_value_terminal(c, vnet)
+    check(all(fam.can_use_grad(vgrad[kind].optimizer) and vgrad[kind].optimizer._value_grad_spec()
+              for kind, fam in (("mlp", neural), ("residual", residual), ("gp", gp),
+                                ("ensemble", ensemble), ("gradient_mlp", neural))),
+          "the valued gradient controllers did not take the value forms")
+    vgrad_forms = {"mlp": ("neural_cost_rollout_emit", "neural_grad_cost_rollout_value"),
+                   "residual": ("residual_cost_rollout_emit", "residual_grad_cost_rollout_value"),
+                   "gp": ("gp_cost_rollout_emit", "gp_grad_cost_rollout_value"),
+                   "ensemble": ("neural_cost_rollout_ens_emit",
+                                "neural_grad_cost_rollout_ens_value"),
+                   "gradient_mlp": ("neural_cost_rollout_emit", "neural_grad_cost_rollout_value")}
+    for kind, c in vgrad.items():
+        gradient_ = kind == "gradient_mlp"
+        ticks = VALUE_GRADIENT_TICKS if gradient_ else VALUE_GRAD_TICKS
+        its = GRADIENT_CONFIG["gradient_steps"] if gradient_ else RPGD_CONFIG["outer_its"]
+        cform, gform = vgrad_forms[kind]
+        label = "gradient_mlp_value" if gradient_ else f"rpgd_{kind}_value"
+        runs[label] = counted_loop(f"slice_{label}", c, ticks, {cform: ticks, gform: its * ticks},
+                                   start=LEARNED_START, pole_check=False)
+    vgfleets = {}
+    for label, (gform, cform) in VALUE_FLEETS.items():
+        c = vgfleets[label] = grad_fleet("cuda", label, FLEET_B)
+        attach_value_terminal(c, vnet)
+        check(c._batched_rpgd_eligible() == label.startswith("rpgd")
+              and c._batched_gradient_eligible() == label.startswith("gradient"),
+              f"the valued {label} fleet did not take its gradient step")
+        config = GRAD_FLEETS[label][1]
+        its = config.get("outer_its", config.get("gradient_steps"))
+        runs[f"fleet_{label}_value"] = fleet_loop(
+            f"slice_fleet_{label}_value", c, VALUE_GRAD_FLEET_TICKS,
+            {gform: its * VALUE_GRAD_FLEET_TICKS, cform: VALUE_GRAD_FLEET_TICKS},
+            pole_check=False)
+
+    # 66. One valued update of each on the card against the CPU's (the GP's
+    # with the well-conditioned GP swapped in as a re-fit is).
+    for kind, spec, config in (("mlp", MLP_SPEC, RPGD_CONFIG), ("residual", RES_SPEC,
+                                                                  RES_RPGD_CONFIG),
+                               ("gp", GP_SPEC, RES_RPGD_CONFIG),
+                               ("ensemble", ENS_SPEC, RES_RPGD_CONFIG)):
+        pred = vgrad[kind].optimizer.predictor.predictor
+        fitted = pred.gp_params if kind == "gp" else None
+        if kind == "gp":
+            pred.gp_params = well_conditioned_gp(fitted)
+        update_vs_cpu_rpgd(vgrad[kind], f"rpgd_{kind}_value_update_vs_cpu", spec, config,
+                           value=vnet)
+        if kind == "gp":
+            pred.gp_params = fitted
+    gradient_value_update_vs_cpu(vgrad["gradient_mlp"], "gradient_mlp_value_update_vs_cpu",
+                                 MLP_SPEC, GRADIENT_CONFIG, vnet)
+    for label, c in vgfleets.items():
+        grad_fleet_value_update_vs_cpu(label, c, vnet, gen)
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     if "--starts" in sys.argv[1:]:
@@ -4703,7 +5287,12 @@ def main() -> None:
                         ("cem-fused", cem_fused), ("mppi-fused", mppi_fused), ("icem", icem),
                         ("mppi-ensemble", ens_mppi), ("rpgd-tf-ensemble", ens_rpgd),
                         ("mppi-value", vmppi), ("rpgd-tf-value", vrpgd),
-                        ("mppi-value-h10", vshort), ("mppi-mlp-value", vlearned["mlp"])):
+                        ("mppi-value-h10", vshort), ("mppi-mlp-value", vlearned["mlp"]),
+                        ("rpgd-tf-mlp-value", vgrad["mlp"]),
+                        ("rpgd-tf-residual-value", vgrad["residual"]),
+                        ("rpgd-tf-gp-value", vgrad["gp"]),
+                        ("rpgd-tf-ensemble-value", vgrad["ensemble"]),
+                        ("gradient-tf-mlp-value", vgrad["gradient_mlp"])):
             profile_ticks(name, env_tick(c))
         for name, tick in fleet_ticks.items():
             profile_ticks(name, tick)
@@ -4765,6 +5354,22 @@ def main() -> None:
          cols_emit["residual"]),
         ("gp_cost_rollout_cols_emit", "gp_rollout.cu", "ops/pallas_neural.py:647",
          cols_emit["gp"]),
+        ("neural_grad_cost_rollout_value", "neural_grad_rollout.cu", "ops/pallas_grad.py:387",
+         vg["k8"]),
+        ("neural_grad_cost_rollout_ens_value", "neural_grad_rollout.cu",
+         "ops/pallas_grad.py:387", vg["k8_ens"]),
+        ("residual_grad_cost_rollout_value", "residual_rollout.cu", "ops/pallas_grad.py:459",
+         vg["k9"]),
+        ("gp_grad_cost_rollout_value", "gp_rollout.cu", "ops/pallas_grad.py:515", vg["k10"]),
+        ("grad_cost_rollout_cols_value", "grad_cost_rollout.cu", "ops/pallas_grad.py:335",
+         vcols["k7"]),
+        ("neural_grad_cost_rollout_cols_value", "neural_grad_rollout.cu",
+         "ops/pallas_grad.py:387", vcols["k8"]),
+        ("residual_grad_cost_rollout_cols_value", "residual_rollout.cu",
+         "ops/pallas_grad.py:459", vcols["k9"]),
+        ("gp_grad_cost_rollout_cols_value", "gp_rollout.cu", "ops/pallas_grad.py:515",
+         vcols["k10"]),
+        ("cost_rollout_cols_emit", "cost_rollout.cu", "ops/pallas_rollout.py:34", vcols["k1"]),
     )
     check(all(launches[name] > 0 for name, *_ in rows),
           f"a kernel of the path was launched no time in its loops {launches}")

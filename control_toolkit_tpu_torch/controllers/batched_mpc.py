@@ -41,8 +41,10 @@ takes for everything else (modular CEM, an RPGD or gradient fleet with
 warmup or over a recurrent net, a user's ``force_scan: true``, logging),
 the batched ``mppi-var`` step, the slot mesh and a learned value terminal
 on any other fleet (CEM's and a recurrent MPPI fleet's vmapped per-slot
-step, the ``value_spec`` forms of K7-K10).  Nothing falls back to a
-per-slot loop or to the CPU.
+step, and a gradient fleet's where the post-terminal hook is not a plain
+tanh-MLP V: the RPGD and gradient-tf fleets over the ODE, the MLP,
+``"ODE+res"`` and the GP take such a V in the session-row value_spec forms
+of K7-K10).  Nothing falls back to a per-slot loop or to the CPU.
 """
 from __future__ import annotations
 
@@ -263,8 +265,11 @@ class BatchedMPCController(MPCController):
         opt = self.optimizer
         return (
             is_kind(opt)
+            # post_ok: a plain tanh-MLP V rides the session-row value_spec
+            # forms (JAX batched_mpc.py:578-582, :653-657)
             and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
-                                       stateful=self._stateful)
+                                       stateful=self._stateful,
+                                       post_ok=opt._value_grad_spec() is not None)
             and not opt.warmup
             and opt._grad_kernel_model_ok(bool(self._per_slot_dyn))
         )
@@ -320,10 +325,13 @@ class BatchedMPCController(MPCController):
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
-        if getattr(cf, "post_terminal_cost", None) is not None:
-            if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):
-                return _not_ported("a learned value terminal in a batched gradient fleet (the "
-                                   "value_spec forms of K7-K10 in their session-row forms)")
+        grad_fleet = isinstance(opt, (RPGDOptimizer, GradientOptimizer))
+        if getattr(cf, "post_terminal_cost", None) is not None and not (
+                grad_fleet and opt._value_grad_spec() is not None):
+            if grad_fleet:
+                return _not_ported("the vmapped per-slot batched step (taken for a gradient "
+                                   "fleet whose post-terminal hook is not a plain tanh-MLP "
+                                   "value net)")
             if isinstance(opt, CEMOptimizer):
                 return _not_ported("a learned value terminal in a batched CEM fleet (the vmapped "
                                    "per-slot batched step: K6 and the modular batched step "
@@ -333,7 +341,7 @@ class BatchedMPCController(MPCController):
                 return _not_ported(RECURRENT_VALUE_FLEET)
             return _not_ported("a learned value terminal in this batched configuration (the "
                                "vmapped per-slot batched step)")
-        if isinstance(opt, (RPGDOptimizer, GradientOptimizer)):
+        if grad_fleet:
             why = "warmup on" if opt.warmup else "a model the gradient kernels do not take"
             return _not_ported(f"the vmapped per-slot batched step (taken for "
                                f"{opt.registered_name} with {why})")

@@ -7,6 +7,10 @@
 // cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1)
 // with Q[k,-1] = u_prev from the packed parameters.
 //
+// K1's emit_terminal form (one session, cost_rollout_emit_kernel, and the
+// session-row form, cost_rollout_emit_rows_kernel) is the body's Emit
+// instance: it also writes rollout k's x_H to row k of x_term [K, S].
+//
 // K1 serves one session (ks = K) or, in its session-row form (the
 // slot_keys form, pallas_rollout.py:47), B sessions of ks rollouts in one
 // launch, rollout k reading row k / ks of pvec: the session's dynamics
@@ -101,22 +105,32 @@ cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restrict__
   cost_rollout_body<Plant, false, true>(s0, Q, pvec, cost, x_term, K, K, H, c, max_cost);
 }
 
+// Its session-row form (slot_keys + emit_terminal, pallas_rollout.py:47-48):
+// B sessions of ks rollouts, rollout k reading row k / ks of pvec; the
+// gradient fleets' final scoring under a learned value terminal.
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+cost_rollout_emit_rows_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                              const float* __restrict__ pvec, float* __restrict__ cost,
+                              float* __restrict__ x_term, int K, int ks, int H, StepConsts c,
+                              float max_cost) {
+  cost_rollout_body<Plant, true, true>(s0, Q, pvec, cost, x_term, K, ks, H, c, max_cost);
+}
+
 }  // namespace ctt
 
 // Launches K1 on `stream` over K rollouts, sessions of ks (pvec holds
 // K / ks rows, rollout k reading row k / ks: ks = K for one session, the
 // session-row form for a fleet), or, with x_term not null, its
-// emit_terminal form (one session: ks = K), which also writes the terminal
-// states [K, S] there; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant or a ks that does not divide
-// K or, with x_term, is not K).
+// emit_terminal form (its session-row form where ks < K), which also writes
+// the terminal states [K, S] there; returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
+// divide K).
 extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
                                 void* cost, void* x_term, int K, int ks, int H, int rk4,
                                 int substeps, float sub_dt, float half_dt, float dt6,
                                 float max_cost, void* stream) {
-  if (ks < 1 || K % ks != 0 || (x_term != nullptr && ks != K)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
@@ -126,9 +140,12 @@ extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const 
   auto* costf = static_cast<float*>(cost);
   switch (plant) {
     case ctt::kPlantCartpole:
-      if (x_term != nullptr) {
+      if (x_term != nullptr && ks == K) {
         ctt::cost_rollout_emit_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
             s0f, qf, pf, costf, static_cast<float*>(x_term), K, H, c, max_cost);
+      } else if (x_term != nullptr) {
+        ctt::cost_rollout_emit_rows_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
+            s0f, qf, pf, costf, static_cast<float*>(x_term), K, ks, H, c, max_cost);
       } else {
         (ks == K ? ctt::cost_rollout_kernel<ctt::CartpolePlant, false>
                  : ctt::cost_rollout_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads, 0,

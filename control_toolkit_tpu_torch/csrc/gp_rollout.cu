@@ -20,6 +20,13 @@
 // over K14's body (gp_cost_rollout_emit_kernel, the body's Emit instance),
 // so the unvalued kernel's code stays as it was.
 //
+// K10's value_spec form (pallas_grad.py:119-141, :191-206; one session or
+// the session-row form, at kGpLanes lanes a rollout) is its own entry over
+// K10's body (gp_grad_cost_rollout_value_kernel): V's operands staged after
+// the inducing points, lane r = 0 of a rollout evaluates V(x_H) and ct *
+// dV/dx_H (value_mlp.cuh) and a shuffle gives the rollout's other lanes its
+// bits, so all L go on with one lam.
+//
 // K14 is a one-thread-a-rollout cost kernel (as K1, cost_rollout.cu) with
 // the GP step: the packed parameters are the cost's alone (plants.cuh
 // CartpoleCost), the stage cost is taken before the step, cost[k] =
@@ -67,6 +74,7 @@
 //   0.135, 0.151 and 0.186 ms at L = 1, 2, 4, 8 and 16 (at L = 1 a block
 //   holds 256 rollouts, and K=16384 fills 64 of the 132 SMs).
 #include "gp_core.cuh"
+#include "value_mlp.cuh"
 
 namespace ctt {
 
@@ -152,18 +160,26 @@ gp_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __restric
   gp_cost_rollout_body<Cost, L, true>(s0, Q, pvec, cost, x_term, K, ks, H, max_cost, gp);
 }
 
-// K10 with L lanes a rollout: lanes r = 0..L-1 of each aligned group of L
-// in a warp share rollout k.
-template <class Cost, int L>
-__global__ void __launch_bounds__(kGpThreads)
-gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                            const float* __restrict__ pvec, float* __restrict__ cost,
-                            float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
-                            int H, float max_cost, float ct, GPArgs gp) {
+// K10's body with L lanes a rollout: lanes r = 0..L-1 of each aligned
+// group of L in a warp share rollout k.  Its value_spec form (kValue)
+// stages the value net of *v after the inducing points; lane r = 0 of a
+// rollout evaluates V and its VJP at x_H in its column of kGpThreads / L
+// and a shuffle gives the rollout's other lanes its bits, so all L go on
+// with one lam.
+template <class Cost, int L, bool kValue>
+__device__ __forceinline__ void gp_grad_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+    int H, float max_cost, float ct, const GPArgs& gp, const ValueArgs* v) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   stage_gp<S, U>(sm, gp);
+  float* vsm = nullptr;
+  if constexpr (kValue) {
+    vsm = sm + gp.M * GPRow<S, U>::kRow;
+    stage_value_net(vsm, *v);
+  }
   __syncthreads();
   const int t = blockIdx.x * blockDim.x + threadIdx.x, r = threadIdx.x & (L - 1);
   if ((t & ~31) / L >= K) return;  // a warp with no rollout below K
@@ -200,12 +216,26 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  if (writes) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  float vgx[S];  // ct * dV/dx_H (the value_spec form)
+  if constexpr (kValue) {
+    const int lane = threadIdx.x & 31;
+    const float value = value_from_lane<S, kGpThreads / L>(x, vsm, *v, lane & ~(L - 1),
+                                                           threadIdx.x / L, ct, vgx);
+    if (writes) {
+      cost[k] = (acc + (Cost::terminal_cost(x, c) + value)) / static_cast<float>(H + 1);
+    }
+  } else {
+    if (writes) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  }
   __syncwarp();  // lane 0's xhist stores, before the other lanes read them
 
   // Backward sweep.
   float lam[S], gnext[U];
   Cost::terminal_cost_grad(x, c, ct, lam);
+  if constexpr (kValue) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) lam[i] += vgx[i];
+  }
 #pragma unroll
   for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
   for (int h = H - 1; h >= 0; --h) {
@@ -229,6 +259,43 @@ gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restric
     for (int i = 0; i < S; ++i) lam[i] = dx[i] + gx[i];
   }
 }
+
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
+gp_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                            const float* __restrict__ pvec, float* __restrict__ cost,
+                            float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+                            int H, float max_cost, float ct, GPArgs gp) {
+  gp_grad_cost_rollout_body<Cost, L, false>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct,
+                                            gp, nullptr);
+}
+
+// K10's value_spec form (pallas_grad.py:119-141, :191-206, the
+// build_gp_grad_cost_rollout_kernel twin) at L lanes a rollout: one session
+// or its session-row form, its own entry so that K10 keeps its code.
+template <class Cost, int L>
+__global__ void __launch_bounds__(kGpThreads)
+gp_grad_cost_rollout_value_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                  const float* __restrict__ pvec, float* __restrict__ cost,
+                                  float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                  int ks, int H, float max_cost, float ct, GPArgs gp,
+                                  ValueArgs v) {
+  gp_grad_cost_rollout_body<Cost, L, true>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, max_cost, ct,
+                                           gp, &v);
+}
+
+// K10's value_spec form's dynamic shared memory for M inducing points and
+// the value net of v at kGpLanes lanes a rollout, or -1 where it refuses
+// either.
+inline long gp_value_smem_bytes(int M, const ValueArgs& v) {
+  using Cost = CartpoleCost;
+  const long gp_bytes = gp_smem_bytes<Cost::S, Cost::U>(M);
+  if (gp_bytes < 0 || !value_net_ok(v, Cost::S)) return -1;
+  const long bytes = gp_bytes + static_cast<long>(value_smem_bytes(v, kGpThreads / kGpLanes));
+  return bytes <= kMaxSmem ? bytes : -1;
+}
+
+long gp_value_allowed = 0;  // the value_spec form's shared memory allowed so far
 
 // Size the shared memory, allow it and launch `kernel` over K rollouts,
 // `lanes` threads a rollout and `threads` a block.
@@ -340,15 +407,32 @@ extern "C" int ctt_gp_cost_rollout(int plant, const void* s0, const void* Q, con
 }
 
 // Launches K10 on `stream` over K rollouts, sessions of ks as K14's, with
-// `lanes` lanes a rollout (4, 8, 16 or 32; 0 for kGpLanes); returns as
-// above.  xhist is scratch of H*S*K floats that the caller allocates.
+// `lanes` lanes a rollout (4, 8, 16 or 32; 0 for kGpLanes), or, with v not
+// null, its value_spec form (V of the net of *v added at x_H; kGpLanes
+// lanes only); returns as above.  xhist is scratch of H*S*K floats that
+// the caller allocates.
 extern "C" int ctt_gp_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                         const void* pvec, void* cost, void* dQ, void* xhist,
                                         int K, int ks, int H, float max_cost, float ct,
-                                        int lanes, const ctt::GPArgs* gp, void* stream) {
+                                        int lanes, const ctt::GPArgs* gp,
+                                        const ctt::ValueArgs* v, void* stream) {
   using ctt::launch_k10;
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (v != nullptr) {
+    constexpr int L = ctt::kGpLanes;
+    const long bytes = ctt::gp_value_smem_bytes(gp->M, *v);
+    if ((lanes != 0 && lanes != L) || bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = ctt::gp_grad_cost_rollout_value_kernel<ctt::CartpoleCost, L>;
+    const cudaError_t err = ctt::allow_smem(kernel, bytes, ctt::gp_value_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((static_cast<long>(K) * L + ctt::kGpThreads - 1) / ctt::kGpThreads);
+    kernel<<<grid, ctt::kGpThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(s0), static_cast<const float*>(Q),
+        static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(dQ),
+        static_cast<float*>(xhist), K, ks, H, max_cost, ct, *gp, *v);
+    return static_cast<int>(cudaGetLastError());
   }
   switch (lanes == 0 ? ctt::kGpLanes : lanes) {
     case 4:
@@ -393,4 +477,19 @@ extern "C" int ctt_gp_layout(int grad, int M, int lanes, int* block_threads,
   *block_threads = blocks > 0 ? ctt::kGpThreads : 0;
   *blocks_per_sm = blocks;
   return blocks > 0 ? L : 0;
+}
+
+// K10's value_spec form's dynamic shared memory for M inducing points and
+// the value net of v into *bytes (-1 where it refuses either); returns the
+// blocks an SM holds (0 where refused).
+extern "C" int ctt_gp_grad_value_layout(int M, const ctt::ValueArgs* v, long* bytes) {
+  *bytes = ctt::gp_value_smem_bytes(M, *v);
+  auto kernel = ctt::gp_grad_cost_rollout_value_kernel<ctt::CartpoleCost, ctt::kGpLanes>;
+  int blocks = 0;
+  if (*bytes < 0 || ctt::allow_smem(kernel, *bytes, ctt::gp_value_allowed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, ctt::kGpThreads, *bytes) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }

@@ -76,47 +76,21 @@
 // would spill, the forward has the room.  The activations sit in shared
 // memory, not registers, because the net's widths are run-time values.
 // The net's tensors come in by pointer (ValueArgs) on every call, so a
-// re-fit or a changed scale rebuilds nothing.  The instances without the
-// value compile as before.
+// re-fit or a changed scale rebuilds nothing.  V and its VJP are
+// value_mlp.cuh's, which K8, K9 and K10 share.  Both value instances have
+// a session-row form (slot_keys + value_spec: the gradient fleets, every
+// session under the one V), grad_cost_forward_value_rows_kernel and
+// grad_cost_adjoint_value_rows_kernel over the same bodies.  The instances
+// without the value compile as before.
 #include "rollout_core.cuh"
+#include "value_mlp.cuh"
 
 namespace ctt {
 
 constexpr int kAdjRollouts = 8;                          // rollouts per adjoint block
 constexpr int kAdjSteps = 32;                            // steps per chunk
 constexpr int kAdjThreads = kAdjRollouts * kAdjSteps;    // one item per thread
-constexpr int kMaxValueLayers = 8;                       // ops/kernels.py VALUE_MAX_LAYERS
 constexpr size_t kMaxSmemBytes = 232448;                 // a block's shared memory on sm_90
-
-// The learned terminal value of the value_spec form: a tanh MLP of
-// n_layers layers, dims[0] = S inputs, dims[n_layers] = 1 output, layer l
-// w[l] [dims[l], dims[l+1]] row-major and b[l] [dims[l+1]], as
-// models/networks.py:mlp_apply reads them (device pointers, as stored).
-struct ValueArgs {
-  int n_layers;
-  int dims[kMaxValueLayers + 1];
-  const float* w[kMaxValueLayers];
-  const float* b[kMaxValueLayers];
-};
-
-__host__ __device__ inline int value_param_floats(const ValueArgs& v) {
-  int n = 0;
-  for (int l = 0; l < v.n_layers; ++l) n += v.dims[l] * v.dims[l + 1] + v.dims[l + 1];
-  return n;
-}
-
-__host__ __device__ inline int value_hidden_units(const ValueArgs& v) {
-  int n = 0;
-  for (int l = 1; l < v.n_layers; ++l) n += v.dims[l];
-  return n;
-}
-
-// The forward value instance's dynamic shared memory: the staged operands
-// and each thread's column of hidden activations.
-inline size_t value_smem_bytes(const ValueArgs& v) {
-  return sizeof(float) * (static_cast<size_t>(value_param_floats(v)) +
-                          static_cast<size_t>(value_hidden_units(v)) * kThreads);
-}
 
 // Rollout k from s0 [K, S] under Q [K, H, U], its states x_0..x_H stored
 // to xhist [H+1, S, K]: K1's arithmetic bit for bit (Rollout::advance).
@@ -155,76 +129,16 @@ grad_cost_forward_kernel(const float* __restrict__ s0, const float* __restrict__
   cost[k] = r.finish(p, H);
 }
 
-// V(x) of the staged net wsm (each layer's w then b) and ct * dV/dx into
-// gx; act is the thread's column of the [units][kThreads] activation
-// array: the forward leaves each hidden layer's tanh there, the VJP
-// replaces it, last layer first, with that layer's cotangent before tanh.
-template <int S>
-__device__ __forceinline__ float value_forward_vjp(const float (&x)[S],
-                                                   const float* __restrict__ wsm,
-                                                   const ValueArgs& v, float* act, float ct,
-                                                   float (&gx)[S]) {
-  const int L = v.n_layers;
-  int woff = 0, ain = 0;  // layer l's operands in wsm; its input's column offset (l >= 1)
-  float out = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const int din = v.dims[l], dout = v.dims[l + 1];
-    const float* w = wsm + woff;
-    const float* bias = w + din * dout;
-    const int aout = l == 0 ? 0 : ain + din;
-    for (int o = 0; o < dout; ++o) {
-      float z = bias[o];
-      if (l == 0) {
-#pragma unroll
-        for (int i = 0; i < S; ++i) z = fmaf(x[i], w[i * dout + o], z);
-      } else {
-        for (int i = 0; i < din; ++i) z = fmaf(act[(ain + i) * kThreads], w[i * dout + o], z);
-      }
-      if (l + 1 < L) {
-        act[(aout + o) * kThreads] = tanhf(z);
-      } else {
-        out = z;  // dout == 1 (the host checks)
-      }
-    }
-    woff += din * dout + dout;
-    ain = aout;
-  }
-  // The VJP: gout is the column offset of layer l's output cotangent.
-  int gout = ain;
-  for (int l = L - 1; l >= 0; --l) {
-    const int din = v.dims[l], dout = v.dims[l + 1];
-    woff -= din * dout + dout;
-    const float* w = wsm + woff;
-    const int gin = l == 0 ? 0 : gout - din;
-    auto cotangent = [&](int i) {
-      if (l + 1 == L) return w[i] * ct;
-      float g = 0.0f;
-      for (int o = 0; o < dout; ++o) g = fmaf(w[i * dout + o], act[(gout + o) * kThreads], g);
-      return g;
-    };
-    if (l == 0) {
-#pragma unroll
-      for (int i = 0; i < S; ++i) gx[i] = cotangent(i);
-    } else {
-      for (int i = 0; i < din; ++i) {
-        const float a = act[(gin + i) * kThreads];
-        act[(gin + i) * kThreads] = cotangent(i) * (1.0f - a * a);
-      }
-    }
-    gout = gin;
-  }
-  return out;
-}
-
-// The forward launch's value_spec instance (one session): K7's forward,
-// then V and its VJP at x_H; writes cost, xhist and vgrad [S, K] =
-// ct * dV/dx_H.  Dynamic shared memory: value_smem_bytes(v).
-template <class Plant>
-__global__ void __launch_bounds__(kThreads)
-grad_cost_forward_value_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                               const float* __restrict__ pvec, float* __restrict__ cost,
-                               float* __restrict__ xhist, float* __restrict__ vgrad, int K,
-                               int H, StepConsts c, float max_cost, float ct, ValueArgs v) {
+// The forward launch's value_spec body: K7's forward, then V and its VJP
+// at x_H (value_mlp.cuh); writes cost, xhist and vgrad [S, K] = ct *
+// dV/dx_H.  Its session-row form (Rows) reads rollout k's row k / ks of
+// pvec; V is the sessions' own.  Dynamic shared memory:
+// value_smem_bytes(v, kThreads).
+template <class Plant, bool Rows>
+__device__ __forceinline__ void grad_cost_forward_value_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ xhist, float* __restrict__ vgrad, int K, int ks,
+    int H, const StepConsts& c, float max_cost, float ct, const ValueArgs& v) {
   constexpr int S = Plant::S;
   extern __shared__ float value_smem[];
   int off = 0;
@@ -238,15 +152,39 @@ grad_cost_forward_value_kernel(const float* __restrict__ s0, const float* __rest
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= K) return;  // ragged K is masked (no barrier follows)
   float p[Plant::kN];
-  load_params<Plant>(pvec, p);
+  load_params<Plant>(Rows ? pvec + static_cast<size_t>(k / ks) * Plant::kN : pvec, p);
   Rollout<Plant> r;
   forward_store<Plant>(r, s0, Q, p, xhist, K, H, c, max_cost, k);
   float gx[S];
-  const float value =
-      value_forward_vjp<S>(r.x, value_smem, v, value_smem + off + threadIdx.x, ct, gx);
+  const float value = value_forward_vjp<S, kThreads>(r.x, value_smem, v,
+                                                     value_smem + off + threadIdx.x, ct, gx);
   cost[k] = (r.acc + (Plant::terminal_cost(r.x, p) + value)) / static_cast<float>(H + 1);
 #pragma unroll
   for (int i = 0; i < S; ++i) vgrad[static_cast<size_t>(i) * K + k] = gx[i];
+}
+
+// The forward launch's value_spec instance (one session).
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+grad_cost_forward_value_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                               const float* __restrict__ pvec, float* __restrict__ cost,
+                               float* __restrict__ xhist, float* __restrict__ vgrad, int K,
+                               int H, StepConsts c, float max_cost, float ct, ValueArgs v) {
+  grad_cost_forward_value_body<Plant, false>(s0, Q, pvec, cost, xhist, vgrad, K, K, H, c,
+                                             max_cost, ct, v);
+}
+
+// Its session-row form (slot_keys + value_spec, pallas_grad.py:348): B
+// sessions of ks rollouts under one V.
+template <class Plant>
+__global__ void __launch_bounds__(kThreads)
+grad_cost_forward_value_rows_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                    const float* __restrict__ pvec, float* __restrict__ cost,
+                                    float* __restrict__ xhist, float* __restrict__ vgrad, int K,
+                                    int ks, int H, StepConsts c, float max_cost, float ct,
+                                    ValueArgs v) {
+  grad_cost_forward_value_body<Plant, true>(s0, Q, pvec, cost, xhist, vgrad, K, ks, H, c,
+                                            max_cost, ct, v);
 }
 
 // The adjoint's body: the session-row form (Rows) and the value_spec form
@@ -380,6 +318,16 @@ grad_cost_adjoint_value_kernel(const float* __restrict__ Q, const float* __restr
   grad_adjoint_body<Plant, false, true>(Q, pvec, xhist, vgrad, dQ, K, K, H, c, ct);
 }
 
+// Its session-row form: B sessions of ks rollouts.
+template <class Plant>
+__global__ void __launch_bounds__(kAdjThreads, 2)
+grad_cost_adjoint_value_rows_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
+                                    const float* __restrict__ xhist,
+                                    const float* __restrict__ vgrad, float* __restrict__ dQ,
+                                    int K, int ks, int H, StepConsts c, float ct) {
+  grad_adjoint_body<Plant, true, true>(Q, pvec, xhist, vgrad, dQ, K, ks, H, c, ct);
+}
+
 }  // namespace ctt
 
 // Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
@@ -416,27 +364,24 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
 // 1..kMaxValueLayers, an input width other than S, an output width other
 // than 1, or more than a block's shared memory).
 extern "C" long ctt_value_smem_bytes(const ctt::ValueArgs* v, int S) {
-  if (v->n_layers < 1 || v->n_layers > ctt::kMaxValueLayers || v->dims[0] != S ||
-      v->dims[v->n_layers] != 1) {
-    return -1;
-  }
-  for (int l = 1; l < v->n_layers; ++l) {
-    if (v->dims[l] < 1) return -1;
-  }
-  const size_t bytes = ctt::value_smem_bytes(*v);
+  if (!ctt::value_net_ok(*v, S)) return -1;
+  const size_t bytes = ctt::value_smem_bytes(*v, ctt::kThreads);
   return bytes > ctt::kMaxSmemBytes ? -1 : static_cast<long>(bytes);
 }
 
-// Launch K7's forward value_spec instance on `stream` (one session): the
-// forward's outputs and vgrad [S, K] = ct * dV/dx_H of the net of v;
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an unknown plant or a net that ctt_value_smem_bytes refuses).
+// Launch K7's forward value_spec instance on `stream` over K rollouts,
+// sessions of ks as ctt_grad_cost_forward's (ks = K: one session, else its
+// session-row form, every session under V): the forward's outputs and
+// vgrad [S, K] = ct * dV/dx_H of the net of v; returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unknown plant, a ks that
+// does not divide K or a net that ctt_value_smem_bytes refuses).
 extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void* Q,
                                            const void* pvec, void* cost, void* xhist,
-                                           void* vgrad, int K, int H, int rk4, int substeps,
-                                           float sub_dt, float half_dt, float dt6,
+                                           void* vgrad, int K, int ks, int H, int rk4,
+                                           int substeps, float sub_dt, float half_dt, float dt6,
                                            float max_cost, float ct, const ctt::ValueArgs* v,
                                            void* stream) {
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
@@ -444,16 +389,31 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
     case ctt::kPlantCartpole: {
       const long bytes = ctt_value_smem_bytes(v, ctt::CartpolePlant::S);
       if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-      auto kernel = ctt::grad_cost_forward_value_kernel<ctt::CartpolePlant>;
-      if (bytes > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-        if (e != cudaSuccess) return static_cast<int>(e);
+      const auto* s0f = static_cast<const float*>(s0);
+      const auto* qf = static_cast<const float*>(Q);
+      const auto* pf = static_cast<const float*>(pvec);
+      auto* costf = static_cast<float*>(cost);
+      auto* xf = static_cast<float*>(xhist);
+      auto* vf = static_cast<float*>(vgrad);
+      if (ks == K) {
+        auto kernel = ctt::grad_cost_forward_value_kernel<ctt::CartpolePlant>;
+        if (bytes > 48 * 1024) {
+          const cudaError_t e = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+          if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
+            s0f, qf, pf, costf, xf, vf, K, H, c, max_cost, ct, *v);
+      } else {
+        auto kernel = ctt::grad_cost_forward_value_rows_kernel<ctt::CartpolePlant>;
+        if (bytes > 48 * 1024) {
+          const cudaError_t e = cudaFuncSetAttribute(
+              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+          if (e != cudaSuccess) return static_cast<int>(e);
+        }
+        kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
+            s0f, qf, pf, costf, xf, vf, K, ks, H, c, max_cost, ct, *v);
       }
-      kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(Q),
-          static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(xhist),
-          static_cast<float*>(vgrad), K, H, c, max_cost, ct, *v);
       break;
     }
     default:
@@ -463,28 +423,30 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
 }
 
 // Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
-// as the forward's, or, with vgrad not null, its value_spec instance (one
-// session: ks = K), which adds vgrad [S, K] to lam_H; returns as above.
+// as the forward's, or, with vgrad not null, its value_spec instance
+// (its session-row form where ks < K), which adds vgrad [S, K] to lam_H;
+// returns as above.
 extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
                                      const void* xhist, const void* vgrad, void* dQ, int K,
                                      int ks, int H, int rk4, int substeps, float sub_dt,
                                      float half_dt, float dt6, float ct, void* stream) {
-  if (ks < 1 || K % ks != 0 || (vgrad != nullptr && ks != K)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kAdjRollouts - 1) / ctt::kAdjRollouts);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* qf = static_cast<const float*>(Q);
   const auto* pf = static_cast<const float*>(pvec);
   const auto* xf = static_cast<const float*>(xhist);
+  const auto* vf = static_cast<const float*>(vgrad);
   auto* dqf = static_cast<float*>(dQ);
   switch (plant) {
     case ctt::kPlantCartpole:
-      if (vgrad != nullptr) {
+      if (vgrad != nullptr && ks == K) {
         ctt::grad_cost_adjoint_value_kernel<ctt::CartpolePlant>
-            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, static_cast<const float*>(vgrad),
-                                                 dqf, K, H, c, ct);
+            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, vf, dqf, K, H, c, ct);
+      } else if (vgrad != nullptr) {
+        ctt::grad_cost_adjoint_value_rows_kernel<ctt::CartpolePlant>
+            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, vf, dqf, K, ks, H, c, ct);
       } else {
         (ks == K ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>
                  : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>)

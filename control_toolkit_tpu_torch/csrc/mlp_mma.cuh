@@ -63,6 +63,7 @@
 #include <cstdint>
 
 #include "neural_core.cuh"
+#include "value_mlp.cuh"
 
 namespace ctt {
 
@@ -71,6 +72,9 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRows = 16;                 // rollouts per warp: one m16 tile
 constexpr int kRegTiles = 8;                 // 8-column tiles an activation keeps in registers
 constexpr int kTileFloats = 128;             // one fragment tile: 32 lanes x 4 floats
+// Columns of a value_spec form's value activations: one a rollout of a
+// block of kMmaWarps warps.
+constexpr int kValueCols = kMmaWarps * kMmaRows;
 
 // Offsets (floats) of the staged net and of each warp's region.
 struct MmaLayout {
@@ -126,8 +130,9 @@ inline int plan_mma_net(const NetArgs& a, int S, int U, bool transposed, MmaLayo
 // Lay out `a` for a plant of S states and U controls; returns the block's
 // dynamic shared memory in bytes, or -1 for a net the kernels refuse.  A
 // block takes kMmaWarps warps, or the most of 4, 2 and 1 whose regions fit
-// beside the net (a net wider than 64 or deeper than a few layers).
-inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
+// beside the net (a net wider than 64 or deeper than a few layers) and
+// `extra_bytes` after them (a value_spec form's value net).
+inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L, long extra_bytes = 0) {
   if (plan_mma_net(a, S, U, true, L) < 0) return -1;
   int warp = 0, widest = 0;
   const int n = a.n_layers;
@@ -145,7 +150,7 @@ inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L) {
   warp += 2 * kMmaRows * 8;
   L.warp_floats = warp;
   for (L.warps = kMmaWarps; L.warps >= 1; L.warps /= 2) {
-    const long bytes = 4L * (L.net_floats + static_cast<long>(L.warps) * warp);
+    const long bytes = 4L * (L.net_floats + static_cast<long>(L.warps) * warp) + extra_bytes;
     if (bytes <= kMaxSmem) return bytes;
   }
   return -1;
@@ -543,6 +548,32 @@ struct WarpRows {
   }
 };
 
+// ---- the value_spec forms (value_mlp.cuh) -----------------------------------
+
+// plan_mma with the value net of v staged after the warps' regions, and
+// its activations' kValueCols columns; -1 where either net is refused.
+inline long plan_mma_value(const NetArgs& a, const ValueArgs& v, int S, int U, MmaLayout& L) {
+  if (!value_net_ok(v, S)) return -1;
+  return plan_mma(a, S, U, L, static_cast<long>(value_smem_bytes(v, kValueCols)));
+}
+
+// The value net's region of shared memory (plan_mma_value).
+__device__ __forceinline__ float* value_region(float* sm, const MmaLayout& L) {
+  return sm + L.net_floats + L.warps * L.warp_floats;
+}
+
+// V(x_H) and ct * dV/dx_H of the staged value net for this lane's rollout:
+// lane l < 16 evaluates them in its rollout's column and lane l+16 takes
+// its bits by a shuffle.  Every lane of the warp calls it.
+template <int S>
+__device__ __forceinline__ float value_mma_tail(float* sm, const MmaLayout& L,
+                                                const ValueArgs& v, const float (&x)[S],
+                                                float ct, float (&gx)[S]) {
+  const int row = threadIdx.x & 15;
+  return value_from_lane<S, kValueCols>(x, value_region(sm, L), v, row,
+                                        (threadIdx.x >> 5) * kMmaRows + row, ct, gx);
+}
+
 // Plan the net's layout, allow the shared memory and launch `kernel` over
 // `members` blocks of `rows` rollouts (blockIdx.y the block's member; one
 // member of K rollouts for the single-net kernels), kMmaRows a warp and
@@ -566,6 +597,37 @@ template <class Kernel, class... Args>
 int launch_mma(Kernel kernel, long& allowed, const NetArgs& net, int S, int U, int K,
                void* stream, Args... args) {
   return launch_mma_members(kernel, allowed, net, S, U, K, 1, stream, args...);
+}
+
+// launch_mma_members for a value_spec form: the layout of plan_mma_value,
+// the value net's ValueArgs after the layout.
+template <class Kernel, class... Args>
+int launch_mma_value(Kernel kernel, long& allowed, const NetArgs& net, const ValueArgs& v, int S,
+                     int U, int rows, int members, void* stream, Args... args) {
+  MmaLayout L;
+  const long bytes = plan_mma_value(net, v, S, U, L);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = L.warps * kMmaRows;
+  const dim3 grid((rows + per_block - 1) / per_block, members);
+  kernel<<<grid, 32 * L.warps, bytes, static_cast<cudaStream_t>(stream)>>>(args..., net, L, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of a value_spec form's `kernel` an SM holds (0 where refused).
+template <class Kernel>
+int mma_value_blocks_per_sm(Kernel kernel, long& allowed, const NetArgs& net, const ValueArgs& v,
+                            int S, int U) {
+  MmaLayout L;
+  const long bytes = plan_mma_value(net, v, S, U, L);
+  int blocks = 0;
+  if (bytes < 0 || allow_smem(kernel, bytes, allowed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * L.warps, bytes) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return blocks;
 }
 
 // Blocks of `kernel` an SM holds for `net` (0 where the net is refused).

@@ -29,6 +29,18 @@
 // entry (neural_grad_cost_rollout_ens_kernel) over K8's body, so the
 // single-net kernel's code is unchanged.
 //
+// The value_spec form (pallas_grad.py:119-141, :191-206) of both, and of
+// the session-row form, adds a learned terminal value V (value_mlp.cuh):
+//   cost = (sum_h stage + terminal + V(x_H)) / (H+1),
+//   lam_H = ct * (d terminal / d x_H + dV / d x_H).
+// Each block stages V's operands after the net's and the warps' regions;
+// after the forward sweep lane l < 16 evaluates V and its VJP for its
+// rollout in its column of a [units][128] activation array and lane l+16
+// takes both by a shuffle, so the pair goes on with one lam.  V is shared
+// by sessions and members (pallas_grad.py:158).  Its entries
+// (neural_grad_cost_rollout_value_kernel, _ens_value_kernel) are the
+// body's kValue instances, so K8 and K8-ens keep their code.
+//
 // Forward: store x_h, add the stage cost, step; cost[k] = (sum_h stage +
 // terminal) / (H+1).  Backward, h = H-1 .. 0, with ct = 1/(H+1):
 //   lam = ct * d terminal / d x_H
@@ -63,17 +75,21 @@ namespace ctt {
 // a stacked ensemble: the block stages that member's weights and its warps
 // take the member's ks rollouts [m ks, (m+1) ks), blockIdx.x counting
 // blocks within the member, rows past the member's last repeating it; pvec
-// is one row.  Otherwise ks rollouts a session, as above.
-template <class Cost, bool kMembers>
+// is one row.  Otherwise ks rollouts a session, as above.  The value_spec
+// form (kValue) adds V of the net of *v (shared by sessions and members)
+// at x_H: value_mma_tail.
+template <class Cost, bool kMembers, bool kValue = false>
 __device__ __forceinline__ void neural_grad_cost_rollout_body(
     const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
     float* __restrict__ cost, float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
-    int H, float max_cost, float ct, const NetArgs& net, const MmaLayout& L) {
+    int H, float max_cost, float ct, const NetArgs& net, const MmaLayout& L,
+    const ValueArgs* v = nullptr) {
   constexpr int S = Cost::S, U = Cost::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int member = kMembers ? static_cast<int>(blockIdx.y) : 0;
   stage_mma_net(sm, net, L, S, U, member);
+  if constexpr (kValue) stage_value_net(value_region(sm, L), *v);
   __syncthreads();
   const int end = kMembers ? (member + 1) * ks : K;
   const WarpRows rows = kMembers ? WarpRows(member * ks, end) : WarpRows(K);
@@ -109,11 +125,23 @@ __device__ __forceinline__ void neural_grad_cost_rollout_body(
 #pragma unroll
     for (int j = 0; j < U; ++j) prev[j] = u[j];
   }
-  if (rows.writes) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  float vgx[S];  // ct * dV/dx_H (the value_spec form)
+  if constexpr (kValue) {
+    const float value = value_mma_tail<S>(sm, L, *v, x, ct, vgx);
+    if (rows.writes) {
+      cost[k] = (acc + (Cost::terminal_cost(x, c) + value)) / static_cast<float>(H + 1);
+    }
+  } else {
+    if (rows.writes) cost[k] = (acc + Cost::terminal_cost(x, c)) / static_cast<float>(H + 1);
+  }
 
   // Backward sweep.
   float lam[S], gnext[U];
   Cost::terminal_cost_grad(x, c, ct, lam);
+  if constexpr (kValue) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) lam[i] += vgx[i];
+  }
 #pragma unroll
   for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
   for (int h = H - 1; h >= 0; --h) {
@@ -163,25 +191,64 @@ neural_grad_cost_rollout_ens_kernel(const float* __restrict__ s0, const float* _
                                             ct, net, L);
 }
 
+// K8's value_spec form (pallas_grad.py:119-141, :191-206): the body's
+// kValue instance, as its own entries so that the kernels above keep
+// their code.  One session (ks = K) or its session-row form.
+template <class Cost>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+neural_grad_cost_rollout_value_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                      const float* __restrict__ pvec, float* __restrict__ cost,
+                                      float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                      int ks, int H, float max_cost, float ct, NetArgs net,
+                                      MmaLayout L, ValueArgs v) {
+  neural_grad_cost_rollout_body<Cost, false, true>(s0, Q, pvec, cost, dQ, xhist, K, ks, H,
+                                                   max_cost, ct, net, L, &v);
+}
+
+// The value_spec form of the member-block form: every member under one V
+// (pallas_grad.py:158).
+template <class Cost>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+neural_grad_cost_rollout_ens_value_kernel(const float* __restrict__ s0,
+                                          const float* __restrict__ Q,
+                                          const float* __restrict__ pvec,
+                                          float* __restrict__ cost, float* __restrict__ dQ,
+                                          float* __restrict__ xhist, int K, int ks, int H,
+                                          float max_cost, float ct, NetArgs net, MmaLayout L,
+                                          ValueArgs v) {
+  neural_grad_cost_rollout_body<Cost, true, true>(s0, Q, pvec, cost, dQ, xhist, K, ks, H,
+                                                  max_cost, ct, net, L, &v);
+}
+
 // The dynamic shared memory K8's and its member-block form's attributes
-// allow so far (allow_smem).
-static long k8_allowed = 0, k8_ens_allowed = 0;
+// allow so far (allow_smem); their value_spec forms'.
+static long k8_allowed = 0, k8_ens_allowed = 0, k8_value_allowed = 0, k8_ens_value_allowed = 0;
 
 }  // namespace ctt
 
 // Launches K8 on `stream` over K rollouts, sessions of ks (pvec holds
 // K / ks rows, rollout k reading row k / ks: ks = K for one session, the
-// session-row form for a fleet); returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for an unknown plant, a ks that does not
-// divide K or a net the kernel refuses.  xhist is scratch of H*S*K floats
-// that the caller allocates.
+// session-row form for a fleet), or, with v not null, its value_spec form
+// (V of the net of *v added at x_H, one session or the session-row form);
+// returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for an unknown plant, a ks that does not divide K or a net (or value
+// net) the kernel refuses.  xhist is scratch of H*S*K floats that the
+// caller allocates.
 extern "C" int ctt_neural_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                             const void* pvec, void* cost, void* dQ, void* xhist,
                                             int K, int ks, int H, float max_cost, float ct,
-                                            const ctt::NetArgs* net, void* stream) {
+                                            const ctt::NetArgs* net, const ctt::ValueArgs* v,
+                                            void* stream) {
   using Cost = ctt::CartpoleCost;
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (v != nullptr) {
+    return ctt::launch_mma_value(
+        ctt::neural_grad_cost_rollout_value_kernel<Cost>, ctt::k8_value_allowed, *net, *v,
+        Cost::S, Cost::U, K, 1, stream, static_cast<const float*>(s0),
+        static_cast<const float*>(Q), static_cast<const float*>(pvec), static_cast<float*>(cost),
+        static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, max_cost, ct);
   }
   return ctt::launch_mma(ctt::neural_grad_cost_rollout_kernel<Cost>, ctt::k8_allowed, *net,
                          Cost::S, Cost::U, K, stream, static_cast<const float*>(s0),
@@ -193,16 +260,25 @@ extern "C" int ctt_neural_grad_cost_rollout(int plant, const void* s0, const voi
 // Launches K8's member-block (n_members) form on `stream` over K rollouts
 // under the stacked ensemble `net` (member 0's pointers; every tensor with a
 // leading member axis), ks = K / E rollouts a member: rollout k under member
-// k / ks; pvec holds one row.  Returns as ctt_neural_grad_cost_rollout, or
-// cudaErrorInvalidValue for a ks that does not divide K.
+// k / ks; pvec holds one row; with v not null, its value_spec form.
+// Returns as ctt_neural_grad_cost_rollout, or cudaErrorInvalidValue for a
+// ks that does not divide K.
 extern "C" int ctt_neural_grad_cost_rollout_ens(int plant, const void* s0, const void* Q,
                                                 const void* pvec, void* cost, void* dQ,
                                                 void* xhist, int K, int ks, int H,
                                                 float max_cost, float ct,
-                                                const ctt::NetArgs* net, void* stream) {
+                                                const ctt::NetArgs* net,
+                                                const ctt::ValueArgs* v, void* stream) {
   using Cost = ctt::CartpoleCost;
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (v != nullptr) {
+    return ctt::launch_mma_value(
+        ctt::neural_grad_cost_rollout_ens_value_kernel<Cost>, ctt::k8_ens_value_allowed, *net,
+        *v, Cost::S, Cost::U, ks, K / ks, stream, static_cast<const float*>(s0),
+        static_cast<const float*>(Q), static_cast<const float*>(pvec), static_cast<float*>(cost),
+        static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, max_cost, ct);
   }
   return ctt::launch_mma_members(
       ctt::neural_grad_cost_rollout_ens_kernel<Cost>, ctt::k8_ens_allowed, *net, Cost::S,
@@ -232,4 +308,20 @@ extern "C" int ctt_neural_grad_ens_blocks_per_sm(const ctt::NetArgs* net) {
   using Cost = ctt::CartpoleCost;
   return ctt::mma_blocks_per_sm(ctt::neural_grad_cost_rollout_ens_kernel<Cost>,
                                 ctt::k8_ens_allowed, *net, Cost::S, Cost::U);
+}
+
+// The value_spec forms' layout for `net` and the value net of v: the
+// block's dynamic shared memory in bytes (-1 for a net either refuses)
+// into *bytes, and the blocks an SM holds of K8's value form (ens 0) or
+// of its member-block form's (ens 1), 0 for a refused net.
+extern "C" int ctt_neural_grad_value_layout(const ctt::NetArgs* net, const ctt::ValueArgs* v,
+                                            int ens, long* bytes) {
+  using Cost = ctt::CartpoleCost;
+  ctt::MmaLayout L;
+  *bytes = ctt::plan_mma_value(*net, *v, Cost::S, Cost::U, L);
+  return ens ? ctt::mma_value_blocks_per_sm(ctt::neural_grad_cost_rollout_ens_value_kernel<Cost>,
+                                            ctt::k8_ens_value_allowed, *net, *v, Cost::S,
+                                            Cost::U)
+             : ctt::mma_value_blocks_per_sm(ctt::neural_grad_cost_rollout_value_kernel<Cost>,
+                                            ctt::k8_value_allowed, *net, *v, Cost::S, Cost::U);
 }

@@ -54,7 +54,11 @@
 //   dQ[k,h] = (du + gu) + gprev_{h+1}       gprev_H = 0
 //   lam = dx + gx
 // transcribed from ops/adjoints.py residual_step_vjp; the rk4 step and its
-// adjoint are rollout_core.cuh's, as K7's.
+// adjoint are rollout_core.cuh's, as K7's.  K9's value_spec form (one
+// session or the session-row form; its own entry over K9's body,
+// residual_grad_cost_rollout_value_kernel) adds a learned terminal value V
+// as K8's does (mlp_mma.cuh value_mma_tail): V(x_H) joins the terminal
+// cost and ct * dV/dx_H seeds lam.
 //
 // What bounds them on an H100 at the main path's K=16384, H=50.  K12 in
 // FP32: the rk4 step (172 operations), the stage cost (24) and the
@@ -208,17 +212,19 @@ residual_cost_rollout_emit_kernel(const float* __restrict__ s0, const float* __r
                                           R);
 }
 
-template <class Plant>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
-                                  const float* __restrict__ pvec, float* __restrict__ cost,
-                                  float* __restrict__ dQ, float* __restrict__ xhist, int K,
-                                  int ks, int H, StepConsts c, float max_cost, float ct,
-                                  NetArgs net, MmaLayout L) {
+// K9's body; its value_spec form (kValue) adds V of the net of *v at x_H
+// (mlp_mma.cuh value_mma_tail), the sessions' one V.
+template <class Plant, bool kValue>
+__device__ __forceinline__ void residual_grad_cost_rollout_body(
+    const float* __restrict__ s0, const float* __restrict__ Q, const float* __restrict__ pvec,
+    float* __restrict__ cost, float* __restrict__ dQ, float* __restrict__ xhist, int K, int ks,
+    int H, const StepConsts& c, float max_cost, float ct, const NetArgs& net,
+    const MmaLayout& L, const ValueArgs* v) {
   constexpr int S = Plant::S, U = Plant::U;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   stage_mma_net(sm, net, L, S, U);
+  if constexpr (kValue) stage_value_net(value_region(sm, L), *v);
   __syncthreads();
   const WarpRows rows(K);
   if (rows.first >= K) return;  // the whole warp past K
@@ -248,11 +254,23 @@ residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __r
 #pragma unroll
     for (int j = 0; j < U; ++j) r.prev[j] = u[j];
   }
-  if (rows.writes) cost[k] = r.finish(p, H);
+  float vgx[S];  // ct * dV/dx_H (the value_spec form)
+  if constexpr (kValue) {
+    const float value = value_mma_tail<S>(sm, L, *v, r.x, ct, vgx);
+    if (rows.writes) {
+      cost[k] = (r.acc + (Plant::terminal_cost(r.x, p) + value)) / static_cast<float>(H + 1);
+    }
+  } else {
+    if (rows.writes) cost[k] = r.finish(p, H);
+  }
 
   // Backward sweep.
   float lam[S], gnext[U];
   Plant::terminal_cost_grad(r.x, p, ct, lam);
+  if constexpr (kValue) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) lam[i] += vgx[i];
+  }
 #pragma unroll
   for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
   for (int h = H - 1; h >= 0; --h) {
@@ -281,8 +299,35 @@ residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __r
   }
 }
 
-// The dynamic shared memory K9's attribute allows so far (allow_smem).
-static long k9_allowed = 0;
+template <class Plant>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+residual_grad_cost_rollout_kernel(const float* __restrict__ s0, const float* __restrict__ Q,
+                                  const float* __restrict__ pvec, float* __restrict__ cost,
+                                  float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                  int ks, int H, StepConsts c, float max_cost, float ct,
+                                  NetArgs net, MmaLayout L) {
+  residual_grad_cost_rollout_body<Plant, false>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, c,
+                                                max_cost, ct, net, L, nullptr);
+}
+
+// K9's value_spec form (pallas_grad.py:119-141, :191-206, the
+// build_residual_grad_cost_rollout_kernel twin): one session or its
+// session-row form, its own entry so that K9 keeps its code.
+template <class Plant>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+residual_grad_cost_rollout_value_kernel(const float* __restrict__ s0,
+                                        const float* __restrict__ Q,
+                                        const float* __restrict__ pvec, float* __restrict__ cost,
+                                        float* __restrict__ dQ, float* __restrict__ xhist, int K,
+                                        int ks, int H, StepConsts c, float max_cost, float ct,
+                                        NetArgs net, MmaLayout L, ValueArgs v) {
+  residual_grad_cost_rollout_body<Plant, true>(s0, Q, pvec, cost, dQ, xhist, K, ks, H, c,
+                                               max_cost, ct, net, L, &v);
+}
+
+// The dynamic shared memory K9's attribute allows so far (allow_smem); its
+// value_spec form's.
+static long k9_allowed = 0, k9_value_allowed = 0;
 // K12's, and its emit_terminal form's.
 static long k12_allowed = 0, k12_emit_allowed = 0;
 
@@ -360,19 +405,29 @@ extern "C" int ctt_residual_blocks_per_sm(const ctt::NetArgs* net) {
   return blocks;
 }
 
-// Launches K9 on `stream` over K rollouts, sessions of ks as K12's; returns
-// as above.  xhist is scratch of H*S*K floats that the caller allocates.
+// Launches K9 on `stream` over K rollouts, sessions of ks as K12's, or,
+// with v not null, its value_spec form (V of the net of *v added at x_H);
+// returns as above.  xhist is scratch of H*S*K floats that the caller
+// allocates.
 extern "C" int ctt_residual_grad_cost_rollout(int plant, const void* s0, const void* Q,
                                               const void* pvec, void* cost, void* dQ,
                                               void* xhist, int K, int ks, int H, int rk4,
                                               int substeps, float sub_dt, float half_dt,
                                               float dt6, float max_cost, float ct,
-                                              const ctt::NetArgs* net, void* stream) {
+                                              const ctt::NetArgs* net, const ctt::ValueArgs* v,
+                                              void* stream) {
   using Plant = ctt::CartpolePlant;
   if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0 || !ctt::residual_net(*net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
+  if (v != nullptr) {
+    return ctt::launch_mma_value(
+        ctt::residual_grad_cost_rollout_value_kernel<Plant>, ctt::k9_value_allowed, *net, *v,
+        Plant::S, Plant::U, K, 1, stream, static_cast<const float*>(s0),
+        static_cast<const float*>(Q), static_cast<const float*>(pvec), static_cast<float*>(cost),
+        static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, c, max_cost, ct);
+  }
   return ctt::launch_mma(ctt::residual_grad_cost_rollout_kernel<Plant>, ctt::k9_allowed, *net,
                          Plant::S, Plant::U, K, stream, static_cast<const float*>(s0),
                          static_cast<const float*>(Q), static_cast<const float*>(pvec),
@@ -386,4 +441,17 @@ extern "C" int ctt_residual_grad_blocks_per_sm(const ctt::NetArgs* net) {
   if (!ctt::residual_net(*net)) return 0;
   return ctt::mma_blocks_per_sm(ctt::residual_grad_cost_rollout_kernel<Plant>, ctt::k9_allowed,
                                 *net, Plant::S, Plant::U);
+}
+
+// K9's value_spec form's dynamic shared memory for `net` and the value net
+// of v into *bytes (-1 for a net either refuses); returns the blocks an SM
+// holds (0 for a refused net).
+extern "C" int ctt_residual_grad_value_layout(const ctt::NetArgs* net, const ctt::ValueArgs* v,
+                                              long* bytes) {
+  using Plant = ctt::CartpolePlant;
+  ctt::MmaLayout L;
+  *bytes = ctt::residual_net(*net) ? ctt::plan_mma_value(*net, *v, Plant::S, Plant::U, L) : -1;
+  if (*bytes < 0) return 0;
+  return ctt::mma_value_blocks_per_sm(ctt::residual_grad_cost_rollout_value_kernel<Plant>,
+                                      ctt::k9_value_allowed, *net, *v, Plant::S, Plant::U);
 }

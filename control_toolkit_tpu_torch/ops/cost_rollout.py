@@ -25,7 +25,9 @@ Its ``emit_terminal`` form (pallas_rollout.py:48, :100, :137-148)
 ``cost_rollout_emit`` also returns the terminal states ``x_H [K, S]`` in
 the costs' rollout order, on which a learned value terminal is evaluated
 outside the kernel (``costs/value_terminal.py``); its costs are K1's, the
-same body.
+same body.  Its session-row form ``cost_rollout_cols_emit`` (``slot_keys``
++ ``emit_terminal``, pallas_rollout.py:47-48: the valued gradient fleets'
+final scoring over an ODE) returns ``(cost [B, K], x_H [B, K, S])``.
 """
 from __future__ import annotations
 
@@ -108,6 +110,16 @@ def cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor, Q: to
     return cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T).reshape(B, K)
 
 
+def cost_rollout_cols_emit_plain(model: kernels.RolloutModel, s0: torch.Tensor,
+                                 Q: torch.Tensor, pvec_b: torch.Tensor):
+    """K1's session-row emit_terminal form in PyTorch: ``(cost [B, K], x_H
+    [B, K, S])``."""
+    B = pvec_b.shape[0]
+    K = s0.shape[0] // B
+    cost, x = cost_rollout_emit_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T)
+    return cost.reshape(B, K), x.reshape(B, K, -1)
+
+
 def cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
                       pvec_b: torch.Tensor) -> torch.Tensor:
     """K1's session-row form: the costs ``[B, K]`` of B sessions' rollouts
@@ -123,12 +135,28 @@ def cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Te
 cost_rollout_cols.launches = 0
 
 
+def cost_rollout_cols_emit(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                           pvec_b: torch.Tensor):
+    """K1's session-row emit_terminal form: ``(cost [B, K], x_H [B, K, S])``
+    of B sessions' rollouts in one launch; see the module docstring."""
+    K = kernels.check_cols_shapes("cost_rollout_cols_emit", s0, Q, pvec_b)
+    B = pvec_b.shape[0]
+    if kernels.on_cpu(s0, Q, pvec_b):
+        return cost_rollout_cols_emit_plain(model, s0, Q, pvec_b)
+    x_term = torch.empty_like(s0)
+    cost = _launch("cost_rollout_cols_emit", model, s0, Q, pvec_b, K, x_term)
+    cost_rollout_cols_emit.launches += 1
+    return cost.reshape(B, K), x_term.reshape(B, K, -1)
+
+
+cost_rollout_cols_emit.launches = 0
+
+
 def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int,
             x_term=None) -> torch.Tensor:
     """Check the operands and launch K1 over sessions of ``ks`` rollouts,
-    ``pvec``'s rows, or, with ``x_term [K, S]``, its emit_terminal form
-    (one session), which writes the terminal states there; returns the
-    costs ``[B*K]``."""
+    ``pvec``'s rows, or, with ``x_term [B*K, S]``, its emit_terminal form,
+    which writes the terminal states there; returns the costs ``[B*K]``."""
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]

@@ -51,7 +51,10 @@ Its forward launch evaluates V and its VJP (ops/adjoints.py
 ``value_mlp_vjp`` in the plain version, ``grad_cost_rollout_plain``'s
 ``value_ops``) at x_H and writes ``ct * dV/dx_H`` to a ``[S, K]``
 buffer, which its adjoint launch adds to lam_H; the net's tensors go in by
-pointer on every call, so a re-fit rebuilds nothing.
+pointer on every call, so a re-fit rebuilds nothing.  Its session-row
+form ``grad_cost_rollout_cols_value`` (``slot_keys`` + ``value_spec``,
+the valued gradient fleets') takes ``grad_cost_rollout_cols``' operands
+and ``value_ops``, every session under the one V.
 """
 from __future__ import annotations
 
@@ -162,19 +165,7 @@ def grad_cost_rollout_value(model: kernels.RolloutModel, s0: torch.Tensor, Q: to
     _check_single("grad_cost_rollout_value", model, s0, Q, pvec)
     if kernels.on_cpu(s0, Q, pvec, *value_ops):
         return grad_cost_rollout_plain(model, s0, Q, pvec, value_ops)
-    device = kernels.check_cuda_operands(
-        "grad_cost_rollout_value", s0=s0, Q=Q, pvec=pvec,
-        **{f"value_op{i}": t for i, t in enumerate(value_ops)})
-    K, S = s0.shape
-    H, U = Q.shape[1], Q.shape[2]
-    model.check_launch_shape("grad_cost_rollout_value", S, U, K, H, pvec.shape[-1])
-    vargs = kernels.value_args(value_ops, S)
-    cost = torch.empty(K, dtype=torch.float32, device=device)
-    dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
-    xhist = torch.empty(H + 1, S, K, dtype=torch.float32, device=device)
-    vgrad = torch.empty(S, K, dtype=torch.float32, device=device)
-    for part in ("forward", "adjoint"):
-        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist, value=(vargs, vgrad))
+    cost, dQ = _launch("grad_cost_rollout_value", model, s0, Q, pvec, s0.shape[0], value_ops)
     grad_cost_rollout_value.launches += 1
     return cost, dQ
 
@@ -183,14 +174,15 @@ grad_cost_rollout_value.launches = 0
 
 
 def grad_cost_rollout_cols_plain(model: kernels.RolloutModel, s0: torch.Tensor,
-                                 Q: torch.Tensor, pvec_b: torch.Tensor
+                                 Q: torch.Tensor, pvec_b: torch.Tensor, value_ops=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7's session-row form in PyTorch: K7's plain version over the B*K
     rollouts, each under its session's row of ``pvec_b``; ``(cost [B,K],
-    dQ [B*K,H,U])``."""
+    dQ [B*K,H,U])``; with ``value_ops``, its value_spec form's."""
     B = pvec_b.shape[0]
     K = s0.shape[0] // B
-    cost, dQ = grad_cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T)
+    cost, dQ = grad_cost_rollout_plain(model, s0, Q, kernels.session_rows(pvec_b, K).T,
+                                       value_ops)
     return cost.reshape(B, K), dQ
 
 
@@ -212,10 +204,32 @@ def grad_cost_rollout_cols(model: kernels.RolloutModel, s0: torch.Tensor, Q: tor
 grad_cost_rollout_cols.launches = 0
 
 
-def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int):
+def grad_cost_rollout_cols_value(model: kernels.RolloutModel, s0: torch.Tensor, Q: torch.Tensor,
+                                 pvec_b: torch.Tensor, value_ops
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's session-row value_spec form: ``(cost [B,K], dQ [B*K,H,U])`` of
+    B sessions' rollouts under one V in one forward and one adjoint
+    launch; see the module docstring."""
+    K = kernels.check_cols_shapes("grad_cost_rollout_cols_value", s0, Q, pvec_b)
+    if model.plant not in PLANT_ADJOINTS:
+        raise ValueError(f"grad_cost_rollout_cols_value: no adjoints for the {model.plant!r} "
+                         "plant")
+    if kernels.on_cpu(s0, Q, pvec_b, *value_ops):
+        return grad_cost_rollout_cols_plain(model, s0, Q, pvec_b, value_ops)
+    cost, dQ = _launch("grad_cost_rollout_cols_value", model, s0, Q, pvec_b, K, value_ops)
+    grad_cost_rollout_cols_value.launches += 1
+    return cost.reshape(pvec_b.shape[0], K), dQ
+
+
+grad_cost_rollout_cols_value.launches = 0
+
+
+def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int, value_ops=None):
     """Check the operands and launch K7's forward and adjoint over sessions
-    of ``ks`` rollouts, ``pvec``'s rows; returns ``(cost [B*K], dQ)``."""
-    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
+    of ``ks`` rollouts, ``pvec``'s rows (with ``value_ops``, their
+    value_spec instances); returns ``(cost [B*K], dQ)``."""
+    device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec,
+                                         **kernels.value_tensors(value_ops or ()))
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]
     model.check_launch_shape(name, S, U, K, H, pvec.shape[-1])
@@ -223,8 +237,12 @@ def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int):
     dQ = torch.empty(K, H, U, dtype=torch.float32, device=device)
     # The forward's states x_0..x_H, rollout index fastest (csrc note).
     xhist = torch.empty(H + 1, S, K, dtype=torch.float32, device=device)
+    value = None
+    if value_ops is not None:
+        value = (kernels.value_args(value_ops, S),
+                 torch.empty(S, K, dtype=torch.float32, device=device))
     for part in ("forward", "adjoint"):
-        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist, ks)
+        launch_part(part, model, s0, Q, pvec, cost, dQ, xhist, ks, value)
     return cost, dQ
 
 
@@ -234,8 +252,8 @@ def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: tor
     """One of K7's two launches on checked CUDA operands over sessions of
     ``ks`` rollouts (0: one session), ``pvec``'s rows: ``forward`` (writes
     cost and xhist [H+1, S, K]) or ``adjoint`` (reads xhist, writes dQ);
-    with ``value = (ValueArgs, vgrad [S, K])``, of the value_spec form (one
-    session): its forward also writes vgrad, its adjoint reads it."""
+    with ``value = (ValueArgs, vgrad [S, K])``, of the value_spec form: its
+    forward also writes vgrad, its adjoint reads it."""
     K, H = Q.shape[0], Q.shape[1]
     lib, device, ct = kernels.load(), s0.device, 1.0 / (H + 1)
     plant = kernels.PLANT_IDS[model.plant]
@@ -244,7 +262,7 @@ def launch_part(part: str, model: kernels.RolloutModel, s0: torch.Tensor, Q: tor
         if part == "forward" and value is not None:
             rc = lib.ctt_grad_cost_forward_value(
                 plant, s0.data_ptr(), Q.data_ptr(), pvec.data_ptr(), cost.data_ptr(),
-                xhist.data_ptr(), value[1].data_ptr(), K, H, *model.step_args(),
+                xhist.data_ptr(), value[1].data_ptr(), K, ks or K, H, *model.step_args(),
                 model.max_cost, ct, ctypes.byref(value[0]), stream)
         elif part == "forward":
             rc = lib.ctt_grad_cost_forward(

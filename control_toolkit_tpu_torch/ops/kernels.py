@@ -31,7 +31,7 @@ SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_ro
            "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
            "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "cem_core.cuh",
-           "short_step.cuh", "mppi_ahead.cuh")
+           "short_step.cuh", "mppi_ahead.cuh", "value_mlp.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,8 +59,8 @@ PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for pl
 # and the most layers (MLP) or cells (GRU/LSTM) a net may have there.
 NET_KINDS = {"mlp": 0, "gru": 1, "lstm": 2}
 MAX_LAYERS = 8
-# The most layers of a learned terminal value net in K7's value_spec form
-# (csrc/grad_cost_rollout.cu kMaxValueLayers).
+# The most layers of a learned terminal value net in the value_spec forms
+# of K7-K10 (csrc/value_mlp.cuh kMaxValueLayers).
 VALUE_MAX_LAYERS = 8
 
 
@@ -132,7 +132,7 @@ class NetArgs(ctypes.Structure):
 
 
 class ValueArgs(ctypes.Structure):
-    """``csrc/grad_cost_rollout.cu`` ValueArgs: a learned terminal value's
+    """``csrc/value_mlp.cuh`` ValueArgs: a learned terminal value's
     tanh MLP, its widths and the device pointers of its layers as stored
     (``w_i [in, out]``, ``b_i [out]``)."""
 
@@ -163,6 +163,11 @@ def value_args(ops, S: int) -> ValueArgs:
     for i, d in enumerate(dims):
         args.dims[i] = d
     return args
+
+
+def value_tensors(ops) -> Dict[str, torch.Tensor]:
+    """The value net's operands by name, for ``check_cuda_operands``."""
+    return {f"value_op{i}": t for i, t in enumerate(ops)}
 
 
 def _expect(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
@@ -523,9 +528,11 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_grad_cost_adjoint.restype = i32
+        # The value_spec forms take the value net's ValueArgs (K8, K9, K10:
+        # None for the kernel); K7's forward value form takes ks as K7's.
         value = ctypes.POINTER(ValueArgs)
         lib.ctt_grad_cost_forward_value.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, f32, f32, f32, f32,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, f32, f32, f32, f32,
             value, ptr,
         ]
         lib.ctt_grad_cost_forward_value.restype = i32
@@ -548,8 +555,12 @@ def load() -> ctypes.CDLL:
                                                     f32, net, ptr]
         lib.ctt_neural_cost_rollout_ens.restype = i32
         for fn in (lib.ctt_neural_grad_cost_rollout, lib.ctt_neural_grad_cost_rollout_ens):
-            fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, ptr]
+            fn.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, net, value,
+                           ptr]
             fn.restype = i32
+        long_p = ctypes.POINTER(ctypes.c_long)
+        lib.ctt_neural_grad_value_layout.argtypes = [net, value, i32, long_p]
+        lib.ctt_neural_grad_value_layout.restype = i32
         lib.ctt_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
@@ -573,17 +584,21 @@ def load() -> ctypes.CDLL:
         lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
         lib.ctt_residual_plan.restype = ctypes.c_long
         lib.ctt_residual_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, f32, net, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, f32, net, value, ptr,
         ]
         lib.ctt_residual_grad_cost_rollout.restype = i32
+        lib.ctt_residual_grad_value_layout.argtypes = [net, value, long_p]
+        lib.ctt_residual_grad_value_layout.restype = i32
         gp = ctypes.POINTER(GPArgs)
         lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
                                             i32, gp, ptr]
         lib.ctt_gp_cost_rollout.restype = i32
         lib.ctt_gp_grad_cost_rollout.argtypes = [
-            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, gp, ptr,
+            i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, gp, value, ptr,
         ]
         lib.ctt_gp_grad_cost_rollout.restype = i32
+        lib.ctt_gp_grad_value_layout.argtypes = [i32, value, long_p]
+        lib.ctt_gp_grad_value_layout.restype = i32
         lib.ctt_gp_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         lib.ctt_gp_layout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]

@@ -140,9 +140,10 @@ class GradientOptimizer(Optimizer):
             s0 = s[:, 0, :].repeat_interleave(K, dim=0)                      # [B*K, S]
             Q, adam = adam_descent(
                 states.Q, states.adam,
-                lambda Q: gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)[1].reshape(B, K, H, U),
+                lambda Q: gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn,
+                                cost)[1].reshape(B, K, H, U),
                 self.gradient_steps, lr, b1, b2, eps, gclip, low, high)
-            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)             # [B, K]
+            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn, cost)       # [B, K]
             best = torch.argmin(costs, dim=1)
             u = torch.take_along_dim(Q[:, :, 0, :], best[:, None, None], dim=1)[:, 0]
             new_state = GradientState(

@@ -9,13 +9,14 @@ admit a TS-inf, non-probabilistic ``EnsemblePredictor`` over a cost with a
 device implementation (``ode.device_cost``: ``supports_fused_rollout``,
 scalar attributes) and ``force_scan`` off.  A learned value terminal
 rides the cost form's ``emit_terminal`` form, ``post(x_H)/(H+1)`` added
-outside it (JAX ``ensemble.py:102``), under ``risk_weight`` too; the
-gradient gate raises NotImplementedError for it (the value_spec form of
-K8's member-block form is not ported).  The gradient gate also refuses
-``risk_weight`` and
-``robust_eval`` (the kernel's dQ has no disagreement penalty and scores
-each plan under one member; those objectives keep ``torch.autograd``
-through the loop).  The
+outside it (JAX ``ensemble.py:102``), under ``risk_weight`` too, and,
+where V is a plain tanh MLP (``_value_grad_spec``), the value_spec form of
+K8's member-block form, every member under the one V (JAX
+``ensemble.py:139-147``); any other post hook keeps ``torch.autograd``.
+The gradient gate also refuses ``risk_weight`` and ``robust_eval``, with V
+or without (the kernel's dQ has no disagreement penalty and scores each
+plan under one member; those objectives keep ``torch.autograd`` through
+the loop).  The
 JAX gates' TPU conjuncts (backend, ``ensemble_tile_for``, ``grad_tile``)
 have no counterpart: a ragged K/E is masked in the kernels, and the
 wrappers raise on a member net whose weights exceed a block's shared
@@ -29,11 +30,13 @@ from __future__ import annotations
 
 from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
 from control_toolkit_tpu_torch.ops import kernels
-from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import neural_grad_cost_rollout_ens
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
+    neural_grad_cost_rollout_ens, neural_grad_cost_rollout_ens_value,
+)
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout_ens, neural_cost_rollout_ens_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
 
 name = "ensemble"
 
@@ -82,22 +85,25 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    """The gate of K8's member-block form; raises for a cost with a
-    post-terminal hook (its value_spec form is not ported)."""
-    ok = (not opt.force_scan and compatible_model(opt) and not opt.risk_weight
-          and not opt.robust_eval)
-    if ok:
-        refuse_value(opt, "the value_spec form of K8's member-block form")
-    return ok
+    """The gate of K8's member-block form, with no post-terminal hook
+    unless it is a plain tanh-MLP V (its value_spec form)."""
+    return (not opt.force_scan and compatible_model(opt) and not opt.risk_weight
+            and not opt.robust_eval and value_hook_ok(opt))
 
 
 def build_grad(opt):
     """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
-    over K8's member-block form."""
+    over K8's member-block form; with a learned value terminal, over its
+    value_spec form, the value net read from ``params`` at every call."""
     model, pack = net_model(opt)
-
-    def grad_fn(s_tiled, Q, u_prev, params):
-        return neural_grad_cost_rollout_ens(model, s_tiled, Q, pack(params, u_prev),
-                                            params["dyn"]["net"])
+    if opt._value_grad_spec():
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return neural_grad_cost_rollout_ens_value(model, s_tiled, Q, pack(params, u_prev),
+                                                      params["dyn"]["net"],
+                                                      opt._flatten_value_ops(params))
+    else:
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return neural_grad_cost_rollout_ens(model, s_tiled, Q, pack(params, u_prev),
+                                                params["dyn"]["net"])
 
     return grad_fn

@@ -13,21 +13,24 @@ form serves the batched-mpc MPPI fleet
 (``MPPIOptimizer._make_batched_gp_step``, over ``cached_operands``), K10's
 and K14's its gradient fleets (``batched_kernels``).  A learned value
 terminal rides K14's ``emit_terminal`` form, ``post(x_H)/(H+1)`` added
-outside it (JAX ``gp.py:87``).  Not ported: K10's ``value_spec`` form:
-over a cost with a post-terminal hook the gradient gate raises
-NotImplementedError naming it.
+outside it (JAX ``gp.py:87``), and, where V is a plain tanh MLP
+(``_value_grad_spec``), K10's ``value_spec`` form; their session-row forms
+serve a valued gradient fleet.  Any other post hook keeps
+``torch.autograd`` for the gradient.
 """
 from __future__ import annotations
 
 from control_toolkit_tpu_torch.models.gp_predictor import GPPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import (
-    gp_grad_cost_rollout, gp_grad_cost_rollout_cols,
+    gp_grad_cost_rollout, gp_grad_cost_rollout_cols, gp_grad_cost_rollout_cols_value,
+    gp_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.gp_rollout import (
-    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_emit,
+    flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_emit,
+    gp_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
 
 name = "gp"
 
@@ -82,23 +85,26 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    """K10's gate; raises for a cost with a post-terminal hook (its
-    value_spec form is not ported)."""
-    ok = not opt.force_scan and compatible_model(opt)
-    if ok:
-        refuse_value(opt, "K10's value_spec form")
-    return ok
+    """K10's gate, with no post-terminal hook unless it is a plain tanh-MLP
+    V, which K10's value_spec form differentiates."""
+    return not opt.force_scan and compatible_model(opt) and value_hook_ok(opt)
 
 
 def build_grad(opt):
     """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
-    over K10."""
+    over K10; with a learned value terminal, over its value_spec form, the
+    value net read from ``params`` at every call."""
     model, pack = gp_model(opt)
     operands = cached_operands()
-
-    def grad_fn(s_tiled, Q, u_prev, params):
-        return gp_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                                    operands(params["dyn"]["gp"]))
+    if opt._value_grad_spec():
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return gp_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
+                                              operands(params["dyn"]["gp"]),
+                                              opt._flatten_value_ops(params))
+    else:
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return gp_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                        operands(params["dyn"]["gp"]))
 
     return grad_fn
 
@@ -106,10 +112,14 @@ def build_grad(opt):
 def batched_kernels(opt):
     """The session-row forms for a B-session fleet over the GP (JAX
     ``gp.py:174``): ``(grad, cost, extra, param_keys)`` over K10's and
-    K14's forms, the GP's operands flattened from ``dyn["gp"]`` once a
-    posterior (``cached_operands``: a hot-swap rebuilds nothing)."""
+    K14's forms (with a learned value terminal, K10's session-row
+    value_spec form and K14's session-row emit_terminal form), the GP's
+    operands flattened from ``dyn["gp"]`` once a posterior
+    (``cached_operands``: a hot-swap rebuilds nothing)."""
     model, _ = gp_model(opt)
     operands = cached_operands()
-    return (lambda *a: gp_grad_cost_rollout_cols(model, *a),
-            lambda *a: gp_cost_rollout_cols(model, *a), lambda dyn: (operands(dyn["gp"]),),
-            model.param_keys)
+    valued = opt._value_grad_spec() is not None
+    grad = gp_grad_cost_rollout_cols_value if valued else gp_grad_cost_rollout_cols
+    cost = gp_cost_rollout_cols_emit if valued else gp_cost_rollout_cols
+    return (lambda *a: grad(model, *a), lambda *a: cost(model, *a),
+            lambda dyn: (operands(dyn["gp"]),), model.param_keys)

@@ -19,10 +19,13 @@ session-row forms of K11 and K13 serve the batched-mpc MPPI fleet
 are ``kernel_families/ensemble.py``'s.  A learned value terminal
 (``costs/value_terminal.py``) rides K11's and K13's ``emit_terminal``
 forms, ``post(x_H)/(H+1)`` added outside them
-(``Optimizer._finalize_cost_kernel``), as JAX ``neural.py:121`` does.
-Not ported: K8's ``value_spec`` form: over a cost with a post-terminal
-hook the gradient gate raises NotImplementedError naming it (a recurrent
-net's gradient keeps ``torch.autograd``, the JAX package's XLA-AD).
+(``Optimizer._finalize_cost_kernel``), as JAX ``neural.py:121`` does, and,
+where V is a plain tanh MLP (``_value_grad_spec``), K8's ``value_spec``
+form, which evaluates V and seeds its backward with dV/dx_H (JAX
+``neural.py:150-159``); its session-row form and K11's session-row
+emit_terminal form serve a valued gradient fleet.  Any other post hook,
+and a recurrent net's gradient, keep ``torch.autograd``, the JAX
+package's XLA-AD.
 """
 from __future__ import annotations
 
@@ -31,13 +34,14 @@ import torch
 from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
-    neural_grad_cost_rollout, neural_grad_cost_rollout_cols,
+    neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_value,
+    neural_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.neural_rollout import (
-    neural_cost_rollout, neural_cost_rollout_cols, neural_cost_rollout_emit,
-    recurrent_cost_rollout, recurrent_cost_rollout_emit,
+    neural_cost_rollout, neural_cost_rollout_cols, neural_cost_rollout_cols_emit,
+    neural_cost_rollout_emit, recurrent_cost_rollout, recurrent_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
 
 name = "neural"
 
@@ -93,23 +97,29 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    """K8's gate (an MLP); raises for a cost with a post-terminal hook
-    (its value_spec form is not ported)."""
+    """K8's gate (an MLP), with no post-terminal hook unless it is a plain
+    tanh-MLP V, which K8's value_spec form differentiates (JAX
+    ``neural.py:150-159``)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    ok = not opt.force_scan and compatible_model(opt) and not pred.recurrent
-    if ok:
-        refuse_value(opt, "K8's value_spec form")
-    return ok
+    return (not opt.force_scan and compatible_model(opt) and not pred.recurrent
+            and value_hook_ok(opt))
 
 
 def build_grad(opt):
     """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
-    over K8."""
+    over K8; with a learned value terminal, over its value_spec form, the
+    value net read from ``params`` at every call (a swap rebuilds
+    nothing)."""
     model, pack = net_model(opt)
-
-    def grad_fn(s_tiled, Q, u_prev, params):
-        return neural_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                                        params["dyn"]["net"])
+    if opt._value_grad_spec():
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return neural_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
+                                                  params["dyn"]["net"],
+                                                  opt._flatten_value_ops(params))
+    else:
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return neural_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                            params["dyn"]["net"])
 
     return grad_fn
 
@@ -117,9 +127,13 @@ def build_grad(opt):
 def batched_kernels(opt):
     """The session-row forms for a B-session fleet over an MLP (JAX
     ``neural.py:218``): ``(grad, cost, extra, param_keys)`` over K8's and
-    K11's forms, the net's weights read from ``dyn["net"]`` at every call
-    (shared by the sessions: a checkpoint swap rebuilds nothing)."""
+    K11's forms (with a learned value terminal, K8's session-row value_spec
+    form and K11's session-row emit_terminal form), the net's weights read
+    from ``dyn["net"]`` at every call (shared by the sessions: a checkpoint
+    swap rebuilds nothing)."""
     model, _ = net_model(opt)
-    return (lambda *a: neural_grad_cost_rollout_cols(model, *a),
-            lambda *a: neural_cost_rollout_cols(model, *a), lambda dyn: (dyn["net"],),
+    valued = opt._value_grad_spec() is not None
+    grad = neural_grad_cost_rollout_cols_value if valued else neural_grad_cost_rollout_cols
+    cost = neural_cost_rollout_cols_emit if valued else neural_cost_rollout_cols
+    return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (dyn["net"],),
             model.param_keys)

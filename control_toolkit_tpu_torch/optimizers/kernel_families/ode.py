@@ -19,10 +19,11 @@ reads a ValueTerminalCost's base) rides the cost kernel's
 (``Optimizer._finalize_cost_kernel``), and, for a plain tanh MLP V,
 K7's ``value_spec`` form; any other post hook takes ``torch.autograd``
 through the fused loop for its gradient, as the JAX package takes XLA-AD.
-The other families' gates call ``device_cost`` too: their cost kernels'
-emit_terminal forms carry the hook; their gradient gates, where the model
-is admitted but the cost has a post hook, raise (``refuse_value``) naming
-their unported value_spec form, so no kernel drops V.
+A valued gradient fleet runs K7's session-row value_spec form and K1's
+session-row emit_terminal form (``batched_kernels``).  The other
+families' gates call ``device_cost`` and ``value_hook_ok`` too: their
+cost kernels' emit_terminal forms carry the hook, their gradient kernels'
+value_spec forms V, so no kernel drops it.
 """
 from __future__ import annotations
 
@@ -34,12 +35,12 @@ from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
 from control_toolkit_tpu_torch.costs.value_terminal import ValueTerminalCost
 from control_toolkit_tpu_torch.ops.cost_rollout import (
-    cost_rollout, cost_rollout_cols, cost_rollout_emit,
+    cost_rollout, cost_rollout_cols, cost_rollout_cols_emit, cost_rollout_emit,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_value,
+    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_value,
+    grad_cost_rollout_value,
 )
-from control_toolkit_tpu_torch.optimizers.base import _not_ported
 
 name = "ode"
 
@@ -51,8 +52,8 @@ def device_cost(opt) -> bool:
     """The optimizer's cost (a ValueTerminalCost's base) is the one its
     environment's device plant evaluates, fusable, with scalar attributes:
     the cost half of every kernel family's gate.  A post-terminal hook is
-    admitted: the cost kernels' emit_terminal forms carry it; the learned
-    families' gradient gates ``refuse_value``."""
+    admitted: the cost kernels' emit_terminal forms carry it; the gradient
+    gates add ``value_hook_ok``."""
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     base = cf.base if isinstance(cf, ValueTerminalCost) else cf
     pred = getattr(opt.predictor, "predictor", opt.predictor)
@@ -64,13 +65,12 @@ def device_cost(opt) -> bool:
     )
 
 
-def refuse_value(opt, form: str) -> None:
-    """Raise NotImplementedError naming ``form`` where a learned family's
-    gate admits the model but the cost has a post-terminal hook: that
-    family's value form is not ported, and neither its plain kernel
-    (which would drop V) nor the torch loop may take its place."""
-    if opt._post_terminal_fn() is not None:
-        raise _not_ported(f"{form} (a learned value terminal over this model)")
+def value_hook_ok(opt) -> bool:
+    """The post-terminal half of every gradient gate: no hook, or a plain
+    tanh-MLP V (``_value_grad_spec``), which the gradient kernels' value_spec
+    forms differentiate; any other hook keeps torch.autograd, where a
+    kernel would drop its dQ (JAX ``ode.py:106-117``)."""
+    return opt._post_terminal_fn() is None or opt._value_grad_spec() is not None
 
 
 def compatible_model(opt) -> bool:
@@ -127,8 +127,7 @@ def can_use_grad(opt) -> bool:
     value_spec form differentiates; any other hook keeps torch.autograd,
     where the kernel would drop its dQ (JAX ``ode.py:106-117``)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return (can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS
-            and (opt._post_terminal_fn() is None or opt._value_grad_spec() is not None))
+    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS and value_hook_ok(opt)
 
 
 def build_grad(opt):
@@ -154,7 +153,12 @@ def batched_kernels(opt):
     ``(grad, cost, extra, param_keys)`` with ``grad(s0 [B*K,S], Q
     [B*K,H,U], pvec_b [B,N], *extra(dyn)) -> (cost [B,K], dQ)`` over K7's
     form, ``cost(...) -> [B,K]`` over K1's, no extra operands (the
-    dynamics constants ride in ``pvec_b``) and the packed layout."""
+    dynamics constants ride in ``pvec_b``) and the packed layout; with a
+    learned value terminal, K7's session-row value_spec form and K1's
+    session-row emit_terminal form."""
     model, _ = rollout_model(opt)
-    return (lambda *a: grad_cost_rollout_cols(model, *a),
-            lambda *a: cost_rollout_cols(model, *a), lambda dyn: (), model.param_keys)
+    valued = opt._value_grad_spec() is not None
+    grad = grad_cost_rollout_cols_value if valued else grad_cost_rollout_cols
+    cost = cost_rollout_cols_emit if valued else cost_rollout_cols
+    return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (),
+            model.param_keys)

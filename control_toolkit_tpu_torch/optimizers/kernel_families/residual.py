@@ -15,9 +15,10 @@ in the kernels.  K12's session-row form serves the batched-mpc fleet
 base's constants), K9's and K12's its gradient fleets
 (``batched_kernels``).  A learned value terminal rides K12's
 ``emit_terminal`` form, ``post(x_H)/(H+1)`` added outside it (JAX
-``residual.py:100``).  Not ported: K9's ``value_spec`` form: over a cost
-with a post-terminal hook the gradient gate raises NotImplementedError
-naming it.
+``residual.py:100``), and, where V is a plain tanh MLP
+(``_value_grad_spec``), K9's ``value_spec`` form; their session-row forms
+serve a valued gradient fleet.  Any other post hook keeps
+``torch.autograd`` for the gradient.
 """
 from __future__ import annotations
 
@@ -26,11 +27,13 @@ from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import (
     residual_grad_cost_rollout, residual_grad_cost_rollout_cols,
+    residual_grad_cost_rollout_cols_value, residual_grad_cost_rollout_value,
 )
 from control_toolkit_tpu_torch.ops.residual_rollout import (
-    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_emit,
+    residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_emit,
+    residual_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, refuse_value
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
 
 name = "residual"
 
@@ -80,24 +83,27 @@ def build_cost(opt):
 
 
 def can_use_grad(opt) -> bool:
-    """K9's gate; raises for a cost with a post-terminal hook (its
-    value_spec form is not ported)."""
+    """K9's gate, with no post-terminal hook unless it is a plain tanh-MLP
+    V, which K9's value_spec form differentiates."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    ok = (not opt.force_scan and compatible_model(opt)
-          and pred.environment_name in PLANT_ADJOINTS)
-    if ok:
-        refuse_value(opt, "K9's value_spec form")
-    return ok
+    return (not opt.force_scan and compatible_model(opt)
+            and pred.environment_name in PLANT_ADJOINTS and value_hook_ok(opt))
 
 
 def build_grad(opt):
     """``grad_fn(s_tiled, Q, u_prev, params) -> (cost [K], dQ [K,H,U])``
-    over K9."""
+    over K9; with a learned value terminal, over its value_spec form, the
+    value net read from ``params`` at every call."""
     model, pack = residual_model(opt)
-
-    def grad_fn(s_tiled, Q, u_prev, params):
-        return residual_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
-                                          params["dyn"]["res"])
+    if opt._value_grad_spec():
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return residual_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
+                                                    params["dyn"]["res"],
+                                                    opt._flatten_value_ops(params))
+    else:
+        def grad_fn(s_tiled, Q, u_prev, params):
+            return residual_grad_cost_rollout(model, s_tiled, Q, pack(params, u_prev),
+                                              params["dyn"]["res"])
 
     return grad_fn
 
@@ -105,10 +111,14 @@ def build_grad(opt):
 def batched_kernels(opt):
     """The session-row forms for a B-session fleet over ``"ODE+res"`` (JAX
     ``residual.py:176``): ``(grad, cost, extra, param_keys)`` over K9's and
-    K12's forms, the base's constants in ``pvec_b`` (``per_slot_dyn`` among
-    them) and the residual's weights read from ``dyn["res"]`` at every
-    call (an online-sysid install rebuilds nothing)."""
+    K12's forms (with a learned value terminal, K9's session-row value_spec
+    form and K12's session-row emit_terminal form), the base's constants in
+    ``pvec_b`` (``per_slot_dyn`` among them) and the residual's weights
+    read from ``dyn["res"]`` at every call (an online-sysid install
+    rebuilds nothing)."""
     model, _ = residual_model(opt)
-    return (lambda *a: residual_grad_cost_rollout_cols(model, *a),
-            lambda *a: residual_cost_rollout_cols(model, *a), lambda dyn: (dyn["res"],),
+    valued = opt._value_grad_spec() is not None
+    grad = residual_grad_cost_rollout_cols_value if valued else residual_grad_cost_rollout_cols
+    cost = residual_cost_rollout_cols_emit if valued else residual_cost_rollout_cols
+    return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (dyn["res"],),
             model.param_keys)

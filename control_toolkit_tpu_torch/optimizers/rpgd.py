@@ -232,7 +232,8 @@ class RPGDOptimizer(Optimizer):
         gradients in one launch of the gradient kernel's session-row form,
         and the final scoring is one launch of its cost kernel's
         (``_bind_batched_grad_kernels``: K7/K1 over an ODE, K8/K11 over an
-        MLP, K9/K12 over ``"ODE+res"``, K10/K14 over a GP).  The Adam update
+        MLP, K9/K12 over ``"ODE+res"``, K10/K14 over a GP; with a learned
+        value terminal, their value_spec and emit_terminal forms).  The Adam update
         (per-session counters), the per-rollout clip, the entropy bonus's
         gradient, each session's elites, the shift, each resampling slot's
         ``_resample`` (``rpgd-particle``'s pick included) and the moment
@@ -267,12 +268,13 @@ class RPGDOptimizer(Optimizer):
             s0 = s[:, 0, :].repeat_interleave(K, dim=0)                      # [B*K, S]
 
             def grad(Q):
-                dQ = gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)[1].reshape(B, K, H, U)
+                dQ = gcall(s0, Q.reshape(B * K, H, U), pvec_b, dyn, cost)[1]
+                dQ = dQ.reshape(B, K, H, U)
                 return dQ + spread_penalty_grad(Q, alpha) if alpha > 0.0 else dQ
 
             Q, adam = adam_descent(states.Q, states.adam, grad, self.outer_its, lr, b1, b2, eps,
                                    gclip, low, high)
-            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn)             # [B, K]
+            costs = ccall(s0, Q.reshape(B * K, H, U), pvec_b, dyn, cost)       # [B, K]
             best_idx = elite_indices(costs, keep_k)                            # [B, keep_k]
             u = torch.take_along_dim(Q, best_idx[:, :1, None, None], dim=1)[:, 0, 0, :]
             Qn = torch.cat([Q[:, :, shift:, :], Q[:, :, -1:, :].expand(B, K, shift, U)], dim=2)

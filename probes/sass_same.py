@@ -1,15 +1,18 @@
 """Whether two checkouts' kernel libraries hold the same machine code for
 the entry functions whose mangled names match the given patterns:
 
-    python probes/sass_same.py <checkout A> <checkout B> <pattern> [pattern ...]
+    python probes/sass_same.py <checkout A> <checkout B> [pattern ...]
 
 Each checkout's library is the one its kernels last built
 (``control_toolkit_tpu_torch/_build/*.so``, e.g. by
 ``probes/value_times.py``); run it where ``cuobjdump`` is (the CUDA
 toolkit).  An entry's SASS is compared instruction by instruction, the
-addresses and encodings left out.  Prints one line, ``sass_same: {...}``:
-for each matching entry, whether both libraries hold it, whether its
-instructions are the same, and their count in each.
+addresses and encodings left out.  Without patterns every entry of
+checkout A's library is compared (an entry that a change recompiled,
+its body unchanged, must keep its code).  Prints one line, ``sass_same:
+{...}``: for each matching entry, whether both libraries hold it, whether
+its instructions are the same, and their count in each; then one line,
+``sass_differ: [...]``, the entries both hold whose code differs.
 """
 from __future__ import annotations
 
@@ -52,11 +55,13 @@ def main() -> None:
     patterns = sys.argv[3:]
     found = {}
     for name in sorted(set(a) | set(b)):
-        if any(re.search(p, name) for p in patterns):
+        if any(re.search(p, name) for p in patterns) if patterns else name in a:
             found[name] = {"in_both": name in a and name in b,
                            "same": a.get(name) == b.get(name),
                            "instructions": [len(a.get(name, [])), len(b.get(name, []))]}
     print("sass_same:", json.dumps(found), flush=True)
+    print("sass_differ:", json.dumps([name for name, f in found.items()
+                                      if f["in_both"] and not f["same"]]), flush=True)
 
 
 if __name__ == "__main__":

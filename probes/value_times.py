@@ -1,8 +1,11 @@
-"""K1, K2, K4 and K7, and K11, K11's member-block form, K12, K13 (GRU and
-LSTM) and K14 with the session-row forms of K11, K12 and K14, timed
-through their public wrappers, and, where the checkout has them, their
-value forms (the emit_terminal forms, K7's value_spec form over
-chip_smoke.py's seeded V), in the checkout given as the argument:
+"""K1, K2, K4 and K7, K11, K11's member-block form, K12, K13 (GRU and
+LSTM) and K14 with the session-row forms of K11, K12 and K14, and the
+gradient kernels K8, K8's member-block form, K9 and K10 with the
+session-row forms of K1, K7, K8, K9 and K10, timed through their public
+wrappers, and, where the checkout has them, their value forms (the
+emit_terminal forms; the value_spec forms over chip_smoke.py's seeded V,
+the gradient kernels' over the committed one), in the checkout given as
+the argument:
 
     python probes/value_times.py <checkout root>
 
@@ -13,7 +16,9 @@ registers), takes its chip_smoke.py's operands (K1, K2, K7 and the
 learned kernels: the main path's, K=16384, H=50, over the committed nets,
 the seeded residual, the well-conditioned GP and the GRU's and LSTM's
 zero hidden; K4 and the session-row forms: the fleet's, B=32 and 128
-sessions of K=512, H=35) and prints one line, ``value_times: {...}``, of
+sessions of K=512, H=35; the gradient kernels' session-row forms: phase
+45's, 32 sessions of 512 rollouts, H=50) and prints one line,
+``value_times: {...}``, of
 CUDA-event milliseconds (chip_smoke.py's ``cuda_ms``), registers, the card
 and the built library.
 """
@@ -30,13 +35,17 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from control_toolkit_tpu_torch.models.networks import load_net  # noqa: E402
 from control_toolkit_tpu_torch.ops import cost_rollout as k1  # noqa: E402
+from control_toolkit_tpu_torch.ops import gp_grad_cost_rollout as k10  # noqa: E402
 from control_toolkit_tpu_torch.ops import gp_rollout as k14  # noqa: E402
 from control_toolkit_tpu_torch.ops import grad_cost_rollout as k7  # noqa: E402
 from control_toolkit_tpu_torch.ops import kernels  # noqa: E402
 from control_toolkit_tpu_torch.ops import mppi_cost as k2  # noqa: E402
 from control_toolkit_tpu_torch.ops import mppi_cost_cols as k4  # noqa: E402
+from control_toolkit_tpu_torch.ops import neural_grad_cost_rollout as k8  # noqa: E402
 from control_toolkit_tpu_torch.ops import neural_rollout as k11  # noqa: E402
+from control_toolkit_tpu_torch.ops import residual_grad_cost_rollout as k9  # noqa: E402
 from control_toolkit_tpu_torch.ops import residual_rollout as k12  # noqa: E402
 from control_toolkit_tpu_torch.optimizers.kernel_families import (  # noqa: E402
     ensemble, gp, neural, ode, residual,
@@ -58,7 +67,61 @@ REGISTERS = {"k1": ("cost_rollout_kernel", "Lb0E"), "k2": ("mppi_cost_kernel", "
                     "k13_gru": ("recurrent_cost_rollout", "Li3E"),
                     "k13_lstm": ("recurrent_cost_rollout", "Li4E"),
                     "k14": ("gp_cost_rollout", "Li4E")}.items()
-                for tail in ("", "_emit")}}
+                for tail in ("", "_emit")},
+             **{f"{label}{tail}": (f"{name}{tail}_kernel", instance)
+                for label, (name, instance) in {
+                    "k8": ("neural_grad_cost_rollout", ""),
+                    "k8_ens": ("neural_grad_cost_rollout_ens", ""),
+                    "k9": ("residual_grad_cost_rollout", ""),
+                    "k10": ("gp_grad_cost_rollout", "Li4E")}.items()
+                for tail in ("", "_value")},
+             "k7_value_rows_forward": ("grad_cost_forward_value_rows_kernel", ""),
+             "k7_value_rows_adjoint": ("grad_cost_adjoint_value_rows_kernel", ""),
+             "k1_emit_rows": ("cost_rollout_emit_rows_kernel", "")}
+
+
+def grad_runs(dev, gen, s0, Qg) -> dict:
+    """The gradient kernels K8, K8's member-block form, K9 and K10 and the
+    session-row forms of K1, K7, K8, K9 and K10 and, where the checkout has
+    them, their value forms over the committed V (K1's: its emit form),
+    each a thunk over chip_smoke.py's operands."""
+    runs = {}
+    vnet = load_net(cs.VALUE_FILE, dev)[0]
+    ops = [vnet[f"{c}{i}"].float().contiguous() for i in range(3) for c in "wb"]
+
+    def add(label, module, name, args, value="_value"):
+        runs[label] = lambda: getattr(module, name)(*args)
+        if hasattr(module, f"{name}{value}"):
+            extra = () if value == "_emit" else (ops,)
+            runs[f"{label}{value}"] = lambda: getattr(module, f"{name}{value}")(*args, *extra)
+
+    pvec_of = (lambda ctrl, pack:
+               pack(ctrl._assemble_params(), torch.tensor([0.1], device=dev)))
+    mlp = cs.make_controller("cuda", "rpgd-tf", cs.RPGD_CONFIG, spec=cs.MLP_SPEC)
+    model, pack = neural.net_model(mlp.optimizer)
+    add("k8", k8, "neural_grad_cost_rollout",
+        (model, s0, Qg, pvec_of(mlp, pack), mlp._assemble_params()["dyn"]["net"]))
+    ens = cs.make_controller("cuda", "rpgd-tf", cs.RES_RPGD_CONFIG, spec=cs.ENS_SPEC)
+    model, pack = ensemble.net_model(ens.optimizer)
+    add("k8_ens", k8, "neural_grad_cost_rollout_ens",
+        (model, s0, Qg, pvec_of(ens, pack), ens._assemble_params()["dyn"]["net"]))
+    res = cs.residual_controller("rpgd-tf", cs.RES_RPGD_CONFIG)
+    model, pack = residual.residual_model(res.optimizer)
+    add("k9", k9, "residual_grad_cost_rollout",
+        (model, s0, Qg, pvec_of(res, pack), res._assemble_params()["dyn"]["res"]))
+    gpc = cs.make_controller("cuda", "rpgd-tf", cs.RES_RPGD_CONFIG, spec=cs.GP_SPEC)
+    model, pack = gp.gp_model(gpc.optimizer)
+    wops = k14.flatten_gp_weights(cs.well_conditioned_gp(gpc._assemble_params()["dyn"]["gp"]))
+    add("k10", k10, "gp_grad_cost_rollout", (model, s0, Qg, pvec_of(gpc, pack), wops))
+    cols = {"k1": (k1, "cost_rollout_cols", "_emit"),
+            "k7": (k7, "grad_cost_rollout_cols", "_value"),
+            "k8": (k8, "neural_grad_cost_rollout_cols", "_value"),
+            "k9": (k9, "residual_grad_cost_rollout_cols", "_value"),
+            "k10": (k10, "gp_grad_cost_rollout_cols", "_value")}
+    for form, (module, name, value) in cols.items():
+        fleet = cs.grad_fleet("cuda", cs.GRAD_COLS_FLEET[form], cs.FLEET_B)
+        add(f"{form}_cols", module, name, cs.grad_cols_operands(form, fleet, 32, 512, gen), value)
+    return runs
 
 
 def learned_runs(dev, gen, s0, Q) -> dict:
@@ -153,6 +216,7 @@ def main() -> None:
         if hasattr(k4, "mppi_cost_cols_emit"):
             runs[f"k4_emit_b{b}"] = lambda a4=a4: k4.mppi_cost_cols_emit(*a4)
     runs.update(learned_runs(dev, gen, s0, Q))
+    runs.update(grad_runs(dev, gen, s0, Qg))
     out["ms"] = {name: cs.cuda_ms(fn, 50) for name, fn in runs.items()}
     print("value_times:", json.dumps(out), flush=True)
 

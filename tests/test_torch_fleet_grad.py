@@ -606,17 +606,18 @@ def test_gates_choose_each_gradient_step(specs, optimizer, model):  # noqa: F811
                                   "value_terminal", "cem_modular", "cem_warmup"])
 def test_what_the_gradient_fleets_leave_out_is_refused(specs, kind):  # noqa: F811
     """Warmup (one Adam trip count for all sessions), a recurrent net, a
-    user's force_scan and modular CEM take the JAX package's vmapped
-    per-slot step, a learned value terminal its value_spec forms: the
-    controller raises NotImplementedError naming the piece; the steps'
-    own refusals are the JAX package's."""
+    user's force_scan, modular CEM and a post-terminal hook that is not a
+    plain tanh-MLP V (which the session-row value_spec forms take:
+    tests/test_torch_value_grad.py) take the JAX package's vmapped per-slot
+    step: the controller raises NotImplementedError naming the piece; the
+    steps' own refusals are the JAX package's."""
     if kind == "value_terminal":
         ctrl = fleet("ODE", 2)
         cf = ctrl.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
         assert not ctrl._batched_rpgd_eligible()
-        assert "value_spec" in str(ctrl._refusal())
-        with pytest.raises(NotImplementedError, match="value_spec"):
+        assert "vmapped per-slot" in str(ctrl._refusal())
+        with pytest.raises(NotImplementedError, match="vmapped per-slot"):
             ctrl.optimizer._make_batched_rpgd_step(2)
         return
     if kind == "cem_warmup":

@@ -792,36 +792,54 @@ def test_a_valued_learned_model_raises_naming_the_form(kind):
     """A learned model under a cost with a post hook: MPPI builds its
     family's emit_terminal form (tests/test_torch_value_learned.py holds it
     to the JAX kernel), whose valued cost equals the trajectory path's with
-    V in its terminal cost; rpgd-tf's gradient gate raises
-    NotImplementedError naming the family's value_spec form (not ported),
-    never the torch loop in the kernel's place, except over a recurrent
-    net, whose gradient takes autograd as the JAX package's takes XLA-AD."""
+    V in its terminal cost; rpgd-tf's gradient gate admits the plain tanh-MLP
+    V and builds the family's value_spec form (the value form named in the
+    table), whose gradient equals the JAX package's (jax.grad through its
+    rollout with V in the terminal cost, from the JAX controller's weights),
+    except over a recurrent net, whose gradient takes autograd as the JAX
+    package's takes XLA-AD."""
     from control_toolkit_tpu_torch.optimizers import kernel_families
 
     spec, family, grad_form = LEARNED[kind]
-    net = port_net(jax_value_net(3))
+    jnet = jax_value_net(3)
+    net = port_net(jnet)
+    cfg = {"seed": 3, "mpc_timestep": 0.02, "mpc_horizon": 8, "num_rollouts": 32,
+           "period_interpolation_inducing_points": 4}
     for optimizer, form in (("mppi", None), ("rpgd-tf", grad_form)):
         ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
                              config={"device": "cpu", "optimizer": optimizer,
                                      "controller_logging": False})
-        cfg = {"seed": 3, "mpc_timestep": 0.02, "mpc_horizon": 8, "num_rollouts": 32,
-               "period_interpolation_inducing_points": 4}
         ctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                        optimizer_config=cfg)
-        if form is not None:
-            with pytest.raises(NotImplementedError, match=form):
-                attach_value_terminal(ctrl, net)
-            continue
-        attach_value_terminal(ctrl, net)
-        if optimizer == "rpgd-tf":  # a recurrent net's gradient takes autograd, V in it
-            continue
         popt = ctrl.optimizer
-        assert getattr(kernel_families, family).can_use_cost(popt)
-        params = ctrl._assemble_params()
+        fam = getattr(kernel_families, family)
         rng = np.random.default_rng(6)
         s_tiled = torch.tensor(rng.uniform(-0.2, 0.2, (1, 4)), dtype=torch.float32).expand(32, 4)
         Q = torch.tensor(rng.uniform(-1, 1, (32, 8, 1)), dtype=torch.float32)
         u_prev = torch.tensor([0.1])
+        if form is not None:
+            jctrl = JaxMPC("cartpole", LIMITS, {"target_position": 0.0},
+                           config={"optimizer": optimizer, "controller_logging": False})
+            jctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
+                            optimizer_config=cfg)
+            attach_both(jctrl, ctrl, jnet)
+            assert fam.can_use_grad(popt) and popt._value_grad_spec() == {"n_layers": 2}
+            jparams, params = both_params(jctrl)
+            jopt = jctrl.optimizer
+            ref = jax.grad(lambda q: jnp.sum(jopt._fused_cost(
+                jnp.asarray(s_tiled.numpy()), q, jnp.asarray(u_prev.numpy()), jparams)))(
+                jnp.asarray(Q.numpy()))
+            got = popt._make_grad_and_cost_only()[0](Q, s_tiled, u_prev, params)
+            # The GP's gradients: its kernel tests' bound (test_torch_gp.py GRAD_TOL).
+            tol = dict(rtol=2e-3, atol=5e-4) if kind == "gp" else GRAD_TOL
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)
+            continue
+        attach_value_terminal(ctrl, net)
+        if optimizer == "rpgd-tf":  # a recurrent net's gradient takes autograd, V in it
+            assert not fam.can_use_grad(popt)
+            continue
+        assert fam.can_use_cost(popt)
+        params = ctrl._assemble_params()
         got = popt._make_cost_only()(s_tiled, Q, u_prev, params)
         ref = popt._rollout_and_cost(s_tiled, Q, u_prev, params)[0]
         # The committed GP's mean cancels in float32: the GP kernel tests'
@@ -857,21 +875,38 @@ def fleet(optimizer="mppi", spec="ODE"):
 
 @pytest.mark.parametrize("kind,match", [
     ("cem_fused", "CEM fleet"), ("gru", "vmapped per-slot"),
-    ("rpgd", "value_spec"), ("gradient", "value_spec")])
+    ("rpgd", "vmapped per-slot"), ("gradient", "recurrent predictors")])
 def test_valued_fleets_without_their_form_are_refused(kind, match):
     """A valued fully-fused CEM fleet and a valued MPPI fleet over a
     recurrent net (the JAX package's vmapped per-slot step, as
-    batched_mpc.py:500-504 sends it) and a valued gradient fleet (its
-    value_spec form) raise NotImplementedError naming the piece; the MPPI
-    fleets over the ODE (test_attach_value_terminal_batched_controller),
-    the MLP, "ODE+res" and the GP (tests/test_torch_value_learned.py) are
-    served."""
+    batched_mpc.py:500-504 sends it), an RPGD fleet whose post hook is not a
+    plain tanh-MLP V (a V with norms: the vmapped per-slot step, as
+    batched_mpc.py:578-582 sends it) raise NotImplementedError naming the
+    piece, and a valued gradient-tf fleet over a recurrent net the JAX
+    binder's ValueError; the MPPI fleets over the ODE
+    (test_attach_value_terminal_batched_controller), the MLP, "ODE+res" and
+    the GP (tests/test_torch_value_learned.py) and the gradient fleets with
+    a plain V (tests/test_torch_value_grad.py) are served."""
+    if kind == "gradient":
+        ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                             config={"device": "cpu", "optimizer": "gradient-tf",
+                                     "controller_logging": False})
+        ctrl.configure(optimizer_name="gradient-tf",
+                       predictor_specification="neural:GRU-5IN-8H1-4OUT",
+                       optimizer_config=dict(FLEET_CONFIGS["gradient-tf"]))
+        attach_value_terminal(ctrl, port_net(jax_value_net(3)))
+        with pytest.raises(ValueError, match=match):
+            ctrl.optimizer._make_batched_gradient_step(2)
+        return
     builds = {"cem_fused": lambda: fleet("cem-tf"),
               "gru": lambda: fleet(spec="neural:GRU-5IN-8H1-4OUT"),
-              "rpgd": lambda: fleet("rpgd-tf"), "gradient": lambda: fleet("gradient-tf")}
+              "rpgd": lambda: fleet("rpgd-tf")}
     ctrl = builds[kind]()
+    net = jax_value_net(3)
+    if kind == "rpgd":
+        net = dict(net, norm_in_mean=np.zeros(4, np.float32))
     with pytest.raises(NotImplementedError, match=match):
-        attach_value_terminal(ctrl, port_net(jax_value_net(3)))
+        attach_value_terminal(ctrl, port_net(net))
 
 
 # ---- the committed value net ------------------------------------------------------------
