@@ -353,6 +353,37 @@ session-row value_spec form and K1's session-row emit_terminal form:
 66. one valued update of each on the card against the same update on the
     CPU (the GP's with the well-conditioned GP swapped in).
 
+The fast plant (the ":fast" predictors, "ODE:rk4:1:fast" and
+"ODE+res:rk4:1:fast": ops/fastmath.py's polynomial trig; every ODE entry's
+instance over it, csrc/plants.cuh CartpolePlantT<true>, and the fast
+normals of K3, K5 and K6):
+67. each fast entry and form (K1, K2, K3's two passes, K4, K5, K6, K7, K12,
+    K9; the emit forms of K1, K2, K4, K12, the value forms of K7 and K9,
+    the session-row forms of K1, K7, K12, K9 with their emit and value
+    forms) against its plain version over the fast plant at its exact
+    entry's phase operands and bound, and against the exact entry on the
+    same inputs (non-zero, within FAST_FROM_EXACT); K1 also at ragged K,
+    K5 at a ragged K of one 1,000-rollout tile; K5-fast and K3-fast pass 1
+    (cc_weight 0) equal to K1-fast over the controls that regen_controls
+    and mppi_noise with fast=True draw again on the card (share 1.0), the
+    fast elite regeneration exact, K6-fast equal to K1-fast per session
+    over regen_cols(fast=True); K7-fast's dQ within K7's bound of the fast
+    plain adjoint from angles over +-3.1, a bound that must reject the
+    adjoint taking cos and -sin as the derivatives;
+68. 200 closed-loop ticks of the fast flagship (K2's fast entry) from
+    CartpoleEnv(seed=0) with the target change, one update against the
+    CPU's, a profiler breakdown of its tick beside the exact flagship's,
+    then 20 ticks of each other fast path, counted from 0: modular and
+    fully-fused MPPI, modular and fused CEM, iCEM, random-action, rpgd-tf,
+    gradient-tf, rpgd-tf over "ODE+res:...:fast",
+    the valued MPPI and rpgd-tf over both, 80 adaptive MPPI ticks over
+    "ODE+res:...:fast" with a sysid fit every 40, and 32-session fleets:
+    MPPI, fused CEM, rpgd-tf over the ODE, MPPI and rpgd-tf over
+    "ODE+res:...:fast", the valued MPPI and rpgd-tf fleets;
+69. every entry of probes/exact_sass.json (the SASS digests of the library
+    the fast forms were added to) in the built library with its
+    instructions unchanged, when built by the nvcc the file names.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -823,6 +854,33 @@ VALUE_LEARNED_TICKS, VALUE_LEARNED_FLEET_TICKS = 100, 50
 # the committed GP is (gp_vs_float64), to its float64 plain version:
 # no further from it than GP_F64_FACTOR times the float32 plain version.
 VALUE_GRAD_TICKS, VALUE_GRADIENT_TICKS, VALUE_GRAD_FLEET_TICKS = 100, 50, 50
+# The fast plant (the ":fast" predictors: ops/fastmath.py's polynomial
+# trig, csrc/fastmath.cuh; the fully-fused kernels over it draw the fast
+# normals).  Each fast entry is held to its plain version at its exact
+# entry's bound and to the exact entry on the same inputs: non-zero and
+# within FAST_FROM_EXACT, the JAX package's bound on a fast rollout's
+# distance from the exact one (tests/test_fastmath.py, atol 5e-3 on the
+# states), on the costs (to ~3e3) relative too: on the main path's
+# operands the two plain versions' costs differ by rel 3.0e-4 (0.083).
+# The fast flagship runs FAST_TICKS from CartpoleEnv(seed=0), every other
+# fast path FAST_SHORT_TICKS (the adaptive one FAST_ADAPT_TICKS, a sysid
+# fit every FAST_FIT_EVERY).  K7-fast's dQ bound must reject the adjoint
+# that takes the fast values with the exact derivatives (cos, -sin): the
+# two differ by at most 2.2e-4, most at |angle| near pi, so that check
+# runs from angles over +-FAST_WIDE_ANGLE.  EXACT_SASS holds the
+# digests of every entry's SASS in the library the fast forms were added
+# to (commit 38c8143's tree, probes/sass_same.py --digests) and the nvcc
+# that built it.  The exact and fast cartpole instances share every body
+# through `if constexpr`, so an edit aimed at a fast path can move an exact
+# entry's code, and the plain-version bounds pass a changed order of
+# operations; the digests catch that.  A change that recompiles an exact
+# entry on purpose writes the file anew (probes/sass_same.py's docstring);
+# under another nvcc the phase reports and does not compare.
+FAST_SPEC, RES_FAST_SPEC = "ODE:rk4:1:fast", "ODE+res:rk4:1:fast"
+FAST_FROM_EXACT = dict(rtol=5e-3, atol=5e-3)
+FAST_TICKS, FAST_SHORT_TICKS, FAST_ADAPT_TICKS, FAST_FIT_EVERY = 200, 20, 80, 40
+FAST_WIDE_ANGLE = 3.1
+EXACT_SASS = Path(__file__).resolve().parent / "probes" / "exact_sass.json"
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -1727,11 +1785,12 @@ def gru_hidden_vs_replay(ctrl: MPCController, trace: list) -> None:
 
 
 # ---- the adaptive-MPC and sparse-GP phases --------------------------------------
-def residual_controller(optimizer: str, config: dict) -> MPCController:
-    """A controller over "ODE+res" on the card with a nonzero residual made
-    as bench_scale.py:218-222 makes it: each weight 0.02 times a normal
-    draw (from a seeded torch.Generator), the zero biases kept."""
-    ctrl = make_controller("cuda", optimizer, config, spec=RES_SPEC)
+def residual_controller(optimizer: str, config: dict, spec: str = RES_SPEC) -> MPCController:
+    """A controller over "ODE+res" (or ``spec``, its fast form) on the card
+    with a nonzero residual made as bench_scale.py:218-222 makes it: each
+    weight 0.02 times a normal draw (from a seeded torch.Generator), the
+    zero biases kept."""
+    ctrl = make_controller("cuda", optimizer, config, spec=spec)
     seed_residual(ctrl.optimizer.predictor.predictor)
     return ctrl
 
@@ -2196,7 +2255,7 @@ def compare_fused_cem(model, pvec, low, high, gen) -> dict:
               f"K5: the cost bound does not reject the counters with {kind} {numbers}")
     got = fused_cem_costs(*args)
     Q = regen_controls(seed2, torch.arange(K, device=device), mue, std, low, high, K,
-                       DEFAULT_TILE_K)
+                       DEFAULT_TILE_K, fast=False)
     via_k1 = cost_rollout(model, s_tiled, Q, pvec)
     idx = elite_indices(got, CEM_CONFIG["cem_best_k"])
     z = normals_from_counter(cem_counters(seed2, torch.arange(K, device=device), K, H, 1,
@@ -2205,7 +2264,8 @@ def compare_fused_cem(model, pvec, low, high, gen) -> dict:
     extra = {"k1_over_regen_max_abs_err": max_errors(got, via_k1)[0],
              "k1_over_regen_equal_share": float((got == via_k1).double().mean()),
              "elite_regen_exact": bool(torch.equal(
-                 regen_controls(seed2, idx, mue, std, low, high, K, DEFAULT_TILE_K), Q[idx])),
+                 regen_controls(seed2, idx, mue, std, low, high, K, DEFAULT_TILE_K, fast=False),
+                 Q[idx])),
              "normals_mean_sigmas": float(z.mean()) * n**0.5,
              "normals_var_sigmas": (float(z.var(correction=0)) - 1.0) / (2.0 / n) ** 0.5}
     emit("k5_regeneration", extra)
@@ -2267,7 +2327,7 @@ def k5_cases(args: tuple) -> dict:
     long_args = (model, s0, mue_long, std[:1].expand(CEM_LONG_H, -1).contiguous(), *args[4:])
     got = fused_cem_costs(*long_args)
     Q = regen_controls(seed2, torch.arange(k_full, device=s0.device), *long_args[2:4], low, high,
-                       k_full, tile_k)
+                       k_full, tile_k, fast=False)
     s_tiled = s0.expand(k_full, -1).contiguous()
     via_k1 = cost_rollout(model, s_tiled, Q, pvec)
     check(bool(torch.isfinite(got).all()) and got.shape == (k_full,),
@@ -2338,7 +2398,7 @@ def k3_mutants(args: tuple, kinds) -> dict:
     ``next_rollout_counters`` (rollout g draws rollout g+1's noise) being
     its ``next_rollout_eps``."""
     model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R, NU, stdev, k, tile_k = args
-    eps = mppi_noise(seed2, k, W.shape[0], u_nom.shape[1], tile_k) * stdev
+    eps = mppi_noise(seed2, k, W.shape[0], u_nom.shape[1], tile_k, fast=False) * stdev
     named = {"next_rollout_counters": "next_rollout_eps"}
     out = mppi_mutants(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU,
                        [named.get(kind, kind) for kind in kinds])
@@ -2409,7 +2469,8 @@ def k3_long_horizon(args: tuple) -> dict:
     return mppi_long_horizon(
         "k3", lambda cc: fused_mppi_costs(*operands(cc)),
         lambda cc, dtype: fused_mppi_costs_plain(*as_type(operands(cc), dtype)), model, s0, pvec,
-        mppi_noise(seed2, k, W.shape[0], 1, tile_k) * stdev, W, u_nom, low, high, cc_weight)
+        mppi_noise(seed2, k, W.shape[0], 1, tile_k, fast=False) * stdev, W, u_nom, low, high,
+        cc_weight)
 
 
 def k3_cases(args: tuple) -> dict:
@@ -2427,7 +2488,7 @@ def k3_cases(args: tuple) -> dict:
     numbers["mutant_max_rel_err"] = rejected("K3 pass 1", k3_mutants(
         args, ("controls_one_step_early", "second_point_dropped", "next_rollout_counters")),
         fused_mppi_costs_plain(*args))
-    eps = mppi_noise(seed2, k_full, W.shape[0], 1, tile_k) * stdev
+    eps = mppi_noise(seed2, k_full, W.shape[0], 1, tile_k, fast=False) * stdev
     u, _ = mppi_controls_plain(eps, W, u_nom, low, high)
     got0 = fused_mppi_costs(*args[:8], 0.0, *args[9:])
     numbers["k1_equal_share"] = float(
@@ -2538,13 +2599,13 @@ def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
     rho = torch.amin(cost)
     red = torch.stack([rho, torch.sum(torch.exp(-(cost - rho) / opt.LBD))])
     wargs = (seed2, cost, red, P, 1, opt.LBD, K, DEFAULT_TILE_K)
-    ref = fused_mppi_weights_plain(*wargs).sum(0)
+    ref = fused_mppi_weights_plain(*wargs, fast=False).sum(0)
     w = torch.exp(-(cost - rho) * (1.0 / opt.LBD))
-    z = mppi_noise(seed2, K, P, 1, DEFAULT_TILE_K)
+    z = mppi_noise(seed2, K, P, 1, DEFAULT_TILE_K, fast=False)
     mutants = {"unnormalized": (z * w).sum(-1), "p_shifted": (torch.roll(z, 1, 0) * w).sum(-1)
                / red[1]}
-    k3b = compare("k3_fused_mppi_weights", lambda: fused_mppi_weights(*wargs),
-                  lambda: fused_mppi_weights_plain(*wargs), tol=WEIGHTS_TOL,
+    k3b = compare("k3_fused_mppi_weights", lambda: fused_mppi_weights(*wargs, fast=False),
+                  lambda: fused_mppi_weights_plain(*wargs, fast=False), tol=WEIGHTS_TOL,
                   reduce=lambda t: t.sum(0), shape=(P, 1),
                   extra=lambda _: {"mutant_max_abs_err": {
                       kind: max_errors(m, ref)[0] for kind, m in mutants.items()}})
@@ -2656,15 +2717,15 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = 
 def fleet_controller(device: str, optimizer: str, config: dict, B: int, spec: str = "ODE",
                      per_slot_dyn=("L",)) -> BatchedMPCController:
     """A batched-mpc controller of B slots over ``spec`` (per-slot pole
-    lengths by default); over "ODE+res" with residual_controller's seeded
-    nonzero residual."""
+    lengths by default); over "ODE+res" (or its fast form) with
+    residual_controller's seeded nonzero residual."""
     ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
                                 config={"optimizer": optimizer, "controller_logging": False,
                                         "device": device})
     ctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
                    optimizer_config=config, cost_function_config=COST_WEIGHTS, num_slots=B,
                    per_slot_dyn=per_slot_dyn)
-    if spec == RES_SPEC:
+    if spec.startswith(RES_SPEC):
         seed_residual(ctrl.optimizer.predictor.predictor)
     return ctrl
 
@@ -2853,13 +2914,14 @@ def compare_k6(opt, gen) -> dict:
         check(not torch.allclose(m, ref, **KERNEL_TOL),
               f"K6: the cost bound does not reject {kind} {numbers}")
     got = fused_cem_cols(*args)
-    Q = regen_cols(seed_b, torch.arange(K, device=device).expand(B, K), mue, std, low, high, K)
+    Q = regen_cols(seed_b, torch.arange(K, device=device).expand(B, K), mue, std, low, high, K,
+                   fast=False)
     via_k1 = k1_per_session(model, s0, Q, pvec_b)
     idx = elite_indices(got, FLEET_CEM_CONFIG["cem_best_k"])
     extra = {"k1_over_regen_max_abs_err": max_errors(got, via_k1)[0],
              "k1_over_regen_equal_share": float((got == via_k1).double().mean()),
              "elite_regen_exact": bool(torch.equal(
-                 regen_cols(seed_b, idx, mue, std, low, high, K),
+                 regen_cols(seed_b, idx, mue, std, low, high, K, fast=False),
                  torch.take_along_dim(Q, idx[:, :, None, None], dim=1)))}
     emit("k6_regeneration", extra)
     check(extra["k1_over_regen_equal_share"] == 1.0,
@@ -2902,7 +2964,7 @@ def k6_cases(args: tuple, gen) -> dict:
     long_args = (model, s0[:Bl], mue_long, std_long, pvec_b[:Bl], seed_b[:Bl], low, high, Kl)
     got = fused_cem_cols(*long_args).reshape(-1)
     Q = regen_cols(seed_b[:Bl], torch.arange(Kl, device=device).expand(Bl, Kl), mue_long,
-                   std_long, low, high, Kl)
+                   std_long, low, high, Kl, fast=False)
     via_k1 = k1_per_session(model, s0[:Bl], Q, pvec_b[:Bl]).reshape(-1)
     check(bool(torch.isfinite(got).all()), f"K6 at H={CEM_LONG_H}: bad output")
     numbers[f"H{CEM_LONG_H}"] = long_h = {
@@ -3079,9 +3141,9 @@ def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, g
               "the CPU's costs")
         same_sets &= bool(torch.equal(torch.sort(idx.cpu(), dim=1).values,
                                       torch.sort(elite_indices(c_c, best_k), dim=1).values))
-        elite = regen_cols(seed_b, idx, mue, std, low, high, K)
+        elite = regen_cols(seed_b, idx, mue, std, low, high, K, fast=False)
         elite_c = regen_cols(seed_b.cpu(), idx.cpu(), mue.cpu(), std.cpu(), low.cpu(),
-                             high.cpu(), K)
+                             high.cpu(), K, fast=False)
         mue, std = elite.mean(1), elite.std(1, correction=0)
         mue_c, std_c = elite_c.mean(1), elite_c.std(1, correction=0)
         for key, (a, b) in {"cost": (c, c_c), "mue": (mue, mue_c), "std": (std, std_c)}.items():
@@ -4575,6 +4637,432 @@ def grad_fleet_value_update_vs_cpu(label: str, ctrl: BatchedMPCController, value
         st.adam, opt, its)
 
 
+def as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare_fast(label: str, fast_fn, plain_fn, exact_fn, tols: tuple, ops: float,
+                 n_bytes: float, reps: int = 50) -> dict:
+    """A fast entry (the fast plant's instance) against its plain version
+    on the same card tensors, output by output to ``tols`` (allclose
+    keywords, or "dq" for K7's bound), and against the exact entry on the
+    same inputs: its first output non-zero from it and within
+    FAST_FROM_EXACT; its, its plain version's and the exact entry's times,
+    and its bound."""
+    got, ref, ex = as_tuple(fast_fn()), as_tuple(plain_fn()), as_tuple(exact_fn())
+    torch.cuda.synchronize()
+    errs = [max_errors(g, r)[0] for g, r in zip(got, ref)]
+    numbers = {"max_abs_err": max(errs), "max_abs_errs": errs,
+               "from_exact_max_abs": [max_errors(g, e)[0] for g, e in zip(got, ex)],
+               "from_exact_max_rel": max_errors(got[0], ex[0])[1],
+               "finite": all(bool(torch.isfinite(g).all()) for g in got),
+               "ms": cuda_ms(fast_fn, reps), "exact_ms": cuda_ms(exact_fn, reps),
+               "plain_ms": cuda_ms(plain_fn, 2), **bound(ops, n_bytes)}
+    emit(label, numbers)
+    check(numbers["finite"] and all(g.shape == r.shape for g, r in zip(got, ref)),
+          f"{label}: bad output")
+    for g, r, tol in zip(got, ref, tols):
+        held = close(g, r, DQ_RTOL, DQ_ATOL_FRAC) if tol == "dq" else torch.allclose(g, r, **tol)
+        check(held, f"{label}: the fast entry disagrees with its plain version {numbers}")
+    check(numbers["from_exact_max_abs"][0] > 0
+          and torch.allclose(got[0], ex[0], **FAST_FROM_EXACT),
+          f"{label}: the fast entry is not within FAST_FROM_EXACT of the exact one {numbers}")
+    return numbers
+
+
+def exact_sass_kept() -> dict:
+    """Phase 69: every entry of EXACT_SASS (the exact entries of the library
+    the fast forms were added to) in the built library with its SASS
+    instruction for instruction, when the library was built by the
+    compiler EXACT_SASS names (another compiler emits other code)."""
+    from probes.sass_same import digests, toolchain
+
+    pinned = json.loads(EXACT_SASS.read_text())
+    want, have = pinned["entries"], digests(kernels.library_path())
+    numbers = {"nvcc": toolchain(kernels._nvcc()), "pinned_nvcc": pinned["nvcc"],
+               "entries": len(want), "library_entries": len(have),
+               "fast_entries": sum("CartpoleFastPlant" in fn or "weights_fast" in fn
+                                   for fn in have)}
+    numbers["compared"] = numbers["nvcc"] == pinned["nvcc"]
+    if numbers["compared"]:
+        numbers["missing"] = sorted(fn for fn in want if fn not in have)
+        numbers["differ"] = sorted(fn for fn in want if fn in have and have[fn] != want[fn])
+    emit("exact_sass_kept", numbers)
+    check(not numbers.get("missing") and not numbers.get("differ"),
+          f"an exact entry's SASS changed {numbers}")
+    return numbers
+
+
+def fast_k7_adjoint(fmodel, pvec, Qg, gen) -> dict:
+    """Phase 67's K7-fast dQ check: from angles over +-FAST_WIDE_ANGLE (where
+    the polynomials' derivatives differ most from cos and -sin), K7-fast's
+    dQ within K7's bound of the fast plain adjoint, a bound that must reject
+    the adjoint taking the fast values with the exact derivatives; both
+    also against the float64 fast plain adjoint."""
+    from control_toolkit_tpu_torch.ops.adjoints import cartpole_derivs_vjp, integrator_vjp
+    from control_toolkit_tpu_torch.ops.fastmath import fast_sincos
+    from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
+    from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
+
+    device = Qg.device
+    s0 = 0.05 * torch.randn(K, 4, generator=gen, device=device)
+    s0[:, 2] = FAST_WIDE_ANGLE * (2.0 * torch.rand(K, generator=gen, device=device) - 1.0)
+    p = fmodel.unpack(pvec)
+    one = make_soa_stepper(fmodel.derivs, fmodel.integrator, fmodel.dt, fmodel.intermediate_steps)
+
+    def mutant_vjp(xs, us, pp, lam):
+        return cartpole_derivs_vjp(xs, us, pp, lam, sincos_d=lambda th: (
+            *fast_sincos(th), th.cos(), th.sin()))
+
+    mutant = plain_grad_loop(
+        fmodel, s0, Qg, pvec,
+        lambda x, u: torch.stack(one(tuple(x.unbind(1)), tuple(u.unbind(1)), p), dim=1),
+        lambda xs, us, lam: integrator_vjp(fmodel.derivs, mutant_vjp, xs, us, p, lam,
+                                           fmodel.integrator == "rk4",
+                                           fmodel.intermediate_steps, fmodel.dt))[1]
+    dQ = grad_cost_rollout(fmodel, s0, Qg, pvec)[1]
+    ref = grad_cost_rollout_plain(fmodel, s0, Qg, pvec)[1]
+    ref64 = grad_cost_rollout_plain(fmodel, s0.double(), Qg.double(), pvec.double())[1]
+    torch.cuda.synchronize()
+    numbers = {"dQ_max_abs_err": max_errors(dQ, ref)[0], "dQ_max_abs": float(ref.abs().max()),
+               "dQ_atol": DQ_ATOL_FRAC * float(ref.abs().max()),
+               "exact_trig_mutant_max_abs_err": max_errors(mutant, ref)[0],
+               "f64": {"kernel": f64_err(dQ, ref64), "plain": f64_err(ref, ref64),
+                       "exact_trig_mutant": f64_err(mutant, ref64)}}
+    emit("k7_fast_adjoint", numbers)
+    check(close(dQ, ref, DQ_RTOL, DQ_ATOL_FRAC), f"K7-fast's dQ disagrees with plain {numbers}")
+    check(not close(mutant, ref, DQ_RTOL, DQ_ATOL_FRAC),
+          f"K7's dQ bound does not reject the exact-trig adjoint {numbers}")
+    return numbers
+
+
+def fast_equal_to_k1(fmodel, pvec, opt, gen) -> dict:
+    """Phase 67: K5-fast's costs and K3-fast pass 1's (at cc_weight 0) equal
+    to K1-fast's over the controls their regenerations draw again
+    (regen_controls and mppi_noise with fast=True, on the card, separate
+    torch operations): the fast normals bit for bit; the fast elite
+    regeneration a subset of the full one bit for bit."""
+    device = pvec.device
+    s0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=device)
+    s_tiled = s0.expand(K, -1).contiguous()
+    low, high = opt.action_low, opt.action_high
+    mue = torch.clamp(0.2 * torch.randn(H, 1, generator=gen, device=device), -1.0, 1.0)
+    std = torch.full((H, 1), 0.5, device=device)
+    seed2 = torch.tensor([1234567, 0], dtype=torch.int32, device=device)
+    got = fused_cem_costs(fmodel, s0, mue, std, pvec, seed2, low, high, K, DEFAULT_TILE_K)
+    Q = regen_controls(seed2, torch.arange(K, device=device), mue, std, low, high, K,
+                       DEFAULT_TILE_K, fast=True)
+    via_k1 = cost_rollout(fmodel, s_tiled, Q, pvec)
+    idx = elite_indices(got, CEM_CONFIG["cem_best_k"])
+    W = opt.interp.matrix
+    u_nom = torch.clamp(0.2 * torch.randn(H, 1, generator=gen, device=device), -1.0, 1.0)
+    seed3 = torch.tensor([7654321, 0], dtype=torch.int32, device=device)
+    pass1 = fused_mppi_costs(fmodel, s0, u_nom, pvec, seed3, W, low, high, 0.0, opt.R, opt.NU,
+                             opt.SQRTRHODTINV, K, DEFAULT_TILE_K)
+    eps = mppi_noise(seed3, K, W.shape[0], 1, DEFAULT_TILE_K, fast=True) * opt.SQRTRHODTINV
+    controls, _ = mppi_controls_plain(eps, W, u_nom, low, high)
+    pass1_k1 = cost_rollout(fmodel, s_tiled, controls, pvec)
+    exact_q = regen_controls(seed2, torch.arange(K, device=device), mue, std, low, high, K,
+                             DEFAULT_TILE_K, fast=False)
+    numbers = {"k5_over_k1_equal_share": float((got == via_k1).double().mean()),
+               "k5_over_k1_max_abs_err": max_errors(got, via_k1)[0],
+               "k3_pass1_over_k1_equal_share": float((pass1 == pass1_k1).double().mean()),
+               "k3_pass1_over_k1_max_abs_err": max_errors(pass1, pass1_k1)[0],
+               "elite_regen_exact": bool(torch.equal(regen_controls(
+                   seed2, idx, mue, std, low, high, K, DEFAULT_TILE_K, fast=True), Q[idx])),
+               "fast_controls_from_exact_max_abs": max_errors(Q, exact_q)[0]}
+    emit("fast_equal_to_k1", numbers)
+    check(numbers["k5_over_k1_equal_share"] == 1.0 and numbers["k3_pass1_over_k1_equal_share"]
+          == 1.0, f"K5-fast or K3-fast pass 1 differs from K1-fast over its controls {numbers}")
+    check(numbers["elite_regen_exact"], f"the fast elite regeneration is not exact {numbers}")
+    check(0 < numbers["fast_controls_from_exact_max_abs"] < 1e-3,
+          f"the fast normals are not near the exact ones {numbers}")
+    return numbers
+
+
+def fast_phases(device, ctrl, model, pvec, s0, Q, Qg, k2_args, rmodel, rpvec, rnet,
+                vnet) -> tuple:
+    """Phases 67-69 (the fast plant) over the main path's operands: ``ctrl``
+    the flagship, ``model`` and ``pvec`` its K1 model and packed
+    parameters, ``s0``, ``Q``, ``Qg`` and ``k2_args`` phases 2-7's operands,
+    ``rmodel``, ``rpvec`` and ``rnet`` phase 18's residual, ``vnet`` the
+    committed value net.  Returns each fast entry's numbers and the fast
+    loops' launch counts."""
+    opt = ctrl.optimizer
+    P = opt.interp.number_of_interpolation_inducing_points
+    u_nom = k2_args[2]
+
+    # 67. The fast forms (the ":fast" plant's instance of each ODE entry; the
+    # fast normals in K3, K5, K6) against their plain versions at the main
+    # path's shapes (the forms at their phases' operands), each against its
+    # exact entry on the same inputs; K5-fast and K3-fast pass 1 equal to
+    # K1-fast over their controls, the fast elite regeneration exact, and
+    # K7-fast's dQ bound against the exact-trig adjoint.
+    fctrl = make_controller("cuda", spec=FAST_SPEC)
+    fmodel, _ = ode.rollout_model(fctrl.optimizer)
+    fres = residual_controller("rpgd-tf", RES_RPGD_CONFIG, RES_FAST_SPEC)
+    frmodel, _ = residual.residual_model(fres.optimizer)
+    check(fmodel.plant == frmodel.plant == "cartpole_fast" and model.plant == "cartpole",
+          "the fast controllers did not take the fast plant")
+    fgen = torch.Generator(device=device).manual_seed(SEED + 20)
+    vops = seeded_value(device)
+    k1_ops = K * H * (RK4_STEP_OPS + STAGE_OPS)
+    k2_ops = K * H * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS)
+    k7_ops = K * H * (RK4_STEP_OPS + STAGE_OPS + RK4_VJP_OPS + STAGE_VJP_OPS)
+    k12_ops = K * H * (RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS)
+    k9_ops = k12_ops + K * H * (RK4_VJP_OPS + mlp_vjp_ops(rnet) + STAGE_VJP_OPS)
+    cost_b, x_b = 4 * K, 4 * K * 4
+    fk2_args = (fmodel,) + k2_args[1:]
+    fast_k = {
+        "k1": compare_fast("k1_fast", lambda: cost_rollout(fmodel, s0, Q, pvec),
+                           lambda: cost_rollout_plain(fmodel, s0, Q, pvec),
+                           lambda: cost_rollout(model, s0, Q, pvec), (KERNEL_TOL,), k1_ops,
+                           nbytes(s0, Q, pvec) + cost_b),
+        "k2": compare_fast("k2_fast", lambda: mppi_cost(*fk2_args),
+                           lambda: mppi_cost_plain(*fk2_args), lambda: mppi_cost(*k2_args),
+                           (KERNEL_TOL,), k2_ops, nbytes(*k2_args[1:8]) + cost_b),
+        "k7": compare_fast("k7_fast", lambda: grad_cost_rollout(fmodel, s0, Qg, pvec),
+                           lambda: grad_cost_rollout_plain(fmodel, s0, Qg, pvec),
+                           lambda: grad_cost_rollout(model, s0, Qg, pvec), (KERNEL_TOL, "dq"),
+                           k7_ops, nbytes(s0, Qg, pvec, Qg) + cost_b),
+        "k12": compare_fast("k12_fast", lambda: residual_cost_rollout(frmodel, s0, Q, rpvec, rnet),
+                            lambda: residual_cost_rollout_plain(frmodel, s0, Q, rpvec, rnet),
+                            lambda: residual_cost_rollout(rmodel, s0, Q, rpvec, rnet), (NET_TOL,),
+                            k12_ops, nbytes(s0, Q, rpvec, *leaves(rnet)) + cost_b),
+        "k9": compare_fast("k9_fast",
+                           lambda: residual_grad_cost_rollout(frmodel, s0, Qg, rpvec, rnet),
+                           lambda: residual_grad_cost_rollout_plain(frmodel, s0, Qg, rpvec, rnet),
+                           lambda: residual_grad_cost_rollout(rmodel, s0, Qg, rpvec, rnet),
+                           (NET_TOL, "dq"), k9_ops,
+                           nbytes(s0, Qg, rpvec, *leaves(rnet), Qg) + cost_b, reps=20),
+        "k1_emit": compare_fast("k1_emit_fast", lambda: cost_rollout_emit(fmodel, s0, Q, pvec),
+                                lambda: cost_rollout_emit_plain(fmodel, s0, Q, pvec),
+                                lambda: cost_rollout_emit(model, s0, Q, pvec),
+                                (KERNEL_TOL, X_TOL), k1_ops, nbytes(s0, Q, pvec) + cost_b + x_b),
+        "k2_emit": compare_fast("k2_emit_fast", lambda: mppi_cost_emit(*fk2_args),
+                                lambda: mppi_cost_emit_plain(*fk2_args),
+                                lambda: mppi_cost_emit(*k2_args), (KERNEL_TOL, X_TOL), k2_ops,
+                                nbytes(*k2_args[1:8]) + cost_b + x_b),
+        "k7_value": compare_fast(
+            "k7_value_fast", lambda: grad_cost_rollout_value(fmodel, s0, Qg, pvec, vops),
+            lambda: grad_cost_rollout_plain(fmodel, s0, Qg, pvec, vops),
+            lambda: grad_cost_rollout_value(model, s0, Qg, pvec, vops), (KERNEL_TOL, "dq"),
+            k7_ops + K * value_net_ops(), nbytes(s0, Qg, pvec, Qg, *vops) + cost_b),
+        "k12_emit": compare_fast(
+            "k12_emit_fast", lambda: residual_cost_rollout_emit(frmodel, s0, Q, rpvec, rnet),
+            lambda: residual_cost_rollout_emit_plain(frmodel, s0, Q, rpvec, rnet),
+            lambda: residual_cost_rollout_emit(rmodel, s0, Q, rpvec, rnet), (NET_TOL, X_TOL),
+            k12_ops, nbytes(s0, Q, rpvec, *leaves(rnet)) + cost_b + x_b),
+        "k9_value": compare_fast(
+            "k9_value_fast",
+            lambda: residual_grad_cost_rollout_value(frmodel, s0, Qg, rpvec, rnet, vops),
+            lambda: residual_grad_cost_rollout_plain(frmodel, s0, Qg, rpvec, rnet, vops),
+            lambda: residual_grad_cost_rollout_value(rmodel, s0, Qg, rpvec, rnet, vops),
+            (NET_TOL, "dq"), k9_ops + K * value_net_ops(),
+            nbytes(s0, Qg, rpvec, *leaves(rnet), Qg, *vops) + cost_b, reps=20)}
+    for kc in RAGGED_K:
+        compare_fast(f"k1_fast_ragged_k{kc}", lambda: cost_rollout(fmodel, *first_k(kc, s0, Q), pvec),
+                     lambda: cost_rollout_plain(fmodel, *first_k(kc, s0, Q), pvec),
+                     lambda: cost_rollout(model, *first_k(kc, s0, Q), pvec), (KERNEL_TOL,),
+                     kc * H * (RK4_STEP_OPS + STAGE_OPS), 0.0, reps=5)
+    # K3's two passes, K5 (also at a ragged K, one tile of 1,000 rollouts).
+    fx0 = torch.tensor([0.02, -0.1, 0.05, 0.1], device=device)
+    fseed2 = torch.tensor([7654321, 0], dtype=torch.int32, device=device)
+    W, low, high = opt.interp.matrix, opt.action_low, opt.action_high
+    k3_tail = (fseed2, W, low, high, opt.cc_weight, opt.R, opt.NU, opt.SQRTRHODTINV, K,
+               DEFAULT_TILE_K)
+    fast_k["k3a"] = compare_fast(
+        "k3_pass1_fast", lambda: fused_mppi_costs(fmodel, fx0, u_nom, pvec, *k3_tail),
+        lambda: fused_mppi_costs_plain(fmodel, fx0, u_nom, pvec, *k3_tail),
+        lambda: fused_mppi_costs(model, fx0, u_nom, pvec, *k3_tail), (KERNEL_TOL,),
+        k2_ops + K * P * (NORMAL_OPS + 1), nbytes(fx0, u_nom, pvec, fseed2, W, low, high) + cost_b)
+    fcost = fused_mppi_costs(fmodel, fx0, u_nom, pvec, *k3_tail)
+    frho = torch.amin(fcost)
+    fred = torch.stack([frho, torch.sum(torch.exp(-(fcost - frho) / opt.LBD))])
+    wargs = (fseed2, fcost, fred, P, 1, opt.LBD, K, DEFAULT_TILE_K)
+    fast_k["k3b"] = compare_fast(
+        "k3_pass2_fast", lambda: fused_mppi_weights(*wargs, fast=True).sum(0),
+        lambda: fused_mppi_weights_plain(*wargs, fast=True).sum(0),
+        lambda: fused_mppi_weights(*wargs, fast=False).sum(0), (WEIGHTS_TOL,),
+        K * (P * (NORMAL_OPS + 2) + WEIGHT_OPS),
+        nbytes(fseed2, fcost, fred) + 4 * P * (-(-K // 128)))
+    fmue = torch.clamp(0.2 * torch.randn(H, 1, generator=fgen, device=device), -1.0, 1.0)
+    fstd = torch.full((H, 1), 0.5, device=device)
+    for label, kc, tile in (("k5", K, DEFAULT_TILE_K), ("k5_ragged_k1000", 1000, 1000)):
+        a5 = (fx0, fmue, fstd, pvec, fseed2, low, high, kc, tile)
+        fast_k[label] = compare_fast(
+            f"{label}_fast", lambda: fused_cem_costs(fmodel, *a5),
+            lambda: fused_cem_costs_plain(fmodel, *a5), lambda: fused_cem_costs(model, *a5),
+            (KERNEL_TOL,), kc * H * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
+            nbytes(fx0, fmue, fstd, pvec, fseed2, low, high) + 4 * kc)
+    fast_equal_to_k1(fmodel, pvec, opt, fgen)
+    fast_k7_adjoint(fmodel, pvec, Qg, fgen)
+    # K4, K6 and K4-emit at the fleet's 128 sessions.
+    ffleet = fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B, FAST_SPEC)
+    fopt = ffleet.optimizer
+    ffm, fpvec_b, fsb = fleet_operands(fopt, FLEET_B_MAX, fgen)
+    efm = dataclasses.replace(ffm, plant="cartpole")
+    Bf, Kf, Hf, Pf = FLEET_B_MAX, fopt.num_rollouts, fopt.mpc_horizon, fopt.interp.matrix.shape[0]
+    fu_b = torch.clamp(0.2 * torch.randn(Bf, Hf, 1, generator=fgen, device=device), -1.0, 1.0)
+    feps_b = fopt.SQRTRHODTINV * torch.randn(Bf, Pf, 1, Kf, generator=fgen, device=device)
+    a4 = (fsb, fu_b, fpvec_b, feps_b, fopt.interp.matrix, fopt.action_low, fopt.action_high,
+          fopt.cc_weight, fopt.R, fopt.NU)
+    k4_ops, k4_b = Bf * Kf * Hf * (RK4_STEP_OPS + STAGE_OPS + MPPI_EXTRA_OPS), nbytes(*a4[:7])
+    fast_k["k4"] = compare_fast("k4_fast", lambda: mppi_cost_cols(ffm, *a4),
+                                lambda: mppi_cost_cols_plain(ffm, *a4),
+                                lambda: mppi_cost_cols(efm, *a4), (KERNEL_TOL,), k4_ops,
+                                k4_b + 4 * Bf * Kf)
+    fast_k["k4_emit"] = compare_fast("k4_emit_fast", lambda: mppi_cost_cols_emit(ffm, *a4),
+                                     lambda: mppi_cost_cols_emit_plain(ffm, *a4),
+                                     lambda: mppi_cost_cols_emit(efm, *a4), (KERNEL_TOL, X_TOL),
+                                     k4_ops, k4_b + 20 * Bf * Kf)
+    fmue_b = torch.clamp(0.2 * torch.randn(Bf, Hf, 1, generator=fgen, device=device), -1.0, 1.0)
+    fstd_b = torch.full((Bf, Hf, 1), 0.5, device=device)
+    fseed_b = torch.randint(0, 2**31 - 1, (Bf,), generator=fgen, dtype=torch.int32, device=device)
+    a6 = (fsb, fmue_b, fstd_b, fpvec_b, fseed_b, low, high, Kf)
+    fast_k["k6"] = compare_fast(
+        "k6_fast", lambda: fused_cem_cols(ffm, *a6), lambda: fused_cem_cols_plain(ffm, *a6),
+        lambda: fused_cem_cols(efm, *a6), (KERNEL_TOL,),
+        Bf * Kf * Hf * (RK4_STEP_OPS + STAGE_OPS + NORMAL_OPS + CEM_CONTROL_OPS),
+        nbytes(*a6[:7]) + 4 * Bf * Kf)
+    fq6 = regen_cols(fseed_b, torch.arange(Kf, device=device).expand(Bf, Kf), fmue_b, fstd_b, low,
+                     high, Kf, fast=True)
+    k6_regen = {"k1_over_regen_equal_share": float(
+        (fused_cem_cols(ffm, *a6) == k1_per_session(ffm, fsb, fq6, fpvec_b)).double().mean())}
+    emit("k6_fast_regeneration", k6_regen)
+    check(k6_regen["k1_over_regen_equal_share"] == 1.0,
+          f"K6-fast differs from K1-fast over regen_cols(fast) {k6_regen}")
+    # The session-row forms at phase 45's operands (32 sessions of 100).
+    fgrad = fleet_controller("cuda", "rpgd-tf", GRAD_RPGD_CONFIG, FLEET_B, FAST_SPEC)
+    fresg = fleet_controller("cuda", "rpgd-tf", GRAD_LEARNED_CONFIG, FLEET_B, RES_FAST_SPEC)
+    cols_args = {form: grad_cols_operands(form, c, GRAD_COLS_B, GRAD_COLS_KS, fgen)
+                 for form, c in (("k1", fgrad), ("k7", fgrad), ("k9", fresg))}
+    cols_exact = {"k1": model, "k7": model, "k9": rmodel}
+    step_ops = {"k1": RK4_STEP_OPS + STAGE_OPS,
+                "k7": RK4_STEP_OPS + STAGE_OPS + RK4_VJP_OPS + STAGE_VJP_OPS,
+                "k12": RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS,
+                "k9": RK4_STEP_OPS + mlp_ops(rnet) + STAGE_OPS + RK4_VJP_OPS + mlp_vjp_ops(rnet)
+                + STAGE_VJP_OPS}
+    for label, form, fn, plain, extra, tols in (
+            ("k1_cols", "k1", cost_rollout_cols, cost_rollout_cols_plain, (), (KERNEL_TOL,)),
+            ("k1_cols_emit", "k1", cost_rollout_cols_emit, cost_rollout_cols_emit_plain, (),
+             (KERNEL_TOL, X_TOL)),
+            ("k7_cols", "k7", grad_cost_rollout_cols, grad_cost_rollout_cols_plain, (),
+             (KERNEL_TOL, "dq")),
+            ("k7_cols_value", "k7", grad_cost_rollout_cols_value, grad_cost_rollout_cols_plain,
+             (vops,), (KERNEL_TOL, "dq")),
+            ("k12_cols", "k9", residual_cost_rollout_cols, residual_cost_rollout_cols_plain, (),
+             (NET_TOL,)),
+            ("k12_cols_emit", "k9", residual_cost_rollout_cols_emit,
+             residual_cost_rollout_cols_emit_plain, (), (NET_TOL, X_TOL)),
+            ("k9_cols", "k9", residual_grad_cost_rollout_cols,
+             residual_grad_cost_rollout_cols_plain, (), (NET_TOL, "dq")),
+            ("k9_cols_value", "k9", residual_grad_cost_rollout_cols_value,
+             residual_grad_cost_rollout_cols_plain, (vops,), (NET_TOL, "dq"))):
+        fm_, *rest = cols_args[form]
+        em_ = cols_exact[form]
+        n = rest[0].shape[0]
+        ops = n * GRAD_FLEET_H * step_ops[label.split("_")[0]]
+        fast_k[label] = compare_fast(
+            f"{label}_fast", lambda fn=fn, a=rest, e=extra: fn(fm_, *a, *e),
+            lambda plain=plain, a=rest, e=extra: plain(fm_, *a, *e),
+            lambda fn=fn, a=rest, e=extra, m=em_: fn(m, *a, *e), tols, ops,
+            nbytes(*[t for t in rest if torch.is_tensor(t)]) + 4 * n, reps=20)
+
+    # 68. The fast flagship, 200 ticks from CartpoleEnv(seed=0), and its
+    # busy time beside the exact flagship's; short loops of the other fast
+    # paths, each counted from 0 (fast_runs: the fast entries' launches).
+    fast_runs = {}
+    check(fctrl.optimizer._uses_semi_fused(), "the fast flagship is not on K2")
+    fast_runs["flagship"] = counted_loop("slice_fast_flagship", fctrl, FAST_TICKS,
+                                         {"mppi_cost": FAST_TICKS}, retarget_at=RETARGET_AT)
+    update_vs_cpu_mppi("fast_update_vs_cpu", fctrl, FAST_SPEC)
+    for name, c in (("mppi_fast", fctrl), ("mppi_exact", ctrl)):
+        profile_ticks(name, env_tick(c))
+    T = FAST_SHORT_TICKS
+    short = {
+        "modular": (make_controller("cuda", spec=FAST_SPEC, semi_fused=False),
+                    {"cost_rollout": T}),
+        "fully_fused": (make_controller("cuda", config=FUSED_MPPI_CONFIG, spec=FAST_SPEC),
+                        {"fused_mppi_cost": T, "fused_mppi_weights": T}),
+        "cem_fused": (make_controller("cuda", "cem-tf", {**CEM_CONFIG, "fully_fused": True},
+                                      spec=FAST_SPEC), {"fused_cem": 2 * T}),
+        "cem": (make_controller("cuda", "cem-tf", CEM_CONFIG, spec=FAST_SPEC),
+                {"cost_rollout": CEM_CONFIG["cem_outer_it"] * T}),
+        "icem": (make_controller("cuda", "icem-tf", ICEM_CONFIG, spec=FAST_SPEC),
+                 {"cost_rollout": ICEM_CONFIG["cem_outer_it"] * T}),
+        "random_action": (make_controller("cuda", "random-action-tf", RANDOM_CONFIG,
+                                          spec=FAST_SPEC), {"cost_rollout": T}),
+        "gradient": (make_controller("cuda", "gradient-tf", GRADIENT_CONFIG, spec=FAST_SPEC),
+                     {"cost_rollout": T,
+                      "grad_cost_rollout": GRADIENT_CONFIG["gradient_steps"] * T}),
+        "rpgd": (make_controller("cuda", "rpgd-tf", RPGD_CONFIG, spec=FAST_SPEC),
+                 {"cost_rollout": T, "grad_cost_rollout": 2 * T}),
+        "res_rpgd": (residual_controller("rpgd-tf", RES_RPGD_CONFIG, RES_FAST_SPEC),
+                     {"residual_cost_rollout": T, "residual_grad_cost_rollout": 2 * T}),
+        "mppi_value": (make_controller("cuda", spec=FAST_SPEC), {"mppi_cost_emit": T}),
+        "rpgd_value": (make_controller("cuda", "rpgd-tf", RPGD_CONFIG, spec=FAST_SPEC),
+                       {"cost_rollout_emit": T, "grad_cost_rollout_value": 2 * T}),
+        "res_mppi_value": (residual_controller("mppi", RES_MPPI_CONFIG, RES_FAST_SPEC),
+                           {"residual_cost_rollout_emit": T}),
+        "res_rpgd_value": (residual_controller("rpgd-tf", RES_RPGD_CONFIG, RES_FAST_SPEC),
+                           {"residual_cost_rollout_emit": T,
+                            "residual_grad_cost_rollout_value": 2 * T})}
+    for label, (c, expected) in short.items():
+        valued = label.endswith("_value")
+        if valued:
+            attach_value_terminal(c, vnet)
+        fast_runs[label] = counted_loop(f"slice_fast_{label}", c, T, expected,
+                                        pole_check=not valued,
+                                        start=LEARNED_START if valued else None)
+    # Adaptive MPPI over the fast base on the mismatched plant, a sysid fit
+    # installed every FAST_FIT_EVERY ticks.
+    fadapt = make_controller("cuda", "mppi", RES_MPPI_CONFIG, spec=RES_FAST_SPEC)
+    fsysid, ffits = OnlineSysId(fadapt, **SYSID), []
+
+    def fit_tick(t, s_, u_, s_next):
+        fsysid.observe(s_, u_, s_next)
+        if (t + 1) % FAST_FIT_EVERY == 0:
+            ffits.append(fsysid.fit_and_apply(steps=FIT_STEPS))
+
+    fast_runs["adaptive"] = counted_loop("slice_fast_adaptive_mppi_residual", fadapt,
+                                         FAST_ADAPT_TICKS,
+                                         {"residual_cost_rollout": FAST_ADAPT_TICKS},
+                                         env_params=TRUE_PARAMS, on_tick=fit_tick)
+    check(sum(int(f["fitted"]) for f in ffits) == FAST_ADAPT_TICKS // FAST_FIT_EVERY,
+          f"a sysid fit over the fast base was refused {ffits}")
+    # The fast fleets at FLEET_B (the valued ones over the committed V).
+    fleets = {
+        "mppi": (ffleet, {"mppi_cost_cols": T}),
+        "cem": (fleet_controller("cuda", "cem-tf", FLEET_CEM_CONFIG, FLEET_B, FAST_SPEC),
+                {"fused_cem_cols": 2 * T}),
+        "rpgd_ode": (fgrad, {"grad_cost_rollout_cols": 2 * T, "cost_rollout_cols": T}),
+        "res_mppi": (fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B, RES_FAST_SPEC),
+                     {"residual_cost_rollout_cols": T}),
+        "rpgd_residual": (fresg, {"residual_grad_cost_rollout_cols": 2 * T,
+                                  "residual_cost_rollout_cols": T}),
+        "mppi_value": (fleet_controller("cuda", "mppi", FLEET_MPPI_CONFIG, FLEET_B, FAST_SPEC),
+                       {"mppi_cost_cols_emit": T}),
+        "rpgd_ode_value": (fleet_controller("cuda", "rpgd-tf", GRAD_RPGD_CONFIG, FLEET_B,
+                                            FAST_SPEC),
+                           {"grad_cost_rollout_cols_value": 2 * T, "cost_rollout_cols_emit": T}),
+        "rpgd_residual_value": (fleet_controller("cuda", "rpgd-tf", GRAD_LEARNED_CONFIG,
+                                                 FLEET_B, RES_FAST_SPEC),
+                                {"residual_grad_cost_rollout_cols_value": 2 * T,
+                                 "residual_cost_rollout_cols_emit": T})}
+    for label, (c, expected) in fleets.items():
+        valued = label.endswith("_value")
+        if valued:
+            attach_value_terminal(c, vnet)
+        fast_runs[f"fleet_{label}"] = fleet_loop(f"slice_fast_fleet_{label}", c, T, expected,
+                                                 retarget_at=T // 2, pole_check=not valued)
+
+    # 69. The exact entries keep their SASS (EXACT_SASS).
+    exact_sass_kept()
+
+    return fast_k, fast_runs
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -5275,6 +5763,11 @@ def main() -> None:
                                  MLP_SPEC, GRADIENT_CONFIG, vnet)
     for label, c in vgfleets.items():
         grad_fleet_value_update_vs_cpu(label, c, vnet, gen)
+
+    # 67-69. The fast plant's forms, loops and the exact entries' SASS.
+    fast_k, fast_runs = fast_phases(device, ctrl, model, pvec, s0, Q, Qg, k2_args, rmodel,
+                                    rpvec, rnet, vnet)
+    fast_launches = {kernel: sum(r[kernel] for r in fast_runs.values()) for kernel in COUNTED}
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
     if "--starts" in sys.argv[1:]:
@@ -5373,6 +5866,50 @@ def main() -> None:
     )
     check(all(launches[name] > 0 for name, *_ in rows),
           f"a kernel of the path was launched no time in its loops {launches}")
+    # The fast forms (phases 67-68): the fast plant's instance of each entry,
+    # its launches from the fast loops.
+    fast_rows = tuple(
+        (f"{name}_fast", source, replaces, fast_k[key], name)
+        for name, source, replaces, key in (
+            ("mppi_cost", "mppi_cost.cu", "ops/pallas_mppi.py:501", "k2"),
+            ("cost_rollout", "cost_rollout.cu", "ops/pallas_rollout.py:34", "k1"),
+            ("fused_mppi_cost", "fused_mppi.cu", "ops/pallas_mppi.py:376", "k3a"),
+            ("fused_mppi_weights", "fused_mppi.cu", "ops/pallas_mppi.py:376", "k3b"),
+            ("mppi_cost_cols", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", "k4"),
+            ("fused_cem", "fused_cem.cu", "ops/pallas_cem.py:38", "k5"),
+            ("fused_cem_cols", "fused_cem_cols.cu", "ops/pallas_cem.py:168", "k6"),
+            ("grad_cost_rollout", "grad_cost_rollout.cu", "ops/pallas_grad.py:335", "k7"),
+            ("residual_cost_rollout", "residual_rollout.cu", "ops/pallas_neural.py:351", "k12"),
+            ("residual_grad_cost_rollout", "residual_rollout.cu", "ops/pallas_grad.py:459",
+             "k9"),
+            ("cost_rollout_cols", "cost_rollout.cu", "ops/pallas_rollout.py:34", "k1_cols"),
+            ("cost_rollout_emit", "cost_rollout.cu", "ops/pallas_rollout.py:34", "k1_emit"),
+            ("cost_rollout_cols_emit", "cost_rollout.cu", "ops/pallas_rollout.py:34",
+             "k1_cols_emit"),
+            ("mppi_cost_emit", "mppi_cost.cu", "ops/pallas_mppi.py:501", "k2_emit"),
+            ("mppi_cost_cols_emit", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586", "k4_emit"),
+            ("grad_cost_rollout_cols", "grad_cost_rollout.cu", "ops/pallas_grad.py:335",
+             "k7_cols"),
+            ("grad_cost_rollout_value", "grad_cost_rollout.cu", "ops/pallas_grad.py:335",
+             "k7_value"),
+            ("grad_cost_rollout_cols_value", "grad_cost_rollout.cu", "ops/pallas_grad.py:335",
+             "k7_cols_value"),
+            ("residual_cost_rollout_emit", "residual_rollout.cu", "ops/pallas_neural.py:351",
+             "k12_emit"),
+            ("residual_cost_rollout_cols", "residual_rollout.cu", "ops/pallas_neural.py:351",
+             "k12_cols"),
+            ("residual_cost_rollout_cols_emit", "residual_rollout.cu",
+             "ops/pallas_neural.py:351", "k12_cols_emit"),
+            ("residual_grad_cost_rollout_cols", "residual_rollout.cu", "ops/pallas_grad.py:459",
+             "k9_cols"),
+            ("residual_grad_cost_rollout_value", "residual_rollout.cu",
+             "ops/pallas_grad.py:459", "k9_value"),
+            ("residual_grad_cost_rollout_cols_value", "residual_rollout.cu",
+             "ops/pallas_grad.py:459", "k9_cols_value")))
+    check(all(fast_launches[wrapper] > 0 for *_, wrapper in fast_rows),
+          f"a fast entry was launched no time in the fast loops {fast_launches}")
+    launches.update({name: fast_launches[wrapper] for name, _, _, _, wrapper in fast_rows})
+    rows = rows + tuple(row[:4] for row in fast_rows)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.
     print(json.dumps({"kernels": [

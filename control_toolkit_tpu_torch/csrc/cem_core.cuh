@@ -8,7 +8,9 @@
 // The control at step h and input j is
 //   u = clamp(mue[h,j] + std[h,j] * z, low[j], high[j]),
 //   z = counter_normal(base + j*jstride + h*hstride)
-// in uint32 arithmetic; each kernel gives its own counter layout as
+// in uint32 arithmetic (over the fast plant, CartpoleFastPlant, the fast
+// normal: the JAX fast_sampling form, which the regenerations draw with
+// fast=True); each kernel gives its own counter layout as
 // (base, jstride, hstride).  mue + std*z is rounded twice, as torch and XLA
 // compute it (no FMA contraction), so the rows that the torch regeneration
 // draws again are the controls the kernel scored.
@@ -40,10 +42,12 @@ constexpr int kCemThreads = 128;   // threads a K5 or K6 block
 constexpr int kDrawControls = 64;  // controls a rollout draws ahead, per chunk of steps
 
 // The clipped control of one counter: clamp(mue + std * z, lo, hi), the
-// sum and the product each rounded (no FMA contraction).
+// sum and the product each rounded (no FMA contraction); Fast: z the fast
+// normal (the fast plant's, JAX's fast_sampling).
+template <bool Fast>
 __device__ __forceinline__ float cem_control(uint32_t counter, float mue, float std_dev, float lo,
                                              float hi) {
-  const float v = __fadd_rn(mue, __fmul_rn(std_dev, counter_normal(counter)));
+  const float v = __fadd_rn(mue, __fmul_rn(std_dev, counter_normal<Fast>(counter)));
   return fminf(fmaxf(v, lo), hi);
 }
 
@@ -112,8 +116,8 @@ __device__ __forceinline__ float cem_rollout_cost(
       for (int j = 0; j < U; ++j) {
         const uint32_t counter =
             base + static_cast<uint32_t>(j) * jstride + static_cast<uint32_t>(h) * hstride;
-        column[(i * U + j) * kCemThreads] =
-            cem_control(counter, __ldg(mue + h * U + j), __ldg(std_dev + h * U + j), lo[j], hi[j]);
+        column[(i * U + j) * kCemThreads] = cem_control<Plant::kFast>(
+            counter, __ldg(mue + h * U + j), __ldg(std_dev + h * U + j), lo[j], hi[j]);
       }
     }
     column_steps<Plant>(x, prev, acc, p, rc, c, max_cost, column, n);

@@ -7,6 +7,10 @@
 // cost[k] = (sum_h stage(x_h, Q[k,h], Q[k,h-1]) + terminal(x_H)) / (H+1)
 // with Q[k,-1] = u_prev from the packed parameters.
 //
+// Over the fast plant (CartpoleFastPlant: the ":fast" predictors) each
+// entry below is instantiated again: its polynomial trig in the step, the
+// cost exact (short_step.cuh).
+//
 // K1's emit_terminal form (one session, cost_rollout_emit_kernel, and the
 // session-row form, cost_rollout_emit_rows_kernel) is the body's Emit
 // instance: it also writes rollout k's x_H to row k of x_term [K, S].
@@ -117,6 +121,25 @@ cost_rollout_emit_rows_kernel(const float* __restrict__ s0, const float* __restr
   cost_rollout_body<Plant, true, true>(s0, Q, pvec, cost, x_term, K, ks, H, c, max_cost);
 }
 
+// K1, or its emit_terminal form where x_term is not null, over `Plant`.
+template <class Plant>
+int launch_cost_rollout(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
+                        const float* pvec, float* cost, float* x_term, int K, int ks, int H,
+                        const StepConsts& c, float max_cost) {
+  if (x_term != nullptr && ks == K) {
+    cost_rollout_emit_kernel<Plant><<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, x_term, K, H,
+                                                                c, max_cost);
+  } else if (x_term != nullptr) {
+    cost_rollout_emit_rows_kernel<Plant><<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, x_term,
+                                                                     K, ks, H, c, max_cost);
+  } else {
+    (ks == K ? cost_rollout_kernel<Plant, false>
+             : cost_rollout_kernel<Plant, true>)<<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, K,
+                                                                            ks, H, c, max_cost);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ctt
 
 // Launches K1 on `stream` over K rollouts, sessions of ks (pvec holds
@@ -138,25 +161,17 @@ extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const 
   const auto* qf = static_cast<const float*>(Q);
   const auto* pf = static_cast<const float*>(pvec);
   auto* costf = static_cast<float*>(cost);
+  auto* xf = static_cast<float*>(x_term);
   switch (plant) {
     case ctt::kPlantCartpole:
-      if (x_term != nullptr && ks == K) {
-        ctt::cost_rollout_emit_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
-            s0f, qf, pf, costf, static_cast<float*>(x_term), K, H, c, max_cost);
-      } else if (x_term != nullptr) {
-        ctt::cost_rollout_emit_rows_kernel<ctt::CartpolePlant><<<grid, ctt::kThreads, 0, st>>>(
-            s0f, qf, pf, costf, static_cast<float*>(x_term), K, ks, H, c, max_cost);
-      } else {
-        (ks == K ? ctt::cost_rollout_kernel<ctt::CartpolePlant, false>
-                 : ctt::cost_rollout_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads, 0,
-                                                                          st>>>(
-            s0f, qf, pf, costf, K, ks, H, c, max_cost);
-      }
-      break;
+      return ctt::launch_cost_rollout<ctt::CartpolePlant>(grid, st, s0f, qf, pf, costf, xf, K, ks,
+                                                          H, c, max_cost);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_cost_rollout<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf,
+                                                              K, ks, H, c, max_cost);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of K1 (rows 0) or of its session-row form (rows 1) that one SM

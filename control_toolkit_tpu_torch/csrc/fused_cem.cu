@@ -14,7 +14,9 @@
 // is never copied to the host.
 //
 // What bounds it on an H100 and what the design does about it: cem_core.cuh
-// (the body K6 shares).  Its tile layout is K5's own.  Rollouts past K (a
+// (the body K6 shares).  Its tile layout is K5's own.  Over the fast plant
+// (CartpoleFastPlant, kPlantCartpoleFast) it is the JAX fast_sampling
+// form: fast_sincos in the plant, the fast normals in the draws.  Rollouts past K (a
 // block's ragged edge) repeat rollout K-1 and write nothing.
 #include "cem_core.cuh"
 
@@ -50,10 +52,13 @@ extern "C" int ctt_fused_cem(int plant, const void* s0, const void* mue, const v
                              const void* high, void* cost, int K, int H, int tile_k, int rk4,
                              int substeps, float sub_dt, float half_dt, float dt6, float max_cost,
                              void* stream) {
-  if (plant != ctt::kPlantCartpole) return static_cast<int>(cudaErrorInvalidValue);
+  if (plant != ctt::kPlantCartpole && plant != ctt::kPlantCartpoleFast) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   constexpr int per_block = ctt::kCemThreads;
-  ctt::fused_cem_kernel<ctt::CartpolePlant>
+  (plant == ctt::kPlantCartpole ? ctt::fused_cem_kernel<ctt::CartpolePlant>
+                                : ctt::fused_cem_kernel<ctt::CartpoleFastPlant>)
       <<<(K + per_block - 1) / per_block, per_block, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(s0), static_cast<const float*>(mue),
           static_cast<const float*>(std_dev), static_cast<const float*>(pvec),

@@ -71,6 +71,13 @@ extern "C" int ctt_fused_cem_cols(int plant, const void* s0, const void* mue, co
           static_cast<const int*>(seed_b), static_cast<const float*>(low),
           static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, c, max_cost);
       break;
+    case ctt::kPlantCartpoleFast:  // the fast_sampling form
+      ctt::fused_cem_cols_kernel<ctt::CartpoleFastPlant><<<grid, ctt::kCemThreads, 0, st>>>(
+          static_cast<const float*>(s0), static_cast<const float*>(mue),
+          static_cast<const float*>(std_dev), static_cast<const float*>(pvec_b),
+          static_cast<const int*>(seed_b), static_cast<const float*>(low),
+          static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, c, max_cost);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

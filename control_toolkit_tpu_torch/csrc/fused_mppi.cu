@@ -23,6 +23,11 @@
 // the plain version draws the same controls, and K1 over them
 // (mppi_controls_plain) scores them as this pass does at cc_weight = 0.
 //
+// Over the fast plant (CartpoleFastPlant, the ":fast" predictors) both
+// passes draw the fast normals (counter_normal<true>, JAX's fast_sampling):
+// pass 1 through its plant's kFast, pass 2 as its own entry
+// (fused_mppi_weights_fast_kernel).
+//
 // Between the passes, torch computes rho = min S and a = sum exp(-(S-rho)/LBD)
 // on the card and passes them by pointer (red = [rho, a]): no host sync.
 //
@@ -58,14 +63,15 @@ __device__ __forceinline__ uint32_t noise_base(const int* seed2, int g, int K, i
 }
 
 // Pass 1's noise policy (mppi_ahead.cuh): e[p,j] = stdev * the counter
-// normal, the product rounded.
+// normal (Fast: the fast normal), the product rounded.
+template <bool Fast>
 struct CounterNoise {
   uint32_t base, stride, tile_k;
   float stdev;
 
   __device__ __forceinline__ float operator()(int p, int j) const {
-    return __fmul_rn(counter_normal(base + static_cast<uint32_t>(j) * stride +
-                                    static_cast<uint32_t>(p) * tile_k),
+    return __fmul_rn(counter_normal<Fast>(base + static_cast<uint32_t>(j) * stride +
+                                          static_cast<uint32_t>(p) * tile_k),
                      stdev);
   }
 };
@@ -84,8 +90,8 @@ fused_mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u
   __shared__ float controls[kDrawControls][kCemThreads];
   const int g = blockIdx.x * kCemThreads + threadIdx.x, gc = g < K ? g : K - 1;
   const uint32_t stride = static_cast<uint32_t>(P) * static_cast<uint32_t>(tile_k);
-  const CounterNoise noise{noise_base(seed2, gc, K, tile_k, stride, Plant::U), stride,
-                           static_cast<uint32_t>(tile_k), stdev};
+  const CounterNoise<Plant::kFast> noise{noise_base(seed2, gc, K, tile_k, stride, Plant::U),
+                                         stride, static_cast<uint32_t>(tile_k), stdev};
   const float out = mppi_ahead_cost<Plant>(s0, u_nom, pvec, W, low, high, noise, H, P, c,
                                            max_cost, cc, &controls[0][threadIdx.x]);
   if (g < K) cost[g] = out;
@@ -93,11 +99,12 @@ fused_mppi_cost_kernel(const float* __restrict__ s0, const float* __restrict__ u
 
 constexpr int kWarps = kThreads / 32;
 
-// Dynamic shared memory: kWarps * P * U floats.
-__global__ void __launch_bounds__(kThreads)
-fused_mppi_weights_kernel(const int* __restrict__ seed2, const float* __restrict__ cost,
-                          const float* __restrict__ red, float* __restrict__ partials, int K,
-                          int P, int U, int tile_k, float inv_lbd) {
+// Pass 2's body over the block's warp_sums (kWarps * P * U floats of
+// dynamic shared memory); Fast: the fast normals.
+template <bool Fast>
+__device__ __forceinline__ void fused_mppi_weights_body(
+    const int* __restrict__ seed2, const float* __restrict__ cost, const float* __restrict__ red,
+    float* __restrict__ partials, int K, int P, int U, int tile_k, float inv_lbd) {
   extern __shared__ float warp_sums[];
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -114,8 +121,8 @@ fused_mppi_weights_kernel(const int* __restrict__ seed2, const float* __restrict
     const int pp = q / U, j = q % U;
     float v = 0.0f;
     if (live) {
-      v = w * counter_normal(base + static_cast<uint32_t>(j) * stride +
-                             static_cast<uint32_t>(pp * tile_k));
+      v = w * counter_normal<Fast>(base + static_cast<uint32_t>(j) * stride +
+                                   static_cast<uint32_t>(pp * tile_k));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -128,6 +135,39 @@ fused_mppi_weights_kernel(const int* __restrict__ seed2, const float* __restrict
     for (int k = 0; k < kWarps; ++k) s += warp_sums[k * PU + q];
     partials[static_cast<size_t>(blockIdx.x) * PU + q] = s;
   }
+}
+
+// Dynamic shared memory: kWarps * P * U floats.
+__global__ void __launch_bounds__(kThreads)
+fused_mppi_weights_kernel(const int* __restrict__ seed2, const float* __restrict__ cost,
+                          const float* __restrict__ red, float* __restrict__ partials, int K,
+                          int P, int U, int tile_k, float inv_lbd) {
+  fused_mppi_weights_body<false>(seed2, cost, red, partials, K, P, U, tile_k, inv_lbd);
+}
+
+// Pass 2 of the fast plant's K3 (the JAX fast_sampling form): the fast
+// normals, its own entry so that pass 2 keeps its code.
+__global__ void __launch_bounds__(kThreads)
+fused_mppi_weights_fast_kernel(const int* __restrict__ seed2, const float* __restrict__ cost,
+                               const float* __restrict__ red, float* __restrict__ partials, int K,
+                               int P, int U, int tile_k, float inv_lbd) {
+  fused_mppi_weights_body<true>(seed2, cost, red, partials, K, P, U, tile_k, inv_lbd);
+}
+
+// Pass 1 of `Plant` on `stream`.
+template <class Plant>
+int launch_fused_mppi_cost(dim3 grid, cudaStream_t st, const void* s0, const void* u_nom,
+                           const void* pvec, const void* seed2, const void* W, const void* low,
+                           const void* high, void* cost, int K, int H, int P, int tile_k,
+                           const StepConsts& c, float max_cost, const MppiCorr& cc,
+                           float stdev) {
+  fused_mppi_cost_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+      static_cast<const float*>(pvec), static_cast<const int*>(seed2),
+      static_cast<const float*>(W), static_cast<const float*>(low),
+      static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, tile_k, c, max_cost,
+      cc, stdev);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ctt
@@ -147,27 +187,29 @@ extern "C" int ctt_fused_mppi_cost(int plant, const void* s0, const void* u_nom,
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      ctt::fused_mppi_cost_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-          static_cast<const float*>(pvec), static_cast<const int*>(seed2),
-          static_cast<const float*>(W), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, tile_k, c, max_cost,
-          cc, stdev);
-      break;
+      return ctt::launch_fused_mppi_cost<ctt::CartpolePlant>(
+          grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
+          stdev);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_fused_mppi_cost<ctt::CartpoleFastPlant>(
+          grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
+          stdev);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
-// Launch K3's pass 2 on `stream` into partials [ceil(K / 128), P, U];
-// returns cudaGetLastError() after the launch.
+// Launch K3's pass 2 on `stream` into partials [ceil(K / 128), P, U], over
+// the fast normals where `fast` (pass 1's plant the fast one); returns
+// cudaGetLastError() after the launch.
 extern "C" int ctt_fused_mppi_weights(const void* seed2, const void* cost, const void* red,
                                       void* partials, int K, int P, int U, int tile_k,
-                                      float inv_lbd, void* stream) {
+                                      float inv_lbd, int fast, void* stream) {
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   const size_t smem = sizeof(float) * ctt::kWarps * P * U;
-  ctt::fused_mppi_weights_kernel<<<grid, ctt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  (fast ? ctt::fused_mppi_weights_fast_kernel
+        : ctt::fused_mppi_weights_kernel)<<<grid, ctt::kThreads, smem,
+                                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(seed2), static_cast<const float*>(cost),
       static_cast<const float*>(red), static_cast<float*>(partials), K, P, U, tile_k, inv_lbd);
   return static_cast<int>(cudaGetLastError());

@@ -328,6 +328,66 @@ grad_cost_adjoint_value_rows_kernel(const float* __restrict__ Q, const float* __
   grad_adjoint_body<Plant, true, true>(Q, pvec, xhist, vgrad, dQ, K, ks, H, c, ct);
 }
 
+// K7's forward over `Plant`: one session (ks = K) or the session-row form.
+template <class Plant>
+int launch_grad_forward(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
+                        const float* pvec, float* cost, float* xhist, int K, int ks, int H,
+                        const StepConsts& c, float max_cost) {
+  (ks == K ? grad_cost_forward_kernel<Plant, false>
+           : grad_cost_forward_kernel<Plant, true>)<<<grid, kThreads, 0, st>>>(
+      s0, Q, pvec, cost, xhist, K, ks, H, c, max_cost);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Its value_spec instance over `Plant`, with `bytes` of dynamic shared
+// memory for V's activations.
+template <class Plant>
+int launch_grad_forward_value(dim3 grid, cudaStream_t st, long bytes, const float* s0,
+                              const float* Q, const float* pvec, float* cost, float* xhist,
+                              float* vgrad, int K, int ks, int H, const StepConsts& c,
+                              float max_cost, float ct, const ValueArgs& v) {
+  if (ks == K) {
+    auto kernel = grad_cost_forward_value_kernel<Plant>;
+    if (bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, kThreads, static_cast<size_t>(bytes), st>>>(s0, Q, pvec, cost, xhist, vgrad, K,
+                                                                H, c, max_cost, ct, v);
+  } else {
+    auto kernel = grad_cost_forward_value_rows_kernel<Plant>;
+    if (bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, kThreads, static_cast<size_t>(bytes), st>>>(s0, Q, pvec, cost, xhist, vgrad, K,
+                                                                ks, H, c, max_cost, ct, v);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's adjoint over `Plant`, or its value_spec instance where vgrad is not
+// null; one session (ks = K) or the session-row form.
+template <class Plant>
+int launch_grad_adjoint(dim3 grid, cudaStream_t st, const float* Q, const float* pvec,
+                        const float* xhist, const float* vgrad, float* dQ, int K, int ks, int H,
+                        const StepConsts& c, float ct) {
+  if (vgrad != nullptr && ks == K) {
+    grad_cost_adjoint_value_kernel<Plant><<<grid, kAdjThreads, 0, st>>>(Q, pvec, xhist, vgrad, dQ,
+                                                                        K, H, c, ct);
+  } else if (vgrad != nullptr) {
+    grad_cost_adjoint_value_rows_kernel<Plant><<<grid, kAdjThreads, 0, st>>>(
+        Q, pvec, xhist, vgrad, dQ, K, ks, H, c, ct);
+  } else {
+    (ks == K ? grad_cost_adjoint_kernel<Plant, false>
+             : grad_cost_adjoint_kernel<Plant, true>)<<<grid, kAdjThreads, 0, st>>>(
+        Q, pvec, xhist, dQ, K, ks, H, c, ct);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ctt
 
 // Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
@@ -344,19 +404,21 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
+  const auto* s0f = static_cast<const float*>(s0);
+  const auto* qf = static_cast<const float*>(Q);
+  const auto* pf = static_cast<const float*>(pvec);
+  auto* costf = static_cast<float*>(cost);
+  auto* xf = static_cast<float*>(xhist);
   switch (plant) {
     case ctt::kPlantCartpole:
-      (ks == K ? ctt::grad_cost_forward_kernel<ctt::CartpolePlant, false>
-               : ctt::grad_cost_forward_kernel<ctt::CartpolePlant, true>)<<<grid, ctt::kThreads,
-                                                                            0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(Q),
-          static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(xhist),
-          K, ks, H, c, max_cost);
-      break;
+      return ctt::launch_grad_forward<ctt::CartpolePlant>(grid, st, s0f, qf, pf, costf, xf, K, ks,
+                                                          H, c, max_cost);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_grad_forward<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf, K,
+                                                              ks, H, c, max_cost);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The forward value instance's dynamic shared memory for the net of v, or
@@ -385,41 +447,24 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
+  const long bytes = ctt_value_smem_bytes(v, ctt::CartpolePlant::S);
+  if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* s0f = static_cast<const float*>(s0);
+  const auto* qf = static_cast<const float*>(Q);
+  const auto* pf = static_cast<const float*>(pvec);
+  auto* costf = static_cast<float*>(cost);
+  auto* xf = static_cast<float*>(xhist);
+  auto* vf = static_cast<float*>(vgrad);
   switch (plant) {
-    case ctt::kPlantCartpole: {
-      const long bytes = ctt_value_smem_bytes(v, ctt::CartpolePlant::S);
-      if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-      const auto* s0f = static_cast<const float*>(s0);
-      const auto* qf = static_cast<const float*>(Q);
-      const auto* pf = static_cast<const float*>(pvec);
-      auto* costf = static_cast<float*>(cost);
-      auto* xf = static_cast<float*>(xhist);
-      auto* vf = static_cast<float*>(vgrad);
-      if (ks == K) {
-        auto kernel = ctt::grad_cost_forward_value_kernel<ctt::CartpolePlant>;
-        if (bytes > 48 * 1024) {
-          const cudaError_t e = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-          if (e != cudaSuccess) return static_cast<int>(e);
-        }
-        kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
-            s0f, qf, pf, costf, xf, vf, K, H, c, max_cost, ct, *v);
-      } else {
-        auto kernel = ctt::grad_cost_forward_value_rows_kernel<ctt::CartpolePlant>;
-        if (bytes > 48 * 1024) {
-          const cudaError_t e = cudaFuncSetAttribute(
-              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-          if (e != cudaSuccess) return static_cast<int>(e);
-        }
-        kernel<<<grid, ctt::kThreads, static_cast<size_t>(bytes), st>>>(
-            s0f, qf, pf, costf, xf, vf, K, ks, H, c, max_cost, ct, *v);
-      }
-      break;
-    }
+    case ctt::kPlantCartpole:
+      return ctt::launch_grad_forward_value<ctt::CartpolePlant>(
+          grid, st, bytes, s0f, qf, pf, costf, xf, vf, K, ks, H, c, max_cost, ct, *v);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_grad_forward_value<ctt::CartpoleFastPlant>(
+          grid, st, bytes, s0f, qf, pf, costf, xf, vf, K, ks, H, c, max_cost, ct, *v);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
@@ -441,22 +486,14 @@ extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
   auto* dqf = static_cast<float*>(dQ);
   switch (plant) {
     case ctt::kPlantCartpole:
-      if (vgrad != nullptr && ks == K) {
-        ctt::grad_cost_adjoint_value_kernel<ctt::CartpolePlant>
-            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, vf, dqf, K, H, c, ct);
-      } else if (vgrad != nullptr) {
-        ctt::grad_cost_adjoint_value_rows_kernel<ctt::CartpolePlant>
-            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, vf, dqf, K, ks, H, c, ct);
-      } else {
-        (ks == K ? ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, false>
-                 : ctt::grad_cost_adjoint_kernel<ctt::CartpolePlant, true>)
-            <<<grid, ctt::kAdjThreads, 0, st>>>(qf, pf, xf, dqf, K, ks, H, c, ct);
-      }
-      break;
+      return ctt::launch_grad_adjoint<ctt::CartpolePlant>(grid, st, qf, pf, xf, vf, dqf, K, ks, H,
+                                                          c, ct);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_grad_adjoint<ctt::CartpoleFastPlant>(grid, st, qf, pf, xf, vf, dqf, K,
+                                                              ks, H, c, ct);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of K7's forward kernel (rows 0) or of its session-row form (rows

@@ -84,6 +84,29 @@ mppi_cost_cols_emit_kernel(const float* __restrict__ s0, const float* __restrict
   }
 }
 
+// K4, or its emit_terminal form where x_term is not null, over `Plant`.
+template <class Plant>
+int launch_mppi_cost_cols(dim3 grid, cudaStream_t st, const void* s0, const void* u_nom,
+                          const void* pvec_b, const void* eps, const void* W, const void* low,
+                          const void* high, void* cost, void* x_term, int B, int K, int H, int P,
+                          const StepConsts& c, float max_cost, const MppiCorr& cc) {
+  if (x_term != nullptr) {
+    mppi_cost_cols_emit_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
+        static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+        static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
+        static_cast<const float*>(W), static_cast<const float*>(low),
+        static_cast<const float*>(high), static_cast<float*>(cost), static_cast<float*>(x_term),
+        B, K, H, P, c, max_cost, cc);
+  } else {
+    mppi_cost_cols_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
+        static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+        static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
+        static_cast<const float*>(W), static_cast<const float*>(low),
+        static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, P, c, max_cost, cc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ctt
 
 // Launches K4 on `stream`, or, with x_term not null, its emit_terminal
@@ -103,24 +126,14 @@ extern "C" int ctt_mppi_cost_cols(int plant, const void* s0, const void* u_nom,
   auto st = static_cast<cudaStream_t>(stream);
   switch (plant) {
     case ctt::kPlantCartpole:
-      if (x_term != nullptr) {
-        ctt::mppi_cost_cols_emit_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
-            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-            static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
-            static_cast<const float*>(W), static_cast<const float*>(low),
-            static_cast<const float*>(high), static_cast<float*>(cost),
-            static_cast<float*>(x_term), B, K, H, P, c, max_cost, cc);
-      } else {
-        ctt::mppi_cost_cols_kernel<ctt::CartpolePlant><<<grid, per_block, 0, st>>>(
-            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-            static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
-            static_cast<const float*>(W), static_cast<const float*>(low),
-            static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, P, c,
-            max_cost, cc);
-      }
-      break;
+      return ctt::launch_mppi_cost_cols<ctt::CartpolePlant>(grid, st, s0, u_nom, pvec_b, eps, W,
+                                                            low, high, cost, x_term, B, K, H, P,
+                                                            c, max_cost, cc);
+    case ctt::kPlantCartpoleFast:
+      return ctt::launch_mppi_cost_cols<ctt::CartpoleFastPlant>(grid, st, s0, u_nom, pvec_b, eps,
+                                                                W, low, high, cost, x_term, B, K,
+                                                                H, P, c, max_cost, cc);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

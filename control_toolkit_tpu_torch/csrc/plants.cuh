@@ -14,22 +14,69 @@
 // Each expression copies the operation order of its Python counterpart
 // (models/dynamics.py, costs/cartpole.py).  sinf/cosf are the accurate
 // library functions, not the __sinf/__cosf intrinsics.
+//
+// The cartpole plant comes in two instances of one template on its trig:
+// CartpolePlant (exact, sinf/cosf/sincosf) and CartpoleFastPlant (the
+// ":fast" predictors' plant, models/dynamics.py cartpole_derivs_soa_fast:
+// fastmath.cuh's fast_sincos in every plant evaluation, and in its
+// adjoints the polynomials' derivatives, fast_sincos_d, as jax.vjp takes
+// them).  Each trig site is an `if constexpr`, so the exact instance
+// compiles to the code it had before the template.  The cost stays exact
+// in both: the JAX cartpole cost calls jnp.cos whatever the plant, so
+// the fast instance's short step (short_step.cuh) takes the stage cost's
+// cos(angle) from its own cosf.  Plant::sincos is the hook short_step.cuh
+// calls in place of sincosf; Plant::kFast also picks the fast counter
+// normals (counter_prng.cuh) in the fully-fused kernels.
 #pragma once
+
+#include "fastmath.cuh"
 
 namespace ctt {
 
-// Cart-pole dynamics (models/dynamics.py:_cartpole_derivs).
-struct CartpoleDynamics {
+// Cart-pole dynamics (models/dynamics.py:_cartpole_derivs) over exact
+// (Fast false) or polynomial trig.
+template <bool Fast>
+struct CartpoleDynamicsT {
+  static constexpr bool kFast = Fast;
   static constexpr int S = 4;  // position, positionD, angle, angleD
   static constexpr int U = 1;  // force command in [-1, 1]
   enum : int { kL = 0, kFrictionCart, kFrictionPole, kG, kMCart, kMPole, kUMax, kN };
+
+  // sin and cos of theta, once: the short step's trig (short_step.cuh).
+  __device__ __forceinline__ static void sincos(float theta, float& sin_t, float& cos_t) {
+    if constexpr (Fast) {
+      fast_sincos(theta, sin_t, cos_t);
+    } else {
+      sincosf(theta, &sin_t, &cos_t);
+    }
+  }
+
+  // sin and cos of theta, and the derivatives the adjoints take: dsin =
+  // d sin / d theta and ndcos = -d cos / d theta, exact trig's cos and sin.
+  __device__ __forceinline__ static void sincos_d(float theta, float& sin_t, float& cos_t,
+                                                  float& dsin, float& ndcos) {
+    if constexpr (Fast) {
+      fast_sincos_d(theta, sin_t, cos_t, dsin, ndcos);
+    } else {
+      sin_t = sinf(theta);
+      cos_t = cosf(theta);
+      dsin = cos_t;
+      ndcos = sin_t;
+    }
+  }
 
   __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
                                                 const float* p, float (&d)[S]) {
     const float pos_d = x[1], theta = x[2], theta_d = x[3];
     const float force = u[0] * p[kUMax];
     const float m_c = p[kMCart], m_p = p[kMPole], L = p[kL], g = p[kG];
-    const float sin_t = sinf(theta), cos_t = cosf(theta);
+    float sin_t, cos_t;
+    if constexpr (Fast) {
+      fast_sincos(theta, sin_t, cos_t);
+    } else {
+      sin_t = sinf(theta);
+      cos_t = cosf(theta);
+    }
     const float total_m = m_c + m_p;
     const float temp =
         (force + m_p * L * (theta_d * theta_d) * sin_t - p[kFrictionCart] * pos_d) / total_m;
@@ -44,7 +91,7 @@ struct CartpoleDynamics {
   }
 
   // K5's form of derivs (fused_cem.cu): d = f(x, u) from sin and cos of
-  // theta, taken once by the caller (sincosf), and the reciprocals of
+  // theta, taken once by the caller (sincos), and the reciprocals of
   // Recips, taken once a rollout, in place of four of derivs' five
   // divisions; one division, num / den, stays.  The operation order is
   // derivs_tangent's.
@@ -81,7 +128,8 @@ struct CartpoleDynamics {
     const float m_p = p[kMPole], L = p[kL], g = p[kG];
     const float fc = p[kFrictionCart], fp = p[kFrictionPole];
     const float force = u[0] * p[kUMax];
-    const float sin_t = sinf(theta), cos_t = cosf(theta);
+    float sin_t, cos_t, dsin, ndcos;
+    sincos_d(theta, sin_t, cos_t, dsin, ndcos);
     const float total_m = p[kMCart] + m_p;
     const float mpl = m_p * L;
     const float temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) / total_m;
@@ -108,7 +156,7 @@ struct CartpoleDynamics {
     g_sin = g_sin + g_a * mpl * (theta_d * theta_d);
     dx[0] = 0.0f;
     dx[1] = lam[0] - g_a * fc;
-    dx[2] = g_sin * cos_t - g_cos * sin_t;
+    dx[2] = g_sin * dsin - g_cos * ndcos;
     dx[3] = g_thd;
     du[0] = g_a * p[kUMax];
   }
@@ -119,7 +167,8 @@ struct CartpoleDynamics {
   // of u (N = S + U), J = d f / d(x, u).  Rows 0 and 2 of J are the unit
   // rows of pos_d and theta_d, and no row depends on pos, so only rows 1
   // and 3 are multiplied out; the three reciprocals replace the
-  // divisions of derivs, and sincosf reduces theta once.
+  // divisions of derivs, and sincosf reduces theta once (the fast
+  // instance: fast_sincos_d, with the polynomials' derivatives).
   template <int N>
   __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
                                                         const float* p, const float (&T)[S][N],
@@ -128,8 +177,14 @@ struct CartpoleDynamics {
     const float m_p = p[kMPole], L = p[kL], g = p[kG];
     const float fc = p[kFrictionCart], fp = p[kFrictionPole];
     const float force = u[0] * p[kUMax];
-    float sin_t, cos_t;
-    sincosf(theta, &sin_t, &cos_t);
+    float sin_t, cos_t, dsin, ndcos;
+    if constexpr (Fast) {
+      fast_sincos_d(theta, sin_t, cos_t, dsin, ndcos);
+    } else {
+      sincosf(theta, &sin_t, &cos_t);
+      dsin = cos_t;
+      ndcos = sin_t;
+    }
     const float mpl = m_p * L;
     const float inv_m = 1.0f / (p[kMCart] + m_p), inv_mpl = 1.0f / mpl;
     const float temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) * inv_m;
@@ -142,22 +197,22 @@ struct CartpoleDynamics {
     d[3] = theta_dd;
     // temp's partials in pos_d, theta, theta_d and u
     const float t1 = -fc * inv_m;
-    const float t2 = mpl * (theta_d * theta_d) * cos_t * inv_m;
+    const float t2 = mpl * (theta_d * theta_d) * dsin * inv_m;
     const float t3 = mpl * 2.0f * theta_d * sin_t * inv_m;
     const float tu = p[kUMax] * inv_m;
     // num's, and den's in theta
     const float n1 = -(cos_t * t1);
-    const float n2 = g * cos_t + sin_t * temp - cos_t * t2;
+    const float n2 = g * dsin + ndcos * temp - cos_t * t2;
     const float n3 = -(cos_t * t3) - fp * inv_mpl;
     const float nu = -(cos_t * tu);
-    const float d2 = L * (m_p * 2.0f * cos_t * sin_t * inv_m);
+    const float d2 = L * (m_p * 2.0f * cos_t * ndcos * inv_m);
     // theta_dd = num / den
     const float a1 = n1 * inv_den, a2 = (n2 - theta_dd * d2) * inv_den;
     const float a3 = n3 * inv_den, au = nu * inv_den;
     // pos_dd = temp - mpl * theta_dd * cos_t / total_m
     const float c = mpl * inv_m;
     const float b1 = t1 - c * (a1 * cos_t);
-    const float b2 = t2 - c * (a2 * cos_t - theta_dd * sin_t);
+    const float b2 = t2 - c * (a2 * cos_t - theta_dd * ndcos);
     const float b3 = t3 - c * (a3 * cos_t);
     const float bu = tu - c * (au * cos_t);
 #pragma unroll
@@ -257,9 +312,11 @@ struct CartpoleCost {
 };
 
 // The ODE kernels' plant: the dynamics' constants, then the cost's vector.
-struct CartpolePlant {
-  using Dynamics = CartpoleDynamics;
+template <bool Fast>
+struct CartpolePlantT {
+  using Dynamics = CartpoleDynamicsT<Fast>;
   using Cost = CartpoleCost;
+  static constexpr bool kFast = Fast;
   static constexpr int S = Dynamics::S;
   static constexpr int U = Dynamics::U;
   static constexpr int kCost = Dynamics::kN;  // the cost part's base
@@ -289,8 +346,11 @@ struct CartpolePlant {
   __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* p) {
     return Cost::terminal_cost(x, p + kCost);
   }
-  using Recips = Dynamics::Recips;
+  using Recips = typename Dynamics::Recips;
   __device__ __forceinline__ static Recips recips(const float* p) { return Dynamics::recips(p); }
+  __device__ __forceinline__ static void sincos(float theta, float& sin_t, float& cos_t) {
+    Dynamics::sincos(theta, sin_t, cos_t);
+  }
   __device__ __forceinline__ static void derivs_short(const float (&x)[S], const float (&u)[U],
                                                       float sin_t, float cos_t, const float* p,
                                                       const Recips& r, float (&d)[S]) {
@@ -313,5 +373,11 @@ struct CartpolePlant {
     Cost::terminal_cost_grad(x, p + kCost, ct, g);
   }
 };
+
+// The two instances, named as the kernels' template arguments (their
+// entries' mangled names): rollout_core.cuh kPlantCartpole and
+// kPlantCartpoleFast select them.
+struct CartpolePlant : CartpolePlantT<false> {};
+struct CartpoleFastPlant : CartpolePlantT<true> {};
 
 }  // namespace ctt

@@ -23,6 +23,10 @@
 // does K9 (pallas_grad.py:474), each lane its rollout's row: a 16-rollout
 // warp straddles two sessions whenever ks is not a multiple of 16.
 //
+// Over the fast base plant (CartpoleFastPlant: "ODE+res:...:fast") each
+// entry is instantiated again, its base step's trig polynomial (plants.cuh),
+// its cost exact; K9's adjoint then takes the polynomials' derivatives.
+//
 // K12 is K1 (cost_rollout.cu) with the residual added to each step: the
 // base's euler/rk4 step over the packed
 // constants p + 0, the cost over p + CartpolePlant::kCost, and the MLP
@@ -330,6 +334,9 @@ residual_grad_cost_rollout_value_kernel(const float* __restrict__ s0,
 static long k9_allowed = 0, k9_value_allowed = 0;
 // K12's, and its emit_terminal form's.
 static long k12_allowed = 0, k12_emit_allowed = 0;
+// The same four over the fast base plant (CartpoleFastPlant).
+static long k9_fast_allowed = 0, k9_value_fast_allowed = 0;
+static long k12_fast_allowed = 0, k12_emit_fast_allowed = 0;
 
 // Allow K12's (or its emit form's) shared memory and launch `kernel` with
 // `extra` arguments after the layout.
@@ -347,6 +354,43 @@ int launch_k12(Kernel kernel, long& allowed, long bytes, const ResidualLayout& R
       static_cast<const float*>(pvec), static_cast<float*>(cost), K, ks, H, c, max_cost, net, R,
       extra...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K12, or its emit_terminal form where x_term is not null, over the base
+// plant `Plant`, its attributes' allowances `allowed` and `emit_allowed`.
+template <class Plant>
+int launch_residual_cost(long& allowed, long& emit_allowed, long bytes, const ResidualLayout& R,
+                         const void* s0, const void* Q, const void* pvec, void* cost,
+                         void* x_term, int K, int ks, int H, const StepConsts& c, float max_cost,
+                         const NetArgs& net, void* stream) {
+  if (x_term != nullptr) {
+    return launch_k12(residual_cost_rollout_emit_kernel<Plant>, emit_allowed, bytes, R, s0, Q,
+                      pvec, cost, K, ks, H, c, max_cost, net, stream,
+                      static_cast<float*>(x_term));
+  }
+  return launch_k12(residual_cost_rollout_kernel<Plant>, allowed, bytes, R, s0, Q, pvec, cost, K,
+                    ks, H, c, max_cost, net, stream);
+}
+
+// K9, or its value_spec form where v is not null, over the base plant
+// `Plant` (allowances as above).
+template <class Plant>
+int launch_residual_grad(long& allowed, long& value_allowed, const void* s0, const void* Q,
+                         const void* pvec, void* cost, void* dQ, void* xhist, int K, int ks,
+                         int H, const StepConsts& c, float max_cost, float ct, const NetArgs& net,
+                         const ValueArgs* v, void* stream) {
+  if (v != nullptr) {
+    return launch_mma_value(
+        residual_grad_cost_rollout_value_kernel<Plant>, value_allowed, net, *v, Plant::S,
+        Plant::U, K, 1, stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
+        static_cast<const float*>(pvec), static_cast<float*>(cost), static_cast<float*>(dQ),
+        static_cast<float*>(xhist), K, ks, H, c, max_cost, ct);
+  }
+  return launch_mma(residual_grad_cost_rollout_kernel<Plant>, allowed, net, Plant::S, Plant::U,
+                    K, stream, static_cast<const float*>(s0), static_cast<const float*>(Q),
+                    static_cast<const float*>(pvec), static_cast<float*>(cost),
+                    static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, c, max_cost,
+                    ct);
 }
 
 }  // namespace ctt
@@ -374,20 +418,22 @@ extern "C" int ctt_residual_cost_rollout(int plant, const void* s0, const void* 
                                          int ks, int H, int rk4, int substeps, float sub_dt,
                                          float half_dt, float dt6, float max_cost,
                                          const ctt::NetArgs* net, void* stream) {
-  using Plant = ctt::CartpolePlant;
+  using Plant = ctt::CartpolePlant;  // the fast plant has its dims and layout
+  const bool known = plant == ctt::kPlantCartpole || plant == ctt::kPlantCartpoleFast;
   ctt::ResidualLayout R;
-  const long bytes = plant == ctt::kPlantCartpole && ks >= 1 && K % ks == 0
+  const long bytes = known && ks >= 1 && K % ks == 0
                          ? ctt::plan_residual(*net, Plant::S, Plant::U, R)
                          : -1;
   if (bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  if (x_term != nullptr) {
-    return ctt::launch_k12(ctt::residual_cost_rollout_emit_kernel<Plant>, ctt::k12_emit_allowed,
-                           bytes, R, s0, Q, pvec, cost, K, ks, H, c, max_cost, *net, stream,
-                           static_cast<float*>(x_term));
+  if (plant == ctt::kPlantCartpoleFast) {
+    return ctt::launch_residual_cost<ctt::CartpoleFastPlant>(
+        ctt::k12_fast_allowed, ctt::k12_emit_fast_allowed, bytes, R, s0, Q, pvec, cost, x_term,
+        K, ks, H, c, max_cost, *net, stream);
   }
-  return ctt::launch_k12(ctt::residual_cost_rollout_kernel<Plant>, ctt::k12_allowed, bytes, R,
-                         s0, Q, pvec, cost, K, ks, H, c, max_cost, *net, stream);
+  return ctt::launch_residual_cost<Plant>(ctt::k12_allowed, ctt::k12_emit_allowed, bytes, R, s0,
+                                          Q, pvec, cost, x_term, K, ks, H, c, max_cost, *net,
+                                          stream);
 }
 
 // Blocks of K12 that one SM holds for `net` (0 for a refused net).
@@ -416,23 +462,19 @@ extern "C" int ctt_residual_grad_cost_rollout(int plant, const void* s0, const v
                                               float dt6, float max_cost, float ct,
                                               const ctt::NetArgs* net, const ctt::ValueArgs* v,
                                               void* stream) {
-  using Plant = ctt::CartpolePlant;
-  if (plant != ctt::kPlantCartpole || ks < 1 || K % ks != 0 || !ctt::residual_net(*net)) {
+  if ((plant != ctt::kPlantCartpole && plant != ctt::kPlantCartpoleFast) || ks < 1 ||
+      K % ks != 0 || !ctt::residual_net(*net)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  if (v != nullptr) {
-    return ctt::launch_mma_value(
-        ctt::residual_grad_cost_rollout_value_kernel<Plant>, ctt::k9_value_allowed, *net, *v,
-        Plant::S, Plant::U, K, 1, stream, static_cast<const float*>(s0),
-        static_cast<const float*>(Q), static_cast<const float*>(pvec), static_cast<float*>(cost),
-        static_cast<float*>(dQ), static_cast<float*>(xhist), K, ks, H, c, max_cost, ct);
+  if (plant == ctt::kPlantCartpoleFast) {
+    return ctt::launch_residual_grad<ctt::CartpoleFastPlant>(
+        ctt::k9_fast_allowed, ctt::k9_value_fast_allowed, s0, Q, pvec, cost, dQ, xhist, K, ks, H,
+        c, max_cost, ct, *net, v, stream);
   }
-  return ctt::launch_mma(ctt::residual_grad_cost_rollout_kernel<Plant>, ctt::k9_allowed, *net,
-                         Plant::S, Plant::U, K, stream, static_cast<const float*>(s0),
-                         static_cast<const float*>(Q), static_cast<const float*>(pvec),
-                         static_cast<float*>(cost), static_cast<float*>(dQ),
-                         static_cast<float*>(xhist), K, ks, H, c, max_cost, ct);
+  return ctt::launch_residual_grad<ctt::CartpolePlant>(ctt::k9_allowed, ctt::k9_value_allowed, s0,
+                                                       Q, pvec, cost, dQ, xhist, K, ks, H, c,
+                                                       max_cost, ct, *net, v, stream);
 }
 
 // Blocks of K9 an SM holds for `net` (0 for a net it refuses).

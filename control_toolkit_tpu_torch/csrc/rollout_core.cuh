@@ -262,7 +262,8 @@ __device__ __forceinline__ void load_params(const float* __restrict__ pvec, floa
   for (int i = 0; i < Plant::kN; ++i) p[i] = __ldg(pvec + i);
 }
 
-constexpr int kPlantCartpole = 0;  // ops/kernels.py PLANT_IDS
+constexpr int kPlantCartpole = 0;      // ops/kernels.py PLANT_IDS: CartpolePlant
+constexpr int kPlantCartpoleFast = 1;  // CartpoleFastPlant (the ":fast" predictors')
 constexpr int kThreads = 128;      // rollouts per block
 
 }  // namespace ctt

@@ -3,9 +3,11 @@
 // (mppi_ahead.cuh, through cem_core.cuh:column_steps) and K12's base step
 // (residual_rollout.cu): the stage cost, then one control period of
 // rollout_core.cuh's integrators in their operation order, with the
-// plant's derivs_short (plants.cuh) in place of derivs: sincosf reduces
+// plant's derivs_short (plants.cuh) in place of derivs: the plant's trig
+// hook (Plant::sincos: sincosf, or fast_sincos for the fast plant) reduces
 // theta once an evaluation, the stage cost shares the first evaluation's
-// cos(theta), and the reciprocals of plants.cuh's Recips, taken once a
+// cos(theta) (the fast plant's cost takes its own cosf: the cost is
+// exact), and the reciprocals of plants.cuh's Recips, taken once a
 // rollout, leave one division an evaluation.  On an H100 this shortened
 // K5's rk4 chain a step from ~1.7 µs to ~0.7 µs (PERF.md, K5); the chain
 // of these dependent steps is what bounds each of those kernels.  K7 and
@@ -28,15 +30,15 @@ __device__ __forceinline__ void rk4_short(float (&x)[Plant::S], const float (&u)
   Plant::derivs_short(x, u, sin_t, cos_t, p, rc, k1);
 #pragma unroll
   for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k1[i];
-  sincosf(t[2], &st, &ct);
+  Plant::sincos(t[2], st, ct);
   Plant::derivs_short(t, u, st, ct, p, rc, k2);
 #pragma unroll
   for (int i = 0; i < S; ++i) t[i] = x[i] + c.half_dt * k2[i];
-  sincosf(t[2], &st, &ct);
+  Plant::sincos(t[2], st, ct);
   Plant::derivs_short(t, u, st, ct, p, rc, k3);
 #pragma unroll
   for (int i = 0; i < S; ++i) t[i] = x[i] + c.sub_dt * k3[i];
-  sincosf(t[2], &st, &ct);
+  Plant::sincos(t[2], st, ct);
   Plant::derivs_short(t, u, st, ct, p, rc, k4);
 #pragma unroll
   for (int i = 0; i < S; ++i) {
@@ -54,13 +56,15 @@ __device__ __forceinline__ void short_step(float (&x)[Plant::S], const float (&u
                                            float max_cost) {
   constexpr int S = Plant::S;
   float sin_t, cos_t;
-  sincosf(x[2], &sin_t, &cos_t);
-  acc = acc + Plant::stage_cost_cos(x, cos_t, u, prev, p, max_cost);
+  Plant::sincos(x[2], sin_t, cos_t);
+  float cos_angle = cos_t;
+  if constexpr (Plant::kFast) cos_angle = cosf(x[2]);  // the cost's exact cos
+  acc = acc + Plant::stage_cost_cos(x, cos_angle, u, prev, p, max_cost);
   if (c.rk4 && c.substeps == 1) {  // the main path: one straight run
     rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
   } else {
     for (int sub = 0; sub < c.substeps; ++sub) {
-      if (sub > 0) sincosf(x[2], &sin_t, &cos_t);
+      if (sub > 0) Plant::sincos(x[2], sin_t, cos_t);
       if (c.rk4) {
         rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
       } else {

@@ -7,14 +7,18 @@ arithmetic follows the JAX package's expressions term for term (and the
 CUDA plant in ``csrc/plants.cuh`` follows the same order), so the scan
 path, the plain kernel versions and the kernels round alike.
 
-Only cartpole is ported so far; the other plants and the ``:fast``
-polynomial variants are still to be ported (ROADMAP).
+Only cartpole is ported so far, with its ``.fast`` variant
+(``cartpole_dynamics.fast``: the polynomial trig of ``ops/fastmath.py``,
+which the ``:fast`` predictors select); the other plants and their
+``.fast`` variants are still to be ported (ROADMAP).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from control_toolkit_tpu_torch.ops.fastmath import fast_sincos
 
 DynamicsFn = Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
 
@@ -51,6 +55,11 @@ def cartpole_derivs_soa(xs: Tuple, us: Tuple, p: Dict) -> Tuple:
     return _cartpole_derivs(xs, us, p, lambda a: (torch.sin(a), torch.cos(a)))
 
 
+def cartpole_derivs_soa_fast(xs: Tuple, us: Tuple, p: Dict) -> Tuple:
+    """The cart-pole ODE over ops/fastmath.py's polynomial sin and cos."""
+    return _cartpole_derivs(xs, us, p, fast_sincos)
+
+
 def soa_to_aos(derivs_soa: Callable, num_states: int, num_controls: int) -> DynamicsFn:
     """Lift a component-form derivative to the [..., S] array form."""
 
@@ -66,6 +75,7 @@ def soa_to_aos(derivs_soa: Callable, num_states: int, num_controls: int) -> Dyna
 
 
 cartpole_dynamics = soa_to_aos(cartpole_derivs_soa, 4, 1)
+cartpole_dynamics.fast = soa_to_aos(cartpole_derivs_soa_fast, 4, 1)
 
 DYNAMICS = {
     "cartpole": (cartpole_dynamics, CARTPOLE_DEFAULTS, 4, 1),

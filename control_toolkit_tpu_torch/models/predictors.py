@@ -6,17 +6,21 @@ Ported: the ``"ODE[:integrator[:substeps]]"`` predictor, the learned
 MLP/GRU/LSTM predictors (``models/neural_predictor.py``), the residual
 ``"ODE+res"`` (``models/residual_predictor.py``) and the sparse-GP
 ``"SGP_<M>"`` (``models/gp_predictor.py``) and the PETS ensemble
-``"ensemble:<net>:<E>"`` (``models/ensemble_predictor.py``); the ``:fast``
-predictor is still to be ported (ROADMAP).
+``"ensemble:<net>:<E>"`` (``models/ensemble_predictor.py``); a ``fast``
+option among an ODE spec's (``"ODE:rk4:1:fast"``, ``"ODE+res:rk4:1:fast"``)
+swaps the plant for its polynomial-trig ``.fast`` variant.
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, Optional
 
 import torch
 
 from control_toolkit_tpu_torch.models.dynamics import DYNAMICS, DynamicsFn
 from control_toolkit_tpu_torch.utils import registry
+
+logger = logging.getLogger(__name__)
 
 
 def euler_step(f: DynamicsFn, x, u, dt, p):
@@ -101,7 +105,11 @@ class ODEPredictor(Predictor):
     """ODE-integrator predictor over a named built-in dynamics model.
 
     ``environment_name`` is kept (None for custom dynamics): the rollout
-    kernels read it to pick the device plant (``kernel_families/ode.py``).
+    kernels read it, with ``fast_math``, to pick the device plant
+    (``ops/kernels.py:plant_key``).  ``fast_math`` swaps the dynamics for
+    their ``.fast`` variant (polynomial trig, ``ops/fastmath.py``), so the
+    scan path and every kernel see the same numerics; a plant without one
+    keeps exact trig, with a warning.
     """
 
     def __init__(
@@ -114,6 +122,7 @@ class ODEPredictor(Predictor):
         num_states: Optional[int] = None,
         num_control_inputs: Optional[int] = None,
         params: Optional[Dict] = None,
+        fast_math: bool = False,
     ):
         if dynamics is not None:
             if num_states is None or num_control_inputs is None:
@@ -138,6 +147,14 @@ class ODEPredictor(Predictor):
                 self._defaults.update(params)
             self.num_states = n_s
             self.num_control_inputs = n_u
+        self.fast_math = bool(fast_math)
+        if self.fast_math:
+            fast = getattr(self.dynamics, "fast", None)
+            if fast is not None:
+                self.dynamics = fast
+            else:
+                logger.warning("fast_math requested but dynamics has no .fast variant; "
+                               "using exact trig")
         self.dt = float(dt)
         self.integrator = integrator
         self.intermediate_steps = int(intermediate_steps)
@@ -163,7 +180,8 @@ class PredictorWrapper:
     (integrator / substeps); ``"neural:<net>[:<path>][:bf16]"`` and the
     bare net name ``"<net>[:<path>][:bf16]"`` (``mlp-…``, ``GRU-…``,
     ``LSTM-…``), the checkpoint being ``<path>/<net>.npz``;
-    ``"ODE+res[:integrator[:substeps]]"``; ``"SGP_<M>[:<checkpoint.npz>]"``
+    ``"ODE+res[:integrator[:substeps]]"``, either with ``:fast`` among its
+    options (polynomial trig); ``"SGP_<M>[:<checkpoint.npz>]"``
     and ``"gp"``; ``"ensemble:<net>:<E>[:<path>][:ts1][:prob]"``, the
     checkpoint being ``<path>/ensemble-<net>-x<E>.npz``.  ``device`` is where
     a learned predictor keeps its weights and hidden state."""
@@ -225,18 +243,18 @@ class PredictorWrapper:
                 device=device, **kwargs,
             )
         elif head in ("ODE", "ODE_v0", "ODE+res"):
-            # "ODE[+res][:integrator[:substeps]]"; "+res" adds the learned
-            # MLP residual (models/residual_predictor.py, hiddens via kwargs).
+            # "ODE[+res][:integrator[:substeps]][:fast]"; "+res" adds the
+            # learned MLP residual (models/residual_predictor.py, hiddens via
+            # kwargs); "fast" anywhere among the options sets fast_math.
             opts = list(spec_parts[1:])
-            if "fast" in opts:
-                raise NotImplementedError(
-                    "the ':fast' polynomial-trig predictor is not ported yet (ROADMAP)"
-                )
+            fast_math = "fast" in opts
+            opts = [o for o in opts if o != "fast"]
             ode_kwargs = dict(
                 environment_name=environment_name,
                 dt=dt,
                 integrator=opts[0] if len(opts) > 0 else "rk4",
                 intermediate_steps=int(opts[1]) if len(opts) > 1 else 1,
+                fast_math=fast_math,
                 **kwargs,
             )
             if head == "ODE+res":

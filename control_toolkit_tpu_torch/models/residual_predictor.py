@@ -30,7 +30,8 @@ from control_toolkit_tpu_torch.utils.device import place, resolve_device
 class ResidualPredictor(Predictor):
     """ODE base + additive next-state MLP residual on ``device``.  The
     initial weights are drawn from a ``torch.Generator`` seeded with
-    ``seed`` (the JAX package's scales, not its draws)."""
+    ``seed`` (the JAX package's scales, not its draws).  ``fast_math``
+    goes to the base (its polynomial-trig plant)."""
 
     def __init__(
         self,
@@ -38,19 +39,22 @@ class ResidualPredictor(Predictor):
         dt: float = 0.02,
         integrator: str = "rk4",
         intermediate_steps: int = 1,
+        fast_math: bool = False,
         hiddens: Sequence[int] = (32, 32),
         seed: int = 0,
         base_params: Optional[Dict] = None,
         device: Optional[torch.device] = None,
     ):
         self.base = ODEPredictor(environment_name=environment_name, dt=dt, integrator=integrator,
-                                 intermediate_steps=intermediate_steps, params=base_params)
+                                 intermediate_steps=intermediate_steps, params=base_params,
+                                 fast_math=fast_math)
         S, U = self.base.num_states, self.base.num_control_inputs
         self.num_states, self.num_control_inputs = S, U
         self.environment_name = self.base.environment_name
         self.dt = self.base.dt
         self.integrator = integrator
         self.intermediate_steps = int(intermediate_steps)
+        self.fast_math = self.base.fast_math
         self.hiddens = tuple(int(h) for h in hiddens)
         self.device = resolve_device(device)
 

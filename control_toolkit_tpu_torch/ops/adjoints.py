@@ -9,6 +9,9 @@ packed-parameter dict ``p`` that ``RolloutModel.unpack`` gives (keys
 for term, so these are the formulas the tests hold against
 ``torch.autograd``; ``cartpole_derivs_jac`` and ``integrator_jac`` give
 the per-step Jacobians, in forward mode, of K7's time-parallel adjoint.
+The cartpole plant's are written over its trig's values and derivatives
+(``exact_sincos_d``); the fast plant's (``cartpole_fast_derivs_*``) take
+ops/fastmath.py's polynomials and their derivatives.
 ``mlp_step_vjp`` is the learned MLP step's adjoint over the net's weight
 dict, transcribed into ``csrc/mlp_mma.cuh``;
 ``residual_step_vjp`` (the ``"ODE+res"`` step) combines it with the
@@ -24,17 +27,28 @@ from typing import Callable, Tuple
 
 import torch
 
+from control_toolkit_tpu_torch.ops.fastmath import fast_sincos_d
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper, tadd, tscale
 
 
-def cartpole_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple) -> Tuple[Tuple, Tuple]:
-    """``lam^T d f / d(x, u)`` for models/dynamics.py:_cartpole_derivs."""
+def exact_sincos_d(theta):
+    """``(sin, cos, dsin, ndcos)``: the values and the derivative of sin
+    and the derivative of cos, negated — for exact trig ``cos`` and ``sin``
+    again (ops/fastmath.py:fast_sincos_d is the fast plant's)."""
+    sin_t, cos_t = theta.sin(), theta.cos()
+    return sin_t, cos_t, cos_t, sin_t
+
+
+def cartpole_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple,
+                        sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, Tuple]:
+    """``lam^T d f / d(x, u)`` for models/dynamics.py:_cartpole_derivs over
+    the trig of ``sincos_d`` (its values and derivatives)."""
     _, pos_d, theta, theta_d = xs
     l0, l1, l2, l3 = lam
     m_p, L = p["d_m_pole"], p["d_L"]
     fc, fp = p["d_friction_cart"], p["d_friction_pole"]
     force = us[0] * p["d_u_max"]
-    sin_t, cos_t = theta.sin(), theta.cos()
+    sin_t, cos_t, dsin, ndcos = sincos_d(theta)
     total_m = p["d_m_cart"] + m_p
     mpl = m_p * L
     # The forward values the transposed terms need.
@@ -61,21 +75,23 @@ def cartpole_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple) -> Tuple[Tuple, Tup
     g_thd = g_thd + g_a * mpl * 2.0 * theta_d * sin_t
     g_sin = g_sin + g_a * mpl * (theta_d * theta_d)
     g_posd = l0 - g_a * fc
-    g_theta = g_sin * cos_t - g_cos * sin_t
+    g_theta = g_sin * dsin - g_cos * ndcos
     return (torch.zeros_like(pos_d), g_posd, g_theta, g_thd), (g_a * p["d_u_max"],)
 
 
-def cartpole_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tensor]:
+def cartpole_derivs_jac(xs: Tuple, us: Tuple, p,
+                        sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
     """``(f, J)`` for models/dynamics.py:_cartpole_derivs at (x, u): f, and
     ``J = d f / d(x, u)`` ``[K, S, S+U]``, the state's columns first, then
-    the control's.  Three reciprocals take the place of the derivs'
-    divisions, as in ``csrc/plants.cuh`` derivs_tangent, which multiplies
-    J's two nontrivial rows (1 and 3) into a tangent."""
+    the control's, over the trig of ``sincos_d``.  Three reciprocals take
+    the place of the derivs' divisions, as in ``csrc/plants.cuh``
+    derivs_tangent, which multiplies J's two nontrivial rows (1 and 3) into
+    a tangent."""
     _, pos_d, theta, theta_d = xs
     m_p, L, g = p["d_m_pole"], p["d_L"], p["d_g"]
     fc, fp = p["d_friction_cart"], p["d_friction_pole"]
     force = us[0] * p["d_u_max"]
-    sin_t, cos_t = theta.sin(), theta.cos()
+    sin_t, cos_t, dsin, ndcos = sincos_d(theta)
     mpl = m_p * L
     inv_m, inv_mpl = 1.0 / (p["d_m_cart"] + m_p), 1.0 / mpl
     temp = (force + mpl * (theta_d * theta_d) * sin_t - fc * pos_d) * inv_m
@@ -86,21 +102,21 @@ def cartpole_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tensor]:
     # temp's partials in pos_d, theta, theta_d and u
     zero = torch.zeros_like(pos_d)
     t1 = zero + (-fc * inv_m)
-    t2 = mpl * (theta_d * theta_d) * cos_t * inv_m
+    t2 = mpl * (theta_d * theta_d) * dsin * inv_m
     t3 = mpl * 2.0 * theta_d * sin_t * inv_m
     tu = zero + p["d_u_max"] * inv_m
     # num's, and den's in theta
     n1 = -(cos_t * t1)
-    n2 = g * cos_t + sin_t * temp - cos_t * t2
+    n2 = g * dsin + ndcos * temp - cos_t * t2
     n3 = -(cos_t * t3) - fp * inv_mpl
     nu = -(cos_t * tu)
-    d2 = L * (m_p * 2.0 * cos_t * sin_t * inv_m)
+    d2 = L * (m_p * 2.0 * cos_t * ndcos * inv_m)
     # theta_dd = num / den
     a1, a2, a3, au = n1 * inv_den, (n2 - theta_dd * d2) * inv_den, n3 * inv_den, nu * inv_den
     # pos_dd = temp - mpl * theta_dd * cos_t / total_m
     c = mpl * inv_m
     b1 = t1 - c * (a1 * cos_t)
-    b2 = t2 - c * (a2 * cos_t - theta_dd * sin_t)
+    b2 = t2 - c * (a2 * cos_t - theta_dd * ndcos)
     b3 = t3 - c * (a3 * cos_t)
     bu = tu - c * (au * cos_t)
     one = torch.ones_like(pos_d)
@@ -138,10 +154,24 @@ def cartpole_terminal_grad(xs: Tuple, p, ct) -> Tuple:
     return (torch.zeros_like(pos), torch.zeros_like(pos_d), g_angle, g_angle_d)
 
 
+def cartpole_fast_derivs_vjp(xs: Tuple, us: Tuple, p, lam: Tuple) -> Tuple[Tuple, Tuple]:
+    """``cartpole_derivs_vjp`` of the fast plant: the polynomials' values
+    and their derivatives S'(r) and C'(r), which ``jax.vjp`` takes through
+    ops/fastmath.py (``round`` has a zero gradient)."""
+    return cartpole_derivs_vjp(xs, us, p, lam, fast_sincos_d)
+
+
+def cartpole_fast_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tensor]:
+    """``cartpole_derivs_jac`` of the fast plant (as ``cartpole_fast_derivs_vjp``)."""
+    return cartpole_derivs_jac(xs, us, p, fast_sincos_d)
+
+
 # Device plant -> (derivs_vjp, stage_vjp, terminal_grad): the plants whose
-# rollout K7 can differentiate.
+# rollout K7 can differentiate.  The fast plant's cost is the exact one:
+# the JAX cartpole cost calls jnp.cos whatever the plant.
 PLANT_ADJOINTS = {
     "cartpole": (cartpole_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
+    "cartpole_fast": (cartpole_fast_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
 }
 
 

@@ -13,12 +13,17 @@ second pass).  The device twin is ``csrc/counter_prng.cuh``.
 torch has no complete uint32 arithmetic: the counters ride in int64, every
 result is masked to 32 bits, and each 32x32-bit multiply by a constant is
 split into the constant's 16-bit halves, so that no int64 product
-overflows.  The ``fast_sampling`` form (ops/fastmath.py's polynomial log
-and cos) is not ported.
+overflows.  ``fast=True`` is the ``fast_sampling`` form:
+``sqrt(max(-2 fast_log(u1), 0)) * fast_cos(2 pi u2)`` over
+ops/fastmath.py's polynomials (the clamp keeps u1 = 1.0, where fast_log
+lands at +2e-6, from a NaN); the fast plant's kernels draw it, and their
+regenerations must pass the same flag.
 """
 from __future__ import annotations
 
 import torch
+
+from control_toolkit_tpu_torch.ops.fastmath import fast_cos, fast_log
 
 DEFAULT_TILE_K = 2048
 ROWS = 8  # the TPU tile's sublanes: rollout (tile t, row r, column c) of [ROWS, tile_k/ROWS]
@@ -46,14 +51,18 @@ def splitmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def normals_from_counter(counter: torch.Tensor) -> torch.Tensor:
+def normals_from_counter(counter: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """A float32 standard normal for each int64 counter (taken mod 2^32),
-    in the JAX function's order of operations."""
+    in the JAX function's order of operations; ``fast``: the polynomial
+    log and cos."""
     counter = counter & MASK
     i1 = splitmix32(counter) >> 8
     i2 = splitmix32((counter + 0x7F4A7C15) & MASK) >> 8
     u1 = (i1.to(torch.float32) + 1.0) * _INV_2_24
     u2 = i2.to(torch.float32) * _INV_2_24
+    if fast:
+        r = torch.sqrt(torch.clamp_min(-2.0 * fast_log(u1), 0.0))
+        return r * fast_cos(_TWO_PI * u2)
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(_TWO_PI * u2)
 

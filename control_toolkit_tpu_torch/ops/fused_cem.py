@@ -18,10 +18,13 @@ which counter each rollout reads, so ``K % tile_k`` must be 0, as JAX's
 ``build_fused_cem`` asserts.  ``seed2`` is read from device memory, so a seed drawn on
 the card never goes through the host.
 
-``regen_controls(seed2, flat_idx, mue, std, low, high, K, tile_k)`` draws
-the clipped controls of the rollouts ``flat_idx`` again from the same
-counters (the CEM refit needs only the elite rows): torch glue, as it is
-XLA glue in JAX (pallas_cem.py:145-163), not a kernel's plain version.
+``regen_controls(seed2, flat_idx, mue, std, low, high, K, tile_k, fast=)``
+draws the clipped controls of the rollouts ``flat_idx`` again from the
+same counters (the CEM refit needs only the elite rows): torch glue, as it
+is XLA glue in JAX (pallas_cem.py:145-163), not a kernel's plain version.
+Over a fast plant (``model.fast_math``) the kernel draws the fast normals
+(the JAX ``fast_sampling`` form), and ``fast``, which has no default, must
+say so.
 ``fused_cem_costs_plain`` is the kernel's function in PyTorch: all K rows
 regenerated and scored by K1's plain version.
 
@@ -72,19 +75,21 @@ def cem_counters(seed2: torch.Tensor, flat_idx: torch.Tensor, K: int, H: int, U:
 
 def regen_controls(seed2: torch.Tensor, flat_idx: torch.Tensor, mue: torch.Tensor,
                    std: torch.Tensor, low: torch.Tensor, high: torch.Tensor, K: int,
-                   tile_k: int = DEFAULT_TILE_K) -> torch.Tensor:
+                   tile_k: int = DEFAULT_TILE_K, *, fast: bool) -> torch.Tensor:
     """The clipped controls ``[k, H, U]`` that K5 drew for rollouts
-    ``flat_idx``."""
+    ``flat_idx``; ``fast`` as the kernel's plant (``model.fast_math``)."""
     H, U = mue.shape
-    z = normals_from_counter(cem_counters(seed2, flat_idx, K, H, U, tile_k))
+    z = normals_from_counter(cem_counters(seed2, flat_idx, K, H, U, tile_k), fast)
     return torch.clamp(mue + std * z, low, high)
 
 
 def fused_cem_costs_plain(model: kernels.RolloutModel, s0, mue, std, pvec, seed2, low, high,
                           K: int, tile_k: int = DEFAULT_TILE_K) -> torch.Tensor:
-    """The kernel's function in PyTorch: every row regenerated, then K1's
-    plain rollout (pallas_cem.py:89-121)."""
-    Q = regen_controls(seed2, torch.arange(K, device=mue.device), mue, std, low, high, K, tile_k)
+    """The kernel's function in PyTorch: every row regenerated (the fast
+    normals over a fast plant), then K1's plain rollout
+    (pallas_cem.py:89-121)."""
+    Q = regen_controls(seed2, torch.arange(K, device=mue.device), mue, std, low, high, K, tile_k,
+                       fast=model.fast_math)
     return cost_rollout_plain(model, s0.expand(K, -1), Q, pvec)
 
 

@@ -18,10 +18,12 @@ on its own seed and K only, so its results do not depend on B.  ``seed_b``
 is read from device memory: seeds drawn on the card never go through the
 host.
 
-``regen_cols(seed_b, idx [B,k], mue, std, low, high, K)`` draws the
+``regen_cols(seed_b, idx [B,k], mue, std, low, high, K, fast=)`` draws the
 clipped controls ``[B, k, H, U]`` of each session's rollouts ``idx[b]``
 again from the same counters, for the elite refit, in one set of torch
 launches whatever B is: torch glue, as ``regen_cols`` is XLA glue in JAX.
+``fast`` (no default) is the kernel's plant's ``fast_math`` (the fast
+normals).
 ``fused_cem_cols_plain`` is the kernel's function in PyTorch: every row
 regenerated and scored by K1's plain version.
 
@@ -62,11 +64,11 @@ def cols_counters(seed_b: torch.Tensor, idx: torch.Tensor, K: int, H: int,
 
 
 def regen_cols(seed_b: torch.Tensor, idx: torch.Tensor, mue: torch.Tensor, std: torch.Tensor,
-               low: torch.Tensor, high: torch.Tensor, K: int) -> torch.Tensor:
+               low: torch.Tensor, high: torch.Tensor, K: int, *, fast: bool) -> torch.Tensor:
     """The clipped controls ``[B, k, H, U]`` that K6 drew for each
-    session's rollouts ``idx [B, k]``."""
+    session's rollouts ``idx [B, k]``; ``fast`` as the kernel's plant."""
     B, H, U = mue.shape
-    z = normals_from_counter(cols_counters(seed_b, idx, K, H, U))
+    z = normals_from_counter(cols_counters(seed_b, idx, K, H, U), fast)
     return torch.clamp(mue[:, None] + std[:, None] * z, low, high)
 
 
@@ -76,7 +78,7 @@ def fused_cem_cols_plain(model: kernels.RolloutModel, s0, mue, std, pvec_b, seed
     plain rollout with each session's parameters per rollout."""
     B, H, U = mue.shape
     idx = torch.arange(K, device=mue.device).expand(B, K)
-    Q = regen_cols(seed_b, idx, mue, std, low, high, K).reshape(B * K, H, U)
+    Q = regen_cols(seed_b, idx, mue, std, low, high, K, fast=model.fast_math).reshape(B * K, H, U)
     cost = cost_rollout_plain(model, per_rollout(s0, K).T, Q, per_rollout(pvec_b, K))
     return cost.reshape(B, K)
 

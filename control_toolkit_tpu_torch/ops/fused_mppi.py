@@ -18,13 +18,19 @@ glue between them:
   controls of that noise;
 * ``rho = min S`` and ``a = sum exp(-(S - rho)/LBD)`` in torch on the
   device, as XLA computes them in JAX, passed on as ``red = [rho, a]``;
-* pass 2, ``fused_mppi_weights(seed2, cost, red, P, U, LBD, K, tile_k) ->
+* pass 2, ``fused_mppi_weights(seed2, cost, red, P, U, LBD, K, tile_k, fast=) ->
   partials [n_blocks, P, U]``: per block of ``WEIGHT_BLOCK`` rollouts,
   ``sum_k w_k z_k[p,j]`` with ``w = exp(-(S - rho)/LBD)/a`` and the noise
   drawn again from the same counters (unscaled);
 * the update, in torch: ``b[h,j] = sum_p W[p,h] * stdev * sum_blocks
   partials[.,p,j]`` and ``u_nom' = clamp(u_nom + b, low, high)`` — the
   JAX kernel's ``sum_k w_k delta_k[h]`` by the linearity of interpolation.
+
+Over a fast plant (``model.fast_math``, the ``:fast`` predictors) both
+passes draw the fast normals (the JAX ``fast_sampling`` form): pass 1
+takes it from the plant, pass 2 from its ``fast`` flag, which
+``fused_mppi_step`` sets from the same model; the flag has no default, so
+that no caller draws exact normals for rows a fast kernel scored.
 
 ``fused_mppi_step`` is that composition, ``(u_nom' [H,U], cost [K])``;
 ``fused_mppi_step_plain`` the same over the plain versions,
@@ -59,9 +65,10 @@ def mppi_counters(seed2: torch.Tensor, K: int, P: int, U: int, tile_k: int) -> t
     return row[None, None, :] + p[:, None, None] * tile_k + j[None, :, None] * stride
 
 
-def mppi_noise(seed2, K: int, P: int, U: int, tile_k: int) -> torch.Tensor:
-    """The unscaled normals ``z [P, U, K]`` both passes draw."""
-    return normals_from_counter(mppi_counters(seed2, K, P, U, tile_k))
+def mppi_noise(seed2, K: int, P: int, U: int, tile_k: int, *, fast: bool) -> torch.Tensor:
+    """The unscaled normals ``z [P, U, K]`` both passes draw (``fast``: the
+    fast normals, over a fast plant)."""
+    return normals_from_counter(mppi_counters(seed2, K, P, U, tile_k), fast)
 
 
 def fused_mppi_costs_plain(model: kernels.RolloutModel, s0, u_nom, pvec, seed2, W, low, high,
@@ -69,16 +76,16 @@ def fused_mppi_costs_plain(model: kernels.RolloutModel, s0, u_nom, pvec, seed2, 
                            tile_k: int = DEFAULT_TILE_K) -> torch.Tensor:
     """Pass 1 in PyTorch: K2's plain version over the regenerated noise,
     scaled as ``normal * stdev`` (pallas_mppi.py:208)."""
-    eps = mppi_noise(seed2, K, W.shape[0], u_nom.shape[1], tile_k) * stdev
+    eps = mppi_noise(seed2, K, W.shape[0], u_nom.shape[1], tile_k, fast=model.fast_math) * stdev
     return mppi_cost_plain(model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU)
 
 
 def fused_mppi_weights_plain(seed2, cost, red, P: int, U: int, LBD: float, K: int,
-                             tile_k: int = DEFAULT_TILE_K) -> torch.Tensor:
+                             tile_k: int = DEFAULT_TILE_K, *, fast: bool) -> torch.Tensor:
     """Pass 2 in PyTorch: ``partials [n_blocks, P, U]`` of ``w * z`` over
     each block of WEIGHT_BLOCK rollouts (pallas_mppi.py:356-374)."""
     w = torch.exp(-(cost - red[0]) * (1.0 / LBD)) / red[1]                     # [K]
-    wz = (mppi_noise(seed2, K, P, U, tile_k) * w).permute(2, 0, 1)             # [K, P, U]
+    wz = (mppi_noise(seed2, K, P, U, tile_k, fast=fast) * w).permute(2, 0, 1)       # [K, P, U]
     n_blocks = -(-K // WEIGHT_BLOCK)
     pad = n_blocks * WEIGHT_BLOCK - K
     if pad:
@@ -126,15 +133,17 @@ fused_mppi_costs.launches = 0
 
 
 def fused_mppi_weights(seed2: torch.Tensor, cost: torch.Tensor, red: torch.Tensor, P: int,
-                       U: int, LBD: float, K: int, tile_k: int = DEFAULT_TILE_K) -> torch.Tensor:
-    """K3's pass 2: ``partials [n_blocks, P, U]``; see the module docstring."""
+                       U: int, LBD: float, K: int, tile_k: int = DEFAULT_TILE_K, *,
+                       fast: bool) -> torch.Tensor:
+    """K3's pass 2: ``partials [n_blocks, P, U]``; see the module docstring.
+    ``fast`` draws the fast normals (pass 1's plant's ``fast_math``)."""
     if cost.shape != (K,) or red.shape != (2,) or P < 1 or U < 1:
         raise ValueError(f"fused_mppi_weights: expected cost [{K}], red [2]; got "
                          f"{tuple(cost.shape)}, {tuple(red.shape)} (P={P}, U={U})")
     check_tiling("fused_mppi_weights", K, tile_k)
     if kernels.on_cpu(seed2, cost, red):
         check_seed2("fused_mppi_weights", seed2, torch.device("cpu"))
-        return fused_mppi_weights_plain(seed2, cost, red, P, U, LBD, K, tile_k)
+        return fused_mppi_weights_plain(seed2, cost, red, P, U, LBD, K, tile_k, fast=fast)
     device = kernels.check_cuda_operands("fused_mppi_weights", cost=cost, red=red)
     check_seed2("fused_mppi_weights", seed2, device)
     partials = torch.empty(-(-K // WEIGHT_BLOCK), P, U, dtype=torch.float32, device=device)
@@ -142,7 +151,7 @@ def fused_mppi_weights(seed2: torch.Tensor, cost: torch.Tensor, red: torch.Tenso
     with torch.cuda.device(device):
         rc = lib.ctt_fused_mppi_weights(
             seed2.data_ptr(), cost.data_ptr(), red.data_ptr(), partials.data_ptr(), K, P, U,
-            tile_k, 1.0 / LBD, torch.cuda.current_stream(device).cuda_stream,
+            tile_k, 1.0 / LBD, int(fast), torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, "fused_mppi_weights")
     fused_mppi_weights.launches += 1
@@ -159,7 +168,7 @@ def _step(costs_fn, weights_fn, model, s0, u_nom, pvec, seed2, W, low, high, cc_
                     tile_k)
     rho = torch.amin(cost)
     red = torch.stack([rho, torch.sum(torch.exp(-(cost - rho) / LBD))])
-    zsum = weights_fn(seed2, cost, red, P, U, LBD, K, tile_k).sum(0)          # [P, U]
+    zsum = weights_fn(seed2, cost, red, P, U, LBD, K, tile_k, fast=model.fast_math).sum(0)  # [P, U]
     b = torch.einsum("ph,pu->hu", W, stdev * zsum)
     return torch.clamp(u_nom + b, low, high), cost
 

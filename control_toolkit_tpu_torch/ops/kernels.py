@@ -43,8 +43,15 @@ NVCC_FLAGS = (
 # order for its (dynamics, cost) pair: the dynamics' constants, then the
 # cost's part.  The network-rollout kernels, whose dynamics are weight
 # tensors, read the cost's part alone (_soa_bindings(include_dyn=False)).
-PLANT_IDS = {"cartpole": 0}
-PLANT_DIMS = {"cartpole": (4, 1)}  # (S, U)
+# A fast plant (``<env>_fast``) is its environment's dynamics over the
+# polynomial trig of csrc/fastmath.cuh, with the environment's parameter
+# layout and exact cost; the fully-fused kernels over it draw their
+# normals with the fast Box-Muller (the JAX fast_sampling form), so a fast
+# plant and fast sampling always come together, as the JAX optimizers pair
+# them (fast_sampling=pred.fast_math).
+PLANT_IDS = {"cartpole": 0, "cartpole_fast": 1}
+FAST_PLANTS = {"cartpole": "cartpole_fast"}  # environment -> its fast plant
+PLANT_DIMS = {"cartpole": (4, 1), "cartpole_fast": (4, 1)}  # (S, U)
 DYN_PARAM_KEYS = {
     "cartpole": ("d_L", "d_friction_cart", "d_friction_pole", "d_g", "d_m_cart",
                  "d_m_pole", "d_u_max"),
@@ -53,7 +60,20 @@ COST_PARAM_KEYS = {
     "cartpole": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_dd_weight", "c_ekp_weight",
                  "c_ep_weight", "a_target_position", "__u_prev_0"),
 }
+for _env, _fast in FAST_PLANTS.items():
+    DYN_PARAM_KEYS[_fast], COST_PARAM_KEYS[_fast] = DYN_PARAM_KEYS[_env], COST_PARAM_KEYS[_env]
 PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for plant in PLANT_IDS}
+
+
+
+def plant_key(pred) -> str:
+    """The device plant of an ODE predictor (a residual predictor's base):
+    its environment's, or that environment's fast plant where the predictor
+    runs the polynomial trig (``fast_math``) and one exists."""
+    base = getattr(pred, "base", pred)
+    env = base.environment_name
+    return FAST_PLANTS.get(env, env) if getattr(base, "fast_math", False) else env
+
 
 # Network forms of the network-rollout kernels (csrc/neural_core.cuh NetKind)
 # and the most layers (MLP) or cells (GRU/LSTM) a net may have there.
@@ -104,6 +124,12 @@ class RolloutModel:
 
     def unpack(self, pvec: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {k: pvec[i] for i, k in enumerate(self.param_keys)}
+
+    @property
+    def fast_math(self) -> bool:
+        """A fast plant: polynomial trig, and fast normals in the
+        fully-fused kernels and their regenerations."""
+        return self.plant in FAST_PLANTS.values()
 
     def step_args(self) -> tuple:
         """(rk4, substeps, sub_dt, half_dt, dt6) for the C entry points:
@@ -614,7 +640,9 @@ def load() -> ctypes.CDLL:
             f32, f32, f32, f32, f32, f32, ptr,
         ]
         lib.ctt_fused_mppi_cost.restype = i32
-        lib.ctt_fused_mppi_weights.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+        # ..., inv_lbd, fast (the fast normals), stream
+        lib.ctt_fused_mppi_weights.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, i32,
+                                               ptr]
         lib.ctt_fused_mppi_weights.restype = i32
         load.lib = lib
     return load.lib

@@ -18,7 +18,8 @@ Two scoring paths, chosen as the JAX package chooses them:
 * ``fully_fused`` (where ``_can_fully_fuse`` admits it): K5
   (``ops/fused_cem.py``) draws the population from the counter PRNG,
   rolls it out and scores it in one launch; only the elite rows are drawn
-  again, in torch, for the refit.
+  again, in torch, for the refit (over a ``:fast`` predictor both draw the
+  fast normals, ``model.fast_math``: the JAX ``fast_sampling``).
 
 Each step is a draw per outer iteration (``sample_draws``: the normals
 ``[K,H,U]``, or the counter PRNG's ``seed2`` on the fused path) followed
@@ -302,7 +303,8 @@ class CEMOptimizer(Optimizer):
             mue, std = states.dist_mue[:, 0], states.stdev[:, 0]           # [B, H, U]
             for seed_b in seeds:
                 costs = fused_cem_cols(model, s0, mue, std, pvec_b, seed_b, low, high, K)
-                elite = regen_cols(seed_b, elite_indices(costs, best_k), mue, std, low, high, K)
+                elite = regen_cols(seed_b, elite_indices(costs, best_k), mue, std, low, high, K,
+                                   fast=model.fast_math)
                 mue = torch.mean(elite, dim=1)
                 std = torch.std(elite, dim=1, correction=0)
                 elite0 = elite[:, 0]
@@ -374,7 +376,7 @@ class CEMOptimizer(Optimizer):
                     cost = fused_cem_costs(model, s0, mue[0], std[0], pvec, seed2, low, high, K,
                                            tile)
                     return cost, (lambda idx: regen_controls(seed2, idx, mue[0], std[0], low,
-                                                             high, K, tile)), {}
+                                                             high, K, tile, fast=model.fast_math)), {}
                 return score
 
             s_tiled = s[:1].expand(K, -1).contiguous()

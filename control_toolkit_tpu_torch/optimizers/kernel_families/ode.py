@@ -3,7 +3,9 @@
 
 The cost gate admits an ODE predictor whose plant has a device
 implementation (``ops/kernels.py`` PLANT_IDS, with the cost that plant
-evaluates), a cost with ``supports_fused_rollout`` and scalar attributes,
+evaluates; ``plant_key`` gives a ``:fast`` predictor its environment's fast
+plant, the polynomial-trig instance of every kernel, whose fully-fused
+forms draw the fast normals), a cost with ``supports_fused_rollout`` and scalar attributes,
 and ``force_scan`` off; the gradient gate adds a plant with hand-written
 adjoints (``ops/adjoints.py`` PLANT_ADJOINTS).  The JAX gates' TPU
 conjuncts (backend, ``K % tile``, ``grad_tile_for``, VMEM budgets) have no
@@ -88,7 +90,7 @@ def rollout_model(opt):
     param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     model = kernels.RolloutModel(
-        plant=pred.environment_name,
+        plant=kernels.plant_key(pred),
         param_keys=tuple(param_keys),
         derivs=derivs,
         stage=stage_soa,
@@ -127,7 +129,7 @@ def can_use_grad(opt) -> bool:
     value_spec form differentiates; any other hook keeps torch.autograd,
     where the kernel would drop its dQ (JAX ``ode.py:106-117``)."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return can_use_cost(opt) and pred.environment_name in PLANT_ADJOINTS and value_hook_ok(opt)
+    return can_use_cost(opt) and kernels.plant_key(pred) in PLANT_ADJOINTS and value_hook_ok(opt)
 
 
 def build_grad(opt):

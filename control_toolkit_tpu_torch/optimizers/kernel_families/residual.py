@@ -55,7 +55,7 @@ def residual_model(opt):
     param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     model = kernels.ResidualModel(
-        plant=pred.environment_name,
+        plant=kernels.plant_key(pred),
         param_keys=tuple(param_keys),
         derivs=derivs,
         stage=stage_soa,
@@ -87,7 +87,7 @@ def can_use_grad(opt) -> bool:
     V, which K9's value_spec form differentiates."""
     pred = getattr(opt.predictor, "predictor", opt.predictor)
     return (not opt.force_scan and compatible_model(opt)
-            and pred.environment_name in PLANT_ADJOINTS and value_hook_ok(opt))
+            and kernels.plant_key(pred) in PLANT_ADJOINTS and value_hook_ok(opt))
 
 
 def build_grad(opt):

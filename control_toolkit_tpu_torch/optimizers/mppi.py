@@ -16,7 +16,9 @@ chooses them:
 * fully fused (``fully_fused: true`` where ``_can_fully_fuse`` admits
   it): the draw is the counter PRNG's ``seed2 = [seed, 0]`` and K3
   (``ops/fused_mppi.py``) draws the noise in its two passes, scores the
-  rollouts and sums the weighted noise; torch applies the update.
+  rollouts and sums the weighted noise; torch applies the update.  Over a
+  ``:fast`` predictor both passes draw the fast normals (the JAX
+  ``fast_sampling=pred.fast_math``: the model's fast plant).
 * semi-fused (default): noise ``[P, U, K]`` at the inducing points goes
   to K2 (``ops/mppi_cost.py``), which interpolates, clips, rolls out and
   scores in one pass; the weighted average is taken at the inducing

@@ -2,6 +2,7 @@
 the entry functions whose mangled names match the given patterns:
 
     python probes/sass_same.py <checkout A> <checkout B> [pattern ...]
+    python probes/sass_same.py --digests <checkout>
 
 Each checkout's library is the one its kernels last built
 (``control_toolkit_tpu_torch/_build/*.so``, e.g. by
@@ -13,9 +14,19 @@ its body unchanged, must keep its code).  Prints one line, ``sass_same:
 {...}``: for each matching entry, whether both libraries hold it, whether
 its instructions are the same, and their count in each; then one line,
 ``sass_differ: [...]``, the entries both hold whose code differs.
+
+``--digests`` prints, as one JSON object, the compiler's release line
+(``toolchain``) and each entry of the checkout's library with its
+instruction count and the sha256 of its instructions (``digests``):
+chip_smoke.py holds the exact cartpole entries to the digests in
+``probes/exact_sass.json`` when it builds with the same compiler.  A change
+that recompiles an exact entry on purpose writes that file anew from its
+own build: ``python probes/sass_same.py --digests . > probes/exact_sass.json``
+on the card, after any run that built the kernels.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import shutil
@@ -50,7 +61,27 @@ def functions(lib: Path) -> dict:
     return out
 
 
+def toolchain(tool: str | None = None) -> str:
+    """The ``release`` line of ``nvcc --version`` (``tool``: that nvcc)."""
+    tool = tool or shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    text = subprocess.run([tool, "--version"], capture_output=True, text=True,
+                          check=True).stdout
+    return next(line.strip() for line in text.splitlines() if "release" in line)
+
+
+def digests(lib: Path) -> dict:
+    """Entry name -> [its instruction count, the sha256 of its instructions
+    joined by newlines]."""
+    return {name: [len(ins), hashlib.sha256("\n".join(ins).encode()).hexdigest()]
+            for name, ins in functions(lib).items()}
+
+
 def main() -> None:
+    if sys.argv[1] == "--digests":
+        print(json.dumps({"nvcc": toolchain(),
+                          "entries": digests(library(Path(sys.argv[2]).resolve()))},
+                         indent=0, sort_keys=True))
+        return
     a, b = (functions(library(Path(p).resolve())) for p in sys.argv[1:3])
     patterns = sys.argv[3:]
     found = {}

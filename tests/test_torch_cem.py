@@ -115,11 +115,11 @@ def test_regen_controls_match_jax_regen(pair):
     ref = np.asarray(regen(jnp.asarray(sd), jnp.asarray(idx), jnp.asarray(mue), jnp.asarray(std), K))
     popt = pctrl.optimizer
     got = regen_controls(torch.tensor(sd), torch.tensor(idx), torch.tensor(mue), torch.tensor(std),
-                         popt.action_low, popt.action_high, K, TILE).numpy()
+                         popt.action_low, popt.action_high, K, TILE, fast=False).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=Q_ATOL)
     assert got.min() == -1.0 and got.max() == 1.0
     full = regen_controls(torch.tensor(sd), torch.arange(K), torch.tensor(mue), torch.tensor(std),
-                          popt.action_low, popt.action_high, K, TILE).numpy()
+                          popt.action_low, popt.action_high, K, TILE, fast=False).numpy()
     np.testing.assert_array_equal(full[idx], got)  # an elite subset is a bit-exact subset
 
 
@@ -140,7 +140,7 @@ def test_regenerated_rows_through_k1_give_jax_kernel_costs(pair):
     np.testing.assert_allclose(cost_rollout(model, s_tiled, torch.tensor(Q), pvec).numpy(), ref,
                                **K5_TOL)
     mine = regen_controls(torch.tensor(sd), torch.arange(K), torch.tensor(mue), torch.tensor(std),
-                          popt.action_low, popt.action_high, K, TILE)
+                          popt.action_low, popt.action_high, K, TILE, fast=False)
     np.testing.assert_array_equal(
         fused_cem_costs_plain(model, torch.tensor(s0), torch.tensor(mue), torch.tensor(std), pvec,
                               torch.tensor(sd), popt.action_low, popt.action_high, K, TILE).numpy(),
@@ -346,7 +346,7 @@ def test_k5_short_step_stays_within_the_kernel_bound(pair, integrator, substeps,
     pvec = pack(params, torch.tensor([0.1]))
     low, high = pctrl.optimizer.action_low, pctrl.optimizer.action_high
     ref = fused_cem_costs_plain(model, s0, mue, std, pvec, seed2, low, high, Kc, tile)
-    Q = regen_controls(seed2, torch.arange(Kc), mue, std, low, high, Kc, tile)
+    Q = regen_controls(seed2, torch.arange(Kc), mue, std, low, high, Kc, tile, fast=False)
     got = plain_cost_loop(model, s0.expand(Kc, -1), Q, pvec, short_step_fn(model, pvec))
     err = (got - ref).abs()
     record_property("k5_short_step_distance", {
@@ -373,7 +373,7 @@ def test_k5_short_step_at_a_long_horizon_stays_within_the_float64_bound(pair, re
     pvec = pack(params, torch.tensor([0.1]))
     low, high = pctrl.optimizer.action_low, pctrl.optimizer.action_high
     Q = regen_controls(seed2, torch.arange(Kc), mue, torch.full((Hc, 1), 0.5), low, high, Kc,
-                       tile)
+                       tile, fast=False)
     s0 = torch.tensor([0.02, -0.1, 0.05, 0.1]).expand(Kc, -1).contiguous()
     got = plain_cost_loop(model, s0, Q, pvec, short_step_fn(model, pvec))
     record_property("k5_long_horizon_vs_float64",
@@ -449,7 +449,8 @@ def test_cuda_k5_matches_plain_version(pair, cuda_device, Hc):
     lim = torch.ones(1, device=dev)
     args = (model, s0, mue, std, pvec, seed2, -lim, lim, Kc, tile)
     got = fused_cem_costs(*args)
-    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile)
+    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile,
+                       fast=False)
     s_tiled = s0.expand(Kc, -1).contiguous()
     via_k1 = cost_rollout(model, s_tiled, Q, pvec)
     if Hc > 64:
@@ -479,5 +480,6 @@ def test_cuda_k5_equals_k1_over_its_regenerated_controls(pair, cuda_device, Hc):
     seed2 = torch.tensor([2024, 3], dtype=torch.int32, device=dev)
     lim = torch.ones(1, device=dev)
     got = fused_cem_costs(model, s0, mue, std, pvec, seed2, -lim, lim, Kc, tile)
-    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile)
+    Q = regen_controls(seed2, torch.arange(Kc, device=dev), mue, std, -lim, lim, Kc, tile,
+                       fast=False)
     assert torch.equal(got, cost_rollout(model, s0.expand(Kc, -1).contiguous(), Q, pvec))

@@ -146,7 +146,7 @@ def test_regen_cols_counters_and_controls_match_jax(pair):
     _, regen, _, _ = jax_cols(jopt, B)
     std = 3.0 * x["std"]  # heavy clipping: both bounds reached
     Q = regen_cols(torch.tensor(x["seed"]), torch.tensor(idx), torch.tensor(x["mue"]),
-                   torch.tensor(std), popt.action_low, popt.action_high, K).numpy()
+                   torch.tensor(std), popt.action_low, popt.action_high, K, fast=False).numpy()
     for b in range(B):
         ref_q = np.asarray(regen(jnp.asarray(x["seed"][b]), jnp.asarray(idx[b]),
                                  jnp.asarray(x["mue"][b]), jnp.asarray(std[b])))
@@ -154,7 +154,7 @@ def test_regen_cols_counters_and_controls_match_jax(pair):
     assert Q.min() == -1.0 and Q.max() == 1.0
     full = regen_cols(torch.tensor(x["seed"]), torch.arange(K).expand(B, K),
                       torch.tensor(x["mue"]), torch.tensor(std), popt.action_low,
-                      popt.action_high, K).numpy()
+                      popt.action_high, K, fast=False).numpy()
     np.testing.assert_array_equal(np.take_along_axis(full, idx[:, :, None, None], axis=1), Q)
 
 
@@ -295,7 +295,7 @@ def k6_short_step(args, seed_b=None):
     model, s0, mue, std, pvec_b, own, low, high, Kc = args
     B, Hc = mue.shape[0], mue.shape[1]
     idx = torch.arange(Kc).expand(B, Kc)
-    Q = regen_cols(own if seed_b is None else seed_b, idx, mue, std, low, high, Kc)
+    Q = regen_cols(own if seed_b is None else seed_b, idx, mue, std, low, high, Kc, fast=False)
     s_rows, rows, Q = per_rollout(s0, Kc).T, per_rollout(pvec_b, Kc), Q.reshape(B * Kc, Hc, 1)
     cost = plain_cost_loop(model, s_rows, Q, rows, short_step_fn(model, rows))
     return cost.reshape(B, Kc), (model, s_rows, Q, rows)
@@ -364,7 +364,8 @@ def test_cuda_k6_matches_plain_version_and_k1(pair, cuda_device):
     args = (model, s0, mue, std, pvec_b, seed_b, -lim, lim, Kc)
     got = fused_cem_cols(*args)
     torch.testing.assert_close(got, fused_cem_cols_plain(*args), rtol=1e-4, atol=1e-3)
-    Q = regen_cols(seed_b, torch.arange(Kc, device=dev).expand(Bc, Kc), mue, std, -lim, lim, Kc)
+    Q = regen_cols(seed_b, torch.arange(Kc, device=dev).expand(Bc, Kc), mue, std, -lim, lim, Kc,
+                   fast=False)
     for b in range(Bc):
         via_k1 = cost_rollout(model, s0[b].expand(Kc, -1).contiguous(), Q[b].contiguous(),
                               pvec_b[b].contiguous())
@@ -384,7 +385,8 @@ def test_cuda_k6_at_a_long_horizon_stays_within_the_float64_bound(pair, cuda_dev
     model, s0, mue, std, pvec_b, seed_b, low, high, Kc = args
     B = s0.shape[0]
     got = fused_cem_cols(*args)
-    Q = regen_cols(seed_b, torch.arange(Kc, device=dev).expand(B, Kc), mue, std, low, high, Kc)
+    Q = regen_cols(seed_b, torch.arange(Kc, device=dev).expand(B, Kc), mue, std, low, high, Kc,
+                   fast=False)
     via_k1 = torch.stack([cost_rollout(model, s0[b].expand(Kc, -1).contiguous(),
                                        Q[b].contiguous(), pvec_b[b].contiguous())
                           for b in range(B)])

@@ -111,10 +111,10 @@ def test_weights_plain_is_the_block_sums_of_the_weighted_noise():
     cost = torch.linspace(5.0, 50.0, Kw)
     rho = cost.min()
     red = torch.stack([rho, torch.exp(-(cost - rho) / 10.0).sum()])
-    partials = fused_mppi_weights(seed2, cost, red, P, U, 10.0, Kw, tile)
+    partials = fused_mppi_weights(seed2, cost, red, P, U, 10.0, Kw, tile, fast=False)
     assert partials.shape == (-(-Kw // WEIGHT_BLOCK), P, U)
     w = torch.exp(-(cost - rho) / 10.0) / red[1]
-    ref = (mppi_noise(seed2, Kw, P, U, tile) * w).sum(-1)
+    ref = (mppi_noise(seed2, Kw, P, U, tile, fast=False) * w).sum(-1)
     torch.testing.assert_close(partials.sum(0), ref, rtol=1e-5, atol=1e-6)
 
 
@@ -208,7 +208,7 @@ def test_mppi_controls_plain_reproduces_the_controls_of_the_cost(H_):
     u = clamp(u_nom + d)."""
     _, _, u_nom, _, seed2, W, low, high, *_ = pass1_args(H_)
     P = W.shape[0]
-    eps = mppi_noise(seed2, K, P, 1, TILE) * 0.2
+    eps = mppi_noise(seed2, K, P, 1, TILE, fast=False) * 0.2
     u, d = mppi_controls_plain(eps, W, u_nom, low, high)
     Wl, p0 = W.tolist(), 0
     for h in range(H_):
@@ -231,8 +231,8 @@ def test_pass1_plain_at_cc_zero_is_k1_plain_over_its_controls(H_):
     interpolation."""
     args = pass1_args(H_, cc_weight=0.0)
     model, s0, u_nom, pvec, seed2, W, low, high = args[:8]
-    u, _ = mppi_controls_plain(mppi_noise(seed2, K, W.shape[0], 1, TILE) * 0.2, W, u_nom, low,
-                               high)
+    u, _ = mppi_controls_plain(mppi_noise(seed2, K, W.shape[0], 1, TILE, fast=False) * 0.2, W,
+                               u_nom, low, high)
     assert torch.equal(fused_mppi_costs_plain(*args),
                        cost_rollout_plain(model, s0.expand(K, -1), u, pvec))
 
@@ -280,9 +280,9 @@ def test_cuda_k3_passes_match_plain_versions(cuda_device):
     rho = cost.min()
     red = torch.stack([rho, torch.exp(-(cost - rho) / 100.0).sum()])
     P = W.shape[0]
-    got = fused_mppi_weights(seed2, cost, red, P, 1, 100.0, Kc, tile)
+    got = fused_mppi_weights(seed2, cost, red, P, 1, 100.0, Kc, tile, fast=False)
     torch.testing.assert_close(got.sum(0), fused_mppi_weights_plain(seed2, cost, red, P, 1, 100.0,
-                                                                    Kc, tile).sum(0),
+                                                                    Kc, tile, fast=False).sum(0),
                                rtol=1e-4, atol=1e-6)
     step = (model, s0, u_nom, pvec, seed2, W, -lim, lim, 1.0, 1.0, 1000.0, 100.0, 0.2, Kc, tile)
     un, c = fused_mppi_step(*step)
@@ -294,7 +294,8 @@ def test_cuda_k3_passes_match_plain_versions(cuda_device):
             a = pass1_args(H_, cc_weight, Kc, tile, dev)
             got = fused_mppi_costs(*a)
             if cc_weight == 0.0:
-                u, _ = mppi_controls_plain(mppi_noise(a[4], Kc, a[5].shape[0], 1, tile) * 0.2,
+                u, _ = mppi_controls_plain(mppi_noise(a[4], Kc, a[5].shape[0], 1, tile,
+                                                      fast=False) * 0.2,
                                            a[5], a[2], a[6], a[7])
                 assert torch.equal(got, cost_rollout(a[0], a[1].expand(Kc, -1).contiguous(), u,
                                                      a[3]))

@@ -229,7 +229,7 @@ def test_wrappers_never_run_plain_versions_on_non_cpu_tensors(pair):
                          torch.empty(2, 5, **meta), -lim, lim, 1.0, 1.0, 1000.0, 0.2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         fused_mppi_weights(torch.empty(2, dtype=torch.int32, **meta), torch.empty(16, **meta),
-                           torch.empty(2, **meta), 2, 1, 100.0, 16, 8)
+                           torch.empty(2, **meta), 2, 1, 100.0, 16, 8, fast=False)
     with pytest.raises(ValueError, match="tile_k"):  # K5's function needs K % tile_k == 0
         fused_cem_costs(model, torch.zeros(4), torch.zeros(5, 1), torch.zeros(5, 1),
                         torch.zeros(15), seed2, -lim, lim, 20, 8)

@@ -145,8 +145,9 @@ def test_custom_dynamics_and_unported_specs():
     traj = pred.rollout(torch.zeros(3, 2), torch.ones(3, 4, 1))
     np.testing.assert_allclose(traj[0, :, 1].numpy(), [0.0, 0.1, 0.2, 0.3, 0.4], atol=1e-6)
     pw = PredictorWrapper()
-    with pytest.raises(NotImplementedError):
-        pw.configure(device="cpu", predictor_specification="ODE:rk4:1:fast")
+    # ported: the polynomial-trig plant (tests/test_torch_fastmath.py)
+    pw.configure(device="cpu", predictor_specification="ODE:rk4:1:fast")
+    assert pw.predictor.fast_math and pw.predictor.dynamics is not ODEPredictor().dynamics
     with pytest.raises(KeyError):
         pw.configure(device="cpu", predictor_specification="transformer:8")
     # ported: the PETS ensemble, five members by default (a random init)

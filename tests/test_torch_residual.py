@@ -137,8 +137,9 @@ def test_spec_grammar():
     assert tuple(pred._res["w0"].shape) == (5, 8) and tuple(pred._res["w1"].shape) == (8, 4)
     w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res")
     assert (w.predictor.integrator, w.predictor.hiddens) == ("rk4", (32, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res:rk4:1:fast")
+    # ported: the fast base plant (tests/test_torch_fastmath.py)
+    w.configure(device="cpu", dt=0.02, predictor_specification="ODE+res:rk4:1:fast")
+    assert w.predictor.fast_math and w.predictor.base.fast_math
 
 
 def test_checkpoint_round_trips_across_packages(tmp_path):
