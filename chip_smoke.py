@@ -379,10 +379,30 @@ normals of K3, K5 and K6):
     the valued MPPI and rpgd-tf over both, 80 adaptive MPPI ticks over
     "ODE+res:...:fast" with a sysid fit every 40, and 32-session fleets:
     MPPI, fused CEM, rpgd-tf over the ODE, MPPI and rpgd-tf over
-    "ODE+res:...:fast", the valued MPPI and rpgd-tf fleets;
-69. every entry of probes/exact_sass.json (the SASS digests of the library
-    the fast forms were added to) in the built library with its
-    instructions unchanged, when built by the nvcc the file names.
+    "ODE+res:...:fast", the valued MPPI and rpgd-tf fleets.
+
+The rest of the sampling and gradient-CEM zoo on cartpole (no new kernel:
+each runs on kernels of the phases above, picked from the model):
+69. 50 closed-loop ticks each at K=16384, H=50, seed 3, counted from 0 and
+    each gated on its kernel path: cem-gmm (two K1 a tick), cma-es full
+    and diagonal (three K1; the full form's torch.linalg.eigh timed),
+    semi-fused mppi-var with LR 1000 (one K2), cem-naive-grad (one K7, one
+    K1) and cem-grad-bharadhwaj (two K7, two K1);
+70. 20 ticks of each over the fast plant (their kernels' fast entries),
+    and 20 Bharadhwaj ticks over the committed MLP from LEARNED_START
+    (two K8, two K11, the pole recorded, not required);
+71. the mppi-var fleet (one K4 a tick, each session its own adaptive
+    sigma) at 128 sessions of K=512, H=35, every slot active, 50 ticks
+    (the slots that kept the pole counted: a few lose it in both
+    packages), and a valued one at 32 sessions over the committed V (K4's
+    emit form, a rotating quarter idle, checked bit for bit), 50 ticks;
+72. one update of each on the card against the CPU's with the same draws:
+    cem-gmm and the gradient CEMs outer iteration by outer iteration from
+    the card's carry (``zoo_update_vs_cpu``), cma-es on the sign-free
+    quantities (cuSOLVER's eigenvectors may differ in sign from LAPACK's:
+    ``cma_update_vs_cpu``), mppi-var and its fleet with sigma held within
+    the reach of the cost error (``var_sigma_bound``);
+73. the mppi-var fleet timed at 32 and 128 sessions.
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
@@ -398,8 +418,9 @@ seeds (``start_sweep``);
 ticks) of each path (the sampling paths: cem, cem-fused, mppi-fused and
 icem; MPPI and rpgd-tf over the ensemble; the valued MPPI (H=50, H=10) and
 rpgd-tf; the valued MPPI over the MLP; the valued rpgd-tf over each
-learned model and gradient-tf over the MLP; the fleet paths at both sizes of
-phases 40, 44 and 48 and the valued MLP fleet), printing
+learned model and gradient-tf over the MLP; phase 69's and 70's zoo loops;
+the fleet paths at both sizes of phases 40, 44, 48 and 73 and the valued
+MLP fleet), printing
 per tick the
 device busy time, the number of device operations and the costliest
 device kernels.
@@ -421,6 +442,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -519,6 +541,7 @@ from control_toolkit_tpu_torch.optimizers.cem import refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import (
     ensemble, gp, neural, ode, residual,
 )
+from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarState
 from control_toolkit_tpu_torch.utils.convert import (
     gradient_state_from_numpy, mppi_state_from_numpy, rpgd_state_from_numpy,
 )
@@ -867,20 +890,52 @@ VALUE_GRAD_TICKS, VALUE_GRADIENT_TICKS, VALUE_GRAD_FLEET_TICKS = 100, 50, 50
 # fit every FAST_FIT_EVERY).  K7-fast's dQ bound must reject the adjoint
 # that takes the fast values with the exact derivatives (cos, -sin): the
 # two differ by at most 2.2e-4, most at |angle| near pi, so that check
-# runs from angles over +-FAST_WIDE_ANGLE.  EXACT_SASS holds the
-# digests of every entry's SASS in the library the fast forms were added
-# to (commit 38c8143's tree, probes/sass_same.py --digests) and the nvcc
-# that built it.  The exact and fast cartpole instances share every body
-# through `if constexpr`, so an edit aimed at a fast path can move an exact
-# entry's code, and the plain-version bounds pass a changed order of
-# operations; the digests catch that.  A change that recompiles an exact
-# entry on purpose writes the file anew (probes/sass_same.py's docstring);
-# under another nvcc the phase reports and does not compare.
+# runs from angles over +-FAST_WIDE_ANGLE.
 FAST_SPEC, RES_FAST_SPEC = "ODE:rk4:1:fast", "ODE+res:rk4:1:fast"
 FAST_FROM_EXACT = dict(rtol=5e-3, atol=5e-3)
 FAST_TICKS, FAST_SHORT_TICKS, FAST_ADAPT_TICKS, FAST_FIT_EVERY = 200, 20, 80, 40
 FAST_WIDE_ANGLE = 3.1
-EXACT_SASS = Path(__file__).resolve().parent / "probes" / "exact_sass.json"
+# The rest of the zoo on cartpole (phases 69-73), closed loop at the main
+# path's K and H, seed 3, ZOO_TICKS each over the ODE and FAST_SHORT_TICKS
+# over the fast plant: cem-gmm at CEM_CONFIG's sizes; cma-es at
+# bench_scale.py:build_cma's (cma_outer_it 3, step 0.3, cma_mu K/2), full
+# and diagonal; mppi-var semi-fused at OPTIMIZER_CONFIG's MPPI sizes with
+# LR 1000; cem-naive-grad and cem-grad-bharadhwaj at their
+# config_optimizers.yml defaults with K and H raised to the flagship's
+# (and Bharadhwaj over the committed MLP, MLP_ZOO_TICKS from
+# LEARNED_START); the mppi-var fleet at
+# bench_scale.py:measure_batched_var's configuration (B=128, K=512, H=35,
+# SQRTRHOINV_mc 0.05, LR 1000, seed 3), every slot active, and a valued one
+# at FLEET_B over the committed V, VAR_FLEET_TICKS each.  At LR 1000 each
+# session's sigma runs to a bound within a few ticks, and a few sessions of
+# 128 lose the pole in 50 ticks in both packages (on the CPU from these
+# starts: the JAX package's fleet 4, the port's 3;
+# `PYTHONPATH=. python tests/test_torch_mppi_var.py --fleet`), so the fleet
+# loop counts the slots that kept it and does not require them all.
+GMM_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+              "cem_outer_it": 2, "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01,
+              "cem_best_k": 256}
+CMA_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+              "cma_outer_it": 3, "cma_initial_step_size": 0.3, "cma_diagonal": False,
+              "warmup": False}
+CMA_DIAG_CONFIG = {**CMA_CONFIG, "cma_diagonal": True}
+VAR_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+              "cc_weight": 1.0, "R": 1.0, "LBD_mc": 100.0, "NU_mc": 1000.0,
+              "SQRTRHOINV_mc": 0.03, "period_interpolation_inducing_points": PERIOD,
+              "LR": 1000.0}
+NAIVE_GRAD_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+                     "cem_outer_it": 1, "cem_stdev_min": 0.1, "cem_initial_action_stdev": 0.5,
+                     "cem_best_k": 40, "learning_rate": 0.1, "gradmax_clip": 10}
+BHARADHWAJ_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": K,
+                     "learning_rate": 0.05, "adam_beta_1": 0.9, "adam_beta_2": 0.999,
+                     "adam_epsilon": 1e-8, "cem_best_k": 8, "cem_outer_it": 2,
+                     "cem_initial_action_stdev": 2.0, "cem_stdev_min": 1e-6, "gradmax_clip": 5,
+                     "warmup": False, "warmup_iterations": 250}
+FLEET_VAR_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
+                    "num_rollouts": FLEET_K, "cc_weight": 1.0, "R": 1.0, "LBD_mc": 100.0,
+                    "NU_mc": 1000.0, "SQRTRHOINV_mc": 0.05,
+                    "period_interpolation_inducing_points": 10, "LR": 1000.0}
+MLP_ZOO_TICKS, VAR_FLEET_TICKS = 20, 50
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -1144,9 +1199,12 @@ def k7_cases(model, s0, Q, pvec) -> dict:
 
 
 def to_cpu(tree):
-    """A params tree (dicts and tuples of tensors) with every tensor on the CPU."""
+    """A params tree (dicts, records such as the Adam state, and tuples of
+    tensors) with every tensor on the CPU."""
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_cpu(v) for v in tree))
     if isinstance(tree, tuple):
         return tuple(to_cpu(v) for v in tree)
     return tree.cpu() if isinstance(tree, torch.Tensor) else tree
@@ -1620,8 +1678,15 @@ def sass_text(library=None) -> str | None:
     tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
     if not Path(tool).is_file():
         return None
-    return subprocess.run([tool, "-sass", str(library or kernels.library_path())],
-                          capture_output=True, text=True, check=True).stdout
+    return _cuobjdump_sass(tool, str(library or kernels.library_path()))
+
+
+@functools.lru_cache(maxsize=None)
+def _cuobjdump_sass(tool: str, library: str) -> str:
+    """One disassembly of a library a run (~15 s for the whole library on
+    the card's host; the library is built once, before any phase reads it)."""
+    return subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
 
 
 def sass_loops(kernel: str, instance: str = "", library=None):
@@ -3000,12 +3065,14 @@ def same_snapshot(a: list, b: list) -> bool:
 
 
 def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict,
-               retarget_at: int = FLEET_RETARGET_AT, swap=None, pole_check: bool = True) -> dict:
+               retarget_at: int = FLEET_RETARGET_AT, swap=None, pole_check: bool = True,
+               rotate_idle: bool = True) -> dict:
     """``ticks`` closed-loop ticks of a fleet: slot i against its own
     CartpoleEnv (seed 10+i) with pole half-length L_i over FLEET_L, each
     slot's model given L_i before the first tick (``update_slot_dyn``, where
     the fleet plans per-slot pole lengths).  A rotating quarter of the
-    slots is idle each tick (masked off; its plant waits); at
+    slots is idle each tick (masked off; its plant waits; none with
+    ``rotate_idle`` false); at
     ``retarget_at`` half the slots change target and slot 2's model
     re-sysids to 1.02 L_2 (where it has one), and ``swap()`` runs (a new
     weight tensor, a GP hot-swap).  Checks: idle slots emit 0 and keep their
@@ -3029,7 +3096,7 @@ def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict
     host_ms, device_ms, frozen_checked = [], [], 0
     slot_max_angle = np.zeros(B)
     for t in range(ticks):
-        mask = (np.arange(B) + t) % 4 != 0
+        mask = (np.arange(B) + t) % 4 != 0 if rotate_idle else np.ones(B, bool)
         attrs = [{"target_position": NEW_TARGET} if t == retarget_at and i < B // 2
                  else None for i in range(B)]
         if t == retarget_at:
@@ -4670,29 +4737,6 @@ def compare_fast(label: str, fast_fn, plain_fn, exact_fn, tols: tuple, ops: floa
     return numbers
 
 
-def exact_sass_kept() -> dict:
-    """Phase 69: every entry of EXACT_SASS (the exact entries of the library
-    the fast forms were added to) in the built library with its SASS
-    instruction for instruction, when the library was built by the
-    compiler EXACT_SASS names (another compiler emits other code)."""
-    from probes.sass_same import digests, toolchain
-
-    pinned = json.loads(EXACT_SASS.read_text())
-    want, have = pinned["entries"], digests(kernels.library_path())
-    numbers = {"nvcc": toolchain(kernels._nvcc()), "pinned_nvcc": pinned["nvcc"],
-               "entries": len(want), "library_entries": len(have),
-               "fast_entries": sum("CartpoleFastPlant" in fn or "weights_fast" in fn
-                                   for fn in have)}
-    numbers["compared"] = numbers["nvcc"] == pinned["nvcc"]
-    if numbers["compared"]:
-        numbers["missing"] = sorted(fn for fn in want if fn not in have)
-        numbers["differ"] = sorted(fn for fn in want if fn in have and have[fn] != want[fn])
-    emit("exact_sass_kept", numbers)
-    check(not numbers.get("missing") and not numbers.get("differ"),
-          f"an exact entry's SASS changed {numbers}")
-    return numbers
-
-
 def fast_k7_adjoint(fmodel, pvec, Qg, gen) -> dict:
     """Phase 67's K7-fast dQ check: from angles over +-FAST_WIDE_ANGLE (where
     the polynomials' derivatives differ most from cos and -sin), K7-fast's
@@ -4782,7 +4826,7 @@ def fast_equal_to_k1(fmodel, pvec, opt, gen) -> dict:
 
 def fast_phases(device, ctrl, model, pvec, s0, Q, Qg, k2_args, rmodel, rpvec, rnet,
                 vnet) -> tuple:
-    """Phases 67-69 (the fast plant) over the main path's operands: ``ctrl``
+    """Phases 67-68 (the fast plant) over the main path's operands: ``ctrl``
     the flagship, ``model`` and ``pvec`` its K1 model and packed
     parameters, ``s0``, ``Q``, ``Qg`` and ``k2_args`` phases 2-7's operands,
     ``rmodel``, ``rpvec`` and ``rnet`` phase 18's residual, ``vnet`` the
@@ -5057,10 +5101,281 @@ def fast_phases(device, ctrl, model, pvec, s0, Q, Qg, k2_args, rmodel, rpvec, rn
         fast_runs[f"fleet_{label}"] = fleet_loop(f"slice_fast_fleet_{label}", c, T, expected,
                                                  retarget_at=T // 2, pole_check=not valued)
 
-    # 69. The exact entries keep their SASS (EXACT_SASS).
-    exact_sass_kept()
-
     return fast_k, fast_runs
+
+
+# ---- the rest of the zoo (phases 69-73) -----------------------------------------
+# Where each sampling CEM of the zoo starts an update: its first carry and
+# the draws its outer iterations take (Bharadhwaj's first draw seeds its
+# elites).
+ZOO_CARRY = {
+    "cem-gmm-tf": lambda opt, st, draws: ({"mue": st.comp_mue, "std": st.comp_std,
+                                           "probs": st.mix_probs}, draws),
+    "cem-naive-grad-tf": lambda opt, st, draws: ({"mue": st.dist_mue, "std": st.stdev}, draws),
+    "cem-grad-bharadhwaj-tf": lambda opt, st, draws: (opt.start(st, draws[0]), draws[1:]),
+}
+
+
+def zoo_update_vs_cpu(name: str, ctrl: MPCController, config: dict, spec: str = "ODE") -> dict:
+    """Phase 72, cem-gmm and the gradient CEMs: one update on the card and on
+    the CPU (the plain versions) with the same draws, outer iteration by
+    outer iteration from the card's carry (``iterate``), as
+    update_vs_cpu_cem holds CEM: the costs to the kernel bound (the gradient
+    CEMs score populations that the gradient step moved on each device),
+    the card's elites a top-k of the CPU's costs within that bound, and,
+    where both devices took the same elites in the same order, every
+    refit quantity: the components and mixture weights, or the Gaussian, to
+    UNOM_ATOL; the Adam moments and the kept elites to UPDATE_RTOL plus
+    UPDATE_ATOL_FRAC of their largest entry."""
+    opt = ctrl.optimizer
+    state = opt.opt_state
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    params = ctrl._assemble_params()
+    carry, draws = ZOO_CARRY[name](opt, state, opt.sample_draws(state))
+    copt = make_controller("cpu", name, config, spec=spec).optimizer
+    s_tiled = s_now.expand(opt.num_rollouts, -1).contiguous()
+    best_k, same, errs = opt.cem_best_k, 0, {"cost": 0.0, "topk_excess": 0.0}
+    for draw in draws:
+        new = opt.iterate(carry, s_tiled, state.u_prev, params, draw)
+        new_c = copt.iterate(to_cpu(carry), s_tiled.cpu(), state.u_prev.cpu(), to_cpu(params),
+                             to_cpu(draw))
+        cost, cost_c = new["cost"].cpu(), new_c["cost"]
+        errs["cost"] = max(errs["cost"], max_errors(cost, cost_c)[0])
+        check(torch.allclose(cost, cost_c, **KERNEL_TOL), f"{name}: costs differ {errs}")
+        idx = new["idx"].cpu()
+        kth = torch.sort(cost_c).values[best_k - 1]
+        excess = float(cost_c[idx].max() - kth)
+        errs["topk_excess"] = max(errs["topk_excess"], excess)
+        check(excess <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * float(kth.abs()),
+              f"{name}: the card's elites are not a top-k of the CPU's costs {errs}")
+        if torch.equal(idx, new_c["idx"]):
+            same += 1
+            for key, v in new.items():
+                if key in ("cost", "idx"):
+                    continue
+                pairs = ([(f"adam_{f}", getattr(v, f), getattr(new_c[key], f)) for f in ("m", "v")]
+                         if key == "adam" else [(key, v, new_c[key])])
+                for label, a, b in pairs:
+                    err = max_errors(a.cpu(), b)[0]
+                    errs[label] = max(errs.get(label, 0.0), err)
+                    held = (close(a.cpu(), b, UPDATE_RTOL, UPDATE_ATOL_FRAC)
+                            if label.startswith("adam") or label == "elite_Q" else err <= UNOM_ATOL)
+                    check(held, f"{name}: {label} on the card differs from the CPU {errs}")
+        carry = new
+    numbers = {"iterations": len(draws), "same_elites_iterations": same,
+               **{f"{k}_max_abs_err" if k != "topk_excess" else k: v for k, v in errs.items()}}
+    emit(f"{name.replace('-', '_')}_update_vs_cpu", numbers)
+    return numbers
+
+
+def cma_update_vs_cpu(label: str, ctrl: MPCController, config: dict) -> dict:
+    """Phase 72, cma-es: one generation on the card against the CPU's from
+    the card's state.  cuSOLVER's eigenvectors may differ in sign from
+    LAPACK's, so the two devices' samples of the same normals may differ:
+    the card's decomposition is held to the CPU's on the sign-free root
+    ``B diag(D) B^T`` (to UPDATE_RTOL plus UPDATE_ATOL_FRAC of its largest
+    entry); the card's population is scored on both devices (the kernel
+    bound) and refit on both from the card's elites, each device with its
+    own decomposition, which the refit reads only through C^{-1/2}: mean,
+    sigma, C and both paths to the same bound."""
+    opt = ctrl.optimizer
+    st = opt.opt_state
+    K_, H_, U = opt.num_rollouts, opt.mpc_horizon, opt.num_control_inputs
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    params = ctrl._assemble_params()
+    copt = make_controller("cpu", "cma-es-tf", config).optimizer
+    carry = {"mean": st.mean, "sigma": st.sigma, "C": st.C, "p_sigma": st.p_sigma,
+             "p_c": st.p_c, "gen": st.gen}
+    eig, eig_c = opt.decompose(st.C), copt.decompose(st.C.cpu())
+    numbers = {"diagonal": opt.diag, "sigma": float(st.sigma)}
+    if not opt.diag:
+        (D, B), (D_c, B_c) = eig, eig_c
+        root, root_c = (B @ torch.diag(D) @ B.T).cpu(), B_c @ torch.diag(D_c) @ B_c.T
+        numbers["root_max_abs_err"] = max_errors(root, root_c)[0]
+        numbers["eigvec_sign_flips"] = int((torch.sum(B.cpu() * B_c, dim=0) < 0).sum())
+        check(close(root, root_c, UPDATE_RTOL, UPDATE_ATOL_FRAC),
+              f"{label}: the card's decomposition differs from the CPU's {numbers}")
+    X = opt.sample(carry, opt.sample_draws(st)[0], eig)
+    s_tiled = s_now.expand(K_, -1).contiguous()
+    cost = opt._make_cost_only()(s_tiled, X.reshape(K_, H_, U), st.u_prev, params)
+    cost_c = copt._make_cost_only()(s_tiled.cpu(), X.cpu().reshape(K_, H_, U), st.u_prev.cpu(),
+                                    to_cpu(params))
+    numbers["cost_max_abs_err"] = max_errors(cost.cpu(), cost_c)[0]
+    check(torch.allclose(cost.cpu(), cost_c, **KERNEL_TOL), f"{label}: costs differ {numbers}")
+    idx = elite_indices(cost, opt.mu)
+    new = opt.refit(carry, X, idx, eig)
+    new_c = copt.refit(to_cpu(carry), X.cpu(), idx.cpu(), eig_c)
+    for key in ("mean", "sigma", "C", "p_sigma", "p_c"):
+        a, b = new[key].cpu(), new_c[key]
+        numbers[f"{key}_max_abs_err"] = max_errors(a.reshape(-1), b.reshape(-1))[0]
+        check(close(a, b, UPDATE_RTOL, UPDATE_ATOL_FRAC),
+              f"{label}: {key} on the card differs from the CPU {numbers}")
+    emit(label, numbers)
+    return numbers
+
+
+def eigh_times(opt) -> dict:
+    """CMA-ES's eigendecomposition of its [N, N] covariance (N = H*U) on the
+    card: CUDA-event time and host wall time a call (torch.linalg.eigh)."""
+    C = opt.opt_state.C
+    wall = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.decompose(C)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"eigh_ms": cuda_ms(lambda: opt.decompose(C), 20),
+            "eigh_wall_p50_ms": float(np.percentile(wall, 50)), "N": int(C.shape[0])}
+
+
+def var_sigma_bound(opt, raw: torch.Tensor, stdev: torch.Tensor, cost_err: float) -> float:
+    """How far a cost error ``cost_err`` (per rollout) moves mppi-var's sigma
+    step: each advantage moves by at most 2 cost_err, so the gradient by
+    2 cost_err mean_k(sum_p eps^2)/sigma, and sigma by LR times that (the
+    norm clip and the clamp move it less); raw ``[..., P, U, K]``."""
+    sq = (raw.double().cpu() ** 2).sum(dim=-3).mean(dim=-1)               # [..., U]
+    return float((opt.LR * 2.0 * cost_err * sq / stdev.double().cpu()).max()) + 1e-6
+
+
+def var_update_vs_cpu(ctrl: MPCController, config: dict) -> dict:
+    """Phase 72, mppi-var: one update on the card and on the CPU (the plain
+    versions) from the card's state with one raw draw: the plan to
+    UNOM_ATOL, the costs to the kernel bound, sigma within
+    ``var_sigma_bound`` of the CPU's."""
+    opt = ctrl.optimizer
+    st = opt.opt_state
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    raw = opt.sample_noise(st)
+    params = ctrl._assemble_params()
+    _, new, diag = opt.update(st, s_now, params, raw)
+    copt = make_controller("cpu", "mppi-var-tf", config).optimizer
+    cst = MPPIVarState(torch.Generator(), st.u_nom.cpu(), st.u_prev.cpu(), st.stdev.cpu())
+    _, new_c, diag_c = copt.update(cst, s_now.cpu(), to_cpu(params), raw.cpu())
+    numbers = {"u_nom_max_abs_err": max_errors(new.u_nom.cpu(), new_c.u_nom)[0],
+               "cost_max_abs_err": max_errors(diag["J_logged"].cpu(), diag_c["J_logged"])[0],
+               "stdev": float(new.stdev.max()), "stdev_abs_err": max_errors(new.stdev.cpu(),
+                                                                           new_c.stdev)[0]}
+    numbers["stdev_bound"] = var_sigma_bound(opt, raw, st.stdev, numbers["cost_max_abs_err"])
+    emit("mppi_var_update_vs_cpu", numbers)
+    check(torch.allclose(diag["J_logged"].cpu(), diag_c["J_logged"], **KERNEL_TOL)
+          and numbers["u_nom_max_abs_err"] <= UNOM_ATOL
+          and numbers["stdev_abs_err"] <= numbers["stdev_bound"],
+          f"the mppi-var update on the card differs from the CPU's {numbers}")
+    return numbers
+
+
+def fleet_var_update_vs_cpu(ctrl: BatchedMPCController, gen) -> dict:
+    """Phase 72, the mppi-var fleet: one batched update on the card against
+    the CPU's (the plain versions) from the loop's state, every slot
+    drawing: costs to the kernel bound, the plans to UNOM_ATOL, each
+    session's sigma within ``var_sigma_bound``."""
+    B, opt = ctrl.num_slots, ctrl.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    raw = opt._slot_normals(ctrl.slot_states.generator, np.ones(B, bool))
+    _, update = opt._make_batched_var_step(B, per_slot_dyn=("L",))
+    cpu = fleet_controller("cpu", "mppi-var-tf", FLEET_VAR_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_var_step(B, per_slot_dyn=("L",))
+    st = ctrl.slot_states
+    _, new, costs = update(st, s, dyn, cost, attrs, raw)
+    _, new_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost),
+                                 to_cpu(attrs), raw.cpu())
+    err = (costs.cpu() - costs_c).abs().amax(dim=1)                       # [B]
+    bound = torch.tensor([var_sigma_bound(opt, raw[b], st.stdev[b], float(err[b]))
+                          for b in range(B)])
+    numbers = {"slots": B, "cost_max_abs_err": float(err.max()),
+               "u_nom_max_abs_err": max_errors(new.u_nom.cpu(), new_c.u_nom)[0],
+               "stdev_max_abs_err": max_errors(new.stdev.cpu(), new_c.stdev)[0],
+               "stdev_min": float(new.stdev.min()), "stdev_max": float(new.stdev.max())}
+    emit("fleet_var_update_vs_cpu", numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL)
+          and numbers["u_nom_max_abs_err"] <= UNOM_ATOL
+          and bool(((new.stdev.cpu() - new_c.stdev).abs().amax(dim=1) <= bound).all()),
+          f"the mppi-var fleet update on the card differs from the CPU's {numbers}")
+    return numbers
+
+
+def zoo_phases(device, gen, vnet) -> tuple:
+    """Phases 69-73: the rest of the sampling and gradient-CEM zoo on
+    cartpole.  Returns the ODE loops' launch counts (``runs``), the fast
+    loops' (``fast_runs``), the controllers to profile and the fleets'
+    timed ticks."""
+    runs, fast_runs, T, S = {}, {}, ZOO_TICKS, FAST_SHORT_TICKS
+    zoo = {  # label: (optimizer, config, launches a tick, the kernel gate)
+        "cem_gmm": ("cem-gmm-tf", GMM_CONFIG, {"cost_rollout": 2}, ode.can_use_cost),
+        "cma_es": ("cma-es-tf", CMA_CONFIG, {"cost_rollout": 3}, ode.can_use_cost),
+        "cma_es_diagonal": ("cma-es-tf", CMA_DIAG_CONFIG, {"cost_rollout": 3}, ode.can_use_cost),
+        "mppi_var": ("mppi-var-tf", VAR_CONFIG, {"mppi_cost": 1},
+                     lambda opt: opt._uses_semi_fused()),
+        "cem_naive_grad": ("cem-naive-grad-tf", NAIVE_GRAD_CONFIG,
+                           {"grad_cost_rollout": 1, "cost_rollout": 1},
+                           lambda opt: ode.can_use_grad(opt) and ode.can_use_cost(opt)),
+        "cem_grad_bharadhwaj": ("cem-grad-bharadhwaj-tf", BHARADHWAJ_CONFIG,
+                                {"grad_cost_rollout": 2, "cost_rollout": 2},
+                                lambda opt: ode.can_use_grad(opt) and ode.can_use_cost(opt))}
+
+    # 69. Each over the ODE, ZOO_TICKS, counted from 0 (the fused loop and
+    # autograd are excluded by the gate and by the counts).
+    ctrls = {}
+    for label, (name, config, per_tick, gate) in zoo.items():
+        c = ctrls[label] = make_controller("cuda", name, config)
+        check(gate(c.optimizer) and ode.rollout_model(c.optimizer)[0].plant == "cartpole",
+              f"{label}: the controller did not take the kernel path")
+        runs[label] = counted_loop(f"slice_{label}", c, T, {k: n * T for k, n in per_tick.items()})
+    emit("cma_es_eigh", {**eigh_times(ctrls["cma_es"].optimizer),
+                         "eighs_a_tick": CMA_CONFIG["cma_outer_it"]})
+
+    # 70. Each over the fast plant, FAST_SHORT_TICKS; Bharadhwaj over the
+    # committed MLP (K8 and K11), MLP_ZOO_TICKS from LEARNED_START.
+    for label, (name, config, per_tick, gate) in zoo.items():
+        if label == "cma_es_diagonal":
+            continue
+        c = make_controller("cuda", name, config, spec=FAST_SPEC)
+        check(gate(c.optimizer) and ode.rollout_model(c.optimizer)[0].plant == "cartpole_fast",
+              f"{label}: the fast controller did not take the fast kernel path")
+        fast_runs[f"zoo_{label}"] = counted_loop(f"slice_fast_{label}", c, S,
+                                                 {k: n * S for k, n in per_tick.items()})
+    mlp = ctrls["cem_grad_bharadhwaj_mlp"] = make_controller(
+        "cuda", "cem-grad-bharadhwaj-tf", BHARADHWAJ_CONFIG, spec=MLP_SPEC)
+    check(neural.can_use_grad(mlp.optimizer) and neural.can_use_cost(mlp.optimizer),
+          "Bharadhwaj over the MLP did not take K8 and K11")
+    runs["cem_grad_bharadhwaj_mlp"] = counted_loop(
+        "slice_cem_grad_bharadhwaj_mlp", mlp, MLP_ZOO_TICKS,
+        {"neural_grad_cost_rollout": 2 * MLP_ZOO_TICKS, "neural_cost_rollout": 2 * MLP_ZOO_TICKS},
+        pole_check=False, start=LEARNED_START)
+
+    # 71. The mppi-var fleet: FLEET_B_MAX sessions, every slot active; a
+    # valued one at FLEET_B over the committed V (a rotating quarter idle).
+    vfleet = fleet_controller("cuda", "mppi-var-tf", FLEET_VAR_CONFIG, FLEET_B_MAX)
+    check(vfleet._batched_var_eligible(), "the mppi-var fleet did not take K4")
+    runs["fleet_mppi_var"] = fleet_loop("slice_fleet_mppi_var", vfleet, VAR_FLEET_TICKS,
+                                        {"mppi_cost_cols": VAR_FLEET_TICKS},
+                                        pole_check=False, rotate_idle=False)
+    valued = fleet_controller("cuda", "mppi-var-tf", FLEET_VAR_CONFIG, FLEET_B)
+    attach_value_terminal(valued, vnet)
+    check(valued._batched_var_eligible(), "the valued mppi-var fleet did not take K4's emit form")
+    runs["fleet_mppi_var_value"] = fleet_loop("slice_fleet_mppi_var_value", valued,
+                                              VAR_FLEET_TICKS,
+                                              {"mppi_cost_cols_emit": VAR_FLEET_TICKS},
+                                              pole_check=False)
+
+    # 72. One update of each on the card against the CPU's, with the same
+    # draws (cma-es on the sign-free quantities).
+    for label in ("cem_gmm", "cem_naive_grad", "cem_grad_bharadhwaj"):
+        name, config, _, _ = zoo[label]
+        zoo_update_vs_cpu(name, ctrls[label], config)
+    for label, config in (("cma_es", CMA_CONFIG), ("cma_es_diagonal", CMA_DIAG_CONFIG)):
+        cma_update_vs_cpu(f"{label}_update_vs_cpu", ctrls[label], config)
+    var_update_vs_cpu(ctrls["mppi_var"], VAR_CONFIG)
+    fleet_var_update_vs_cpu(vfleet, gen)
+
+    # 73. The mppi-var fleet timed at FLEET_B and FLEET_B_MAX sessions.
+    ticks = {}
+    for B in (FLEET_B, FLEET_B_MAX):
+        c = fleet_controller("cuda", "mppi-var-tf", FLEET_VAR_CONFIG, B)
+        ticks[f"fleet_mppi_var_b{B}"] = fleet_timing(f"mppi_var_b{B}", c, gen,
+                                                    draw=c.optimizer._slot_normals)
+    return runs, fast_runs, ctrls, ticks
 
 
 def start_sweep() -> None:
@@ -5764,9 +6079,14 @@ def main() -> None:
     for label, c in vgfleets.items():
         grad_fleet_value_update_vs_cpu(label, c, vnet, gen)
 
-    # 67-69. The fast plant's forms, loops and the exact entries' SASS.
+    # 67-68. The fast plant's forms and loops.
     fast_k, fast_runs = fast_phases(device, ctrl, model, pvec, s0, Q, Qg, k2_args, rmodel,
                                     rpvec, rnet, vnet)
+    # 69-73. The rest of the sampling and gradient-CEM zoo on cartpole.
+    zoo_runs, zoo_fast_runs, zoo_ctrls, zoo_ticks = zoo_phases(device, gen, vnet)
+    runs.update(zoo_runs)
+    fast_runs.update(zoo_fast_runs)
+    fleet_ticks.update(zoo_ticks)
     fast_launches = {kernel: sum(r[kernel] for r in fast_runs.values()) for kernel in COUNTED}
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
 
@@ -5785,7 +6105,8 @@ def main() -> None:
                         ("rpgd-tf-residual-value", vgrad["residual"]),
                         ("rpgd-tf-gp-value", vgrad["gp"]),
                         ("rpgd-tf-ensemble-value", vgrad["ensemble"]),
-                        ("gradient-tf-mlp-value", vgrad["gradient_mlp"])):
+                        ("gradient-tf-mlp-value", vgrad["gradient_mlp"]),
+                        *((label.replace("_", "-"), c) for label, c in zoo_ctrls.items())):
             profile_ticks(name, env_tick(c))
         for name, tick in fleet_ticks.items():
             profile_ticks(name, tick)

@@ -16,6 +16,10 @@ The session kinds ported, each over its batched kernel:
   terminal (``attach_value_terminal``) one of K4's emit_terminal form;
 * fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
   outer iteration (``CEMOptimizer._make_batched_fused_cem_step``);
+* semi-fused ``mppi-var`` over an ODE model: MPPI's K4 launch a tick on
+  each slot's draws scaled by its own adaptive stdev, then each session's
+  stdev step (``MPPIVarOptimizer._make_batched_var_step``), with a learned
+  value terminal on K4's emit_terminal form;
 * plain MPPI over a learned model, one launch a tick of its kernel's
   session-row form: an MLP (K11), a GRU or LSTM (K13, each session's
   rollouts from its own hidden), ``"ODE+res"`` (K12, ``per_slot_dyn``
@@ -38,8 +42,10 @@ step over the B slots; a frozen slot keeps its hidden bit for bit, and
 Every other configuration raises ``NotImplementedError`` naming what is
 missing (ROADMAP A9): the vmapped per-slot step that the JAX package
 takes for everything else (modular CEM, an RPGD or gradient fleet with
-warmup or over a recurrent net, a user's ``force_scan: true``, logging),
-the batched ``mppi-var`` step, the slot mesh and a learned value terminal
+warmup or over a recurrent net, every ``cem-gmm``, ``cma-es``,
+``cem-naive-grad`` and ``cem-grad-bharadhwaj`` fleet, a modular
+``mppi-var`` fleet, a user's ``force_scan: true``, logging), the slot
+mesh and a learned value terminal
 on any other fleet (CEM's and a recurrent MPPI fleet's vmapped per-slot
 step, and a gradient fleet's where the post-terminal hook is not a plain
 tanh-MLP V: the RPGD and gradient-tf fleets over the ODE, the MLP,
@@ -166,6 +172,9 @@ class BatchedMPCController(MPCController):
         elif self._batched_fused_cem_eligible():
             self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
             kind = "fully-fused CEM (K6)"
+        elif self._batched_var_eligible():
+            self._kstep, _ = opt._make_batched_var_step(B, per_slot_dyn=self._per_slot_dyn)
+            kind = "mppi-var semi-fused (K4)"
         else:
             raise self._refusal()
         logger.info(f"batched-mpc: {kind}, B={B} x K={opt.num_rollouts} in one launch"
@@ -307,6 +316,26 @@ class BatchedMPCController(MPCController):
             and opt.num_rollouts % ROWS == 0
         )
 
+    def _batched_var_eligible(self) -> bool:
+        """The mppi-var fleet's gate (JAX ``batched_mpc.py:613`` without its
+        TPU conjuncts): mppi-var, semi-fused, an ODE model of a device
+        plant and K a multiple of 8, K4's conditions; a post-terminal hook
+        is admitted (K4's emit_terminal form; V joins each session's costs
+        before its softmax and its adaptation)."""
+        from control_toolkit_tpu_torch.ops.counter_prng import ROWS
+        from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+        from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarOptimizer
+
+        opt = self.optimizer
+        return (
+            type(opt) is MPPIVarOptimizer
+            and batched_kernel_core_ok(opt, force_scan=opt.force_scan,
+                                       stateful=self._stateful, post_ok=True)
+            and opt.semi_fused
+            and ode.compatible_model(opt)
+            and opt.num_rollouts % ROWS == 0
+        )
+
     def _refusal(self) -> NotImplementedError:
         """The missing piece that this configuration's batched step needs."""
         from control_toolkit_tpu_torch.optimizers.cem import CEMOptimizer
@@ -314,7 +343,19 @@ class BatchedMPCController(MPCController):
         from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
         from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
+        from control_toolkit_tpu_torch.optimizers.cem_gmm import CEMGMMOptimizer
+        from control_toolkit_tpu_torch.optimizers.cem_grad_bharadhwaj import (
+            CEMGradBharadhwajOptimizer,
+        )
+        from control_toolkit_tpu_torch.optimizers.cem_naive_grad import CEMNaiveGradOptimizer
+        from control_toolkit_tpu_torch.optimizers.cma_es import CMAESOptimizer
         from control_toolkit_tpu_torch.optimizers.mppi import RECURRENT_VALUE_FLEET
+        from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarOptimizer
+
+        # The JAX package runs these fleets as the vmapped per-slot step
+        # alone (its batched dispatch has no kernel branch for them).
+        vmapped_only = (CEMGMMOptimizer, CMAESOptimizer, CEMNaiveGradOptimizer,
+                        CEMGradBharadhwajOptimizer)
 
         opt = self.optimizer
         cf = getattr(self.cost_function, "cost_function", self.cost_function)
@@ -325,6 +366,9 @@ class BatchedMPCController(MPCController):
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
+        if isinstance(opt, vmapped_only):
+            return _not_ported(f"the vmapped per-slot batched step (taken for every "
+                               f"{opt.registered_name} fleet: it has no batched kernel step)")
         grad_fleet = isinstance(opt, (RPGDOptimizer, GradientOptimizer))
         if getattr(cf, "post_terminal_cost", None) is not None and not (
                 grad_fleet and opt._value_grad_spec() is not None):
@@ -347,6 +391,10 @@ class BatchedMPCController(MPCController):
                                f"{opt.registered_name} with {why})")
         if type(opt) is CEMOptimizer and not opt.fully_fused:
             return _not_ported("the vmapped per-slot batched step (taken for modular CEM)")
+        if type(opt) is MPPIVarOptimizer:
+            return _not_ported("the vmapped per-slot batched step (taken for mppi-var off K4's "
+                               "conditions: semi_fused off, a model other than an ODE of a "
+                               "device plant, or K not a multiple of 8)")
         return _not_ported(f"the vmapped per-slot batched step ({opt.registered_name}, "
                            f"K={opt.num_rollouts})")
 

@@ -69,12 +69,14 @@ def cem_base_carry(mue, std, K, H, U, S, want_Q, want_traj):
     return carry
 
 
-def cem_shift_distribution(mue, std, u_mid, stdev_min: float, init_stdev: float, U: int):
-    """Control-step boundary shift shared by CEM and iCEM: clip sigma, shift
-    mu and sigma one step, pad the tails with the initial defaults.  ``mue``
-    and ``std`` are ``[n, H, U]``: one session (n = 1) or B."""
+def cem_shift_distribution(mue, std, u_mid, stdev_min: float, init_stdev: float, U: int,
+                           stdev_max: float = 1.0e8):
+    """Control-step boundary shift shared by the CEM family: clip sigma to
+    ``[stdev_min, stdev_max]`` (the gradient CEMs' reference cap is 10.0),
+    shift mu and sigma one step, pad the tails with the initial defaults.
+    ``mue`` and ``std`` are ``[n, H, U]``: one session (n = 1) or B."""
     n = mue.shape[0]
-    std = torch.clamp(std, stdev_min, 1.0e8)
+    std = torch.clamp(std, stdev_min, stdev_max)
     std = torch.cat([std[:, 1:, :], torch.full((n, 1, U), init_stdev, dtype=torch.float32,
                                                device=std.device)], dim=1)
     mue = torch.cat([mue[:, 1:, :], u_mid.reshape(1, 1, U).to(torch.float32).expand(n, 1, U)],

@@ -320,13 +320,17 @@ class MPPIOptimizer(Optimizer):
         in the layout of the batched step built last: ``[B, P, U, K]`` for
         K4's (``_make_batched_semi_fused_step``), ``[B, K, P, U]`` for the
         learned models' (``_batched_columns_step_from_kernel``)."""
+        return self._slot_normals(generators, mask) * self.SQRTRHODTINV
+
+    def _slot_normals(self, generators, mask) -> torch.Tensor:
+        """``sample_slot_noise``'s standard normals, before the scale."""
         shape = self._slot_noise_shape
         zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
         return torch.stack([
             torch.randn(shape, generator=g, dtype=torch.float32, device=self.device)
             if on else zeros
             for g, on in zip(generators, mask)
-        ]) * self.SQRTRHODTINV
+        ])
 
     def _make_batched_semi_fused_step(self, num_slots: int, per_slot_dyn=()):
         """B-session semi-fused MPPI step for the batched-mpc controller
@@ -589,13 +593,9 @@ class MPPIOptimizer(Optimizer):
                     u_nom + reward_weighted_average(traj_cost, delta_u)[None], low, high
                 )
             u = u_nom[0, 0, :]
-            diag = {"u_nom": u_nom}
+            diag = {"u_nom": u_nom, "J_logged": traj_cost}
             if cost_only is None:
-                diag.update({
-                    "Q_logged": u_run,
-                    "J_logged": traj_cost,
-                    "rollout_trajectories_logged": traj,
-                })
+                diag.update({"Q_logged": u_run, "rollout_trajectories_logged": traj})
             return u, MPPIState(state.generator, u_nom, u), diag
 
         return update

@@ -57,6 +57,11 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.optimizers.cem",
     "control_toolkit_tpu_torch.optimizers.icem",
     "control_toolkit_tpu_torch.optimizers.random_action",
+    "control_toolkit_tpu_torch.optimizers.cem_gmm",
+    "control_toolkit_tpu_torch.optimizers.cma_es",
+    "control_toolkit_tpu_torch.optimizers.mppi_var",
+    "control_toolkit_tpu_torch.optimizers.cem_naive_grad",
+    "control_toolkit_tpu_torch.optimizers.cem_grad_bharadhwaj",
     "control_toolkit_tpu_torch.controllers.mpc",
     "control_toolkit_tpu_torch.controllers.batched_mpc",
     "control_toolkit_tpu_torch.costs.cartpole",

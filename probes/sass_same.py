@@ -17,12 +17,13 @@ its instructions are the same, and their count in each; then one line,
 
 ``--digests`` prints, as one JSON object, the compiler's release line
 (``toolchain``) and each entry of the checkout's library with its
-instruction count and the sha256 of its instructions (``digests``):
-chip_smoke.py holds the exact cartpole entries to the digests in
-``probes/exact_sass.json`` when it builds with the same compiler.  A change
-that recompiles an exact entry on purpose writes that file anew from its
-own build: ``python probes/sass_same.py --digests . > probes/exact_sass.json``
-on the card, after any run that built the kernels.
+instruction count and the sha256 of its instructions (``digests``), to
+keep beside a run or compare with another build by the same compiler.
+
+A change that touches a body the exact entries share with other forms
+runs ``python probes/sass_same.py <parent checkout> .`` on the card, both
+libraries built in the same call: the exact entries it did not mean to
+change must keep their code.
 """
 from __future__ import annotations
 
