@@ -404,6 +404,34 @@ each runs on kernels of the phases above, picked from the model):
     the reach of the cost error (``var_sigma_bound``);
 73. the mppi-var fleet timed at 32 and 128 sessions.
 
+The pendulum, acrobot and point-mass plants (a plant is a (dynamics, cost)
+pair: csrc/plants.cuh, ops/kernels.py PLANT_IDS; K1, K2, K3 and K7 carry
+them in their plain entries, ``PLANT_CASES``):
+74. each plant's instance of K1, K2, K3's pass 1 (and the point mass's
+    fast-normals instances) and K7 against its plain version at K=16384,
+    H=50, timed beside cartpole's entry of phases 2, 3, 30 and 7, at
+    ragged K (700) and at H=45 (not a multiple of the point mass's 32-step
+    controls-ahead chunk), with its bound, registers, spills, static
+    shared memory and blocks per SM (``plant_kernels``); each bound
+    rejects the plant's named wrong variant (``plant_mutants``: the point
+    mass's two controls swapped, an obstacle dropped, the acrobot's
+    sin(t1+t2) read as sin(t1), the pendulum's energy offset dropped; for
+    K7's dQ, the point mass's du[1] dropped and the control cost dropped);
+75. at K=16384, H=50, PLANT_TICKS closed-loop ticks each against the
+    port's environments, counted from 0: MPPI semi-fused (K2), modular
+    (K1) and fully fused (K3) and rpgd-tf (K7, K1) over each plant, the
+    ``:fast`` pendulum and acrobot and the fast-normals point mass
+    (fully fused MPPI over "ODE:rk4:1:fast"); cem-tf, icem-tf,
+    random-action-tf, cem-gmm-tf and cma-es-tf (K1), gradient-tf,
+    cem-naive-grad-tf and cem-grad-bharadhwaj-tf (K7, K1) over the
+    pendulum, the acrobot and the point mass;
+76. at each plant's demo configuration (examples/swingup_demo.py:20-25,
+    tests/test_obstacle_cost.py:25-28): MPPI swings the pendulum up from
+    hanging and holds it (more than 20 ticks within 1 - cos < 0.05, as
+    tests/test_mppi.py:60-72 requires), MPPI at K=700 over the acrobot
+    (its tip height reported), and rpgd-tf and CEM steer the point mass
+    around an obstacle to its target.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -444,6 +472,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -459,7 +488,11 @@ from control_toolkit_tpu_torch.controllers.mpc import MPCController
 from control_toolkit_tpu_torch.costs.value_terminal import (
     attach_value_terminal, update_value_params,
 )
+from control_toolkit_tpu_torch.environments.acrobot import AcrobotEnv
 from control_toolkit_tpu_torch.environments.cartpole import CartpoleEnv
+from control_toolkit_tpu_torch.environments.pendulum import PendulumEnv
+from control_toolkit_tpu_torch.environments.pointmass import PointMassEnv
+from control_toolkit_tpu_torch.models.dynamics import _acrobot_derivs
 from control_toolkit_tpu_torch.models.gp_predictor import fit_gp_dynamics
 from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state, load_net
 from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
@@ -495,9 +528,12 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
     gp_cost_rollout_cols_emit_plain, gp_cost_rollout_cols_plain, gp_cost_rollout_emit,
     gp_cost_rollout_emit_plain, gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
+from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS, integrator_vjp
+from control_toolkit_tpu_torch.ops.fastmath import fast_sin, fast_sincos
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
     grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
     grad_cost_rollout_cols_value, grad_cost_rollout_plain, grad_cost_rollout_value, launch_part,
+    plain_grad_loop,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost import (
@@ -536,6 +572,7 @@ from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout_emit, residual_cost_rollout_emit_plain, residual_cost_rollout_plain,
     residual_step_fn,
 )
+from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import (
@@ -936,6 +973,56 @@ FLEET_VAR_CONFIG = {"seed": 3, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
                     "NU_mc": 1000.0, "SQRTRHOINV_mc": 0.05,
                     "period_interpolation_inducing_points": 10, "LR": 1000.0}
 MLP_ZOO_TICKS, VAR_FLEET_TICKS = 20, 50
+# The pendulum, acrobot and point-mass plants (phases 74-76).  Their
+# kernels are held at K=16384, H=50 over the demos' costs (the point mass's
+# target and obstacles, PM_ATTRS), also at PLANT_RAGGED_K and
+# PLANT_ODD_H; their flagship-width loops run PLANT_TICKS at
+# OPTIMIZER_CONFIG's and the zoo's configurations.  The demos:
+# examples/swingup_demo.py:20-25 (the pendulum at K=512, H=50; the acrobot
+# at K=700, H=40, dt 0.05, cc_weight 0) and tests/test_obstacle_cost.py's
+# point mass (dt 0.05, H=40, K=512, the obstacle at the origin, from (-1, 0)
+# to (1, 0)) under rpgd-tf and CEM; the pendulum and the acrobot start from
+# their environments' seed 2 (the demo's).
+PLANT_CASES = {  # device plant: (environment, cost specification, predictor)
+    "pendulum": ("pendulum", None, "ODE"),
+    "pendulum_fast": ("pendulum", None, FAST_SPEC),
+    "acrobot": ("acrobot", None, "ODE"),
+    "acrobot_fast": ("acrobot", None, FAST_SPEC),
+    "pointmass": ("pointmass", None, "ODE"),
+    "pointmass_obstacles": ("pointmass", "obstacles", "ODE"),
+}
+PM_DEMO_ATTRS = {"target_x": 1.0, "target_y": 0.0, "obs0_x": 0.0, "obs0_y": 0.0, "obs0_r": 0.3}
+PM_ATTRS = {**PM_DEMO_ATTRS, "obs1_x": 0.35, "obs1_y": -0.3, "obs1_r": 0.1}
+PLANT_RAGGED_K, PLANT_ODD_H, PLANT_TICKS = 700, 45, 10
+# FP32 operations per rollout-step of each plant (counted from
+# csrc/plants.cuh as RK4_STEP_OPS is, a sine or cosine one operation, the
+# fast plants' polynomials counted as the exact trig): the rk4 step (four
+# derivs and the stage sums: derivs 10 for the pendulum, 65 for the
+# acrobot, 9 for the point mass), the stage cost (the obstacles' three
+# hinges 12 each), K7's transposed rk4 step (four Jacobian evaluations,
+# 15, 115 and 6, the tangent products and the chain's) and the stage-cost
+# gradient.
+PLANT_OPS = {"pendulum": (66, 27, 128, 20), "acrobot": (312, 24, 660, 30),
+             "pointmass": (88, 26, 256, 20), "pointmass_obstacles": (88, 64, 256, 56)}
+PLANT_DEMO_MPPI = {
+    "pendulum": {"seed": 5, "mpc_timestep": 0.02, "mpc_horizon": 50, "num_rollouts": 512,
+                 "cc_weight": 1.0, "R": 1.0, "LBD": 5.0, "NU": 1000.0, "SQRTRHOINV": 0.2,
+                 "period_interpolation_inducing_points": 5},
+    "acrobot": {"seed": 5, "mpc_timestep": 0.05, "mpc_horizon": 40, "num_rollouts": 700,
+                "cc_weight": 0.0, "R": 1.0, "LBD": 20.0, "NU": 1000.0, "SQRTRHOINV": 0.6,
+                "period_interpolation_inducing_points": 4},
+}
+PENDULUM_DEMO_TICKS, ACROBOT_DEMO_TICKS, POINTMASS_DEMO_TICKS = 200, 150, 150
+POINTMASS_DEMO = {
+    "rpgd-tf": {"seed": 1, "mpc_timestep": 0.05, "mpc_horizon": 40, "num_rollouts": 512,
+                "outer_its": 2, "SAMPLING_DISTRIBUTION": "normal", "sample_stdev": 0.5,
+                "period_interpolation_inducing_points": 5, "learning_rate": 0.05,
+                "gradmax_clip": 5, "opt_keep_k_ratio": 0.25, "resamp_per": 10, "warmup": False,
+                "warmup_iterations": 3},
+    "cem-tf": {"seed": 1, "mpc_timestep": 0.05, "mpc_horizon": 40, "num_rollouts": 512,
+               "cem_outer_it": 2, "cem_best_k": 32, "cem_initial_action_stdev": 0.5,
+               "cem_stdev_min": 0.01},
+}
 
 
 def emit(phase: str, numbers: dict) -> None:
@@ -4743,10 +4830,7 @@ def fast_k7_adjoint(fmodel, pvec, Qg, gen) -> dict:
     dQ within K7's bound of the fast plain adjoint, a bound that must reject
     the adjoint taking the fast values with the exact derivatives; both
     also against the float64 fast plain adjoint."""
-    from control_toolkit_tpu_torch.ops.adjoints import cartpole_derivs_vjp, integrator_vjp
-    from control_toolkit_tpu_torch.ops.fastmath import fast_sincos
-    from control_toolkit_tpu_torch.ops.grad_cost_rollout import plain_grad_loop
-    from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
+    from control_toolkit_tpu_torch.ops.adjoints import cartpole_derivs_vjp
 
     device = Qg.device
     s0 = 0.05 * torch.randn(K, 4, generator=gen, device=device)
@@ -5376,6 +5460,386 @@ def zoo_phases(device, gen, vnet) -> tuple:
         ticks[f"fleet_mppi_var_b{B}"] = fleet_timing(f"mppi_var_b{B}", c, gen,
                                                     draw=c.optimizer._slot_normals)
     return runs, fast_runs, ctrls, ticks
+
+def plant_controller(plant: str, optimizer: str, config: dict, spec: str = None,
+                     attrs: dict = None) -> MPCController:
+    """An ``mpc`` controller on the card over a PLANT_CASES plant (its
+    environment, cost and predictor, ``spec`` in place of the predictor),
+    the point mass under ``attrs`` (PM_ATTRS)."""
+    env, cost, pred = PLANT_CASES[plant]
+    U = 2 if env == "pointmass" else 1
+    ctrl = MPCController(env, (-np.ones(U, np.float32), np.ones(U, np.float32)),
+                         dict(attrs if attrs is not None else
+                              (PM_ATTRS if env == "pointmass" else {})),
+                         config={"optimizer": optimizer, "controller_logging": False,
+                                 "device": "cuda", "cost_function_specification": cost})
+    ctrl.configure(optimizer_name=optimizer, predictor_specification=spec or pred,
+                   optimizer_config=dict(config), cost_function_config={})
+    return ctrl
+
+
+def plant_states(plant: str, k: int, gen) -> torch.Tensor:
+    """Seeded start states on the card: the pendulum around hanging, the
+    acrobot around rest, the point mass over the obstacles' margins."""
+    env, dev = PLANT_CASES[plant][0], gen.device
+    if env == "pendulum":
+        return torch.stack([math.pi + 0.8 * torch.randn(k, generator=gen, device=dev),
+                            2.0 * torch.randn(k, generator=gen, device=dev)], 1)
+    if env == "acrobot":
+        return 0.6 * torch.randn(k, 4, generator=gen, device=dev)
+    return torch.cat([1.2 * torch.rand(k, 2, generator=gen, device=dev) - 0.6,
+                      torch.randn(k, 2, generator=gen, device=dev)], 1)
+
+
+def plant_mutants(plant: str, model, pvec) -> dict:
+    """The plant's named wrong variant as ``(model, pvec, swap)``: a plain
+    version over it must fall outside the kernel's bound.  ``swap``
+    exchanges the controls' columns (the point mass's two inputs)."""
+    base = PLANT_CASES[plant][0]
+    if plant == "pointmass":
+        return {"controls_swapped": (model, pvec, True)}
+    if plant == "pointmass_obstacles":
+        p = dict(model.unpack(pvec))
+        p["a_obs0_r"], p["a_obs0_x"] = torch.zeros_like(p["a_obs0_r"]), p["a_obs0_x"] + 1e6
+        return {"obstacle_dropped": (model, torch.stack([p[k] for k in model.param_keys]),
+                                     False)}
+    if base == "acrobot":
+        exact_sin = fast_sin if plant.endswith("_fast") else torch.sin
+        sincos = fast_sincos if plant.endswith("_fast") else (lambda a: (a.sin(), a.cos()))
+
+        def derivs(xs, us, p):
+            calls = [0]
+
+            def sin(a):  # phi2's sin(t1 + t2), the first call, read as sin(t1)
+                calls[0] += 1
+                return exact_sin(xs[0]) if calls[0] == 1 else exact_sin(a)
+
+            return _acrobot_derivs(xs, us, {k[2:]: v for k, v in p.items()
+                                            if k.startswith("d_")}, sin, sincos)
+
+        return {"sin_t1_for_sin_t1_plus_t2": (dataclasses.replace(model, derivs=derivs), pvec,
+                                              False)}
+
+    def stage(xs, us, prev_us, p):  # the energy error without its offset m g L
+        angle, angle_d = xs
+        m, L, g = p["c_m"], p["c_L"], p["c_g"]
+        energy = 0.5 * m * L**2 * angle_d**2 + m * g * L * torch.cos(angle)
+        return (model.stage(xs, us, prev_us, p)
+                + p["c_energy_weight"] * (energy**2 - (energy - m * g * L) ** 2))
+
+    return {"energy_offset_dropped": (dataclasses.replace(model, stage=stage), pvec, False)}
+
+
+def plant_resources(plant: str) -> dict:
+    """ptxas' registers, spills and static shared memory of the plant's
+    instance of K1, K2, K3's pass 1 and K7's two launches, and the blocks an
+    SM holds of each."""
+    lib, pid = kernels.load(), kernels.PLANT_IDS[plant]
+    name = "".join(w.capitalize() for w in plant.replace("obstacles", "obstacle").split("_"))
+    inst = f"{len(name) + 5}{name}Plant"
+    fast = int(plant.endswith("_fast"))
+    return {
+        "k1": {**ptxas_resources("cost_rollout_kernel", inst + "E" + SINGLE),
+               "blocks_per_sm": int(lib.ctt_cost_rollout_plant_blocks_per_sm(pid))},
+        "k2": {**ptxas_resources("mppi_cost_kernel", inst + "EEEv"),
+               "blocks_per_sm": int(lib.ctt_mppi_cost_plant_blocks_per_sm(pid))},
+        "k3": {**ptxas_resources("fused_mppi_cost_kernel", inst + "EEEv"),
+               "blocks_per_sm": int(lib.ctt_fused_mppi_cost_plant_blocks_per_sm(pid, fast))},
+        "k7_forward": {**ptxas_resources("grad_cost_forward_kernel", inst + "E" + SINGLE),
+                       "blocks_per_sm": int(lib.ctt_grad_cost_plant_blocks_per_sm(pid, 0))},
+        "k7_adjoint": {**ptxas_resources("grad_cost_adjoint_kernel", inst + "E" + SINGLE),
+                       "blocks_per_sm": int(lib.ctt_grad_cost_plant_blocks_per_sm(pid, 1))},
+        **({"k3_fast_normals": {
+            **ptxas_resources("fused_mppi_cost_kernel",
+                              f"{len(name) + 16}{name}FastNormalsPlantEEEv"),
+            "blocks_per_sm": int(lib.ctt_fused_mppi_cost_plant_blocks_per_sm(pid, 1))}}
+           if plant in kernels.EXACT_IS_FAST else {}),
+    }
+
+
+def rejects(label: str, got: torch.Tensor, wrong: dict) -> dict:
+    """Each wrong variant's largest distance from the kernel's output,
+    which the kernel's bound (KERNEL_TOL) must reject."""
+    out = {}
+    for name, ref in wrong.items():
+        out[name] = max_errors(got, ref)[0]
+        check(not torch.allclose(got, ref, **KERNEL_TOL),
+              f"{label}: the bound does not reject {name} ({out[name]})")
+    return out
+
+
+def plant_grad_mutants(plant: str, model, s0, Q, pvec) -> dict:
+    """K7's wrong dQ: for the point mass, the plain version with the
+    dynamics' du[1] dropped (the adjoint's second control column)."""
+    if not plant.startswith("pointmass"):
+        return {}
+    p, dvjp = model.unpack(pvec), PLANT_ADJOINTS[plant][0]
+    one_step = make_soa_stepper(model.derivs, model.integrator, model.dt,
+                                model.intermediate_steps)
+
+    def dropped(xs, us, pp, lam):
+        dx, du = dvjp(xs, us, pp, lam)
+        return dx, (du[0], torch.zeros_like(du[1]))
+
+    def step(x, u):
+        return torch.stack(one_step(tuple(x.unbind(1)), tuple(u.unbind(1)), p), dim=1)
+
+    def step_vjp(xs, us, lam):
+        return integrator_vjp(model.derivs, dropped, xs, us, p, lam, model.integrator == "rk4",
+                              model.intermediate_steps, model.dt)
+
+    return {"du1_dropped": plain_grad_loop(model, s0, Q, pvec, step, step_vjp)[1]}
+
+
+def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
+    """Phase 74 for one plant: its K1, K2, K3 pass-1 (and fast-normals) and
+    K7 instances against their plain versions; returns each kernel's
+    numbers for the ``kernels`` line."""
+    ctrl = plant_controller(plant, "mppi", OPTIMIZER_CONFIG)
+    opt = ctrl.optimizer
+    model, pack = ode.rollout_model(opt)
+    check(model.plant == plant and ode.can_use_grad(opt), f"{plant}: not the device plant")
+    S, U = kernels.PLANT_DIMS[plant]
+    dev = gen.device
+    pvec = pack(ctrl._assemble_params(), torch.full((U,), 0.1, device=dev))
+    s0 = plant_states(plant, K, gen)
+    Q = torch.clamp(0.5 * torch.randn(K, H, U, generator=gen, device=dev), -1.0, 1.0)
+    rk4_ops, stage_ops, vjp_ops, stage_vjp_ops = PLANT_OPS[plant.replace("_fast", "")]
+    mutants = plant_mutants(plant, model, pvec)
+    out = {}
+
+    def sw(q, swap):
+        return q.flip(-1).contiguous() if swap else q
+
+    # K1, at the main path's shapes, ragged K and H = PLANT_ODD_H.
+    k1 = out["cost_rollout"] = compare(f"k1_{plant}", lambda: cost_rollout(model, s0, Q, pvec),
+                                       lambda: cost_rollout_plain(model, s0, Q, pvec))
+    k1.update(bound(K * H * (rk4_ops + stage_ops), nbytes(s0, Q, pvec) + 4 * K))
+    got = cost_rollout(model, s0, Q, pvec)
+    k1["rejects"] = rejects(f"k1_{plant}", got, {
+        n: cost_rollout_plain(m, s0, sw(Q, swap), pv) for n, (m, pv, swap) in mutants.items()})
+    cases = {}
+    for k, h in ((PLANT_RAGGED_K, H), (K, PLANT_ODD_H)):
+        s, q = s0[:k].contiguous(), Q[:k, :h].contiguous()
+        g, r = cost_rollout(model, s, q, pvec), cost_rollout_plain(model, s, q, pvec)
+        cases[f"K{k}_H{h}"] = max_errors(g, r)[0]
+        check(torch.allclose(g, r, **KERNEL_TOL), f"k1_{plant} K{k} H{h}: disagrees")
+    k1["cases"] = cases
+
+    # K2 likewise (the point mass's chunk is 32 steps: H=50 and 45 end mid-chunk).
+    P = opt.interp.number_of_interpolation_inducing_points
+    eps = opt.SQRTRHODTINV * torch.randn(P, U, K, generator=gen, device=dev)
+    u_nom = torch.clamp(0.3 * torch.randn(H, U, generator=gen, device=dev), -1.0, 1.0)
+    lim = (opt.action_low, opt.action_high)
+    corr = (opt.cc_weight, opt.R, opt.NU)
+    args = (model, s0[0].contiguous(), u_nom, pvec, eps, opt.interp.matrix, *lim, *corr)
+    k2 = out["mppi_cost"] = compare(f"k2_{plant}", lambda: mppi_cost(*args),
+                                    lambda: mppi_cost_plain(*args))
+    k2.update(bound(K * H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS),
+                    nbytes(*args[1:8]) + 4 * K))
+    got = mppi_cost(*args)
+    k2["rejects"] = rejects(f"k2_{plant}", got, {
+        n: mppi_cost_plain(m, args[1], sw(u_nom, swap), pv, sw(eps.transpose(1, 2), swap)
+                           .transpose(1, 2).contiguous(), *args[5:])
+        for n, (m, pv, swap) in mutants.items()})
+    cases = {}
+    for k, h in ((PLANT_RAGGED_K, H), (K, PLANT_ODD_H)):
+        W = torch.as_tensor(interpolation_matrix(h, PERIOD), device=dev)
+        a = (model, args[1], u_nom[:h].contiguous(), pvec,
+             eps[:W.shape[0], :, :k].contiguous(), W, *lim, *corr)
+        g, r = mppi_cost(*a), mppi_cost_plain(*a)
+        cases[f"K{k}_H{h}"] = max_errors(g, r)[0]
+        check(torch.allclose(g, r, **KERNEL_TOL), f"k2_{plant} K{k} H{h}: disagrees")
+    k2["cases"] = cases
+
+    # K3's pass 1 (the point mass also over its fast-normals instance).
+    seed2 = torch.tensor([SEED + 11, 0], dtype=torch.int32, device=dev)
+    models = {"fused_mppi_cost": model}
+    if plant in kernels.EXACT_IS_FAST:
+        models["fused_mppi_cost_fast_normals"] = dataclasses.replace(model, fast_sampling=True)
+    stdev, tile = opt.SQRTRHODTINV, opt.fused_tile_k
+    for key, m in models.items():
+        a = (m, args[1], u_nom, pvec, seed2, opt.interp.matrix, *lim, *corr, stdev, K, tile)
+        k3 = out[key] = compare(f"k3_{plant}{key[15:]}", lambda: fused_mppi_costs(*a),
+                                lambda: fused_mppi_costs_plain(*a))
+        k3.update(bound(K * (H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS)
+                             + P * U * (NORMAL_OPS + 1)), nbytes(*a[1:4], *a[5:8]) + 4 * K))
+        got = fused_mppi_costs(*a)
+        k3["rejects"] = rejects(f"k3_{plant}", got, {
+            n: fused_mppi_costs_plain(dataclasses.replace(mm, fast_sampling=m.fast_sampling),
+                                      a[1], u_nom, pv, *a[4:])
+            for n, (mm, pv, swap) in mutants.items() if not swap})
+        kr = 11 * 64  # ragged: eleven tiles of 64, the last block half full
+        a = (m, args[1], u_nom, pvec, seed2, opt.interp.matrix, *lim, *corr, stdev, kr, 64)
+        g, r = fused_mppi_costs(*a), fused_mppi_costs_plain(*a)
+        k3["cases"] = {f"K{kr}": max_errors(g, r)[0]}
+        check(torch.allclose(g, r, **KERNEL_TOL), f"k3_{plant} K{kr}: disagrees")
+
+    # K7: J to KERNEL_TOL, dQ to DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|.
+    Qg = 2.0 * torch.rand(K, H, U, generator=gen, device=dev) - 1.0
+    (cost, dQ), (ref_cost, ref_dQ) = (grad_cost_rollout(model, s0, Qg, pvec),
+                                      grad_cost_rollout_plain(model, s0, Qg, pvec))
+    torch.cuda.synchronize()
+    wrong = plant_grad_mutants(plant, model, s0, Qg, pvec)
+    k7 = out["grad_cost_rollout"] = {
+        "cost_max_abs_err": max_errors(cost, ref_cost)[0],
+        "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0], "dQ_max_abs": float(ref_dQ.abs().max()),
+        "mutant_max_abs_err": {k: max_errors(m, ref_dQ)[0] for k, m in wrong.items()},
+        "ms": cuda_ms(lambda: grad_cost_rollout(model, s0, Qg, pvec), 20),
+        "plain_ms": cuda_ms(lambda: grad_cost_rollout_plain(model, s0, Qg, pvec), 2),
+        **bound(K * H * (rk4_ops + stage_ops + vjp_ops + stage_vjp_ops),
+                nbytes(s0, Qg, pvec, Qg) + 4 * K)}
+    k7["max_abs_err"] = max(k7["cost_max_abs_err"], k7["dQ_max_abs_err"])
+    check(bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()), f"k7_{plant}: not finite")
+    check(torch.allclose(cost, ref_cost, **KERNEL_TOL), f"k7_{plant}: cost disagrees {k7}")
+    check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"k7_{plant}: dQ disagrees {k7}")
+    for k, m in wrong.items():
+        check(not close(m, dQ, DQ_RTOL, DQ_ATOL_FRAC), f"k7_{plant}: the dQ bound takes {k}")
+    s, q = s0[:PLANT_RAGGED_K].contiguous(), Qg[:PLANT_RAGGED_K, :PLANT_ODD_H].contiguous()
+    (c, d), (rc, rd) = grad_cost_rollout(model, s, q, pvec), grad_cost_rollout_plain(model, s, q,
+                                                                                      pvec)
+    k7["cases"] = {f"K{PLANT_RAGGED_K}_H{PLANT_ODD_H}": max_errors(d, rd)[0]}
+    check(torch.allclose(c, rc, **KERNEL_TOL) and close(d, rd, DQ_RTOL, DQ_ATOL_FRAC),
+          f"k7_{plant} ragged: disagrees")
+    emit(f"k7_{plant}", k7)
+    for key, cart in (("cost_rollout", "k1"), ("mppi_cost", "k2"), ("fused_mppi_cost", "k3"),
+                      ("grad_cost_rollout", "k7")):
+        out[key]["cartpole_ms"] = cartpole[cart]["ms"]
+    emit(f"{plant}_cases", {key: {k: v[k] for k in ("cartpole_ms", "bound_ms", "bound_by",
+                                                    "rejects", "cases") if k in v}
+                            for key, v in out.items()})
+    emit(f"{plant}_resources", plant_resources(plant))
+    return out
+
+
+def plant_loop(name: str, ctrl: MPCController, plant: str, ticks: int, expected: dict,
+               start=None, dt: float = DT, seed: int = SEED) -> tuple:
+    """``ticks`` closed-loop ticks against the plant's environment (seed
+    ``seed``, from ``start`` where given), every kernel's launch count set to 0
+    just before and checked against ``expected`` (kernel -> launches) just
+    after; returns the counts and the visited states."""
+    env = {"pendulum": PendulumEnv, "acrobot": AcrobotEnv,
+           "pointmass": PointMassEnv}[PLANT_CASES[plant][0]](batch_size=1, dt=dt, seed=seed)
+    s, _ = env.reset()
+    if start is not None:
+        env.state = torch.tensor(np.asarray(start, np.float32)[None])
+        s = env.state.numpy()
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
+    host_ms, visited = [], []
+    for t in range(ticks):
+        t0 = time.perf_counter()
+        u = ctrl.step(s[0])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(u.shape == (env.num_actions,) and bool(np.all(np.isfinite(u)))
+              and bool(np.all(np.abs(u) <= 1.0)), f"{name}: tick {t}: bad control {u}")
+        s, *_ = env.step(u)
+        visited.append(s[0].copy())
+    counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
+    check(counts == {kernel: expected.get(kernel, 0) for kernel in COUNTED},
+          f"{name}: kernel launches {counts}, expected {expected}")
+    check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
+          f"{name}: something was rebuilt during the loop")
+    return counts, np.array(visited), {"ticks": ticks,
+                                       "step_host_p50_ms": float(np.percentile(host_ms, 50)),
+                                       "final_state": [float(v) for v in s[0]]}
+
+
+def plant_phases(gen, cartpole: dict) -> tuple:
+    """Phases 74-76: the pendulum, acrobot and point-mass plants.  Returns
+    each kernel row's numbers by (wrapper, plant) and the loops' launches
+    by plant."""
+    rows, runs = {}, {plant: [] for plant in PLANT_CASES}
+    # 74. Each instance against its plain version.
+    for plant in PLANT_CASES:
+        for key, numbers in plant_kernels(plant, gen, cartpole).items():
+            rows[key, plant] = numbers
+
+    # 75. The flagship-width loops, PLANT_TICKS each, counted from 0.
+    T, its = PLANT_TICKS, RPGD_CONFIG["outer_its"]
+    mppi_paths = {  # label: (optimizer, config, launches a tick)
+        "mppi": ("mppi", OPTIMIZER_CONFIG, {"mppi_cost": 1}),
+        "mppi_modular": ("mppi", {**OPTIMIZER_CONFIG, "semi_fused": False}, {"cost_rollout": 1}),
+        "mppi_fused": ("mppi", FUSED_MPPI_CONFIG, {"fused_mppi_cost": 1,
+                                                   "fused_mppi_weights": 1}),
+        "rpgd": ("rpgd-tf", RPGD_CONFIG, {"cost_rollout": 1, "grad_cost_rollout": its}),
+    }
+    zoo_paths = {
+        "cem": ("cem-tf", CEM_CONFIG, {"cost_rollout": CEM_CONFIG["cem_outer_it"]}),
+        "icem": ("icem-tf", ICEM_CONFIG, {"cost_rollout": ICEM_CONFIG["cem_outer_it"]}),
+        "random_action": ("random-action-tf", RANDOM_CONFIG, {"cost_rollout": 1}),
+        "cem_gmm": ("cem-gmm-tf", GMM_CONFIG, {"cost_rollout": 2}),
+        "cma_es": ("cma-es-tf", CMA_CONFIG, {"cost_rollout": 3}),
+        "gradient": ("gradient-tf", GRADIENT_CONFIG,
+                     {"cost_rollout": 1, "grad_cost_rollout": GRADIENT_CONFIG["gradient_steps"]}),
+        "cem_naive_grad": ("cem-naive-grad-tf", NAIVE_GRAD_CONFIG,
+                           {"grad_cost_rollout": 1, "cost_rollout": 1}),
+        "cem_grad_bharadhwaj": ("cem-grad-bharadhwaj-tf", BHARADHWAJ_CONFIG,
+                                {"grad_cost_rollout": 2, "cost_rollout": 2}),
+    }
+    for plant in PLANT_CASES:
+        paths = dict(mppi_paths)
+        if plant in ("pendulum", "acrobot", "pointmass"):
+            paths.update(zoo_paths)
+        for label, (name, config, per_tick) in paths.items():
+            c = plant_controller(plant, name, config)
+            opt = c.optimizer
+            fused = getattr(opt, "_can_fully_fuse", lambda: False)()
+            check(ode.rollout_model(opt)[0].plant == plant and ode.can_use_cost(opt)
+                  and fused == (label == "mppi_fused")
+                  and (label != "mppi" or opt._uses_semi_fused()),
+                  f"{plant} {label}: the controller did not take its kernel path")
+            counts, _, numbers = plant_loop(f"slice_{plant}_{label}", c, plant, T,
+                                            {k: n * T for k, n in per_tick.items()})
+            emit(f"slice_{plant}_{label}", numbers)
+            runs[plant].append(counts)
+    # The point mass's fast-normals K3 (fully fused MPPI over "ODE:rk4:1:fast").
+    for plant in ("pointmass", "pointmass_obstacles"):
+        c = plant_controller(plant, "mppi", FUSED_MPPI_CONFIG, spec=FAST_SPEC)
+        check(c.optimizer._can_fully_fuse() and ode.rollout_model(c.optimizer)[0].fast_math,
+              f"{plant}: the fast MPPI did not take K3's fast-normals instance")
+        counts, _, numbers = plant_loop(f"slice_{plant}_fast_normals", c, plant, T,
+                                        {"fused_mppi_cost": T, "fused_mppi_weights": T})
+        emit(f"slice_{plant}_mppi_fused_fast_normals", numbers)
+        runs[plant + "_fast_normals"] = [counts]
+
+    # 76. The demos.
+    c = plant_controller("pendulum", "mppi", PLANT_DEMO_MPPI["pendulum"])
+    counts, visited, numbers = plant_loop("demo_pendulum", c, "pendulum", PENDULUM_DEMO_TICKS,
+                                          {"mppi_cost": PENDULUM_DEMO_TICKS}, seed=2)
+    held = int(np.sum(1.0 - np.cos(visited[:, 0]) < 0.05))
+    emit("demo_pendulum_swingup", {**numbers, "ticks_held_upright": held})
+    check(held > 20, f"the pendulum never held upright (held {held} ticks)")
+    runs["pendulum"].append(counts)
+    cfg = PLANT_DEMO_MPPI["acrobot"]
+    c = plant_controller("acrobot", "mppi", cfg)
+    counts, visited, numbers = plant_loop("demo_acrobot", c, "acrobot", ACROBOT_DEMO_TICKS,
+                                          {"mppi_cost": ACROBOT_DEMO_TICKS},
+                                          dt=cfg["mpc_timestep"], seed=2)
+    tip = -np.cos(visited[:, 0]) - np.cos(visited[:, 0] + visited[:, 2])
+    emit("demo_acrobot", {**numbers, "tip_height_max": float(tip.max()),
+                          "tip_height_last": float(tip[-1]), "tip_height_of": 2.0})
+    runs["acrobot"].append(counts)
+    for name, cfg in POINTMASS_DEMO.items():
+        c = plant_controller("pointmass_obstacles", name, cfg, attrs=PM_DEMO_ATTRS)
+        per = ({"cost_rollout": 1, "grad_cost_rollout": cfg["outer_its"]} if name == "rpgd-tf"
+               else {"cost_rollout": cfg["cem_outer_it"]})
+        counts, visited, numbers = plant_loop(
+            f"demo_pointmass_{name}", c, "pointmass_obstacles", POINTMASS_DEMO_TICKS,
+            {k: n * POINTMASS_DEMO_TICKS for k, n in per.items()}, start=[-1.0, 0.0, 0.0, 0.0],
+            dt=cfg["mpc_timestep"])
+        min_d = float(np.hypot(visited[:, 0], visited[:, 1]).min())
+        err = float(np.hypot(visited[-1, 0] - 1.0, visited[-1, 1]))
+        emit(f"demo_pointmass_obstacles_{name}", {**numbers, "min_obstacle_distance": min_d,
+                                                  "target_error": err})
+        check(min_d > PM_DEMO_ATTRS["obs0_r"] and err < 0.2,
+              f"{name}: the point mass did not reach its target around the obstacle "
+              f"(min distance {min_d}, error {err})")
+        runs["pointmass_obstacles"].append(counts)
+    launches = {plant: {kernel: sum(r[kernel] for r in rs) for kernel in COUNTED}
+                for plant, rs in runs.items()}
+    return rows, launches
 
 
 def start_sweep() -> None:
@@ -6089,6 +6553,8 @@ def main() -> None:
     fleet_ticks.update(zoo_ticks)
     fast_launches = {kernel: sum(r[kernel] for r in fast_runs.values()) for kernel in COUNTED}
     launches = {kernel: sum(r[kernel] for r in runs.values()) for kernel in COUNTED}
+    # 74-76. The pendulum, acrobot and point-mass plants.
+    plant_rows, plant_launches = plant_phases(gen, {"k1": k1, "k2": k2, "k3": k3a, "k7": k7})
 
     if "--starts" in sys.argv[1:]:
         start_sweep()
@@ -6231,6 +6697,21 @@ def main() -> None:
           f"a fast entry was launched no time in the fast loops {fast_launches}")
     launches.update({name: fast_launches[wrapper] for name, _, _, _, wrapper in fast_rows})
     rows = rows + tuple(row[:4] for row in fast_rows)
+    # The plants' instances (phases 74-76): launches from their own loops.
+    plant_sources = {"cost_rollout": ("cost_rollout.cu", "ops/pallas_rollout.py:34"),
+                     "mppi_cost": ("mppi_cost.cu", "ops/pallas_mppi.py:501"),
+                     "fused_mppi_cost": ("fused_mppi.cu", "ops/pallas_mppi.py:376"),
+                     "fused_mppi_cost_fast_normals": ("fused_mppi.cu", "ops/pallas_mppi.py:376"),
+                     "grad_cost_rollout": ("grad_cost_rollout.cu", "ops/pallas_grad.py:335")}
+    for (key, plant), numbers in plant_rows.items():
+        if key == "fused_mppi_cost_fast_normals":
+            n = plant_launches[plant + "_fast_normals"]["fused_mppi_cost"]
+            name = f"fused_mppi_cost_{plant}_fast_normals"
+        else:
+            n, name = plant_launches[plant][key], f"{key}_{plant}"
+        check(n > 0, f"{name}: launched no time in its plant's loops")
+        launches[name] = n
+        rows = rows + ((name, *plant_sources[key], numbers),)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.
     print(json.dumps({"kernels": [

@@ -103,6 +103,10 @@ class MPCController(Controller):
         if getattr(self, "_cost_wrap_hook", None) is not None:
             self.cost_function.cost_function = self._cost_wrap_hook(
                 self.cost_function.cost_function)
+        # Costs that mirror dynamics constants (the pendulum's m, L and g,
+        # the acrobot's link lengths) reconcile with the predictor's before
+        # the step is built.
+        self.cost_function.cost_function.sync_with_dynamics(self.predictor.default_params())
         self.optimizer.configure(
             dt=dt,
             predictor_specification=predictor_specification,

@@ -16,7 +16,8 @@ code.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import logging
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,10 +46,47 @@ class CostFunction:
         self.batch_size = batch_size
         self.horizon = horizon
 
+    # Cost-config keys that mirror dynamics constants (masses and lengths
+    # for energy shaping, link lengths for a tip height).  configure seeds
+    # the ones the user did not set from the predictor and warns where an
+    # explicit value disagrees: the cost must not score a mechanism other
+    # than the one the rollouts simulate.
+    mirrored_dynamics_keys: Tuple[str, ...] = ()
+
     def _init_merged(self, config: Optional[Dict]) -> Dict:
+        """DEFAULTS merged with ``config``, recording which keys the user
+        set (``sync_with_dynamics`` seeds the others)."""
         merged = dict(getattr(self, "DEFAULTS", {}))
         merged.update(config or {})
+        self._explicit_keys = set(config or {})
         return merged
+
+    def sync_with_dynamics(self, dyn_params: Dict) -> None:
+        """Reconcile the cost's copies of dynamics constants with the
+        predictor's parameters (``MPCController.configure`` calls it once
+        both exist): keys of ``mirrored_dynamics_keys`` that the user did
+        not set are seeded from the dynamics; an explicit value that
+        differs is kept, with a warning.  A residual predictor's constants
+        are its base's (``dyn_params["base"]``)."""
+        if not self.mirrored_dynamics_keys or not isinstance(dyn_params, dict):
+            return
+        if isinstance(dyn_params.get("base"), dict):
+            dyn_params = dyn_params["base"]
+        logger = logging.getLogger(type(self).__module__)
+        explicit = getattr(self, "_explicit_keys", set())
+        for k in self.mirrored_dynamics_keys:
+            if k not in dyn_params:
+                continue
+            dyn_v = float(dyn_params[k])
+            if k in explicit:
+                if abs(float(self.config[k]) - dyn_v) > 1e-9:
+                    logger.warning(
+                        f"{type(self).__name__}: cost {k}={self.config[k]} differs from the "
+                        f"dynamics {k}={dyn_v}: the cost will score a different mechanism "
+                        "than the rollouts simulate"
+                    )
+            else:
+                self.config[k] = dyn_v
 
     # ---- struct-of-arrays primitives ---------------------------------------
     def _stage_cost_core_soa(self, xs, us, params) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // Polynomial sin, cos and log: the device twin of ops/fastmath.py, which
-// copies control_toolkit_tpu/ops/fastmath.py.  The fast cartpole plant
-// (plants.cuh, CartpolePlantT<true>) takes its trig here, and the kernels
-// over it draw the fast counter normals (counter_prng.cuh counter_normal
-// <true>) from fast_log and fast_cos.
+// copies control_toolkit_tpu/ops/fastmath.py.  The fast plants
+// (plants.cuh: CartpolePlantT<true>, PendulumDynamicsT<true>,
+// AcrobotDynamicsT<true>) take their trig here, and the kernels over them
+// draw the fast counter normals (counter_prng.cuh counter_normal<true>)
+// from fast_log and fast_cos.
 //
 // Each product and sum is rounded on its own (__fmul_rn, __fadd_rn,
 // __fsub_rn), so nvcc contracts nothing into an FMA: the values are the
@@ -95,6 +96,11 @@ __device__ __forceinline__ void fast_sincos(float x, float& s, float& c) {
 __device__ __forceinline__ float fast_cos(float x) {
   const float r = fast_reduce(x);
   return fastmath::cos_poly(__fmul_rn(r, r));
+}
+
+__device__ __forceinline__ float fast_sin(float x) {
+  const float r = fast_reduce(x);
+  return __fmul_rn(r, fastmath::sin_poly(__fmul_rn(r, r)));
 }
 
 // The values, dsin = S'(r) and ndcos = -C'(r): ops/fastmath.py

@@ -26,7 +26,13 @@
 // Over the fast plant (CartpoleFastPlant, the ":fast" predictors) both
 // passes draw the fast normals (counter_normal<true>, JAX's fast_sampling):
 // pass 1 through its plant's kFast, pass 2 as its own entry
-// (fused_mppi_weights_fast_kernel).
+// (fused_mppi_weights_fast_kernel).  Pass 1 also serves the pendulum,
+// acrobot and point-mass plants (plants.cuh, with their fast plants), over
+// short_step.cuh's stage cost and integrate; the point mass has no fast
+// plant (its exact dynamics double as the fast ones), so pass 1's entry
+// takes a `fast` flag, which must match a plant's fast plant and picks, for
+// the point mass, its fast-normals instance (FastNormalsOf: the exact
+// dynamics under the fast normals, JAX's fast_sampling=pred.fast_math).
 //
 // Between the passes, torch computes rho = min S and a = sum exp(-(S-rho)/LBD)
 // on the card and passes them by pointer (red = [rho, a]): no host sync.
@@ -170,33 +176,79 @@ int launch_fused_mppi_cost(dim3 grid, cudaStream_t st, const void* s0, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// Pass 1's instance over `Plant`, or over its fast-normals instance
+// where `fast` and the plant's exact dynamics double as the fast ones;
+// cudaErrorInvalidValue where `fast` does not match the plant.  F is
+// called with the instance's tag.
+template <class Plant, class F>
+int with_pass1_instance(int fast, F&& f) {
+  if constexpr (Plant::kExactIsFast) {
+    if (fast) return f(typename FastNormalsOf<Plant>::type{});
+    return f(Plant{});
+  } else {
+    if (fast != static_cast<int>(Plant::kFast)) return static_cast<int>(cudaErrorInvalidValue);
+    return f(Plant{});
+  }
+}
+
 }  // namespace ctt
 
-// Launch K3's pass 1 on `stream`; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant).
+// Launch K3's pass 1 on `stream`, over the fast normals where `fast` (a
+// fast plant, or the point mass's fast-normals instance); returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
+// plant or a `fast` that does not fit it).
 extern "C" int ctt_fused_mppi_cost(int plant, const void* s0, const void* u_nom, const void* pvec,
                                    const void* seed2, const void* W, const void* low,
                                    const void* high, void* cost, int K, int H, int P, int tile_k,
                                    int rk4, int substeps, float sub_dt, float half_dt, float dt6,
                                    float max_cost, float cc_weight, float c1, float r, float c3,
-                                   float stdev, void* stream) {
+                                   float stdev, int fast, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const ctt::MppiCorr cc{cc_weight, c1, r, c3};
   constexpr int per_block = ctt::kCemThreads;
   const dim3 grid((K + per_block - 1) / per_block);
   auto st = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto instance_tag) {
+    return ctt::launch_fused_mppi_cost<decltype(instance_tag)>(
+        grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
+        stdev);
+  };
   switch (plant) {
     case ctt::kPlantCartpole:
-      return ctt::launch_fused_mppi_cost<ctt::CartpolePlant>(
-          grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
-          stdev);
+      return ctt::with_pass1_instance<ctt::CartpolePlant>(fast, launch);
     case ctt::kPlantCartpoleFast:
-      return ctt::launch_fused_mppi_cost<ctt::CartpoleFastPlant>(
-          grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
-          stdev);
+      return ctt::with_pass1_instance<ctt::CartpoleFastPlant>(fast, launch);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
+        return ctt::with_pass1_instance<decltype(plant_tag)>(fast, launch);
+      });
   }
+}
+
+// Blocks of pass 1 over `plant` (its fast-normals instance where `fast`)
+// that one SM holds (0 where the runtime cannot say or the plant is
+// unknown; the caller passes the plant's own `fast`).
+extern "C" int ctt_fused_mppi_cost_plant_blocks_per_sm(int plant, int fast) {
+  auto blocks_of = [](auto instance_tag) {
+    int blocks = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &blocks, ctt::fused_mppi_cost_kernel<decltype(instance_tag)>, ctt::kCemThreads,
+               0) == cudaSuccess ? blocks : 0;
+  };
+  int blocks = static_cast<int>(cudaErrorInvalidValue);
+  if (plant == ctt::kPlantCartpole) {
+    blocks = ctt::with_pass1_instance<ctt::CartpolePlant>(fast, blocks_of);
+  } else if (plant == ctt::kPlantCartpoleFast) {
+    blocks = ctt::with_pass1_instance<ctt::CartpoleFastPlant>(fast, blocks_of);
+  } else if (ctt::is_slice_plant(plant)) {
+    ctt::with_slice_plant(plant, [&](auto plant_tag) {
+      blocks = ctt::with_pass1_instance<decltype(plant_tag)>(fast, blocks_of);
+      return 0;
+    });
+  } else {
+    return 0;
+  }
+  return blocks;
 }
 
 // Launch K3's pass 2 on `stream` into partials [ceil(K / 128), P, U], over

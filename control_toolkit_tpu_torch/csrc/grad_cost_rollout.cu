@@ -82,6 +82,15 @@
 // session under the one V), grad_cost_forward_value_rows_kernel and
 // grad_cost_adjoint_value_rows_kernel over the same bodies.  The instances
 // without the value compile as before.
+//
+// The pendulum, acrobot and point-mass plants (plants.cuh, with their fast
+// plants) take the single-session forward and adjoint alone: their
+// derivs_tangent is their Jacobian's nontrivial rows, their stage terms
+// their costs' stage_cost_vjp.  An item's fields are S*(S+U) + S + 2U (odd):
+// 11 floats for the pendulum, 27 for the acrobot (cartpole's 27) and 33 for
+// the point mass, whose adjoint block so takes 33.8 KB of static shared
+// memory.  The value_spec and session-row forms stay cartpole's
+// (ops/kernels.py KERNEL_PLANTS).
 #include "rollout_core.cuh"
 #include "value_mlp.cuh"
 
@@ -388,14 +397,47 @@ int launch_grad_adjoint(dim3 grid, cudaStream_t st, const float* Q, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7's single-session forward and adjoint over `Plant`: the only forms that
+// the pendulum, acrobot and point-mass plants carry.
+template <class Plant>
+int launch_grad_forward_single(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
+                               const float* pvec, float* cost, float* xhist, int K, int H,
+                               const StepConsts& c, float max_cost) {
+  grad_cost_forward_kernel<Plant, false><<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, xhist, K,
+                                                                    K, H, c, max_cost);
+  return static_cast<int>(cudaGetLastError());
+}
+template <class Plant>
+int launch_grad_adjoint_single(dim3 grid, cudaStream_t st, const float* Q, const float* pvec,
+                               const float* xhist, float* dQ, int K, int H, const StepConsts& c,
+                               float ct) {
+  grad_cost_adjoint_kernel<Plant, false><<<grid, kAdjThreads, 0, st>>>(Q, pvec, xhist, dQ, K, K,
+                                                                       H, c, ct);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K7's single-session forward (adjoint false) or adjoint over
+// `Plant` that one SM holds (0 where the runtime cannot say).
+template <class Plant>
+int grad_blocks_per_sm(bool adjoint) {
+  int blocks = 0;
+  const cudaError_t e =
+      adjoint ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, grad_cost_adjoint_kernel<Plant, false>, kAdjThreads, 0)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, grad_cost_forward_kernel<Plant, false>, kThreads, 0);
+  return e == cudaSuccess ? blocks : 0;
+}
+
 }  // namespace ctt
 
 // Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
 // holds K / ks rows, rollout k reading row k / ks: ks = K for one session,
 // the session-row form for a fleet); returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
-// divide K).  xhist is scratch of (H+1)*S*K floats that the caller
-// allocates.
+// launch (cudaErrorInvalidValue for an unknown plant, a ks that does not
+// divide K, or a session-row form over a plant that has none: the
+// pendulum, acrobot and point-mass plants take ks = K).  xhist is scratch
+// of (H+1)*S*K floats that the caller allocates.
 extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, const void* pvec,
                                      void* cost, void* xhist, int K, int ks, int H, int rk4,
                                      int substeps, float sub_dt, float half_dt, float dt6,
@@ -417,7 +459,11 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
       return ctt::launch_grad_forward<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf, K,
                                                               ks, H, c, max_cost);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (ks != K) return static_cast<int>(cudaErrorInvalidValue);
+      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
+        return ctt::launch_grad_forward_single<decltype(plant_tag)>(grid, st, s0f, qf, pf, costf,
+                                                                    xf, K, H, c, max_cost);
+      });
   }
 }
 
@@ -444,6 +490,10 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
                                            float max_cost, float ct, const ctt::ValueArgs* v,
                                            void* stream) {
   if (ks < 1 || K % ks != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // The value_spec forms are cartpole's alone (ops/kernels.py KERNEL_PLANTS).
+  if (plant != ctt::kPlantCartpole && plant != ctt::kPlantCartpoleFast) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
   const dim3 grid((K + ctt::kThreads - 1) / ctt::kThreads);
   auto st = static_cast<cudaStream_t>(stream);
@@ -470,7 +520,8 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
 // Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
 // as the forward's, or, with vgrad not null, its value_spec instance
 // (its session-row form where ks < K), which adds vgrad [S, K] to lam_H;
-// returns as above.
+// returns as above (the pendulum, acrobot and point-mass plants take ks = K
+// and no vgrad).
 extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
                                      const void* xhist, const void* vgrad, void* dQ, int K,
                                      int ks, int H, int rk4, int substeps, float sub_dt,
@@ -492,8 +543,26 @@ extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
       return ctt::launch_grad_adjoint<ctt::CartpoleFastPlant>(grid, st, qf, pf, xf, vf, dqf, K,
                                                               ks, H, c, ct);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (ks != K || vf != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
+        return ctt::launch_grad_adjoint_single<decltype(plant_tag)>(grid, st, qf, pf, xf, dqf, K,
+                                                                    H, c, ct);
+      });
   }
+}
+
+// Blocks of K7's single-session forward (adjoint 0) or adjoint (1) over
+// `plant` that one SM holds (0 where the runtime cannot say or the plant
+// has no instance).
+extern "C" int ctt_grad_cost_plant_blocks_per_sm(int plant, int adjoint) {
+  if (plant == ctt::kPlantCartpole) return ctt::grad_blocks_per_sm<ctt::CartpolePlant>(adjoint);
+  if (plant == ctt::kPlantCartpoleFast) {
+    return ctt::grad_blocks_per_sm<ctt::CartpoleFastPlant>(adjoint);
+  }
+  if (!ctt::is_slice_plant(plant)) return 0;
+  return ctt::with_slice_plant(plant, [&](auto plant_tag) {
+    return ctt::grad_blocks_per_sm<decltype(plant_tag)>(adjoint);
+  });
 }
 
 // Blocks of K7's forward kernel (rows 0) or of its session-row form (rows

@@ -21,6 +21,11 @@
 // runs short_step.cuh's step over them.  At cc_weight 0 its costs equal
 // K1's over mppi_controls_plain's controls bit for bit.
 //
+// The pendulum, acrobot and point-mass plants (plants.cuh) take this
+// kernel alone, over short_step.cuh's stage cost and integrate; the
+// point mass's two inputs halve the controls-ahead chunk (kDrawControls /
+// U = 32 steps).
+//
 // Its emit_terminal form (kernel1_ext_emit, pallas_mppi.py:277; make_cost_run's
 // emit_terminal, :501, :538-560), the main path's kernel under a learned
 // value terminal, is the body's Emit instance: it also writes rollout k's
@@ -97,12 +102,24 @@ int launch_mppi_cost(dim3 grid, cudaStream_t st, const void* s0, const void* u_n
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of K2 over `Plant` that one SM holds (0 where the runtime cannot
+// say).
+template <class Plant>
+int mppi_cost_blocks_per_sm() {
+  int blocks = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mppi_cost_kernel<Plant>,
+                                                       kCemThreads, 0) == cudaSuccess
+             ? blocks
+             : 0;
+}
+
 }  // namespace ctt
 
 // Launches K2 on `stream`, or, with x_term not null, its emit_terminal form,
 // which also writes the terminal states [K, S] there; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
-// plant).
+// plant, or for x_term over a plant whose emit_terminal form is not
+// instantiated: the pendulum, acrobot and point-mass plants carry K2 alone).
 extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const void* pvec,
                              const void* eps, const void* W, const void* low, const void* high,
                              void* cost, void* x_term, int K, int H, int P, int rk4,
@@ -124,6 +141,27 @@ extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const
                                                            low, high, cost, x_term, K, H, P, c,
                                                            max_cost, cc);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if (x_term != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
+        ctt::mppi_cost_kernel<decltype(plant_tag)><<<grid, ctt::kCemThreads, 0, st>>>(
+            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+            static_cast<const float*>(pvec), static_cast<const float*>(eps),
+            static_cast<const float*>(W), static_cast<const float*>(low),
+            static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, c, max_cost, cc);
+        return static_cast<int>(cudaGetLastError());
+      });
   }
+}
+
+// Blocks of K2 over `plant` that one SM holds (0 where the runtime cannot
+// say or the plant has no instance).
+extern "C" int ctt_mppi_cost_plant_blocks_per_sm(int plant) {
+  if (plant == ctt::kPlantCartpole) return ctt::mppi_cost_blocks_per_sm<ctt::CartpolePlant>();
+  if (plant == ctt::kPlantCartpoleFast) {
+    return ctt::mppi_cost_blocks_per_sm<ctt::CartpoleFastPlant>();
+  }
+  if (!ctt::is_slice_plant(plant)) return 0;
+  return ctt::with_slice_plant(plant, [](auto plant_tag) {
+    return ctt::mppi_cost_blocks_per_sm<decltype(plant_tag)>();
+  });
 }

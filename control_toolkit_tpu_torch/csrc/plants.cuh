@@ -27,6 +27,23 @@
 // cos(angle) from its own cosf.  Plant::sincos is the hook short_step.cuh
 // calls in place of sincosf; Plant::kFast also picks the fast counter
 // normals (counter_prng.cuh) in the fully-fused kernels.
+//
+// A plant is a (dynamics, cost) pair.  Besides cartpole's there are the
+// pendulum (PendulumDynamicsT<Fast>, S=2), the acrobot
+// (AcrobotDynamicsT<Fast>: two angles, sin(t1+t2)) and the point mass
+// (PointmassDynamics: U=2, no trig), under the pendulum/default,
+// acrobot/default, pointmass/default and pointmass/obstacles costs
+// (PendulumCost, AcrobotCost, PointmassCost, PointmassObstacleCost), bound
+// by PlantT.  Their plants have no derivs_short (kShortStep false): the
+// short step takes Plant::stage_cost and rollout_core.cuh's integrate, the
+// JAX operation order with no hand algebra, and Recips is empty.  Their
+// derivs_vjp and derivs_tangent are their Jacobians' nontrivial rows
+// (ops/adjoints.py *_derivs_jac, transcribed), the other rows being the
+// velocities' unit rows; their costs stay exact under a fast plant (the
+// JAX costs call jnp.cos whatever the plant).  The point mass has no trig,
+// so its exact dynamics double as the fast ones (kExactIsFast): only K3
+// takes a fast-normals instance of it (FastNormalsOf), which draws the
+// fast counter normals over the exact plant.
 #pragma once
 
 #include "fastmath.cuh"
@@ -317,6 +334,8 @@ struct CartpolePlantT {
   using Dynamics = CartpoleDynamicsT<Fast>;
   using Cost = CartpoleCost;
   static constexpr bool kFast = Fast;
+  static constexpr bool kShortStep = true;  // derivs_short (short_step.cuh)
+  static constexpr bool kExactIsFast = false;
   static constexpr int S = Dynamics::S;
   static constexpr int U = Dynamics::U;
   static constexpr int kCost = Dynamics::kN;  // the cost part's base
@@ -379,5 +398,587 @@ struct CartpolePlantT {
 // kPlantCartpoleFast select them.
 struct CartpolePlant : CartpolePlantT<false> {};
 struct CartpoleFastPlant : CartpolePlantT<true> {};
+
+// sin of a, and its derivative as the adjoints take it: exact trig's cos,
+// or the polynomial's S'(r) (fast_sincos_d).
+template <bool Fast>
+__device__ __forceinline__ float plant_sin(float a) {
+  if constexpr (Fast) {
+    return fast_sin(a);
+  } else {
+    return sinf(a);
+  }
+}
+template <bool Fast>
+__device__ __forceinline__ void plant_sin_d(float a, float& s, float& ds) {
+  if constexpr (Fast) {
+    float c, ndc;
+    fast_sincos_d(a, s, c, ds, ndc);
+  } else {
+    s = sinf(a);
+    ds = cosf(a);
+  }
+}
+// sin and cos of a, and the derivatives: dsin and ndcos = -d cos / d a.
+template <bool Fast>
+__device__ __forceinline__ void plant_sincos_d(float a, float& s, float& c, float& ds,
+                                               float& ndc) {
+  if constexpr (Fast) {
+    fast_sincos_d(a, s, c, ds, ndc);
+  } else {
+    s = sinf(a);
+    c = cosf(a);
+    ds = c;
+    ndc = s;
+  }
+}
+
+// Pendulum dynamics (models/dynamics.py:_pendulum_derivs): angle 0 upright,
+// torque-actuated.
+template <bool Fast>
+struct PendulumDynamicsT {
+  static constexpr bool kFast = Fast;
+  static constexpr bool kExactIsFast = false;
+  static constexpr int S = 2;  // angle, angleD
+  static constexpr int U = 1;  // torque command in [-1, 1]
+  enum : int { kL = 0, kDamping, kG, kM, kUMax, kN };
+
+  __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
+                                                const float* p, float (&d)[S]) {
+    const float L = p[kL];
+    const float torque = u[0] * p[kUMax];
+    d[0] = x[1];
+    d[1] = (p[kG] / L * plant_sin<Fast>(x[0]) + torque / (p[kM] * (L * L))) -
+           p[kDamping] * x[1];
+  }
+
+  // f and theta_dd's partials a0 (angle), a1 (angleD), au (u)
+  // (ops/adjoints.py pendulum_derivs_jac).
+  __device__ __forceinline__ static void jac(const float (&x)[S], const float (&u)[U],
+                                             const float* p, float (&d)[S], float& a0,
+                                             float& a1, float& au) {
+    const float L = p[kL];
+    float sin_t, dsin;
+    plant_sin_d<Fast>(x[0], sin_t, dsin);
+    const float gl = p[kG] / L;
+    const float inv_ml2 = 1.0f / (p[kM] * (L * L));
+    d[0] = x[1];
+    d[1] = (gl * sin_t + u[0] * p[kUMax] * inv_ml2) - p[kDamping] * x[1];
+    a0 = gl * dsin;
+    a1 = -p[kDamping];
+    au = p[kUMax] * inv_ml2;
+  }
+
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    float d[S], a0, a1, au;
+    jac(x, u, p, d, a0, a1, au);
+    dx[0] = lam[1] * a0;
+    dx[1] = lam[0] + lam[1] * a1;
+    du[0] = lam[1] * au;
+  }
+
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    float a0, a1, au;
+    jac(x, u, p, d, a0, a1, au);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      dk[0][n] = T[1][n];
+      dk[1][n] = fmaf(a1, T[1][n], fmaf(a0, T[0][n], n == S ? au : 0.0f));
+    }
+  }
+};
+
+// Acrobot dynamics (models/dynamics.py:_acrobot_derivs): two links, the
+// elbow actuated; theta1 = 0 hanging down.
+template <bool Fast>
+struct AcrobotDynamicsT {
+  static constexpr bool kFast = Fast;
+  static constexpr bool kExactIsFast = false;
+  static constexpr int S = 4;  // theta1, theta1D, theta2, theta2D
+  static constexpr int U = 1;  // elbow torque command in [-1, 1]
+  enum : int { kI1 = 0, kI2, kG, kL1, kL2, kLc1, kLc2, kM1, kM2, kUMax, kN };
+
+  __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
+                                                const float* p, float (&d)[S]) {
+    const float t1 = x[0], t1d = x[1], t2 = x[2], t2d = x[3];
+    const float tau = u[0] * p[kUMax];
+    const float m1 = p[kM1], m2 = p[kM2], l1 = p[kL1], lc1 = p[kLc1], lc2 = p[kLc2];
+    const float I1 = p[kI1], I2 = p[kI2], g = p[kG];
+    float s2, c2;
+    if constexpr (Fast) {
+      fast_sincos(t2, s2, c2);
+    } else {
+      s2 = sinf(t2);
+      c2 = cosf(t2);
+    }
+    const float d1 =
+        ((m1 * (lc1 * lc1) + m2 * ((l1 * l1 + lc2 * lc2) + 2.0f * l1 * lc2 * c2)) + I1) + I2;
+    const float d2 = m2 * (lc2 * lc2 + l1 * lc2 * c2) + I2;
+    const float phi2 = m2 * lc2 * g * plant_sin<Fast>(t1 + t2);
+    const float phi1 = ((-m2 * l1 * lc2 * (t2d * t2d) * s2 - 2.0f * m2 * l1 * lc2 * t2d * t1d * s2) +
+                        (m1 * lc1 + m2 * l1) * g * plant_sin<Fast>(t1)) +
+                       phi2;
+    const float t2dd = (((tau + (d2 / d1) * phi1) - m2 * l1 * lc2 * (t1d * t1d) * s2) - phi2) /
+                       ((m2 * (lc2 * lc2) + I2) - (d2 * d2) / d1);
+    const float t1dd = -(d2 * t2dd + phi1) / d1;
+    d[0] = t1d;
+    d[1] = t1dd;
+    d[2] = t2d;
+    d[3] = t2dd;
+  }
+
+  // f and the partials of t1dd (a) and t2dd (b) in (t1, t1d, t2, t2d, u)
+  // (ops/adjoints.py acrobot_derivs_jac, term for term).
+  __device__ __forceinline__ static void jac(const float (&x)[S], const float (&u)[U],
+                                             const float* p, float (&d)[S], float (&a)[S + U],
+                                             float (&b)[S + U]) {
+    const float t1 = x[0], t1d = x[1], t2 = x[2], t2d = x[3];
+    const float tau = u[0] * p[kUMax];
+    const float m1 = p[kM1], m2 = p[kM2], l1 = p[kL1], lc1 = p[kLc1], lc2 = p[kLc2];
+    const float I1 = p[kI1], I2 = p[kI2], g = p[kG];
+    float s2, c2, ds2, ndc2, s1, ds1, s12, ds12;
+    plant_sincos_d<Fast>(t2, s2, c2, ds2, ndc2);
+    plant_sin_d<Fast>(t1, s1, ds1);
+    plant_sin_d<Fast>(t1 + t2, s12, ds12);
+    const float h = m2 * l1 * lc2;
+    const float d1 = m1 * (lc1 * lc1) + m2 * (l1 * l1 + lc2 * lc2 + 2.0f * l1 * lc2 * c2) + I1 + I2;
+    const float d2 = m2 * (lc2 * lc2 + l1 * lc2 * c2) + I2;
+    const float dd1 = -(2.0f * h * ndc2), dd2 = -(h * ndc2);
+    const float k2 = m2 * lc2 * g, k1 = (m1 * lc1 + m2 * l1) * g;
+    const float phi2 = k2 * s12, dphi2 = k2 * ds12;
+    const float phi1 = -h * (t2d * t2d) * s2 - 2.0f * h * t2d * t1d * s2 + k1 * s1 + phi2;
+    const float f1 = k1 * ds1 + dphi2;
+    const float f2 = -(2.0f * h * t2d * s2);
+    const float f3 = -(h * (t2d * t2d) + 2.0f * h * t2d * t1d) * ds2 + dphi2;
+    const float f4 = -(2.0f * h * t2d * s2) - 2.0f * h * t1d * s2;
+    const float inv_d1 = 1.0f / d1;
+    const float r = d2 * inv_d1;
+    const float dr = (dd2 - r * dd1) * inv_d1;
+    const float num = tau + r * phi1 - h * (t1d * t1d) * s2 - phi2;
+    const float inv_den = 1.0f / (m2 * (lc2 * lc2) + I2 - d2 * d2 * inv_d1);
+    const float dden = -(2.0f * r * dd2 - r * r * dd1);
+    const float t2dd = num * inv_den;
+    const float t1dd = -(d2 * t2dd + phi1) * inv_d1;
+    d[0] = t1d;
+    d[1] = t1dd;
+    d[2] = t2d;
+    d[3] = t2dd;
+    b[0] = (r * f1 - dphi2) * inv_den;
+    b[1] = (r * f2 - 2.0f * h * t1d * s2) * inv_den;
+    b[2] = (dr * phi1 + r * f3 - h * (t1d * t1d) * ds2 - dphi2 - t2dd * dden) * inv_den;
+    b[3] = r * f4 * inv_den;
+    b[4] = p[kUMax] * inv_den;
+    a[0] = -(d2 * b[0] + f1) * inv_d1;
+    a[1] = -(d2 * b[1] + f2) * inv_d1;
+    a[2] = -(dd2 * t2dd + d2 * b[2] + f3 + t1dd * dd1) * inv_d1;
+    a[3] = -(d2 * b[3] + f4) * inv_d1;
+    a[4] = -(d2 * b[4]) * inv_d1;
+  }
+
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    float d[S], a[S + U], b[S + U];
+    jac(x, u, p, d, a, b);
+    dx[0] = lam[1] * a[0] + lam[3] * b[0];
+    dx[1] = lam[0] + (lam[1] * a[1] + lam[3] * b[1]);
+    dx[2] = lam[1] * a[2] + lam[3] * b[2];
+    dx[3] = lam[2] + (lam[1] * a[3] + lam[3] * b[3]);
+    du[0] = lam[1] * a[4] + lam[3] * b[4];
+  }
+
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    float a[S + U], b[S + U];
+    jac(x, u, p, d, a, b);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      dk[0][n] = T[1][n];
+      dk[2][n] = T[3][n];
+      dk[1][n] = fmaf(a[3], T[3][n],
+                      fmaf(a[2], T[2][n], fmaf(a[1], T[1][n], fmaf(a[0], T[0][n],
+                                                                   n == S ? a[4] : 0.0f))));
+      dk[3][n] = fmaf(b[3], T[3][n],
+                      fmaf(b[2], T[2][n], fmaf(b[1], T[1][n], fmaf(b[0], T[0][n],
+                                                                   n == S ? b[4] : 0.0f))));
+    }
+  }
+};
+
+// Planar point mass (models/dynamics.py:pointmass_derivs_soa): two force
+// inputs, linear, no trig.
+struct PointmassDynamics {
+  static constexpr bool kFast = false;
+  static constexpr bool kExactIsFast = true;
+  static constexpr int S = 4;  // x, y, xD, yD
+  static constexpr int U = 2;  // force commands in [-1, 1]
+  enum : int { kDrag = 0, kMass, kUMax, kN };
+
+  __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
+                                                const float* p, float (&d)[S]) {
+    const float inv_m = 1.0f / p[kMass];
+    d[0] = x[2];
+    d[1] = x[3];
+    d[2] = (u[0] * p[kUMax] - p[kDrag] * x[2]) * inv_m;
+    d[3] = (u[1] * p[kUMax] - p[kDrag] * x[3]) * inv_m;
+  }
+
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    const float inv_m = 1.0f / p[kMass];
+    const float dv = -p[kDrag] * inv_m, dc = p[kUMax] * inv_m;
+    dx[0] = 0.0f;
+    dx[1] = 0.0f;
+    dx[2] = lam[0] + lam[2] * dv;
+    dx[3] = lam[1] + lam[3] * dv;
+    du[0] = lam[2] * dc;
+    du[1] = lam[3] * dc;
+  }
+
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    derivs(x, u, p, d);
+    const float inv_m = 1.0f / p[kMass];
+    const float dv = -p[kDrag] * inv_m, dc = p[kUMax] * inv_m;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      dk[0][n] = T[2][n];
+      dk[1][n] = T[3][n];
+      dk[2][n] = fmaf(dv, T[2][n], n == S ? dc : 0.0f);
+      dk[3][n] = fmaf(dv, T[3][n], n == S + 1 ? dc : 0.0f);
+    }
+  }
+};
+
+// The derivative of max(v, 0) in v as jax.vjp takes it: 1 above 0, 0 below,
+// 1/2 at the tie (ops/adjoints.py _tie).
+__device__ __forceinline__ float hinge_tie(float v) {
+  return v > 0.0f ? 1.0f : (v == 0.0f ? 0.5f : 0.0f);
+}
+
+// The pendulum/default cost (costs/pendulum.py): angle error, energy error
+// (E - m g L)^2, the velocity penalty gated to near upright, the control
+// cost; no control-change or terminal term.
+struct PendulumCost {
+  static constexpr int S = 2;
+  static constexpr int U = 1;
+  enum : int {
+    kL = 0, kAngleWeight, kControlWeight, kEnergyWeight, kG, kM, kVelocityWeight,
+    kUPrev,
+    kN = kUPrev + U
+  };
+
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* c,
+                                                     float max_cost) {
+    const float angle = x[0], angle_d = x[1];
+    const float m = c[kM], L = c[kL], g = c[kG];
+    const float cos_a = cosf(angle);
+    const float energy = 0.5f * m * (L * L) * (angle_d * angle_d) + m * g * L * cos_a;
+    const float err = energy - m * g * L;
+    const float near_top = 0.5f * (1.0f + cos_a);
+    const float core = ((c[kAngleWeight] * (1.0f - cos_a) + c[kEnergyWeight] * (err * err)) +
+                        c[kVelocityWeight] * near_top * (angle_d * angle_d)) +
+                       c[kControlWeight] * (u[0] * u[0]);
+    return core - max_cost;
+  }
+
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* c) {
+    return 0.0f;
+  }
+
+  // Gradient of ct * stage_cost (ops/adjoints.py pendulum_stage_vjp).
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* c,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    const float angle = x[0], angle_d = x[1];
+    const float m = c[kM], L = c[kL], g = c[kG];
+    const float cos_a = cosf(angle), sin_a = sinf(angle);
+    const float mgl = m * g * L, ml2 = m * (L * L);
+    const float energy = 0.5f * ml2 * (angle_d * angle_d) + mgl * cos_a;
+    const float e2 = 2.0f * c[kEnergyWeight] * (energy - mgl);
+    const float vw = c[kVelocityWeight];
+    gx[0] = ct * (c[kAngleWeight] * sin_a - e2 * mgl * sin_a -
+                  vw * 0.5f * sin_a * (angle_d * angle_d));
+    gx[1] = ct * (e2 * ml2 * angle_d + vw * (0.5f * (1.0f + cos_a)) * 2.0f * angle_d);
+    gu[0] = ct * 2.0f * c[kControlWeight] * u[0];
+    gprev[0] = 0.0f;
+  }
+
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* c,
+                                                            float ct, float (&g)[S]) {
+    g[0] = 0.0f;
+    g[1] = 0.0f;
+  }
+};
+
+// The acrobot/default cost (costs/acrobot.py): tip-height shaping, the
+// velocity penalty gated to near the top, the control cost; no
+// control-change or terminal term.
+struct AcrobotCost {
+  static constexpr int S = 4;
+  static constexpr int U = 1;
+  enum : int {
+    kControlWeight = 0, kHeightWeight, kL1, kL2, kVelocityWeight,
+    kUPrev,
+    kN = kUPrev + U
+  };
+
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* c,
+                                                     float max_cost) {
+    const float t1 = x[0], t1d = x[1], t2 = x[2], t2d = x[3];
+    const float l1 = c[kL1], l2 = c[kL2];
+    const float height = -l1 * cosf(t1) - l2 * cosf(t1 + t2);
+    const float max_h = l1 + l2;
+    const float top = fmaxf(height / max_h, 0.0f);
+    const float near_top = top * top;
+    const float core = (c[kHeightWeight] * (max_h - height) +
+                        c[kVelocityWeight] * near_top * (t1d * t1d + t2d * t2d)) +
+                       c[kControlWeight] * (u[0] * u[0]);
+    return core - max_cost;
+  }
+
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* c) {
+    return 0.0f;
+  }
+
+  // Gradient of ct * stage_cost (ops/adjoints.py acrobot_stage_vjp): the
+  // near-top hinge's tie split in half.
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* c,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    const float t1 = x[0], t1d = x[1], t2 = x[2], t2d = x[3];
+    const float l1 = c[kL1], l2 = c[kL2];
+    const float s12 = sinf(t1 + t2);
+    const float height = -l1 * cosf(t1) - l2 * cosf(t1 + t2);
+    const float max_h = l1 + l2;
+    const float hm = height / max_h;
+    const float top = fmaxf(hm, 0.0f);
+    const float near_top = top * top;
+    const float vw = c[kVelocityWeight];
+    const float vsum = t1d * t1d + t2d * t2d;
+    const float dh = -c[kHeightWeight] + vw * vsum * (2.0f * top * hinge_tie(hm) / max_h);
+    gx[0] = ct * dh * (l1 * sinf(t1) + l2 * s12);
+    gx[1] = ct * vw * near_top * 2.0f * t1d;
+    gx[2] = ct * dh * (l2 * s12);
+    gx[3] = ct * vw * near_top * 2.0f * t2d;
+    gu[0] = ct * 2.0f * c[kControlWeight] * u[0];
+    gprev[0] = 0.0f;
+  }
+
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* c,
+                                                            float ct, float (&g)[S]) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) g[i] = 0.0f;
+  }
+};
+
+// The point-mass costs (costs/pointmass.py) over a packed layout whose
+// indices the template takes: pointmass/default (PointmassCost) and, with
+// the obstacles' nine attributes from kObs (obstacle i's r, x, y at kObs +
+// 3 i) and their two weights, pointmass/obstacles (PointmassObstacleCost:
+// costs/obstacles.py's smooth hinge added to the stage and terminal costs).
+template <int kR, int kCcWeight, int kCcrcWeight, int kPosWeight, int kVelWeight, int kTargetX,
+          int kTargetY, int kUPrev_, int kClearance = -1, int kObstacleWeight = -1,
+          int kObs = -1>
+struct PointmassCostT {
+  static constexpr int S = 4;
+  static constexpr int U = 2;
+  static constexpr int kUPrev = kUPrev_;
+  static constexpr int kN = kUPrev + U;
+  static constexpr bool kObstacles = kObs >= 0;
+  static constexpr int kObstacleCount = 3;
+
+  // obstacle_weight * sum_i max(0, 1 - d_i^2 / margin_i^2)^2 at (x, y).
+  __device__ __forceinline__ static float penalty(float x, float y, const float* c) {
+    float pen = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kObstacleCount; ++i) {
+      const float margin = c[kObs + 3 * i] + c[kClearance];
+      const float dx = x - c[kObs + 3 * i + 1], dy = y - c[kObs + 3 * i + 2];
+      const float h = fmaxf(0.0f, 1.0f - (dx * dx + dy * dy) / (margin * margin));
+      pen = pen + h * h;
+    }
+    return c[kObstacleWeight] * pen;
+  }
+
+  // The penalty's gradient times ct, added to g[0] and g[1]
+  // (ops/adjoints.py obstacle_penalty_grad).
+  __device__ __forceinline__ static void penalty_grad(float x, float y, const float* c, float ct,
+                                                      float& gx, float& gy) {
+    float ax = 0.0f, ay = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kObstacleCount; ++i) {
+      const float margin = c[kObs + 3 * i] + c[kClearance];
+      const float m2 = margin * margin;
+      const float dx = x - c[kObs + 3 * i + 1], dy = y - c[kObs + 3 * i + 2];
+      const float v = 1.0f - (dx * dx + dy * dy) / m2;
+      const float coef = 2.0f * fmaxf(0.0f, v) * hinge_tie(v) * (-2.0f / m2);
+      ax = ax + coef * dx;
+      ay = ay + coef * dy;
+    }
+    const float w = ct * c[kObstacleWeight];
+    gx = gx + w * ax;
+    gy = gy + w * ay;
+  }
+
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* c,
+                                                     float max_cost) {
+    const float dx = x[0] - c[kTargetX], dy = x[1] - c[kTargetY];
+    const float pos = c[kPosWeight] * (dx * dx + dy * dy);
+    const float vel = c[kVelWeight] * (x[2] * x[2] + x[3] * x[3]);
+    float usq = 0.0f, dusq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      usq = usq + u[j] * u[j];
+      const float du = u[j] - prev[j];
+      dusq = dusq + du * du;
+    }
+    float core = (pos + vel) + c[kCcWeight] * c[kR] * usq;
+    if constexpr (kObstacles) core = core + penalty(x[0], x[1], c);
+    return (core + c[kCcrcWeight] * dusq) - max_cost;
+  }
+
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* c) {
+    const float dx = x[0] - c[kTargetX], dy = x[1] - c[kTargetY];
+    float out = 10.0f * c[kPosWeight] * (dx * dx + dy * dy) +
+                c[kVelWeight] * (x[2] * x[2] + x[3] * x[3]);
+    if constexpr (kObstacles) out = out + penalty(x[0], x[1], c);
+    return out;
+  }
+
+  // Gradient of ct * stage_cost (ops/adjoints.py pointmass_stage_vjp,
+  // pointmass_obstacle_stage_vjp).
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* c,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    const float pw = 2.0f * c[kPosWeight], vw = 2.0f * c[kVelWeight];
+    gx[0] = ct * pw * (x[0] - c[kTargetX]);
+    gx[1] = ct * pw * (x[1] - c[kTargetY]);
+    gx[2] = ct * vw * x[2];
+    gx[3] = ct * vw * x[3];
+    if constexpr (kObstacles) penalty_grad(x[0], x[1], c, ct, gx[0], gx[1]);
+    const float cc = 2.0f * c[kCcWeight] * c[kR];
+    const float ccrc = 2.0f * c[kCcrcWeight];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const float dchange = ct * ccrc * (u[j] - prev[j]);
+      gu[j] = ct * cc * u[j] + dchange;
+      gprev[j] = -dchange;
+    }
+  }
+
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* c,
+                                                            float ct, float (&g)[S]) {
+    const float pw = 20.0f * c[kPosWeight], vw = 2.0f * c[kVelWeight];
+    g[0] = ct * pw * (x[0] - c[kTargetX]);
+    g[1] = ct * pw * (x[1] - c[kTargetY]);
+    g[2] = ct * vw * x[2];
+    g[3] = ct * vw * x[3];
+    if constexpr (kObstacles) penalty_grad(x[0], x[1], c, ct, g[0], g[1]);
+  }
+};
+
+// c_R, c_cc_weight, c_ccrc_weight, c_pos_weight, c_vel_weight, a_target_x,
+// a_target_y, __u_prev_0, __u_prev_1.
+using PointmassCost = PointmassCostT<0, 1, 2, 3, 4, 5, 6, 7>;
+// c_R, c_cc_weight, c_ccrc_weight, c_clearance, c_obstacle_weight,
+// c_pos_weight, c_vel_weight, a_obs0_r .. a_obs2_y, a_target_x, a_target_y,
+// __u_prev_0, __u_prev_1.
+using PointmassObstacleCost = PointmassCostT<0, 1, 2, 5, 6, 16, 17, 18, 3, 4, 7>;
+
+// The ODE kernels' plant over dynamics without derivs_short: the dynamics'
+// constants, then the cost's vector.  FastNormals (K3 over a plant whose
+// exact dynamics double as the fast ones) draws the fast counter normals.
+template <class Dyn, class CostT, bool FastNormals = Dyn::kFast>
+struct PlantT {
+  static_assert(Dyn::S == CostT::S && Dyn::U == CostT::U, "dynamics and cost dims differ");
+  using Dynamics = Dyn;
+  using Cost = CostT;
+  static constexpr bool kFast = FastNormals;
+  static constexpr bool kShortStep = false;
+  static constexpr bool kExactIsFast = Dyn::kExactIsFast;
+  static constexpr int S = Dyn::S;
+  static constexpr int U = Dyn::U;
+  static constexpr int kCost = Dyn::kN;
+  static constexpr int kUPrev = kCost + Cost::kUPrev;
+  static constexpr int kN = kCost + Cost::kN;
+
+  struct Recips {};
+  __device__ __forceinline__ static Recips recips(const float*) { return {}; }
+
+  __device__ __forceinline__ static void derivs(const float (&x)[S], const float (&u)[U],
+                                                const float* p, float (&d)[S]) {
+    Dyn::derivs(x, u, p, d);
+  }
+  __device__ __forceinline__ static void derivs_vjp(const float (&x)[S], const float (&u)[U],
+                                                    const float* p, const float (&lam)[S],
+                                                    float (&dx)[S], float (&du)[U]) {
+    Dyn::derivs_vjp(x, u, p, lam, dx, du);
+  }
+  template <int N>
+  __device__ __forceinline__ static void derivs_tangent(const float (&x)[S], const float (&u)[U],
+                                                        const float* p, const float (&T)[S][N],
+                                                        float (&d)[S], float (&dk)[S][N]) {
+    Dyn::derivs_tangent(x, u, p, T, d, dk);
+  }
+  __device__ __forceinline__ static float stage_cost(const float (&x)[S], const float (&u)[U],
+                                                     const float (&prev)[U], const float* p,
+                                                     float max_cost) {
+    return Cost::stage_cost(x, u, prev, p + kCost, max_cost);
+  }
+  __device__ __forceinline__ static float terminal_cost(const float (&x)[S], const float* p) {
+    return Cost::terminal_cost(x, p + kCost);
+  }
+  __device__ __forceinline__ static void stage_cost_vjp(const float (&x)[S], const float (&u)[U],
+                                                        const float (&prev)[U], const float* p,
+                                                        float ct, float (&gx)[S], float (&gu)[U],
+                                                        float (&gprev)[U]) {
+    Cost::stage_cost_vjp(x, u, prev, p + kCost, ct, gx, gu, gprev);
+  }
+  __device__ __forceinline__ static void terminal_cost_grad(const float (&x)[S], const float* p,
+                                                            float ct, float (&g)[S]) {
+    Cost::terminal_cost_grad(x, p + kCost, ct, g);
+  }
+};
+
+// This slice's instances (ops/kernels.py PLANT_IDS 2-7), named as the
+// kernels' template arguments.
+struct PendulumPlant : PlantT<PendulumDynamicsT<false>, PendulumCost> {};
+struct PendulumFastPlant : PlantT<PendulumDynamicsT<true>, PendulumCost> {};
+struct AcrobotPlant : PlantT<AcrobotDynamicsT<false>, AcrobotCost> {};
+struct AcrobotFastPlant : PlantT<AcrobotDynamicsT<true>, AcrobotCost> {};
+struct PointmassPlant : PlantT<PointmassDynamics, PointmassCost> {};
+struct PointmassObstaclePlant : PlantT<PointmassDynamics, PointmassObstacleCost> {};
+// K3's fast-normals instances over the point mass's exact dynamics.
+struct PointmassFastNormalsPlant : PlantT<PointmassDynamics, PointmassCost, true> {};
+struct PointmassObstacleFastNormalsPlant
+    : PlantT<PointmassDynamics, PointmassObstacleCost, true> {};
+
+template <class Plant>
+struct FastNormalsOf;
+template <>
+struct FastNormalsOf<PointmassPlant> {
+  using type = PointmassFastNormalsPlant;
+};
+template <>
+struct FastNormalsOf<PointmassObstaclePlant> {
+  using type = PointmassObstacleFastNormalsPlant;
+};
 
 }  // namespace ctt

@@ -264,6 +264,41 @@ __device__ __forceinline__ void load_params(const float* __restrict__ pvec, floa
 
 constexpr int kPlantCartpole = 0;      // ops/kernels.py PLANT_IDS: CartpolePlant
 constexpr int kPlantCartpoleFast = 1;  // CartpoleFastPlant (the ":fast" predictors')
+constexpr int kPlantPendulum = 2;      // PendulumPlant
+constexpr int kPlantPendulumFast = 3;  // PendulumFastPlant
+constexpr int kPlantAcrobot = 4;       // AcrobotPlant
+constexpr int kPlantAcrobotFast = 5;   // AcrobotFastPlant
+constexpr int kPlantPointmass = 6;     // PointmassPlant
+constexpr int kPlantPointmassObstacles = 7;  // PointmassObstaclePlant
 constexpr int kThreads = 128;      // rollouts per block
+
+// f(Plant{}) for the plant of id `plant` among the pendulum, acrobot and
+// point-mass plants, which K1, K2, K3 and K7 carry in their plain entries
+// alone (ops/kernels.py KERNEL_PLANTS); cudaErrorInvalidValue for any
+// other id.  Host code: the entries' switches call it for every id but
+// cartpole's.
+inline bool is_slice_plant(int plant) {
+  return plant >= kPlantPendulum && plant <= kPlantPointmassObstacles;
+}
+
+template <class F>
+int with_slice_plant(int plant, F&& f) {
+  switch (plant) {
+    case kPlantPendulum:
+      return f(PendulumPlant{});
+    case kPlantPendulumFast:
+      return f(PendulumFastPlant{});
+    case kPlantAcrobot:
+      return f(AcrobotPlant{});
+    case kPlantAcrobotFast:
+      return f(AcrobotFastPlant{});
+    case kPlantPointmass:
+      return f(PointmassPlant{});
+    case kPlantPointmassObstacles:
+      return f(PointmassObstaclePlant{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace ctt

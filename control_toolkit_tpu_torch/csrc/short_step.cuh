@@ -8,7 +8,10 @@
 // theta once an evaluation, the stage cost shares the first evaluation's
 // cos(theta) (the fast plant's cost takes its own cosf: the cost is
 // exact), and the reciprocals of plants.cuh's Recips, taken once a
-// rollout, leave one division an evaluation.  On an H100 this shortened
+// rollout, leave one division an evaluation.  A plant without
+// derivs_short (Plant::kShortStep false: pendulum, acrobot, point mass)
+// takes Rollout::advance's stage cost and integrate instead, and its
+// Recips is empty.  On an H100 this shortened
 // K5's rk4 chain a step from ~1.7 µs to ~0.7 µs (PERF.md, K5); the chain
 // of these dependent steps is what bounds each of those kernels.  K7 and
 // K9 keep rollout_core.cuh's step for their forward sweeps.
@@ -55,23 +58,31 @@ __device__ __forceinline__ void short_step(float (&x)[Plant::S], const float (&u
                                            const typename Plant::Recips& rc, const StepConsts& c,
                                            float max_cost) {
   constexpr int S = Plant::S;
-  float sin_t, cos_t;
-  Plant::sincos(x[2], sin_t, cos_t);
-  float cos_angle = cos_t;
-  if constexpr (Plant::kFast) cos_angle = cosf(x[2]);  // the cost's exact cos
-  acc = acc + Plant::stage_cost_cos(x, cos_angle, u, prev, p, max_cost);
-  if (c.rk4 && c.substeps == 1) {  // the main path: one straight run
-    rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
+  if constexpr (!Plant::kShortStep) {
+    // A plant without derivs_short (the pendulum, acrobot and point-mass
+    // plants): Rollout::advance's stage cost and integrate, the JAX
+    // operation order.
+    acc = acc + Plant::stage_cost(x, u, prev, p, max_cost);
+    integrate<Plant>(x, u, p, c);
   } else {
-    for (int sub = 0; sub < c.substeps; ++sub) {
-      if (sub > 0) Plant::sincos(x[2], sin_t, cos_t);
-      if (c.rk4) {
-        rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
-      } else {
-        float k1[S];
-        Plant::derivs_short(x, u, sin_t, cos_t, p, rc, k1);
+    float sin_t, cos_t;
+    Plant::sincos(x[2], sin_t, cos_t);
+    float cos_angle = cos_t;
+    if constexpr (Plant::kFast) cos_angle = cosf(x[2]);  // the cost's exact cos
+    acc = acc + Plant::stage_cost_cos(x, cos_angle, u, prev, p, max_cost);
+    if (c.rk4 && c.substeps == 1) {  // the main path: one straight run
+      rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
+    } else {
+      for (int sub = 0; sub < c.substeps; ++sub) {
+        if (sub > 0) Plant::sincos(x[2], sin_t, cos_t);
+        if (c.rk4) {
+          rk4_short<Plant>(x, u, sin_t, cos_t, p, rc, c);
+        } else {
+          float k1[S];
+          Plant::derivs_short(x, u, sin_t, cos_t, p, rc, k1);
 #pragma unroll
-        for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
+          for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k1[i];
+        }
       }
     }
   }

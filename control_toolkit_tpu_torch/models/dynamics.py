@@ -7,10 +7,11 @@ arithmetic follows the JAX package's expressions term for term (and the
 CUDA plant in ``csrc/plants.cuh`` follows the same order), so the scan
 path, the plain kernel versions and the kernels round alike.
 
-Only cartpole is ported so far, with its ``.fast`` variant
-(``cartpole_dynamics.fast``: the polynomial trig of ``ops/fastmath.py``,
-which the ``:fast`` predictors select); the other plants and their
-``.fast`` variants are still to be ported (ROADMAP).
+Ported are cartpole, pendulum, acrobot and pointmass, each with its
+``.fast`` variant (the polynomial trig of ``ops/fastmath.py``, which the
+``:fast`` predictors select; pointmass has no trig, so its exact
+dynamics double as the fast ones); quadrotor2d, quadrotor3d, car and arm2
+are still to be ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from control_toolkit_tpu_torch.ops.fastmath import fast_sincos
+from control_toolkit_tpu_torch.ops.fastmath import fast_sin, fast_sincos
 
 DynamicsFn = Callable[[torch.Tensor, torch.Tensor, Dict], torch.Tensor]
 
@@ -30,6 +31,14 @@ CARTPOLE_DEFAULTS = {
     "u_max": 10.0,       # force scale: u in [-1,1] -> force [N]
     "friction_cart": 0.0,
     "friction_pole": 0.0,
+}
+
+PENDULUM_DEFAULTS = {
+    "m": 1.0,
+    "L": 1.0,
+    "g": 9.81,
+    "u_max": 6.0,   # underactuated (< m*g*L) but swing-up feasible in ~2 s
+    "damping": 0.0,
 }
 
 
@@ -74,15 +83,119 @@ def soa_to_aos(derivs_soa: Callable, num_states: int, num_controls: int) -> Dyna
     return f
 
 
+def _pendulum_derivs(xs: Tuple, us: Tuple, p: Dict, sin) -> Tuple:
+    """Inverted pendulum ODE; angle = 0 is upright, torque-actuated."""
+    theta, theta_d = xs
+    torque = us[0] * p["u_max"]
+    theta_dd = (
+        p["g"] / p["L"] * sin(theta)
+        + torque / (p["m"] * p["L"] ** 2)
+        - p["damping"] * theta_d
+    )
+    return (theta_d, theta_dd)
+
+
+def pendulum_derivs_soa(xs: Tuple, us: Tuple, p: Dict) -> Tuple:
+    return _pendulum_derivs(xs, us, p, torch.sin)
+
+
+def pendulum_derivs_soa_fast(xs: Tuple, us: Tuple, p: Dict) -> Tuple:
+    """The pendulum ODE over ops/fastmath.py's polynomial sin."""
+    return _pendulum_derivs(xs, us, p, fast_sin)
+
+
+ACROBOT_DEFAULTS = {
+    "m1": 1.0, "m2": 1.0,      # link masses
+    "l1": 1.0, "l2": 1.0,      # link lengths
+    "lc1": 0.5, "lc2": 0.5,    # centers of mass
+    "I1": 1.0, "I2": 1.0,      # link inertias
+    "g": 9.8,
+    "u_max": 10.0,             # elbow torque scale
+}
+
+
+def _acrobot_derivs(xs, us, p, sin, sincos):
+    """Acrobot (two-link pendulum actuated at the elbow), Spong dynamics.
+    xs = (theta1, theta1D, theta2, theta2D); theta1 = 0 is hanging down;
+    one sincos (of theta2) and two sins (of theta1 + theta2 and theta1)."""
+    t1, t1d, t2, t2d = xs
+    tau = us[0] * p["u_max"]
+    m1, m2 = p["m1"], p["m2"]
+    l1 = p["l1"]
+    lc1, lc2 = p["lc1"], p["lc2"]
+    I1, I2, g = p["I1"], p["I2"], p["g"]
+
+    s2, c2 = sincos(t2)
+    d1 = m1 * lc1**2 + m2 * (l1**2 + lc2**2 + 2 * l1 * lc2 * c2) + I1 + I2
+    d2 = m2 * (lc2**2 + l1 * lc2 * c2) + I2
+    phi2 = m2 * lc2 * g * sin(t1 + t2)
+    phi1 = (
+        -m2 * l1 * lc2 * t2d**2 * s2
+        - 2 * m2 * l1 * lc2 * t2d * t1d * s2
+        + (m1 * lc1 + m2 * l1) * g * sin(t1)
+        + phi2
+    )
+    t2dd = (
+        tau + (d2 / d1) * phi1 - m2 * l1 * lc2 * t1d**2 * s2 - phi2
+    ) / (m2 * lc2**2 + I2 - d2**2 / d1)
+    t1dd = -(d2 * t2dd + phi1) / d1
+    return (t1d, t1dd, t2d, t2dd)
+
+
+def acrobot_derivs_soa(xs, us, p):
+    return _acrobot_derivs(xs, us, p, torch.sin, lambda a: (torch.sin(a), torch.cos(a)))
+
+
+def acrobot_derivs_soa_fast(xs, us, p):
+    """The acrobot ODE over ops/fastmath.py's polynomial sin and sincos."""
+    return _acrobot_derivs(xs, us, p, fast_sin, fast_sincos)
+
+
+POINTMASS_DEFAULTS = {
+    "mass": 1.0,
+    "drag": 0.2,     # linear velocity damping
+    "u_max": 5.0,    # force scale per input
+}
+
+
+def pointmass_derivs_soa(xs, us, p):
+    """Planar point mass, the multi-input plant: xs = (x, y, vx, vy); us =
+    (fx_cmd, fy_cmd) in [-1, 1] scaled by u_max.  No transcendentals, so
+    the exact derivs double as the fast variant."""
+    _, _, vx, vy = xs
+    inv_m = 1.0 / p["mass"]
+    ax = (us[0] * p["u_max"] - p["drag"] * vx) * inv_m
+    ay = (us[1] * p["u_max"] - p["drag"] * vy) * inv_m
+    return (vx, vy, ax, ay)
+
+
 cartpole_dynamics = soa_to_aos(cartpole_derivs_soa, 4, 1)
 cartpole_dynamics.fast = soa_to_aos(cartpole_derivs_soa_fast, 4, 1)
+pendulum_dynamics = soa_to_aos(pendulum_derivs_soa, 2, 1)
+pendulum_dynamics.fast = soa_to_aos(pendulum_derivs_soa_fast, 2, 1)
+acrobot_dynamics = soa_to_aos(acrobot_derivs_soa, 4, 1)
+acrobot_dynamics.fast = soa_to_aos(acrobot_derivs_soa_fast, 4, 1)
+pointmass_dynamics = soa_to_aos(pointmass_derivs_soa, 4, 2)
+pointmass_dynamics.fast = pointmass_dynamics
 
 DYNAMICS = {
     "cartpole": (cartpole_dynamics, CARTPOLE_DEFAULTS, 4, 1),
+    "pendulum": (pendulum_dynamics, PENDULUM_DEFAULTS, 2, 1),
+    "acrobot": (acrobot_dynamics, ACROBOT_DEFAULTS, 4, 1),
+    "pointmass": (pointmass_dynamics, POINTMASS_DEFAULTS, 4, 2),
 }
 
 STATE_NAMES = {
     "cartpole": ["position", "positionD", "angle", "angleD"],
+    "pendulum": ["angle", "angleD"],
+    "acrobot": ["theta1", "theta1D", "theta2", "theta2D"],
+    "pointmass": ["x", "y", "xD", "yD"],
+}
+CONTROL_NAMES = {
+    "cartpole": ["Q"],
+    "pendulum": ["Q"],
+    "acrobot": ["Q"],
+    "pointmass": ["Fx", "Fy"],
 }
 
 

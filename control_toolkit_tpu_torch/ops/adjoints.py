@@ -11,7 +11,13 @@ for term, so these are the formulas the tests hold against
 the per-step Jacobians, in forward mode, of K7's time-parallel adjoint.
 The cartpole plant's are written over its trig's values and derivatives
 (``exact_sincos_d``); the fast plant's (``cartpole_fast_derivs_*``) take
-ops/fastmath.py's polynomials and their derivatives.
+ops/fastmath.py's polynomials and their derivatives.  The pendulum,
+acrobot and pointmass plants' are written as their Jacobian's two
+nontrivial rows (``*_derivs_jac``; the other rows are the unit rows of the
+velocities), from which their VJPs contract (``_vjp_from_jac``); their
+costs' gradients (``*_stage_vjp``, ``*_terminal_grad``) take a
+``maximum``'s tie at 0 as ``jax.vjp`` does, half the cotangent to each
+side (``_tie``).
 ``mlp_step_vjp`` is the learned MLP step's adjoint over the net's weight
 dict, transcribed into ``csrc/mlp_mma.cuh``;
 ``residual_step_vjp`` (the ``"ODE+res"`` step) combines it with the
@@ -166,12 +172,275 @@ def cartpole_fast_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tens
     return cartpole_derivs_jac(xs, us, p, fast_sincos_d)
 
 
+def _vjp_from_jac(derivs_jac: Callable, xs: Tuple, us: Tuple, p, lam: Tuple
+                  ) -> Tuple[Tuple, Tuple]:
+    """``lam^T J`` of a plant's ``(f, J [K, S, S+U]) = derivs_jac(...)``,
+    split into the state's and the control's parts."""
+    _, J = derivs_jac(xs, us, p)
+    g = torch.einsum("ks,ksn->kn", torch.stack(lam, dim=1), J)
+    S = len(xs)
+    return tuple(g[:, i] for i in range(S)), tuple(g[:, S + j] for j in range(len(us)))
+
+
+def _jac_rows(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(row, dim=1) for row in rows], dim=1)
+
+
+def _tie(v: torch.Tensor) -> torch.Tensor:
+    """The derivative of ``maximum(v, 0)`` in v as ``jax.vjp`` takes it: 1
+    above 0, 0 below, 1/2 at the tie."""
+    return torch.where(v > 0, 1.0, torch.where(v == 0, 0.5, 0.0)).to(v.dtype)
+
+
+def _sin_d(theta, sincos_d):
+    sin_t, _, dsin, _ = sincos_d(theta)
+    return sin_t, dsin
+
+
+def pendulum_derivs_jac(xs: Tuple, us: Tuple, p,
+                        sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_pendulum_derivs at (x, u), J =
+    d f / d(x, u) ``[K, 2, 3]``, over the trig of ``sincos_d``."""
+    theta, theta_d = xs
+    L = p["d_L"]
+    torque = us[0] * p["d_u_max"]
+    sin_t, dsin = _sin_d(theta, sincos_d)
+    gl = p["d_g"] / L
+    inv_ml2 = 1.0 / (p["d_m"] * (L * L))
+    theta_dd = gl * sin_t + torque * inv_ml2 - p["d_damping"] * theta_d
+    zero = torch.zeros_like(theta)
+    rows = ((zero, zero + 1.0, zero),
+            (gl * dsin, zero - p["d_damping"], zero + p["d_u_max"] * inv_ml2))
+    return (theta_d, theta_dd), _jac_rows(rows)
+
+
+def acrobot_derivs_jac(xs: Tuple, us: Tuple, p,
+                       sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_acrobot_derivs at (x, u), J =
+    d f / d(x, u) ``[K, 4, 5]``, over the trig of ``sincos_d``.  With h =
+    m2 l1 lc2, the inertia terms d1, d2 depend on theta2 alone (dd1 =
+    -2 h ndcos2, dd2 = -h ndcos2), phi2 on theta1 + theta2; t2dd = num /
+    den and t1dd = -(d2 t2dd + phi1) / d1 are differentiated by the
+    quotient rule."""
+    t1, t1d, t2, t2d = xs
+    tau = us[0] * p["d_u_max"]
+    m1, m2, l1 = p["d_m1"], p["d_m2"], p["d_l1"]
+    lc1, lc2, I1, I2, g = p["d_lc1"], p["d_lc2"], p["d_I1"], p["d_I2"], p["d_g"]
+    s2, c2, ds2, ndc2 = sincos_d(t2)
+    s1, ds1 = _sin_d(t1, sincos_d)
+    s12, ds12 = _sin_d(t1 + t2, sincos_d)
+    h = m2 * l1 * lc2
+    d1 = m1 * (lc1 * lc1) + m2 * (l1 * l1 + lc2 * lc2 + 2.0 * l1 * lc2 * c2) + I1 + I2
+    d2 = m2 * (lc2 * lc2 + l1 * lc2 * c2) + I2
+    dd1, dd2 = -(2.0 * h * ndc2), -(h * ndc2)
+    k2 = m2 * lc2 * g
+    k1 = (m1 * lc1 + m2 * l1) * g
+    phi2, dphi2 = k2 * s12, k2 * ds12
+    phi1 = -h * (t2d * t2d) * s2 - 2.0 * h * t2d * t1d * s2 + k1 * s1 + phi2
+    # phi1's partials in t1, t1d, t2, t2d
+    f1 = k1 * ds1 + dphi2
+    f2 = -(2.0 * h * t2d * s2)
+    f3 = -(h * (t2d * t2d) + 2.0 * h * t2d * t1d) * ds2 + dphi2
+    f4 = -(2.0 * h * t2d * s2) - 2.0 * h * t1d * s2
+    inv_d1 = 1.0 / d1
+    r = d2 * inv_d1
+    dr = (dd2 - r * dd1) * inv_d1
+    num = tau + r * phi1 - h * (t1d * t1d) * s2 - phi2
+    inv_den = 1.0 / (m2 * (lc2 * lc2) + I2 - d2 * d2 * inv_d1)
+    dden = -(2.0 * r * dd2 - r * r * dd1)
+    t2dd = num * inv_den
+    t1dd = -(d2 * t2dd + phi1) * inv_d1
+    # t2dd's partials
+    b1 = (r * f1 - dphi2) * inv_den
+    b2 = (r * f2 - 2.0 * h * t1d * s2) * inv_den
+    b3 = (dr * phi1 + r * f3 - h * (t1d * t1d) * ds2 - dphi2 - t2dd * dden) * inv_den
+    b4 = r * f4 * inv_den
+    bu = p["d_u_max"] * inv_den + torch.zeros_like(t1)
+    # t1dd's
+    a1 = -(d2 * b1 + f1) * inv_d1
+    a2 = -(d2 * b2 + f2) * inv_d1
+    a3 = -(dd2 * t2dd + d2 * b3 + f3 + t1dd * dd1) * inv_d1
+    a4 = -(d2 * b4 + f4) * inv_d1
+    au = -(d2 * bu) * inv_d1
+    zero, one = torch.zeros_like(t1), torch.ones_like(t1)
+    rows = ((zero, one, zero, zero, zero), (a1, a2, a3, a4, au),
+            (zero, zero, zero, one, zero), (b1, b2, b3, b4, bu))
+    return (t1d, t1dd, t2d, t2dd), _jac_rows(rows)
+
+
+def pointmass_derivs_jac(xs: Tuple, us: Tuple, p) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:pointmass_derivs_soa, J ``[K, 4,
+    6]``: constant (the plant is linear)."""
+    _, _, vx, vy = xs
+    inv_m = 1.0 / p["d_mass"]
+    drag, u_max = p["d_drag"], p["d_u_max"]
+    f = (vx, vy, (us[0] * u_max - drag * vx) * inv_m, (us[1] * u_max - drag * vy) * inv_m)
+    zero, one = torch.zeros_like(vx), torch.ones_like(vx)
+    dv, du = zero - drag * inv_m, zero + u_max * inv_m
+    rows = ((zero, zero, one, zero, zero, zero), (zero, zero, zero, one, zero, zero),
+            (zero, zero, dv, zero, du, zero), (zero, zero, zero, dv, zero, du))
+    return f, _jac_rows(rows)
+
+
+def pendulum_fast_derivs_jac(xs, us, p):
+    return pendulum_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def acrobot_fast_derivs_jac(xs, us, p):
+    return acrobot_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def pendulum_derivs_vjp(xs, us, p, lam):
+    return _vjp_from_jac(pendulum_derivs_jac, xs, us, p, lam)
+
+
+def pendulum_fast_derivs_vjp(xs, us, p, lam):
+    return _vjp_from_jac(pendulum_fast_derivs_jac, xs, us, p, lam)
+
+
+def acrobot_derivs_vjp(xs, us, p, lam):
+    return _vjp_from_jac(acrobot_derivs_jac, xs, us, p, lam)
+
+
+def acrobot_fast_derivs_vjp(xs, us, p, lam):
+    return _vjp_from_jac(acrobot_fast_derivs_jac, xs, us, p, lam)
+
+
+def pointmass_derivs_vjp(xs, us, p, lam):
+    return _vjp_from_jac(pointmass_derivs_jac, xs, us, p, lam)
+
+
+def _no_change(us):
+    """The control-change part of a cost without ``ccrc_weight``: none."""
+    return tuple(torch.zeros_like(u) for u in us)
+
+
+def pendulum_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the pendulum/default stage cost
+    (costs/pendulum.py); it has no control-change term."""
+    angle, angle_d = xs
+    m, L, g = p["c_m"], p["c_L"], p["c_g"]
+    cos_a, sin_a = angle.cos(), angle.sin()
+    mgl = m * g * L
+    ml2 = m * (L * L)
+    energy = 0.5 * ml2 * (angle_d * angle_d) + mgl * cos_a
+    e2 = 2.0 * p["c_energy_weight"] * (energy - mgl)
+    vw = p["c_velocity_weight"]
+    g_angle = ct * (p["c_angle_weight"] * sin_a - e2 * mgl * sin_a
+                    - vw * 0.5 * sin_a * (angle_d * angle_d))
+    g_angle_d = ct * (e2 * ml2 * angle_d + vw * (0.5 * (1.0 + cos_a)) * 2.0 * angle_d)
+    gu = tuple(ct * 2.0 * p["c_control_weight"] * u for u in us)
+    return (g_angle, g_angle_d), gu, _no_change(us)
+
+
+def acrobot_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the acrobot/default stage cost
+    (costs/acrobot.py): ``maximum(height / max_h, 0)``'s tie as
+    ``jax.vjp`` takes it."""
+    t1, t1d, t2, t2d = xs
+    l1, l2 = p["c_l1"], p["c_l2"]
+    s12 = (t1 + t2).sin()
+    height = -l1 * t1.cos() - l2 * (t1 + t2).cos()
+    max_h = l1 + l2
+    hm = height / max_h
+    top = torch.maximum(hm, torch.zeros_like(hm))
+    near_top = top * top
+    vw = p["c_velocity_weight"]
+    vsum = t1d * t1d + t2d * t2d
+    # d stage / d height
+    dh = -p["c_height_weight"] + vw * vsum * (2.0 * top * _tie(hm) / max_h)
+    g_t2 = ct * dh * (l2 * s12)
+    g_t1 = ct * dh * (l1 * t1.sin() + l2 * s12)
+    gu = tuple(ct * 2.0 * p["c_control_weight"] * u for u in us)
+    return ((g_t1, ct * vw * near_top * 2.0 * t1d, g_t2, ct * vw * near_top * 2.0 * t2d), gu,
+            _no_change(us))
+
+
+def _zero_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """A cost without a terminal term (pendulum, acrobot)."""
+    return tuple(torch.zeros_like(x) for x in xs)
+
+
+def pointmass_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the pointmass/default stage cost
+    (costs/pointmass.py) with its control-change term."""
+    x, y, vx, vy = xs
+    pw, vw = 2.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"]
+    cc = 2.0 * p["c_cc_weight"] * p["c_R"]
+    ccrc = 2.0 * p["c_ccrc_weight"]
+    gu, gprev = [], []
+    for u, pu in zip(us, prev_us):
+        dchange = ct * ccrc * (u - pu)
+        gu.append(ct * cc * u + dchange)
+        gprev.append(-dchange)
+    gx = (ct * pw * (x - p["a_target_x"]), ct * pw * (y - p["a_target_y"]),
+          ct * vw * vx, ct * vw * vy)
+    return gx, tuple(gu), tuple(gprev)
+
+
+def pointmass_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` costs/pointmass.py:terminal_cost_soa."""
+    x, y, vx, vy = xs
+    pw, vw = 20.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"]
+    return (ct * pw * (x - p["a_target_x"]), ct * pw * (y - p["a_target_y"]),
+            ct * vw * vx, ct * vw * vy)
+
+
+def obstacle_penalty_grad(x, y, p, ct) -> Tuple:
+    """Gradient of ``ct *`` costs/obstacles.py:obstacle_penalty in (x, y):
+    each hinge ``maximum(0, 1 - d2 / m2)`` with its tie as ``jax.vjp``
+    takes it."""
+    gx, gy = torch.zeros_like(x), torch.zeros_like(y)
+    for i in range(3):
+        dx, dy = x - p[f"a_obs{i}_x"], y - p[f"a_obs{i}_y"]
+        margin = p[f"a_obs{i}_r"] + p["c_clearance"]
+        m2 = margin * margin
+        v = 1.0 - (dx * dx + dy * dy) / m2
+        hinge = torch.maximum(torch.zeros_like(v), v)
+        coef = 2.0 * hinge * _tie(v) * (-2.0 / m2)
+        gx, gy = gx + coef * dx, gy + coef * dy
+    w = ct * p["c_obstacle_weight"]
+    return w * gx, w * gy
+
+
+def pointmass_obstacle_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the pointmass/obstacles stage cost."""
+    gx, gu, gprev = pointmass_stage_vjp(xs, us, prev_us, p, ct)
+    ox, oy = obstacle_penalty_grad(xs[0], xs[1], p, ct)
+    return (gx[0] + ox, gx[1] + oy, gx[2], gx[3]), gu, gprev
+
+
+def pointmass_obstacle_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` the pointmass/obstacles terminal cost."""
+    gx = pointmass_terminal_grad(xs, p, ct)
+    ox, oy = obstacle_penalty_grad(xs[0], xs[1], p, ct)
+    return (gx[0] + ox, gx[1] + oy, gx[2], gx[3])
+
+
 # Device plant -> (derivs_vjp, stage_vjp, terminal_grad): the plants whose
-# rollout K7 can differentiate.  The fast plant's cost is the exact one:
-# the JAX cartpole cost calls jnp.cos whatever the plant.
+# rollout K7 can differentiate.  A fast plant's cost is the exact one: the
+# JAX costs call jnp.cos whatever the plant.
 PLANT_ADJOINTS = {
     "cartpole": (cartpole_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
     "cartpole_fast": (cartpole_fast_derivs_vjp, cartpole_stage_vjp, cartpole_terminal_grad),
+    "pendulum": (pendulum_derivs_vjp, pendulum_stage_vjp, _zero_terminal_grad),
+    "pendulum_fast": (pendulum_fast_derivs_vjp, pendulum_stage_vjp, _zero_terminal_grad),
+    "acrobot": (acrobot_derivs_vjp, acrobot_stage_vjp, _zero_terminal_grad),
+    "acrobot_fast": (acrobot_fast_derivs_vjp, acrobot_stage_vjp, _zero_terminal_grad),
+    "pointmass": (pointmass_derivs_vjp, pointmass_stage_vjp, pointmass_terminal_grad),
+    "pointmass_obstacles": (pointmass_derivs_vjp, pointmass_obstacle_stage_vjp,
+                            pointmass_obstacle_terminal_grad),
+}
+# Device plant -> its derivs_jac (K7's adjoint: the Jacobians' forward mode).
+PLANT_JACOBIANS = {
+    "cartpole": cartpole_derivs_jac,
+    "cartpole_fast": cartpole_fast_derivs_jac,
+    "pendulum": pendulum_derivs_jac,
+    "pendulum_fast": pendulum_fast_derivs_jac,
+    "acrobot": acrobot_derivs_jac,
+    "acrobot_fast": acrobot_fast_derivs_jac,
+    "pointmass": pointmass_derivs_jac,
+    "pointmass_obstacles": pointmass_derivs_jac,
 }
 
 

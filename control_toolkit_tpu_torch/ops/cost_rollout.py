@@ -152,11 +152,18 @@ def cost_rollout_cols_emit(model: kernels.RolloutModel, s0: torch.Tensor, Q: tor
 cost_rollout_cols_emit.launches = 0
 
 
+# Each wrapper's kernel form (ops/kernels.py KERNEL_PLANTS).
+FORMS = {"cost_rollout": "K1", "cost_rollout_emit": "K1's emit_terminal form",
+         "cost_rollout_cols": "K1's session-row form",
+         "cost_rollout_cols_emit": "K1's session-row emit_terminal form"}
+
+
 def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int,
             x_term=None) -> torch.Tensor:
     """Check the operands and launch K1 over sessions of ``ks`` rollouts,
     ``pvec``'s rows, or, with ``x_term [B*K, S]``, its emit_terminal form,
     which writes the terminal states there; returns the costs ``[B*K]``."""
+    kernels.require(FORMS[name], model.plant)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec)
     K, S = s0.shape
     H, U = Q.shape[1], Q.shape[2]

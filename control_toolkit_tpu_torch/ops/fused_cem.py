@@ -108,6 +108,7 @@ def fused_cem_costs(model: kernels.RolloutModel, s0: torch.Tensor, mue: torch.Te
     if kernels.on_cpu(s0, mue, std, pvec, seed2, low, high):
         check_seed2("fused_cem_costs", seed2, torch.device("cpu"))
         return fused_cem_costs_plain(model, s0, mue, std, pvec, seed2, low, high, K, tile_k)
+    kernels.require("K5", model.plant)
     device = kernels.check_cuda_operands("fused_cem_costs", s0=s0, mue=mue, std=std, pvec=pvec,
                                          low=low, high=high)
     check_seed2("fused_cem_costs", seed2, device)

@@ -102,6 +102,7 @@ def fused_cem_cols(model: kernels.RolloutModel, s0: torch.Tensor, mue: torch.Ten
                          f"{seed_b.dtype} {tuple(seed_b.shape)}")
     if kernels.on_cpu(s0, mue, std, pvec_b, seed_b, low, high):
         return fused_cem_cols_plain(model, s0, mue, std, pvec_b, seed_b, low, high, K)
+    kernels.require("K6", model.plant)
     device = kernels.check_cuda_operands("fused_cem_cols", s0=s0, mue=mue, std=std,
                                          pvec_b=pvec_b, low=low, high=high)
     if seed_b.device != device or not seed_b.is_contiguous():

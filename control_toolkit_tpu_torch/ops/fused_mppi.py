@@ -109,6 +109,7 @@ def fused_mppi_costs(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch
         check_seed2("fused_mppi_costs", seed2, torch.device("cpu"))
         return fused_mppi_costs_plain(model, s0, u_nom, pvec, seed2, W, low, high, cc_weight, R,
                                       NU, stdev, K, tile_k)
+    kernels.require("K3", model.plant)
     device = kernels.check_cuda_operands("fused_mppi_costs", s0=s0, u_nom=u_nom, pvec=pvec, W=W,
                                          low=low, high=high)
     check_seed2("fused_mppi_costs", seed2, device)
@@ -121,7 +122,7 @@ def fused_mppi_costs(model: kernels.RolloutModel, s0: torch.Tensor, u_nom: torch
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), u_nom.data_ptr(), pvec.data_ptr(),
             seed2.data_ptr(), W.data_ptr(), low.data_ptr(), high.data_ptr(), cost.data_ptr(),
             K, H, W.shape[0], tile_k, *model.step_args(), model.max_cost,
-            *_corr_consts(cc_weight, R, NU), stdev,
+            *_corr_consts(cc_weight, R, NU), stdev, int(model.fast_math),
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, "fused_mppi_costs")

@@ -224,10 +224,17 @@ def grad_cost_rollout_cols_value(model: kernels.RolloutModel, s0: torch.Tensor, 
 grad_cost_rollout_cols_value.launches = 0
 
 
+# Each wrapper's kernel form (ops/kernels.py KERNEL_PLANTS).
+FORMS = {"grad_cost_rollout": "K7", "grad_cost_rollout_value": "K7's value_spec form",
+         "grad_cost_rollout_cols": "K7's session-row form",
+         "grad_cost_rollout_cols_value": "K7's session-row value_spec form"}
+
+
 def _launch(name: str, model: kernels.RolloutModel, s0, Q, pvec, ks: int, value_ops=None):
     """Check the operands and launch K7's forward and adjoint over sessions
     of ``ks`` rollouts, ``pvec``'s rows (with ``value_ops``, their
     value_spec instances); returns ``(cost [B*K], dQ)``."""
+    kernels.require(FORMS[name], model.plant)
     device = kernels.check_cuda_operands(name, s0=s0, Q=Q, pvec=pvec,
                                          **kernels.value_tensors(value_ops or ()))
     K, S = s0.shape

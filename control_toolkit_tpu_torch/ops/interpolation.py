@@ -56,6 +56,9 @@ class Interpolator:
         return self.matrix.shape[0]
 
     def interpolate(self, y: torch.Tensor) -> torch.Tensor:
+        """``[..., P, U] -> [..., H, U]``, contiguous: the einsum lays out
+        U > 1 controls input-major, and the kernels take contiguous
+        operands only."""
         if self.period == 1:
             return y
-        return torch.einsum("...pu,ph->...hu", y, self.matrix)
+        return torch.einsum("...pu,ph->...hu", y, self.matrix).contiguous()

@@ -41,38 +41,107 @@ NVCC_FLAGS = (
 # Device plants (csrc/plants.cuh): the id each C entry point dispatches on,
 # and the packed-parameter order the plant reads — Optimizer._soa_bindings'
 # order for its (dynamics, cost) pair: the dynamics' constants, then the
-# cost's part.  The network-rollout kernels, whose dynamics are weight
-# tensors, read the cost's part alone (_soa_bindings(include_dyn=False)).
-# A fast plant (``<env>_fast``) is its environment's dynamics over the
-# polynomial trig of csrc/fastmath.cuh, with the environment's parameter
-# layout and exact cost; the fully-fused kernels over it draw their
-# normals with the fast Box-Muller (the JAX fast_sampling form), so a fast
-# plant and fast sampling always come together, as the JAX optimizers pair
-# them (fast_sampling=pred.fast_math).
-PLANT_IDS = {"cartpole": 0, "cartpole_fast": 1}
-FAST_PLANTS = {"cartpole": "cartpole_fast"}  # environment -> its fast plant
-PLANT_DIMS = {"cartpole": (4, 1), "cartpole_fast": (4, 1)}  # (S, U)
+# cost's part.  A plant is such a pair: the environment's dynamics and one
+# of the costs its device plants evaluate (kernel_families/ode.py
+# DEVICE_COSTS), named after the cost (``pointmass_obstacles`` is the
+# pointmass dynamics under pointmass/obstacles).  The network-rollout
+# kernels, whose dynamics are weight tensors, read the cost's part alone
+# (_soa_bindings(include_dyn=False)).  A fast plant (``<plant>_fast``) is
+# its plant's dynamics over the polynomial trig of csrc/fastmath.cuh, with
+# the plant's parameter layout and exact cost; the fully-fused kernels
+# over it draw their normals with the fast Box-Muller (the JAX
+# fast_sampling form), so a fast plant and fast sampling always come
+# together, as the JAX optimizers pair them (fast_sampling=pred.fast_math).
+# Pointmass has no trig: its exact dynamics double as the fast ones
+# (EXACT_IS_FAST), so a ``:fast`` pointmass predictor keeps the exact
+# plant, and only K3, which draws the fast normals over it, takes the
+# fast flag (``RolloutModel.fast_sampling``).
+PLANT_IDS = {"cartpole": 0, "cartpole_fast": 1, "pendulum": 2, "pendulum_fast": 3,
+             "acrobot": 4, "acrobot_fast": 5, "pointmass": 6, "pointmass_obstacles": 7}
+FAST_PLANTS = {"cartpole": "cartpole_fast", "pendulum": "pendulum_fast",
+               "acrobot": "acrobot_fast"}  # plant -> its fast plant
+EXACT_IS_FAST = frozenset({"pointmass", "pointmass_obstacles"})
+PLANT_DIMS = {"cartpole": (4, 1), "cartpole_fast": (4, 1), "pendulum": (2, 1),
+              "pendulum_fast": (2, 1), "acrobot": (4, 1), "acrobot_fast": (4, 1),
+              "pointmass": (4, 2), "pointmass_obstacles": (4, 2)}  # (S, U)
+_POINTMASS_DYN = ("d_drag", "d_mass", "d_u_max")
 DYN_PARAM_KEYS = {
     "cartpole": ("d_L", "d_friction_cart", "d_friction_pole", "d_g", "d_m_cart",
                  "d_m_pole", "d_u_max"),
+    "pendulum": ("d_L", "d_damping", "d_g", "d_m", "d_u_max"),
+    "acrobot": ("d_I1", "d_I2", "d_g", "d_l1", "d_l2", "d_lc1", "d_lc2", "d_m1", "d_m2",
+                "d_u_max"),
+    "pointmass": _POINTMASS_DYN,
+    "pointmass_obstacles": _POINTMASS_DYN,
 }
 COST_PARAM_KEYS = {
     "cartpole": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_dd_weight", "c_ekp_weight",
                  "c_ep_weight", "a_target_position", "__u_prev_0"),
+    "pendulum": ("c_L", "c_angle_weight", "c_control_weight", "c_energy_weight", "c_g", "c_m",
+                 "c_velocity_weight", "__u_prev_0"),
+    "acrobot": ("c_control_weight", "c_height_weight", "c_l1", "c_l2", "c_velocity_weight",
+                "__u_prev_0"),
+    "pointmass": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_pos_weight", "c_vel_weight",
+                  "a_target_x", "a_target_y", "__u_prev_0", "__u_prev_1"),
+    "pointmass_obstacles": (
+        "c_R", "c_cc_weight", "c_ccrc_weight", "c_clearance", "c_obstacle_weight",
+        "c_pos_weight", "c_vel_weight",
+        *(f"a_obs{i}_{c}" for i in range(3) for c in ("r", "x", "y")),
+        "a_target_x", "a_target_y", "__u_prev_0", "__u_prev_1"),
 }
 for _env, _fast in FAST_PLANTS.items():
     DYN_PARAM_KEYS[_fast], COST_PARAM_KEYS[_fast] = DYN_PARAM_KEYS[_env], COST_PARAM_KEYS[_env]
 PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for plant in PLANT_IDS}
 
+# Which kernel entries carry which plant instances (the C entries' switches
+# refuse every other plant id with cudaErrorInvalidValue).  Every gate and
+# wrapper consults it (``require``): a path on which the JAX package would
+# launch a kernel over a plant that the port's kernel has no instance of
+# raises, and never takes the scan or another kernel instead.  The
+# network kernels' plant is their cost's (the dynamics are a net or a GP);
+# the residual kernels' the base's.
+CARTPOLE_PLANTS = ("cartpole", "cartpole_fast")
+ODE_PLANTS = tuple(PLANT_IDS)
+KERNEL_PLANTS = {
+    "K1": ODE_PLANTS, "K2": ODE_PLANTS, "K3": ODE_PLANTS, "K7": ODE_PLANTS,
+    **{form: CARTPOLE_PLANTS for form in (
+        "K1's emit_terminal form", "K1's session-row form", "K1's session-row emit_terminal form",
+        "K2's emit_terminal form", "K4", "K4's emit_terminal form", "K5", "K6",
+        "K7's value_spec form", "K7's session-row form", "K7's session-row value_spec form",
+        "K9", "K9's value_spec form", "K9's session-row form",
+        "K9's session-row value_spec form", "K12", "K12's emit_terminal form",
+        "K12's session-row form", "K12's session-row emit_terminal form")},
+    **{form: ("cartpole",) for form in (
+        "K8", "K8's value_spec form", "K8's member-block form",
+        "K8's member-block value_spec form", "K8's session-row form",
+        "K8's session-row value_spec form", "K10", "K10's value_spec form",
+        "K10's session-row form", "K10's session-row value_spec form",
+        "K11", "K11's emit_terminal form", "K11's member-block form",
+        "K11's member-block emit_terminal form", "K11's session-row form",
+        "K11's session-row emit_terminal form", "K13", "K13's emit_terminal form",
+        "K13's session-row form", "K14", "K14's emit_terminal form", "K14's session-row form",
+        "K14's session-row emit_terminal form")},
+}
 
 
-def plant_key(pred) -> str:
-    """The device plant of an ODE predictor (a residual predictor's base):
-    its environment's, or that environment's fast plant where the predictor
-    runs the polynomial trig (``fast_math``) and one exists."""
+def require(kernel: str, plant: str) -> None:
+    """Raise NotImplementedError, naming the kernel and the plant, unless
+    ``kernel`` (a KERNEL_PLANTS entry) carries ``plant``."""
+    if plant not in KERNEL_PLANTS[kernel]:
+        raise NotImplementedError(
+            f"{kernel} over the {plant!r} plant is not ported to control_toolkit_tpu_torch yet "
+            f"(ROADMAP; it carries {', '.join(KERNEL_PLANTS[kernel])})")
+
+
+def plant_key(pred, cost_plant: str = None) -> str:
+    """The device plant of an ODE predictor (a residual predictor's base)
+    under the cost whose plant is ``cost_plant`` (kernel_families/ode.py
+    ``cost_plant``; None: the environment's default cost): that plant, or
+    its fast plant where the predictor runs the polynomial trig
+    (``fast_math``) and one exists."""
     base = getattr(pred, "base", pred)
-    env = base.environment_name
-    return FAST_PLANTS.get(env, env) if getattr(base, "fast_math", False) else env
+    plant = cost_plant or base.environment_name
+    return FAST_PLANTS.get(plant, plant) if getattr(base, "fast_math", False) else plant
 
 
 # Network forms of the network-rollout kernels (csrc/neural_core.cuh NetKind)
@@ -100,10 +169,17 @@ class RolloutModel:
     dt: float
     intermediate_steps: int
     max_cost: float
+    # The fast normals over a plant whose exact dynamics double as the fast
+    # ones (EXACT_IS_FAST: a ":fast" pointmass predictor); a fast plant
+    # draws them anyway (``fast_math``).
+    fast_sampling: bool = False
 
     def __post_init__(self):
         if self.plant not in PLANT_IDS:
             raise ValueError(f"no device plant {self.plant!r}; known: {sorted(PLANT_IDS)}")
+        if self.fast_sampling and self.plant not in EXACT_IS_FAST:
+            raise ValueError(f"the {self.plant!r} plant takes no fast_sampling flag (its fast "
+                             "plant draws the fast normals)")
         if self.param_keys != PLANT_PARAM_KEYS[self.plant]:
             raise ValueError(
                 f"packed parameters {self.param_keys} do not match the "
@@ -127,9 +203,9 @@ class RolloutModel:
 
     @property
     def fast_math(self) -> bool:
-        """A fast plant: polynomial trig, and fast normals in the
-        fully-fused kernels and their regenerations."""
-        return self.plant in FAST_PLANTS.values()
+        """Fast normals in the fully-fused kernels and their regenerations:
+        a fast plant (polynomial trig too), or ``fast_sampling``."""
+        return self.plant in FAST_PLANTS.values() or self.fast_sampling
 
     def step_args(self) -> tuple:
         """(rk4, substeps, sub_dt, half_dt, dt6) for the C entry points:
@@ -602,6 +678,16 @@ def load() -> ctypes.CDLL:
                    lib.ctt_grad_cost_adjoint_blocks_per_sm):
             fn.argtypes = [i32]
             fn.restype = i32
+        # Blocks per SM of a plant's instance (plant id) of K1, K2, K3's pass 1
+        # (and its fast flag) and K7 (0: the forward, 1: the adjoint).
+        for fn in (lib.ctt_cost_rollout_plant_blocks_per_sm,
+                   lib.ctt_mppi_cost_plant_blocks_per_sm):
+            fn.argtypes = [i32]
+            fn.restype = i32
+        for fn in (lib.ctt_fused_mppi_cost_plant_blocks_per_sm,
+                   lib.ctt_grad_cost_plant_blocks_per_sm):
+            fn.argtypes = [i32, i32]
+            fn.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
         lib.ctt_residual_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
@@ -635,9 +721,10 @@ def load() -> ctypes.CDLL:
         lib.ctt_fused_cem_cols.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                            i32, *step, f32, ptr]
         lib.ctt_fused_cem_cols.restype = i32
+        # ..., stdev, fast (the fast normals), stream
         lib.ctt_fused_mppi_cost.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, *step,
-            f32, f32, f32, f32, f32, f32, ptr,
+            f32, f32, f32, f32, f32, f32, i32, ptr,
         ]
         lib.ctt_fused_mppi_cost.restype = i32
         # ..., inv_lbd, fast (the fast normals), stream

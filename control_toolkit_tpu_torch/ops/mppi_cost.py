@@ -166,6 +166,7 @@ def _launch(name, model, s0, u_nom, pvec, eps, W, low, high, cc_weight, R, NU,
     emit_terminal form, which writes the terminal states there; returns the
     costs ``[K]``."""
     _check_shapes(name, s0, u_nom, pvec, eps, W, low, high)
+    kernels.require("K2" if x_term is None else "K2's emit_terminal form", model.plant)
     device = kernels.check_cuda_operands(
         name, s0=s0, u_nom=u_nom, pvec=pvec, eps=eps, W=W, low=low, high=high
     )

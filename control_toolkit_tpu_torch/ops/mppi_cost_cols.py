@@ -133,6 +133,7 @@ def _launch(name, model, s0, u_nom, pvec_b, eps, W, low, high, cc_weight, R, NU,
     emit_terminal form, which writes the terminal states there; returns the
     costs ``[B, K]``."""
     _check_shapes(name, s0, u_nom, pvec_b, eps, W, low, high)
+    kernels.require("K4" if x_term is None else "K4's emit_terminal form", model.plant)
     device = kernels.check_cuda_operands(name, s0=s0, u_nom=u_nom, pvec_b=pvec_b,
                                          eps=eps, W=W, low=low, high=high)
     B, P, U, K = eps.shape

@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
 from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
@@ -204,6 +205,7 @@ class CEMOptimizer(Optimizer):
         B, K = int(num_slots), self.num_rollouts
         H, U = self.mpc_horizon, self.num_control_inputs
         model, _ = ode.rollout_model(self)
+        kernels.require("K1's session-row form", model.plant)
         _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         low, high, best_k = self.action_low, self.action_high, self.cem_best_k
@@ -292,6 +294,7 @@ class CEMOptimizer(Optimizer):
         if K % ROWS:
             raise ValueError(f"batched fused CEM needs K % {ROWS} == 0; got K={K}")
         model, _ = ode.rollout_model(self)
+        kernels.require("K6", model.plant)
         _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         low, high, best_k = self.action_low, self.action_high, self.cem_best_k
@@ -365,6 +368,7 @@ class CEMOptimizer(Optimizer):
             from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
             model, pack = ode.rollout_model(self)
+            kernels.require("K5", model.plant)
             tile = self.fused_tile_k
 
         def prepare(s, params, u_prev):

@@ -36,7 +36,9 @@ from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout_ens, neural_cost_rollout_ens_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import (
+    cost_plant, device_cost, value_hook_ok,
+)
 
 name = "ensemble"
 
@@ -59,7 +61,7 @@ def net_model(opt):
     param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     model = kernels.NetModel(
-        plant=pred.environment_name,
+        plant=cost_plant(opt),
         param_keys=tuple(param_keys),
         stage=stage_soa,
         terminal=terminal_soa,
@@ -76,6 +78,8 @@ def build_cost(opt):
     ``post(x_H)/(H+1)`` added."""
     model, pack = net_model(opt)
     post = opt._post_terminal_fn()
+    kernels.require("K11's member-block form" if post is None
+                    else "K11's member-block emit_terminal form", model.plant)
     rollout = neural_cost_rollout_ens if post is None else neural_cost_rollout_ens_emit
 
     def raw_call(s_tiled, Q, u_prev, params):
@@ -96,6 +100,8 @@ def build_grad(opt):
     over K8's member-block form; with a learned value terminal, over its
     value_spec form, the value net read from ``params`` at every call."""
     model, pack = net_model(opt)
+    kernels.require("K8's member-block value_spec form" if opt._value_grad_spec()
+                    else "K8's member-block form", model.plant)
     if opt._value_grad_spec():
         def grad_fn(s_tiled, Q, u_prev, params):
             return neural_grad_cost_rollout_ens_value(model, s_tiled, Q, pack(params, u_prev),

@@ -30,7 +30,9 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout, gp_cost_rollout_cols, gp_cost_rollout_cols_emit,
     gp_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import (
+    cost_plant, device_cost, value_hook_ok,
+)
 
 name = "gp"
 
@@ -49,9 +51,9 @@ def can_use_cost(opt) -> bool:
 def gp_model(opt):
     """``(GPModel, pack)`` from the optimizer's SOA bindings without the
     dynamics constants."""
-    param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
+    param_keys, pack, _, stage_soa, terminal_soa, _ = opt._soa_bindings(include_dyn=False)
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
-    model = kernels.GPModel(plant=pred.environment_name, param_keys=tuple(param_keys),
+    model = kernels.GPModel(plant=cost_plant(opt), param_keys=tuple(param_keys),
                             stage=stage_soa, terminal=terminal_soa, max_cost=float(cf.MAX_COST))
     return model, pack
 
@@ -76,6 +78,7 @@ def build_cost(opt):
     model, pack = gp_model(opt)
     operands = cached_operands()
     post = opt._post_terminal_fn()
+    kernels.require("K14" if post is None else "K14's emit_terminal form", model.plant)
     rollout = gp_cost_rollout if post is None else gp_cost_rollout_emit
 
     def raw_call(s_tiled, Q, u_prev, params):
@@ -96,6 +99,7 @@ def build_grad(opt):
     value net read from ``params`` at every call."""
     model, pack = gp_model(opt)
     operands = cached_operands()
+    kernels.require("K10's value_spec form" if opt._value_grad_spec() else "K10", model.plant)
     if opt._value_grad_spec():
         def grad_fn(s_tiled, Q, u_prev, params):
             return gp_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
@@ -119,6 +123,10 @@ def batched_kernels(opt):
     model, _ = gp_model(opt)
     operands = cached_operands()
     valued = opt._value_grad_spec() is not None
+    kernels.require("K10's session-row value_spec form" if valued else "K10's session-row form",
+                    model.plant)
+    kernels.require("K14's session-row emit_terminal form" if valued
+                    else "K14's session-row form", model.plant)
     grad = gp_grad_cost_rollout_cols_value if valued else gp_grad_cost_rollout_cols
     cost = gp_cost_rollout_cols_emit if valued else gp_cost_rollout_cols
     return (lambda *a: grad(model, *a), lambda *a: cost(model, *a),

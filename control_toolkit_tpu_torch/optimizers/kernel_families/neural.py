@@ -41,7 +41,9 @@ from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout, neural_cost_rollout_cols, neural_cost_rollout_cols_emit,
     neural_cost_rollout_emit, recurrent_cost_rollout, recurrent_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import (
+    cost_plant, device_cost, value_hook_ok,
+)
 
 name = "neural"
 
@@ -64,7 +66,7 @@ def net_model(opt):
     param_keys, pack, _, stage_soa, terminal_soa, pred = opt._soa_bindings(include_dyn=False)
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     model = kernels.NetModel(
-        plant=pred.environment_name,
+        plant=cost_plant(opt),
         param_keys=tuple(param_keys),
         stage=stage_soa,
         terminal=terminal_soa,
@@ -82,6 +84,8 @@ def build_cost(opt):
     (JAX ``neural.py:101``, ``:121``)."""
     model, pack = net_model(opt)
     post = opt._post_terminal_fn()
+    kernels.require(("K11" if model.kind == "mlp" else "K13")
+                    + ("" if post is None else "'s emit_terminal form"), model.plant)
     if model.kind == "mlp":
         rollout = neural_cost_rollout if post is None else neural_cost_rollout_emit
 
@@ -111,6 +115,7 @@ def build_grad(opt):
     value net read from ``params`` at every call (a swap rebuilds
     nothing)."""
     model, pack = net_model(opt)
+    kernels.require("K8's value_spec form" if opt._value_grad_spec() else "K8", model.plant)
     if opt._value_grad_spec():
         def grad_fn(s_tiled, Q, u_prev, params):
             return neural_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
@@ -133,6 +138,10 @@ def batched_kernels(opt):
     swap rebuilds nothing)."""
     model, _ = net_model(opt)
     valued = opt._value_grad_spec() is not None
+    kernels.require("K8's session-row value_spec form" if valued else "K8's session-row form",
+                    model.plant)
+    kernels.require("K11's session-row emit_terminal form" if valued
+                    else "K11's session-row form", model.plant)
     grad = neural_grad_cost_rollout_cols_value if valued else neural_grad_cost_rollout_cols
     cost = neural_cost_rollout_cols_emit if valued else neural_cost_rollout_cols
     return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (dyn["net"],),

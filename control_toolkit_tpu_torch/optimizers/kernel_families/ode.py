@@ -1,13 +1,21 @@
 """Analytic ODE kernel family: the cost kernel K1 and its gradient twin K7
 (counterpart of control_toolkit_tpu/optimizers/kernel_families/ode.py).
 
-The cost gate admits an ODE predictor whose plant has a device
-implementation (``ops/kernels.py`` PLANT_IDS, with the cost that plant
-evaluates; ``plant_key`` gives a ``:fast`` predictor its environment's fast
-plant, the polynomial-trig instance of every kernel, whose fully-fused
-forms draw the fast normals), a cost with ``supports_fused_rollout`` and scalar attributes,
-and ``force_scan`` off; the gradient gate adds a plant with hand-written
-adjoints (``ops/adjoints.py`` PLANT_ADJOINTS).  The JAX gates' TPU
+The cost gate admits an ODE predictor and a cost that its environment's
+device plants evaluate (``DEVICE_COSTS``: a plant is a (dynamics, cost)
+pair, ``ops/kernels.py`` PLANT_IDS; ``plant_key`` gives a ``:fast``
+predictor its plant's fast plant, the polynomial-trig instance of every
+kernel, whose fully-fused forms draw the fast normals), with
+``supports_fused_rollout`` and scalar attributes, and ``force_scan`` off;
+the gradient gate adds a plant with hand-written adjoints
+(``ops/adjoints.py`` PLANT_ADJOINTS).  A kernel that the gate admits but
+that has no instance of the plant (``ops/kernels.py`` KERNEL_PLANTS: the
+emit_terminal, value_spec and session-row forms carry cartpole's alone)
+raises where it is bound (``kernels.require``), as does every other
+family's: a (dynamics, cost) pair that the JAX package would send to a
+kernel never takes the scan here instead.  A cost that is no device
+plant's (a user's subclass, an array-attribute cost such as
+pointmass/trajectory) takes the scan in both packages.  The JAX gates' TPU
 conjuncts (backend, ``K % tile``, ``grad_tile_for``, VMEM budgets) have no
 counterpart: K is masked in the kernels, and on CPU tensors the kernel
 wrappers run their plain versions.  The session-row (``slot_keys``) forms
@@ -31,7 +39,10 @@ from __future__ import annotations
 
 import numpy as np
 
+from control_toolkit_tpu_torch.costs.acrobot import AcrobotSwingupCost
 from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
+from control_toolkit_tpu_torch.costs.pendulum import PendulumQuadraticCost
+from control_toolkit_tpu_torch.costs.pointmass import PointMassObstacleCost, PointMassQuadraticCost
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
@@ -46,25 +57,45 @@ from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
 
 name = "ode"
 
-# Environment -> the cost class whose terms its device plant evaluates.
-DEVICE_COSTS = {"cartpole": CartpoleQuadraticCost}
+# Environment -> {cost class: the device plant that evaluates its terms
+# over the environment's dynamics}.
+DEVICE_COSTS = {
+    "cartpole": {CartpoleQuadraticCost: "cartpole"},
+    "pendulum": {PendulumQuadraticCost: "pendulum"},
+    "acrobot": {AcrobotSwingupCost: "acrobot"},
+    "pointmass": {PointMassQuadraticCost: "pointmass",
+                  PointMassObstacleCost: "pointmass_obstacles"},
+}
 
 
-def device_cost(opt) -> bool:
-    """The optimizer's cost (a ValueTerminalCost's base) is the one its
-    environment's device plant evaluates, fusable, with scalar attributes:
-    the cost half of every kernel family's gate.  A post-terminal hook is
-    admitted: the cost kernels' emit_terminal forms carry it; the gradient
-    gates add ``value_hook_ok``."""
+def cost_plant(opt):
+    """The device plant of the optimizer's cost (a ValueTerminalCost's
+    base) over its environment's dynamics when the cost is fusable with
+    scalar attributes (the cost half of every kernel family's gate), else
+    None: such a cost takes the scan."""
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     base = cf.base if isinstance(cf, ValueTerminalCost) else cf
     pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return (
-        pred.environment_name in DEVICE_COSTS
-        and type(base) is DEVICE_COSTS[pred.environment_name]
-        and cf.supports_fused_rollout
-        and all(np.ndim(v) == 0 for v in cf.attr_defaults.values())
-    )
+    plant = DEVICE_COSTS.get(pred.environment_name, {}).get(type(base))
+    if (plant is None or not cf.supports_fused_rollout
+            or not all(np.ndim(v) == 0 for v in cf.attr_defaults.values())):
+        return None
+    return plant
+
+
+def device_cost(opt) -> bool:
+    """The optimizer's cost is one that its environment's device plants
+    evaluate (``cost_plant``).  A post-terminal hook is admitted: the cost
+    kernels' emit_terminal forms carry it; the gradient gates add
+    ``value_hook_ok``."""
+    return cost_plant(opt) is not None
+
+
+def device_plant(opt) -> str:
+    """The (dynamics, cost) plant of an ODE or residual predictor's
+    rollouts (``kernels.plant_key``)."""
+    pred = getattr(opt.predictor, "predictor", opt.predictor)
+    return kernels.plant_key(pred, cost_plant(opt))
 
 
 def value_hook_ok(opt) -> bool:
@@ -89,8 +120,9 @@ def rollout_model(opt):
     optimizer's SOA bindings."""
     param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
+    plant = device_plant(opt)
     model = kernels.RolloutModel(
-        plant=kernels.plant_key(pred),
+        plant=plant,
         param_keys=tuple(param_keys),
         derivs=derivs,
         stage=stage_soa,
@@ -99,6 +131,7 @@ def rollout_model(opt):
         dt=pred.dt,
         intermediate_steps=pred.intermediate_steps,
         max_cost=float(cf.MAX_COST),
+        fast_sampling=plant in kernels.EXACT_IS_FAST and bool(getattr(pred, "fast_math", False)),
     )
     return model, pack
 
@@ -111,6 +144,7 @@ def build_cost(opt):
     ``post(x_H)/(H+1)`` added (JAX ``ode.py:81-92``)."""
     model, pack = rollout_model(opt)
     post = opt._post_terminal_fn()
+    kernels.require("K1" if post is None else "K1's emit_terminal form", model.plant)
     if post is None:
         def cost_fn(s_tiled, Q, u_prev, params):
             return cost_rollout(model, s_tiled, Q, pack(params, u_prev))
@@ -128,8 +162,7 @@ def can_use_grad(opt) -> bool:
     unless it is a plain tanh-MLP V (``_value_grad_spec``), which K7's
     value_spec form differentiates; any other hook keeps torch.autograd,
     where the kernel would drop its dQ (JAX ``ode.py:106-117``)."""
-    pred = getattr(opt.predictor, "predictor", opt.predictor)
-    return can_use_cost(opt) and kernels.plant_key(pred) in PLANT_ADJOINTS and value_hook_ok(opt)
+    return can_use_cost(opt) and device_plant(opt) in PLANT_ADJOINTS and value_hook_ok(opt)
 
 
 def build_grad(opt):
@@ -139,6 +172,7 @@ def build_grad(opt):
     over K7's value_spec form, the net's tensors (the scale folded into
     its last layer, ``_flatten_value_ops``) passed on every call."""
     model, pack = rollout_model(opt)
+    kernels.require("K7's value_spec form" if opt._value_grad_spec() else "K7", model.plant)
     if opt._value_grad_spec():
         def grad_fn(s_tiled, Q, u_prev, params):
             return grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
@@ -160,6 +194,10 @@ def batched_kernels(opt):
     session-row emit_terminal form."""
     model, _ = rollout_model(opt)
     valued = opt._value_grad_spec() is not None
+    kernels.require("K7's session-row value_spec form" if valued else "K7's session-row form",
+                    model.plant)
+    kernels.require("K1's session-row emit_terminal form" if valued else "K1's session-row form",
+                    model.plant)
     grad = grad_cost_rollout_cols_value if valued else grad_cost_rollout_cols
     cost = cost_rollout_cols_emit if valued else cost_rollout_cols
     return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (),

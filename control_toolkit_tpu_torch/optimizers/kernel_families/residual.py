@@ -33,7 +33,9 @@ from control_toolkit_tpu_torch.ops.residual_rollout import (
     residual_cost_rollout, residual_cost_rollout_cols, residual_cost_rollout_cols_emit,
     residual_cost_rollout_emit,
 )
-from control_toolkit_tpu_torch.optimizers.kernel_families.ode import device_cost, value_hook_ok
+from control_toolkit_tpu_torch.optimizers.kernel_families.ode import (
+    device_cost, device_plant, value_hook_ok,
+)
 
 name = "residual"
 
@@ -55,7 +57,7 @@ def residual_model(opt):
     param_keys, pack, derivs, stage_soa, terminal_soa, pred = opt._soa_bindings()
     cf = getattr(opt.cost_function, "cost_function", opt.cost_function)
     model = kernels.ResidualModel(
-        plant=kernels.plant_key(pred),
+        plant=device_plant(opt),
         param_keys=tuple(param_keys),
         derivs=derivs,
         stage=stage_soa,
@@ -74,6 +76,7 @@ def build_cost(opt):
     added."""
     model, pack = residual_model(opt)
     post = opt._post_terminal_fn()
+    kernels.require("K12" if post is None else "K12's emit_terminal form", model.plant)
     rollout = residual_cost_rollout if post is None else residual_cost_rollout_emit
 
     def raw_call(s_tiled, Q, u_prev, params):
@@ -85,9 +88,8 @@ def build_cost(opt):
 def can_use_grad(opt) -> bool:
     """K9's gate, with no post-terminal hook unless it is a plain tanh-MLP
     V, which K9's value_spec form differentiates."""
-    pred = getattr(opt.predictor, "predictor", opt.predictor)
     return (not opt.force_scan and compatible_model(opt)
-            and kernels.plant_key(pred) in PLANT_ADJOINTS and value_hook_ok(opt))
+            and device_plant(opt) in PLANT_ADJOINTS and value_hook_ok(opt))
 
 
 def build_grad(opt):
@@ -95,6 +97,7 @@ def build_grad(opt):
     over K9; with a learned value terminal, over its value_spec form, the
     value net read from ``params`` at every call."""
     model, pack = residual_model(opt)
+    kernels.require("K9's value_spec form" if opt._value_grad_spec() else "K9", model.plant)
     if opt._value_grad_spec():
         def grad_fn(s_tiled, Q, u_prev, params):
             return residual_grad_cost_rollout_value(model, s_tiled, Q, pack(params, u_prev),
@@ -118,6 +121,10 @@ def batched_kernels(opt):
     rebuilds nothing)."""
     model, _ = residual_model(opt)
     valued = opt._value_grad_spec() is not None
+    kernels.require("K9's session-row value_spec form" if valued else "K9's session-row form",
+                    model.plant)
+    kernels.require("K12's session-row emit_terminal form" if valued
+                    else "K12's session-row form", model.plant)
     grad = residual_grad_cost_rollout_cols_value if valued else residual_grad_cost_rollout_cols
     cost = residual_cost_rollout_cols_emit if valued else residual_cost_rollout_cols
     return (lambda *a: grad(model, *a), lambda *a: cost(model, *a), lambda dyn: (dyn["res"],),

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
 from control_toolkit_tpu_torch.ops.interpolation import Interpolator
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
@@ -261,6 +262,7 @@ class MPPIOptimizer(Optimizer):
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         model, pack = ode.rollout_model(self)
+        kernels.require("K3", model.plant)
         W = self.interp.matrix                                    # [P, H]
         low, high = self.action_low, self.action_high
         consts = (self.cc_weight, self.R, self.NU, self.LBD, self.SQRTRHODTINV,
@@ -286,11 +288,12 @@ class MPPIOptimizer(Optimizer):
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
         model, pack = ode.rollout_model(self)
+        post, H = self._post_terminal_fn(), self.mpc_horizon
+        kernels.require("K2" if post is None else "K2's emit_terminal form", model.plant)
         W = self.interp.matrix                                    # [P, H]
         low, high = self.action_low, self.action_high
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
-        post, H = self._post_terminal_fn(), self.mpc_horizon
 
         def update(state: MPPIState, s, params, eps):
             u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)
@@ -367,13 +370,14 @@ class MPPIOptimizer(Optimizer):
         if K % ROWS:
             raise ValueError(f"batched MPPI needs K % {ROWS} == 0; got K={K}")
         model, _ = ode.rollout_model(self)
+        post, inv_h1 = self._post_terminal_fn(), 1.0 / (self.mpc_horizon + 1)
+        kernels.require("K4" if post is None else "K4's emit_terminal form", model.plant)
         _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         W, low, high = self.interp.matrix, self.action_low, self.action_high
         self._slot_noise_shape = (W.shape[0], self.num_control_inputs, K)
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
-        post, inv_h1 = self._post_terminal_fn(), 1.0 / (self.mpc_horizon + 1)
 
         def update_from_eps(states, s, dyn, cost, attrs, eps):
             u_nom = torch.cat([states.u_nom[:, 0, 1:, :], states.u_nom[:, 0, -1:, :]], dim=1)
@@ -418,6 +422,8 @@ class MPPIOptimizer(Optimizer):
             raise ValueError("the batched neural step covers MLP models; a GRU or LSTM takes "
                              "_make_batched_recurrent_step")
         post = self._post_terminal_fn()
+        kernels.require("K11's session-row form" if post is None
+                        else "K11's session-row emit_terminal form", model.plant)
         cols = neural_cost_rollout_cols if post is None else neural_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
@@ -438,6 +444,8 @@ class MPPIOptimizer(Optimizer):
 
         model, _ = residual.residual_model(self)
         post = self._post_terminal_fn()
+        kernels.require("K12's session-row form" if post is None
+                        else "K12's session-row emit_terminal form", model.plant)
         cols = residual_cost_rollout_cols if post is None else residual_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
@@ -458,6 +466,8 @@ class MPPIOptimizer(Optimizer):
         model, _ = gp.gp_model(self)
         operands = gp.cached_operands()
         post = self._post_terminal_fn()
+        kernels.require("K14's session-row form" if post is None
+                        else "K14's session-row emit_terminal form", model.plant)
         cols = gp_cost_rollout_cols if post is None else gp_cost_rollout_cols_emit
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
@@ -487,6 +497,7 @@ class MPPIOptimizer(Optimizer):
                              "takes _make_batched_neural_step")
         if self._post_terminal_fn() is not None:
             raise _not_ported(RECURRENT_VALUE_FLEET)
+        kernels.require("K13's session-row form", model.plant)
         step, update = self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
             lambda s0, Q, pvec_b, dyn, hidden: recurrent_cost_rollout_cols(

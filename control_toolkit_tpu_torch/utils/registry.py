@@ -65,12 +65,18 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.controllers.mpc",
     "control_toolkit_tpu_torch.controllers.batched_mpc",
     "control_toolkit_tpu_torch.costs.cartpole",
+    "control_toolkit_tpu_torch.costs.pendulum",
+    "control_toolkit_tpu_torch.costs.acrobot",
+    "control_toolkit_tpu_torch.costs.pointmass",
     "control_toolkit_tpu_torch.models.predictors",
     "control_toolkit_tpu_torch.models.neural_predictor",
     "control_toolkit_tpu_torch.models.residual_predictor",
     "control_toolkit_tpu_torch.models.gp_predictor",
     "control_toolkit_tpu_torch.models.ensemble_predictor",
     "control_toolkit_tpu_torch.environments.cartpole",
+    "control_toolkit_tpu_torch.environments.pendulum",
+    "control_toolkit_tpu_torch.environments.acrobot",
+    "control_toolkit_tpu_torch.environments.pointmass",
 )
 
 

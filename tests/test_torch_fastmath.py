@@ -324,7 +324,7 @@ def test_fast_plant_layout_and_unknown_plants():
     model, _ = ode.rollout_model(pctrl.optimizer)
     assert model.plant == "cartpole_fast" and model.fast_math
     with pytest.raises(ValueError, match="no device plant"):
-        dataclasses.replace(model, plant="pendulum_fast")
+        dataclasses.replace(model, plant="quadrotor2d_fast")
 
 
 def test_exact_specs_stay_exact():
