@@ -13,7 +13,8 @@
 // (plants.cuh; with their fast plants) take the single-session kernel
 // alone: short_step.cuh's stage cost and integrate (they have no
 // derivs_short); the emit_terminal and session-row forms stay cartpole's
-// (ops/kernels.py KERNEL_PLANTS).
+// (ops/kernels.py KERNEL_PLANTS).  So do the quadrotor, car and arm
+// plants.
 //
 // K1's emit_terminal form (one session, cost_rollout_emit_kernel, and the
 // session-row form, cost_rollout_emit_rows_kernel) is the body's Emit

@@ -33,6 +33,8 @@
 // takes a `fast` flag, which must match a plant's fast plant and picks, for
 // the point mass, its fast-normals instance (FastNormalsOf: the exact
 // dynamics under the fast normals, JAX's fast_sampling=pred.fast_math).
+// The quadrotor, car and arm plants take the same pass 1, the fast
+// plants over the fast normals.
 //
 // Between the passes, torch computes rho = min S and a = sum exp(-(S-rho)/LBD)
 // on the card and passes them by pointer (red = [rho, a]): no host sync.

@@ -90,16 +90,78 @@
 // 11 floats for the pendulum, 27 for the acrobot (cartpole's 27) and 33 for
 // the point mass, whose adjoint block so takes 33.8 KB of static shared
 // memory.  The value_spec and session-row forms stay cartpole's
-// (ops/kernels.py KERNEL_PLANTS).
+// (ops/kernels.py KERNEL_PLANTS).  The quadrotor, car and arm plants take
+// the same two launches; the adjoint's geometry is the plant's
+// (AdjGeometry): the planar quadrotor's 59 fields a step take 16 steps a
+// chunk, the 3-D quadrotor's 213 four, and its 12 x 16 tangent goes
+// through the period four columns at a time (integrate_jac<Plant, N0>),
+// the primal re-run for each four, where the whole tangent and its rk4
+// stages spilled 5 KB a thread.  Cartpole's and the other plants'
+// instances keep 32 steps, 256 threads and their code.
 #include "rollout_core.cuh"
 #include "value_mlp.cuh"
 
 namespace ctt {
 
 constexpr int kAdjRollouts = 8;                          // rollouts per adjoint block
-constexpr int kAdjSteps = 32;                            // steps per chunk
+constexpr int kAdjSteps = 32;                            // steps per chunk, at most
 constexpr int kAdjThreads = kAdjRollouts * kAdjSteps;    // one item per thread
 constexpr size_t kMaxSmemBytes = 232448;                 // a block's shared memory on sm_90
+constexpr int kStaticSmemBytes = 48 * 1024;              // a block's static shared memory
+
+// The most steps a chunk may hold, halving kAdjSteps until kAdjRollouts
+// rollouts' items of `fields` floats fit the static shared memory.
+constexpr int adj_steps(int fields) {
+  int steps = kAdjSteps;
+  while (steps > 1 && steps * fields * kAdjRollouts * 4 > kStaticSmemBytes) steps /= 2;
+  return steps;
+}
+
+// The adjoint's geometry, a plant trait: an item's fields, [A | B]
+// row-major (S*N), gx (S), gu (U), gprev (U), an odd count keeping a
+// warp's four steps on distinct banks; the steps a chunk (one thread an
+// item, kAdjRollouts rollouts a block).  Every plant to S*N + S + 2U = 47
+// keeps 32 steps and 256 threads (cartpole, pendulum, acrobot: 27 fields;
+// point mass, car, arm: 33); the planar quadrotor's 59 fields take 16 steps
+// (30.2 KB), the 3-D quadrotor's 213 four (27.3 KB, 32 threads a block).
+// kCols, the tangent's columns an item carries through the period at once:
+// all N, but for a tangent of more than 64 entries (the 3-D quadrotor's 12
+// x 16), which would spill, four at a time, the primal re-run for each four
+// (rollout_core.cuh integrate_jac<Plant, N0>; probes/k7_plant_times.py timed 2,
+// 4 and 16 columns, PERF.md).
+template <class Plant>
+struct AdjGeometry {
+  static constexpr int S = Plant::S, U = Plant::U, N = S + U;
+  static constexpr int kGx = S * N, kGu = kGx + S, kGp = kGu + U, kFields = (kGp + U) | 1;
+  static constexpr int kSteps = adj_steps(kFields);
+  static constexpr int kThreads = kAdjRollouts * kSteps;
+  static constexpr int kCols = S * N > 64 ? 4 : N;
+};
+
+// Columns N0.. of step h's [A | B] (kCols at a time), into the item's
+// fields: each chunk integrates the period's tangent from x0.
+template <class Plant, int N0, class Field>
+__device__ __forceinline__ void jac_columns(const float (&x0)[Plant::S],
+                                           const float (&u)[Plant::U], const float* p,
+                                           const StepConsts& c, Field&& field) {
+  constexpr int S = Plant::S, N = S + Plant::U, NC = AdjGeometry<Plant>::kCols;
+  if constexpr (N0 < N) {
+    float x[S], T[S][NC];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      x[i] = x0[i];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) T[i][n] = i == N0 + n ? 1.0f : 0.0f;
+    }
+    integrate_jac<Plant, N0>(x, u, p, c, T);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) field(i * N + N0 + n) = T[i][n];
+    }
+    jac_columns<Plant, N0 + NC>(x0, u, p, c, field);
+  }
+}
 
 // Rollout k from s0 [K, S] under Q [K, H, U], its states x_0..x_H stored
 // to xhist [H+1, S, K]: K1's arithmetic bit for bit (Rollout::advance).
@@ -206,10 +268,10 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
                                                   float* __restrict__ dQ, int K, int ks, int H,
                                                   const StepConsts& c, float ct) {
   constexpr int S = Plant::S, U = Plant::U, N = S + U;
-  // An item's fields: [A | B] row-major (S*N), gx (S), gu (U), gprev (U);
-  // an odd field count keeps a warp's four steps on distinct banks.
-  constexpr int kGx = S * N, kGu = kGx + S, kGp = kGu + U, kFields = (kGp + U) | 1;
-  __shared__ float items[kAdjSteps * kFields * kAdjRollouts];
+  using Geo = AdjGeometry<Plant>;
+  constexpr int kGx = Geo::kGx, kGu = Geo::kGu, kGp = Geo::kGp, kFields = Geo::kFields;
+  constexpr int kSteps = Geo::kSteps;
+  __shared__ float items[kSteps * kFields * kAdjRollouts];
   // The session-row form's parameter rows, one a rollout of the block (a
   // rollout past K reads the last one's).
   __shared__ float rows[Rows ? kAdjRollouts * Plant::kN : 1];
@@ -248,10 +310,10 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
 #pragma unroll
     for (int j = 0; j < U; ++j) gnext[j] = 0.0f;
   }
-  for (int h0 = (H - 1) / kAdjSteps * kAdjSteps; h0 >= 0; h0 -= kAdjSteps) {
+  for (int h0 = (H - 1) / kSteps * kSteps; h0 >= 0; h0 -= kSteps) {
     const int h = h0 + hh;
     if (h < H && live) {
-      float x[S], x0[S], u[U], prev[U], T[S][N];
+      float x[S], x0[S], u[U], prev[U];
 #pragma unroll
       for (int i = 0; i < S; ++i) x0[i] = x[i] = xhist[(static_cast<size_t>(h) * S + i) * K + k];
       const float* q = Q + static_cast<size_t>(k) * H * U;
@@ -260,19 +322,27 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
         u[j] = __ldg(q + h * U + j);
         prev[j] = h > 0 ? __ldg(q + (h - 1) * U + j) : p[Plant::kUPrev + j];
       }
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-#pragma unroll
-        for (int n = 0; n < N; ++n) T[i][n] = i == n ? 1.0f : 0.0f;
-      }
-      integrate_jac<Plant>(x, u, p, c, T);
       float gx[S], gu[U], gp[U];
-      Plant::stage_cost_vjp(x0, u, prev, p, ct, gx, gu, gp);
+      if constexpr (Geo::kCols < N) {
+        jac_columns<Plant, 0>(x0, u, p, c, [&](int f) -> float& { return field(hh, f); });
+        Plant::stage_cost_vjp(x0, u, prev, p, ct, gx, gu, gp);
 #pragma unroll
-      for (int i = 0; i < S; ++i) {
+        for (int i = 0; i < S; ++i) field(hh, kGx + i) = gx[i];
+      } else {
+        float T[S][N];
 #pragma unroll
-        for (int n = 0; n < N; ++n) field(hh, i * N + n) = T[i][n];
-        field(hh, kGx + i) = gx[i];
+        for (int i = 0; i < S; ++i) {
+#pragma unroll
+          for (int n = 0; n < N; ++n) T[i][n] = i == n ? 1.0f : 0.0f;
+        }
+        integrate_jac<Plant>(x, u, p, c, T);
+        Plant::stage_cost_vjp(x0, u, prev, p, ct, gx, gu, gp);
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+#pragma unroll
+          for (int n = 0; n < N; ++n) field(hh, i * N + n) = T[i][n];
+          field(hh, kGx + i) = gx[i];
+        }
       }
 #pragma unroll
       for (int j = 0; j < U; ++j) {
@@ -283,7 +353,7 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
     __syncthreads();
     if (hh == 0 && live) {
       float* dq = dQ + static_cast<size_t>(k) * H * U;
-      const int steps = H - h0 < kAdjSteps ? H - h0 : kAdjSteps;
+      const int steps = H - h0 < kSteps ? H - h0 : kSteps;
       for (int s = steps - 1; s >= 0; --s) {
         float nl[S], du[U];
 #pragma unroll
@@ -311,7 +381,7 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
 }
 
 template <class Plant, bool Rows>
-__global__ void __launch_bounds__(kAdjThreads, 2)
+__global__ void __launch_bounds__(AdjGeometry<Plant>::kThreads, 2)
 grad_cost_adjoint_kernel(const float* __restrict__ Q, const float* __restrict__ pvec,
                          const float* __restrict__ xhist, float* __restrict__ dQ, int K, int ks,
                          int H, StepConsts c, float ct) {
@@ -411,8 +481,8 @@ template <class Plant>
 int launch_grad_adjoint_single(dim3 grid, cudaStream_t st, const float* Q, const float* pvec,
                                const float* xhist, float* dQ, int K, int H, const StepConsts& c,
                                float ct) {
-  grad_cost_adjoint_kernel<Plant, false><<<grid, kAdjThreads, 0, st>>>(Q, pvec, xhist, dQ, K, K,
-                                                                       H, c, ct);
+  grad_cost_adjoint_kernel<Plant, false><<<grid, AdjGeometry<Plant>::kThreads, 0, st>>>(
+      Q, pvec, xhist, dQ, K, K, H, c, ct);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -423,7 +493,8 @@ int grad_blocks_per_sm(bool adjoint) {
   int blocks = 0;
   const cudaError_t e =
       adjoint ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, grad_cost_adjoint_kernel<Plant, false>, kAdjThreads, 0)
+                    &blocks, grad_cost_adjoint_kernel<Plant, false>,
+                    AdjGeometry<Plant>::kThreads, 0)
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                     &blocks, grad_cost_forward_kernel<Plant, false>, kThreads, 0);
   return e == cudaSuccess ? blocks : 0;

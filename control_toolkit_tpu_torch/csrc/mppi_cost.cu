@@ -24,7 +24,8 @@
 // The pendulum, acrobot and point-mass plants (plants.cuh) take this
 // kernel alone, over short_step.cuh's stage cost and integrate; the
 // point mass's two inputs halve the controls-ahead chunk (kDrawControls /
-// U = 32 steps).
+// U = 32 steps).  So do the quadrotor, car and arm plants,
+// the 3-D quadrotor's four inputs to 16 steps.
 //
 // Its emit_terminal form (kernel1_ext_emit, pallas_mppi.py:277; make_cost_run's
 // emit_terminal, :501, :538-560), the main path's kernel under a learned

@@ -145,16 +145,14 @@ __device__ __forceinline__ void integrate_vjp(const float (&x)[Plant::S],
   }
 }
 
-// y = T + c dk over a tangent.
-template <class Plant>
-__device__ __forceinline__ void tangent_axpy(const float (&T)[Plant::S][Plant::S + Plant::U],
-                                             float c,
-                                             const float (&dk)[Plant::S][Plant::S + Plant::U],
-                                             float (&y)[Plant::S][Plant::S + Plant::U]) {
+// y = T + c dk over a tangent's NC columns.
+template <int S, int NC>
+__device__ __forceinline__ void tangent_axpy(const float (&T)[S][NC], float c,
+                                             const float (&dk)[S][NC], float (&y)[S][NC]) {
 #pragma unroll
-  for (int i = 0; i < Plant::S; ++i) {
+  for (int i = 0; i < S; ++i) {
 #pragma unroll
-    for (int n = 0; n < Plant::S + Plant::U; ++n) y[i][n] = T[i][n] + c * dk[i][n];
+    for (int n = 0; n < NC; ++n) y[i][n] = T[i][n] + c * dk[i][n];
   }
 }
 
@@ -165,23 +163,26 @@ __device__ __forceinline__ void tangent_axpy(const float (&T)[Plant::S][Plant::S
 // T + c dk of the stage before, through the plant's Jacobian (its
 // derivs_tangent: J (T; E), the control's rows E = [0 | I]); the period's
 // tangent sums the stages' in the state's order
-// ((dk1 + 2 dk2) + (2 dk3 + dk4)).
-template <class Plant>
+// ((dk1 + 2 dk2) + (2 dk3 + dk4)).  T may hold NC of those columns from
+// column N0 (derivs_tangent<NC, N0>: K7's adjoint over a plant whose whole
+// tangent would not fit in registers, grad_cost_rollout.cu AdjGeometry);
+// x advances the same, so every chunk of columns re-runs the same primal.
+template <class Plant, int N0 = 0, int NC>
 __device__ __forceinline__ void integrate_jac(float (&x)[Plant::S], const float (&u)[Plant::U],
                                               const float* p, const StepConsts& c,
-                                              float (&T)[Plant::S][Plant::S + Plant::U]) {
-  constexpr int S = Plant::S, N = Plant::S + Plant::U;
+                                              float (&T)[Plant::S][NC]) {
+  constexpr int S = Plant::S;
   for (int sub = 0; sub < c.substeps; ++sub) {
-    float k[S], dk[S][N];
-    Plant::derivs_tangent(x, u, p, T, k, dk);
+    float k[S], dk[S][NC];
+    Plant::template derivs_tangent<NC, N0>(x, u, p, T, k, dk);
     if (!c.rk4) {
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = x[i] + c.sub_dt * k[i];
-      tangent_axpy<Plant>(T, c.sub_dt, dk, T);
+      tangent_axpy(T, c.sub_dt, dk, T);
       continue;
     }
     // incr = (k1 + 2 k2) + (2 k3 + k4), and its tangent alike.
-    float incr[S], dincr[S][N], t[S], Tt[S][N];
+    float incr[S], dincr[S][NC], t[S], Tt[S][NC];
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       incr[i] = k[i];
@@ -190,34 +191,34 @@ __device__ __forceinline__ void integrate_jac(float (&x)[Plant::S], const float 
 #pragma unroll
     for (int i = 0; i < S; ++i) {
 #pragma unroll
-      for (int n = 0; n < N; ++n) dincr[i][n] = dk[i][n];
+      for (int n = 0; n < NC; ++n) dincr[i][n] = dk[i][n];
     }
-    tangent_axpy<Plant>(T, c.half_dt, dk, Tt);
-    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k2
+    tangent_axpy(T, c.half_dt, dk, Tt);
+    Plant::template derivs_tangent<NC, N0>(t, u, p, Tt, k, dk);  // k2
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       incr[i] = incr[i] + 2.0f * k[i];
       t[i] = x[i] + c.half_dt * k[i];
 #pragma unroll
-      for (int n = 0; n < N; ++n) dincr[i][n] = dincr[i][n] + 2.0f * dk[i][n];
+      for (int n = 0; n < NC; ++n) dincr[i][n] = dincr[i][n] + 2.0f * dk[i][n];
     }
-    tangent_axpy<Plant>(T, c.half_dt, dk, Tt);
-    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k3
-    float k3[S], dk3[S][N];
+    tangent_axpy(T, c.half_dt, dk, Tt);
+    Plant::template derivs_tangent<NC, N0>(t, u, p, Tt, k, dk);  // k3
+    float k3[S], dk3[S][NC];
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       k3[i] = k[i];
       t[i] = x[i] + c.sub_dt * k[i];
 #pragma unroll
-      for (int n = 0; n < N; ++n) dk3[i][n] = dk[i][n];
+      for (int n = 0; n < NC; ++n) dk3[i][n] = dk[i][n];
     }
-    tangent_axpy<Plant>(T, c.sub_dt, dk, Tt);
-    Plant::derivs_tangent(t, u, p, Tt, k, dk);  // k4
+    tangent_axpy(T, c.sub_dt, dk, Tt);
+    Plant::template derivs_tangent<NC, N0>(t, u, p, Tt, k, dk);  // k4
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       x[i] = x[i] + c.dt6 * (incr[i] + (2.0f * k3[i] + k[i]));
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
+      for (int n = 0; n < NC; ++n) {
         T[i][n] = T[i][n] + c.dt6 * (dincr[i][n] + (2.0f * dk3[i][n] + dk[i][n]));
       }
     }
@@ -270,15 +271,25 @@ constexpr int kPlantAcrobot = 4;       // AcrobotPlant
 constexpr int kPlantAcrobotFast = 5;   // AcrobotFastPlant
 constexpr int kPlantPointmass = 6;     // PointmassPlant
 constexpr int kPlantPointmassObstacles = 7;  // PointmassObstaclePlant
+constexpr int kPlantQuadrotor2D = 8;            // Quadrotor2DPlant
+constexpr int kPlantQuadrotor2DFast = 9;        // Quadrotor2DFastPlant
+constexpr int kPlantQuadrotor3D = 10;           // Quadrotor3DPlant
+constexpr int kPlantQuadrotor3DFast = 11;       // Quadrotor3DFastPlant
+constexpr int kPlantCar = 12;                   // CarPlant
+constexpr int kPlantCarFast = 13;               // CarFastPlant
+constexpr int kPlantCarObstacles = 14;          // CarObstaclePlant
+constexpr int kPlantCarObstaclesFast = 15;      // CarObstacleFastPlant
+constexpr int kPlantArm2 = 16;                  // Arm2Plant
+constexpr int kPlantArm2Fast = 17;              // Arm2FastPlant
 constexpr int kThreads = 128;      // rollouts per block
 
-// f(Plant{}) for the plant of id `plant` among the pendulum, acrobot and
-// point-mass plants, which K1, K2, K3 and K7 carry in their plain entries
-// alone (ops/kernels.py KERNEL_PLANTS); cudaErrorInvalidValue for any
-// other id.  Host code: the entries' switches call it for every id but
-// cartpole's.
+// f(Plant{}) for the plant of id `plant` among the pendulum, acrobot,
+// point-mass, quadrotor, car and arm plants, which K1, K2, K3 and K7 carry
+// in their plain entries alone (ops/kernels.py KERNEL_PLANTS);
+// cudaErrorInvalidValue for any other id.  Host code: the entries'
+// switches call it for every id but cartpole's.
 inline bool is_slice_plant(int plant) {
-  return plant >= kPlantPendulum && plant <= kPlantPointmassObstacles;
+  return plant >= kPlantPendulum && plant <= kPlantArm2Fast;
 }
 
 template <class F>
@@ -296,6 +307,26 @@ int with_slice_plant(int plant, F&& f) {
       return f(PointmassPlant{});
     case kPlantPointmassObstacles:
       return f(PointmassObstaclePlant{});
+    case kPlantQuadrotor2D:
+      return f(Quadrotor2DPlant{});
+    case kPlantQuadrotor2DFast:
+      return f(Quadrotor2DFastPlant{});
+    case kPlantQuadrotor3D:
+      return f(Quadrotor3DPlant{});
+    case kPlantQuadrotor3DFast:
+      return f(Quadrotor3DFastPlant{});
+    case kPlantCar:
+      return f(CarPlant{});
+    case kPlantCarFast:
+      return f(CarFastPlant{});
+    case kPlantCarObstacles:
+      return f(CarObstaclePlant{});
+    case kPlantCarObstaclesFast:
+      return f(CarObstacleFastPlant{});
+    case kPlantArm2:
+      return f(Arm2Plant{});
+    case kPlantArm2Fast:
+      return f(Arm2FastPlant{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -12,12 +12,13 @@ the per-step Jacobians, in forward mode, of K7's time-parallel adjoint.
 The cartpole plant's are written over its trig's values and derivatives
 (``exact_sincos_d``); the fast plant's (``cartpole_fast_derivs_*``) take
 ops/fastmath.py's polynomials and their derivatives.  The pendulum,
-acrobot and pointmass plants' are written as their Jacobian's two
-nontrivial rows (``*_derivs_jac``; the other rows are the unit rows of the
-velocities), from which their VJPs contract (``_vjp_from_jac``); their
-costs' gradients (``*_stage_vjp``, ``*_terminal_grad``) take a
-``maximum``'s tie at 0 as ``jax.vjp`` does, half the cotangent to each
-side (``_tie``).
+acrobot, pointmass, quadrotor2d, quadrotor3d, car and arm2 plants' are
+written as their Jacobian's nontrivial rows (``*_derivs_jac``; the other
+rows are the unit rows of the velocities), from which their VJPs contract
+(``_vjp_from_jac``); their costs' gradients (``*_stage_vjp``,
+``*_terminal_grad``) and the quadrotor3d's clamped secant
+(``secant_clamp_d``) take a ``maximum``'s or ``minimum``'s tie as
+``jax.vjp`` does, half the cotangent to each side (``_tie``).
 ``mlp_step_vjp`` is the learned MLP step's adjoint over the net's weight
 dict, transcribed into ``csrc/mlp_mma.cuh``;
 ``residual_step_vjp`` (the ``"ODE+res"`` step) combines it with the
@@ -417,6 +418,360 @@ def pointmass_obstacle_terminal_grad(xs: Tuple, p, ct) -> Tuple:
     return (gx[0] + ox, gx[1] + oy, gx[2], gx[3])
 
 
+
+def quadrotor2d_derivs_jac(xs: Tuple, us: Tuple, p,
+                           sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_quadrotor2d_derivs at (x, u), J =
+    d f / d(x, u) ``[K, 6, 8]``: the accelerations' rows (2, 3) and the
+    pitch acceleration's (5); the others are the unit rows of vx, vz and
+    omega."""
+    _, _, vx, vz, theta, omega = xs
+    u_max = p["d_u_max"]
+    t1 = us[0] * u_max
+    t2 = us[1] * u_max
+    thrust = t1 + t2
+    sin_t, cos_t, dsin, ndcos = sincos_d(theta)
+    inv_m = 1.0 / p["d_m"]
+    drag = p["d_drag"]
+    ax = (-thrust * sin_t - drag * vx) * inv_m
+    az = (thrust * cos_t - drag * vz) * inv_m - p["d_g"]
+    ka = p["d_arm"] / p["d_I"]
+    alpha = (t2 - t1) * ka
+    zero, one = torch.zeros_like(vx), torch.ones_like(vx)
+    dv = zero - drag * inv_m
+    ax_u = -(u_max * sin_t) * inv_m
+    az_u = u_max * cos_t * inv_m
+    al_u = zero + u_max * ka
+    rows = ((zero, zero, one, zero, zero, zero, zero, zero),
+            (zero, zero, zero, one, zero, zero, zero, zero),
+            (zero, zero, dv, zero, -(thrust * dsin) * inv_m, zero, ax_u, ax_u),
+            (zero, zero, zero, dv, -(thrust * ndcos) * inv_m, zero, az_u, az_u),
+            (zero, zero, zero, zero, zero, one, zero, zero),
+            (zero, zero, zero, zero, zero, zero, -al_u, al_u))
+    return (vx, vz, ax, az, omega, alpha), _jac_rows(rows)
+
+
+def secant_clamp_d(c_th):
+    """``(c_safe, d c_safe / d c_th)`` of models/dynamics.py's clamped
+    secant, ``where(c >= 0, maximum(c, 0.15), minimum(c, -0.15))``, its
+    derivative as ``jax.vjp`` takes it: 1 where the clamp passes c, 0 where
+    it holds, 1/2 at c = +-0.15 (``maximum``/``minimum`` split a tie), and
+    at c = 0 the first branch's (0)."""
+    lo, hi = torch.full_like(c_th, -0.15), torch.full_like(c_th, 0.15)
+    pos = c_th >= 0.0
+    safe = torch.where(pos, torch.maximum(c_th, hi), torch.minimum(c_th, lo))
+    d_pos = _tie(c_th - hi)
+    d_neg = _tie(lo - c_th)
+    return safe, torch.where(pos, d_pos, d_neg)
+
+
+def quadrotor3d_derivs_jac(xs: Tuple, us: Tuple, p,
+                           sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_quadrotor3d_derivs at (x, u), J =
+    d f / d(x, u) ``[K, 12, 16]``: rows 3-5 (the world accelerations:
+    thrust direction A, B, C of the three angles), 6-8 (the Euler-rate
+    kinematics over the clamped secant, ``secant_clamp_d``) and 9-11 (the
+    body-rate dynamics); rows 0-2 are the unit rows of the velocities."""
+    _, _, _, vx, vy, vz, phi, theta, psi, wp, wq, wr = xs
+    u_max = p["d_u_max"]
+    t1, t2, t3, t4 = (u * u_max for u in us)
+    thrust = t1 + t2 + t3 + t4
+    s_ph, c_ph, ds_ph, ndc_ph = sincos_d(phi)
+    s_th, c_th, ds_th, ndc_th = sincos_d(theta)
+    s_ps, c_ps, ds_ps, ndc_ps = sincos_d(psi)
+    inv_m, drag = 1.0 / p["d_m"], p["d_drag"]
+    A = c_ph * s_th * c_ps + s_ph * s_ps
+    B = c_ph * s_th * s_ps - s_ph * c_ps
+    C = c_ph * c_th
+    ax = (thrust * A - drag * vx) * inv_m
+    ay = (thrust * B - drag * vy) * inv_m
+    az = (thrust * C - drag * vz) * inv_m - p["d_g"]
+    cs, dcs = secant_clamp_d(c_th)
+    dcs = -(dcs * ndc_th)                     # d c_safe / d theta
+    tan_th = s_th / cs
+    wn = s_ph * wq + c_ph * wr
+    phi_d = wp + wn * tan_th
+    theta_d = c_ph * wq - s_ph * wr
+    psi_d = wn / cs
+    Ix, Iy, Iz, arm = p["d_Ix"], p["d_Iy"], p["d_Iz"], p["d_arm"]
+    tau_x = arm * (t2 - t4)
+    tau_y = arm * (t3 - t1)
+    tau_z = p["d_k_yaw"] * (t1 - t2 + t3 - t4)
+    wp_d = ((Iy - Iz) * wq * wr + tau_x) / Ix
+    wq_d = ((Iz - Ix) * wp * wr + tau_y) / Iy
+    wr_d = ((Ix - Iy) * wp * wq + tau_z) / Iz
+    f = (vx, vy, vz, ax, ay, az, phi_d, theta_d, psi_d, wp_d, wq_d, wr_d)
+
+    zero = torch.zeros_like(vx)
+    J = [[zero] * 16 for _ in range(12)]
+    for i in range(3):
+        J[i][3 + i] = zero + 1.0
+    # the thrust direction's partials in phi, theta, psi
+    dA = (ds_ph * s_ps - ndc_ph * s_th * c_ps, c_ph * ds_th * c_ps,
+          s_ph * ds_ps - c_ph * s_th * ndc_ps)
+    dB = (-(ndc_ph * s_th * s_ps) - ds_ph * c_ps, c_ph * ds_th * s_ps,
+          c_ph * s_th * ds_ps + s_ph * ndc_ps)
+    dC = (-(ndc_ph * c_th), -(c_ph * ndc_th), zero)
+    dv = zero - drag * inv_m
+    for i, (d, dir_) in enumerate(((dA, A), (dB, B), (dC, C))):
+        J[3 + i][3 + i] = dv
+        for a in range(3):
+            J[3 + i][6 + a] = thrust * d[a] * inv_m
+        for j in range(4):
+            J[3 + i][12 + j] = u_max * dir_ * inv_m
+    # Euler rates
+    dwn = ds_ph * wq - ndc_ph * wr             # d wn / d phi
+    dtan = (ds_th - tan_th * dcs) / cs         # d tan / d theta
+    J[6][6], J[6][7], J[6][9] = dwn * tan_th, wn * dtan, zero + 1.0
+    J[6][10], J[6][11] = s_ph * tan_th, c_ph * tan_th
+    J[7][6], J[7][10], J[7][11] = -(ndc_ph * wq) - ds_ph * wr, c_ph, -s_ph
+    J[8][6], J[8][7] = dwn / cs, -(psi_d * dcs) / cs
+    J[8][10], J[8][11] = s_ph / cs, c_ph / cs
+    # body rates
+    J[9][10], J[9][11] = (Iy - Iz) * wr / Ix, (Iy - Iz) * wq / Ix
+    J[10][9], J[10][11] = (Iz - Ix) * wr / Iy, (Iz - Ix) * wp / Iy
+    J[11][9], J[11][10] = (Ix - Iy) * wq / Iz, (Ix - Iy) * wp / Iz
+    kx, ky, kz = arm * u_max / Ix, arm * u_max / Iy, p["d_k_yaw"] * u_max / Iz
+    J[9][13], J[9][15] = zero + kx, zero - kx
+    J[10][14], J[10][12] = zero + ky, zero - ky
+    J[11][12], J[11][13], J[11][14], J[11][15] = zero + kz, zero - kz, zero + kz, zero - kz
+    return f, _jac_rows(J)
+
+
+def car_derivs_jac(xs: Tuple, us: Tuple, p,
+                   sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_car_derivs at (x, u), J = d f /
+    d(x, u) ``[K, 4, 6]``: tan(steer) = s / c differentiated by the
+    quotient rule over the trig's own derivatives."""
+    _, _, yaw, v = xs
+    smax, wb, vmax, drag = p["d_steer_max"], p["d_wheelbase"], p["d_v_max"], p["d_drag"]
+    steer = us[0] * smax
+    accel = us[1] * p["d_accel_max"]
+    s_y, c_y, ds_y, ndc_y = sincos_d(yaw)
+    s_d, c_d, ds_d, ndc_d = sincos_d(steer)
+    tan_d = s_d / c_d
+    r = v / vmax
+    f = (v * c_y, v * s_y, v * tan_d / wb, accel - drag * v * (1.0 + r**2))
+    dtan = (ds_d * c_d + s_d * ndc_d) / (c_d * c_d)
+    zero = torch.zeros_like(v)
+    rows = ((zero, zero, -(v * ndc_y), c_y, zero, zero),
+            (zero, zero, v * ds_y, s_y, zero, zero),
+            (zero, zero, zero, tan_d / wb, v * dtan * smax / wb, zero),
+            (zero, zero, zero, -drag * (1.0 + r**2) - drag * v * 2.0 * r / vmax, zero,
+             zero + p["d_accel_max"]))
+    return f, _jac_rows(rows)
+
+
+def arm2_derivs_jac(xs: Tuple, us: Tuple, p,
+                    sincos_d: Callable = exact_sincos_d) -> Tuple[Tuple, torch.Tensor]:
+    """``(f, J)`` for models/dynamics.py:_arm2_derivs at (x, u), J = d f /
+    d(x, u) ``[K, 4, 6]``: t1dd = (M22 r1 - M12 r2) / det and t2dd = (M11 r2
+    - M12 r1) / det by the quotient rule, the inertia terms depending on
+    theta2 alone (dM11 = -2 h ndcos2, dM12 = -h ndcos2)."""
+    t1, t1d, t2, t2d = xs
+    u_max = p["d_u_max"]
+    m1, m2, l1 = p["d_m1"], p["d_m2"], p["d_l1"]
+    lc1, lc2, I1, I2, g, b = p["d_lc1"], p["d_lc2"], p["d_I1"], p["d_I2"], p["d_g"], p["d_b"]
+    s2, c2, ds2, ndc2 = sincos_d(t2)
+    s1, _, ds1, _ = sincos_d(t1)
+    s12, _, ds12, _ = sincos_d(t1 + t2)
+    h = m2 * l1 * lc2
+    M11 = m1 * lc1**2 + m2 * (l1**2 + lc2**2 + 2 * l1 * lc2 * c2) + I1 + I2
+    M12 = m2 * (lc2**2 + l1 * lc2 * c2) + I2
+    M22 = m2 * lc2**2 + I2
+    dM11, dM12 = -(2.0 * h * ndc2), -(h * ndc2)
+    k1, k2 = (m1 * lc1 + m2 * l1) * g, m2 * lc2 * g
+    vv = t2d**2 + 2.0 * t1d * t2d
+    r1 = us[0] * u_max + h * s2 * vv - (k1 * s1 + k2 * s12) - b * t1d
+    r2 = us[1] * u_max - h * s2 * t1d**2 - k2 * s12 - b * t2d
+    det = M11 * M22 - M12 * M12
+    t1dd = (M22 * r1 - M12 * r2) / det
+    t2dd = (M11 * r2 - M12 * r1) / det
+    zero = torch.zeros_like(t1)
+    # r1's and r2's partials in (t1, t1d, t2, t2d, u1, u2)
+    dr1 = (-(k1 * ds1 + k2 * ds12), h * s2 * 2.0 * t2d - b, h * ds2 * vv - k2 * ds12,
+           h * s2 * (2.0 * t2d + 2.0 * t1d), zero + u_max, zero)
+    dr2 = (-(k2 * ds12), -(h * s2 * 2.0 * t1d), -(h * ds2 * t1d**2) - k2 * ds12, zero - b,
+           zero, zero + u_max)
+    ddet = dM11 * M22 - 2.0 * M12 * dM12       # d det / d t2
+    a, c = [], []
+    for n in range(6):
+        dn1 = M22 * dr1[n] - M12 * dr2[n]
+        dn2 = M11 * dr2[n] - M12 * dr1[n]
+        if n == 2:
+            dn1 = dn1 - dM12 * r2
+            dn2 = dn2 + dM11 * r2 - dM12 * r1
+            a.append((dn1 - t1dd * ddet) / det)
+            c.append((dn2 - t2dd * ddet) / det)
+        else:
+            a.append(dn1 / det)
+            c.append(dn2 / det)
+    one = torch.ones_like(t1)
+    rows = ((zero, one, zero, zero, zero, zero), tuple(a),
+            (zero, zero, zero, one, zero, zero), tuple(c))
+    return (t1d, t1dd, t2d, t2dd), _jac_rows(rows)
+
+
+def quadrotor2d_fast_derivs_jac(xs, us, p):
+    return quadrotor2d_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def quadrotor3d_fast_derivs_jac(xs, us, p):
+    return quadrotor3d_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def car_fast_derivs_jac(xs, us, p):
+    return car_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def arm2_fast_derivs_jac(xs, us, p):
+    return arm2_derivs_jac(xs, us, p, fast_sincos_d)
+
+
+def _control_grads(us, prev_us, p, ct, cc_of):
+    """``(gu, gprev)`` of a stage cost whose control part has the gradient
+    ``cc_of(j, u)`` in u_j, plus ``ccrc_weight * (u - prev)^2``."""
+    ccrc = 2.0 * p["c_ccrc_weight"]
+    gu, gprev = [], []
+    for j, (u, pu) in enumerate(zip(us, prev_us)):
+        dchange = ct * ccrc * (u - pu)
+        gu.append(ct * cc_of(j, u) + dchange)
+        gprev.append(-dchange)
+    return tuple(gu), tuple(gprev)
+
+
+def _hover_cc(p):
+    cc = 2.0 * p["c_cc_weight"]
+    return lambda j, u: cc * (u - p["c_hover_thrust"])
+
+
+def quadrotor2d_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the quadrotor2d/default stage cost
+    (costs/quadrotor2d.py) with its control-change term."""
+    x, z, vx, vz, theta, omega = xs
+    pw, vw = 2.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"]
+    gx = (ct * pw * (x - p["a_target_x"]), ct * pw * (z - p["a_target_z"]), ct * vw * vx,
+          ct * vw * vz, ct * p["c_tilt_weight"] * theta.sin(),
+          ct * (2.0 * p["c_rate_weight"]) * omega)
+    return (gx, *_control_grads(us, prev_us, p, ct, _hover_cc(p)))
+
+
+def quadrotor2d_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    x, z, vx, vz, theta, omega = xs
+    pw, vw = 20.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"]
+    return (ct * pw * (x - p["a_target_x"]), ct * pw * (z - p["a_target_z"]), ct * vw * vx,
+            ct * vw * vz, ct * (10.0 * p["c_tilt_weight"]) * theta.sin(), torch.zeros_like(omega))
+
+
+def quadrotor3d_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the quadrotor3d/default stage cost
+    (costs/quadrotor3d.py) with its control-change term."""
+    pw, vw = 2.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"]
+    tw, rw = p["c_tilt_weight"], 2.0 * p["c_rate_weight"]
+    targets = (p["a_target_x"], p["a_target_y"], p["a_target_z"])
+    gx = (tuple(ct * pw * (xs[i] - targets[i]) for i in range(3))
+          + tuple(ct * vw * xs[3 + i] for i in range(3))
+          + (ct * tw * xs[6].sin(), ct * tw * xs[7].sin(),
+             ct * p["c_yaw_weight"] * (xs[8] - p["a_target_yaw"]).sin())
+          + tuple(ct * rw * xs[9 + i] for i in range(3)))
+    return (gx, *_control_grads(us, prev_us, p, ct, _hover_cc(p)))
+
+
+def quadrotor3d_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    pw, vw, tw = 20.0 * p["c_pos_weight"], 2.0 * p["c_vel_weight"], 10.0 * p["c_tilt_weight"]
+    targets = (p["a_target_x"], p["a_target_y"], p["a_target_z"])
+    zero = torch.zeros_like(xs[0])
+    return (tuple(ct * pw * (xs[i] - targets[i]) for i in range(3))
+            + tuple(ct * vw * xs[3 + i] for i in range(3))
+            + (ct * tw * xs[6].sin(), ct * tw * xs[7].sin(), zero, zero, zero, zero))
+
+
+def _car_terms_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` costs/car.py:_terms (pos_weight d2 + vel_weight
+    near v^2, near = r2 / (r2 + d2)) in (x, y, yaw, v)."""
+    x, y, yaw, v = xs
+    dx, dy = x - p["a_target_x"], y - p["a_target_y"]
+    d2 = dx * dx + dy * dy
+    r2 = p["c_arrive_radius"] * p["c_arrive_radius"]
+    near = r2 / (r2 + d2)
+    vw = p["c_vel_weight"]
+    coef = 2.0 * (p["c_pos_weight"] - vw * (v * v) * near / (r2 + d2))
+    return (ct * coef * dx, ct * coef * dy, torch.zeros_like(yaw), ct * (2.0 * vw) * near * v)
+
+
+def car_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the car/default stage cost (costs/car.py):
+    steer_weight u0^2 + cc_weight u1^2, the control-change term."""
+    w = (2.0 * p["c_steer_weight"], 2.0 * p["c_cc_weight"])
+    return (_car_terms_grad(xs, p, ct),
+            *_control_grads(us, prev_us, p, ct, lambda j, u: w[j] * u))
+
+
+def car_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` 10 * costs/car.py:_terms."""
+    return _car_terms_grad(xs, p, 10.0 * ct)
+
+
+def car_obstacle_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the car/obstacles stage cost."""
+    gx, gu, gprev = car_stage_vjp(xs, us, prev_us, p, ct)
+    ox, oy = obstacle_penalty_grad(xs[0], xs[1], p, ct)
+    return (gx[0] + ox, gx[1] + oy, gx[2], gx[3]), gu, gprev
+
+
+def car_obstacle_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    """Gradient of ``ct *`` the car/obstacles terminal cost."""
+    gx = car_terminal_grad(xs, p, ct)
+    ox, oy = obstacle_penalty_grad(xs[0], xs[1], p, ct)
+    return (gx[0] + ox, gx[1] + oy, gx[2], gx[3])
+
+
+def _arm2_pos_grad(t1, t2, p, c):
+    """Gradient of ``c * |fingertip - target|^2`` (costs/arm2.py over
+    models/dynamics.py:arm2_end_effector) in (theta1, theta2)."""
+    l1, l2 = p["c_l1"], p["c_l2"]
+    s1, co1, s12, c12 = t1.sin(), t1.cos(), (t1 + t2).sin(), (t1 + t2).cos()
+    ex = l1 * s1 + l2 * s12 - p["a_target_x"]
+    ey = -l1 * co1 - l2 * c12 - p["a_target_y"]
+    g2 = c * (ex * (l2 * c12) + ey * (l2 * s12))
+    return c * (ex * (l1 * co1) + ey * (l1 * s1)) + g2, g2
+
+
+def arm2_stage_vjp(xs: Tuple, us: Tuple, prev_us: Tuple, p, ct):
+    """Gradient of ``ct *`` the arm2/default stage cost (costs/arm2.py)
+    with its control-change term."""
+    t1, t1d, t2, t2d = xs
+    g1, g2 = _arm2_pos_grad(t1, t2, p, ct * (2.0 * p["c_pos_weight"]))
+    vw = 2.0 * p["c_vel_weight"]
+    cc = 2.0 * p["c_cc_weight"] * p["c_R"]
+    return ((g1, ct * vw * t1d, g2, ct * vw * t2d),
+            *_control_grads(us, prev_us, p, ct, lambda j, u: cc * u))
+
+
+def arm2_terminal_grad(xs: Tuple, p, ct) -> Tuple:
+    t1, t1d, t2, t2d = xs
+    g1, g2 = _arm2_pos_grad(t1, t2, p, ct * (20.0 * p["c_pos_weight"]))
+    vw = 2.0 * p["c_vel_weight"]
+    return (g1, ct * vw * t1d, g2, ct * vw * t2d)
+
+
+def _vjp_of(derivs_jac: Callable) -> Callable:
+    def derivs_vjp(xs, us, p, lam):
+        return _vjp_from_jac(derivs_jac, xs, us, p, lam)
+
+    derivs_vjp.__name__ = derivs_jac.__name__.replace("_jac", "_vjp")
+    return derivs_vjp
+
+
+quadrotor2d_derivs_vjp = _vjp_of(quadrotor2d_derivs_jac)
+quadrotor2d_fast_derivs_vjp = _vjp_of(quadrotor2d_fast_derivs_jac)
+quadrotor3d_derivs_vjp = _vjp_of(quadrotor3d_derivs_jac)
+quadrotor3d_fast_derivs_vjp = _vjp_of(quadrotor3d_fast_derivs_jac)
+car_derivs_vjp = _vjp_of(car_derivs_jac)
+car_fast_derivs_vjp = _vjp_of(car_fast_derivs_jac)
+arm2_derivs_vjp = _vjp_of(arm2_derivs_jac)
+arm2_fast_derivs_vjp = _vjp_of(arm2_fast_derivs_jac)
+
 # Device plant -> (derivs_vjp, stage_vjp, terminal_grad): the plants whose
 # rollout K7 can differentiate.  A fast plant's cost is the exact one: the
 # JAX costs call jnp.cos whatever the plant.
@@ -430,6 +785,19 @@ PLANT_ADJOINTS = {
     "pointmass": (pointmass_derivs_vjp, pointmass_stage_vjp, pointmass_terminal_grad),
     "pointmass_obstacles": (pointmass_derivs_vjp, pointmass_obstacle_stage_vjp,
                             pointmass_obstacle_terminal_grad),
+    "quadrotor2d": (quadrotor2d_derivs_vjp, quadrotor2d_stage_vjp, quadrotor2d_terminal_grad),
+    "quadrotor2d_fast": (quadrotor2d_fast_derivs_vjp, quadrotor2d_stage_vjp,
+                         quadrotor2d_terminal_grad),
+    "quadrotor3d": (quadrotor3d_derivs_vjp, quadrotor3d_stage_vjp, quadrotor3d_terminal_grad),
+    "quadrotor3d_fast": (quadrotor3d_fast_derivs_vjp, quadrotor3d_stage_vjp,
+                         quadrotor3d_terminal_grad),
+    "car": (car_derivs_vjp, car_stage_vjp, car_terminal_grad),
+    "car_fast": (car_fast_derivs_vjp, car_stage_vjp, car_terminal_grad),
+    "car_obstacles": (car_derivs_vjp, car_obstacle_stage_vjp, car_obstacle_terminal_grad),
+    "car_obstacles_fast": (car_fast_derivs_vjp, car_obstacle_stage_vjp,
+                           car_obstacle_terminal_grad),
+    "arm2": (arm2_derivs_vjp, arm2_stage_vjp, arm2_terminal_grad),
+    "arm2_fast": (arm2_fast_derivs_vjp, arm2_stage_vjp, arm2_terminal_grad),
 }
 # Device plant -> its derivs_jac (K7's adjoint: the Jacobians' forward mode).
 PLANT_JACOBIANS = {
@@ -441,6 +809,16 @@ PLANT_JACOBIANS = {
     "acrobot_fast": acrobot_fast_derivs_jac,
     "pointmass": pointmass_derivs_jac,
     "pointmass_obstacles": pointmass_derivs_jac,
+    "quadrotor2d": quadrotor2d_derivs_jac,
+    "quadrotor2d_fast": quadrotor2d_fast_derivs_jac,
+    "quadrotor3d": quadrotor3d_derivs_jac,
+    "quadrotor3d_fast": quadrotor3d_fast_derivs_jac,
+    "car": car_derivs_jac,
+    "car_fast": car_fast_derivs_jac,
+    "car_obstacles": car_derivs_jac,
+    "car_obstacles_fast": car_fast_derivs_jac,
+    "arm2": arm2_derivs_jac,
+    "arm2_fast": arm2_fast_derivs_jac,
 }
 
 

@@ -55,16 +55,27 @@ NVCC_FLAGS = (
 # Pointmass has no trig: its exact dynamics double as the fast ones
 # (EXACT_IS_FAST), so a ``:fast`` pointmass predictor keeps the exact
 # plant, and only K3, which draws the fast normals over it, takes the
-# fast flag (``RolloutModel.fast_sampling``).
+# fast flag (``RolloutModel.fast_sampling``).  The car's fast dynamics
+# differ from its exact ones, so car/obstacles has a fast plant of its
+# own (``car_obstacles_fast``), as every (dynamics, cost) pair over a trig
+# plant does.
 PLANT_IDS = {"cartpole": 0, "cartpole_fast": 1, "pendulum": 2, "pendulum_fast": 3,
-             "acrobot": 4, "acrobot_fast": 5, "pointmass": 6, "pointmass_obstacles": 7}
+             "acrobot": 4, "acrobot_fast": 5, "pointmass": 6, "pointmass_obstacles": 7,
+             "quadrotor2d": 8, "quadrotor2d_fast": 9, "quadrotor3d": 10, "quadrotor3d_fast": 11,
+             "car": 12, "car_fast": 13, "car_obstacles": 14, "car_obstacles_fast": 15,
+             "arm2": 16, "arm2_fast": 17}
 FAST_PLANTS = {"cartpole": "cartpole_fast", "pendulum": "pendulum_fast",
-               "acrobot": "acrobot_fast"}  # plant -> its fast plant
+               "acrobot": "acrobot_fast", "quadrotor2d": "quadrotor2d_fast",
+               "quadrotor3d": "quadrotor3d_fast", "car": "car_fast",
+               "car_obstacles": "car_obstacles_fast", "arm2": "arm2_fast"}  # plant -> fast plant
 EXACT_IS_FAST = frozenset({"pointmass", "pointmass_obstacles"})
-PLANT_DIMS = {"cartpole": (4, 1), "cartpole_fast": (4, 1), "pendulum": (2, 1),
-              "pendulum_fast": (2, 1), "acrobot": (4, 1), "acrobot_fast": (4, 1),
-              "pointmass": (4, 2), "pointmass_obstacles": (4, 2)}  # (S, U)
+PLANT_DIMS = {"cartpole": (4, 1), "pendulum": (2, 1), "acrobot": (4, 1),
+              "pointmass": (4, 2), "pointmass_obstacles": (4, 2), "quadrotor2d": (6, 2),
+              "quadrotor3d": (12, 4), "car": (4, 2), "car_obstacles": (4, 2),
+              "arm2": (4, 2)}  # (S, U)
 _POINTMASS_DYN = ("d_drag", "d_mass", "d_u_max")
+_CAR_DYN = ("d_accel_max", "d_drag", "d_steer_max", "d_v_max", "d_wheelbase")
+_OBSTACLE_ATTRS = tuple(f"a_obs{i}_{c}" for i in range(3) for c in ("r", "x", "y"))
 DYN_PARAM_KEYS = {
     "cartpole": ("d_L", "d_friction_cart", "d_friction_pole", "d_g", "d_m_cart",
                  "d_m_pole", "d_u_max"),
@@ -73,6 +84,13 @@ DYN_PARAM_KEYS = {
                 "d_u_max"),
     "pointmass": _POINTMASS_DYN,
     "pointmass_obstacles": _POINTMASS_DYN,
+    "quadrotor2d": ("d_I", "d_arm", "d_drag", "d_g", "d_m", "d_u_max"),
+    "quadrotor3d": ("d_Ix", "d_Iy", "d_Iz", "d_arm", "d_drag", "d_g", "d_k_yaw", "d_m",
+                    "d_u_max"),
+    "car": _CAR_DYN,
+    "car_obstacles": _CAR_DYN,
+    "arm2": ("d_I1", "d_I2", "d_b", "d_g", "d_l1", "d_l2", "d_lc1", "d_lc2", "d_m1", "d_m2",
+             "d_u_max"),
 }
 COST_PARAM_KEYS = {
     "cartpole": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_dd_weight", "c_ekp_weight",
@@ -86,11 +104,27 @@ COST_PARAM_KEYS = {
     "pointmass_obstacles": (
         "c_R", "c_cc_weight", "c_ccrc_weight", "c_clearance", "c_obstacle_weight",
         "c_pos_weight", "c_vel_weight",
-        *(f"a_obs{i}_{c}" for i in range(3) for c in ("r", "x", "y")),
-        "a_target_x", "a_target_y", "__u_prev_0", "__u_prev_1"),
+        *_OBSTACLE_ATTRS, "a_target_x", "a_target_y", "__u_prev_0", "__u_prev_1"),
+    "quadrotor2d": ("c_cc_weight", "c_ccrc_weight", "c_hover_thrust", "c_pos_weight",
+                    "c_rate_weight", "c_tilt_weight", "c_vel_weight", "a_target_x", "a_target_z",
+                    "__u_prev_0", "__u_prev_1"),
+    "quadrotor3d": ("c_cc_weight", "c_ccrc_weight", "c_hover_thrust", "c_pos_weight",
+                    "c_rate_weight", "c_tilt_weight", "c_vel_weight", "c_yaw_weight",
+                    "a_target_x", "a_target_y", "a_target_yaw", "a_target_z",
+                    *(f"__u_prev_{j}" for j in range(4))),
+    "car": ("c_arrive_radius", "c_cc_weight", "c_ccrc_weight", "c_pos_weight",
+            "c_steer_weight", "c_vel_weight", "a_target_x", "a_target_y", "__u_prev_0",
+            "__u_prev_1"),
+    "car_obstacles": (
+        "c_arrive_radius", "c_cc_weight", "c_ccrc_weight", "c_clearance", "c_obstacle_weight",
+        "c_pos_weight", "c_steer_weight", "c_vel_weight", *_OBSTACLE_ATTRS, "a_target_x",
+        "a_target_y", "__u_prev_0", "__u_prev_1"),
+    "arm2": ("c_R", "c_cc_weight", "c_ccrc_weight", "c_l1", "c_l2", "c_pos_weight",
+             "c_vel_weight", "a_target_x", "a_target_y", "__u_prev_0", "__u_prev_1"),
 }
 for _env, _fast in FAST_PLANTS.items():
     DYN_PARAM_KEYS[_fast], COST_PARAM_KEYS[_fast] = DYN_PARAM_KEYS[_env], COST_PARAM_KEYS[_env]
+    PLANT_DIMS[_fast] = PLANT_DIMS[_env]
 PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for plant in PLANT_IDS}
 
 # Which kernel entries carry which plant instances (the C entries' switches

@@ -40,9 +40,13 @@ from __future__ import annotations
 import numpy as np
 
 from control_toolkit_tpu_torch.costs.acrobot import AcrobotSwingupCost
+from control_toolkit_tpu_torch.costs.arm2 import Arm2ReachCost
+from control_toolkit_tpu_torch.costs.car import CarObstacleCost, CarWaypointCost
 from control_toolkit_tpu_torch.costs.cartpole import CartpoleQuadraticCost
 from control_toolkit_tpu_torch.costs.pendulum import PendulumQuadraticCost
 from control_toolkit_tpu_torch.costs.pointmass import PointMassObstacleCost, PointMassQuadraticCost
+from control_toolkit_tpu_torch.costs.quadrotor2d import Quadrotor2DWaypointCost
+from control_toolkit_tpu_torch.costs.quadrotor3d import Quadrotor3DWaypointCost
 from control_toolkit_tpu_torch.models.predictors import ODEPredictor
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.adjoints import PLANT_ADJOINTS
@@ -58,13 +62,18 @@ from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
 name = "ode"
 
 # Environment -> {cost class: the device plant that evaluates its terms
-# over the environment's dynamics}.
+# over the environment's dynamics}; the lookup is by exact type, so
+# CarObstacleCost, a CarWaypointCost subclass, finds its own plant.
 DEVICE_COSTS = {
     "cartpole": {CartpoleQuadraticCost: "cartpole"},
     "pendulum": {PendulumQuadraticCost: "pendulum"},
     "acrobot": {AcrobotSwingupCost: "acrobot"},
     "pointmass": {PointMassQuadraticCost: "pointmass",
                   PointMassObstacleCost: "pointmass_obstacles"},
+    "quadrotor2d": {Quadrotor2DWaypointCost: "quadrotor2d"},
+    "quadrotor3d": {Quadrotor3DWaypointCost: "quadrotor3d"},
+    "car": {CarWaypointCost: "car", CarObstacleCost: "car_obstacles"},
+    "arm2": {Arm2ReachCost: "arm2"},
 }
 
 

@@ -68,6 +68,10 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.costs.pendulum",
     "control_toolkit_tpu_torch.costs.acrobot",
     "control_toolkit_tpu_torch.costs.pointmass",
+    "control_toolkit_tpu_torch.costs.quadrotor2d",
+    "control_toolkit_tpu_torch.costs.quadrotor3d",
+    "control_toolkit_tpu_torch.costs.car",
+    "control_toolkit_tpu_torch.costs.arm2",
     "control_toolkit_tpu_torch.models.predictors",
     "control_toolkit_tpu_torch.models.neural_predictor",
     "control_toolkit_tpu_torch.models.residual_predictor",
@@ -77,6 +81,10 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.environments.pendulum",
     "control_toolkit_tpu_torch.environments.acrobot",
     "control_toolkit_tpu_torch.environments.pointmass",
+    "control_toolkit_tpu_torch.environments.quadrotor2d",
+    "control_toolkit_tpu_torch.environments.quadrotor3d",
+    "control_toolkit_tpu_torch.environments.car",
+    "control_toolkit_tpu_torch.environments.arm2",
 )
 
 

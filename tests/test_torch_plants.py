@@ -1,6 +1,7 @@
-"""The pendulum, acrobot and point-mass plants of the port against the JAX
-package: their dynamics (exact and ``.fast``), the seven cost names, the
-mirrored dynamics keys, the environments, the hand-written adjoints, the
+"""The pendulum, acrobot, point-mass, quadrotor2d, quadrotor3d, car and arm2
+plants of the port against the JAX package: their dynamics (exact and
+``.fast``), the sixteen cost names, the mirrored dynamics keys, the
+environments, the hand-written adjoints, the
 plain versions of K1, K2, K3 and K7 over each (dynamics, cost) plant
 against the JAX kernels in interpret mode, one MPPI and one rpgd-tf update
 fed the JAX draws, and the gates: every path on which the JAX package
@@ -11,7 +12,10 @@ Tolerances, each with its reason:
 
 * the dynamics, costs and environment steps to DERIVS_TOL: the same
   float32 operations in the same order; XLA's and torch's sin and cos
-  differ by an ulp;
+  differ by an ulp; the arm's to ARM2_TOL: its determinant M11 M22 - M12^2
+  cancels, so an ulp that XLA's CPU fusion rounds differently grows to
+  3e-6 relative (torch's value there is the float64 one rounded; both
+  packages lie up to 1.6e-5 from float64 over the seeded states);
 * the adjoints to ``torch.autograd`` in float64 to F64_TOL (rounding
   only), the ``maximum`` ties to ``jax.grad``'s split exactly;
 * the kernels' plain versions and the optimizer steps to the bounds of
@@ -58,6 +62,7 @@ from test_torch_rpgd import MOMENT_TOL, Q_TOL, jax_rpgd_draw
 
 K, H, TILE = 256, 20, 64
 DERIVS_TOL = dict(rtol=2e-6, atol=2e-6)
+ARM2_TOL = dict(rtol=1e-5, atol=1e-5)
 F64_TOL = dict(rtol=1e-10, atol=1e-10)
 OBSTACLES = {"obs0_x": 0.2, "obs0_y": -0.1, "obs0_r": 0.25, "obs1_x": -0.35, "obs1_y": 0.3,
              "obs1_r": 0.15}
@@ -69,8 +74,16 @@ PLANTS = {
     "pointmass": ("pointmass", None, "pointmass", TARGET),
     "pointmass_obstacles": ("pointmass", "obstacles", "pointmass_obstacles",
                             {**TARGET, **OBSTACLES}),
+    "quadrotor2d": ("quadrotor2d", None, "quadrotor2d", {"target_x": 0.4, "target_z": 1.3}),
+    "quadrotor3d": ("quadrotor3d", None, "quadrotor3d",
+                    {"target_x": 0.4, "target_y": -0.2, "target_z": 1.3, "target_yaw": 0.2}),
+    "car": ("car", None, "car", TARGET),
+    "car_obstacles": ("car", "obstacles", "car_obstacles", {**TARGET, **OBSTACLES}),
+    "arm2": ("arm2", None, "arm2", {"target_x": 0.5, "target_y": 0.3}),
 }
-DIMS = {"pendulum": (2, 1), "acrobot": (4, 1), "pointmass": (4, 2)}
+DIMS = {"pendulum": (2, 1), "acrobot": (4, 1), "pointmass": (4, 2), "quadrotor2d": (6, 2),
+        "quadrotor3d": (12, 4), "car": (4, 2), "arm2": (4, 2)}
+ONE_SIDED = ("quadrotor2d", "quadrotor3d")  # controls in [0, 1]
 
 
 @pytest.fixture(autouse=True)
@@ -83,7 +96,19 @@ def _one_thread():
 
 def limits(env):
     U = DIMS[env][1]
-    return np.full(U, -1.0, np.float32), np.full(U, 1.0, np.float32)
+    return np.full(U, 0.0 if env in ONE_SIDED else -1.0, np.float32), np.full(U, 1.0, np.float32)
+
+
+def label_of(plant):
+    """The PLANTS label of a device plant (its fast plant's too)."""
+    return plant[:-5] if plant.endswith("_fast") else plant
+
+
+def controls(env, rng, shape, scale=1.0):
+    """Seeded controls within the environment's limits."""
+    lo, hi = limits(env)
+    mid, half = 0.5 * (lo + hi), 0.5 * scale * (hi - lo)
+    return rng.uniform(mid - half, mid + half, shape).astype(np.float32)
 
 
 def mppi_config(**extra):
@@ -126,12 +151,22 @@ def make_pair(label, optimizer="mppi", cfg=None, spec="ODE", jax_logging=False):
 
 def states(label, rng, n):
     """Start states of each plant: the pendulum around hanging, the acrobot
-    and the point mass around rest (an obstacle's margin included)."""
+    and the arm around rest, the quadrotors around hover (tilts to the
+    3-D one's secant clamp), the point mass and the car near the origin
+    (an obstacle's margin included)."""
     env = PLANTS[label][0]
     if env == "pendulum":
         x = np.stack([np.pi + 0.8 * rng.standard_normal(n), 2.0 * rng.standard_normal(n)], 1)
-    elif env == "acrobot":
+    elif env in ("acrobot", "arm2"):
         x = 0.6 * rng.standard_normal((n, 4))
+    elif env == "quadrotor2d":
+        x = 0.3 * rng.standard_normal((n, 6)) + np.array([0, 1.0, 0, 0, 0, 0])
+    elif env == "quadrotor3d":
+        x = 0.3 * rng.standard_normal((n, 12)) + np.array([0, 0, 1.0] + [0] * 9)
+        x[:, 7] = rng.uniform(-1.6, 1.6, n)  # pitch: |cos| below 0.15 for some
+    elif env == "car":
+        x = np.concatenate([rng.uniform(-0.6, 0.6, (n, 2)), rng.standard_normal((n, 1)),
+                            rng.uniform(0.0, 2.0, (n, 1))], 1)
     else:
         x = np.concatenate([rng.uniform(-0.6, 0.6, (n, 2)), rng.standard_normal((n, 2))], 1)
     return x.astype(np.float32)
@@ -153,7 +188,8 @@ def pair(label, spec="ODE"):
 
 
 # ---- dynamics ------------------------------------------------------------------------------
-@pytest.mark.parametrize("env", ["pendulum", "acrobot", "pointmass"])
+@pytest.mark.parametrize("env", ["pendulum", "acrobot", "pointmass", "quadrotor2d",
+                                 "quadrotor3d", "car", "arm2"])
 @pytest.mark.parametrize("fast", [False, True])
 def test_derivs_match_jax(env, fast):
     """models/dynamics.py's derivs (and ``.fast``) against the JAX ones on
@@ -162,7 +198,7 @@ def test_derivs_match_jax(env, fast):
     rng = np.random.default_rng(1)
     S, U = DIMS[env]
     x = (2.0 * rng.standard_normal((512, S))).astype(np.float32)
-    u = rng.uniform(-1.0, 1.0, (512, U)).astype(np.float32)
+    u = controls(env, rng, (512, U))
     jfn, jdefaults, *_ = jdyn.DYNAMICS[env]
     pfn, pdefaults, S2, U2 = pdyn.DYNAMICS[env]
     assert (S2, U2) == (S, U) and pdefaults == jdefaults
@@ -176,7 +212,7 @@ def test_derivs_match_jax(env, fast):
                                                                 for k, v in p.items()}))
         got = pfn(torch.tensor(x), torch.tensor(u),
                   {k: torch.tensor(v) for k, v in p.items()}).numpy()
-        np.testing.assert_allclose(got, ref, **DERIVS_TOL)
+        np.testing.assert_allclose(got, ref, **(ARM2_TOL if env == "arm2" else DERIVS_TOL))
     if env == "pointmass":
         assert pdyn.pointmass_dynamics.fast is pdyn.pointmass_dynamics
 
@@ -184,7 +220,7 @@ def test_derivs_match_jax(env, fast):
 def plant_p64(plant):
     """A plant's packed parameters by key in float64: the defaults of its
     dynamics and cost, the targets and obstacles of PLANTS."""
-    label = "pointmass_obstacles" if plant == "pointmass_obstacles" else plant.split("_")[0]
+    label = label_of(plant)
     env, cost, _, attrs = PLANTS[label]
     ctrl = port_ctrl(label)
     model, pack = ode.rollout_model(ctrl.optimizer)
@@ -200,12 +236,13 @@ def f64_inputs(S, U, seed, n=64):
 
 
 @pytest.mark.parametrize("plant", ["pendulum", "pendulum_fast", "acrobot", "acrobot_fast",
-                                   "pointmass"])
+                                   "pointmass", "quadrotor2d", "quadrotor2d_fast", "quadrotor3d",
+                                   "quadrotor3d_fast", "car", "car_fast", "arm2", "arm2_fast"])
 def test_derivs_jac_and_vjp_match_autograd_f64(plant):
     """Each plant's Jacobian (K7's forward-mode tangents) and VJP against
     torch.autograd of its derivs in float64; the fast plants' take the
     polynomials' derivatives, as jax.vjp does through ops/fastmath.py."""
-    env = plant.split("_")[0]
+    env = label_of(plant)
     S, U = DIMS[env]
     p, _ = plant_p64(env)
     dyn = {k[2:]: v for k, v in p.items() if k.startswith("d_")}
@@ -224,7 +261,8 @@ def test_derivs_jac_and_vjp_match_autograd_f64(plant):
     torch.testing.assert_close(torch.stack(dx + du, 1), ref, **F64_TOL)
 
 
-@pytest.mark.parametrize("plant", ["pendulum", "acrobot", "pointmass", "pointmass_obstacles"])
+@pytest.mark.parametrize("plant", ["pendulum", "acrobot", "pointmass", "pointmass_obstacles",
+                                   "quadrotor2d", "quadrotor3d", "car", "car_obstacles", "arm2"])
 def test_cost_adjoints_match_autograd_f64(plant):
     """The stage cost's (gx, gu, gprev) and the terminal gradient against
     torch.autograd of the model's stage and terminal callables in float64,
@@ -233,7 +271,7 @@ def test_cost_adjoints_match_autograd_f64(plant):
     p, model = plant_p64(plant)
     S, U = kernels.PLANT_DIMS[plant]
     xs, us = f64_inputs(S, U, 4, n=256)
-    if plant.startswith("pointmass"):
+    if plant.startswith(("pointmass", "car")):
         xs = (0.4 * xs[0], 0.4 * xs[1]) + xs[2:]
     prev = f64_inputs(S, U, 5, n=256)[1]
     ct = 1.0 / 21.0
@@ -298,12 +336,16 @@ COST_NAMES = {
     "acrobot/default": "acrobot", "pointmass/default": "pointmass",
     "pointmass/quadratic": "pointmass", "pointmass/obstacles": "pointmass",
     "pointmass/trajectory": "pointmass",
+    "quadrotor2d/default": "quadrotor2d", "quadrotor2d/waypoint": "quadrotor2d",
+    "quadrotor3d/default": "quadrotor3d", "quadrotor3d/waypoint": "quadrotor3d",
+    "car/default": "car", "car/waypoint": "car", "car/obstacles": "car",
+    "arm2/default": "arm2", "arm2/reach": "arm2",
 }
 
 
 @pytest.mark.parametrize("name", sorted(COST_NAMES))
 def test_cost_names_match_jax(name):
-    """Each of the seven cost names' stage, terminal and trajectory costs
+    """Each cost name's stage, terminal and trajectory costs
     (and ``cost_components`` where the JAX class has it) against the JAX
     class over the same config, attributes and seeded trajectories."""
     env = COST_NAMES[name]
@@ -318,14 +360,16 @@ def test_cost_names_match_jax(name):
     jcost.configure(batch_size=16, horizon=Hc)
     rng = np.random.default_rng(6)
     traj = (1.2 * rng.standard_normal((16, Hc + 1, S))).astype(np.float32)
-    Q = rng.uniform(-1.0, 1.0, (16, Hc, U)).astype(np.float32)
-    u_prev = rng.uniform(-1.0, 1.0, (U,)).astype(np.float32)
+    Q = controls(env, rng, (16, Hc, U))
+    u_prev = controls(env, rng, (U,))
     attrs = {}
-    if env == "pointmass":
+    if env in ("pointmass", "car"):
         attrs = {**TARGET, **OBSTACLES}
         if name == "pointmass/trajectory":
             attrs = {"ref_x": rng.standard_normal(Hc + 1).astype(np.float32),
                      "ref_y": rng.standard_normal(Hc + 1).astype(np.float32)}
+    elif env in ("quadrotor2d", "quadrotor3d", "arm2"):
+        attrs = dict(PLANTS[env][3])
     jp = jcost.current_params(attrs={k: jnp.asarray(v, jnp.float32) for k, v in attrs.items()})
     pp = pcost.current_params(attrs={k: torch.as_tensor(np.float32(v) if np.ndim(v) == 0 else v)
                                      for k, v in attrs.items()})
@@ -384,7 +428,8 @@ def test_sync_with_dynamics_seeds_and_warns(caplog):
 
 
 # ---- environments --------------------------------------------------------------------------
-@pytest.mark.parametrize("env", ["pendulum", "acrobot", "pointmass"])
+@pytest.mark.parametrize("env", ["pendulum", "acrobot", "pointmass", "quadrotor2d",
+                                 "quadrotor3d", "car", "arm2"])
 def test_environment_step_matches_jax(env):
     """One rk4 step of each environment, its reward and (the point mass)
     its termination, against the JAX environment from the same state and
@@ -400,10 +445,10 @@ def test_environment_step_matches_jax(env):
     rng = np.random.default_rng(7)
     x = (1.5 * rng.standard_normal((8, S))).astype(np.float32)
     x[0, :2] = 25.0  # out of the point mass's box
-    a = rng.uniform(-1.0, 1.0, (8, U)).astype(np.float32)
+    a = controls(env, rng, (8, U))
     got = penv.step_dynamics(torch.tensor(x), torch.tensor(a), penv.dt).numpy()
     ref = np.asarray(jenv.step_dynamics(jnp.asarray(x), jnp.asarray(a), jenv.dt))
-    np.testing.assert_allclose(got, ref, **DERIVS_TOL)
+    np.testing.assert_allclose(got, ref, **(ARM2_TOL if env == "arm2" else DERIVS_TOL))
     np.testing.assert_allclose(penv.get_reward(torch.tensor(x), torch.tensor(a)).numpy(),
                                np.asarray(jenv.get_reward(jnp.asarray(x), jnp.asarray(a))),
                                **DERIVS_TOL)
@@ -447,7 +492,7 @@ def test_packed_params_and_k1_plain_match_pallas_interpret(label):
     assert ode.can_use_cost(popt) and ode.can_use_grad(popt)
     rng = np.random.default_rng(0)
     s_tiled = states(label, rng, K)
-    Q = rng.uniform(-1.0, 1.0, (K, H, U)).astype(np.float32)
+    Q = controls(env, rng, (K, H, U))
     pallas = jopt._build_pallas_cost(interpret=True, tile_k=TILE)
     args = (jnp.asarray(s_tiled), jnp.asarray(Q), jnp.asarray(u_prev), jparams)
     ref_kernel, ref_scan = np.asarray(pallas(*args)), np.asarray(jopt._fused_cost(*args))
@@ -471,7 +516,7 @@ def test_k2_plain_matches_pallas_semi_fused_interpret(label):
     rng = np.random.default_rng(5)
     eps_tiles = (rng.standard_normal((T, U, P * ROWS, C)) * jopt.SQRTRHODTINV).astype(np.float32)
     s0 = states(label, rng, 1)[0]
-    u_nom = rng.uniform(-0.4, 0.4, (H, U)).astype(np.float32)
+    u_nom = controls(PLANTS[label][0], rng, (H, U), 0.4)
     u_prev = np.full(U, 0.2, np.float32)
     costs2d = np.asarray(cost_run(jnp.asarray(s0), jnp.asarray(u_nom),
                                   jpack(jparams, jnp.asarray(u_prev)), jnp.asarray(eps_tiles)))
@@ -485,7 +530,7 @@ def test_k2_plain_matches_pallas_semi_fused_interpret(label):
     np.testing.assert_allclose(got, ref, **COST_TOL)
 
 
-@pytest.mark.parametrize("label", sorted(PLANTS))
+@pytest.mark.parametrize("label", sorted(set(PLANTS) - {"quadrotor3d"}))
 def test_k7_plain_matches_pallas_grad_interpret_and_autograd(label):
     """K7's plain version (the hand-written adjoints) against the JAX
     gradient kernel in interpret mode (tile 64, as
@@ -498,7 +543,7 @@ def test_k7_plain_matches_pallas_grad_interpret_and_autograd(label):
     U = popt.num_control_inputs
     rng = np.random.default_rng(4)
     s0 = states(label, rng, Kg)
-    Q = rng.uniform(-0.8, 0.8, (Kg, Hg, U)).astype(np.float32)
+    Q = controls(PLANTS[label][0], rng, (Kg, Hg, U), 0.8)
     u_prev = np.full(U, 0.1, np.float32)
     kernel = jctrl.optimizer._build_pallas_grad(interpret=True, tile_k=TILE)
     ref_cost, ref_grad = map(np.asarray, kernel(jnp.asarray(s0), jnp.asarray(Q),
@@ -518,7 +563,9 @@ def test_k7_plain_matches_pallas_grad_interpret_and_autograd(label):
 
 @pytest.mark.parametrize("label,spec", [("pendulum", "ODE:rk4:1:fast"),
                                         ("pointmass", "ODE:rk4:1:fast"),
-                                        ("acrobot", "ODE")])
+                                        ("acrobot", "ODE"),
+                                        ("quadrotor3d", "ODE:rk4:1:fast"),
+                                        ("car_obstacles", "ODE:rk4:1:fast")])
 def test_k3_plain_matches_pallas_make_run(label, spec):
     """K3's plain version (both passes and the update) against the JAX
     fully-fused step (``make_run``) in interpret mode on the same counter
@@ -533,7 +580,7 @@ def test_k3_plain_matches_pallas_make_run(label, spec):
     U = popt.num_control_inputs
     rng = np.random.default_rng(8)
     s0 = states(label, rng, 1)[0]
-    u_nom = rng.uniform(-0.4, 0.4, (H, U)).astype(np.float32)
+    u_nom = controls(PLANTS[label][0], rng, (H, U), 0.4)
     u_prev = np.full(U, 0.2, np.float32)
     seed = 7654321
     un_j, c_j = kernel_step(jnp.asarray(s0), jnp.asarray(u_nom),
@@ -553,7 +600,9 @@ def test_k3_plain_matches_pallas_make_run(label, spec):
 def set_mppi_state(jopt, popt, seed=0):
     rng = np.random.default_rng(seed)
     Hm, U = jopt.mpc_horizon, jopt.num_control_inputs
-    u_nom = rng.uniform(-0.5, 0.5, (1, Hm, U)).astype(np.float32)
+    lo, hi = popt.action_low.cpu().numpy(), popt.action_high.cpu().numpy()
+    u_nom = rng.uniform(0.75 * lo + 0.25 * hi, 0.25 * lo + 0.75 * hi,
+                        (1, Hm, U)).astype(np.float32)
     u_prev = np.full(U, 0.2, np.float32)
     jopt.opt_state = jopt.opt_state._replace(u_nom=jnp.asarray(u_nom), u_prev=jnp.asarray(u_prev))
     popt.opt_state = mppi_state_from_numpy(u_nom, u_prev, popt.opt_state.generator)
@@ -587,7 +636,7 @@ def test_one_rpgd_update_matches_jax(label):
     assert ode.can_use_grad(popt)
     rng = np.random.default_rng(0)
     shape = (jopt.num_rollouts, jopt.mpc_horizon, jopt.num_control_inputs)
-    Q = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    Q = controls(PLANTS[label][0], rng, shape)
     m = (0.05 * rng.standard_normal(shape)).astype(np.float32)
     v = (0.01 * rng.uniform(0.1, 1.0, shape)).astype(np.float32)
     ages = rng.integers(0, 20, jopt.num_rollouts).astype(np.float32)
@@ -725,7 +774,8 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("path", sorted(REFUSED))
-@pytest.mark.parametrize("label", ["pendulum", "pointmass_obstacles"])
+@pytest.mark.parametrize("label", ["pendulum", "pointmass_obstacles", "quadrotor3d",
+                                   "car_obstacles"])
 def test_paths_without_an_instance_raise_naming_kernel_and_plant(path, label):
     """Every path on which the JAX package would launch a kernel that has no
     instance of these plants raises NotImplementedError naming the kernel
@@ -773,7 +823,7 @@ def test_paths_without_a_device_plant_take_the_scan():
     np.testing.assert_allclose(u.numpy(), u_jax, **UNOM_TOL)
 
 
-@pytest.mark.parametrize("label", ["pendulum", "pointmass"])
+@pytest.mark.parametrize("label", ["pendulum", "pointmass", "quadrotor3d"])
 def test_fully_fused_reaches_k3(label):
     """``fully_fused`` over the new plants takes K3 (the JAX gate admits
     them too), not the semi-fused K2."""
@@ -815,17 +865,21 @@ def test_unknown_plants_and_forms_are_refused_before_a_launch():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K7"])
 @pytest.mark.parametrize("plant", ["pendulum", "pendulum_fast", "acrobot", "acrobot_fast",
-                                   "pointmass", "pointmass_obstacles"])
+                                   "pointmass", "pointmass_obstacles", "quadrotor2d",
+                                   "quadrotor2d_fast", "quadrotor3d", "quadrotor3d_fast", "car",
+                                   "car_fast", "car_obstacles", "car_obstacles_fast", "arm2",
+                                   "arm2_fast"])
 def test_cuda_plant_instances_match_plain_versions(cuda_device, kernel, plant):
     """Each plant's instance of K1, K2, K3's pass 1 and K7 against its plain
     version on the same card tensors, at ragged K (not a multiple of a
-    block) and, for the point mass, a horizon that is not a multiple of
-    its 32-step controls-ahead chunk (test_torch_kernels.py's tolerance)."""
+    block) and a horizon that is not a multiple of the controls-ahead
+    chunk (32 steps at U=2, 16 at the 3-D quadrotor's U=4), within each
+    plant's control limits (test_torch_kernels.py's tolerance)."""
     from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_costs, fused_mppi_costs_plain
     from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
     from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost_plain
 
-    label = "pointmass_obstacles" if plant == "pointmass_obstacles" else plant.split("_")[0]
+    label = label_of(plant)
     spec = "ODE:rk4:1:fast" if plant.endswith("_fast") else "ODE"
     ctrl = port_ctrl(label, spec=spec)
     model, pack = ode.rollout_model(ctrl.optimizer)
@@ -836,7 +890,9 @@ def test_cuda_plant_instances_match_plain_versions(cuda_device, kernel, plant):
     gen = torch.Generator(device=dev).manual_seed(0)
     pvec = pack(ctrl._assemble_params(), torch.full((U,), 0.1)).to(dev)
     s0 = torch.as_tensor(states(label, np.random.default_rng(0), Kc), device=dev)
-    Q = torch.clamp(0.4 * torch.randn(Kc, Hc, U, generator=gen, device=dev), -1.0, 1.0)
+    low, high = (torch.as_tensor(v, device=dev) for v in limits(PLANTS[label][0]))
+    mid = 0.5 * (low + high)
+    Q = torch.clamp(mid + 0.4 * torch.randn(Kc, Hc, U, generator=gen, device=dev), low, high)
     tol = dict(rtol=1e-4, atol=1e-3)
     if kernel == "K1":
         torch.testing.assert_close(cost_rollout(model, s0, Q, pvec),
@@ -848,15 +904,14 @@ def test_cuda_plant_instances_match_plain_versions(cuda_device, kernel, plant):
         assert float((got[1] - ref[1]).abs().max()) <= 2e-5 * float(ref[1].abs().max()) + 1e-6
         return
     W = torch.as_tensor(interpolation_matrix(Hc, 10), device=dev)
-    u_nom = torch.clamp(0.2 * torch.randn(Hc, U, generator=gen, device=dev), -1.0, 1.0)
-    lim = torch.ones(U, device=dev)
+    u_nom = torch.clamp(mid + 0.2 * torch.randn(Hc, U, generator=gen, device=dev), low, high)
     if kernel == "K2":
         eps = 0.2 * torch.randn(W.shape[0], U, Kc, generator=gen, device=dev)
-        args = (model, s0[0].contiguous(), u_nom, pvec, eps, W, -lim, lim, 1.0, 1.0, 1000.0)
+        args = (model, s0[0].contiguous(), u_nom, pvec, eps, W, low, high, 1.0, 1.0, 1000.0)
         torch.testing.assert_close(mppi_cost(*args), mppi_cost_plain(*args), **tol)
         return
     Kf = 1024  # K3 tiles K
     seed2 = torch.tensor([99, 0], dtype=torch.int32, device=dev)
-    args = (model, s0[0].contiguous(), u_nom, pvec, seed2, W, -lim, lim, 1.0, 1.0, 1000.0, 0.3,
+    args = (model, s0[0].contiguous(), u_nom, pvec, seed2, W, low, high, 1.0, 1.0, 1000.0, 0.3,
             Kf, 128)
     torch.testing.assert_close(fused_mppi_costs(*args), fused_mppi_costs_plain(*args), **tol)
