@@ -461,6 +461,30 @@ in their plain entries, built in translation units of their own,
     nearer than 0.4 to its center, best < 0.5 from the goal) and reaches
     the arm's fingertip target (best < 0.12).
 
+The options every optimizer takes (no new kernel: mppi-optimize's Adam
+refinement of the nominal plan runs the gradient kernels at one rollout):
+80. K7 (exact, ``:fast``, its value_spec form over a seeded V, and over the
+    pendulum) and K8 over the committed MLP at K=1, H=35, the refinement's
+    operating point, against their plain versions: J to KERNEL_TOL (K8:
+    NET_TOL), dQ to K7's bound, which must reject K7's dQ with a
+    stage-gradient term wrong; each timed with its bound;
+81. mppi-optimize-tf at the port's config_defaults (K=400, H=35, 10 Adam
+    steps; the one config file the script reads, to hold that its
+    constants are the defaults) and at the flagship width (K=16384, H=50),
+    50 closed-loop ticks each from CartpoleEnv(seed=0), counted from 0: one
+    K2 launch and ``optim_steps`` K7 calls a tick, with torch.autograd
+    refused during the loop; the pole recorded, not required; one refined
+    update on the card against the CPU's from the same draw; then each in
+    turns with plain MPPI at the same K and H (host p50/p99 of each) and a
+    profiler breakdown of each tick (device operations a tick);
+82. one ``calculate_optimal_trajectory`` step (MPPI at the flagship width)
+    against the CPU's from the same draw, and its extra host time a tick,
+    in turns with the same MPPI without it;
+83. one policy-seeded step (``initial_guess_policy``): the plan and the
+    seeded update on the card against the CPU's, and the plan's one-off
+    host time;
+84. ``profile_latency``'s report over 20 flagship MPPI ticks.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -493,7 +517,8 @@ and its bound: the larger of the bytes it must move over 3.35 TB/s and its
 FP32 operations (counted from the shapes, see ``kernel_ops``) over
 67 TFLOP/s, the H100 SXM's published peaks.
 Imports nothing of JAX and nothing of the JAX package (it passes every
-config explicitly, so no config file is read).
+config explicitly; the one config file it reads is the port's
+config_optimizers.yml, in phase 81, to hold MPPI_OPTIMIZE_CONFIG to it).
 """
 from __future__ import annotations
 
@@ -615,6 +640,7 @@ from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarState
 from control_toolkit_tpu_torch.utils.convert import (
     gradient_state_from_numpy, mppi_state_from_numpy, rpgd_state_from_numpy,
 )
+from control_toolkit_tpu_torch.utils.config import load_optimizer_config
 from control_toolkit_tpu_torch.utils.device import place, resolve_device
 
 K, H, PERIOD, SEED, DT = 16384, 50, 10, 0, 0.02
@@ -6147,6 +6173,255 @@ def rest_plant_phases(gen, cartpole: dict) -> tuple:
     return rows, launches
 
 
+# ---- the options (phases 80-84) -------------------------------------------------------------
+OPTIONS_H, OPTIONS_TICKS, TURN_TICKS, LATENCY_TICKS = 35, 50, 50, 20
+# mppi-optimize-tf in the port's config_defaults/config_optimizers.yml,
+# the seed fixed; phase 81 holds it to the file.
+MPPI_OPTIMIZE_CONFIG = {"seed": SEED, "mpc_timestep": DT, "mppi_LR": 0.02, "adam_beta_1": 0.4,
+                        "adam_beta_2": 0.8, "adam_epsilon": 1.0e-7, "gradmax_clip": 1000,
+                        "mpc_horizon": 35, "num_rollouts": 400, "cc_weight": 1.0, "R": 1.0,
+                        "LBD": 100.0, "NU": 1000.0, "SQRTRHOINV": 0.02,
+                        "period_interpolation_inducing_points": 10, "optim_steps": 10}
+MPPI_OPTIMIZE_WIDE = {**MPPI_OPTIMIZE_CONFIG, "mpc_horizon": H, "num_rollouts": K}
+# The policy plan on the card against the CPU's: OPTIONS_H plain rk4
+# steps in float32 on each device (FMA contraction on the card).
+PLAN_ATOL = 1e-4
+
+
+def cartpole_policy(x, params):
+    """A saturating linear cartpole policy for the warm start (phase 83)."""
+    return torch.stack([4.0 * x[2] + x[3] - 0.8 * (x[0] - params["attrs"]["target_position"])
+                        + 0.2 * x[1]])
+
+
+def lone_grad(name: str, kernel_fn, plain_fn, Q, ops: float, n_bytes: float,
+              cost_tol=KERNEL_TOL, mutants=None) -> dict:
+    """Phase 80: a gradient kernel at one rollout (``Q [1, H, U]``) against
+    its plain version on the same card tensors: J to ``cost_tol``, dQ to
+    K7's bound (DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|), which must reject
+    each of ``mutants`` (wrong dQs by name); timed with its bound."""
+    (cost, dQ), (ref_cost, ref_dQ) = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    cost_abs, _ = max_errors(cost, ref_cost)
+    dq_abs, _ = max_errors(dQ, ref_dQ)
+    wrong = mutants(dQ) if mutants else {}
+    numbers = {"cost_max_abs_err": cost_abs, "dQ_max_abs_err": dq_abs,
+               "dQ_max_abs": float(ref_dQ.abs().max()),
+               "dQ_atol": DQ_ATOL_FRAC * float(ref_dQ.abs().max()),
+               "mutant_max_abs_err": {k: max_errors(m, ref_dQ)[0] for k, m in wrong.items()},
+               "max_abs_err": max(cost_abs, dq_abs),
+               "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
+               "ms": cuda_ms(kernel_fn, 50), "plain_ms": cuda_ms(plain_fn, 3),
+               **bound(ops, n_bytes)}
+    emit(name, numbers)
+    check(numbers["finite"] and cost.shape == (1,) and dQ.shape == Q.shape, f"{name}: bad output")
+    check(torch.allclose(cost, ref_cost, **cost_tol), f"{name}: cost disagrees {numbers}")
+    check(close(dQ, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC), f"{name}: dQ disagrees {numbers}")
+    for k, m in wrong.items():
+        check(not close(m, ref_dQ, DQ_RTOL, DQ_ATOL_FRAC),
+              f"{name}: the dQ bound does not reject a dQ with {k} {numbers}")
+    return numbers
+
+
+def lone_rollout_kernels(gen) -> dict:
+    """Phase 80: K7's forms and K8 at K=1, H=OPTIONS_H."""
+    device = gen.device
+    rows = {}
+    specs = {"k7": ("cartpole", "ODE"), "k7_fast": ("cartpole", FAST_SPEC),
+             "k7_pendulum": ("pendulum", "ODE")}
+    for label, (plant, spec) in specs.items():
+        c = (make_controller("cuda", "mppi", MPPI_OPTIMIZE_CONFIG, spec=spec)
+             if plant == "cartpole" else plant_controller(plant, "mppi", MPPI_OPTIMIZE_CONFIG))
+        model, pack = ode.rollout_model(c.optimizer)
+        pvec = pack(c._assemble_params(), torch.tensor([0.1], device=device))
+        s1 = (0.05 * torch.randn(1, 4, generator=gen, device=device) if plant == "cartpole"
+              else plant_states(plant, 1, gen))
+        Qn = torch.clamp(0.3 * torch.randn(1, OPTIONS_H, 1, generator=gen, device=device),
+                         -1.0, 1.0)
+        step_ops = ((RK4_STEP_OPS, STAGE_OPS, RK4_VJP_OPS, STAGE_VJP_OPS) if plant == "cartpole"
+                    else PLANT_OPS[plant])
+        ops, n_bytes = OPTIONS_H * sum(step_ops), nbytes(s1, Qn, pvec, Qn) + 4
+        rows[label] = lone_grad(
+            f"{label}_lone_rollout", lambda: grad_cost_rollout(model, s1, Qn, pvec),
+            lambda: grad_cost_rollout_plain(model, s1, Qn, pvec), Qn, ops, n_bytes,
+            mutants=(lambda dQ: stage_term_mutants(dQ, Qn, pvec, model))
+            if plant == "cartpole" else None)
+        if label == "k7":
+            vops = seeded_value(device)
+            rows["k7_value"] = lone_grad(
+                "k7_value_lone_rollout",
+                lambda: grad_cost_rollout_value(model, s1, Qn, pvec, vops),
+                lambda: grad_cost_rollout_plain(model, s1, Qn, pvec, vops), Qn,
+                ops + value_net_ops(), n_bytes + nbytes(*vops),
+                mutants=lambda dQ: {"no_dV_in_seed": grad_cost_rollout_plain(
+                    model, s1, Qn, pvec)[1]})
+            cartpole = (s1, Qn)
+    mlp = make_controller("cuda", "mppi", MPPI_OPTIMIZE_CONFIG, spec=MLP_SPEC)
+    nmodel, npack = neural.net_model(mlp.optimizer)
+    nparams = mlp._assemble_params()
+    net, npvec = nparams["dyn"]["net"], npack(nparams, torch.tensor([0.1], device=device))
+    s1, Qn = cartpole
+    rows["k8"] = lone_grad(
+        "k8_lone_rollout", lambda: neural_grad_cost_rollout(nmodel, s1, Qn, npvec, net),
+        lambda: neural_grad_cost_rollout_plain(nmodel, s1, Qn, npvec, net), Qn,
+        OPTIONS_H * (mlp_ops(net) + mlp_vjp_ops(net) + STAGE_OPS + STAGE_VJP_OPS),
+        nbytes(s1, Qn, npvec, *leaves(net), Qn) + 4, cost_tol=NET_TOL)
+    return rows
+
+
+def no_autograd(run):
+    """``run()`` with torch.autograd.grad refused: the refinement must take
+    its kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("torch.autograd ran on the refinement's path")
+
+    grad = torch.autograd.grad
+    torch.autograd.grad = refuse
+    try:
+        return run()
+    finally:
+        torch.autograd.grad = grad
+
+
+def in_turns(name: str, ctrls: dict, ticks: int) -> dict:
+    """``ticks`` closed-loop ticks of each controller of ``ctrls``, one of
+    each in turn, each against its own CartpoleEnv(seed=SEED): the host
+    p50/p99 of each controller's step."""
+    envs = {k: CartpoleEnv(batch_size=1, dt=DT, seed=SEED) for k in ctrls}
+    states = {k: env.reset()[0] for k, env in envs.items()}
+    host = {k: [] for k in ctrls}
+    for _ in range(ticks):
+        for k, c in ctrls.items():
+            t0 = time.perf_counter()
+            u = c.step(states[k][0])
+            host[k].append((time.perf_counter() - t0) * 1e3)
+            states[k], *_ = envs[k].step(u)
+    numbers = {k: {"step_host_p50_ms": float(np.percentile(v, 50)),
+                   "step_host_p99_ms": float(np.percentile(v, 99))} for k, v in host.items()}
+    emit(name, numbers)
+    return numbers
+
+
+def options_controller(device: str, config: dict, **controller) -> MPCController:
+    """A cartpole ``mpc`` controller running MPPI with controller keys."""
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": "mppi", "controller_logging": False,
+                                 "device": device, **controller})
+    ctrl.configure(optimizer_name="mppi", optimizer_config=dict(config),
+                   cost_function_config=COST_WEIGHTS)
+    return ctrl
+
+
+def seeded_update_vs_cpu(name: str, card: MPCController, cpu: MPCController,
+                         policy: bool = False) -> dict:
+    """One MPPI update on the card and on the CPU from the card's state,
+    params and one draw; with ``policy`` the state is first seeded by each
+    device's own plan (held to PLAN_ATOL).  u_nom held to UNOM_ATOL; an
+    optimal trajectory to X_TOL of the CPU's replay of the card's u_nom."""
+    opt, copt = card.optimizer, cpu.optimizer
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    params = card._assemble_params()
+    noise = opt.sample_noise(opt.opt_state)
+    state = opt.opt_state
+    cstate = mppi_state_from_numpy(state.u_nom.cpu().numpy(), state.u_prev.cpu().numpy(),
+                                   torch.Generator())
+    numbers = {}
+    if policy:
+        plan, cplan = opt._policy_plan(s_now, params), copt._policy_plan(s_now.cpu(),
+                                                                        to_cpu(params))
+        numbers["plan_max_abs_err"] = float((plan.cpu() - cplan).abs().max())
+        check(numbers["plan_max_abs_err"] <= PLAN_ATOL, f"{name}: the plans differ {numbers}")
+        state, cstate = opt._apply_policy_guess(state, plan), copt._apply_policy_guess(cstate,
+                                                                                        cplan)
+    _, _, diag = opt.update(state, s_now, params, noise)
+    _, _, cdiag = copt.update(cstate, s_now.cpu(), to_cpu(params), noise.cpu())
+    numbers["u_nom_max_abs_err"] = float((diag["u_nom"].cpu() - cdiag["u_nom"]).abs().max())
+    if "optimal_trajectory" in diag:
+        replay = copt.predictor.rollout(s_now.cpu(), diag["u_nom"].cpu(), to_cpu(params)["dyn"])
+        got = diag["optimal_trajectory"].cpu()
+        numbers["optimal_trajectory_max_abs_err"] = float((got - replay).abs().max())
+        check(got.shape == (1, opt.mpc_horizon + 1, 4) and torch.allclose(got, replay, **X_TOL),
+              f"{name}: the optimal trajectory differs from the CPU's replay {numbers}")
+    emit(name, numbers)
+    check(numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"{name}: u_nom on the card differs from the CPU's {numbers}")
+    return numbers
+
+
+def options_phases(gen) -> tuple:
+    """Phases 80-84.  Returns K7's and K8's numbers at one rollout and the
+    counted loops' launches."""
+    lone = lone_rollout_kernels(gen)                                    # 80
+
+    # 81. mppi-optimize-tf at its defaults and at the flagship width.
+    defaults = {**load_optimizer_config("mppi-optimize-tf"), "seed": SEED}
+    check(defaults == MPPI_OPTIMIZE_CONFIG,
+          f"MPPI_OPTIMIZE_CONFIG is not config_defaults' {defaults}")
+    runs = {}
+    for label, cfg in (("defaults", MPPI_OPTIMIZE_CONFIG), ("wide", MPPI_OPTIMIZE_WIDE)):
+        ctrl = make_controller("cuda", "mppi-optimize-tf", cfg)
+        opt = ctrl.optimizer
+        check(opt._uses_semi_fused() and ode.can_use_grad(opt) and opt.optim_steps == 10,
+              f"mppi-optimize {label}: not on K2 and K7")
+        ticks, steps = OPTIONS_TICKS, opt.optim_steps
+        runs[f"mppi_optimize_{label}"] = counts = no_autograd(lambda: counted_loop(
+            f"slice_mppi_optimize_{label}", ctrl, ticks,
+            {"mppi_cost": ticks, "grad_cost_rollout": steps * ticks}, pole_check=False))
+        emit(f"mppi_optimize_{label}_k7_calls_per_tick",
+             {"per_tick": counts["grad_cost_rollout"] / ticks, "optim_steps": steps})
+        update_vs_cpu_mppi(f"mppi_optimize_{label}_update_vs_cpu", ctrl, config=cfg)
+        plain = {**cfg, "optim_steps": 0}
+        in_turns(f"mppi_optimize_{label}_in_turns",
+                 {"mppi_optimize": make_controller("cuda", "mppi-optimize-tf", cfg),
+                  "mppi": make_controller("cuda", "mppi", plain)}, TURN_TICKS)
+        profile_ticks(f"mppi_optimize_{label}", env_tick(make_controller("cuda", "mppi", cfg)))
+        profile_ticks(f"mppi_{label}_beside_mppi_optimize",
+                      env_tick(make_controller("cuda", "mppi", plain)))
+
+    # 82. calculate_optimal_trajectory at the flagship width.
+    traj = options_controller("cuda", OPTIMIZER_CONFIG, calculate_optimal_trajectory=True)
+    seeded_update_vs_cpu("optimal_trajectory_update_vs_cpu", traj,
+                         options_controller("cpu", OPTIMIZER_CONFIG,
+                                            calculate_optimal_trajectory=True))
+    turns = in_turns("optimal_trajectory_in_turns",
+                     {"with": traj, "without": options_controller("cuda", OPTIMIZER_CONFIG)},
+                     TURN_TICKS)
+    check(traj.optimizer.optimal_trajectory.shape == (1, H + 1, 4),
+          "the optimal trajectory did not reach the host")
+    emit("optimal_trajectory_extra_host_ms",
+         {"p50": turns["with"]["step_host_p50_ms"] - turns["without"]["step_host_p50_ms"]})
+
+    # 83. The policy warm start.
+    pcfg = {**OPTIMIZER_CONFIG, "initial_guess_policy": cartpole_policy}
+    seeded = options_controller("cuda", pcfg)
+    check(seeded.optimizer._policy_seed_pending, "the policy warm start is not armed")
+    seeded_update_vs_cpu("policy_update_vs_cpu", seeded, options_controller("cpu", pcfg),
+                         policy=True)
+    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=gen.device)
+    params = seeded._assemble_params()
+    plan_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seeded.optimizer._policy_plan(s_now, params)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    u = seeded.step(np.array([0.02, -0.1, 0.05, 0.1], np.float32))
+    check(not seeded.optimizer._policy_seed_pending and bool(np.all(np.isfinite(u))),
+          "the policy seed was not consumed")
+    emit("policy_plan_host_ms", {"median": float(np.median(plan_ms)), "runs": plan_ms,
+                                 "horizon": H})
+
+    # 84. profile_latency.
+    timed = options_controller("cuda", OPTIMIZER_CONFIG, profile_latency=True)
+    tick = env_tick(timed)
+    for _ in range(LATENCY_TICKS):
+        tick()
+    check(len(timed.latency) == LATENCY_TICKS, "profile_latency did not time every step")
+    emit("profile_latency", {**timed.latency.percentiles(), "report": timed.latency.report()})
+    return lone, runs
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -6865,6 +7140,12 @@ def main() -> None:
     rest_rows, rest_launches = rest_plant_phases(gen, cartpole_rows)
     plant_rows.update(rest_rows)
     plant_launches.update(rest_launches)
+    # 80-84. The options: mppi-optimize (K7 and K8 at one rollout), the
+    # optimal trajectory, the policy warm start, profile_latency.
+    _, option_runs = options_phases(gen)
+    for counts in option_runs.values():
+        for kernel in COUNTED:
+            launches[kernel] += counts[kernel]
 
     if "--starts" in sys.argv[1:]:
         start_sweep()

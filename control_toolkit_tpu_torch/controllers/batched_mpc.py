@@ -207,12 +207,14 @@ class BatchedMPCController(MPCController):
         )
 
     def _plain_mppi(self) -> bool:
-        """Plain MPPI (not a variant) without ``bounded_update``: the update
+        """Plain MPPI (not a variant) without ``bounded_update`` and without
+        the mppi-optimize refinement (``optim_steps`` 0, JAX
+        ``batched_mpc.py:478``, ``:506``, ``:532``, ``:555``): the update
         every MPPI batched step computes."""
         from control_toolkit_tpu_torch.optimizers.mppi import MPPIOptimizer
 
         opt = self.optimizer
-        return type(opt) is MPPIOptimizer and not opt.bounded_update
+        return type(opt) is MPPIOptimizer and not opt.bounded_update and opt.optim_steps == 0
 
     def _batched_neural_like_eligible(self, recurrent: bool) -> bool:
         """The learned nets' gate (JAX ``batched_mpc.py:484`` without its
@@ -366,6 +368,9 @@ class BatchedMPCController(MPCController):
         if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
             return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
                                "or the optimal trajectory)")
+        if getattr(opt, "optim_steps", 0) > 0:
+            return _not_ported("the vmapped per-slot batched step (taken for mppi-optimize: "
+                               "no batched kernel step carries its Adam refinement)")
         if isinstance(opt, vmapped_only):
             return _not_ported(f"the vmapped per-slot batched step (taken for every "
                                f"{opt.registered_name} fleet: it has no batched kernel step)")

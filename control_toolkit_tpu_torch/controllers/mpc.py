@@ -4,7 +4,11 @@
 The two-phase configure resolves the dependency chain (optimizer knows
 K/H -> predictor needs K/dt -> predictor knows state dims -> optimizer
 needs dims); a step runs hot-reload check -> update_attributes ->
-optimizer.step -> update_logs.
+optimizer.step -> update_logs.  With the controller key
+``profile_latency`` each ``optimizer.step`` is timed
+(``utils/profiling.py:LatencyTracker``; on the card the step ends in the
+control's copy to the host, so this is its wall time) and
+``controller_report`` logs the percentiles.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ from control_toolkit_tpu_torch.models.predictors import PredictorWrapper
 from control_toolkit_tpu_torch.utils import registry
 from control_toolkit_tpu_torch.utils.config import load_optimizer_config
 from control_toolkit_tpu_torch.utils.device import place
+from control_toolkit_tpu_torch.utils.profiling import LatencyTracker
 
 logger = logging.getLogger(__name__)
 
@@ -116,6 +121,8 @@ class MPCController(Controller):
         self._dyn_raw = None
         self._dyn_params = None
         self._cost_params = None
+        self.latency = LatencyTracker() if self.config_controller.get(
+            "profile_latency", False) else None
 
     def _assemble_params(self) -> Dict:
         """The params tree for the optimizer step: tensors on the
@@ -161,7 +168,11 @@ class MPCController(Controller):
         if self.cost_function.update_cost_parameters_from_config():
             self._cost_params = None  # re-place the reloaded weights
         self.update_attributes(updated_attributes)
-        u = self.optimizer.step(s, time, params=self._assemble_params())
+        if self.latency is not None:
+            with self.latency.measure():
+                u = self.optimizer.step(s, time, params=self._assemble_params())
+        else:
+            u = self.optimizer.step(s, time, params=self._assemble_params())
         if self.controller_logging:
             # The stage cost actually incurred by the applied control.
             self.optimizer.logging_values["realized_cost_logged"] = self._realized_cost(s, u)
@@ -180,6 +191,12 @@ class MPCController(Controller):
         u_prev = dev(np.reshape(np.asarray(self.u if np.ndim(self.u) else [self.u]), (-1,)))
         out = cf.stage_cost_step(dev(s)[None], dev(u)[None], u_prev[None], cp)[0]
         return out.cpu().numpy()
+
+    def controller_report(self) -> None:
+        if self.latency is not None and len(self.latency):
+            logger.info(self.latency.report())
+        else:
+            super().controller_report()
 
     def controller_reset(self) -> None:
         self.optimizer.optimizer_reset()

@@ -170,6 +170,14 @@ class CostFunction:
         total = torch.cat([stage, terminal[:, None]], dim=1)
         return torch.mean(total, dim=1)
 
+    def get_summed_stage_cost(self, state_horizon, inputs, previous_input=None,
+                              params=None) -> torch.Tensor:
+        """[B,H+1,S],[B,H,U] -> [B]: the H stage costs summed (no terminal,
+        no mean): RPGD's ``summed_stage_cost`` diagnostic."""
+        params = params if params is not None else self.current_params()
+        return torch.sum(
+            self.get_stage_cost(state_horizon[:, :-1, :], inputs, previous_input, params), dim=1)
+
     # ---- parameter plumbing ------------------------------------------------
     def current_params(self, attrs: Optional[Dict] = None,
                        device: Optional[torch.device] = None) -> Dict:

@@ -51,6 +51,19 @@ class CartpoleQuadraticCost(CostFunction):
         cc = w["cc_weight"] * w["R"] * sum(u * u for u in us)
         return dd + ep + ekp + cc
 
+    def cost_components(self, states, inputs, previous_input=None, params=None):
+        """Named stage-cost terms ``[...]`` of states ``[..., 4]`` and
+        inputs ``[..., 1]`` (``costs/tester.py``)."""
+        params = params if params is not None else self.current_params()
+        w = params["cost"]
+        target = params["attrs"].get("target_position", 0.0)
+        return {
+            "dd": w["dd_weight"] * (states[..., 0] - target) ** 2,
+            "ep": w["ep_weight"] * 0.25 * (1.0 - torch.cos(states[..., 2])) ** 2,
+            "ekp": w["ekp_weight"] * (states[..., 3] / (2.0 * math.pi)) ** 2,
+            "cc": w["cc_weight"] * w["R"] * torch.sum(inputs**2, dim=-1),
+        }
+
     def terminal_cost_soa(self, xs, params):
         # Penalize terminal pole-down configurations.
         _, _, angle, angle_d = xs

@@ -126,6 +126,9 @@ class ValueTerminalCost(CostFunction):
     def stage_cost_step(self, x, u, u_prev, params):
         return self.base.stage_cost_step(x, u, u_prev, params)
 
+    def get_summed_stage_cost(self, state_horizon, inputs, previous_input=None, params=None):
+        return self.base.get_summed_stage_cost(state_horizon, inputs, previous_input, params)
+
     def get_terminal_cost(self, terminal_states, params):
         return (self.base.get_terminal_cost(terminal_states, params)
                 + self._value(terminal_states, params))

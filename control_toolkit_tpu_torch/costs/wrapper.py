@@ -6,7 +6,8 @@ through the port's registry, binds the hot-reload watcher and proxies the
 cost API.  Without an explicit ``cost_config`` the weights come from
 ``config_cost_function.yml`` (ASF dir, else the packaged defaults,
 ``utils/config.py``) and the file is watched for hot reload
-(``costs/updater.py``).
+(``costs/updater.py``).  ``copy`` gives a wrapper of the same cost name
+with the source cost's live weights.
 """
 from __future__ import annotations
 
@@ -109,5 +110,26 @@ class CostFunctionWrapper:
     def get_trajectory_cost(self, state_horizon, inputs, previous_input=None, params=None):
         return self.cost_function.get_trajectory_cost(state_horizon, inputs, previous_input, params)
 
+    def get_summed_stage_cost(self, state_horizon, inputs, previous_input=None, params=None):
+        return self.cost_function.get_summed_stage_cost(state_horizon, inputs, previous_input,
+                                                        params)
+
     def current_params(self, attrs: Optional[Dict] = None, device=None) -> Dict:
         return self.cost_function.current_params(attrs, device)
+
+    def copy(self) -> "CostFunctionWrapper":
+        """A new wrapper bound to the same cost name and environment (JAX
+        ``wrapper.py:116-134``).  A configured source gives a configured
+        copy whose cost holds the source cost's live weights (a hot reload
+        or an override included, passed as ``cost_config``: no file is read
+        or watched); an unconfigured source gives an unconfigured copy."""
+        new = CostFunctionWrapper()
+        new.cost_function_name = self.cost_function_name
+        new.environment_name = self.environment_name
+        cf = self.cost_function
+        if cf is not None:
+            new.configure(batch_size=cf.batch_size, horizon=cf.horizon,
+                          environment_name=self.environment_name,
+                          cost_function_specification=self.cost_function_name,
+                          cost_config=dict(cf.config))
+        return new

@@ -10,10 +10,14 @@ arrives in ``params`` as tensors on the optimizer's device.
 Ported so far is what MPPI, RPGD, gradient-tf and the sampling zoo need,
 with the ensemble's ``risk_weight`` (a disagreement penalty on every
 trajectory cost) and ``robust_eval`` (every plan scored under every
-member), and a learned value terminal's hooks (``_post_terminal_fn``,
-``_value_grad_spec``, ``_flatten_value_ops``, ``_finalize_cost_kernel``).
-The JAX features not ported raise ``NotImplementedError``
-(ROADMAP): ``remat``, ``initial_guess_policy`` and mesh sharding.
+member), a learned value terminal's hooks (``_post_terminal_fn``,
+``_value_grad_spec``, ``_flatten_value_ops``, ``_finalize_cost_kernel``),
+``remat`` (the fused loop's steps under ``torch.utils.checkpoint`` on the
+autograd path), the heuristic-policy warm start (``initial_guess_policy``:
+``_policy_plan`` and each class's ``_apply_policy_guess``) and the
+``optimal_trajectory`` / ``summed_stage_cost`` diagnostics of
+``calculate_optimal_trajectory``.  Mesh sharding is not ported: it raises
+``NotImplementedError`` (ROADMAP).
 """
 from __future__ import annotations
 
@@ -130,10 +134,15 @@ class Optimizer:
         robust_eval: Optional[str] = None,
         **kwargs,
     ):
-        for feature, on in (("remat", remat),
-                            ("initial_guess_policy", initial_guess_policy is not None)):
-            if on:
-                raise _not_ported(feature)
+        # Rematerialize the fused loop's steps under torch.autograd (memory
+        # for operations at large K*H); the kernels ignore it.
+        self.remat = bool(remat)
+        # Heuristic-policy warm start: a callable (x [S], params) -> u [U]
+        # rolled closed loop through the predictor at the first step after
+        # every optimizer_reset; the [H, U] plan seeds the state through the
+        # class's ``_apply_policy_guess`` (a class without one ignores it).
+        self.initial_guess_policy = initial_guess_policy
+        self._policy_seed_pending = False
         # Risk-averse planning: risk_weight * disagreement(s, Q), the
         # predictor's per-rollout epistemic uncertainty (an ensemble's
         # cross-member trajectory std), added to every trajectory cost;
@@ -185,6 +194,8 @@ class Optimizer:
         self.opt_state: Any = None
         self.u: Any = 0.0
         self.optimal_control_sequence = None
+        self.optimal_trajectory: Optional[np.ndarray] = None
+        self.summed_stage_cost: Optional[np.ndarray] = None
         self._step_fn = None
         self._build_epoch = 0
 
@@ -241,6 +252,30 @@ class Optimizer:
         generator = make_generator(self._seed, self.device, context=self.__class__.__name__)
         self.opt_state = self._init_state(generator)
         self.u = torch.zeros(self.num_control_inputs, dtype=torch.float32, device=self.device)
+        # Every reset (the NaN guard's too) re-arms the policy warm start.
+        self._policy_seed_pending = (self.initial_guess_policy is not None
+                                     and hasattr(self, "_apply_policy_guess"))
+
+    # ---- heuristic-policy warm start ---------------------------------------
+    def _policy_plan(self, s: torch.Tensor, params: Dict) -> torch.Tensor:
+        """The closed-loop rollout of ``initial_guess_policy`` from ``s[:1]``
+        through the predictor's ``single_step``: H controls, each
+        ``policy(x[0], params)`` reshaped to ``[U]`` and clipped to the
+        action box, ``[H, U]`` (JAX ``base.py:359-390``).  Plain torch on
+        the optimizer's device, once after each reset."""
+        step = getattr(self.predictor, "single_step", None)
+        if step is None:
+            raise ValueError("initial_guess_policy requires a predictor exposing single_step "
+                             "(ODE / neural predictors)")
+        U = self.num_control_inputs
+        x, us = s[:1], []
+        for _ in range(self.mpc_horizon):
+            u = torch.as_tensor(self.initial_guess_policy(x[0], params), dtype=torch.float32,
+                                device=x.device).reshape(U)
+            u = torch.clamp(u, self.action_low, self.action_high)
+            us.append(u)
+            x = step(x, u[None], params["dyn"])
+        return torch.stack(us)
 
     # ---- hot path ---------------------------------------------------------
     def step(self, s: np.ndarray, time=None, params: Optional[Dict] = None) -> np.ndarray:
@@ -251,6 +286,12 @@ class Optimizer:
         if s_dev.ndim == 1:
             s_dev = s_dev[None]
         params = params if params is not None else self.default_params()
+        if self._policy_seed_pending:
+            # The first step after a reset seeds the warm start from the
+            # policy's closed-loop rollout.
+            self._policy_seed_pending = False
+            self.opt_state = self._apply_policy_guess(self.opt_state,
+                                                      self._policy_plan(s_dev, params))
         u, self.opt_state, diag = self._step_fn(self.opt_state, s_dev, params)
         self.u = u
 
@@ -263,6 +304,11 @@ class Optimizer:
             self.optimal_control_sequence = self.logging_values.get("u_nom")
         elif "u_nom" in diag:
             self.optimal_control_sequence = diag["u_nom"]
+        # calculate_optimal_trajectory: the nominal plan's replay through the
+        # predictor (and RPGD's summed stage cost), kept on the host.
+        for key in ("optimal_trajectory", "summed_stage_cost"):
+            if key in diag:
+                setattr(self, key, diag[key].detach().cpu().numpy())
 
         u_host = u.cpu().numpy()
         # NaN guard at the host boundary: a diverged solve commands zero and
@@ -428,7 +474,7 @@ class Optimizer:
             lambda x, u, p: step(x, u, p["dyn"]),
             lambda x, u, up, p: cf.stage_cost_step(x, u, up, cp),
             lambda x, p: cf.get_terminal_cost(x, cp),
-            s_tiled, Q, u_prev, params,
+            s_tiled, Q, u_prev, params, remat=self.remat,
         )
         return cost
 

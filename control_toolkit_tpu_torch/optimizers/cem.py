@@ -33,8 +33,8 @@ The batched-mpc controller's B-session step is the fused one
 (``_make_batched_cem_step``, one launch of K1's session-row form an outer
 iteration) is built for compositions that call it; the controller does not
 route to it, as the JAX package's does not (a modular CEM fleet takes the
-JAX package's vmapped per-slot step, which the port refuses).  Not ported
-(``NotImplementedError``, ROADMAP): the policy warm start
+JAX package's vmapped per-slot step, which the port refuses).  The policy
+warm start centres the sampling mean on the policy's plan
 (``_apply_policy_guess``).
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ import torch
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import elite_indices
 from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.utils import registry
 
 
@@ -154,7 +154,9 @@ class CEMOptimizer(Optimizer):
         )
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """The sampling mean centred on a heuristic-policy rollout; the
+        stdev keeps its reset width (JAX ``cem.py:142-146``)."""
+        return state._replace(dist_mue=plan[None].to(state.dist_mue.dtype))
 
     def sample_slot_normals(self, generators, mask) -> torch.Tensor:
         """The modular batched step's draws ``[cem_outer_it, B, K, H, U]``:

@@ -18,8 +18,8 @@ followed by a deterministic ``update(state, s, params, draws)``, an
 outer iteration at a time (``iterate``).  The component of rollout k is
 ``argmax(gumbel[k] + log(probs + 1e-9))``, the Gumbel-max form of the JAX
 package's ``jax.random.categorical``, so tests can feed both packages the
-same random numbers.  Not ported (``NotImplementedError``, ROADMAP): the
-policy warm start.
+same random numbers.  The policy warm start centres both components on
+the policy's plan (``_apply_policy_guess``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from control_toolkit_tpu_torch.ops.common import elite_indices
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.optimizers.cem import cem_base_carry, cem_diag
 from control_toolkit_tpu_torch.utils import registry
 
@@ -95,7 +95,10 @@ class CEMGMMOptimizer(Optimizer):
             )
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """Both mixture components centred on a heuristic-policy rollout;
+        the stdevs keep their reset width (JAX ``cem_gmm.py:103``)."""
+        return state._replace(
+            comp_mue=plan[None].to(state.comp_mue.dtype).expand(state.comp_mue.shape).clone())
 
     def _init_state(self, generator):
         H, U = self.mpc_horizon, self.num_control_inputs

@@ -18,8 +18,9 @@ The gradient and the cost come from ``Optimizer._make_grad_and_cost_only``
 learned models).  Each step is a draw (``sample_draws``: the elite seed's
 normals ``[k, H, U]``, then one ``[K - k, H, U]`` per outer iteration)
 followed by a deterministic ``update(state, s, params, draws)``: a first
-carry (``start``), then an outer iteration at a time (``iterate``).  Not
-ported (``NotImplementedError``, ROADMAP): the policy warm start.
+carry (``start``), then an outer iteration at a time (``iterate``).  As
+in the JAX package, the class has no policy warm start: an
+``initial_guess_policy`` is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from control_toolkit_tpu_torch.ops.common import (
     AdamState, adam_init, adam_update, clip_by_norm, elite_indices,
 )
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.optimizers.cem import cem_shift_distribution, cem_trip_count, refit
 from control_toolkit_tpu_torch.optimizers.cem_naive_grad import GRAD_CEM_STDEV_MAX
 from control_toolkit_tpu_torch.utils import registry
@@ -93,9 +94,6 @@ class CEMGradBharadhwajOptimizer(Optimizer):
             count=0,
             u_prev=torch.zeros(U, dtype=torch.float32, device=self.device),
         )
-
-    def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
 
     def sample_draws(self, state: CEMGradState) -> list:
         """This step's draws: the elite seed's normals ``[k, H, U]``, then

@@ -18,15 +18,15 @@ K7 and K1 over the ODE (``ops/grad_cost_rollout.py``,
 learned models, ``torch.autograd`` otherwise.  Each step is a draw per
 outer iteration (``sample_draws``: the normals ``[K, H, U]``) followed by
 a deterministic ``update(state, s, params, draws)``, an outer iteration
-at a time (``iterate``).  Not ported (``NotImplementedError``, ROADMAP):
-the policy warm start.
+at a time (``iterate``).  As in the JAX package, the class has no policy
+warm start: an ``initial_guess_policy`` is accepted and ignored.
 """
 from __future__ import annotations
 
 import torch
 
 from control_toolkit_tpu_torch.ops.common import clip_by_norm, elite_indices
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.optimizers.cem import CEMState, cem_shift_distribution, refit
 from control_toolkit_tpu_torch.utils import registry
 
@@ -71,9 +71,6 @@ class CEMNaiveGradOptimizer(Optimizer):
             count=0,
             u_prev=torch.zeros(U, dtype=torch.float32, device=self.device),
         )
-
-    def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
 
     def sample_draws(self, state: CEMState) -> list:
         """This step's draws, one per outer iteration: the normals

@@ -27,8 +27,9 @@ from ``torch.linalg.eigh`` with the opposite sign from the JAX package's
 sign changes.  Each step is a draw per generation (``sample_draws``: the
 normals ``[K - add_mean, N]``) followed by a deterministic ``update(state,
 s, params, draws)``.  The generation and step counters are host ints, so
-the ``h_sigma`` debias and the warmup trip count are host decisions.  Not
-ported (``NotImplementedError``, ROADMAP): the policy warm start.
+the ``h_sigma`` debias and the warmup trip count are host decisions.  The
+policy warm start centres the search on the policy's plan
+(``_apply_policy_guess``).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from control_toolkit_tpu_torch.ops.common import elite_indices
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.utils import registry
 
 
@@ -134,7 +135,9 @@ class CMAESOptimizer(Optimizer):
         )
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """The search distribution centred on a heuristic-policy rollout
+        (JAX ``cma_es.py:150``)."""
+        return state._replace(mean=plan.to(torch.float32).reshape(-1))
 
     def trip_count(self, count: int) -> int:
         return self.warmup_iterations if self.warmup and count == 0 else self.cma_outer_it

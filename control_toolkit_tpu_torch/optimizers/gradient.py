@@ -16,8 +16,10 @@ deterministic ``update(state, s, params, tail)``.  The batched-mpc
 controller's B-session step (``_make_batched_gradient_step``) takes every
 session's gradients in one launch of a gradient kernel's session-row form
 an Adam iteration and scores them in one of its cost kernel's
-(``kernel_families/batched.py``).  Not ported (``NotImplementedError``,
-ROADMAP): the policy warm start.
+(``kernel_families/batched.py``).  The policy warm start puts the
+policy's plan in population row 0 with its Adam moments zeroed (JAX
+``gradient.py:98``); ``calculate_optimal_trajectory`` is accepted and
+emits nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from control_toolkit_tpu_torch.ops.common import (
     AdamState, adam_descent, adam_init, shift_adam_moments,
 )
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.utils import registry
 
 logger = logging.getLogger(__name__)
@@ -62,8 +64,6 @@ class GradientOptimizer(Optimizer):
         **kwargs,
     ):
         super().__init__(**kwargs)
-        if self.calculate_optimal_trajectory:
-            raise _not_ported("calculate_optimal_trajectory")
         self.gradient_steps = int(gradient_steps)
         self.initial_action_stdev = float(initial_action_stdev)
         self.learning_rate = float(learning_rate)
@@ -98,7 +98,11 @@ class GradientOptimizer(Optimizer):
         return self._uniform(state.generator, (self.num_rollouts, 1, self.num_control_inputs))
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """Population row 0 replaced by a heuristic-policy rollout, its Adam
+        moments zeroed (JAX ``gradient.py:98``)."""
+        Q, m, v = (t.clone() for t in (state.Q, state.adam.m, state.adam.v))
+        Q[0], m[0], v[0] = plan, 0.0, 0.0
+        return state._replace(Q=Q, adam=state.adam._replace(m=m, v=v))
 
     def sample_slot_tails(self, generators, mask) -> torch.Tensor:
         """The batched step's draw, the fresh tail columns ``[B, K, 1, U]``:

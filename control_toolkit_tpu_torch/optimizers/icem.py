@@ -17,8 +17,8 @@ step is a draw per outer iteration (``sample_draws``: the white spectral
 coefficients ``[2, n_fresh, U, F]``) followed by a deterministic
 ``update(state, s, params, draws)``.  As in the JAX package, every
 iteration uses the full K (the paper's population decay is not ported
-there either).  Not ported (``NotImplementedError``, ROADMAP): the policy
-warm start (``_apply_policy_guess``).
+there either).  The policy warm start centres the sampling mean and the
+elite buffer on the policy's plan (``_apply_policy_guess``).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from control_toolkit_tpu_torch.ops.colored_noise import powerlaw_shape, powerlaw_white
 from control_toolkit_tpu_torch.ops.common import elite_indices
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.optimizers.cem import (
     cem_base_carry, cem_diag, cem_shift_distribution, cem_trip_count, refit,
 )
@@ -101,7 +101,13 @@ class ICEMOptimizer(Optimizer):
         )
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """The sampling mean and every elite-buffer row set to a
+        heuristic-policy rollout: iCEM re-injects its elites, so a stale
+        mid-range row would compete with the seeded mean (JAX
+        ``icem.py:127``)."""
+        plan = plan.to(state.dist_mue.dtype)
+        return state._replace(dist_mue=plan[None],
+                              elites=plan.expand(state.elites.shape).clone())
 
     def sample_draws(self, state: ICEMState) -> list:
         """This step's draws, one per outer iteration: the white spectral

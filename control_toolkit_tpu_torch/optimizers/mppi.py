@@ -32,25 +32,44 @@ chooses them:
   terminal) through ``Optimizer._make_cost_only``, or by the full
   trajectory rollout when logging needs it.
 
+``optim_steps > 0`` (``mppi-optimize``, JAX ``mppi.py:899-928``): after
+the semi-fused or modular update the nominal plan takes ``optim_steps``
+Adam steps (fresh moments each tick, Keras epsilon) on ``nom_cost``, the
+nominal plan's own trajectory cost from ``s[:1]``: each step's gradient
+norm-clipped to ``gradmax_clip`` over [H, U], the plan clipped to the
+action box after it.  ``nom_cost`` is ``_fused_cost`` (no ``risk_weight``
+term, no ``robust_eval`` aggregate; a learned value terminal's V in its
+terminal) where the fused loop applies, else the trajectory cost; its
+gradient is the model family's gradient kernel at one rollout (K7 over an
+ODE, its value_spec form under a plain-MLP V, K8 over an MLP, K9 over
+``"ODE+res"``, K10 over the GP; ``_make_nominal_grad``), and
+``torch.autograd`` only where no family admits the model.
+``calculate_optimal_trajectory`` adds the nominal plan's replay through
+the predictor, ``predictor.rollout(s[:1], u_nom)``, to both paths'
+diagnostics.
+
 Where the fully-fused gate is false, ``fully_fused`` takes the semi-fused
 path, as the JAX gate does: an options rule, not a fall back from a
-failed kernel.  The batched-mpc controller's B-session steps score every
+failed kernel; so does ``fully_fused`` with ``optim_steps`` or
+``calculate_optimal_trajectory`` (K3's update has no refinement and no
+trajectory).  The batched-mpc controller's B-session steps score every
 session in one launch: over an ODE model K4 (``ops/mppi_cost_cols.py``,
 ``_make_batched_semi_fused_step``; its emit_terminal form under a value
 terminal), over a learned model the session-row
 form of its kernel (``_batched_columns_step_from_kernel``: K11, K13, K12,
-K14).  Not ported yet (they raise ``NotImplementedError``,
-ROADMAP): ``optim_steps > 0`` (mppi-optimize),
-``calculate_optimal_trajectory``.
+K14); none carries the refinement, so an mppi-optimize fleet takes the
+vmapped per-slot step, which is not ported.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from control_toolkit_tpu_torch.ops import kernels
+from control_toolkit_tpu_torch.ops.common import adam_descent, adam_init
 from control_toolkit_tpu_torch.ops.counter_prng import DEFAULT_TILE_K, draw_seed2
 from control_toolkit_tpu_torch.ops.interpolation import Interpolator
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
@@ -137,7 +156,8 @@ def make_reward_weighted_average(LBD: float, weighting: str = "softmax"):
 @registry.optimizers.register("mppi")
 @registry.optimizers.register("mppi-optimize-tf")
 class MPPIOptimizer(Optimizer):
-    """MPPI (the ``mppi-optimize`` Adam refinement is not ported yet)."""
+    """MPPI, with the ``mppi-optimize`` Adam refinement of the nominal plan
+    when ``optim_steps > 0``."""
 
     # K3's tile: part of the fused path's function (which counter a rollout
     # reads), and the divisor of K that the fused gate asks for.
@@ -165,10 +185,6 @@ class MPPIOptimizer(Optimizer):
         **kwargs,
     ):
         super().__init__(**kwargs)
-        if int(optim_steps) > 0:
-            raise _not_ported("MPPI optim_steps > 0 (mppi-optimize)")
-        if self.calculate_optimal_trajectory:
-            raise _not_ported("calculate_optimal_trajectory")
         self.cc_weight = float(cc_weight)
         self.R = float(R)
         self.LBD = float(LBD)
@@ -183,6 +199,12 @@ class MPPIOptimizer(Optimizer):
         # instead of nominal + weighted raw perturbations (opt-in, departs
         # from the reference; takes the modular path).
         self.bounded_update = bool(bounded_update)
+        self.optim_steps = int(optim_steps)
+        self.mppi_LR = float(mppi_LR)
+        self.adam_beta_1 = float(adam_beta_1)
+        self.adam_beta_2 = float(adam_beta_2)
+        self.adam_epsilon = float(adam_epsilon)
+        self.gradmax_clip = float(gradmax_clip)
 
     def configure(self, num_states, num_control_inputs, dt=None, **kwargs):
         if dt is None:
@@ -206,19 +228,25 @@ class MPPIOptimizer(Optimizer):
             u_prev=torch.zeros(self.num_control_inputs, dtype=torch.float32, device=self.device),
         )
 
+    def _apply_policy_guess(self, state, plan):
+        """The nominal plan seeded from a heuristic-policy rollout (JAX
+        ``mppi.py:284``); ``_replace`` keeps mppi-var's stdev."""
+        return state._replace(u_nom=plan[None].to(state.u_nom.dtype))
+
     def _can_fully_fuse(self) -> bool:
         """K3 runs the step (``mppi.py:_can_fully_fuse``): the option is on,
+        no Adam refinement (``optim_steps`` 0: K3's update has none),
         softmax weighting without ``bounded_update`` (the kernels average
-        the raw perturbations), logging off, the model and cost K1's
-        (``ode`` family), no post-terminal hook (K3 writes no terminal
-        states: a learned value terminal takes the semi-fused path, whose
-        K2 form emits them), and K divides into K3's tiles.
-        ``optim_steps`` and ``calculate_optimal_trajectory`` are refused at
-        construction."""
+        the raw perturbations), logging and the optimal trajectory off, the
+        model and cost K1's (``ode`` family), no post-terminal hook (K3
+        writes no terminal states: a learned value terminal takes the
+        semi-fused path, whose K2 form emits them), and K divides into K3's
+        tiles."""
         from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 
-        return (self.fully_fused and self.weighting == "softmax" and not self.bounded_update
-                and not self.optimizer_logging and ode.can_use_cost(self)
+        return (self.fully_fused and self.optim_steps == 0 and self.weighting == "softmax"
+                and not self.bounded_update and not self.optimizer_logging
+                and not self.calculate_optimal_trajectory and ode.can_use_cost(self)
                 and self._post_terminal_fn() is None
                 and self.num_rollouts % self.fused_tile_k == 0)
 
@@ -279,6 +307,80 @@ class MPPIOptimizer(Optimizer):
 
         return update
 
+    def _make_nominal_grad(self):
+        """``grad(u_nom [1,H,U], s1 [1,S], u_prev, params) -> d nom_cost /
+        d u_nom``: ``nom_cost`` is the nominal plan's trajectory cost from
+        ``s1`` (JAX ``mppi.py:907-913``).  Where the fused loop applies it
+        is ``_fused_cost``, without the ``risk_weight`` term and the
+        ``robust_eval`` aggregate, so the gates see an optimizer with
+        neither (``nominal``); the gradient is then the first family of
+        ``GRAD_ORDER`` whose gate admits the model, at one rollout (K7 and
+        its value_spec form, K8, K9, K10; CPU tensors take their plain
+        versions), and ``torch.autograd`` through the fused loop where none
+        does.  At one rollout an ensemble of E > 1 members steps its
+        members' mean (``single_step``), which no launch of K8's
+        member-block form computes: it takes autograd too.  Where the fused
+        loop does not apply, ``nom_cost`` is the trajectory cost (its risk
+        and robust terms included) under autograd."""
+        from control_toolkit_tpu_torch.optimizers import kernel_families as kf
+
+        if self._can_fuse_rollout():
+            nominal = copy.copy(self)
+            nominal.risk_weight, nominal.robust_eval = 0.0, None
+            pred = getattr(self.predictor, "predictor", self.predictor)
+            lone_mean = getattr(pred, "n_members", 1) > 1
+            for fam in kf.GRAD_ORDER:
+                if fam.can_use_grad(nominal) and not (lone_mean and fam is kf.ensemble):
+                    kernel = fam.build_grad(nominal)
+                    return lambda u_nom, s1, u_prev, params: kernel(s1, u_nom, u_prev, params)[1]
+            eval_nom = nominal._fused_cost
+        else:
+            def eval_nom(s1, u_nom, u_prev, params):
+                return self._rollout_and_cost(s1, u_nom, u_prev, params)[0]
+
+        def autograd_grad(u_nom, s1, u_prev, params):
+            with torch.enable_grad():
+                un = u_nom.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(eval_nom(s1, un, u_prev, params).sum(), un)
+            return g
+
+        return autograd_grad
+
+    def _make_refine(self):
+        """``refine(u_nom [1,H,U], s, u_prev, params) -> u_nom``, the
+        mppi-optimize refinement (JAX ``mppi.py:899-928``): ``optim_steps``
+        Adam steps from fresh moments (lr ``mppi_LR``, Keras epsilon) on
+        ``nom_cost`` (``_make_nominal_grad``), each gradient norm-clipped to
+        ``gradmax_clip`` over [H, U], the plan clipped to the action box
+        after each step; None when ``optim_steps`` is 0."""
+        if self.optim_steps <= 0:
+            return None
+        grad = self._make_nominal_grad()
+        low, high = self.action_low, self.action_high
+        hyper = (self.optim_steps, self.mppi_LR, self.adam_beta_1, self.adam_beta_2,
+                 self.adam_epsilon, self.gradmax_clip, low, high)
+
+        def refine(u_nom, s, u_prev, params):
+            s1 = s[:1].contiguous()
+            u_nom, _ = adam_descent(u_nom, adam_init(u_nom.shape, u_nom.device),
+                                    lambda un: grad(un, s1, u_prev, params), *hyper)
+            return u_nom
+
+        return refine
+
+    def _finish(self, u_nom, s, state, params, refine, diag):
+        """The tail of the semi-fused and modular updates: the refinement
+        (mppi-optimize), the applied control ``u_nom[0, 0]``, and, with
+        ``calculate_optimal_trajectory``, the nominal plan's replay through
+        the predictor (JAX ``mppi.py:986-994``, ``:1036-1055``)."""
+        if refine is not None:
+            u_nom = refine(u_nom, s, state.u_prev, params)
+        u = u_nom[0, 0, :]
+        diag["u_nom"] = u_nom
+        if self.calculate_optimal_trajectory:
+            diag["optimal_trajectory"] = self.predictor.rollout(s[:1], u_nom, params["dyn"])
+        return u, state._replace(u_nom=u_nom, u_prev=u), diag
+
     def _make_semi_fused_update(self):
         """The semi-fused update over K2; with a post-terminal hook (a
         learned value terminal) over K2's emit_terminal form, the hook's
@@ -294,6 +396,7 @@ class MPPIOptimizer(Optimizer):
         low, high = self.action_low, self.action_high
         cc_weight, R, NU = self.cc_weight, self.R, self.NU
         weight_fn = make_weight_fn(self.weighting, self.LBD)
+        refine = self._make_refine()
 
         def update(state: MPPIState, s, params, eps):
             u_nom = torch.cat([state.u_nom[:, 1:, :], state.u_nom[:, -1:, :]], dim=1)
@@ -311,9 +414,7 @@ class MPPIOptimizer(Optimizer):
             ws = torch.einsum("k,puk->up", w, eps) / torch.sum(w)
             b = torch.einsum("ph,up->hu", W, ws)
             u_nom = torch.clamp(u_nom + b[None], low, high)
-            u = u_nom[0, 0, :]
-            diag = {"u_nom": u_nom, "J_logged": costs}
-            return u, MPPIState(state.generator, u_nom, u), diag
+            return self._finish(u_nom, s, state, params, refine, {"J_logged": costs})
 
         return update
 
@@ -585,6 +686,7 @@ class MPPIOptimizer(Optimizer):
         reward_weighted_average = make_reward_weighted_average(self.LBD, self.weighting)
         cost_only = None if self.optimizer_logging else self._make_cost_only()
         bounded = self.bounded_update
+        refine = self._make_refine()
 
         def update(state: MPPIState, s, params, delta_u):
             s_tiled = s[:1].expand(K, -1).contiguous()
@@ -603,10 +705,9 @@ class MPPIOptimizer(Optimizer):
                 u_nom = torch.clamp(
                     u_nom + reward_weighted_average(traj_cost, delta_u)[None], low, high
                 )
-            u = u_nom[0, 0, :]
-            diag = {"u_nom": u_nom, "J_logged": traj_cost}
+            diag = {"J_logged": traj_cost}
             if cost_only is None:
                 diag.update({"Q_logged": u_run, "rollout_trajectories_logged": traj})
-            return u, MPPIState(state.generator, u_nom, u), diag
+            return self._finish(u_nom, s, state, params, refine, diag)
 
         return update

@@ -29,8 +29,11 @@ MPPI's):
 
 The batched-mpc controller's B-session step (``_make_batched_var_step``)
 is MPPI's K4 step on each slot's raw draws scaled by its own sigma, with
-each session's adaptation over its ``[K]`` costs.  Not ported
-(``NotImplementedError``, ROADMAP): ``calculate_optimal_trajectory``.
+each session's adaptation over its ``[K]`` costs.
+``calculate_optimal_trajectory`` takes the modular path (JAX
+``mppi_var.py:243``), whose diagnostics carry the nominal plan's replay
+through the predictor; the policy warm start is MPPI's hook (its
+``_replace`` keeps the stdev).
 """
 from __future__ import annotations
 
@@ -94,6 +97,11 @@ class MPPIVarOptimizer(MPPIOptimizer):
                                        dtype=torch.float32, device=self.device),
                             self.STDEV_min, self.STDEV_max)
         return MPPIVarState(generator, mppi.u_nom, mppi.u_prev, stdev)
+
+    def _uses_semi_fused(self) -> bool:
+        """MPPI's semi-fused gate and no optimal trajectory (JAX
+        ``mppi_var.py:243``): that option takes the modular path."""
+        return super()._uses_semi_fused() and not self.calculate_optimal_trajectory
 
     def _apply_stdev_update(self, stdev, grad):
         """The sigma update's tail: norm-clip the gradient over the inputs,

@@ -23,8 +23,11 @@ takes every session's gradients in one launch of a gradient kernel's
 session-row form an Adam iteration and scores them in one of its cost
 kernel's (``kernel_families/batched.py``).
 
-Not ported (``NotImplementedError``, ROADMAP): the policy warm start
-(``_apply_policy_guess``) and ``calculate_optimal_trajectory``.
+The policy warm start puts the policy's plan in population row 0 with its
+Adam moments zeroed and its age 0 (JAX ``rpgd.py:199``);
+``calculate_optimal_trajectory`` adds the best plan's replay through the
+predictor and its summed stage cost to the diagnostics (JAX
+``rpgd.py:435-440``).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from control_toolkit_tpu_torch.ops.common import (
     AdamState, adam_descent, adam_init, elite_indices, shift_rows,
 )
 from control_toolkit_tpu_torch.ops.interpolation import Interpolator
-from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
+from control_toolkit_tpu_torch.optimizers.base import Optimizer
 from control_toolkit_tpu_torch.utils import registry
 
 logger = logging.getLogger(__name__)
@@ -127,8 +130,6 @@ class RPGDOptimizer(Optimizer):
         **kwargs,
     ):
         super().__init__(**kwargs)
-        if self.calculate_optimal_trajectory:
-            raise _not_ported("calculate_optimal_trajectory")
         # Max-entropy population bonus: the gradient objective becomes
         # sum_k J_k - alpha/2 * sum_{h,u} log(var_k Q[:,h,u] + 1e-8) (the eps
         # inside the log keeps the gradient finite at zero spread).
@@ -216,7 +217,13 @@ class RPGDOptimizer(Optimizer):
         )
 
     def _apply_policy_guess(self, state, plan):
-        raise _not_ported("initial_guess_policy")
+        """Population row 0 replaced by a heuristic-policy rollout, its Adam
+        moments zeroed and its age 0, so the next resample keeps it fresh
+        (JAX ``rpgd.py:199``)."""
+        Q, m, v, ages = (t.clone() for t in (state.Q, state.adam.m, state.adam.v,
+                                             state.trajectory_ages))
+        Q[0], m[0], v[0], ages[0] = plan, 0.0, 0.0, 0.0
+        return state._replace(Q=Q, adam=state.adam._replace(m=m, v=v), trajectory_ages=ages)
 
     def sample_slot_resample(self, states: RPGDState, mask) -> list:
         """The batched step's draws, one a slot: slot b's resample draw
@@ -349,6 +356,11 @@ class RPGDOptimizer(Optimizer):
                     "trajectory_ages_logged": state.trajectory_ages, "u_nom": u_nom}
             if traj is not None:
                 diag["rollout_trajectories_logged"] = traj
+            if self.calculate_optimal_trajectory:
+                opt_traj = self.predictor.rollout(s[:1], u_nom, params["dyn"])
+                diag["optimal_trajectory"] = opt_traj
+                diag["summed_stage_cost"] = self.cost_function.get_summed_stage_cost(
+                    opt_traj, u_nom, state.u_prev, self._cost_params(params))
             new_state = RPGDState(
                 generator=state.generator, Q=Q_next, adam=AdamState(adam.step, m, v),
                 trajectory_ages=ages + 1.0, count=state.count + 1, u_prev=u,

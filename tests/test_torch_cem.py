@@ -249,9 +249,10 @@ def test_fused_gate():
     assert out["rollout_trajectories_logged"].shape == (1, 4096, H + 1, 4)
 
 
-def test_unported_cem_features_raise():
-    """The policy warm start raises; the modular (K1's session rows) and the
-    fused (K6) batched steps build, and with warmup on raise."""
+def test_cem_policy_warm_start_and_batched_steps():
+    """The policy warm start centres the sampling mean on the plan (JAX
+    cem.py:142-146); the modular (K1's session rows) and the fused (K6)
+    batched steps build, and with warmup on raise."""
     _, pctrl = make_pair(**cem_config())
     opt = pctrl.optimizer
     for build in (opt._make_batched_cem_step, opt._make_batched_fused_cem_step):
@@ -262,8 +263,9 @@ def test_unported_cem_features_raise():
         with pytest.raises(NotImplementedError, match="warmup=False"):
             build(2)
     opt.warmup = False
-    with pytest.raises(NotImplementedError):
-        opt._apply_policy_guess(opt.opt_state, None)
+    plan = torch.full((opt.mpc_horizon, 1), 0.25)
+    seeded = opt._apply_policy_guess(opt.opt_state, plan)
+    assert torch.equal(seeded.dist_mue[0], plan) and seeded.stdev is opt.opt_state.stdev
 
 
 def strong_cem(fused):

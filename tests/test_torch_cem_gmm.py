@@ -164,10 +164,12 @@ def test_names_resolve_the_step_rides_k1_and_bad_configs_raise():
     for bad in (gmm_config(cem_best_k=1), gmm_config(cem_best_k=K + 1)):
         with pytest.raises(ValueError):
             make_pair("cem-gmm-tf", bad, spec="ODE")
-    with pytest.raises(NotImplementedError):
-        make_pair("cem-gmm-tf", gmm_config(initial_guess_policy="zero"), spec="ODE")
-    with pytest.raises(NotImplementedError):
-        make_pair("cem-gmm-tf", gmm_config(remat=True), spec="ODE")
+    # A policy warm start and remat are taken, as the JAX package takes them.
+    for extra in ({"initial_guess_policy": lambda x, p: x[2:3]}, {"remat": True}):
+        jctrl, pctrl = make_pair("cem-gmm-tf", gmm_config(**extra), spec="ODE")
+        for opt in (jctrl.optimizer, pctrl.optimizer):
+            assert opt._policy_seed_pending == ("initial_guess_policy" in extra)
+            assert opt.remat == ("remat" in extra)
 
 
 @pytest.mark.cuda

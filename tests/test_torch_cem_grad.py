@@ -167,7 +167,7 @@ def test_bharadhwaj_step_matches_jax(spec, count, warm):
                                       ("cem-naive-grad-tf", CEMNaiveGradOptimizer),
                                       ("cem-grad-bharadhwaj", CEMGradBharadhwajOptimizer),
                                       ("cem-grad-bharadhwaj-tf", CEMGradBharadhwajOptimizer)])
-def test_names_resolve_and_unported_options_raise(name, cls):
+def test_names_resolve_and_options_are_taken_as_in_jax(name, cls):
     assert import_optimizer_by_name(name) is cls
     assert import_controller_by_name(name) is MPCController
     config = (naive_config if "naive" in name else bharadhwaj_config)
@@ -178,9 +178,13 @@ def test_names_resolve_and_unported_options_raise(name, cls):
     for bad in (config(cem_best_k=K + 1),):
         with pytest.raises(ValueError):
             make_pair(name, bad, spec="ODE")
-    for bad in (config(initial_guess_policy="zero"), config(remat=True)):
-        with pytest.raises(NotImplementedError):
-            make_pair(name, bad, spec="ODE")
+    # As in the JAX package: the policy is accepted and ignored (no hook),
+    # remat is taken.
+    for extra in ({"initial_guess_policy": lambda x, p: x[2:3]}, {"remat": True}):
+        jctrl, pctrl = make_pair(name, config(**extra), spec="ODE")
+        for opt in (jctrl.optimizer, pctrl.optimizer):
+            assert not hasattr(opt, "_apply_policy_guess") and not opt._policy_seed_pending
+            assert opt.remat == ("remat" in extra)
 
 
 def test_stdev_cap_is_the_reference_10():

@@ -278,8 +278,10 @@ def test_names_resolve_the_step_rides_k1_and_bad_configs_raise():
                 cma_config(num_rollouts=1, cma_mu=1)):
         with pytest.raises(ValueError):
             make_pair("cma-es-tf", bad, spec="ODE")
-    with pytest.raises(NotImplementedError):
-        make_pair("cma-es-tf", cma_config(initial_guess_policy="zero"), spec="ODE")
+    # The policy warm start is taken, as the JAX package takes it.
+    jctrl, pctrl = make_pair("cma-es-tf", cma_config(initial_guess_policy=lambda x, p: x[2:3]),
+                             spec="ODE")
+    assert jctrl.optimizer._policy_seed_pending and pctrl.optimizer._policy_seed_pending
 
 
 @pytest.mark.cuda

@@ -661,7 +661,7 @@ def test_robust_aggregation_matches_manual():
 def test_option_errors_match_jax():
     """JAX tests/test_ensemble.py:260 and :601: the options need an
     ensemble, and robust_eval a known mode; remat and initial_guess_policy
-    are still not ported."""
+    are taken by both packages."""
     for option, match in (({"risk_weight": 1.0}, "disagreement"),
                           ({"robust_eval": "worst"}, "rollout_all_members")):
         for ctrl_cls in (JaxMPC, MPCController):
@@ -681,10 +681,14 @@ def test_option_errors_match_jax():
             with pytest.raises(ValueError, match="robust_eval|cvar"):
                 opt_cls(predictor=None, cost_function=None, control_limits=LIMITS,
                         num_rollouts=8, mpc_horizon=5, seed=0, robust_eval=bad)
+    # Both packages take remat and the policy; random-action has no hook,
+    # so the policy is never armed.
     for option in ({"remat": True}, {"initial_guess_policy": lambda x, p: x[:1]}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            RandomActionOptimizer(predictor=None, cost_function=None, control_limits=LIMITS,
-                                  **option)
+        for opt_cls in (JaxRandomAction, RandomActionOptimizer):
+            opt = opt_cls(predictor=None, cost_function=None, control_limits=LIMITS, **option)
+            assert opt.remat == ("remat" in option)
+            assert opt.initial_guess_policy is option.get("initial_guess_policy")
+            assert not hasattr(opt, "_apply_policy_guess")
 
 
 def test_robust_mppi_closed_loop_ticks(tmp_path):

@@ -233,11 +233,13 @@ def test_nan_guard_commands_zero_and_resets(monkeypatch):
     assert torch.all(popt.opt_state.u_nom == 0.0)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        make_port_ctrl(32, 10, optim_steps=2)
-    with pytest.raises(NotImplementedError):
-        make_port_ctrl(32, 10, remat=True)
+def test_refinement_and_remat_build_as_in_jax():
+    # optim_steps (mppi-optimize) and remat build in both packages.
+    for extra in ({"optim_steps": 2}, {"remat": True}):
+        jopt = make_jax_ctrl(32, 10, **extra).optimizer
+        popt = make_port_ctrl(32, 10, **extra).optimizer
+        assert (popt.optim_steps, popt.remat) == (jopt.optim_steps, jopt.remat)
+        assert (popt._make_refine() is not None) == (jopt.optim_steps > 0)
     # risk_weight is ported (PETS ensembles): over the ODE, as in the JAX
     # package, it needs a predictor with a disagreement.
     with pytest.raises(ValueError, match="disagreement"):

@@ -180,7 +180,7 @@ def test_stdev_update_clips_the_norm_and_the_bounds():
     assert got.min() >= 0.01 and got.max() <= 1.0
 
 
-def test_names_resolve_keys_drop_and_unported_options_raise(caplog):
+def test_names_resolve_keys_drop_and_options_are_taken(caplog):
     for name in ("mppi-var", "mppi-var-tf"):
         assert import_optimizer_by_name(name) is MPPIVarOptimizer
         assert import_controller_by_name(name) is MPCController
@@ -195,15 +195,20 @@ def test_names_resolve_keys_drop_and_unported_options_raise(caplog):
     before = mppi_cost.launches
     u = ctrl.step(np.array([0.0, 0.0, 0.1, 0.0], np.float32))
     assert np.all(np.isfinite(u)) and mppi_cost.launches == before  # CPU: K2's plain version
-    for bad in ({"initial_guess_policy": "zero"}, {"remat": True}):
-        with pytest.raises(NotImplementedError):
-            port_ctrl("mppi-var-tf", var_config(**bad))
+    # The policy warm start (MPPI's hook) and remat are taken, as in JAX.
+    for extra in ({"initial_guess_policy": lambda x, p: x[2:3]}, {"remat": True}):
+        opt = port_ctrl("mppi-var-tf", var_config(**extra)).optimizer
+        assert opt._policy_seed_pending == ("initial_guess_policy" in extra)
+        assert opt.remat == ("remat" in extra)
+    # calculate_optimal_trajectory takes the modular path (JAX mppi_var.py:243).
     opt_traj = MPCController("cartpole", LIMITS, {"target_position": 0.3},
                              config={"device": "cpu", "optimizer": "mppi-var-tf",
                                      "controller_logging": False,
                                      "calculate_optimal_trajectory": True})
-    with pytest.raises(NotImplementedError, match="calculate_optimal_trajectory"):
-        opt_traj.configure(optimizer_name="mppi-var-tf", optimizer_config=var_config())
+    opt_traj.configure(optimizer_name="mppi-var-tf", optimizer_config=var_config())
+    assert not opt_traj.optimizer._uses_semi_fused()
+    assert opt_traj.step(np.array([0.0, 0.0, 0.1, 0.0], np.float32)).shape == (1,)
+    assert opt_traj.optimizer.optimal_trajectory.shape == (1, H + 1, 4)
 
 
 # ---- the fleet ------------------------------------------------------------------

@@ -368,7 +368,7 @@ def test_gradient_path_gate_and_autograd_fallback():
 def test_registered_names_resolve_and_batched_steps_raise():
     """The names resolve; the batched steps build (tests/test_torch_fleet_grad.py
     holds them to the JAX package's) and, with warmup on, raise; the policy
-    warm start raises."""
+    warm start is taken."""
     names = ("rpgd-tf", "rpgd", "dist-adam-resamp2-tf", "rpgd-me-tf", "rpgd-me-param-tf",
              "rpgd-ml-tf", "rpgd-particle-tf", "gradient-tf", "gradient")
     for name in names:
@@ -388,7 +388,9 @@ def test_registered_names_resolve_and_batched_steps_raise():
         with pytest.raises(NotImplementedError, match="warmup=False"):
             build(2)
         opt.warmup = False
-    with pytest.raises(NotImplementedError):
-        rctrl.optimizer._apply_policy_guess(rctrl.optimizer.opt_state, None)
-    with pytest.raises(NotImplementedError):
-        make_pair("rpgd-tf", rpgd_config(initial_guess_policy="zero"))
+    # The policy warm start is taken (JAX rpgd.py:199): row 0 seeded.
+    plan = torch.full((rctrl.optimizer.mpc_horizon, 1), 0.25)
+    seeded = rctrl.optimizer._apply_policy_guess(rctrl.optimizer.opt_state, plan)
+    assert torch.equal(seeded.Q[0], plan) and float(seeded.trajectory_ages[0]) == 0.0
+    jctrl, pctrl = make_pair("rpgd-tf", rpgd_config(initial_guess_policy=lambda x, p: x[2:3]))
+    assert jctrl.optimizer._policy_seed_pending and pctrl.optimizer._policy_seed_pending
