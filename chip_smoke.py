@@ -412,7 +412,8 @@ them in their plain entries, ``PLANT_CASES``):
     H=50, timed beside cartpole's entry of phases 2, 3, 30 and 7, at
     ragged K (700) and at H=45 (not a multiple of the point mass's 32-step
     controls-ahead chunk), with its bound, registers, spills, static
-    shared memory and blocks per SM (``plant_kernels``); each bound
+    shared memory and blocks per SM (``plant_kernels``; each plain version
+    timed at its one reference call, ``compare_once``); each bound
     rejects the plant's named wrong variant (``plant_mutants``: the point
     mass's two controls swapped, an obstacle dropped, the acrobot's
     sin(t1+t2) read as sin(t1), the pendulum's energy offset dropped; for
@@ -484,6 +485,30 @@ refinement of the nominal plan runs the gradient kernels at one rollout):
     seeded update on the card against the CPU's, and the plan's one-off
     host time;
 84. ``profile_latency``'s report over 20 flagship MPPI ticks.
+
+The fleets and fused CEM over the other plants (plant ids 2-17: K4, K5,
+K6 and the session-row forms of K1 and K7; each fleet plans one dynamics
+constant of its plant per slot, ``FLEET_SLOT_DYN``):
+85. each plant's instances against their plain versions: K5 at K=16384,
+    H=50 and at K=704 (tiles of 64), H=45; K4 and K6 at 32 sessions of
+    the fleet's K=512, H=35 (timed at 128 too); K1's and K7's session-row
+    forms at 32 sessions of 100 rollouts, H=50, each session's outputs
+    equal to its single-session kernel's, timed at (128, 32) and (32, 512);
+    each bound rejecting the plant's named wrong variants (``row_mutants``
+    over ``plant_mutants``) and, for the session forms, every session
+    reading the next session's rows (arm2's K7 dQ held to float64); K5 and
+    K6 equal to K1 over their regenerated controls; the point masses' K5
+    and K6 also over their fast-normals instances; each instance's
+    registers, spills and blocks per SM;
+86. one update of each path on the card against the CPU's over the 3-D
+    quadrotor: the MPPI, fused-CEM, mppi-var, rpgd-tf and gradient-tf
+    fleets, the modular batched CEM step and single-session fused CEM;
+87. closed loops counted from 0 of the MPPI, fused-CEM and rpgd-tf fleets
+    (32 slots) and of single-session fused CEM over every plant, 20 ticks
+    over the pendulum, the point mass under obstacles, the 3-D quadrotor
+    and the car, 4 over the others;
+88. 20 ticks of the point masses' fast fused CEM and fast fused-CEM fleet
+    (the fast-normals instances of K5 and K6).
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
@@ -632,7 +657,7 @@ from control_toolkit_tpu_torch.ops.residual_rollout import (
 )
 from control_toolkit_tpu_torch.ops.soa_integrators import make_soa_stepper
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
-from control_toolkit_tpu_torch.optimizers.cem import refit
+from control_toolkit_tpu_torch.optimizers.cem import CEMState, refit
 from control_toolkit_tpu_torch.optimizers.kernel_families import (
     ensemble, gp, neural, ode, residual,
 )
@@ -2946,7 +2971,7 @@ def value_slack(post, x: torch.Tensor, cost_params: dict, horizon: int) -> torch
 
 
 def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = "ODE",
-                      value=None) -> None:
+                      value=None, cpu: MPCController = None, s_now=None) -> None:
     """Phase 34, CEM: one update on the card and on the CPU (the plain
     versions) from the card's state and params with the same draws, outer
     iteration by outer iteration.  Both score the card's mue and std; the
@@ -2959,13 +2984,16 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = 
     valued cost's V(x_H)/(H+1) moves with the kernel's x_H, which is held
     to X_TOL: its costs get, beside the kernel's bound, ``value_slack``'s
     first-order reach of that bound through V (the committed V's slope
-    reaches ~8e4 a unit of state)."""
+    reaches ~8e4 a unit of state).  Another plant's controller passes its
+    CPU twin ``cpu`` and a state ``s_now [1, S]``."""
     opt = ctrl.optimizer
     state = opt.opt_state
-    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    if s_now is None:
+        s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
     draws = opt.sample_draws(state)
     params = ctrl._assemble_params()
-    cpu = make_controller("cpu", "cem-tf", config, spec=spec)
+    if cpu is None:
+        cpu = make_controller("cpu", "cem-tf", config, spec=spec)
     if value is not None:
         attach_value_terminal(cpu, to_cpu(value))
     check(cpu.optimizer._fused == opt._fused, f"{name}: the CPU took another path")
@@ -3385,11 +3413,13 @@ def fleet_loop(name: str, ctrl: BatchedMPCController, ticks: int, expected: dict
     return counts
 
 
-def fleet_inputs_now(ctrl: BatchedMPCController, gen) -> tuple:
+def fleet_inputs_now(ctrl: BatchedMPCController, gen, s=None) -> tuple:
     """The fleet's current state and params on the card: per-session
-    states near upright, the slots' pole lengths and targets."""
+    states near upright (or ``s [B, 1, S]``), the slots' pole lengths (per-slot
+    constants) and targets."""
     B, device = ctrl.num_slots, ctrl.device
-    s = 0.05 * torch.randn(B, 1, 4, generator=gen, device=device)
+    if s is None:
+        s = 0.05 * torch.randn(B, 1, 4, generator=gen, device=device)
     params = ctrl._assemble_params()
     dyn = ctrl._dyn_with_slots(params["dyn"])
     attrs = {k: torch.as_tensor(v, device=device) for k, v in ctrl.slot_attrs.items()}
@@ -3403,21 +3433,26 @@ def state_to_cpu(state):
                          else None if isinstance(v, tuple) else to_cpu(v) for v in state))
 
 
-def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, gen) -> None:
+def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, gen,
+                        cpus: tuple = None, s=None, per_slot_dyn=("L",),
+                        name: str = "fleet_update_vs_cpu") -> None:
     """Phase 39: one fleet update on the card against the same update on the
     CPU (the plain versions), from the state each loop left and with the
     same draws.  MPPI: costs to the kernel bound, the new plans to
     UNOM_ATOL.  CEM, outer iteration by outer iteration from the card's
     distribution: costs to the kernel bound, the card's elites (its own
     top-k) a top-k of the CPU's costs within that bound, the refit from
-    them to UNOM_ATOL; then the whole update, where the elite sets agreed."""
+    them to UNOM_ATOL; then the whole update, where the elite sets agreed.
+    Another plant's fleets pass their CPU twins ``cpus``, the states ``s
+    [B, 1, S]`` and their ``per_slot_dyn``."""
     B = mppi.num_slots
     opt = mppi.optimizer
-    s, dyn, cost, attrs = fleet_inputs_now(mppi, gen)
+    psd, s_given = per_slot_dyn, s
+    s, dyn, cost, attrs = fleet_inputs_now(mppi, gen, s_given)
     eps = opt.sample_slot_noise(mppi.slot_states.generator, np.ones(B, bool))
-    _, update = opt._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
-    cpu = fleet_controller("cpu", "mppi", FLEET_MPPI_CONFIG, B)
-    _, update_c = cpu.optimizer._make_batched_semi_fused_step(B, per_slot_dyn=("L",))
+    _, update = opt._make_batched_semi_fused_step(B, per_slot_dyn=psd)
+    cpu = cpus[0] if cpus else fleet_controller("cpu", "mppi", FLEET_MPPI_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_semi_fused_step(B, per_slot_dyn=psd)
     st = mppi.slot_states
     u_nom, costs = update(st, s, dyn, cost, attrs, eps)
     u_nom_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn),
@@ -3430,10 +3465,11 @@ def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, g
 
     copt = cem.optimizer
     B, K = cem.num_slots, copt.num_rollouts
-    s, dyn, cost, attrs = fleet_inputs_now(cem, gen)
+    s, dyn, cost, attrs = fleet_inputs_now(cem, gen, s_given)
     seeds = copt.sample_slot_seeds(cem.slot_states.generator, np.ones(B, bool))
     model, _ = ode.rollout_model(copt)
-    _, slot_keys = split_slot_keys(model.param_keys, ("L",))
+    fast = model.fast_math
+    _, slot_keys = split_slot_keys(model.param_keys, psd)
     st = cem.slot_states
     pvec_b = make_slot_packer(model.param_keys, slot_keys, {}, B, cem.device)(
         st.u_prev, dyn, cost, attrs)
@@ -3453,17 +3489,17 @@ def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, g
               "the CPU's costs")
         same_sets &= bool(torch.equal(torch.sort(idx.cpu(), dim=1).values,
                                       torch.sort(elite_indices(c_c, best_k), dim=1).values))
-        elite = regen_cols(seed_b, idx, mue, std, low, high, K, fast=False)
+        elite = regen_cols(seed_b, idx, mue, std, low, high, K, fast=fast)
         elite_c = regen_cols(seed_b.cpu(), idx.cpu(), mue.cpu(), std.cpu(), low.cpu(),
-                             high.cpu(), K, fast=False)
+                             high.cpu(), K, fast=fast)
         mue, std = elite.mean(1), elite.std(1, correction=0)
         mue_c, std_c = elite_c.mean(1), elite_c.std(1, correction=0)
         for key, (a, b) in {"cost": (c, c_c), "mue": (mue, mue_c), "std": (std, std_c)}.items():
             errs[key] = max(errs[key], max_errors(a.cpu(), b)[0])
         errs["topk_excess"] = max(errs["topk_excess"], float(excess.max()))
-    _, update = copt._make_batched_fused_cem_step(B, per_slot_dyn=("L",))
-    cpu = fleet_controller("cpu", "cem-tf", FLEET_CEM_CONFIG, B)
-    _, update_c = cpu.optimizer._make_batched_fused_cem_step(B, per_slot_dyn=("L",))
+    _, update = copt._make_batched_fused_cem_step(B, per_slot_dyn=psd)
+    cpu = cpus[1] if cpus else fleet_controller("cpu", "cem-tf", FLEET_CEM_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_fused_cem_step(B, per_slot_dyn=psd)
     u, new, _ = update(st, s, dyn, cost, attrs, seeds)
     u_c, new_c, _ = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn),
                              to_cpu(cost), to_cpu(attrs), seeds.cpu())
@@ -3473,7 +3509,7 @@ def fleet_update_vs_cpu(mppi: BatchedMPCController, cem: BatchedMPCController, g
                     "cem_update_u_abs_err": max_errors(u.cpu(), u_c)[0],
                     "cem_update_mue_max_abs_err": max_errors(new.dist_mue.cpu(),
                                                              new_c.dist_mue)[0]})
-    emit("fleet_update_vs_cpu", numbers)
+    emit(name, numbers)
     check(errs["mue"] <= UNOM_ATOL and errs["std"] <= UNOM_ATOL,
           f"the fleet CEM refit on the card differs from the CPU's {numbers}")
     check(not same_sets or (numbers["cem_update_u_abs_err"] <= UNOM_ATOL
@@ -3969,7 +4005,9 @@ def compare_grad_cols(form: str, ctrl: BatchedMPCController, gen) -> dict:
     return numbers
 
 
-def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen) -> None:
+def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen,
+                             cpu: BatchedMPCController = None, s=None,
+                             per_slot_dyn=None) -> None:
     """Phase 47: one update of the gradient fleet ``label`` on the card and
     on the CPU (the plain versions), from the state its loop left, with
     the same params (the GP's well-conditioned) and draws: RPGD on the keep
@@ -3980,29 +4018,43 @@ def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen) -> Non
     entry must be one whose Adam step the function does not determine (its
     gradient and sqrt(v) within the dQ bound's absolute part of 0), at most
     UNDETERMINED_MAX of them; the costs, moments and controls of every
-    other row are held to that bound."""
+    other row are held to that bound.  Another plant's fleet passes its CPU
+    twin ``cpu``, the states ``s [B, 1, S]`` and its ``per_slot_dyn``; its
+    plants have selects (clips, hinges, the 3-D quadrotor's secant clamp), so
+    a row whose gradient at the start the card and the CPU put further apart
+    than K7's bound (a select decided by a rounding) is undetermined too, and
+    its update is one Adam iteration, which that gradient decides."""
     B, opt = ctrl.num_slots, ctrl.optimizer
-    K, Hf = opt.num_rollouts, opt.mpc_horizon
-    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
-    if GRAD_FLEETS[label][5] == "gp":
+    K, Hf, U = opt.num_rollouts, opt.mpc_horizon, opt.num_control_inputs
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen, s)
+    if cpu is None and GRAD_FLEETS[label][5] == "gp":
         dyn = {"gp": well_conditioned_gp(dyn["gp"])}
     rpgd = label.startswith("rpgd")
     build = "_make_batched_rpgd_step" if rpgd else "_make_batched_gradient_step"
-    psd = GRAD_FLEETS[label][3]
+    psd = GRAD_FLEETS[label][3] if per_slot_dyn is None else per_slot_dyn
     st = ctrl.slot_states
     draws = [None] * B if rpgd else opt.sample_slot_tails(st.generator, np.ones(B, bool))
-    cpu = grad_fleet("cpu", label, B)
+    if cpu is None:
+        cpu = grad_fleet("cpu", label, B)
     u, new, costs = getattr(opt, build)(B, per_slot_dyn=psd)[1](st, s, dyn, cost, attrs, draws)
     u_c, new_c, costs_c = getattr(cpu.optimizer, build)(B, per_slot_dyn=psd)[1](
         state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs),
         draws if rpgd else draws.cpu())
     gcall, _, pack = cpu.optimizer._bind_batched_grad_kernels(B, per_slot_dyn=psd)
-    g_c = gcall(s.cpu()[:, 0].repeat_interleave(K, dim=0), st.Q.cpu().reshape(B * K, Hf, 1),
+    g_c = gcall(s.cpu()[:, 0].repeat_interleave(K, dim=0), st.Q.cpu().reshape(B * K, Hf, U),
                 pack(st.u_prev.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs)),
                 to_cpu(dyn), to_cpu(cost))[1].reshape(B * K, -1)
     noise = DQ_ATOL_FRAC * float(g_c.abs().max())
     v0 = st.adam.v.cpu().reshape(B * K, -1)
     undetermined = ((g_c.abs() <= noise) & (v0.sqrt() <= noise)).any(1)
+    kinks = 0
+    if per_slot_dyn is not None:
+        gcall_card, _, pack_card = opt._bind_batched_grad_kernels(B, per_slot_dyn=psd)
+        g = gcall_card(s[:, 0].repeat_interleave(K, dim=0), st.Q.reshape(B * K, Hf, U),
+                       pack_card(st.u_prev, dyn, cost, attrs), dyn, cost)[1]
+        kink = ((g.cpu().reshape(B * K, -1) - g_c).abs() > DQ_RTOL * g_c.abs() + noise).any(1)
+        kinks = int(kink.sum())
+        undetermined |= kink
     Q_card, Q_cpu = new.Q.cpu().reshape(B * K, -1), new_c.Q.reshape(B * K, -1)
     atol = UPDATE_ATOL_FRAC * float(Q_cpu.abs().max())
     off = ((Q_card - Q_cpu).abs() > atol + UPDATE_RTOL * Q_cpu.abs()).any(1)
@@ -4016,7 +4068,7 @@ def grad_fleet_update_vs_cpu(label: str, ctrl: BatchedMPCController, gen) -> Non
     numbers = {"sessions": B, "Q_max_abs_err": max_errors(Q_card, Q_cpu)[0],
                "Q_rows_off": int(off.sum()),
                "Q_rows_off_undetermined": int((off & undetermined).sum()),
-               "undetermined_rows": int(undetermined.sum()),
+               "undetermined_rows": int(undetermined.sum()), "kink_rows": kinks,
                **{f"{k}_max_abs_err": max_errors(*ab)[0] for k, ab in pairs.items()},
                "same_best": same_best, "u_max_abs_err": max_errors(u.cpu(), u_c)[0]}
     emit(f"fleet_{label}_update_vs_cpu", numbers)
@@ -5507,17 +5559,22 @@ def var_update_vs_cpu(ctrl: MPCController, config: dict) -> dict:
     return numbers
 
 
-def fleet_var_update_vs_cpu(ctrl: BatchedMPCController, gen) -> dict:
+def fleet_var_update_vs_cpu(ctrl: BatchedMPCController, gen, cpu: BatchedMPCController = None,
+                            s=None, per_slot_dyn=("L",),
+                            name: str = "fleet_var_update_vs_cpu") -> dict:
     """Phase 72, the mppi-var fleet: one batched update on the card against
     the CPU's (the plain versions) from the loop's state, every slot
     drawing: costs to the kernel bound, the plans to UNOM_ATOL, each
-    session's sigma within ``var_sigma_bound``."""
+    session's sigma within ``var_sigma_bound``.  Another plant's fleet
+    passes its CPU twin ``cpu``, the states ``s [B, 1, S]`` and its
+    ``per_slot_dyn``."""
     B, opt = ctrl.num_slots, ctrl.optimizer
-    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen)
+    s, dyn, cost, attrs = fleet_inputs_now(ctrl, gen, s)
     raw = opt._slot_normals(ctrl.slot_states.generator, np.ones(B, bool))
-    _, update = opt._make_batched_var_step(B, per_slot_dyn=("L",))
-    cpu = fleet_controller("cpu", "mppi-var-tf", FLEET_VAR_CONFIG, B)
-    _, update_c = cpu.optimizer._make_batched_var_step(B, per_slot_dyn=("L",))
+    _, update = opt._make_batched_var_step(B, per_slot_dyn=per_slot_dyn)
+    if cpu is None:
+        cpu = fleet_controller("cpu", "mppi-var-tf", FLEET_VAR_CONFIG, B)
+    _, update_c = cpu.optimizer._make_batched_var_step(B, per_slot_dyn=per_slot_dyn)
     st = ctrl.slot_states
     _, new, costs = update(st, s, dyn, cost, attrs, raw)
     _, new_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost),
@@ -5529,7 +5586,7 @@ def fleet_var_update_vs_cpu(ctrl: BatchedMPCController, gen) -> dict:
                "u_nom_max_abs_err": max_errors(new.u_nom.cpu(), new_c.u_nom)[0],
                "stdev_max_abs_err": max_errors(new.stdev.cpu(), new_c.stdev)[0],
                "stdev_min": float(new.stdev.min()), "stdev_max": float(new.stdev.max())}
-    emit("fleet_var_update_vs_cpu", numbers)
+    emit(name, numbers)
     check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL)
           and numbers["u_nom_max_abs_err"] <= UNOM_ATOL
           and bool(((new.stdev.cpu() - new_c.stdev).abs().amax(dim=1) <= bound).all()),
@@ -5620,18 +5677,20 @@ def zoo_phases(device, gen, vnet) -> tuple:
     return runs, fast_runs, ctrls, ticks
 
 def plant_controller(plant: str, optimizer: str, config: dict, spec: str = None,
-                     attrs: dict = None, cost_config: dict = None) -> MPCController:
-    """An ``mpc`` controller on the card over a PLANT_CASES or REST_CASES
-    plant (its environment, its control limits, cost and predictor, ``spec``
-    in place of the predictor), under ``attrs`` (the point mass: PM_ATTRS,
-    the plants of REST_CASES: REST_ATTRS) and ``cost_config``."""
+                     attrs: dict = None, cost_config: dict = None,
+                     device: str = "cuda") -> MPCController:
+    """An ``mpc`` controller on the card (or ``device``) over a PLANT_CASES or
+    REST_CASES plant (its environment, its control limits, cost and
+    predictor, ``spec`` in place of the predictor), under ``attrs`` (the
+    point mass: PM_ATTRS, the plants of REST_CASES: REST_ATTRS) and
+    ``cost_config``."""
     env, cost, pred = ALL_CASES[plant]
     if attrs is None:
         attrs = PM_ATTRS if env == "pointmass" else REST_ATTRS.get(plant.replace("_fast", ""), {})
     limits = (ENVS[env].action_low, ENVS[env].action_high)
     ctrl = MPCController(env, limits, dict(attrs),
                          config={"optimizer": optimizer, "controller_logging": False,
-                                 "device": "cuda", "cost_function_specification": cost})
+                                 "device": device, "cost_function_specification": cost})
     ctrl.configure(optimizer_name=optimizer, predictor_specification=spec or pred,
                    optimizer_config=dict(config), cost_function_config=dict(cost_config or {}))
     return ctrl
@@ -5815,8 +5874,9 @@ def plant_grad_mutants(plant: str, model, s0, Q, pvec) -> dict:
 
 def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
     """Phase 74 for one plant: its K1, K2, K3 pass-1 (and fast-normals) and
-    K7 instances against their plain versions; returns each kernel's
-    numbers for the ``kernels`` line."""
+    K7 instances against their plain versions, each plain version run and
+    timed once (compare_once, plain_timed); returns each kernel's numbers
+    for the ``kernels`` line."""
     ctrl = plant_controller(plant, "mppi", OPTIMIZER_CONFIG)
     opt = ctrl.optimizer
     model, pack = ode.rollout_model(opt)
@@ -5836,10 +5896,10 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
         return q.flip(-1).contiguous() if swap else q
 
     # K1, at the main path's shapes, ragged K and H = PLANT_ODD_H.
-    k1 = out["cost_rollout"] = compare(f"k1_{plant}", lambda: cost_rollout(model, s0, Q, pvec),
-                                       lambda: cost_rollout_plain(model, s0, Q, pvec))
+    k1, got, _ = compare_once(f"k1_{plant}", lambda: cost_rollout(model, s0, Q, pvec),
+                              lambda: cost_rollout_plain(model, s0, Q, pvec), (K,))
+    out["cost_rollout"] = k1
     k1.update(bound(K * H * (rk4_ops + stage_ops), nbytes(s0, Q, pvec) + 4 * K))
-    got = cost_rollout(model, s0, Q, pvec)
     k1["rejects"] = rejects(f"k1_{plant}", got, {
         n: cost_rollout_plain(m, s0, sw(Q, swap), pv) for n, (m, pv, swap) in mutants.items()})
     cases = {}
@@ -5858,11 +5918,11 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
     lim = (opt.action_low, opt.action_high)
     corr = (opt.cc_weight, opt.R, opt.NU)
     args = (model, s0[0].contiguous(), u_nom, pvec, eps, opt.interp.matrix, *lim, *corr)
-    k2 = out["mppi_cost"] = compare(f"k2_{plant}", lambda: mppi_cost(*args),
-                                    lambda: mppi_cost_plain(*args))
+    k2, got, _ = compare_once(f"k2_{plant}", lambda: mppi_cost(*args),
+                              lambda: mppi_cost_plain(*args), (K,))
+    out["mppi_cost"] = k2
     k2.update(bound(K * H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS),
                     nbytes(*args[1:8]) + 4 * K))
-    got = mppi_cost(*args)
     k2["rejects"] = rejects(f"k2_{plant}", got, {
         n: mppi_cost_plain(m, args[1], sw(u_nom, swap), pv, sw(eps.transpose(1, 2), swap)
                            .transpose(1, 2).contiguous(), *args[5:])
@@ -5885,11 +5945,11 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
     stdev, tile = opt.SQRTRHODTINV, opt.fused_tile_k
     for key, m in models.items():
         a = (m, args[1], u_nom, pvec, seed2, opt.interp.matrix, *lim, *corr, stdev, K, tile)
-        k3 = out[key] = compare(f"k3_{plant}{key[15:]}", lambda: fused_mppi_costs(*a),
-                                lambda: fused_mppi_costs_plain(*a))
+        k3, got, _ = compare_once(f"k3_{plant}{key[15:]}", lambda: fused_mppi_costs(*a),
+                                  lambda: fused_mppi_costs_plain(*a), (K,))
+        out[key] = k3
         k3.update(bound(K * (H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS)
                              + P * U * (NORMAL_OPS + 1)), nbytes(*a[1:4], *a[5:8]) + 4 * K))
-        got = fused_mppi_costs(*a)
         k3["rejects"] = rejects(f"k3_{plant}", got, {
             n: fused_mppi_costs_plain(dataclasses.replace(mm, fast_sampling=m.fast_sampling),
                                       a[1], u_nom, pv, *a[4:])
@@ -5902,16 +5962,16 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
 
     # K7: J to KERNEL_TOL, dQ to DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|.
     Qg = lo + (hi - lo) * torch.rand(K, H, U, generator=gen, device=dev)
-    (cost, dQ), (ref_cost, ref_dQ) = (grad_cost_rollout(model, s0, Qg, pvec),
-                                      grad_cost_rollout_plain(model, s0, Qg, pvec))
-    torch.cuda.synchronize()
+    cost, dQ = grad_cost_rollout(model, s0, Qg, pvec)
+    (ref_cost, ref_dQ), k7_plain_ms = plain_timed(
+        lambda: grad_cost_rollout_plain(model, s0, Qg, pvec))
     wrong = plant_grad_mutants(plant, model, s0, Qg, pvec)
     k7 = out["grad_cost_rollout"] = {
         "cost_max_abs_err": max_errors(cost, ref_cost)[0],
         "dQ_max_abs_err": max_errors(dQ, ref_dQ)[0], "dQ_max_abs": float(ref_dQ.abs().max()),
         "mutant_max_abs_err": {k: max_errors(m, ref_dQ)[0] for k, m in wrong.items()},
         "ms": cuda_ms(lambda: grad_cost_rollout(model, s0, Qg, pvec), 20),
-        "plain_ms": cuda_ms(lambda: grad_cost_rollout_plain(model, s0, Qg, pvec), 2),
+        "plain_ms": k7_plain_ms,
         **bound(K * H * (rk4_ops + stage_ops + vjp_ops + stage_vjp_ops),
                 nbytes(s0, Qg, pvec, Qg) + 4 * K)}
     k7["max_abs_err"] = max(k7["cost_max_abs_err"], k7["dQ_max_abs_err"])
@@ -6420,6 +6480,496 @@ def options_phases(gen) -> tuple:
     check(len(timed.latency) == LATENCY_TICKS, "profile_latency did not time every step")
     emit("profile_latency", {**timed.latency.percentiles(), "report": timed.latency.report()})
     return lone, runs
+
+
+# ---- the fleets and fused CEM over the other plants (phases 85-88) --------------------------
+# Every plant of phases 74-79 (plant ids 2-17) under K4, K5, K6 and the
+# session-row forms of K1 and K7.  The fleets plan one dynamics constant of
+# each environment per slot (FLEET_SLOT_DYN: a length, a mass or the
+# wheelbase; the arm's l1, which its cost mirrors once at configure and
+# then keeps shared, as the JAX package does), over 0.9-1.1 of its
+# default.  K5 runs at K=16384, H=50 and at K5_RAGGED (eleven tiles of 64,
+# the last block half full, at H=45, not a multiple of the 3-D
+# quadrotor's 16-step chunk); K4 and K6 at FLEET_B sessions of the
+# fleet's K=512, H=35 (timed at FLEET_B_MAX too); K1's and K7's session-row
+# forms at GRAD_COLS_B sessions of GRAD_COLS_KS rollouts, H=50, timed there
+# and at GRAD_COLS_SHAPES.  Each plain version runs once a shape, its time
+# that call's (compare_once, plain_timed).  The loops run
+# FLEET_PLANT_TICKS ticks of the MPPI, fused-CEM and rpgd-tf fleets of
+# FLEET_B slots and of single-session fused CEM over FLEET_LOOP_PLANTS,
+# FLEET_PLANT_SHORT_TICKS over every other plant (every instance launched
+# on a path); phase 86's updates are the 3-D quadrotor's, its
+# single-session fused CEM at FLEET_CEM_CHECK_K rollouts.
+FLEET_SLOT_DYN = {"pendulum": "L", "acrobot": "m2", "pointmass": "mass", "quadrotor2d": "m",
+                  "quadrotor3d": "m", "car": "wheelbase", "arm2": "l1"}
+K5_RAGGED = (704, 64, 45)  # K, tile, H
+FLEET_CEM_CHECK_K = 2048
+FLEET_LOOP_PLANTS = ("pendulum", "pointmass_obstacles", "quadrotor3d", "car")
+FLEET_PLANT_TICKS, FLEET_PLANT_SHORT_TICKS = 20, 4
+FLEET_RPGD_CONFIG = {**GRAD_RPGD_CONFIG, "mpc_horizon": FLEET_H}
+FLEET_GRADIENT_CONFIG = {**GRAD_GRADIENT_CONFIG, "mpc_horizon": FLEET_H}
+FLEET_MODULAR_CEM_CONFIG = {**FLEET_CEM_CONFIG, "fully_fused": False, "cem_outer_it": 1}
+FLEET_PATHS = {  # label: (optimizer, config, launches a tick)
+    "mppi": ("mppi", FLEET_MPPI_CONFIG, {"mppi_cost_cols": 1}),
+    "fused_cem": ("cem-tf", FLEET_CEM_CONFIG,
+                  {"fused_cem_cols": FLEET_CEM_CONFIG["cem_outer_it"]}),
+    "rpgd": ("rpgd-tf", FLEET_RPGD_CONFIG,
+             {"grad_cost_rollout_cols": FLEET_RPGD_CONFIG["outer_its"], "cost_rollout_cols": 1}),
+}
+
+
+def slot_key(plant: str) -> str:
+    return FLEET_SLOT_DYN[ALL_CASES[plant][0]]
+
+
+def plant_attrs(plant: str) -> dict:
+    env = ALL_CASES[plant][0]
+    return PM_ATTRS if env == "pointmass" else REST_ATTRS.get(plant.replace("_fast", ""), {})
+
+
+def plant_fleet(plant: str, optimizer: str, config: dict, B: int, device: str = "cuda",
+                spec: str = None) -> BatchedMPCController:
+    """A batched-mpc fleet of B slots over a PLANT_CASES or REST_CASES plant
+    (its environment, limits, cost, predictor or ``spec``, and attributes),
+    planning the plant's FLEET_SLOT_DYN constant per slot."""
+    env, cost, pred = ALL_CASES[plant]
+    ctrl = BatchedMPCController(env, (ENVS[env].action_low, ENVS[env].action_high),
+                                dict(plant_attrs(plant)),
+                                config={"optimizer": optimizer, "controller_logging": False,
+                                        "device": device, "cost_function_specification": cost})
+    ctrl.configure(optimizer_name=optimizer, predictor_specification=spec or pred,
+                   optimizer_config=dict(config), num_slots=B, per_slot_dyn=(slot_key(plant),))
+    return ctrl
+
+
+def plant_rows(plant: str, ctrl: MPCController, model, B: int, gen) -> torch.Tensor:
+    """Sessions' packed parameters ``pvec_b [B, N]`` over ``ctrl``'s plant:
+    the slot constant over 0.9-1.1 of its default, targets moved by up to
+    0.2 a session, previous controls within the limits."""
+    opt, dev = ctrl.optimizer, gen.device
+    key = slot_key(plant)
+    params = ctrl._assemble_params()
+    dyn = dict(params["dyn"], **{key: params["dyn"][key] * torch.linspace(0.9, 1.1, B,
+                                                                           device=dev)})
+    attrs = {k: float(torch.as_tensor(v).reshape(-1)[0])
+             + (0.4 * torch.rand(B, generator=gen, device=dev) - 0.2
+                if k.startswith("target") else 0.0)
+             for k, v in ctrl.variable_parameters.items()}
+    lo, hi = opt.action_low, opt.action_high
+    u_prev = lo + (hi - lo) * torch.rand(B, lo.shape[0], generator=gen, device=dev)
+    _, slot_keys = split_slot_keys(model.param_keys, (key,))
+    cf = opt.cost_function.cost_function
+    return make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, dev)(
+        u_prev, dyn, params["cost"], attrs)
+
+
+def row_mutants(plant: str, model, pvec_b: torch.Tensor) -> dict:
+    """The plant's named wrong variants (plant_mutants) over sessions' rows
+    ``pvec_b [B, N]`` as ``(model, pvec_b)``: the point mass's swapped
+    controls as a model that reads them swapped, in its dynamics and its
+    stage cost."""
+    out = {}
+    for name, (m, pv, swap) in plant_mutants(plant, model, pvec_b.T).items():
+        if swap:
+            m = dataclasses.replace(
+                m, derivs=lambda xs, us, p, d=m.derivs: d(xs, tuple(us)[::-1], p),
+                stage=lambda xs, us, prev, p, st=m.stage: st(xs, tuple(us)[::-1],
+                                                             tuple(prev)[::-1], p))
+        out[name] = (m, pv.T.contiguous())
+    return out
+
+
+def session_resources(plant: str) -> dict:
+    """ptxas' registers, spills and static shared memory of the plant's
+    instances of K4, K5, K6 (and the point mass's fast-normals instances)
+    and of the session-row forms of K1 and K7, and the blocks an SM holds
+    of each."""
+    lib, pid = kernels.load(), kernels.PLANT_IDS[plant]
+    name = "".join(w.capitalize() for w in plant.replace("obstacles", "obstacle").split("_"))
+    name = name.replace("2d", "2D").replace("3d", "3D")
+    inst = f"{len(name) + 5}{name}Plant"
+    fast = int(plant.endswith("_fast"))
+    out = {
+        "k4": {**ptxas_resources("mppi_cost_cols_kernel", inst + "EEEv"),
+               "blocks_per_sm": int(lib.ctt_mppi_cost_cols_plant_blocks_per_sm(pid))},
+        "k5": {**ptxas_resources("fused_cem_kernel", inst + "EEEv"),
+               "blocks_per_sm": int(lib.ctt_fused_cem_plant_blocks_per_sm(pid, fast))},
+        "k6": {**ptxas_resources("fused_cem_cols_kernel", inst + "EEEv"),
+               "blocks_per_sm": int(lib.ctt_fused_cem_cols_plant_blocks_per_sm(pid, fast))},
+        "k1_cols": {**ptxas_resources("cost_rollout_kernel", inst + "E" + ROWS_FORM),
+                    "blocks_per_sm": int(lib.ctt_cost_rollout_rows_plant_blocks_per_sm(pid))},
+        "k7_cols_forward": {
+            **ptxas_resources("grad_cost_forward_kernel", inst + "E" + ROWS_FORM),
+            "blocks_per_sm": int(lib.ctt_grad_cost_rows_plant_blocks_per_sm(pid, 0))},
+        "k7_cols_adjoint": {
+            **ptxas_resources("grad_cost_adjoint_kernel", inst + "E" + ROWS_FORM),
+            "blocks_per_sm": int(lib.ctt_grad_cost_rows_plant_blocks_per_sm(pid, 1))},
+    }
+    if plant in kernels.EXACT_IS_FAST:
+        normals = f"{len(name) + 16}{name}FastNormalsPlantEEEv"
+        for key, kernel, entry in (("k5", "fused_cem_kernel", lib.ctt_fused_cem_plant_blocks_per_sm),
+                                   ("k6", "fused_cem_cols_kernel",
+                                    lib.ctt_fused_cem_cols_plant_blocks_per_sm)):
+            out[f"{key}_fast_normals"] = {**ptxas_resources(kernel, normals),
+                                          "blocks_per_sm": int(entry(pid, 1))}
+    return out
+
+
+def plain_timed(fn) -> tuple:
+    """``(fn(), its CUDA-event ms)`` from one call: a plain version timed at
+    the call that gives the reference, for the plants' many instances."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare_once(name: str, kernel_fn, plain_fn, shape: tuple) -> tuple:
+    """compare() with the plain version run once, its time that call's:
+    ``(numbers, the kernel's output, the plain version's)``."""
+    got = kernel_fn()
+    ref, plain_ms = plain_timed(plain_fn)
+    numbers = {**dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref))),
+               "finite": bool(torch.isfinite(got).all()), "ms": cuda_ms(kernel_fn, 20),
+               "plain_ms": plain_ms}
+    emit(name, numbers)
+    check(numbers["finite"] and got.shape == shape, f"{name}: bad output")
+    check(torch.allclose(got, ref, **KERNEL_TOL), f"{name}: kernel disagrees with plain {numbers}")
+    return numbers, got, ref
+
+
+def k1_equal(label: str, got: torch.Tensor, model, s0, Q, pvec_b) -> float:
+    """The share of a fused form's costs ``got [B, K]`` equal to K1's over
+    its regenerated controls Q [B, K, H, U], session by session; must be
+    1.0."""
+    share = float((got == k1_per_session(model, s0, Q, pvec_b)).double().mean())
+    check(share == 1.0, f"{label}: its costs differ from K1's over its controls ({share})")
+    return share
+
+
+def fleet_plant_kernels(plant: str, gen) -> dict:
+    """Phase 85 for one plant: its K5, K4, K6 and session-row K1 and K7
+    instances (and the point mass's fast-normals instances of K5 and K6)
+    against their plain versions, each bound rejecting the plant's named
+    wrong variants and, for the session forms, every session reading the
+    next session's rows; K5 and K6 equal to K1 over their regenerated
+    controls; returns each kernel's numbers for the kernels line."""
+    ctrl = plant_controller(plant, "mppi", OPTIMIZER_CONFIG)
+    opt, dev = ctrl.optimizer, gen.device
+    model, pack = ode.rollout_model(opt)
+    check(model.plant == plant, f"{plant}: not the device plant")
+    U = kernels.PLANT_DIMS[plant][1]
+    rk4_ops, stage_ops, vjp_ops, stage_vjp_ops = PLANT_OPS[plant.replace("_fast", "")]
+    step_ops, draw_ops = rk4_ops + stage_ops, U * (NORMAL_OPS + CEM_CONTROL_OPS)
+    lo, hi = opt.action_low, opt.action_high
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    out = {}
+
+    # K5, over the exact normals and (the point mass) its fast-normals instance.
+    pvec = pack(ctrl._assemble_params(), mid + 0.3 * half)
+    s0 = plant_states(plant, 1, gen)[0].contiguous()
+    if plant.startswith(("pointmass_obstacles", "car_obstacles")):  # in the first disc's margin
+        s0[:2] = torch.tensor([0.1, -0.05], device=dev)
+    mue = torch.clamp(mid + half * (0.3 * torch.randn(H, U, generator=gen, device=dev)), lo, hi)
+    std = (0.5 * half).expand(H, U).contiguous()
+    seed2 = torch.tensor([SEED + 85, 0], dtype=torch.int32, device=dev)
+    tile = opt.fused_tile_k
+    single = {"k5": model}
+    if plant in kernels.EXACT_IS_FAST:
+        single["k5_fast_normals"] = dataclasses.replace(model, fast_sampling=True)
+    for key, m in single.items():
+        args = (m, s0, mue, std, pvec, seed2, lo, hi, K, tile)
+        k5, got, _ = compare_once(f"{key}_{plant}", lambda: fused_cem_costs(*args),
+                                  lambda: fused_cem_costs_plain(*args), (K,))
+        out[key] = k5
+        k5.update(bound(K * H * (step_ops + draw_ops), nbytes(s0, mue, std, pvec, lo, hi)
+                        + 8 + 4 * K))
+        k5["rejects"] = rejects(f"{key}_{plant}", got, {
+            n: fused_cem_costs_plain(dataclasses.replace(mm, fast_sampling=m.fast_sampling),
+                                     s0, mue, std, pv[0], seed2, lo, hi, K, tile)
+            for n, (mm, pv) in row_mutants(plant, model, pvec[None]).items()})
+        Q = regen_controls(seed2, torch.arange(K, device=dev), mue, std, lo, hi, K, tile,
+                           fast=m.fast_math)
+        k5["k1_equal_share"] = k1_equal(f"{key}_{plant}", got[None], m, s0[None], Q[None],
+                                        pvec[None])
+        kr, tr, hr = K5_RAGGED
+        a = (m, s0, mue[:hr].contiguous(), std[:hr].contiguous(), pvec, seed2, lo, hi, kr, tr)
+        k5["cases"] = held_to_plain(f"{key}_{plant}", fused_cem_costs, fused_cem_costs_plain,
+                                    {f"K{kr}_H{hr}_tile{tr}": a})
+
+    # K4 and K6 at FLEET_B sessions of the fleet's K and H, timed at
+    # FLEET_B_MAX too.
+    B, Kf, Hf = FLEET_B_MAX, FLEET_K, FLEET_H
+    pvec_b = plant_rows(plant, ctrl, model, B, gen)
+    s0b = plant_states(plant, B, gen)
+    mutants = row_mutants(plant, model, pvec_b)
+    W = torch.as_tensor(interpolation_matrix(Hf, PERIOD), device=dev)
+    u_nom = torch.clamp(mid + half * (0.3 * torch.randn(B, Hf, U, generator=gen, device=dev)),
+                        lo, hi)
+    eps = (0.3 * half[:, None]) * torch.randn(B, W.shape[0], U, Kf, generator=gen, device=dev)
+    corr = (FLEET_MPPI_CONFIG["cc_weight"], FLEET_MPPI_CONFIG["R"], FLEET_MPPI_CONFIG["NU"])
+    Bc = FLEET_B
+    args = (model, s0b, u_nom, pvec_b, eps, W, lo, hi, *corr)
+    held = (model, s0b[:Bc], u_nom[:Bc], pvec_b[:Bc], eps[:Bc], W, lo, hi, *corr)
+    k4, got, _ = compare_once(f"k4_{plant}", lambda: mppi_cost_cols(*held),
+                              lambda: mppi_cost_cols_plain(*held), (Bc, Kf))
+    out["k4"] = k4
+    k4["rejects"] = rejects(f"k4_{plant}", got, {
+        **{n: mppi_cost_cols_plain(m, *held[1:3], pv[:Bc], *held[4:])
+           for n, (m, pv) in mutants.items()},
+        **k4_mutants(held, ("next_session_rows",))})
+    k4["ms_at_b"] = {str(Bc): k4["ms"], str(B): cuda_ms(lambda: mppi_cost_cols(*args), 20)}
+    k4.update(bound(Bc * Kf * Hf * (step_ops + U * MPPI_EXTRA_OPS),
+                    nbytes(*held[1:8]) + 4 * Bc * Kf))
+
+    mue_b = torch.clamp(mid + half * (0.3 * torch.randn(B, Hf, U, generator=gen, device=dev)),
+                        lo, hi)
+    std_b = (0.5 * half).expand(B, Hf, U).contiguous()
+    seed_b = torch.randint(0, 2**31 - 1, (B,), generator=gen, dtype=torch.int32, device=dev)
+    cols = {"k6": model}
+    if plant in kernels.EXACT_IS_FAST:
+        cols["k6_fast_normals"] = single["k5_fast_normals"]
+    for key, m in cols.items():
+        args = (m, s0b, mue_b, std_b, pvec_b, seed_b, lo, hi, Kf)
+        rows_c = tuple(t[:Bc] for t in (s0b, mue_b, std_b, pvec_b, seed_b))
+        held = (m, *rows_c, lo, hi, Kf)
+        k6, got, _ = compare_once(f"{key}_{plant}", lambda: fused_cem_cols(*held),
+                                  lambda: fused_cem_cols_plain(*held), (Bc, Kf))
+        out[key] = k6
+        k6["rejects"] = rejects(f"{key}_{plant}", got, {
+            **{n: fused_cem_cols_plain(dataclasses.replace(mm, fast_sampling=m.fast_sampling),
+                                       *rows_c[:3], pv[:Bc], rows_c[4], lo, hi, Kf)
+               for n, (mm, pv) in mutants.items()},
+            "next_session_rows": fused_cem_cols_plain(
+                m, *(t.roll(-1, 0) for t in rows_c), lo, hi, Kf)})
+        Q = regen_cols(rows_c[4], torch.arange(Kf, device=dev).expand(Bc, Kf), rows_c[1],
+                       rows_c[2], lo, hi, Kf, fast=m.fast_math)
+        k6["k1_equal_share"] = k1_equal(f"{key}_{plant}", got, m, rows_c[0], Q, rows_c[3])
+        k6["ms_at_b"] = {str(Bc): k6["ms"], str(B): cuda_ms(lambda: fused_cem_cols(*args), 20)}
+        k6.update(bound(Bc * Kf * Hf * (step_ops + draw_ops),
+                        nbytes(*rows_c, lo, hi) + 4 * Bc * Kf))
+
+    # K1's and K7's session-row forms.
+    Hg = GRAD_FLEET_H
+
+    def cols_operands(b: int, ks: int) -> tuple:
+        rows = plant_rows(plant, ctrl, model, b, gen)
+        s = plant_states(plant, b, gen).repeat_interleave(ks, dim=0)
+        Qc = lo + (hi - lo) * torch.rand(b * ks, Hg, U, generator=gen, device=dev)
+        return (model, s, Qc, rows)
+
+    forms = {"k1_cols": (cost_rollout_cols, cost_rollout_cols_plain, cost_rollout,
+                         step_ops, 0),
+             "k7_cols": (grad_cost_rollout_cols, grad_cost_rollout_cols_plain, grad_cost_rollout,
+                         step_ops + vjp_ops + stage_vjp_ops, 1)}
+    args = cols_operands(GRAD_COLS_B, GRAD_COLS_KS)
+    timed_args = {shape: cols_operands(*shape) for shape in GRAD_COLS_SHAPES}
+    cmutants = row_mutants(plant, model, args[3])
+    for key, (form, plain, single_fn, ops, grad) in forms.items():
+        got = form(*args)
+        ref, held_plain_ms = plain_timed(lambda: plain(*args))
+        wrong = {n: plain(m, args[1], args[2], pv) for n, (m, pv) in cmutants.items()}
+        wrong["next_session_rows"] = plain(*args[:3], args[3].roll(-1, 0))
+        per_session = [single_fn(*session_slice_grad(args, b)) for b in range(GRAD_COLS_B)]
+        torch.cuda.synchronize()
+        if grad:
+            single = (torch.stack([c for c, _ in per_session]),
+                      torch.cat([d for _, d in per_session]))
+            same = torch.cat([(got[0] == single[0]).flatten(), (got[1] == single[1]).flatten()])
+            cost_ok = torch.allclose(got[0], ref[0], **KERNEL_TOL)
+            numbers = {**grad_cols_errors("k7", got, ref),
+                       "finite": bool(torch.isfinite(got[0]).all()
+                                      and torch.isfinite(got[1]).all())}
+            numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["dQ_max_abs_err"])
+            if plant.startswith(F64_HELD_PLANTS):
+                held = numbers["dQ_f64"] = f64_held(got[1], ref[1], plain(
+                    model, args[1].double(), args[2].double(), args[3].double())[1])
+                dq_ok = held["held"]
+            else:
+                dq_ok = close(got[1], ref[1], DQ_RTOL, DQ_ATOL_FRAC)
+            numbers["rejects"] = {n: grad_cols_errors("k7", w, ref) for n, w in wrong.items()}
+            for n, w in wrong.items():
+                check(not (torch.allclose(w[0], ref[0], **KERNEL_TOL)
+                           and close(w[1], ref[1], DQ_RTOL, DQ_ATOL_FRAC)),
+                      f"{key}_{plant}: the bounds do not reject {n} {numbers['rejects'][n]}")
+        else:
+            same = got == torch.stack(per_session)
+            cost_ok, dq_ok = torch.allclose(got, ref, **KERNEL_TOL), True
+            numbers = {**grad_cols_errors("k1", got, ref),
+                       "finite": bool(torch.isfinite(got).all())}
+            numbers["max_abs_err"] = numbers["cost_max_abs_err"]
+            numbers["rejects"] = rejects(f"{key}_{plant}", got, wrong)
+        numbers["single_session_equal_share"] = float(same.double().mean())
+        if grad:  # the adjoint reads its rows from shared memory: held, not equal
+            numbers["single_session_errors"] = grad_cols_errors("k7", got, single)
+            numbers["single_session_cost_equal_share"] = float(
+                (got[0] == single[0]).double().mean())
+        numbers["timed"] = {f"B{b}_K{ks}": cuda_ms(lambda: form(*timed_args[b, ks]), 20)
+                            for b, ks in GRAD_COLS_SHAPES}
+        n = GRAD_COLS_B * GRAD_COLS_KS
+        numbers.update(ms=cuda_ms(lambda: form(*args), 20), plain_ms=held_plain_ms,
+                       **bound(n * Hg * ops, nbytes(*args[1:]) + 4 * n + grad * nbytes(args[2])))
+        emit(f"{key}_{plant}", numbers)
+        check(numbers["finite"] and cost_ok and dq_ok,
+              f"{key}_{plant}: kernel disagrees with plain {numbers}")
+        check(numbers["single_session_equal_share"] == 1.0 if not grad else
+              numbers["single_session_cost_equal_share"] == 1.0
+              and grad_cols_held("k7", got, single),
+              f"{key}_{plant}: its outputs differ from the single-session kernel's {numbers}")
+        out[key] = numbers
+    emit(f"{plant}_fleet_cases", {key: {k: v[k] for k in (
+        "bound_ms", "bound_by", "rejects", "k1_equal_share", "cases", "ms_at_b") if k in v}
+        for key, v in out.items() if not key.endswith("_cols")})
+    emit(f"{plant}_session_resources", session_resources(plant))
+    return out
+
+
+def plant_fleet_loop(name: str, ctrl: BatchedMPCController, plant: str, ticks: int,
+                     expected: dict) -> dict:
+    """``ticks`` closed-loop ticks of a fleet against B copies of the plant's
+    environment (seed SEED + 87), each slot's constant over 0.9-1.1 of its
+    default, every kernel's launch count set to 0 just before and checked
+    against ``expected`` just after; the controls finite and within the
+    limits, nothing rebuilt."""
+    env_name, B = ALL_CASES[plant][0], ctrl.num_slots
+    env = ENVS[env_name](batch_size=B, dt=DT, seed=SEED + 87)
+    s, _ = env.reset()
+    key = slot_key(plant)
+    for i, f in enumerate(np.linspace(0.9, 1.1, B)):
+        ctrl.update_slot_dyn(i, {key: float(f * ctrl._slot_dyn_defaults[key])})
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
+    host_ms = []
+    for t in range(ticks):
+        t0 = time.perf_counter()
+        u = ctrl.step_batch(s)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(u.shape == (B, env.num_actions) and bool(np.all(np.isfinite(u)))
+              and bool(np.all(u >= env.action_low)) and bool(np.all(u <= env.action_high)),
+              f"{name}: tick {t}: bad controls")
+        s, *_ = env.step(u)
+    counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
+    check(counts == {kernel: expected.get(kernel, 0) for kernel in COUNTED},
+          f"{name}: kernel launches {counts}, expected {expected}")
+    check(kernels.build.count == builds and ctrl.optimizer._build_epoch == epoch,
+          f"{name}: something was rebuilt during the loop")
+    emit(name, {"slots": B, "ticks": ticks, "step_host_p50_ms": float(np.percentile(host_ms, 50)),
+                "final_state_abs_max": float(np.abs(s).max())})
+    return counts
+
+
+def fleet_plant_phases(gen) -> tuple:
+    """Phases 85-88: the fleets and fused CEM over plant ids 2-17.  Returns
+    each kernel row's numbers by (row, plant) and the loops' launches by
+    plant."""
+    rows = {}
+    # 85. Each instance against its plain version.
+    for plant in ALL_CASES:
+        for key, numbers in fleet_plant_kernels(plant, gen).items():
+            rows[key, plant] = numbers
+
+    # 86. One update of each path on the card against the CPU's over the 3-D
+    # quadrotor (the fleets at FLEET_B slots, the gradient fleets at one Adam
+    # iteration: grad_fleet_update_vs_cpu; single-session fused CEM at
+    # FLEET_CEM_CHECK_K rollouts).
+    plant, B = "quadrotor3d", FLEET_B
+    psd, dev = (slot_key(plant),), gen.device
+    s = plant_states(plant, B, gen)[:, None]
+    paths = {"mppi": ("mppi", FLEET_MPPI_CONFIG), "fused_cem": ("cem-tf", FLEET_CEM_CONFIG),
+             "var": ("mppi-var-tf", FLEET_VAR_CONFIG),
+             "rpgd": ("rpgd-tf", {**FLEET_RPGD_CONFIG, "outer_its": 1}),
+             "gradient": ("gradient-tf", {**FLEET_GRADIENT_CONFIG, "gradient_steps": 1})}
+    card, cpu = ({label: plant_fleet(plant, name, cfg, B, device)
+                  for label, (name, cfg) in paths.items()} for device in ("cuda", "cpu"))
+    fleet_update_vs_cpu(card["mppi"], card["fused_cem"], gen, (cpu["mppi"], cpu["fused_cem"]),
+                        s, psd, name=f"fleet_update_vs_cpu_{plant}")
+    fleet_var_update_vs_cpu(card["var"], gen, cpu["var"], s, psd,
+                            name=f"fleet_var_update_vs_cpu_{plant}")
+    for label in ("rpgd", "gradient"):
+        grad_fleet_update_vs_cpu(f"{label}_{plant}", card[label], gen, cpu[label], s, psd)
+    # The modular batched CEM step (K1's session rows; a fleet controller
+    # refuses modular CEM, which the JAX package serves by its vmapped
+    # per-slot step), one outer iteration from the same normals.
+    mod, mod_c = (plant_controller(plant, "cem-tf", FLEET_MODULAR_CEM_CONFIG, device=d)
+                  for d in ("cuda", "cpu"))
+    mopt = mod.optimizer
+    step, _ = mopt._make_batched_cem_step(B, per_slot_dyn=psd)
+    step_c, _ = mod_c.optimizer._make_batched_cem_step(B, per_slot_dyn=psd)
+    params = mod._assemble_params()
+    dyn = dict(params["dyn"], **{psd[0]: params["dyn"][psd[0]] * torch.linspace(0.9, 1.1, B,
+                                                                                  device=dev)})
+    attrs = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for k, v in mod.variable_parameters.items()}
+    gens = tuple(torch.Generator(device=dev).manual_seed(SEED + 86 + b) for b in range(B))
+    U = mopt.num_control_inputs
+    mid = 0.5 * (mopt.action_low + mopt.action_high)
+    st = CEMState(generator=gens, dist_mue=mid.expand(B, 1, FLEET_H, U).contiguous(),
+                  stdev=torch.full((B, 1, FLEET_H, U), mopt.cem_initial_action_stdev, device=dev),
+                  count=np.zeros(B, np.int64), u_prev=mid.expand(B, U).contiguous())
+    draws = mopt.sample_slot_normals(gens, np.ones(B, bool))
+    u, new, costs = step(st, s, dyn, params["cost"], attrs, np.ones(B, bool), draws=draws)
+    u_c, new_c, costs_c = step_c(state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(params["cost"]),
+                                 to_cpu(attrs), np.ones(B, bool), draws=draws.cpu())
+    best_k = mopt.cem_best_k
+    same_sets = torch.equal(torch.sort(elite_indices(costs, best_k).cpu(), dim=1).values,
+                            torch.sort(elite_indices(costs_c, best_k), dim=1).values)
+    numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "same_elite_sets": same_sets, "u_max_abs_err": max_errors(u.cpu(), u_c)[0],
+               "mue_max_abs_err": max_errors(new.dist_mue.cpu(), new_c.dist_mue)[0]}
+    emit(f"fleet_modular_cem_update_vs_cpu_{plant}", numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **KERNEL_TOL),
+          f"the modular batched CEM's costs on the card differ from the CPU's {numbers}")
+    check(not same_sets or (numbers["u_max_abs_err"] <= UNOM_ATOL
+                            and numbers["mue_max_abs_err"] <= UNOM_ATOL),
+          f"the modular batched CEM update on the card differs from the CPU's {numbers}")
+    # Single-session fully-fused CEM (K5).
+    cem_cfg = {**CEM_CONFIG, "fully_fused": True, "num_rollouts": FLEET_CEM_CHECK_K,
+               "cem_best_k": 64}
+    cem, cem_c = (plant_controller(plant, "cem-tf", cem_cfg, device=d) for d in ("cuda", "cpu"))
+    check(cem.optimizer._fused, f"{plant}: CEM did not take K5")
+    update_vs_cpu_cem(f"cem_fused_update_vs_cpu_{plant}", cem, cem_cfg, cpu=cem_c,
+                      s_now=plant_states(plant, 1, gen))
+
+    # 87. The closed loops, counted from 0: the MPPI, fused-CEM and rpgd-tf
+    # fleets and single-session fused CEM, FLEET_PLANT_TICKS over
+    # FLEET_LOOP_PLANTS and FLEET_PLANT_SHORT_TICKS over every other plant.
+    runs = {plant: [] for plant in ALL_CASES}
+    cem_cfg = {**CEM_CONFIG, "fully_fused": True}
+    for plant in ALL_CASES:
+        T = FLEET_PLANT_TICKS if plant in FLEET_LOOP_PLANTS else FLEET_PLANT_SHORT_TICKS
+        for label, (opt_name, cfg, per_tick) in FLEET_PATHS.items():
+            c = plant_fleet(plant, opt_name, cfg, FLEET_B)
+            runs[plant].append(plant_fleet_loop(f"slice_fleet_{plant}_{label}", c, plant, T,
+                                                {k: n * T for k, n in per_tick.items()}))
+        c = plant_controller(plant, "cem-tf", cem_cfg)
+        check(c.optimizer._fused, f"{plant}: CEM did not take K5")
+        counts, _, numbers = plant_loop(f"slice_{plant}_cem_fused", c, plant, T,
+                                        {"fused_cem": cem_cfg["cem_outer_it"] * T})
+        emit(f"slice_{plant}_cem_fused", numbers)
+        runs[plant].append(counts)
+    # 88. The point masses' fast CEM and fast fused-CEM fleet ("ODE:rk4:1:fast":
+    # the fast-normals instances of K5 and K6), counted from 0.
+    T = FLEET_PLANT_TICKS
+    for plant in ("pointmass", "pointmass_obstacles"):
+        c = plant_controller(plant, "cem-tf", cem_cfg, spec=FAST_SPEC)
+        check(c.optimizer._fused and ode.rollout_model(c.optimizer)[0].fast_sampling,
+              f"{plant}: the fast CEM did not take K5's fast-normals instance")
+        counts, _, numbers = plant_loop(f"slice_{plant}_cem_fused_fast_normals", c, plant, T,
+                                        {"fused_cem": cem_cfg["cem_outer_it"] * T})
+        emit(f"slice_{plant}_cem_fused_fast_normals", numbers)
+        f = plant_fleet(plant, "cem-tf", FLEET_CEM_CONFIG, FLEET_B, spec=FAST_SPEC)
+        check(ode.rollout_model(f.optimizer)[0].fast_sampling,
+              f"{plant}: the fast CEM fleet did not take K6's fast-normals instance")
+        runs[plant + "_fast_normals"] = [counts, plant_fleet_loop(
+            f"slice_fleet_{plant}_fused_cem_fast_normals", f, plant, T,
+            {"fused_cem_cols": FLEET_CEM_CONFIG["cem_outer_it"] * T})]
+    launches = {plant: {kernel: sum(r[kernel] for r in rs) for kernel in COUNTED}
+                for plant, rs in runs.items()}
+    return rows, launches
 
 
 def start_sweep() -> None:
@@ -7146,6 +7696,8 @@ def main() -> None:
     for counts in option_runs.values():
         for kernel in COUNTED:
             launches[kernel] += counts[kernel]
+    # 85-88. The fleets and fused CEM over plant ids 2-17.
+    fleet_rows, fleet_launches = fleet_plant_phases(gen)
 
     if "--starts" in sys.argv[1:]:
         start_sweep()
@@ -7303,6 +7855,23 @@ def main() -> None:
         check(n > 0, f"{name}: launched no time in its plant's loops")
         launches[name] = n
         rows = rows + ((name, *plant_sources[key], numbers),)
+    # Their fleet and fused-CEM instances (phases 85-88): launches from their
+    # own loops.
+    fleet_sources = {"k5": ("fused_cem", "fused_cem.cu", "ops/pallas_cem.py:38"),
+                     "k4": ("mppi_cost_cols", "mppi_cost_cols.cu", "ops/pallas_mppi.py:586"),
+                     "k6": ("fused_cem_cols", "fused_cem_cols.cu", "ops/pallas_cem.py:168"),
+                     "k1_cols": ("cost_rollout_cols", "cost_rollout.cu",
+                                 "ops/pallas_rollout.py:34"),
+                     "k7_cols": ("grad_cost_rollout_cols", "grad_cost_rollout.cu",
+                                 "ops/pallas_grad.py:335")}
+    for (key, plant), numbers in fleet_rows.items():
+        normals = key.endswith("_fast_normals")
+        wrapper, source, replaces = fleet_sources[key.replace("_fast_normals", "")]
+        run = plant + "_fast_normals" if normals else plant
+        n, name = fleet_launches[run][wrapper], f"{wrapper}_{run}"
+        check(n > 0, f"{name}: launched no time in its plant's loops")
+        launches[name] = n
+        rows = rows + ((name, source, replaces, numbers),)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.
     print(json.dumps({"kernels": [

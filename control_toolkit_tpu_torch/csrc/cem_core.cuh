@@ -8,9 +8,9 @@
 // The control at step h and input j is
 //   u = clamp(mue[h,j] + std[h,j] * z, low[j], high[j]),
 //   z = counter_normal(base + j*jstride + h*hstride)
-// in uint32 arithmetic (over the fast plant, CartpoleFastPlant, the fast
-// normal: the JAX fast_sampling form, which the regenerations draw with
-// fast=True); each kernel gives its own counter layout as
+// in uint32 arithmetic (where Plant::kFast, a fast plant or the point
+// mass's fast-normals instance, the fast normal: the JAX fast_sampling
+// form, which the regenerations draw with fast=True); each kernel gives its own counter layout as
 // (base, jstride, hstride).  mue + std*z is rounded twice, as torch and XLA
 // compute it (no FMA contraction), so the rows that the torch regeneration
 // draws again are the controls the kernel scored.

@@ -9,12 +9,11 @@
 //
 // Over the fast plant (CartpoleFastPlant: the ":fast" predictors) each
 // entry below is instantiated again: its polynomial trig in the step, the
-// cost exact (short_step.cuh).  The pendulum, acrobot and point-mass plants
-// (plants.cuh; with their fast plants) take the single-session kernel
-// alone: short_step.cuh's stage cost and integrate (they have no
-// derivs_short); the emit_terminal and session-row forms stay cartpole's
-// (ops/kernels.py KERNEL_PLANTS).  So do the quadrotor, car and arm
-// plants.
+// cost exact (short_step.cuh).  The pendulum, acrobot, point-mass,
+// quadrotor, car and arm plants (plants.cuh; with their fast plants) take
+// the single-session kernel and its session-row form: short_step.cuh's
+// stage cost and integrate (they have no derivs_short); the emit_terminal
+// forms stay cartpole's (ops/kernels.py KERNEL_PLANTS).
 //
 // K1's emit_terminal form (one session, cost_rollout_emit_kernel, and the
 // session-row form, cost_rollout_emit_rows_kernel) is the body's Emit
@@ -145,14 +144,16 @@ int launch_cost_rollout(dim3 grid, cudaStream_t st, const float* s0, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's single-session kernel over `Plant`, the only form that this
-// slice's plants carry.
+// K1 over `Plant`, one session (ks = K) or its session-row form: the forms
+// that the pendulum, acrobot, point-mass, quadrotor, car and arm plants
+// carry.
 template <class Plant>
-int launch_cost_rollout_single(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
-                               const float* pvec, float* cost, int K, int H,
-                               const StepConsts& c, float max_cost) {
-  cost_rollout_kernel<Plant, false><<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, K, K, H, c,
-                                                               max_cost);
+int launch_cost_rollout_unvalued(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
+                                 const float* pvec, float* cost, int K, int ks, int H,
+                                 const StepConsts& c, float max_cost) {
+  (ks == K ? cost_rollout_kernel<Plant, false>
+           : cost_rollout_kernel<Plant, true>)<<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, K,
+                                                                          ks, H, c, max_cost);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -164,8 +165,8 @@ int launch_cost_rollout_single(dim3 grid, cudaStream_t st, const float* s0, cons
 // emit_terminal form (its session-row form where ks < K), which also writes
 // the terminal states [K, S] there; returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for an unknown plant, a ks that does not
-// divide K, or a form that the plant has no instance of: the pendulum,
-// acrobot and point-mass plants take ks = K and no x_term).
+// divide K, or a form that the plant has no instance of: the plants other
+// than cartpole's take no x_term).
 extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
                                 void* cost, void* x_term, int K, int ks, int H, int rk4,
                                 int substeps, float sub_dt, float half_dt, float dt6,
@@ -187,10 +188,11 @@ extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const 
       return ctt::launch_cost_rollout<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf,
                                                               K, ks, H, c, max_cost);
     default:
-      if (xf != nullptr || ks != K) return static_cast<int>(cudaErrorInvalidValue);
+      if (xf != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::launch_cost_rollout_single<decltype(plant_tag)>(grid, st, s0f, qf, pf, costf,
-                                                                    K, H, c, max_cost);
+        return ctt::launch_cost_rollout_unvalued<decltype(plant_tag)>(grid, st, s0f, qf, pf,
+                                                                      costf, K, ks, H, c,
+                                                                      max_cost);
       });
   }
 }
@@ -207,6 +209,17 @@ extern "C" int ctt_cost_rollout_plant_blocks_per_sm(int plant) {
   if (plant == ctt::kPlantCartpole) return blocks_of(ctt::CartpolePlant{});
   if (plant == ctt::kPlantCartpoleFast) return blocks_of(ctt::CartpoleFastPlant{});
   return ctt::is_slice_plant(plant) ? ctt::with_slice_plant(plant, blocks_of) : 0;
+}
+
+// Blocks of K1's session-row form over `plant` that one SM holds (0 where
+// the runtime cannot say or the plant is unknown).
+extern "C" int ctt_cost_rollout_rows_plant_blocks_per_sm(int plant) {
+  int blocks = 0;
+  const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::blocks_per_sm(ctt::cost_rollout_kernel<decltype(plant_tag), true>, ctt::kThreads,
+                              blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }
 
 // Blocks of K1 (rows 0) or of its session-row form (rows 1) that one SM

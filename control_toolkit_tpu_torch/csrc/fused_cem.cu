@@ -14,10 +14,15 @@
 // is never copied to the host.
 //
 // What bounds it on an H100 and what the design does about it: cem_core.cuh
-// (the body K6 shares).  Its tile layout is K5's own.  Over the fast plant
-// (CartpoleFastPlant, kPlantCartpoleFast) it is the JAX fast_sampling
-// form: fast_sincos in the plant, the fast normals in the draws.  Rollouts past K (a
-// block's ragged edge) repeat rollout K-1 and write nothing.
+// (the body K6 shares).  Its tile layout is K5's own.  Over a fast plant
+// (CartpoleFastPlant, kPlantCartpoleFast, and every plant's fast plant) it
+// is the JAX fast_sampling form: fast trig in the plant, the fast normals
+// in the draws.  Every ODE plant of plants.cuh has an instance
+// (rollout_core.cuh with_fused_instance); the point mass, whose exact
+// dynamics double as the fast ones, has a second, its fast-normals
+// instance (FastNormalsOf), which the entry's `fast` selects, as K3's pass
+// 1 does.  Rollouts past K (a block's ragged edge) repeat rollout K-1 and
+// write nothing.
 #include "cem_core.cuh"
 
 namespace ctt {
@@ -43,26 +48,46 @@ fused_cem_kernel(const float* __restrict__ s0, const float* __restrict__ mue,
   if (g < K) cost[g] = out;
 }
 
+// K5 over `Plant` on `stream`.
+template <class Plant>
+int launch_fused_cem(cudaStream_t st, const void* s0, const void* mue, const void* std_dev,
+                     const void* pvec, const void* seed2, const void* low, const void* high,
+                     void* cost, int K, int H, int tile_k, const StepConsts& c, float max_cost) {
+  fused_cem_kernel<Plant><<<(K + kCemThreads - 1) / kCemThreads, kCemThreads, 0, st>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(mue),
+      static_cast<const float*>(std_dev), static_cast<const float*>(pvec),
+      static_cast<const int*>(seed2), static_cast<const float*>(low),
+      static_cast<const float*>(high), static_cast<float*>(cost), K, H, tile_k, c, max_cost);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ctt
 
-// Launches K5 on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant).
+// Launches K5 on `stream` over the fast normals where `fast` (a fast plant,
+// or the point mass's fast-normals instance); returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unknown plant or a `fast`
+// that does not fit it).
 extern "C" int ctt_fused_cem(int plant, const void* s0, const void* mue, const void* std_dev,
                              const void* pvec, const void* seed2, const void* low,
                              const void* high, void* cost, int K, int H, int tile_k, int rk4,
                              int substeps, float sub_dt, float half_dt, float dt6, float max_cost,
-                             void* stream) {
-  if (plant != ctt::kPlantCartpole && plant != ctt::kPlantCartpoleFast) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                             int fast, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  constexpr int per_block = ctt::kCemThreads;
-  (plant == ctt::kPlantCartpole ? ctt::fused_cem_kernel<ctt::CartpolePlant>
-                                : ctt::fused_cem_kernel<ctt::CartpoleFastPlant>)
-      <<<(K + per_block - 1) / per_block, per_block, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(mue),
-          static_cast<const float*>(std_dev), static_cast<const float*>(pvec),
-          static_cast<const int*>(seed2), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost), K, H, tile_k, c, max_cost);
-  return static_cast<int>(cudaGetLastError());
+  return ctt::with_fused_instance(plant, fast, [&](auto instance_tag) {
+    return ctt::launch_fused_cem<decltype(instance_tag)>(
+        static_cast<cudaStream_t>(stream), s0, mue, std_dev, pvec, seed2, low, high, cost, K, H,
+        tile_k, c, max_cost);
+  });
+}
+
+// Blocks of K5 over `plant` (its fast-normals instance where `fast`) that
+// one SM holds (0 where the runtime cannot say or there is no such
+// instance).
+extern "C" int ctt_fused_cem_plant_blocks_per_sm(int plant, int fast) {
+  int blocks = 0;
+  const int rc = ctt::with_fused_instance(plant, fast, [&](auto instance_tag) {
+    return ctt::blocks_per_sm(ctt::fused_cem_kernel<decltype(instance_tag)>, ctt::kCemThreads,
+                              blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }

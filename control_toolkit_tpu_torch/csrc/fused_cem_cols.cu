@@ -24,7 +24,8 @@
 // block of kCemThreads rollouts may straddle two sessions where K is not a
 // multiple of it, so each thread reads its rows by its own b.  Rollouts
 // past B*K (the grid's ragged edge) repeat the last rollout and write
-// nothing.
+// nothing.  Its instances are K5's: every ODE plant, and the point mass's
+// fast-normals instance, selected by the entry's `fast`.
 #include "cem_core.cuh"
 
 namespace ctt {
@@ -51,35 +52,48 @@ fused_cem_cols_kernel(const float* __restrict__ s0, const float* __restrict__ mu
   if (g < n) cost[g] = out;
 }
 
+// K6 over `Plant` on `stream`.
+template <class Plant>
+int launch_fused_cem_cols(cudaStream_t st, const void* s0, const void* mue, const void* std_dev,
+                          const void* pvec_b, const void* seed_b, const void* low,
+                          const void* high, void* cost, int B, int K, int H, const StepConsts& c,
+                          float max_cost) {
+  const dim3 grid((B * K + kCemThreads - 1) / kCemThreads);
+  fused_cem_cols_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
+      static_cast<const float*>(s0), static_cast<const float*>(mue),
+      static_cast<const float*>(std_dev), static_cast<const float*>(pvec_b),
+      static_cast<const int*>(seed_b), static_cast<const float*>(low),
+      static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, c, max_cost);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace ctt
 
-// Launches K6 on `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown plant).
+// Launches K6 on `stream` over the fast normals where `fast` (a fast plant,
+// or the point mass's fast-normals instance); returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an unknown plant or a `fast`
+// that does not fit it).
 extern "C" int ctt_fused_cem_cols(int plant, const void* s0, const void* mue, const void* std_dev,
                                   const void* pvec_b, const void* seed_b, const void* low,
                                   const void* high, void* cost, int B, int K, int H, int rk4,
                                   int substeps, float sub_dt, float half_dt, float dt6,
-                                  float max_cost, void* stream) {
+                                  float max_cost, int fast, void* stream) {
   const ctt::StepConsts c{rk4, substeps, sub_dt, half_dt, dt6};
-  const dim3 grid((B * K + ctt::kCemThreads - 1) / ctt::kCemThreads);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (plant) {
-    case ctt::kPlantCartpole:
-      ctt::fused_cem_cols_kernel<ctt::CartpolePlant><<<grid, ctt::kCemThreads, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(mue),
-          static_cast<const float*>(std_dev), static_cast<const float*>(pvec_b),
-          static_cast<const int*>(seed_b), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, c, max_cost);
-      break;
-    case ctt::kPlantCartpoleFast:  // the fast_sampling form
-      ctt::fused_cem_cols_kernel<ctt::CartpoleFastPlant><<<grid, ctt::kCemThreads, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(mue),
-          static_cast<const float*>(std_dev), static_cast<const float*>(pvec_b),
-          static_cast<const int*>(seed_b), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost), B, K, H, c, max_cost);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return ctt::with_fused_instance(plant, fast, [&](auto instance_tag) {
+    return ctt::launch_fused_cem_cols<decltype(instance_tag)>(
+        static_cast<cudaStream_t>(stream), s0, mue, std_dev, pvec_b, seed_b, low, high, cost, B,
+        K, H, c, max_cost);
+  });
+}
+
+// Blocks of K6 over `plant` (its fast-normals instance where `fast`) that
+// one SM holds (0 where the runtime cannot say or there is no such
+// instance).
+extern "C" int ctt_fused_cem_cols_plant_blocks_per_sm(int plant, int fast) {
+  int blocks = 0;
+  const int rc = ctt::with_fused_instance(plant, fast, [&](auto instance_tag) {
+    return ctt::blocks_per_sm(ctt::fused_cem_cols_kernel<decltype(instance_tag)>,
+                              ctt::kCemThreads, blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }

@@ -178,21 +178,6 @@ int launch_fused_mppi_cost(dim3 grid, cudaStream_t st, const void* s0, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pass 1's instance over `Plant`, or over its fast-normals instance
-// where `fast` and the plant's exact dynamics double as the fast ones;
-// cudaErrorInvalidValue where `fast` does not match the plant.  F is
-// called with the instance's tag.
-template <class Plant, class F>
-int with_pass1_instance(int fast, F&& f) {
-  if constexpr (Plant::kExactIsFast) {
-    if (fast) return f(typename FastNormalsOf<Plant>::type{});
-    return f(Plant{});
-  } else {
-    if (fast != static_cast<int>(Plant::kFast)) return static_cast<int>(cudaErrorInvalidValue);
-    return f(Plant{});
-  }
-}
-
 }  // namespace ctt
 
 // Launch K3's pass 1 on `stream`, over the fast normals where `fast` (a
@@ -215,42 +200,19 @@ extern "C" int ctt_fused_mppi_cost(int plant, const void* s0, const void* u_nom,
         grid, st, s0, u_nom, pvec, seed2, W, low, high, cost, K, H, P, tile_k, c, max_cost, cc,
         stdev);
   };
-  switch (plant) {
-    case ctt::kPlantCartpole:
-      return ctt::with_pass1_instance<ctt::CartpolePlant>(fast, launch);
-    case ctt::kPlantCartpoleFast:
-      return ctt::with_pass1_instance<ctt::CartpoleFastPlant>(fast, launch);
-    default:
-      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::with_pass1_instance<decltype(plant_tag)>(fast, launch);
-      });
-  }
+  return ctt::with_fused_instance(plant, fast, launch);
 }
 
 // Blocks of pass 1 over `plant` (its fast-normals instance where `fast`)
 // that one SM holds (0 where the runtime cannot say or the plant is
 // unknown; the caller passes the plant's own `fast`).
 extern "C" int ctt_fused_mppi_cost_plant_blocks_per_sm(int plant, int fast) {
-  auto blocks_of = [](auto instance_tag) {
-    int blocks = 0;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &blocks, ctt::fused_mppi_cost_kernel<decltype(instance_tag)>, ctt::kCemThreads,
-               0) == cudaSuccess ? blocks : 0;
-  };
-  int blocks = static_cast<int>(cudaErrorInvalidValue);
-  if (plant == ctt::kPlantCartpole) {
-    blocks = ctt::with_pass1_instance<ctt::CartpolePlant>(fast, blocks_of);
-  } else if (plant == ctt::kPlantCartpoleFast) {
-    blocks = ctt::with_pass1_instance<ctt::CartpoleFastPlant>(fast, blocks_of);
-  } else if (ctt::is_slice_plant(plant)) {
-    ctt::with_slice_plant(plant, [&](auto plant_tag) {
-      blocks = ctt::with_pass1_instance<decltype(plant_tag)>(fast, blocks_of);
-      return 0;
-    });
-  } else {
-    return 0;
-  }
-  return blocks;
+  int blocks = 0;
+  const int rc = ctt::with_fused_instance(plant, fast, [&](auto instance_tag) {
+    return ctt::blocks_per_sm(ctt::fused_mppi_cost_kernel<decltype(instance_tag)>,
+                              ctt::kCemThreads, blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }
 
 // Launch K3's pass 2 on `stream` into partials [ceil(K / 128), P, U], over

@@ -84,20 +84,29 @@
 // without the value compile as before.
 //
 // The pendulum, acrobot and point-mass plants (plants.cuh, with their fast
-// plants) take the single-session forward and adjoint alone: their
-// derivs_tangent is their Jacobian's nontrivial rows, their stage terms
-// their costs' stage_cost_vjp.  An item's fields are S*(S+U) + S + 2U (odd):
-// 11 floats for the pendulum, 27 for the acrobot (cartpole's 27) and 33 for
-// the point mass, whose adjoint block so takes 33.8 KB of static shared
-// memory.  The value_spec and session-row forms stay cartpole's
-// (ops/kernels.py KERNEL_PLANTS).  The quadrotor, car and arm plants take
-// the same two launches; the adjoint's geometry is the plant's
-// (AdjGeometry): the planar quadrotor's 59 fields a step take 16 steps a
-// chunk, the 3-D quadrotor's 213 four, and its 12 x 16 tangent goes
-// through the period four columns at a time (integrate_jac<Plant, N0>),
-// the primal re-run for each four, where the whole tangent and its rk4
-// stages spilled 5 KB a thread.  Cartpole's and the other plants'
-// instances keep 32 steps, 256 threads and their code.
+// plants) take the forward and the adjoint: their derivs_tangent is their
+// Jacobian's nontrivial rows, their stage terms their costs'
+// stage_cost_vjp.  An item's fields are S*(S+U) + S + 2U (odd): 11 floats
+// for the pendulum, 27 for the acrobot (cartpole's 27) and 33 for the point
+// mass, whose adjoint block so takes 33.8 KB of static shared memory.  The
+// value_spec forms stay cartpole's (ops/kernels.py KERNEL_PLANTS).  The
+// quadrotor, car and arm plants take the same two launches; the adjoint's
+// geometry is the plant's (AdjGeometry): the planar quadrotor's 59 fields
+// a step take 16 steps a chunk, the 3-D quadrotor's 213 four, and its
+// 12 x 16 tangent goes through the period four columns at a time
+// (integrate_jac<Plant, N0>), the primal re-run for each four, where the
+// whole tangent and its rk4 stages spilled 5 KB a thread.  Cartpole's and
+// the other plants' instances keep 32 steps, 256 threads and their code.
+//
+// Every plant also takes both launches' session-row forms (the rpgd-tf
+// and gradient-tf fleets).  The adjoint's adds its block's 8 parameter
+// rows to the chunk's items in static shared memory: 8 * kN floats, from
+// 384 B (the point mass) to 832 B (car/obstacles); the largest block,
+// car/obstacles', so takes 34.6 KB, the 3-D quadrotor's 28.1 KB, within
+// the 48 KB static limit at every plant's own step tile.  Where a block
+// has fewer threads than the rows have floats (the planar quadrotor's
+// 128 for 136, the 3-D quadrotor's 32 for 200), its threads stage them in
+// turns; cartpole's instance stages them as before.
 #include "rollout_core.cuh"
 #include "value_mlp.cuh"
 
@@ -281,11 +290,19 @@ __device__ __forceinline__ void grad_adjoint_body(const float* __restrict__ Q,
   float preg[Plant::kN];
   const float* p = preg;
   if constexpr (Rows) {
-    if (threadIdx.x < kAdjRollouts * Plant::kN) {
-      const int kk = min(static_cast<int>(blockIdx.x * kAdjRollouts + threadIdx.x / Plant::kN),
-                         K - 1);
-      rows[threadIdx.x] =
-          __ldg(pvec + static_cast<size_t>(kk / ks) * Plant::kN + threadIdx.x % Plant::kN);
+    constexpr int kRowFloats = kAdjRollouts * Plant::kN;
+    if constexpr (Geo::kThreads >= kRowFloats) {
+      if (threadIdx.x < kRowFloats) {
+        const int kk = min(static_cast<int>(blockIdx.x * kAdjRollouts + threadIdx.x / Plant::kN),
+                           K - 1);
+        rows[threadIdx.x] =
+            __ldg(pvec + static_cast<size_t>(kk / ks) * Plant::kN + threadIdx.x % Plant::kN);
+      }
+    } else {  // fewer threads than the rows' floats (short chunks, long rows)
+      for (int i = threadIdx.x; i < kRowFloats; i += Geo::kThreads) {
+        const int kk = min(static_cast<int>(blockIdx.x * kAdjRollouts + i / Plant::kN), K - 1);
+        rows[i] = __ldg(pvec + static_cast<size_t>(kk / ks) * Plant::kN + i % Plant::kN);
+      }
     }
     __syncthreads();
     p = rows + r * Plant::kN;
@@ -467,36 +484,40 @@ int launch_grad_adjoint(dim3 grid, cudaStream_t st, const float* Q, const float*
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7's single-session forward and adjoint over `Plant`: the only forms that
-// the pendulum, acrobot and point-mass plants carry.
+// K7's forward and adjoint over `Plant`, one session (ks = K) or their
+// session-row forms: the forms that the pendulum, acrobot, point-mass,
+// quadrotor, car and arm plants carry.
 template <class Plant>
-int launch_grad_forward_single(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
-                               const float* pvec, float* cost, float* xhist, int K, int H,
-                               const StepConsts& c, float max_cost) {
-  grad_cost_forward_kernel<Plant, false><<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, xhist, K,
-                                                                    K, H, c, max_cost);
+int launch_grad_forward_unvalued(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
+                                 const float* pvec, float* cost, float* xhist, int K, int ks,
+                                 int H, const StepConsts& c, float max_cost) {
+  (ks == K ? grad_cost_forward_kernel<Plant, false>
+           : grad_cost_forward_kernel<Plant, true>)<<<grid, kThreads, 0, st>>>(
+      s0, Q, pvec, cost, xhist, K, ks, H, c, max_cost);
   return static_cast<int>(cudaGetLastError());
 }
 template <class Plant>
-int launch_grad_adjoint_single(dim3 grid, cudaStream_t st, const float* Q, const float* pvec,
-                               const float* xhist, float* dQ, int K, int H, const StepConsts& c,
-                               float ct) {
-  grad_cost_adjoint_kernel<Plant, false><<<grid, AdjGeometry<Plant>::kThreads, 0, st>>>(
-      Q, pvec, xhist, dQ, K, K, H, c, ct);
+int launch_grad_adjoint_unvalued(dim3 grid, cudaStream_t st, const float* Q, const float* pvec,
+                                 const float* xhist, float* dQ, int K, int ks, int H,
+                                 const StepConsts& c, float ct) {
+  (ks == K ? grad_cost_adjoint_kernel<Plant, false>
+           : grad_cost_adjoint_kernel<Plant, true>)<<<grid, AdjGeometry<Plant>::kThreads, 0,
+                                                      st>>>(Q, pvec, xhist, dQ, K, ks, H, c, ct);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of K7's single-session forward (adjoint false) or adjoint over
-// `Plant` that one SM holds (0 where the runtime cannot say).
-template <class Plant>
+// Blocks of K7's forward (adjoint false) or adjoint over `Plant` that one
+// SM holds, one session's or (Rows) the session-row form's (0 where the
+// runtime cannot say).
+template <class Plant, bool Rows = false>
 int grad_blocks_per_sm(bool adjoint) {
   int blocks = 0;
   const cudaError_t e =
       adjoint ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, grad_cost_adjoint_kernel<Plant, false>,
+                    &blocks, grad_cost_adjoint_kernel<Plant, Rows>,
                     AdjGeometry<Plant>::kThreads, 0)
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, grad_cost_forward_kernel<Plant, false>, kThreads, 0);
+                    &blocks, grad_cost_forward_kernel<Plant, Rows>, kThreads, 0);
   return e == cudaSuccess ? blocks : 0;
 }
 
@@ -505,10 +526,9 @@ int grad_blocks_per_sm(bool adjoint) {
 // Launch K7's forward on `stream` over K rollouts, sessions of ks (pvec
 // holds K / ks rows, rollout k reading row k / ks: ks = K for one session,
 // the session-row form for a fleet); returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant, a ks that does not
-// divide K, or a session-row form over a plant that has none: the
-// pendulum, acrobot and point-mass plants take ks = K).  xhist is scratch
-// of (H+1)*S*K floats that the caller allocates.
+// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
+// divide K).  xhist is scratch of (H+1)*S*K floats that the caller
+// allocates.
 extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, const void* pvec,
                                      void* cost, void* xhist, int K, int ks, int H, int rk4,
                                      int substeps, float sub_dt, float half_dt, float dt6,
@@ -530,10 +550,10 @@ extern "C" int ctt_grad_cost_forward(int plant, const void* s0, const void* Q, c
       return ctt::launch_grad_forward<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf, K,
                                                               ks, H, c, max_cost);
     default:
-      if (ks != K) return static_cast<int>(cudaErrorInvalidValue);
       return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::launch_grad_forward_single<decltype(plant_tag)>(grid, st, s0f, qf, pf, costf,
-                                                                    xf, K, H, c, max_cost);
+        return ctt::launch_grad_forward_unvalued<decltype(plant_tag)>(grid, st, s0f, qf, pf,
+                                                                      costf, xf, K, ks, H, c,
+                                                                      max_cost);
       });
   }
 }
@@ -591,8 +611,7 @@ extern "C" int ctt_grad_cost_forward_value(int plant, const void* s0, const void
 // Launch K7's adjoint on `stream` over the forward's xhist, sessions of ks
 // as the forward's, or, with vgrad not null, its value_spec instance
 // (its session-row form where ks < K), which adds vgrad [S, K] to lam_H;
-// returns as above (the pendulum, acrobot and point-mass plants take ks = K
-// and no vgrad).
+// returns as above (the plants other than cartpole's take no vgrad).
 extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
                                      const void* xhist, const void* vgrad, void* dQ, int K,
                                      int ks, int H, int rk4, int substeps, float sub_dt,
@@ -614,10 +633,10 @@ extern "C" int ctt_grad_cost_adjoint(int plant, const void* Q, const void* pvec,
       return ctt::launch_grad_adjoint<ctt::CartpoleFastPlant>(grid, st, qf, pf, xf, vf, dqf, K,
                                                               ks, H, c, ct);
     default:
-      if (ks != K || vf != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      if (vf != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::launch_grad_adjoint_single<decltype(plant_tag)>(grid, st, qf, pf, xf, dqf, K,
-                                                                    H, c, ct);
+        return ctt::launch_grad_adjoint_unvalued<decltype(plant_tag)>(grid, st, qf, pf, xf, dqf,
+                                                                      K, ks, H, c, ct);
       });
   }
 }
@@ -634,6 +653,18 @@ extern "C" int ctt_grad_cost_plant_blocks_per_sm(int plant, int adjoint) {
   return ctt::with_slice_plant(plant, [&](auto plant_tag) {
     return ctt::grad_blocks_per_sm<decltype(plant_tag)>(adjoint);
   });
+}
+
+// Blocks of K7's session-row forward (adjoint 0) or adjoint (1) over
+// `plant` that one SM holds (0 where the runtime cannot say or the plant is
+// unknown).
+extern "C" int ctt_grad_cost_rows_plant_blocks_per_sm(int plant, int adjoint) {
+  int blocks = 0;
+  const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    blocks = ctt::grad_blocks_per_sm<decltype(plant_tag), true>(adjoint);
+    return 0;
+  });
+  return rc == 0 ? blocks : 0;
 }
 
 // Blocks of K7's forward kernel (rows 0) or of its session-row form (rows

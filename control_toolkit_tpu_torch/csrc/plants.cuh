@@ -41,9 +41,10 @@
 // (ops/adjoints.py *_derivs_jac, transcribed), the other rows being the
 // velocities' unit rows; their costs stay exact under a fast plant (the
 // JAX costs call jnp.cos whatever the plant).  The point mass has no trig,
-// so its exact dynamics double as the fast ones (kExactIsFast): only K3
-// takes a fast-normals instance of it (FastNormalsOf), which draws the
-// fast counter normals over the exact plant.
+// so its exact dynamics double as the fast ones (kExactIsFast): only the
+// fully-fused kernels (K3's pass 1, K5, K6) take a fast-normals instance of
+// it (FastNormalsOf), which draws the fast counter normals over the exact
+// plant.
 //
 // The quadrotor2d (S=6, U=2), quadrotor3d (S=12, U=4), car and arm2
 // plants follow the same pattern, each with its fast plant
@@ -1755,8 +1756,9 @@ struct Arm2Cost {
 };
 
 // The ODE kernels' plant over dynamics without derivs_short: the dynamics'
-// constants, then the cost's vector.  FastNormals (K3 over a plant whose
-// exact dynamics double as the fast ones) draws the fast counter normals.
+// constants, then the cost's vector.  FastNormals (K3, K5 or K6 over a
+// plant whose exact dynamics double as the fast ones) draws the fast
+// counter normals.
 template <class Dyn, class CostT, bool FastNormals = Dyn::kFast>
 struct PlantT {
   static_assert(Dyn::S == CostT::S && Dyn::U == CostT::U, "dynamics and cost dims differ");
@@ -1817,7 +1819,8 @@ struct AcrobotPlant : PlantT<AcrobotDynamicsT<false>, AcrobotCost> {};
 struct AcrobotFastPlant : PlantT<AcrobotDynamicsT<true>, AcrobotCost> {};
 struct PointmassPlant : PlantT<PointmassDynamics, PointmassCost> {};
 struct PointmassObstaclePlant : PlantT<PointmassDynamics, PointmassObstacleCost> {};
-// K3's fast-normals instances over the point mass's exact dynamics.
+// The fully-fused kernels' fast-normals instances over the point mass's
+// exact dynamics.
 struct PointmassFastNormalsPlant : PlantT<PointmassDynamics, PointmassCost, true> {};
 struct PointmassObstacleFastNormalsPlant
     : PlantT<PointmassDynamics, PointmassObstacleCost, true> {};

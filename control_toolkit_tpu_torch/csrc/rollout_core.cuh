@@ -284,8 +284,8 @@ constexpr int kPlantArm2Fast = 17;              // Arm2FastPlant
 constexpr int kThreads = 128;      // rollouts per block
 
 // f(Plant{}) for the plant of id `plant` among the pendulum, acrobot,
-// point-mass, quadrotor, car and arm plants, which K1, K2, K3 and K7 carry
-// in their plain entries alone (ops/kernels.py KERNEL_PLANTS);
+// point-mass, quadrotor, car and arm plants, which K1-K7's plain entries
+// and K1's and K7's session-row forms carry (ops/kernels.py KERNEL_PLANTS);
 // cudaErrorInvalidValue for any other id.  Host code: the entries'
 // switches call it for every id but cartpole's.
 inline bool is_slice_plant(int plant) {
@@ -330,6 +330,47 @@ int with_slice_plant(int plant, F&& f) {
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// f(Plant{}) for the plant of id `plant` among every ODE plant, cartpole's
+// two among them (the forms that carry all of ops/kernels.py ODE_PLANTS).
+template <class F>
+int with_ode_plant(int plant, F&& f) {
+  if (plant == kPlantCartpole) return f(CartpolePlant{});
+  if (plant == kPlantCartpoleFast) return f(CartpoleFastPlant{});
+  return with_slice_plant(plant, static_cast<F&&>(f));
+}
+
+// The instance of a fully-fused kernel (K3's pass 1, K5, K6) over `Plant`,
+// or over its fast-normals instance where `fast` and the plant's exact
+// dynamics double as the fast ones (FastNormalsOf: the JAX fast_sampling
+// over the point mass's exact dynamics); cudaErrorInvalidValue where
+// `fast` does not match the plant.  F is called with the instance's tag.
+template <class Plant, class F>
+int with_normals_instance(int fast, F&& f) {
+  if constexpr (Plant::kExactIsFast) {
+    if (fast) return f(typename FastNormalsOf<Plant>::type{});
+    return f(Plant{});
+  } else {
+    if (fast != static_cast<int>(Plant::kFast)) return static_cast<int>(cudaErrorInvalidValue);
+    return f(Plant{});
+  }
+}
+
+// blocks = the blocks of `kernel` at `threads` a block (no dynamic shared
+// memory) that one SM holds; returns the runtime's error (0: success).
+template <class Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int& blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                                        threads, 0));
+}
+
+// with_normals_instance over the ODE plant of id `plant`.
+template <class F>
+int with_fused_instance(int plant, int fast, F&& f) {
+  return with_ode_plant(plant, [&](auto plant_tag) {
+    return with_normals_instance<decltype(plant_tag)>(fast, f);
+  });
 }
 
 }  // namespace ctt

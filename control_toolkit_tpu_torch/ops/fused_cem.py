@@ -30,7 +30,9 @@ regenerated and scored by K1's plain version.
 
 The CUDA kernel is ``csrc/fused_cem.cu``, over the rollout body it shares
 with K6 (``csrc/cem_core.cuh``, whose note says what bounds it on the
-card).  The wrapper runs the plain version only when
+card), with an instance of every device plant; the wrapper passes
+``model.fast_math``, which picks the point mass's fast-normals instance
+(its exact dynamics under the fast normals, ``RolloutModel.fast_sampling``).  The wrapper runs the plain version only when
 every operand lies on the CPU; for CUDA operands it launches the kernel or
 raises.
 """
@@ -120,7 +122,7 @@ def fused_cem_costs(model: kernels.RolloutModel, s0: torch.Tensor, mue: torch.Te
         rc = lib.ctt_fused_cem(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), mue.data_ptr(), std.data_ptr(),
             pvec.data_ptr(), seed2.data_ptr(), low.data_ptr(), high.data_ptr(), cost.data_ptr(),
-            K, H, tile_k, *model.step_args(), model.max_cost,
+            K, H, tile_k, *model.step_args(), model.max_cost, int(model.fast_math),
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, "fused_cem_costs")

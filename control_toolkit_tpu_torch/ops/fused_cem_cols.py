@@ -28,7 +28,8 @@ normals).
 regenerated and scored by K1's plain version.
 
 The CUDA kernel is ``csrc/fused_cem_cols.cu``, over the rollout body it
-shares with K5 (``csrc/cem_core.cuh``).  The wrapper runs the plain
+shares with K5 (``csrc/cem_core.cuh``), with K5's instances (``fast`` as
+K5's).  The wrapper runs the plain
 version only when every operand lies on the CPU; for CUDA operands it
 launches the kernel or raises.
 """
@@ -116,7 +117,7 @@ def fused_cem_cols(model: kernels.RolloutModel, s0: torch.Tensor, mue: torch.Ten
         rc = lib.ctt_fused_cem_cols(
             kernels.PLANT_IDS[model.plant], s0.data_ptr(), mue.data_ptr(), std.data_ptr(),
             pvec_b.data_ptr(), seed_b.data_ptr(), low.data_ptr(), high.data_ptr(),
-            cost.data_ptr(), B, K, H, *model.step_args(), model.max_cost,
+            cost.data_ptr(), B, K, H, *model.step_args(), model.max_cost, int(model.fast_math),
             torch.cuda.current_stream(device).cuda_stream,
         )
     kernels.check_launch(rc, "fused_cem_cols")

@@ -54,8 +54,8 @@ NVCC_FLAGS = (
 # together, as the JAX optimizers pair them (fast_sampling=pred.fast_math).
 # Pointmass has no trig: its exact dynamics double as the fast ones
 # (EXACT_IS_FAST), so a ``:fast`` pointmass predictor keeps the exact
-# plant, and only K3, which draws the fast normals over it, takes the
-# fast flag (``RolloutModel.fast_sampling``).  The car's fast dynamics
+# plant, and only the fully-fused kernels (K3, K5, K6), which draw the
+# fast normals over it, take the fast flag (``RolloutModel.fast_sampling``).  The car's fast dynamics
 # differ from its exact ones, so car/obstacles has a fast plant of its
 # own (``car_obstacles_fast``), as every (dynamics, cost) pair over a trig
 # plant does.
@@ -137,11 +137,13 @@ PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for pl
 CARTPOLE_PLANTS = ("cartpole", "cartpole_fast")
 ODE_PLANTS = tuple(PLANT_IDS)
 KERNEL_PLANTS = {
-    "K1": ODE_PLANTS, "K2": ODE_PLANTS, "K3": ODE_PLANTS, "K7": ODE_PLANTS,
+    **{form: ODE_PLANTS for form in (
+        "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1's session-row form",
+        "K7's session-row form")},
     **{form: CARTPOLE_PLANTS for form in (
-        "K1's emit_terminal form", "K1's session-row form", "K1's session-row emit_terminal form",
-        "K2's emit_terminal form", "K4", "K4's emit_terminal form", "K5", "K6",
-        "K7's value_spec form", "K7's session-row form", "K7's session-row value_spec form",
+        "K1's emit_terminal form", "K1's session-row emit_terminal form",
+        "K2's emit_terminal form", "K4's emit_terminal form",
+        "K7's value_spec form", "K7's session-row value_spec form",
         "K9", "K9's value_spec form", "K9's session-row form",
         "K9's session-row value_spec form", "K12", "K12's emit_terminal form",
         "K12's session-row form", "K12's session-row emit_terminal form")},
@@ -713,13 +715,20 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [i32]
             fn.restype = i32
         # Blocks per SM of a plant's instance (plant id) of K1, K2, K3's pass 1
-        # (and its fast flag) and K7 (0: the forward, 1: the adjoint).
+        # (and its fast flag) and K7 (0: the forward, 1: the adjoint);
+        # K4's, K1's session-row form's, K5's and K6's (and their fast flag)
+        # and K7's session-row forms' likewise.
         for fn in (lib.ctt_cost_rollout_plant_blocks_per_sm,
-                   lib.ctt_mppi_cost_plant_blocks_per_sm):
+                   lib.ctt_mppi_cost_plant_blocks_per_sm,
+                   lib.ctt_mppi_cost_cols_plant_blocks_per_sm,
+                   lib.ctt_cost_rollout_rows_plant_blocks_per_sm):
             fn.argtypes = [i32]
             fn.restype = i32
         for fn in (lib.ctt_fused_mppi_cost_plant_blocks_per_sm,
-                   lib.ctt_grad_cost_plant_blocks_per_sm):
+                   lib.ctt_grad_cost_plant_blocks_per_sm,
+                   lib.ctt_fused_cem_plant_blocks_per_sm,
+                   lib.ctt_fused_cem_cols_plant_blocks_per_sm,
+                   lib.ctt_grad_cost_rows_plant_blocks_per_sm):
             fn.argtypes = [i32, i32]
             fn.restype = i32
         step = [i32, i32, f32, f32, f32]  # rk4, substeps, sub_dt, half_dt, dt6
@@ -749,11 +758,12 @@ def load() -> ctypes.CDLL:
         lib.ctt_gp_layout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
         lib.ctt_gp_smem_bytes.restype = ctypes.c_long
+        # ..., max_cost, fast (the fast normals), stream
         lib.ctt_fused_cem.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                      *step, f32, ptr]
+                                      *step, f32, i32, ptr]
         lib.ctt_fused_cem.restype = i32
         lib.ctt_fused_cem_cols.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                           i32, *step, f32, ptr]
+                                           i32, *step, f32, i32, ptr]
         lib.ctt_fused_cem_cols.restype = i32
         # ..., stdev, fast (the fast normals), stream
         lib.ctt_fused_mppi_cost.argtypes = [

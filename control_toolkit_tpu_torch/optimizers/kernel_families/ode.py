@@ -10,7 +10,7 @@ kernel, whose fully-fused forms draw the fast normals), with
 the gradient gate adds a plant with hand-written adjoints
 (``ops/adjoints.py`` PLANT_ADJOINTS).  A kernel that the gate admits but
 that has no instance of the plant (``ops/kernels.py`` KERNEL_PLANTS: the
-emit_terminal, value_spec and session-row forms carry cartpole's alone)
+emit_terminal and value_spec forms carry cartpole's alone)
 raises where it is bound (``kernels.require``), as does every other
 family's: a (dynamics, cost) pair that the JAX package would send to a
 kernel never takes the scan here instead.  A cost that is no device

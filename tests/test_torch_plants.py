@@ -4,9 +4,11 @@ plants of the port against the JAX package: their dynamics (exact and
 environments, the hand-written adjoints, the
 plain versions of K1, K2, K3 and K7 over each (dynamics, cost) plant
 against the JAX kernels in interpret mode, one MPPI and one rpgd-tf update
-fed the JAX draws, and the gates: every path on which the JAX package
-would launch a kernel that has no instance of these plants raises,
-naming the kernel and the plant, and never takes the scan instead.
+fed the JAX draws, and the gates: the fleet and fused-CEM paths (K4, K5,
+K6, the session-row K1 and K7) build and step, and every path on which
+the JAX package would launch a kernel that has no instance of these
+plants raises, naming the kernel and the plant, and never takes the scan
+instead.
 
 Tolerances, each with its reason:
 
@@ -41,12 +43,18 @@ from control_toolkit_tpu_torch.costs.pendulum import PendulumQuadraticCost
 from control_toolkit_tpu_torch.costs.value_terminal import attach_value_terminal
 from control_toolkit_tpu_torch.models import dynamics as pdyn
 from control_toolkit_tpu_torch.ops import adjoints, kernels
-from control_toolkit_tpu_torch.ops.cost_rollout import cost_rollout, cost_rollout_plain
+from control_toolkit_tpu_torch.ops.cost_rollout import (
+    cost_rollout, cost_rollout_cols, cost_rollout_plain,
+)
+from control_toolkit_tpu_torch.ops.fused_cem import fused_cem_costs
+from control_toolkit_tpu_torch.ops.fused_cem_cols import fused_cem_cols
 from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_step
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_plain,
+    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost
+from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols
+from control_toolkit_tpu_torch.optimizers.cem import CEMState
 from control_toolkit_tpu_torch.optimizers.kernel_families import ode
 from control_toolkit_tpu_torch.utils import registry
 from control_toolkit_tpu_torch.utils.convert import (
@@ -739,18 +747,77 @@ def fleet(label, optimizer, cfg, **kw):
     return port_ctrl(label, optimizer, cfg, cls=BatchedMPCController, num_slots=2, **kw)
 
 
+def modular_cem_step(lb):
+    """The modular batched CEM step over two sessions and their stacked
+    initial states (a fleet controller refuses modular CEM: the JAX
+    package serves it by its vmapped step)."""
+    ctrl = port_ctrl(lb, "cem-tf", {**small(), "cem_best_k": 8})
+    opt = ctrl.optimizer
+    step, _ = opt._make_batched_cem_step(2)
+    inits = [opt._init_state(torch.Generator().manual_seed(i)) for i in range(2)]
+    return ctrl, step, CEMState(generator=tuple(st.generator for st in inits),
+                               dist_mue=torch.stack([st.dist_mue for st in inits]),
+                               stdev=torch.stack([st.stdev for st in inits]),
+                               count=np.zeros(2, np.int64),
+                               u_prev=torch.stack([st.u_prev for st in inits]))
+
+
+def fused_cem_fleet(lb):
+    return fleet(lb, "cem-tf", {**small(), "fully_fused": True, "warmup": False,
+                                "cem_outer_it": 1, "cem_best_k": 8})
+
+
+# label of a ported path: (the kernel form it launches on the card, the wrapper
+# whose plain version runs here, a function that builds it, its gate)
+PORTED = {
+    "fused_cem": ("K5", fused_cem_costs, fused_cem, lambda c: c.optimizer._fused),
+    "mppi_fleet": ("K4", mppi_cost_cols, lambda lb: fleet(lb, "mppi", small()),
+                   lambda c: c._batched_kernel_eligible()),
+    "fused_cem_fleet": ("K6", fused_cem_cols, fused_cem_fleet,
+                        lambda c: c._batched_fused_cem_eligible()),
+    "modular_cem_fleet": ("K1's session-row form", cost_rollout_cols, modular_cem_step, None),
+    "rpgd_fleet": ("K7's session-row form", grad_cost_rollout_cols,
+                   lambda lb: fleet(lb, "rpgd-tf", small_rpgd()),
+                   lambda c: c._batched_rpgd_eligible()),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PORTED))
+@pytest.mark.parametrize("label", ["pendulum", "pointmass_obstacles", "quadrotor3d",
+                                   "car_obstacles"])
+def test_ported_fleet_paths_build_and_step_on_the_cpu(path, label):
+    """The paths that K4, K5, K6 and the session-row forms of K1 and K7 serve
+    build over these plants (the forms carry every plant id) and their
+    first step runs on the CPU through the form's plain version: the
+    wrapper launches nothing, and the controls are finite and within the
+    limits."""
+    form, wrapper, build, gate = PORTED[path]
+    plant = PLANTS[label][2]
+    assert plant in kernels.KERNEL_PLANTS[form]
+    built = build(label)
+    launches = wrapper.launches
+    s = states(label, np.random.default_rng(2), 2)
+    lo, hi = limits(PLANTS[label][0])
+    if path == "modular_cem_fleet":
+        ctrl, step, st = built
+        params = ctrl._assemble_params()
+        u, new, costs = step(st, torch.as_tensor(s)[:, None], params["dyn"], params["cost"],
+                             params["attrs"], np.ones(2, bool))
+        u = u.numpy()
+        assert costs.shape == (2, ctrl.optimizer.num_rollouts) and np.all(new.count == 1)
+    elif path == "fused_cem":
+        assert gate(built)
+        u = built.step(s[0])[None]
+    else:
+        assert gate(built)
+        u = built.step_batch(s)
+    assert wrapper.launches == launches
+    assert u.shape == (2 if path != "fused_cem" else 1, len(lo)) and np.all(np.isfinite(u))
+    assert np.all(u >= lo) and np.all(u <= hi)
+
+
 # label of the path: (the kernel form it would launch, a function that builds it)
 REFUSED = {
-    "fused_cem": ("K5", lambda lb: fused_cem(lb)),
-    "mppi_fleet": ("K4", lambda lb: fleet(lb, "mppi", small())),
-    "fused_cem_fleet": ("K6", lambda lb: fleet(lb, "cem-tf", {**small(), "fully_fused": True,
-                                                               "warmup": False,
-                                                               "cem_outer_it": 1,
-                                                               "cem_best_k": 8})),
-    "modular_cem_fleet": ("K1's session-row form",
-                          lambda lb: port_ctrl(lb, "cem-tf", {**small(), "cem_best_k": 8})
-                          .optimizer._make_batched_cem_step(2)),
-    "rpgd_fleet": ("K7's session-row form", lambda lb: fleet(lb, "rpgd-tf", small_rpgd())),
     "valued_mppi": ("K2's emit_terminal form", lambda lb: valued(lb, "mppi", small())),
     "valued_modular_mppi": ("K1's emit_terminal form",
                             lambda lb: valued(lb, "mppi", small(semi_fused=False))),
@@ -845,9 +912,10 @@ def test_unknown_plants_and_forms_are_refused_before_a_launch():
 
     with pytest.raises(NotImplementedError, match="K1's emit_terminal form over the 'acrobot'"):
         kernels.require("K1's emit_terminal form", "acrobot")
-    with pytest.raises(NotImplementedError, match="K5 over the 'quadrotor2d'"):
-        kernels.require("K5", "quadrotor2d")
-    for kernel in ("K1", "K2", "K3", "K7"):
+    with pytest.raises(NotImplementedError, match="K9 over the 'quadrotor2d'"):
+        kernels.require("K9", "quadrotor2d")
+    for kernel in ("K1", "K2", "K3", "K7", "K4", "K5", "K6", "K1's session-row form",
+                   "K7's session-row form"):
         assert set(kernels.KERNEL_PLANTS[kernel]) == set(kernels.PLANT_IDS)
     _, pctrl, _, params = pair("acrobot")
     model, pack = ode.rollout_model(pctrl.optimizer)
