@@ -504,11 +504,37 @@ constant of its plant per slot, ``FLEET_SLOT_DYN``):
     quadrotor: the MPPI, fused-CEM, mppi-var, rpgd-tf and gradient-tf
     fleets, the modular batched CEM step and single-session fused CEM;
 87. closed loops counted from 0 of the MPPI, fused-CEM and rpgd-tf fleets
-    (32 slots) and of single-session fused CEM over every plant, 20 ticks
+    (32 slots) and of single-session fused CEM over every plant, 10 ticks
     over the pendulum, the point mass under obstacles, the 3-D quadrotor
     and the car, 4 over the others;
-88. 20 ticks of the point masses' fast fused CEM and fast fused-CEM fleet
-    (the fast-normals instances of K5 and K6).
+88. 10 ticks of the point masses' fast fused CEM and fast fused-CEM fleet
+    (the fast-normals instances of K5 and K6);
+
+and over the same plant ids the learned-value and residual forms:
+
+89. each plant's instances of the emit_terminal forms of K1, K1-cols, K2
+    and K4, K7's value_spec forms (V a seeded tanh MLP of the plant's S)
+    and K12 and K9 with all their forms (phase 18's seeded residual)
+    against their plain versions, the single-session forms at the main
+    path's K=16384, H=50 (a fast plant's gradient forms at 16 steps), the
+    session-row forms at the fleets' sizes: costs and J to KERNEL_TOL
+    (K12's to NET_TOL), the emit forms' costs equal to their kernels', dQ
+    to K7's bound (the arm's to float64), x_H to float64 (f64_held; K1-emit
+    over the exact plants also at two more draws of 4096 rollouts), each
+    bound rejecting x_{H-1},
+    the next rollout's x_H or the next session's rows, dV/dx_H dropped and
+    the residual dropped; K9's and K12's session-row forms equal per
+    session to their single-session forms; each instance's registers,
+    spills and blocks per SM;
+90. one update of each valued and "ODE+res" path on the card against the
+    CPU's over the 3-D quadrotor (the gradient paths at one Adam
+    iteration, the single-session rpgd-tf at 2048 rollouts);
+91. closed loops counted from 0 of each path over every plant at the main
+    path's width (K=16384, H=50; the fleets at 32 slots): valued MPPI
+    (semi-fused, modular), valued rpgd-tf, adaptive MPPI over "ODE+res"
+    with one dynamics constant 10% off and an OnlineSysId fit every 50
+    ticks, rpgd-tf over "ODE+res" (valued too), the valued MPPI and
+    rpgd-tf fleets, the "ODE+res" MPPI and rpgd-tf fleets (valued too).
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
@@ -556,6 +582,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1078,7 +1105,7 @@ PLANT_CASES = {  # device plant: (environment, cost specification, predictor)
 }
 PM_DEMO_ATTRS = {"target_x": 1.0, "target_y": 0.0, "obs0_x": 0.0, "obs0_y": 0.0, "obs0_r": 0.3}
 PM_ATTRS = {**PM_DEMO_ATTRS, "obs1_x": 0.35, "obs1_y": -0.3, "obs1_r": 0.1}
-PLANT_RAGGED_K, PLANT_ODD_H, PLANT_TICKS = 700, 45, 10
+PLANT_RAGGED_K, PLANT_ODD_H, PLANT_TICKS = 700, 45, 5
 # FP32 operations per rollout-step of each plant (counted from
 # csrc/plants.cuh as RK4_STEP_OPS is, a sine or cosine one operation, the
 # fast plants' polynomials counted as the exact trig): the rk4 step (four
@@ -1507,7 +1534,8 @@ def update_vs_cpu_mppi(name: str, ctrl: MPCController, spec: str = "ODE", config
 
 
 def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
-                       spec: str = "ODE", config=None, value=None) -> None:
+                       spec: str = "ODE", config=None, value=None, cpu: MPCController = None,
+                       s_now=None) -> None:
     """Phases 10, 17 and 26: one rpgd-tf update on the card and on the CPU
     (the plain versions) from the card's state and params, on a resample
     tick, with one draw; ``value`` as update_vs_cpu_mppi's.
@@ -1518,16 +1546,24 @@ def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
     not determine that step, and the two devices may move the row apart by
     up to 2 lr.  A row of the population whose Q differs beyond the bound
     must be such a row, and at most UNDETERMINED_MAX of K may differ; the
-    costs and moments of every other row are held to the bound."""
+    costs and moments of every other row are held to the bound.  Another
+    plant's controller passes its CPU twin ``cpu`` and its state ``s_now
+    [1, S]``; its plants have selects (clips, hinges, the 3-D quadrotor's
+    secant clamp), so a row whose gradient the card and the CPU put further
+    apart than K7's bound (a select decided by a rounding) is undetermined
+    too, as grad_fleet_update_vs_cpu counts it."""
     opt = ctrl.optimizer
     state = opt.opt_state
     check(state.count % opt.resamp_per == 0, f"tick {state.count} is not a resample tick")
-    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    plant_given, K = cpu is not None, opt.num_rollouts
+    if s_now is None:
+        s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
     draw = opt.sample_resample(state)
     params = ctrl._assemble_params()
     u, new, diag = opt.update(state, s_now, params, draw)
 
-    cpu = make_controller("cpu", "rpgd-tf", config or RPGD_CONFIG, spec=spec)
+    if cpu is None:
+        cpu = make_controller("cpu", "rpgd-tf", config or RPGD_CONFIG, spec=spec)
     if value is not None:
         attach_value_terminal(cpu, to_cpu(value))
     host = [t.cpu().numpy() for t in (state.Q, state.adam.m, state.adam.v,
@@ -1542,6 +1578,11 @@ def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
                                                       cpu_state.u_prev, to_cpu(params))
     noise = DQ_ATOL_FRAC * float(g_c.abs().max())
     undetermined = ((g_c.abs() <= noise) & (cpu_state.adam.v.sqrt() <= noise)).flatten(1).any(1)
+    kinks = 0
+    if plant_given:
+        kink = ((g - g_c).abs() > DQ_RTOL * g_c.abs() + noise).flatten(1).any(1)
+        kinks = int(kink.sum())
+        undetermined |= kink
     Q_card, Q_cpu = diag["Q_logged"].cpu(), cdiag["Q_logged"]
     atol = UPDATE_ATOL_FRAC * float(Q_cpu.abs().max())
     off = ((Q_card - Q_cpu).abs() > atol + UPDATE_RTOL * Q_cpu.abs()).flatten(1).any(1)
@@ -1568,7 +1609,7 @@ def update_vs_cpu_rpgd(ctrl: MPCController, name: str = "rpgd_update_vs_cpu",
     numbers.update({"cost_max_rel_err": max_errors(*pairs["cost"])[1],
                     "grad_max_abs_err": max_errors(g, g_c)[0],
                     "grad_max_abs": float(g_c.abs().max()),
-                    "undetermined_rows": int(undetermined.sum()),
+                    "undetermined_rows": int(undetermined.sum()), "kink_rows": kinks,
                     "elites_in_both": int(both.sum()), "elites": keep, "same_best": same_best,
                     "u_abs_err": float((u.cpu() - uc).abs().max())})
     emit(name, numbers)
@@ -1928,35 +1969,72 @@ def ptxas_resources(kernel: str, instance: str = "") -> dict:
 def sass_hmma_counts():
     """HMMA instructions in each entry function's SASS (``cuobjdump -sass``
     of the built library), by mangled name; None without cuobjdump."""
-    sass = sass_text()
-    if sass is None:
+    functions = sass_functions()
+    if functions is None:
         return None
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        named = re.search(r"Function : (\S+)", line)
-        if named:
-            fn = named.group(1)
-            counts[fn] = 0
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+    return {fn: sum("HMMA" in line for line in lines) for fn, lines in functions.items()}
 
 
-def sass_text(library=None) -> str | None:
-    """``cuobjdump -sass`` of the built library (or ``library``); None
-    without cuobjdump."""
+def cuobjdump_tool() -> str | None:
     tool = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
-    if not Path(tool).is_file():
+    return tool if Path(tool).is_file() else None
+
+
+# The built library's disassembly, started as soon as it is built (phase
+# 1) so that it runs beside the first phases (it reads the whole library,
+# the plants' residual and value instances among it): one cuobjdump a
+# cubin (a source's object), all at once, each into a file of its own.
+_SASS_PENDING = {}
+
+
+def start_sass(library=None) -> None:
+    """Start ``cuobjdump -sass`` of the built library (or ``library``) in
+    the background, one process for each cubin it holds (``-xelf all``;
+    the whole library where none is found); sass_functions collects it."""
+    tool, lib = cuobjdump_tool(), str(library or kernels.library_path())
+    if tool is None or lib in _SASS_PENDING:
+        return
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where = Path(tempfile.mkdtemp(prefix="sass_", dir=kernels.BUILD_DIR))
+    subprocess.run([tool, "-xelf", "all", lib], cwd=where, capture_output=True)
+    jobs = []
+    for i, cubin in enumerate(sorted(where.glob("*.cubin")) or [Path(lib)]):
+        out = open(where / f"{i}.sass", "w+")
+        jobs.append((subprocess.Popen([tool, "-sass", str(cubin)], stdout=out,
+                                      stderr=subprocess.DEVNULL), out))
+    _SASS_PENDING[lib] = (where, jobs)
+
+
+def sass_functions(library=None) -> dict | None:
+    """Each entry function's SASS lines (``cuobjdump -sass`` of the built
+    library, or ``library``), by mangled name; None without cuobjdump."""
+    tool = cuobjdump_tool()
+    if tool is None:
         return None
-    return _cuobjdump_sass(tool, str(library or kernels.library_path()))
+    return _sass_functions(tool, str(library or kernels.library_path()))
 
 
 @functools.lru_cache(maxsize=None)
-def _cuobjdump_sass(tool: str, library: str) -> str:
-    """One disassembly of a library a run (~15 s for the whole library on
-    the card's host; the library is built once, before any phase reads it)."""
-    return subprocess.run([tool, "-sass", library], capture_output=True, text=True,
-                          check=True).stdout
+def _sass_functions(tool: str, library: str) -> dict:
+    """One disassembly of a library a run, split by function."""
+    start_sass(library)
+    where, jobs = _SASS_PENDING[library]
+    out = {}
+    for proc, dump in jobs:
+        fn = None
+        if proc.wait() != 0:
+            raise RuntimeError(f"cuobjdump -sass {library} failed ({proc.returncode})")
+        dump.seek(0)
+        for line in dump:
+            named = re.search(r"Function : (\S+)", line)
+            if named:
+                fn = named.group(1)
+                out[fn] = []
+            elif fn:
+                out[fn].append(line.rstrip("\n"))
+        dump.close()
+    shutil.rmtree(where, ignore_errors=True)
+    return out
 
 
 def sass_loops(kernel: str, instance: str = "", library=None):
@@ -1964,22 +2042,17 @@ def sass_loops(kernel: str, instance: str = "", library=None):
     backward branch, its body's first and last address, its instructions
     and the MUFU (special-function unit) instructions in it by kind; also
     the function's instruction count.  None without cuobjdump."""
-    sass = sass_text(library)
-    if sass is None:
+    functions = sass_functions(library)
+    if functions is None:
         return None
-    found, fn = {}, None
-    for line in sass.splitlines():
-        named = re.search(r"Function : (\S+)", line)
-        if named:
-            fn = named.group(1)
-            if re.search(entry_pattern(kernel, instance), fn):
-                found[fn] = []
-            else:
-                fn = None
-        elif fn:
-            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
-            if ins:
-                found[fn].append((int(ins[1], 16), ins[2]))
+    found = {}
+    for fn, lines in functions.items():
+        if re.search(entry_pattern(kernel, instance), fn):
+            found[fn] = []
+            for line in lines:
+                ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+                if ins:
+                    found[fn].append((int(ins[1], 16), ins[2]))
     out = {}
     for fn, code in found.items():
         loops = []
@@ -4304,7 +4377,8 @@ def value_net_ops(dims=VALUE_DIMS) -> float:
 
 
 def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_args: tuple,
-                 ragged: tuple, n_bytes: float, ops: float, tol=KERNEL_TOL) -> dict:
+                 ragged: tuple, n_bytes: float, ops: float, tol=KERNEL_TOL,
+                 x_f64: bool = False) -> dict:
     """Phases 54 and 59: an emit_terminal form ``emit_fn(*args) -> (cost,
     x_H)`` against its plain version ``plain_fn`` on the same card tensors:
     its costs equal, bit for bit, to the kernel's ``unvalued_fn(*args)``
@@ -4313,7 +4387,12 @@ def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_a
     its place (``plain_fn(*prev_args)``'s terminal states: the horizon one
     step shorter) and rollout k+1's x_H, each by VALUE_MARGIN times its
     absolute part; both again at the ``ragged`` operands; its time, the
-    kernel's and the plain version's."""
+    kernel's and the plain version's.  ``x_f64``: x_H held to float64
+    instead (f64_held: no further from the float64 plain version than
+    GP_F64_FACTOR times the float32 plain version is), the bound rejecting
+    the same wrong variants: for a kernel whose float32 plain version
+    drifts from float64 as far as the kernel does (K13-GRU's 50 steps,
+    k13_emit_vs_float64), X_TOL would hold two such drifts to each other."""
     (cost, x), cost_k = emit_fn(*args), unvalued_fn(*args)
     ref_cost, ref_x = plain_fn(*args)
     x_prev = plain_fn(*prev_args)[1]
@@ -4336,13 +4415,26 @@ def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_a
         "plain_ms": cuda_ms(lambda: plain_fn(*args), 3),
         **bound(ops, n_bytes)}
     numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
+    if x_f64:
+        x64, gx64 = plain_fn(*tree64(args))[1], plain_fn(*tree64(ragged))[1]
+        numbers["x_f64"] = held = f64_held(x, ref_x, x64)
+        numbers["ragged"]["x_f64"] = f64_held(gx, rx, gx64)
+        held["rejects"] = {k: f64_err(m, x64) for k, m in mutants.items()}
     emit(label, numbers)
     check(numbers["finite"] and x.shape == ref_x.shape, f"{label}: bad output")
     check(numbers["costs_equal_to_kernel"] and numbers["ragged"]["equal_to_kernel"],
           f"{label}: its costs are not the kernel's {numbers}")
     for got, ref, xs, xr in ((cost, ref_cost, x, ref_x), (gc, rc, gx, rx)):
-        check(torch.allclose(got, ref, **tol) and torch.allclose(xs, xr, **X_TOL),
+        check(torch.allclose(got, ref, **tol)
+              and (x_f64 or torch.allclose(xs, xr, **X_TOL)),
               f"{label}: disagrees with its plain version {numbers}")
+    if x_f64:
+        check(held["held"] and numbers["ragged"]["x_f64"]["held"],
+              f"{label}: x_H further from float64 than its bound {numbers}")
+        for k, err in held["rejects"].items():
+            check(err >= VALUE_MARGIN * held["bound"],
+                  f"{label}: the x_H bound does not reject {k} by {VALUE_MARGIN}x {numbers}")
+        return numbers
     for k, m in mutants.items():
         check(numbers["mutant_x_max_abs_err"][k] >= VALUE_MARGIN * X_TOL["atol"]
               and not torch.allclose(m, ref_x, **X_TOL),
@@ -4501,7 +4593,7 @@ COLS_EMIT = {"mlp": (neural_cost_rollout_cols_emit, neural_cost_rollout_cols_emi
 
 
 def compare_learned_emit(label: str, emit_fn, kernel_fn, plain_fn, args: tuple, ragged_k: int,
-                         tol: dict, ops: float) -> dict:
+                         tol: dict, ops: float, x_f64: bool = False) -> dict:
     """Phase 59: a learned model's emit_terminal form against its plain
     version at ``args`` ``(model, s0, Q, pvec, weights[, hidden])``, by
     compare_emit (x_{H-1}: the plain version over Q without its last step;
@@ -4512,7 +4604,43 @@ def compare_learned_emit(label: str, emit_fn, kernel_fn, plain_fn, args: tuple, 
     ragged = (model, *first_k(ragged_k, s0, Q), *rest)
     n_bytes = nbytes(s0, Q, *leaves(tuple(rest))) + 4 * s0.shape[0] * (1 + s0.shape[1])
     return compare_emit(label, emit_fn, kernel_fn, plain_fn, args, prev, ragged, n_bytes, ops,
-                        tol)
+                        tol, x_f64)
+
+
+def tree64(tree):
+    """A tree (dicts, tuples, lists) of tensors in float64."""
+    if isinstance(tree, dict):
+        return {k: tree64(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree64(v) for v in tree)
+    return tree.double() if torch.is_tensor(tree) else tree
+
+
+def k13_emit_vs_float64(device) -> dict:
+    """Phase 59's float64 analysis of K13-GRU's emit form (ROADMAP C): over
+    FORMS_F64_SEEDS draws of phase 2's operands (K, H) from recurrent_operands'
+    hidden (a generator of its own, so that no later phase's draws move),
+    the kernel's x_H and its float32 plain version's against the float64
+    plain version's (f64_held), beside X_TOL's check of the kernel against
+    the float32 plain version."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 59)
+    model, pvec, net, hidden = recurrent_operands(GRU_SPEC, gen, device)
+    out = {}
+    for seed in FORMS_F64_SEEDS:
+        g = torch.Generator(device=device).manual_seed(SEED + 59 + seed)
+        s0 = 0.05 * torch.randn(K, 4, generator=g, device=device)
+        Q = torch.clamp(0.3 * torch.randn(K, H, 1, generator=g, device=device), -1.0, 1.0)
+        x = recurrent_cost_rollout_emit(model, s0, Q, pvec, net, hidden)[1]
+        xp = recurrent_cost_rollout_emit_plain(model, s0, Q, pvec, net, hidden)[1]
+        x64 = recurrent_cost_rollout_emit_plain(model, *tree64((s0, Q, pvec, net, hidden)))[1]
+        n = f64_held(x, xp, x64)
+        n.update(x_max_abs_err=max_errors(x, xp)[0],
+                 x_tol_held=bool(torch.allclose(x, xp, **X_TOL)),
+                 x_tol_worst=float(((x - xp).abs() / (X_TOL["atol"] + X_TOL["rtol"] * xp.abs()))
+                                   .max()))
+        out[str(seed)] = n
+    emit("k13_gru_emit_vs_float64", out)
+    return out
 
 
 def learned_emit_resources() -> dict:
@@ -6011,12 +6139,15 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
 
 
 def plant_loop(name: str, ctrl: MPCController, plant: str, ticks: int, expected: dict,
-               start=None, dt: float = DT, seed: int = SEED) -> tuple:
+               start=None, dt: float = DT, seed: int = SEED, env_params=None,
+               on_tick=None) -> tuple:
     """``ticks`` closed-loop ticks against the plant's environment (seed
-    ``seed``, from ``start`` where given), every kernel's launch count set to 0
-    just before and checked against ``expected`` (kernel -> launches) just
-    after; returns the counts and the visited states."""
-    env = ENVS[ALL_CASES[plant][0]](batch_size=1, dt=dt, seed=seed)
+    ``seed``, from ``start`` where given, its constants updated by
+    ``env_params``), every kernel's launch count set to 0 just before and
+    checked against ``expected`` (kernel -> launches) just after;
+    ``on_tick(t, s, u, s_next)`` is called after each tick; returns the
+    counts and the visited states."""
+    env = ENVS[ALL_CASES[plant][0]](batch_size=1, dt=dt, seed=seed, params=env_params)
     s, _ = env.reset()
     if start is not None:
         env.state = torch.tensor(np.asarray(start, np.float32)[None])
@@ -6032,8 +6163,11 @@ def plant_loop(name: str, ctrl: MPCController, plant: str, ticks: int, expected:
         check(u.shape == (env.num_actions,) and bool(np.all(np.isfinite(u)))
               and bool(np.all(u >= env.action_low)) and bool(np.all(u <= env.action_high)),
               f"{name}: tick {t}: bad control {u}")
+        s_prev = s
         s, *_ = env.step(u)
         visited.append(s[0].copy())
+        if on_tick is not None:
+            on_tick(t, s_prev[0], u, s[0])
     counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
     check(counts == {kernel: expected.get(kernel, 0) for kernel in COUNTED},
           f"{name}: kernel launches {counts}, expected {expected}")
@@ -6505,7 +6639,7 @@ FLEET_SLOT_DYN = {"pendulum": "L", "acrobot": "m2", "pointmass": "mass", "quadro
 K5_RAGGED = (704, 64, 45)  # K, tile, H
 FLEET_CEM_CHECK_K = 2048
 FLEET_LOOP_PLANTS = ("pendulum", "pointmass_obstacles", "quadrotor3d", "car")
-FLEET_PLANT_TICKS, FLEET_PLANT_SHORT_TICKS = 20, 4
+FLEET_PLANT_TICKS, FLEET_PLANT_SHORT_TICKS = 10, 4
 FLEET_RPGD_CONFIG = {**GRAD_RPGD_CONFIG, "mpc_horizon": FLEET_H}
 FLEET_GRADIENT_CONFIG = {**GRAD_GRADIENT_CONFIG, "mpc_horizon": FLEET_H}
 FLEET_MODULAR_CEM_CONFIG = {**FLEET_CEM_CONFIG, "fully_fused": False, "cem_outer_it": 1}
@@ -6544,13 +6678,14 @@ def plant_fleet(plant: str, optimizer: str, config: dict, B: int, device: str = 
 
 def plant_rows(plant: str, ctrl: MPCController, model, B: int, gen) -> torch.Tensor:
     """Sessions' packed parameters ``pvec_b [B, N]`` over ``ctrl``'s plant:
-    the slot constant over 0.9-1.1 of its default, targets moved by up to
-    0.2 a session, previous controls within the limits."""
+    the slot constant over 0.9-1.1 of its default (an "ODE+res" model's in
+    its base), targets moved by up to 0.2 a session, previous controls
+    within the limits."""
     opt, dev = ctrl.optimizer, gen.device
     key = slot_key(plant)
     params = ctrl._assemble_params()
-    dyn = dict(params["dyn"], **{key: params["dyn"][key] * torch.linspace(0.9, 1.1, B,
-                                                                           device=dev)})
+    base = params["dyn"].get("base", params["dyn"])
+    dyn = dict(base, **{key: base[key] * torch.linspace(0.9, 1.1, B, device=dev)})
     attrs = {k: float(torch.as_tensor(v).reshape(-1)[0])
              + (0.4 * torch.rand(B, generator=gen, device=dev) - 0.2
                 if k.startswith("target") else 0.0)
@@ -6972,6 +7107,702 @@ def fleet_plant_phases(gen) -> tuple:
     return rows, launches
 
 
+# ---- the learned-value and residual forms over plant ids 2-17 (phases 89-91) ----------
+# Each plant's instances of K1's, K2's and K4's emit_terminal forms, K7's
+# value_spec forms, K12 and K9 (plain, emit / value, and session-row), held
+# to their plain versions: costs to KERNEL_TOL (K12's to NET_TOL), dQ to
+# K7's bound (the arm's to float64, F64_HELD_PLANTS), x_H to float64 over
+# f64_held (no further from the float64 plain version than GP_F64_FACTOR
+# times the float32 plain version is: the plants' 50-step states separate
+# float32 computations by more than X_TOL's reach, ROADMAP C), each bound
+# rejecting its named wrong variants.  V is a seeded tanh MLP of the plant's
+# S (FORMS_VALUE_DIMS at FORMS_VALUE_SCALE), the residual phase 18's seeded
+# one.  The loops drive each path at the main path's width (K=16384,
+# H=50; fleets of FLEET_B at their configurations) FORMS_TICKS ticks over
+# the exact plants and FORMS_SHORT_TICKS over the fast ones, every kernel
+# counted from 0; the adaptive MPPI runs FORMS_ADAPT_TICKS against the
+# plant's environment with its FLEET_SLOT_DYN constant 10% off, an
+# OnlineSysId fit installed every FIT_EVERY ticks.
+FORMS_VALUE_DIMS, FORMS_VALUE_SCALE, FORMS_VALUE_SEED = (32, 32, 1), 3.0, 89
+FORMS_TICKS, FORMS_SHORT_TICKS, FORMS_ADAPT_TICKS = 4, 2, FIT_EVERY + 1
+FORMS_MISMATCH = 1.1
+# K1-emit's float64 analysis: the main path's operands, and over the exact
+# plants FORMS_F64_SEEDS' draws of FORMS_K rollouts.
+FORMS_K, FORMS_F64_SEEDS = 4096, (1, 2)
+# The fast plants' gradient forms are held and timed at FORMS_FAST_H steps
+# (their adjoint chunks: 4 of the 3-D quadrotor's); the single-session
+# update on the card against the CPU's at FORMS_CPU_K rollouts.
+FORMS_FAST_H, FORMS_CPU_K = 16, 2048
+# row: (source, the TPU kernel); {v}, {r}: the plant's group of K7's value
+# forms and of K9, as the library dispatches (ctt_grad_value_group,
+# ctt_residual_grad_group).
+FORMS_SOURCES = {
+    "cost_rollout_emit": ("cost_rollout.cu", "ops/pallas_rollout.py:34"),
+    "cost_rollout_cols_emit": ("cost_rollout.cu", "ops/pallas_rollout.py:34"),
+    "mppi_cost_emit": ("mppi_cost.cu", "ops/pallas_mppi.py:501"),
+    "mppi_cost_cols_emit": ("mppi_cost_cols.cu", "ops/pallas_mppi.py:586"),
+    "grad_cost_rollout_value": ("grad_value_plants_{v}.cu", "ops/pallas_grad.py:335"),
+    "grad_cost_rollout_cols_value": ("grad_value_plants_{v}.cu", "ops/pallas_grad.py:335"),
+    "residual_cost_rollout": ("residual_cost_plants.cu", "ops/pallas_neural.py:351"),
+    "residual_cost_rollout_emit": ("residual_cost_plants.cu", "ops/pallas_neural.py:351"),
+    "residual_cost_rollout_cols": ("residual_cost_plants.cu", "ops/pallas_neural.py:351"),
+    "residual_cost_rollout_cols_emit": ("residual_cost_plants.cu", "ops/pallas_neural.py:351"),
+    "residual_grad_cost_rollout": ("residual_grad_plants_{r}.cu", "ops/pallas_grad.py:459"),
+    "residual_grad_cost_rollout_value": ("residual_grad_plants_{r}.cu", "ops/pallas_grad.py:459"),
+    "residual_grad_cost_rollout_cols": ("residual_grad_plants_{r}.cu", "ops/pallas_grad.py:459"),
+    "residual_grad_cost_rollout_cols_value": ("residual_grad_plants_{r}.cu",
+                                              "ops/pallas_grad.py:459"),
+}
+
+
+def plant_value_net(plant: str, device) -> dict:
+    """A seeded tanh MLP V ``S -> FORMS_VALUE_DIMS`` over the plant's states
+    (weights N(0, 1/fan_in), biases N(0, 0.01)) as a ``{w0, b0, ...}``
+    dict: attach_value_terminal's net."""
+    S = kernels.PLANT_DIMS[plant][0]
+    gen = torch.Generator(device=device).manual_seed(FORMS_VALUE_SEED + S)
+    dims, net = (S, *FORMS_VALUE_DIMS), {}
+    for i, (fi, fo) in enumerate(zip(dims[:-1], dims[1:])):
+        net[f"w{i}"] = torch.randn(fi, fo, generator=gen, device=device) * fi ** -0.5
+        net[f"b{i}"] = 0.1 * torch.randn(fo, generator=gen, device=device)
+    return net
+
+
+def plant_value_ops(net: dict, scale: float = FORMS_VALUE_SCALE) -> list:
+    """The value_spec forms' ``[w0, b0, ...]`` with ``scale`` folded into the
+    last layer (Optimizer._flatten_value_ops)."""
+    n = len(net) // 2
+    ops = [t for i in range(n) for t in (net[f"w{i}"], net[f"b{i}"])]
+    return ops[:-2] + [ops[-2] * scale, ops[-1] * scale]
+
+
+def res_spec(plant: str) -> str:
+    return RES_FAST_SPEC if plant.endswith("_fast") else RES_SPEC
+
+
+def plant_res_controller(plant: str, optimizer: str, config: dict, device: str = "cuda"
+                         ) -> MPCController:
+    """plant_controller over ``"ODE+res"`` on the plant's base (its fast
+    base for a fast plant) with phase 18's seeded nonzero residual."""
+    ctrl = plant_controller(plant, optimizer, config, spec=res_spec(plant), device=device)
+    seed_residual(ctrl.optimizer.predictor.predictor)
+    return ctrl
+
+
+def emit_held(label: str, x, ref_x, x64, wrong: dict) -> dict:
+    """x_H of an emit form to float64 (f64_held), the bound rejecting each
+    ``wrong`` terminal state set."""
+    held = f64_held(x, ref_x, x64)
+    held["rejects"] = {k: f64_err(w, x64) for k, w in wrong.items()}
+    check(held["held"], f"{label}: x_H further from float64 than its bound {held}")
+    for k, err in held["rejects"].items():
+        check(err > held["bound"], f"{label}: the x_H bound does not reject {k} {held}")
+    return held
+
+
+def dq_held_plant(label: str, plant: str, d, rd, ref64_fn, unvalued_fn=None) -> dict:
+    """dQ to K7's bound, the arm's to float64 (ref64_fn gives the float64
+    plain version's; a value form's unvalued_fn the kernel's, the plain
+    version's and the float64 plain version's dQ without V, whose ratio
+    scales the bound: f64_held)."""
+    if plant.startswith(F64_HELD_PLANTS):
+        held = f64_held(d, rd, ref64_fn(), unvalued_fn() if unvalued_fn else None)
+        check(held["held"], f"{label}: dQ further from float64 than its bound {held}")
+        return held
+    check(close(d, rd, DQ_RTOL, DQ_ATOL_FRAC), f"{label}: dQ disagrees "
+          f"{max_errors(d, rd)} of {float(rd.abs().max())}")
+    return {"dQ_max_abs_err": max_errors(d, rd)[0], "dQ_max_abs": float(rd.abs().max())}
+
+
+def dq_rejects(label: str, rd, wrong: dict) -> dict:
+    out = {k: max_errors(w, rd)[0] for k, w in wrong.items()}
+    for k, w in wrong.items():
+        check(not close(w, rd, DQ_RTOL, DQ_ATOL_FRAC), f"{label}: the dQ bound takes {k} {out}")
+    return out
+
+
+
+
+def forms_plant_kernels(plant: str, gen) -> dict:
+    """Phase 89 for one plant: its 14 new instances against their plain
+    versions (see the note above); returns each row's numbers."""
+    dev = gen.device
+    ctrl = plant_controller(plant, "mppi", OPTIMIZER_CONFIG)
+    opt = ctrl.optimizer
+    model, pack = ode.rollout_model(opt)
+    rctrl = plant_res_controller(plant, "mppi", RES_MPPI_CONFIG)
+    rmodel, rpack = residual.residual_model(rctrl.optimizer)
+    check(model.plant == plant and rmodel.plant == plant, f"{plant}: not the device plant")
+    S, U = kernels.PLANT_DIMS[plant]
+    lo, hi = opt.action_low, opt.action_high
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    rk4_ops, stage_ops, vjp_ops, stage_vjp_ops = PLANT_OPS[plant.replace("_fast", "")]
+    params, rparams = ctrl._assemble_params(), rctrl._assemble_params()
+    net = rparams["dyn"]["res"]
+    vnet = plant_value_net(plant, dev)
+    vops = plant_value_ops(vnet)
+    v_ops = value_net_ops((S, *FORMS_VALUE_DIMS))
+    u_prev = mid + 0.1 * half
+    pvec, rpvec = pack(params, u_prev), rpack(rparams, u_prev)
+    out, resources = {}, {}
+
+    def timed(name: str, fn, got_ref: dict) -> dict:
+        got_ref.update(ms=cuda_ms(fn, 20))
+        emit(f"{name}_{plant}", got_ref)
+        out[name] = got_ref
+        return got_ref
+
+    # x_H of K1's emit form to float64 over FORMS_F64_SEEDS at FORMS_K
+    # rollouts (phase 89's float64 analysis with the main path's operands
+    # below; ROADMAP C).
+    fast = plant.endswith("_fast")
+    f64_seeds = {}
+    for seed in () if fast else FORMS_F64_SEEDS:
+        g = torch.Generator(device=dev).manual_seed(SEED + 89 + seed)
+        s0 = plant_states(plant, FORMS_K, g)
+        Q = torch.clamp(mid + half * (0.5 * torch.randn(FORMS_K, H, U, generator=g, device=dev)),
+                        lo, hi)
+        (c, x), (rc, rx) = cost_rollout_emit(model, s0, Q, pvec), cost_rollout_emit_plain(
+            model, s0, Q, pvec)
+        x64 = cost_rollout_emit_plain(model, *tree64((s0, Q, pvec)))[1]
+        x_prev = cost_rollout_emit(model, s0, Q[:, :-1].contiguous(), pvec)[1]
+        f64_seeds[str(seed)] = emit_held(f"k1_emit_{plant} seed {seed}", x, rx, x64,
+                                         {"x_H_minus_1": x_prev, "next_rollout_x_H":
+                                          x.roll(-1, 0)})
+        check(torch.equal(c, cost_rollout(model, s0, Q, pvec))
+              and torch.allclose(c, rc, **KERNEL_TOL), f"k1_emit_{plant}: costs disagree")
+
+    # Each single-session form held and timed at the main path's operands
+    # (K=16384, H=50; a fast plant's gradient forms at FORMS_FAST_H steps
+    # of them).
+    sK = plant_states(plant, K, gen)
+    QK = torch.clamp(mid + half * (0.5 * torch.randn(K, H, U, generator=gen, device=dev)), lo, hi)
+    (c, x) = cost_rollout_emit(model, sK, QK, pvec)
+    (rc, rx), plain_ms = plain_timed(lambda: cost_rollout_emit_plain(model, sK, QK, pvec))
+    x64 = cost_rollout_emit_plain(model, *tree64((sK, QK, pvec)))[1]
+    check(torch.equal(c, cost_rollout(model, sK, QK, pvec))
+          and torch.allclose(c, rc, **KERNEL_TOL), f"k1_emit_{plant}: costs disagree")
+    timed("cost_rollout_emit", lambda: cost_rollout_emit(model, sK, QK, pvec), {
+        "max_abs_err": max(max_errors(c, rc)[0], max_errors(x, rx)[0]),
+        "x_f64": emit_held(f"k1_emit_{plant}", x, rx, x64, {
+            "x_H_minus_1": cost_rollout_emit(model, sK, QK[:, :-1].contiguous(), pvec)[1],
+            "next_rollout_x_H": x.roll(-1, 0)}),
+        "x_f64_seeds": f64_seeds, "plain_ms": plain_ms,
+        **bound(K * H * (rk4_ops + stage_ops), nbytes(sK, QK, pvec) + 4 * K * (1 + S))})
+
+    # K2's emit form: costs equal to K2's, x_H to float64; x_{H-1} by K1's
+    # emit form over its controls without their last step.
+    P = opt.interp.number_of_interpolation_inducing_points
+    eps = opt.SQRTRHODTINV * torch.randn(P, U, K, generator=gen, device=dev)
+    u_nom = torch.clamp(mid + half * (0.3 * torch.randn(H, U, generator=gen, device=dev)), lo, hi)
+    corr = (opt.cc_weight, opt.R, opt.NU)
+    a2 = (model, sK[0].contiguous(), u_nom, pvec, eps, opt.interp.matrix, lo, hi, *corr)
+    (c, x), ((rc, rx), plain_ms) = mppi_cost_emit(*a2), plain_timed(
+        lambda: mppi_cost_emit_plain(*a2))
+    x64 = mppi_cost_emit_plain(model, *tree64((*a2[1:8],)), *corr)[1]
+    Q2 = mppi_controls_plain(eps, a2[5], u_nom, lo, hi)[0]
+    x_prev = cost_rollout_emit(model, a2[1].expand(K, -1).contiguous(),
+                               Q2[:, :-1].contiguous(), pvec)[1]
+    check(torch.equal(c, mppi_cost(*a2)) and torch.allclose(c, rc, **KERNEL_TOL),
+          f"k2_emit_{plant}: costs disagree")
+    timed("mppi_cost_emit", lambda: mppi_cost_emit(*a2), {
+        "max_abs_err": max(max_errors(c, rc)[0], max_errors(x, rx)[0]),
+        "x_f64": emit_held(f"k2_emit_{plant}", x, rx, x64, {"x_H_minus_1": x_prev,
+                                                            "next_rollout_x_H": x.roll(-1, 0)}),
+        "plain_ms": plain_ms,
+        **bound(K * H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS),
+                nbytes(*a2[1:8]) + 4 * K * (1 + S))})
+
+    # K7's value_spec form: J to KERNEL_TOL, dQ to K7's bound, rejecting
+    # dV/dx_H dropped from the seed (K7's own dQ).
+    Qg = lo + (hi - lo) * torch.rand(K, H, U, generator=gen, device=dev)
+    qg = Qg[:, :FORMS_FAST_H].contiguous() if fast else Qg
+    hg = qg.shape[1]
+    (cv, dv) = grad_cost_rollout_value(model, sK, qg, pvec, vops)
+    (rcv, rdv), plain_ms = plain_timed(
+        lambda: grad_cost_rollout_plain(model, sK, qg, pvec, value_ops=vops))
+    check(torch.allclose(cv, rcv, **KERNEL_TOL), f"k7_value_{plant}: J disagrees")
+    held = dq_held_plant(f"k7_value_{plant}", plant, dv, rdv, lambda: grad_cost_rollout_plain(
+        model, *tree64((sK, qg, pvec)), value_ops=tree64(vops))[1], lambda: (
+            grad_cost_rollout(model, sK, qg, pvec)[1],
+            grad_cost_rollout_plain(model, sK, qg, pvec)[1],
+            grad_cost_rollout_plain(model, *tree64((sK, qg, pvec)))[1]))
+    timed("grad_cost_rollout_value", lambda: grad_cost_rollout_value(model, sK, qg, pvec, vops), {
+        "max_abs_err": max(max_errors(cv, rcv)[0], max_errors(dv, rdv)[0]), "dQ": held,
+        "H": hg, "rejects": dq_rejects(f"k7_value_{plant}", rdv, {
+            "dV_dx_H_dropped": grad_cost_rollout(model, sK, qg, pvec)[1]}),
+        "plain_ms": plain_ms,
+        **bound(K * (hg * (rk4_ops + stage_ops + vjp_ops + stage_vjp_ops) + v_ops),
+                nbytes(sK, qg, pvec, *vops) + 4 * K + 4 * K * hg * U)})
+
+    # K12 and its emit form (the same body: costs equal), rejecting the
+    # residual dropped (K1's rollout of the base alone).
+    (c12, x12) = residual_cost_rollout_emit(rmodel, sK, QK, rpvec, net)
+    (rc12, rx12), plain_ms = plain_timed(
+        lambda: residual_cost_rollout_emit_plain(rmodel, sK, QK, rpvec, net))
+    x64 = residual_cost_rollout_emit_plain(rmodel, *tree64((sK, QK, rpvec)), tree64(net))[1]
+    k12 = residual_cost_rollout(rmodel, sK, QK, rpvec, net)
+    base = cost_rollout(model, sK, QK, pvec)
+    check(torch.equal(c12, k12) and torch.allclose(k12, rc12, **NET_TOL),
+          f"k12_{plant}: costs disagree {max_errors(k12, rc12)}")
+    check(not torch.allclose(base, rc12, **NET_TOL), f"k12_{plant}: the bound takes the base")
+    k12_ops = K * H * (rk4_ops + stage_ops + mlp_ops(net))
+    k12_bytes = nbytes(sK, QK, rpvec, *net.values()) + 4 * K
+    timed("residual_cost_rollout", lambda: residual_cost_rollout(rmodel, sK, QK, rpvec, net), {
+        "max_abs_err": max_errors(k12, rc12)[0],
+        "rejects": {"residual_dropped": max_errors(base, rc12)[0]}, "plain_ms": plain_ms,
+        **bound(k12_ops, k12_bytes)})
+    x_prev = residual_cost_rollout_emit(rmodel, sK, QK[:, :-1].contiguous(), rpvec, net)[1]
+    timed("residual_cost_rollout_emit",
+          lambda: residual_cost_rollout_emit(rmodel, sK, QK, rpvec, net), {
+              "max_abs_err": max(max_errors(c12, rc12)[0], max_errors(x12, rx12)[0]),
+              "x_f64": emit_held(f"k12_emit_{plant}", x12, rx12, x64, {
+                  "x_H_minus_1": x_prev, "next_rollout_x_H": x12.roll(-1, 0),
+                  "residual_dropped": cost_rollout_emit(model, sK, QK, pvec)[1]}),
+              "plain_ms": plain_ms, **bound(k12_ops, k12_bytes + 4 * K * S)})
+
+    # K9 and its value_spec form, each rejecting the residual dropped (K7's
+    # forms over the base) and the value form dV/dx_H dropped.  Their ops
+    # are one forward and the transposed layers of the MLP (phase 12's
+    # convention: a kernel that kept the activations would not re-run the
+    # forward).
+    mlp_grad_ops = mlp_ops(net) + mlp_vjp_ops(net)
+    k9_ops = K * hg * (rk4_ops + stage_ops + vjp_ops + stage_vjp_ops + mlp_grad_ops)
+    k9_bytes = nbytes(sK, qg, rpvec, *net.values()) + 4 * K + 4 * K * hg * U
+    for name, v in (("residual_grad_cost_rollout", None),
+                    ("residual_grad_cost_rollout_value", vops)):
+        single = residual_grad_cost_rollout if v is None else functools.partial(
+            residual_grad_cost_rollout_value, value_ops=v)
+        (c, d) = single(rmodel, sK, qg, rpvec, net)
+        (rc, rd), plain_ms = plain_timed(lambda v=v: residual_grad_cost_rollout_plain(
+            rmodel, sK, qg, rpvec, net, value_ops=v))
+        check(torch.allclose(c, rc, **KERNEL_TOL), f"{name}_{plant}: J disagrees")
+        held = dq_held_plant(f"{name}_{plant}", plant, d, rd, lambda v=v: (
+            residual_grad_cost_rollout_plain(rmodel, *tree64((sK, qg, rpvec)), tree64(net),
+                                             value_ops=None if v is None else tree64(v))[1]),
+            None if v is None else (
+                lambda: (residual_grad_cost_rollout(rmodel, sK, qg, rpvec, net)[1],
+                         residual_grad_cost_rollout_plain(rmodel, sK, qg, rpvec, net)[1],
+                         residual_grad_cost_rollout_plain(rmodel, *tree64((sK, qg, rpvec)),
+                                                          tree64(net))[1])))
+        wrong = {"residual_dropped": (grad_cost_rollout if v is None else functools.partial(
+            grad_cost_rollout_value, value_ops=v))(model, sK, qg, pvec)[1]}
+        if v is not None:
+            wrong["dV_dx_H_dropped"] = residual_grad_cost_rollout(rmodel, sK, qg, rpvec, net)[1]
+        timed(name, lambda k=single: k(rmodel, sK, qg, rpvec, net), {
+            "max_abs_err": max(max_errors(c, rc)[0], max_errors(d, rd)[0]), "dQ": held,
+            "H": hg, "rejects": dq_rejects(f"{name}_{plant}", rd, wrong), "plain_ms": plain_ms,
+            **bound(k9_ops + (K * v_ops if v else 0), k9_bytes + nbytes(*(v or [])))})
+
+    # The session-row forms at phase 85's sizes: each bound rejecting every
+    # session reading the next session's row.
+    Hg, B, ks = GRAD_FLEET_H, GRAD_COLS_B, GRAD_COLS_KS
+    hc = FORMS_FAST_H if fast else Hg  # the gradient forms' horizon
+    rows = plant_rows(plant, ctrl, model, B, gen)
+    rrows = plant_rows(plant, rctrl, rmodel, B, gen)
+    sc = plant_states(plant, B, gen).repeat_interleave(ks, dim=0)
+    Qc = lo + (hi - lo) * torch.rand(B * ks, Hg, U, generator=gen, device=dev)
+    n = B * ks
+    step_ops = rk4_ops + stage_ops
+    # K1's session-row emit form.
+    (c, x), ((rc, rx), plain_ms) = cost_rollout_cols_emit(model, sc, Qc, rows), plain_timed(
+        lambda: cost_rollout_cols_emit_plain(model, sc, Qc, rows))
+    x64 = cost_rollout_cols_emit_plain(model, *tree64((sc, Qc, rows)))[1]
+    check(torch.equal(c, cost_rollout_cols(model, sc, Qc, rows))
+          and torch.allclose(c, rc, **KERNEL_TOL), f"k1_cols_emit_{plant}: costs disagree")
+    single = torch.stack([cost_rollout_emit(model, sc[b * ks:(b + 1) * ks].contiguous(),
+                                            Qc[b * ks:(b + 1) * ks].contiguous(), rows[b])[1]
+                          for b in range(B)])
+    check(torch.equal(single, x), f"k1_cols_emit_{plant}: x_H differs from K1's emit form's")
+    timed("cost_rollout_cols_emit", lambda: cost_rollout_cols_emit(model, sc, Qc, rows), {
+        "max_abs_err": max(max_errors(c, rc)[0], max_errors(x, rx)[0]),
+        "x_f64": emit_held(f"k1_cols_emit_{plant}", x, rx, x64, {
+            "x_H_minus_1": cost_rollout_cols_emit(model, sc, Qc[:, :-1].contiguous(), rows)[1],
+            "next_session_rows": cost_rollout_cols_emit(model, sc, Qc, rows.roll(-1, 0))[1]}),
+        "single_session_equal": True, "plain_ms": plain_ms,
+        **bound(n * Hg * step_ops, nbytes(sc, Qc, rows) + 4 * n * (1 + S))})
+    # K7's session-row value form.
+    qc = Qc[:, :hc].contiguous()
+    (cv, dv), ((rcv, rdv), plain_ms) = grad_cost_rollout_cols_value(model, sc, qc, rows, vops), \
+        plain_timed(lambda: grad_cost_rollout_cols_plain(model, sc, qc, rows, value_ops=vops))
+    check(torch.allclose(cv, rcv, **KERNEL_TOL), f"k7_cols_value_{plant}: J disagrees")
+    held = dq_held_plant(f"k7_cols_value_{plant}", plant, dv, rdv,
+                         lambda: grad_cost_rollout_cols_plain(
+                             model, *tree64((sc, qc, rows)), value_ops=tree64(vops))[1],
+                         lambda: (grad_cost_rollout_cols(model, sc, qc, rows)[1],
+                                  grad_cost_rollout_cols_plain(model, sc, qc, rows)[1],
+                                  grad_cost_rollout_cols_plain(model,
+                                                               *tree64((sc, qc, rows)))[1]))
+    timed("grad_cost_rollout_cols_value",
+          lambda: grad_cost_rollout_cols_value(model, sc, qc, rows, vops), {
+              "max_abs_err": max(max_errors(cv, rcv)[0], max_errors(dv, rdv)[0]), "dQ": held,
+              "rejects": dq_rejects(f"k7_cols_value_{plant}", rdv, {
+                  "dV_dx_H_dropped": grad_cost_rollout_cols(model, sc, qc, rows)[1],
+                  "next_session_rows": grad_cost_rollout_cols_value(
+                      model, sc, qc, rows.roll(-1, 0), vops)[1]}),
+              "H": hc, "plain_ms": plain_ms,
+              **bound(n * (hc * (step_ops + vjp_ops + stage_vjp_ops) + v_ops),
+                      nbytes(sc, qc, rows, *vops) + 4 * n + 4 * n * hc * U)})
+    # K9's session-row forms, each session's outputs equal to the
+    # single-session kernel's, each bound rejecting the next session's rows
+    # and the residual dropped (K7's forms over the base).
+    for name, v in (("residual_grad_cost_rollout", None),
+                    ("residual_grad_cost_rollout_value", vops)):
+        cols_name = name.replace("rollout", "rollout_cols")
+        kernel = residual_grad_cost_rollout_cols if v is None else functools.partial(
+            residual_grad_cost_rollout_cols_value, value_ops=v)
+        (c, d) = kernel(rmodel, sc, qc, rrows, net)
+        (rc, rd), plain_ms = plain_timed(lambda: residual_grad_cost_rollout_cols_plain(
+            rmodel, sc, qc, rrows, net, value_ops=v))
+        check(torch.allclose(c, rc, **KERNEL_TOL), f"{cols_name}_{plant}: J disagrees")
+        held = dq_held_plant(f"{cols_name}_{plant}", plant, d, rd, lambda v=v: (
+            residual_grad_cost_rollout_cols_plain(rmodel, *tree64((sc, qc, rrows)), tree64(net),
+                                                  value_ops=None if v is None
+                                                  else tree64(v))[1]), None if v is None else (
+            lambda: (residual_grad_cost_rollout_cols(rmodel, sc, qc, rrows, net)[1],
+                     residual_grad_cost_rollout_cols_plain(rmodel, sc, qc, rrows, net)[1],
+                     residual_grad_cost_rollout_cols_plain(rmodel, *tree64((sc, qc, rrows)),
+                                                           tree64(net))[1])))
+        single = residual_grad_cost_rollout if v is None else functools.partial(
+            residual_grad_cost_rollout_value, value_ops=v)
+        per = [single(rmodel, sc[b * ks:(b + 1) * ks].contiguous(),
+                      qc[b * ks:(b + 1) * ks].contiguous(), rrows[b], net) for b in range(B)]
+        same = bool(torch.equal(torch.stack([p[0] for p in per]), c)
+                    and torch.equal(torch.cat([p[1] for p in per]), d))
+        check(same, f"{cols_name}_{plant}: a session differs from the single-session kernel's")
+        wrong = {"next_session_rows": kernel(rmodel, sc, qc, rrows.roll(-1, 0), net)[1],
+                 "residual_dropped": (grad_cost_rollout_cols if v is None else functools.partial(
+                     grad_cost_rollout_cols_value, value_ops=v))(model, sc, qc, rows)[1]}
+        if v is not None:
+            wrong["dV_dx_H_dropped"] = residual_grad_cost_rollout_cols(rmodel, sc, qc, rrows,
+                                                                       net)[1]
+        numbers = {"max_abs_err": max(max_errors(c, rc)[0], max_errors(d, rd)[0]), "dQ": held,
+                   "H": hc, "single_session_equal": same,
+                   "rejects": dq_rejects(f"{cols_name}_{plant}", rd, wrong), "plain_ms": plain_ms}
+        timed(cols_name, lambda k=kernel: k(rmodel, sc, qc, rrows, net), {
+            **numbers, **bound(n * hc * (step_ops + vjp_ops + stage_vjp_ops + mlp_grad_ops)
+                               + n * (v_ops if v else 0),
+                               nbytes(sc, qc, rrows, *net.values()) + 4 * n + 4 * n * hc * U)})
+
+    # K4's emit form and K12's session-row forms at FLEET_B sessions of the
+    # fleet's K and H.
+    Bf, Kf, Hf = FLEET_B, FLEET_K, FLEET_H
+    frows, frrows = rows[:Bf].contiguous(), rrows[:Bf].contiguous()
+    s0b = plant_states(plant, Bf, gen)
+    W = torch.as_tensor(interpolation_matrix(Hf, PERIOD), device=dev)
+    u_nomb = torch.clamp(mid + half * (0.3 * torch.randn(Bf, Hf, U, generator=gen, device=dev)),
+                         lo, hi)
+    epsb = (0.3 * half[:, None]) * torch.randn(Bf, W.shape[0], U, Kf, generator=gen, device=dev)
+    fcorr = (FLEET_MPPI_CONFIG["cc_weight"], FLEET_MPPI_CONFIG["R"], FLEET_MPPI_CONFIG["NU"])
+    a4 = (model, s0b, u_nomb, frows, epsb, W, lo, hi, *fcorr)
+    (c, x), ((rc, rx), plain_ms) = mppi_cost_cols_emit(*a4), plain_timed(
+        lambda: mppi_cost_cols_emit_plain(*a4))
+    x64 = mppi_cost_cols_emit_plain(model, *tree64((*a4[1:8],)), *fcorr)[1]
+    check(torch.equal(c, mppi_cost_cols(*a4)) and torch.allclose(c, rc, **KERNEL_TOL),
+          f"k4_emit_{plant}: costs disagree")
+    Q4 = torch.stack([mppi_controls_plain(epsb[b], W, u_nomb[b], lo, hi)[0] for b in range(Bf)])
+    x_prev = cost_rollout_cols_emit(model, s0b.repeat_interleave(Kf, dim=0),
+                                    Q4.reshape(Bf * Kf, Hf, U)[:, :-1].contiguous(), frows)[1]
+    timed("mppi_cost_cols_emit", lambda: mppi_cost_cols_emit(*a4), {
+        "max_abs_err": max(max_errors(c, rc)[0], max_errors(x, rx)[0]),
+        "x_f64": emit_held(f"k4_emit_{plant}", x, rx, x64, {
+            "x_H_minus_1": x_prev,
+            "next_session_rows": mppi_cost_cols_emit(model, s0b, u_nomb, frows.roll(-1, 0),
+                                                     *a4[4:])[1]}),
+        "plain_ms": plain_ms,
+        **bound(Bf * Kf * Hf * (step_ops + U * MPPI_EXTRA_OPS),
+                nbytes(*a4[1:8]) + 4 * Bf * Kf * (1 + S))})
+    sf = s0b.repeat_interleave(Kf, dim=0)
+    Qf = Q4.reshape(Bf * Kf, Hf, U).contiguous()
+    (c, x), ((rc, rx), plain_ms) = residual_cost_rollout_cols_emit(rmodel, sf, Qf, frrows, net), \
+        plain_timed(lambda: residual_cost_rollout_cols_emit_plain(rmodel, sf, Qf, frrows, net))
+    x64 = residual_cost_rollout_cols_emit_plain(rmodel, *tree64((sf, Qf, frrows)), tree64(net))[1]
+    k12c = residual_cost_rollout_cols(rmodel, sf, Qf, frrows, net)
+    check(torch.equal(c, k12c) and torch.allclose(c, rc, **NET_TOL),
+          f"k12_cols_{plant}: costs disagree {max_errors(c, rc)}")
+    per = [residual_cost_rollout_emit(rmodel, sf[b * Kf:(b + 1) * Kf].contiguous(),
+                                      Qf[b * Kf:(b + 1) * Kf].contiguous(), frrows[b], net)
+           for b in range(Bf)]
+    same = bool(torch.equal(torch.stack([p[0] for p in per]), c)
+                and torch.equal(torch.stack([p[1] for p in per]), x))
+    check(same, f"k12_cols_emit_{plant}: a session differs from the single-session kernel's")
+    wrong = residual_cost_rollout_cols(rmodel, sf, Qf, frrows.roll(-1, 0), net)
+    check(not torch.allclose(wrong, rc, **NET_TOL), f"k12_cols_{plant}: the bound takes "
+          "the next session's rows")
+    k12c_ops = Bf * Kf * Hf * (step_ops + mlp_ops(net))
+    k12c_bytes = nbytes(sf, Qf, frrows, *net.values()) + 4 * Bf * Kf
+    timed("residual_cost_rollout_cols",
+          lambda: residual_cost_rollout_cols(rmodel, sf, Qf, frrows, net), {
+              "max_abs_err": max_errors(c, rc)[0], "single_session_equal": same,
+              "rejects": {"next_session_rows": max_errors(wrong, rc)[0]}, "plain_ms": plain_ms,
+              **bound(k12c_ops, k12c_bytes)})
+    timed("residual_cost_rollout_cols_emit",
+          lambda: residual_cost_rollout_cols_emit(rmodel, sf, Qf, frrows, net), {
+              "max_abs_err": max(max_errors(c, rc)[0], max_errors(x, rx)[0]),
+              "single_session_equal": same,
+              "x_f64": emit_held(f"k12_cols_emit_{plant}", x, rx, x64, {
+                  "x_H_minus_1": residual_cost_rollout_cols_emit(
+                      rmodel, sf, Qf[:, :-1].contiguous(), frrows, net)[1],
+                  "next_session_rows": residual_cost_rollout_cols_emit(
+                      rmodel, sf, Qf, frrows.roll(-1, 0), net)[1]}),
+              "plain_ms": plain_ms, **bound(k12c_ops, k12c_bytes + 4 * Bf * Kf * S)})
+    emit(f"{plant}_forms_resources", forms_resources(plant, rmodel.net_args(net)[0], vnet))
+    return out
+
+
+def forms_resources(plant: str, args, vnet: dict) -> dict:
+    """ptxas' registers, spills and static shared memory of the plant's new
+    instances, and the blocks an SM holds of each (the network forms'
+    dynamic shared memory for the residual and V)."""
+    lib, pid = kernels.load(), kernels.PLANT_IDS[plant]
+    name = "".join(w.capitalize() for w in plant.replace("obstacles", "obstacle").split("_"))
+    name = name.replace("2d", "2D").replace("3d", "3D")
+    inst = f"{len(name) + 5}{name}PlantEEEv"
+    vops = plant_value_ops(vnet)
+    vargs = kernels.value_args(vops, kernels.PLANT_DIMS[plant][0])
+    nbytes_ = ctypes.c_long()
+    out = {
+        "k1_emit": {**ptxas_resources("cost_rollout_emit_kernel", inst),
+                    "blocks_per_sm": int(lib.ctt_cost_rollout_emit_plant_blocks_per_sm(pid, 0))},
+        "k1_cols_emit": {**ptxas_resources("cost_rollout_emit_rows_kernel", inst),
+                         "blocks_per_sm": int(lib.ctt_cost_rollout_emit_plant_blocks_per_sm(
+                             pid, 1))},
+        "k2_emit": {**ptxas_resources("mppi_cost_emit_kernel", inst),
+                    "blocks_per_sm": int(lib.ctt_mppi_cost_emit_plant_blocks_per_sm(pid))},
+        "k4_emit": {**ptxas_resources("mppi_cost_cols_emit_kernel", inst),
+                    "blocks_per_sm": int(lib.ctt_mppi_cost_cols_emit_plant_blocks_per_sm(pid))},
+        "k12": {**ptxas_resources("residual_cost_rollout_kernel", inst),
+                "blocks_per_sm": int(lib.ctt_residual_plant_blocks_per_sm(
+                    pid, 0, ctypes.byref(args)))},
+        "k12_emit": {**ptxas_resources("residual_cost_rollout_emit_kernel", inst),
+                     "blocks_per_sm": int(lib.ctt_residual_plant_blocks_per_sm(
+                         pid, 1, ctypes.byref(args)))},
+        "k9": {**ptxas_resources("residual_grad_cost_rollout_kernel", inst),
+               "blocks_per_sm": int(lib.ctt_residual_grad_plant_layout(
+                   pid, ctypes.byref(args), None, ctypes.byref(nbytes_))),
+               "smem_bytes": int(nbytes_.value)},
+    }
+    for key, kernel, adjoint, rows in (
+            ("k7_value_forward", "grad_cost_forward_value_kernel", 0, 0),
+            ("k7_value_adjoint", "grad_cost_adjoint_value_kernel", 1, 0),
+            ("k7_cols_value_forward", "grad_cost_forward_value_rows_kernel", 0, 1),
+            ("k7_cols_value_adjoint", "grad_cost_adjoint_value_rows_kernel", 1, 1)):
+        out[key] = {**ptxas_resources(kernel, inst),
+                    "blocks_per_sm": int(lib.ctt_grad_value_plant_blocks_per_sm(
+                        pid, adjoint, rows, ctypes.byref(vargs)))}
+    out["k9_value"] = {**ptxas_resources("residual_grad_cost_rollout_value_kernel", inst),
+                       "blocks_per_sm": int(lib.ctt_residual_grad_plant_layout(
+                           pid, ctypes.byref(args), ctypes.byref(vargs), ctypes.byref(nbytes_))),
+                       "smem_bytes": int(nbytes_.value)}
+    return out
+
+
+def forms_mppi_vs_cpu(name: str, card: MPCController, cpu: MPCController, s_now) -> dict:
+    """One MPPI update on the card and on the CPU (the plain versions) from
+    the card's state and params (its value net and residual among them),
+    with one draw: the new plans to UNOM_ATOL."""
+    opt = card.optimizer
+    state = opt.opt_state
+    noise = opt.sample_noise(state)
+    params = card._assemble_params()
+    _, _, diag = opt.update(state, s_now, params, noise)
+    cpu_state = mppi_state_from_numpy(state.u_nom.cpu().numpy(), state.u_prev.cpu().numpy(),
+                                      torch.Generator())
+    _, _, cdiag = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params), noise.cpu())
+    numbers = {"u_nom_max_abs_err": max_errors(diag["u_nom"].cpu(), cdiag["u_nom"])[0]}
+    emit(name, numbers)
+    check(numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"{name}: the card's update differs from the CPU's {numbers}")
+    return numbers
+
+
+def forms_fleet_mppi_vs_cpu(name: str, card: BatchedMPCController, cpu: BatchedMPCController,
+                            gen, s, psd: tuple, res: bool) -> dict:
+    """One fleet MPPI update (K4's emit form under V, or K12's session-row
+    form over "ODE+res") on the card against the CPU's from the same state,
+    params and draws: costs to the kernel's bound (K12's NET_TOL), the new
+    plans to UNOM_ATOL."""
+    B, opt = card.num_slots, card.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(card, gen, s)
+    noise = opt.sample_slot_noise(card.slot_states.generator, np.ones(B, bool))
+    build = "_make_batched_residual_step" if res else "_make_batched_semi_fused_step"
+    update, update_c = (getattr(o, build)(B, per_slot_dyn=psd)[1]
+                        for o in (opt, cpu.optimizer))
+    st = card.slot_states
+    u_nom, costs = update(st, s, dyn, cost, attrs, noise)
+    u_nom_c, costs_c = update_c(state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost),
+                                to_cpu(attrs), noise.cpu())
+    numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
+    emit(name, numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **(NET_TOL if res else KERNEL_TOL))
+          and numbers["u_nom_max_abs_err"] <= UNOM_ATOL,
+          f"{name}: the fleet update on the card differs from the CPU's {numbers}")
+    return numbers
+
+
+# label: (optimizer, config, "ODE+res", valued, fleet, launches a tick)
+FORMS_PATHS = {
+    "valued_mppi": ("mppi", OPTIMIZER_CONFIG, False, True, False, {"mppi_cost_emit": 1}),
+    "valued_mppi_modular": ("mppi", {**OPTIMIZER_CONFIG, "semi_fused": False}, False, True,
+                            False, {"cost_rollout_emit": 1}),
+    "valued_rpgd": ("rpgd-tf", RPGD_CONFIG, False, True, False,
+                    {"grad_cost_rollout_value": RPGD_CONFIG["outer_its"],
+                     "cost_rollout_emit": 1}),
+    "adaptive_mppi_residual": ("mppi", RES_MPPI_CONFIG, True, False, False,
+                               {"residual_cost_rollout": 1}),
+    "rpgd_residual": ("rpgd-tf", RES_RPGD_CONFIG, True, False, False,
+                      {"residual_grad_cost_rollout": RES_RPGD_CONFIG["outer_its"],
+                       "residual_cost_rollout": 1}),
+    "valued_rpgd_residual": ("rpgd-tf", RES_RPGD_CONFIG, True, True, False,
+                             {"residual_grad_cost_rollout_value": RES_RPGD_CONFIG["outer_its"],
+                              "residual_cost_rollout_emit": 1}),
+    "valued_mppi_fleet": ("mppi", FLEET_MPPI_CONFIG, False, True, True,
+                          {"mppi_cost_cols_emit": 1}),
+    "valued_rpgd_fleet": ("rpgd-tf", FLEET_RPGD_CONFIG, False, True, True,
+                          {"grad_cost_rollout_cols_value": FLEET_RPGD_CONFIG["outer_its"],
+                           "cost_rollout_cols_emit": 1}),
+    "mppi_fleet_residual": ("mppi", FLEET_MPPI_CONFIG, True, False, True,
+                            {"residual_cost_rollout_cols": 1}),
+    "rpgd_fleet_residual": ("rpgd-tf", FLEET_RPGD_CONFIG, True, False, True,
+                            {"residual_grad_cost_rollout_cols": FLEET_RPGD_CONFIG["outer_its"],
+                             "residual_cost_rollout_cols": 1}),
+    "valued_rpgd_fleet_residual": ("rpgd-tf", FLEET_RPGD_CONFIG, True, True, True,
+                                   {"residual_grad_cost_rollout_cols_value":
+                                    FLEET_RPGD_CONFIG["outer_its"],
+                                    "residual_cost_rollout_cols_emit": 1}),
+}
+
+
+def forms_controller(plant: str, label: str, device: str = "cuda", config: dict = None):
+    """The path ``label`` of FORMS_PATHS over the plant: its controller (a
+    fleet of FLEET_B) with the plant's V attached and phase 18's residual
+    where the path has them."""
+    optimizer, cfg, res, valued, fleet, _ = FORMS_PATHS[label]
+    cfg = config or cfg
+    if fleet:
+        ctrl = plant_fleet(plant, optimizer, cfg, FLEET_B, device,
+                           spec=res_spec(plant) if res else None)
+        if res:
+            seed_residual(ctrl.optimizer.predictor.predictor)
+    elif res:
+        ctrl = plant_res_controller(plant, optimizer, cfg, device)
+    else:
+        ctrl = plant_controller(plant, optimizer, cfg, device=device)
+    if valued:
+        attach_value_terminal(ctrl, plant_value_net(plant, torch.device(device)),
+                              FORMS_VALUE_SCALE)
+    return ctrl
+
+
+def forms_path_gate(plant: str, label: str, ctrl) -> None:
+    """The path took the form it names: the family's gate, the plant."""
+    _, _, res, valued, fleet, per_tick = FORMS_PATHS[label]
+    opt = ctrl.optimizer
+    fam = residual if res else ode
+    model = (residual.residual_model if res else ode.rollout_model)(opt)[0]
+    ok = model.plant == plant and fam.can_use_cost(opt)
+    if label.startswith("valued_mppi") and not fleet:
+        ok = ok and opt._uses_semi_fused() == (label == "valued_mppi")
+    if "rpgd" in label:
+        ok = ok and fam.can_use_grad(opt) and (opt._value_grad_spec() is not None) == valued
+    if fleet and label.startswith(("valued_mppi", "mppi")):
+        ok = ok and (ctrl._batched_residual_eligible() if res
+                     else ctrl._batched_kernel_eligible())
+    if fleet and "rpgd" in label:
+        ok = ok and ctrl._batched_rpgd_eligible()
+    check(ok, f"{plant} {label}: the controller did not take its kernel path")
+
+
+def forms_update_vs_cpu(gen) -> None:
+    """Phase 90: one update of each path over the 3-D quadrotor on the card
+    against the CPU's (its plain versions) from the same state, params and
+    draws; the gradient paths at one Adam iteration, as phase 86's."""
+    plant = "quadrotor3d"
+    s_now = plant_states(plant, 1, gen)
+    s_b = plant_states(plant, FLEET_B, gen)[:, None]
+    psd = (slot_key(plant),)
+    for label, (optimizer, cfg, res, valued, fleet, _) in FORMS_PATHS.items():
+        if optimizer == "rpgd-tf":
+            cfg = {**cfg, "outer_its": 1} if fleet else {**cfg, "outer_its": 1,
+                                                          "num_rollouts": FORMS_CPU_K}
+        card, cpu = (forms_controller(plant, label, d, cfg) for d in ("cuda", "cpu"))
+        forms_path_gate(plant, label, card)
+        name = f"forms_{label}_update_vs_cpu_{plant}"
+        if fleet and optimizer == "mppi":
+            forms_fleet_mppi_vs_cpu(name, card, cpu, gen, s_b, psd, res)
+        elif fleet:
+            grad_fleet_update_vs_cpu(f"rpgd_forms_{label}_{plant}", card, gen, cpu, s_b, psd)
+        elif optimizer == "mppi":
+            forms_mppi_vs_cpu(name, card, cpu, s_now)
+        else:
+            card.optimizer.opt_state = card.optimizer.opt_state._replace(count=0)
+            update_vs_cpu_rpgd(card, name, cpu=cpu, s_now=s_now)
+
+
+def forms_loops(plant: str, gen) -> dict:
+    """Phase 91 for one plant: each path of FORMS_PATHS FORMS_TICKS ticks
+    (FORMS_SHORT_TICKS over a fast plant) at its width, counted from 0; the
+    adaptive MPPI FORMS_ADAPT_TICKS against the plant's environment with
+    its FLEET_SLOT_DYN constant FORMS_MISMATCH times the model's, an
+    OnlineSysId fit installed every FIT_EVERY ticks (an exact plant)."""
+    fast = plant.endswith("_fast")
+    runs = []
+    for label, (_, _, res, _, fleet, per_tick) in FORMS_PATHS.items():
+        T = FORMS_SHORT_TICKS if fast else FORMS_TICKS
+        ctrl = forms_controller(plant, label)
+        forms_path_gate(plant, label, ctrl)
+        name = f"forms_{plant}_{label}"
+        if fleet:
+            runs.append(plant_fleet_loop(name, ctrl, plant, T,
+                                         {k: n * T for k, n in per_tick.items()}))
+            continue
+        if label != "adaptive_mppi_residual" or fast:
+            counts, _, numbers = plant_loop(name, ctrl, plant, T,
+                                            {k: n * T for k, n in per_tick.items()})
+            emit(name, numbers)
+            runs.append(counts)
+            continue
+        T = FORMS_ADAPT_TICKS
+        key = slot_key(plant)
+        default = float(ctrl._assemble_params()["dyn"]["base"][key])
+        sysid, fits = OnlineSysId(ctrl, **SYSID), []
+
+        def on_tick(t, s, u, s_next):
+            sysid.observe(s, u, s_next)
+            if (t + 1) % FIT_EVERY == 0:
+                fits.append(sysid.fit_and_apply(steps=FIT_STEPS))
+
+        counts, _, numbers = plant_loop(name, ctrl, plant, T,
+                                        {k: n * T for k, n in per_tick.items()},
+                                        env_params={key: FORMS_MISMATCH * default},
+                                        on_tick=on_tick)
+        numbers.update(installs=sum(int(f["fitted"]) for f in fits),
+                       loss_before_after=[[f.get("loss_before"), f.get("loss_after")]
+                                          for f in fits])
+        emit(name, numbers)
+        check(numbers["installs"] == T // FIT_EVERY, f"{name}: a sysid fit was refused {numbers}")
+        runs.append(counts)
+    return {kernel: sum(r[kernel] for r in runs) for kernel in COUNTED}
+
+
+def forms_phases(gen) -> tuple:
+    """Phases 89-91: the learned-value and residual forms over plant ids
+    2-17.  Returns each kernel row's numbers by (row, plant) and the loops'
+    launches by plant."""
+    rows, launches = {}, {}
+    # 89. Each instance against its plain version.
+    for plant in ALL_CASES:
+        for key, numbers in forms_plant_kernels(plant, gen).items():
+            rows[key, plant] = numbers
+    # 90. One update of each path on the card against the CPU's.
+    forms_update_vs_cpu(gen)
+    # 91. The loops, counted from 0.
+    for plant in ALL_CASES:
+        launches[plant] = forms_loops(plant, gen)
+    return rows, launches
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -7059,6 +7890,7 @@ def main() -> None:
             regs[entry or f"kernel {len(regs)}"] = line.split("ptxas info    : ")[-1]
     emit("build", {"seconds": time.perf_counter() - t0, "nvcc_seconds": kernels.build.seconds,
                    "library": kernels.library_path().name, "ptxas": regs})
+    start_sass()
 
     # 2-3. Each kernel against its plain version at the main path's shapes.
     ctrl = make_controller("cuda")
@@ -7504,10 +8336,14 @@ def main() -> None:
         "k14": (gp_cost_rollout_emit, gp_cost_rollout, gp_cost_rollout_emit_plain,
                 (gmodel, s0, Q, gpvec, wops), VALUE_RAGGED_K, NET_TOL, gp_ops(gops)),
     }
+    # K13-GRU's x_H to float64: its float32 plain version drifts from
+    # float64 as far as the kernel does (k13_emit_vs_float64, ROADMAP C).
     learned_emit = {label: compare_learned_emit(f"{label}_emit", *form[:6],
-                                                K * H * (form[6] + STAGE_OPS))
+                                                K * H * (form[6] + STAGE_OPS),
+                                                x_f64=label == "k13_gru")
                     for label, form in forms.items()}
     learned_emit_resources()
+    k13_emit_vs_float64(device)
 
     # 60. The session-row emit forms of K11, K12 and K14 at phase 41's
     # operands, each session equal to the single-session emit form.
@@ -7698,6 +8534,8 @@ def main() -> None:
             launches[kernel] += counts[kernel]
     # 85-88. The fleets and fused CEM over plant ids 2-17.
     fleet_rows, fleet_launches = fleet_plant_phases(gen)
+    # 89-91. The learned-value and residual forms over plant ids 2-17.
+    forms_rows, forms_launches = forms_phases(gen)
 
     if "--starts" in sys.argv[1:]:
         start_sweep()
@@ -7871,6 +8709,16 @@ def main() -> None:
         n, name = fleet_launches[run][wrapper], f"{wrapper}_{run}"
         check(n > 0, f"{name}: launched no time in its plant's loops")
         launches[name] = n
+        rows = rows + ((name, source, replaces, numbers),)
+    # Their learned-value and residual instances (phases 89-91): launches
+    # from their own loops (phase 91).
+    for (key, plant), numbers in forms_rows.items():
+        n, name = forms_launches[plant][key], f"{key}_{plant}"
+        check(n > 0, f"{name}: launched no time in its plant's loops")
+        launches[name] = n
+        source, replaces = FORMS_SOURCES[key]
+        pid, lib = kernels.PLANT_IDS[plant], kernels.load()
+        source = source.format(v=lib.ctt_grad_value_group(pid), r=lib.ctt_residual_grad_group(pid))
         rows = rows + ((name, source, replaces, numbers),)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

@@ -8,18 +8,24 @@ a short horizon with the foresight of a long one.
 
 The kernels keep the value terminal:
 
-* the cost kernels over the ODE (K1, K2, K4) evaluate the base's terminal
-  in their body and emit the terminal states ``x_H [K, S]`` (their
-  ``emit_terminal`` forms); the optimizer adds ``post_terminal_cost(x_H) /
-  (H+1)``, V as ``torch.matmul``s outside the kernel;
-* the gradient kernel over the ODE (K7) takes a plain ``w*/b*`` tanh MLP V
-  in its forward (its ``value_spec`` form) and seeds the adjoint with
-  ``dV/dx_H`` (``Optimizer._value_grad_spec``).
+* the cost kernels (K1, K2, K4 over the ODE; K11, K12, K13, K14 over the
+  learned models, and their session-row and member-block forms) evaluate
+  the base's terminal in their body and emit the terminal states ``x_H
+  [K, S]`` (their ``emit_terminal`` forms); the optimizer adds
+  ``post_terminal_cost(x_H) / (H+1)``, V as ``torch.matmul``s outside the
+  kernel;
+* the gradient kernels (K7 over the ODE; K8, K9, K10 over the MLP,
+  ``"ODE+res"``, the GP, and their session-row and member-block forms)
+  take a plain ``w*/b*`` tanh MLP V in their forward (their ``value_spec``
+  forms) and seed the adjoint with ``dV/dx_H``
+  (``Optimizer._value_grad_spec``).
 
-The net's tensors ride in ``params["cost"]["_value_net"]`` and the scale in
-``params["cost"]["_value_scale"]``, so ``update_value_params`` swaps a
-re-fit in with no rebuild.  The learned families' value forms are not
-ported: their gates raise ``NotImplementedError`` naming the form.
+Every plant carries the ODE's and ``"ODE+res"``'s forms; the network
+forms carry cartpole's cost alone, their gates raising
+``NotImplementedError`` naming the form and the plant (``ops/kernels.py``
+KERNEL_PLANTS).  The net's tensors ride in ``params["cost"]["_value_net"]``
+and the scale in ``params["cost"]["_value_scale"]``, so
+``update_value_params`` swaps a re-fit in with no rebuild.
 """
 from __future__ import annotations
 

@@ -11,9 +11,9 @@
 // entry below is instantiated again: its polynomial trig in the step, the
 // cost exact (short_step.cuh).  The pendulum, acrobot, point-mass,
 // quadrotor, car and arm plants (plants.cuh; with their fast plants) take
-// the single-session kernel and its session-row form: short_step.cuh's
-// stage cost and integrate (they have no derivs_short); the emit_terminal
-// forms stay cartpole's (ops/kernels.py KERNEL_PLANTS).
+// the single-session kernel, its session-row form and both emit_terminal
+// forms: short_step.cuh's stage cost and integrate (they have no
+// derivs_short).
 //
 // K1's emit_terminal form (one session, cost_rollout_emit_kernel, and the
 // session-row form, cost_rollout_emit_rows_kernel) is the body's Emit
@@ -144,19 +144,6 @@ int launch_cost_rollout(dim3 grid, cudaStream_t st, const float* s0, const float
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1 over `Plant`, one session (ks = K) or its session-row form: the forms
-// that the pendulum, acrobot, point-mass, quadrotor, car and arm plants
-// carry.
-template <class Plant>
-int launch_cost_rollout_unvalued(dim3 grid, cudaStream_t st, const float* s0, const float* Q,
-                                 const float* pvec, float* cost, int K, int ks, int H,
-                                 const StepConsts& c, float max_cost) {
-  (ks == K ? cost_rollout_kernel<Plant, false>
-           : cost_rollout_kernel<Plant, true>)<<<grid, kThreads, 0, st>>>(s0, Q, pvec, cost, K,
-                                                                          ks, H, c, max_cost);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace ctt
 
 // Launches K1 on `stream` over K rollouts, sessions of ks (pvec holds
@@ -164,9 +151,8 @@ int launch_cost_rollout_unvalued(dim3 grid, cudaStream_t st, const float* s0, co
 // session-row form for a fleet), or, with x_term not null, its
 // emit_terminal form (its session-row form where ks < K), which also writes
 // the terminal states [K, S] there; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown plant, a ks that does not
-// divide K, or a form that the plant has no instance of: the plants other
-// than cartpole's take no x_term).
+// launch (cudaErrorInvalidValue for an unknown plant or a ks that does not
+// divide K).
 extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const void* pvec,
                                 void* cost, void* x_term, int K, int ks, int H, int rk4,
                                 int substeps, float sub_dt, float half_dt, float dt6,
@@ -180,21 +166,10 @@ extern "C" int ctt_cost_rollout(int plant, const void* s0, const void* Q, const 
   const auto* pf = static_cast<const float*>(pvec);
   auto* costf = static_cast<float*>(cost);
   auto* xf = static_cast<float*>(x_term);
-  switch (plant) {
-    case ctt::kPlantCartpole:
-      return ctt::launch_cost_rollout<ctt::CartpolePlant>(grid, st, s0f, qf, pf, costf, xf, K, ks,
-                                                          H, c, max_cost);
-    case ctt::kPlantCartpoleFast:
-      return ctt::launch_cost_rollout<ctt::CartpoleFastPlant>(grid, st, s0f, qf, pf, costf, xf,
-                                                              K, ks, H, c, max_cost);
-    default:
-      if (xf != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::launch_cost_rollout_unvalued<decltype(plant_tag)>(grid, st, s0f, qf, pf,
-                                                                      costf, K, ks, H, c,
-                                                                      max_cost);
-      });
-  }
+  return ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::launch_cost_rollout<decltype(plant_tag)>(grid, st, s0f, qf, pf, costf, xf, K, ks,
+                                                         H, c, max_cost);
+  });
 }
 
 // Blocks of the single-session K1 over `plant` that one SM holds (0 where
@@ -234,4 +209,18 @@ extern "C" int ctt_cost_rollout_blocks_per_sm(int rows) {
     return 0;
   }
   return blocks;
+}
+
+// Blocks of K1's emit_terminal form over `plant` (rows 0) or of its
+// session-row form (rows 1) that one SM holds (0 where the runtime cannot
+// say or the plant is unknown).
+extern "C" int ctt_cost_rollout_emit_plant_blocks_per_sm(int plant, int rows) {
+  int blocks = 0;
+  const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    using Plant = decltype(plant_tag);
+    return rows ? ctt::blocks_per_sm(ctt::cost_rollout_emit_rows_kernel<Plant>, ctt::kThreads,
+                                     blocks)
+                : ctt::blocks_per_sm(ctt::cost_rollout_emit_kernel<Plant>, ctt::kThreads, blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }

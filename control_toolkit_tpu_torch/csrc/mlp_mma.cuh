@@ -9,8 +9,9 @@
 // - A warp owns 16 rollouts, one m16 tile.  Each layer is a chain of
 //   mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 over
 //   [16, d_in] x [d_in, d_out], its widths padded with zeros to multiples of
-//   8 ([x, u] of S+U = 5 to k = 8, the output S = 4 to n = 8), with FP32
-//   accumulators.  Why mma.sync and not wgmma: the products are 16-64 wide
+//   8 ([x, u] of S+U = 5 to k = 8, the output S = 4 to n = 8; the 3-D
+//   quadrotor's 16 to two k-blocks and its 12 outputs to two n8 tiles),
+//   with FP32 accumulators.  Why mma.sync and not wgmma: the products are 16-64 wide
 //   and chained through a nonlinearity at every layer, so a layer's output
 //   is the next one's input within a few hundred cycles; wgmma's 64-row
 //   warpgroup tiles would take 64 rollouts to a warpgroup (a quarter of the
@@ -49,7 +50,11 @@
 // - Scalar work runs one rollout per lane: lanes l and l+16 both own
 //   rollout l and repeat its norms, cost and (K9) integrator.  A per-warp
 //   [16, 8] tile moves [x, u] from the lane layout to the fragment layout
-//   and the output back, with __syncwarp around it and no block barrier.
+//   and the output back, with __syncwarp around it and no block barrier;
+//   a plant of more than 8 inputs (S + U <= 16) takes io_tiles(S, U) such
+//   tiles each way, one a k-block (row_to_fragments, fragments_to_row),
+//   its own template instance, so that every plant of at most 8 keeps its
+//   code.
 // - Rows past K (ragged K, or K < 16) repeat rollout K-1 and write
 //   nothing; a warp with no row below K returns after the block's staging.
 // The host side (plan_mma) lays out the staged net and the per-warp
@@ -72,6 +77,11 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaRows = 16;                 // rollouts per warp: one m16 tile
 constexpr int kRegTiles = 8;                 // 8-column tiles an activation keeps in registers
 constexpr int kTileFloats = 128;             // one fragment tile: 32 lanes x 4 floats
+constexpr int kMaxIoTiles = 2;               // [16, 8] lane tiles of [x, u], at most
+
+// The [16, 8] lane tiles that carry a plant's [x, u] (S + U columns) into
+// the MLP, and its S outputs (or the VJP's S + U) out of it.
+__host__ __device__ constexpr int io_tiles(int S, int U) { return (S + U + 7) / 8; }
 // Columns of a value_spec form's value activations: one a rollout of a
 // block of kMmaWarps warps.
 constexpr int kValueCols = kMmaWarps * kMmaRows;
@@ -98,7 +108,8 @@ inline int plan_mma_net(const NetArgs& a, int S, int U, bool transposed, MmaLayo
   int off = 0;
   auto take = [&off](int n) { const int o = off; off += pad_to(n, 4); return o; };
   const int n = a.n_layers;
-  if (a.kind != kNetMLP || n < 1 || n > kMaxLayers || S + U > 8 || a.dims[0] != S + U ||
+  if (a.kind != kNetMLP || n < 1 || n > kMaxLayers || S + U > 8 * kMaxIoTiles ||
+      a.dims[0] != S + U ||
       a.dims[n] != S) {
     return -1;
   }
@@ -147,7 +158,7 @@ inline long plan_mma(const NetArgs& a, int S, int U, MmaLayout& L, long extra_by
   L.arena = warp;
   warp += 2 * L.arena_tiles * kTileFloats;
   L.io = warp;
-  warp += 2 * kMmaRows * 8;
+  warp += 2 * kMmaRows * 8 * io_tiles(S, U);
   L.warp_floats = warp;
   for (L.warps = kMmaWarps; L.warps >= 1; L.warps /= 2) {
     const long bytes = 4L * (L.net_floats + static_cast<long>(L.warps) * warp) + extra_bytes;
@@ -424,6 +435,33 @@ __device__ __forceinline__ void fragment_to_tile(float* tile, const float (&c)[4
   for (int i = 0; i < N; ++i) row[i] = tile[(lane & 15) * 8 + i];
 }
 
+// tile_to_fragment over the NT lane tiles of `row`: act[t] from columns
+// 8t .. 8t + 7, through the tile at tile + t * kMmaRows * 8.
+template <int NT>
+__device__ __forceinline__ void row_to_fragments(float* tile, const float (&row)[8 * NT],
+                                                 float (&act)[kRegTiles][4]) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    tile_to_fragment(tile + t * kMmaRows * 8, reinterpret_cast<const float(&)[8]>(row[8 * t]),
+                     act[t]);
+  }
+}
+
+// fragment_to_tile over the tiles of an N-column output: columns 8t .. from
+// act[t], through the tile at tile + t * kMmaRows * 8.
+template <int N>
+__device__ __forceinline__ void fragments_to_row(float* tile, const float (&act)[kRegTiles][4],
+                                                 float (&row)[N]) {
+  static_assert(N <= 8 * kMaxIoTiles, "at most kMaxIoTiles lane tiles");
+  if constexpr (N <= 8) {
+    fragment_to_tile<N>(tile, act[0], row);
+  } else {
+    fragment_to_tile<8>(tile, act[0], reinterpret_cast<float(&)[8]>(row[0]));
+    fragment_to_tile<N - 8>(tile + kMmaRows * 8, act[1],
+                            reinterpret_cast<float(&)[N - 8]>(row[8]));
+  }
+}
+
 // The layers of the MLP over the warp's rows from the input fragment in
 // act[0]: all of them into act[0] (the output), or (kStash) all but the
 // last, with each hidden layer's output stashed for mlp_mma_vjp.
@@ -463,6 +501,43 @@ __device__ __forceinline__ void input_row(const float* sm, const MmaLayout& L,
   }
 }
 
+// The same over the lane tiles of a plant of more than 8 inputs: zero
+// padded to their 8 io_tiles(S, U) columns.
+template <int S, int U>
+__device__ __forceinline__ void input_row_wide(const float* sm, const MmaLayout& L,
+                                               const float (&x)[S], const float (&u)[U],
+                                               float (&row)[8 * io_tiles(S, U)]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) row[i] = x[i];
+#pragma unroll
+  for (int j = 0; j < U; ++j) row[S + j] = u[j];
+#pragma unroll
+  for (int i = S + U; i < 8 * io_tiles(S, U); ++i) row[i] = 0.0f;
+  if (L.norm[0] >= 0) {
+#pragma unroll
+    for (int i = 0; i < S + U; ++i) row[i] = (row[i] - sm[L.norm[0] + i]) / sm[L.norm[1] + i];
+  }
+}
+
+// mlp_mma_step over a plant of more than 8 inputs: [x, u] in io_tiles(S,
+// U) k-blocks, the output's S columns in as many tiles.
+template <int S, int U>
+__device__ __forceinline__ void mlp_mma_step_wide(float* sm, const NetArgs& a, const MmaLayout& L,
+                                                  const float (&x)[S], const float (&u)[U],
+                                                  float (&out)[S]) {
+  constexpr int IT = io_tiles(S, U);
+  float* wsm = warp_region(sm, L);
+  float row[8 * IT], act[kRegTiles][4];
+  input_row_wide<S, U>(sm, L, x, u, row);
+  row_to_fragments<IT>(wsm + L.io, row, act);
+  mlp_mma_layers<false>(sm, wsm, a, L, act);
+  fragments_to_row<S>(wsm + L.io + IT * kMmaRows * 8, act, out);
+  if (L.norm[2] >= 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) out[i] = out[i] * sm[L.norm[3] + i] + sm[L.norm[2] + i];
+  }
+}
+
 // The MLP on this lane's rollout (pallas_neural.py:234-241 in JAX's
 // order): out = norm_out(layers(norm_in([x, u]))), norms where present;
 // the caller adds x (predict_delta) or the base step (K9).
@@ -470,39 +545,40 @@ template <int S, int U>
 __device__ __forceinline__ void mlp_mma_step(float* sm, const NetArgs& a, const MmaLayout& L,
                                              const float (&x)[S], const float (&u)[U],
                                              float (&out)[S]) {
-  float* wsm = warp_region(sm, L);
-  float row[8], act[kRegTiles][4];
-  input_row<S, U>(sm, L, x, u, row);
-  tile_to_fragment(wsm + L.io, row, act[0]);
-  mlp_mma_layers<false>(sm, wsm, a, L, act);
-  fragment_to_tile<S>(wsm + L.io + kMmaRows * 8, act[0], out);
-  if (L.norm[2] >= 0) {
+  if constexpr (io_tiles(S, U) > 1) {
+    mlp_mma_step_wide<S, U>(sm, a, L, x, u, out);
+  } else {
+    float* wsm = warp_region(sm, L);
+    float row[8], act[kRegTiles][4];
+    input_row<S, U>(sm, L, x, u, row);
+    tile_to_fragment(wsm + L.io, row, act[0]);
+    mlp_mma_layers<false>(sm, wsm, a, L, act);
+    fragment_to_tile<S>(wsm + L.io + kMmaRows * 8, act[0], out);
+    if (L.norm[2] >= 0) {
 #pragma unroll
-    for (int i = 0; i < S; ++i) out[i] = out[i] * sm[L.norm[3] + i] + sm[L.norm[2] + i];
+      for (int i = 0; i < S; ++i) out[i] = out[i] * sm[L.norm[3] + i] + sm[L.norm[2] + i];
+    }
   }
 }
 
-// lam^T d out / d(x, u) for mlp_mma_step at (x, u) (ops/adjoints.py
-// mlp_step_vjp without the delta form's identity): the forward re-run for
-// its hidden activations, then last to first norm_out (times std), each
-// layer transposed (g @ W^T, after tanh' = 1 - a^2 on the hidden ones),
-// norm_in (over std).
+// mlp_mma_vjp over a plant of more than 8 inputs (mlp_mma_step_wide's).
 template <int S, int U>
-__device__ __forceinline__ void mlp_mma_vjp(float* sm, const NetArgs& a, const MmaLayout& L,
-                                            const float (&x)[S], const float (&u)[U],
-                                            const float (&lam)[S], float (&gx)[S],
-                                            float (&gu)[U]) {
+__device__ __forceinline__ void mlp_mma_vjp_wide(float* sm, const NetArgs& a, const MmaLayout& L,
+                                                 const float (&x)[S], const float (&u)[U],
+                                                 const float (&lam)[S], float (&gx)[S],
+                                                 float (&gu)[U]) {
+  constexpr int IT = io_tiles(S, U);
   const int lane = threadIdx.x & 31, n = a.n_layers;
   float* wsm = warp_region(sm, L);
-  float row[8], act[kRegTiles][4];
-  input_row<S, U>(sm, L, x, u, row);
-  tile_to_fragment(wsm + L.io, row, act[0]);
+  float row[8 * IT], act[kRegTiles][4];
+  input_row_wide<S, U>(sm, L, x, u, row);
+  row_to_fragments<IT>(wsm + L.io, row, act);
   mlp_mma_layers<true>(sm, wsm, a, L, act);
 #pragma unroll
   for (int i = 0; i < S; ++i) row[i] = L.norm[2] >= 0 ? lam[i] * sm[L.norm[3] + i] : lam[i];
 #pragma unroll
-  for (int i = S; i < 8; ++i) row[i] = 0.0f;
-  tile_to_fragment(wsm + L.io, row, act[0]);
+  for (int i = S; i < 8 * IT; ++i) row[i] = 0.0f;
+  row_to_fragments<IT>(wsm + L.io, row, act);
   float4* arena = reinterpret_cast<float4*>(wsm + L.arena) + lane;
   const int half = L.arena_tiles * 32;
   int cur = 0;
@@ -517,11 +593,76 @@ __device__ __forceinline__ void mlp_mma_vjp(float* sm, const NetArgs& a, const M
     if (in_smem) cur = 1 - cur;
   }
   float g[S + U];
-  fragment_to_tile<S + U>(wsm + L.io + kMmaRows * 8, act[0], g);
+  fragments_to_row<S + U>(wsm + L.io + IT * kMmaRows * 8, act, g);
 #pragma unroll
   for (int i = 0; i < S; ++i) gx[i] = L.norm[0] >= 0 ? g[i] / sm[L.norm[1] + i] : g[i];
 #pragma unroll
   for (int j = 0; j < U; ++j) gu[j] = L.norm[0] >= 0 ? g[S + j] / sm[L.norm[1] + S + j] : g[S + j];
+}
+
+// lam^T d out / d(x, u) for mlp_mma_step at (x, u) (ops/adjoints.py
+// mlp_step_vjp without the delta form's identity): the forward re-run for
+// its hidden activations, then last to first norm_out (times std), each
+// layer transposed (g @ W^T, after tanh' = 1 - a^2 on the hidden ones),
+// norm_in (over std).
+template <int S, int U>
+__device__ __forceinline__ void mlp_mma_vjp(float* sm, const NetArgs& a, const MmaLayout& L,
+                                            const float (&x)[S], const float (&u)[U],
+                                            const float (&lam)[S], float (&gx)[S],
+                                            float (&gu)[U]) {
+  if constexpr (io_tiles(S, U) > 1) {
+    mlp_mma_vjp_wide<S, U>(sm, a, L, x, u, lam, gx, gu);
+  } else {
+    const int lane = threadIdx.x & 31, n = a.n_layers;
+    float* wsm = warp_region(sm, L);
+    float row[8], act[kRegTiles][4];
+    input_row<S, U>(sm, L, x, u, row);
+    tile_to_fragment(wsm + L.io, row, act[0]);
+    mlp_mma_layers<true>(sm, wsm, a, L, act);
+#pragma unroll
+    for (int i = 0; i < S; ++i) row[i] = L.norm[2] >= 0 ? lam[i] * sm[L.norm[3] + i] : lam[i];
+#pragma unroll
+    for (int i = S; i < 8; ++i) row[i] = 0.0f;
+    tile_to_fragment(wsm + L.io, row, act[0]);
+    float4* arena = reinterpret_cast<float4*>(wsm + L.arena) + lane;
+    const int half = L.arena_tiles * 32;
+    int cur = 0;
+    bool in_smem = false;
+    for (int l = n - 1; l >= 0; --l) {
+      const float4* B = reinterpret_cast<const float4*>(sm + L.tw[l]) + lane;
+      const float4* prime = l < n - 1 ? reinterpret_cast<const float4*>(wsm + L.stash[l]) + lane
+                                      : nullptr;
+      mma_layer(act, in_smem, arena + cur * half, arena + (1 - cur) * half, B, L.nt[l], L.kt[l],
+                nullptr, false, prime, nullptr);
+      in_smem = L.kt[l] > kRegTiles;
+      if (in_smem) cur = 1 - cur;
+    }
+    float g[S + U];
+    fragment_to_tile<S + U>(wsm + L.io + kMmaRows * 8, act[0], g);
+#pragma unroll
+    for (int i = 0; i < S; ++i) gx[i] = L.norm[0] >= 0 ? g[i] / sm[L.norm[1] + i] : g[i];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      gu[j] = L.norm[0] >= 0 ? g[S + j] / sm[L.norm[1] + S + j] : g[S + j];
+    }
+  }
+}
+
+// mlp_mma_step and mlp_mma_vjp behind a call: one body each per (S, U) in
+// a source, shared by every kernel that calls it (K9's instances over the
+// plants other than cartpole's: residual_core.cuh).
+template <int S, int U>
+__device__ __noinline__ void mlp_mma_step_call(float* sm, const NetArgs& a, const MmaLayout& L,
+                                               const float (&x)[S], const float (&u)[U],
+                                               float (&out)[S]) {
+  mlp_mma_step<S, U>(sm, a, L, x, u, out);
+}
+template <int S, int U>
+__device__ __noinline__ void mlp_mma_vjp_call(float* sm, const NetArgs& a, const MmaLayout& L,
+                                              const float (&x)[S], const float (&u)[U],
+                                              const float (&lam)[S], float (&gx)[S],
+                                              float (&gu)[U]) {
+  mlp_mma_vjp<S, U>(sm, a, L, x, u, lam, gx, gu);
 }
 
 // The warp's rows: its first rollout, this lane's rollout k (lanes l and

@@ -22,7 +22,8 @@
 // K1's over mppi_controls_plain's controls bit for bit.
 //
 // The pendulum, acrobot and point-mass plants (plants.cuh) take this
-// kernel alone, over short_step.cuh's stage cost and integrate; the
+// kernel and its emit_terminal form, over short_step.cuh's stage cost and
+// integrate; the
 // point mass's two inputs halve the controls-ahead chunk (kDrawControls /
 // U = 32 steps).  So do the quadrotor, car and arm plants,
 // the 3-D quadrotor's four inputs to 16 steps.
@@ -119,8 +120,7 @@ int mppi_cost_blocks_per_sm() {
 // Launches K2 on `stream`, or, with x_term not null, its emit_terminal form,
 // which also writes the terminal states [K, S] there; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
-// plant, or for x_term over a plant whose emit_terminal form is not
-// instantiated: the pendulum, acrobot and point-mass plants carry K2 alone).
+// plant).
 extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const void* pvec,
                              const void* eps, const void* W, const void* low, const void* high,
                              void* cost, void* x_term, int K, int H, int P, int rk4,
@@ -132,26 +132,11 @@ extern "C" int ctt_mppi_cost(int plant, const void* s0, const void* u_nom, const
   constexpr int per_block = ctt::kCemThreads;
   const dim3 grid((K + per_block - 1) / per_block);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (plant) {
-    case ctt::kPlantCartpole:
-      return ctt::launch_mppi_cost<ctt::CartpolePlant>(grid, st, s0, u_nom, pvec, eps, W, low,
-                                                       high, cost, x_term, K, H, P, c, max_cost,
-                                                       cc);
-    case ctt::kPlantCartpoleFast:
-      return ctt::launch_mppi_cost<ctt::CartpoleFastPlant>(grid, st, s0, u_nom, pvec, eps, W,
-                                                           low, high, cost, x_term, K, H, P, c,
-                                                           max_cost, cc);
-    default:
-      if (x_term != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        ctt::mppi_cost_kernel<decltype(plant_tag)><<<grid, ctt::kCemThreads, 0, st>>>(
-            static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-            static_cast<const float*>(pvec), static_cast<const float*>(eps),
-            static_cast<const float*>(W), static_cast<const float*>(low),
-            static_cast<const float*>(high), static_cast<float*>(cost), K, H, P, c, max_cost, cc);
-        return static_cast<int>(cudaGetLastError());
-      });
-  }
+  return ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::launch_mppi_cost<decltype(plant_tag)>(grid, st, s0, u_nom, pvec, eps, W, low,
+                                                      high, cost, x_term, K, H, P, c, max_cost,
+                                                      cc);
+  });
 }
 
 // Blocks of K2 over `plant` that one SM holds (0 where the runtime cannot
@@ -165,4 +150,15 @@ extern "C" int ctt_mppi_cost_plant_blocks_per_sm(int plant) {
   return ctt::with_slice_plant(plant, [](auto plant_tag) {
     return ctt::mppi_cost_blocks_per_sm<decltype(plant_tag)>();
   });
+}
+
+// Blocks of K2's emit_terminal form over `plant` that one SM holds (0 where
+// the runtime cannot say or the plant is unknown).
+extern "C" int ctt_mppi_cost_emit_plant_blocks_per_sm(int plant) {
+  int blocks = 0;
+  const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::blocks_per_sm(ctt::mppi_cost_emit_kernel<decltype(plant_tag)>, ctt::kCemThreads,
+                              blocks);
+  });
+  return rc == 0 ? blocks : 0;
 }

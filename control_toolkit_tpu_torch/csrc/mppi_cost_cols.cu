@@ -33,10 +33,9 @@
 // session's V(x_H)/(H+1) before its softmax.  Its costs are K4's bit for
 // bit.
 //
-// K4 itself carries every ODE plant of plants.cuh (the pendulum, acrobot,
-// point-mass, quadrotor, car and arm plants, with their fast plants: K2's
-// body carries them already); the emit_terminal form stays cartpole's
-// (ops/kernels.py KERNEL_PLANTS).
+// K4 and its emit_terminal form carry every ODE plant of plants.cuh (the
+// pendulum, acrobot, point-mass, quadrotor, car and arm plants, with their
+// fast plants: K2's body carries them already).
 #include "mppi_ahead.cuh"
 
 namespace ctt {
@@ -89,23 +88,20 @@ mppi_cost_cols_emit_kernel(const float* __restrict__ s0, const float* __restrict
   }
 }
 
-// K4, or its emit_terminal form where x_term is not null, over `Plant`
-// (Emit false: K4 alone, x_term ignored).
-template <class Plant, bool Emit = true>
+// K4, or its emit_terminal form where x_term is not null, over `Plant`.
+template <class Plant>
 int launch_mppi_cost_cols(dim3 grid, cudaStream_t st, const void* s0, const void* u_nom,
                           const void* pvec_b, const void* eps, const void* W, const void* low,
                           const void* high, void* cost, void* x_term, int B, int K, int H, int P,
                           const StepConsts& c, float max_cost, const MppiCorr& cc) {
-  if constexpr (Emit) {
-    if (x_term != nullptr) {
-      mppi_cost_cols_emit_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
-          static_cast<const float*>(s0), static_cast<const float*>(u_nom),
-          static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
-          static_cast<const float*>(W), static_cast<const float*>(low),
-          static_cast<const float*>(high), static_cast<float*>(cost),
-          static_cast<float*>(x_term), B, K, H, P, c, max_cost, cc);
-      return static_cast<int>(cudaGetLastError());
-    }
+  if (x_term != nullptr) {
+    mppi_cost_cols_emit_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
+        static_cast<const float*>(s0), static_cast<const float*>(u_nom),
+        static_cast<const float*>(pvec_b), static_cast<const float*>(eps),
+        static_cast<const float*>(W), static_cast<const float*>(low),
+        static_cast<const float*>(high), static_cast<float*>(cost), static_cast<float*>(x_term),
+        B, K, H, P, c, max_cost, cc);
+    return static_cast<int>(cudaGetLastError());
   }
   mppi_cost_cols_kernel<Plant><<<grid, kCemThreads, 0, st>>>(
       static_cast<const float*>(s0), static_cast<const float*>(u_nom),
@@ -120,7 +116,7 @@ int launch_mppi_cost_cols(dim3 grid, cudaStream_t st, const void* s0, const void
 // Launches K4 on `stream`, or, with x_term not null, its emit_terminal
 // form, which also writes the terminal states [B*K, S] there; returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for an unknown
-// plant, or an emit_terminal form over a plant other than cartpole's).
+// plant).
 extern "C" int ctt_mppi_cost_cols(int plant, const void* s0, const void* u_nom,
                                   const void* pvec_b, const void* eps, const void* W,
                                   const void* low, const void* high, void* cost, void* x_term,
@@ -132,23 +128,11 @@ extern "C" int ctt_mppi_cost_cols(int plant, const void* s0, const void* u_nom,
   constexpr int per_block = ctt::kCemThreads;
   const dim3 grid((B * K + per_block - 1) / per_block);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (plant) {
-    case ctt::kPlantCartpole:
-      return ctt::launch_mppi_cost_cols<ctt::CartpolePlant>(grid, st, s0, u_nom, pvec_b, eps, W,
-                                                            low, high, cost, x_term, B, K, H, P,
-                                                            c, max_cost, cc);
-    case ctt::kPlantCartpoleFast:
-      return ctt::launch_mppi_cost_cols<ctt::CartpoleFastPlant>(grid, st, s0, u_nom, pvec_b, eps,
-                                                                W, low, high, cost, x_term, B, K,
-                                                                H, P, c, max_cost, cc);
-    default:  // the other ODE plants: K4 alone (no emit_terminal form)
-      if (x_term != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return ctt::with_slice_plant(plant, [&](auto plant_tag) {
-        return ctt::launch_mppi_cost_cols<decltype(plant_tag), false>(
-            grid, st, s0, u_nom, pvec_b, eps, W, low, high, cost, nullptr, B, K, H, P, c,
-            max_cost, cc);
-      });
-  }
+  return ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::launch_mppi_cost_cols<decltype(plant_tag)>(grid, st, s0, u_nom, pvec_b, eps, W,
+                                                           low, high, cost, x_term, B, K, H, P, c,
+                                                           max_cost, cc);
+  });
 }
 
 // Blocks of K4 over `plant` that one SM holds (0 where the runtime cannot
@@ -158,6 +142,17 @@ extern "C" int ctt_mppi_cost_cols_plant_blocks_per_sm(int plant) {
   const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
     return ctt::blocks_per_sm(ctt::mppi_cost_cols_kernel<decltype(plant_tag)>, ctt::kCemThreads,
                               blocks);
+  });
+  return rc == 0 ? blocks : 0;
+}
+
+// Blocks of K4's emit_terminal form over `plant` that one SM holds (0 where
+// the runtime cannot say or the plant is unknown).
+extern "C" int ctt_mppi_cost_cols_emit_plant_blocks_per_sm(int plant) {
+  int blocks = 0;
+  const int rc = ctt::with_ode_plant(plant, [&](auto plant_tag) {
+    return ctt::blocks_per_sm(ctt::mppi_cost_cols_emit_kernel<decltype(plant_tag)>,
+                              ctt::kCemThreads, blocks);
   });
   return rc == 0 ? blocks : 0;
 }

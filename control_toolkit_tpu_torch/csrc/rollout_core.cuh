@@ -283,53 +283,53 @@ constexpr int kPlantArm2 = 16;                  // Arm2Plant
 constexpr int kPlantArm2Fast = 17;              // Arm2FastPlant
 constexpr int kThreads = 128;      // rollouts per block
 
-// f(Plant{}) for the plant of id `plant` among the pendulum, acrobot,
-// point-mass, quadrotor, car and arm plants, which K1-K7's plain entries
-// and K1's and K7's session-row forms carry (ops/kernels.py KERNEL_PLANTS);
-// cudaErrorInvalidValue for any other id.  Host code: the entries'
-// switches call it for every id but cartpole's.
+// Whether `plant` is one of the pendulum, acrobot, point-mass, quadrotor,
+// car and arm plants (the ids with_slice_plant dispatches).
 inline bool is_slice_plant(int plant) {
   return plant >= kPlantPendulum && plant <= kPlantArm2Fast;
 }
 
+// The plant type of each of those ids.
+template <int Id>
+struct PlantOfId;
+template <> struct PlantOfId<kPlantPendulum> { using type = PendulumPlant; };
+template <> struct PlantOfId<kPlantPendulumFast> { using type = PendulumFastPlant; };
+template <> struct PlantOfId<kPlantAcrobot> { using type = AcrobotPlant; };
+template <> struct PlantOfId<kPlantAcrobotFast> { using type = AcrobotFastPlant; };
+template <> struct PlantOfId<kPlantPointmass> { using type = PointmassPlant; };
+template <> struct PlantOfId<kPlantPointmassObstacles> { using type = PointmassObstaclePlant; };
+template <> struct PlantOfId<kPlantQuadrotor2D> { using type = Quadrotor2DPlant; };
+template <> struct PlantOfId<kPlantQuadrotor2DFast> { using type = Quadrotor2DFastPlant; };
+template <> struct PlantOfId<kPlantQuadrotor3D> { using type = Quadrotor3DPlant; };
+template <> struct PlantOfId<kPlantQuadrotor3DFast> { using type = Quadrotor3DFastPlant; };
+template <> struct PlantOfId<kPlantCar> { using type = CarPlant; };
+template <> struct PlantOfId<kPlantCarFast> { using type = CarFastPlant; };
+template <> struct PlantOfId<kPlantCarObstacles> { using type = CarObstaclePlant; };
+template <> struct PlantOfId<kPlantCarObstaclesFast> { using type = CarObstacleFastPlant; };
+template <> struct PlantOfId<kPlantArm2> { using type = Arm2Plant; };
+template <> struct PlantOfId<kPlantArm2Fast> { using type = Arm2FastPlant; };
+
+// f(Plant{}) for the plant of id `plant` among the ids Ids (a group of
+// with_slice_plant's that a source of its own instantiates);
+// cudaErrorInvalidValue for any other id.
+template <int... Ids, class F>
+int with_plant_in(int plant, F&& f) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  ((plant == Ids && ((rc = f(typename PlantOfId<Ids>::type{})), true)) || ...);
+  return rc;
+}
+
+// f(Plant{}) for the plant of id `plant` among the pendulum, acrobot,
+// point-mass, quadrotor, car and arm plants and their fast plants;
+// cudaErrorInvalidValue for any other id.  Host code: the entries'
+// switches call it for every id but cartpole's.
 template <class F>
 int with_slice_plant(int plant, F&& f) {
-  switch (plant) {
-    case kPlantPendulum:
-      return f(PendulumPlant{});
-    case kPlantPendulumFast:
-      return f(PendulumFastPlant{});
-    case kPlantAcrobot:
-      return f(AcrobotPlant{});
-    case kPlantAcrobotFast:
-      return f(AcrobotFastPlant{});
-    case kPlantPointmass:
-      return f(PointmassPlant{});
-    case kPlantPointmassObstacles:
-      return f(PointmassObstaclePlant{});
-    case kPlantQuadrotor2D:
-      return f(Quadrotor2DPlant{});
-    case kPlantQuadrotor2DFast:
-      return f(Quadrotor2DFastPlant{});
-    case kPlantQuadrotor3D:
-      return f(Quadrotor3DPlant{});
-    case kPlantQuadrotor3DFast:
-      return f(Quadrotor3DFastPlant{});
-    case kPlantCar:
-      return f(CarPlant{});
-    case kPlantCarFast:
-      return f(CarFastPlant{});
-    case kPlantCarObstacles:
-      return f(CarObstaclePlant{});
-    case kPlantCarObstaclesFast:
-      return f(CarObstacleFastPlant{});
-    case kPlantArm2:
-      return f(Arm2Plant{});
-    case kPlantArm2Fast:
-      return f(Arm2FastPlant{});
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_plant_in<kPlantPendulum, kPlantPendulumFast, kPlantAcrobot, kPlantAcrobotFast,
+                       kPlantPointmass, kPlantPointmassObstacles, kPlantQuadrotor2D,
+                       kPlantQuadrotor2DFast, kPlantQuadrotor3D, kPlantQuadrotor3DFast,
+                       kPlantCar, kPlantCarFast, kPlantCarObstacles, kPlantCarObstaclesFast,
+                       kPlantArm2, kPlantArm2Fast>(plant, static_cast<F&&>(f));
 }
 
 // f(Plant{}) for the plant of id `plant` among every ODE plant, cartpole's
@@ -339,6 +339,17 @@ int with_ode_plant(int plant, F&& f) {
   if (plant == kPlantCartpole) return f(CartpolePlant{});
   if (plant == kPlantCartpoleFast) return f(CartpoleFastPlant{});
   return with_slice_plant(plant, static_cast<F&&>(f));
+}
+
+// The states S and controls U of the ODE plant of id `plant`; false (S = U
+// = 0) for an unknown id.
+inline bool plant_dims(int plant, int& S, int& U) {
+  S = U = 0;
+  return with_ode_plant(plant, [&](auto plant_tag) {
+    S = decltype(plant_tag)::S;
+    U = decltype(plant_tag)::U;
+    return 0;
+  }) == 0;
 }
 
 // The instance of a fully-fused kernel (K3's pass 1, K5, K6) over `Plant`,

@@ -26,12 +26,19 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
+# The plants other than cartpole's take K7's value_spec forms, K12 and K9
+# from sources of their own, K7's and K9's in groups of plants
+# (grad_value_plants_<group>.cu, residual_cost_plants.cu,
+# residual_grad_plants_<group>.cu), so that no source's build grows.
 SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
            "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
-           "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu")
+           "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu",
+           *(f"grad_value_plants_{g}.cu" for g in range(2)), "residual_cost_plants.cu",
+           *(f"residual_grad_plants_{g}.cu" for g in range(5)))
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
            "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "cem_core.cuh",
-           "short_step.cuh", "mppi_ahead.cuh", "value_mlp.cuh")
+           "short_step.cuh", "mppi_ahead.cuh", "value_mlp.cuh", "grad_core.cuh",
+           "residual_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -139,14 +146,12 @@ ODE_PLANTS = tuple(PLANT_IDS)
 KERNEL_PLANTS = {
     **{form: ODE_PLANTS for form in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1's session-row form",
-        "K7's session-row form")},
-    **{form: CARTPOLE_PLANTS for form in (
-        "K1's emit_terminal form", "K1's session-row emit_terminal form",
-        "K2's emit_terminal form", "K4's emit_terminal form",
-        "K7's value_spec form", "K7's session-row value_spec form",
-        "K9", "K9's value_spec form", "K9's session-row form",
-        "K9's session-row value_spec form", "K12", "K12's emit_terminal form",
-        "K12's session-row form", "K12's session-row emit_terminal form")},
+        "K7's session-row form", "K1's emit_terminal form", "K1's session-row emit_terminal form",
+        "K2's emit_terminal form", "K4's emit_terminal form", "K7's value_spec form",
+        "K7's session-row value_spec form", "K9", "K9's value_spec form",
+        "K9's session-row form", "K9's session-row value_spec form", "K12",
+        "K12's emit_terminal form", "K12's session-row form",
+        "K12's session-row emit_terminal form")},
     **{form: ("cartpole",) for form in (
         "K8", "K8's value_spec form", "K8's member-block form",
         "K8's member-block value_spec form", "K8's session-row form",
@@ -384,7 +389,7 @@ def residual_plan(plant: str, args: NetArgs) -> Tuple[int, int]:
     if plant not in PLANT_IDS:
         raise ValueError(f"no device plant {plant!r}; known: {sorted(PLANT_IDS)}")
     groups = ctypes.c_int()
-    nbytes = load().ctt_residual_plan(ctypes.byref(args), ctypes.byref(groups))
+    nbytes = load().ctt_residual_plan(PLANT_IDS[plant], ctypes.byref(args), ctypes.byref(groups))
     return int(nbytes), groups.value
 
 
@@ -724,7 +729,18 @@ def load() -> ctypes.CDLL:
                    lib.ctt_cost_rollout_rows_plant_blocks_per_sm):
             fn.argtypes = [i32]
             fn.restype = i32
+        # The emit_terminal forms of K2 and K4 likewise, K1's (rows 0) and its
+        # session-row form's (rows 1); K7's value_spec forward (0) or adjoint
+        # (1), one session's (rows 0) or the session-row form's, under V.
+        for fn in (lib.ctt_mppi_cost_emit_plant_blocks_per_sm,
+                   lib.ctt_mppi_cost_cols_emit_plant_blocks_per_sm):
+            fn.argtypes = [i32]
+            fn.restype = i32
+        lib.ctt_grad_value_plant_blocks_per_sm.argtypes = [i32, i32, i32,
+                                                           ctypes.POINTER(ValueArgs)]
+        lib.ctt_grad_value_plant_blocks_per_sm.restype = i32
         for fn in (lib.ctt_fused_mppi_cost_plant_blocks_per_sm,
+                   lib.ctt_cost_rollout_emit_plant_blocks_per_sm,
                    lib.ctt_grad_cost_plant_blocks_per_sm,
                    lib.ctt_fused_cem_plant_blocks_per_sm,
                    lib.ctt_fused_cem_cols_plant_blocks_per_sm,
@@ -736,7 +752,7 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, net, ptr,
         ]
         lib.ctt_residual_cost_rollout.restype = i32
-        lib.ctt_residual_plan.argtypes = [net, ctypes.POINTER(i32)]
+        lib.ctt_residual_plan.argtypes = [i32, net, ctypes.POINTER(i32)]
         lib.ctt_residual_plan.restype = ctypes.c_long
         lib.ctt_residual_grad_cost_rollout.argtypes = [
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, *step, f32, f32, net, value, ptr,
@@ -744,6 +760,12 @@ def load() -> ctypes.CDLL:
         lib.ctt_residual_grad_cost_rollout.restype = i32
         lib.ctt_residual_grad_value_layout.argtypes = [net, value, long_p]
         lib.ctt_residual_grad_value_layout.restype = i32
+        # A base plant's (plant id) K12 (0) or emit_terminal form (1); its K9
+        # (no value net) or value_spec form: the blocks per SM, the bytes.
+        lib.ctt_residual_plant_blocks_per_sm.argtypes = [i32, i32, net]
+        lib.ctt_residual_plant_blocks_per_sm.restype = i32
+        lib.ctt_residual_grad_plant_layout.argtypes = [i32, net, value, long_p]
+        lib.ctt_residual_grad_plant_layout.restype = i32
         gp = ctypes.POINTER(GPArgs)
         lib.ctt_gp_cost_rollout.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
                                             i32, gp, ptr]

@@ -8,10 +8,10 @@ predictor its plant's fast plant, the polynomial-trig instance of every
 kernel, whose fully-fused forms draw the fast normals), with
 ``supports_fused_rollout`` and scalar attributes, and ``force_scan`` off;
 the gradient gate adds a plant with hand-written adjoints
-(``ops/adjoints.py`` PLANT_ADJOINTS).  A kernel that the gate admits but
-that has no instance of the plant (``ops/kernels.py`` KERNEL_PLANTS: the
-emit_terminal and value_spec forms carry cartpole's alone)
-raises where it is bound (``kernels.require``), as does every other
+(``ops/adjoints.py`` PLANT_ADJOINTS).  Every form of K1 and K7 carries
+every plant (``ops/kernels.py`` KERNEL_PLANTS); a kernel that the gate
+admits but that has no instance of the plant would raise where it is bound
+(``kernels.require``), as does every other
 family's: a (dynamics, cost) pair that the JAX package would send to a
 kernel never takes the scan here instead.  A cost that is no device
 plant's (a user's subclass, an array-attribute cost such as

@@ -10,7 +10,9 @@ build starts from nothing: the checkout's library is removed first, and
 the one built is left in its place (for ``probes/sass_same.py``).  One
 process a build.  Prints one line, ``build_times: [...]``: for each build,
 the checkout, the CPU count, the wall seconds of the compiles and of the
-link, and each source's seconds from the common start.
+link, each source's seconds from the common start, and the CPU seconds
+each source's nvcc and the compilers it ran took (their sum over the CPU
+count bounds the compiles' wall time from below).
 """
 from __future__ import annotations
 
@@ -31,26 +33,35 @@ def build(root: Path) -> dict:
     out.parent.mkdir(parents=True, exist_ok=True)
     objs = [f"{out}.{Path(src).stem}.o" for src in kernels.SOURCES]
     nvcc = kernels._nvcc()
+    logs = {src: open(f"{obj}.log", "w+") for src, obj in zip(kernels.SOURCES, objs)}
     t0 = time.perf_counter()
-    procs = {src: subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", obj,
-                                    str(kernels.CSRC_DIR / src)],
-                                   stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(kernels.SOURCES, objs)}
-    seconds = {}
+    started = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", obj,
+                                 str(kernels.CSRC_DIR / src)],
+                                stdout=subprocess.DEVNULL, stderr=logs[src])
+               for src, obj in zip(kernels.SOURCES, objs)]
+    procs = {proc.pid: src for proc, src in zip(started, kernels.SOURCES)}
+    seconds, cpu = {}, {}
     while len(seconds) < len(procs):
-        for src, proc in procs.items():
-            if src not in seconds and proc.poll() is not None:
-                seconds[src] = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise SystemExit(f"nvcc failed on {src}:\n{proc.stderr.read()}")
-        time.sleep(0.02)
+        # wait4: each nvcc's exit and the CPU seconds of it and the
+        # compilers it ran (cudafe++, cicc, ptxas, the host compiler).
+        pid, status, usage = os.wait4(-1, 0)
+        if pid not in procs:
+            continue
+        src = procs[pid]
+        seconds[src] = time.perf_counter() - t0
+        cpu[src] = usage.ru_utime + usage.ru_stime
+        if os.waitstatus_to_exitcode(status) != 0:
+            logs[src].seek(0)
+            raise SystemExit(f"nvcc failed on {src}:\n{logs[src].read()}")
     compiled = time.perf_counter() - t0
     subprocess.run([nvcc, "-shared", "-o", str(out), *objs], check=True)
     total = time.perf_counter() - t0
     for obj in objs:
         Path(obj).unlink()
+        Path(f"{obj}.log").unlink()
     return {"checkout": str(root), "cpus": os.cpu_count(), "compile_s": compiled,
-            "total_s": total, "sources": len(seconds), "source_s": seconds}
+            "total_s": total, "sources": len(seconds), "source_s": seconds,
+            "cpu_s": cpu, "cpu_total_s": sum(cpu.values())}
 
 
 def main() -> None:

@@ -2,6 +2,7 @@
 never imports jax, a CUDA device, named or the default, never falls back
 to the CPU, and chip_smoke.py fails (and prints no result) where there is
 no card."""
+import ast
 import re
 import subprocess
 import sys
@@ -78,6 +79,28 @@ def test_port_sources_never_import_jax():
     for path in paths:
         for line in path.read_text().splitlines():
             assert not foreign.match(line), f"{path}: {line}"
+
+
+def test_chip_smoke_binds_each_top_level_name_once():
+    """A second top-level def, class, assignment or import of one name in
+    chip_smoke.py would silently replace the first for every phase that
+    calls it."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    lines = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            bound = [node.name]
+        elif isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            bound = [n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)]
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            bound = [(a.asname or a.name).split(".")[0] for a in node.names]
+        else:
+            continue
+        for name in bound:
+            lines.setdefault(name, []).append(node.lineno)
+    twice = {name: at for name, at in lines.items() if len(at) > 1}
+    assert not twice, f"bound more than once at the top level: {twice}"
 
 
 NO_JAX_NEURAL_DRIVE = r"""

@@ -44,18 +44,20 @@ from control_toolkit_tpu_torch.costs.value_terminal import attach_value_terminal
 from control_toolkit_tpu_torch.models import dynamics as pdyn
 from control_toolkit_tpu_torch.ops import adjoints, kernels
 from control_toolkit_tpu_torch.ops.cost_rollout import (
-    cost_rollout, cost_rollout_cols, cost_rollout_plain,
+    cost_rollout, cost_rollout_cols, cost_rollout_emit, cost_rollout_plain,
 )
 from control_toolkit_tpu_torch.ops.fused_cem import fused_cem_costs
 from control_toolkit_tpu_torch.ops.fused_cem_cols import fused_cem_cols
 from control_toolkit_tpu_torch.ops.fused_mppi import fused_mppi_step
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_plain,
+    grad_cost_rollout, grad_cost_rollout_cols, grad_cost_rollout_plain, grad_cost_rollout_value,
 )
-from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost
+from control_toolkit_tpu_torch.ops.mppi_cost import mppi_cost, mppi_cost_emit
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols
+from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import residual_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
-from control_toolkit_tpu_torch.optimizers.kernel_families import ode
+from control_toolkit_tpu_torch.optimizers.kernel_families import ode, residual
 from control_toolkit_tpu_torch.utils import registry
 from control_toolkit_tpu_torch.utils.convert import (
     mppi_state_from_numpy, params_from_numpy, rpgd_state_from_numpy,
@@ -816,12 +818,55 @@ def test_ported_fleet_paths_build_and_step_on_the_cpu(path, label):
     assert np.all(u >= lo) and np.all(u <= hi)
 
 
+# label of a ported value or residual path: (the kernel form it launches on
+# the card, the wrapper whose plain version runs here, a function that builds
+# it, its gate)
+PORTED_FORMS = {
+    "valued_mppi": ("K2's emit_terminal form", mppi_cost_emit,
+                    lambda lb: valued(lb, "mppi", small()),
+                    lambda c: c.optimizer._uses_semi_fused()),
+    "valued_modular_mppi": ("K1's emit_terminal form", cost_rollout_emit,
+                            lambda lb: valued(lb, "mppi", small(semi_fused=False)),
+                            lambda c: ode.can_use_cost(c.optimizer)
+                            and not c.optimizer._uses_semi_fused()),
+    "valued_rpgd": ("K7's value_spec form", grad_cost_rollout_value,
+                    lambda lb: valued(lb, "rpgd-tf", small_rpgd()),
+                    lambda c: ode.can_use_grad(c.optimizer)
+                    and c.optimizer._value_grad_spec() is not None),
+    "residual": ("K12", residual_cost_rollout,
+                 lambda lb: port_ctrl(lb, "mppi", small(), "ODE+res"),
+                 lambda c: residual.can_use_cost(c.optimizer)),
+    "residual_rpgd": ("K9", residual_grad_cost_rollout,
+                      lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ODE+res"),
+                      lambda c: residual.can_use_grad(c.optimizer)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PORTED_FORMS))
+@pytest.mark.parametrize("label", ["pendulum", "pointmass_obstacles", "quadrotor3d",
+                                   "car_obstacles"])
+def test_ported_value_and_residual_paths_reach_their_form_on_the_cpu(path, label):
+    """The learned-value and residual paths (the emit_terminal forms of K1
+    and K2, K7's value_spec form, K12 and K9) build over these plants (the
+    forms carry every plant id), their gate admits the form, and their
+    first step runs on the CPU through the form's plain version: the
+    wrapper launches nothing, and the controls are finite and within the
+    limits."""
+    form, wrapper, build, gate = PORTED_FORMS[path]
+    plant = PLANTS[label][2]
+    assert plant in kernels.KERNEL_PLANTS[form]
+    ctrl = build(label)
+    assert gate(ctrl)
+    launches = wrapper.launches
+    s = states(label, np.random.default_rng(2), 1)[0]
+    lo, hi = limits(PLANTS[label][0])
+    u = ctrl.step(s)
+    assert wrapper.launches == launches
+    assert u.shape == lo.shape and np.all(np.isfinite(u)) and np.all(u >= lo) and np.all(u <= hi)
+
+
 # label of the path: (the kernel form it would launch, a function that builds it)
 REFUSED = {
-    "valued_mppi": ("K2's emit_terminal form", lambda lb: valued(lb, "mppi", small())),
-    "valued_modular_mppi": ("K1's emit_terminal form",
-                            lambda lb: valued(lb, "mppi", small(semi_fused=False))),
-    "valued_rpgd": ("K7's value_spec form", lambda lb: valued(lb, "rpgd-tf", small_rpgd())),
     "mlp": ("K11", lambda lb: port_ctrl(lb, "mppi", small(), "neural:mlp-16-16")),
     "mlp_rpgd": ("K8", lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "neural:mlp-16-16")),
     "gru": ("K13", lambda lb: port_ctrl(lb, "mppi", small(), "neural:GRU-8H1")),
@@ -835,8 +880,6 @@ REFUSED = {
                  lambda lb: port_ctrl(lb, "mppi", small(), "ensemble:mlp-8-8:2")),
     "ensemble_rpgd": ("K8's member-block form",
                       lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ensemble:mlp-8-8:2")),
-    "residual": ("K12", lambda lb: port_ctrl(lb, "mppi", small(), "ODE+res")),
-    "residual_rpgd": ("K9", lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ODE+res")),
 }
 
 
@@ -904,22 +947,31 @@ def test_fully_fused_reaches_k3(label):
     assert np.all(np.isfinite(u))
 
 
-def test_unknown_plants_and_forms_are_refused_before_a_launch():
+def test_unknown_plants_and_forms_are_refused_before_a_launch(monkeypatch):
     """The record refuses a plant that a form does not carry, and every
     wrapper consults it before any launch (the C entries return
-    cudaErrorInvalidValue for them too)."""
+    cudaErrorInvalidValue for them too): a wrapper whose form the record
+    says does not carry the acrobot raises before touching its operands."""
     from control_toolkit_tpu_torch.ops import cost_rollout as k1_module
 
-    with pytest.raises(NotImplementedError, match="K1's emit_terminal form over the 'acrobot'"):
-        kernels.require("K1's emit_terminal form", "acrobot")
-    with pytest.raises(NotImplementedError, match="K9 over the 'quadrotor2d'"):
-        kernels.require("K9", "quadrotor2d")
+    with pytest.raises(NotImplementedError, match="K11's emit_terminal form over the 'acrobot'"):
+        kernels.require("K11's emit_terminal form", "acrobot")
+    with pytest.raises(NotImplementedError, match="K8 over the 'quadrotor2d'"):
+        kernels.require("K8", "quadrotor2d")
     for kernel in ("K1", "K2", "K3", "K7", "K4", "K5", "K6", "K1's session-row form",
-                   "K7's session-row form"):
+                   "K7's session-row form", "K1's emit_terminal form",
+                   "K1's session-row emit_terminal form", "K2's emit_terminal form",
+                   "K4's emit_terminal form", "K7's value_spec form",
+                   "K7's session-row value_spec form", "K9", "K9's value_spec form",
+                   "K9's session-row form", "K9's session-row value_spec form", "K12",
+                   "K12's emit_terminal form", "K12's session-row form",
+                   "K12's session-row emit_terminal form"):
         assert set(kernels.KERNEL_PLANTS[kernel]) == set(kernels.PLANT_IDS)
     _, pctrl, _, params = pair("acrobot")
     model, pack = ode.rollout_model(pctrl.optimizer)
     s0, Q = torch.zeros(8, 4), torch.zeros(8, 3, 1)
+    monkeypatch.setitem(kernels.KERNEL_PLANTS, "K1's emit_terminal form",
+                        kernels.CARTPOLE_PLANTS)
     with pytest.raises(NotImplementedError, match="K1's emit_terminal form"):
         k1_module._launch("cost_rollout_emit", model, s0, Q, pack(params, torch.zeros(1)), 8,
                           torch.empty(8, 4))

@@ -49,7 +49,8 @@ from control_toolkit_tpu.optimizers.rpgd import RPGDState as JaxRPGDState
 from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.cost_rollout import (
-    cost_rollout, cost_rollout_cols, cost_rollout_cols_plain,
+    cost_rollout, cost_rollout_cols, cost_rollout_cols_emit, cost_rollout_cols_emit_plain,
+    cost_rollout_cols_plain,
 )
 from control_toolkit_tpu_torch.ops.counter_prng import FNV, MASK
 from control_toolkit_tpu_torch.ops.fused_cem import (
@@ -59,11 +60,12 @@ from control_toolkit_tpu_torch.ops.fused_cem_cols import (
     cols_counters, fused_cem_cols, fused_cem_cols_plain, regen_cols,
 )
 from control_toolkit_tpu_torch.ops.grad_cost_rollout import (
-    grad_cost_rollout_cols, grad_cost_rollout_cols_plain,
+    grad_cost_rollout_cols, grad_cost_rollout_cols_plain, grad_cost_rollout_cols_value,
 )
 from control_toolkit_tpu_torch.ops.interpolation import interpolation_matrix
 from control_toolkit_tpu_torch.ops.mppi_cost_cols import (
-    eps_from_tiles, mppi_cost_cols, mppi_cost_cols_plain,
+    eps_from_tiles, mppi_cost_cols, mppi_cost_cols_emit, mppi_cost_cols_emit_plain,
+    mppi_cost_cols_plain,
 )
 from control_toolkit_tpu_torch.optimizers.base import make_slot_packer, split_slot_keys
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
@@ -765,14 +767,18 @@ SLICE_PLANTS = [p for p in kernels.PLANT_IDS if p not in kernels.CARTPOLE_PLANTS
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["K4", "K5", "K6", "K1's session-row form",
-                                  "K7's session-row form"])
+                                  "K7's session-row form", "K4's emit_terminal form",
+                                  "K1's session-row emit_terminal form",
+                                  "K7's session-row value_spec form"])
 @pytest.mark.parametrize("plant", SLICE_PLANTS)
 def test_cuda_fleet_instances_match_plain_versions(cuda_device, form, plant):
     """Each plant's instance of K4, K5, K6 and the session-row forms of K1
-    and K7 against its plain version on the same card tensors, at ragged
-    sizes (blocks straddle sessions), K5 and K6 equal to K1 over their
-    regenerated controls, the session-row forms to their single-session
-    kernels session by session (test_torch_kernels.py's tolerance)."""
+    and K7 (with the emit_terminal forms of K4 and session-row K1 and the
+    session-row value_spec form of K7) against its plain version on the
+    same card tensors, at ragged sizes (blocks straddle sessions), K5 and
+    K6 equal to K1 over their regenerated controls, the emit forms' costs
+    equal to their kernels' (test_torch_kernels.py's tolerance; x_H to
+    1e-4 of its largest entry)."""
     label = label_of(plant)
     spec = "ODE:rk4:1:fast" if plant.endswith("_fast") else "ODE"
     ctrl = port_ctrl(label, spec=spec)
@@ -814,18 +820,44 @@ def test_cuda_fleet_instances_match_plain_versions(cuda_device, form, plant):
             assert torch.equal(got[b], cost_rollout(model, s0[b].expand(Kf, -1).contiguous(),
                                                     Q[b].contiguous(), rows[b]))
         return
-    if form == "K4":
+    x_tol = dict(rtol=1e-4, atol=1e-4)
+    if form in ("K4", "K4's emit_terminal form"):
         W = torch.as_tensor(interpolation_matrix(Hc, 10), device=dev)
         u_nom = torch.clamp(mid + 0.2 * half * torch.randn(Bc, Hc, U, generator=gen, device=dev),
                             low, high)
         eps = 0.2 * torch.randn(Bc, W.shape[0], U, Kc, generator=gen, device=dev)
         args = (model, s0, u_nom, rows, eps, W, low, high, 1.0, 1.0, 1000.0)
-        torch.testing.assert_close(mppi_cost_cols(*args), mppi_cost_cols_plain(*args), **tol)
+        if form == "K4":
+            torch.testing.assert_close(mppi_cost_cols(*args), mppi_cost_cols_plain(*args), **tol)
+            return
+        (cost, x_h), (_, ref_x) = mppi_cost_cols_emit(*args), mppi_cost_cols_emit_plain(*args)
+        assert torch.equal(cost, mppi_cost_cols(*args))
+        torch.testing.assert_close(x_h, ref_x, **x_tol)
         return
     Q = low + (high - low) * torch.rand(Bc * Kc, Hc, U, generator=gen, device=dev)
     args = (model, s0.repeat_interleave(Kc, dim=0), Q, rows)
     if form == "K1's session-row form":
         torch.testing.assert_close(cost_rollout_cols(*args), cost_rollout_cols_plain(*args), **tol)
+        return
+    if form == "K1's session-row emit_terminal form":
+        (cost, x_h), (_, ref_x) = cost_rollout_cols_emit(*args), cost_rollout_cols_emit_plain(*args)
+        assert torch.equal(cost, cost_rollout_cols(*args))
+        torch.testing.assert_close(x_h, ref_x, **x_tol)
+        return
+    if form == "K7's session-row value_spec form":
+        g = torch.Generator(device=dev).manual_seed(S)
+        ops = [torch.randn(S, 8, generator=g, device=dev) / S ** 0.5, torch.zeros(8, device=dev),
+               torch.randn(8, 1, generator=g, device=dev), torch.zeros(1, device=dev)]
+        (cost, dQ), (ref_cost, ref_dQ) = (grad_cost_rollout_cols_value(*args, ops),
+                                          grad_cost_rollout_cols_plain(*args, value_ops=ops))
+        torch.testing.assert_close(cost, ref_cost, **tol)
+        if not plant.startswith("arm2"):
+            assert float((dQ - ref_dQ).abs().max()) <= 2e-5 * float(ref_dQ.abs().max()) + 1e-6
+            return
+        args64 = (model, args[1].double(), Q.double(), rows.double())
+        ref64 = grad_cost_rollout_cols_plain(*args64, value_ops=[o.double() for o in ops])[1]
+        err, plain_err = ((d.double() - ref64).abs().max() for d in (dQ, ref_dQ))
+        assert float(err) <= F64_FACTOR * float(plain_err) + 1e-6 * float(ref64.abs().max())
         return
     (cost, dQ), (ref_cost, ref_dQ) = grad_cost_rollout_cols(*args), grad_cost_rollout_cols_plain(
         *args)
