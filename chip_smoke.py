@@ -534,7 +534,37 @@ and over the same plant ids the learned-value and residual forms:
     (semi-fused, modular), valued rpgd-tf, adaptive MPPI over "ODE+res"
     with one dynamics constant 10% off and an OnlineSysId fit every 50
     ticks, rpgd-tf over "ODE+res" (valued too), the valued MPPI and
-    rpgd-tf fleets, the "ODE+res" MPPI and rpgd-tf fleets (valued too).
+    rpgd-tf fleets, the "ODE+res" MPPI and rpgd-tf fleets (valued too);
+
+and over the nine costs other than cartpole's (a network or GP kernel's
+plant is its cost's) the learned-dynamics kernels:
+
+92. each cost's instances of K11 (plain, emit_terminal, session-row and its
+    emit_terminal form, member-block and its emit_terminal form), K13 (GRU
+    and LSTM: plain, emit_terminal, session-row; the 3-D quadrotor's on two
+    input and two head tiles), K14 (plain, emit_terminal, session-row and
+    its emit_terminal form) and K10 (plain, value_spec, session-row and its
+    value_spec form) against their plain versions over seeded mlp-64-64,
+    GRU and LSTM 32-32, 4 x mlp-32-32 and a GP of 128 inducing points at the
+    plant's widths, the single-session forms at K=16384, H=50, the
+    session-row ones at 32 sessions of K=512, H=35: costs to the nets'
+    bounds or float64, dQ to K7's bound or float64, x_H to float64
+    (f64_held, its kernel ratio capped at 3), each bound rejecting the
+    controls read a step early, the cost's named stage term dropped (each
+    margin printed), x_{H-1} and the next rollout's x_H, the next session's
+    rows (and hidden) and dV/dx_H dropped, K13's x_H bound the plain
+    version in single-pass TF32; the emit forms' costs equal to their
+    kernels'; each instance's CUDA-event time, FP32 and tensor-core bound,
+    plain ms, registers, spills and blocks per SM;
+93. one update of each path on the card against the CPU's over the 3-D
+    quadrotor's cost: MPPI and CEM over the MLP, GRU and LSTM, MPPI over
+    the GP and the ensemble, valued MPPI over the MLP and the GP, rpgd-tf
+    over the GP (valued too), the MPPI fleets over the MLP, GRU and GP, the
+    rpgd-tf fleet over the GP;
+94. closed loops counted from 0 of every such path (and the valued MPPI over
+    the ensemble, GRU and LSTM, the LSTM fleet, the valued MLP and GP
+    fleets and the valued rpgd-tf fleet over the GP) over every cost at the
+    main path's width, 2 ticks each.
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
@@ -1732,11 +1762,11 @@ def rnn_ops(net, kind: str) -> int:
 def rnn_mma_tiles(net, kind: str) -> int:
     """m16n8k8 tiles of one step of K13 over a group's 16 rows
     (csrc/rnn_mma.cuh): per cell, each gate's unit tiles times the k-blocks
-    of its input and of its hidden, widths padded to 8; the head's one
-    output tile times its k-blocks."""
+    of its input and of its hidden, widths padded to 8; the head's output
+    tiles (one; the 3-D quadrotor's two) times its k-blocks."""
     gates = 3 if kind == "gru" else 4
     tiles = sum(gates * -(-hd // 8) * (-(-d_in // 8) + -(-hd // 8)) for d_in, hd in rnn_cells(net))
-    return tiles + -(-net["wo"].shape[0] // 8)
+    return tiles + -(-net["wo"].shape[0] // 8) * -(-net["wo"].shape[1] // 8)
 
 
 # ---- the learned-dynamics phases ------------------------------------------------
@@ -1814,6 +1844,7 @@ def k11_cases(model, s0, Q, pvec, net) -> dict:
     macs = sum(a * b for a, b in zip(mlp_dims(net), mlp_dims(net)[1:]))
     mma_resources("k11_resources", "neural_cost_rollout_kernel", args, "neural",
                   tc_bound_ms(mlp_forward_tiles(net), mlp_ops(net) - 2 * macs + STAGE_OPS),
+                  instance=CART,
                   extra={"group_warps": group_warps, "groups_per_block": groups,
                          "warps_per_sm": group_warps * groups
                          * kernels.net_blocks_per_sm("neural", args)})
@@ -1944,6 +1975,12 @@ def entry_pattern(kernel: str, instance: str = "") -> str:
     """A regex of the mangled entry function of the template ``kernel``,
     its template arguments matching ``instance`` (K13's G = 3: ``Li3E``)."""
     return rf"\d+{kernel}I\w*{instance}"
+
+
+# The mangled template argument of cartpole's cost: K11's, K13's, K14's
+# and K10's entries are instances over each cost (phase 92's COST_MANGLED
+# names the others'), so cartpole's are picked by it.
+CART = "12CartpoleCostE"
 
 
 def ptxas_resources(kernel: str, instance: str = "") -> dict:
@@ -2172,7 +2209,7 @@ def compare_recurrent(label: str, spec: str, s0, Q, gen) -> tuple:
     mma_resources(f"{label}_resources", "recurrent_cost_rollout_kernel",
                   model.net_args(net, hidden)[0], "recurrent",
                   tc_bound_ms(rnn_mma_tiles(net, model.kind), scalar),
-                  instance="Li3E" if model.kind == "gru" else "Li4E")
+                  instance=CART + ("Li3E" if model.kind == "gru" else "Li4E"))
     return numbers
 
 
@@ -2446,7 +2483,7 @@ def k14_cases(model, s0, Q, pvec, wops, gops, gp_params) -> dict:
           f"K14's costs differ from K10's J at the same lanes {equal}")
     M = wops["Zs"].shape[0]
     lanes, threads, blocks = kernels.gp_layout(M, grad=False)
-    numbers["resources"] = {**ptxas_resources("gp_cost_rollout_kernel", f"Li{lanes}E"),
+    numbers["resources"] = {**ptxas_resources("gp_cost_rollout_kernel", f"{CART}Li{lanes}E"),
                             "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(4, 1, M)),
                             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
                             "lanes": lanes}
@@ -2506,7 +2543,7 @@ def k10_cases(model, s0, Q, pvec, wops, gp_params) -> dict:
     emit("k10_cases", numbers)
     M = wops["Zs"].shape[0]
     lanes, threads, blocks = kernels.gp_layout(M)
-    numbers["resources"] = {**ptxas_resources("gp_grad_cost_rollout_kernel", f"Li{lanes}E"),
+    numbers["resources"] = {**ptxas_resources("gp_grad_cost_rollout_kernel", f"{CART}Li{lanes}E"),
                             "smem_bytes": int(kernels.load().ctt_gp_smem_bytes(4, 1, M)),
                             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
                             "lanes": lanes}
@@ -3044,7 +3081,8 @@ def value_slack(post, x: torch.Tensor, cost_params: dict, horizon: int) -> torch
 
 
 def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = "ODE",
-                      value=None, cpu: MPCController = None, s_now=None) -> None:
+                      value=None, cpu: MPCController = None, s_now=None,
+                      tol: dict = KERNEL_TOL) -> None:
     """Phase 34, CEM: one update on the card and on the CPU (the plain
     versions) from the card's state and params with the same draws, outer
     iteration by outer iteration.  Both score the card's mue and std; the
@@ -3058,7 +3096,8 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = 
     to X_TOL: its costs get, beside the kernel's bound, ``value_slack``'s
     first-order reach of that bound through V (the committed V's slope
     reaches ~8e4 a unit of state).  Another plant's controller passes its
-    CPU twin ``cpu`` and a state ``s_now [1, S]``."""
+    CPU twin ``cpu`` and a state ``s_now [1, S]``; a recurrent net's costs
+    take ``tol`` (RNN_TOL) in place of the kernel's bound."""
     opt = ctrl.optimizer
     state = opt.opt_state
     if s_now is None:
@@ -3082,7 +3121,7 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = 
         cost_c, pick_c, _ = score_c(mue_in, std_in, draw.cpu())
         idx = elite_indices(cost, best_k)
         kth = torch.sort(cost_c).values[best_k - 1]
-        slack = KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * float(kth.abs())
+        slack = tol["atol"] + tol["rtol"] * float(kth.abs())
         errs["topk_excess"] = max(errs["topk_excess"], float(cost_c[idx.cpu()].max() - kth))
         check(float(cost_c[idx.cpu()].max() - kth) <= slack,
               f"{name}: the card's elites are not a top-k of the CPU's costs")
@@ -3103,7 +3142,7 @@ def update_vs_cpu_cem(name: str, ctrl: MPCController, config: dict, spec: str = 
                                 copt._cost_params(to_cpu(params)), copt.mpc_horizon)
             slack_max = max(slack_max, float(slack.max()))
         check(bool(((cost.cpu() - cost_c).abs()
-                    <= KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * cost_c.abs() + slack).all()),
+                    <= tol["atol"] + tol["rtol"] * cost_c.abs() + slack).all()),
               f"{name}: costs differ {errs}, value slack {slack_max}")
     u, new, _ = opt.update(state, s_now, params, draws)
     cpu_state = state._replace(generator=torch.Generator(), dist_mue=state.dist_mue.cpu(),
@@ -3749,15 +3788,15 @@ def cols_resources(kind: str, args: tuple) -> dict:
     model, *_, weights = args[:5]
     if kind == "gp":
         lanes, threads, blocks = kernels.gp_layout(weights["Zs"].shape[0], grad=False)
-        return {**ptxas_resources("gp_cost_rollout_kernel", f"Li{lanes}E"),
+        return {**ptxas_resources("gp_cost_rollout_kernel", f"{CART}Li{lanes}E"),
                 "lanes": lanes, "threads_per_block": threads, "blocks_per_sm": blocks}
     hidden = args[5] if len(args) > 5 else None
     net_args = model.net_args(weights, hidden, args[3].shape[0])[0] if hidden else (
         model.net_args(weights)[0])
     kernel, occupancy, instance = {
-        "mlp": ("neural_cost_rollout_kernel", "neural", ""),
-        "gru": ("recurrent_cost_rollout_kernel", "recurrent", "Li3E"),
-        "lstm": ("recurrent_cost_rollout_kernel", "recurrent", "Li4E"),
+        "mlp": ("neural_cost_rollout_kernel", "neural", CART),
+        "gru": ("recurrent_cost_rollout_kernel", "recurrent", CART + "Li3E"),
+        "lstm": ("recurrent_cost_rollout_kernel", "recurrent", CART + "Li4E"),
         "residual": ("residual_cost_rollout_kernel", "residual", "")}[kind]
     return {**ptxas_resources(kernel, instance),
             "smem_bytes": kernels.net_smem_bytes("cartpole", net_args, occupancy),
@@ -4016,7 +4055,7 @@ def grad_cols_resources(form: str, args: tuple) -> dict:
                             "blocks_per_sm": int(lib.ctt_grad_cost_adjoint_blocks_per_sm(1))}}
     if form == "k10":
         lanes, threads, blocks = kernels.gp_layout(weights["Zs"].shape[0], grad=True)
-        return {**ptxas_resources("gp_grad_cost_rollout_kernel", f"Li{lanes}E"),
+        return {**ptxas_resources("gp_grad_cost_rollout_kernel", f"{CART}Li{lanes}E"),
                 "lanes": lanes, "threads_per_block": threads, "blocks_per_sm": blocks}
     kernel, occupancy = {"k8": ("neural_grad_cost_rollout_kernel", "neural_grad"),
                          "k9": ("residual_grad_cost_rollout_kernel", "residual_grad")}[form]
@@ -4277,10 +4316,10 @@ def compare_ens(model, s0, Q, pvec, net) -> dict:
     check(all(equal) and e1, f"K11's member-block form is not K11 member by member {out}")
     numbers["resources"] = mma_resources(
         "k11_ens_resources", "neural_cost_rollout_ens_kernel", args, "neural_ens",
-        numbers["tc_bound_ms"],
+        numbers["tc_bound_ms"], instance=CART,
         extra={"group_warps": group_warps, "groups_per_block": groups,
                "blocks_per_member": -(-(K // net["w0"].shape[0]) // (16 * groups)),
-               "k11_single_net": ptxas_resources("neural_cost_rollout_kernel")})
+               "k11_single_net": ptxas_resources("neural_cost_rollout_kernel", CART)})
     return numbers
 
 
@@ -4579,9 +4618,10 @@ def value_fleet_update_vs_cpu(ctrl: BatchedMPCController, net: dict, gen) -> Non
 # Each learned emit form's entry and its kernel's, by the label of phase
 # 59, with the template instance they share (K13's gates, K14's lanes).
 LEARNED_EMIT_ENTRIES = {
-    "k11": ("neural_cost_rollout", ""), "k11_ens": ("neural_cost_rollout_ens", ""),
-    "k12": ("residual_cost_rollout", ""), "k13_gru": ("recurrent_cost_rollout", "Li3E"),
-    "k13_lstm": ("recurrent_cost_rollout", "Li4E"), "k14": ("gp_cost_rollout", "Li4E")}
+    "k11": ("neural_cost_rollout", CART), "k11_ens": ("neural_cost_rollout_ens", CART),
+    "k12": ("residual_cost_rollout", ""), "k13_gru": ("recurrent_cost_rollout", CART + "Li3E"),
+    "k13_lstm": ("recurrent_cost_rollout", CART + "Li4E"),
+    "k14": ("gp_cost_rollout", CART + "Li4E")}
 # The session-row emit forms: the form, its plain version and the
 # single-session emit form each session is held to.
 COLS_EMIT = {"mlp": (neural_cost_rollout_cols_emit, neural_cost_rollout_cols_emit_plain,
@@ -4766,20 +4806,24 @@ def f64_err(got, ref64) -> float:
     return float((got.double() - ref64).abs().max())
 
 
-def f64_held(got, plain, ref64, unvalued=None) -> dict:
+def f64_held(got, plain, ref64, unvalued=None, cap: float = None) -> dict:
     """gp_vs_float64's criterion: ``got`` no further from ``ref64`` than
     GP_F64_FACTOR times ``plain``'s distance from it, plus 1e-6 of its
     largest entry.  ``unvalued``: the same kernel's, plain version's and
     float64 plain version's outputs without V; where the kernel's own
     arithmetic is further from float64 than the plain version's (K8's
     3xTF32 products against cuBLAS's float32), that ratio scales the
-    plain version's distance, which V amplifies alike in both."""
+    plain version's distance, which V amplifies alike in both; ``cap``
+    bounds the ratio (its uncapped value kept beside it)."""
     n = {"f64_max_abs_err": f64_err(got, ref64), "plain_f64_max_abs_err": f64_err(plain, ref64),
          "max_abs": float(ref64.abs().max()), "kernel_ratio": 1.0}
     if unvalued is not None:
         k0, p0 = (f64_err(t, unvalued[2]) for t in unvalued[:2])
+        ratio = max(1.0, k0 / max(p0, 1e-30))
         n.update(unvalued_f64_max_abs_err={"kernel": k0, "plain": p0},
-                 kernel_ratio=max(1.0, k0 / max(p0, 1e-30)))
+                 kernel_ratio=ratio if cap is None else min(cap, ratio))
+        if cap is not None:
+            n["kernel_ratio_uncapped"] = ratio
     n["bound"] = GP_F64_FACTOR * n["plain_f64_max_abs_err"] * n["kernel_ratio"] \
         + 1e-6 * n["max_abs"]
     n["held"] = n["f64_max_abs_err"] <= n["bound"]
@@ -4792,7 +4836,8 @@ def value_grad_layout(label: str, args: tuple, ops: list) -> dict:
     lib, nbytes_ = kernels.load(), ctypes.c_long(0)
     vargs = kernels.value_args(ops, args[1].shape[1])
     if label == "k10":
-        blocks = lib.ctt_gp_grad_value_layout(int(args[4]["Zs"].shape[0]), ctypes.byref(vargs),
+        blocks = lib.ctt_gp_grad_value_layout(kernels.PLANT_IDS[args[0].plant],
+                                              int(args[4]["Zs"].shape[0]), ctypes.byref(vargs),
                                               ctypes.byref(nbytes_))
     elif label == "k9":
         blocks = lib.ctt_residual_grad_value_layout(ctypes.byref(args[0].net_args(args[4])[0]),
@@ -4864,7 +4909,7 @@ def compare_value_learned(label: str, args: tuple, ragged: tuple, committed: lis
             fn()
         host[name] = (time.perf_counter() - t0) * 1e3 / 20
         torch.cuda.synchronize()
-    instance = f"Li{kernels.gp_layout(int(args[4]['Zs'].shape[0]), grad=True)[0]}E" \
+    instance = f"{CART}Li{kernels.gp_layout(int(args[4]['Zs'].shape[0]), grad=True)[0]}E" \
         if label == "k10" else ""
     numbers.update({
         "ms": cuda_ms(lambda: form(*args, committed), 20),
@@ -6965,16 +7010,17 @@ def fleet_plant_kernels(plant: str, gen) -> dict:
 def plant_fleet_loop(name: str, ctrl: BatchedMPCController, plant: str, ticks: int,
                      expected: dict) -> dict:
     """``ticks`` closed-loop ticks of a fleet against B copies of the plant's
-    environment (seed SEED + 87), each slot's constant over 0.9-1.1 of its
-    default, every kernel's launch count set to 0 just before and checked
-    against ``expected`` just after; the controls finite and within the
-    limits, nothing rebuilt."""
+    environment (seed SEED + 87), each slot's constant (where the fleet
+    plans one: a learned model has none) over 0.9-1.1 of its default,
+    every kernel's launch count set to 0 just before and checked against
+    ``expected`` just after; the controls finite and within the limits,
+    nothing rebuilt."""
     env_name, B = ALL_CASES[plant][0], ctrl.num_slots
     env = ENVS[env_name](batch_size=B, dt=DT, seed=SEED + 87)
     s, _ = env.reset()
-    key = slot_key(plant)
-    for i, f in enumerate(np.linspace(0.9, 1.1, B)):
-        ctrl.update_slot_dyn(i, {key: float(f * ctrl._slot_dyn_defaults[key])})
+    for key, default in ctrl._slot_dyn_defaults.items():
+        for i, f in enumerate(np.linspace(0.9, 1.1, B)):
+            ctrl.update_slot_dyn(i, {key: float(f * default)})
     for wrapper in COUNTED.values():
         wrapper.launches = 0
     builds, epoch = kernels.build.count, ctrl.optimizer._build_epoch
@@ -7189,10 +7235,11 @@ def plant_res_controller(plant: str, optimizer: str, config: dict, device: str =
     return ctrl
 
 
-def emit_held(label: str, x, ref_x, x64, wrong: dict) -> dict:
-    """x_H of an emit form to float64 (f64_held), the bound rejecting each
+def emit_held(label: str, x, ref_x, x64, wrong: dict, unvalued=None, cap: float = None) -> dict:
+    """x_H of an emit form to float64 (f64_held, ``unvalued`` its kernel
+    ratio's outputs, ``cap`` the ratio's), the bound rejecting each
     ``wrong`` terminal state set."""
-    held = f64_held(x, ref_x, x64)
+    held = f64_held(x, ref_x, x64, unvalued, cap)
     held["rejects"] = {k: f64_err(w, x64) for k, w in wrong.items()}
     check(held["held"], f"{label}: x_H further from float64 than its bound {held}")
     for k, err in held["rejects"].items():
@@ -7800,6 +7847,727 @@ def forms_phases(gen) -> tuple:
     # 91. The loops, counted from 0.
     for plant in ALL_CASES:
         launches[plant] = forms_loops(plant, gen)
+    return rows, launches
+
+
+# ---- the learned-dynamics kernels over the nine other costs (phases 92-94) -------------
+# A network or GP kernel's plant is its cost's (its dynamics are tensors), so
+# each of the nine costs other than cartpole's (NET_COSTS) is an instance of
+# each form of K11, K13, K14 and K10.  Phase 92 holds every instance to its
+# plain version at the main path's width (K=16384, H=50; the session-row
+# forms at FLEET_B sessions of FLEET_K, FLEET_H) over seeded models of the
+# committed architectures at the plant's S and U (NETS_SPECS; the GP of
+# SGP_128's M with seeded inducing points, nets_gp_params; V phase 89's):
+# costs and J to NET_TOL (K13's to RNN_TOL, the GP's to KERNEL_TOL) or, where
+# a seeded net's 50 steps carry the two float32 computations further apart,
+# to float64 through f64_held; dQ to K7's bound or float64 alike; x_H to
+# float64 through f64_held, its kernel ratio the kernel's costs' distance
+# from float64 over the plain version's (3xTF32 products against cuBLAS's
+# float32 lie further from it, as K8's do), capped at NETS_RATIO_CAP.  Each
+# bound rejects the controls read a step early (Q shifted by one step) and
+# the cost's named stage term dropped (NETS_DROPPED_TERM's weight zeroed in
+# the rows; the emit forms' costs alike): every instance; and the forms'
+# own wrong variants: x_{H-1} and the next rollout's (or session's) x_H
+# (emit forms), the next session's rows and, K13, hidden (session-row
+# forms; the rows' cost weights differ by session), dV/dx_H dropped (K10's
+# value form).  Each rejection's margin (the variant's distance over the
+# bound's) is printed beside it.  K13's emit x_H bound also rejects a
+# control: the plain version with single-pass TF32 products (cuBLAS's),
+# held to the same bound, its kernel ratio taken from its own costs.
+# Phase 93 holds one update of each path over the 3-D quadrotor on the card
+# to the CPU's; phase 94 runs each path NETS_TICKS ticks over every cost at
+# its width, every kernel counted from 0.
+NET_COSTS = tuple(p for p in kernels.COST_PLANTS if p != "cartpole")
+NETS_SPECS = {"mlp": "neural:mlp-64-64", "gru": "neural:GRU-32H1-32H2",
+              "lstm": "neural:LSTM-32H1-32H2", "ensemble": "ensemble:mlp-32-32:4", "gp": "gp"}
+NETS_GP_M, NETS_GP_SEED, NETS_TICKS, NETS_CPU_K = 128, 92, 2, 1024
+# The seeded nets' output layers are scaled by NETS_OUT_SCALE (a step's
+# delta ~0.1 of the seeded init's), as a fitted model's small steps are:
+# at the init's scale a 50-step rollout of mlp-64-64 is chaotic, and two
+# correct float32 evaluations (the kernel's 3xTF32 products, cuBLAS's
+# float32) drift apart by more than any bound float64 can give them.
+NETS_OUT_SCALE = 0.1
+# The most that a kernel's costs' distance from float64, over the plain
+# version's, widens its emit form's x_H bound: the largest ratio phase 92
+# has read (3.0, the LSTM over quadrotor2d's cost), so that arithmetic that
+# drifts cannot widen its own bound further.
+NETS_RATIO_CAP = 3.0
+# The stage term each cost's instances are held to drop (its weight zeroed
+# in the packed rows): the cost's tracking term, and the obstacle term of
+# the obstacle costs.
+NETS_DROPPED_TERM = {"pendulum": "c_angle_weight", "acrobot": "c_height_weight",
+                     "pointmass": "c_pos_weight", "pointmass_obstacles": "c_obstacle_weight",
+                     "quadrotor2d": "c_pos_weight", "quadrotor3d": "c_pos_weight",
+                     "car": "c_pos_weight", "car_obstacles": "c_obstacle_weight",
+                     "arm2": "c_pos_weight"}
+# The mangled template argument that names each cost's instances (ptxas'
+# entry functions): the point masses' and cars' costs are instances of one
+# template each, told apart by their fourth index.
+COST_MANGLED = {"pendulum": "12PendulumCostE", "acrobot": "11AcrobotCostE",
+                "pointmass": "14PointmassCostTILi0ELi1ELi2ELi3E",
+                "pointmass_obstacles": "14PointmassCostTILi0ELi1ELi2ELi5E",
+                "quadrotor2d": "15Quadrotor2DCostE", "quadrotor3d": "15Quadrotor3DCostE",
+                "car": "8CarCostTILi0ELi1ELi2ELi3E", "car_obstacles": "8CarCostTILi0ELi1ELi2ELi5E",
+                "arm2": "8Arm2CostE"}
+# row: (source, the TPU kernel, the learned model); {n}, {g}: the cost's
+# group of the network and GP instances, as the library dispatches.
+NETS_ROWS = {
+    "neural_cost_rollout": ("net_plants_{n}.cu", "ops/pallas_neural.py:157", "mlp"),
+    "neural_cost_rollout_emit": ("net_plants_{n}.cu", "ops/pallas_neural.py:157", "mlp"),
+    "neural_cost_rollout_cols": ("net_plants_{n}.cu", "ops/pallas_neural.py:157", "mlp"),
+    "neural_cost_rollout_cols_emit": ("net_plants_{n}.cu", "ops/pallas_neural.py:157", "mlp"),
+    "neural_cost_rollout_ens": ("net_plants_{n}.cu", "ops/pallas_neural.py:157", "ensemble"),
+    "neural_cost_rollout_ens_emit": ("net_plants_{n}.cu", "ops/pallas_neural.py:157",
+                                     "ensemble"),
+    **{f"{w}_{kind}": ("net_plants_{n}.cu", "ops/pallas_neural.py:452", kind)
+       for w in ("recurrent_cost_rollout", "recurrent_cost_rollout_emit",
+                 "recurrent_cost_rollout_cols") for kind in ("gru", "lstm")},
+    **{w: ("gp_plants_{g}.cu", "ops/pallas_neural.py:647", "gp")
+       for w in ("gp_cost_rollout", "gp_cost_rollout_emit", "gp_cost_rollout_cols",
+                 "gp_cost_rollout_cols_emit")},
+    **{w: ("gp_plants_{g}.cu", "ops/pallas_grad.py:515", "gp")
+       for w in ("gp_grad_cost_rollout", "gp_grad_cost_rollout_value",
+                 "gp_grad_cost_rollout_cols", "gp_grad_cost_rollout_cols_value")},
+}
+
+
+def nets_gp_params(S: int, U: int) -> dict:
+    """A sparse GP of NETS_GP_M inducing points over [x, u] (the GPPredictor's
+    parameter form, numpy), seeded NETS_GP_SEED + S + U: points in [-1, 1]
+    after the input's affine transform, a mean that moves a state by ~0.1 a
+    step near them."""
+    rng = np.random.default_rng(NETS_GP_SEED + S + U)
+    D = S + U
+    return {"Z": rng.uniform(-1.0, 1.0, (NETS_GP_M, D)).astype(np.float32),
+            "lengthscales": rng.uniform(0.8, 1.6, D).astype(np.float32),
+            "variance": np.float32(0.8),
+            "alpha": (0.05 * rng.standard_normal((NETS_GP_M, S))).astype(np.float32),
+            "in_mean": np.zeros(D, np.float32), "in_std": np.full(D, 3.0, np.float32),
+            "out_mean": np.full(S, 0.01, np.float32),
+            "out_std": rng.uniform(0.5, 1.0, S).astype(np.float32)}
+
+
+def net_controller(plant: str, kind: str, optimizer: str, config: dict, device: str = "cuda",
+                   B: int = 0, valued: bool = False):
+    """An ``mpc`` controller (or, with ``B``, a batched-mpc fleet of B
+    slots) over the plant's cost and the learned model ``kind``
+    (NETS_SPECS; a net's output layer scaled by NETS_OUT_SCALE), with the
+    plant's V attached where ``valued``."""
+    env, cost, _ = ALL_CASES[plant]
+    cls = BatchedMPCController if B else MPCController
+    ctrl = cls(env, (ENVS[env].action_low, ENVS[env].action_high), dict(plant_attrs(plant)),
+               config={"optimizer": optimizer, "controller_logging": False, "device": device,
+                       "cost_function_specification": cost})
+    extra = {"num_slots": B} if B else {}
+    if kind == "gp":
+        extra["predictor_config"] = {"params": nets_gp_params(*kernels.PLANT_DIMS[plant])}
+    ctrl.configure(optimizer_name=optimizer, predictor_specification=NETS_SPECS[kind],
+                   optimizer_config=dict(config), **extra)
+    if kind != "gp":
+        net = ctrl.optimizer.predictor.predictor.net_params
+        last = ("wo", "bo") if kind in ("gru", "lstm") else (
+            f"w{mlp_layer_count(net) - 1}", f"b{mlp_layer_count(net) - 1}")
+        for key in last:
+            net[key].mul_(NETS_OUT_SCALE)
+    if valued:
+        attach_value_terminal(ctrl, plant_value_net(plant, torch.device(device)),
+                              FORMS_VALUE_SCALE)
+    return ctrl
+
+
+def net_rows(ctrl, model, B: int, gen) -> torch.Tensor:
+    """Sessions' packed cost rows ``pvec_b [B, N]``: targets moved by up to
+    0.2 a session, previous controls within the limits, the cost's weights
+    over 0.8-1.2 of their defaults (a net or a GP has no constant a
+    session)."""
+    opt, dev = ctrl.optimizer, gen.device
+    params = ctrl._assemble_params()
+    attrs = {k: float(torch.as_tensor(v).reshape(-1)[0])
+             + (0.4 * torch.rand(B, generator=gen, device=dev) - 0.2
+                if k.startswith("target") else 0.0)
+             for k, v in ctrl.variable_parameters.items()}
+    lo, hi = opt.action_low, opt.action_high
+    u_prev = lo + (hi - lo) * torch.rand(B, lo.shape[0], generator=gen, device=dev)
+    _, slot_keys = split_slot_keys(model.param_keys, ())
+    cf = opt.cost_function.cost_function
+    rows = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, dev)(
+        u_prev, params["dyn"], params["cost"], attrs)
+    weights = [i for i, k in enumerate(model.param_keys) if k.startswith("c_") and "weight" in k]
+    rows[:, weights] *= torch.linspace(0.8, 1.2, B, device=dev)[:, None]
+    return rows
+
+
+def step_early(Q: torch.Tensor) -> torch.Tensor:
+    """The controls read a step early: step h takes Q[h+1], the last its own."""
+    return torch.cat([Q[:, 1:], Q[:, -1:]], dim=1).contiguous()
+
+
+def term_dropped(model, plant: str, pv: torch.Tensor) -> torch.Tensor:
+    """Packed cost rows (one or a session each) with NETS_DROPPED_TERM's
+    weight zeroed."""
+    out = pv.clone()
+    out[..., model.param_keys.index(NETS_DROPPED_TERM[plant])] = 0.0
+    return out
+
+
+class tf32_products:
+    """cuBLAS's float32 products in single-pass TF32 while inside."""
+
+    def __enter__(self):
+        self.was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.was
+
+
+def net_held(label: str, got, ref, ref64_fn, tol, wrong: dict, grad: bool = False) -> dict:
+    """Costs (or, ``grad``, dQ) of a kernel against its plain version: to
+    ``tol`` (dQ: K7's bound), else to float64 through f64_held; each
+    ``wrong`` output rejected by the same bound, its margin (how many times
+    the bound its distance is: over 1 rejected) beside it."""
+    rtol, atol = (DQ_RTOL, DQ_ATOL_FRAC * float(ref.abs().max())) if grad else (
+        tol["rtol"], tol["atol"])
+
+    def near(a) -> bool:
+        return torch.allclose(a, ref, rtol=rtol, atol=atol)
+
+    ok = near(got)
+    numbers = dict(zip(("max_abs_err", "max_rel_err"), max_errors(got, ref)))
+    ref64 = None
+    if not ok:
+        ref64 = ref64_fn()
+        numbers["f64"] = f64_held(got, ref, ref64)
+        check(numbers["f64"]["held"], f"{label}: further from float64 than its bound {numbers}")
+    numbers["rejects"] = {k: max_errors(w, ref)[0] for k, w in wrong.items()}
+    numbers["reject_margins"] = {}
+    for k, w in wrong.items():
+        margin = float(torch.nan_to_num((w - ref).abs() / (atol + rtol * ref.abs()),
+                                        nan=math.inf).max())
+        if ref64 is not None:
+            margin = min(margin, f64_err(w, ref64) / numbers["f64"]["bound"])
+        numbers["reject_margins"][k] = margin
+        check(margin > 1.0, f"{label}: the bound takes {k} {numbers}")
+    return numbers
+
+
+def nets_resources(plant: str, margs: dict, vops: list) -> dict:
+    """ptxas' registers and spills of the cost's instances and the blocks
+    an SM holds of each plain one (K11, its member-block form and K13 at
+    their nets; K14 and K10 at NETS_GP_M points, K10's value form beside
+    V)."""
+    cost, lib = COST_MANGLED[plant], kernels.load()
+    out = {}
+    for key, kernel, inst in (
+            ("k11", "neural_cost_rollout_kernel", cost),
+            ("k11_emit", "neural_cost_rollout_emit_kernel", cost),
+            ("k11_ens", "neural_cost_rollout_ens_kernel", cost),
+            ("k11_ens_emit", "neural_cost_rollout_ens_emit_kernel", cost),
+            ("k13_gru", "recurrent_cost_rollout_kernel", cost + r"(\w*E)?Li3EEEv"),
+            ("k13_gru_emit", "recurrent_cost_rollout_emit_kernel", cost + r"(\w*E)?Li3EEEv"),
+            ("k13_lstm", "recurrent_cost_rollout_kernel", cost + r"(\w*E)?Li4EEEv"),
+            ("k13_lstm_emit", "recurrent_cost_rollout_emit_kernel", cost + r"(\w*E)?Li4EEEv"),
+            ("k14", "gp_cost_rollout_kernel", cost),
+            ("k14_emit", "gp_cost_rollout_emit_kernel", cost),
+            ("k10", "gp_grad_cost_rollout_kernel", cost),
+            ("k10_value", "gp_grad_cost_rollout_value_kernel", cost)):
+        out[key] = ptxas_resources(kernel, inst)
+        check(out[key].get("registers", 0) > 0, f"{plant}: no ptxas line for {kernel}")
+    for key, occupancy, arg in (("k11", "neural", margs["mlp"]),
+                                ("k11_ens", "neural_ens", margs["ensemble"]),
+                                ("k13_gru", "recurrent", margs["gru"]),
+                                ("k13_lstm", "recurrent", margs["lstm"])):
+        out[key]["blocks_per_sm"] = kernels.net_blocks_per_sm(occupancy, arg, plant)
+    for key, grad in (("k14", False), ("k10", True)):
+        out[key]["lanes_threads_blocks_per_sm"] = kernels.gp_layout(NETS_GP_M, grad=grad,
+                                                                    plant=plant)
+    nb = ctypes.c_long(0)
+    vargs = kernels.value_args(vops, kernels.PLANT_DIMS[plant][0])
+    out["k10_value"]["blocks_per_sm"] = int(lib.ctt_gp_grad_value_layout(
+        kernels.PLANT_IDS[plant], NETS_GP_M, ctypes.byref(vargs), ctypes.byref(nb)))
+    out["k10_value"]["smem_bytes"] = int(nb.value)
+    for key in ("k11", "k11_ens", "k13_gru", "k13_lstm", "k10_value"):
+        check(out[key]["blocks_per_sm"] > 0, f"{plant}: {key} fits no block on an SM {out}")
+    return out
+
+
+def nets_plant_kernels(plant: str, gen) -> dict:
+    """Phase 92 for one cost: its instances of the forms of K11, K13, K14
+    and K10 against their plain versions (see the note above); returns each
+    row's numbers."""
+    dev = gen.device
+    S, U = kernels.PLANT_DIMS[plant]
+    _, stage_ops, _, stage_vjp_ops = PLANT_OPS[plant]
+    ctrls = {kind: net_controller(plant, kind, "rpgd-tf" if kind == "gp" else "mppi",
+                                  RPGD_CONFIG if kind == "gp" else OPTIMIZER_CONFIG)
+             for kind in NETS_SPECS}
+    opt = ctrls["mlp"].optimizer
+    lo, hi = opt.action_low, opt.action_high
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    u_prev = mid + 0.1 * half
+    models, margs = {}, {}
+    for kind, c in ctrls.items():
+        fam = {"gp": gp, "ensemble": ensemble}.get(kind, neural)
+        model, pack = (gp.gp_model if kind == "gp" else fam.net_model)(c.optimizer)
+        check(model.plant == plant, f"{plant} {kind}: not the cost's plant")
+        params = c._assemble_params()
+        models[kind] = (model, pack(params, u_prev), params["dyn"])
+    vnet = plant_value_net(plant, dev)
+    vops = plant_value_ops(vnet)
+    v_ops = value_net_ops((S, *FORMS_VALUE_DIMS))
+    sK = plant_states(plant, K, gen)
+    QK = torch.clamp(mid + half * (0.5 * torch.randn(K, H, U, generator=gen, device=dev)), lo, hi)
+    Bf, Kf, Hf = FLEET_B, FLEET_K, FLEET_H
+    n = Bf * Kf
+    sc = plant_states(plant, Bf, gen).repeat_interleave(Kf, dim=0)
+    Qc = lo + (hi - lo) * torch.rand(n, Hf, U, generator=gen, device=dev)
+    rows = net_rows(ctrls["mlp"], models["mlp"][0], Bf, gen)
+    grows = net_rows(ctrls["gp"], models["gp"][0], Bf, gen)
+    dk = "dropped_" + NETS_DROPPED_TERM[plant]
+    out = {}
+
+    def timed(name: str, fn, plain_ms: float, numbers: dict, ops: float, n_bytes: float,
+              tc_ms: float = None) -> None:
+        numbers.update(ms=cuda_ms(fn, 20), plain_ms=plain_ms, **bound(ops, n_bytes))
+        if tc_ms is not None:
+            numbers["tc_bound_ms"] = tc_ms
+        emit(f"{name}_{plant}", numbers)
+        out[name] = numbers
+
+    def emit_x(label, x, rx, f64_fn, wrong, costs) -> dict:
+        """x_H to float64, the bound scaled by how much further than the
+        plain version's the kernel's costs (``costs``: the kernel's, the
+        plain version's) lie from the float64 plain version's: the kernel's
+        own arithmetic, its 3xTF32 products against cuBLAS's float32, as
+        f64_held's kernel ratio takes it."""
+        c64, x64 = f64_fn()
+        return emit_held(label, x, rx, x64, wrong, (costs[0], costs[1], c64), NETS_RATIO_CAP)
+
+    # K11 over mlp-64-64 (single session, session rows; each with its emit
+    # form, whose costs are K11's bit for bit).
+    model, pvec, dyn = models["mlp"]
+    net = dyn["net"]
+    margs["mlp"] = model.net_args(net)[0]
+    macs = sum(a * b for a, b in zip(mlp_dims(net), mlp_dims(net)[1:]))
+    step_ops = mlp_ops(net) + stage_ops
+    for cols in (False, True):
+        s0, Q, pv, steps = (sc, Qc, rows, n * Hf) if cols else (sK, QK, pvec, K * H)
+        kern = neural_cost_rollout_cols if cols else neural_cost_rollout
+        kern_e = neural_cost_rollout_cols_emit if cols else neural_cost_rollout_emit
+        plain_e = neural_cost_rollout_cols_emit_plain if cols else neural_cost_rollout_emit_plain
+        name = "neural_cost_rollout" + ("_cols" if cols else "")
+        c = kern(model, s0, Q, pv, net)
+        (rc, rx), plain_ms = plain_timed(lambda: plain_e(model, s0, Q, pv, net))
+        wrong = {"controls_a_step_early": kern(model, s0, step_early(Q), pv, net),
+                 dk: kern(model, s0, Q, term_dropped(model, plant, pv), net)}
+        if cols:
+            wrong["next_session_rows"] = kern(model, s0, Q, pv.roll(-1, 0), net)
+        f64 = functools.cache(functools.partial(plain_e, model, *tree64((s0, Q, pv)),
+                                                tree64(net)))
+        numbers = net_held(f"{name}_{plant}", c, rc, lambda: f64()[0], NET_TOL, wrong)
+        n_bytes = nbytes(s0, Q, pv, *net.values()) + 4 * c.numel()
+        timed(name, lambda: kern(model, s0, Q, pv, net), plain_ms, numbers,
+              steps * step_ops, n_bytes, tc_bound_ms(mlp_forward_tiles(net), step_ops - 2 * macs,
+                                                     steps))
+        ce, x = kern_e(model, s0, Q, pv, net)
+        check(torch.equal(ce, c), f"{name}_emit_{plant}: costs differ from the kernel's")
+        xw = {"x_H_minus_1": kern_e(model, s0, Q[:, :-1].contiguous(), pv, net)[1],
+              ("next_session_x_H" if cols else "next_rollout_x_H"): x.roll(-1, 0)}
+        timed(f"{name}_emit", lambda: kern_e(model, s0, Q, pv, net), plain_ms, {
+            "max_abs_err": max(max_errors(ce, rc)[0], max_errors(x, rx)[0]),
+            "costs": net_held(f"{name}_emit_{plant} costs", ce, rc, lambda: f64()[0], NET_TOL, {
+                dk: kern_e(model, s0, Q, term_dropped(model, plant, pv), net)[0]}),
+            "x_f64": emit_x(f"{name}_emit_{plant}", x, rx, f64, xw, (ce, rc))},
+              steps * step_ops, n_bytes + 4 * x.numel())
+    # K11's member-block form over 4 x mlp-32-32 (rollout k under member
+    # k // (K/4)), and its emit form.
+    model, pvec, dyn = models["ensemble"]
+    net = dyn["net"]
+    m0 = member_net(net, 0)
+    margs["ensemble"] = model.net_args(m0)[0]
+    step_ops = mlp_ops(m0) + stage_ops
+    macs = sum(a * b for a, b in zip(mlp_dims(m0), mlp_dims(m0)[1:]))
+    c = neural_cost_rollout_ens(model, sK, QK, pvec, net)
+    (rc, rx), plain_ms = plain_timed(lambda: neural_cost_rollout_ens_emit_plain(
+        model, sK, QK, pvec, net))
+    f64 = functools.cache(functools.partial(neural_cost_rollout_ens_emit_plain, model,
+                                            *tree64((sK, QK, pvec)), tree64(net)))
+    pdrop = term_dropped(model, plant, pvec)
+    numbers = net_held(f"neural_cost_rollout_ens_{plant}", c, rc, lambda: f64()[0], NET_TOL,
+                       {"controls_a_step_early": neural_cost_rollout_ens(
+                           model, sK, step_early(QK), pvec, net),
+                        dk: neural_cost_rollout_ens(model, sK, QK, pdrop, net)})
+    n_bytes = nbytes(sK, QK, pvec, *net.values()) + 4 * K
+    timed("neural_cost_rollout_ens", lambda: neural_cost_rollout_ens(model, sK, QK, pvec, net),
+          plain_ms, numbers, K * H * step_ops, n_bytes,
+          tc_bound_ms(mlp_forward_tiles(m0), step_ops - 2 * macs))
+    ce, x = neural_cost_rollout_ens_emit(model, sK, QK, pvec, net)
+    check(torch.equal(ce, c), f"neural_cost_rollout_ens_emit_{plant}: costs differ")
+    timed("neural_cost_rollout_ens_emit",
+          lambda: neural_cost_rollout_ens_emit(model, sK, QK, pvec, net), plain_ms, {
+              "max_abs_err": max(max_errors(ce, rc)[0], max_errors(x, rx)[0]),
+              "costs": net_held(f"neural_cost_rollout_ens_emit_{plant} costs", ce, rc,
+                                lambda: f64()[0], NET_TOL, {
+                                    dk: neural_cost_rollout_ens_emit(model, sK, QK, pdrop,
+                                                                     net)[0]}),
+              "x_f64": emit_x(f"neural_cost_rollout_ens_emit_{plant}", x, rx, f64, {
+                  "x_H_minus_1": neural_cost_rollout_ens_emit(
+                      model, sK, QK[:, :-1].contiguous(), pvec, net)[1],
+                  "next_rollout_x_H": x.roll(-1, 0)}, (ce, rc))},
+          K * H * step_ops, n_bytes + 4 * K * S)
+    # K13: the GRU and the LSTM, from a seeded nonzero hidden (a row a
+    # session for the session-row form), and the emit form.
+    for kind in ("gru", "lstm"):
+        model, pvec, dyn = models[kind]
+        net = dyn["net"]
+        hidden = tuple(0.3 * torch.randn(h.shape, generator=gen, device=dev)
+                       for h in dyn["hidden"])
+        hrows = tuple(0.3 * torch.randn(Bf, h.shape[-1], generator=gen, device=dev)
+                      for h in dyn["hidden"])
+        margs[kind] = model.net_args(net, hidden)[0]
+        step_ops = rnn_ops(net, kind) + stage_ops
+        tc = tc_bound_ms(rnn_mma_tiles(net, kind), step_ops - 2 * rnn_macs(net, kind))
+        name = f"recurrent_cost_rollout_{kind}"
+        c = recurrent_cost_rollout(model, sK, QK, pvec, net, hidden)
+        (rc, rx), plain_ms = plain_timed(lambda: recurrent_cost_rollout_emit_plain(
+            model, sK, QK, pvec, net, hidden))
+        f64 = functools.cache(functools.partial(recurrent_cost_rollout_emit_plain, model,
+                                                *tree64((sK, QK, pvec)), tree64(net),
+                                                tree64(hidden)))
+        pdrop = term_dropped(model, plant, pvec)
+        numbers = net_held(f"{name}_{plant}", c, rc, lambda: f64()[0], RNN_TOL, {
+            "controls_a_step_early": recurrent_cost_rollout(model, sK, step_early(QK), pvec,
+                                                            net, hidden),
+            dk: recurrent_cost_rollout(model, sK, QK, pdrop, net, hidden)})
+        n_bytes = nbytes(sK, QK, pvec, *leaves(net), *hidden) + 4 * K
+        timed(name, lambda: recurrent_cost_rollout(model, sK, QK, pvec, net, hidden), plain_ms,
+              numbers, K * H * step_ops, n_bytes, tc)
+        ce, x = recurrent_cost_rollout_emit(model, sK, QK, pvec, net, hidden)
+        check(torch.equal(ce, c), f"{name}_emit_{plant}: costs differ from the kernel's")
+        # The control: the plain version's products in single-pass TF32.
+        with tf32_products():
+            tc_, tx = recurrent_cost_rollout_emit_plain(model, sK, QK, pvec, net, hidden)
+        control = f64_held(tx, rx, f64()[1], (tc_, rc, f64()[0]), NETS_RATIO_CAP)
+        control["uncapped_bound"] = GP_F64_FACTOR * control["plain_f64_max_abs_err"] \
+            * control["kernel_ratio_uncapped"] + 1e-6 * control["max_abs"]
+        check(not control["held"], f"{name}_emit_{plant}: the x_H bound takes the plain "
+              f"version in single-pass TF32 {control}")
+        timed(f"recurrent_cost_rollout_emit_{kind}",
+              lambda: recurrent_cost_rollout_emit(model, sK, QK, pvec, net, hidden), plain_ms, {
+                  "max_abs_err": max(max_errors(ce, rc)[0], max_errors(x, rx)[0]),
+                  "costs": net_held(f"{name}_emit_{plant} costs", ce, rc, lambda: f64()[0],
+                                    RNN_TOL, {dk: recurrent_cost_rollout_emit(
+                                        model, sK, QK, pdrop, net, hidden)[0]}),
+                  "tf32_control": control,
+                  "x_f64": emit_x(f"{name}_emit_{plant}", x, rx, f64, {
+                      "x_H_minus_1": recurrent_cost_rollout_emit(
+                          model, sK, QK[:, :-1].contiguous(), pvec, net, hidden)[1],
+                      "next_rollout_x_H": x.roll(-1, 0)}, (ce, rc))},
+              K * H * step_ops, n_bytes + 4 * K * S)
+        c = recurrent_cost_rollout_cols(model, sc, Qc, rows, net, hrows)
+        rc, plain_ms = plain_timed(lambda: recurrent_cost_rollout_cols_plain(
+            model, sc, Qc, rows, net, hrows))
+        numbers = net_held(f"recurrent_cost_rollout_cols_{kind}_{plant}", c, rc,
+                           lambda: recurrent_cost_rollout_cols_plain(
+                               model, *tree64((sc, Qc, rows)), tree64(net), tree64(hrows)),
+                           RNN_TOL, {
+                               "controls_a_step_early": recurrent_cost_rollout_cols(
+                                   model, sc, step_early(Qc), rows, net, hrows),
+                               "next_session_rows": recurrent_cost_rollout_cols(
+                                   model, sc, Qc, rows.roll(-1, 0), net, hrows),
+                               dk: recurrent_cost_rollout_cols(
+                                   model, sc, Qc, term_dropped(model, plant, rows), net, hrows),
+                               "next_session_hidden": recurrent_cost_rollout_cols(
+                                   model, sc, Qc, rows, net,
+                                   tuple(h.roll(-1, 0) for h in hrows))})
+        timed(f"recurrent_cost_rollout_cols_{kind}",
+              lambda: recurrent_cost_rollout_cols(model, sc, Qc, rows, net, hrows), plain_ms,
+              numbers, n * Hf * step_ops, nbytes(sc, Qc, rows, *leaves(net), *hrows) + 4 * n,
+              tc_bound_ms(rnn_mma_tiles(net, kind), step_ops - 2 * rnn_macs(net, kind), n * Hf))
+    # K14 and K10 over the seeded GP, single session and session rows.
+    model, pvec, dyn = models["gp"]
+    ops = flatten_gp_weights(dyn["gp"])
+    k14_ops = gp_ops(ops) + stage_ops
+    k10_ops = gp_ops(ops) + gp_vjp_ops(ops) + stage_ops + stage_vjp_ops
+    for cols in (False, True):
+        s0, Q, pv, steps, nk = (sc, Qc, grows, n * Hf, n) if cols else (sK, QK, pvec, K * H, K)
+        kern = gp_cost_rollout_cols if cols else gp_cost_rollout
+        kern_e = gp_cost_rollout_cols_emit if cols else gp_cost_rollout_emit
+        plain_e = gp_cost_rollout_cols_emit_plain if cols else gp_cost_rollout_emit_plain
+        name = "gp_cost_rollout" + ("_cols" if cols else "")
+        c = kern(model, s0, Q, pv, ops)
+        (rc, rx), plain_ms = plain_timed(lambda: plain_e(model, s0, Q, pv, ops))
+        pdrop = term_dropped(model, plant, pv)
+        wrong = {"controls_a_step_early": kern(model, s0, step_early(Q), pv, ops),
+                 dk: kern(model, s0, Q, pdrop, ops)}
+        if cols:
+            wrong["next_session_rows"] = kern(model, s0, Q, pv.roll(-1, 0), ops)
+        f64 = functools.cache(functools.partial(plain_e, model, *tree64((s0, Q, pv)),
+                                                tree64(ops)))
+        numbers = net_held(f"{name}_{plant}", c, rc, lambda: f64()[0], KERNEL_TOL, wrong)
+        n_bytes = nbytes(s0, Q, pv, *ops.values()) + 4 * c.numel()
+        timed(name, lambda: kern(model, s0, Q, pv, ops), plain_ms, numbers, steps * k14_ops,
+              n_bytes)
+        ce, x = kern_e(model, s0, Q, pv, ops)
+        check(torch.equal(ce, c), f"{name}_emit_{plant}: costs differ from the kernel's")
+        xw = {"x_H_minus_1": kern_e(model, s0, Q[:, :-1].contiguous(), pv, ops)[1],
+              ("next_session_x_H" if cols else "next_rollout_x_H"): x.roll(-1, 0)}
+        timed(f"{name}_emit", lambda: kern_e(model, s0, Q, pv, ops), plain_ms, {
+            "max_abs_err": max(max_errors(ce, rc)[0], max_errors(x, rx)[0]),
+            "costs": net_held(f"{name}_emit_{plant} costs", ce, rc, lambda: f64()[0],
+                              KERNEL_TOL, {dk: kern_e(model, s0, Q, pdrop, ops)[0]}),
+            "x_f64": emit_x(f"{name}_emit_{plant}", x, rx, f64, xw, (ce, rc))},
+              steps * k14_ops, n_bytes + 4 * x.numel())
+        # K10 and its value form: J to KERNEL_TOL, dQ to K7's bound.
+        for valued in (False, True):
+            extra = (vops,) if valued else ()
+            gname = "gp_grad_cost_rollout" + ("_cols" if cols else "") + (
+                "_value" if valued else "")
+            if cols:
+                kern_g = gp_grad_cost_rollout_cols_value if valued else gp_grad_cost_rollout_cols
+                plain_g = functools.partial(gp_grad_cost_rollout_cols_plain,
+                                            value_ops=vops if valued else None)
+                plain64 = functools.partial(gp_grad_cost_rollout_cols_plain,
+                                            value_ops=tree64(vops) if valued else None)
+            else:
+                kern_g = gp_grad_cost_rollout_value if valued else gp_grad_cost_rollout
+                plain_g = functools.partial(gp_grad_cost_rollout_plain,
+                                            value_ops=vops if valued else None)
+                plain64 = functools.partial(gp_grad_cost_rollout_plain,
+                                            value_ops=tree64(vops) if valued else None)
+            cg, dg = kern_g(model, s0, Q, pv, ops, *extra)
+            (rcg, rdg), plain_ms = plain_timed(lambda: plain_g(model, s0, Q, pv, ops))
+            d64 = functools.cache(functools.partial(plain64, model, *tree64((s0, Q, pv)),
+                                                    tree64(ops)))
+            cw, dw = kern_g(model, s0, Q, pdrop, ops, *extra)
+            wrong = {"controls_a_step_early": kern_g(model, s0, step_early(Q), pv, ops,
+                                                     *extra)[1], dk: dw}
+            if valued:
+                wrong["dV_dx_H_dropped"] = (gp_grad_cost_rollout_cols if cols
+                                            else gp_grad_cost_rollout)(model, s0, Q, pv, ops)[1]
+            if cols:
+                wrong["next_session_rows"] = kern_g(model, s0, Q, pv.roll(-1, 0), ops,
+                                                    *extra)[1]
+            numbers = {"J": net_held(f"{gname}_{plant} J", cg, rcg, lambda: d64()[0],
+                                     KERNEL_TOL, {dk: cw}),
+                       "dQ": net_held(f"{gname}_{plant} dQ", dg, rdg, lambda: d64()[1], None,
+                                      wrong, grad=True)}
+            numbers["max_abs_err"] = max(numbers["J"]["max_abs_err"],
+                                         numbers["dQ"]["max_abs_err"])
+            timed(gname, lambda k=kern_g, e=extra: k(model, s0, Q, pv, ops, *e), plain_ms,
+                  numbers, steps * k10_ops + (nk * v_ops if valued else 0),
+                  nbytes(s0, Q, pv, *ops.values(), *(vops if valued else ()))
+                  + 4 * nk + 4 * nk * Q.shape[1] * U)
+    emit(f"{plant}_nets_resources", nets_resources(plant, margs, vops))
+    return out
+
+
+# label: (optimizer, learned model, config, fleet, valued, launches a tick)
+NETS_PATHS = {
+    "mppi_mlp": ("mppi", "mlp", OPTIMIZER_CONFIG, False, False, {"neural_cost_rollout": 1}),
+    "cem_mlp": ("cem-tf", "mlp", CEM_CONFIG, False, False, {"neural_cost_rollout": 2}),
+    "valued_mppi_mlp": ("mppi", "mlp", OPTIMIZER_CONFIG, False, True,
+                        {"neural_cost_rollout_emit": 1}),
+    "mppi_ensemble": ("mppi", "ensemble", OPTIMIZER_CONFIG, False, False,
+                      {"neural_cost_rollout_ens": 1}),
+    "valued_mppi_ensemble": ("mppi", "ensemble", OPTIMIZER_CONFIG, False, True,
+                             {"neural_cost_rollout_ens_emit": 1}),
+    **{f"{p}_{kind}": (opt_, kind, cfg, False, valued, {w: n})
+       for kind in ("gru", "lstm")
+       for p, opt_, cfg, valued, w, n in (
+           ("mppi", "mppi", OPTIMIZER_CONFIG, False, "recurrent_cost_rollout", 1),
+           ("cem", "cem-tf", CEM_CONFIG, False, "recurrent_cost_rollout", 2),
+           ("valued_mppi", "mppi", OPTIMIZER_CONFIG, True, "recurrent_cost_rollout_emit", 1))},
+    "mppi_gp": ("mppi", "gp", OPTIMIZER_CONFIG, False, False, {"gp_cost_rollout": 1}),
+    "valued_mppi_gp": ("mppi", "gp", OPTIMIZER_CONFIG, False, True, {"gp_cost_rollout_emit": 1}),
+    "rpgd_gp": ("rpgd-tf", "gp", RPGD_CONFIG, False, False,
+                {"gp_grad_cost_rollout": RPGD_CONFIG["outer_its"], "gp_cost_rollout": 1}),
+    "valued_rpgd_gp": ("rpgd-tf", "gp", RPGD_CONFIG, False, True,
+                       {"gp_grad_cost_rollout_value": RPGD_CONFIG["outer_its"],
+                        "gp_cost_rollout_emit": 1}),
+    "mppi_fleet_mlp": ("mppi", "mlp", FLEET_MPPI_CONFIG, True, False,
+                       {"neural_cost_rollout_cols": 1}),
+    "valued_mppi_fleet_mlp": ("mppi", "mlp", FLEET_MPPI_CONFIG, True, True,
+                              {"neural_cost_rollout_cols_emit": 1}),
+    "mppi_fleet_gru": ("mppi", "gru", FLEET_MPPI_CONFIG, True, False,
+                       {"recurrent_cost_rollout_cols": 1}),
+    "mppi_fleet_lstm": ("mppi", "lstm", FLEET_MPPI_CONFIG, True, False,
+                        {"recurrent_cost_rollout_cols": 1}),
+    "mppi_fleet_gp": ("mppi", "gp", FLEET_MPPI_CONFIG, True, False, {"gp_cost_rollout_cols": 1}),
+    "valued_mppi_fleet_gp": ("mppi", "gp", FLEET_MPPI_CONFIG, True, True,
+                             {"gp_cost_rollout_cols_emit": 1}),
+    "rpgd_fleet_gp": ("rpgd-tf", "gp", FLEET_RPGD_CONFIG, True, False,
+                      {"gp_grad_cost_rollout_cols": FLEET_RPGD_CONFIG["outer_its"],
+                       "gp_cost_rollout_cols": 1}),
+    "valued_rpgd_fleet_gp": ("rpgd-tf", "gp", FLEET_RPGD_CONFIG, True, True,
+                             {"gp_grad_cost_rollout_cols_value": FLEET_RPGD_CONFIG["outer_its"],
+                              "gp_cost_rollout_cols_emit": 1}),
+}
+
+
+def nets_path_controller(plant: str, label: str, device: str = "cuda", config: dict = None):
+    optimizer, kind, cfg, fleet, valued, _ = NETS_PATHS[label]
+    return net_controller(plant, kind, optimizer, config or cfg, device,
+                          FLEET_B if fleet else 0, valued)
+
+
+def nets_path_gate(plant: str, label: str, ctrl) -> None:
+    """The path took the form it names: its family's gate over the cost."""
+    optimizer, kind, _, fleet, valued, _ = NETS_PATHS[label]
+    opt = ctrl.optimizer
+    fam = {"gp": gp, "ensemble": ensemble}.get(kind, neural)
+    ok = fam.can_use_cost(opt) and (opt._post_terminal_fn() is not None) == valued
+    if optimizer == "rpgd-tf":
+        ok = ok and fam.can_use_grad(opt) and (opt._value_grad_spec() is not None) == valued
+    if fleet and optimizer == "mppi":
+        ok = ok and {"mlp": ctrl._batched_neural_eligible, "gp": ctrl._batched_gp_eligible}.get(
+            kind, ctrl._batched_recurrent_eligible)()
+    if fleet and optimizer == "rpgd-tf":
+        ok = ok and ctrl._batched_rpgd_eligible()
+    check(ok, f"{plant} {label}: the controller did not take its kernel path")
+
+
+def nets_tol(kind: str) -> dict:
+    """A learned model's cost bound, kernel against plain version: K13's
+    RNN_TOL, K11's NET_TOL, the GP's KERNEL_TOL."""
+    return {"gru": RNN_TOL, "lstm": RNN_TOL, "gp": KERNEL_TOL}.get(kind, NET_TOL)
+
+
+def u_nom_bound(cost_err: float, lbd: float, noise: torch.Tensor) -> float:
+    """How far two MPPI updates' plans may lie apart when their costs do by
+    ``cost_err``: each rollout's softmax weight moves by at most a factor
+    exp(2 cost_err / LBD), so the weighted mean of the noise by about
+    2 cost_err / LBD times its largest entry; plus UNOM_ATOL."""
+    return UNOM_ATOL + 2.0 * cost_err / lbd * float(noise.abs().max())
+
+
+def nets_mppi_vs_cpu(name: str, card, cpu, s_now, kind: str) -> dict:
+    """One MPPI update over ``kind`` on the card and on the CPU (the plain
+    versions) from the card's state and params, with one draw: the costs
+    to the model's bound (nets_tol), the new plans to u_nom_bound."""
+    opt = card.optimizer
+    state = opt.opt_state
+    noise = opt.sample_noise(state)
+    params = card._assemble_params()
+    _, _, diag = opt.update(state, s_now, params, noise)
+    cpu_state = mppi_state_from_numpy(state.u_nom.cpu().numpy(), state.u_prev.cpu().numpy(),
+                                      torch.Generator())
+    _, _, cdiag = cpu.optimizer.update(cpu_state, s_now.cpu(), to_cpu(params), noise.cpu())
+    costs, costs_c = diag["J_logged"].cpu(), cdiag["J_logged"]
+    numbers = {"cost_max_abs_err": max_errors(costs, costs_c)[0],
+               "u_nom_max_abs_err": max_errors(diag["u_nom"].cpu(), cdiag["u_nom"])[0]}
+    numbers["u_nom_bound"] = u_nom_bound(numbers["cost_max_abs_err"], opt.LBD, noise)
+    emit(name, numbers)
+    check(torch.allclose(costs, costs_c, **nets_tol(kind))
+          and numbers["u_nom_max_abs_err"] <= numbers["u_nom_bound"],
+          f"{name}: the card's update differs from the CPU's {numbers}")
+    return numbers
+
+
+def nets_fleet_mppi_vs_cpu(name: str, card, cpu, gen, s, kind: str) -> dict:
+    """One fleet MPPI update over ``kind`` (K11's, K13's or K14's session-row
+    form) on the card against the CPU's from the same state, params, hidden
+    and draws: costs to the model's bound (nets_tol), the new plans to
+    u_nom_bound."""
+    B, opt = card.num_slots, card.optimizer
+    s, dyn, cost, attrs = fleet_inputs_now(card, gen, s)
+    noise = opt.sample_slot_noise(card.slot_states.generator, np.ones(B, bool))
+    build = {"mlp": "_make_batched_neural_step", "gru": "_make_batched_recurrent_step",
+             "lstm": "_make_batched_recurrent_step", "gp": "_make_batched_gp_step"}[kind]
+    hidden = (card.slot_hidden,) if card._stateful else ()
+    st = card.slot_states
+    u_nom, costs = getattr(opt, build)(B)[1](st, s, dyn, cost, attrs, *hidden, noise)
+    u_nom_c, costs_c = getattr(cpu.optimizer, build)(B)[1](
+        state_to_cpu(st), s.cpu(), to_cpu(dyn), to_cpu(cost), to_cpu(attrs), *to_cpu(hidden),
+        noise.cpu())
+    numbers = {"cost_max_abs_err": max_errors(costs.cpu(), costs_c)[0],
+               "u_nom_max_abs_err": max_errors(u_nom.cpu(), u_nom_c)[0]}
+    numbers["u_nom_bound"] = u_nom_bound(numbers["cost_max_abs_err"], opt.LBD, noise)
+    emit(name, numbers)
+    check(torch.allclose(costs.cpu(), costs_c, **nets_tol(kind))
+          and numbers["u_nom_max_abs_err"] <= numbers["u_nom_bound"],
+          f"{name}: the fleet update on the card differs from the CPU's {numbers}")
+    return numbers
+
+
+# The paths phase 93 holds card against CPU: each learned model's MPPI and
+# CEM, the valued ones, rpgd-tf over the GP and the fleets.
+NETS_CPU_PATHS = ("mppi_mlp", "mppi_gru", "mppi_lstm", "cem_mlp", "cem_gru", "cem_lstm",
+                  "mppi_gp", "mppi_ensemble", "valued_mppi_mlp", "valued_mppi_gp", "rpgd_gp",
+                  "valued_rpgd_gp", "mppi_fleet_mlp", "mppi_fleet_gru", "mppi_fleet_gp",
+                  "rpgd_fleet_gp")
+
+
+def nets_update_vs_cpu(gen) -> None:
+    """Phase 93: one update of each path over the 3-D quadrotor's cost on
+    the card against the CPU's (the plain versions) from the same state,
+    params and draws; the single-session paths at NETS_CPU_K rollouts, the
+    gradient ones at one Adam iteration."""
+    plant = "quadrotor3d"
+    s_now = plant_states(plant, 1, gen)
+    s_b = plant_states(plant, FLEET_B, gen)[:, None]
+    for label in NETS_CPU_PATHS:
+        optimizer, kind, cfg, fleet, valued, _ = NETS_PATHS[label]
+        if not fleet:
+            cfg = {**cfg, "num_rollouts": NETS_CPU_K}
+        if optimizer == "rpgd-tf":
+            cfg = {**cfg, "outer_its": 1}
+        card, cpu = (nets_path_controller(plant, label, d, cfg) for d in ("cuda", "cpu"))
+        nets_path_gate(plant, label, card)
+        name = f"nets_{label}_update_vs_cpu_{plant}"
+        if fleet and optimizer == "mppi":
+            nets_fleet_mppi_vs_cpu(name, card, cpu, gen, s_b, kind)
+        elif fleet:
+            grad_fleet_update_vs_cpu(f"rpgd_nets_{label}_{plant}", card, gen, cpu, s_b, ())
+        elif optimizer == "mppi":
+            nets_mppi_vs_cpu(name, card, cpu, s_now, kind)
+        elif optimizer == "cem-tf":
+            update_vs_cpu_cem(name, card, cfg, cpu=cpu, s_now=s_now, tol=nets_tol(kind))
+        else:
+            card.optimizer.opt_state = card.optimizer.opt_state._replace(count=0)
+            update_vs_cpu_rpgd(card, name, cpu=cpu, s_now=s_now)
+
+
+def nets_loops(plant: str) -> dict:
+    """Phase 94 for one cost: each path of NETS_PATHS NETS_TICKS ticks at its
+    width, counted from 0; returns each phase 92 row's launches."""
+    runs = {}
+    for label, (_, kind, _, fleet, _, per_tick) in NETS_PATHS.items():
+        ctrl = nets_path_controller(plant, label)
+        nets_path_gate(plant, label, ctrl)
+        expected = {k: n * NETS_TICKS for k, n in per_tick.items()}
+        name = f"nets_{plant}_{label}"
+        if fleet:
+            runs[label] = plant_fleet_loop(name, ctrl, plant, NETS_TICKS, expected)
+        else:
+            counts, _, numbers = plant_loop(name, ctrl, plant, NETS_TICKS, expected)
+            emit(name, numbers)
+            runs[label] = counts
+    launches = {}
+    for row, (_, _, kind) in NETS_ROWS.items():
+        wrapper = row[:-len(kind) - 1] if row.startswith("recurrent") else row
+        launches[row] = sum(counts[wrapper] for label, counts in runs.items()
+                            if NETS_PATHS[label][1] == kind)
+    emit(f"nets_{plant}_launches", {"ticks_a_path": NETS_TICKS, "launches": launches,
+                                    "a_tick": {label: NETS_PATHS[label][5]
+                                               for label in NETS_PATHS}})
+    return launches
+
+
+def nets_phases(gen) -> tuple:
+    """Phases 92-94: the learned-dynamics kernels over the nine other
+    costs.  Returns each row's numbers by (row, plant) and the loops'
+    launches by plant."""
+    rows, launches = {}, {}
+    # 92. Each instance against its plain version.
+    for plant in NET_COSTS:
+        for key, numbers in nets_plant_kernels(plant, gen).items():
+            rows[key, plant] = numbers
+    # 93. One update of each path on the card against the CPU's.
+    nets_update_vs_cpu(gen)
+    # 94. The loops, counted from 0.
+    for plant in NET_COSTS:
+        launches[plant] = nets_loops(plant)
     return rows, launches
 
 
@@ -8536,6 +9304,8 @@ def main() -> None:
     fleet_rows, fleet_launches = fleet_plant_phases(gen)
     # 89-91. The learned-value and residual forms over plant ids 2-17.
     forms_rows, forms_launches = forms_phases(gen)
+    # 92-94. The learned-dynamics kernels over the nine other costs.
+    nets_rows, nets_launches = nets_phases(gen)
 
     if "--starts" in sys.argv[1:]:
         start_sweep()
@@ -8719,6 +9489,16 @@ def main() -> None:
         source, replaces = FORMS_SOURCES[key]
         pid, lib = kernels.PLANT_IDS[plant], kernels.load()
         source = source.format(v=lib.ctt_grad_value_group(pid), r=lib.ctt_residual_grad_group(pid))
+        rows = rows + ((name, source, replaces, numbers),)
+    # Their learned-dynamics instances (phases 92-94): launches from their
+    # own loops (phase 94).
+    for (key, plant), numbers in nets_rows.items():
+        n, name = nets_launches[plant][key], f"{key}_{plant}"
+        check(n > 0, f"{name}: launched no time in its cost's loops")
+        launches[name] = n
+        source, replaces, _ = NETS_ROWS[key]
+        pid, lib = kernels.PLANT_IDS[plant], kernels.load()
+        source = source.format(n=lib.ctt_net_group(pid), g=lib.ctt_gp_group(pid))
         rows = rows + ((name, source, replaces, numbers),)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.

@@ -31,10 +31,13 @@
 //   state, the GRU's h unsplit and the LSTM's c, stays in its warp's lanes
 //   (a lane-private float4 of shared memory), read and written by no
 //   other warp.
-// - The head (S outputs, one tile): the warp that computes tile j of the
-//   last layer also takes its k-block j of the head's product (a partial
-//   sum from zero) into a per-group slot before the layer's barrier; after
-//   it every warp adds the slots in k order.  That and the scalar work (the
+// - The head (S outputs, one tile; the 3-D quadrotor's 12 two): the warp
+//   that computes tile j of the last layer also takes its k-block j of the
+//   head's product (a partial sum from zero, a tile each) into a per-group
+//   slot before the layer's barrier; after it every warp adds the slots in
+//   k order.  [x, u] of more than 8 columns (S + U <= 16) enters the first
+//   cell as io_tiles(S, U) k-blocks (mlp_mma.cuh), a template instance of
+//   its own (rnn_mma_step_wide), as K11's MLP does (mlp_units.cuh).  That and the scalar work (the
 //   stage cost, the delta add) run on every warp of the group, lanes l and
 //   l+16 owning rollout l as in mlp_mma.cuh, so no barrier follows them;
 //   warp 0 writes the cost.
@@ -44,7 +47,7 @@
 // a group with no row below K returns after the block's staging.  The
 // host side (plan_rnn) lays out the staged net and the groups' regions and
 // refuses a net that is not a GRU/LSTM of 1..kMaxLayers cells on an input
-// of at most 8, or a block beyond sm_90's shared memory (the entry point
+// of at most 16, or a block beyond sm_90's shared memory (the entry point
 // then returns cudaErrorInvalidValue).
 #pragma once
 
@@ -64,12 +67,12 @@ struct RnnLayout {
   int nt[kMaxLayers], kti[kMaxLayers];  // layer l: unit tiles, k-blocks of its input
   int wi[kMaxLayers], wh[kMaxLayers];   // B fragments, hi/lo split
   int bi[kMaxLayers], bh[kMaxLayers];   // G blocks of 8 nt, padded with zeros
-  int wo, bo, kto;                      // head: fragments, bias (8), k-blocks
+  int wo, bo, kto;                      // head: fragments, bias (8 a tile), k-blocks
   int net_floats;
   // In a group's region: layer l's split h slabs (two of nt tiles, hi and
   // lo) and its lane-private state (nt tiles: the GRU's h, the LSTM's c),
-  // the head's partial sums (two of kto tiles), then one [16, 8] lane tile
-  // a warp.
+  // the head's partial sums (two of kto times the head's tiles), then
+  // io_tiles(S, U) [16, 8] lane tiles a warp.
   int h[kMaxLayers], own[kMaxLayers], head, io;
   int group_floats;
   int warps;   // W, per group
@@ -84,8 +87,8 @@ inline long plan_rnn(const NetArgs& a, int S, int U, RnnLayout& L) {
   int off = 0, grp = 0, widest = 0;
   auto take = [&off](int n) { const int o = off; off += pad_to(n, 4); return o; };
   const int n = a.n_layers;
-  if ((a.kind != kNetGRU && a.kind != kNetLSTM) || n < 1 || n > kMaxLayers || S + U > 8 ||
-      a.dims[0] != S + U) {
+  if ((a.kind != kNetGRU && a.kind != kNetLSTM) || n < 1 || n > kMaxLayers ||
+      S + U > 8 * kMaxIoTiles || a.dims[0] != S + U) {
     return -1;
   }
   const int G = gates_of(a.kind);
@@ -104,15 +107,16 @@ inline long plan_rnn(const NetArgs& a, int S, int U, RnnLayout& L) {
     grp += nt * kTileFloats;
     widest = nt > widest ? nt : widest;
   }
+  const int no = (S + 7) / 8;  // the head's output tiles
   L.kto = L.nt[n - 1];
-  L.wo = take(L.kto * kTileFloats);
-  L.bo = take(8);
+  L.wo = take(L.kto * no * kTileFloats);
+  L.bo = take(8 * no);
   L.net_floats = off;
   L.warps = widest < kRnnGroupWarps ? widest : kRnnGroupWarps;
   L.head = grp;
-  grp += 2 * L.kto * kTileFloats;
+  grp += 2 * L.kto * no * kTileFloats;
   L.io = grp;
-  grp += L.warps * kMmaRows * 8;
+  grp += L.warps * kMmaRows * 8 * io_tiles(S, U);
   L.group_floats = grp;
   for (L.groups = kRnnThreads / (32 * L.warps); L.groups >= 1; --L.groups) {
     const long bytes = 4L * (off + static_cast<long>(L.groups) * grp);
@@ -144,8 +148,9 @@ __device__ __forceinline__ void stage_gate_fragments(float* dst, const float* __
   }
 }
 
-// Stage the whole net; the caller then synchronises the block.
-template <int G>
+// Stage the whole net; the caller then synchronises the block.  The head
+// takes NO output tiles: fragment (j * kto + kb) its tile j's k-block kb.
+template <int G, int NO = 1>
 __device__ __forceinline__ void stage_rnn_net(float* sm, const NetArgs& a, const RnnLayout& L,
                                               int S) {
   const int n = a.n_layers;
@@ -156,8 +161,8 @@ __device__ __forceinline__ void stage_rnn_net(float* sm, const NetArgs& a, const
     stage_rows(sm + L.bi[l], a.b[l], 1, G, hd, 8 * nt);
     stage_rows(sm + L.bh[l], a.bh[l], 1, G, hd, 8 * nt);
   }
-  stage_gate_fragments(sm + L.wo, a.wo, a.dims[n], S, 1, L.kto, 1);
-  stage_rows(sm + L.bo, a.bo, 1, 1, S, 8);
+  stage_gate_fragments(sm + L.wo, a.wo, a.dims[n], S, 1, L.kto, NO);
+  stage_rows(sm + L.bo, a.bo, 1, 1, S, 8 * NO);
 }
 
 // ---- the step --------------------------------------------------------------
@@ -320,6 +325,147 @@ __device__ __forceinline__ void rnn_mma_start(float* gsm, const NetArgs& a, cons
   }
 }
 
+// The cell of unit tile j of layer l over the group's 16 rows (a unit
+// tile of rnn_mma_step's loop, for rnn_mma_step_wide): gates from the KI
+// k-blocks of [x, u] (layer 0) or the input slab, and h' of the tile into
+// slab `hn`; the last layer's tiles also take their k-block j of the NO
+// head tiles into the head's slots.
+template <int G, int KI, int NO>
+__device__ __forceinline__ void rnn_unit_tile_wide(const float* sm, const NetArgs& a,
+                                                   const RnnLayout& L, int l, int j,
+                                                   const uint32_t (&in_hi)[KI][4],
+                                                   const uint32_t (&in_lo)[KI][4],
+                                                   const float4* inp, const float4* hs,
+                                                   float4* hn, float4* own, float4* head) {
+  const int lane = threadIdx.x & 31, t = lane & 3, nt = L.nt[l], hdp = 8 * nt;
+  float ai[G][4], ah[G][4];
+  const float4* Bi = reinterpret_cast<const float4*>(sm + L.wi[l]) + j * L.kti[l] * G * 32 + lane;
+  const float4* Bh = reinterpret_cast<const float4*>(sm + L.wh[l]) + j * nt * G * 32 + lane;
+  if (l == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ai[g][q] = 0.0f;
+    }
+    mma3_blocks<G, KI>(ai, in_hi, in_lo, Bi, G * 32);
+  } else {
+    gate_products<G>(inp, L.kti[l], Bi, G * 32, ai);
+  }
+  gate_products<G>(hs, nt, Bh, G * 32, ah);
+  // Lane (q, t) holds rows q and q+8 of units 8j + 2t (values 0, 2) and
+  // 8j + 2t + 1 (values 1, 3).
+  float2 bi[G], bh[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    bi[g] = *reinterpret_cast<const float2*>(sm + L.bi[l] + g * hdp + 8 * j + 2 * t);
+    bh[g] = *reinterpret_cast<const float2*>(sm + L.bh[l] + g * hdp + 8 * j + 2 * t);
+  }
+  const float4 sv = own[j * 32];
+  float st[4] = {sv.x, sv.y, sv.z, sv.w}, out[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool odd = q & 1;
+    if constexpr (G == 3) {
+      const float r = sigmoid((ai[0][q] + (odd ? bi[0].y : bi[0].x)) +
+                              (ah[0][q] + (odd ? bh[0].y : bh[0].x)));
+      const float z = sigmoid((ai[1][q] + (odd ? bi[1].y : bi[1].x)) +
+                              (ah[1][q] + (odd ? bh[1].y : bh[1].x)));
+      const float nn = tanhf((ai[2][q] + (odd ? bi[2].y : bi[2].x)) +
+                             r * (ah[2][q] + (odd ? bh[2].y : bh[2].x)));
+      st[q] = out[q] = (1.0f - z) * nn + z * st[q];
+    } else {
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        gate[g] = ((ai[g][q] + (odd ? bi[g].y : bi[g].x)) + ah[g][q]) + (odd ? bh[g].y : bh[g].x);
+      }
+      st[q] = sigmoid(gate[1]) * st[q] + sigmoid(gate[0]) * tanhf(gate[2]);
+      out[q] = sigmoid(gate[3]) * tanhf(st[q]);
+    }
+  }
+  own[j * 32] = make_float4(st[0], st[1], st[2], st[3]);
+  uint32_t hi[1][4], lo[1][4];
+  a_fragment(out, hi[0], lo[0]);
+  put_split(hn, j, hi[0], lo[0]);
+  if (l == a.n_layers - 1) {  // k-block j of each of the head's NO tiles
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      float part[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+      const float4* Bo = reinterpret_cast<const float4*>(sm + L.wo) + (o * L.kto + j) * 32 + lane;
+      mma3_blocks<1, 1>(part, hi, lo, Bo, 32);
+      head[(j * NO + o) * 32] = make_float4(part[0][0], part[0][1], part[0][2], part[0][3]);
+    }
+  }
+}
+
+// rnn_mma_step over a plant of more than 8 inputs (S + U <= 16): [x, u] in
+// KI = io_tiles(S, U) k-blocks into the first cell, the head's S outputs
+// in NO tiles (stage_rnn_net<G, NO>), through the warp's io_tiles(S, U)
+// lane tiles.
+template <int G, int S, int U>
+__device__ __forceinline__ void rnn_mma_step_wide(const float* sm, float* gsm, float* io,
+                                                  const NetArgs& a, const RnnLayout& L,
+                                                  int group, int w, int cur, float (&x)[S],
+                                                  const float (&u)[U]) {
+  constexpr int KI = io_tiles(S, U), NO = (S + 7) / 8;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  float row[8 * KI], in[kRegTiles][4];
+#pragma unroll
+  for (int i = 0; i < S; ++i) row[i] = x[i];
+#pragma unroll
+  for (int j = 0; j < U; ++j) row[S + j] = u[j];
+#pragma unroll
+  for (int i = S + U; i < 8 * KI; ++i) row[i] = 0.0f;
+  row_to_fragments<KI>(io, row, in);
+  uint32_t in_hi[KI][4], in_lo[KI][4];
+#pragma unroll
+  for (int kb = 0; kb < KI; ++kb) a_fragment(in[kb], in_hi[kb], in_lo[kb]);
+  // The head's partial sums, by step parity.
+  float4* head = reinterpret_cast<float4*>(gsm + L.head) + cur * L.kto * NO * 32 + lane;
+  const float4* inp = nullptr;  // the layer's input slab; layer 0: `in`
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int nt = L.nt[l];
+    const float4* hs = reinterpret_cast<const float4*>(gsm + L.h[l]) + cur * 2 * nt * 32 + lane;
+    float4* hn = reinterpret_cast<float4*>(gsm + L.h[l]) + (1 - cur) * 2 * nt * 32 + lane;
+    float4* own = reinterpret_cast<float4*>(gsm + L.own[l]) + lane;
+    for (int j = w; j < nt; j += L.warps) {
+      rnn_unit_tile_wide<G, KI, NO>(sm, a, L, l, j, in_hi, in_lo, inp, hs, hn, own, head);
+    }
+    group_sync(group, L.warps);
+    inp = hn;
+  }
+  // out = h' @ wo + bo on every warp: the head's partial sums in k order.
+  float o[kRegTiles][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[c][q] = 0.0f;
+  }
+  for (int kb = 0; kb < L.kto; ++kb) {
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      const float4 v = head[(kb * NO + c) * 32];
+      o[c][0] = o[c][0] + v.x;
+      o[c][1] = o[c][1] + v.y;
+      o[c][2] = o[c][2] + v.z;
+      o[c][3] = o[c][3] + v.w;
+    }
+  }
+  float out[kRegTiles][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+    const float2 bo = *reinterpret_cast<const float2*>(sm + L.bo + 8 * c + 2 * t);
+    out[c][0] = o[c][0] + bo.x;
+    out[c][1] = o[c][1] + bo.y;
+    out[c][2] = o[c][2] + bo.x;
+    out[c][3] = o[c][3] + bo.y;
+  }
+  float y[S];
+  fragments_to_row<S>(io, out, y);
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = a.predict_delta ? x[i] + y[i] : y[i];
+}
+
 // One step of the stacked cells and the head (pallas_neural.py:526-586,
 // models/networks.py) over the group's 16 rows, this warp's share of each
 // layer: G = 3 the GRU (r = s(gi_r + gh_r), z = s(gi_z + gh_z),
@@ -332,103 +478,118 @@ __device__ __forceinline__ void rnn_mma_step(const float* sm, float* gsm, float*
                                              const NetArgs& a, const RnnLayout& L, int group,
                                              int w, int cur, float (&x)[S],
                                              const float (&u)[U]) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  float row[8], in[4];
+  if constexpr (io_tiles(S, U) > 1) {
+    rnn_mma_step_wide<G, S, U>(sm, gsm, io, a, L, group, w, cur, x, u);
+  } else {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    float row[8], in[4];
 #pragma unroll
-  for (int i = 0; i < S; ++i) row[i] = x[i];
+    for (int i = 0; i < S; ++i) row[i] = x[i];
 #pragma unroll
-  for (int j = 0; j < U; ++j) row[S + j] = u[j];
+    for (int j = 0; j < U; ++j) row[S + j] = u[j];
 #pragma unroll
-  for (int i = S + U; i < 8; ++i) row[i] = 0.0f;
-  tile_to_fragment(io, row, in);
-  uint32_t in_hi[1][4], in_lo[1][4];
-  a_fragment(in, in_hi[0], in_lo[0]);
-  // The head's partial sums, by step parity (a fast warp's next step
-  // writes the other buffer while a slow one still reads this one).
-  float4* head = reinterpret_cast<float4*>(gsm + L.head) + cur * L.kto * 32 + lane;
-  const float4* inp = nullptr;  // the layer's input slab; layer 0: `in`
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int nt = L.nt[l], hdp = 8 * nt;
-    const float4* hs = reinterpret_cast<const float4*>(gsm + L.h[l]) + cur * 2 * nt * 32 + lane;
-    float4* hn = reinterpret_cast<float4*>(gsm + L.h[l]) + (1 - cur) * 2 * nt * 32 + lane;
-    float4* own = reinterpret_cast<float4*>(gsm + L.own[l]) + lane;
-    for (int j = w; j < nt; j += L.warps) {
-      float ai[G][4], ah[G][4];
-      const float4* Bi =
-          reinterpret_cast<const float4*>(sm + L.wi[l]) + j * L.kti[l] * G * 32 + lane;
-      const float4* Bh = reinterpret_cast<const float4*>(sm + L.wh[l]) + j * nt * G * 32 + lane;
-      if (l == 0) {
+    for (int i = S + U; i < 8; ++i) row[i] = 0.0f;
+    tile_to_fragment(io, row, in);
+    uint32_t in_hi[1][4], in_lo[1][4];
+    a_fragment(in, in_hi[0], in_lo[0]);
+    // The head's partial sums, by step parity (a fast warp's next step
+    // writes the other buffer while a slow one still reads this one).
+    float4* head = reinterpret_cast<float4*>(gsm + L.head) + cur * L.kto * 32 + lane;
+    const float4* inp = nullptr;  // the layer's input slab; layer 0: `in`
+    for (int l = 0; l < a.n_layers; ++l) {
+      const int nt = L.nt[l], hdp = 8 * nt;
+      const float4* hs = reinterpret_cast<const float4*>(gsm + L.h[l]) + cur * 2 * nt * 32 + lane;
+      float4* hn = reinterpret_cast<float4*>(gsm + L.h[l]) + (1 - cur) * 2 * nt * 32 + lane;
+      float4* own = reinterpret_cast<float4*>(gsm + L.own[l]) + lane;
+      for (int j = w; j < nt; j += L.warps) {
+        float ai[G][4], ah[G][4];
+        const float4* Bi =
+            reinterpret_cast<const float4*>(sm + L.wi[l]) + j * L.kti[l] * G * 32 + lane;
+        const float4* Bh = reinterpret_cast<const float4*>(sm + L.wh[l]) + j * nt * G * 32 + lane;
+        if (l == 0) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ai[g][q] = 0.0f;
+          }
+          mma3_blocks<G, 1>(ai, in_hi, in_lo, Bi, G * 32);
+        } else {
+          gate_products<G>(inp, L.kti[l], Bi, G * 32, ai);
+        }
+        gate_products<G>(hs, nt, Bh, G * 32, ah);
+        // Lane (q, t) holds rows q and q+8 of units 8j + 2t (values 0, 2)
+        // and 8j + 2t + 1 (values 1, 3).
+        float2 bi[G], bh[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) ai[g][q] = 0.0f;
+          bi[g] = *reinterpret_cast<const float2*>(sm + L.bi[l] + g * hdp + 8 * j + 2 * t);
+          bh[g] = *reinterpret_cast<const float2*>(sm + L.bh[l] + g * hdp + 8 * j + 2 * t);
         }
-        mma3_blocks<G, 1>(ai, in_hi, in_lo, Bi, G * 32);
-      } else {
-        gate_products<G>(inp, L.kti[l], Bi, G * 32, ai);
-      }
-      gate_products<G>(hs, nt, Bh, G * 32, ah);
-      // Lane (q, t) holds rows q and q+8 of units 8j + 2t (values 0, 2)
-      // and 8j + 2t + 1 (values 1, 3).
-      float2 bi[G], bh[G];
+        const float4 sv = own[j * 32];
+        float st[4] = {sv.x, sv.y, sv.z, sv.w}, out[4];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        bi[g] = *reinterpret_cast<const float2*>(sm + L.bi[l] + g * hdp + 8 * j + 2 * t);
-        bh[g] = *reinterpret_cast<const float2*>(sm + L.bh[l] + g * hdp + 8 * j + 2 * t);
-      }
-      const float4 sv = own[j * 32];
-      float st[4] = {sv.x, sv.y, sv.z, sv.w}, out[4];
+        for (int q = 0; q < 4; ++q) {
+          const bool odd = q & 1;
+          if constexpr (G == 3) {
+            const float r = sigmoid((ai[0][q] + (odd ? bi[0].y : bi[0].x)) +
+                                    (ah[0][q] + (odd ? bh[0].y : bh[0].x)));
+            const float z = sigmoid((ai[1][q] + (odd ? bi[1].y : bi[1].x)) +
+                                    (ah[1][q] + (odd ? bh[1].y : bh[1].x)));
+            const float nn = tanhf((ai[2][q] + (odd ? bi[2].y : bi[2].x)) +
+                                   r * (ah[2][q] + (odd ? bh[2].y : bh[2].x)));
+            st[q] = out[q] = (1.0f - z) * nn + z * st[q];
+          } else {
+            float gate[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const bool odd = q & 1;
-        if constexpr (G == 3) {
-          const float r = sigmoid((ai[0][q] + (odd ? bi[0].y : bi[0].x)) +
-                                  (ah[0][q] + (odd ? bh[0].y : bh[0].x)));
-          const float z = sigmoid((ai[1][q] + (odd ? bi[1].y : bi[1].x)) +
-                                  (ah[1][q] + (odd ? bh[1].y : bh[1].x)));
-          const float nn = tanhf((ai[2][q] + (odd ? bi[2].y : bi[2].x)) +
-                                 r * (ah[2][q] + (odd ? bh[2].y : bh[2].x)));
-          st[q] = out[q] = (1.0f - z) * nn + z * st[q];
-        } else {
-          float gate[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            gate[g] = ((ai[g][q] + (odd ? bi[g].y : bi[g].x)) + ah[g][q]) +
-                      (odd ? bh[g].y : bh[g].x);
+            for (int g = 0; g < 4; ++g) {
+              gate[g] = ((ai[g][q] + (odd ? bi[g].y : bi[g].x)) + ah[g][q]) +
+                        (odd ? bh[g].y : bh[g].x);
+            }
+            st[q] = sigmoid(gate[1]) * st[q] + sigmoid(gate[0]) * tanhf(gate[2]);
+            out[q] = sigmoid(gate[3]) * tanhf(st[q]);
           }
-          st[q] = sigmoid(gate[1]) * st[q] + sigmoid(gate[0]) * tanhf(gate[2]);
-          out[q] = sigmoid(gate[3]) * tanhf(st[q]);
+        }
+        own[j * 32] = make_float4(st[0], st[1], st[2], st[3]);
+        uint32_t hi[1][4], lo[1][4];
+        a_fragment(out, hi[0], lo[0]);
+        put_split(hn, j, hi[0], lo[0]);
+        if (l == a.n_layers - 1) {  // k-block j of the head's product
+          float part[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+          const float4* Bo = reinterpret_cast<const float4*>(sm + L.wo) + j * 32 + lane;
+          mma3_blocks<1, 1>(part, hi, lo, Bo, 32);
+          head[j * 32] = make_float4(part[0][0], part[0][1], part[0][2], part[0][3]);
         }
       }
-      own[j * 32] = make_float4(st[0], st[1], st[2], st[3]);
-      uint32_t hi[1][4], lo[1][4];
-      a_fragment(out, hi[0], lo[0]);
-      put_split(hn, j, hi[0], lo[0]);
-      if (l == a.n_layers - 1) {  // k-block j of the head's product
-        float part[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
-        const float4* Bo = reinterpret_cast<const float4*>(sm + L.wo) + j * 32 + lane;
-        mma3_blocks<1, 1>(part, hi, lo, Bo, 32);
-        head[j * 32] = make_float4(part[0][0], part[0][1], part[0][2], part[0][3]);
-      }
+      group_sync(group, L.warps);
+      inp = hn;
     }
-    group_sync(group, L.warps);
-    inp = hn;
-  }
-  // out = h' @ wo + bo on every warp: the head's partial sums in k order.
-  float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int kb = 0; kb < L.kto; ++kb) {
-    const float4 v = head[kb * 32];
-    o[0] = o[0] + v.x;
-    o[1] = o[1] + v.y;
-    o[2] = o[2] + v.z;
-    o[3] = o[3] + v.w;
-  }
-  const float2 bo = *reinterpret_cast<const float2*>(sm + L.bo + 2 * t);
-  const float out[4] = {o[0] + bo.x, o[1] + bo.y, o[2] + bo.x, o[3] + bo.y};
-  float y[S];
-  fragment_to_tile<S>(io, out, y);
+    // out = h' @ wo + bo on every warp: the head's partial sums in k order.
+    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int kb = 0; kb < L.kto; ++kb) {
+      const float4 v = head[kb * 32];
+      o[0] = o[0] + v.x;
+      o[1] = o[1] + v.y;
+      o[2] = o[2] + v.z;
+      o[3] = o[3] + v.w;
+    }
+    const float2 bo = *reinterpret_cast<const float2*>(sm + L.bo + 2 * t);
+    const float out[4] = {o[0] + bo.x, o[1] + bo.y, o[2] + bo.x, o[3] + bo.y};
+    float y[S];
+    fragment_to_tile<S>(io, out, y);
 #pragma unroll
-  for (int i = 0; i < S; ++i) x[i] = a.predict_delta ? x[i] + y[i] : y[i];
+    for (int i = 0; i < S; ++i) x[i] = a.predict_delta ? x[i] + y[i] : y[i];
+  }
+}
+
+// rnn_mma_step behind a call: one body per (G, S, U) in a source, shared
+// by every kernel that calls it (K13's instances over the costs other than
+// cartpole's: net_rollout.cuh kInlineNet).
+template <int G, int S, int U>
+__device__ __noinline__ void rnn_mma_step_call(const float* sm, float* gsm, float* io,
+                                               const NetArgs& a, const RnnLayout& L, int group,
+                                               int w, int cur, float (&x)[S],
+                                               const float (&u)[U]) {
+  rnn_mma_step<G, S, U>(sm, gsm, io, a, L, group, w, cur, x, u);
 }
 
 }  // namespace ctt

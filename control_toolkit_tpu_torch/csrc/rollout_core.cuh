@@ -332,6 +332,40 @@ int with_slice_plant(int plant, F&& f) {
                        kPlantArm2, kPlantArm2Fast>(plant, static_cast<F&&>(f));
 }
 
+// The cost of the plant of id `Id`: a network or GP kernel's plant is its
+// cost's (ops/kernels.py), its dynamics a net or a GP.
+template <int Id>
+using CostOfId = typename PlantOfId<Id>::type::Cost;
+
+// f(Cost{}) for the cost of the plant of id `plant` among the ids Ids (a
+// group of with_slice_cost's that a source of its own instantiates);
+// cudaErrorInvalidValue for any other id.
+template <int... Ids, class F>
+int with_cost_in(int plant, F&& f) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  ((plant == Ids && ((rc = f(CostOfId<Ids>{})), true)) || ...);
+  return rc;
+}
+
+// f(Cost{}) for the cost of the plant of id `plant` among the nine costs
+// other than cartpole's (the pendulum's, acrobot's, point masses', planar
+// and 3-D quadrotors', cars' and arm's): the network and GP kernels'
+// instances over them.  cudaErrorInvalidValue for any other id, a fast
+// plant's among them (no learned model has fast dynamics).
+template <class F>
+int with_slice_cost(int plant, F&& f) {
+  return with_cost_in<kPlantPendulum, kPlantAcrobot, kPlantPointmass, kPlantPointmassObstacles,
+                      kPlantQuadrotor2D, kPlantQuadrotor3D, kPlantCar, kPlantCarObstacles,
+                      kPlantArm2>(plant, static_cast<F&&>(f));
+}
+
+// with_slice_cost over the ten costs, cartpole's among them.
+template <class F>
+int with_net_cost(int plant, F&& f) {
+  if (plant == kPlantCartpole) return f(CartpoleCost{});
+  return with_slice_cost(plant, static_cast<F&&>(f));
+}
+
 // f(Plant{}) for the plant of id `plant` among every ODE plant, cartpole's
 // two among them (the forms that carry all of ops/kernels.py ODE_PLANTS).
 template <class F>

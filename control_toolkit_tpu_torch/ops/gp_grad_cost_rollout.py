@@ -75,13 +75,16 @@ def gp_grad_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torc
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10 with ``lanes`` lanes a rollout (4, 8, 16 or 32; 0 for the
     kernel's own, which ``gp_grad_cost_rollout`` takes): the split's
-    measurement (chip_smoke.py phase 21).  Counted as K10's launches."""
+    measurement (chip_smoke.py phase 21).  Counted as K10's launches.  Over a
+    cost other than cartpole's, lanes 0 alone (``kernels.require_lanes``
+    raises for another)."""
     check_shapes("gp_grad_cost_rollout", s0, Q, pvec)
     if model.plant not in PLANT_ADJOINTS:
         raise ValueError(f"gp_grad_cost_rollout: no cost adjoints for the {model.plant!r} plant")
     if lanes not in (0, 4, 8, 16, 32):
         raise ValueError(f"gp_grad_cost_rollout: {lanes} lanes a rollout (4, 8, 16 or 32; 0: "
                          "the kernel's)")
+    kernels.require_lanes("K10", model.plant, lanes)
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_grad_cost_rollout_plain(model, s0, Q, pvec, ops)
     cost, dQ = _launch("gp_grad_cost_rollout", model, s0, Q, pvec, ops, s0.shape[0], lanes)

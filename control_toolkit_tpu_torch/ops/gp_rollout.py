@@ -101,11 +101,14 @@ def gp_cost_rollout_lanes(model: kernels.GPModel, s0: torch.Tensor, Q: torch.Ten
                           ) -> torch.Tensor:
     """K14 with ``lanes`` lanes a rollout (1, 2, 4, 8 or 16; 0 for the
     kernel's own, which ``gp_cost_rollout`` takes): the split's measurement
-    (chip_smoke.py phase 20).  Counted as K14's launches."""
+    (chip_smoke.py phase 20).  Counted as K14's launches.  Over a cost other
+    than cartpole's, lanes 0 alone (``kernels.require_lanes`` raises for
+    another)."""
     check_shapes("gp_cost_rollout", s0, Q, pvec)
     if lanes not in (0, 1, 2, 4, 8, 16):
         raise ValueError(f"gp_cost_rollout: {lanes} lanes a rollout (1, 2, 4, 8 or 16; 0: the "
                          "kernel's)")
+    kernels.require_lanes("K14", model.plant, lanes)
     if kernels.on_cpu(s0, Q, pvec, *ops.values()):
         return gp_cost_rollout_plain(model, s0, Q, pvec, ops)
     cost = _launch("gp_cost_rollout", model, s0, Q, pvec, ops, s0.shape[0], lanes)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -29,16 +30,24 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # The plants other than cartpole's take K7's value_spec forms, K12 and K9
 # from sources of their own, K7's and K9's in groups of plants
 # (grad_value_plants_<group>.cu, residual_cost_plants.cu,
-# residual_grad_plants_<group>.cu), so that no source's build grows.
-SOURCES = ("cost_rollout.cu", "mppi_cost.cu", "grad_cost_rollout.cu", "neural_rollout.cu",
-           "neural_grad_rollout.cu", "residual_rollout.cu", "gp_rollout.cu", "fused_cem.cu",
-           "fused_mppi.cu", "mppi_cost_cols.cu", "fused_cem_cols.cu",
-           *(f"grad_value_plants_{g}.cu" for g in range(2)), "residual_cost_plants.cu",
-           *(f"residual_grad_plants_{g}.cu" for g in range(5)))
+# residual_grad_plants_<group>.cu), and the costs other than cartpole's
+# K11's and K13's forms, K14's and K10's from groups of costs
+# (net_plants_<group>.cu, gp_plants_<group>.cu), so that no source's build
+# grows.  The sources are listed heaviest first, by their nvcc's CPU
+# seconds (probes/build_times.py on the card's host, PERF.md): build()
+# starts them in this order, one a CPU at a time.
+SOURCES = ("grad_cost_rollout.cu", "residual_grad_plants_3.cu", "grad_value_plants_1.cu",
+           "residual_rollout.cu", "residual_grad_plants_4.cu", "residual_grad_plants_0.cu",
+           "residual_cost_plants.cu", "residual_grad_plants_2.cu", "neural_grad_rollout.cu",
+           "residual_grad_plants_1.cu", "cost_rollout.cu", "grad_value_plants_0.cu",
+           "mppi_cost_cols.cu", "mppi_cost.cu", "fused_cem_cols.cu", "fused_cem.cu",
+           "net_plants_2.cu", "fused_mppi.cu", "net_plants_3.cu", "net_plants_0.cu",
+           "neural_rollout.cu", "gp_plants_2.cu", "net_plants_4.cu", "net_plants_1.cu",
+           "gp_plants_0.cu", "gp_rollout.cu", "gp_plants_1.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
            "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "cem_core.cuh",
            "short_step.cuh", "mppi_ahead.cuh", "value_mlp.cuh", "grad_core.cuh",
-           "residual_core.cuh")
+           "residual_core.cuh", "net_rollout.cuh", "gp_kernels.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -139,10 +148,13 @@ PLANT_PARAM_KEYS = {plant: DYN_PARAM_KEYS[plant] + COST_PARAM_KEYS[plant] for pl
 # wrapper consults it (``require``): a path on which the JAX package would
 # launch a kernel over a plant that the port's kernel has no instance of
 # raises, and never takes the scan or another kernel instead.  The
-# network kernels' plant is their cost's (the dynamics are a net or a GP);
-# the residual kernels' the base's.
+# network kernels' plant is their cost's (the dynamics are a net or a GP):
+# one of COST_PLANTS, the names kernel_families/ode.py ``cost_plant`` gives
+# (no learned model has fast dynamics, so no ``_fast`` id); the residual
+# kernels' the base's.
 CARTPOLE_PLANTS = ("cartpole", "cartpole_fast")
 ODE_PLANTS = tuple(PLANT_IDS)
+COST_PLANTS = tuple(p for p in PLANT_DIMS if p not in FAST_PLANTS.values())
 KERNEL_PLANTS = {
     **{form: ODE_PLANTS for form in (
         "K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1's session-row form",
@@ -152,16 +164,17 @@ KERNEL_PLANTS = {
         "K9's session-row form", "K9's session-row value_spec form", "K12",
         "K12's emit_terminal form", "K12's session-row form",
         "K12's session-row emit_terminal form")},
+    **{form: COST_PLANTS for form in (
+        "K10", "K10's value_spec form", "K10's session-row form",
+        "K10's session-row value_spec form", "K11", "K11's emit_terminal form",
+        "K11's member-block form", "K11's member-block emit_terminal form",
+        "K11's session-row form", "K11's session-row emit_terminal form", "K13",
+        "K13's emit_terminal form", "K13's session-row form", "K14", "K14's emit_terminal form",
+        "K14's session-row form", "K14's session-row emit_terminal form")},
     **{form: ("cartpole",) for form in (
         "K8", "K8's value_spec form", "K8's member-block form",
         "K8's member-block value_spec form", "K8's session-row form",
-        "K8's session-row value_spec form", "K10", "K10's value_spec form",
-        "K10's session-row form", "K10's session-row value_spec form",
-        "K11", "K11's emit_terminal form", "K11's member-block form",
-        "K11's member-block emit_terminal form", "K11's session-row form",
-        "K11's session-row emit_terminal form", "K13", "K13's emit_terminal form",
-        "K13's session-row form", "K14", "K14's emit_terminal form", "K14's session-row form",
-        "K14's session-row emit_terminal form")},
+        "K8's session-row value_spec form")},
 }
 
 
@@ -172,6 +185,18 @@ def require(kernel: str, plant: str) -> None:
         raise NotImplementedError(
             f"{kernel} over the {plant!r} plant is not ported to control_toolkit_tpu_torch yet "
             f"(ROADMAP; it carries {', '.join(KERNEL_PLANTS[kernel])})")
+
+
+def require_lanes(kernel: str, plant: str, lanes: int) -> None:
+    """Raise NotImplementedError, naming the kernel and the plant, where a
+    GP kernel is asked for ``lanes`` lanes a rollout (0: the kernel's own)
+    over a cost whose instance is built at the kernel's own count alone
+    (every cost but cartpole's; gp_layout reads that count)."""
+    if plant != "cartpole" and lanes != 0:
+        raise NotImplementedError(
+            f"{kernel} at {lanes} lanes a rollout over the {plant!r} plant is not instantiated "
+            "(its instances over the costs other than cartpole's take the kernel's own count: "
+            "lanes 0)")
 
 
 def plant_key(pred, cost_plant: str = None) -> str:
@@ -414,15 +439,25 @@ def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
     raise ValueError(f"no network kernel {kernel!r}")
 
 
-def net_blocks_per_sm(kernel: str, args: NetArgs) -> int:
+# The network kernels whose blocks-per-SM entry takes the cost's plant id.
+PLANT_OCCUPANCY = ("neural", "neural_ens", "recurrent")
+
+
+def net_blocks_per_sm(kernel: str, args: NetArgs, plant: str = "cartpole") -> int:
     """Blocks of the tensor-core network kernel ``kernel`` (``neural`` for
     K11, ``residual`` for K12, ``neural_grad`` for K8, ``residual_grad`` for
     K9, ``recurrent`` for K13, ``neural_ens`` and ``neural_grad_ens`` for
     K11's and K8's member-block forms) that one SM holds for the net of
     ``args`` (one member's, for the forms), as
     the CUDA runtime's occupancy calculator gives it (0 for a refused
-    net)."""
-    return int(getattr(load(), f"ctt_{kernel}_blocks_per_sm")(ctypes.byref(args)))
+    net); K11's, its member-block form's and K13's over the cost of
+    ``plant`` (PLANT_OCCUPANCY), the others' over cartpole's."""
+    entry = getattr(load(), f"ctt_{kernel}_blocks_per_sm")
+    if kernel in PLANT_OCCUPANCY:
+        return int(entry(PLANT_IDS[plant], ctypes.byref(args)))
+    if plant != "cartpole":
+        raise ValueError(f"net_blocks_per_sm: {kernel}'s entry takes cartpole's instance alone")
+    return int(entry(ctypes.byref(args)))
 
 
 @dataclass(frozen=True)
@@ -485,13 +520,15 @@ class GPArgs(ctypes.Structure):
     _fields_ = [("M", ctypes.c_int)] + [(name, ctypes.c_void_p) for name in GP_OPERANDS]
 
 
-def gp_layout(M: int, lanes: int = 0, grad: bool = True) -> Tuple[int, int, int]:
-    """K10's (``grad``) or K14's layout (csrc/gp_rollout.cu) for M inducing
-    points with ``lanes`` lanes a rollout (0: the kernel's own): ``(lanes,
-    threads a block, blocks an SM holds)``, zeros where the kernel refuses
-    M or ``lanes``."""
+def gp_layout(M: int, lanes: int = 0, grad: bool = True,
+              plant: str = "cartpole") -> Tuple[int, int, int]:
+    """K10's (``grad``) or K14's layout (csrc/gp_rollout.cu) over the cost of
+    ``plant`` for M inducing points with ``lanes`` lanes a rollout (0: the
+    kernel's own, the only count the costs other than cartpole's take):
+    ``(lanes, threads a block, blocks an SM holds)``, zeros where the
+    kernel refuses M or ``lanes``."""
     threads, blocks = ctypes.c_int(), ctypes.c_int()
-    taken = load().ctt_gp_layout(int(grad), M, lanes, ctypes.byref(threads),
+    taken = load().ctt_gp_layout(PLANT_IDS[plant], int(grad), M, lanes, ctypes.byref(threads),
                                  ctypes.byref(blocks))
     return int(taken), threads.value, blocks.value
 
@@ -597,12 +634,60 @@ def library_path() -> Path:
     return BUILD_DIR / f"libctt_kernels-{h.hexdigest()[:16]}.so"
 
 
+def compile_sources(nvcc: str, jobs) -> Tuple[Dict[str, str], Dict[str, float],
+                                               Dict[str, float]]:
+    """Compile ``jobs``, (source, object) pairs in the order given (SOURCES':
+    the heaviest first), one ``nvcc`` a source and at most one a CPU running
+    at once, so that the longest compiles start first and none waits behind
+    a crowd of short ones.  Returns each source's ptxas log, its seconds
+    from the start, and the CPU seconds its nvcc and the compilers it ran
+    took; raises on the first failure, after stopping the others."""
+    slots = max(1, os.cpu_count() or 1)
+    pending, running = list(jobs), {}
+    logs, seconds, cpu = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        while pending or running:
+            while pending and len(running) < slots:
+                src, obj = pending.pop(0)
+                err = tempfile.TemporaryFile("w+")
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)],
+                                        stdout=subprocess.DEVNULL, stderr=err)
+                running[proc.pid] = (src, proc, err)
+            finished = False
+            for pid in list(running):
+                got, status, usage = os.wait4(pid, os.WNOHANG)
+                if got == 0:
+                    continue
+                finished = True
+                src, proc, err = running.pop(pid)
+                proc.returncode = os.waitstatus_to_exitcode(status)
+                seconds[src] = time.perf_counter() - t0
+                cpu[src] = usage.ru_utime + usage.ru_stime
+                err.seek(0)
+                logs[src] = err.read()
+                err.close()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src}:\n{logs[src]}")
+            if not finished:
+                time.sleep(0.02)
+    finally:
+        for _, proc, err in running.values():
+            proc.kill()
+            proc.wait()
+            err.close()
+    return logs, seconds, cpu
+
+
 def build() -> Path:
     """Compile ``csrc/`` unless this source hash is built already; return
-    the library's path.  Each source compiles in its own ``nvcc``, all
-    started together, and the objects are linked into one library.
-    ``build.count`` counts builds in this process, ``build.seconds`` and
-    ``build.log`` (ptxas' register report) describe the last one."""
+    the library's path.  Each source compiles in its own ``nvcc``, one a CPU
+    at a time in SOURCES' order (``compile_sources``), and the objects are
+    linked into one library.  ``build.count`` counts builds in this
+    process; ``build.seconds`` (the link included), ``build.compile_seconds``,
+    ``build.source_seconds`` and ``build.cpu_seconds`` (each source's from
+    the start, and its nvcc's CPU seconds) and ``build.log`` (ptxas'
+    register report) describe the last one."""
     out = library_path()
     if out.exists():
         return out
@@ -612,13 +697,8 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(SOURCES, objs)]
-        logs = [proc.communicate()[1] for proc in procs]
-        for src, proc, log in zip(SOURCES, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        logs, source_seconds, cpu_seconds = compile_sources(nvcc, zip(SOURCES, objs))
+        compiled = time.perf_counter() - t0
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs],
                               capture_output=True, text=True)
         if link.returncode != 0:
@@ -629,12 +709,15 @@ def build() -> Path:
     os.replace(tmp, out)
     build.count += 1
     build.seconds = time.perf_counter() - t0
-    build.log = "".join(logs)
+    build.compile_seconds = compiled
+    build.source_seconds, build.cpu_seconds = source_seconds, cpu_seconds
+    build.log = "".join(logs[src] for src in SOURCES)
     return out
 
 
 build.count = 0
-build.seconds = None
+build.seconds = build.compile_seconds = None
+build.source_seconds, build.cpu_seconds = {}, {}
 build.log = ""
 
 
@@ -708,11 +791,14 @@ def load() -> ctypes.CDLL:
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
         lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
-        for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_grad_blocks_per_sm,
-                   lib.ctt_neural_ens_blocks_per_sm, lib.ctt_neural_grad_ens_blocks_per_sm,
-                   lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm,
-                   lib.ctt_recurrent_blocks_per_sm):
+        for fn in (lib.ctt_neural_grad_blocks_per_sm, lib.ctt_neural_grad_ens_blocks_per_sm,
+                   lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm):
             fn.argtypes = [net]
+            fn.restype = i32
+        # K11's, its member-block form's and K13's over the cost of a plant id.
+        for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_ens_blocks_per_sm,
+                   lib.ctt_recurrent_blocks_per_sm):
+            fn.argtypes = [i32, net]
             fn.restype = i32
         # rows: 0 for the single-session kernel, 1 for its session-row form.
         for fn in (lib.ctt_cost_rollout_blocks_per_sm, lib.ctt_grad_cost_forward_blocks_per_sm,
@@ -774,9 +860,11 @@ def load() -> ctypes.CDLL:
             i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, gp, value, ptr,
         ]
         lib.ctt_gp_grad_cost_rollout.restype = i32
-        lib.ctt_gp_grad_value_layout.argtypes = [i32, value, long_p]
+        # The GP layouts take the cost's plant id first.
+        lib.ctt_gp_grad_value_layout.argtypes = [i32, i32, value, long_p]
         lib.ctt_gp_grad_value_layout.restype = i32
-        lib.ctt_gp_layout.argtypes = [i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.ctt_gp_layout.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32),
+                                      ctypes.POINTER(i32)]
         lib.ctt_gp_layout.restype = i32
         lib.ctt_gp_smem_bytes.argtypes = [i32, i32, i32]
         lib.ctt_gp_smem_bytes.restype = ctypes.c_long

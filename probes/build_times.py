@@ -1,7 +1,8 @@
 """Wall time of the kernel library's build in each checkout given, its
-sources compiled as ``ops/kernels.py`` ``build()`` compiles them (one
-``nvcc`` a source, all started together, then the link), with each
-source's own time:
+sources compiled as that checkout's ``ops/kernels.py`` ``build()``
+compiles them (one ``nvcc`` a source: one a CPU at a time, the heaviest
+first, where the checkout has ``compile_sources``; else all started
+together), then the link, with each source's own time:
 
     python probes/build_times.py <checkout> [<checkout> ...]
 
@@ -31,6 +32,13 @@ def build(root: Path) -> dict:
     out = kernels.library_path()
     out.unlink(missing_ok=True)
     out.parent.mkdir(parents=True, exist_ok=True)
+    if hasattr(kernels, "compile_sources"):
+        b = kernels.build
+        b()
+        return {"checkout": str(root), "cpus": os.cpu_count(), "compile_s": b.compile_seconds,
+                "total_s": b.seconds, "sources": len(b.source_seconds),
+                "source_s": b.source_seconds, "cpu_s": b.cpu_seconds,
+                "cpu_total_s": sum(b.cpu_seconds.values())}
     objs = [f"{out}.{Path(src).stem}.o" for src in kernels.SOURCES]
     nvcc = kernels._nvcc()
     logs = {src: open(f"{obj}.log", "w+") for src, obj in zip(kernels.SOURCES, objs)}

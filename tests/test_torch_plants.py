@@ -5,9 +5,10 @@ environments, the hand-written adjoints, the
 plain versions of K1, K2, K3 and K7 over each (dynamics, cost) plant
 against the JAX kernels in interpret mode, one MPPI and one rpgd-tf update
 fed the JAX draws, and the gates: the fleet and fused-CEM paths (K4, K5,
-K6, the session-row K1 and K7) build and step, and every path on which
-the JAX package would launch a kernel that has no instance of these
-plants raises, naming the kernel and the plant, and never takes the scan
+K6, the session-row K1 and K7), the value, residual and learned-dynamics
+paths build and step, and every path on which the JAX package would
+launch a kernel that has no instance of these plants (K8's forms over an
+MLP) raises, naming the kernel and the plant, and never takes the scan
 instead.
 
 Tolerances, each with its reason:
@@ -57,7 +58,14 @@ from control_toolkit_tpu_torch.ops.mppi_cost_cols import mppi_cost_cols
 from control_toolkit_tpu_torch.ops.residual_grad_cost_rollout import residual_grad_cost_rollout
 from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
-from control_toolkit_tpu_torch.optimizers.kernel_families import ode, residual
+from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import gp_grad_cost_rollout
+from control_toolkit_tpu_torch.ops.gp_rollout import gp_cost_rollout
+from control_toolkit_tpu_torch.ops.neural_rollout import (
+    neural_cost_rollout, neural_cost_rollout_ens, recurrent_cost_rollout,
+)
+from control_toolkit_tpu_torch.optimizers.kernel_families import (
+    ensemble, gp, neural, ode, residual,
+)
 from control_toolkit_tpu_torch.utils import registry
 from control_toolkit_tpu_torch.utils.convert import (
     mppi_state_from_numpy, params_from_numpy, rpgd_state_from_numpy,
@@ -818,9 +826,14 @@ def test_ported_fleet_paths_build_and_step_on_the_cpu(path, label):
     assert np.all(u >= lo) and np.all(u <= hi)
 
 
-# label of a ported value or residual path: (the kernel form it launches on
-# the card, the wrapper whose plain version runs here, a function that builds
-# it, its gate)
+def gp_ctrl(lb, optimizer, cfg):
+    return port_ctrl(lb, optimizer, cfg, "gp",
+                     predictor_config={"params": gp_params(*DIMS[PLANTS[lb][0]])})
+
+
+# label of a ported value, residual or learned-dynamics path: (the kernel
+# form it launches on the card, the wrapper whose plain version runs here, a
+# function that builds it, its gate)
 PORTED_FORMS = {
     "valued_mppi": ("K2's emit_terminal form", mppi_cost_emit,
                     lambda lb: valued(lb, "mppi", small()),
@@ -839,6 +852,19 @@ PORTED_FORMS = {
     "residual_rpgd": ("K9", residual_grad_cost_rollout,
                       lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ODE+res"),
                       lambda c: residual.can_use_grad(c.optimizer)),
+    "mlp": ("K11", neural_cost_rollout,
+            lambda lb: port_ctrl(lb, "mppi", small(), "neural:mlp-16-16"),
+            lambda c: neural.can_use_cost(c.optimizer)),
+    "gru": ("K13", recurrent_cost_rollout,
+            lambda lb: port_ctrl(lb, "mppi", small(), "neural:GRU-8H1"),
+            lambda c: neural.can_use_cost(c.optimizer)),
+    "gp": ("K14", gp_cost_rollout, lambda lb: gp_ctrl(lb, "mppi", small()),
+           lambda c: gp.can_use_cost(c.optimizer)),
+    "gp_rpgd": ("K10", gp_grad_cost_rollout, lambda lb: gp_ctrl(lb, "rpgd-tf", small_rpgd()),
+                lambda c: gp.can_use_grad(c.optimizer)),
+    "ensemble": ("K11's member-block form", neural_cost_rollout_ens,
+                 lambda lb: port_ctrl(lb, "mppi", small(), "ensemble:mlp-8-8:2"),
+                 lambda c: ensemble.can_use_cost(c.optimizer)),
 }
 
 
@@ -847,11 +873,12 @@ PORTED_FORMS = {
                                    "car_obstacles"])
 def test_ported_value_and_residual_paths_reach_their_form_on_the_cpu(path, label):
     """The learned-value and residual paths (the emit_terminal forms of K1
-    and K2, K7's value_spec form, K12 and K9) build over these plants (the
-    forms carry every plant id), their gate admits the form, and their
-    first step runs on the CPU through the form's plain version: the
-    wrapper launches nothing, and the controls are finite and within the
-    limits."""
+    and K2, K7's value_spec form, K12 and K9) and the learned-dynamics ones
+    (K11, K13, K14, K10, K11's member-block form) build over these plants
+    (the forms carry every plant id, the network forms every cost's), their
+    gate admits the form, and their first step runs on the CPU through the
+    form's plain version: the wrapper launches nothing, and the controls
+    are finite and within the limits."""
     form, wrapper, build, gate = PORTED_FORMS[path]
     plant = PLANTS[label][2]
     assert plant in kernels.KERNEL_PLANTS[form]
@@ -865,19 +892,11 @@ def test_ported_value_and_residual_paths_reach_their_form_on_the_cpu(path, label
     assert u.shape == lo.shape and np.all(np.isfinite(u)) and np.all(u >= lo) and np.all(u <= hi)
 
 
-# label of the path: (the kernel form it would launch, a function that builds it)
+# label of the path: (the kernel form it would launch, a function that builds
+# it): the gradient paths over an MLP, whose K8 forms carry cartpole's cost
+# alone.
 REFUSED = {
-    "mlp": ("K11", lambda lb: port_ctrl(lb, "mppi", small(), "neural:mlp-16-16")),
     "mlp_rpgd": ("K8", lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "neural:mlp-16-16")),
-    "gru": ("K13", lambda lb: port_ctrl(lb, "mppi", small(), "neural:GRU-8H1")),
-    "gp": ("K14", lambda lb: port_ctrl(
-        lb, "mppi", small(), "gp",
-        predictor_config={"params": gp_params(*DIMS[PLANTS[lb][0]])})),
-    "gp_rpgd": ("K10", lambda lb: port_ctrl(
-        lb, "rpgd-tf", small_rpgd(), "gp",
-        predictor_config={"params": gp_params(*DIMS[PLANTS[lb][0]])})),
-    "ensemble": ("K11's member-block form",
-                 lambda lb: port_ctrl(lb, "mppi", small(), "ensemble:mlp-8-8:2")),
     "ensemble_rpgd": ("K8's member-block form",
                       lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ensemble:mlp-8-8:2")),
 }
@@ -954,8 +973,8 @@ def test_unknown_plants_and_forms_are_refused_before_a_launch(monkeypatch):
     says does not carry the acrobot raises before touching its operands."""
     from control_toolkit_tpu_torch.ops import cost_rollout as k1_module
 
-    with pytest.raises(NotImplementedError, match="K11's emit_terminal form over the 'acrobot'"):
-        kernels.require("K11's emit_terminal form", "acrobot")
+    with pytest.raises(NotImplementedError, match="K8's value_spec form over the 'acrobot'"):
+        kernels.require("K8's value_spec form", "acrobot")
     with pytest.raises(NotImplementedError, match="K8 over the 'quadrotor2d'"):
         kernels.require("K8", "quadrotor2d")
     for kernel in ("K1", "K2", "K3", "K7", "K4", "K5", "K6", "K1's session-row form",
