@@ -564,7 +564,31 @@ plant is its cost's) the learned-dynamics kernels:
 94. closed loops counted from 0 of every such path (and the valued MPPI over
     the ensemble, GRU and LSTM, the LSTM fleet, the valued MLP and GP
     fleets and the valued rpgd-tf fleet over the GP) over every cost at the
-    main path's width, 2 ticks each.
+    main path's width, 2 ticks each;
+
+and K8's six forms over the same nine costs (csrc/neural_grad_plants_<group>.cu):
+
+95. each cost's instances of K8 (plain, value_spec, session-row and its
+    value_spec form, member-block and its value_spec form) against their
+    plain versions over seeded mlp-64-64 and 4 x mlp-32-32 at the plant's
+    widths and phase 89's V, the single-session and member-block forms at
+    K=16384, H=50, the session-row ones at 128 x 32 and 32 x 512, H=50,
+    each also at K=700 (175 a member, 7 sessions of 100), H=45: J to the
+    nets' bound or float64, dQ to K7's bound or float64 (f64_held, its
+    kernel ratio J's, capped at 3), each bound rejecting the controls read a
+    step early, the cost's named stage term dropped, the next session's
+    rows, the next member's weights and, for the value forms' dQ, dV/dx_H
+    dropped, V's scale left out and V without its 1/(H+1) (each margin
+    printed); each instance's CUDA-event time, FP32 and tensor-core bound,
+    plain ms, registers, spills and blocks per SM;
+96. one update of each path K8 opens on the card against the CPU's over the
+    3-D quadrotor's cost: rpgd-tf over the MLP (valued too) and the
+    ensemble (valued too), gradient-tf over the MLP (valued too),
+    cem-grad-bharadhwaj over the MLP, mppi-optimize-tf's refinement over the
+    MLP, and the rpgd-tf and gradient-tf fleets over the MLP;
+97. closed loops counted from 0 of every such path (and cem-naive-grad and
+    the valued rpgd-tf fleet over the MLP) over every cost at the main path's
+    width, 2 ticks each.
 
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
@@ -614,6 +638,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -639,7 +664,7 @@ from control_toolkit_tpu_torch.models.online_sysid import OnlineSysId
 from control_toolkit_tpu_torch.models.training import collect_transitions
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.common import (
-    AdamState, adam_update, clip_by_norm, elite_indices,
+    AdamState, adam_init, adam_update, clip_by_norm, elite_indices,
 )
 from control_toolkit_tpu_torch.ops.cost_rollout import (
     cost_rollout, cost_rollout_cols, cost_rollout_cols_emit, cost_rollout_cols_emit_plain,
@@ -1298,7 +1323,8 @@ def compare(name: str, kernel_fn, plain_fn, tol=KERNEL_TOL, extra=None, reduce=N
     """A kernel against its plain version on the same card tensors, both
     outputs through ``reduce`` (if given) before the comparison; the times
     are the functions' own."""
-    got, ref = kernel_fn(), plain_fn()
+    got = kernel_fn()
+    ref, plain_ms = plain_timed(plain_fn)
     if reduce is not None:
         got, ref = reduce(got), reduce(ref)
     torch.cuda.synchronize()
@@ -1308,7 +1334,7 @@ def compare(name: str, kernel_fn, plain_fn, tol=KERNEL_TOL, extra=None, reduce=N
         "max_rel_err": float((err / ref.abs().clamp_min(1e-6)).max()),
         "finite": bool(torch.isfinite(got).all()),
         "ms": cuda_ms(kernel_fn, 50),
-        "plain_ms": cuda_ms(plain_fn, 3),
+        "plain_ms": plain_ms,
         **(extra(ref) if extra else {}),
     }
     emit(name, numbers)
@@ -1464,7 +1490,8 @@ def compare_grad(name: str, model, Q, pvec, kernel_fn, plain_fn, reps: int = 50,
     bound against the kernel's dQ with one stage-gradient term wrong
     (``stage_term_mutants``) and against ``mutants``, further wrong dQs by
     name."""
-    (cost, dQ), (ref_cost, ref_dQ) = kernel_fn(), plain_fn()
+    cost, dQ = kernel_fn()
+    (ref_cost, ref_dQ), plain_ms = plain_timed(plain_fn)
     torch.cuda.synchronize()
     cost_abs, cost_rel = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
@@ -1477,7 +1504,7 @@ def compare_grad(name: str, model, Q, pvec, kernel_fn, plain_fn, reps: int = 50,
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(kernel_fn, reps),
-        "plain_ms": cuda_ms(plain_fn, 3),
+        "plain_ms": plain_ms,
     }
     emit(name, numbers)
     check(numbers["finite"] and cost.shape == (K,) and dQ.shape == Q.shape, f"{name}: bad output")
@@ -1887,8 +1914,9 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
     at ragged K and over a wide net), and the dQ bound against dQ with one
     defect in the MLP's backward."""
     check(not torch.backends.cuda.matmul.allow_tf32, "the plain version's products would be TF32")
-    (cost, dQ), (ref_cost, ref_dQ) = (neural_grad_cost_rollout(model, s0, Q, pvec, net),
-                                      neural_grad_cost_rollout_plain(model, s0, Q, pvec, net))
+    cost, dQ = neural_grad_cost_rollout(model, s0, Q, pvec, net)
+    (ref_cost, ref_dQ), plain_ms = plain_timed(
+        lambda: neural_grad_cost_rollout_plain(model, s0, Q, pvec, net))
     torch.cuda.synchronize()
     cost_abs, cost_rel = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
@@ -1906,7 +1934,7 @@ def compare_neural_grad(model, s0, Q, pvec, net) -> dict:
         "ms": cuda_ms(lambda: neural_grad_cost_rollout(model, s0, Q, pvec, net), 20),
         "ms_at_k": ms_at_k(lambda k: neural_grad_cost_rollout(model, *first_k(k, s0, Q), pvec,
                                                                 net)),
-        "plain_ms": cuda_ms(lambda: neural_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
+        "plain_ms": plain_ms,
         "cases": grad_cases("K8", neural_grad_cost_rollout, neural_grad_cost_rollout_plain, model,
                             s0, Q, pvec, net, wide_net(True, 1.0, s0.device)),
     }
@@ -2345,8 +2373,9 @@ def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
     at ragged K and over a wide residual net), and the dQ bound (K7's)
     against dQ with the MLP's VJP dropped."""
     check(not torch.backends.cuda.matmul.allow_tf32, "the plain version's products would be TF32")
-    (cost, dQ), (ref_cost, ref_dQ) = (residual_grad_cost_rollout(model, s0, Q, pvec, net),
-                                      residual_grad_cost_rollout_plain(model, s0, Q, pvec, net))
+    cost, dQ = residual_grad_cost_rollout(model, s0, Q, pvec, net)
+    (ref_cost, ref_dQ), plain_ms = plain_timed(
+        lambda: residual_grad_cost_rollout_plain(model, s0, Q, pvec, net))
     torch.cuda.synchronize()
     cost_abs, cost_rel = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
@@ -2365,7 +2394,7 @@ def compare_residual_grad(model, s0, Q, pvec, net) -> dict:
         "ms": cuda_ms(lambda: residual_grad_cost_rollout(model, s0, Q, pvec, net), 20),
         "ms_at_k": ms_at_k(lambda k: residual_grad_cost_rollout(model, *first_k(k, s0, Q), pvec,
                                                                   net)),
-        "plain_ms": cuda_ms(lambda: residual_grad_cost_rollout_plain(model, s0, Q, pvec, net), 3),
+        "plain_ms": plain_ms,
         "cases": grad_cases("K9", residual_grad_cost_rollout, residual_grad_cost_rollout_plain,
                             model, s0, Q, pvec, net, wide_net(False, 0.02, s0.device)),
     }
@@ -3072,7 +3101,9 @@ def compare_fused_mppi(model, pvec, opt, gen) -> tuple:
 def value_slack(post, x: torch.Tensor, cost_params: dict, horizon: int) -> torch.Tensor:
     """Per rollout, how far X_TOL's bound on the terminal states ``x``
     [N, S] moves the value term post(x)/(H+1) to first order: |dV/dx| .
-    (atol + rtol |x|) / (H+1)."""
+    (atol + rtol |x|) / (H+1); zero without a value term (``post`` None)."""
+    if post is None:
+        return torch.zeros(x.shape[0])
     x = x.detach()
     with torch.enable_grad():
         xg = x.clone().requires_grad_(True)
@@ -3740,22 +3771,23 @@ def session_args(args: tuple, b: int) -> tuple:
 
 
 def cols_mutants(kind: str, args: tuple) -> dict:
-    """Each session-row form's wrong arithmetic, by its plain version: every
-    session reading the next session's row of pvec_b; for the recurrent
-    nets every session starting from slot 0's hidden; for "ODE+res" the
-    slots' pole lengths rolled by one."""
+    """Each session-row form's wrong arithmetic, by the form itself over
+    wrong operands (the kernel is held to its plain version on the right
+    ones): every session reading the next session's row of pvec_b; for the
+    recurrent nets every session starting from slot 0's hidden; for
+    "ODE+res" the slots' pole lengths rolled by one."""
     model, s0, Q, pvec_b, weights, *hidden = args
-    plain = COLS_KERNELS[kind][1]
-    out = {"next_session_row": plain(model, s0, Q, pvec_b.roll(-1, 0), weights, *hidden)}
+    kernel = COLS_KERNELS[kind][0]
+    out = {"next_session_row": kernel(model, s0, Q, pvec_b.roll(-1, 0), weights, *hidden)}
     if hidden:
-        out["hidden_of_slot_0"] = plain(model, s0, Q, pvec_b, weights,
-                                        tuple(h[:1].expand_as(h).contiguous()
-                                              for h in hidden[0]))
+        out["hidden_of_slot_0"] = kernel(model, s0, Q, pvec_b, weights,
+                                         tuple(h[:1].expand_as(h).contiguous()
+                                               for h in hidden[0]))
     if kind == "residual":
         col = model.param_keys.index("d_L")
         rolled = pvec_b.clone()
         rolled[:, col] = pvec_b[:, col].roll(1)
-        out["L_rolled"] = plain(model, s0, Q, rolled, weights)
+        out["L_rolled"] = kernel(model, s0, Q, rolled, weights)
     return out
 
 
@@ -4071,14 +4103,14 @@ def compare_grad_cols(form: str, ctrl: BatchedMPCController, gen) -> dict:
     GRAD_COLS_KS rollouts, to its single-session kernel's bounds; its
     outputs equal, session by session, to the single-session kernel's over
     that session's rows (share 1.0); the bounds against every session
-    reading the next session's row (the plain version's); its time at each
-    of GRAD_COLS_SHAPES and its bounds there; its resources.  The kernels
+    reading the next session's row (the form's own over the rolled rows);
+    its time at each of GRAD_COLS_SHAPES and its bounds there; its resources.  The kernels
     line takes its time and its plain version's at the shape of the
     fleet's closed loop."""
     cols, plain = GRAD_COLS[form][:2]
     args = grad_cols_operands(form, ctrl, GRAD_COLS_B, GRAD_COLS_KS, gen)
     got, ref = cols(*args), plain(*args)
-    mutant = plain(*args[:3], args[3].roll(-1, 0), *args[4:])
+    mutant = cols(*args[:3], args[3].roll(-1, 0), *args[4:])
     per_session = [grad_cols_single(form, args, b) for b in range(GRAD_COLS_B)]
     torch.cuda.synchronize()
     if form == "k1":
@@ -4098,7 +4130,8 @@ def compare_grad_cols(form: str, ctrl: BatchedMPCController, gen) -> dict:
         timed[f"B{B}_K{ks}"] = {"ms": cuda_ms(lambda: cols(*targs), 20),
                                 **grad_cols_bounds(form, targs)}
         if (B, ks) == (fleet_b, fleet_k):
-            row = {"ms": timed[f"B{B}_K{ks}"]["ms"], "plain_ms": cuda_ms(lambda: plain(*targs), 3),
+            row = {"ms": timed[f"B{B}_K{ks}"]["ms"],
+                   "plain_ms": plain_timed(lambda: plain(*targs))[1],
                    **grad_cols_bounds(form, targs)}
     errors = grad_cols_errors(form, got, ref)
     numbers = {**errors, "finite": finite,
@@ -4336,8 +4369,9 @@ def compare_ens_grad(model, s0, Q, pvec, net) -> dict:
     dQ bound; each member's block equal, bit for bit, to K8 over that block
     under the member's net, and E=1 to K8; ens_cases' cases; the bounds
     against ens_mutants; its resources beside K8's."""
-    (cost, dQ), (ref_cost, ref_dQ) = (neural_grad_cost_rollout_ens(model, s0, Q, pvec, net),
-                                      neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net))
+    cost, dQ = neural_grad_cost_rollout_ens(model, s0, Q, pvec, net)
+    (ref_cost, ref_dQ), plain_ms = plain_timed(
+        lambda: neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net))
     torch.cuda.synchronize()
     cost_abs, cost_rel = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
@@ -4353,7 +4387,7 @@ def compare_ens_grad(model, s0, Q, pvec, net) -> dict:
         "max_abs_err": max(cost_abs, dq_abs),
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
         "ms": cuda_ms(lambda: neural_grad_cost_rollout_ens(model, s0, Q, pvec, net), 20),
-        "plain_ms": cuda_ms(lambda: neural_grad_cost_rollout_ens_plain(model, s0, Q, pvec, net), 3),
+        "plain_ms": plain_ms,
         **ens_bound(model, s0, Q, pvec, net, grad=True),
     }
     emit("k8_ens_neural_grad_cost_rollout", numbers)
@@ -4433,7 +4467,7 @@ def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_a
     drifts from float64 as far as the kernel does (K13-GRU's 50 steps,
     k13_emit_vs_float64), X_TOL would hold two such drifts to each other."""
     (cost, x), cost_k = emit_fn(*args), unvalued_fn(*args)
-    ref_cost, ref_x = plain_fn(*args)
+    (ref_cost, ref_x), plain_ms = plain_timed(lambda: plain_fn(*args))
     x_prev = plain_fn(*prev_args)[1]
     torch.cuda.synchronize()
     rows = ref_x.reshape(-1, ref_x.shape[-1])
@@ -4451,7 +4485,7 @@ def compare_emit(label: str, emit_fn, unvalued_fn, plain_fn, args: tuple, prev_a
         "finite": bool(torch.isfinite(cost).all() and torch.isfinite(x).all()),
         "ms": cuda_ms(lambda: emit_fn(*args), 50),
         "kernel_ms": cuda_ms(lambda: unvalued_fn(*args), 50),
-        "plain_ms": cuda_ms(lambda: plain_fn(*args), 3),
+        "plain_ms": plain_ms,
         **bound(ops, n_bytes)}
     numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
     if x_f64:
@@ -4494,8 +4528,8 @@ def compare_value_grad(model, s0, Qg, pvec) -> dict:
     ops = seeded_value(s0.device)
     unscaled = seeded_value(s0.device, scale=1.0)
     no_inv = ops[:-2] + [ops[-2] * (Hh + 1), ops[-1] * (Hh + 1)]
-    got, ref = grad_cost_rollout_value(model, s0, Qg, pvec, ops), \
-        grad_cost_rollout_plain(model, s0, Qg, pvec, ops)
+    got = grad_cost_rollout_value(model, s0, Qg, pvec, ops)
+    ref, plain_ms = plain_timed(lambda: grad_cost_rollout_plain(model, s0, Qg, pvec, ops))
     wrong = {"no_dV_in_seed": grad_cost_rollout_plain(model, s0, Qg, pvec)[1],
              "no_value_scale": grad_cost_rollout_plain(model, s0, Qg, pvec, unscaled)[1],
              "no_inv_h1": grad_cost_rollout_plain(model, s0, Qg, pvec, no_inv)[1]}
@@ -4551,7 +4585,7 @@ def compare_value_grad(model, s0, Qg, pvec) -> dict:
         "cases": cases, "part_ms": parts, "host_enqueue_ms": host,
         "ms": cuda_ms(lambda: grad_cost_rollout_value(model, s0, Qg, pvec, ops), 50),
         "k7_ms": cuda_ms(lambda: grad_cost_rollout(model, s0, Qg, pvec), 50),
-        "plain_ms": cuda_ms(lambda: grad_cost_rollout_plain(model, s0, Qg, pvec, ops), 3),
+        "plain_ms": plain_ms,
         "forward": {**ptxas_resources("grad_cost_forward_value_kernel"),
                     "dynamic_smem_bytes": int(kernels.load().ctt_value_smem_bytes(
                         ctypes.byref(value[0]), S))},
@@ -4713,9 +4747,9 @@ def compare_cols_emit(kind: str, ctrl: BatchedMPCController, gen) -> dict:
     model, s0, Q, pvec_b, weights = args
     B, S = pvec_b.shape[0], s0.shape[1]
     (cost, x), cost_k = cols(*args), kernel(*args)
-    ref_cost, ref_x = plain(*args)
+    (ref_cost, ref_x), plain_ms = plain_timed(lambda: plain(*args))
     per = [single(*session_args(args, b)) for b in range(B)]
-    wrong_cost = plain(model, s0, Q, pvec_b.roll(-1, 0), weights)[0]
+    wrong_cost = cols(model, s0, Q, pvec_b.roll(-1, 0), weights)[0]
     wrong_x = ref_x.reshape(-1, S).roll(-1, 0).reshape(ref_x.shape)
     torch.cuda.synchronize()
     label = {"mlp": "k11", "residual": "k12", "gp": "k14"}[kind] + "_cols_emit"
@@ -4733,7 +4767,7 @@ def compare_cols_emit(kind: str, ctrl: BatchedMPCController, gen) -> dict:
                     for b in (FLEET_B, FLEET_B_MAX)},
         "kernel_ms_at_b": {str(b): cuda_ms(lambda: kernel(*session_slice(args, b)), 50)
                            for b in (FLEET_B, FLEET_B_MAX)},
-        "plain_ms": cuda_ms(lambda: plain(*args), 3),
+        "plain_ms": plain_ms,
         **cols_bounds(kind, args, extra_bytes=4 * s0.shape[0] * S)}
     numbers["ms"] = numbers["ms_at_b"][str(FLEET_B_MAX)]
     numbers["max_abs_err"] = max(numbers["cost_max_abs_err"], numbers["x_max_abs_err"])
@@ -4845,7 +4879,8 @@ def value_grad_layout(label: str, args: tuple, ops: list) -> dict:
     else:
         ens = label == "k8_ens"
         net_args = args[0].net_args(args[4], members=args[4]["w0"].shape[0] if ens else 0)[0]
-        blocks = lib.ctt_neural_grad_value_layout(ctypes.byref(net_args), ctypes.byref(vargs),
+        blocks = lib.ctt_neural_grad_value_layout(kernels.PLANT_IDS[args[0].plant],
+                                                  ctypes.byref(net_args), ctypes.byref(vargs),
                                                   int(ens), ctypes.byref(nbytes_))
     return {"dynamic_smem_bytes": int(nbytes_.value), "blocks_per_sm": int(blocks)}
 
@@ -4873,7 +4908,8 @@ def compare_value_learned(label: str, args: tuple, ragged: tuple, committed: lis
              "no_value_scale": plain(*args, seeded_value(dev, scale=1.0))[1],
              "no_inv_h1": plain(*args, no_inv)[1]}
     zero_got, base = form(*args, zero), kernel(*args)
-    got_c, plain_c = form(*args, committed), plain(*args, committed)
+    got_c = form(*args, committed)
+    plain_c, plain_ms = plain_timed(lambda: plain(*args, committed))
     args64 = as64(args)
     ref64, ref64_0 = plain(*args64, as64((committed,))[0]), plain(*args64, as64((zero,))[0])
     cases = {f"K{ragged[1].shape[0]}": ragged}
@@ -4914,7 +4950,7 @@ def compare_value_learned(label: str, args: tuple, ragged: tuple, committed: lis
     numbers.update({
         "ms": cuda_ms(lambda: form(*args, committed), 20),
         "kernel_ms": cuda_ms(lambda: kernel(*args), 20),
-        "plain_ms": cuda_ms(lambda: plain(*args, committed), 3),
+        "plain_ms": plain_ms,
         "host_enqueue_ms": host,
         "resources": {"value": {**ptxas_resources(f"{entry}_value_kernel", instance),
                                 **value_grad_layout(label, args, committed)},
@@ -4956,7 +4992,7 @@ def compare_value_cols(form: str, ctrl: BatchedMPCController, committed: list, g
     args = grad_cols_operands(form, ctrl, GRAD_COLS_B, GRAD_COLS_KS, gen)
     vops = () if form == "k1" else (committed,)
     got, ref = cols(*args, *vops), plain(*args, *vops)
-    mutant = plain(*args[:3], args[3].roll(-1, 0), *args[4:], *vops)
+    mutant = cols(*args[:3], args[3].roll(-1, 0), *args[4:], *vops)
     per = [single(*session_slice_grad(args, b), *vops) for b in range(GRAD_COLS_B)]
     numbers = {}
     if form == "k1":
@@ -5010,7 +5046,7 @@ def compare_value_cols(form: str, ctrl: BatchedMPCController, committed: list, g
                                  **grad_cols_bounds(form, targs)}
         if (B, ks_) == (fleet_b, fleet_k):
             row = {"ms": timed[f"B{B}_K{ks_}"]["ms"],
-                   "plain_ms": cuda_ms(lambda: plain(*targs, *vops), 3),
+                   "plain_ms": plain_timed(lambda: plain(*targs, *vops))[1],
                    **grad_cols_bounds(form, targs)}
     numbers.update({"single_session_equal_share": float(same.double().mean()),
                     "sessions": GRAD_COLS_B, "rollouts_a_session": GRAD_COLS_KS,
@@ -5100,16 +5136,19 @@ def adam_steps_vs_cpu(name: str, grad_card, grad_cpu, score_card, score_cpu, Q: 
 
 
 def gradient_value_update_vs_cpu(ctrl: MPCController, name: str, spec: str, config: dict,
-                                 value: dict) -> dict:
+                                 value: dict, cpu: MPCController = None, s_now=None) -> dict:
     """Phase 66: one valued gradient-tf update's Adam steps and scoring on
     the card against the CPU's (adam_steps_vs_cpu), from the card's state
-    and params."""
+    and params; another plant's controller (phase 96, with or without V)
+    passes its CPU twin ``cpu`` and its state ``s_now [1, S]``."""
     opt = ctrl.optimizer
     state = opt.opt_state
-    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    if s_now is None:
+        s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
     params = ctrl._assemble_params()
-    cpu = make_controller("cpu", "gradient-tf", config, spec=spec)
-    attach_value_terminal(cpu, to_cpu(value))
+    if cpu is None:
+        cpu = make_controller("cpu", "gradient-tf", config, spec=spec)
+        attach_value_terminal(cpu, to_cpu(value))
     copt, params_c = cpu.optimizer, to_cpu(params)
     s_tiled = s_now.expand(opt.num_rollouts, -1).contiguous()
     s_tiled_c, u_prev_c = s_tiled.cpu(), state.u_prev.cpu()
@@ -5186,7 +5225,9 @@ def compare_fast(label: str, fast_fn, plain_fn, exact_fn, tols: tuple, ops: floa
     same inputs: its first output non-zero from it and within
     FAST_FROM_EXACT; its, its plain version's and the exact entry's times,
     and its bound."""
-    got, ref, ex = as_tuple(fast_fn()), as_tuple(plain_fn()), as_tuple(exact_fn())
+    got, ex = as_tuple(fast_fn()), as_tuple(exact_fn())
+    ref, plain_ms = plain_timed(plain_fn)
+    ref = as_tuple(ref)
     torch.cuda.synchronize()
     errs = [max_errors(g, r)[0] for g, r in zip(got, ref)]
     numbers = {"max_abs_err": max(errs), "max_abs_errs": errs,
@@ -5194,7 +5235,7 @@ def compare_fast(label: str, fast_fn, plain_fn, exact_fn, tols: tuple, ops: floa
                "from_exact_max_rel": max_errors(got[0], ex[0])[1],
                "finite": all(bool(torch.isfinite(g).all()) for g in got),
                "ms": cuda_ms(fast_fn, reps), "exact_ms": cuda_ms(exact_fn, reps),
-               "plain_ms": cuda_ms(plain_fn, 2), **bound(ops, n_bytes)}
+               "plain_ms": plain_ms, **bound(ops, n_bytes)}
     emit(label, numbers)
     check(numbers["finite"] and all(g.shape == r.shape for g, r in zip(got, ref)),
           f"{label}: bad output")
@@ -5583,7 +5624,8 @@ ZOO_CARRY = {
 }
 
 
-def zoo_update_vs_cpu(name: str, ctrl: MPCController, config: dict, spec: str = "ODE") -> dict:
+def zoo_update_vs_cpu(name: str, ctrl: MPCController, config: dict, spec: str = "ODE",
+                      cpu: MPCController = None, s_now=None) -> dict:
     """Phase 72, cem-gmm and the gradient CEMs: one update on the card and on
     the CPU (the plain versions) with the same draws, outer iteration by
     outer iteration from the card's carry (``iterate``), as
@@ -5593,13 +5635,15 @@ def zoo_update_vs_cpu(name: str, ctrl: MPCController, config: dict, spec: str = 
     where both devices took the same elites in the same order, every
     refit quantity: the components and mixture weights, or the Gaussian, to
     UNOM_ATOL; the Adam moments and the kept elites to UPDATE_RTOL plus
-    UPDATE_ATOL_FRAC of their largest entry."""
+    UPDATE_ATOL_FRAC of their largest entry.  Another plant's controller
+    passes its CPU twin ``cpu`` and its state ``s_now [1, S]``."""
     opt = ctrl.optimizer
     state = opt.opt_state
-    s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
+    if s_now is None:
+        s_now = torch.tensor([[0.02, -0.1, 0.05, 0.1]], device=opt.device)
     params = ctrl._assemble_params()
     carry, draws = ZOO_CARRY[name](opt, state, opt.sample_draws(state))
-    copt = make_controller("cpu", name, config, spec=spec).optimizer
+    copt = (cpu or make_controller("cpu", name, config, spec=spec)).optimizer
     s_tiled = s_now.expand(opt.num_rollouts, -1).contiguous()
     best_k, same, errs = opt.cem_best_k, 0, {"cost": 0.0, "topk_excess": 0.0}
     for draw in draws:
@@ -6073,8 +6117,12 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
                               lambda: cost_rollout_plain(model, s0, Q, pvec), (K,))
     out["cost_rollout"] = k1
     k1.update(bound(K * H * (rk4_ops + stage_ops), nbytes(s0, Q, pvec) + 4 * K))
+    # A variant of the operands alone (controls swapped, a cost term
+    # dropped) is the kernel itself over them; one of the model's code, its
+    # plain version's.
     k1["rejects"] = rejects(f"k1_{plant}", got, {
-        n: cost_rollout_plain(m, s0, sw(Q, swap), pv) for n, (m, pv, swap) in mutants.items()})
+        n: (cost_rollout if m is model else cost_rollout_plain)(m, s0, sw(Q, swap), pv)
+        for n, (m, pv, swap) in mutants.items()})
     cases = {}
     for k, h in ((PLANT_RAGGED_K, H), (K, PLANT_ODD_H)):
         s, q = s0[:k].contiguous(), Q[:k, :h].contiguous()
@@ -6097,8 +6145,9 @@ def plant_kernels(plant: str, gen, cartpole: dict) -> dict:
     k2.update(bound(K * H * (rk4_ops + stage_ops + U * MPPI_EXTRA_OPS),
                     nbytes(*args[1:8]) + 4 * K))
     k2["rejects"] = rejects(f"k2_{plant}", got, {
-        n: mppi_cost_plain(m, args[1], sw(u_nom, swap), pv, sw(eps.transpose(1, 2), swap)
-                           .transpose(1, 2).contiguous(), *args[5:])
+        n: (mppi_cost if m is model else mppi_cost_plain)(
+            m, args[1], sw(u_nom, swap), pv,
+            sw(eps.transpose(1, 2), swap).transpose(1, 2).contiguous(), *args[5:])
         for n, (m, pv, swap) in mutants.items()})
     cases = {}
     for k, h in ((PLANT_RAGGED_K, H), (K, PLANT_ODD_H)):
@@ -6439,7 +6488,8 @@ def lone_grad(name: str, kernel_fn, plain_fn, Q, ops: float, n_bytes: float,
     its plain version on the same card tensors: J to ``cost_tol``, dQ to
     K7's bound (DQ_RTOL plus DQ_ATOL_FRAC of max|dQ|), which must reject
     each of ``mutants`` (wrong dQs by name); timed with its bound."""
-    (cost, dQ), (ref_cost, ref_dQ) = kernel_fn(), plain_fn()
+    cost, dQ = kernel_fn()
+    (ref_cost, ref_dQ), plain_ms = plain_timed(plain_fn)
     torch.cuda.synchronize()
     cost_abs, _ = max_errors(cost, ref_cost)
     dq_abs, _ = max_errors(dQ, ref_dQ)
@@ -6450,7 +6500,7 @@ def lone_grad(name: str, kernel_fn, plain_fn, Q, ops: float, n_bytes: float,
                "mutant_max_abs_err": {k: max_errors(m, ref_dQ)[0] for k, m in wrong.items()},
                "max_abs_err": max(cost_abs, dq_abs),
                "finite": bool(torch.isfinite(cost).all() and torch.isfinite(dQ).all()),
-               "ms": cuda_ms(kernel_fn, 50), "plain_ms": cuda_ms(plain_fn, 3),
+               "ms": cuda_ms(kernel_fn, 50), "plain_ms": plain_ms,
                **bound(ops, n_bytes)}
     emit(name, numbers)
     check(numbers["finite"] and cost.shape == (1,) and dQ.shape == Q.shape, f"{name}: bad output")
@@ -6923,8 +6973,8 @@ def fleet_plant_kernels(plant: str, gen) -> dict:
             **{n: fused_cem_cols_plain(dataclasses.replace(mm, fast_sampling=m.fast_sampling),
                                        *rows_c[:3], pv[:Bc], rows_c[4], lo, hi, Kf)
                for n, (mm, pv) in mutants.items()},
-            "next_session_rows": fused_cem_cols_plain(
-                m, *(t.roll(-1, 0) for t in rows_c), lo, hi, Kf)})
+            "next_session_rows": fused_cem_cols(m, *(t.roll(-1, 0) for t in rows_c), lo, hi,
+                                                Kf)})
         Q = regen_cols(rows_c[4], torch.arange(Kf, device=dev).expand(Bc, Kf), rows_c[1],
                        rows_c[2], lo, hi, Kf, fast=m.fast_math)
         k6["k1_equal_share"] = k1_equal(f"{key}_{plant}", got, m, rows_c[0], Q, rows_c[3])
@@ -6951,8 +7001,12 @@ def fleet_plant_kernels(plant: str, gen) -> dict:
     for key, (form, plain, single_fn, ops, grad) in forms.items():
         got = form(*args)
         ref, held_plain_ms = plain_timed(lambda: plain(*args))
-        wrong = {n: plain(m, args[1], args[2], pv) for n, (m, pv) in cmutants.items()}
-        wrong["next_session_rows"] = plain(*args[:3], args[3].roll(-1, 0))
+        # A variant of the operands alone (rows rolled, a cost term dropped)
+        # is the form itself over them; one of the model's code, its plain
+        # version's.
+        wrong = {n: (form if m is model else plain)(m, args[1], args[2], pv)
+                 for n, (m, pv) in cmutants.items()}
+        wrong["next_session_rows"] = form(*args[:3], args[3].roll(-1, 0))
         per_session = [single_fn(*session_slice_grad(args, b)) for b in range(GRAD_COLS_B)]
         torch.cuda.synchronize()
         if grad:
@@ -8021,11 +8075,15 @@ class tf32_products:
         torch.backends.cuda.matmul.allow_tf32 = self.was
 
 
-def net_held(label: str, got, ref, ref64_fn, tol, wrong: dict, grad: bool = False) -> dict:
+def net_held(label: str, got, ref, ref64_fn, tol, wrong: dict, grad: bool = False,
+             ratio_fn=None) -> dict:
     """Costs (or, ``grad``, dQ) of a kernel against its plain version: to
-    ``tol`` (dQ: K7's bound), else to float64 through f64_held; each
-    ``wrong`` output rejected by the same bound, its margin (how many times
-    the bound its distance is: over 1 rejected) beside it."""
+    ``tol`` (dQ: K7's bound), else to float64 through f64_held (where
+    ``ratio_fn`` gives the kernel's, the plain version's and the float64
+    plain version's costs, their distances' ratio scales the bound, capped
+    at NETS_RATIO_CAP); each ``wrong`` output rejected by the same bound,
+    its margin (how many times the bound its distance is: over 1 rejected)
+    beside it."""
     rtol, atol = (DQ_RTOL, DQ_ATOL_FRAC * float(ref.abs().max())) if grad else (
         tol["rtol"], tol["atol"])
 
@@ -8037,7 +8095,8 @@ def net_held(label: str, got, ref, ref64_fn, tol, wrong: dict, grad: bool = Fals
     ref64 = None
     if not ok:
         ref64 = ref64_fn()
-        numbers["f64"] = f64_held(got, ref, ref64)
+        numbers["f64"] = (f64_held(got, ref, ref64) if ratio_fn is None
+                          else f64_held(got, ref, ref64, ratio_fn(), NETS_RATIO_CAP))
         check(numbers["f64"]["held"], f"{label}: further from float64 than its bound {numbers}")
     numbers["rejects"] = {k: max_errors(w, ref)[0] for k, w in wrong.items()}
     numbers["reject_margins"] = {}
@@ -8568,6 +8627,329 @@ def nets_phases(gen) -> tuple:
     # 94. The loops, counted from 0.
     for plant in NET_COSTS:
         launches[plant] = nets_loops(plant)
+    return rows, launches
+
+
+# ---- K8 over the nine other costs (phases 95-97) --------------------------------------------
+# K8's plant is its cost's, as K11's is, so each of NET_COSTS is an instance
+# of each of its six forms (csrc/neural_grad_plants_<group>.cu).  Phase 95
+# holds every instance to its plain version over phase 92's seeded nets
+# (mlp-64-64 and 4 x mlp-32-32 at the plant's widths, output layers at
+# NETS_OUT_SCALE) and phase 89's V of the plant's S: the single-session and
+# member-block forms at the main path's K=16384, H=50, the session-row ones
+# at the gradient fleets' GRAD_COLS_SHAPES (H=GRAD_FLEET_H), each form also
+# at K8_RAGGED (K=700: 175 rollouts a member, K8_RAGGED_SESSIONS sessions of
+# 100; H=45, odd, across the adjoint's history).  J to NET_TOL and dQ to
+# K7's bound or, where a seeded net's float32 drift carries the two apart,
+# each to float64 through f64_held, dQ's kernel ratio the J's distances'
+# from float64 (the kernel's 3xTF32 products against cuBLAS's float32),
+# capped at NETS_RATIO_CAP.  Each bound rejects, its margin printed, the
+# controls read a step early, NETS_DROPPED_TERM's weight zeroed, the next
+# session's rows (session-row forms) and the next member's weights
+# (member-block forms); a value form's dQ bound also dV/dx_H dropped (the
+# unvalued kernel's dQ), V's scale left out and V without its 1/(H+1).
+# Each row records its CUDA-event ms, its plain version's (timed at the
+# call that gives its reference), its FP32 and tensor-core bounds, and its
+# entry's registers, spills and blocks per SM.  Phase 96 holds one update of
+# each path K8 opens over the 3-D quadrotor's cost on the card against the
+# CPU's; phase 97 runs each path K8_TICKS ticks over every cost at its
+# width, every instance counted from 0.
+K8_RAGGED, K8_RAGGED_SESSIONS, K8_TICKS = (700, 45), 7, 2
+# row: (wrapper, plain version, learned model, its unvalued form for a value
+# form's dV/dx_H-dropped variant, its entry)
+K8_ROWS = {
+    "neural_grad_cost_rollout": (neural_grad_cost_rollout, neural_grad_cost_rollout_plain, "mlp",
+                                 None, "neural_grad_cost_rollout_kernel"),
+    "neural_grad_cost_rollout_value": (neural_grad_cost_rollout_value,
+                                       neural_grad_cost_rollout_plain, "mlp",
+                                       neural_grad_cost_rollout,
+                                       "neural_grad_cost_rollout_value_kernel"),
+    "neural_grad_cost_rollout_cols": (neural_grad_cost_rollout_cols,
+                                      neural_grad_cost_rollout_cols_plain, "mlp", None,
+                                      "neural_grad_cost_rollout_kernel"),
+    "neural_grad_cost_rollout_cols_value": (neural_grad_cost_rollout_cols_value,
+                                            neural_grad_cost_rollout_cols_plain, "mlp",
+                                            neural_grad_cost_rollout_cols,
+                                            "neural_grad_cost_rollout_value_kernel"),
+    "neural_grad_cost_rollout_ens": (neural_grad_cost_rollout_ens,
+                                     neural_grad_cost_rollout_ens_plain, "ensemble", None,
+                                     "neural_grad_cost_rollout_ens_kernel"),
+    "neural_grad_cost_rollout_ens_value": (neural_grad_cost_rollout_ens_value,
+                                           neural_grad_cost_rollout_ens_value_plain, "ensemble",
+                                           neural_grad_cost_rollout_ens,
+                                           "neural_grad_cost_rollout_ens_value_kernel"),
+}
+
+
+def k8_layout(plant: str, args, vops: list, ens: int, valued: bool) -> dict:
+    """The blocks an SM holds of the cost's K8 entry (``ens``: the
+    member-block form's, over one member's net ``args``; ``valued``: the
+    value form's, beside V) and its dynamic shared memory."""
+    if not valued:
+        occupancy = "neural_grad_ens" if ens else "neural_grad"
+        return {"blocks_per_sm": kernels.net_blocks_per_sm(occupancy, args, plant),
+                "smem_bytes": kernels.net_smem_bytes(plant, args, occupancy)}
+    nb = ctypes.c_long(0)
+    vargs = kernels.value_args(vops, kernels.PLANT_DIMS[plant][0])
+    blocks = kernels.load().ctt_neural_grad_value_layout(
+        kernels.PLANT_IDS[plant], ctypes.byref(args), ctypes.byref(vargs), ens, ctypes.byref(nb))
+    return {"blocks_per_sm": int(blocks), "smem_bytes": int(nb.value)}
+
+
+def k8_plant_kernels(plant: str, gen) -> dict:
+    """Phase 95 for one cost: its instances of K8's six forms against their
+    plain versions (see the note above); returns each row's numbers."""
+    dev = gen.device
+    S, U = kernels.PLANT_DIMS[plant]
+    _, stage_ops, _, stage_vjp_ops = PLANT_OPS[plant]
+    stage = stage_ops + stage_vjp_ops
+    vnet = plant_value_net(plant, dev)
+    vops, v_ops = plant_value_ops(vnet), value_net_ops((S, *FORMS_VALUE_DIMS))
+    models = {}
+    for kind in ("mlp", "ensemble"):
+        ctrl = net_controller(plant, kind, "rpgd-tf", RPGD_CONFIG)
+        fam = ensemble if kind == "ensemble" else neural
+        model, pack = fam.net_model(ctrl.optimizer)
+        check(model.plant == plant and fam.can_use_grad(ctrl.optimizer),
+              f"{plant} {kind}: K8's gate refused the cost")
+        lo, hi = ctrl.optimizer.action_low, ctrl.optimizer.action_high
+        params = ctrl._assemble_params()
+        models[kind] = (ctrl, model, pack(params, 0.5 * (lo + hi) + 0.05 * (hi - lo)),
+                        params["dyn"]["net"])
+    mid, half = 0.5 * (lo + hi), 0.5 * (hi - lo)
+    sK = plant_states(plant, K, gen)
+    QK = torch.clamp(mid + half * (0.5 * torch.randn(K, H, U, generator=gen, device=dev)), lo, hi)
+    Kr, Hr = K8_RAGGED
+    ctrl, mmodel = models["mlp"][:2]
+    fleets = []  # (sessions, rollouts a session, s0, Q, rows), the ragged case last
+    for B_, ks in GRAD_COLS_SHAPES:
+        fleets.append((B_, ks, plant_states(plant, B_, gen).repeat_interleave(ks, 0),
+                       lo + (hi - lo) * torch.rand(B_ * ks, GRAD_FLEET_H, U, generator=gen,
+                                                   device=dev), net_rows(ctrl, mmodel, B_, gen)))
+    Br = K8_RAGGED_SESSIONS
+    fleets.append((Br, Kr // Br, sK[:Kr].contiguous(), QK[:Kr, :Hr].contiguous(),
+                   net_rows(ctrl, mmodel, Br, gen)))
+    dk = "dropped_" + NETS_DROPPED_TERM[plant]
+    out = {}
+    for row, (kern, plain, kind, unvalued, entry) in K8_ROWS.items():
+        _, model, pvec, net = models[kind]
+        valued, members = unvalued is not None, kind == "ensemble"
+        one = member_net(net, 0) if members else net
+        v = (vops,) if valued else ()
+        if "_cols" in row:
+            cases = [(f"{b}x{ks}", s, q, r) for b, ks, s, q, r in fleets]
+        else:
+            cases = [("K16384_H50", sK, QK, pvec), (f"K{Kr}_H{Hr}", sK[:Kr].contiguous(),
+                                                     QK[:Kr, :Hr].contiguous(), pvec)]
+        held = {}
+        for i, (case, s0, Q, pv) in enumerate(cases):
+            label = f"{row}_{plant} {case}"
+            args = (model, s0, Q, pv, net, *v)
+            c, d = kern(*args)
+            (rc, rd), plain_ms = plain_timed(lambda a=args: plain(*a))
+            f64 = functools.cache(lambda a=args: plain(*as64(a)))
+            timed_case = i == len(cases) - 2 if "_cols" in row else i == 0
+            wrong, dq_wrong = {}, {}
+            if i < len(cases) - 1:  # the wrong variants at the held shapes
+                wrong = {"controls_a_step_early": kern(model, s0, step_early(Q), pv, net, *v),
+                         dk: kern(model, s0, Q, term_dropped(model, plant, pv), net, *v)}
+                if "_cols" in row:
+                    wrong["next_session_rows"] = kern(model, s0, Q, pv.roll(-1, 0), net, *v)
+                if members:
+                    wrong["next_member"] = kern(model, s0, Q, pv, ens_mutants(net)["next_member"],
+                                                *v)
+                dq_wrong = {k: w[1] for k, w in wrong.items()}
+                if valued:
+                    Hh = Q.shape[1]
+                    dq_wrong.update(
+                        dV_dx_H_dropped=unvalued(model, s0, Q, pv, net)[1],
+                        value_scale_left_out=kern(model, s0, Q, pv, net,
+                                                  plant_value_ops(vnet, 1.0))[1],
+                        no_inv_h1=kern(model, s0, Q, pv, net,
+                                       vops[:-2] + [vops[-2] * (Hh + 1), vops[-1] * (Hh + 1)])[1])
+            numbers = {
+                "J": net_held(f"{label} J", c, rc, lambda: f64()[0], NET_TOL,
+                              {k: w[0] for k, w in wrong.items()}),
+                "dQ": net_held(f"{label} dQ", d, rd, lambda: f64()[1], None, dq_wrong, grad=True,
+                               ratio_fn=lambda c=c, rc=rc: (c, rc, f64()[0])),
+                "finite": bool(torch.isfinite(c).all() and torch.isfinite(d).all())}
+            check(numbers["finite"] and d.shape == Q.shape, f"{label}: bad output")
+            numbers["max_abs_err"] = max(numbers["J"]["max_abs_err"], numbers["dQ"]["max_abs_err"])
+            if timed_case:
+                n, steps = Q.shape[0], Q.shape[0] * Q.shape[1]
+                n_bytes = nbytes(s0, Q, pv, *leaves(net), *(vops if valued else ())) \
+                    + 4 * n + 4 * Q.numel()
+                numbers.update(ms=cuda_ms(lambda a=args: kern(*a), 20), plain_ms=plain_ms,
+                               **bound(steps * (mlp_ops(one) + mlp_vjp_ops(one) + stage)
+                                       + (n * v_ops if valued else 0), n_bytes),
+                               tc_bound_ms=tc_bound_ms(mma_tiles(one),
+                                                       mlp_scalar_ops(one) + stage, steps))
+            held[case] = numbers
+        main = next(c for c in held.values() if "ms" in c)
+        args_one = model.net_args(one)[0]
+        top = {**main, "cases": {k: n for k, n in held.items() if n is not main},
+               "resources": {**ptxas_resources(entry, COST_MANGLED[plant]),
+                             **k8_layout(plant, args_one, vops, int(members), valued)}}
+        top["max_abs_err"] = max(n["max_abs_err"] for n in held.values())
+        check(top["resources"].get("registers", 0) > 0 and top["resources"]["blocks_per_sm"] > 0,
+              f"{row}_{plant}: no ptxas line or no block fits an SM {top['resources']}")
+        emit(f"{row}_{plant}", top)
+        out[row] = top
+    return out
+
+
+# label: (optimizer, learned model, config, fleet, valued, launches a tick)
+K8_GRAD_FLEET_CONFIG = {**GRAD_GRADIENT_CONFIG, "num_rollouts": GRAD_LEARNED_CONFIG["num_rollouts"]}
+K8_PATHS = {
+    **{f"{'valued_' if valued else ''}{p}_{kind}": (
+        opt_, kind, cfg, False, valued,
+        {"neural_grad_cost_rollout" + ("_ens" if kind == "ensemble" else "")
+         + ("_value" if valued else ""): n,
+         "neural_cost_rollout" + ("_ens" if kind == "ensemble" else "")
+         + ("_emit" if valued else ""): 1})
+       for p, opt_, cfg, n, kinds in (
+           ("rpgd", "rpgd-tf", RPGD_CONFIG, RPGD_CONFIG["outer_its"], ("mlp", "ensemble")),
+           ("gradient", "gradient-tf", GRADIENT_CONFIG, GRADIENT_CONFIG["gradient_steps"],
+            ("mlp",)))
+       for kind in kinds for valued in (False, True)},
+    "cem_naive_grad_mlp": ("cem-naive-grad-tf", "mlp", NAIVE_GRAD_CONFIG, False, False,
+                           {"neural_grad_cost_rollout": 1, "neural_cost_rollout": 1}),
+    "cem_grad_bharadhwaj_mlp": ("cem-grad-bharadhwaj-tf", "mlp", BHARADHWAJ_CONFIG, False, False,
+                                {"neural_grad_cost_rollout": 2, "neural_cost_rollout": 2}),
+    "mppi_optimize_mlp": ("mppi-optimize-tf", "mlp", MPPI_OPTIMIZE_WIDE, False, False,
+                          {"neural_cost_rollout": 1,
+                           "neural_grad_cost_rollout": MPPI_OPTIMIZE_WIDE["optim_steps"]}),
+    "rpgd_fleet_mlp": ("rpgd-tf", "mlp", GRAD_LEARNED_CONFIG, True, False,
+                       {"neural_grad_cost_rollout_cols": GRAD_LEARNED_CONFIG["outer_its"],
+                        "neural_cost_rollout_cols": 1}),
+    "valued_rpgd_fleet_mlp": ("rpgd-tf", "mlp", GRAD_LEARNED_CONFIG, True, True,
+                              {"neural_grad_cost_rollout_cols_value":
+                                   GRAD_LEARNED_CONFIG["outer_its"],
+                               "neural_cost_rollout_cols_emit": 1}),
+    "gradient_fleet_mlp": ("gradient-tf", "mlp", K8_GRAD_FLEET_CONFIG, True, False,
+                           {"neural_grad_cost_rollout_cols": K8_GRAD_FLEET_CONFIG["gradient_steps"],
+                            "neural_cost_rollout_cols": 1}),
+}
+
+
+def k8_path_controller(plant: str, label: str, device: str = "cuda", config: dict = None):
+    optimizer, kind, cfg, fleet, valued, _ = K8_PATHS[label]
+    return net_controller(plant, kind, optimizer, config or cfg, device,
+                          FLEET_B if fleet else 0, valued)
+
+
+def k8_path_gate(plant: str, label: str, ctrl) -> None:
+    """The path took the K8 form it names: its family's gradient gate over
+    the cost, V's value form where valued, the fleet's batched step."""
+    optimizer, kind, _, fleet, valued, _ = K8_PATHS[label]
+    opt = ctrl.optimizer
+    fam = ensemble if kind == "ensemble" else neural
+    ok = fam.can_use_grad(opt) and (opt._value_grad_spec() is not None) == valued
+    if fleet:
+        ok = ok and (ctrl._batched_rpgd_eligible() if optimizer == "rpgd-tf"
+                     else ctrl._batched_gradient_eligible())
+    check(ok, f"{plant} {label}: the controller did not take K8's path")
+
+
+def refine_vs_cpu(name: str, card: MPCController, cpu: MPCController, s_now) -> dict:
+    """Phase 96, mppi-optimize-tf: the refinement's Adam steps on the card
+    against the CPU's from the card's plan, step by step from the card's
+    iterate (adam_steps_vs_cpu: the nominal plan's gradient, K8 at one
+    rollout, against its plain version, and the step from it), then the
+    refined plan's cost on both."""
+    opt, copt = card.optimizer, cpu.optimizer
+    state = opt.opt_state
+    params = card._assemble_params()
+    params_c = to_cpu(params)
+    grad_d, grad_c = opt._make_nominal_grad(), copt._make_nominal_grad()
+    u_prev, s1 = state.u_prev, s_now[:1].contiguous()
+    hyper = types.SimpleNamespace(  # the refinement's Adam, as adam_steps_vs_cpu reads it
+        learning_rate=opt.mppi_LR, adam_beta_1=opt.adam_beta_1, adam_beta_2=opt.adam_beta_2,
+        adam_epsilon=opt.adam_epsilon, gradmax_clip=opt.gradmax_clip,
+        action_low=opt.action_low, action_high=opt.action_high)
+
+    def score_cpu(Q):
+        cost = copt._fused_cost(s1.cpu(), Q, u_prev.cpu(), params_c)
+        return cost, torch.zeros(1, s1.shape[1]), None, None, copt.mpc_horizon
+
+    return adam_steps_vs_cpu(
+        name, lambda Q: grad_d(Q, s1, u_prev, params),
+        lambda Q: grad_c(Q, s1.cpu(), u_prev.cpu(), params_c),
+        lambda Q: opt._fused_cost(s1, Q, u_prev, params), score_cpu, state.u_nom,
+        adam_init(state.u_nom.shape, state.u_nom.device), hyper, opt.optim_steps)
+
+
+def k8_update_vs_cpu(gen) -> None:
+    """Phase 96: one update of each path K8 opens over the 3-D quadrotor's
+    cost on the card against the CPU's (the plain versions) from the same
+    state, params and draws: rpgd-tf over the MLP (valued too) and the
+    ensemble at one Adam iteration, gradient-tf's Adam steps, Bharadhwaj's
+    outer iterations, mppi-optimize's refinement, the rpgd-tf and gradient-tf
+    fleets; the single-session paths at NETS_CPU_K rollouts, the fleets at
+    FLEET_B sessions of FLEET_RPGD_CONFIG's rollouts.  cem-naive-grad
+    launches the instance gradient-tf's and Bharadhwaj's steps hold, and
+    the valued fleet's form phase 95 holds session by session."""
+    plant = "quadrotor3d"
+    s_now = plant_states(plant, 1, gen)
+    s_b = plant_states(plant, FLEET_B, gen)[:, None]
+    for label in K8_PATHS:
+        optimizer, kind, cfg, fleet, valued, _ = K8_PATHS[label]
+        if label in ("cem_naive_grad_mlp", "valued_rpgd_fleet_mlp"):
+            continue
+        cfg = ({**cfg, "num_rollouts": FLEET_RPGD_CONFIG["num_rollouts"],
+                "mpc_horizon": FLEET_H} if fleet else {**cfg, "num_rollouts": NETS_CPU_K})
+        if optimizer == "rpgd-tf":
+            cfg = {**cfg, "outer_its": 1}
+        card, cpu = (k8_path_controller(plant, label, d, cfg) for d in ("cuda", "cpu"))
+        k8_path_gate(plant, label, card)
+        name = f"k8_{label}_update_vs_cpu_{plant}"
+        if fleet:  # grad_fleet_update_vs_cpu tells RPGD from gradient-tf by the label
+            grad_fleet_update_vs_cpu(f"{optimizer[:-3]}_k8_{label}_{plant}", card, gen, cpu,
+                                     s_b, ())
+        elif optimizer == "rpgd-tf":
+            update_vs_cpu_rpgd(card, name, cpu=cpu, s_now=s_now)
+        elif optimizer == "gradient-tf":
+            gradient_value_update_vs_cpu(card, name, None, cfg, None, cpu=cpu, s_now=s_now)
+        elif optimizer == "cem-grad-bharadhwaj-tf":
+            zoo_update_vs_cpu(optimizer, card, cfg, cpu=cpu, s_now=s_now)
+        else:
+            refine_vs_cpu(name, card, cpu, s_now)
+
+
+def k8_loops(plant: str) -> dict:
+    """Phase 97 for one cost: each path of K8_PATHS K8_TICKS ticks at its
+    width, counted from 0; returns each phase 95 row's launches."""
+    runs = {}
+    for label, (_, _, _, fleet, _, per_tick) in K8_PATHS.items():
+        ctrl = k8_path_controller(plant, label)
+        k8_path_gate(plant, label, ctrl)
+        expected = {k: n * K8_TICKS for k, n in per_tick.items()}
+        name = f"k8_{plant}_{label}"
+        if fleet:
+            runs[label] = plant_fleet_loop(name, ctrl, plant, K8_TICKS, expected)
+        else:
+            counts, _, numbers = plant_loop(name, ctrl, plant, K8_TICKS, expected)
+            emit(name, numbers)
+            runs[label] = counts
+    launches = {row: sum(counts[row] for counts in runs.values()) for row in K8_ROWS}
+    emit(f"k8_{plant}_launches", {"ticks_a_path": K8_TICKS, "launches": launches,
+                                  "a_tick": {label: K8_PATHS[label][5] for label in K8_PATHS}})
+    return launches
+
+
+def k8_phases(gen) -> tuple:
+    """Phases 95-97: K8 over the nine other costs.  Returns each row's
+    numbers by (row, plant) and the loops' launches by plant."""
+    rows, launches = {}, {}
+    # 95. Each instance against its plain version.
+    for plant in NET_COSTS:
+        for key, numbers in k8_plant_kernels(plant, gen).items():
+            rows[key, plant] = numbers
+    # 96. One update of each path on the card against the CPU's.
+    k8_update_vs_cpu(gen)
+    # 97. The loops, counted from 0.
+    for plant in NET_COSTS:
+        launches[plant] = k8_loops(plant)
     return rows, launches
 
 
@@ -9306,6 +9688,8 @@ def main() -> None:
     forms_rows, forms_launches = forms_phases(gen)
     # 92-94. The learned-dynamics kernels over the nine other costs.
     nets_rows, nets_launches = nets_phases(gen)
+    # 95-97. K8's six forms over the nine other costs.
+    k8_rows, k8_launches = k8_phases(gen)
 
     if "--starts" in sys.argv[1:]:
         start_sweep()
@@ -9500,6 +9884,15 @@ def main() -> None:
         pid, lib = kernels.PLANT_IDS[plant], kernels.load()
         source = source.format(n=lib.ctt_net_group(pid), g=lib.ctt_gp_group(pid))
         rows = rows + ((name, source, replaces, numbers),)
+    # Their K8 instances (phases 95-97): launches from their own loops (phase
+    # 97), the source their cost's group (net_group).
+    for (key, plant), numbers in k8_rows.items():
+        n, name = k8_launches[plant][key], f"{key}_{plant}"
+        check(n > 0, f"{name}: launched no time in its cost's loops")
+        launches[name] = n
+        group = kernels.load().ctt_net_group(kernels.PLANT_IDS[plant])
+        rows = rows + ((name, f"neural_grad_plants_{group}.cu", "ops/pallas_grad.py:387",
+                        numbers),)
     # No single PyTorch call computes a rollout's cost, or samples, rolls
     # out and scores: library_ms is null.
     print(json.dumps({"kernels": [

@@ -46,9 +46,10 @@
 // dynamics are the net, staged from its tensors at every launch.  Every
 // body is a template over the cost, so each cost is an instance of each
 // entry: cartpole's in neural_rollout.cu, with the net's step inlined
-// (kInlineNet), the other nine costs' in net_plants_<group>.cu, grouped by
-// (S, U), the step an outlined call (mlp_units_step_call,
-// rnn_mma_step_call) that a source compiles once for each width.  The 3-D
+// (neural_core.cuh kInlineNet), the other nine costs' in
+// net_plants_<group>.cu, grouped by (S, U) (net_group), the step an
+// outlined call (mlp_units_step_call, rnn_mma_step_call) that a source
+// compiles once for each width.  The 3-D
 // quadrotor's 16 inputs and 12 outputs take two lane tiles each way
 // (mlp_mma.cuh io_tiles; rnn_mma_step_wide).
 //
@@ -75,14 +76,6 @@
 #include "rnn_mma.cuh"
 
 namespace ctt {
-
-// Whether a cost's instances inline the net's step (cartpole's, as they
-// always did) or call one outlined body a (S, U) in their source: the
-// network step's unrolled tensor-core code is most of a kernel's build.
-template <class Cost>
-constexpr bool kInlineNet = false;
-template <>
-constexpr bool kInlineNet<CartpoleCost> = true;
 
 // K11's body.  The member-block form (kMembers) serves member blockIdx.y of
 // a stacked ensemble: the block stages that member's weights and its groups
@@ -422,21 +415,8 @@ int net_call(const NetCall& c) {
                                     c.max_cost, blocks, c.stream);
 }
 
-// The costs' groups, each compiled in a source of its own
-// (net_plants_<group>.cu), by (S, U), so that a source compiles each
-// width's outlined MLP, GRU and LSTM steps once and no source's build
-// grows.  The id is the cost's plant (ops/kernels.py: a network kernel's
-// plant is its cost's); net_group gives its group (-1: none).
-inline int net_group(int plant) {
-  switch (plant) {
-    case kPlantPendulum: case kPlantQuadrotor2D: return 0;  // (2, 1) and (6, 2)
-    case kPlantAcrobot: return 1;                            // (4, 1)
-    case kPlantPointmass: case kPlantPointmassObstacles: case kPlantCar: return 2;  // (4, 2)
-    case kPlantCarObstacles: case kPlantArm2: return 3;     // (4, 2)
-    case kPlantQuadrotor3D: return 4;                        // (12, 4)
-    default: return -1;
-  }
-}
+// The costs' groups (neural_core.cuh net_group), each compiled in a source
+// of its own (net_plants_<group>.cu).
 int net_plants_0(const NetCall& c);
 int net_plants_1(const NetCall& c);
 int net_plants_2(const NetCall& c);

@@ -35,6 +35,32 @@ struct NetArgs {
   const float* norm_out_std;
 };
 
+// Whether a cost's instances of the network kernels (K8, K11, K13) inline
+// the net's step (cartpole's, as they always did) or call one outlined body
+// a (S, U) in their source: the network step's unrolled tensor-core code is
+// most of a kernel's build.
+template <class Cost>
+constexpr bool kInlineNet = false;
+template <>
+constexpr bool kInlineNet<CartpoleCost> = true;
+
+// The network kernels' cost groups, each compiled in sources of their own
+// (net_plants_<group>.cu: K11 and K13; neural_grad_plants_<group>.cu: K8),
+// by (S, U), so that a source compiles each width's outlined steps once and
+// no source's build grows.  The id is the cost's plant (ops/kernels.py: a
+// network kernel's plant is its cost's); net_group gives its group (-1:
+// none, cartpole's instances among them: they are the entries' own).
+inline int net_group(int plant) {
+  switch (plant) {
+    case kPlantPendulum: case kPlantQuadrotor2D: return 0;  // (2, 1) and (6, 2)
+    case kPlantAcrobot: return 1;                            // (4, 1)
+    case kPlantPointmass: case kPlantPointmassObstacles: case kPlantCar: return 2;  // (4, 2)
+    case kPlantCarObstacles: case kPlantArm2: return 3;     // (4, 2)
+    case kPlantQuadrotor3D: return 4;                        // (12, 4)
+    default: return -1;
+  }
+}
+
 __host__ __device__ inline int pad_to(int n, int m) { return (n + m - 1) / m * m; }
 __host__ __device__ inline int gates_of(int kind) { return kind == kNetGRU ? 3 : 4; }
 

@@ -1,0 +1,18 @@
+// K8 (plain, value_spec, member-block and member-block value_spec) over the point mass's two costs
+// and the car's default one (nets of (S, U) = (4, 2)): neural_grad_core.cuh's body, the network
+// forms' cost group 2 (net_group), compiled in a source of its own so that no source's build grows;
+// the MLP's step and VJP are outlined calls, one body each for the group's widths.  The session-row
+// forms are the same instances at ks < K.  The C entries that dispatch to them are
+// neural_grad_rollout.cu's.
+//
+// Replaces control_toolkit_tpu/ops/pallas_grad.py:build_neural_grad_cost_rollout_kernel over those
+// costs.
+#include "neural_grad_core.cuh"
+
+namespace ctt {
+
+int neural_grad_plants_2(const GradCall& c) {
+  return neural_grad_call_in<kPlantPointmass, kPlantPointmassObstacles, kPlantCar>(c);
+}
+
+}  // namespace ctt

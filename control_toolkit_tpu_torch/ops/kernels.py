@@ -31,23 +31,25 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 # from sources of their own, K7's and K9's in groups of plants
 # (grad_value_plants_<group>.cu, residual_cost_plants.cu,
 # residual_grad_plants_<group>.cu), and the costs other than cartpole's
-# K11's and K13's forms, K14's and K10's from groups of costs
-# (net_plants_<group>.cu, gp_plants_<group>.cu), so that no source's build
-# grows.  The sources are listed heaviest first, by their nvcc's CPU
+# K11's and K13's forms, K8's, K14's and K10's from groups of costs
+# (net_plants_<group>.cu, neural_grad_plants_<group>.cu,
+# gp_plants_<group>.cu), so that no source's build grows.  The sources are listed heaviest first, by their nvcc's CPU
 # seconds (probes/build_times.py on the card's host, PERF.md): build()
 # starts them in this order, one a CPU at a time.
-SOURCES = ("grad_cost_rollout.cu", "residual_grad_plants_3.cu", "grad_value_plants_1.cu",
-           "residual_rollout.cu", "residual_grad_plants_4.cu", "residual_grad_plants_0.cu",
-           "residual_cost_plants.cu", "residual_grad_plants_2.cu", "neural_grad_rollout.cu",
+SOURCES = ("grad_cost_rollout.cu", "grad_value_plants_1.cu", "residual_grad_plants_3.cu",
+           "residual_rollout.cu", "residual_grad_plants_4.cu", "residual_grad_plants_2.cu",
+           "residual_grad_plants_0.cu", "neural_grad_rollout.cu", "neural_grad_plants_2.cu",
+           "residual_cost_plants.cu", "neural_grad_plants_3.cu", "neural_grad_plants_0.cu",
            "residual_grad_plants_1.cu", "cost_rollout.cu", "grad_value_plants_0.cu",
-           "mppi_cost_cols.cu", "mppi_cost.cu", "fused_cem_cols.cu", "fused_cem.cu",
-           "net_plants_2.cu", "fused_mppi.cu", "net_plants_3.cu", "net_plants_0.cu",
-           "neural_rollout.cu", "gp_plants_2.cu", "net_plants_4.cu", "net_plants_1.cu",
-           "gp_plants_0.cu", "gp_rollout.cu", "gp_plants_1.cu")
+           "neural_grad_plants_4.cu", "mppi_cost_cols.cu", "mppi_cost.cu",
+           "neural_grad_plants_1.cu", "fused_cem.cu", "fused_cem_cols.cu", "fused_mppi.cu",
+           "net_plants_2.cu", "net_plants_0.cu", "net_plants_3.cu", "neural_rollout.cu",
+           "net_plants_4.cu", "gp_plants_2.cu", "net_plants_1.cu", "gp_rollout.cu",
+           "gp_plants_1.cu", "gp_plants_0.cu")
 HEADERS = ("rollout_core.cuh", "plants.cuh", "neural_core.cuh", "mlp_mma.cuh", "rnn_mma.cuh",
            "mlp_units.cuh", "gp_core.cuh", "counter_prng.cuh", "cem_core.cuh",
            "short_step.cuh", "mppi_ahead.cuh", "value_mlp.cuh", "grad_core.cuh",
-           "residual_core.cuh", "net_rollout.cuh", "gp_kernels.cuh")
+           "residual_core.cuh", "net_rollout.cuh", "gp_kernels.cuh", "neural_grad_core.cuh")
 # Per-source compile flags; the objects are then linked with -shared.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -170,11 +172,9 @@ KERNEL_PLANTS = {
         "K11's member-block form", "K11's member-block emit_terminal form",
         "K11's session-row form", "K11's session-row emit_terminal form", "K13",
         "K13's emit_terminal form", "K13's session-row form", "K14", "K14's emit_terminal form",
-        "K14's session-row form", "K14's session-row emit_terminal form")},
-    **{form: ("cartpole",) for form in (
-        "K8", "K8's value_spec form", "K8's member-block form",
-        "K8's member-block value_spec form", "K8's session-row form",
-        "K8's session-row value_spec form")},
+        "K14's session-row form", "K14's session-row emit_terminal form", "K8",
+        "K8's value_spec form", "K8's member-block form", "K8's member-block value_spec form",
+        "K8's session-row form", "K8's session-row value_spec form")},
 }
 
 
@@ -435,12 +435,12 @@ def net_smem_bytes(plant: str, args: NetArgs, kernel: str) -> int:
     if kernel == "residual":
         return residual_plan(plant, args)[0]
     if kernel in ("neural_grad", "residual_grad", "neural_grad_ens"):
-        return int(load().ctt_mma_net_smem_bytes(ctypes.byref(args), S, U))
+        return int(load().ctt_mma_net_smem_bytes(PLANT_IDS[plant], ctypes.byref(args)))
     raise ValueError(f"no network kernel {kernel!r}")
 
 
 # The network kernels whose blocks-per-SM entry takes the cost's plant id.
-PLANT_OCCUPANCY = ("neural", "neural_ens", "recurrent")
+PLANT_OCCUPANCY = ("neural", "neural_ens", "recurrent", "neural_grad", "neural_grad_ens")
 
 
 def net_blocks_per_sm(kernel: str, args: NetArgs, plant: str = "cartpole") -> int:
@@ -450,8 +450,8 @@ def net_blocks_per_sm(kernel: str, args: NetArgs, plant: str = "cartpole") -> in
     K11's and K8's member-block forms) that one SM holds for the net of
     ``args`` (one member's, for the forms), as
     the CUDA runtime's occupancy calculator gives it (0 for a refused
-    net); K11's, its member-block form's and K13's over the cost of
-    ``plant`` (PLANT_OCCUPANCY), the others' over cartpole's."""
+    net); K11's, K8's, their member-block forms' and K13's over the cost
+    of ``plant`` (PLANT_OCCUPANCY), the others' over cartpole's."""
     entry = getattr(load(), f"ctt_{kernel}_blocks_per_sm")
     if kernel in PLANT_OCCUPANCY:
         return int(entry(PLANT_IDS[plant], ctypes.byref(args)))
@@ -785,19 +785,20 @@ def load() -> ctypes.CDLL:
                            ptr]
             fn.restype = i32
         long_p = ctypes.POINTER(ctypes.c_long)
-        lib.ctt_neural_grad_value_layout.argtypes = [net, value, i32, long_p]
+        lib.ctt_neural_grad_value_layout.argtypes = [i32, net, value, i32, long_p]
         lib.ctt_neural_grad_value_layout.restype = i32
         lib.ctt_net_smem_bytes.argtypes = [net, i32, i32]
         lib.ctt_net_smem_bytes.restype = ctypes.c_long
-        lib.ctt_mma_net_smem_bytes.argtypes = [net, i32, i32]
+        lib.ctt_mma_net_smem_bytes.argtypes = [i32, net]
         lib.ctt_mma_net_smem_bytes.restype = ctypes.c_long
-        for fn in (lib.ctt_neural_grad_blocks_per_sm, lib.ctt_neural_grad_ens_blocks_per_sm,
-                   lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm):
+        for fn in (lib.ctt_residual_blocks_per_sm, lib.ctt_residual_grad_blocks_per_sm):
             fn.argtypes = [net]
             fn.restype = i32
-        # K11's, its member-block form's and K13's over the cost of a plant id.
+        # K11's, K8's, their member-block forms' and K13's over the cost of a
+        # plant id.
         for fn in (lib.ctt_neural_blocks_per_sm, lib.ctt_neural_ens_blocks_per_sm,
-                   lib.ctt_recurrent_blocks_per_sm):
+                   lib.ctt_recurrent_blocks_per_sm, lib.ctt_neural_grad_blocks_per_sm,
+                   lib.ctt_neural_grad_ens_blocks_per_sm):
             fn.argtypes = [i32, net]
             fn.restype = i32
         # rows: 0 for the single-session kernel, 1 for its session-row form.

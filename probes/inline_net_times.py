@@ -1,14 +1,15 @@
-"""K11 and K13 over one cost other than cartpole's with the network's step
-inlined into the kernel, against the outlined call the library builds
-(csrc/net_rollout.cuh ``kInlineNet``), in turns:
+"""K11, K13 and K8 over one cost other than cartpole's with the network's
+step (K8: the MLP's step and its VJP) inlined into the kernel, against the
+outlined calls the library builds (csrc/neural_core.cuh ``kInlineNet``), in
+turns:
 
     python probes/inline_net_times.py <checkout root> [plant]
 
 Copies the checkout (its sources, not its builds) to
 ``<checkout>/_checkout/inline_net`` with ``kInlineNet`` true for the
 plant's cost (default: the pendulum's), then, one process a build, in the
-order outlined, inlined, inlined, outlined, times K11, K11-emit, K13-GRU
-and K13-LSTM at chip_smoke.py's main path (K=16384, H=50) over phase 92's
+order outlined, inlined, inlined, outlined, times K11, K11-emit, K13-GRU,
+K13-LSTM and K8 at chip_smoke.py's main path (K=16384, H=50) over phase 92's
 operands (the seeded mlp-64-64, GRU and LSTM 32-32 at the cost's widths),
 each held against its plain version.  A process builds its checkout's
 kernels unless their library is built already.  Prints one line,
@@ -36,7 +37,7 @@ def inlined_copy(root: Path, plant: str) -> Path:
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(root, dst, ignore=shutil.ignore_patterns(
         "_checkout", "_build", "chiprun_out", ".git", "__pycache__"))
-    core = dst / "control_toolkit_tpu_torch" / "csrc" / "net_rollout.cuh"
+    core = dst / "control_toolkit_tpu_torch" / "csrc" / "neural_core.cuh"
     text = core.read_text()
     assert TRAIT in text, "kInlineNet's cartpole entry moved"
     core.write_text(text.replace(TRAIT, TRAIT + f"template <>\nconstexpr bool "
@@ -50,6 +51,7 @@ def one(root: Path, plant: str) -> dict:
 
     import chip_smoke as cs
     from control_toolkit_tpu_torch.ops import kernels
+    from control_toolkit_tpu_torch.ops import neural_grad_cost_rollout as ng
     from control_toolkit_tpu_torch.ops import neural_rollout as nr
     from control_toolkit_tpu_torch.optimizers.kernel_families import neural
 
@@ -75,6 +77,8 @@ def one(root: Path, plant: str) -> dict:
                 lambda: (nr.neural_cost_rollout_plain(model, s0, Q, pvec, net),)),
         "k11_emit": (lambda: nr.neural_cost_rollout_emit(model, s0, Q, pvec, net),
                      lambda: nr.neural_cost_rollout_emit_plain(model, s0, Q, pvec, net)),
+        "k8": (lambda: ng.neural_grad_cost_rollout(model, s0, Q, pvec, net),
+               lambda: ng.neural_grad_cost_rollout_plain(model, s0, Q, pvec, net)),
     }
     for kind in ("gru", "lstm"):
         m, pv, d = operands[kind]
@@ -87,7 +91,8 @@ def one(root: Path, plant: str) -> dict:
     entries = {"k11": ("neural_cost_rollout_kernel", cost),
                "k11_emit": ("neural_cost_rollout_emit_kernel", cost),
                "k13_gru": ("recurrent_cost_rollout_kernel", cost + r"(\w*E)?Li3EEEv"),
-               "k13_lstm": ("recurrent_cost_rollout_kernel", cost + r"(\w*E)?Li4EEEv")}
+               "k13_lstm": ("recurrent_cost_rollout_kernel", cost + r"(\w*E)?Li4EEEv"),
+               "k8": ("neural_grad_cost_rollout_kernel", cost)}
     built = bool(kernels.build.log)
     out = {"checkout": str(root), "library": kernels.library_path().name,
            "built_here_s": kernels.build.seconds if built else None}

@@ -60,6 +60,9 @@ from control_toolkit_tpu_torch.ops.residual_rollout import residual_cost_rollout
 from control_toolkit_tpu_torch.optimizers.cem import CEMState
 from control_toolkit_tpu_torch.ops.gp_grad_cost_rollout import gp_grad_cost_rollout
 from control_toolkit_tpu_torch.ops.gp_rollout import gp_cost_rollout
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
+    neural_grad_cost_rollout, neural_grad_cost_rollout_ens,
+)
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout, neural_cost_rollout_ens, recurrent_cost_rollout,
 )
@@ -866,6 +869,18 @@ PORTED_FORMS = {
                  lambda lb: port_ctrl(lb, "mppi", small(), "ensemble:mlp-8-8:2"),
                  lambda c: ensemble.can_use_cost(c.optimizer)),
 }
+# label of a gradient path over an MLP: (the K8 form it launches on the
+# card, the wrapper whose plain version runs here, a function that builds
+# it, its gate)
+K8_PATHS = {
+    "mlp_rpgd": ("K8", neural_grad_cost_rollout,
+                 lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "neural:mlp-16-16"),
+                 lambda c: neural.can_use_grad(c.optimizer)),
+    "ensemble_rpgd": ("K8's member-block form", neural_grad_cost_rollout_ens,
+                      lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ensemble:mlp-8-8:2"),
+                      lambda c: ensemble.can_use_grad(c.optimizer)),
+}
+PORTED_FORMS.update(K8_PATHS)
 
 
 @pytest.mark.parametrize("path", sorted(PORTED_FORMS))
@@ -876,7 +891,8 @@ def test_ported_value_and_residual_paths_reach_their_form_on_the_cpu(path, label
     and K2, K7's value_spec form, K12 and K9) and the learned-dynamics ones
     (K11, K13, K14, K10, K11's member-block form) build over these plants
     (the forms carry every plant id, the network forms every cost's), their
-    gate admits the form, and their first step runs on the CPU through the
+    gate admits the form (K8's forms too: rpgd-tf over the MLP and the
+    ensemble), and their first step runs on the CPU through the
     form's plain version: the wrapper launches nothing, and the controls
     are finite and within the limits."""
     form, wrapper, build, gate = PORTED_FORMS[path]
@@ -892,25 +908,19 @@ def test_ported_value_and_residual_paths_reach_their_form_on_the_cpu(path, label
     assert u.shape == lo.shape and np.all(np.isfinite(u)) and np.all(u >= lo) and np.all(u <= hi)
 
 
-# label of the path: (the kernel form it would launch, a function that builds
-# it): the gradient paths over an MLP, whose K8 forms carry cartpole's cost
-# alone.
-REFUSED = {
-    "mlp_rpgd": ("K8", lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "neural:mlp-16-16")),
-    "ensemble_rpgd": ("K8's member-block form",
-                      lambda lb: port_ctrl(lb, "rpgd-tf", small_rpgd(), "ensemble:mlp-8-8:2")),
-}
-
-
-@pytest.mark.parametrize("path", sorted(REFUSED))
+@pytest.mark.parametrize("path", sorted(K8_PATHS))
 @pytest.mark.parametrize("label", ["pendulum", "pointmass_obstacles", "quadrotor3d",
                                    "car_obstacles"])
-def test_paths_without_an_instance_raise_naming_kernel_and_plant(path, label):
-    """Every path on which the JAX package would launch a kernel that has no
-    instance of these plants raises NotImplementedError naming the kernel
-    and the plant, at configure: none takes the scan or another kernel."""
-    kernel, build = REFUSED[path]
+def test_paths_without_an_instance_raise_naming_kernel_and_plant(path, label, monkeypatch):
+    """A path on which the JAX package would launch a kernel form that has
+    no instance of the plant raises NotImplementedError naming the kernel
+    and the plant, at configure: none takes the scan or another kernel.
+    Every form carries these costs now, so the record is cut back to
+    cartpole's for the K8 form each gradient path over an MLP launches."""
+    kernel, _, build, _ = K8_PATHS[path]
     plant = PLANTS[label][2]
+    assert plant in kernels.KERNEL_PLANTS[kernel]
+    monkeypatch.setitem(kernels.KERNEL_PLANTS, kernel, ("cartpole",))
     with pytest.raises(NotImplementedError) as err:
         build(label)
     msg = str(err.value)
@@ -973,10 +983,10 @@ def test_unknown_plants_and_forms_are_refused_before_a_launch(monkeypatch):
     says does not carry the acrobot raises before touching its operands."""
     from control_toolkit_tpu_torch.ops import cost_rollout as k1_module
 
-    with pytest.raises(NotImplementedError, match="K8's value_spec form over the 'acrobot'"):
-        kernels.require("K8's value_spec form", "acrobot")
-    with pytest.raises(NotImplementedError, match="K8 over the 'quadrotor2d'"):
-        kernels.require("K8", "quadrotor2d")
+    with pytest.raises(NotImplementedError, match="K8's value_spec form over the 'acrobot_fast'"):
+        kernels.require("K8's value_spec form", "acrobot_fast")
+    with pytest.raises(NotImplementedError, match="K8 over the 'quadrotor2d_fast'"):
+        kernels.require("K8", "quadrotor2d_fast")
     for kernel in ("K1", "K2", "K3", "K7", "K4", "K5", "K6", "K1's session-row form",
                    "K7's session-row form", "K1's emit_terminal form",
                    "K1's session-row emit_terminal form", "K2's emit_terminal form",

@@ -613,10 +613,10 @@ def test_one_update_of_each_path_matches_jax(path, label):
 
 
 def test_the_forms_carry_every_plant_and_the_network_forms_refuse_them():
-    """The 14 forms carry all 18 plant ids; the 17 forms of K10, K11, K13
-    and K14 carry the ten cost plants (a network kernel's plant is its
-    cost's, and no learned model has fast dynamics); K8's six forms still
-    refuse every plant but cartpole, naming the kernel and the plant."""
+    """The 14 forms carry all 18 plant ids; the 23 network forms (K8's six,
+    K10's, K11's, K13's and K14's 17) carry the ten cost plants (a network
+    kernel's plant is its cost's, and no learned model has fast dynamics)
+    and refuse every fast plant's id, naming the kernel and the plant."""
     for form in FORMS:
         assert set(kernels.KERNEL_PLANTS[form]) == set(kernels.PLANT_IDS), form
     network = [f for f in kernels.KERNEL_PLANTS if f.startswith(("K8", "K10", "K11", "K13",
@@ -624,18 +624,12 @@ def test_the_forms_carry_every_plant_and_the_network_forms_refuse_them():
     assert len(network) == 23 and not set(network) & set(FORMS)
     costs = {p for p in kernels.PLANT_IDS if p not in kernels.FAST_PLANTS.values()}
     assert set(kernels.COST_PLANTS) == costs and len(costs) == 10
-    k8 = [f for f in network if f.startswith("K8")]
-    assert len(k8) == 6
+    assert len([f for f in network if f.startswith("K8")]) == 6
     for form in network:
-        if form in k8:
-            assert kernels.KERNEL_PLANTS[form] == ("cartpole",)
-            with pytest.raises(NotImplementedError, match=f"{form} over the 'quadrotor3d'"):
-                kernels.require(form, "quadrotor3d")
-        else:
-            assert set(kernels.KERNEL_PLANTS[form]) == costs, form
-            kernels.require(form, "quadrotor3d")
-            with pytest.raises(NotImplementedError, match=f"{form} over the 'quadrotor3d_fast'"):
-                kernels.require(form, "quadrotor3d_fast")
+        assert set(kernels.KERNEL_PLANTS[form]) == costs, form
+        kernels.require(form, "quadrotor3d")
+        with pytest.raises(NotImplementedError, match=f"{form} over the 'quadrotor3d_fast'"):
+            kernels.require(form, "quadrotor3d_fast")
 
 
 # ---- on a card: every plant's instance of each form against its plain version -------------

@@ -64,6 +64,13 @@ from control_toolkit_tpu_torch.ops.gp_rollout import (
     gp_cost_rollout_cols_emit_plain, gp_cost_rollout_cols_plain, gp_cost_rollout_emit,
     gp_cost_rollout_emit_plain, gp_cost_rollout_lanes, gp_cost_rollout_plain,
 )
+from control_toolkit_tpu_torch.ops.neural_grad_cost_rollout import (
+    neural_grad_cost_rollout, neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain,
+    neural_grad_cost_rollout_cols_value, neural_grad_cost_rollout_ens,
+    neural_grad_cost_rollout_ens_plain, neural_grad_cost_rollout_ens_value,
+    neural_grad_cost_rollout_ens_value_plain, neural_grad_cost_rollout_plain,
+    neural_grad_cost_rollout_value,
+)
 from control_toolkit_tpu_torch.ops.neural_rollout import (
     neural_cost_rollout, neural_cost_rollout_cols, neural_cost_rollout_cols_emit,
     neural_cost_rollout_cols_emit_plain, neural_cost_rollout_cols_plain,
@@ -721,10 +728,11 @@ def test_one_update_of_each_path_matches_jax(specs, path, plant):
 
 def test_the_forms_carry_the_costs_and_k8_refuses_them():
     """The 17 forms carry the ten cost plants and refuse a fast plant (no
-    learned model has fast dynamics); K8's forms refuse every cost but
-    cartpole's; a GP kernel's instance over a cost other than cartpole's
-    takes the kernel's own lanes (lanes 0) alone, and a count asked for
-    raises naming the kernel and the plant."""
+    learned model has fast dynamics); so do K8's six forms, which refuse
+    every fast plant's id, naming the kernel and the plant; a GP kernel's
+    instance over a cost other than cartpole's takes the kernel's own lanes
+    (lanes 0) alone, and a count asked for raises naming the kernel and the
+    plant."""
     for form in FORMS:
         assert kernels.KERNEL_PLANTS[form] == kernels.COST_PLANTS
         for plant in COSTS:
@@ -733,8 +741,10 @@ def test_the_forms_carry_the_costs_and_k8_refuses_them():
             kernels.require(form, "pendulum_fast")
     assert set(COSTS) | {"cartpole"} == set(kernels.PLANT_DIMS) - set(kernels.FAST_PLANTS.values())
     for form in (f for f in kernels.KERNEL_PLANTS if f.startswith("K8")):
-        with pytest.raises(NotImplementedError, match=f"{form} over the 'arm2'"):
-            kernels.require(form, "arm2")
+        assert kernels.KERNEL_PLANTS[form] == kernels.COST_PLANTS
+        kernels.require(form, "arm2")
+        with pytest.raises(NotImplementedError, match=f"{form} over the 'arm2_fast'"):
+            kernels.require(form, "arm2_fast")
     model = kernels.GPModel(plant="car", param_keys=kernels.COST_PARAM_KEYS["car"],
                             stage=None, terminal=None, max_cost=1.0)
     s0, Q, pvec = torch.zeros(4, 4), torch.zeros(4, 3, 2), torch.zeros(10)
@@ -778,9 +788,24 @@ def card_operands(specs, plant: str, kind: str, dev, valued: bool = False):
 
 
 def gp_dq_close(got, ref):
-    """K10's dQ against its plain version: test_torch_plants.py's K7 bound,
-    2e-5 of the largest entry."""
+    """K10's and K8's dQ against their plain versions: test_torch_plants.py's
+    K7 bound, 2e-5 of the largest entry."""
     return float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max()) + 1e-6
+
+
+def k8_dq_f64_held(got, ref, ref64) -> bool:
+    """K8's dQ where the float32 drift of a seeded net at the init's scale
+    carries it past K7's bound: no further from the float64 plain version
+    ``ref64`` than twice the float32 plain version is, that distance scaled
+    by how much further the kernel's J lies from float64 than the plain
+    version's (capped at 3), plus 1e-6 of its largest entry, as
+    chip_smoke.py's f64_held holds phase 95's instances."""
+    def err(a, b):
+        return float((a.double() - b).abs().max())
+
+    ratio = min(3.0, max(1.0, err(got[0], ref64[0]) / max(err(ref[0], ref64[0]), 1e-30)))
+    return err(got[1], ref64[1]) <= (2.0 * err(ref[1], ref64[1]) * ratio
+                                     + 1e-6 * float(ref64[1].abs().max()))
 
 
 # form group: (the learned model, the forms it holds)
@@ -795,6 +820,9 @@ CARD_GROUPS = {
                    "K14's session-row emit_terminal form")),
     "k10": ("gp", ("K10", "K10's value_spec form", "K10's session-row form",
                    "K10's session-row value_spec form")),
+    "k8": ("mlp", ("K8", "K8's value_spec form", "K8's session-row form",
+                   "K8's session-row value_spec form")),
+    "k8_members": ("ensemble", ("K8's member-block form", "K8's member-block value_spec form")),
 }
 
 
@@ -802,16 +830,57 @@ CARD_GROUPS = {
 @pytest.mark.parametrize("group", sorted(CARD_GROUPS))
 @pytest.mark.parametrize("plant", COSTS)
 def test_cuda_cost_instances_match_plain_versions(cuda_device, specs, plant, group):  # noqa: F811
-    """Each cost's instance of each form against its plain version on the
-    same card tensors at ragged sizes: costs to test_torch_kernels.py's
-    tolerance (the nets' to 1e-3 relative: the kernels' 3xTF32 products and
-    a recurrent net's hidden carry the difference), x_H to STATE_TOL, dQ to
-    K7's bound; the emit forms' costs equal to their kernels' bit for bit."""
+    """Each cost's instance of each form (K8's too) against its plain
+    version on the same card tensors at ragged sizes: costs and J to
+    test_torch_kernels.py's tolerance (the nets' to 1e-3 relative: the
+    kernels' 3xTF32 products and a recurrent net's hidden carry the
+    difference), x_H to STATE_TOL, dQ to K7's bound (K8's, where a seeded
+    net's float32 drift carries it past, to float64: k8_dq_f64_held); the
+    emit forms' costs equal to their kernels' bit for bit."""
     kind, forms = CARD_GROUPS[group]
     model, params, pvec, rows, s0, Q, sc, Qc, vops = card_operands(specs, plant, kind,
                                                                    cuda_device)
     tol = dict(rtol=1e-4, atol=1e-3) if kind == "gp" else dict(rtol=1e-3, atol=1e-3)
     dyn = params["dyn"]
+    if group.startswith("k8"):  # J to the nets' bound, dQ to K7's or float64
+        # V at scale 100, as chip_smoke.py's K7 value form holds it, so that
+        # its gradient moves dQ past K7's bound over every cost's scale.
+        vops = vops[:-2] + [100.0 * vops[-2], 100.0 * vops[-1]]
+        # The net's output layer at a tenth of the seeded init's, as
+        # chip_smoke.py's NETS_OUT_SCALE takes it: at the init's scale 45
+        # steps of the seeded net are chaotic, and two correct float32
+        # gradients (the kernel's 3xTF32 products, autograd's float32) drift
+        # apart further than any bound float64 gives them.
+        last = max(int(k[1:]) for k in dyn["net"] if k.startswith("w") and k[1:].isdigit())
+        net = {k: 0.1 * w if k in (f"w{last}", f"b{last}") else w for k, w in dyn["net"].items()}
+        single = (model, s0, Q, pvec, net)
+        if group == "k8":
+            cols = (model, sc, Qc, rows, net)
+            runs = ((neural_grad_cost_rollout, neural_grad_cost_rollout_plain, single, ()),
+                    (neural_grad_cost_rollout_value, neural_grad_cost_rollout_plain, single,
+                     (vops,)),
+                    (neural_grad_cost_rollout_cols, neural_grad_cost_rollout_cols_plain, cols, ()),
+                    (neural_grad_cost_rollout_cols_value, neural_grad_cost_rollout_cols_plain,
+                     cols, (vops,)))
+        else:
+            runs = ((neural_grad_cost_rollout_ens, neural_grad_cost_rollout_ens_plain, single,
+                     ()),
+                    (neural_grad_cost_rollout_ens_value, neural_grad_cost_rollout_ens_value_plain,
+                     single, (vops,)))
+        assert len(runs) == len(forms)
+        outs = []
+        for kernel, plain, args, v in runs:
+            got, ref = kernel(*args, *v), plain(*args, *v)
+            torch.testing.assert_close(got[0], ref[0], **tol)
+            assert gp_dq_close(got[1], ref[1]) or k8_dq_f64_held(got, ref, plain(
+                args[0], *(a.double() for a in args[1:4]),
+                {k: w.double() for k, w in args[4].items()}, *[[w.double() for w in vo]
+                                                               for vo in v])), (
+                kernel.__name__, float((got[1] - ref[1]).abs().max()),
+                float(ref[1].abs().max()))
+            outs.append(got)
+        assert not gp_dq_close(outs[0][1], outs[1][1])  # V reaches dQ
+        return
     if kind == "gp":
         ops = flatten_gp_weights(dyn["gp"])
         single, cols = (model, s0, Q, pvec, ops), (model, sc, Qc, rows, ops)
