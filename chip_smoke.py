@@ -8953,6 +8953,326 @@ def k8_phases(gen) -> tuple:
     return rows, launches
 
 
+# ---- the iLQR family (phases 98-100) ---------------------------------------------------------
+# optimizers/ilqr.py ("ilqr", "nlp-ilqr", "nlp-forces") launches no kernel of
+# the port's: its passes are PyTorch operations on the predictor's
+# single_step and the cost's stage and terminal costs, and every count of
+# COUNTED stays 0 over its loops.  Each phase holds one step on the card to
+# the CPU port's from the same state, params (the card's, copied) and draws
+# (ilqr_tick_vs_cpu): u, the plan and J_logged to ILQR_TOL (50 inner
+# iterations of float32 passes whose transcendentals and small solves
+# round otherwise on the card, cuBLAS and cuSOLVER, than on the CPU); where
+# a step is not held, every inner iteration of the card's solve is replayed
+# on the CPU from the card's iterate and held to ILQR_ITER_TOL, or, where
+# the two line searches accepted differently, their accepted costs tie to
+# ILQR_TIE_RTOL: the step is then undetermined, as phase 86's kink rows.
+# Phase 98 runs the config_defaults block (ILQR_CONFIG) over cartpole/default
+# with the sequential, parallel and six-start solves: each's device
+# operations and busy ms a tick (ilqr_tick_profile), then the three in
+# turns (ILQR_TURN_TICKS, counted from 0, under
+# torch.cuda.set_sync_debug_mode("warn"), the sequential one's step held
+# to the CPU's).  Phase 99 holds the
+# options at ILQR_OPTION_ITERS iterations: the augmented Lagrangian (a
+# velocity box and a terminal set, 4 multiplier updates), six starts from
+# the card's draws, the policy's first plan and a failed solve's replay with
+# the policy's tail (a NaN cost weight).  Phase 100 runs ILQR_SMALL over
+# the nine other costs' ODEs and over cartpole's :fast ODE, the committed
+# MLP, a seeded GP, "ODE+res", the committed ensemble and a value terminal:
+# ILQR_SMALL_TICKS ticks counted from 0, the first step held to the CPU's.
+# config_optimizers.yml's ilqr block as the loader reads it (YAML takes
+# "1.0e8" for a string, which the optimizer's float() reads; riccati is
+# left to its default, "sequential").
+ILQR_CONFIG = {"seed": SEED, "mpc_timestep": DT, "mpc_horizon": H, "num_rollouts": 1,
+               "max_iterations": 50, "tol": 1.0e-6, "regularization_init": 1.0,
+               "regularization_max": "1.0e8", "line_search_steps": 8, "state_max": None,
+               "terminal_set_width": 0.0, "idx_terminal_set": [], "terminal_set_center": [],
+               "al_iterations": 4, "mu_init": 10.0, "mu_growth": 10.0,
+               "include_control_change_cost": True, "n_starts": 1}
+ILQR_PATHS = {"sequential": {}, "parallel": {"riccati": "parallel"}, "n_starts_6": {"n_starts": 6}}
+# Phase 98's ticks of each path in turns, one each: a tick at the defaults
+# takes 7-11 s of host beside an H100 (the solve is eager, ~5e5 launches).
+ILQR_TURN_TICKS = {"sequential": 1, "parallel": 1, "n_starts_6": 1}
+ILQR_OPTION_ITERS, ILQR_SMALL_TICKS = 4, 2
+ILQR_PROFILE_ITERS = (1, 2)
+ILQR_SMALL = {**ILQR_CONFIG, "mpc_horizon": 20, "max_iterations": 5}
+ILQR_CONSTRAINED = {"state_max": ["inf", 0.5, "inf", "inf"], "terminal_set_width": 0.1,
+                    "idx_terminal_set": [0], "terminal_set_center": ["target_position"]}
+ILQR_TOL = dict(rtol=1e-3, atol=2e-3)
+ILQR_ITER_TOL = dict(rtol=1e-4, atol=1e-4)
+ILQR_TIE_RTOL = 1e-5
+ILQR_START = np.array([0.05, -0.1, 0.15, 0.1], np.float32)
+
+
+def ilqr_tick_vs_cpu(name: str, card: MPCController, cpu: MPCController, state=None,
+                     draws=None, params=None, s_now=ILQR_START, card_out=None) -> dict:
+    """One iLQR step of the card's optimizer and of the CPU's from one
+    state, params and draws (see the phases' comment above); ``card_out``,
+    the card's ``(u, plan)`` of a step already taken from them."""
+    opt, copt = card.optimizer, cpu.optimizer
+    params = card._assemble_params() if params is None else params
+    state = opt.opt_state if state is None else state
+    s = torch.tensor(np.asarray(s_now, np.float32)[None], device=opt.device)
+    trace, ctrace = [], []
+    if card_out is None:
+        u, new, diag = opt.update(state, s, params, draws, trace=trace)
+        got = {"u": u.cpu(), "plan": new.plan.cpu(), "J": diag["J_logged"].cpu()}
+        card_ok, card_j = bool(diag["solver_ok"]), int(new.j)
+    else:
+        got = {"u": card_out[0].cpu(), "plan": card_out[1].plan.cpu()}
+        card_ok, card_j = None, int(card_out[1].j)
+    t0 = time.perf_counter()
+    cu, cnew, cdiag = copt.update(to_cpu(state), s.cpu(), to_cpu(params),
+                                  None if draws is None else draws.cpu(), trace=ctrace)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    ref = {"u": cu, "plan": cnew.plan, "J": cdiag["J_logged"]}
+    numbers = {f"{k}_max_abs_err": float((got[k] - ref[k]).abs().nan_to_num().max())
+               for k in got}
+    held = all(torch.allclose(got[k], ref[k], equal_nan=True, **ILQR_TOL) for k in got) and \
+        card_j == int(cnew.j) and card_ok in (None, bool(cdiag["solver_ok"]))
+    numbers.update(held=held, solver_ok=bool(cdiag["solver_ok"]), replay_index=card_j,
+                   iterations=len(ctrace), cpu_step_ms=cpu_ms)
+    if not held:
+        if not trace:
+            opt.update(state, s, params, draws, trace=trace)
+        # The step's start (the policy's plan, a rollout of its own) to
+        # phase 83's bound, then each inner iteration from the card's iterate.
+        start_err = float((trace[0][0][1].cpu() - ctrace[0][0][1]).abs().max())
+        check(start_err <= PLAN_ATOL, f"{name}: the starts differ {start_err}")
+        iters_held, ties, worst = 0, 0, 0.0
+        for args, out in trace:
+            cout = copt.inner_iteration(*to_cpu(args), to_cpu(params))
+            if torch.allclose(out[0].cpu(), cout[0], **ILQR_ITER_TOL) and \
+                    torch.equal(out[3].cpu(), cout[3]):
+                iters_held += 1
+                worst = max(worst, float((out[0].cpu() - cout[0]).abs().max()))
+                continue
+            gap = (out[2].cpu() - cout[2]).abs() / (out[2].cpu().abs() + 1.0)
+            check(bool((gap <= ILQR_TIE_RTOL).all()),
+                  f"{name}: an inner iteration differs beyond a tie: cost gap {gap.tolist()}")
+            ties += 1
+        numbers.update(start_max_abs_err=start_err, iterations_held=iters_held,
+                       iterations_tied=ties, held_iterations_max_abs_err=worst,
+                       undetermined=ties > 0)
+    emit(name, numbers)
+    return numbers
+
+
+def ilqr_profile(name: str, tick) -> dict:
+    """``torch.profiler`` (device activity) over one call of ``tick``: the
+    device busy time and the device operations, read from the trace's
+    records (``prof.events()`` takes a minute over a default tick's ~5e5)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = per_kernel.get(e.name(), (0, 0))
+            per_kernel[e.name()] = (n + 1, ns + e.duration_ns())
+    ops = sum(n for n, _ in per_kernel.values())
+    check(ops > 0, f"{name}: the trace holds no device operation")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:4]
+    return {"tick_wall_ms": wall_ms, "device_ops": ops,
+            "device_busy_ms": sum(ns for _, ns in per_kernel.values()) / 1e6,
+            "top": [[k[:60], n, ns / 1e6] for k, (n, ns) in top]}
+
+
+def ilqr_tick_profile(name: str, config: dict) -> dict:
+    """The device operations and busy ms of one tick at ``config``'s
+    max_iterations, from profiled ticks of one controller (after a warm-up
+    tick, from CartpoleEnv(seed=SEED)'s start) at ILQR_PROFILE_ITERS
+    iterations, on the line through them: the solve's trip counts are
+    fixed, so a tick's operations and busy time grow by an inner
+    iteration's at each iteration.  ``probes/ilqr_phases.py --full``
+    profiles whole ticks at the defaults, the line's check (PERF.md §6)."""
+    ctrl = make_controller("cuda", "ilqr", {**config, "max_iterations": ILQR_PROFILE_ITERS[-1]})
+    env_tick(ctrl)()
+    reads = {}
+    for n in reversed(ILQR_PROFILE_ITERS):
+        ctrl.optimizer.max_iterations = n
+        ctrl.optimizer._build()
+        reads[n] = ilqr_profile(f"{name}_{n}", env_tick(ctrl))
+    (n1, r1), (n2, r2) = sorted(reads.items())
+    full = config["max_iterations"]
+    numbers = {"iterations": full, "profiled": reads}
+    for key in ("device_ops", "device_busy_ms"):
+        per = (r2[key] - r1[key]) / (n2 - n1)
+        numbers[f"{key}_per_iteration"] = per
+        numbers[key] = r1[key] + per * (full - n1)
+    emit(f"profile_{name}", numbers)
+    return numbers
+
+
+def ilqr_turns(name: str, ctrls: dict, ticks: dict, cpu: MPCController) -> dict:
+    """``ticks[k]`` closed-loop ticks of each controller ``k`` in turn
+    (in_turns' loop), every kernel's count set to 0 just before and read
+    just after (iLQR launches none): the host p50/p99 of each.  Each
+    controller's last tick runs under ``torch.cuda.set_sync_debug_mode(
+    "warn")`` (its synchronizing calls, by the line that made them; each
+    controller's params are placed on the card before, so that none is
+    the first placement's), and the first controller's first step is held
+    to ``cpu``'s from the same state."""
+    import warnings
+
+    envs = {k: CartpoleEnv(batch_size=1, dt=DT, seed=SEED) for k in ctrls}
+    states = {k: env.reset()[0] for k, env in envs.items()}
+    host, syncs = {k: [] for k in ctrls}, {}
+    for c in ctrls.values():
+        c._assemble_params()
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+    for t in range(max(ticks.values())):
+        for k, c in ctrls.items():
+            if t >= ticks[k]:
+                continue
+            last = t == ticks[k] - 1
+            state0, s0 = c.optimizer.opt_state, states[k][0].copy()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if last:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    t0 = time.perf_counter()
+                    u = c.step(states[k][0])
+                    host[k].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            if last:
+                sites = {}
+                for w in caught:
+                    if "synchroniz" in str(w.message):
+                        site = f"{Path(w.filename).name}:{w.lineno}"
+                        sites[site] = sites.get(site, 0) + 1
+                syncs[k] = {"synchronizing_calls": sum(sites.values()), "by_site": sites,
+                            "in_the_solver": {s_: n for s_, n in sites.items()
+                                              if s_.startswith("ilqr.py")}}
+            if t == 0 and k == next(iter(ctrls)):
+                ilqr_tick_vs_cpu(f"{name}_{k}_step_vs_cpu", c, cpu, state=state0, s_now=s0,
+                                 card_out=(c.optimizer.u, c.optimizer.opt_state))
+            states[k], *_ = envs[k].step(u)
+    counts = {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
+    check(not any(counts.values()), f"{name}: iLQR launched a kernel {counts}")
+    numbers = {k: {"step_host_p50_ms": float(np.percentile(v, 50)),
+                   "step_host_p99_ms": float(np.percentile(v, 99)), "ticks": len(v),
+                   "sync_debug_tick": syncs[k]} for k, v in host.items()}
+    emit(name, numbers)
+    return numbers
+
+
+def ilqr_loop_vs_cpu(name: str, card: MPCController, cpu: MPCController, loop, start) -> dict:
+    """``loop(on_tick)`` (a counted closed loop of ``card`` from ``start``),
+    its first step held to ``cpu``'s from the same state: the card's read
+    from its optimizer after the first tick."""
+    opt = card.optimizer
+    state0, params0, first = opt.opt_state, card._assemble_params(), []
+
+    def on_tick(t, s, u, s_next):
+        if t == 0:
+            first.append((opt.u, opt.opt_state))
+
+    counts = loop(on_tick)
+    ilqr_tick_vs_cpu(f"{name}_step_vs_cpu", card, cpu, state=state0, params=params0,
+                     s_now=start, card_out=first[0])
+    return counts
+
+
+def ilqr_model_controllers(kind: str) -> tuple:
+    """Phase 100's cartpole pair (card, CPU) over the learned model or
+    option ``kind``: the CPU's weights are the card's, copied (its params
+    are the card's in every comparison)."""
+    specs = {"fast": FAST_SPEC, "mlp": MLP_SPEC, "gp": "gp", "residual": RES_SPEC,
+             "ensemble": ENS_SPEC, "value": "ODE"}
+    out = []
+    for device in ("cuda", "cpu"):
+        ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                             config={"optimizer": "ilqr", "controller_logging": False,
+                                     "device": device})
+        extra = {"predictor_config": {"params": nets_gp_params(4, 1)}} if kind == "gp" else {}
+        ctrl.configure(optimizer_name="ilqr", predictor_specification=specs[kind],
+                       optimizer_config=dict(ILQR_SMALL), cost_function_config=COST_WEIGHTS,
+                       **extra)
+        out.append(ctrl)
+    card, cpu = out
+    if kind == "residual":
+        seed_residual(card.optimizer.predictor.predictor)
+    if kind == "value":
+        net = plant_value_net("cartpole", torch.device("cuda"))
+        attach_value_terminal(card, net, FORMS_VALUE_SCALE)
+        attach_value_terminal(cpu, to_cpu(net), FORMS_VALUE_SCALE)
+    return card, cpu
+
+
+def ilqr_phases(gen) -> dict:
+    """Phases 98-100.  Returns the host and device numbers of phase 98's
+    paths."""
+    out = {}
+    # 98. The config_defaults block over cartpole/default.
+    defaults = {**load_optimizer_config("ilqr"), "seed": SEED}
+    check(defaults == ILQR_CONFIG, f"ILQR_CONFIG is not config_defaults' {defaults}")
+    ctrls = {label: make_controller("cuda", "ilqr", {**ILQR_CONFIG, **extra})
+             for label, extra in ILQR_PATHS.items()}
+    check(all(type(c.optimizer).__name__ == "ILQROptimizer" for c in ctrls.values()),
+          "the ilqr controllers did not take the iLQR optimizer")
+    out["profile"] = {label: ilqr_tick_profile(f"ilqr_{label}", {**ILQR_CONFIG, **extra})
+                      for label, extra in ILQR_PATHS.items()}
+    out["turns"] = ilqr_turns("ilqr_in_turns", ctrls, ILQR_TURN_TICKS,
+                              make_controller("cpu", "ilqr", ILQR_CONFIG))
+
+    # 99. The options on the card.
+    opt_cfg = {**ILQR_CONFIG, "max_iterations": ILQR_OPTION_ITERS}
+    for label, extra in (("constrained", {**ILQR_CONSTRAINED, "al_iterations": 4}),
+                         ("n_starts_6", {"n_starts": 6}),
+                         ("policy", {"initial_guess_policy": cartpole_policy})):
+        card = make_controller("cuda", "ilqr", {**opt_cfg, **extra})
+        cpu = make_controller("cpu", "ilqr", {**opt_cfg, **extra})
+        draws = card.optimizer.sample_draws(card.optimizer.opt_state)
+        ilqr_tick_vs_cpu(f"ilqr_{label}_step_vs_cpu", card, cpu, draws=draws)
+    # A failed solve (a NaN cost weight) from a plan that the card solved:
+    # the replay of its next control and the policy's tail.
+    card = make_controller("cuda", "ilqr", {**opt_cfg, "initial_guess_policy": cartpole_policy})
+    cpu = make_controller("cpu", "ilqr", {**opt_cfg, "initial_guess_policy": cartpole_policy})
+    s = torch.tensor(ILQR_START[None], device=gen.device)
+    _, solved, _ = card.optimizer.update(card.optimizer.opt_state, s, card._assemble_params())
+    bad = card._assemble_params()
+    bad = {**bad, "cost": {**bad["cost"], "dd_weight": torch.tensor(float("nan"),
+                                                                     device=gen.device)}}
+    numbers = ilqr_tick_vs_cpu("ilqr_replay_step_vs_cpu", card, cpu, state=solved, params=bad)
+    check(not numbers["solver_ok"] and numbers["replay_index"] == 1 and numbers["held"],
+          f"the failed solve was not replayed {numbers}")
+
+    # 100. The other costs and the other predictors at ILQR_SMALL, each
+    # loop's first step held to the CPU's.
+    launches = {}
+    for plant in NET_COSTS:
+        card = plant_controller(plant, "ilqr", ILQR_SMALL)
+        start = plant_states(plant, 1, gen)[0].cpu().numpy()
+
+        def loop(on_tick, card=card, plant=plant, start=start):
+            counts, _, numbers = plant_loop(f"ilqr_{plant}_loop", card, plant, ILQR_SMALL_TICKS,
+                                            {}, start=start, on_tick=on_tick)
+            emit(f"ilqr_{plant}_loop", numbers)
+            return counts
+
+        launches[plant] = ilqr_loop_vs_cpu(
+            f"ilqr_{plant}", card, plant_controller(plant, "ilqr", ILQR_SMALL, device="cpu"),
+            loop, start)
+    for kind in ("fast", "mlp", "gp", "residual", "ensemble", "value"):
+        card, cpu = ilqr_model_controllers(kind)
+        launches[kind] = ilqr_loop_vs_cpu(
+            f"ilqr_{kind}", card, cpu,
+            lambda on_tick, card=card, kind=kind: counted_loop(
+                f"ilqr_{kind}_loop", card, ILQR_SMALL_TICKS, {}, pole_check=False,
+                start=ILQR_START, on_tick=on_tick), ILQR_START)
+    out["launches"] = launches
+    return out
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -9690,6 +10010,8 @@ def main() -> None:
     nets_rows, nets_launches = nets_phases(gen)
     # 95-97. K8's six forms over the nine other costs.
     k8_rows, k8_launches = k8_phases(gen)
+    # 98-100. The iLQR family (no kernel of the port's).
+    ilqr_phases(gen)
 
     if "--starts" in sys.argv[1:]:
         start_sweep()

@@ -351,13 +351,14 @@ class BatchedMPCController(MPCController):
         )
         from control_toolkit_tpu_torch.optimizers.cem_naive_grad import CEMNaiveGradOptimizer
         from control_toolkit_tpu_torch.optimizers.cma_es import CMAESOptimizer
+        from control_toolkit_tpu_torch.optimizers.ilqr import ILQROptimizer
         from control_toolkit_tpu_torch.optimizers.mppi import RECURRENT_VALUE_FLEET
         from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarOptimizer
 
         # The JAX package runs these fleets as the vmapped per-slot step
         # alone (its batched dispatch has no kernel branch for them).
         vmapped_only = (CEMGMMOptimizer, CMAESOptimizer, CEMNaiveGradOptimizer,
-                        CEMGradBharadhwajOptimizer)
+                        CEMGradBharadhwajOptimizer, ILQROptimizer)
 
         opt = self.optimizer
         cf = getattr(self.cost_function, "cost_function", self.cost_function)

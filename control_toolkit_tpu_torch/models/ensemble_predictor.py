@@ -249,10 +249,16 @@ class EnsemblePredictor(Predictor):
         return self._mean_step
 
     def _mean_step(self, x, u, p):
-        net, E, B = p["net"], self.n_members, x.shape[0]
+        E, B = self.n_members, x.shape[0]
         if E == 1 or (B % E == 0 and B > 1):
-            return self._blocks(net, x, u)
-        return self._all_members(net, x, u).mean(dim=0)
+            return self._blocks(p["net"], x, u)
+        return self.member_mean_step(x, u, p)
+
+    def member_mean_step(self, x, u, p):
+        """``(x [B, S], u [B, U], params) -> [B, S]``: every row under the
+        members' mean transition, whatever B: the step that ``single_step``
+        takes for one row, row by row."""
+        return self._all_members(p["net"], x, u).mean(dim=0)
 
     def rollout(self, s0, Q, params=None):
         p = self.default_params() if params is None else params

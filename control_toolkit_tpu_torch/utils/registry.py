@@ -62,6 +62,7 @@ _BUILTIN_MODULES = (
     "control_toolkit_tpu_torch.optimizers.mppi_var",
     "control_toolkit_tpu_torch.optimizers.cem_naive_grad",
     "control_toolkit_tpu_torch.optimizers.cem_grad_bharadhwaj",
+    "control_toolkit_tpu_torch.optimizers.ilqr",
     "control_toolkit_tpu_torch.controllers.mpc",
     "control_toolkit_tpu_torch.controllers.batched_mpc",
     "control_toolkit_tpu_torch.costs.cartpole",
