@@ -173,13 +173,13 @@ cem_best_k 40, warmup off, seed 1) over K6:
     cw and the next session's seed; K6 also at a ragged B*K (3 sessions of
     K=1000), at H=130 against float64 and K1, its time at 32 and 128
     sessions, its registers and shared memory (``k6_cases``);
-37. 200 closed-loop ticks of a 32-session MPPI fleet, each slot against its
+37. 100 closed-loop ticks of a 32-session MPPI fleet, each slot against its
     own CartpoleEnv with its own pole length, a rotating quarter of the
     slots idle each tick, half the targets changed and slot 2's model
-    re-identified at tick 100 (examples/fleet_serving.py without ZeroMQ):
+    re-identified at tick 50 (examples/fleet_serving.py without ZeroMQ):
     one K4 launch a tick, idle slots bit for bit unchanged, every pole up,
     nothing rebuilt;
-38. the same 100 ticks for a 32-session fused CEM fleet (two K6 a tick);
+38. 100 ticks for a 32-session fused CEM fleet (two K6 a tick);
 39. one fleet update on the card against the same update on the CPU, fed
     the same draws and seeds, for each path;
 40. both paths timed at 32 and 128 sessions: host p50/p99, device span,
@@ -202,9 +202,9 @@ session b's hidden):
     (K13) and against the slots' pole lengths rolled by one (K12); its
     time at 32 and 128 sessions, its bounds, registers, spills and blocks
     an SM (``*_cols_cases``);
-42. 100 closed-loop ticks of each 32-session learned fleet as phase 37's
+42. 50 closed-loop ticks of each 32-session learned fleet as phase 37's
     (a rotating quarter idle and checked bit for bit, hidden included; at
-    tick 50 half the targets changed, new weight tensors, a GP hot-swap,
+    tick 25 half the targets changed, new weight tensors, a GP hot-swap,
     a re-sysid of slot 2's pole length for "ODE+res"): one launch a tick,
     nothing rebuilt; the slots that kept the pole up are counted, not
     required (MPPI over the committed GP loses it in both packages, see
@@ -230,9 +230,9 @@ or K14's:
     128 sessions of 32 rollouts and at 32 of 512, with its bounds (K8's
     and K9's tensor-core bound too), registers, spills and blocks an SM
     (``k*_cols``);
-46. 50 closed-loop ticks of each gradient fleet as phase 37's (a rotating
+46. 25 closed-loop ticks of each gradient fleet as phase 37's (a rotating
     quarter idle and checked bit for bit, Adam moments, counters, ages and
-    generators included; at tick 25 half the targets changed, slot 2's
+    generators included; at tick 12 half the targets changed, slot 2's
     pole length re-identified, new MLP weight tensors, a new residual
     install, a GP hot-swap): outer_its (gradient_steps) launches of the
     gradient form and one of the cost form a tick, nothing rebuilt, every
@@ -590,6 +590,28 @@ and K8's six forms over the same nine costs (csrc/neural_grad_plants_<group>.cu)
     the valued rpgd-tf fleet over the MLP) over every cost at the main path's
     width, 2 ticks each.
 
+Closed-loop evaluation (control_toolkit_tpu_torch/evaluation), the
+batched controller's per-slot step and fleet checkpoints, after the iLQR
+phases 98-100:
+101. ``ClosedLoop.run`` of the flagship for 100 ticks with actuator noise,
+    bit for bit the script's own tick loop (``own_loop``), exactly one K2
+    launch a tick, a second episode (``run_device``) under
+    ``torch.cuda.set_sync_debug_mode("error")``, its device and host ms a
+    tick; 20 ticks over the committed GRU (K13), the hidden written back;
+102. ``run_batch``'s kernel sweeps of 32 episodes at the fleets' shapes
+    (K4, K6, K7- and K1-cols, K11-cols over mlp-64-64): one launch a tick
+    (an iteration) for all episodes, ms a tick, each sweep's first tick its
+    fleet's, bit for bit, and held to the CPU port's as phases 39, 43 and 47
+    hold the fleets; a per_slot_cost sweep of 4 weights x 8 episodes equal
+    row for row to unswept sweeps;
+103. 8-slot fleets of cem-gmm-tf, modular cem-tf and rpgd-tf with warmup at
+    K=16384, H=50, which take the per-slot step: 3 ticks, 3 slots idle on
+    the second, each active slot equal to its single-session controller bit
+    for bit, the idle ones unchanged, the launches the single sessions';
+104. ``save_fleet`` / ``load_fleet`` of an rpgd-tf fleet (K7-cols) and an
+    MPPI fleet over the GRU (K13-cols): a fresh fleet loaded from the
+    checkpoint steps 3 ticks equal bit for bit to the uninterrupted one.
+
 Float32 products on the card run in full float32: the script sets
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.
 allow_tf32`` to False before any work, so the plain versions' matmuls are
@@ -657,6 +679,7 @@ from control_toolkit_tpu_torch.environments.pendulum import PendulumEnv
 from control_toolkit_tpu_torch.environments.pointmass import PointMassEnv
 from control_toolkit_tpu_torch.environments.quadrotor2d import Quadrotor2DEnv
 from control_toolkit_tpu_torch.environments.quadrotor3d import Quadrotor3DEnv
+from control_toolkit_tpu_torch.evaluation import ClosedLoop
 from control_toolkit_tpu_torch.models.dynamics import _acrobot_derivs
 from control_toolkit_tpu_torch.models.gp_predictor import fit_gp_dynamics
 from control_toolkit_tpu_torch.models.networks import gru_apply, gru_init_state, load_net
@@ -748,7 +771,9 @@ from control_toolkit_tpu_torch.utils.convert import (
     gradient_state_from_numpy, mppi_state_from_numpy, rpgd_state_from_numpy,
 )
 from control_toolkit_tpu_torch.utils.config import load_optimizer_config
+from control_toolkit_tpu_torch.utils.checkpoint import _as_array, _flatten, load_fleet, save_fleet
 from control_toolkit_tpu_torch.utils.device import place, resolve_device
+from control_toolkit_tpu_torch.utils.rng import make_generator
 
 K, H, PERIOD, SEED, DT = 16384, 50, 10, 0, 0.02
 TICKS, MODULAR_TICKS, RETARGET_AT, NEW_TARGET = 200, 50, 100, 0.1
@@ -971,7 +996,7 @@ FLEET_CEM_CONFIG = {"seed": 1, "mpc_timestep": DT, "mpc_horizon": FLEET_H,
                     "num_rollouts": FLEET_K, "cem_outer_it": 2, "cem_best_k": 40,
                     "cem_initial_action_stdev": 0.5, "cem_stdev_min": 0.01, "warmup": False,
                     "fully_fused": True}
-FLEET_MPPI_TICKS, FLEET_CEM_TICKS, FLEET_RETARGET_AT, FLEET_TIMING_TICKS = 200, 100, 100, 50
+FLEET_MPPI_TICKS, FLEET_CEM_TICKS, FLEET_RETARGET_AT, FLEET_TIMING_TICKS = 100, 100, 50, 50
 FLEET_MUTANT_TILE = 128
 # The learned fleets: plain MPPI at the fleet's configuration over each
 # learned model of the single-session phases (the committed MLP, GRU and
@@ -984,7 +1009,7 @@ FLEET_MUTANT_TILE = 128
 # install) at LEARNED_SWAP_AT.
 LEARNED_FLEETS = {"mlp": (MLP_SPEC, ()), "gru": (GRU_SPEC, ()), "lstm": (LSTM_SPEC, ()),
                   "residual": (RES_SPEC, ("L",)), "gp": (GP_SPEC, ())}
-LEARNED_RAGGED_K, LEARNED_FLEET_TICKS, LEARNED_SWAP_AT = 120, 100, 50
+LEARNED_RAGGED_K, LEARNED_FLEET_TICKS, LEARNED_SWAP_AT = 120, 50, 25
 # The gradient fleets, bench_scale.py:367-390's configurations: rpgd-tf
 # (seed 7, outer_its 2, lr 0.05, keep 0.25, resamp_per 10, inducing period
 # 10, warmup off) and gradient-tf (seed 9, 5 steps, gradmax_clip 5) over the
@@ -1027,7 +1052,7 @@ GRAD_COLS_B, GRAD_COLS_KS, GRAD_COLS_SHAPES = 32, 100, ((128, 32), (32, 512))
 # K1's and K7's template instances: the single-session kernel (Rows false)
 # and the session-row form (Rows true), as their mangled names end.
 SINGLE, ROWS_FORM = "Lb0E", "Lb1E"
-GRAD_FLEET_TICKS, GRAD_FLEET_SWAP_AT = 50, 25
+GRAD_FLEET_TICKS, GRAD_FLEET_SWAP_AT = 25, 12
 # The PETS ensemble (bench_scale.py:499 build_ensemble_mppi, used at :1307,
 # and :1419's rpgd-tf, both seed 3): MPPI (SQRTRHOINV 0.05) and rpgd-tf
 # over the committed bootstrap ensemble of four mlp-32-32 members
@@ -9273,6 +9298,395 @@ def ilqr_phases(gen) -> dict:
     return out
 
 
+# ---- closed-loop evaluation, the per-slot step and fleet checkpoints -------------
+# Phase 101: ClosedLoop.run of the flagship (K=16384, H=50) for EVAL_TICKS
+# from CartpoleEnv(seed=SEED)'s start with actuator noise EVAL_NOISE, and of
+# MPPI over the committed GRU for EVAL_GRU_TICKS.  Phase 102: run_batch's
+# kernel sweeps of SWEEP_N episodes at the fleets' shapes for SWEEP_TICKS,
+# and a per_slot_cost sweep of SWEEP_WEIGHTS x SWEEP_N / 4 episodes.  Phase
+# 103: PER_SLOT_B-slot fleets that take the per-slot step, PER_SLOT_TICKS
+# ticks with PER_SLOT_FROZEN idle on the second.  Phase 104: save_fleet /
+# load_fleet of two fleets, RESUME_TICKS ticks after the load.
+EVAL_TICKS, EVAL_GRU_TICKS, EVAL_NOISE, EVAL_NOISE_SEED = 100, 20, 0.05, 4
+# The host ms a tick of EVAL_EPISODES episodes of EVAL_PROFILE_TICKS (their
+# p50 and p99), and one such episode profiled; a sweep likewise over
+# SWEEP_PROFILE_TICKS.
+EVAL_EPISODES, EVAL_PROFILE_TICKS, SWEEP_PROFILE_TICKS = 10, 20, 5
+SWEEP_N, SWEEP_TICKS, SWEEP_WEIGHTS = 32, 20, (60.0, 120.0, 240.0, 480.0)
+# sweep kind: (optimizer, config, spec, the fleet that holds its first tick
+# against the CPU's, its launches a tick)
+SWEEPS = {
+    "ode": ("mppi", FLEET_MPPI_CONFIG, "ODE", {"mppi_cost_cols": 1}),
+    "cem-fused": ("cem-tf", FLEET_CEM_CONFIG, "ODE",
+                  {"fused_cem_cols": FLEET_CEM_CONFIG["cem_outer_it"]}),
+    "rpgd": ("rpgd-tf", GRAD_RPGD_CONFIG, "ODE",
+             {"grad_cost_rollout_cols": GRAD_RPGD_CONFIG["outer_its"], "cost_rollout_cols": 1}),
+    "neural": ("mppi", FLEET_MPPI_CONFIG, MLP_SPEC, {"neural_cost_rollout_cols": 1}),
+}
+PER_SLOT_B, PER_SLOT_TICKS, PER_SLOT_FROZEN = 8, 3, (1, 4, 6)
+PER_SLOT_FLEETS = {"cem_gmm": ("cem-gmm-tf", GMM_CONFIG),
+                   "cem_modular": ("cem-tf", CEM_CONFIG),
+                   "rpgd_warmup": ("rpgd-tf", {**RPGD_CONFIG, "warmup": True})}
+RESUME_TICKS = 3
+
+
+def zero_counts() -> None:
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {kernel: wrapper.launches for kernel, wrapper in COUNTED.items()}
+
+
+def expect_counts(name: str, counts: dict, expected: dict) -> None:
+    check(counts == {kernel: expected.get(kernel, 0) for kernel in COUNTED},
+          f"{name}: kernel launches {counts}, expected {expected}")
+
+
+def own_loop(ctrl: MPCController, env, s0: np.ndarray, ticks: int, noise=None,
+             scale: float = 0.0) -> tuple:
+    """The script's own tick loop: ``ctrl.step`` on the host state, the
+    actuator noise, the clip and ``env.step_dynamics`` on the card; the
+    states, controls and final state as card tensors."""
+    device = ctrl.device
+    low = torch.as_tensor(env.action_low, device=device)
+    high = torch.as_tensor(env.action_high, device=device)
+    s, states, controls = torch.as_tensor(s0, device=device)[None], [], []
+    for t in range(ticks):
+        u = torch.as_tensor(ctrl.step(s[0].cpu().numpy()), device=device)[None]
+        if noise is not None:
+            u = u + scale * noise[t][None]
+        u = torch.clamp(u, low, high)
+        states.append(s[0])
+        controls.append(u[0])
+        s = env.step_dynamics(s, u, env.dt)
+    return torch.stack(states), torch.stack(controls), s[0]
+
+
+def closed_loop_run_phase(device: str = "cuda") -> dict:
+    """Phase 101: ``ClosedLoop.run`` of the flagship: bit for bit the
+    script's own tick loop from the same state, optimizer generator and
+    actuator noise; exactly EVAL_TICKS K2 launches (counted from 0); a
+    second episode (``run_device``) under ``set_sync_debug_mode("error")``:
+    no synchronizing call; its device and host ms a tick (CUDA events over
+    the episode, and the host's wall to its end over the ticks).  Then MPPI
+    over the committed GRU (K13): its run against its own loop, the
+    hidden written back equal to the loop's predictor's."""
+    env = CartpoleEnv(batch_size=1, dt=DT, seed=SEED)
+    s0 = env.reset()[0][0]
+    device = resolve_device(device)
+    noise = torch.randn((EVAL_TICKS, 1), generator=make_generator(EVAL_NOISE_SEED, device),
+                        device=device)
+    ref_states, ref_controls, ref_final = own_loop(make_controller(str(device)), env, s0,
+                                                   EVAL_TICKS, noise, EVAL_NOISE)
+    ctrl = make_controller(str(device))
+    loop = ClosedLoop(ctrl, env, actuator_noise=EVAL_NOISE, noise_seed=EVAL_NOISE_SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = loop.run(s0, EVAL_TICKS)
+    run_wall = time.perf_counter() - t0
+    run_counts = read_counts()
+    expect_counts("eval_run", run_counts, {"mppi_cost": EVAL_TICKS})
+    same = (np.array_equal(out["states"], ref_states.cpu().numpy())
+            and np.array_equal(out["controls"], ref_controls.cpu().numpy())
+            and np.array_equal(out["final_state"], ref_final.cpu().numpy()))
+    # The raw episode, timed, from where the first one ended.
+    params = ctrl._assemble_params()
+    s_next = torch.as_tensor(out["final_state"], device=device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        episode = loop.run_device(ctrl.optimizer.opt_state, s_next, params, EVAL_TICKS)
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.synchronize()
+    wall_s = time.perf_counter() - t0
+    stage = episode[4]
+    # Host ms a tick: each of EVAL_EPISODES episodes' wall to its end over
+    # its ticks; then one episode under the profiler.
+    per_tick = []
+    for _ in range(EVAL_EPISODES):
+        t1 = time.perf_counter()
+        loop.run_device(ctrl.optimizer.opt_state, s_next, params, EVAL_PROFILE_TICKS)
+        torch.cuda.synchronize()
+        per_tick.append((time.perf_counter() - t1) * 1e3 / EVAL_PROFILE_TICKS)
+    prof = profile_calls("eval_run", lambda: loop.run_device(ctrl.optimizer.opt_state, s_next,
+                                                             params, EVAL_PROFILE_TICKS),
+                         1, EVAL_PROFILE_TICKS)
+    numbers = {"ticks": EVAL_TICKS, "equal_to_own_loop": same, "k2_launches": EVAL_TICKS,
+               "synchronizing_calls_in_episode": 0,
+               "device_ms_per_tick": start.elapsed_time(end) / EVAL_TICKS,
+               "host_ms_per_tick": wall_s * 1e3 / EVAL_TICKS,
+               "host_enqueue_ms_per_tick": enqueue_s * 1e3 / EVAL_TICKS,
+               "run_ms_per_tick": run_wall * 1e3 / EVAL_TICKS,
+               "episode_host_ms_per_tick_p50": float(np.percentile(per_tick, 50)),
+               "episode_host_ms_per_tick_p99": float(np.percentile(per_tick, 99)),
+               "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+               "device_ops_per_tick": prof["device_ops_per_tick"],
+               "mean_cost": out["mean_cost"],
+               "max_abs_angle": float(np.abs(out["states"][:, 2]).max()),
+               "second_episode_finite": bool(torch.isfinite(stage).all())}
+    emit("eval_run", numbers)
+    check(same, f"eval_run: ClosedLoop.run differs from the script's own loop {numbers}")
+    check(numbers["max_abs_angle"] < 0.5 and numbers["second_episode_finite"],
+          f"eval_run: the flagship's episode did not hold the pole {numbers}")
+
+    ref = make_controller(str(device), spec=GRU_SPEC)
+    ref_states, ref_controls, _ = own_loop(ref, env, LEARNED_START, EVAL_GRU_TICKS)
+    gru = make_controller(str(device), spec=GRU_SPEC)
+    gloop = ClosedLoop(gru, env, actuator_noise=0.0)
+    zero_counts()
+    gout = gloop.run(LEARNED_START, EVAL_GRU_TICKS)
+    counts = read_counts()
+    expect_counts("eval_run_gru", counts, {"recurrent_cost_rollout": EVAL_GRU_TICKS})
+    written = gru.optimizer.predictor.predictor.hidden
+    hidden_same = all(torch.equal(a, b) for a, b in
+                      zip(written, ref.optimizer.predictor.predictor.hidden))
+    gnumbers = {"ticks": EVAL_GRU_TICKS,
+                "equal_to_own_loop": bool(np.array_equal(gout["controls"],
+                                                          ref_controls.cpu().numpy())),
+                "hidden_written_back": hidden_same,
+                "hidden_nonzero": bool(any(torch.any(h != 0.0) for h in written))}
+    emit("eval_run_gru", gnumbers)
+    check(all(gnumbers.values()), f"eval_run_gru: {gnumbers}")
+    return {"eval_run": run_counts, "eval_run_gru": counts}
+
+
+def sweep_loop(kind: str, device: str, weights: dict = None) -> ClosedLoop:
+    optimizer, config, spec, _ = SWEEPS[kind]
+    ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
+                         config={"optimizer": optimizer, "controller_logging": False,
+                                 "device": device})
+    ctrl.configure(optimizer_name=optimizer, predictor_specification=spec,
+                   optimizer_config=config, cost_function_config={**COST_WEIGHTS,
+                                                                  **(weights or {})})
+    return ClosedLoop(ctrl, CartpoleEnv(batch_size=1, dt=DT, seed=SEED), actuator_noise=0.0)
+
+
+def sweep_first_tick_vs_cpu(kind: str, s0s: np.ndarray, first_u: np.ndarray, gen,
+                            device: str = "cuda") -> None:
+    """A sweep's first tick is its fleet's: the fleet of SWEEP_N slots over
+    the same configuration (slot n's generator is episode n's) steps the
+    same controls, bit for bit; then that fleet's first update against the
+    CPU port's, from the same states and draws, as phases 39, 43 and 47 hold
+    it (MPPI and K6: ``fleet_update_vs_cpu``; K11: ``learned_fleet_update_vs_cpu``;
+    RPGD: ``grad_fleet_update_vs_cpu``, Adam on the keep branch)."""
+    optimizer, config, spec, _ = SWEEPS[kind]
+    B = SWEEP_N
+
+    def fleet(device):
+        return fleet_controller(device, optimizer, config, B, spec, per_slot_dyn=())
+
+    u = fleet(device).step_batch(s0s)
+    check(np.array_equal(u, first_u), f"sweep {kind}: its first tick is not its fleet's")
+    s = torch.as_tensor(s0s, device=device)[:, None, :]
+    if kind == "neural":
+        learned_fleet_update_vs_cpu("mlp", fleet(device), gen)
+    elif kind == "rpgd":
+        grad_fleet_update_vs_cpu("rpgd_ode", fleet(device), gen, cpu=fleet("cpu"), s=s,
+                                 per_slot_dyn=())
+    elif kind == "ode":
+        cem = fleet_controller(device, "cem-tf", FLEET_CEM_CONFIG, B, per_slot_dyn=())
+        fleet_update_vs_cpu(fleet(device), cem, gen,
+                            cpus=(fleet("cpu"), fleet_controller("cpu", "cem-tf",
+                                                                 FLEET_CEM_CONFIG, B,
+                                                                 per_slot_dyn=())),
+                            s=s, per_slot_dyn=(), name="sweep_update_vs_cpu")
+
+
+def kernel_sweeps_phase(gen, device: str = "cuda") -> dict:
+    """Phase 102: ``run_batch``'s kernel sweeps of SWEEP_N episodes
+    (``ode``: K4; ``cem-fused``: K6; ``rpgd``: K7- and K1-cols; ``neural``:
+    K11-cols over mlp-64-64), each counted from 0: one session-row launch a
+    tick (an iteration) for all episodes; ms a tick; each sweep's first
+    tick held to the CPU port's (``sweep_first_tick_vs_cpu``).  Then a
+    per_slot_cost sweep of SWEEP_WEIGHTS (dd_weight) x SWEEP_N / 4 episodes
+    on K4's rows: row n equal bit for bit to an unswept sweep whose cost
+    holds config n's weight."""
+    rng = np.random.default_rng(SEED)
+    s0s = rng.uniform(-0.05, 0.05, (SWEEP_N, 4)).astype(np.float32)
+    runs = {}
+    for kind, (_, _, _, per_tick) in SWEEPS.items():
+        loop = sweep_loop(kind, device)
+        check(loop._sweep_kind() == kind, f"sweep {kind}: took {loop._sweep_kind()}")
+        loop.run_batch(s0s, 1)  # builds the batched step
+        zero_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = loop.run_batch(s0s, SWEEP_TICKS, return_trajectories=True)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(f"sweep_{kind}", counts,
+                      {k: n * SWEEP_TICKS for k, n in per_tick.items()})
+        runs[f"sweep_{kind}"] = counts
+        numbers = {"episodes": SWEEP_N, "ticks": SWEEP_TICKS,
+                   "launches_a_tick": {k: n for k, n in per_tick.items()},
+                   "host_ms_per_tick": wall * 1e3 / SWEEP_TICKS,
+                   "device_ms_per_tick": start.elapsed_time(end) / SWEEP_TICKS,
+                   "episodes_per_s": SWEEP_N * SWEEP_TICKS / wall,
+                   "finite": bool(np.isfinite(out["stage_costs"]).all()),
+                   "mean_cost": float(out["mean_costs"].mean())}
+        emit(f"sweep_{kind}", numbers)
+        check(numbers["finite"], f"sweep {kind}: non-finite costs {numbers}")
+        per_tick = []
+        for _ in range(EVAL_EPISODES):
+            t1 = time.perf_counter()
+            loop.run_batch(s0s, SWEEP_PROFILE_TICKS)
+            per_tick.append((time.perf_counter() - t1) * 1e3 / SWEEP_PROFILE_TICKS)
+        prof = profile_calls(f"sweep_{kind}", lambda: loop.run_batch(s0s, SWEEP_PROFILE_TICKS),
+                             1, SWEEP_PROFILE_TICKS)
+        emit(f"sweep_{kind}_host", {"host_ms_per_tick_p50": float(np.percentile(per_tick, 50)),
+                                    "host_ms_per_tick_p99": float(np.percentile(per_tick, 99)),
+                                    "device_busy_ms_per_tick": prof["device_busy_ms_per_tick"],
+                                    "device_ops_per_tick": prof["device_ops_per_tick"]})
+        first = loop.run_batch(s0s, 1, return_trajectories=True)["controls"][:, 0]
+        sweep_first_tick_vs_cpu(kind, s0s, first, gen, device)
+
+    per = SWEEP_N // len(SWEEP_WEIGHTS)
+    weights = np.repeat(np.asarray(SWEEP_WEIGHTS, np.float32), per)
+    loop = sweep_loop("ode", device)
+    swept = loop.run_batch(s0s, RESUME_TICKS, return_trajectories=True,
+                           sweep_params={"cost": {"dd_weight": weights}})
+    check(("ode", SWEEP_N, (), ("dd_weight",)) in loop._kernel_steps,
+          "the per_slot_cost sweep did not ride K4's rows")
+    equal = []
+    for j, w in enumerate(SWEEP_WEIGHTS):
+        ref = sweep_loop("ode", device, {"dd_weight": w}).run_batch(s0s, RESUME_TICKS,
+                                                                   return_trajectories=True)
+        rows = slice(j * per, (j + 1) * per)
+        equal.append(bool(np.array_equal(swept["controls"][rows], ref["controls"][rows])
+                          and np.array_equal(swept["stage_costs"][rows],
+                                             ref["stage_costs"][rows])))
+    emit("sweep_per_slot_cost", {"weights": list(SWEEP_WEIGHTS), "episodes_a_weight": per,
+                                 "rows_equal": equal})
+    check(all(equal), f"the per_slot_cost sweep's rows differ from unswept sweeps {equal}")
+    return runs
+
+
+def state_leaves(state) -> list:
+    """A per-slot state's leaves on the host (a generator by its state)."""
+    return [_as_array(leaf).copy() for _, leaf in _flatten(state)]
+
+
+def per_slot_phase(device: str = "cuda") -> dict:
+    """Phase 103: PER_SLOT_B-slot fleets of cem-gmm-tf, modular cem-tf and
+    rpgd-tf with warmup over the ODE at K=16384, H=50, which take the
+    per-slot step, for PER_SLOT_TICKS ticks with PER_SLOT_FROZEN idle on the
+    second: each active slot's control equal bit for bit to its
+    single-session controller's from the slot's state; a frozen slot
+    commands 0 and keeps its state and generator; the fleet's launches (from
+    0) equal the single-session steps' (from 0)."""
+    runs = {}
+    for label, (optimizer, config) in PER_SLOT_FLEETS.items():
+        fleet = fleet_controller(device, optimizer, config, PER_SLOT_B, per_slot_dyn=())
+        single = make_controller(device, optimizer, config)
+        check(fleet._per_slot, f"per_slot {label}: took a kernel step")
+        opt = single.optimizer
+        refs = [opt._init_state(fleet._slot_generator(i)) for i in range(PER_SLOT_B)]
+        rng = np.random.default_rng(SEED + 3)
+        masks = [np.ones(PER_SLOT_B, bool) for _ in range(PER_SLOT_TICKS)]
+        masks[1][list(PER_SLOT_FROZEN)] = False
+        fleet_counts = dict.fromkeys(COUNTED, 0)
+        single_counts = dict.fromkeys(COUNTED, 0)
+        equal, kept = True, True
+        t0 = time.perf_counter()
+        for mask in masks:
+            s = rng.uniform(-0.05, 0.05, (PER_SLOT_B, 4)).astype(np.float32)
+            before = [state_leaves(st) for st in fleet.slot_states]
+            zero_counts()
+            u = fleet.step_batch(s, mask)
+            for k, n in read_counts().items():
+                fleet_counts[k] += n
+            zero_counts()
+            for i in range(PER_SLOT_B):
+                if not mask[i]:
+                    after = state_leaves(fleet.slot_states[i])
+                    kept &= bool(np.all(u[i] == 0.0)) and all(
+                        np.array_equal(a, b) for a, b in zip(after, before[i]))
+                    continue
+                opt.opt_state = refs[i]
+                equal &= bool(np.array_equal(u[i], single.step(s[i])))
+                refs[i] = opt.opt_state
+            for k, n in read_counts().items():
+                single_counts[k] += n
+        seconds = time.perf_counter() - t0
+        numbers = {"slots": PER_SLOT_B, "ticks": PER_SLOT_TICKS, "frozen": list(PER_SLOT_FROZEN),
+                   "equal_to_single": equal, "frozen_kept": kept,
+                   "launches": {k: n for k, n in fleet_counts.items() if n},
+                   "single_launches": {k: n for k, n in single_counts.items() if n},
+                   "seconds": seconds}
+        emit(f"per_slot_{label}", numbers)
+        check(equal and kept and fleet_counts == single_counts and any(fleet_counts.values()),
+              f"per_slot {label}: {numbers}")
+        runs[f"per_slot_{label}"] = fleet_counts
+    return runs
+
+
+def checkpoint_phase(device: str = "cuda") -> dict:
+    """Phase 104: ``save_fleet`` / ``load_fleet`` of an rpgd-tf fleet over
+    the ODE (K7- and K1-cols, FLEET_B slots, per-slot pole lengths) and an
+    MPPI fleet over the committed GRU (K13-cols, its slots' hiddens), after
+    two ticks (a slot idle on the second): a fresh fleet loaded from the
+    checkpoint steps the next RESUME_TICKS ticks equal bit for bit to the
+    uninterrupted fleet (its launches counted from 0)."""
+    runs = {}
+    cases = {"rpgd": lambda: grad_fleet(device, "rpgd_ode", FLEET_B),
+             "gru": lambda: learned_fleet(device, "gru", FLEET_B)}
+    rng = np.random.default_rng(SEED + 4)
+    states = [rng.uniform(-0.05, 0.05, (FLEET_B, 4)).astype(np.float32)
+              for _ in range(2 + RESUME_TICKS)]
+    idle = np.ones(FLEET_B, bool)
+    idle[3] = False
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        for label, build in cases.items():
+            fleet = build()
+            if "L" in fleet.slot_dyn:
+                fleet.update_slot_dyn(1, {"L": 0.6})
+            fleet.step_batch(states[0])
+            fleet.step_batch(states[1], idle)
+            path = Path(tmp) / f"{label}.npz"
+            save_fleet(path, fleet)
+            go_on = [fleet.step_batch(s) for s in states[2:]]
+            resumed = build()
+            load_fleet(path, resumed)
+            zero_counts()
+            again = [resumed.step_batch(s) for s in states[2:]]
+            counts = read_counts()
+            same = bool(np.array_equal(np.stack(go_on), np.stack(again)))
+            numbers = {"slots": FLEET_B, "ticks_after_load": RESUME_TICKS, "equal": same,
+                       "launches": {k: n for k, n in counts.items() if n},
+                       "bytes": path.stat().st_size}
+            emit(f"checkpoint_{label}", numbers)
+            check(same and any(counts.values()), f"checkpoint {label}: {numbers}")
+            runs[f"checkpoint_{label}"] = counts
+    return runs
+
+
+def eval_phases(gen, device: str = "cuda") -> dict:
+    """Phases 101-104; each one's launch counts (from 0), by loop."""
+    t0 = time.perf_counter()
+    runs = closed_loop_run_phase(device)
+    seconds = {"101": time.perf_counter() - t0}
+    runs.update(kernel_sweeps_phase(gen, device))
+    seconds["102"] = time.perf_counter() - t0 - sum(seconds.values())
+    runs.update(per_slot_phase(device))
+    seconds["103"] = time.perf_counter() - t0 - sum(seconds.values())
+    runs.update(checkpoint_phase(device))
+    seconds["104"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit("eval_phases_seconds", seconds)
+    return runs
+
+
 def start_sweep() -> None:
     """``--starts``: MPPI and rpgd-tf over the committed MLP (200 ticks with
     the target change) and MPPI over the committed GP (200 ticks), from
@@ -9308,31 +9722,41 @@ def env_tick(ctrl: MPCController):
 def profile_ticks(name: str, tick) -> None:
     """``torch.profiler`` over PROFILE_TICKS calls of ``tick`` after
     PROFILE_WARMUP: device busy time and device operations per tick."""
+    for _ in range(PROFILE_WARMUP):
+        tick()
+    profile_calls(name, tick, PROFILE_TICKS, 1)
+
+
+def profile_calls(name: str, fn, calls: int, ticks_a_call: int) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn``, each of
+    ``ticks_a_call`` ticks: the loop's wall, device busy time and device
+    operations a tick, the busy share and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(PROFILE_WARMUP):
-        tick()
+    ticks = calls * ticks_a_call
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_TICKS):
-            tick()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TICKS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
     per_kernel = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             n, us = per_kernel.get(e.name, (0, 0.0))
             per_kernel[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    busy_ms = sum(us for _, us in per_kernel.values()) / 1e3 / PROFILE_TICKS
+    busy_ms = sum(us for _, us in per_kernel.values()) / 1e3 / ticks
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    emit(f"profile_{name}", {
-        "ticks": PROFILE_TICKS, "loop_wall_ms_per_tick": wall_ms,
+    numbers = {
+        "ticks": ticks, "loop_wall_ms_per_tick": wall_ms,
         "device_busy_ms_per_tick": busy_ms, "busy_share": busy_ms / wall_ms,
-        "device_ops_per_tick": sum(n for n, _ in per_kernel.values()) / PROFILE_TICKS,
-        "top": [[k[:60], n / PROFILE_TICKS, us / 1e3 / PROFILE_TICKS] for k, (n, us) in top],
-    })
+        "device_ops_per_tick": sum(n for n, _ in per_kernel.values()) / ticks,
+        "top": [[k[:60], n / ticks, us / 1e3 / ticks] for k, (n, us) in top],
+    }
+    emit(f"profile_{name}", numbers)
+    return numbers
 
 
 def main() -> None:
@@ -10012,6 +10436,11 @@ def main() -> None:
     k8_rows, k8_launches = k8_phases(gen)
     # 98-100. The iLQR family (no kernel of the port's).
     ilqr_phases(gen)
+    # 101-104. Closed-loop evaluation, run_batch's kernel sweeps, the
+    # per-slot fleet step and fleet checkpoints.
+    for counts in eval_phases(gen).values():
+        for kernel in COUNTED:
+            launches[kernel] += counts[kernel]
 
     if "--starts" in sys.argv[1:]:
         start_sweep()

@@ -2,24 +2,19 @@
 (counterpart of control_toolkit_tpu/controllers/batched_mpc.py).
 
 One card serves B independent MPC sessions (robots, simulator instances,
-clients) with one kernel launch a tick for all of them.  Slots are fully
-independent: each has its own random stream (a generator seeded with
-``utils/rng.py:slot_seed(seed, i)``, the counterpart of ``fold_in(key,
-i)``), warm start, attributes and, with ``per_slot_dyn``, its own dynamics
-constants; a boolean mask freezes the slots that have no pending request,
-so an idle session keeps its warm start and its random stream exactly.
+clients).  Slots are fully independent: each has its own random stream (a
+generator seeded with ``utils/rng.py:slot_seed(seed, i)``, the counterpart
+of ``fold_in(key, i)``), warm start, attributes and, with
+``per_slot_dyn``, its own dynamics constants; a boolean mask freezes the
+slots that have no pending request, so an idle session keeps its warm
+start and its random stream exactly.
 
-The session kinds ported, each over its batched kernel:
+The session kinds with a batched kernel step take one launch a tick (an
+iteration) for all B sessions (``FleetGates``, in this order):
 
 * semi-fused MPPI over an ODE model: one K4 launch a tick
   (``MPPIOptimizer._make_batched_semi_fused_step``), with a learned value
   terminal (``attach_value_terminal``) one of K4's emit_terminal form;
-* fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
-  outer iteration (``CEMOptimizer._make_batched_fused_cem_step``);
-* semi-fused ``mppi-var`` over an ODE model: MPPI's K4 launch a tick on
-  each slot's draws scaled by its own adaptive stdev, then each session's
-  stdev step (``MPPIVarOptimizer._make_batched_var_step``), with a learned
-  value terminal on K4's emit_terminal form;
 * plain MPPI over a learned model, one launch a tick of its kernel's
   session-row form: an MLP (K11), a GRU or LSTM (K13, each session's
   rollouts from its own hidden), ``"ODE+res"`` (K12, ``per_slot_dyn``
@@ -31,26 +26,37 @@ The session kinds ported, each over its batched kernel:
   MLP, ``"ODE+res"`` or a sparse GP: an Adam iteration is one launch of
   the session-row form of K7, K8, K9 or K10 and the final scoring one of
   K1's, K11's, K12's or K14's (``RPGDOptimizer._make_batched_rpgd_step``,
-  ``GradientOptimizer._make_batched_gradient_step``); ``per_slot_dyn``
-  over an ODE's or the residual base's constants.
+  ``GradientOptimizer._make_batched_gradient_step``), a plain tanh-MLP
+  value terminal in their value_spec forms; ``per_slot_dyn`` over an
+  ODE's or the residual base's constants;
+* fully-fused CEM (``fully_fused: true``, warmup off): one K6 launch an
+  outer iteration (``CEMOptimizer._make_batched_fused_cem_step``);
+* semi-fused ``mppi-var`` over an ODE model: MPPI's K4 launch a tick on
+  each slot's draws scaled by its own adaptive stdev, then each session's
+  stdev step (``MPPIVarOptimizer._make_batched_var_step``).
+
+Every other configuration takes the per-slot step, the counterpart of the
+JAX package's ``jax.vmap(step_fn)`` and ``freeze`` (JAX
+``batched_mpc.py:391-401``): each active slot's single-session step
+``step_fn(state_b, s_b, {"dyn": d_b, "cost": cost, "attrs": a_b})`` in
+turn, over its own optimizer state (``slot_states`` a list of B states),
+launching the kernels that slot's own controller would.  A frozen slot is
+not stepped: its state and its generator stay exactly as they were.  That
+serves modular CEM, warmup, every ``cem-gmm``, ``cma-es``,
+``cem-naive-grad``, ``cem-grad-bharadhwaj`` and ``ilqr`` fleet, a
+gradient fleet over a recurrent net or an ensemble, any fleet over an
+ensemble, a valued CEM or recurrent MPPI fleet, ``mppi-optimize``,
+``bounded_update``, a modular ``mppi-var`` fleet, ``force_scan``, logging
+and the optimal trajectory.  B single-session steps a tick is the
+function, not a design to keep (ROADMAP B).
 
 A recurrent model's per-slot hidden (``slot_hidden``, ``[B, 1, Hi]`` a
 cell) advances each tick with the applied control, in one batched cell
-step over the B slots; a frozen slot keeps its hidden bit for bit, and
-``reset_slot`` zeroes the slot's alone.
+step over the B slots, on either path; a frozen slot keeps its hidden bit
+for bit, and ``reset_slot`` zeroes the slot's alone.
 
-Every other configuration raises ``NotImplementedError`` naming what is
-missing (ROADMAP A9): the vmapped per-slot step that the JAX package
-takes for everything else (modular CEM, an RPGD or gradient fleet with
-warmup or over a recurrent net, every ``cem-gmm``, ``cma-es``,
-``cem-naive-grad`` and ``cem-grad-bharadhwaj`` fleet, a modular
-``mppi-var`` fleet, a user's ``force_scan: true``, logging), the slot
-mesh and a learned value terminal
-on any other fleet (CEM's and a recurrent MPPI fleet's vmapped per-slot
-step, and a gradient fleet's where the post-terminal hook is not a plain
-tanh-MLP V: the RPGD and gradient-tf fleets over the ODE, the MLP,
-``"ODE+res"`` and the GP take such a V in the session-row value_spec forms
-of K7-K10).  Nothing falls back to a per-slot loop or to the CPU.
+The slot mesh (``configure(mesh=..., slot_axis=...)``) is the one
+configuration refused: ``NotImplementedError`` naming it (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -61,7 +67,9 @@ import numpy as np
 import torch
 
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
-from control_toolkit_tpu_torch.optimizers.base import _not_ported, batched_kernel_core_ok
+from control_toolkit_tpu_torch.optimizers.base import (
+    _not_ported, batched_kernel_core_ok, slot_scalars,
+)
 from control_toolkit_tpu_torch.utils import registry
 from control_toolkit_tpu_torch.utils.rng import make_generator, slot_seed
 
@@ -101,91 +109,57 @@ def _set_slot(full, one, i: int):
     return full
 
 
-@registry.controllers.register("batched-mpc")
-class BatchedMPCController(MPCController):
-    """B-slot MPC controller: ``configure(num_slots=B, ...)``, then
-    ``step_batch(s [B,S], mask [B], attrs_batch) -> u [B,U]``; the scalar
-    ``step`` drives slot 0."""
+# The batched kernel steps, in the order their gates are tried: (kind, gate,
+# the optimizer's method that makes it, whether it takes per-slot rows, the
+# log's label).
+KERNEL_STEPS = (
+    ("ode", "_batched_kernel_eligible", "_make_batched_semi_fused_step", True,
+     "semi-fused MPPI (K4)"),
+    ("neural", "_batched_neural_eligible", "_make_batched_neural_step", False,
+     "MPPI over an MLP (K11's session rows)"),
+    ("recurrent", "_batched_recurrent_eligible", "_make_batched_recurrent_step", False,
+     "MPPI over a GRU/LSTM (K13's session rows)"),
+    ("residual", "_batched_residual_eligible", "_make_batched_residual_step", True,
+     "MPPI over ODE+res (K12's session rows)"),
+    ("gp", "_batched_gp_eligible", "_make_batched_gp_step", False,
+     "MPPI over a sparse GP (K14's session rows)"),
+    ("rpgd", "_batched_rpgd_eligible", "_make_batched_rpgd_step", True,
+     "RPGD (gradient and cost kernels' session rows)"),
+    ("gradient", "_batched_gradient_eligible", "_make_batched_gradient_step", True,
+     "gradient-tf (gradient and cost kernels' session rows)"),
+    ("cem-fused", "_batched_fused_cem_eligible", "_make_batched_fused_cem_step", True,
+     "fully-fused CEM (K6)"),
+    ("mppi-var", "_batched_var_eligible", "_make_batched_var_step", True,
+     "mppi-var semi-fused (K4)"),
+)
 
-    def configure(self, *args, num_slots: int = 1, mesh=None, slot_axis=None,
-                  per_slot_dyn=(), **kwargs) -> None:
-        """``per_slot_dyn`` names scalar dynamics constants (keys of the
-        predictor's params, e.g. cartpole ``L``) that vary per session: each
-        slot plans against its own model.  They start at the predictor's
-        defaults, change per slot through ``update_slot_dyn`` and reach the
-        kernel as the sessions' packed parameters, so a change rebuilds
-        nothing."""
-        if mesh is not None or slot_axis is not None:
-            raise _not_ported("the slot mesh (configure(mesh=..., slot_axis=...))")
-        # The call, kept so that attach_value_terminal can configure again
-        # and build the batched step against the wrapped cost.
-        self._configure_stash = (args, dict(
-            kwargs, optimizer_config=(dict(kwargs["optimizer_config"])
-                                      if kwargs.get("optimizer_config") is not None else None),
-            num_slots=num_slots, per_slot_dyn=per_slot_dyn))
-        super().configure(*args, **kwargs)
-        self.num_slots = B = int(num_slots)
-        if B < 1:
-            raise ValueError(f"num_slots must be at least 1, got {num_slots}")
-        opt = self.optimizer
-        pred = getattr(self.predictor, "predictor", self.predictor)
-        self._per_slot_dyn = tuple(per_slot_dyn)
-        # A residual predictor's constants are its base's, under dyn["base"].
-        base = getattr(pred, "base", pred)
-        self._dyn_subtree = "base" if base is not pred else None
-        defaults = base.default_params()
-        # A net's or a GP's params are tensor subtrees (and a recurrent net's
-        # hidden a tuple): no scalar constants.
-        scalars = sorted(k for k, v in defaults.items()
-                         if not isinstance(v, (dict, tuple)) and np.ndim(v) == 0)
-        for k in self._per_slot_dyn:
-            if k not in scalars:
-                raise ValueError(f"per_slot_dyn key {k!r} is not a scalar dynamics constant of "
-                                 f"this predictor (have: {scalars})")
-        self._slot_dyn_defaults = {k: float(defaults[k]) for k in self._per_slot_dyn}
-        self.slot_dyn: Dict[str, np.ndarray] = {
-            k: np.full((B,), v, np.float32) for k, v in self._slot_dyn_defaults.items()
-        }
 
-        self._stateful = self.predictor.is_stateful
-        if self._batched_kernel_eligible():
-            self._kstep, _ = opt._make_batched_semi_fused_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "semi-fused MPPI (K4)"
-        elif self._batched_neural_eligible():
-            self._kstep, _ = opt._make_batched_neural_step(B)
-            kind = "MPPI over an MLP (K11's session rows)"
-        elif self._batched_recurrent_eligible():
-            self._kstep, _ = opt._make_batched_recurrent_step(B)
-            kind = f"MPPI over a {pred.arch['kind'].upper()} (K13's session rows)"
-        elif self._batched_residual_eligible():
-            self._kstep, _ = opt._make_batched_residual_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "MPPI over ODE+res (K12's session rows)"
-        elif self._batched_gp_eligible():
-            self._kstep, _ = opt._make_batched_gp_step(B)
-            kind = "MPPI over a sparse GP (K14's session rows)"
-        elif self._batched_rpgd_eligible():
-            self._kstep, _ = opt._make_batched_rpgd_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = f"{opt.registered_name} (gradient and cost kernels' session rows)"
-        elif self._batched_gradient_eligible():
-            self._kstep, _ = opt._make_batched_gradient_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "gradient-tf (gradient and cost kernels' session rows)"
-        elif self._batched_fused_cem_eligible():
-            self._kstep, _ = opt._make_batched_fused_cem_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "fully-fused CEM (K6)"
-        elif self._batched_var_eligible():
-            self._kstep, _ = opt._make_batched_var_step(B, per_slot_dyn=self._per_slot_dyn)
-            kind = "mppi-var semi-fused (K4)"
-        else:
-            raise self._refusal()
-        logger.info(f"batched-mpc: {kind}, B={B} x K={opt.num_rollouts} in one launch"
-                    + (f", per-slot dyn {list(self._per_slot_dyn)}" if self._per_slot_dyn else ""))
-        self.slot_states = self._init_slot_states()
-        if self._stateful:
-            self.slot_hidden = self._zero_hidden()
-        self.slot_attrs: Dict[str, np.ndarray] = {
-            k: np.full((B,), float(torch.as_tensor(v).reshape(-1)[0]), np.float32)
-            for k, v in self.variable_parameters.items()
-        }
+def build_kernel_step(opt, kind: str, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
+    """The batched kernel step of ``kind`` (a ``KERNEL_STEPS`` kind) over
+    ``num_slots`` sessions: ``step(states, s [B,1,S], dyn, cost, attrs,
+    mask [B][, hidden]) -> (u [B,U], states', costs [B,K])``.
+    ``per_slot_dyn`` / ``per_slot_cost`` name the dynamics constants and
+    cost weights that take a ``[B]`` row (``evaluation/`` sweeps the
+    latter)."""
+    _, _, make, rows, _ = next(row for row in KERNEL_STEPS if row[0] == kind)
+    extra = {"per_slot_dyn": tuple(per_slot_dyn), "per_slot_cost": tuple(per_slot_cost)}
+    if not rows:
+        if per_slot_dyn or per_slot_cost:
+            raise ValueError(f"the {kind} batched step takes no per-slot rows")
+        extra = {}
+    return getattr(opt, make)(int(num_slots), **extra)[0]
+
+
+class FleetGates:
+    """The gates of the batched kernel steps over ``self.optimizer``,
+    ``self.predictor``, ``self._per_slot_dyn`` and ``self._stateful``: the
+    batched-mpc controller's, and ``evaluation/closed_loop.py``'s choice of
+    a sweep's kernel step (``SweepGates``)."""
+
+    def _kernel_kind(self):
+        """The first ``KERNEL_STEPS`` kind whose gate admits this
+        configuration, or None (the per-slot step)."""
+        return next((kind for kind, gate, *_ in KERNEL_STEPS if getattr(self, gate)()), None)
 
     def _batched_kernel_eligible(self) -> bool:
         """K4's gate (JAX ``batched_mpc.py:459`` without its TPU
@@ -338,80 +312,100 @@ class BatchedMPCController(MPCController):
             and opt.num_rollouts % ROWS == 0
         )
 
-    def _refusal(self) -> NotImplementedError:
-        """The missing piece that this configuration's batched step needs."""
-        from control_toolkit_tpu_torch.optimizers.cem import CEMOptimizer
-        from control_toolkit_tpu_torch.optimizers.gradient import GradientOptimizer
-        from control_toolkit_tpu_torch.optimizers.rpgd import RPGDOptimizer
 
-        from control_toolkit_tpu_torch.models.ensemble_predictor import EnsemblePredictor
-        from control_toolkit_tpu_torch.optimizers.cem_gmm import CEMGMMOptimizer
-        from control_toolkit_tpu_torch.optimizers.cem_grad_bharadhwaj import (
-            CEMGradBharadhwajOptimizer,
-        )
-        from control_toolkit_tpu_torch.optimizers.cem_naive_grad import CEMNaiveGradOptimizer
-        from control_toolkit_tpu_torch.optimizers.cma_es import CMAESOptimizer
-        from control_toolkit_tpu_torch.optimizers.ilqr import ILQROptimizer
-        from control_toolkit_tpu_torch.optimizers.mppi import RECURRENT_VALUE_FLEET
-        from control_toolkit_tpu_torch.optimizers.mppi_var import MPPIVarOptimizer
+class SweepGates(FleetGates):
+    """``FleetGates`` over an optimizer alone (an ``mpc`` controller's, for
+    ``ClosedLoop.run_batch``'s kernel sweeps)."""
 
-        # The JAX package runs these fleets as the vmapped per-slot step
-        # alone (its batched dispatch has no kernel branch for them).
-        vmapped_only = (CEMGMMOptimizer, CMAESOptimizer, CEMNaiveGradOptimizer,
-                        CEMGradBharadhwajOptimizer, ILQROptimizer)
+    def __init__(self, optimizer, per_slot_dyn=()):
+        self.optimizer = optimizer
+        self.predictor = optimizer.predictor
+        self._per_slot_dyn = tuple(per_slot_dyn)
+        self._stateful = bool(optimizer.predictor is not None and optimizer.predictor.is_stateful)
 
+
+@registry.controllers.register("batched-mpc")
+class BatchedMPCController(FleetGates, MPCController):
+    """B-slot MPC controller: ``configure(num_slots=B, ...)``, then
+    ``step_batch(s [B,S], mask [B], attrs_batch) -> u [B,U]``; the scalar
+    ``step`` drives slot 0."""
+
+    def configure(self, *args, num_slots: int = 1, mesh=None, slot_axis=None,
+                  per_slot_dyn=(), **kwargs) -> None:
+        """``per_slot_dyn`` names scalar dynamics constants (keys of the
+        predictor's params, e.g. cartpole ``L``) that vary per session: each
+        slot plans against its own model.  They start at the predictor's
+        defaults, change per slot through ``update_slot_dyn`` and reach the
+        kernel as the sessions' packed parameters, so a change rebuilds
+        nothing."""
+        if mesh is not None or slot_axis is not None:
+            raise self._refusal()
+        # The call, kept so that attach_value_terminal can configure again
+        # and build the batched step against the wrapped cost.
+        self._configure_stash = (args, dict(
+            kwargs, optimizer_config=(dict(kwargs["optimizer_config"])
+                                      if kwargs.get("optimizer_config") is not None else None),
+            num_slots=num_slots, per_slot_dyn=per_slot_dyn))
+        super().configure(*args, **kwargs)
+        self.num_slots = B = int(num_slots)
+        if B < 1:
+            raise ValueError(f"num_slots must be at least 1, got {num_slots}")
         opt = self.optimizer
-        cf = getattr(self.cost_function, "cost_function", self.cost_function)
-        if isinstance(getattr(self.predictor, "predictor", self.predictor), EnsemblePredictor):
-            # The ensemble kernels have no session-row form in either package.
-            return _not_ported("the vmapped per-slot batched step (taken for a fleet over an "
-                               "ensemble predictor)")
-        if opt.force_scan or opt.optimizer_logging or opt.calculate_optimal_trajectory:
-            return _not_ported("the vmapped per-slot batched step (taken for force_scan, logging "
-                               "or the optimal trajectory)")
-        if getattr(opt, "optim_steps", 0) > 0:
-            return _not_ported("the vmapped per-slot batched step (taken for mppi-optimize: "
-                               "no batched kernel step carries its Adam refinement)")
-        if isinstance(opt, vmapped_only):
-            return _not_ported(f"the vmapped per-slot batched step (taken for every "
-                               f"{opt.registered_name} fleet: it has no batched kernel step)")
-        grad_fleet = isinstance(opt, (RPGDOptimizer, GradientOptimizer))
-        if getattr(cf, "post_terminal_cost", None) is not None and not (
-                grad_fleet and opt._value_grad_spec() is not None):
-            if grad_fleet:
-                return _not_ported("the vmapped per-slot batched step (taken for a gradient "
-                                   "fleet whose post-terminal hook is not a plain tanh-MLP "
-                                   "value net)")
-            if isinstance(opt, CEMOptimizer):
-                return _not_ported("a learned value terminal in a batched CEM fleet (the vmapped "
-                                   "per-slot batched step: K6 and the modular batched step "
-                                   "carry no value terminal)")
-            pred = getattr(self.predictor, "predictor", self.predictor)
-            if self._plain_mppi() and getattr(pred, "recurrent", False):
-                return _not_ported(RECURRENT_VALUE_FLEET)
-            return _not_ported("a learned value terminal in this batched configuration (the "
-                               "vmapped per-slot batched step)")
-        if grad_fleet:
-            why = "warmup on" if opt.warmup else "a model the gradient kernels do not take"
-            return _not_ported(f"the vmapped per-slot batched step (taken for "
-                               f"{opt.registered_name} with {why})")
-        if type(opt) is CEMOptimizer and not opt.fully_fused:
-            return _not_ported("the vmapped per-slot batched step (taken for modular CEM)")
-        if type(opt) is MPPIVarOptimizer:
-            return _not_ported("the vmapped per-slot batched step (taken for mppi-var off K4's "
-                               "conditions: semi_fused off, a model other than an ODE of a "
-                               "device plant, or K not a multiple of 8)")
-        return _not_ported(f"the vmapped per-slot batched step ({opt.registered_name}, "
-                           f"K={opt.num_rollouts})")
+        pred = getattr(self.predictor, "predictor", self.predictor)
+        self._per_slot_dyn = tuple(per_slot_dyn)
+        # A residual predictor's constants are its base's, under dyn["base"].
+        base = getattr(pred, "base", pred)
+        self._dyn_subtree = "base" if base is not pred else None
+        defaults = base.default_params()
+        # A net's or a GP's params are tensor subtrees (and a recurrent net's
+        # hidden a tuple): no scalar constants.
+        scalars = sorted(k for k, v in defaults.items()
+                         if not isinstance(v, (dict, tuple)) and np.ndim(v) == 0)
+        for k in self._per_slot_dyn:
+            if k not in scalars:
+                raise ValueError(f"per_slot_dyn key {k!r} is not a scalar dynamics constant of "
+                                 f"this predictor (have: {scalars})")
+        self._slot_dyn_defaults = {k: float(defaults[k]) for k in self._per_slot_dyn}
+        self.slot_dyn: Dict[str, np.ndarray] = {
+            k: np.full((B,), v, np.float32) for k, v in self._slot_dyn_defaults.items()
+        }
+
+        self._stateful = self.predictor.is_stateful
+        kind = self._kernel_kind()
+        self._per_slot = kind is None
+        if self._per_slot:
+            self._kstep = None
+            logger.info(f"batched-mpc: the per-slot step ({opt.registered_name}: each active "
+                        f"slot's single-session step in turn), B={B} x K={opt.num_rollouts}")
+        else:
+            self._kstep = build_kernel_step(opt, kind, B, per_slot_dyn=self._per_slot_dyn)
+            label = next(row[4] for row in KERNEL_STEPS if row[0] == kind)
+            logger.info(f"batched-mpc: {label}, B={B} x K={opt.num_rollouts} in one launch"
+                        + (f", per-slot dyn {list(self._per_slot_dyn)}"
+                           if self._per_slot_dyn else ""))
+        self.slot_states = self._init_slot_states()
+        if self._stateful:
+            self.slot_hidden = self._zero_hidden()
+        self.slot_attrs: Dict[str, np.ndarray] = {
+            k: np.full((B,), float(torch.as_tensor(v).reshape(-1)[0]), np.float32)
+            for k, v in self.variable_parameters.items()
+        }
+
+    @staticmethod
+    def _refusal() -> NotImplementedError:
+        """The one configuration not served: the slot mesh (ROADMAP A10)."""
+        return _not_ported("the slot mesh (configure(mesh=..., slot_axis=...))")
 
     # ---- slot management ---------------------------------------------------
     def _slot_generator(self, i: int) -> torch.Generator:
         return make_generator(slot_seed(self.optimizer._seed, i), self.device)
 
     def _init_slot_states(self):
+        """Each slot's initial state on its own stream: a list of B states
+        on the per-slot step, stacked for a batched kernel step."""
         opt = self.optimizer
-        return _stack_states([opt._init_state(self._slot_generator(i))
-                              for i in range(self.num_slots)])
+        states = [opt._init_state(self._slot_generator(i)) for i in range(self.num_slots)]
+        return states if self._per_slot else _stack_states(states)
 
     def _zero_hidden(self):
         """A recurrent model's per-slot hidden, every slot zero: per cell
@@ -427,8 +421,11 @@ class BatchedMPCController(MPCController):
         alone (it may carry the divergence or a stale session); its
         dynamics constants are kept (``reset_slot_dyn``)."""
         new = self.optimizer._init_state(self._slot_generator(i))
-        self.slot_states = type(new)(*(_set_slot(full, one, i)
-                                       for full, one in zip(self.slot_states, new)))
+        if self._per_slot:
+            self.slot_states[i] = new
+        else:
+            self.slot_states = type(new)(*(_set_slot(full, one, i)
+                                           for full, one in zip(self.slot_states, new)))
         if self._stateful:
             self.slot_hidden = tuple(_set_slot(h, torch.zeros_like(h[i]), i)
                                      for h in self.slot_hidden)
@@ -515,12 +512,17 @@ class BatchedMPCController(MPCController):
         dyn = self._dyn_with_slots(params["dyn"])
         mask_np = np.ones((B,), bool) if mask is None else np.asarray(mask, bool).reshape(B)
         s = torch.as_tensor(np.asarray(s_batch, np.float32).reshape(B, 1, -1), device=self.device)
-        attrs = {k: torch.as_tensor(v, device=self.device) for k, v in self.slot_attrs.items()}
-        hidden = (self.slot_hidden,) if self._stateful else ()
-        u, new, _ = self._kstep(self.slot_states, s, dyn, params["cost"], attrs, mask_np, *hidden)
+        if self._per_slot:
+            u = self._step_slots(s, dyn, params["cost"], mask_np)
+        else:
+            attrs = {k: torch.as_tensor(v, device=self.device) for k, v in self.slot_attrs.items()}
+            hidden = (self.slot_hidden,) if self._stateful else ()
+            u, new, _ = self._kstep(self.slot_states, s, dyn, params["cost"], attrs, mask_np,
+                                    *hidden)
         if self._stateful:
             self.slot_hidden = self._advance_hidden(dyn["net"], s, u, mask_np)
-        u, self.slot_states = self._freeze(mask_np, u, new, self.slot_states)
+        if not self._per_slot:
+            u, self.slot_states = self._freeze(mask_np, u, new, self.slot_states)
         u_host = u.cpu().numpy()
         # Per-slot NaN guard: a diverged slot commands zero and resets alone.
         bad = ~np.all(np.isfinite(u_host), axis=-1)
@@ -529,6 +531,38 @@ class BatchedMPCController(MPCController):
             self.reset_slot(int(i))
         u_host[bad] = 0.0
         return u_host
+
+    def _step_slots(self, s, dyn, cost, mask_np):
+        """The per-slot step (JAX ``batched_mpc.py:391-401``: ``jax.vmap``
+        of the single-session step, then ``freeze``): each active slot's
+        ``step_fn`` in turn over its own state, its row of ``s`` and the
+        params tree its own controller would assemble (its attributes and
+        per-slot constants as 0-d tensors, a recurrent model's hidden its
+        slot's); ``u [B, U]``, zero for a frozen slot, which is not stepped
+        (its state and generator stay exactly as they were)."""
+        step_fn, device = self.optimizer._step_fn, self.device
+        zero = torch.zeros(self.optimizer.num_control_inputs, dtype=torch.float32, device=device)
+        us = []
+        for i, on in enumerate(mask_np):
+            if not on:
+                us.append(zero)
+                continue
+            d = self._slot_dyn_tree(dyn, i)
+            if self._stateful:
+                d["hidden"] = tuple(h[i] for h in self.slot_hidden)
+            attrs = slot_scalars(self.slot_attrs, i, device)
+            u, self.slot_states[i], _ = step_fn(self.slot_states[i], s[i],
+                                                {"dyn": d, "cost": cost, "attrs": attrs})
+            us.append(u.reshape(-1))
+        return torch.stack(us)
+
+    def _slot_dyn_tree(self, dyn: Dict, i: int) -> Dict:
+        """``dyn`` with slot ``i``'s per-slot constants as 0-d tensors (a
+        copy: the caller may add the slot's hidden)."""
+        slot = slot_scalars(self.slot_dyn, i, self.device)
+        if self._dyn_subtree is None:
+            return dict(dyn, **slot)
+        return dict(dyn, **{self._dyn_subtree: dict(dyn[self._dyn_subtree], **slot)})
 
     def _advance_hidden(self, net, s, u, mask_np):
         """Every slot's hidden advanced with its applied (pre-freeze) control

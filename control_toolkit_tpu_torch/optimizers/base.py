@@ -95,6 +95,16 @@ def make_slot_packer(param_keys, slot_keys, attr_defaults, B: int, device):
     return pack
 
 
+def slot_scalars(rows: Dict[str, np.ndarray], i: int, device) -> Dict[str, torch.Tensor]:
+    """Slot ``i``'s values of per-slot host rows ``{name: [B]}`` (a fleet's
+    attributes or ``per_slot_dyn`` constants) as 0-d float32 tensors on
+    ``device``: what the single-session step of the per-slot fleet step
+    reads where ``make_slot_packer``'s batched steps read row i, and what
+    the slot's own controller would hold."""
+    return {k: torch.tensor(float(v[i]), dtype=torch.float32, device=device)
+            for k, v in rows.items()}
+
+
 def batched_kernel_core_ok(opt, *, force_scan: bool, stateful: bool = False,
                            post_ok: bool = False) -> bool:
     """The conjunction every batched-kernel gate shares: no user
@@ -551,12 +561,13 @@ class Optimizer:
             return True
         return not has_per_slot_dyn and (gp.can_use_grad(self) or neural.can_use_grad(self))
 
-    def _bind_batched_grad_kernels(self, num_slots: int, per_slot_dyn=()):
+    def _bind_batched_grad_kernels(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """The session-row gradient and cost forms and the sessions' packer
         of a B-session fleet: see kernel_families/batched.py."""
         from control_toolkit_tpu_torch.optimizers.kernel_families import batched
 
-        return batched.bind_batched_grad_kernels(self, num_slots, per_slot_dyn=per_slot_dyn)
+        return batched.bind_batched_grad_kernels(self, num_slots, per_slot_dyn=per_slot_dyn,
+                                                 per_slot_cost=per_slot_cost)
 
     def _soa_bindings(self, include_dyn: bool = True):
         """Bind the predictor's SOA dynamics and the cost's SOA primitives,

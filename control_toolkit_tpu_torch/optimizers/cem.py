@@ -33,7 +33,8 @@ The batched-mpc controller's B-session step is the fused one
 (``_make_batched_cem_step``, one launch of K1's session-row form an outer
 iteration) is built for compositions that call it; the controller does not
 route to it, as the JAX package's does not (a modular CEM fleet takes the
-JAX package's vmapped per-slot step, which the port refuses).  The policy
+per-slot step, as the JAX package's takes its vmapped per-slot step;
+``evaluation/`` reaches neither).  The policy
 warm start centres the sampling mean on the policy's plan
 (``_apply_policy_guess``).
 """
@@ -172,7 +173,7 @@ class CEMOptimizer(Optimizer):
             for g, on in zip(generators, mask)
         ], dim=1)
 
-    def _make_batched_cem_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_cem_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session modular CEM step (JAX ``cem.py:188-330``): each outer
         iteration scores every session's population ``clip(mue + z*std)``
         in one launch of K1's session-row form
@@ -208,7 +209,7 @@ class CEMOptimizer(Optimizer):
         H, U = self.mpc_horizon, self.num_control_inputs
         model, _ = ode.rollout_model(self)
         kernels.require("K1's session-row form", model.plant)
-        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn, per_slot_cost)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         low, high, best_k = self.action_low, self.action_high, self.cem_best_k
         u_mid = 0.5 * (low + high)
@@ -257,7 +258,7 @@ class CEMOptimizer(Optimizer):
             for g, on in zip(generators, mask)
         ], dim=1)
 
-    def _make_batched_fused_cem_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_fused_cem_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session fully-fused CEM step for the batched-mpc controller
         (JAX ``cem.py:332-480``): each outer iteration scores every
         session's population in one K6 launch (``ops/fused_cem_cols.py``),
@@ -297,7 +298,7 @@ class CEMOptimizer(Optimizer):
             raise ValueError(f"batched fused CEM needs K % {ROWS} == 0; got K={K}")
         model, _ = ode.rollout_model(self)
         kernels.require("K6", model.plant)
-        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn, per_slot_cost)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         low, high, best_k = self.action_low, self.action_high, self.cem_best_k
         u_mid = 0.5 * (low + high)

@@ -113,7 +113,7 @@ class GradientOptimizer(Optimizer):
         return torch.stack([self._uniform(g, shape) if on else zeros
                             for g, on in zip(generators, mask)])
 
-    def _make_batched_gradient_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_gradient_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session gradient-tf step for the batched-mpc controller (JAX
         ``gradient.py:111-194``): RPGD's batched step without the
         resampling (``RPGDOptimizer._make_batched_rpgd_step``): one launch
@@ -134,7 +134,8 @@ class GradientOptimizer(Optimizer):
                 "count)")
         B, K = int(num_slots), self.num_rollouts
         H, U = self.mpc_horizon, self.num_control_inputs
-        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn)
+        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn,
+                                                             per_slot_cost=per_slot_cost)
         low, high = self.action_low, self.action_high
         lr, b1, b2, eps = self.learning_rate, self.adam_beta_1, self.adam_beta_2, self.adam_epsilon
         gclip = self.gradmax_clip

@@ -35,13 +35,14 @@ from control_toolkit_tpu_torch.models.neural_predictor import NeuralPredictor
 from control_toolkit_tpu_torch.models.residual_predictor import ResidualPredictor
 
 
-def bind_batched_grad_kernels(opt, num_slots: int, per_slot_dyn=()):
+def bind_batched_grad_kernels(opt, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
     """``(gcall, ccall, pack)`` for a fleet of ``num_slots`` sessions:
     ``gcall(s0 [B*K,S], Q [B*K,H,U], pvec_b [B,N], dyn, cost) -> (cost
     [B,K], dQ [B*K,H,U])`` is one launch of the gradient form, ``ccall(...)
     -> cost [B,K]`` one of the cost form (``cost``: the cost's params, V's
     among them), and ``pack(u_prev_b [B,U], dyn, cost, attrs) -> pvec_b``
-    packs each session's row (``make_slot_packer``; a residual model's
+    packs each session's row (``make_slot_packer``, ``per_slot_dyn`` and
+    ``per_slot_cost`` among them; a residual model's
     constants read from ``dyn["base"]``).
 
     Refuses, as the JAX binder does, per-slot dynamics over a net or a GP
@@ -73,7 +74,7 @@ def bind_batched_grad_kernels(opt, num_slots: int, per_slot_dyn=()):
                          "GP or ODE+res over the cost their device plant evaluates")
     grad, cost_form, extra, param_keys = fam.batched_kernels(opt)
     B = int(num_slots)
-    _, slot_keys = split_slot_keys(param_keys, per_slot_dyn)
+    _, slot_keys = split_slot_keys(param_keys, per_slot_dyn, per_slot_cost)
     pack = make_slot_packer(param_keys, slot_keys, cf.attr_defaults, B, opt.device)
     if isinstance(pred, ResidualPredictor):
         # The packer reads scalar dyn leaves; the residual's are its base's.

@@ -24,7 +24,7 @@ memory or on K % E != 0 (``configure`` refuses that first).  The stacked
 weights are read from ``params["dyn"]["net"]`` at every call, so a re-fit
 or a checkpoint swap rebuilds nothing.  No batched (session-row) form:
 the JAX package keeps a fleet of ensembles on the vmapped per-slot step,
-which the port refuses (``controllers/batched_mpc.py:_refusal``).
+the port on its per-slot step (``controllers/batched_mpc.py:_step_slots``).
 """
 from __future__ import annotations
 

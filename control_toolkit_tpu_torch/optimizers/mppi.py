@@ -58,7 +58,8 @@ session in one launch: over an ODE model K4 (``ops/mppi_cost_cols.py``,
 terminal), over a learned model the session-row
 form of its kernel (``_batched_columns_step_from_kernel``: K11, K13, K12,
 K14); none carries the refinement, so an mppi-optimize fleet takes the
-vmapped per-slot step, which is not ported.
+per-slot step (``controllers/batched_mpc.py``), as the JAX package's takes
+its vmapped per-slot step.
 """
 from __future__ import annotations
 
@@ -75,8 +76,9 @@ from control_toolkit_tpu_torch.ops.interpolation import Interpolator
 from control_toolkit_tpu_torch.optimizers.base import Optimizer, _not_ported
 from control_toolkit_tpu_torch.utils import registry
 
-# What a valued MPPI fleet over a GRU or LSTM needs: the JAX package sends
-# it to the vmapped per-slot step (batched_mpc.py:500-504), not ported.
+# Why K13's session-row step refuses a value terminal: the JAX package sends
+# a valued MPPI fleet over a GRU or LSTM to the vmapped per-slot step
+# (batched_mpc.py:500-504), the port to its per-slot step.
 RECURRENT_VALUE_FLEET = ("the vmapped per-slot batched step (taken for a learned value terminal "
                          "in an MPPI fleet over a recurrent net)")
 
@@ -436,12 +438,13 @@ class MPPIOptimizer(Optimizer):
             for g, on in zip(generators, mask)
         ])
 
-    def _make_batched_semi_fused_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_semi_fused_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session semi-fused MPPI step for the batched-mpc controller
         (JAX ``mppi.py:369-511``): all B sessions' rollouts in one K4
         launch (``ops/mppi_cost_cols.py``), each session reading its own
         initial state, shifted nominal plan, attributes, previous control
-        and ``per_slot_dyn`` constants (``pvec_b``); the softmax and the
+        and ``per_slot_dyn`` constants and ``per_slot_cost`` weights
+        (``pvec_b``; the latter reached by ``evaluation/`` alone); the softmax and the
         weighted average at the inducing points run per session as torch
         ops over ``[B, K]``.  With a post-terminal hook (a learned value
         terminal) the launch is K4's emit_terminal form and each session's
@@ -473,7 +476,7 @@ class MPPIOptimizer(Optimizer):
         model, _ = ode.rollout_model(self)
         post, inv_h1 = self._post_terminal_fn(), 1.0 / (self.mpc_horizon + 1)
         kernels.require("K4" if post is None else "K4's emit_terminal form", model.plant)
-        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn)
+        _, slot_keys = split_slot_keys(model.param_keys, per_slot_dyn, per_slot_cost)
         pack = make_slot_packer(model.param_keys, slot_keys, cf.attr_defaults, B, self.device)
         W, low, high = self.interp.matrix, self.action_low, self.action_high
         self._slot_noise_shape = (W.shape[0], self.num_control_inputs, K)
@@ -530,7 +533,7 @@ class MPPIOptimizer(Optimizer):
             num_slots, model.param_keys,
             lambda s0, Q, pvec_b, dyn: cols(model, s0, Q, pvec_b, dyn["net"]), post=post)
 
-    def _make_batched_residual_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_residual_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session MPPI step over ``"ODE+res"`` (JAX ``mppi.py:574``): one
         launch of K12's session-row form
         (``ops/residual_rollout.py:residual_cost_rollout_cols``; with a
@@ -551,7 +554,8 @@ class MPPIOptimizer(Optimizer):
         return self._batched_columns_step_from_kernel(
             num_slots, model.param_keys,
             lambda s0, Q, pvec_b, dyn: cols(model, s0, Q, pvec_b, dyn["res"]),
-            per_slot_dyn=per_slot_dyn, dyn_leaves_fn=lambda dyn: dyn["base"], post=post)
+            per_slot_dyn=per_slot_dyn, per_slot_cost=per_slot_cost,
+            dyn_leaves_fn=lambda dyn: dyn["base"], post=post)
 
     def _make_batched_gp_step(self, num_slots: int):
         """B-session MPPI step over a sparse GP (JAX ``mppi.py:625``): one
@@ -587,8 +591,8 @@ class MPPIOptimizer(Optimizer):
         the applied control is the caller's (the batched-mpc controller).
         A learned value terminal is refused: the JAX package sends a valued
         recurrent fleet to the vmapped per-slot step (its recurrent
-        session-row kernel emits no terminal states), which the port does
-        not have."""
+        session-row kernel emits no terminal states), the port to its
+        per-slot step."""
         from control_toolkit_tpu_torch.ops.neural_rollout import recurrent_cost_rollout_cols
         from control_toolkit_tpu_torch.optimizers.kernel_families import neural
 
@@ -607,7 +611,8 @@ class MPPIOptimizer(Optimizer):
                       update(states, s, dyn, cost, attrs, delta_b, hidden))
 
     def _batched_columns_step_from_kernel(self, num_slots: int, param_keys, costs_fn,
-                                          per_slot_dyn=(), dyn_leaves_fn=None, post=None):
+                                          per_slot_dyn=(), dyn_leaves_fn=None, post=None,
+                                          per_slot_cost=()):
         """The shared tail of the learned models' batched MPPI steps (JAX
         ``mppi.py:670``): each session's noise at the inducing points is
         interpolated and clipped into its controls, all B sessions'
@@ -643,7 +648,7 @@ class MPPIOptimizer(Optimizer):
         H, U = self.mpc_horizon, self.num_control_inputs
         P = self.interp.number_of_interpolation_inducing_points
         self._slot_noise_shape = (K, P, U)
-        _, slot_keys = split_slot_keys(param_keys, per_slot_dyn)
+        _, slot_keys = split_slot_keys(param_keys, per_slot_dyn, per_slot_cost)
         pack = make_slot_packer(param_keys, slot_keys, cf.attr_defaults, B, self.device)
         dyn_leaves_fn = dyn_leaves_fn or (lambda dyn: dyn)
         interp, low, high = self.interp, self.action_low, self.action_high

@@ -169,7 +169,7 @@ class MPPIVarOptimizer(MPPIOptimizer):
 
         return step_fn
 
-    def _make_batched_var_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_var_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session mppi-var step for the batched-mpc controller (JAX
         ``mppi_var.py:149``): MPPI's K4 step (``_make_batched_semi_fused_step``'s
         ``update_from_eps``: all sessions in one launch, or one of K4's
@@ -188,7 +188,8 @@ class MPPIVarOptimizer(MPPIOptimizer):
         the JAX draws."""
         B = int(num_slots)
         P = self.interp.number_of_interpolation_inducing_points
-        _, update_from_eps = self._make_batched_semi_fused_step(B, per_slot_dyn=per_slot_dyn)
+        _, update_from_eps = self._make_batched_semi_fused_step(B, per_slot_dyn=per_slot_dyn,
+                                                                per_slot_cost=per_slot_cost)
 
         def update(states, s, dyn, cost, attrs, eps_raw):
             u_nom, costs = update_from_eps(states, s, dyn, cost, attrs,

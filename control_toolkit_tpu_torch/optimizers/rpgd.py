@@ -233,7 +233,7 @@ class RPGDOptimizer(Optimizer):
         return [self._draw_resample(g, n) if on and count % self.resamp_per == 0 else None
                 for g, count, on in zip(states.generator, states.count, mask)]
 
-    def _make_batched_rpgd_step(self, num_slots: int, per_slot_dyn=()):
+    def _make_batched_rpgd_step(self, num_slots: int, per_slot_dyn=(), per_slot_cost=()):
         """B-session RPGD step for the batched-mpc controller (JAX
         ``rpgd.py:214-336``): each Adam iteration takes every session's
         gradients in one launch of the gradient kernel's session-row form,
@@ -264,7 +264,8 @@ class RPGDOptimizer(Optimizer):
                 "count); warmup sessions take the vmapped scan path")
         B, K = int(num_slots), self.num_rollouts
         H, U = self.mpc_horizon, self.num_control_inputs
-        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn)
+        gcall, ccall, pack = self._bind_batched_grad_kernels(B, per_slot_dyn=per_slot_dyn,
+                                                             per_slot_cost=per_slot_cost)
         low, high = self.action_low, self.action_high
         keep_k, shift = self.opt_keep_k, self.shift_previous
         lr, b1, b2, eps = self.learning_rate, self.adam_beta_1, self.adam_beta_2, self.adam_epsilon

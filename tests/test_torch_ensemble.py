@@ -712,9 +712,15 @@ def test_an_ensemble_fleet_names_the_vmapped_per_slot_step(tmp_path, optimizer, 
     ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
                                 config={"optimizer": optimizer, "controller_logging": False,
                                         "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="vmapped per-slot batched step.*ensemble"):
-        ctrl.configure(optimizer_name=optimizer, optimizer_config=config, num_slots=3,
-                       predictor_specification=f"ensemble:mlp-8:4:{tmp_path}")
+    # The ensemble kernels have no session-row form in either package: the
+    # per-slot step serves the fleet, each active slot equal to its
+    # single-session controller bit for bit.
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
+    ctrl.configure(optimizer_name=optimizer, optimizer_config=config, num_slots=3,
+                   predictor_specification=f"ensemble:mlp-8:4:{tmp_path}")
+    assert ctrl._per_slot
+    assert_slots_equal_single(ctrl)
 
 
 # ---- the committed ensemble ------------------------------------------------------------

@@ -10,7 +10,8 @@ rtol 2e-5 (float32 sums over 10 rk4 steps, test_pallas_batched.py:114).
 The port's ``update_from_eps`` is held to JAX's: costs to the same bound,
 the new nominal plans to 1e-5 (test_pallas_batched.py:130).  The
 controller's own behaviour (independence from B, the mask freeze,
-``reset_slot``, ``update_slot_dyn``, the NaN guard and the refusals) is
+``reset_slot``, ``update_slot_dyn``, the NaN guard, the steps' own refusals
+and the configurations the per-slot step now serves) is
 checked on the port alone.  K4's plain version at cc_weight 0 equals K1's
 plain version over each session's controls (``mppi_controls_plain``).  On
 a machine with a card, K4 is held to its plain version, and at ragged B*K
@@ -363,35 +364,47 @@ def test_scalar_step_drives_slot_0():
     "cem_warmup",
 ])
 def test_unported_batched_configurations_raise(kind):
-    """Each configuration whose batched step is not ported raises
-    NotImplementedError (or, for the kernels' own refusals, the JAX
-    package's error); nothing falls back to a per-slot loop."""
+    """The slot mesh raises NotImplementedError, and so do the kernel
+    steps' own refusals (the JAX package's: a valued or warmup fused-CEM
+    step); every other configuration that no batched kernel step serves
+    (force_scan, logging, RPGD and gradient-tf with warmup, modular CEM, a
+    valued fused-CEM fleet) now takes the per-slot step, each active slot
+    equal to its single-session controller bit for bit
+    (tests/test_torch_fleet_per_slot.py)."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+    from test_torch_fleet_per_slot import build as build_per_slot
+
     builds = {
         "force_scan": lambda: fleet(force_scan=True),
         "logging": lambda: fleet(controller_logging=True),
-        "mesh": lambda: fleet(mesh=object()),
-        # The gradient fleets are served (tests/test_torch_fleet_grad.py);
-        # with warmup on they take the JAX package's vmapped per-slot step.
-        "rpgd-tf": lambda: fleet(optimizer="rpgd-tf", per_slot_dyn=(), warmup=True),
-        "gradient-tf": lambda: fleet(optimizer="gradient-tf", per_slot_dyn=(), warmup=True),
+        # The gradient fleets take their kernel steps
+        # (tests/test_torch_fleet_grad.py); with warmup on, the per-slot step.
+        "rpgd-tf": lambda: fleet(optimizer="rpgd-tf", per_slot_dyn=(), warmup=True,
+                                 warmup_iterations=2),
+        "gradient-tf": lambda: fleet(optimizer="gradient-tf", per_slot_dyn=(), warmup=True,
+                                     warmup_iterations=2),
         "cem-modular": lambda: fleet(optimizer="cem-tf", per_slot_dyn=()),
     }
+    if kind == "mesh":
+        with pytest.raises(NotImplementedError, match="slot mesh"):
+            fleet(mesh=object())
+        return
     if kind in builds:
-        with pytest.raises(NotImplementedError):
-            builds[kind]()
+        assert_slots_equal_single(builds[kind]())
         return
     cem = fleet(optimizer="cem-tf", per_slot_dyn=(), fully_fused=True)
     if kind == "value_terminal":
         # The MPPI fleet over the ODE carries a post hook (K4's emit_terminal
-        # form, tests/test_torch_value.py); a valued fully-fused CEM fleet is
-        # the JAX package's vmapped per-slot step: refused.
+        # form, tests/test_torch_value.py); K6 carries none (its step
+        # refuses, as JAX's), so a valued fully-fused CEM fleet takes the
+        # per-slot step.
         cf = cem.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
         with pytest.raises(NotImplementedError):
             cem.optimizer._make_batched_fused_cem_step(2)
-        err = cem._refusal()
-        assert not cem._batched_fused_cem_eligible()
-        assert isinstance(err, NotImplementedError) and "value terminal" in str(err)
+        assert not cem._batched_fused_cem_eligible() and cem._kernel_kind() is None
+        valued = build_per_slot("value_cem_fused", BatchedMPCController, num_slots=2)
+        assert_slots_equal_single(valued)
         return
     cem.optimizer.warmup = True
     with pytest.raises(NotImplementedError):

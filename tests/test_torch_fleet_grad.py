@@ -41,6 +41,7 @@ from control_toolkit_tpu.optimizers.gradient import GradientState as JaxGradient
 from control_toolkit_tpu.optimizers.rpgd import RPGDState as JaxRPGDState
 from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.costs.value_terminal import attach_value_terminal
 from control_toolkit_tpu_torch.ops.cost_rollout import (
     cost_rollout, cost_rollout_cols, cost_rollout_cols_plain, cost_rollout_plain,
 )
@@ -605,39 +606,52 @@ def test_gates_choose_each_gradient_step(specs, optimizer, model):  # noqa: F811
 @pytest.mark.parametrize("kind", ["warmup_rpgd", "warmup_gradient", "recurrent", "force_scan",
                                   "value_terminal", "cem_modular", "cem_warmup"])
 def test_what_the_gradient_fleets_leave_out_is_refused(specs, kind):  # noqa: F811
-    """Warmup (one Adam trip count for all sessions), a recurrent net, a
-    user's force_scan, modular CEM and a post-terminal hook that is not a
-    plain tanh-MLP V (which the session-row value_spec forms take:
-    tests/test_torch_value_grad.py) take the JAX package's vmapped per-slot
-    step: the controller raises NotImplementedError naming the piece; the
-    steps' own refusals are the JAX package's."""
+    """The steps' own refusals are the JAX package's: the gradient step with
+    a post-terminal hook that is not a plain tanh-MLP V (which the
+    session-row value_spec forms take: tests/test_torch_value_grad.py), and
+    the modular CEM step with warmup.  The fleets their gates leave out
+    (warmup: one Adam trip count for all sessions; a recurrent net; a user's
+    force_scan; modular CEM; that hook) take the per-slot step, each active
+    slot equal to its single-session controller bit for bit."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
     if kind == "value_terminal":
         ctrl = fleet("ODE", 2)
         cf = ctrl.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
-        assert not ctrl._batched_rpgd_eligible()
-        assert "vmapped per-slot" in str(ctrl._refusal())
+        assert not ctrl._batched_rpgd_eligible() and ctrl._kernel_kind() is None
         with pytest.raises(NotImplementedError, match="vmapped per-slot"):
             ctrl.optimizer._make_batched_rpgd_step(2)
+        valued = fleet("ODE", 2)
+        attach_value_terminal(valued, {"w0": 0.3 * torch.ones(4, 8), "b0": torch.zeros(8),
+                                       "w1": 0.3 * torch.ones(8, 1), "b1": torch.zeros(1),
+                                       "norm_in_mean": torch.zeros(4),
+                                       "norm_in_std": torch.ones(4)})
+        assert_slots_equal_single(valued)
         return
     if kind == "cem_warmup":
         opt = make_pair("cem-tf", "ODE", dict(CEM_CONFIG, warmup=True))[1].optimizer
         with pytest.raises(NotImplementedError, match="warmup"):
             opt._make_batched_cem_step(2)
         return
-    build, match = {
-        "warmup_rpgd": (lambda: fleet("ODE", 2, warmup=True), "warmup"),
-        "warmup_gradient": (lambda: fleet("ODE", 2, "gradient-tf", warmup=True), "warmup"),
-        "recurrent": (lambda: fleet(specs["gru"], 2, model="gru"), "vmapped"),
-        "force_scan": (lambda: fleet("ODE", 2, force_scan=True), "vmapped"),
-        "cem_modular": (lambda: BatchedMPCController(
-            "cartpole", LIMITS, {"target_position": 0.0},
-            config={"optimizer": "cem-tf", "device": "cpu", "controller_logging": False},
-        ).configure(optimizer_name="cem-tf", optimizer_config=CEM_CONFIG,
-                    cost_function_config=COST_WEIGHTS, num_slots=2), "modular CEM"),
+    build = {
+        "warmup_rpgd": lambda: fleet("ODE", 2, warmup=True, warmup_iterations=2),
+        "warmup_gradient": lambda: fleet("ODE", 2, "gradient-tf", warmup=True,
+                                         warmup_iterations=2),
+        "recurrent": lambda: fleet(specs["gru"], 2, model="gru"),
+        "force_scan": lambda: fleet("ODE", 2, force_scan=True),
+        "cem_modular": lambda: modular_cem_fleet(2),
     }[kind]
-    with pytest.raises(NotImplementedError, match=match):
-        build()
+    assert_slots_equal_single(build())
+
+
+def modular_cem_fleet(num_slots: int) -> BatchedMPCController:
+    ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
+                                config={"optimizer": "cem-tf", "device": "cpu",
+                                        "controller_logging": False})
+    ctrl.configure(optimizer_name="cem-tf", optimizer_config=CEM_CONFIG,
+                   cost_function_config=COST_WEIGHTS, num_slots=num_slots)
+    return ctrl
 
 
 @pytest.mark.parametrize("model", ["mlp", "gp", "gru"])

@@ -32,6 +32,7 @@ from control_toolkit_tpu.models.training import collect_transitions as jax_colle
 from control_toolkit_tpu.optimizers.mppi import MPPIState as JaxMPPIState
 from control_toolkit_tpu_torch.controllers.batched_mpc import BatchedMPCController
 from control_toolkit_tpu_torch.controllers.mpc import MPCController
+from control_toolkit_tpu_torch.costs.value_terminal import attach_value_terminal
 from control_toolkit_tpu_torch.ops import kernels
 from control_toolkit_tpu_torch.ops.gp_rollout import (
     flatten_gp_weights, gp_cost_rollout_cols, gp_cost_rollout_cols_plain, gp_cost_rollout_plain,
@@ -393,14 +394,18 @@ def test_gates_choose_each_models_step(specs, case):
                                   "bounded_update", "per_slot_dyn_mlp", "per_slot_dyn_gru",
                                   "per_slot_dyn_gp"])
 def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
-    """A learned value terminal over a recurrent net and the vmapped
-    per-slot step (force_scan, a variant's update, an RPGD fleet over a
+    """``per_slot_dyn`` over a net or a GP, which have no scalar dynamics
+    constants, is a ValueError as in the JAX package, and K13's session-row
+    step refuses a learned value terminal (JAX's emits no terminal states).
+    What the learned fleets' gates leave out (a valued fleet over a
+    recurrent net, force_scan, a variant's update, an RPGD fleet over a
     recurrent net, a gradient fleet with warmup; the gradient fleets are
     otherwise served, tests/test_torch_fleet_grad.py, and so are the valued
-    MLP, "ODE+res" and GP fleets, tests/test_torch_value_learned.py) raise
-    NotImplementedError naming the piece; ``per_slot_dyn`` over a net or a
-    GP, which have no scalar dynamics constants, is a ValueError as in the
-    JAX package."""
+    MLP, "ODE+res" and GP fleets, tests/test_torch_value_learned.py) takes
+    the per-slot step, each active slot equal to its single-session
+    controller bit for bit."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
     if kind.startswith("per_slot_dyn"):
         with pytest.raises(ValueError, match="not a scalar dynamics constant"):
             fleet(specs[kind.rsplit("_", 1)[1]], 2, ("L",))
@@ -410,19 +415,21 @@ def test_what_the_learned_fleets_leave_out_is_refused(specs, kind):
         cf = ctrl.optimizer.cost_function.cost_function
         cf.post_terminal_cost = lambda x, params: x[:, 0]
         assert not any(getattr(ctrl, gate)() for gate in set(GATES.values()))
-        assert "value terminal" in str(ctrl._refusal())
         with pytest.raises(NotImplementedError, match="vmapped per-slot"):
             ctrl.optimizer._make_batched_recurrent_step(2)
+        valued = fleet_of(specs, "gru", 2)
+        attach_value_terminal(valued, {"w0": 0.3 * torch.ones(4, 8), "b0": torch.zeros(8),
+                                       "w1": 0.3 * torch.ones(8, 1), "b1": torch.zeros(1)})
+        assert_slots_equal_single(valued)
         return
-    build, match = {
-        "rpgd-tf": (lambda: fleet(specs["gru"], 2, optimizer="rpgd-tf"), "rpgd-tf"),
-        "gradient-tf": (lambda: fleet(specs["gp"], 2, optimizer="gradient-tf", warmup=True),
-                        "gradient-tf with warmup"),
-        "force_scan": (lambda: fleet(specs["gru"], 2, force_scan=True), "vmapped"),
-        "bounded_update": (lambda: fleet(specs["residual"], 2, bounded_update=True), "vmapped"),
+    build = {
+        "rpgd-tf": lambda: fleet(specs["gru"], 2, optimizer="rpgd-tf"),
+        "gradient-tf": lambda: fleet(specs["gp"], 2, optimizer="gradient-tf", warmup=True,
+                                     warmup_iterations=2),
+        "force_scan": lambda: fleet(specs["gru"], 2, force_scan=True),
+        "bounded_update": lambda: fleet(specs["residual"], 2, bounded_update=True),
     }[kind]
-    with pytest.raises(NotImplementedError, match=match):
-        build()
+    assert_slots_equal_single(build())
 
 
 def test_slot_states_and_hidden_carry_across_from_numpy():

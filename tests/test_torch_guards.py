@@ -1,5 +1,6 @@
 """Guards for the torch port that run on a machine without a card: it
-never imports jax, a CUDA device, named or the default, never falls back
+never imports jax (its controllers, fleets, closed loops, grid search and
+checkpoints driven with jax blocked), a CUDA device, named or the default, never falls back
 to the CPU, and chip_smoke.py fails (and prints no result) where there is
 no card."""
 import ast
@@ -54,6 +55,28 @@ s, _ = CartpoleEnv(batch_size=1, dt=0.02, seed=0).reset()
 for _ in range(3):
     u = ctrl.step(s[0])
 assert np.all(np.isfinite(u)) and u.shape == (1,)
+import os, tempfile
+from control_toolkit_tpu_torch.evaluation import ClosedLoop, grid_search
+from control_toolkit_tpu_torch.utils import checkpoint
+loop = ClosedLoop(ctrl, CartpoleEnv(batch_size=1, dt=0.02, seed=0))
+assert np.isfinite(loop.run(s[0], 2)["mean_cost"])
+assert loop.run_batch(np.tile(s, (2, 1)), 2)["mean_costs"].shape == (2,)
+res = grid_search(loop, {"attrs.target_position": np.array([0.0, 0.1], np.float32)}, s[0], 2)
+assert len(res["configs"]) == 2
+fleet = import_controller_by_name("batched-mpc")(
+    "cartpole", (np.array([-1.0], np.float32), np.array([1.0], np.float32)),
+    {"target_position": 0.0},
+    config={"optimizer": "cem-tf", "controller_logging": False, "device": "cpu"})
+fleet.configure(optimizer_name="cem-tf", num_slots=2, optimizer_config={
+    "seed": 0, "mpc_timestep": 0.02, "mpc_horizon": 10, "num_rollouts": 32, "cem_best_k": 8},
+    cost_function_config={"dd_weight": 120.0, "ep_weight": 10000.0, "ekp_weight": 10.0,
+                          "cc_weight": 1.0, "ccrc_weight": 1.0, "R": 1.0})
+assert fleet._per_slot and fleet.step_batch(np.tile(s, (2, 1))).shape == (2, 1)
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_fleet(os.path.join(d, "f"), fleet)
+    checkpoint.load_fleet(os.path.join(d, "f"), fleet)
+    checkpoint.save_controller(os.path.join(d, "c"), ctrl)
+    checkpoint.load_controller(os.path.join(d, "c"), ctrl)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "control_toolkit_tpu"))
 assert loaded == ["jax"], loaded  # only the blocked placeholder
 print("NO_JAX_OK")

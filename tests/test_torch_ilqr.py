@@ -253,11 +253,18 @@ def test_predictor_without_single_step_refused_at_configure(spec):
 
 
 def test_fleet_refused_naming_the_vmapped_step():
-    with pytest.raises(NotImplementedError, match="vmapped per-slot batched step.*ilqr"):
-        BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
-                             config={"device": "cpu", "optimizer": "ilqr",
-                                     "controller_logging": False}).configure(
-            optimizer_name="ilqr", optimizer_config=ilqr_config(), num_slots=2)
+    """An iLQR fleet takes the JAX package's vmapped per-slot step, the
+    port's per-slot step (the step's own host read of ``solver_ok`` kept):
+    each active slot equals its single-session controller bit for bit."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
+    ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
+                                config={"device": "cpu", "optimizer": "ilqr",
+                                        "controller_logging": False})
+    ctrl.configure(optimizer_name="ilqr", optimizer_config=ilqr_config(max_iterations=2),
+                   num_slots=2)
+    assert ctrl._per_slot
+    assert_slots_equal_single(ctrl)
 
 
 # ---- each pass alone -------------------------------------------------------------------------

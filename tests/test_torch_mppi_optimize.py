@@ -275,13 +275,18 @@ def test_fully_fused_takes_the_semi_fused_path_and_refines():
 
 def test_fleet_raises_the_vmapped_step_refusal():
     """An mppi-optimize fleet takes the JAX package's vmapped per-slot step
-    (batched_mpc.py:478): no batched kernel step carries the refinement."""
+    (batched_mpc.py:478): no batched kernel step carries the refinement.
+    The port's per-slot step serves it, each active slot equal to its
+    single-session controller bit for bit."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
     ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
                                 config={"device": "cpu", "optimizer": "mppi",
                                         "controller_logging": False})
-    with pytest.raises(NotImplementedError, match="mppi-optimize"):
-        ctrl.configure(optimizer_name="mppi", num_slots=2,
-                       optimizer_config=refine_config(num_rollouts=64))
+    ctrl.configure(optimizer_name="mppi", num_slots=2,
+                   optimizer_config=refine_config(num_rollouts=64))
+    assert ctrl._per_slot and not ctrl._plain_mppi()
+    assert_slots_equal_single(ctrl)
 
 
 def test_mppi_var_ignores_optim_steps(caplog):

@@ -18,7 +18,7 @@ the JAX package.
   terminal: costs to the fleet's COST_TOL, the plans to its UNOM_TOL,
   sigma to SIGMA_TOL.  The controller's slot semantics (a frozen slot
   bit for bit, independence from the other slots' masks) and the
-  refusals of the fleets the port does not serve.
+  fleets the per-slot step serves.
 
     PYTHONPATH=. python tests/test_torch_mppi_var.py --fleet
 
@@ -324,14 +324,18 @@ def test_var_fleet_takes_k4_and_freezes_idle_slots():
 def test_unserved_fleets_raise_naming_the_vmapped_step(optimizer, config):
     """A modular mppi-var fleet, and every cem-gmm, cma-es, cem-naive-grad
     and cem-grad-bharadhwaj fleet, take the JAX package's vmapped per-slot
-    step: refused, naming it."""
+    step, the port's per-slot step: each active slot equals its
+    single-session controller bit for bit."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
     ctrl = BatchedMPCController("cartpole", LIMITS, {"target_position": 0.0},
                                 config={"optimizer": optimizer, "device": "cpu",
                                         "controller_logging": False})
     cfg = {"seed": 3, "mpc_timestep": 0.02, "mpc_horizon": FH, "num_rollouts": FK, **config}
-    with pytest.raises(NotImplementedError, match="vmapped per-slot batched step"):
-        ctrl.configure(optimizer_name=optimizer, optimizer_config=cfg,
-                       cost_function_config=COST_WEIGHTS, num_slots=2)
+    ctrl.configure(optimizer_name=optimizer, optimizer_config=cfg,
+                   cost_function_config=COST_WEIGHTS, num_slots=2)
+    assert ctrl._per_slot
+    assert_slots_equal_single(ctrl)
 
 
 @pytest.mark.cuda

@@ -762,8 +762,8 @@ def fleet(label, optimizer, cfg, **kw):
 
 def modular_cem_step(lb):
     """The modular batched CEM step over two sessions and their stacked
-    initial states (a fleet controller refuses modular CEM: the JAX
-    package serves it by its vmapped step)."""
+    initial states (a fleet controller serves modular CEM by its per-slot
+    step, as the JAX package does by its vmapped step)."""
     ctrl = port_ctrl(lb, "cem-tf", {**small(), "cem_best_k": 8})
     opt = ctrl.optimizer
     step, _ = opt._make_batched_cem_step(2)

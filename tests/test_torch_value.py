@@ -877,16 +877,20 @@ def fleet(optimizer="mppi", spec="ODE"):
     ("cem_fused", "CEM fleet"), ("gru", "vmapped per-slot"),
     ("rpgd", "vmapped per-slot"), ("gradient", "recurrent predictors")])
 def test_valued_fleets_without_their_form_are_refused(kind, match):
-    """A valued fully-fused CEM fleet and a valued MPPI fleet over a
-    recurrent net (the JAX package's vmapped per-slot step, as
-    batched_mpc.py:500-504 sends it), an RPGD fleet whose post hook is not a
-    plain tanh-MLP V (a V with norms: the vmapped per-slot step, as
-    batched_mpc.py:578-582 sends it) raise NotImplementedError naming the
-    piece, and a valued gradient-tf fleet over a recurrent net the JAX
-    binder's ValueError; the MPPI fleets over the ODE
-    (test_attach_value_terminal_batched_controller), the MLP, "ODE+res" and
-    the GP (tests/test_torch_value_learned.py) and the gradient fleets with
-    a plain V (tests/test_torch_value_grad.py) are served."""
+    """A valued gradient-tf fleet over a recurrent net is the JAX binder's
+    ValueError, and the batched steps without a value form refuse a value
+    terminal as JAX's do (K6's fused CEM step, K13's recurrent MPPI step, the
+    RPGD binder under a V with norms).  Those fleets (a valued fully-fused
+    CEM fleet, a valued MPPI fleet over a recurrent net, as
+    batched_mpc.py:500-504 sends it, an RPGD fleet whose post hook is not a
+    plain tanh-MLP V, as batched_mpc.py:578-582 sends it) take the per-slot
+    step, each active slot equal to its single-session controller bit for
+    bit; the MPPI fleets over the ODE (test_attach_value_terminal_batched_controller),
+    the MLP, "ODE+res" and the GP (tests/test_torch_value_learned.py) and
+    the gradient fleets with a plain V (tests/test_torch_value_grad.py) take
+    their value forms."""
+    from test_torch_fleet_per_slot import assert_slots_equal_single
+
     if kind == "gradient":
         ctrl = MPCController("cartpole", LIMITS, {"target_position": 0.0},
                              config={"device": "cpu", "optimizer": "gradient-tf",
@@ -905,8 +909,14 @@ def test_valued_fleets_without_their_form_are_refused(kind, match):
     net = jax_value_net(3)
     if kind == "rpgd":
         net = dict(net, norm_in_mean=np.zeros(4, np.float32))
-    with pytest.raises(NotImplementedError, match=match):
-        attach_value_terminal(ctrl, port_net(net))
+    attach_value_terminal(ctrl, port_net(net))
+    assert ctrl._per_slot and ctrl._kernel_kind() is None
+    own_step = {"cem_fused": lambda opt: opt._make_batched_fused_cem_step(2),
+                "gru": lambda opt: opt._make_batched_recurrent_step(2),
+                "rpgd": lambda opt: opt._make_batched_rpgd_step(2)}[kind]
+    with pytest.raises(NotImplementedError, match=match if kind != "cem_fused" else "value"):
+        own_step(ctrl.optimizer)
+    assert_slots_equal_single(ctrl)
 
 
 # ---- the committed value net ------------------------------------------------------------
